@@ -7,15 +7,22 @@ Phases, each printing its own lines:
   env     card name and power limit (nvidia-smi), torch / CUDA versions;
           TF32 is switched off for matmuls and convolutions in every phase
   build   nvcc builds the attention kernels from kernels/csrc (timed)
-  kernels K1-K4 at the edit path's production shapes against their plain
-          PyTorch versions: error, kernel and plain times (CUDA events)
+  kernels K1-K4 at the edit path's production shapes and K5 (the attention
+          backward) at the training path's, against their plain PyTorch
+          versions: error, planted fault, kernel / plain / library times
+          (CUDA events) and bound; the lse outputs of K1 and K4
   dit     one full-width DiT forward (CogVideoX-5b, 42 layers, VIP "1", B=2),
           timed, then a second one traced with torch.profiler (device time
           by kernel group, idle share; trace in build/traces/)
   edit    the edit path end to end through infer.build_pipeline and
           To2VPipeline.generate at full width (1 chunk, 13 steps, 1 partition)
+  train   a 2-layer train step on the card against the host's, then 2
+          optimizer steps of the To2V adapter trainer (train_to2v.To2VTrainer)
+          at full width (42 layers, batch 2, 2-chunk 49-frame 720x480), then
+          a third one traced with torch.profiler (device time by kernel group)
 
-The last two lines are a JSON object of the kernels and their measurements,
+The last two lines are a JSON object of the kernels and their measurements
+(launches of K1-K4 on the edit path, of K5 on the train path),
 and the result line ``{"ok": true, "device": {...}}``. Any failed phase
 raises and the script exits non-zero. It refuses to run without a card.
 """
@@ -24,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -31,7 +39,7 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernels", "dit", "edit")
+PHASES = ("env", "build", "kernels", "dit", "edit", "train")
 
 # A kernel agrees with its plain version (same bf16 inputs; the plain version
 # keeps f32 where the kernel rounds the prologued q, with log2 e folded in, and
@@ -53,8 +61,20 @@ KERNELS = {
     "fused_attention_cross_smallkv": "tokensgen_tpu/kernels/attention.py:922",
     "fused_attention_cross_smallq": "tokensgen_tpu/kernels/attention.py:1048",
     "flash_attention_bhsd": "tokensgen_tpu/kernels/attention.py:54",
+    "attention_backward": "tokensgen_tpu/kernels/attention.py:1220",
 }
 SOURCE = "tokensgen_tpu_torch/kernels/csrc/attention.cu"
+# The lse outputs of K1 and K4 against the plain logsumexp: the kernels score
+# bf16(q' * log2 e) where the plain version scores bf16(q'), one bf16
+# rounding apart (1.9e-3 relative at most, ~1e-4 relative L2, measured on an
+# H100 at small shapes). Bounds: relative L2 <= 1e-3, max <= 2^-7 of max|lse|.
+LSE_REL_L2_BOUND = 1e-3
+LSE_MAX_REL = 2.0 ** -7
+# Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
+# sheet): bf16 tensor cores and HBM3. A kernel's bound is the larger of its
+# least matmul work over the first and the bytes it must move over the second.
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -139,38 +159,67 @@ def _agrees(rel, max_err, max_bound):
     return rel <= REL_L2_BOUND and max_err <= max_bound
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound_ms(flops: float, nbytes: float):
+    """(least time in ms, "operations" or "bytes"): the larger of the matmul
+    work at the bf16 peak and the bytes at the memory peak."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _outputs(x):
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
 def _compare(name, kernel_fn, plain_fn, state, fault_fn=None, runs=5, plain_runs=3,
-             check_only=False):
-    """Kernel vs plain version: error within the bounds, then both timed.
-    ``fault_fn`` is a deliberately wrong plain version that must fail the bounds."""
+             check_only=False, work=None, library_fn=None, labels=None):
+    """Kernel vs plain version: every output within the bounds, then the
+    kernel, the plain version and ``library_fn`` (one PyTorch call computing
+    the same function, timed only) timed. ``work`` = (flops, bytes) of the
+    function for its bound. ``fault_fn`` is a deliberately wrong plain
+    version that must fail the bounds on at least one output."""
     import torch
 
-    out = kernel_fn()
+    outs = _outputs(kernel_fn())
     torch.cuda.synchronize()
-    ref = plain_fn()
+    refs = _outputs(plain_fn())
     torch.cuda.synchronize()
-    rel, max_err, max_bound = agreement(out, ref)
-    finite = bool(torch.isfinite(out).all().item())
-    ok = finite and _agrees(rel, max_err, max_bound)
-    msg = (f"[kernels] {name}: shape {tuple(out.shape)} rel_l2_err {rel:.3e} "
-           f"(bound {REL_L2_BOUND:g}) max_abs_err {max_err:.3e} (bound {max_bound:.3e}) "
-           f"finite {finite}")
+    labels = labels or [f"out{i}" for i in range(len(outs))]
+    ok, max_err, parts = True, 0.0, []
+    for label, out, ref in zip(labels, outs, refs):
+        rel, err, err_bound = agreement(out, ref)
+        finite = bool(torch.isfinite(out).all().item())
+        ok = ok and finite and _agrees(rel, err, err_bound)
+        max_err = max(max_err, err)
+        parts.append(f"{label} {tuple(out.shape)} rel_l2_err {rel:.3e} (bound {REL_L2_BOUND:g}) "
+                     f"max_abs_err {err:.3e} (bound {err_bound:.3e}) finite {finite}")
+    msg = f"[kernels] {name}: " + "; ".join(parts)
     if check_only:
         log(msg)
     else:
         ms = _cuda_time_ms(kernel_fn, runs)
         plain_ms = _cuda_time_ms(plain_fn, plain_runs)
-        log(f"{msg} kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+        lib_ms = None if library_fn is None else _cuda_time_ms(library_fn, runs)
+        b_ms, b_by = bound_ms(*work)
+        log(f"{msg}; kernel {ms:.3f} ms plain {plain_ms:.3f} ms library "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'} bound {b_ms:.3f} ms "
+            f"({b_by}; {work[0] / 1e12:.3f} TFLOP, {work[1] / 1e9:.3f} GB)")
         state.setdefault("kernel_rows", {})[name] = {
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
     if not ok:
         raise RuntimeError(f"{name}: kernel disagrees with its plain version")
     if fault_fn is not None:
-        f_rel, f_max, f_bound = agreement(fault_fn(), ref)
-        log(f"[kernels] {name}[planted fault: last ragged kv tile dropped]: rel_l2_err "
-            f"{f_rel:.3e} max_abs_err {f_max:.3e}: "
-            f"{'passes (bounds too loose)' if _agrees(f_rel, f_max, f_bound) else 'fails, as it must'}")
-        if _agrees(f_rel, f_max, f_bound):
+        faults = _outputs(fault_fn())
+        caught = [not _agrees(*agreement(f, r)) for f, r in zip(faults, refs)]
+        detail = ", ".join(f"{label} rel_l2_err {agreement(f, r)[0]:.3e}"
+                           for label, f, r in zip(labels, faults, refs))
+        log(f"[kernels] {name}[planted fault: last ragged kv tile dropped]: {detail}: "
+            f"{'fails, as it must' if any(caught) else 'passes (bounds too loose)'}")
+        if not any(caught):
             raise RuntimeError(f"{name}: the bounds do not catch a dropped ragged kv tile")
     return max_err
 
@@ -263,6 +312,126 @@ def _without_ragged_tile(name, c):
     return lambda: run_plain(name, c, kv_len=skv - dropped)
 
 
+FORWARD_KERNELS = ("fused_attention_joint", "fused_attention_cross_smallkv",
+                   "fused_attention_cross_smallq", "flash_attention_bhsd")
+
+
+def _heads_view(name, c):
+    """(q, k, v) of a forward case as [B, H, S, 64], prologued for K1-K3,
+    and the softmax scale left to apply."""
+    from tokensgen_tpu_torch.kernels import attention as A
+
+    if name == "flash_attention_bhsd":
+        return c["q"], c["k"], c["v"], c["scale"]
+    h = c["heads"]
+    return (A.apply_prologue_plain(A.split_heads(c["q"], h), c["tabs_q"], 1e-6, True),
+            A.apply_prologue_plain(A.split_heads(c["k"], h), c["tabs_k"], 1e-6, True),
+            A.split_heads(c["v"], h), 1.0)
+
+
+def forward_work(name, c):
+    """(matmul FLOPs, bytes) of a forward call: q k^T and p v; each input the
+    kernel reads (operands, f32 prologue tables, bias) once, the output once.
+    K2 reads its k already prologued (its k prologue runs outside it)."""
+    q, k, v = c["q"], c["k"], c["v"]
+    if name == "flash_attention_bhsd":
+        (b, h, sq, d), skv = q.shape, k.shape[2]
+        tabs = []
+    else:
+        h = c["heads"]
+        (b, sq, hd), skv, d = q.shape, k.shape[1], q.shape[2] // h
+        tabs = list(c["tabs_q"][:3])
+        if name != "fused_attention_cross_smallkv":
+            tabs += list(c["tabs_k"][:3])
+    return 4.0 * b * h * sq * skv * d, _nbytes(q, k, v, q, c.get("key_bias"), *tabs)
+
+
+def _sdpa(q4, k4, v4, scale):
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+
+
+def _check_lse(name, lse, ref):
+    rel = ((lse - ref).norm() / ref.norm()).item()
+    err = (lse - ref).abs().max().item()
+    err_bound = LSE_MAX_REL * ref.abs().max().item()
+    log(f"[kernels] {name}[lse]: shape {tuple(lse.shape)} rel_l2_err {rel:.3e} "
+        f"(bound {LSE_REL_L2_BOUND:g}) max_abs_err {err:.3e} (bound {err_bound:.3e})")
+    if not (rel <= LSE_REL_L2_BOUND and err <= err_bound):
+        raise RuntimeError(f"{name}: its lse disagrees with the plain logsumexp")
+
+
+def backward_cases(dev, cases, seed=2):
+    """K5's inputs at the training path's shapes: the prologued operands of
+    the three DiT calls (scale folded, so scale 1), the joint one also with a
+    key-bias mask, and the resampler's K4 call; a random output gradient g;
+    lse and out from the plain forward on the same operands."""
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for label, name in (("joint 17,776^2", "fused_attention_joint"),
+                        ("text_video->vip 17,776 x 480", "fused_attention_cross_smallkv"),
+                        ("vip->all 480 x 18,256", "fused_attention_cross_smallq"),
+                        ("resampler 384 x 17,934", "flash_attention_bhsd")):
+        c = cases[name]
+        q4, k4, v4, scale = _heads_view(name, c)
+        out[label] = dict(q4=q4, k4=k4, v4=v4, scale=scale, key_bias=None,
+                          heads=None if name == "flash_attention_bhsd" else c["heads"])
+    joint = out["joint 17,776^2"]
+    b, s = joint["k4"].shape[0], joint["k4"].shape[2]
+    bias = torch.zeros(b, s, device=dev)
+    bias[0, s - 1000:] = -1e9
+    bias[1, :3000] = -1e9
+    out["joint 17,776^2, key bias"] = dict(joint, key_bias=bias)
+    for c in out.values():
+        c["g4"] = torch.randn(c["q4"].shape, generator=gen, device=dev).bfloat16()
+        zeros = torch.zeros(c["k4"].shape[0], c["k4"].shape[2], device=dev)
+        out4, c["lse"] = A.attention_plain(c["q4"], c["k4"], c["v4"], (
+            zeros if c["key_bias"] is None else c["key_bias"]), c["scale"], with_lse=True)
+        c["dsum"] = A._row_dsum(c["g4"], out4, None)
+    return out
+
+
+def _bwd_fns(c):
+    """(kernel, plain, fault, library, work) callables of one K5 case; all
+    return (dq, dk, dv, dbias) in the operands' layout."""
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+
+    h, scale, bias = c["heads"], c["scale"], c["key_bias"]
+    merge = A.merge_heads if h is not None else (lambda x: x)
+    q, k, v, g = (merge(c[n]) for n in ("q4", "k4", "v4", "g4"))
+    skv = c["k4"].shape[2]
+
+    def kernel():
+        return A.attention_backward(q, k, v, g, c["lse"], c["dsum"], bias, h, scale,
+                                    with_dbias=True)
+
+    def plain(n=skv):
+        dq, dk, dv, db = A.attention_bwd_plain(
+            c["q4"], c["k4"][:, :, :n], c["v4"][:, :, :n], c["g4"], c["lse"], c["dsum"],
+            None if bias is None else bias[:, :n], scale)
+        pad = skv - n
+        dk, dv = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (dk, dv))
+        return merge(dq), merge(dk), merge(dv), torch.nn.functional.pad(db, (0, pad))
+
+    def library():
+        qg, kg, vg = (c[n].detach().requires_grad_() for n in ("q4", "k4", "v4"))
+        out = _sdpa(qg, kg, vg, scale)
+        return lambda: torch.autograd.grad(out, (qg, kg, vg), c["g4"], retain_graph=True)
+
+    b, hh, sq, d = c["q4"].shape
+    work = (10.0 * b * hh * sq * skv * d,  # the 5 products of one pass
+            _nbytes(q, k, v, g, c["lse"], c["dsum"], bias, q, k, v)
+            + 4 * b * skv)  # dbias out
+    return kernel, plain, (lambda: plain(skv - skv % KV_TILE)), library, work
+
+
 def phase_kernels(state: dict) -> None:
     import torch
 
@@ -270,10 +439,37 @@ def phase_kernels(state: dict) -> None:
 
     dev = state["device"]
     cases = kernel_cases(dev)
-    for name in KERNELS:
+    for name in FORWARD_KERNELS:
         c = cases[name]
+        q4, k4, v4, scale = _heads_view(name, c)
         _compare(name, lambda: run_kernel(name, c), lambda: run_plain(name, c), state,
-                 fault_fn=_without_ragged_tile(name, c))
+                 fault_fn=_without_ragged_tile(name, c), work=forward_work(name, c),
+                 library_fn=lambda: _sdpa(q4, k4, v4, scale))
+    # the training forward's lse outputs (K1, K4) against the plain logsumexp
+    for name in ("fused_attention_joint", "flash_attention_bhsd"):
+        c = cases[name]
+        q4, k4, v4, scale = _heads_view(name, c)
+        zeros = torch.zeros(k4.shape[0], k4.shape[2], device=dev)
+        ref_out, ref_lse = A.attention_plain(q4, k4, v4, zeros, scale, with_lse=True)
+        if name == "flash_attention_bhsd":
+            out, lse = A.flash_attention_bhsd(c["q"], c["k"], c["v"], None, scale, with_lse=True)
+        else:
+            out, lse = A.fused_attention_joint(c["q"], c["k"], c["v"], c["tabs_q"], c["tabs_k"],
+                                               None, c["heads"], with_lse=True)
+            ref_out = A.merge_heads(ref_out)
+        rel, err, err_bound = agreement(out, ref_out)
+        if not _agrees(rel, err, err_bound):
+            raise RuntimeError(f"{name}: the output with lse disagrees with the plain version")
+        _check_lse(name, lse, ref_lse)
+    # K5 at the training path's shapes; the joint one is the kernels line's row
+    for label, c in backward_cases(dev, cases).items():
+        kernel, plain, fault, library, work = _bwd_fns(c)
+        row = label == "joint 17,776^2"
+        check_only = c["key_bias"] is not None
+        _compare("attention_backward" if row else f"attention_backward[{label}]", kernel, plain,
+                 state, fault_fn=fault, check_only=check_only, work=work,
+                 library_fn=None if check_only else library(),
+                 labels=["dq", "dk", "dv", "dbias"])
     # K1 with per-sample (batched) tables and a key-bias mask
     c = dict(cases["fused_attention_joint"])
     b = c["q"].shape[0]
@@ -434,10 +630,10 @@ def phase_dit(state: dict) -> None:
     log(f"[dit] kernel launches in that forward: {json.dumps(counts)}")
     if not finite or tuple(out.shape) != (2, nf, 16, h, w):
         raise RuntimeError("the full-width DiT forward is not finite or has the wrong shape")
-    if min(counts.values()) <= 0:
+    if min(counts[k] for k in FORWARD_KERNELS) <= 0:
         raise RuntimeError(f"a kernel was not launched by the DiT forward: {counts}")
     del out
-    _profile(forward)
+    _profile(forward, "dit", "dit_forward")
 
 
 def phase_edit(state: dict) -> None:
@@ -497,29 +693,217 @@ def phase_edit(state: dict) -> None:
             raise RuntimeError(f"edit output {key}: expected finite {shape}")
 
 
+# the trainer as `python -m tokensgen_tpu_torch.train_to2v --config
+# tokensgen_tpu/configs/train_to2v.yaml` runs it, at full width (42 layers,
+# 48 x 64 heads, 2-chunk 49-frame 720x480 batches), with these listed cuts
+TRAIN_CONFIG = "tokensgen_tpu/configs/train_to2v.yaml"
+TRAIN_OVERRIDES = {
+    "per_gpu_batch_size": 2,  # as the config
+    "gradient_accumulation_steps": 1,  # cut from 9: each step updates
+    "output_dir": "build/train_smoke",
+}
+TRAIN_STEPS = 2  # cut from max_train_steps 100000; no checkpoint is written
+# The small train check: trainable grads of a train step through the kernels
+# (card) against the same step through the plain versions (host), both bf16,
+# by relative L2 over all trainable grads together. Measured 5.8e-3 on an
+# H100 (bf16 roundings that fall differently through two layers and back).
+TRAIN_GRAD_REL_L2_BOUND = 2e-2
+
+
+def _small_train_batch(dcfg, rcfg, b=2, f=3, chunks=2, seed=4):
+    """A staged batch of the tiny geometry (two resampler chunks, per-sample
+    VIP rope tables), its timesteps and noise, on the host."""
+    import numpy as np
+    import torch
+
+    from tokensgen_tpu_torch.core.rope import (get_3d_rotary_pos_embed_v2,
+                                               get_3d_rotary_pos_embed_v2_torch)
+
+    gen = torch.Generator().manual_seed(seed)
+    d = dcfg.attention_head_dim
+    gh, gw = dcfg.sample_height // 2, dcfg.sample_width // 2
+    hq, wq, tq = rcfg.num_height_queries, rcfg.num_width_queries, rcfg.num_temporal_queries
+    n_vip = min(tq + 1, f)
+    ar = lambda n: np.arange(n, dtype=np.float32)  # noqa: E731
+    batch = {
+        "latents": torch.randn(b, f, 16, dcfg.sample_height, dcfg.sample_width, generator=gen),
+        "vip_input_chunks": torch.randn(b, chunks, f, gh * gw, dcfg.inner_dim, generator=gen),
+        "vip_emb_sel": torch.tensor([[0, 1, 2], [1, 2, 3]])[:, :n_vip],
+        "text_embeds": torch.randn(b, dcfg.max_text_seq_length, dcfg.text_embed_dim,
+                                   generator=gen),
+        "resampler_image_rotary_emb": get_3d_rotary_pos_embed_v2(d, ar(f), ar(gh), ar(gw)),
+        "resampler_sampling_rotary_emb": get_3d_rotary_pos_embed_v2(
+            d, 1000 + ar(tq), ar(hq), ar(wq)),
+        "image_rotary_emb": get_3d_rotary_pos_embed_v2(d, ar(f), ar(gh), ar(gw)),
+        "vip_image_rotary_emb": get_3d_rotary_pos_embed_v2_torch(
+            d, torch.tensor([[3.0, 4, 5], [9, 10, 11]]), torch.arange(gh), torch.arange(gw)),
+        "vip_condition_rotary_emb": get_3d_rotary_pos_embed_v2_torch(
+            d, torch.tensor([[1000.0, 1001, 1002], [1004, 1005, 1006]]), torch.arange(hq),
+            torch.arange(wq)),
+    }
+    timesteps = torch.tensor([[900, 850, 800], [300, 300, 300]])
+    return batch, timesteps, torch.randn(batch["latents"].shape, generator=gen)
+
+
+def _to(x, dev):
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to(y, dev) for y in x)
+    return x.to(dev)
+
+
+def _small_train_check(dev) -> None:
+    """A 2-layer, head-dim-64 bf16 DiT + resampler train step (loss and
+    backward) with the same weights and inputs on the host (the plain
+    versions in both directions) and on the card (K1/K4 with lse, K5): the
+    trainable grads must agree within TRAIN_GRAD_REL_L2_BOUND."""
+    import copy
+
+    import torch
+
+    from tokensgen_tpu_torch.core import schedule as S
+    from tokensgen_tpu_torch.models.dit import DiTConfig, VIPConfig
+    from tokensgen_tpu_torch.models.resampler import ResamplerConfig
+    from tokensgen_tpu_torch.train import to2v
+
+    vc = VIPConfig(output_dim=64, num_temporal_queries=2, num_height_queries=4,
+                   num_width_queries=6, length=3 * 4 * 6)
+    dcfg = DiTConfig.tiny(vip=vc, attention_head_dim=64, num_attention_heads=2,
+                          sample_height=16, sample_width=24, dtype=torch.bfloat16, remat=True)
+    rcfg = ResamplerConfig.tiny(dim=64, dim_head=64, heads=2, embedding_dim=dcfg.inner_dim,
+                                output_dim=64, num_temporal_queries=2, num_height_queries=4,
+                                num_width_queries=6, dtype=torch.bfloat16)
+    host = to2v.setup_trainable(
+        to2v.init_model(dcfg, rcfg, "cpu", torch.Generator().manual_seed(3)), torch.bfloat16)
+    card = copy.deepcopy(host).to(dev)
+    batch, timesteps, noise = _small_train_batch(dcfg, rcfg)
+    grads, losses = [], []
+    for model, device in ((host, torch.device("cpu")), (card, dev)):
+        sched = S.make_schedule(S.ScheduleConfig(), device=device)
+        loss = to2v.to2v_loss(model, sched, {k: _to(v, device) for k, v in batch.items()},
+                              timesteps.to(device), noise.to(device))
+        loss.backward()
+        grads.append(torch.cat([p.grad.float().flatten().cpu()
+                                for p in to2v.trainable_parameters(model).values()]))
+        losses.append(loss.item())
+    rel = ((grads[1] - grads[0]).norm() / grads[0].norm()).item()
+    log(f"[train] small train check (2 layers, d=64, bf16, VIP + resampler; host plain "
+        f"versions vs card kernels): loss {losses[0]:.6f} / {losses[1]:.6f}, trainable grads "
+        f"relative L2 error {rel:.3e} (bound {TRAIN_GRAD_REL_L2_BOUND:g}) over "
+        f"{grads[0].numel():,} values")
+    if not (rel <= TRAIN_GRAD_REL_L2_BOUND and torch.isfinite(grads[1]).all()):
+        raise RuntimeError("the card's train step disagrees with the host reference")
+
+
+def phase_train(state: dict) -> None:
+    import gc
+
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+    from tokensgen_tpu_torch.train_to2v import To2VTrainer
+    from tokensgen_tpu_torch.utils.config import load_config
+
+    dev = state["device"]
+    state.pop("pipe", None)  # the edit phase's pipeline
+    gc.collect()
+    torch.cuda.empty_cache()
+    _small_train_check(dev)
+    cfg = load_config(os.path.join(REPO, TRAIN_CONFIG),
+                      dict(TRAIN_OVERRIDES, output_dir=os.path.join(REPO, "build", "train_smoke")))
+    log(f"[train] {TRAIN_CONFIG} with {json.dumps(TRAIN_OVERRIDES)}, {TRAIN_STEPS} steps "
+        f"(cut from max_train_steps {cfg.get('max_train_steps')}), no checkpoint written; "
+        "random weights, synthetic batches, hash text encoder")
+    t0 = time.perf_counter()
+    trainer = To2VTrainer(cfg, smoke=False, device=dev)
+    torch.cuda.synchronize()
+    model = trainer.model
+    dcfg, rcfg = trainer.dcfg, trainer.rcfg
+    log(f"[train] built in {time.perf_counter() - t0:.1f} s: {dcfg.num_layers} layers, "
+        f"{dcfg.num_attention_heads} x {dcfg.attention_head_dim} heads, remat {dcfg.remat}, "
+        f"batch {trainer.batch_size}; trainable {trainer.param_counts['trainable']:,} of "
+        f"{trainer.param_counts['total']:,} parameters; optimizer "
+        f"{type(trainer.step_fn.optimizer).__name__}")
+    watch = {
+        "frozen dit.transformer_blocks.0.attn1.to_q.weight":
+            model.dit.transformer_blocks[0].attn1.to_q.weight,
+        "vip dit.transformer_blocks.0.attn1.processor.vip_to_q.weight":
+            model.dit.transformer_blocks[0].attn1.processor.vip_to_q.weight,
+        "resampler resampler.layers.0.0.to_q.weight": model.resampler.layers[0][0].to_q.weight,
+    }
+    before = {k: v.detach().clone() for k, v in watch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    records = trainer.run(TRAIN_STEPS, save_final=False)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts, lse_counts = A.launch_counts(), A.lse_launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    state["train_launches"] = counts
+    for r in records:
+        log(f"[train] step {r['step']}: staging {r['staging_s']:.3f} s, train step "
+            f"{r['train_step_s']:.3f} s, optimizer {r['optimizer_s']:.3f} s; loss {r['loss']:.6f} "
+            f"grad_norm {r['grad_norm']:.6f}; {r['dropped']} VIP embedding(s) dropped")
+    log(f"[train] {len(records)} steps in {total:.1f} s, peak {peak:.2f} GiB")
+    log(f"[train] kernel launches on the train path: {json.dumps(counts)}; with lse: "
+        f"{json.dumps(lse_counts)}")
+    for r in records:
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0):
+            raise RuntimeError(f"train step {r['step']}: loss or grad norm not finite and > 0")
+        if not r["updated"]:
+            raise RuntimeError(f"train step {r['step']} made no update")
+    for key, old in before.items():
+        same = torch.equal(old, watch[key].detach())
+        log(f"[train] {key}: {'bit-unchanged' if same else 'changed'}")
+        if same != key.startswith("frozen"):
+            raise RuntimeError(f"{key}: expected {'unchanged' if key.startswith('frozen') else 'changed'}")
+    # K5 per micro-step: the DiT's three attention calls per block, except
+    # block 0's base attention, whose inputs depend on no trainable parameter
+    # (so autograd, like jax.grad, never differentiates it), plus the
+    # resampler's depth calls per chunk
+    chunks = int(cfg.get_path("train_data_params.max_num_chunks", 2))
+    want = TRAIN_STEPS * (3 * dcfg.num_layers - 1 + chunks * rcfg.depth)
+    log(f"[train] K5 launches {counts['attention_backward']} (expected {want} = {TRAIN_STEPS} x "
+        f"(3 x {dcfg.num_layers} - 1 + {chunks} x {rcfg.depth}))")
+    if counts["attention_backward"] != want or min(lse_counts.values()) <= 0:
+        raise RuntimeError(f"the train path did not run K5 / the lse forwards as expected: "
+                           f"{counts}, {lse_counts}")
+    # one more step, traced: device time by kernel group (the trace itself
+    # is not written: a train step has too many events to be worth its size)
+    _profile(lambda: trainer.run(TRAIN_STEPS + 1, save_final=False), "train", "train_step",
+             chrome=False)
+    del trainer, model, watch, before
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 _KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name), first match wins
+    ("attention K5 (bwd_dkdv_kernel + bwd_dq_kernel)", ("bwd_dkdv_kernel", "bwd_dq_kernel")),
     ("attention K1 (joint_kernel)", ("joint_kernel",)),
     ("attention K2 (smallkv_kernel)", ("smallkv_kernel",)),
     ("attention K3 (smallq_kernel)", ("smallq_kernel",)),
     ("attention K4 (bhsd_kernel)", ("bhsd_kernel",)),
+    # before matmul: cuDNN's implicit-GEMM convolutions also have "gemm" in their names
+    ("convolution (cuDNN)", ("conv", "implicit", "winograd", "fprop", "dgrad", "wgrad")),
     ("matmul (cuBLAS)", ("gemm", "sm90_xmma", "cutlass", "nvjet")),
-    ("convolution (cuDNN)", ("conv", "implicit", "winograd")),
     ("norm / reduce", ("norm", "reduce", "Reduce")),
     ("copy / cat", ("copy", "Copy", "cat", "Cat")),
     ("elementwise", ("elementwise", "vectorized", "Elementwise")),
 )
 
 
-def _profile(forward) -> None:
-    """A second, traced forward (the timed one runs with tracing off):
-    device time by kernel group and the device's idle share; the trace and
-    the top-kernel table go to build/traces/."""
+def _profile(fn, phase: str, name: str, chrome: bool = True) -> None:
+    """Runs ``fn`` once more under torch.profiler (the timed run has tracing
+    off): device time by kernel group and the device's idle share over the
+    call's wall time; the top-kernel table (and, with ``chrome``, the trace)
+    go to build/traces/{name}_*."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        forward()
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     groups: dict = {}
@@ -531,14 +915,15 @@ def _profile(forward) -> None:
                      "other")
         groups[group] = groups.get(group, 0.0) + us / 1e3
     busy = sum(groups.values())
-    log(f"[dit] traced forward: wall {wall:.1f} ms, device busy {busy:.1f} ms, idle share "
-        f"{max(0.0, 1 - busy / wall):.3f}")
+    log(f"[{phase}] traced {name.replace('_', ' ')}: wall {wall:.1f} ms, device busy "
+        f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.3f}")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"[dit]   {g}: {ms:.1f} ms ({ms / busy:.1%})")
+        log(f"[{phase}]   {g}: {ms:.1f} ms ({ms / busy:.1%})")
     out_dir = os.path.join(REPO, "build", "traces")
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "dit_forward_trace.json"))
-    with open(os.path.join(out_dir, "dit_forward_top_kernels.txt"), "w") as f:
+    if chrome:
+        prof.export_chrome_trace(os.path.join(out_dir, f"{name}_trace.json"))
+    with open(os.path.join(out_dir, f"{name}_top_kernels.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
 
 
@@ -569,12 +954,11 @@ def main(argv=None) -> int:
         log("partial run: no result line")
         return 0
     rows = []
-    launches = state["launches"]
+    launches = dict(state["launches"], attention_backward=state["train_launches"][
+        "attention_backward"])
     for name, replaces in KERNELS.items():
-        r = state["kernel_rows"][name]
         rows.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-                     "launches": launches[name], "max_abs_err": r["max_abs_err"],
-                     "ms": r["ms"], "plain_ms": r["plain_ms"]})
+                     "launches": launches[name], **state["kernel_rows"][name]})
     missing = [r["name"] for r in rows if r["launches"] <= 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the main path: {missing}")

@@ -19,6 +19,10 @@ def _modules():
 
 
 def test_import_loads_no_jax():
+    trainer = {"tokensgen_tpu_torch.train_to2v", "tokensgen_tpu_torch.utils.logging"} | {
+        f"tokensgen_tpu_torch.train.{m}"
+        for m in ("adam8bit", "checkpoint", "objective", "optim", "staging", "to2v")}
+    assert trainer <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"

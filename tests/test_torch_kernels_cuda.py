@@ -1,5 +1,6 @@
-"""The Hopper attention kernels of tokensgen_tpu_torch against their plain
-PyTorch versions, on the card. Every test here is marked ``cuda`` and skips
+"""The Hopper attention kernels of tokensgen_tpu_torch (the forwards K1-K4,
+their logsumexp outputs, the backward K5) against their plain PyTorch
+versions, on the card. Every test here is marked ``cuda`` and skips
 without a card. This file imports no JAX, so it also runs on a machine that
 has none (skipping tests/conftest.py, which does):
 
@@ -79,6 +80,77 @@ def test_kernel_matches_plain_on_card(cuda_device, name):
     diff, ref = out.float() - ref.float(), ref.float()
     assert (diff.norm() / ref.norm()).item() <= REL_L2_BOUND
     assert diff.abs().max().item() <= MAX_ABS_REL * ref.abs().max().item()
+
+
+def _assert_within_bounds(out, ref):
+    diff, ref = out.float() - ref.float(), ref.float()
+    assert torch.isfinite(out).all()
+    assert (diff.norm() / ref.norm()).item() <= REL_L2_BOUND
+    assert diff.abs().max().item() <= MAX_ABS_REL * ref.abs().max().item()
+
+
+# the kernels' lse against the plain logsumexp of the same scores: the
+# kernels score bf16(q' * log2 e) where the plain version scores bf16(q'), one
+# bf16 rounding apart (as the JAX kernel and its XLA recompute are). Measured
+# on an H100: max 1.3e-2 on lse ~6.8 (1.9e-3 relative, about one bf16 ulp),
+# relative L2 ~1e-4. Bounds: relative L2 <= 1e-3, max <= 2^-7 of max|lse|.
+LSE_REL_L2_BOUND = 1e-3
+LSE_MAX_REL = 2.0 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_attention_joint", "flash_attention_bhsd"])
+def test_lse_matches_plain_on_card(cuda_device, name):
+    """K1 and K4 with the logsumexp output (the training forward): the output
+    as without it, the lse within LSE_REL_L2_BOUND and LSE_MAX_REL of the
+    plain one."""
+    q, k, v, tq, tk, bias, h = _case(name, cuda_device)
+    fn = getattr(TA, name)
+    before = fn.lse_launches
+    if name == "flash_attention_bhsd":
+        q, k, v = (TA.split_heads(z, h) for z in (q, k, v))
+        out, lse = fn(q, k, v, bias, 0.125, with_lse=True)
+        plain = fn(q, k, v, bias, 0.125)
+        ref_out, ref_lse = TA.attention_plain(q, k, v, bias, 0.125, with_lse=True)
+    else:
+        out, lse = fn(q, k, v, tq, tk, key_bias=bias, heads=h, with_lse=True)
+        plain = fn(q, k, v, tq, tk, key_bias=bias, heads=h)
+        qn = TA.apply_prologue_plain(TA.split_heads(q, h), tq, 1e-6, True)
+        kn = TA.apply_prologue_plain(TA.split_heads(k, h), tk, 1e-6, True)
+        ref_out, ref_lse = TA.attention_plain(qn, kn, TA.split_heads(v, h), bias, 1.0,
+                                              with_lse=True)
+        ref_out = TA.merge_heads(ref_out)
+    torch.cuda.synchronize()
+    assert fn.lse_launches == before + 1
+    assert torch.equal(out, plain)
+    _assert_within_bounds(out, ref_out)
+    assert lse.shape == ref_lse.shape and torch.isfinite(lse).all()
+    assert ((lse - ref_lse).norm() / ref_lse.norm()).item() <= LSE_REL_L2_BOUND
+    assert (lse - ref_lse).abs().max().item() <= LSE_MAX_REL * ref_lse.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["merged", "bhsd"])
+def test_backward_matches_plain_on_card(cuda_device, layout):
+    """K5 vs attention_bwd_plain on the same bf16 inputs (ragged lengths, a
+    key-bias mask): dq, dk, dv and dbias within REL_L2_BOUND and
+    MAX_ABS_REL."""
+    q, k, v, _, _, bias, h = _case("fused_attention_joint", cuda_device)
+    g = torch.randn(q.shape, generator=torch.Generator(cuda_device).manual_seed(1),
+                    device=cuda_device).bfloat16()
+    heads, scale = (h, 1.0 / 8) if layout == "merged" else (None, 0.125)
+    q4, k4, v4, g4 = (TA.split_heads(z, h) for z in (q, k, v, g))
+    out4, lse = TA.attention_plain(q4, k4, v4, bias, scale, with_lse=True)
+    dsum = TA._row_dsum(g4, out4, None)
+    before = TA.attention_backward.launches
+    args = (q, k, v, g) if layout == "merged" else (q4, k4, v4, g4)
+    got = TA.attention_backward(*args, lse, dsum, bias, heads, scale, with_dbias=True)
+    ref = TA.attention_bwd_plain(q4, k4, v4, g4, lse, dsum, bias, scale)
+    torch.cuda.synchronize()
+    assert TA.attention_backward.launches == before + 1
+    for x, r in zip(got[:3], ref[:3]):
+        _assert_within_bounds(x if layout == "bhsd" else TA.split_heads(x, h), r)
+    _assert_within_bounds(got[3], ref[3])
 
 
 @pytest.mark.cuda

@@ -111,18 +111,23 @@ def get_3d_rotary_pos_embed_v2_torch(
     theta: float = 10000.0,
 ) -> Rope:
     """Tensor-grid variant of :func:`get_3d_rotary_pos_embed_v2` (the JAX
-    package's traced `_v2_jnp`): tables land on the grids' device."""
+    package's traced `_v2_jnp`): tables land on the grids' device.
+
+    ``grid_t`` may be per sample, [B, T]: the tables are then [B, T*H*W, D],
+    what the JAX package builds with ``jax.vmap`` over the temporal grids
+    (`train/staging.py`)."""
     dim_t = embed_dim // 4 if dim_t is None else dim_t
     dim_h = embed_dim // 8 * 3 if dim_h is None else dim_h
     dim_w = embed_dim // 8 * 3 if dim_w is None else dim_w
-    ft = _rotary_1d_torch(dim_t, grid_t, theta)
+    batch = grid_t.shape[:-1]  # () or (B,)
+    ft = _rotary_1d_torch(dim_t, grid_t.reshape(-1), theta)
     fh = _rotary_1d_torch(dim_h, grid_h, theta)
     fw = _rotary_1d_torch(dim_w, grid_w, theta)
-    T, H, W = ft[0].shape[0], fh[0].shape[0], fw[0].shape[0]
+    T, H, W = grid_t.shape[-1], fh[0].shape[0], fw[0].shape[0]
     out = []
     for i in range(2):
-        t = ft[i][:, None, None, :].expand(T, H, W, ft[i].shape[-1])
-        h = fh[i][None, :, None, :].expand(T, H, W, fh[i].shape[-1])
-        w = fw[i][None, None, :, :].expand(T, H, W, fw[i].shape[-1])
-        out.append(torch.cat([t, h, w], dim=-1).reshape(T * H * W, -1))
+        t = ft[i].reshape(*batch, T, 1, 1, dim_t).expand(*batch, T, H, W, dim_t)
+        h = fh[i][:, None, :].expand(*batch, T, H, W, dim_h)
+        w = fw[i].expand(*batch, T, H, W, dim_w)
+        out.append(torch.cat([t, h, w], dim=-1).reshape(*batch, T * H * W, -1))
     return out[0], out[1]

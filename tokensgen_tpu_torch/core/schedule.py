@@ -199,6 +199,13 @@ def add_noise(sched, original_samples, noise, t):
     return ap**0.5 * original_samples + (1.0 - ap) ** 0.5 * noise
 
 
+def get_velocity(sched, sample, noise, t):
+    """``sqrt(ᾱ_t)·noise − sqrt(1−ᾱ_t)·sample`` (the training loss calls it
+    with (model_output, noisy) to get the x0 estimate of a v-prediction)."""
+    ap = _bcast(_alpha_at(sched, t), sample).to(sample.dtype)
+    return ap**0.5 * noise - (1.0 - ap) ** 0.5 * sample
+
+
 def add_noise_to_xt(sched, xt_previous, noise, t):
     """Single-beta renoise `x_t = sqrt(1-β_t)·x_{t-1} + sqrt(β_t)·ε` of the
     recycled FIFO tail frame. Uses the *original* betas."""

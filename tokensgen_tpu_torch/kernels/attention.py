@@ -1,8 +1,10 @@
 """Attention for the joint [text‖video‖vip] sequence: table API, plain PyTorch
 versions, and the hand-written Hopper kernels that replace the Pallas TPU ones.
 
-Port of `tokensgen_tpu/kernels/attention.py`. Four kernel entry points, one per
-TPU kernel on the edit path, each with a launch counter (``fn.launches``):
+Port of `tokensgen_tpu/kernels/attention.py`. Five kernel entry points, one per
+TPU kernel on the edit and training paths, each with a launch counter
+(``fn.launches``; K1 and K4 also count their logsumexp launches in
+``fn.lse_launches``):
 
 =============================  =============================================  ============================
 entry point                    replaces (tokensgen_tpu/kernels/attention.py)  caller
@@ -11,10 +13,17 @@ fused_attention_joint          `_flash_packed_kernel` :586 (K1)               mo
 fused_attention_cross_smallkv  `_cross_smallkv_kernel` :922 (K2)              models/dit.py text_video→vip
 fused_attention_cross_smallq   `_cross_smallq_kernel` :1048 (K3)              models/dit.py vip→all
 flash_attention_bhsd           `_flash_kernel` :54 (K4)                       models/resampler.py
+attention_backward             `_packed_bwd_kernel` :1220 (K5)                the two autograd Functions
 =============================  =============================================  ============================
 
-`flash_attention_bhsd` is the counterpart of the JAX `flash_attention`, and
-`fused_flash_attention` routes among the first three as the JAX one does.
+The public dispatchers are those of the JAX package: `flash_attention` (K4)
+and `fused_flash_attention`, which routes among the first three as the JAX
+one does. When autograd needs a gradient (grad mode on and an input that
+requires grad), both take a `torch.autograd.Function` instead, the counterparts of
+`_flash_packed_diff` and `_flash_attention_tpu_diff`: the forward is K1 (for
+every shape, as the JAX custom_vjp forward skips the K2/K3 routing) or K4,
+each with its logsumexp; the backward is K5. On the CPU both directions run
+the plain versions.
 
 The CUDA C++ sources are `csrc/attention.cu`; `build_kernels` compiles them
 with nvcc into a shared library with a plain C interface (loaded with ctypes)
@@ -161,21 +170,64 @@ def apply_prologue_plain(x: torch.Tensor, tabs, eps: float, normalize: bool) -> 
     return y.to(x.dtype)
 
 
-def attention_plain(q, k, v, key_bias, scale: float):
+def _q_chunk(b: int, h: int, sq: int, skv: int) -> int:
+    return max(1, min(sq, MAX_SCORE_BYTES // (4 * b * h * skv)))
+
+
+def attention_plain(q, k, v, key_bias, scale: float, with_lse: bool = False):
     """Plain attention (`_xla_attention`) on [B, H, S, D]: f32 scores, exact
     softmax, f32 p@v. Runs in q-row chunks that keep the f32 score tensor
-    under ``MAX_SCORE_BYTES`` (the production joint shape would need 121 GB)."""
+    under ``MAX_SCORE_BYTES`` (the production joint shape would need 121 GB).
+    ``with_lse`` also returns the natural-log logsumexp of the scores, f32
+    [B, H, Sq] (the kernels' lse output)."""
     b, h, sq, _ = q.shape
     skv = k.shape[2]
-    chunk = max(1, min(sq, MAX_SCORE_BYTES // (4 * b * h * skv)))
+    chunk = _q_chunk(b, h, sq, skv)
     kf, vf = k.float(), v.float()
     bias = key_bias.float()[:, None, None, :]
-    outs = []
+    outs, lses = [], []
     for i in range(0, sq, chunk):
         s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, i:i + chunk].float(), kf) * scale + bias
         p = torch.softmax(s, dim=-1)
         outs.append(torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype))
-    return torch.cat(outs, dim=2) if len(outs) > 1 else outs[0]
+        if with_lse:
+            lses.append(torch.logsumexp(s, dim=-1))
+    out = torch.cat(outs, dim=2)
+    return (out, torch.cat(lses, dim=2)) if with_lse else out
+
+
+def attention_bwd_plain(q, k, v, g, lse, dsum, key_bias, scale: float):
+    """Plain attention backward (K5's plain version; `_blocked_attention_bwd`
+    with the probabilities recomputed from the saved lse, as
+    `_packed_bwd_kernel` does) on [B, H, S, D]. ``lse`` and ``dsum`` (=
+    rowsum(g * out)): f32 [B, H, Sq]; ``key_bias``: [B, Skv] or None.
+    Rounding points of the kernels: p and ds are f32 and rounded to the
+    operands' dtype for the products, which accumulate in f32. Runs in q-row
+    chunks under ``MAX_SCORE_BYTES``. Returns (dq, dk, dv) in the operands'
+    dtype and dbias f32 [B, Skv]."""
+    b, h, sq, _ = q.shape
+    skv = k.shape[2]
+    dt = q.dtype
+    chunk = _q_chunk(b, h, sq, skv)
+    kf, vf = k.float(), v.float()
+    bias = (torch.zeros(b, skv, device=q.device) if key_bias is None
+            else key_bias.float())[:, None, None, :]
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    dbias = torch.zeros(b, skv, dtype=torch.float32, device=q.device)
+    dqs = []
+    for i in range(0, sq, chunk):
+        sl = slice(i, i + chunk)
+        qc, gc = q[:, :, sl].float(), g[:, :, sl].float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qc, kf) * scale + bias
+        p = torch.exp(s - lse[:, :, sl, None])
+        dv += torch.einsum("bhqk,bhqd->bhkd", p.to(dt).float(), gc)
+        ds = p * (torch.einsum("bhqd,bhkd->bhqk", gc, vf) - dsum[:, :, sl, None])
+        dsb = ds.to(dt).float()
+        dqs.append((torch.einsum("bhqk,bhkd->bhqd", dsb, kf) * scale).to(dt))
+        dk += torch.einsum("bhqk,bhqd->bhkd", dsb, qc) * scale
+        dbias += ds.sum(dim=(1, 2))
+    return torch.cat(dqs, dim=2), dk.to(dt), dv.to(dt), dbias
 
 
 def attention_fused_plain(q, k, v, key_bias, tabs_q, tabs_k, eps, norm_q, norm_k):
@@ -212,7 +264,7 @@ class _Args(ctypes.Structure):
 
     _fields_ = (
         [(n, ctypes.c_void_p) for n in (
-            "q", "k", "v", "o", "bias", "q_cos", "q_sin", "q_add", "q_rot",
+            "q", "k", "v", "o", "bias", "lse", "q_cos", "q_sin", "q_add", "q_rot",
             "k_cos", "k_sin", "k_add", "k_rot")]
         + [(n, ctypes.c_int64) for n in (
             "q_sb", "q_ss", "q_sh", "k_sb", "k_ss", "k_sh", "v_sb", "v_ss", "v_sh",
@@ -222,8 +274,22 @@ class _Args(ctypes.Structure):
     )
 
 
+class _BwdArgs(ctypes.Structure):
+    """Mirror of `TGAttnBwdArgs` in csrc/attention.cu (every field 8 bytes)."""
+
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in (
+            "q", "k", "v", "g", "lse", "dsum", "bias", "dq", "dk", "dv", "dbias")]
+        + [(f"{n}_{s}", ctypes.c_int64) for n in ("q", "k", "v", "g", "dq", "dk", "dv")
+           for s in ("sb", "ss", "sh")]
+        + [(n, ctypes.c_int64) for n in ("b", "h", "sq", "skv")]
+        + [("scale", ctypes.c_double)]
+    )
+
+
 _ENTRY_POINTS = ("tg_attention_joint", "tg_attention_cross_smallkv",
                  "tg_attention_cross_smallq", "tg_attention_bhsd")
+_BWD_ENTRY_POINT = "tg_attention_bwd"
 
 
 class _Library:
@@ -253,9 +319,10 @@ def build_kernels(force: bool = False) -> Path:
         _Library.build_log = proc.stdout + proc.stderr
     if _Library.lib is None or force:
         lib = ctypes.CDLL(str(out))
-        for name in _ENTRY_POINTS:
+        for name in _ENTRY_POINTS + (_BWD_ENTRY_POINT,):
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+            args = _BwdArgs if name == _BWD_ENTRY_POINT else _Args
+            fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _Library.lib = lib
     return out
@@ -307,9 +374,10 @@ def _check_tabs(name: str, tabs, seqlen: int, batch: int, device):
     torch._assert_async(torch.all((rg == 0) | pair))
     return out, rot, tb
 
-
 def _launch(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k,
-            qscale: float):
+            qscale: float, with_lse: bool = False):
+    """Launches a forward kernel; returns ``out`` or, ``with_lse``, (out, lse)
+    with lse the natural-log logsumexp f32 [B, H, Sq]."""
     lib = _lib()
     b = q.shape[0]
     if heads is not None:
@@ -319,6 +387,10 @@ def _launch(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, n
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     a = _Args()
     keep = [out]  # buffers that must outlive the launch call
+    lse = None
+    if with_lse:
+        lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+        a.lse = lse.data_ptr()
     for name, x in (("q", q), ("k", k), ("v", v), ("o", out)):
         sb, ss, sh = _check_operand(name, x, heads)
         setattr(a, name, x.data_ptr())
@@ -348,12 +420,53 @@ def _launch(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, n
     err = getattr(lib, entry)(ctypes.byref(a), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA launch failed with error {err}")
-    return out
+    return (out, lse) if with_lse else out
+
+
+def _launch_bwd(q, k, v, g, lse, dsum, key_bias, heads, scale: float, with_dbias: bool):
+    lib = _lib()
+    b = q.shape[0]
+    if heads is not None:
+        h, sq, skv = heads, q.shape[1], k.shape[1]
+    else:
+        h, sq, skv = q.shape[1], q.shape[2], k.shape[2]
+    grads = [torch.empty_like(x, memory_format=torch.contiguous_format) for x in (q, k, v)]
+    a = _BwdArgs()
+    keep = list(grads)  # buffers that must outlive the launch call
+    for name, x in zip(("q", "k", "v", "g", "dq", "dk", "dv"), (q, k, v, g, *grads)):
+        sb, ss, sh = _check_operand(name, x, heads)
+        setattr(a, name, x.data_ptr())
+        setattr(a, f"{name}_sb", sb)
+        setattr(a, f"{name}_ss", ss)
+        setattr(a, f"{name}_sh", sh)
+    if g.shape != q.shape:
+        raise ValueError(f"g: expected {tuple(q.shape)}, got {tuple(g.shape)}")
+    for name, x in (("lse", lse), ("dsum", dsum)):
+        if x.dtype != torch.float32 or x.shape != (b, h, sq) or not x.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous float32 [{b}, {h}, {sq}]")
+        setattr(a, name, x.data_ptr())
+    if key_bias is not None:
+        kb = key_bias.float().contiguous()
+        if kb.shape != (b, skv):
+            raise ValueError(f"key_bias: expected [{b}, {skv}], got {tuple(kb.shape)}")
+        keep.append(kb)
+        a.bias = kb.data_ptr()
+    dbias = None
+    if with_dbias:
+        dbias = torch.empty(b, h, skv, dtype=torch.float32, device=q.device)
+        a.dbias = dbias.data_ptr()
+    a.b, a.h, a.sq, a.skv = b, h, sq, skv
+    a.scale = scale
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = getattr(lib, _BWD_ENTRY_POINT)(ctypes.byref(a), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{_BWD_ENTRY_POINT}: CUDA launch failed with error {err}")
+    return (*grads, None if dbias is None else dbias.sum(dim=1))
 
 
 def _require_cuda(*xs):
     for x in xs:
-        if not x.is_cuda:
+        if x is not None and not x.is_cuda:
             raise ValueError("mixed CPU and CUDA operands")
 
 
@@ -363,17 +476,24 @@ def _require_cuda(*xs):
 
 
 def fused_attention_joint(q, k, v, tabs_q, tabs_k, key_bias=None, heads: int = None,
-                          eps: float = 1e-6, norm_q: bool = True, norm_k: bool = True):
+                          eps: float = 1e-6, norm_q: bool = True, norm_k: bool = True,
+                          with_lse: bool = False):
     """K1, base joint self-attention on merged [B, S, H*64]: both prologues in
-    the kernel, optional additive f32 key bias [B, Skv]."""
+    the kernel, optional additive f32 key bias [B, Skv]. ``with_lse`` also
+    returns the rows' natural-log logsumexp, f32 [B, H, Sq] (the training
+    forward's `with_lse`)."""
     if q.device.type == "cpu":
-        return _fused_plain_merged(q, k, v, _bias_or_zeros(key_bias, k, heads), tabs_q,
-                                   tabs_k, heads, eps, norm_q, norm_k)
+        qn = apply_prologue_plain(split_heads(q, heads), tabs_q, eps, norm_q)
+        kn = apply_prologue_plain(split_heads(k, heads), tabs_k, eps, norm_k)
+        res = attention_plain(qn, kn, split_heads(v, heads), _bias_or_zeros(key_bias, k, heads),
+                              1.0, with_lse=with_lse)
+        return (merge_heads(res[0]), res[1]) if with_lse else merge_heads(res)
     _require_cuda(k, v)
-    out = _launch("tg_attention_joint", q, k, v, key_bias, tabs_q, tabs_k, heads, eps,
-                  norm_q, norm_k, _LOG2E)
+    res = _launch("tg_attention_joint", q, k, v, key_bias, tabs_q, tabs_k, heads, eps,
+                  norm_q, norm_k, _LOG2E, with_lse)
     fused_attention_joint.launches += 1
-    return out
+    fused_attention_joint.lse_launches += int(with_lse)
+    return res
 
 
 def fused_attention_cross_smallkv(q, k, v, tabs_q, tabs_k, key_bias=None, heads: int = None,
@@ -408,32 +528,66 @@ def fused_attention_cross_smallq(q, k, v, tabs_q, tabs_k, key_bias=None, heads: 
     return out
 
 
-def flash_attention_bhsd(q, k, v, key_bias=None, scale: Optional[float] = None):
+def flash_attention_bhsd(q, k, v, key_bias=None, scale: Optional[float] = None,
+                         with_lse: bool = False):
     """K4, plain [B, H, S, 64] attention with a folded scale and an optional
-    additive key bias (the resampler's Perceiver attention)."""
+    additive key bias (the resampler's Perceiver attention); ``with_lse`` as
+    in `fused_attention_joint`."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, _bias_or_zeros(key_bias, k, None), scale)
+        return attention_plain(q, k, v, _bias_or_zeros(key_bias, k, None), scale,
+                               with_lse=with_lse)
     _require_cuda(k, v)
-    out = _launch("tg_attention_bhsd", q, k, v, key_bias, None, None, None, 0.0,
-                  False, False, scale * _LOG2E)
+    res = _launch("tg_attention_bhsd", q, k, v, key_bias, None, None, None, 0.0,
+                  False, False, scale * _LOG2E, with_lse)
     flash_attention_bhsd.launches += 1
-    return out
+    flash_attention_bhsd.lse_launches += int(with_lse)
+    return res
+
+
+def attention_backward(q, k, v, g, lse, dsum, key_bias=None, heads: Optional[int] = None,
+                       scale: float = 1.0, with_dbias: bool = False):
+    """K5, the attention backward from the forward's saved lse: (dq, dk, dv,
+    dbias) for ``softmax(scale * q k^T + key_bias) v`` with output gradient
+    ``g``. Operands merged [B, S, H*64] (pass ``heads``) or [B, H, S, 64];
+    for the fused-prologue attention they are the PROLOGUED q/k and scale is
+    1. ``lse`` (natural log) and ``dsum = rowsum(g * out)`` per head: f32
+    [B, H, Sq]. dbias (f32 [B, Skv], summed over heads) is computed only
+    ``with_dbias``, else None."""
+    if q.device.type == "cpu":
+        split = (lambda x: split_heads(x, heads)) if heads is not None else (lambda x: x)
+        merge = merge_heads if heads is not None else (lambda x: x)
+        dq, dk, dv, dbias = attention_bwd_plain(split(q), split(k), split(v), split(g), lse,
+                                                dsum, key_bias, scale)
+        return merge(dq), merge(dk), merge(dv), dbias if with_dbias else None
+    _require_cuda(k, v, g, lse, dsum, key_bias)
+    res = _launch_bwd(q, k, v, g, lse, dsum, key_bias, heads, scale, with_dbias)
+    attention_backward.launches += 1
+    return res
 
 
 KERNEL_ENTRY_POINTS = (fused_attention_joint, fused_attention_cross_smallkv,
-                       fused_attention_cross_smallq, flash_attention_bhsd)
-for _fn in KERNEL_ENTRY_POINTS:
-    _fn.launches = 0
+                       fused_attention_cross_smallq, flash_attention_bhsd, attention_backward)
+LSE_ENTRY_POINTS = (fused_attention_joint, flash_attention_bhsd)
 
 
 def reset_launch_counts():
     for fn in KERNEL_ENTRY_POINTS:
         fn.launches = 0
+    for fn in LSE_ENTRY_POINTS:
+        fn.lse_launches = 0
+
+
+reset_launch_counts()
 
 
 def launch_counts():
     return {fn.__name__: fn.launches for fn in KERNEL_ENTRY_POINTS}
+
+
+def lse_launch_counts():
+    """Launches of K1 and K4 with the logsumexp output (the training forward)."""
+    return {fn.__name__: fn.lse_launches for fn in LSE_ENTRY_POINTS}
 
 
 def _bias_or_zeros(key_bias, k, heads):
@@ -445,17 +599,112 @@ def _bias_or_zeros(key_bias, k, heads):
 
 
 # ---------------------------------------------------------------------------
+# Gradients: K1 / K4 forward with lse, K5 backward
+# ---------------------------------------------------------------------------
+
+
+def _row_dsum(g, out, heads: Optional[int]):
+    """dsum = rowsum(g * out) per head, f32 [B, H, Sq] (plain torch, as the
+    JAX package computes it in XLA)."""
+    go = g.float() * out.float()
+    if heads is None:
+        return go.sum(-1)
+    b, s, hd = go.shape
+    return go.reshape(b, s, heads, hd // heads).sum(-1).transpose(1, 2).contiguous()
+
+
+class _FusedAttention(torch.autograd.Function):
+    """`_flash_packed_diff` with its custom_vjp (`_packed_diff_fwd` /
+    `_packed_diff_bwd`). Forward: K1 with lse. Backward: the prologue is
+    recomputed with `apply_prologue_plain` under autograd, K5 gives the
+    gradients of the prologued qn/kn, v and the key bias, and
+    `torch.autograd.grad` carries qn/kn's back through the prologue to q, k
+    and the tables (so the qk-norm affine, folded into cosg/Rg/add, and
+    per-sample rope tables get theirs)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, heads, eps, norm_q, norm_k, *tabs):
+        out, lse = fused_attention_joint(q, k, v, tabs[:4], tabs[4:], key_bias, heads, eps,
+                                         norm_q, norm_k, with_lse=True)
+        ctx.save_for_backward(q, k, v, key_bias, out, lse, *tabs)
+        ctx.cfg = (heads, eps, norm_q, norm_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, key_bias, out, lse, *tabs = ctx.saved_tensors
+        heads, eps, norm_q, norm_k = ctx.cfg
+        need = ctx.needs_input_grad
+        g = g.contiguous()
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(n)
+                      for x, n in zip((q, k, *tabs), (need[0], need[1], *need[8:]))]
+            qn = merge_heads(apply_prologue_plain(split_heads(leaves[0], heads),
+                                                  tuple(leaves[2:6]), eps, norm_q))
+            kn = merge_heads(apply_prologue_plain(split_heads(leaves[1], heads),
+                                                  tuple(leaves[6:10]), eps, norm_k))
+        dqn, dkn, dv, dbias = attention_backward(
+            qn.detach(), kn.detach(), v, g, lse, _row_dsum(g, out, heads), key_bias, heads, 1.0,
+            with_dbias=need[3])
+        outs = [(y, dy) for y, dy in ((qn, dqn), (kn, dkn)) if y.requires_grad]
+        wanted = [x for x in leaves if x.requires_grad]
+        found = iter(torch.autograd.grad([y for y, _ in outs], wanted, [dy for _, dy in outs],
+                                         allow_unused=True) if outs else ())
+        grads = [next(found) if x.requires_grad else None for x in leaves]
+        return (grads[0], grads[1], dv if need[2] else None, dbias, None, None, None, None,
+                *grads[2:])
+
+
+class _BhsdAttention(torch.autograd.Function):
+    """`_flash_attention_tpu_diff`: forward K4 with lse, backward K5 on
+    [B, H, S, 64] strides with no prologue."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, scale):
+        out, lse = flash_attention_bhsd(q, k, v, key_bias, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, key_bias, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, key_bias, out, lse = ctx.saved_tensors
+        g = g.contiguous()
+        dq, dk, dv, dbias = attention_backward(q, k, v, g, lse, _row_dsum(g, out, None),
+                                               key_bias, None, ctx.scale,
+                                               with_dbias=ctx.needs_input_grad[3])
+        return dq, dk, dv, dbias, None
+
+
+def _grad_needed(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in xs)
+
+
+# ---------------------------------------------------------------------------
 # Public dispatch (same routing as the JAX package)
 # ---------------------------------------------------------------------------
+
+
+def flash_attention(q, k, v, key_bias=None, scale: Optional[float] = None):
+    """[B, H, Sq, D] x [B, H, Skv, D] attention (the JAX `flash_attention`):
+    K4, or its autograd Function when a gradient is needed."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if _grad_needed(q, k, v, key_bias):
+        return _BhsdAttention.apply(q, k, v, key_bias, scale)
+    return flash_attention_bhsd(q, k, v, key_bias, scale)
 
 
 def fused_flash_attention(q, k, v, tabs_q, tabs_k, key_bias=None, heads: int = None,
                           eps: float = 1e-6, norm_q: bool = True, norm_k: bool = True):
     """Attention with the qk-norm + RoPE prologue fused, on merged
     [B, S, H*D] operands. Routes one-tiny-side cross shapes to the small-side
-    kernels exactly where the JAX `_flash_packed_diff` does."""
+    kernels exactly where the JAX `_flash_packed_diff` does; when a gradient
+    is needed, every shape takes `_FusedAttention` (K1 with lse, then K5)."""
     if heads is None or q.dim() != 3:
         raise ValueError("fused_flash_attention takes merged [B, S, H*D] operands and heads")
+    if _grad_needed(q, k, v, key_bias, *(tabs_q or ()), *(tabs_k or ())):
+        return _FusedAttention.apply(q, k, v, key_bias, heads, eps, norm_q, norm_k,
+                                     *tabs_q, *tabs_k)
     sq, skv = q.shape[1], k.shape[1]
     if norm_q and norm_k:
         if skv <= _SMALLKV_MAX and sq > 2048:

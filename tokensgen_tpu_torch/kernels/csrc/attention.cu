@@ -1,12 +1,20 @@
-// Flash-attention forward kernels for the four attention calls of the To2V
-// edit path, written for Hopper (sm_90a), head dim 64, bf16 operands with f32
-// softmax and accumulation on mma.sync m16n8k16 tensor-core tiles.
+// Flash-attention kernels for the attention calls of the To2V edit and
+// training paths, written for Hopper (sm_90a), head dim 64, bf16 operands with
+// f32 softmax and accumulation on mma.sync m16n8k16 tensor-core tiles.
 //
 // Replaces the Pallas TPU kernels of tokensgen_tpu/kernels/attention.py:
 //   tg_attention_joint          joint_kernel    <- _flash_packed_kernel  (_flash_fused_packed_tpu)
 //   tg_attention_cross_smallkv  smallkv_kernel  <- _cross_smallkv_kernel (_flash_cross_smallkv_tpu)
 //   tg_attention_cross_smallq   smallq_kernel   <- _cross_smallq_kernel  (_flash_cross_smallq_tpu)
 //   tg_attention_bhsd           bhsd_kernel     <- _flash_kernel         (_flash_attention_tpu)
+//   tg_attention_bwd            bwd_dkdv_kernel + bwd_dq_kernel
+//                                               <- _packed_bwd_kernel    (_flash_packed_bwd_tpu)
+//
+// The forward kernels optionally write the per-row logsumexp of the scores,
+// f32 [B, H, Sq], in the NATURAL log base (lse = ln sum_j exp(s_j), with s the
+// natural-domain scores scale*q.k + bias), as the TPU kernel's with_lse output
+// does. Inside, the kernels run in the log2 domain (log2 e folded into q), so
+// they store (m + log2 l) * ln 2. The backward takes the same natural lse.
 //
 // What each computes: softmax(P_q(q) . P_k(k)^T + key_bias) . v per head,
 // where the prologue P is the per-head LayerNorm (f32 statistics, eps) folded
@@ -44,6 +52,7 @@ constexpr int ROWS_PER_PASS = NTHREADS / 8;  // 8 threads load one 64-wide row
 constexpr int LDS = D + 8;          // smem pitch (bf16) of q/k tiles: conflict-free fragments
 constexpr int LDV = BN + 8;         // smem pitch of the transposed v tile
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int SMALLKV_MAX = 512;    // kv rows held whole in shared memory
 constexpr int SMALLKV_QCHUNK = 1024;  // q rows per smallkv block
 
@@ -54,6 +63,7 @@ constexpr int SMALLKV_QCHUNK = 1024;  // q rows per smallkv block
 struct TGAttnArgs {
   const void* q; const void* k; const void* v; void* o;
   const void* bias;                                   // [B, Skv] f32 or null
+  void* lse;                                          // [B, H, Sq] f32 out or null
   const void* q_cos; const void* q_sin; const void* q_add; const void* q_rot;
   const void* k_cos; const void* k_sin; const void* k_add; const void* k_rot;
   long long q_sb, q_ss, q_sh;
@@ -311,8 +321,10 @@ __device__ __forceinline__ void attend_tile(const uint32_t (&qa)[4][4], const __
   }
 }
 
-// o = acc / l for this warp's 16 rows starting at q row ``q0 + warp*16``.
-__device__ __forceinline__ void store_out(Acc& acc, __nv_bfloat16* o, long long os, int q0, int sq) {
+// o = acc / l for this warp's 16 rows starting at q row ``q0 + warp*16``;
+// with ``lse`` (already at (b, h)), also the rows' natural-log logsumexp.
+__device__ __forceinline__ void store_out(Acc& acc, __nv_bfloat16* o, long long os, int q0, int sq,
+                                          float* lse) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   float l0 = acc.l[0], l1 = acc.l[1];
@@ -321,6 +333,12 @@ __device__ __forceinline__ void store_out(Acc& acc, __nv_bfloat16* o, long long 
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  if (lse != nullptr && t == 0) {
+    // acc.m is the row max of the log2-domain scores (reduced over the 4
+    // threads of a row in attend_tile)
+    if (r0 < sq) lse[r0] = (acc.m[0] + log2f(l0)) * LN2;
+    if (r1 < sq) lse[r1] = (acc.m[1] + log2f(l1)) * LN2;
+  }
 #pragma unroll
   for (int dt = 0; dt < 8; ++dt) {
     const int c = dt * 8 + t * 2;
@@ -362,6 +380,7 @@ __device__ __forceinline__ void flash_fwd_body(const TGAttnArgs& a) {
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + h * a.v_sh;
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh;
   const float* bias = a.bias ? static_cast<const float*>(a.bias) + (long long)b * skv : nullptr;
+  float* lse = a.lse ? static_cast<float*>(a.lse) + ((long long)b * a.h + h) * sq : nullptr;
   const Side pq = side_q(a), pk = side_k(a);
 
   load_rows<PRO_Q>(Qs, LDS, q, a.q_ss, q0, BM, sq, pq, b, static_cast<float>(a.qscale), eps);
@@ -377,7 +396,7 @@ __device__ __forceinline__ void flash_fwd_body(const TGAttnArgs& a) {
     __syncthreads();
     attend_tile(qa, Ks, Vt, LDV, kv0, skv, bias, acc);
   }
-  store_out(acc, o, a.o_ss, q0, sq);
+  store_out(acc, o, a.o_ss, q0, sq, lse);
 }
 
 // K1: base joint self-attention, both prologues fused.
@@ -437,8 +456,308 @@ __global__ void __launch_bounds__(NTHREADS) smallkv_kernel(const TGAttnArgs a) {
     init_acc(acc);
     for (int kv0 = 0; kv0 < skv; kv0 += BN)
       attend_tile(qa, Ks + kv0 * LDS, Vt + kv0, ldv, kv0, skv, bias, acc);
-    store_out(acc, o, a.o_ss, q0, sq);
+    store_out(acc, o, a.o_ss, q0, sq, nullptr);
   }
+}
+
+// ---------------------------------------------------------------------------
+// K5: the attention backward (replaces _packed_bwd_kernel, wrapper
+// _flash_packed_bwd_tpu), from the forward's saved natural-log lse:
+//
+//   p  = exp(scale * q.k + bias - lse)        f32, rounded to bf16 for p^T @ g
+//   ds = p * (g @ v^T - dsum)                 f32, rounded to bf16 for ds^T @ q, ds @ k
+//   dv = p^T @ g,  dk = scale * ds^T @ q,  dq = scale * ds @ k,  dbias = sum_q ds
+//
+// with dsum = rowsum(g * out) per head (computed by the caller) and f32
+// accumulation, the JAX kernel's rounding points. Per head: the TPU's
+// head-pair block-diagonal packing is a lane trick with no use here.
+//
+// Design (FA2's two-pass form, deterministic, no atomics):
+// * bwd_dkdv_kernel: a block owns 128 kv rows of one (b, h) (8 warps x 16
+//   rows; K and V held as mma A fragments in registers) and sweeps every q
+//   tile of 64 rows: s^T = K q^T and dp^T = V g^T, then dv += p^T g and
+//   dk += ds^T q. q and g are staged row-major (for the B fragments of the
+//   first two products) and transposed (for the last two). dbias is written
+//   per (b, h, key); the caller sums it over heads.
+// * bwd_dq_kernel: a block owns 128 q rows (q and g as A fragments) and
+//   sweeps kv tiles of 64: s = q K^T, dp = g V^T, dq += ds K, with K staged
+//   row-major and transposed.
+// That is 7 tile products against the 5 of one pass (s and dp twice), the
+// price of no cross-block reduction. Bound on this card: the products (bf16
+// tensor-core rate), as in the forward. Ragged Sq / Skv are masked from the
+// lengths (p = 0 outside), as in the forward kernels.
+// ---------------------------------------------------------------------------
+
+constexpr int BWD_BKV = BM;   // kv rows per dk/dv block
+constexpr int BWD_BQ = 64;    // q rows per step of its sweep
+constexpr int BWD_BQ2 = BM;   // q rows per dq block
+constexpr int BWD_BKV2 = BN;  // kv rows per step of its sweep
+constexpr int LDT = 64 + 8;   // pitch of the transposed 64-column tiles
+
+}  // namespace
+
+// Backward argument block shared with the Python wrapper (every field 8
+// bytes). lse and dsum: f32 [B, H, Sq]; bias: f32 [B, Skv] or null; dbias:
+// f32 [B, H, Skv] out or null. Strides in elements; scale is the natural
+// softmax scale of the scores (1 for prologued operands).
+struct TGAttnBwdArgs {
+  const void* q; const void* k; const void* v; const void* g;
+  const void* lse; const void* dsum; const void* bias;
+  void* dq; void* dk; void* dv; void* dbias;
+  long long q_sb, q_ss, q_sh;
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  long long g_sb, g_ss, g_sh;
+  long long dq_sb, dq_ss, dq_sh;
+  long long dk_sb, dk_ss, dk_sh;
+  long long dv_sb, dv_ss, dv_sh;
+  long long b, h, sq, skv;
+  double scale;
+};
+
+namespace {
+
+template <typename T>
+__device__ __forceinline__ T* at_head(const void* base, long long sb, long long sh, int b, int h) {
+  return static_cast<T*>(const_cast<void*>(base)) + b * sb + h * sh;
+}
+
+__device__ __forceinline__ void zero_tile(float (&x)[8][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[n][i] = 0.f;
+}
+
+// Stores this warp's 16 rows (row0 = first row of the block) of an f32
+// accumulator tile times ``scale`` as bf16.
+__device__ __forceinline__ void store_rows16(const float (&acc)[8][4], __nv_bfloat16* dst,
+                                             long long ss, int row0, int n, float scale) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt) {
+    const int c = dt * 8 + t * 2;
+    if (r0 < n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)r0 * ss + c) =
+          __floats2bfloat162_rn(acc[dt][0] * scale, acc[dt][1] * scale);
+    if (r1 < n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)r1 * ss + c) =
+          __floats2bfloat162_rn(acc[dt][2] * scale, acc[dt][3] * scale);
+  }
+}
+
+// Grid (ceil(Skv / 128), H, B).
+__global__ void __launch_bounds__(NTHREADS) bwd_dkdv_kernel(const TGAttnBwdArgs a) {
+  __shared__ __align__(16) __nv_bfloat16 buf[4 * BWD_BQ * LDS];
+  __shared__ float lse2_s[BWD_BQ];
+  __shared__ float dsum_s[BWD_BQ];
+  __nv_bfloat16* Qs = buf;                     // [64 q][LDS]
+  __nv_bfloat16* Gs = buf + BWD_BQ * LDS;      // [64 q][LDS]
+  __nv_bfloat16* Qt = buf + 2 * BWD_BQ * LDS;  // [64 d][LDT]
+  __nv_bfloat16* Gt = buf + 3 * BWD_BQ * LDS;  // [64 d][LDT]
+  const int kv0 = blockIdx.x * BWD_BKV, h = blockIdx.y, b = blockIdx.z;
+  const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const float c1 = static_cast<float>(a.scale) * LOG2E;
+  const __nv_bfloat16* q = at_head<const __nv_bfloat16>(a.q, a.q_sb, a.q_sh, b, h);
+  const __nv_bfloat16* k = at_head<const __nv_bfloat16>(a.k, a.k_sb, a.k_sh, b, h);
+  const __nv_bfloat16* v = at_head<const __nv_bfloat16>(a.v, a.v_sb, a.v_sh, b, h);
+  const __nv_bfloat16* gg = at_head<const __nv_bfloat16>(a.g, a.g_sb, a.g_sh, b, h);
+  const long long bh = (long long)b * a.h + h;
+  const float* lse = static_cast<const float*>(a.lse) + bh * sq;
+  const float* dsum = static_cast<const float*>(a.dsum) + bh * sq;
+  const float* bias = a.bias ? static_cast<const float*>(a.bias) + (long long)b * skv : nullptr;
+  const Side none{};
+
+  // K and V rows of this block -> A fragments, staged through buf (128 rows)
+  uint32_t ka[4][4], va[4][4];
+  load_rows<false>(buf, LDS, k, a.k_ss, kv0, BWD_BKV, skv, none, b, 1.f, 0.f);
+  __syncthreads();
+  load_q_frags(ka, buf);
+  __syncthreads();
+  load_rows<false>(buf, LDS, v, a.v_ss, kv0, BWD_BKV, skv, none, b, 1.f, 0.f);
+  __syncthreads();
+  load_q_frags(va, buf);
+
+  // this thread's two kv rows: bias in the log2 domain, -inf past Skv
+  const int rA = kv0 + warp * 16 + g, rB = rA + 8;
+  const float bA = rA < skv ? (bias ? bias[rA] * LOG2E : 0.f) : -INFINITY;
+  const float bB = rB < skv ? (bias ? bias[rB] * LOG2E : 0.f) : -INFINITY;
+  float dk[8][4], dv[8][4];
+  zero_tile(dk);
+  zero_tile(dv);
+  float dbA = 0.f, dbB = 0.f;
+
+  for (int q0 = 0; q0 < sq; q0 += BWD_BQ) {
+    __syncthreads();  // staging / previous tiles consumed by every warp
+    load_rows<false>(Qs, LDS, q, a.q_ss, q0, BWD_BQ, sq, none, b, 1.f, 0.f);
+    load_vt(Qt, LDT, q, a.q_ss, q0, BWD_BQ, sq);
+    load_rows<false>(Gs, LDS, gg, a.g_ss, q0, BWD_BQ, sq, none, b, 1.f, 0.f);
+    load_vt(Gt, LDT, gg, a.g_ss, q0, BWD_BQ, sq);
+    if (threadIdx.x < BWD_BQ) {
+      const int r = q0 + threadIdx.x;
+      lse2_s[threadIdx.x] = r < sq ? lse[r] * LOG2E : INFINITY;  // p = 0 past Sq
+      dsum_s[threadIdx.x] = r < sq ? dsum[r] : 0.f;
+    }
+    __syncthreads();
+    float s[8][4], dp[8][4];
+    zero_tile(s);
+    zero_tile(dp);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const __nv_bfloat16* qp = Qs + (nt * 8 + g) * LDS + kk * 16 + t * 2;
+        mma16816(s[nt], ka[kk], *reinterpret_cast<const uint32_t*>(qp),
+                 *reinterpret_cast<const uint32_t*>(qp + 8));
+        const __nv_bfloat16* gp = Gs + (nt * 8 + g) * LDS + kk * 16 + t * 2;
+        mma16816(dp[nt], va[kk], *reinterpret_cast<const uint32_t*>(gp),
+                 *reinterpret_cast<const uint32_t*>(gp + 8));
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = nt * 8 + t * 2 + (i & 1);
+        const float p = exp2f(s[nt][i] * c1 + (i < 2 ? bA : bB) - lse2_s[col]);
+        const float ds = p * (dp[nt][i] - dsum_s[col]);
+        s[nt][i] = p;
+        dp[nt][i] = ds;
+        if (i < 2) dbA += ds; else dbB += ds;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t pa[4], da[4];
+      pa[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
+      pa[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
+      pa[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
+      pa[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+      da[0] = pack_bf16(dp[2 * j][0], dp[2 * j][1]);
+      da[1] = pack_bf16(dp[2 * j][2], dp[2 * j][3]);
+      da[2] = pack_bf16(dp[2 * j + 1][0], dp[2 * j + 1][1]);
+      da[3] = pack_bf16(dp[2 * j + 1][2], dp[2 * j + 1][3]);
+#pragma unroll
+      for (int dt = 0; dt < 8; ++dt) {
+        const __nv_bfloat16* gtp = Gt + (dt * 8 + g) * LDT + j * 16 + t * 2;
+        mma16816(dv[dt], pa, *reinterpret_cast<const uint32_t*>(gtp),
+                 *reinterpret_cast<const uint32_t*>(gtp + 8));
+        const __nv_bfloat16* qtp = Qt + (dt * 8 + g) * LDT + j * 16 + t * 2;
+        mma16816(dk[dt], da, *reinterpret_cast<const uint32_t*>(qtp),
+                 *reinterpret_cast<const uint32_t*>(qtp + 8));
+      }
+    }
+  }
+
+  const float scale = static_cast<float>(a.scale);
+  store_rows16(dk, at_head<__nv_bfloat16>(a.dk, a.dk_sb, a.dk_sh, b, h), a.dk_ss, kv0, skv, scale);
+  store_rows16(dv, at_head<__nv_bfloat16>(a.dv, a.dv_sb, a.dv_sh, b, h), a.dv_ss, kv0, skv, 1.f);
+  if (a.dbias != nullptr) {
+    dbA += __shfl_xor_sync(0xffffffffu, dbA, 1);
+    dbA += __shfl_xor_sync(0xffffffffu, dbA, 2);
+    dbB += __shfl_xor_sync(0xffffffffu, dbB, 1);
+    dbB += __shfl_xor_sync(0xffffffffu, dbB, 2);
+    float* db = static_cast<float*>(a.dbias) + bh * skv;
+    if (t == 0 && rA < skv) db[rA] = dbA;
+    if (t == 0 && rB < skv) db[rB] = dbB;
+  }
+}
+
+// Grid (ceil(Sq / 128), H, B).
+__global__ void __launch_bounds__(NTHREADS) bwd_dq_kernel(const TGAttnBwdArgs a) {
+  __shared__ __align__(16) __nv_bfloat16 buf[3 * BWD_BKV2 * LDS];
+  __shared__ float bias2_s[BWD_BKV2];
+  __nv_bfloat16* Ks = buf;                       // [64 kv][LDS]
+  __nv_bfloat16* Vs = buf + BWD_BKV2 * LDS;      // [64 kv][LDS]
+  __nv_bfloat16* Kt = buf + 2 * BWD_BKV2 * LDS;  // [64 d][LDT]
+  const int q0 = blockIdx.x * BWD_BQ2, h = blockIdx.y, b = blockIdx.z;
+  const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const float c1 = static_cast<float>(a.scale) * LOG2E;
+  const __nv_bfloat16* q = at_head<const __nv_bfloat16>(a.q, a.q_sb, a.q_sh, b, h);
+  const __nv_bfloat16* k = at_head<const __nv_bfloat16>(a.k, a.k_sb, a.k_sh, b, h);
+  const __nv_bfloat16* v = at_head<const __nv_bfloat16>(a.v, a.v_sb, a.v_sh, b, h);
+  const __nv_bfloat16* gg = at_head<const __nv_bfloat16>(a.g, a.g_sb, a.g_sh, b, h);
+  const long long bh = (long long)b * a.h + h;
+  const float* lse = static_cast<const float*>(a.lse) + bh * sq;
+  const float* dsum = static_cast<const float*>(a.dsum) + bh * sq;
+  const float* bias = a.bias ? static_cast<const float*>(a.bias) + (long long)b * skv : nullptr;
+  const Side none{};
+
+  // q and g rows of this block -> A fragments, staged through Ks|Vs (128 rows)
+  uint32_t qa[4][4], ga[4][4];
+  load_rows<false>(buf, LDS, q, a.q_ss, q0, BWD_BQ2, sq, none, b, 1.f, 0.f);
+  __syncthreads();
+  load_q_frags(qa, buf);
+  __syncthreads();
+  load_rows<false>(buf, LDS, gg, a.g_ss, q0, BWD_BQ2, sq, none, b, 1.f, 0.f);
+  __syncthreads();
+  load_q_frags(ga, buf);
+
+  const int rA = q0 + warp * 16 + g, rB = rA + 8;
+  const float lA = rA < sq ? lse[rA] * LOG2E : INFINITY;
+  const float lB = rB < sq ? lse[rB] * LOG2E : INFINITY;
+  const float sA = rA < sq ? dsum[rA] : 0.f;
+  const float sB = rB < sq ? dsum[rB] : 0.f;
+  float dq[8][4];
+  zero_tile(dq);
+
+  for (int kv0 = 0; kv0 < skv; kv0 += BWD_BKV2) {
+    __syncthreads();  // staging / previous tiles consumed by every warp
+    load_rows<false>(Ks, LDS, k, a.k_ss, kv0, BWD_BKV2, skv, none, b, 1.f, 0.f);
+    load_rows<false>(Vs, LDS, v, a.v_ss, kv0, BWD_BKV2, skv, none, b, 1.f, 0.f);
+    load_vt(Kt, LDT, k, a.k_ss, kv0, BWD_BKV2, skv);
+    if (threadIdx.x < BWD_BKV2) {
+      const int j = kv0 + threadIdx.x;
+      bias2_s[threadIdx.x] = j < skv ? (bias ? bias[j] * LOG2E : 0.f) : -INFINITY;
+    }
+    __syncthreads();
+    float s[8][4], dp[8][4];
+    zero_tile(s);
+    zero_tile(dp);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const __nv_bfloat16* kp = Ks + (nt * 8 + g) * LDS + kk * 16 + t * 2;
+        mma16816(s[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kp),
+                 *reinterpret_cast<const uint32_t*>(kp + 8));
+        const __nv_bfloat16* vp = Vs + (nt * 8 + g) * LDS + kk * 16 + t * 2;
+        mma16816(dp[nt], ga[kk], *reinterpret_cast<const uint32_t*>(vp),
+                 *reinterpret_cast<const uint32_t*>(vp + 8));
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = nt * 8 + t * 2 + (i & 1);
+        const float p = exp2f(s[nt][i] * c1 + bias2_s[col] - (i < 2 ? lA : lB));
+        dp[nt][i] = p * (dp[nt][i] - (i < 2 ? sA : sB));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t da[4];
+      da[0] = pack_bf16(dp[2 * j][0], dp[2 * j][1]);
+      da[1] = pack_bf16(dp[2 * j][2], dp[2 * j][3]);
+      da[2] = pack_bf16(dp[2 * j + 1][0], dp[2 * j + 1][1]);
+      da[3] = pack_bf16(dp[2 * j + 1][2], dp[2 * j + 1][3]);
+#pragma unroll
+      for (int dt = 0; dt < 8; ++dt) {
+        const __nv_bfloat16* ktp = Kt + (dt * 8 + g) * LDT + j * 16 + t * 2;
+        mma16816(dq[dt], da, *reinterpret_cast<const uint32_t*>(ktp),
+                 *reinterpret_cast<const uint32_t*>(ktp + 8));
+      }
+    }
+  }
+  store_rows16(dq, at_head<__nv_bfloat16>(a.dq, a.dq_sb, a.dq_sh, b, h), a.dq_ss, q0, sq,
+               static_cast<float>(a.scale));
 }
 
 int launch_flash(void (*kernel)(TGAttnArgs), const TGAttnArgs* a, cudaStream_t stream) {
@@ -476,6 +795,21 @@ int tg_attention_cross_smallkv(const TGAttnArgs* a, void* stream) {
   const dim3 grid(static_cast<unsigned>((a->sq + SMALLKV_QCHUNK - 1) / SMALLKV_QCHUNK),
                   static_cast<unsigned>(a->h), static_cast<unsigned>(a->b));
   smallkv_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5: attention backward, dk/dv (and dbias) pass then dq pass.
+int tg_attention_bwd(const TGAttnBwdArgs* a, void* stream) {
+  if (a->sq <= 0 || a->skv <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid_kv(static_cast<unsigned>((a->skv + BWD_BKV - 1) / BWD_BKV),
+                     static_cast<unsigned>(a->h), static_cast<unsigned>(a->b));
+  bwd_dkdv_kernel<<<grid_kv, NTHREADS, 0, s>>>(*a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_q(static_cast<unsigned>((a->sq + BWD_BQ2 - 1) / BWD_BQ2),
+                    static_cast<unsigned>(a->h), static_cast<unsigned>(a->b));
+  bwd_dq_kernel<<<grid_q, NTHREADS, 0, s>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
 

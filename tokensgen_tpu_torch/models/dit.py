@@ -4,9 +4,11 @@ Port of `tokensgen_tpu/models/dit.py`. Module and parameter names follow the
 reference (diffusers) layout that `tokensgen_tpu.convert.export.export_dit`
 emits, so a JAX tree moves in through `convert/from_jax.py` with
 ``load_state_dict(strict=True)``. Blocks are an ``nn.ModuleList`` run in a
-Python loop (the JAX package scans stacked parameters). Attention goes
-through `kernels/attention.py::fused_flash_attention`: the qk-norm and RoPE
-run inside the kernels as prologue tables.
+Python loop (the JAX package scans stacked parameters), each checkpointed
+under ``DiTConfig.remat``. Attention goes through
+`kernels/attention.py::fused_flash_attention`: the qk-norm and RoPE run
+inside the kernels as prologue tables, and under autograd the backward is
+the K5 kernel.
 
 Covered: rotary models (CogVideoX-5b) with the output projection, VIP
 func_type "1". The sincos (2b) path, raw-token output (T2To), func_types
@@ -20,6 +22,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from tokensgen_tpu_torch.core.rope import Rope
 from tokensgen_tpu_torch.kernels.attention import fused_flash_attention, make_prologue, slice_tabs
@@ -28,6 +31,7 @@ from tokensgen_tpu_torch.models.layers import (
     AdaLayerNormOut,
     FeedForward,
     LayerNorm,
+    Linear,
     TimestepEmbedding,
     VIPAdaLN,
     timestep_sinusoidal,
@@ -66,6 +70,10 @@ class DiTConfig:
     qk_norm: bool = True
     vip: Optional[VIPConfig] = None
     dtype: torch.dtype = torch.bfloat16
+    # gradient checkpointing per block (`nn.remat(DiTBlock)` in the JAX
+    # package): under autograd each block keeps only its inputs and runs its
+    # forward again in the backward
+    remat: bool = False
 
     @property
     def inner_dim(self) -> int:
@@ -105,9 +113,9 @@ class _VIPProcessor(nn.Module):
     def __init__(self, cfg: DiTConfig):
         super().__init__()
         inner, dt = cfg.inner_dim, cfg.dtype
-        self.vip_to_q = nn.Linear(inner, inner, bias=cfg.attention_bias, dtype=dt)
-        self.vip_to_k = nn.Linear(inner, inner, bias=cfg.attention_bias, dtype=dt)
-        self.vip_to_v = nn.Linear(inner, inner, bias=cfg.attention_bias, dtype=dt)
+        self.vip_to_q = Linear(inner, inner, bias=cfg.attention_bias, dtype=dt)
+        self.vip_to_k = Linear(inner, inner, bias=cfg.attention_bias, dtype=dt)
+        self.vip_to_v = Linear(inner, inner, bias=cfg.attention_bias, dtype=dt)
         if cfg.qk_norm:
             self.vip_norm_q = QKNorm(cfg.attention_head_dim)
             self.vip_norm_k = QKNorm(cfg.attention_head_dim)
@@ -128,10 +136,10 @@ class JointVIPAttention(nn.Module):
             raise NotImplementedError(f"VIP func_type {cfg.vip.func_type!r} is not ported yet")
         self.cfg = cfg
         inner, dt = cfg.inner_dim, cfg.dtype
-        self.to_q = nn.Linear(inner, inner, bias=cfg.attention_bias, dtype=dt)
-        self.to_k = nn.Linear(inner, inner, bias=cfg.attention_bias, dtype=dt)
-        self.to_v = nn.Linear(inner, inner, bias=cfg.attention_bias, dtype=dt)
-        self.to_out = nn.ModuleList([nn.Linear(inner, inner, bias=True, dtype=dt)])
+        self.to_q = Linear(inner, inner, bias=cfg.attention_bias, dtype=dt)
+        self.to_k = Linear(inner, inner, bias=cfg.attention_bias, dtype=dt)
+        self.to_v = Linear(inner, inner, bias=cfg.attention_bias, dtype=dt)
+        self.to_out = nn.ModuleList([Linear(inner, inner, bias=True, dtype=dt)])
         self.norm_q = QKNorm(cfg.attention_head_dim) if cfg.qk_norm else None
         self.norm_k = QKNorm(cfg.attention_head_dim) if cfg.qk_norm else None
         self.processor = _VIPProcessor(cfg) if cfg.vip is not None else None
@@ -233,10 +241,10 @@ class _PatchEmbed(nn.Module):
     def __init__(self, cfg: DiTConfig):
         super().__init__()
         inner, dt, p = cfg.inner_dim, cfg.dtype, cfg.patch_size
-        self.text_proj = nn.Linear(cfg.text_embed_dim, inner, dtype=dt)
+        self.text_proj = Linear(cfg.text_embed_dim, inner, dtype=dt)
         self.proj = nn.Conv2d(cfg.in_channels, inner, p, stride=p, dtype=dt)
         if cfg.vip is not None:
-            self.vip_proj = nn.Linear(cfg.vip.output_dim, inner, dtype=dt)
+            self.vip_proj = Linear(cfg.vip.output_dim, inner, dtype=dt)
 
 
 class CogVideoXTransformer(nn.Module):
@@ -254,7 +262,7 @@ class CogVideoXTransformer(nn.Module):
         self.transformer_blocks = nn.ModuleList(DiTBlock(cfg) for _ in range(cfg.num_layers))
         self.norm_final = LayerNorm(inner)
         self.norm_out = AdaLayerNormOut(inner, cfg.time_embed_dim, dtype=dt)
-        self.proj_out = nn.Linear(inner, cfg.patch_size ** 2 * cfg.out_channels, dtype=dt)
+        self.proj_out = Linear(inner, cfg.patch_size ** 2 * cfg.out_channels, dtype=dt)
 
     def forward(self, hidden_states, encoder_hidden_states, timestep, vip_hidden_states=None,
                 image_rotary_emb: Optional[Rope] = None,
@@ -278,8 +286,13 @@ class CogVideoXTransformer(nn.Module):
             vip = self.patch_embed.vip_proj(vtokens)
 
         ropes = (image_rotary_emb, vip_image_rotary_emb, vip_condition_rotary_emb)
+        remat = cfg.remat and torch.is_grad_enabled()
         for block in self.transformer_blocks:
-            video, text, vip = block(video, text, vip, temb, ropes, vip_scale)
+            if remat:
+                video, text, vip = checkpoint(block, video, text, vip, temb, ropes, vip_scale,
+                                              use_reentrant=False)
+            else:
+                video, text, vip = block(video, text, vip, temb, ropes, vip_scale)
 
         # the reference normalizes [text (‖ vip) ‖ video] and keeps the video tail
         joint = torch.cat([text] + ([vip] if vip is not None else []) + [video], dim=1)

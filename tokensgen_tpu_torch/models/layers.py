@@ -4,7 +4,9 @@ variants (port of `tokensgen_tpu/models/layers.py`).
 Linear layers hold their weights in the model's compute dtype (the JAX package
 keeps f32 params and casts them to the compute dtype at use, which gives the
 same values); LayerNorm affine parameters stay float32 and normalize with
-float32 statistics, as there.
+float32 statistics, as there. For training, the trainable Linear weights are
+float32 masters (`train/to2v.py`): `Linear` casts its weight to the input's
+dtype at use, as flax's Dense does.
 """
 
 from __future__ import annotations
@@ -28,13 +30,23 @@ def timestep_sinusoidal(t: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
     return torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
 
 
+class Linear(nn.Linear):
+    """`nn.Linear` computing in its input's dtype: a float32 weight (a
+    trainable master) is cast at use; in the compute dtype the cast is a
+    no-op."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
 class TimestepEmbedding(nn.Module):
     """2-layer silu MLP: [N, in_dim] sinusoidal features -> [N, time_embed_dim]."""
 
     def __init__(self, in_dim: int, time_embed_dim: int, dtype=torch.float32):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, time_embed_dim, dtype=dtype)
-        self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim, dtype=dtype)
+        self.linear_1 = Linear(in_dim, time_embed_dim, dtype=dtype)
+        self.linear_2 = Linear(time_embed_dim, time_embed_dim, dtype=dtype)
 
     def forward(self, x):
         return self.linear_2(F.silu(self.linear_1(x)))
@@ -65,7 +77,7 @@ class LayerNorm(nn.Module):
 class _GELUProj(nn.Module):
     def __init__(self, dim: int, inner: int, dtype):
         super().__init__()
-        self.proj = nn.Linear(dim, inner, dtype=dtype)
+        self.proj = Linear(dim, inner, dtype=dtype)
 
     def forward(self, x):
         return F.gelu(self.proj(x), approximate="tanh")
@@ -78,7 +90,7 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4, dtype=torch.float32):
         super().__init__()
         self.net = nn.ModuleList([_GELUProj(dim, dim * mult, dtype), nn.Identity(),
-                                  nn.Linear(dim * mult, dim, dtype=dtype)])
+                                  Linear(dim * mult, dim, dtype=dtype)])
 
     def forward(self, x):
         return self.net[2](self.net[0](x))
@@ -96,7 +108,7 @@ class AdaLNZero(nn.Module):
 
     def __init__(self, dim: int, temb_dim: int, dtype=torch.float32):
         super().__init__()
-        self.linear = nn.Linear(temb_dim, 6 * dim, dtype=dtype)
+        self.linear = Linear(temb_dim, 6 * dim, dtype=dtype)
         self.norm = LayerNorm(dim)
 
     def forward(self, hidden, text, temb) -> Tuple[torch.Tensor, ...]:
@@ -114,7 +126,7 @@ class VIPAdaLN(nn.Module):
 
     def __init__(self, dim: int, temb_dim: int, dtype=torch.float32):
         super().__init__()
-        self.linear = nn.Linear(temb_dim, 3 * dim, dtype=dtype)
+        self.linear = Linear(temb_dim, 3 * dim, dtype=dtype)
         self.norm = LayerNorm(dim)
 
     def forward(self, vip, temb):
@@ -129,7 +141,7 @@ class AdaLayerNormOut(nn.Module):
     def __init__(self, dim: int, temb_dim: int, dtype=torch.float32,
                  elementwise_affine: bool = True):
         super().__init__()
-        self.linear = nn.Linear(temb_dim, 2 * dim, dtype=dtype)
+        self.linear = Linear(temb_dim, 2 * dim, dtype=dtype)
         self.norm = LayerNorm(dim, affine=elementwise_affine)
 
     def forward(self, x, temb):

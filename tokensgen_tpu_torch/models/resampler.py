@@ -4,8 +4,9 @@ which the edit path does not use).
 
 Parameter names follow `tokensgen_tpu.convert.export.export_resampler`
 (``layers.{i}.0`` attention, ``layers.{i}.1`` feed-forward). The attention is
-`kernels/attention.py::flash_attention_bhsd` (the Hopper kernel replacing the
-TPU `_flash_kernel`) with LayerNorm and RoPE applied outside it.
+`kernels/attention.py::flash_attention` (K4, the Hopper kernel replacing the
+TPU `_flash_kernel`, and under autograd its Function with the K5 backward)
+with LayerNorm and RoPE applied outside it.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ import torch
 import torch.nn as nn
 
 from tokensgen_tpu_torch.core.rope import Rope, apply_rotary_emb
-from tokensgen_tpu_torch.kernels.attention import flash_attention_bhsd
-from tokensgen_tpu_torch.models.layers import FeedForward, LayerNorm
+from tokensgen_tpu_torch.kernels.attention import flash_attention
+from tokensgen_tpu_torch.models.layers import FeedForward, LayerNorm, Linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,9 +55,9 @@ class PerceiverAttention(nn.Module):
         inner, dt = cfg.dim_head * cfg.heads, cfg.dtype
         self.norm1 = LayerNorm(cfg.dim)
         self.norm2 = LayerNorm(cfg.dim)
-        self.to_q = nn.Linear(cfg.dim, inner, bias=False, dtype=dt)
-        self.to_kv = nn.Linear(cfg.dim, 2 * inner, bias=False, dtype=dt)
-        self.to_out = nn.Linear(inner, cfg.dim, bias=False, dtype=dt)
+        self.to_q = Linear(cfg.dim, inner, bias=False, dtype=dt)
+        self.to_kv = Linear(cfg.dim, 2 * inner, bias=False, dtype=dt)
+        self.to_out = Linear(inner, cfg.dim, bias=False, dtype=dt)
         self.norm_q = LayerNorm(cfg.dim_head, eps=1e-6)
         self.norm_k = LayerNorm(cfg.dim_head, eps=1e-6)
 
@@ -81,7 +82,7 @@ class PerceiverAttention(nn.Module):
             q = apply_rotary_emb(q, sampling_rotary_emb)
             k = torch.cat([k[:, :, :-l], apply_rotary_emb(k[:, :, -l:], sampling_rotary_emb)],
                           dim=2)
-        out = flash_attention_bhsd(q, k, v, scale=cfg.dim_head ** -0.5)
+        out = flash_attention(q, k, v, scale=cfg.dim_head ** -0.5)
         out = out.permute(0, 2, 1, 3).reshape(b, l, cfg.heads * cfg.dim_head)
         return self.to_out(out)
 
@@ -92,11 +93,11 @@ class Resampler(nn.Module):
         self.cfg = cfg
         dt = cfg.dtype
         self.latents = nn.Parameter(torch.zeros(1, cfg.num_queries, cfg.dim))
-        self.proj_in = nn.Linear(cfg.embedding_dim, cfg.dim, dtype=dt)
+        self.proj_in = Linear(cfg.embedding_dim, cfg.dim, dtype=dt)
         self.layers = nn.ModuleList(
             nn.ModuleList([PerceiverAttention(cfg), FeedForward(cfg.dim, dtype=dt)])
             for _ in range(cfg.depth))
-        self.proj_out = nn.Linear(cfg.dim, cfg.output_dim, dtype=dt)
+        self.proj_out = Linear(cfg.dim, cfg.output_dim, dtype=dt)
         self.norm_out = LayerNorm(cfg.output_dim)
 
     def forward(self, x, image_rotary_emb: Optional[Rope] = None,

@@ -1,0 +1,193 @@
+"""To2V adapter training (port of `tokensgen_tpu/train/to2v.py`).
+
+Reference semantics (`train_cogvideo_to2v.py`): freeze the whole DiT except its
+``vip_*`` parameters, train those and the whole resampler (`:1455-1481`);
+timesteps from two regimes mixed by ``diff_timesteps_ratio`` (`:1773-1818`);
+the x0-space weighted v-prediction loss (`:1995-2004`); grad clip 1.0; AdamW;
+bf16 compute with float32 master weights.
+
+Port design: the DiT and the resampler sit in one `To2VModel`, so a
+parameter's name carries its place (``dit.…`` / ``resampler.…``) and the
+JAX package's label rule applies to it unchanged. Frozen parameters do not
+require grad, so autograd computes no weight gradient for them; trainable
+ones are float32 masters that `models.layers.Linear` casts to the compute
+dtype at use. Gradient accumulation has `optax.MultiSteps` semantics: the
+mean of k micro-batch gradients, one update. The loss takes the timesteps
+and the noise as arguments; the CLI draws them from a `torch.Generator`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, Optional
+
+import torch
+import torch.nn as nn
+
+from tokensgen_tpu_torch.core import schedule as S
+from tokensgen_tpu_torch.models.dit import CogVideoXTransformer, DiTConfig, graft_vip_params
+from tokensgen_tpu_torch.models.resampler import Resampler, ResamplerConfig
+from tokensgen_tpu_torch.train import objective, optim
+from tokensgen_tpu_torch.utils.params import build_on_device
+
+
+@dataclasses.dataclass(frozen=True)
+class To2VTrainConfig:
+    use_8bit_adam: bool = True  # reference default (`use_8bit_adam: true`)
+    optimizer: str = "adamw"  # adam | adamw (prodigy is not ported)
+    learning_rate: float = 2e-4
+    lr_scheduler: str = "constant"  # diffusers get_scheduler names
+    lr_warmup_steps: int = 0
+    lr_num_cycles: int = 1  # cosine_with_restarts
+    lr_power: float = 1.0  # polynomial
+    max_train_steps: int = 1000  # decay horizon for non-constant schedules
+    weight_decay: float = 1e-4
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.95
+    adam_eps: float = 1e-8
+    max_grad_norm: float = 1.0
+    diff_timesteps_ratio: float = 0.4
+    inference_timesteps: int = 52
+
+
+class To2VModel(nn.Module):
+    """The trained pair: ``dit`` (frozen but for ``vip_*``) and ``resampler``."""
+
+    def __init__(self, dit: CogVideoXTransformer, resampler: Resampler):
+        super().__init__()
+        self.dit = dit
+        self.resampler = resampler
+
+
+def is_trainable(name: str) -> bool:
+    """`trainable_labels`' rule: every resampler parameter and every DiT
+    parameter with ``vip_`` in its name."""
+    return name.startswith("resampler.") or "vip_" in name
+
+
+def trainable_labels(model: nn.Module) -> Dict[str, str]:
+    return {n: "train" if is_trainable(n) else "freeze" for n, _ in model.named_parameters()}
+
+
+def trainable_parameters(model: nn.Module) -> Dict[str, nn.Parameter]:
+    return {n: p for n, p in model.named_parameters() if is_trainable(n)}
+
+
+@torch.no_grad()
+def setup_trainable(model: nn.Module, frozen_dtype: Optional[torch.dtype] = None) -> nn.Module:
+    """Trainable parameters: float32 masters that require grad. Frozen ones:
+    no grad, and float32 leaves cast to ``frozen_dtype`` when given (the JAX
+    package's `cast_frozen_bf16`; the port's matmul and conv weights are in
+    the compute dtype already)."""
+    for name, p in model.named_parameters():
+        train = is_trainable(name)
+        if train:
+            p.data = p.data.float()
+        elif frozen_dtype is not None and p.dtype == torch.float32:
+            p.data = p.data.to(frozen_dtype)
+        p.requires_grad_(train)
+    return model
+
+
+def init_model(dit_config: DiTConfig, resampler_config: ResamplerConfig, device,
+               generator: torch.Generator) -> To2VModel:
+    """Random weights made on ``device`` from ``generator``, the VIP branch
+    grafted from the base attention (`init_params` with `graft_vip_params`)."""
+    resampler = build_on_device(lambda: Resampler(resampler_config), device, generator)
+    dit = graft_vip_params(build_on_device(lambda: CogVideoXTransformer(dit_config), device,
+                                           generator))
+    return To2VModel(dit, resampler).train()
+
+
+def vip_tokens(model: To2VModel, batch: Dict) -> torch.Tensor:
+    """The resampler's VIP tokens for the batch, inside the loss (it is
+    trained): per chunk, then the window's token frames (``vip_emb_sel``)."""
+    rs_img = batch.get("resampler_image_rotary_emb")
+    rs_smp = batch.get("resampler_sampling_rotary_emb")
+    chunks = batch["vip_input_chunks"]
+    vip_all = torch.cat([model.resampler(chunks[:, c], rs_img, rs_smp)
+                         for c in range(chunks.shape[1])], dim=1)
+    sel = batch["vip_emb_sel"].long()
+    return torch.gather(vip_all, 1, sel[:, :, None, None, None].expand(-1, -1, *vip_all.shape[2:]))
+
+
+def to2v_loss(model: To2VModel, sched: S.DiffusionSchedule, batch: Dict,
+              timesteps: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """The JAX train step's ``loss_fn`` with its random draws passed in:
+    ``timesteps`` [B, F], ``noise`` like ``batch["latents"]``."""
+    latents = batch["latents"]
+    noisy = S.add_noise(sched, latents, noise, timesteps)
+    out = model.dit(noisy, batch["text_embeds"], timesteps, vip_tokens(model, batch),
+                    batch.get("image_rotary_emb"), batch.get("vip_image_rotary_emb"),
+                    batch.get("vip_condition_rotary_emb")).float()
+    return objective.x0_weighted_loss(sched, out, noisy.float(), latents.float(), timesteps)
+
+
+def global_norm(tensors) -> torch.Tensor:
+    return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+
+
+def make_optimizer(params: Dict[str, torch.Tensor], cfg: To2VTrainConfig):
+    lr = optim.lr_schedule(cfg.lr_scheduler, cfg.learning_rate, cfg.lr_warmup_steps,
+                           cfg.max_train_steps, num_cycles=cfg.lr_num_cycles, power=cfg.lr_power)
+    return optim.base_optimizer(cfg.optimizer, params, lr, b1=cfg.adam_beta1, b2=cfg.adam_beta2,
+                                eps=cfg.adam_eps, weight_decay=cfg.weight_decay,
+                                use_8bit=cfg.use_8bit_adam)
+
+
+class To2VTrainStep:
+    """`make_train_step`: each call runs one micro-batch's loss and backward;
+    every ``accum_steps``-th call clips the mean gradient to
+    ``max_grad_norm`` (optax `clip_by_global_norm`) and updates the trainable
+    parameters in place. Returns the loss, the micro-batch's grad norm,
+    whether it updated, and the device-synchronised seconds of the forward
+    and backward (``train_step_s``) and of the update (``optimizer_s``)."""
+
+    def __init__(self, model: To2VModel, sched: S.DiffusionSchedule, cfg: To2VTrainConfig,
+                 accum_steps: int = 1, optimizer=None):
+        self.model, self.sched, self.cfg = model, sched, cfg
+        self.accum_steps = accum_steps
+        self.params = trainable_parameters(model)
+        self.optimizer = optimizer or make_optimizer(self.params, cfg)
+        self.mini_step = 0
+        self.acc: Optional[Dict[str, torch.Tensor]] = None
+
+    def __call__(self, batch: Dict, timesteps: torch.Tensor, noise: torch.Tensor) -> Dict:
+        sync = _synchronizer(batch["latents"].device)
+        t0 = time.perf_counter()
+        loss = to2v_loss(self.model, self.sched, batch, timesteps, noise)
+        loss.backward()
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in self.params.items()}
+        gnorm = global_norm(grads.values())
+        for p in self.params.values():
+            p.grad = None
+        if self.accum_steps > 1:  # MultiSteps: running mean of the micro-batch grads
+            if self.acc is None:
+                self.acc = {n: torch.zeros_like(g) for n, g in grads.items()}
+            for n, g in grads.items():
+                self.acc[n].add_((g - self.acc[n]) / (self.mini_step + 1))
+            grads = self.acc
+        sync()
+        t1 = time.perf_counter()
+        self.mini_step += 1
+        updated = self.mini_step == self.accum_steps
+        if updated:
+            mean_norm = gnorm if self.accum_steps == 1 else global_norm(grads.values())
+            scale = torch.clamp(self.cfg.max_grad_norm / mean_norm, max=1.0)
+            for g in grads.values():
+                g.mul_(scale)
+            self.optimizer.step(self.params, grads)
+            self.mini_step = 0
+            self.acc = None
+        sync()
+        t2 = time.perf_counter()
+        return {"loss": loss.detach(), "grad_norm": gnorm, "updated": updated,
+                "train_step_s": t1 - t0, "optimizer_s": t2 - t1}
+
+
+def _synchronizer(device):
+    if torch.device(device).type == "cuda":
+        return lambda: torch.cuda.synchronize(device)
+    return lambda: None
