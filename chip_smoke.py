@@ -7,22 +7,30 @@ Phases, each printing its own lines:
   env     card name and power limit (nvidia-smi), torch / CUDA versions;
           TF32 is switched off for matmuls and convolutions in every phase
   build   nvcc builds the attention kernels from kernels/csrc (timed)
-  kernels K1-K4 at the edit path's production shapes and K5 (the attention
-          backward) at the training path's, against their plain PyTorch
-          versions: error, planted fault, kernel / plain / library times
-          (CUDA events) and bound; the lse outputs of K1 and K4
+  kernels K1-K4 at the edit path's production shapes, K5 (the attention
+          backward) at the training path's and K7 (int8 scores) at the gen
+          path's, against their plain PyTorch versions: error, planted
+          fault, kernel / plain / library times (CUDA events) and bound; the
+          lse outputs of K1 and K4; K7 against bf16 K1; K1 at the T2To shape
   dit     one full-width DiT forward (CogVideoX-5b, 42 layers, VIP "1", B=2),
           timed, then a second one traced with torch.profiler (device time
-          by kernel group, idle share; trace in build/traces/)
+          by kernel group, idle share; trace in build/traces/); then the same
+          forward of a w8a8 + quant_attn copy, timed, traced, and its drift
+          from the bf16 output
   edit    the edit path end to end through infer.build_pipeline and
-          To2VPipeline.generate at full width (1 chunk, 13 steps, 1 partition)
+          To2VPipeline.generate at full width (1 chunk, 13 steps, 1 partition,
+          DiT depth cut to 6 of 42 layers)
+  gen     the generation path of infer_gen.yaml as shipped (w8a8) with
+          quant_attn: T2To tokens, then the To2V render (1 chunk, 13 steps,
+          1 partition); then one T2To stage alone at the shipped 24 chunks
   train   a 2-layer train step on the card against the host's, then 2
           optimizer steps of the To2V adapter trainer (train_to2v.To2VTrainer)
           at full width (42 layers, batch 2, 2-chunk 49-frame 720x480), then
           a third one traced with torch.profiler (device time by kernel group)
 
 The last two lines are a JSON object of the kernels and their measurements
-(launches of K1-K4 on the edit path, of K5 on the train path),
+(launches of K1-K4 on the edit path, of K5 on the train path, of K7 on the
+gen path),
 and the result line ``{"ok": true, "device": {...}}``. Any failed phase
 raises and the script exits non-zero. It refuses to run without a card.
 """
@@ -39,7 +47,7 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernels", "dit", "edit", "train")
+PHASES = ("env", "build", "kernels", "dit", "edit", "gen", "train")
 
 # A kernel agrees with its plain version (same bf16 inputs; the plain version
 # keeps f32 where the kernel rounds the prologued q, with log2 e folded in, and
@@ -62,6 +70,8 @@ KERNELS = {
     "fused_attention_cross_smallq": "tokensgen_tpu/kernels/attention.py:1048",
     "flash_attention_bhsd": "tokensgen_tpu/kernels/attention.py:54",
     "attention_backward": "tokensgen_tpu/kernels/attention.py:1220",
+    # the int8_scores branch of _flash_packed_kernel (:586)
+    "fused_attention_joint_int8": "tokensgen_tpu/kernels/attention.py:634",
 }
 SOURCE = "tokensgen_tpu_torch/kernels/csrc/attention.cu"
 # The lse outputs of K1 and K4 against the plain logsumexp: the kernels score
@@ -74,6 +84,7 @@ LSE_MAX_REL = 2.0 ** -7
 # sheet): bf16 tensor cores and HBM3. A kernel's bound is the larger of its
 # least matmul work over the first and the bytes it must move over the second.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -163,10 +174,12 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound_ms(flops: float, nbytes: float):
+def bound_ms(flops: float, nbytes: float, int8_ops: float = 0.0):
     """(least time in ms, "operations" or "bytes"): the larger of the matmul
-    work at the bf16 peak and the bytes at the memory peak."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    work (bf16 FLOPs at the bf16 peak plus int8 operations at the int8 peak)
+    and the bytes at the memory peak."""
+    t_ops = flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS
+    t_bytes = nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -204,9 +217,10 @@ def _compare(name, kernel_fn, plain_fn, state, fault_fn=None, runs=5, plain_runs
         plain_ms = _cuda_time_ms(plain_fn, plain_runs)
         lib_ms = None if library_fn is None else _cuda_time_ms(library_fn, runs)
         b_ms, b_by = bound_ms(*work)
+        int8 = f", {work[2] / 1e12:.3f} int8 TOP" if len(work) > 2 else ""
         log(f"{msg}; kernel {ms:.3f} ms plain {plain_ms:.3f} ms library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'} bound {b_ms:.3f} ms "
-            f"({b_by}; {work[0] / 1e12:.3f} TFLOP, {work[1] / 1e9:.3f} GB)")
+            f"({b_by}; {work[0] / 1e12:.3f} TFLOP{int8}, {work[1] / 1e9:.3f} GB)")
         state.setdefault("kernel_rows", {})[name] = {
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms}
@@ -255,6 +269,8 @@ def kernel_cases(device, text=226, nf=13, gh=30, gw=45, heads=48, batch=2,
     cases["fused_attention_joint"] = dict(
         q=q, k=k, v=v, tabs_q=A.make_prologue(d, base_segs, g, bb, fold=scale),
         tabs_k=A.make_prologue(d, base_segs, g, bb), key_bias=None, heads=heads)
+    # K7: the same joint call, as the gen path's To2V render makes it
+    cases["fused_attention_joint_int8"] = cases["fused_attention_joint"]
     # K2: text_video -> vip
     segs = [(None, text), (img, sv), (cond, lv)]
     vtq = A.make_prologue(d, segs, g, bb, fold=scale)
@@ -300,6 +316,10 @@ def run_plain(name, c, kv_len=None):
     bias = bias[:, :n]
     if four_d:
         return A.attention_plain(q, k[:, :, :n], v[:, :, :n], bias, c["scale"])
+    if name == "fused_attention_joint_int8":
+        return A.attention_fused_int8_plain(q, k[:, :n], v[:, :n], bias, c["tabs_q"],
+                                            A.slice_tabs(c["tabs_k"], 0, n), c["heads"], 1e-6,
+                                            True, True)
     return A._fused_plain_merged(q, k[:, :n], v[:, :n], bias, c["tabs_q"],
                                  A.slice_tabs(c["tabs_k"], 0, n), c["heads"], 1e-6, True, True)
 
@@ -332,7 +352,8 @@ def _heads_view(name, c):
 def forward_work(name, c):
     """(matmul FLOPs, bytes) of a forward call: q k^T and p v; each input the
     kernel reads (operands, f32 prologue tables, bias) once, the output once.
-    K2 reads its k already prologued (its k prologue runs outside it)."""
+    K2 reads its k already prologued (its k prologue runs outside it). K7's
+    q k^T is int8 operations (the third entry), its p v bf16 FLOPs."""
     q, k, v = c["q"], c["k"], c["v"]
     if name == "flash_attention_bhsd":
         (b, h, sq, d), skv = q.shape, k.shape[2]
@@ -343,7 +364,10 @@ def forward_work(name, c):
         tabs = list(c["tabs_q"][:3])
         if name != "fused_attention_cross_smallkv":
             tabs += list(c["tabs_k"][:3])
-    return 4.0 * b * h * sq * skv * d, _nbytes(q, k, v, q, c.get("key_bias"), *tabs)
+    nbytes = _nbytes(q, k, v, q, c.get("key_bias"), *tabs)
+    if name == "fused_attention_joint_int8":
+        return 2.0 * b * h * sq * skv * d, nbytes, 2.0 * b * h * sq * skv * d
+    return 4.0 * b * h * sq * skv * d, nbytes
 
 
 def _sdpa(q4, k4, v4, scale):
@@ -360,6 +384,34 @@ def _check_lse(name, lse, ref):
         f"(bound {LSE_REL_L2_BOUND:g}) max_abs_err {err:.3e} (bound {err_bound:.3e})")
     if not (rel <= LSE_REL_L2_BOUND and err <= err_bound):
         raise RuntimeError(f"{name}: its lse disagrees with the plain logsumexp")
+
+
+def _t2to_joint_case(dev, state, chunks=24, text=226, heads=48, batch=2):
+    """K1 at the T2To stage's shape as infer_gen.yaml ships it: 24 chunks of
+    4 token frames of 8 x 12 and 226 text tokens (9,442 per row), B=2, RoPE
+    dims (52, 6, 6): held to its plain version and timed."""
+    import numpy as np
+    import torch
+
+    from tokensgen_tpu_torch.core.rope import get_3d_rotary_pos_embed_v2
+    from tokensgen_tpu_torch.kernels import attention as A
+
+    d, f = 64, 4 * chunks
+    gen = torch.Generator(device=dev).manual_seed(5)
+    s = text + f * 8 * 12
+    q, k, v = (torch.randn(batch, s, heads * d, generator=gen, device=dev).bfloat16()
+               for _ in range(3))
+    rope = get_3d_rotary_pos_embed_v2(d, np.arange(f, dtype=np.float32),
+                                      np.arange(8, dtype=np.float32),
+                                      np.arange(12, dtype=np.float32), 52, 6, 6, device=dev)
+    segs = [(None, text), (rope, s - text)]
+    g, bb = torch.ones(d, device=dev), torch.zeros(d, device=dev)
+    c = dict(q=q, k=k, v=v, tabs_q=A.make_prologue(d, segs, g, bb, fold=d ** -0.5),
+             tabs_k=A.make_prologue(d, segs, g, bb), key_bias=None, heads=heads)
+    name = "fused_attention_joint"
+    q4, k4, v4, scale = _heads_view(name, c)
+    _compare(f"{name}[T2To {s:,}^2]", lambda: run_kernel(name, c), lambda: run_plain(name, c),
+             state, work=forward_work(name, c), library_fn=lambda: _sdpa(q4, k4, v4, scale))
 
 
 def backward_cases(dev, cases, seed=2):
@@ -445,6 +497,18 @@ def phase_kernels(state: dict) -> None:
         _compare(name, lambda: run_kernel(name, c), lambda: run_plain(name, c), state,
                  fault_fn=_without_ragged_tile(name, c), work=forward_work(name, c),
                  library_fn=lambda: _sdpa(q4, k4, v4, scale))
+    # K7 at the gen path's joint shape; then its error against bf16 K1 on the
+    # same inputs (the int8 quantization's own cost, no bound)
+    name = "fused_attention_joint_int8"
+    c = cases[name]
+    q4, k4, v4, scale = _heads_view(name, c)
+    _compare(name, lambda: run_kernel(name, c), lambda: run_plain(name, c), state,
+             fault_fn=_without_ragged_tile(name, c), work=forward_work(name, c),
+             library_fn=lambda: _sdpa(q4, k4, v4, scale))
+    rel, err, _ = agreement(run_kernel(name, c), run_kernel("fused_attention_joint", c))
+    log(f"[kernels] {name} against bf16 fused_attention_joint on the same inputs "
+        f"(quantization error): rel_l2_err {rel:.3e} max_abs_err {err:.3e}")
+    _t2to_joint_case(dev, state)
     # the training forward's lse outputs (K1, K4) against the plain logsumexp
     for name in ("fused_attention_joint", "flash_attention_bhsd"):
         c = cases[name]
@@ -517,6 +581,10 @@ EDIT_OVERRIDES = {
     "sampling_params.num_partitions": 1,  # cut from 4: 2 lookahead rank windows
     "input_config.edit_item_1.params.max_num_chunks": 1,  # cut from 12
 }
+# DiT depth on the edit path, cut from 42 to keep the whole smoke in half its
+# time limit: the gen phase runs the same render (base denoise, FIFO, decode)
+# at the full 42 layers, and the dit phase times the full-depth forward
+EDIT_LAYERS = 6
 
 
 def _edit_config():
@@ -601,16 +669,16 @@ def phase_dit(state: dict) -> None:
     base_rope = pipe.base_image_rope()
     timestep = torch.full((2,), 999, dtype=torch.int64, device=dev)
 
-    def forward():
+    def forward(dit=pipe.dit):
         # VIP tokens as the edit path makes them: patch conv + resampler over
         # two chunks of latents (cond + its repeated-last-frame pad chunk)
         with torch.no_grad():
-            toks = [pipe.resampler(apply_patch_proj(dcfg, pipe.dit.patch_embed.proj,
+            toks = [pipe.resampler(apply_patch_proj(dcfg, dit.patch_embed.proj,
                                                     latents[:1]), img_rope, smp_rope)
                     for _ in range(2)]
             vip = torch.cat(toks, dim=1)[:, :n_vip].expand(2, -1, -1, -1, -1)
-            return vip, pipe.dit(latents, text, timestep, vip, base_rope, vip_img, vip_cond,
-                                 pc.vip_scale)
+            return vip, dit(latents, text, timestep, vip, base_rope, vip_img, vip_cond,
+                            pc.vip_scale)
 
     forward()  # warm-up (cuBLAS / cuDNN handles, allocator)
     torch.cuda.synchronize()
@@ -632,8 +700,53 @@ def phase_dit(state: dict) -> None:
         raise RuntimeError("the full-width DiT forward is not finite or has the wrong shape")
     if min(counts[k] for k in FORWARD_KERNELS) <= 0:
         raise RuntimeError(f"a kernel was not launched by the DiT forward: {counts}")
-    del out
     _profile(forward, "dit", "dit_forward")
+    _quantized_forward(pipe, dcfg, forward, out)
+
+
+def _quantized_forward(pipe, dcfg, forward, ref) -> None:
+    """The same forward through a copy of the DiT quantized to w8a8 with
+    quant_attn (infer_gen.yaml's shipped quant, K7 on): timed after a
+    warm-up, traced, and its relative L2 drift from the bf16 output ``ref``
+    on the same weights and inputs."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+    from tokensgen_tpu_torch.models.dit import quantize_dit
+
+    dev = ref.device
+    qcfg = dataclasses.replace(dcfg, quant="w8a8", quant_attn=True)
+    t0 = time.perf_counter()
+    qdit = quantize_dit(copy.deepcopy(pipe.dit), qcfg)
+    torch.cuda.synchronize()
+    log(f"[dit] w8a8 + quant_attn copy of the DiT: quantize_dit {time.perf_counter() - t0:.1f} s")
+    forward(qdit)  # warm-up (cuBLASLt int8 handles)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, out = forward(qdit)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = A.launch_counts()
+    drift = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    finite = bool(torch.isfinite(out).all().item())
+    log(f"[dit] w8a8 + quant_attn full-width forward: {dt:.3f} s, peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, output {tuple(out.shape)} "
+        f"finite {finite}; relative L2 drift from the bf16 output {drift:.4e}")
+    log(f"[dit] kernel launches in that forward: {json.dumps(counts)}")
+    layers = dcfg.num_layers
+    if not finite or out.shape != ref.shape:
+        raise RuntimeError("the w8a8 DiT forward is not finite or has the wrong shape")
+    if (counts["fused_attention_joint_int8"], counts["fused_attention_joint"]) != (layers, 0):
+        raise RuntimeError(f"the w8a8 + quant_attn forward did not run K7 per block: {counts}")
+    del out
+    _profile(lambda: forward(qdit), "dit", "dit_w8a8_forward")
+    del qdit
+    torch.cuda.empty_cache()
 
 
 def phase_edit(state: dict) -> None:
@@ -650,12 +763,15 @@ def phase_edit(state: dict) -> None:
     pipe = state.get("pipe")
     if pipe is None:
         pipe, _ = build_pipeline(cfg, smoke=False, device=dev)
+    pipe.dit.transformer_blocks = pipe.dit.transformer_blocks[:EDIT_LAYERS]
+    torch.cuda.empty_cache()
     item = input_items(cfg)[0]
     num_chunks = min(item.get("max_num_chunks", 2), item.get("max_num_chunks_w_fifo", 25))
     pc = pipe.cfg
     log(f"[edit] {EDIT_CONFIG} with {json.dumps(EDIT_OVERRIDES)}: {pc.width}x{pc.height}, "
         f"{pc.num_frames_per_chunk} frames/chunk, {num_chunks} chunk, "
-        f"{pc.num_inference_steps} steps, {pc.num_partitions} partition")
+        f"{pc.num_inference_steps} steps, {pc.num_partitions} partition, DiT depth "
+        f"{len(pipe.dit.transformer_blocks)} of 42 layers")
     enc = build_text_encoder(cfg, smoke=False)
     prompt = enc([item.get("prompt", "")])
     negative = enc([""])
@@ -691,6 +807,135 @@ def phase_edit(state: dict) -> None:
             f"mean {x.float().mean().item():.4f} std {x.float().std().item():.4f}")
         if tuple(x.shape) != shape or not finite:
             raise RuntimeError(f"edit output {key}: expected finite {shape}")
+
+
+# the generation path as `infer.py --config tokensgen_tpu/configs/infer_gen.yaml`
+# runs it, at full width and its shipped quant (w8a8), with these listed cuts
+# and settings
+GEN_CONFIG = "tokensgen_tpu/configs/infer_gen.yaml"
+GEN_OVERRIDES = {
+    "quant_attn": True,  # K7 on the render's joint calls (off unless set)
+    "allow_hash_text_encoder": True,  # no T5 weights or tokenizer in the repo
+    "longvgen_pca": None,  # no pca/mean/std artifacts in the repo: a random PCA
+    "longvgen_mean": None,
+    "longvgen_std": None,
+    "num_inference_steps": 13,  # cut from 52 (both stages)
+    "sampling_params.num_partitions": 1,  # cut from 4
+    "input_config.gen_item_1.params.max_num_chunks": 1,  # cut from 24
+}
+GEN_T2TO_CHUNKS = 24  # the T2To stage alone, at the config's shipped chunks
+
+
+def _count_calls(module) -> list:
+    """Counts ``module``'s forward calls (a forward pre-hook)."""
+    calls = []
+    module.register_forward_pre_hook(lambda *_: calls.append(1))
+    return calls
+
+
+def phase_gen(state: dict) -> None:
+    import gc
+
+    import torch
+
+    from tokensgen_tpu_torch.infer import (build_pipeline, build_t2to_pipeline,
+                                           build_text_encoder, gen_image_embeddings)
+    from tokensgen_tpu_torch.kernels import attention as A
+    from tokensgen_tpu_torch.sampling.base import generator_noise
+    from tokensgen_tpu_torch.utils.config import input_items, load_config
+
+    dev = state["device"]
+    state.pop("pipe", None)  # the edit phase's pipeline
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = load_config(os.path.join(REPO, GEN_CONFIG), GEN_OVERRIDES)
+    t0 = time.perf_counter()
+    pipe, dcfg = build_pipeline(cfg, smoke=False, device=dev)
+    t2 = build_t2to_pipeline(cfg, False, pipe, dev)
+    torch.cuda.synchronize()
+    item = input_items(cfg)[0]
+    num_chunks = min(item.get("max_num_chunks", 2), item.get("max_num_chunks_w_fifo", 25))
+    pc = pipe.cfg
+    log(f"[gen] {GEN_CONFIG} (quant {cfg.get('quant')}) with {json.dumps(GEN_OVERRIDES)}: "
+        f"built in {time.perf_counter() - t0:.1f} s; T2To DiT {t2.dit_config.num_layers} layers "
+        f"bf16, To2V DiT quant {dcfg.quant} quant_attn {dcfg.quant_attn}; {pc.width}x{pc.height}, "
+        f"{num_chunks} chunk, {pc.num_inference_steps} steps, {pc.num_partitions} partition")
+    enc = build_text_encoder(cfg, smoke=False)
+    prompt, negative = enc([item.get("prompt", "")]), enc([""])
+    t2_calls, render_calls = _count_calls(t2.dit), _count_calls(pipe.dit)
+    seed = int(cfg.get("seed", 42))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks, emb = gen_image_embeddings(
+        t2, pipe, prompt, negative, num_chunks,
+        generator_noise(torch.Generator(device=dev).manual_seed(int(cfg.get("seed_2nd", 42)))))
+    torch.cuda.synchronize()
+    t2to_s = time.perf_counter() - t0
+    after_t2to = A.launch_counts()
+    timings: dict = {}
+    out = pipe.generate(prompt, negative, image_embeddings=emb, num_chunks=num_chunks,
+                        noise_fn=generator_noise(torch.Generator(device=dev).manual_seed(seed)),
+                        timings=timings)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts = A.launch_counts()
+    state["gen_launches"] = counts
+    render = {k: counts[k] - after_t2to[k] for k in counts}
+    log(f"[gen] generate: {total:.1f} s; t2to {t2to_s:.2f} s ({len(t2_calls)} T2To forwards), "
+        "render phases (s): " + ", ".join(f"{k} {v:.2f}" for k, v in timings.items())
+        + f" ({len(render_calls)} To2V forwards); peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    log(f"[gen] kernel launches on the gen path: T2To stage {json.dumps(after_t2to)}; "
+        f"To2V render {json.dumps(render)}")
+    nf, h, w = pc.nf_latent, pc.height // 8, pc.width // 8
+    tc = t2.cfg
+    want = {"tokens": (toks, (1, num_chunks * tc.num_frames_per_chunk, tc.token_dim, tc.height,
+                              tc.width)),
+            "latents": (out["latents"], (1, num_chunks * nf, 16, h, w)),
+            "orig_latents": (out["orig_latents"], (1, nf, 16, h, w)),
+            "video": (out["video"], (1, num_chunks * pc.num_frames_per_chunk, pc.height,
+                                     pc.width, 3)),
+            "orig_video": (out["orig_video"], (1, pc.num_frames_per_chunk, pc.height, pc.width,
+                                               3))}
+    for key, (x, shape) in want.items():
+        finite = bool(torch.isfinite(x).all().item())
+        log(f"[gen] {key}: shape {tuple(x.shape)} finite {finite} "
+            f"mean {x.float().mean().item():.4f} std {x.float().std().item():.4f}")
+        if tuple(x.shape) != shape or not finite:
+            raise RuntimeError(f"gen output {key}: expected finite {shape}")
+    t2_layers, layers, n = t2.dit_config.num_layers, dcfg.num_layers, len(render_calls)
+    expect = [
+        ("K1 per T2To forward", after_t2to["fused_attention_joint"], t2_layers * len(t2_calls)),
+        ("K7 in the T2To stage", after_t2to["fused_attention_joint_int8"], 0),
+        ("K1 in the render", render["fused_attention_joint"], 0),
+        ("K7 per render forward", render["fused_attention_joint_int8"], layers * n),
+        ("K2 per render forward", render["fused_attention_cross_smallkv"], layers * n),
+        ("K3 per render forward", render["fused_attention_cross_smallq"], layers * n),
+    ]
+    log("[gen] " + "; ".join(f"{what}: {got} (expected {exp})" for what, got, exp in expect))
+    if any(got != exp for _, got, exp in expect):
+        raise RuntimeError("the gen path did not run its kernels as expected")
+    del out, emb, toks
+    # the T2To stage alone at the shipped chunk count: 4 x 24 token frames of
+    # 8 x 12 plus 226 text tokens (9,442) per CFG row
+    n0 = len(t2_calls)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = t2(prompt, negative, num_chunks=GEN_T2TO_CHUNKS,
+              noise_fn=generator_noise(torch.Generator(device=dev).manual_seed(seed)))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    finite = bool(torch.isfinite(toks).all().item())
+    log(f"[gen] T2To stage alone at {GEN_T2TO_CHUNKS} chunks "
+        f"({226 + 4 * GEN_T2TO_CHUNKS * tc.height * tc.width:,} tokens per row, "
+        f"{len(t2_calls) - n0} forwards): {dt:.2f} s; tokens {tuple(toks.shape)} finite {finite}")
+    if not finite or toks.shape[1] != 4 * GEN_T2TO_CHUNKS:
+        raise RuntimeError("the T2To stage at 24 chunks is not finite or has the wrong shape")
+    del t2, pipe, toks
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # the trainer as `python -m tokensgen_tpu_torch.train_to2v --config
@@ -879,6 +1124,8 @@ def phase_train(state: dict) -> None:
 
 
 _KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name), first match wins
+    ("attention K7 (int8_prologue_kernel + joint_int8_kernel)",
+     ("int8_prologue_kernel", "joint_int8_kernel")),
     ("attention K5 (bwd_dkdv_kernel + bwd_dq_kernel)", ("bwd_dkdv_kernel", "bwd_dq_kernel")),
     ("attention K1 (joint_kernel)", ("joint_kernel",)),
     ("attention K2 (smallkv_kernel)", ("smallkv_kernel",)),
@@ -886,7 +1133,7 @@ _KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name), first match w
     ("attention K4 (bhsd_kernel)", ("bhsd_kernel",)),
     # before matmul: cuDNN's implicit-GEMM convolutions also have "gemm" in their names
     ("convolution (cuDNN)", ("conv", "implicit", "winograd", "fprop", "dgrad", "wgrad")),
-    ("matmul (cuBLAS)", ("gemm", "sm90_xmma", "cutlass", "nvjet")),
+    ("matmul (cuBLAS / cuBLASLt)", ("gemm", "sm90_xmma", "cutlass", "nvjet", "igemm")),
     ("norm / reduce", ("norm", "reduce", "Reduce")),
     ("copy / cat", ("copy", "Copy", "cat", "Cat")),
     ("elementwise", ("elementwise", "vectorized", "Elementwise")),
@@ -955,7 +1202,8 @@ def main(argv=None) -> int:
         return 0
     rows = []
     launches = dict(state["launches"], attention_backward=state["train_launches"][
-        "attention_backward"])
+        "attention_backward"], fused_attention_joint_int8=state["gen_launches"][
+        "fused_attention_joint_int8"])
     for name, replaces in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                      "launches": launches[name], **state["kernel_rows"][name]})

@@ -77,6 +77,28 @@ def test_joint_plain_matches_packed_kernel_interpret(case):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-4, atol=2e-4)
 
 
+def test_joint_int8_plain_matches_packed_kernel_interpret():
+    """K7: `_flash_packed_kernel` with int8_scores (interpret mode) vs
+    fused_attention_joint_int8's plain path at tests/test_attention.py:203's
+    shapes (b=1, h=4, 256 x 512, d=64, masked tail). Same codes, scales and
+    exact integer products; the f32 prologues differ in op order, which
+    flips a rare code at a rounding tie: 5e-4 (measured 9e-5), where the
+    int8 quantization itself moves the output by ~6e-2."""
+    rng = np.random.default_rng(8)
+    b, h, sq, skv = 1, 4, 256, 512
+    q, k, v = _merged(rng, b, sq, h), _merged(rng, b, skv, h), _merged(rng, b, skv, h)
+    bias = np.zeros((b, skv), np.float32)
+    bias[0, skv - 17:] = -1e9
+    (jq, tq), (jk, tk) = _tabs_pair(rng, sq, skv)
+    ref = JA._flash_fused_packed_tpu(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                     jnp.asarray(bias), jq, jk, h, 128, 256, True, 1e-6,
+                                     True, True, interpret=True, int8_scores=True)
+    out = TA.fused_attention_joint_int8(t(q), t(k), t(v), tq, tk, key_bias=t(bias), heads=h)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=5e-4)
+    exact = TA.fused_attention_joint(t(q), t(k), t(v), tq, tk, key_bias=t(bias), heads=h)
+    assert (out - exact).abs().max().item() > 1e-2  # the int8 path really ran
+
+
 def test_cross_smallkv_plain_matches_kernel_interpret():
     """K2 (`_cross_smallkv_kernel`): long q, kv of 96 (padded and masked in
     the TPU kernel). 6e-4: the TPU kernel's max-free exp2 runs deep below 1
@@ -172,6 +194,7 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
     TA.fused_attention_cross_smallkv(x, x, x, tq, tk, heads=2)
     TA.fused_attention_cross_smallq(x, x, x, tq, tk, heads=2)
     TA.flash_attention_bhsd(TA.split_heads(x, 2), TA.split_heads(x, 2), TA.split_heads(x, 2))
+    TA.fused_attention_joint_int8(x, x, x, tq, tk, heads=2)
     assert all(n == 0 for n in TA.launch_counts().values())
 
 
@@ -191,4 +214,31 @@ def test_dispatch_routes_like_jax(monkeypatch, sq, skv, expect):
     q = torch.zeros(1, sq, D)
     k = torch.zeros(1, skv, D)
     TA.fused_flash_attention(q, k, k, None, None, heads=1)
+    assert called == [expect]
+
+
+@pytest.mark.parametrize("sq,skv,heads,d,grad,expect", [
+    (300, 300, 2, 64, False, "fused_attention_joint_int8"),
+    (300, 300, 1, 64, False, "fused_attention_joint"),
+    (300, 300, 2, 16, False, "fused_attention_joint"),
+    (2100, 96, 2, 64, False, "fused_attention_cross_smallkv"),
+    (96, 2100, 2, 64, False, "fused_attention_cross_smallq"),
+    (300, 300, 2, 64, True, "_FusedAttention"),
+])
+def test_int8_scores_route_like_jax(monkeypatch, sq, skv, heads, d, grad, expect):
+    """With int8_scores, fused_flash_attention takes K7 where the JAX
+    package's packed head-pair kernel takes its int8 branch (even heads,
+    2*d = 128): the cross shapes still go to K2/K3, odd heads and other head
+    dims stay on bf16 K1, and under autograd the bf16 K1-with-lse Function
+    runs (the JAX custom_vjp forward)."""
+    called = []
+    for name in ("fused_attention_joint", "fused_attention_cross_smallkv",
+                 "fused_attention_cross_smallq", "fused_attention_joint_int8"):
+        monkeypatch.setattr(TA, name, lambda *a, _n=name, **k: called.append(_n))
+    monkeypatch.setattr(TA._FusedAttention, "apply",
+                        lambda *a, **k: called.append("_FusedAttention"))
+    q = torch.zeros(1, sq, heads * d, requires_grad=grad)
+    k = torch.zeros(1, skv, heads * d)
+    tabs = TA.prologue_identity(max(sq, skv), d)
+    TA.fused_flash_attention(q, k, k, tabs, tabs, heads=heads, int8_scores=True)
     assert called == [expect]

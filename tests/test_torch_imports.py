@@ -23,6 +23,8 @@ def test_import_loads_no_jax():
         f"tokensgen_tpu_torch.train.{m}"
         for m in ("adam8bit", "checkpoint", "objective", "optim", "staging", "to2v")}
     assert trainer <= set(_modules())
+    gen = {"tokensgen_tpu_torch.core.pca", "tokensgen_tpu_torch.pipelines.t2to"}
+    assert gen <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"

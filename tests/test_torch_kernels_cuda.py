@@ -1,7 +1,7 @@
 """The Hopper attention kernels of tokensgen_tpu_torch (the forwards K1-K4,
-their logsumexp outputs, the backward K5) against their plain PyTorch
-versions, on the card. Every test here is marked ``cuda`` and skips
-without a card. This file imports no JAX, so it also runs on a machine that
+their logsumexp outputs, the backward K5, the int8-score forward K7)
+against their plain PyTorch versions, on the card. Every test here is
+marked ``cuda`` and skips without a card. This file imports no JAX, so it also runs on a machine that
 has none (skipping tests/conftest.py, which does):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
@@ -151,6 +151,24 @@ def test_backward_matches_plain_on_card(cuda_device, layout):
     for x, r in zip(got[:3], ref[:3]):
         _assert_within_bounds(x if layout == "bhsd" else TA.split_heads(x, h), r)
     _assert_within_bounds(got[3], ref[3])
+
+
+@pytest.mark.cuda
+def test_int8_kernel_matches_plain_on_card(cuda_device):
+    """K7 vs attention_fused_int8_plain on the same bf16 inputs (ragged
+    lengths, per-sample tables, a key-bias mask), within REL_L2_BOUND and
+    MAX_ABS_REL: the same codes and scales up to a rare code at a rounding
+    tie (the kernel folds log2 e in after the prologue), exact integer
+    products, p rounded to bf16 on both sides."""
+    q, k, v, tq, tk, bias, h = _case("fused_attention_joint", cuda_device)
+    before = TA.fused_attention_joint_int8.launches
+    out = TA.fused_attention_joint_int8(q, k, v, tq, tk, key_bias=bias, heads=h)
+    ref = TA.attention_fused_int8_plain(q, k, v, bias, tq, tk, h, 1e-6, True, True)
+    torch.cuda.synchronize()
+    assert TA.fused_attention_joint_int8.launches == before + 1
+    _assert_within_bounds(out, ref)
+    with pytest.raises(ValueError):
+        TA.fused_attention_joint_int8(q[..., :192], k[..., :192], v[..., :192], tq, tk, heads=3)
 
 
 @pytest.mark.cuda

@@ -98,7 +98,8 @@ def test_generate_matches_jax(pipes):
 
 def test_infer_cli_smoke(tmp_path):
     """The port's edit CLI at --smoke geometry on the host: config overrides,
-    random weights made on the device from the seed, latents written."""
+    random weights made on the device from the seed, latents written; in
+    bf16 (quant=null) and with the config's shipped w8a8."""
     import glob
     import os
 
@@ -112,6 +113,10 @@ def test_infer_cli_smoke(tmp_path):
     (path,) = glob.glob(str(tmp_path / "edit_*" / "edit_item_1_latents.npy"))
     lat = np.load(path)
     assert lat.shape == (1, 6, 16, 4, 6) and np.isfinite(lat).all()
-    with pytest.raises(NotImplementedError, match="int8"):
-        infer.main(["--config", cfg, "--smoke", "--device", "cpu",
-                    "--set", f"output_dir={tmp_path}"])
+    infer.main(["--config", cfg, "--smoke", "--device", "cpu",
+                "--set", f"output_dir={tmp_path / 'w8a8'}",
+                "--set", "input_config.edit_item_1.params.max_num_chunks=2"])
+    (path,) = glob.glob(str(tmp_path / "w8a8" / "edit_*" / "edit_item_1_latents.npy"))
+    quant = np.load(path)
+    assert quant.shape == lat.shape and np.isfinite(quant).all()
+    assert np.abs(quant - lat).max() > 0  # the int8 path really ran

@@ -19,7 +19,14 @@ StateDict = Dict[str, np.ndarray]
 
 
 def _lin(sd: StateDict, name: str, p) -> None:
-    sd[f"{name}.weight"] = np.ascontiguousarray(np.asarray(p["kernel"]).T)
+    """A Dense (``kernel`` [in, out]) or, from a quantized tree, a QuantDense
+    (``kernel_q`` int8 [in, out], ``scale`` f32 [out]) -> the port's
+    [out, in] ``weight`` / ``weight_q`` (+ ``scale``), and ``bias``."""
+    if "kernel_q" in p:
+        sd[f"{name}.weight_q"] = np.ascontiguousarray(np.asarray(p["kernel_q"]).T)
+        sd[f"{name}.scale"] = np.asarray(p["scale"])
+    else:
+        sd[f"{name}.weight"] = np.ascontiguousarray(np.asarray(p["kernel"]).T)
     if "bias" in p:
         sd[f"{name}.bias"] = np.asarray(p["bias"])
 
@@ -44,7 +51,10 @@ def _layer(tree, i: int):
 
 def dit_state_dict(tree, cfg) -> StateDict:
     """`CogVideoXTransformer` tree -> port state dict (``cfg``: the port's or
-    the JAX package's DiTConfig; only ``num_layers`` and ``vip`` are read)."""
+    the JAX package's DiTConfig; only ``num_layers`` and ``vip`` are read).
+    Takes the To2V and the T2To (no VIP, patch size 1) trees, float or
+    quantized by `quantize_dit_params` (load into a model built with the
+    same ``quant``)."""
     sd: StateDict = {}
     _lin(sd, "patch_embed.text_proj", tree["text_proj"])
     _conv2d(sd, "patch_embed.proj", tree["patch_proj"])
@@ -121,6 +131,17 @@ def vae_state_dict(tree) -> StateDict:
 
     walk(tree, [])
     return sd
+
+
+def pca_state(state):
+    """The JAX package's `PCAState` (or any (mean, components) pair) -> the
+    port's, as float32 CPU tensors."""
+    import torch
+
+    from tokensgen_tpu_torch.core.pca import PCAState
+
+    mean, components = state
+    return PCAState(*(torch.from_numpy(np.array(x, dtype=np.float32)) for x in (mean, components)))
 
 
 def to_torch(sd: StateDict):

@@ -1,8 +1,8 @@
 """Attention for the joint [text‖video‖vip] sequence: table API, plain PyTorch
 versions, and the hand-written Hopper kernels that replace the Pallas TPU ones.
 
-Port of `tokensgen_tpu/kernels/attention.py`. Five kernel entry points, one per
-TPU kernel on the edit and training paths, each with a launch counter
+Port of `tokensgen_tpu/kernels/attention.py`. Six kernel entry points, one per
+TPU kernel on the edit, training and generation paths, each with a launch counter
 (``fn.launches``; K1 and K4 also count their logsumexp launches in
 ``fn.lse_launches``):
 
@@ -14,12 +14,15 @@ fused_attention_cross_smallkv  `_cross_smallkv_kernel` :922 (K2)              mo
 fused_attention_cross_smallq   `_cross_smallq_kernel` :1048 (K3)              models/dit.py vip→all
 flash_attention_bhsd           `_flash_kernel` :54 (K4)                       models/resampler.py
 attention_backward             `_packed_bwd_kernel` :1220 (K5)                the two autograd Functions
+fused_attention_joint_int8     `_flash_packed_kernel` :586, int8_scores (K7)  models/dit.py under quant_attn
 =============================  =============================================  ============================
 
 The public dispatchers are those of the JAX package: `flash_attention` (K4)
 and `fused_flash_attention`, which routes among the first three as the JAX
-one does. When autograd needs a gradient (grad mode on and an input that
-requires grad), both take a `torch.autograd.Function` instead, the counterparts of
+one does (K7 for the joint calls that ask for ``int8_scores``, where the JAX
+package takes its int8 branch). When autograd needs a gradient (grad mode on
+and an input that requires grad), both take a `torch.autograd.Function`
+instead, the counterparts of
 `_flash_packed_diff` and `_flash_attention_tpu_diff`: the forward is K1 (for
 every shape, as the JAX custom_vjp forward skips the K2/K3 routing) or K4,
 each with its logsumexp; the backward is K5. On the CPU both directions run
@@ -155,6 +158,11 @@ def concat_tabs(*tabs_list):
 
 def apply_prologue_plain(x: torch.Tensor, tabs, eps: float, normalize: bool) -> torch.Tensor:
     """Plain prologue (`_apply_prologue_xla`): x [..., S, D], tabs [(B,)S, D]."""
+    return _prologue32(x, tabs, eps, normalize).to(x.dtype)
+
+
+def _prologue32(x: torch.Tensor, tabs, eps: float, normalize: bool) -> torch.Tensor:
+    """The prologue in f32 (`apply_prologue_plain` before its cast)."""
     cosg, sin, add, rg = tabs
     x32 = x.float()
     if normalize:
@@ -166,8 +174,7 @@ def apply_prologue_plain(x: torch.Tensor, tabs, eps: float, normalize: bool) -> 
         ln0 = x32
     if cosg.dim() == 3 and x.dim() == 4:  # batched tables vs x [B, H, S, D]
         cosg, sin, add = cosg[:, None], sin[:, None], add[:, None]
-    y = ln0 * cosg + (ln0 @ rg) * sin + add
-    return y.to(x.dtype)
+    return ln0 * cosg + (ln0 @ rg) * sin + add
 
 
 def _q_chunk(b: int, h: int, sq: int, skv: int) -> int:
@@ -237,6 +244,55 @@ def attention_fused_plain(q, k, v, key_bias, tabs_q, tabs_k, eps, norm_q, norm_k
     return attention_plain(qn, kn, v, key_bias, 1.0)
 
 
+def quantize_pairs_plain(x, tabs, eps: float, normalize: bool, scale: float = 1.0):
+    """K7's quantizing prologue on [B, H, S, D] (H even): y = the f32
+    prologue with ``scale`` folded into the tables (as the JAX wrapper folds
+    log2 e into the q tables), and per (b, head pair, row) the absmax
+    s = max(max|y| over the pair's 2*D features, 1e-30). Returns the codes
+    clip(rint(y * (127 / s)), -127, 127) as f32 integers [B, H, S, D] and the
+    dequant scales s * (1 / 127), f32 [B, H/2, S]."""
+    cosg, sin, add, rg = tabs
+    if scale != 1.0:
+        tabs = (cosg * scale, sin * scale, add * scale, rg)
+    y = _prologue32(x, tabs, eps, normalize)
+    b, h, s, d = y.shape
+    yp = y.reshape(b, h // 2, 2, s, d)
+    amax = torch.clamp_min(yp.abs().amax(dim=(2, 4)), 1e-30)
+    codes = torch.clamp(torch.round(yp * (127.0 / amax)[:, :, None, :, None]), -127, 127)
+    return codes.reshape(b, h, s, d), amax * (1.0 / 127.0)
+
+
+def attention_int8_plain(q8, qs, k8, ks, v, key_bias):
+    """K7's attention from the codes and scales of `quantize_pairs_plain`
+    (log2 e already in q's): scores (q8 . k8^T) * qs_row * ks_col + bias *
+    log2 e, exact integer products (f32 holds them: |q8 . k8| < 2^24),
+    softmax in base 2, p rounded to v's dtype for p@v, f32 sums. [B, H, S, D]
+    in, v's dtype out; in q-row chunks under ``MAX_SCORE_BYTES``."""
+    b, h, sq, _ = q8.shape
+    skv = k8.shape[2]
+    chunk = _q_chunk(b, h, sq, skv)
+    qsh, ksh = qs.repeat_interleave(2, dim=1), ks.repeat_interleave(2, dim=1)
+    bias = key_bias.float()[:, None, None, :] * _LOG2E
+    vf = v.float()
+    outs = []
+    for i in range(0, sq, chunk):
+        s = torch.einsum("bhqd,bhkd->bhqk", q8[:, :, i:i + chunk], k8)
+        s.mul_(qsh[:, :, i:i + chunk, None]).mul_(ksh[:, :, None, :]).add_(bias)
+        s.sub_(s.amax(dim=-1, keepdim=True)).exp2_()
+        l = s.sum(dim=-1, keepdim=True)
+        outs.append((torch.einsum("bhqk,bhkd->bhqd", s.to(v.dtype).float(), vf) / l).to(v.dtype))
+    return torch.cat(outs, dim=2)
+
+
+def attention_fused_int8_plain(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k):
+    """Plain K7 (the int8_scores branch of `_flash_packed_kernel`) on merged
+    [B, S, H*D] operands, H even: both prologues quantized per (row, head
+    pair), then `attention_int8_plain`."""
+    q8, qs = quantize_pairs_plain(split_heads(q, heads), tabs_q, eps, norm_q, _LOG2E)
+    k8, ks = quantize_pairs_plain(split_heads(k, heads), tabs_k, eps, norm_k)
+    return merge_heads(attention_int8_plain(q8, qs, k8, ks, split_heads(v, heads), key_bias))
+
+
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     b, s, hd = x.shape
     return x.reshape(b, s, heads, hd // heads).permute(0, 2, 1, 3)
@@ -287,9 +343,30 @@ class _BwdArgs(ctypes.Structure):
     )
 
 
+class _QuantArgs(ctypes.Structure):
+    """Mirror of `TGQuantArgs` in csrc/attention.cu (every field 8 bytes)."""
+
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in ("x", "codes", "scales", "cos", "sin", "add", "rot")]
+        + [(n, ctypes.c_int64) for n in ("sb", "ss", "tb", "b", "s", "pairs", "norm")]
+        + [("scale", ctypes.c_double), ("eps", ctypes.c_double)]
+    )
+
+
+class _Int8Args(ctypes.Structure):
+    """Mirror of `TGInt8Args` in csrc/attention.cu (every field 8 bytes)."""
+
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in ("q8", "k8", "qs", "ks", "v", "o", "bias")]
+        + [(n, ctypes.c_int64) for n in (
+            "v_sb", "v_ss", "v_sh", "o_sb", "o_ss", "o_sh", "b", "h", "sq", "skv")]
+    )
+
+
 _ENTRY_POINTS = ("tg_attention_joint", "tg_attention_cross_smallkv",
                  "tg_attention_cross_smallq", "tg_attention_bhsd")
 _BWD_ENTRY_POINT = "tg_attention_bwd"
+_INT8_ENTRY_POINT = "tg_attention_joint_int8"
 
 
 class _Library:
@@ -324,6 +401,10 @@ def build_kernels(force: bool = False) -> Path:
             args = _BwdArgs if name == _BWD_ENTRY_POINT else _Args
             fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        fn = getattr(lib, _INT8_ENTRY_POINT)
+        fn.argtypes = [ctypes.POINTER(_QuantArgs), ctypes.POINTER(_QuantArgs),
+                       ctypes.POINTER(_Int8Args), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
         _Library.lib = lib
     return out
 
@@ -374,6 +455,19 @@ def _check_tabs(name: str, tabs, seqlen: int, batch: int, device):
     torch._assert_async(torch.all((rg == 0) | pair))
     return out, rot, tb
 
+
+def _bias_ptr(key_bias, b: int, skv: int, keep: list):
+    """Device pointer of the f32 [B, Skv] key bias (None: no bias); the
+    contiguous f32 copy is appended to ``keep``."""
+    if key_bias is None:
+        return None
+    kb = key_bias.float().contiguous()
+    if kb.shape != (b, skv):
+        raise ValueError(f"key_bias: expected [{b}, {skv}], got {tuple(kb.shape)}")
+    keep.append(kb)
+    return kb.data_ptr()
+
+
 def _launch(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k,
             qscale: float, with_lse: bool = False):
     """Launches a forward kernel; returns ``out`` or, ``with_lse``, (out, lse)
@@ -397,12 +491,7 @@ def _launch(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, n
         setattr(a, f"{name}_sb", sb)
         setattr(a, f"{name}_ss", ss)
         setattr(a, f"{name}_sh", sh)
-    if key_bias is not None:
-        kb = key_bias.float().contiguous()
-        if kb.shape != (b, skv):
-            raise ValueError(f"key_bias: expected [{b}, {skv}], got {tuple(kb.shape)}")
-        keep.append(kb)
-        a.bias = kb.data_ptr()
+    a.bias = _bias_ptr(key_bias, b, skv, keep)
     for side, tabs, seqlen in (("q", tabs_q, sq), ("k", tabs_k, skv)):
         if tabs is None:
             continue
@@ -445,12 +534,7 @@ def _launch_bwd(q, k, v, g, lse, dsum, key_bias, heads, scale: float, with_dbias
         if x.dtype != torch.float32 or x.shape != (b, h, sq) or not x.is_contiguous():
             raise ValueError(f"{name}: expected contiguous float32 [{b}, {h}, {sq}]")
         setattr(a, name, x.data_ptr())
-    if key_bias is not None:
-        kb = key_bias.float().contiguous()
-        if kb.shape != (b, skv):
-            raise ValueError(f"key_bias: expected [{b}, {skv}], got {tuple(kb.shape)}")
-        keep.append(kb)
-        a.bias = kb.data_ptr()
+    a.bias = _bias_ptr(key_bias, b, skv, keep)
     dbias = None
     if with_dbias:
         dbias = torch.empty(b, h, skv, dtype=torch.float32, device=q.device)
@@ -462,6 +546,43 @@ def _launch_bwd(q, k, v, g, lse, dsum, key_bias, heads, scale: float, with_dbias
     if err != 0:
         raise RuntimeError(f"{_BWD_ENTRY_POINT}: CUDA launch failed with error {err}")
     return (*grads, None if dbias is None else dbias.sum(dim=1))
+
+
+def _launch_int8(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k):
+    """Launches K7 (both quantizing prologues, then the attention); the int8
+    codes and scales are scratch allocated here."""
+    lib = _lib()
+    b, sq, skv = q.shape[0], q.shape[1], k.shape[1]
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    keep = [out]  # buffers that must outlive the launch call
+    sides = []
+    for name, x, tabs, seqlen, norm, scale in (("q", q, tabs_q, sq, norm_q, _LOG2E),
+                                               ("k", k, tabs_k, skv, norm_k, 1.0)):
+        sb, ss, _ = _check_operand(name, x, heads)
+        (cosg, sin, add), rot, tb = _check_tabs(f"tabs_{name}", tabs, seqlen, b, q.device)
+        codes = torch.empty(b, seqlen, heads * 64, dtype=torch.int8, device=q.device)
+        scales = torch.empty(b, heads // 2, seqlen, dtype=torch.float32, device=q.device)
+        keep += [cosg, sin, add, rot, codes, scales]
+        sides.append(_QuantArgs(
+            x.data_ptr(), codes.data_ptr(), scales.data_ptr(), cosg.data_ptr(), sin.data_ptr(),
+            add.data_ptr(), rot.data_ptr(), sb, ss, tb, b, seqlen, heads // 2, int(norm),
+            scale, eps))
+    a = _Int8Args()
+    a.q8, a.qs, a.k8, a.ks = sides[0].codes, sides[0].scales, sides[1].codes, sides[1].scales
+    for name, x in (("v", v), ("o", out)):
+        sb, ss, sh = _check_operand(name, x, heads)
+        setattr(a, name, x.data_ptr())
+        setattr(a, f"{name}_sb", sb)
+        setattr(a, f"{name}_ss", ss)
+        setattr(a, f"{name}_sh", sh)
+    a.bias = _bias_ptr(key_bias, b, skv, keep)
+    a.b, a.h, a.sq, a.skv = b, heads, sq, skv
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = getattr(lib, _INT8_ENTRY_POINT)(ctypes.byref(sides[0]), ctypes.byref(sides[1]),
+                                          ctypes.byref(a), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{_INT8_ENTRY_POINT}: CUDA launch failed with error {err}")
+    return out
 
 
 def _require_cuda(*xs):
@@ -566,8 +687,26 @@ def attention_backward(q, k, v, g, lse, dsum, key_bias=None, heads: Optional[int
     return res
 
 
+def fused_attention_joint_int8(q, k, v, tabs_q, tabs_k, key_bias=None, heads: int = None,
+                               eps: float = 1e-6, norm_q: bool = True, norm_k: bool = True):
+    """K7, base joint self-attention with the score product in int8 (the
+    DiT's ``quant_attn``; inference only): K1's function with q and k
+    quantized per (row, head pair) after their prologues, on merged
+    [B, S, H*64] operands with H even. No lse, no gradient."""
+    if heads is None or heads % 2:
+        raise ValueError(f"fused_attention_joint_int8: heads must be even, got {heads}")
+    if q.device.type == "cpu":
+        return attention_fused_int8_plain(q, k, v, _bias_or_zeros(key_bias, k, heads), tabs_q,
+                                          tabs_k, heads, eps, norm_q, norm_k)
+    _require_cuda(k, v)
+    out = _launch_int8(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k)
+    fused_attention_joint_int8.launches += 1
+    return out
+
+
 KERNEL_ENTRY_POINTS = (fused_attention_joint, fused_attention_cross_smallkv,
-                       fused_attention_cross_smallq, flash_attention_bhsd, attention_backward)
+                       fused_attention_cross_smallq, flash_attention_bhsd, attention_backward,
+                       fused_attention_joint_int8)
 LSE_ENTRY_POINTS = (fused_attention_joint, flash_attention_bhsd)
 
 
@@ -695,11 +834,15 @@ def flash_attention(q, k, v, key_bias=None, scale: Optional[float] = None):
 
 
 def fused_flash_attention(q, k, v, tabs_q, tabs_k, key_bias=None, heads: int = None,
-                          eps: float = 1e-6, norm_q: bool = True, norm_k: bool = True):
+                          eps: float = 1e-6, norm_q: bool = True, norm_k: bool = True,
+                          int8_scores: bool = False):
     """Attention with the qk-norm + RoPE prologue fused, on merged
     [B, S, H*D] operands. Routes one-tiny-side cross shapes to the small-side
     kernels exactly where the JAX `_flash_packed_diff` does; when a gradient
-    is needed, every shape takes `_FusedAttention` (K1 with lse, then K5)."""
+    is needed, every shape takes `_FusedAttention` (K1 with lse, then K5).
+    ``int8_scores`` sends the other calls to K7 where the JAX package's
+    packed head-pair kernel would take them (even heads, D = 64); the rest
+    stay on K1 in bf16, as the JAX package keeps its bf16 fallbacks."""
     if heads is None or q.dim() != 3:
         raise ValueError("fused_flash_attention takes merged [B, S, H*D] operands and heads")
     if _grad_needed(q, k, v, key_bias, *(tabs_q or ()), *(tabs_k or ())):
@@ -713,5 +856,8 @@ def fused_flash_attention(q, k, v, tabs_q, tabs_k, key_bias=None, heads: int = N
         if sq <= 512 and skv > 2048:
             return fused_attention_cross_smallq(q, k, v, tabs_q, tabs_k, key_bias, heads,
                                                 eps, norm_q, norm_k)
+    if int8_scores and heads % 2 == 0 and q.shape[2] == 64 * heads:
+        return fused_attention_joint_int8(q, k, v, tabs_q, tabs_k, key_bias, heads, eps,
+                                          norm_q, norm_k)
     return fused_attention_joint(q, k, v, tabs_q, tabs_k, key_bias, heads, eps, norm_q, norm_k)
 

@@ -1,6 +1,7 @@
-// Flash-attention kernels for the attention calls of the To2V edit and
-// training paths, written for Hopper (sm_90a), head dim 64, bf16 operands with
-// f32 softmax and accumulation on mma.sync m16n8k16 tensor-core tiles.
+// Flash-attention kernels for the attention calls of the To2V edit, training
+// and generation paths, written for Hopper (sm_90a), head dim 64, bf16
+// operands with f32 softmax and accumulation on mma.sync m16n8k16 tensor-core
+// tiles (K7: its score product on m16n8k32 int8 tiles).
 //
 // Replaces the Pallas TPU kernels of tokensgen_tpu/kernels/attention.py:
 //   tg_attention_joint          joint_kernel    <- _flash_packed_kernel  (_flash_fused_packed_tpu)
@@ -9,6 +10,8 @@
 //   tg_attention_bhsd           bhsd_kernel     <- _flash_kernel         (_flash_attention_tpu)
 //   tg_attention_bwd            bwd_dkdv_kernel + bwd_dq_kernel
 //                                               <- _packed_bwd_kernel    (_flash_packed_bwd_tpu)
+//   tg_attention_joint_int8     int8_prologue_kernel + joint_int8_kernel
+//                                               <- _flash_packed_kernel, int8_scores branch
 //
 // The forward kernels optionally write the per-row logsumexp of the scores,
 // f32 [B, H, Sq], in the NATURAL log base (lse = ln sum_j exp(s_j), with s the
@@ -235,29 +238,14 @@ __device__ __forceinline__ void init_acc(Acc& acc) {
   acc.l[0] = acc.l[1] = 0.f;
 }
 
-// One kv tile of BN keys for this warp's 16 rows: s = q.k^T (+ bias) in the
-// log2 domain, online max, p = exp2(s - m), acc = alpha*acc + bf16(p) @ v.
-// ``Ks``: tile rows (pitch LDS); ``Vt``: transposed tile columns (pitch ldv).
-__device__ __forceinline__ void attend_tile(const uint32_t (&qa)[4][4], const __nv_bfloat16* Ks,
-                                            const __nv_bfloat16* Vt, int ldv, int kv0, int skv,
-                                            const float* bias, Acc& acc) {
+// The softmax half of one kv tile of BN keys for this warp's 16 rows, from
+// their log2-domain scores ``s`` (mma accumulator layout): key bias and the
+// ragged-tile mask, online max, p = exp2(s - m), acc = alpha*acc + bf16(p) @ v.
+// ``Vt``: the tile's transposed v columns (pitch ldv).
+__device__ __forceinline__ void softmax_pv(float (&s)[8][4], const __nv_bfloat16* Vt, int ldv,
+                                           int kv0, int skv, const float* bias, Acc& acc) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  float s[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const __nv_bfloat16* kp = Ks + (nt * 8 + g) * LDS + kk * 16 + t * 2;
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kp);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kp + 8);
-      mma16816(s[nt], qa[kk], b0, b1);
-    }
-  }
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
@@ -321,6 +309,31 @@ __device__ __forceinline__ void attend_tile(const uint32_t (&qa)[4][4], const __
   }
 }
 
+// One kv tile of BN keys for this warp's 16 rows: s = q.k^T in the log2
+// domain on bf16 tensor cores, then `softmax_pv`. ``Ks``: tile rows (pitch LDS).
+__device__ __forceinline__ void attend_tile(const uint32_t (&qa)[4][4], const __nv_bfloat16* Ks,
+                                            const __nv_bfloat16* Vt, int ldv, int kv0, int skv,
+                                            const float* bias, Acc& acc) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float s[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const __nv_bfloat16* kp = Ks + (nt * 8 + g) * LDS + kk * 16 + t * 2;
+      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kp);
+      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kp + 8);
+      mma16816(s[nt], qa[kk], b0, b1);
+    }
+  }
+  softmax_pv(s, Vt, ldv, kv0, skv, bias, acc);
+}
+
 // o = acc / l for this warp's 16 rows starting at q row ``q0 + warp*16``;
 // with ``lse`` (already at (b, h)), also the rows' natural-log logsumexp.
 __device__ __forceinline__ void store_out(Acc& acc, __nv_bfloat16* o, long long os, int q0, int sq,
@@ -335,7 +348,7 @@ __device__ __forceinline__ void store_out(Acc& acc, __nv_bfloat16* o, long long 
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
   if (lse != nullptr && t == 0) {
     // acc.m is the row max of the log2-domain scores (reduced over the 4
-    // threads of a row in attend_tile)
+    // threads of a row in softmax_pv)
     if (r0 < sq) lse[r0] = (acc.m[0] + log2f(l0)) * LN2;
     if (r1 < sq) lse[r1] = (acc.m[1] + log2f(l1)) * LN2;
   }
@@ -760,6 +773,227 @@ __global__ void __launch_bounds__(NTHREADS) bwd_dq_kernel(const TGAttnBwdArgs a)
                static_cast<float>(a.scale));
 }
 
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// K7: joint self-attention with the score product in int8 (the int8_scores
+// branch of _flash_packed_kernel, flag of _flash_fused_packed_tpu; the
+// DiT's quant_attn). What it computes, per batch row b and head h of pair
+// p = h / 2:
+//
+//   y   = prologue(x) * scale    f32 (scale = log2 e on the q side, 1 on k)
+//   s_r = max(max |y| over the 128 features of pair p in row r, 1e-30)
+//   c   = clip(rint(y * (127 / s_r)), -127, 127)          int8 codes
+//   scores = int32(cq . ck^T) * (sq_r / 127) * (sk_j / 127) + bias_j * log2 e
+//   out = softmax_2(scores) . v    (p rounded to bf16, f32 accumulation)
+//
+// Both heads of a pair share a row's scale: that is the TPU kernel's
+// quantization granularity (its head pair fills the 128 lanes), kept here.
+//
+// Design (simple first version; see PERF.md for the times):
+// * int8_prologue_kernel: one warp per (b, row, pair) runs the LN + RoPE
+//   prologue in f32 over the pair's 128 features (4 per lane, LayerNorm sums
+//   over each head's 16 lanes), reduces the absmax over the 32 lanes, and
+//   writes the codes [B, S, H*64] and the scales s_r / 127 [B, H/2, S]. The
+//   pair-wide scale needs both heads of a row, which a per-head attention
+//   block does not see; and the k prologue now runs once per kv row instead
+//   of once per q tile, as in K1.
+// * joint_int8_kernel: K1's structure (a block owns 128 q rows of one (b, h)
+//   and sweeps kv tiles of 64), with the scores on mma.sync m16n8k32
+//   s8 x s8 -> s32 (the B operand is the k tile row-major, which is the
+//   codes' own layout), dequantized by the row and column scales, then K1's
+//   online softmax, ragged-tile mask and bf16 p@v.
+// Bound on this card: the two products (the score product at the int8 rate,
+// p@v at the bf16 rate).
+// ---------------------------------------------------------------------------
+
+// Quantizing prologue arguments (every field 8 bytes). x: bf16 [B, S, H*64]
+// with strides sb, ss (elements), pair p at columns [128p, 128p + 128);
+// codes: int8 [B, S, H*64] contiguous; scales: f32 [B, H/2, S].
+struct TGQuantArgs {
+  const void* x; void* codes; void* scales;
+  const void* cos; const void* sin; const void* add; const void* rot;
+  long long sb, ss, tb;
+  long long b, s, pairs, norm;
+  double scale, eps;
+};
+
+// Int8-score attention arguments (every field 8 bytes): the codes and scales
+// of q and k as int8_prologue_kernel writes them, v and o bf16 with strides
+// in elements, bias f32 [B, Skv] or null.
+struct TGInt8Args {
+  const void* q8; const void* k8; const void* qs; const void* ks;
+  const void* v; void* o; const void* bias;
+  long long v_sb, v_ss, v_sh;
+  long long o_sb, o_ss, o_sh;
+  long long b, h, sq, skv;
+};
+
+namespace {
+
+constexpr int QP_WARPS = 8;   // rows per int8_prologue_kernel block
+constexpr int LDI8 = D + 16;  // smem pitch (bytes) of the int8 tiles: conflict-free fragments
+
+__device__ __forceinline__ float half_sum16(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  x += __shfl_xor_sync(0xffffffffu, x, 4);
+  x += __shfl_xor_sync(0xffffffffu, x, 8);
+  return x;
+}
+
+// Grid (ceil(S / QP_WARPS), H/2, B); warp w takes row blockIdx.x * 8 + w.
+__global__ void __launch_bounds__(QP_WARPS * 32) int8_prologue_kernel(const TGQuantArgs a) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long row = (long long)blockIdx.x * QP_WARPS + warp;
+  const int p = blockIdx.y, b = blockIdx.z;
+  if (row >= a.s) return;  // the whole warp: row is uniform in it
+  const int c = (lane & 15) * 4;      // column in the head
+  const int col = p * 128 + lane * 4;  // column in the row
+  const uint2 raw = *reinterpret_cast<const uint2*>(
+      static_cast<const __nv_bfloat16*>(a.x) + b * a.sb + row * a.ss + col);
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float2 x01 = __bfloat1622float2(h2[0]), x23 = __bfloat1622float2(h2[1]);
+  float ln0[4] = {x01.x, x01.y, x23.x, x23.y};
+  if (a.norm) {
+    const float mu = half_sum16(ln0[0] + ln0[1] + ln0[2] + ln0[3]) * (1.f / D);
+    float vs = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      ln0[e] -= mu;
+      vs += ln0[e] * ln0[e];
+    }
+    const float inv = rsqrtf(half_sum16(vs) * (1.f / D) + static_cast<float>(a.eps));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ln0[e] *= inv;
+  }
+  const long long toff = b * a.tb + row * D + c;
+  const float4 cg = *reinterpret_cast<const float4*>(static_cast<const float*>(a.cos) + toff);
+  const float4 sn = *reinterpret_cast<const float4*>(static_cast<const float*>(a.sin) + toff);
+  const float4 ad = *reinterpret_cast<const float4*>(static_cast<const float*>(a.add) + toff);
+  const float4 rc = *reinterpret_cast<const float4*>(static_cast<const float*>(a.rot) + c);
+  const float cgv[4] = {cg.x, cg.y, cg.z, cg.w}, snv[4] = {sn.x, sn.y, sn.z, sn.w};
+  const float adv[4] = {ad.x, ad.y, ad.z, ad.w}, rcv[4] = {rc.x, rc.y, rc.z, rc.w};
+  const float scale = static_cast<float>(a.scale);
+  float y[4], amax = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float rot = ln0[e ^ 1] * rcv[e];
+    y[e] = (ln0[e] * cgv[e] + rot * snv[e] + adv[e]) * scale;
+    amax = fmaxf(amax, fabsf(y[e]));
+  }
+#pragma unroll
+  for (int m = 1; m < 32; m <<= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, m));
+  const float sc = fmaxf(amax, 1e-30f);
+  const float mul = 127.f / sc;
+  char4 q;
+  int v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = max(-127, min(127, __float2int_rn(y[e] * mul)));
+  q.x = static_cast<signed char>(v[0]);
+  q.y = static_cast<signed char>(v[1]);
+  q.z = static_cast<signed char>(v[2]);
+  q.w = static_cast<signed char>(v[3]);
+  *reinterpret_cast<char4*>(static_cast<int8_t*>(a.codes) + (b * a.s + row) * (a.pairs * 128) +
+                            col) = q;
+  if (lane == 0) static_cast<float*>(a.scales)[(b * a.pairs + p) * a.s + row] = sc * (1.f / 127.f);
+}
+
+__device__ __forceinline__ void mma16832_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Rows [row0, row0 + nrows) of one head's int8 codes (``src`` at (b, head),
+// ``rs`` bytes per row) into shared memory (pitch LDI8), zeros past seqlen.
+// Four threads per row, 16 bytes each.
+__device__ void load_rows_i8(int8_t* dst, const int8_t* src, long long rs, int row0, int nrows,
+                             int seqlen) {
+  for (int i = threadIdx.x; i < nrows * 4; i += NTHREADS) {
+    const int r = i >> 2, c = (i & 3) * 16;
+    const int row = row0 + r;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row < seqlen) v = *reinterpret_cast<const uint4*>(src + row * rs + c);
+    *reinterpret_cast<uint4*>(dst + r * LDI8 + c) = v;
+  }
+}
+
+// Grid (ceil(Sq / BM), H, B), as K1.
+__global__ void __launch_bounds__(NTHREADS) joint_int8_kernel(const TGInt8Args a) {
+  __shared__ __align__(16) int8_t Qs[BM * LDI8];
+  __shared__ __align__(16) int8_t Ks[BN * LDI8];
+  __shared__ __align__(16) __nv_bfloat16 Vt[D * LDV];
+  __shared__ float ksc[BN];
+  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const long long rs = a.h * D;  // bytes per row of the codes
+  const long long pair = (long long)b * (a.h / 2) + h / 2;
+  const int8_t* q8 = static_cast<const int8_t*>(a.q8) + b * a.sq * rs + h * D;
+  const int8_t* k8 = static_cast<const int8_t*>(a.k8) + b * a.skv * rs + h * D;
+  const float* qs = static_cast<const float*>(a.qs) + pair * sq;
+  const float* ks = static_cast<const float*>(a.ks) + pair * skv;
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + h * a.v_sh;
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh;
+  const float* bias = a.bias ? static_cast<const float*>(a.bias) + (long long)b * skv : nullptr;
+
+  load_rows_i8(Qs, q8, rs, q0, BM, sq);
+  __syncthreads();
+  // A fragments of m16n8k32 (s8): rows g / g+8, bytes t*4.. (+16) of each
+  // 32-wide k step
+  uint32_t qa[2][4];
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    const int8_t* p = Qs + (warp * 16 + g) * LDI8 + kk * 32 + t * 4;
+    qa[kk][0] = *reinterpret_cast<const uint32_t*>(p);
+    qa[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDI8);
+    qa[kk][2] = *reinterpret_cast<const uint32_t*>(p + 16);
+    qa[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDI8 + 16);
+  }
+  const int r0 = q0 + warp * 16 + g;
+  const float qsc0 = r0 < sq ? qs[r0] : 0.f, qsc1 = r0 + 8 < sq ? qs[r0 + 8] : 0.f;
+  Acc acc;
+  init_acc(acc);
+  for (int kv0 = 0; kv0 < skv; kv0 += BN) {
+    __syncthreads();  // previous tile consumed by every warp
+    load_rows_i8(Ks, k8, rs, kv0, BN, skv);
+    load_vt(Vt, LDV, v, a.v_ss, kv0, BN, skv);
+    if (threadIdx.x < BN) {
+      const int j = kv0 + threadIdx.x;
+      ksc[threadIdx.x] = j < skv ? ks[j] : 0.f;
+    }
+    __syncthreads();
+    int c[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[nt][i] = 0;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        // B fragments: key nt*8+g, bytes t*4.. (+16) of the k step
+        const int8_t* kp = Ks + (nt * 8 + g) * LDI8 + kk * 32 + t * 4;
+        mma16832_s8(c[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kp),
+                    *reinterpret_cast<const uint32_t*>(kp + 16));
+      }
+    }
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        s[nt][i] = static_cast<float>(c[nt][i]) * (i < 2 ? qsc0 : qsc1) *
+                   ksc[nt * 8 + t * 2 + (i & 1)];
+    softmax_pv(s, Vt, LDV, kv0, skv, bias, acc);
+  }
+  store_out(acc, o, a.o_ss, q0, sq, nullptr);
+}
+
 int launch_flash(void (*kernel)(TGAttnArgs), const TGAttnArgs* a, cudaStream_t stream) {
   if (a->sq <= 0 || a->skv <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((a->sq + BM - 1) / BM), static_cast<unsigned>(a->h),
@@ -810,6 +1044,25 @@ int tg_attention_bwd(const TGAttnBwdArgs* a, void* stream) {
   const dim3 grid_q(static_cast<unsigned>((a->sq + BWD_BQ2 - 1) / BWD_BQ2),
                     static_cast<unsigned>(a->h), static_cast<unsigned>(a->b));
   bwd_dq_kernel<<<grid_q, NTHREADS, 0, s>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7: the q and k quantizing prologues, then the int8-score attention.
+int tg_attention_joint_int8(const TGQuantArgs* qa, const TGQuantArgs* ka, const TGInt8Args* a,
+                            void* stream) {
+  if (a->sq <= 0 || a->skv <= 0 || a->h % 2) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TGQuantArgs* sides[2] = {qa, ka};
+  for (const TGQuantArgs* p : sides) {
+    const dim3 grid(static_cast<unsigned>((p->s + QP_WARPS - 1) / QP_WARPS),
+                    static_cast<unsigned>(p->pairs), static_cast<unsigned>(p->b));
+    int8_prologue_kernel<<<grid, QP_WARPS * 32, 0, s>>>(*p);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(static_cast<unsigned>((a->sq + BM - 1) / BM), static_cast<unsigned>(a->h),
+                  static_cast<unsigned>(a->b));
+  joint_int8_kernel<<<grid, NTHREADS, 0, s>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
 

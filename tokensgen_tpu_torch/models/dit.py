@@ -10,9 +10,12 @@ under ``DiTConfig.remat``. Attention goes through
 inside the kernels as prologue tables, and under autograd the backward is
 the K5 kernel.
 
-Covered: rotary models (CogVideoX-5b) with the output projection, VIP
-func_type "1". The sincos (2b) path, raw-token output (T2To), func_types
-"2"-"4", fused qkv and int8 modes are later work and raise.
+Covered: rotary models (CogVideoX-5b, and the T2To clone with patch size 1)
+with the output projection, VIP func_type "1", and the int8 serving modes
+(``quant`` w8a16 / w8a8 for the block projections via `quantize_dit`,
+``quant_attn`` for the int8-score joint attention kernel). The sincos (2b)
+path, raw-token output, func_types "2"-"4" and fused qkv are later work and
+raise.
 """
 
 from __future__ import annotations
@@ -32,8 +35,10 @@ from tokensgen_tpu_torch.models.layers import (
     FeedForward,
     LayerNorm,
     Linear,
+    QuantLinear,
     TimestepEmbedding,
     VIPAdaLN,
+    make_linear,
     timestep_sinusoidal,
 )
 
@@ -74,6 +79,12 @@ class DiTConfig:
     # package): under autograd each block keeps only its inputs and runs its
     # forward again in the backward
     remat: bool = False
+    # int8 serving modes (the JAX package's fields): None | "w8a16" | "w8a8"
+    # for the per-block attention / FF projections (`quantize_dit` turns a
+    # float model into that layout), and the int8 score product in the joint
+    # self-attention kernel (inference only; gradients stay bf16)
+    quant: Optional[str] = None
+    quant_attn: bool = False
 
     @property
     def inner_dim(self) -> int:
@@ -83,6 +94,16 @@ class DiTConfig:
     def cogvideox_5b(cls, **kw) -> "DiTConfig":
         defaults = dict(num_attention_heads=48, num_layers=42,
                         use_rotary_positional_embeddings=True)
+        defaults.update(kw)
+        return cls(**defaults)
+
+    @classmethod
+    def t2to_5b(cls, **kw) -> "DiTConfig":
+        """T2To: the 5b clone with patch_size=1 denoising condensed tokens
+        [B, 4*chunks, 16, 8, 12]."""
+        defaults = dict(num_attention_heads=48, num_layers=42,
+                        use_rotary_positional_embeddings=True, patch_size=1,
+                        sample_width=12, sample_height=8)
         defaults.update(kw)
         return cls(**defaults)
 
@@ -112,10 +133,10 @@ class _VIPProcessor(nn.Module):
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
-        inner, dt = cfg.inner_dim, cfg.dtype
-        self.vip_to_q = Linear(inner, inner, bias=cfg.attention_bias, dtype=dt)
-        self.vip_to_k = Linear(inner, inner, bias=cfg.attention_bias, dtype=dt)
-        self.vip_to_v = Linear(inner, inner, bias=cfg.attention_bias, dtype=dt)
+        inner, dt, qt = cfg.inner_dim, cfg.dtype, cfg.quant
+        self.vip_to_q = make_linear(inner, inner, quant=qt, bias=cfg.attention_bias, dtype=dt)
+        self.vip_to_k = make_linear(inner, inner, quant=qt, bias=cfg.attention_bias, dtype=dt)
+        self.vip_to_v = make_linear(inner, inner, quant=qt, bias=cfg.attention_bias, dtype=dt)
         if cfg.qk_norm:
             self.vip_norm_q = QKNorm(cfg.attention_head_dim)
             self.vip_norm_k = QKNorm(cfg.attention_head_dim)
@@ -135,11 +156,11 @@ class JointVIPAttention(nn.Module):
         if cfg.vip is not None and cfg.vip.func_type != "1":
             raise NotImplementedError(f"VIP func_type {cfg.vip.func_type!r} is not ported yet")
         self.cfg = cfg
-        inner, dt = cfg.inner_dim, cfg.dtype
-        self.to_q = Linear(inner, inner, bias=cfg.attention_bias, dtype=dt)
-        self.to_k = Linear(inner, inner, bias=cfg.attention_bias, dtype=dt)
-        self.to_v = Linear(inner, inner, bias=cfg.attention_bias, dtype=dt)
-        self.to_out = nn.ModuleList([Linear(inner, inner, bias=True, dtype=dt)])
+        inner, dt, qt = cfg.inner_dim, cfg.dtype, cfg.quant
+        self.to_q = make_linear(inner, inner, quant=qt, bias=cfg.attention_bias, dtype=dt)
+        self.to_k = make_linear(inner, inner, quant=qt, bias=cfg.attention_bias, dtype=dt)
+        self.to_v = make_linear(inner, inner, quant=qt, bias=cfg.attention_bias, dtype=dt)
+        self.to_out = nn.ModuleList([make_linear(inner, inner, quant=qt, dtype=dt)])
         self.norm_q = QKNorm(cfg.attention_head_dim) if cfg.qk_norm else None
         self.norm_k = QKNorm(cfg.attention_head_dim) if cfg.qk_norm else None
         self.processor = _VIPProcessor(cfg) if cfg.vip is not None else None
@@ -147,7 +168,8 @@ class JointVIPAttention(nn.Module):
     def _attn(self, q, k, v, tq, tk):
         cfg = self.cfg
         return fused_flash_attention(q, k, v, tq, tk, heads=cfg.num_attention_heads,
-                                     norm_q=cfg.qk_norm, norm_k=cfg.qk_norm)
+                                     norm_q=cfg.qk_norm, norm_k=cfg.qk_norm,
+                                     int8_scores=cfg.quant_attn)
 
     def forward(self, text_video, vip, text_len: int, image_rotary_emb: Optional[Rope],
                 vip_image_rotary_emb: Optional[Rope], vip_condition_rotary_emb: Optional[Rope],
@@ -209,7 +231,7 @@ class DiTBlock(nn.Module):
         self.norm1 = AdaLNZero(inner, te, dtype=dt)
         self.attn1 = JointVIPAttention(cfg)
         self.norm2 = AdaLNZero(inner, te, dtype=dt)
-        self.ff = FeedForward(inner, dtype=dt)
+        self.ff = FeedForward(inner, dtype=dt, quant=cfg.quant)
         if cfg.vip is not None:
             self.vip_norm1 = VIPAdaLN(inner, te, dtype=dt)
             self.vip_norm2 = VIPAdaLN(inner, te, dtype=dt)
@@ -320,3 +342,45 @@ def graft_vip_params(model: CogVideoXTransformer) -> CogVideoXTransformer:
             for name, t in dst.named_parameters():
                 t.copy_(getattr(src, name))
     return model
+
+
+# per-block projections that the `quant` modes make QuantLinear (the JAX
+# package's `_QUANTIZED_DENSE`, as the port's module paths; fused qkv is not
+# ported)
+_QUANTIZED_LINEAR = (
+    "attn1.to_q", "attn1.to_k", "attn1.to_v", "attn1.to_out.0",
+    "attn1.processor.vip_to_q", "attn1.processor.vip_to_k", "attn1.processor.vip_to_v",
+    "ff.net.0.proj", "ff.net.2",
+)
+
+
+def _without_quant(cfg: DiTConfig) -> DiTConfig:
+    return dataclasses.replace(cfg, quant=None, quant_attn=False)
+
+
+@torch.no_grad()
+def quantize_dit(model: CogVideoXTransformer, config: DiTConfig) -> CogVideoXTransformer:
+    """A float DiT -> the int8 layout of ``config`` (`quantize_dit_params`),
+    in place on the model's device: under ``config.quant`` each per-block
+    attention / FF Linear becomes a `QuantLinear` (int8 codes and f32 scales
+    by the JAX formula; the embeddings and output head stay float), and the
+    model takes ``config``, so ``quant_attn`` reaches its attention. Apply
+    after `graft_vip_params`: quantization is the last transform."""
+    if _without_quant(config) != _without_quant(model.cfg):
+        raise ValueError("quantize_dit: the config differs from the model's beyond quant")
+    if config.quant:
+        for block in model.transformer_blocks:
+            for path in _QUANTIZED_LINEAR:
+                parent_path, _, name = path.rpartition(".")
+                try:
+                    parent = block.get_submodule(parent_path)
+                except AttributeError:  # no VIP branch
+                    continue
+                lin = getattr(parent, name)
+                if isinstance(lin, Linear):
+                    setattr(parent, name, QuantLinear.from_linear(lin, config.quant, config.dtype))
+    for mod in model.modules():
+        if isinstance(getattr(mod, "cfg", None), DiTConfig):
+            mod.cfg = config
+    return model
+

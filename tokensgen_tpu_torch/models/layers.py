@@ -74,10 +74,83 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
-class _GELUProj(nn.Module):
-    def __init__(self, dim: int, inner: int, dtype):
+QUANT_MODES = ("w8a16", "w8a8")
+
+
+def _int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """[M, K] int8 x [N, K] int8 -> [M, N] int32, exact (`torch._int_mm`;
+    on the card cuBLASLt, which takes M > 16 and K, N multiples of 8: the
+    DiT's projections have >= 960 rows and widths of 3072 / 12288)."""
+    return torch._int_mm(xq, wq.t())
+
+
+class QuantLinear(nn.Module):
+    """int8 Linear (`QuantDense`): ``weight_q`` int8 [out, in], per-output
+    channel f32 ``scale`` [out] (absmax / 127), optional f32 ``bias``; made
+    from a float Linear by `from_linear` (the JAX `quantize_dit_params`
+    formula). Inference only: the tensors are buffers.
+
+    * ``w8a16``: the codes cast to the compute dtype, a float matmul, then
+      the per-channel scale in f32.
+    * ``w8a8``: per-row dynamic activation quantization (absmax / 127, floor
+      1e-6), an exact int8 x int8 -> int32 product, dequantized in f32 by the
+      row and channel scales.
+    """
+
+    def __init__(self, in_features: int, out_features: int, mode: str = "w8a16",
+                 bias: bool = True, dtype=torch.bfloat16, device=None):
         super().__init__()
-        self.proj = Linear(dim, inner, dtype=dtype)
+        if mode not in QUANT_MODES:
+            raise ValueError(f"unknown quant mode {mode!r}")
+        self.mode, self.dtype = mode, dtype
+        self.in_features, self.out_features = in_features, out_features
+        self.register_buffer("weight_q", torch.zeros(out_features, in_features,
+                                                     dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.ones(out_features, dtype=torch.float32,
+                                                 device=device))
+        self.register_buffer("bias", torch.zeros(out_features, dtype=torch.float32,
+                                                 device=device) if bias else None)
+
+    @classmethod
+    @torch.no_grad()
+    def from_linear(cls, lin: nn.Linear, mode: str, dtype) -> "QuantLinear":
+        w = lin.weight.float()  # [out, in]
+        q = cls(lin.in_features, lin.out_features, mode, lin.bias is not None, dtype,
+                device=w.device)
+        q.scale.copy_(torch.clamp_min(w.abs().amax(dim=1), 1e-12) / 127.0)
+        q.weight_q.copy_(torch.clamp(torch.round(w / q.scale[:, None]), -127, 127))
+        if lin.bias is not None:
+            q.bias.copy_(lin.bias.float())
+        return q
+
+    def forward(self, x):
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, self.in_features)
+        if self.mode == "w8a8":
+            x32 = x2.float()
+            rs = torch.clamp_min(x32.abs().amax(dim=-1, keepdim=True), 1e-6) / 127.0
+            xq = torch.clamp(torch.round(x32 / rs), -127, 127).to(torch.int8)
+            y = (_int8_matmul(xq, self.weight_q).float() * rs * self.scale).to(self.dtype)
+        else:
+            y = F.linear(x2.to(self.dtype), self.weight_q.to(self.dtype))
+            y = (y.float() * self.scale).to(self.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y.reshape(*lead, self.out_features)
+
+
+def make_linear(in_features: int, out_features: int, *, quant=None, bias: bool = True,
+                dtype=torch.float32):
+    """`Linear` or its `QuantLinear` drop-in, by the config's ``quant``."""
+    if quant:
+        return QuantLinear(in_features, out_features, quant, bias, dtype)
+    return Linear(in_features, out_features, bias=bias, dtype=dtype)
+
+
+class _GELUProj(nn.Module):
+    def __init__(self, dim: int, inner: int, dtype, quant=None):
+        super().__init__()
+        self.proj = make_linear(dim, inner, quant=quant, dtype=dtype)
 
     def forward(self, x):
         return F.gelu(self.proj(x), approximate="tanh")
@@ -85,12 +158,12 @@ class _GELUProj(nn.Module):
 
 class FeedForward(nn.Module):
     """gelu-approximate MLP, mult 4 (diffusers `FeedForward` layout:
-    ``net.0.proj`` and ``net.2``)."""
+    ``net.0.proj`` and ``net.2``), int8 under ``quant``."""
 
-    def __init__(self, dim: int, mult: int = 4, dtype=torch.float32):
+    def __init__(self, dim: int, mult: int = 4, dtype=torch.float32, quant=None):
         super().__init__()
-        self.net = nn.ModuleList([_GELUProj(dim, dim * mult, dtype), nn.Identity(),
-                                  Linear(dim * mult, dim, dtype=dtype)])
+        self.net = nn.ModuleList([_GELUProj(dim, dim * mult, dtype, quant), nn.Identity(),
+                                  make_linear(dim * mult, dim, quant=quant, dtype=dtype)])
 
     def forward(self, x):
         return self.net[2](self.net[0](x))
