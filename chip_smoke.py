@@ -8,10 +8,14 @@ Phases, each printing its own lines:
           TF32 is switched off for matmuls and convolutions in every phase
   build   nvcc builds the attention kernels from kernels/csrc (timed)
   kernels K1-K4 at the edit path's production shapes, K5 (the attention
-          backward) at the training path's and K7 (int8 scores) at the gen
-          path's, against their plain PyTorch versions: error, planted
+          backward) at the training path's, K7 (int8 scores) at the gen
+          path's and K6 (fused prologue on [B, H, S, D]) at the T2To
+          trainer's, against their plain PyTorch versions: error, planted
           fault, kernel / plain / library times (CUDA events) and bound; the
-          lse outputs of K1 and K4; K7 against bf16 K1; K1 at the T2To shape
+          lse outputs of K1, K4 and K6; K7 against bf16 K1; K1 at the T2To
+          shape; K6 as a strided view of merged operands and at head dims 16
+          and 32; K1 and K5 at the T2To trainer's shape with its
+          padded-chunk key bias
   dit     one full-width DiT forward (CogVideoX-5b, 42 layers, VIP "1", B=2),
           timed, then a second one traced with torch.profiler (device time
           by kernel group, idle share; trace in build/traces/); then the same
@@ -22,15 +26,22 @@ Phases, each printing its own lines:
           DiT depth cut to 6 of 42 layers)
   gen     the generation path of infer_gen.yaml as shipped (w8a8) with
           quant_attn: T2To tokens, then the To2V render (1 chunk, 13 steps,
-          1 partition); then one T2To stage alone at the shipped 24 chunks
+          1 partition, render DiT depth cut to 6 of 42 layers); then one
+          T2To stage alone at the shipped 24 chunks
   train   a 2-layer train step on the card against the host's, then 2
           optimizer steps of the To2V adapter trainer (train_to2v.To2VTrainer)
           at full width (42 layers, batch 2, 2-chunk 49-frame 720x480), then
           a third one traced with torch.profiler (device time by kernel group)
+  t2to_train  the T2To trainer (train_t2to.T2ToTrainer): a tiny step (one
+          head of 64: K6 forward, K5 backward) on the card against the
+          host's, 2 steps of the tiny trainer on the card, then 2 full-finetune
+          optimizer steps at full width (42 layers, batch 3, 24 chunks: 9,442
+          tokens per row, int8 AdamW) and a third one traced
 
-The last two lines are a JSON object of the kernels and their measurements
-(launches of K1-K4 on the edit path, of K5 on the train path, of K7 on the
-gen path),
+The card's name and power limit (nvidia-smi) and a JSON object of the
+kernels and their measurements (launches of K1-K4 on the edit path, of K5 on
+the train path, of K7 on the gen path, of K6 on the tiny T2To trainer) come
+before the last line,
 and the result line ``{"ok": true, "device": {...}}``. Any failed phase
 raises and the script exits non-zero. It refuses to run without a card.
 """
@@ -47,7 +58,7 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernels", "dit", "edit", "gen", "train")
+PHASES = ("env", "build", "kernels", "dit", "edit", "gen", "train", "t2to_train")
 
 # A kernel agrees with its plain version (same bf16 inputs; the plain version
 # keeps f32 where the kernel rounds the prologued q, with log2 e folded in, and
@@ -72,6 +83,7 @@ KERNELS = {
     "attention_backward": "tokensgen_tpu/kernels/attention.py:1220",
     # the int8_scores branch of _flash_packed_kernel (:586)
     "fused_attention_joint_int8": "tokensgen_tpu/kernels/attention.py:634",
+    "fused_attention_bhsd": "tokensgen_tpu/kernels/attention.py:256",
 }
 SOURCE = "tokensgen_tpu_torch/kernels/csrc/attention.cu"
 # The lse outputs of K1 and K4 against the plain logsumexp: the kernels score
@@ -370,10 +382,17 @@ def forward_work(name, c):
     return 4.0 * b * h * sq * skv * d, nbytes
 
 
-def _sdpa(q4, k4, v4, scale):
+def _sdpa(q4, k4, v4, scale, key_bias=None):
+    """The library call: flash attention, or with a key bias the
+    memory-efficient kernel with the bias as an additive mask."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    return F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+    if key_bias is None:
+        return F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        return F.scaled_dot_product_attention(q4, k4, v4, scale=scale,
+                                              attn_mask=key_bias[:, None, None, :].to(q4.dtype))
 
 
 def _check_lse(name, lse, ref):
@@ -386,18 +405,20 @@ def _check_lse(name, lse, ref):
         raise RuntimeError(f"{name}: its lse disagrees with the plain logsumexp")
 
 
-def _t2to_joint_case(dev, state, chunks=24, text=226, heads=48, batch=2):
-    """K1 at the T2To stage's shape as infer_gen.yaml ships it: 24 chunks of
-    4 token frames of 8 x 12 and 226 text tokens (9,442 per row), B=2, RoPE
-    dims (52, 6, 6): held to its plain version and timed."""
+def _t2to_case(dev, batch, valid_chunks=None, chunks=24, text=226, heads=48, seed=5):
+    """K1's inputs at the T2To shape (24 chunks of 4 token frames of 8 x 12
+    and 226 text tokens: 9,442 per row; RoPE dims (52, 6, 6)), merged bf16
+    [B, S, 48*64]; with ``valid_chunks`` (one count per sample) the
+    trainer's padded-chunk key bias (`train.t2to.padded_chunk_masks`)."""
     import numpy as np
     import torch
 
     from tokensgen_tpu_torch.core.rope import get_3d_rotary_pos_embed_v2
     from tokensgen_tpu_torch.kernels import attention as A
+    from tokensgen_tpu_torch.train.t2to import padded_chunk_masks
 
     d, f = 64, 4 * chunks
-    gen = torch.Generator(device=dev).manual_seed(5)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     s = text + f * 8 * 12
     q, k, v = (torch.randn(batch, s, heads * d, generator=gen, device=dev).bfloat16()
                for _ in range(3))
@@ -406,12 +427,167 @@ def _t2to_joint_case(dev, state, chunks=24, text=226, heads=48, batch=2):
                                       np.arange(12, dtype=np.float32), 52, 6, 6, device=dev)
     segs = [(None, text), (rope, s - text)]
     g, bb = torch.ones(d, device=dev), torch.zeros(d, device=dev)
-    c = dict(q=q, k=k, v=v, tabs_q=A.make_prologue(d, segs, g, bb, fold=d ** -0.5),
-             tabs_k=A.make_prologue(d, segs, g, bb), key_bias=None, heads=heads)
+    bias = None
+    if valid_chunks is not None:
+        bias, _ = padded_chunk_masks(torch.tensor(valid_chunks, device=dev) * 4, f, 8 * 12, text)
+    return dict(q=q, k=k, v=v, tabs_q=A.make_prologue(d, segs, g, bb, fold=d ** -0.5),
+                tabs_k=A.make_prologue(d, segs, g, bb), key_bias=bias, heads=heads)
+
+
+def _t2to_joint_case(dev, state):
+    """K1 at the T2To stage's shape as infer_gen.yaml ships it (B=2, no
+    bias): held to its plain version and timed."""
+    c = _t2to_case(dev, 2)
     name = "fused_attention_joint"
     q4, k4, v4, scale = _heads_view(name, c)
+    s = c["q"].shape[1]
     _compare(f"{name}[T2To {s:,}^2]", lambda: run_kernel(name, c), lambda: run_plain(name, c),
              state, work=forward_work(name, c), library_fn=lambda: _sdpa(q4, k4, v4, scale))
+
+
+def _library_or_none(label, make):
+    """``make()`` (the library callable; building it may run the library's
+    forward) if one call of it runs here, else None, logged: the library
+    time is a yardstick, not a check."""
+    import torch
+
+    try:
+        fn = make()
+        fn()
+        torch.cuda.synchronize()
+    except RuntimeError as e:  # no kernel for these inputs, or out of memory
+        log(f"[kernels] {label}: no library time ({type(e).__name__}: "
+            f"{str(e).splitlines()[0][:200]})")
+        torch.cuda.empty_cache()
+        return None
+    return fn
+
+
+# the T2To trainer's batch as train_t2to.yaml ships it (per_gpu_batch_size 3),
+# two of its samples padded (valid chunks of the 24)
+T2TO_TRAIN_VALID_CHUNKS = (24, 13, 5)
+
+
+def _k6_plain(q4, k4, v4, tq, tk, bias, n=None, with_lse=False):
+    """K6's plain version, over the first ``n`` keys (the planted fault)."""
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+
+    skv = k4.shape[2]
+    n = skv if n is None else n
+    if bias is None:
+        bias = torch.zeros(k4.shape[0], skv, device=q4.device)
+    return A.attention_fused_plain(q4, k4[:, :, :n], v4[:, :, :n], bias[:, :n], tq,
+                                   A.slice_tabs(tk, 0, n), 1e-6, True, True, with_lse)
+
+
+def _k6_work(q4, k4, v4, tq, tk, bias):
+    (b, h, sq, d), skv = q4.shape, k4.shape[2]
+    return 4.0 * b * h * sq * skv * d, _nbytes(q4, k4, v4, q4, bias, *tq[:3], *tk[:3])
+
+
+def _k6_checks(dev, state) -> None:
+    """K6 (`fused_attention_bhsd`) at the T2To trainer's shape [3, 48, 9,442,
+    64]: contiguous operands (the kernels line's row: timed, planted fault,
+    library = flash SDPA on the prologued q / k), its lse, then as the
+    strided [B, H, S, 64] view of merged operands with the padded-chunk key
+    bias (the output must come back in the merged layout); then at head dims
+    16 and 32 (3 heads, ragged, a key-bias mask), each with a planted fault."""
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+
+    name = "fused_attention_bhsd"
+    c = _t2to_case(dev, len(T2TO_TRAIN_VALID_CHUNKS))
+    h = c["heads"]
+    q4, k4, v4 = (A.split_heads(c[n], h).contiguous() for n in ("q", "k", "v"))
+    tq, tk = c["tabs_q"], c["tabs_k"]
+    skv = k4.shape[2]
+    qn = A.apply_prologue_plain(q4, tq, 1e-6, True)
+    kn = A.apply_prologue_plain(k4, tk, 1e-6, True)
+    log(f"[kernels] {name} at the T2To trainer's shape {tuple(q4.shape)}, no bias:")
+    _compare(name, lambda: A.fused_attention_bhsd(q4, k4, v4, tq, tk),
+             lambda: _k6_plain(q4, k4, v4, tq, tk, None), state,
+             fault_fn=lambda: _k6_plain(q4, k4, v4, tq, tk, None, skv - skv % KV_TILE),
+             work=_k6_work(q4, k4, v4, tq, tk, None),
+             library_fn=lambda: _sdpa(qn, kn, v4, 1.0))
+    out, lse = A.fused_attention_bhsd(q4, k4, v4, tq, tk, with_lse=True)
+    ref_out, ref_lse = _k6_plain(q4, k4, v4, tq, tk, None, with_lse=True)
+    if not _agrees(*agreement(out, ref_out)):
+        raise RuntimeError(f"{name}: the output with lse disagrees with the plain version")
+    _check_lse(name, lse, ref_lse)
+    del q4, k4, v4, qn, kn, out, lse, ref_out, ref_lse
+    cb = _t2to_case(dev, len(T2TO_TRAIN_VALID_CHUNKS), T2TO_TRAIN_VALID_CHUNKS)
+    qv, kv, vv = (A.split_heads(cb[n], h) for n in ("q", "k", "v"))
+    bias = cb["key_bias"]
+    out = A.fused_attention_bhsd(qv, kv, vv, tq, tk, bias)
+    merged = out.permute(0, 2, 1, 3).is_contiguous()
+    log(f"[kernels] {name}[strided view of merged {tuple(cb['q'].shape)}]: output in the "
+        f"merged layout {merged}")
+    if not merged:
+        raise RuntimeError(f"{name}: the output of a merged view is not in the merged layout")
+    _compare(f"{name}[strided view of merged, padded-chunk bias {T2TO_TRAIN_VALID_CHUNKS}]",
+             lambda: A.fused_attention_bhsd(qv, kv, vv, tq, tk, bias),
+             lambda: _k6_plain(qv, kv, vv, tq, tk, bias), state, check_only=True,
+             fault_fn=lambda: _k6_plain(qv, kv, vv, tq, tk, bias, skv - skv % KV_TILE))
+    del cb, qv, kv, vv, out
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b, hh, s, text = 2, 3, 4000, 226
+    for d in (16, 32):
+        q, k, v = (torch.randn(b, hh, s, d, generator=gen, device=dev).bfloat16()
+                   for _ in range(3))
+        ang = torch.randn(s - text, d, generator=gen, device=dev)
+        g = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        bb = 0.1 * torch.randn(d, generator=gen, device=dev)
+        segs = [(None, text), ((ang.cos(), ang.sin()), s - text)]
+        tq_d = A.make_prologue(d, segs, g, bb, fold=d ** -0.5)
+        tk_d = A.make_prologue(d, segs, g, bb)
+        bias = torch.zeros(b, s, device=dev)
+        bias[1, s - 1000:] = -1e9
+        _compare(f"{name}[d={d}, {tuple(q.shape)}, key bias]",
+                 lambda: A.fused_attention_bhsd(q, k, v, tq_d, tk_d, bias),
+                 lambda: _k6_plain(q, k, v, tq_d, tk_d, bias), state, check_only=True,
+                 fault_fn=lambda: _k6_plain(q, k, v, tq_d, tk_d, bias, s - s % KV_TILE))
+
+
+def _t2to_train_checks(dev, state) -> None:
+    """K1 with lse (the training forward) and K5 at the T2To trainer's shape
+    (B=3, 9,442^2, 48 heads) with its padded-chunk key bias: each held to its
+    plain version (planted fault: the ragged last kv tile dropped, which the
+    fully valid sample shows) and timed; library: SDPA's memory-efficient
+    kernel with the bias as a mask, where it takes these inputs."""
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+
+    c = _t2to_case(dev, len(T2TO_TRAIN_VALID_CHUNKS), T2TO_TRAIN_VALID_CHUNKS)
+    name = "fused_attention_joint"
+    label = f"[T2To train 3 x 9,442^2, padded-chunk bias {T2TO_TRAIN_VALID_CHUNKS}]"
+    q4, k4, v4, scale = _heads_view(name, c)
+    bias = c["key_bias"]
+
+    def kernel():
+        return A.fused_attention_joint(c["q"], c["k"], c["v"], c["tabs_q"], c["tabs_k"], bias,
+                                       c["heads"], with_lse=True)[0]
+
+    _compare(name + label, kernel, lambda: run_plain(name, c), state,
+             fault_fn=_without_ragged_tile(name, c), work=forward_work(name, c),
+             library_fn=_library_or_none(name + label, lambda: (lambda: _sdpa(q4, k4, v4, scale,
+                                                                              bias))))
+    out, lse = A.fused_attention_joint(c["q"], c["k"], c["v"], c["tabs_q"], c["tabs_k"], bias,
+                                       c["heads"], with_lse=True)
+    ref_out, ref_lse = A.attention_plain(q4, k4, v4, bias, scale, with_lse=True)
+    _check_lse(name + label, lse, ref_lse)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cb = dict(q4=q4, k4=k4, v4=v4, scale=scale, key_bias=bias, heads=c["heads"], lse=ref_lse,
+              g4=torch.randn(q4.shape, generator=gen, device=dev).bfloat16())
+    cb["dsum"] = A._row_dsum(cb["g4"], ref_out, None)
+    del out, lse, ref_out
+    kernel, plain, fault, library, work = _bwd_fns(cb)
+    _compare("attention_backward" + label, kernel, plain, state, fault_fn=fault, work=work,
+             library_fn=_library_or_none("attention_backward" + label, library),
+             labels=["dq", "dk", "dv", "dbias"])
 
 
 def backward_cases(dev, cases, seed=2):
@@ -474,7 +650,7 @@ def _bwd_fns(c):
 
     def library():
         qg, kg, vg = (c[n].detach().requires_grad_() for n in ("q4", "k4", "v4"))
-        out = _sdpa(qg, kg, vg, scale)
+        out = _sdpa(qg, kg, vg, scale, bias)
         return lambda: torch.autograd.grad(out, (qg, kg, vg), c["g4"], retain_graph=True)
 
     b, hh, sq, d = c["q4"].shape
@@ -509,6 +685,9 @@ def phase_kernels(state: dict) -> None:
     log(f"[kernels] {name} against bf16 fused_attention_joint on the same inputs "
         f"(quantization error): rel_l2_err {rel:.3e} max_abs_err {err:.3e}")
     _t2to_joint_case(dev, state)
+    _k6_checks(dev, state)
+    _t2to_train_checks(dev, state)
+    torch.cuda.empty_cache()
     # the training forward's lse outputs (K1, K4) against the plain logsumexp
     for name in ("fused_attention_joint", "flash_attention_bhsd"):
         c = cases[name]
@@ -824,6 +1003,10 @@ GEN_OVERRIDES = {
     "input_config.gen_item_1.params.max_num_chunks": 1,  # cut from 24
 }
 GEN_T2TO_CHUNKS = 24  # the T2To stage alone, at the config's shipped chunks
+# To2V render DiT depth on the gen path, cut from 42 to keep the whole smoke
+# near half its time limit: the dit phase times the full-depth w8a8 +
+# quant_attn forward, and the T2To stage runs at its full 42 layers
+GEN_RENDER_LAYERS = 6
 
 
 def _count_calls(module) -> list:
@@ -851,14 +1034,17 @@ def phase_gen(state: dict) -> None:
     cfg = load_config(os.path.join(REPO, GEN_CONFIG), GEN_OVERRIDES)
     t0 = time.perf_counter()
     pipe, dcfg = build_pipeline(cfg, smoke=False, device=dev)
+    pipe.dit.transformer_blocks = pipe.dit.transformer_blocks[:GEN_RENDER_LAYERS]
     t2 = build_t2to_pipeline(cfg, False, pipe, dev)
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     item = input_items(cfg)[0]
     num_chunks = min(item.get("max_num_chunks", 2), item.get("max_num_chunks_w_fifo", 25))
     pc = pipe.cfg
     log(f"[gen] {GEN_CONFIG} (quant {cfg.get('quant')}) with {json.dumps(GEN_OVERRIDES)}: "
         f"built in {time.perf_counter() - t0:.1f} s; T2To DiT {t2.dit_config.num_layers} layers "
-        f"bf16, To2V DiT quant {dcfg.quant} quant_attn {dcfg.quant_attn}; {pc.width}x{pc.height}, "
+        f"bf16, To2V DiT quant {dcfg.quant} quant_attn {dcfg.quant_attn}, depth "
+        f"{len(pipe.dit.transformer_blocks)} of {dcfg.num_layers} layers; {pc.width}x{pc.height}, "
         f"{num_chunks} chunk, {pc.num_inference_steps} steps, {pc.num_partitions} partition")
     enc = build_text_encoder(cfg, smoke=False)
     prompt, negative = enc([item.get("prompt", "")]), enc([""])
@@ -905,7 +1091,7 @@ def phase_gen(state: dict) -> None:
             f"mean {x.float().mean().item():.4f} std {x.float().std().item():.4f}")
         if tuple(x.shape) != shape or not finite:
             raise RuntimeError(f"gen output {key}: expected finite {shape}")
-    t2_layers, layers, n = t2.dit_config.num_layers, dcfg.num_layers, len(render_calls)
+    t2_layers, layers, n = t2.dit_config.num_layers, GEN_RENDER_LAYERS, len(render_calls)
     expect = [
         ("K1 per T2To forward", after_t2to["fused_attention_joint"], t2_layers * len(t2_calls)),
         ("K7 in the T2To stage", after_t2to["fused_attention_joint_int8"], 0),
@@ -1111,7 +1297,9 @@ def phase_train(state: dict) -> None:
     want = TRAIN_STEPS * (3 * dcfg.num_layers - 1 + chunks * rcfg.depth)
     log(f"[train] K5 launches {counts['attention_backward']} (expected {want} = {TRAIN_STEPS} x "
         f"(3 x {dcfg.num_layers} - 1 + {chunks} x {rcfg.depth}))")
-    if counts["attention_backward"] != want or min(lse_counts.values()) <= 0:
+    # the To2V path's training forwards: K1 (the DiT) and K4 (the resampler)
+    if counts["attention_backward"] != want or min(
+            lse_counts[k] for k in ("fused_attention_joint", "flash_attention_bhsd")) <= 0:
         raise RuntimeError(f"the train path did not run K5 / the lse forwards as expected: "
                            f"{counts}, {lse_counts}")
     # one more step, traced: device time by kernel group (the trace itself
@@ -1123,6 +1311,163 @@ def phase_train(state: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# the T2To trainer as `python -m tokensgen_tpu_torch.train_t2to --config
+# tokensgen_tpu/configs/train_t2to.yaml` runs it at full width (DiTConfig.t2to_5b
+# with remat: 42 layers, 48 x 64 heads; per_gpu_batch_size 3; 24 chunks of 4
+# token frames of 8 x 12 + 226 text = 9,442 tokens per row), with these
+# listed cuts
+T2TO_CONFIG = "tokensgen_tpu/configs/train_t2to.yaml"
+T2TO_OVERRIDES = {
+    # the config's f32 AdamW keeps 16 B per parameter (f32 master, grad, m,
+    # v): 83.0 GiB for the 5,569,988,112 parameters, more than one 80 GB
+    # card; the JAX package shards that state with ZeRO-1 across a mesh. The
+    # config's own int8 AdamW switch brings it to ~10 B per parameter.
+    "use_8bit_adam": True,
+    "longvgen_pca": None,  # no pca/mean/std artifacts in the repo: the random stand-in
+}
+T2TO_STEPS = 2  # cut from max_train_steps 100000; no checkpoint is written
+# The tiny T2To check: all grads of a train step through the kernels (card:
+# K6 forward, K5 backward) against the same step through the plain versions
+# (host), both bf16, by relative L2 over all grads together, as the To2V
+# trainer's small check (TRAIN_GRAD_REL_L2_BOUND).
+T2TO_TINY = dict(patch_size=1, sample_height=8, sample_width=12, attention_head_dim=64,
+                 num_attention_heads=1)  # the trainer's --smoke DiT
+
+
+def _t2to_tiny_check(dev) -> None:
+    """One tiny T2To train step (loss and backward; one head of 64, so K6
+    forward and K5 backward on the card) with the same weights and inputs on
+    the host (plain versions) and on the card: every grad within
+    TRAIN_GRAD_REL_L2_BOUND, and the card's launches as the routing says."""
+    import copy
+
+    import torch
+
+    from tokensgen_tpu_torch.core import schedule as S
+    from tokensgen_tpu_torch.kernels import attention as A
+    from tokensgen_tpu_torch.models.dit import CogVideoXTransformer, DiTConfig
+    from tokensgen_tpu_torch.train import t2to
+    from tokensgen_tpu_torch.utils.params import init_params_
+
+    dcfg = DiTConfig.tiny(dtype=torch.bfloat16, **T2TO_TINY)
+    gen = torch.Generator().manual_seed(11)
+    host = t2to.setup_full_finetune(init_params_(CogVideoXTransformer(dcfg), gen).train())
+    card = copy.deepcopy(host).to(dev)
+    f = 16  # 4 chunks of 4 token frames: 8 + 16 x 96 = 1,544 tokens per row
+    batch = {"latents": torch.randn(3, f, 16, 8, 12, generator=gen),
+             "text_embeds": 0.02 * torch.randn(3, dcfg.max_text_seq_length, dcfg.text_embed_dim,
+                                               generator=gen),
+             "valid_frames": torch.tensor([16, 8, 4])}
+    timesteps, noise = torch.tensor([900, 500, 100]), torch.randn(3, f, 16, 8, 12, generator=gen)
+    tcfg = t2to.T2ToTrainConfig()
+    grads, losses = [], []
+    for model, device in ((host, torch.device("cpu")), (card, dev)):
+        sched = S.make_schedule(S.ScheduleConfig(beta_schedule="vip_1"), device=device)
+        A.reset_launch_counts()
+        loss = t2to.t2to_loss(model, sched, tcfg, {k: v.to(device) for k, v in batch.items()},
+                              timesteps.to(device), noise.to(device))
+        loss.backward()
+        counts, lse_counts = A.launch_counts(), A.lse_launch_counts()
+        grads.append(torch.cat([p.grad.float().flatten().cpu() for p in model.parameters()]))
+        losses.append(loss.item())
+    rel = ((grads[1] - grads[0]).norm() / grads[0].norm()).item()
+    log(f"[t2to_train] tiny step (1 head x 64, 2 layers, bf16, B=3 x 1,544 tokens, valid "
+        f"frames [16, 8, 4]; host plain versions vs card kernels): loss {losses[0]:.6f} / "
+        f"{losses[1]:.6f}, grads relative L2 error {rel:.3e} (bound "
+        f"{TRAIN_GRAD_REL_L2_BOUND:g}) over {grads[0].numel():,} values; card launches "
+        f"{json.dumps(counts)}, with lse {json.dumps(lse_counts)}")
+    layers = dcfg.num_layers
+    if not (rel <= TRAIN_GRAD_REL_L2_BOUND and torch.isfinite(grads[1]).all()):
+        raise RuntimeError("the card's tiny T2To step disagrees with the host's")
+    if (lse_counts["fused_attention_bhsd"], counts["attention_backward"],
+            counts["fused_attention_joint"]) != (layers, layers, 0):
+        raise RuntimeError(f"the tiny T2To step did not run K6 + K5 per layer: {counts}")
+
+
+def phase_t2to_train(state: dict) -> None:
+    import gc
+
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+    from tokensgen_tpu_torch.train_t2to import T2ToTrainer
+    from tokensgen_tpu_torch.utils.config import load_config
+
+    dev = state["device"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    _t2to_tiny_check(dev)
+    out_dir = os.path.join(REPO, "build", "t2to_train_smoke")
+    # the tiny trainer (the CLI's --smoke) on the card: the path K6 serves
+    cfg = load_config(os.path.join(REPO, T2TO_CONFIG), {"output_dir": out_dir})
+    tiny = T2ToTrainer(cfg, smoke=True, device=dev)
+    A.reset_launch_counts()
+    records = tiny.run(T2TO_STEPS, save_final=False)
+    torch.cuda.synchronize()
+    state["t2to_launches"] = counts = A.launch_counts()
+    log(f"[t2to_train] tiny trainer (--smoke) on the card: losses "
+        f"{[round(r['loss'], 6) for r in records]}; kernel launches {json.dumps(counts)}")
+    want = T2TO_STEPS * tiny.dcfg.num_layers
+    if (counts["fused_attention_bhsd"], counts["attention_backward"]) != (want, want) or not all(
+            math.isfinite(r["loss"]) for r in records):
+        raise RuntimeError(f"the tiny T2To trainer did not run K6 / K5 as expected: {counts}")
+    del tiny
+    cfg = load_config(os.path.join(REPO, T2TO_CONFIG), dict(T2TO_OVERRIDES, output_dir=out_dir))
+    log(f"[t2to_train] {T2TO_CONFIG} with {json.dumps(T2TO_OVERRIDES)}, {T2TO_STEPS} steps "
+        f"(cut from max_train_steps {cfg.get('max_train_steps')}), no checkpoint written; "
+        "random weights, synthetic batches, hash text encoder")
+    t0 = time.perf_counter()
+    trainer = T2ToTrainer(cfg, smoke=False, device=dev)
+    torch.cuda.synchronize()
+    dcfg = trainer.dcfg
+    f = trainer.max_chunks * 4
+    tokens = dcfg.max_text_seq_length + f * dcfg.sample_height * dcfg.sample_width
+    log(f"[t2to_train] built in {time.perf_counter() - t0:.1f} s: {dcfg.num_layers} layers, "
+        f"{dcfg.num_attention_heads} x {dcfg.attention_head_dim} heads, patch size "
+        f"{dcfg.patch_size}, remat {dcfg.remat}, batch {trainer.batch_size} x {tokens:,} tokens; "
+        f"{trainer.param_counts['trainable']:,} parameters, all trained; optimizer "
+        f"{type(trainer.step_fn.optimizer).__name__}; allocated "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    watch = trainer.dit.transformer_blocks[0].attn1.to_q.weight
+    before = watch.detach().clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    records = trainer.run(T2TO_STEPS, save_final=False)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts, lse_counts = A.launch_counts(), A.lse_launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    for r in records:
+        log(f"[t2to_train] step {r['step']}: data {r['data_s']:.3f} s, train step "
+            f"{r['train_step_s']:.3f} s, optimizer {r['optimizer_s']:.3f} s; loss {r['loss']:.6f} "
+            f"grad_norm {r['grad_norm']:.6f}; valid chunks {r['valid_chunks']}")
+    log(f"[t2to_train] {len(records)} steps in {total:.1f} s, peak {peak:.2f} GiB")
+    log(f"[t2to_train] kernel launches on the T2To train path: {json.dumps(counts)}; with lse: "
+        f"{json.dumps(lse_counts)}")
+    for r in records:
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0
+                and r["updated"]):
+            raise RuntimeError(f"T2To step {r['step']}: no finite loss, grad norm or update")
+    if torch.equal(before, watch.detach()):
+        raise RuntimeError("the T2To steps left transformer_blocks.0.attn1.to_q.weight unchanged")
+    # per step: K1 with lse in each block's forward and again in its
+    # recompute (remat), K5 once per block (every block trains)
+    layers = dcfg.num_layers
+    expect = {"fused_attention_joint": 2 * layers * T2TO_STEPS,
+              "attention_backward": layers * T2TO_STEPS, "fused_attention_bhsd": 0}
+    log("[t2to_train] " + "; ".join(f"{k} {counts[k]} (expected {v})" for k, v in expect.items()))
+    if any(counts[k] != v for k, v in expect.items()) or (
+            lse_counts["fused_attention_joint"] != counts["fused_attention_joint"]):
+        raise RuntimeError(f"the T2To train path did not run K1 + K5 as expected: {counts}")
+    _profile(lambda: trainer.run(T2TO_STEPS + 1, save_final=False), "t2to_train",
+             "t2to_train_step", chrome=False)
+    del trainer, watch, before
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 _KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name), first match wins
     ("attention K7 (int8_prologue_kernel + joint_int8_kernel)",
      ("int8_prologue_kernel", "joint_int8_kernel")),
@@ -1130,6 +1475,7 @@ _KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name), first match w
     ("attention K1 (joint_kernel)", ("joint_kernel",)),
     ("attention K2 (smallkv_kernel)", ("smallkv_kernel",)),
     ("attention K3 (smallq_kernel)", ("smallq_kernel",)),
+    ("attention K6 (fused_bhsd_kernel)", ("fused_bhsd_kernel",)),  # before K4: a substring
     ("attention K4 (bhsd_kernel)", ("bhsd_kernel",)),
     # before matmul: cuDNN's implicit-GEMM convolutions also have "gemm" in their names
     ("convolution (cuDNN)", ("conv", "implicit", "winograd", "fprop", "dgrad", "wgrad")),
@@ -1203,7 +1549,8 @@ def main(argv=None) -> int:
     rows = []
     launches = dict(state["launches"], attention_backward=state["train_launches"][
         "attention_backward"], fused_attention_joint_int8=state["gen_launches"][
-        "fused_attention_joint_int8"])
+        "fused_attention_joint_int8"], fused_attention_bhsd=state["t2to_launches"][
+        "fused_attention_bhsd"])
     for name, replaces in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                      "launches": launches[name], **state["kernel_rows"][name]})

@@ -20,19 +20,20 @@ from _torch_parity import t
 D = 64
 
 
-def _tabs_pair(rng, sq, skv, batch=None, text=0):
-    """JAX and port tables for q (softmax scale folded) and k: random rope
-    angles with an identity text prefix, random LayerNorm affine."""
-    g = np.abs(rng.normal(size=(D,))).astype(np.float32)
-    b_ = (0.1 * rng.normal(size=(D,))).astype(np.float32)
+def _tabs_pair(rng, sq, skv, batch=None, text=0, d=D):
+    """JAX and port tables for q (softmax scale folded) and k at head dim
+    ``d``: random rope angles with an identity text prefix, random
+    LayerNorm affine."""
+    g = np.abs(rng.normal(size=(d,))).astype(np.float32)
+    b_ = (0.1 * rng.normal(size=(d,))).astype(np.float32)
     out = []
-    for s, fold in ((sq, D ** -0.5), (skv, 1.0)):
-        shape = ((batch,) if batch else ()) + (s - text, D)
+    for s, fold in ((sq, d ** -0.5), (skv, 1.0)):
+        shape = ((batch,) if batch else ()) + (s - text, d)
         ang = rng.normal(size=shape).astype(np.float32)
         cos, sin = np.cos(ang), np.sin(ang)
-        jt = JA.make_prologue(D, [(None, text), ((jnp.asarray(cos), jnp.asarray(sin)), s - text)],
+        jt = JA.make_prologue(d, [(None, text), ((jnp.asarray(cos), jnp.asarray(sin)), s - text)],
                               jnp.asarray(g), jnp.asarray(b_), fold=fold)
-        tt = TA.make_prologue(D, [(None, text), ((t(cos), t(sin)), s - text)], t(g), t(b_),
+        tt = TA.make_prologue(d, [(None, text), ((t(cos), t(sin)), s - text)], t(g), t(b_),
                               fold=fold)
         out.append((jt, tt))
     return out
@@ -206,21 +207,22 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
 def test_dispatch_routes_like_jax(monkeypatch, sq, skv, expect):
     """fused_flash_attention routes one-tiny-side shapes to the small-side
     kernels where `_flash_packed_diff` does (kv <= 512 with q > 2048, q <= 512
-    with kv > 2048)."""
+    with kv > 2048). Two heads of 64: the packed route, which the JAX
+    package takes for even heads only."""
     called = []
     for name in ("fused_attention_joint", "fused_attention_cross_smallkv",
-                 "fused_attention_cross_smallq"):
+                 "fused_attention_cross_smallq", "fused_attention_bhsd"):
         monkeypatch.setattr(TA, name, lambda *a, _n=name, **k: called.append(_n))
-    q = torch.zeros(1, sq, D)
-    k = torch.zeros(1, skv, D)
-    TA.fused_flash_attention(q, k, k, None, None, heads=1)
+    q = torch.zeros(1, sq, 2 * D)
+    k = torch.zeros(1, skv, 2 * D)
+    TA.fused_flash_attention(q, k, k, None, None, heads=2)
     assert called == [expect]
 
 
 @pytest.mark.parametrize("sq,skv,heads,d,grad,expect", [
     (300, 300, 2, 64, False, "fused_attention_joint_int8"),
-    (300, 300, 1, 64, False, "fused_attention_joint"),
-    (300, 300, 2, 16, False, "fused_attention_joint"),
+    (300, 300, 1, 64, False, "fused_attention_bhsd"),
+    (300, 300, 2, 16, False, "fused_attention_bhsd"),
     (2100, 96, 2, 64, False, "fused_attention_cross_smallkv"),
     (96, 2100, 2, 64, False, "fused_attention_cross_smallq"),
     (300, 300, 2, 64, True, "_FusedAttention"),
@@ -229,12 +231,14 @@ def test_int8_scores_route_like_jax(monkeypatch, sq, skv, heads, d, grad, expect
     """With int8_scores, fused_flash_attention takes K7 where the JAX
     package's packed head-pair kernel takes its int8 branch (even heads,
     2*d = 128): the cross shapes still go to K2/K3, odd heads and other head
-    dims stay on bf16 K1, and under autograd the bf16 K1-with-lse Function
-    runs (the JAX custom_vjp forward)."""
+    dims take bf16 K6 (the JAX package's `_flash_fused_tpu`, which has no
+    int8 branch), and under autograd the bf16 K1-with-lse Function runs (the
+    JAX custom_vjp forward)."""
     called = []
     for name in ("fused_attention_joint", "fused_attention_cross_smallkv",
-                 "fused_attention_cross_smallq", "fused_attention_joint_int8"):
-        monkeypatch.setattr(TA, name, lambda *a, _n=name, **k: called.append(_n))
+                 "fused_attention_cross_smallq", "fused_attention_joint_int8",
+                 "fused_attention_bhsd"):  # each returns its q (K6's route merges it back)
+        monkeypatch.setattr(TA, name, lambda *a, _n=name, **k: called.append(_n) or a[0])
     monkeypatch.setattr(TA._FusedAttention, "apply",
                         lambda *a, **k: called.append("_FusedAttention"))
     q = torch.zeros(1, sq, heads * d, requires_grad=grad)
@@ -242,3 +246,107 @@ def test_int8_scores_route_like_jax(monkeypatch, sq, skv, heads, d, grad, expect
     tabs = TA.prologue_identity(max(sq, skv), d)
     TA.fused_flash_attention(q, k, k, tabs, tabs, heads=heads, int8_scores=True)
     assert called == [expect]
+
+
+@pytest.mark.parametrize("d,heads", [(64, 2), (16, 3)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_fused_bhsd_plain_matches_fused_kernel_interpret(d, heads, masked):
+    """K6 (`_flash_fused_kernel` through `_flash_fused_tpu(interpret=True)`,
+    as tests/test_attention.py:166 runs it) vs fused_attention_bhsd's plain
+    path on [B, H, S, D]: D = 64 with a head pair per block and D = 16 with
+    3 heads (one head per block), with and without a key-bias mask. Both f32
+    with exact softmax: 2e-4, as the JAX kernel's own test."""
+    rng = np.random.default_rng(30 + d)
+    b, sq, skv = 2, 256, 512
+    q = rng.normal(size=(b, heads, sq, d)).astype(np.float32)
+    k = rng.normal(size=(b, heads, skv, d)).astype(np.float32)
+    v = rng.normal(size=(b, heads, skv, d)).astype(np.float32)
+    bias = np.zeros((b, skv), np.float32)
+    if masked:
+        bias[0, skv - 23:] = -1e9
+        bias[1, :70] = -1e9
+    (jq, tq), (jk, tk) = _tabs_pair(rng, sq, skv, text=16, d=d)
+    ref = JA._flash_fused_tpu(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias),
+                              jq, jk, 128, 256, masked, 1e-6, True, True, interpret=True)
+    out = TA.fused_attention_bhsd(t(q), t(k), t(v), tq, tk, key_bias=t(bias) if masked else None)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("layout,heads,d", [("4d", 2, 64), ("odd_heads", 3, 64),
+                                            ("merged_d16", 2, 16)])
+def test_fused_flash_attention_k6_route_matches_jax(layout, heads, d):
+    """`fused_flash_attention` on the calls the JAX package sends to K6 (4-D
+    operands, odd heads, 2*d not a multiple of 128) against the JAX
+    `fused_flash_attention` on the CPU (`_xla_attention_fused`): the output
+    without grad (K6's plain version) to 1e-5, and under autograd (the
+    `_FusedBhsdAttention` Function: K6 with lse, then K5's plain version) the
+    grads of q, k, v and the LayerNorm affine against jax.grad to 1e-4 of
+    each grad's largest entry. f32, a key-bias mask on one sample."""
+    rng = np.random.default_rng(40 + heads)
+    b, text, sq, skv = 2, 5, 48, 40
+    shape = (lambda s: (b, heads, s, d)) if layout == "4d" else (lambda s: (b, s, heads * d))
+    q, k, v = (rng.normal(size=shape(s)).astype(np.float32) for s in (sq, skv, skv))
+    w = rng.normal(size=shape(sq)).astype(np.float32)
+    bias = np.zeros((b, skv), np.float32)
+    bias[1, -9:] = -1e9
+    g_ln = (1.0 + 0.1 * rng.normal(size=(d,))).astype(np.float32)
+    b_ln = (0.1 * rng.normal(size=(d,))).astype(np.float32)
+    ang = rng.normal(size=(sq - text, d)).astype(np.float32)
+    rope = (np.cos(ang), np.sin(ang))
+    kw = {} if layout == "4d" else {"heads": heads}
+
+    def tables(mod, conv, g_, b_):  # rope on the q side's video rows, LayerNorm on both
+        segs = [(None, text), ((conv(rope[0]), conv(rope[1])), sq - text)]
+        return (mod.make_prologue(d, segs, g_, b_, fold=d ** -0.5),
+                mod.make_prologue(d, [(None, skv)], g_, b_))
+
+    def jout(q_, k_, v_, g_, b_):
+        tq, tk = tables(JA, jnp.asarray, g_, b_)
+        return JA.fused_flash_attention(q_, k_, v_, tq, tk, key_bias=jnp.asarray(bias), **kw)
+
+    jargs = [jnp.asarray(x) for x in (q, k, v, g_ln, b_ln)]
+    want = np.asarray(jout(*jargs))
+    want_g = jax.jit(jax.grad(lambda *a: jnp.sum(jout(*a) * w), argnums=tuple(range(5))))(*jargs)
+    leaves = [t(x).requires_grad_() for x in (q, k, v, g_ln, b_ln)]
+    with torch.no_grad():
+        tq, tk = tables(TA, t, leaves[3], leaves[4])
+        out = TA.fused_flash_attention(*leaves[:3], tq, tk, key_bias=t(bias), **kw)
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-5)
+    tq, tk = tables(TA, t, leaves[3], leaves[4])
+    got = torch.autograd.grad((TA.fused_flash_attention(*leaves[:3], tq, tk, key_bias=t(bias),
+                                                        **kw) * t(w)).sum(), leaves)
+    for name, x, r in zip(("q", "k", "v", "ln_scale", "ln_bias"), got, want_g):
+        r = np.asarray(r)
+        np.testing.assert_allclose(x.numpy(), r, rtol=0, atol=1e-4 * np.abs(r).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("layout,heads,d,grad,expect", [
+    ("merged", 2, 64, False, "fused_attention_joint"),
+    ("merged", 2, 64, True, "_FusedAttention"),
+    ("merged", 1, 64, False, "fused_attention_bhsd"),
+    ("merged", 3, 64, True, "_FusedBhsdAttention"),
+    ("merged", 2, 16, False, "fused_attention_bhsd"),
+    ("merged", 2, 16, True, "_FusedBhsdAttention"),
+    ("4d", 2, 64, False, "fused_attention_bhsd"),
+    ("4d", 2, 64, True, "_FusedBhsdAttention"),
+])
+def test_fused_dispatch_routes_like_jax(monkeypatch, layout, heads, d, grad, expect):
+    """`_fused_dispatch`'s routing: merged operands with even heads and
+    d = 64 (the JAX package's packed head-pair kernel) take K1, or the
+    K1-with-lse Function under autograd; odd heads, other head dims and 4-D
+    operands take K6 on the [B, H, S, D] view (the JAX `_flash_fused_tpu`),
+    or its Function (`_flash_fused_diff`) under autograd. Each entry point
+    records its call and returns its q."""
+    called = []
+    for name in ("fused_attention_joint", "fused_attention_bhsd"):
+        monkeypatch.setattr(TA, name, lambda *a, _n=name, **k: called.append(_n) or a[0])
+    for name in ("_FusedAttention", "_FusedBhsdAttention"):
+        monkeypatch.setattr(getattr(TA, name), "apply",
+                            lambda *a, _n=name, **k: called.append(_n) or a[0])
+    shape = (1, heads, 300, d) if layout == "4d" else (1, 300, heads * d)
+    q = torch.zeros(shape, requires_grad=grad)
+    tabs = TA.prologue_identity(300, d)
+    out = TA.fused_flash_attention(q, q.detach(), q.detach(), tabs, tabs,
+                                   heads=heads if layout == "merged" else None)
+    assert called == [expect] and out.shape == shape

@@ -19,9 +19,10 @@ def _modules():
 
 
 def test_import_loads_no_jax():
-    trainer = {"tokensgen_tpu_torch.train_to2v", "tokensgen_tpu_torch.utils.logging"} | {
+    trainer = {"tokensgen_tpu_torch.train_to2v", "tokensgen_tpu_torch.train_t2to",
+               "tokensgen_tpu_torch.utils.logging"} | {
         f"tokensgen_tpu_torch.train.{m}"
-        for m in ("adam8bit", "checkpoint", "objective", "optim", "staging", "to2v")}
+        for m in ("adam8bit", "checkpoint", "objective", "optim", "staging", "to2v", "t2to")}
     assert trainer <= set(_modules())
     gen = {"tokensgen_tpu_torch.core.pca", "tokensgen_tpu_torch.pipelines.t2to"}
     assert gen <= set(_modules())

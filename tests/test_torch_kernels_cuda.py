@@ -1,6 +1,6 @@
 """The Hopper attention kernels of tokensgen_tpu_torch (the forwards K1-K4,
-their logsumexp outputs, the backward K5, the int8-score forward K7)
-against their plain PyTorch versions, on the card. Every test here is
+their logsumexp outputs, the backward K5, the int8-score forward K7, the
+[B, H, S, D] fused-prologue forward K6) against their plain PyTorch versions, on the card. Every test here is
 marked ``cuda`` and skips without a card. This file imports no JAX, so it also runs on a machine that
 has none (skipping tests/conftest.py, which does):
 
@@ -181,3 +181,60 @@ def test_cuda_tensors_never_take_the_plain_path(cuda_device):
     with pytest.raises(TypeError):
         TA.fused_attention_joint(x, x, x, tabs, tabs, heads=2)
     assert TA.fused_attention_joint.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,layout", [(64, "contiguous"), (64, "merged_view"), (32, "contiguous"),
+                                      (16, "merged_view")])
+def test_fused_bhsd_kernel_matches_plain_on_card(cuda_device, d, layout):
+    """K6 (`fused_attention_bhsd`) vs its plain version on [B, H, S, d] bf16
+    operands (3 heads, ragged lengths, per-sample tables with a text prefix,
+    a key-bias mask on one sample), contiguous or as the strided view of
+    merged [B, S, H*d] tensors, whose output comes back merged: within
+    REL_L2_BOUND and MAX_ABS_REL; its lse within the lse bounds."""
+    rng = np.random.default_rng(7)
+    b, h, sq, skv = 2, 3, 300, 517
+    dev = cuda_device
+
+    def x(s):
+        merged = torch.from_numpy(rng.normal(size=(b, s, h * d)).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        view = TA.split_heads(merged, h)
+        return view if layout == "merged_view" else view.contiguous()
+
+    q, k, v = x(sq), x(skv), x(skv)
+    tabs = []
+    for s, fold in ((sq, d ** -0.5), (skv, 1.0)):
+        g = torch.from_numpy(np.abs(rng.normal(size=(d,))).astype(np.float32))
+        b_ = torch.from_numpy((0.1 * rng.normal(size=(d,))).astype(np.float32))
+        ang = torch.from_numpy(rng.normal(size=(b, s - 5, d)).astype(np.float32))
+        tabs.append(tuple(z.to(dev) for z in TA.make_prologue(
+            d, [(None, 5), ((ang.cos(), ang.sin()), s - 5)], g, b_, fold=fold)))
+    bias = torch.zeros(b, skv, device=dev)
+    bias[1, : skv // 3] = -1e9
+    before = (TA.fused_attention_bhsd.launches, TA.fused_attention_bhsd.lse_launches)
+    out, lse = TA.fused_attention_bhsd(q, k, v, *tabs, key_bias=bias, with_lse=True)
+    ref, ref_lse = TA.attention_fused_plain(q, k, v, bias, *tabs, 1e-6, True, True,
+                                            with_lse=True)
+    torch.cuda.synchronize()
+    assert (TA.fused_attention_bhsd.launches, TA.fused_attention_bhsd.lse_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert out.stride() == q.stride()
+    _assert_within_bounds(out, ref)
+    assert ((lse - ref_lse).norm() / ref_lse.norm()).item() <= LSE_REL_L2_BOUND
+    assert (lse - ref_lse).abs().max().item() <= LSE_MAX_REL * ref_lse.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_fused_bhsd_refuses_what_the_card_lacks(cuda_device):
+    """K6 raises on a head dim it is not built for, and under autograd on a
+    head dim K5 does not take, instead of falling back."""
+    x = torch.zeros(1, 1, 128, 128, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        TA.fused_attention_bhsd(x, x, x, TA.prologue_identity(128, 128, device=cuda_device),
+                                TA.prologue_identity(128, 128, device=cuda_device))
+    q = torch.zeros(1, 128, 2 * 16, device=cuda_device, dtype=torch.bfloat16,
+                    requires_grad=True)
+    tabs = TA.prologue_identity(128, 16, device=cuda_device)
+    with pytest.raises(NotImplementedError):
+        TA.fused_flash_attention(q, q.detach(), q.detach(), tabs, tabs, heads=2)

@@ -379,7 +379,7 @@ def test_train_step_loss_and_grads_match_jax(jax_step):
         w = want[name]
         np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-4 * max(np.abs(w).max(), 1e-12),
                                    err_msg=name)
-    norm = TT.global_norm(grads.values()).item()
+    norm = TOpt.global_norm(grads.values()).item()
     np.testing.assert_allclose(norm, js["grad_norm"], rtol=1e-5)
 
 

@@ -171,10 +171,11 @@ def test_grad_routing_takes_the_lse_forward_for_every_shape(monkeypatch):
                         lambda *a, **k: calls.append("smallkv"))
     rng = np.random.default_rng(0)
     tabs_q, tabs_k = TA.prologue_identity(2100, D), TA.prologue_identity(96, D)
-    q = t(_np(rng, 1, 2100, D)).requires_grad_()
-    k = t(_np(rng, 1, 96, D))
-    TA.fused_flash_attention(q, k, k, tabs_q, tabs_k, heads=1)
+    # two heads of 64: the packed route (odd heads take K6, as in the JAX package)
+    q = t(_np(rng, 1, 2100, 2 * D)).requires_grad_()
+    k = t(_np(rng, 1, 96, 2 * D))
+    TA.fused_flash_attention(q, k, k, tabs_q, tabs_k, heads=2)
     with torch.no_grad():
-        TA.fused_flash_attention(q, k, k, tabs_q, tabs_k, heads=1)
-    TA.fused_flash_attention(q.detach(), k, k, tabs_q, tabs_k, heads=1)
+        TA.fused_flash_attention(q, k, k, tabs_q, tabs_k, heads=2)
+    TA.fused_flash_attention(q.detach(), k, k, tabs_q, tabs_k, heads=2)
     assert calls == ["joint+lse", "smallkv", "smallkv"]

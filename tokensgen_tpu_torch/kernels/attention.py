@@ -1,9 +1,9 @@
 """Attention for the joint [text‖video‖vip] sequence: table API, plain PyTorch
 versions, and the hand-written Hopper kernels that replace the Pallas TPU ones.
 
-Port of `tokensgen_tpu/kernels/attention.py`. Six kernel entry points, one per
+Port of `tokensgen_tpu/kernels/attention.py`. Seven kernel entry points, one per
 TPU kernel on the edit, training and generation paths, each with a launch counter
-(``fn.launches``; K1 and K4 also count their logsumexp launches in
+(``fn.launches``; K1, K4 and K6 also count their logsumexp launches in
 ``fn.lse_launches``):
 
 =============================  =============================================  ============================
@@ -15,18 +15,24 @@ fused_attention_cross_smallq   `_cross_smallq_kernel` :1048 (K3)              mo
 flash_attention_bhsd           `_flash_kernel` :54 (K4)                       models/resampler.py
 attention_backward             `_packed_bwd_kernel` :1220 (K5)                the two autograd Functions
 fused_attention_joint_int8     `_flash_packed_kernel` :586, int8_scores (K7)  models/dit.py under quant_attn
+fused_attention_bhsd           `_flash_fused_kernel` :256 (K6)                odd heads, head dim != 64, 4-D
 =============================  =============================================  ============================
 
 The public dispatchers are those of the JAX package: `flash_attention` (K4)
-and `fused_flash_attention`, which routes among the first three as the JAX
-one does (K7 for the joint calls that ask for ``int8_scores``, where the JAX
-package takes its int8 branch). When autograd needs a gradient (grad mode on
-and an input that requires grad), both take a `torch.autograd.Function`
-instead, the counterparts of
-`_flash_packed_diff` and `_flash_attention_tpu_diff`: the forward is K1 (for
-every shape, as the JAX custom_vjp forward skips the K2/K3 routing) or K4,
-each with its logsumexp; the backward is K5. On the CPU both directions run
-the plain versions.
+and `fused_flash_attention`, which routes as `_fused_dispatch` does. Merged
+[B, S, H*64] operands with an even head count take the packed route (the
+JAX package's head-pair kernel): K1, K2 or K3 by shape, K7 for the joint
+calls that ask for ``int8_scores``. Every other call (odd heads, a head dim
+other than 64, 4-D operands) is split into its [B, H, S, D] view and runs K6
+(`fused_attention_bhsd`), as the JAX package runs `_flash_fused_tpu`. When
+autograd needs a gradient (grad mode on and an input that requires grad),
+both take a `torch.autograd.Function` instead, the counterparts of
+`_flash_packed_diff`, `_flash_fused_diff` and `_flash_attention_tpu_diff`:
+the forward is K1 (for every packed shape, as the JAX custom_vjp forward
+skips the K2/K3 routing), K6 or K4, each with its logsumexp; the backward is
+K5, which takes head dim 64 only (a K6 call of another head dim raises
+under autograd on the card). On the CPU both directions run the plain
+versions.
 
 The CUDA C++ sources are `csrc/attention.cu`; `build_kernels` compiles them
 with nvcc into a shared library with a plain C interface (loaded with ctypes)
@@ -34,7 +40,8 @@ under ``<repo>/build/kernels``. Dispatch goes by the tensor's device: a CPU
 tensor takes the plain version (`attention_fused_plain` / `attention_plain`,
 exact softmax, as `_xla_attention_fused` / `_xla_attention`); a CUDA tensor
 launches the kernel or raises — on a failed build, a launch error, a head dim
-other than 64 or a dtype other than bf16. No path falls back.
+the kernel does not take (64; K6: 16, 32, 64) or a dtype other than bf16. No
+path falls back.
 
 The prologue tables are those of the JAX package: ``(cosg, sin, add, Rg)``
 from :func:`make_prologue`, with ``prologue(x) = LN0(x)∘cosg + (LN0(x)@Rg)∘sin
@@ -60,6 +67,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LOG2E = 1.4426950408889634
 _SMALLKV_MAX = 512  # kv rows K2 holds whole in shared memory (csrc SMALLKV_MAX)
+K6_HEAD_DIMS = (16, 32, 64)  # head dims fused_bhsd_kernel is built for
 MAX_SCORE_BYTES = 1 << 31  # f32 score tensor per q-row chunk of `attention_plain`
 
 
@@ -237,11 +245,13 @@ def attention_bwd_plain(q, k, v, g, lse, dsum, key_bias, scale: float):
     return torch.cat(dqs, dim=2), dk.to(dt), dv.to(dt), dbias
 
 
-def attention_fused_plain(q, k, v, key_bias, tabs_q, tabs_k, eps, norm_q, norm_k):
-    """Plain fused-prologue attention (`_xla_attention_fused`) on [B, H, S, D]."""
+def attention_fused_plain(q, k, v, key_bias, tabs_q, tabs_k, eps, norm_q, norm_k,
+                          with_lse: bool = False):
+    """Plain fused-prologue attention (`_xla_attention_fused`) on [B, H, S, D]
+    (K6's plain version); ``with_lse`` as in `attention_plain`."""
     qn = apply_prologue_plain(q, tabs_q, eps, norm_q)
     kn = apply_prologue_plain(k, tabs_k, eps, norm_k)
-    return attention_plain(qn, kn, v, key_bias, 1.0)
+    return attention_plain(qn, kn, v, key_bias, 1.0, with_lse=with_lse)
 
 
 def quantize_pairs_plain(x, tabs, eps: float, normalize: bool, scale: float = 1.0):
@@ -367,6 +377,7 @@ _ENTRY_POINTS = ("tg_attention_joint", "tg_attention_cross_smallkv",
                  "tg_attention_cross_smallq", "tg_attention_bhsd")
 _BWD_ENTRY_POINT = "tg_attention_bwd"
 _INT8_ENTRY_POINT = "tg_attention_joint_int8"
+_K6_ENTRY_POINT = "tg_attention_fused_bhsd"  # takes the head dim after the args
 
 
 class _Library:
@@ -405,6 +416,9 @@ def build_kernels(force: bool = False) -> Path:
         fn.argtypes = [ctypes.POINTER(_QuantArgs), ctypes.POINTER(_QuantArgs),
                        ctypes.POINTER(_Int8Args), ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn = getattr(lib, _K6_ENTRY_POINT)
+        fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_int64, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
         _Library.lib = lib
     return out
 
@@ -415,26 +429,26 @@ def _lib():
     return _Library.lib
 
 
-def _check_operand(name: str, x: torch.Tensor, merged_heads: Optional[int]):
-    """(sb, ss, sh) element strides of a [B, S, H*64] (merged) or [B, H, S, 64]
+def _check_operand(name: str, x: torch.Tensor, merged_heads: Optional[int], d: int = 64):
+    """(sb, ss, sh) element strides of a [B, S, H*d] (merged) or [B, H, S, d]
     bf16 CUDA operand with a contiguous, 16-byte aligned head dim."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the attention kernels take bfloat16, got {x.dtype}")
     if merged_heads is not None:
-        if x.dim() != 3 or x.shape[2] != 64 * merged_heads:
-            raise ValueError(f"{name}: expected [B, S, {merged_heads}*64], got {tuple(x.shape)}")
+        if x.dim() != 3 or x.shape[2] != d * merged_heads:
+            raise ValueError(f"{name}: expected [B, S, {merged_heads}*{d}], got {tuple(x.shape)}")
         sb, ss, sc = x.stride()
-        sh = 64
+        sh = d
     else:
-        if x.dim() != 4 or x.shape[3] != 64:
-            raise ValueError(f"{name}: expected [B, H, S, 64], got {tuple(x.shape)}")
+        if x.dim() != 4 or x.shape[3] != d:
+            raise ValueError(f"{name}: expected [B, H, S, {d}], got {tuple(x.shape)}")
         sb, sh, ss, sc = x.stride()
     if sc != 1 or sb % 8 or ss % 8 or sh % 8 or x.data_ptr() % 16:
         raise ValueError(f"{name}: head dim must be contiguous with 16-byte aligned rows")
     return sb, ss, sh
 
 
-def _check_tabs(name: str, tabs, seqlen: int, batch: int, device):
+def _check_tabs(name: str, tabs, seqlen: int, batch: int, device, d: int = 64):
     """Contiguous f32 (cosg, sin, add) + pair-swap coefficients of Rg, and the
     tables' batch stride (0 when shared)."""
     cosg, sin, add, rg = tabs
@@ -442,13 +456,13 @@ def _check_tabs(name: str, tabs, seqlen: int, batch: int, device):
     for t in (cosg, sin, add):
         if t.device != device or t.dtype != torch.float32:
             raise TypeError(f"{name}: tables must be float32 on {device}")
-        if t.shape[-2:] != (seqlen, 64) or (t.dim() == 3 and t.shape[0] not in (1, batch)):
+        if t.shape[-2:] != (seqlen, d) or (t.dim() == 3 and t.shape[0] not in (1, batch)):
             raise ValueError(f"{name}: table shape {tuple(t.shape)} for S={seqlen}, B={batch}")
         out.append(t.contiguous())
-    tb = seqlen * 64 if cosg.dim() == 3 and cosg.shape[0] == batch and batch > 1 else 0
+    tb = seqlen * d if cosg.dim() == 3 and cosg.shape[0] == batch and batch > 1 else 0
     # Rg = diag(g)·R is nonzero only on the pair swap (make_prologue); the
-    # kernel reads those 64 entries and this device-side check holds it to it
-    idx = torch.arange(64, device=device)
+    # kernel reads those d entries and this device-side check holds it to it
+    idx = torch.arange(d, device=device)
     rg = rg.float()
     rot = rg[idx ^ 1, idx].contiguous()
     pair = idx[:, None] == (idx[None, :] ^ 1)
@@ -471,14 +485,18 @@ def _bias_ptr(key_bias, b: int, skv: int, keep: list):
 def _launch(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k,
             qscale: float, with_lse: bool = False):
     """Launches a forward kernel; returns ``out`` or, ``with_lse``, (out, lse)
-    with lse the natural-log logsumexp f32 [B, H, Sq]."""
+    with lse the natural-log logsumexp f32 [B, H, Sq]. K6 (4-D operands of
+    any of `K6_HEAD_DIMS`) writes ``out`` in q's memory layout, so the
+    [B, H, S, D] view of a merged tensor gives a merged output."""
     lib = _lib()
     b = q.shape[0]
+    k6 = entry == _K6_ENTRY_POINT
     if heads is not None:
         h, sq, skv = heads, q.shape[1], k.shape[1]
     else:
         h, sq, skv = q.shape[1], q.shape[2], k.shape[2]
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    d = q.shape[-1] if k6 else 64
+    out = torch.empty_like(q) if k6 else torch.empty_like(q, memory_format=torch.contiguous_format)
     a = _Args()
     keep = [out]  # buffers that must outlive the launch call
     lse = None
@@ -486,7 +504,7 @@ def _launch(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, n
         lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
         a.lse = lse.data_ptr()
     for name, x in (("q", q), ("k", k), ("v", v), ("o", out)):
-        sb, ss, sh = _check_operand(name, x, heads)
+        sb, ss, sh = _check_operand(name, x, heads, d)
         setattr(a, name, x.data_ptr())
         setattr(a, f"{name}_sb", sb)
         setattr(a, f"{name}_ss", ss)
@@ -495,7 +513,7 @@ def _launch(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, n
     for side, tabs, seqlen in (("q", tabs_q, sq), ("k", tabs_k, skv)):
         if tabs is None:
             continue
-        (cosg, sin, add), rot, tb = _check_tabs(f"tabs_{side}", tabs, seqlen, b, q.device)
+        (cosg, sin, add), rot, tb = _check_tabs(f"tabs_{side}", tabs, seqlen, b, q.device, d)
         keep += [cosg, sin, add, rot]
         setattr(a, f"{side}_cos", cosg.data_ptr())
         setattr(a, f"{side}_sin", sin.data_ptr())
@@ -505,8 +523,9 @@ def _launch(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, n
     a.b, a.h, a.sq, a.skv = b, h, sq, skv
     a.norm_q, a.norm_k = int(norm_q), int(norm_k)
     a.qscale, a.eps = qscale, eps
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = getattr(lib, entry)(ctypes.byref(a), ctypes.c_void_p(stream))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    fn = getattr(lib, entry)
+    err = fn(ctypes.byref(a), d, stream) if k6 else fn(ctypes.byref(a), stream)
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA launch failed with error {err}")
     return (out, lse) if with_lse else out
@@ -704,10 +723,32 @@ def fused_attention_joint_int8(q, k, v, tabs_q, tabs_k, key_bias=None, heads: in
     return out
 
 
+def fused_attention_bhsd(q, k, v, tabs_q, tabs_k, key_bias=None, eps: float = 1e-6,
+                        norm_q: bool = True, norm_k: bool = True, with_lse: bool = False):
+    """K6, fused-prologue attention on [B, H, S, D] operands given by their
+    strides (a merged [B, S, H*D] tensor passes as its `split_heads` view,
+    without a copy; the output then comes back in the merged layout): both
+    prologues in the kernel, optional additive f32 key bias [B, Skv],
+    ``with_lse`` as in `fused_attention_joint`. The card takes D in
+    `K6_HEAD_DIMS`; the plain version any D."""
+    if q.device.type == "cpu":
+        return attention_fused_plain(q, k, v, _bias_or_zeros(key_bias, k, None), tabs_q,
+                                     tabs_k, eps, norm_q, norm_k, with_lse)
+    _require_cuda(k, v)
+    if q.dim() != 4 or q.shape[-1] not in K6_HEAD_DIMS:
+        raise ValueError(f"fused_attention_bhsd: expected [B, H, S, D] with D in "
+                         f"{K6_HEAD_DIMS}, got {tuple(q.shape)}")
+    res = _launch(_K6_ENTRY_POINT, q, k, v, key_bias, tabs_q, tabs_k, None, eps, norm_q,
+                  norm_k, _LOG2E, with_lse)
+    fused_attention_bhsd.launches += 1
+    fused_attention_bhsd.lse_launches += int(with_lse)
+    return res
+
+
 KERNEL_ENTRY_POINTS = (fused_attention_joint, fused_attention_cross_smallkv,
                        fused_attention_cross_smallq, flash_attention_bhsd, attention_backward,
-                       fused_attention_joint_int8)
-LSE_ENTRY_POINTS = (fused_attention_joint, flash_attention_bhsd)
+                       fused_attention_joint_int8, fused_attention_bhsd)
+LSE_ENTRY_POINTS = (fused_attention_joint, flash_attention_bhsd, fused_attention_bhsd)
 
 
 def reset_launch_counts():
@@ -725,7 +766,8 @@ def launch_counts():
 
 
 def lse_launch_counts():
-    """Launches of K1 and K4 with the logsumexp output (the training forward)."""
+    """Launches of K1, K4 and K6 with the logsumexp output (the training
+    forward)."""
     return {fn.__name__: fn.lse_launches for fn in LSE_ENTRY_POINTS}
 
 
@@ -738,7 +780,7 @@ def _bias_or_zeros(key_bias, k, heads):
 
 
 # ---------------------------------------------------------------------------
-# Gradients: K1 / K4 forward with lse, K5 backward
+# Gradients: K1 / K4 / K6 forward with lse, K5 backward
 # ---------------------------------------------------------------------------
 
 
@@ -747,9 +789,20 @@ def _row_dsum(g, out, heads: Optional[int]):
     JAX package computes it in XLA)."""
     go = g.float() * out.float()
     if heads is None:
-        return go.sum(-1)
+        return go.sum(-1).contiguous()
     b, s, hd = go.shape
     return go.reshape(b, s, heads, hd // heads).sum(-1).transpose(1, 2).contiguous()
+
+
+def _prologue_grads(leaves, outs):
+    """Carries the gradients ``outs`` [(prologued y, dy)] of the prologued
+    q / k back through their autograd graphs to ``leaves`` (q, k and the
+    tables); None where a leaf needs none."""
+    outs = [(y, dy) for y, dy in outs if y.requires_grad]
+    wanted = [x for x in leaves if x.requires_grad]
+    found = iter(torch.autograd.grad([y for y, _ in outs], wanted, [dy for _, dy in outs],
+                                     allow_unused=True) if outs else ())
+    return [next(found) if x.requires_grad else None for x in leaves]
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -785,12 +838,46 @@ class _FusedAttention(torch.autograd.Function):
         dqn, dkn, dv, dbias = attention_backward(
             qn.detach(), kn.detach(), v, g, lse, _row_dsum(g, out, heads), key_bias, heads, 1.0,
             with_dbias=need[3])
-        outs = [(y, dy) for y, dy in ((qn, dqn), (kn, dkn)) if y.requires_grad]
-        wanted = [x for x in leaves if x.requires_grad]
-        found = iter(torch.autograd.grad([y for y, _ in outs], wanted, [dy for _, dy in outs],
-                                         allow_unused=True) if outs else ())
-        grads = [next(found) if x.requires_grad else None for x in leaves]
+        grads = _prologue_grads(leaves, ((qn, dqn), (kn, dkn)))
         return (grads[0], grads[1], dv if need[2] else None, dbias, None, None, None, None,
+                *grads[2:])
+
+
+class _FusedBhsdAttention(torch.autograd.Function):
+    """`_flash_fused_diff` with its custom_vjp (`_fused_diff_fwd` /
+    `_fused_diff_bwd`) on [B, H, S, D] operands. Forward: K6 with lse.
+    Backward: as `_FusedAttention`, the prologue recomputed under autograd,
+    K5 on the prologued [B, H, S, D] operands (the JAX package's XLA
+    `_blocked_attention_bwd` here), the prologue's gradients by autograd. K5
+    takes head dim 64: on the card another head dim raises here."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, eps, norm_q, norm_k, *tabs):
+        if q.is_cuda and q.shape[-1] != 64:
+            raise NotImplementedError(
+                f"attention gradients on the card take head dim 64 (K5), got {q.shape[-1]}")
+        out, lse = fused_attention_bhsd(q, k, v, tabs[:4], tabs[4:], key_bias, eps, norm_q,
+                                        norm_k, with_lse=True)
+        ctx.save_for_backward(q, k, v, key_bias, out, lse, *tabs)
+        ctx.cfg = (eps, norm_q, norm_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, key_bias, out, lse, *tabs = ctx.saved_tensors
+        eps, norm_q, norm_k = ctx.cfg
+        need = ctx.needs_input_grad
+        g = g.contiguous()
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(n)
+                      for x, n in zip((q, k, *tabs), (need[0], need[1], *need[7:]))]
+            qn = apply_prologue_plain(leaves[0], tuple(leaves[2:6]), eps, norm_q)
+            kn = apply_prologue_plain(leaves[1], tuple(leaves[6:10]), eps, norm_k)
+        dqn, dkn, dv, dbias = attention_backward(
+            qn.detach(), kn.detach(), v, g, lse, _row_dsum(g, out, None), key_bias, None, 1.0,
+            with_dbias=need[3])
+        grads = _prologue_grads(leaves, ((qn, dqn), (kn, dkn)))
+        return (grads[0], grads[1], dv if need[2] else None, dbias, None, None, None,
                 *grads[2:])
 
 
@@ -833,18 +920,39 @@ def flash_attention(q, k, v, key_bias=None, scale: Optional[float] = None):
     return flash_attention_bhsd(q, k, v, key_bias, scale)
 
 
+def _fused_bhsd_route(q, k, v, tabs_q, tabs_k, key_bias, eps, norm_q, norm_k):
+    """K6, or `_FusedBhsdAttention` when a gradient is needed, on [B, H, S, D]."""
+    if _grad_needed(q, k, v, key_bias, *tabs_q, *tabs_k):
+        return _FusedBhsdAttention.apply(q, k, v, key_bias, eps, norm_q, norm_k, *tabs_q,
+                                         *tabs_k)
+    return fused_attention_bhsd(q, k, v, tabs_q, tabs_k, key_bias, eps, norm_q, norm_k)
+
+
 def fused_flash_attention(q, k, v, tabs_q, tabs_k, key_bias=None, heads: int = None,
                           eps: float = 1e-6, norm_q: bool = True, norm_k: bool = True,
                           int8_scores: bool = False):
     """Attention with the qk-norm + RoPE prologue fused, on merged
-    [B, S, H*D] operands. Routes one-tiny-side cross shapes to the small-side
-    kernels exactly where the JAX `_flash_packed_diff` does; when a gradient
-    is needed, every shape takes `_FusedAttention` (K1 with lse, then K5).
-    ``int8_scores`` sends the other calls to K7 where the JAX package's
-    packed head-pair kernel would take them (even heads, D = 64); the rest
-    stay on K1 in bf16, as the JAX package keeps its bf16 fallbacks."""
+    [B, S, H*D] operands (pass ``heads``) or [B, H, S, D] ones, routed as
+    the JAX `_fused_dispatch` routes. Merged operands with even heads and
+    D = 64 (the JAX package's packed head-pair kernel) take K1, except the
+    one-tiny-side cross shapes, which go to the small-side kernels exactly
+    where `_flash_packed_diff` sends them, and, with ``int8_scores``, the
+    rest to K7; when a gradient is needed every such shape takes
+    `_FusedAttention` (K1 with lse, then K5). Every other call (odd heads,
+    other head dims, 4-D operands) runs K6 on the [B, H, S, D] view (merged
+    operands are split and the output merged back), or `_FusedBhsdAttention`
+    under autograd; ``int8_scores`` does not apply there, as the JAX
+    package keeps its bf16 fallbacks."""
+    if q.dim() == 4:
+        return _fused_bhsd_route(q, k, v, tabs_q, tabs_k, key_bias, eps, norm_q, norm_k)
     if heads is None or q.dim() != 3:
-        raise ValueError("fused_flash_attention takes merged [B, S, H*D] operands and heads")
+        raise ValueError("fused_flash_attention takes merged [B, S, H*D] operands with heads, "
+                         "or [B, H, S, D] ones")
+    if heads % 2 or q.shape[2] != 64 * heads:
+        out = _fused_bhsd_route(split_heads(q, heads), split_heads(k, heads),
+                                split_heads(v, heads), tabs_q, tabs_k, key_bias, eps, norm_q,
+                                norm_k)
+        return merge_heads(out)
     if _grad_needed(q, k, v, key_bias, *(tabs_q or ()), *(tabs_k or ())):
         return _FusedAttention.apply(q, k, v, key_bias, heads, eps, norm_q, norm_k,
                                      *tabs_q, *tabs_k)
@@ -856,7 +964,7 @@ def fused_flash_attention(q, k, v, tabs_q, tabs_k, key_bias=None, heads: int = N
         if sq <= 512 and skv > 2048:
             return fused_attention_cross_smallq(q, k, v, tabs_q, tabs_k, key_bias, heads,
                                                 eps, norm_q, norm_k)
-    if int8_scores and heads % 2 == 0 and q.shape[2] == 64 * heads:
+    if int8_scores:
         return fused_attention_joint_int8(q, k, v, tabs_q, tabs_k, key_bias, heads, eps,
                                           norm_q, norm_k)
     return fused_attention_joint(q, k, v, tabs_q, tabs_k, key_bias, heads, eps, norm_q, norm_k)

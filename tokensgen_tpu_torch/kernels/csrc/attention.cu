@@ -1,7 +1,8 @@
 // Flash-attention kernels for the attention calls of the To2V edit, training
-// and generation paths, written for Hopper (sm_90a), head dim 64, bf16
-// operands with f32 softmax and accumulation on mma.sync m16n8k16 tensor-core
-// tiles (K7: its score product on m16n8k32 int8 tiles).
+// and generation paths and of the T2To trainer, written for Hopper (sm_90a),
+// head dim 64 (K6: 16, 32 or 64), bf16 operands with f32 softmax and
+// accumulation on mma.sync m16n8k16 tensor-core tiles (K7: its score product
+// on m16n8k32 int8 tiles).
 //
 // Replaces the Pallas TPU kernels of tokensgen_tpu/kernels/attention.py:
 //   tg_attention_joint          joint_kernel    <- _flash_packed_kernel  (_flash_fused_packed_tpu)
@@ -12,6 +13,8 @@
 //                                               <- _packed_bwd_kernel    (_flash_packed_bwd_tpu)
 //   tg_attention_joint_int8     int8_prologue_kernel + joint_int8_kernel
 //                                               <- _flash_packed_kernel, int8_scores branch
+//   tg_attention_fused_bhsd     fused_bhsd_kernel<HD>
+//                                               <- _flash_fused_kernel   (_flash_fused_tpu)
 //
 // The forward kernels optionally write the per-row logsumexp of the scores,
 // f32 [B, H, Sq], in the NATURAL log base (lse = ln sum_j exp(s_j), with s the
@@ -47,12 +50,13 @@
 
 namespace {
 
-constexpr int D = 64;               // head dim
+constexpr int D = 64;               // head dim (K6's body takes HD = 16, 32 or 64)
 constexpr int BM = 128;             // q rows per block: 8 warps x 16 rows
 constexpr int BN = 64;              // kv rows per tile
 constexpr int NTHREADS = (BM / 16) * 32;
-constexpr int ROWS_PER_PASS = NTHREADS / 8;  // 8 threads load one 64-wide row
-constexpr int LDS = D + 8;          // smem pitch (bf16) of q/k tiles: conflict-free fragments
+// smem pitch (bf16) of q/k tiles of head dim hd: conflict-free fragments, 16-byte rows
+__host__ __device__ constexpr int pitch(int hd) { return hd + 8; }
+constexpr int LDS = pitch(D);
 constexpr int LDV = BN + 8;         // smem pitch of the transposed v tile
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -86,11 +90,13 @@ struct Side {
   long long tb; bool norm;
 };
 
-struct Acc {
-  float o[8][4];
+template <int HD>
+struct AccT {
+  float o[HD / 8][4];
   float m[2];
   float l[2];
 };
+using Acc = AccT<D>;
 
 __device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -105,26 +111,30 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float row_sum8(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
+// Sum over the TPR consecutive lanes that share a row (TPR a power of two).
+template <int TPR>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int m = 1; m < TPR; m <<= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
   return x;
 }
 
-// Loads rows [row0, row0 + nrows) of one head (``src`` already points at
-// (b, h)) into shared memory ``dst`` (pitch ``ld``) as bf16. With PRO the
-// qk-norm + RoPE prologue runs on the way, in f32; the result is multiplied
-// by ``scale`` before the bf16 cast. Eight threads share a row, each holding
-// eight consecutive values, so the LayerNorm sums are 3-step shuffles.
-// ``nrows`` must be a multiple of ROWS_PER_PASS (uniform shuffles).
-template <bool PRO>
+// Loads rows [row0, row0 + nrows) of one head of dim HD (``src`` already
+// points at (b, h)) into shared memory ``dst`` (pitch ``ld``) as bf16. With
+// PRO the qk-norm + RoPE prologue runs on the way, in f32; the result is
+// multiplied by ``scale`` before the bf16 cast. HD / 8 threads share a row,
+// each holding eight consecutive values, so the LayerNorm sums are
+// log2(HD / 8)-step shuffles. ``nrows`` must be a multiple of the 256 / HD
+// rows one warp covers: a warp then runs each pass whole or not at all
+// (uniform shuffles).
+template <bool PRO, int HD = D>
 __device__ void load_rows(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src, long long ss,
                           int row0, int nrows, int seqlen, const Side& pro, int b, float scale,
                           float eps) {
-  const int tid = threadIdx.x;
-  const int c0 = (tid & 7) * 8;
-  for (int r = tid >> 3; r < nrows; r += ROWS_PER_PASS) {
+  constexpr unsigned TPR = HD / 8;  // threads per row (unsigned: / and % are a shift and a mask)
+  const int c0 = static_cast<int>(threadIdx.x % TPR) * 8;
+  constexpr int step = NTHREADS / TPR;
+  for (int r = static_cast<int>(threadIdx.x / TPR); r < nrows; r += step) {
     const int row = row0 + r;
     const bool valid = row < seqlen;
     float x[8];
@@ -148,14 +158,14 @@ __device__ void load_rows(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src, 
         float s = 0.f;
 #pragma unroll
         for (int e = 0; e < 8; ++e) s += x[e];
-        const float mu = row_sum8(s) * (1.f / D);
+        const float mu = row_sum<TPR>(s) * (1.f / HD);
         float vs = 0.f;
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           ln0[e] = x[e] - mu;
           vs += ln0[e] * ln0[e];
         }
-        const float inv = rsqrtf(row_sum8(vs) * (1.f / D) + eps);
+        const float inv = rsqrtf(row_sum<TPR>(vs) * (1.f / HD) + eps);
 #pragma unroll
         for (int e = 0; e < 8; ++e) ln0[e] *= inv;
       } else {
@@ -163,7 +173,7 @@ __device__ void load_rows(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src, 
         for (int e = 0; e < 8; ++e) ln0[e] = x[e];
       }
       if (valid) {
-        const long long toff = (long long)b * pro.tb + (long long)row * D + c0;
+        const long long toff = (long long)b * pro.tb + (long long)row * HD + c0;
         const float4* cp = reinterpret_cast<const float4*>(pro.cosg + toff);
         const float4* sp = reinterpret_cast<const float4*>(pro.sin + toff);
         const float4* ap = reinterpret_cast<const float4*>(pro.add + toff);
@@ -199,13 +209,15 @@ __device__ void load_rows(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src, 
   }
 }
 
-// Loads v rows [row0, row0 + nrows) transposed: dst[d * ldv + r] (so the
-// p@v B-fragments are contiguous pairs along kv).
+// Loads v rows [row0, row0 + nrows) of head dim HD transposed:
+// dst[d * ldv + r] (so the p@v B-fragments are contiguous pairs along kv).
+template <int HD = D>
 __device__ void load_vt(__nv_bfloat16* dst, int ldv, const __nv_bfloat16* src, long long ss,
                         int row0, int nrows, int seqlen) {
-  const int tid = threadIdx.x;
-  const int c0 = (tid & 7) * 8;
-  for (int r = tid >> 3; r < nrows; r += ROWS_PER_PASS) {
+  constexpr unsigned TPR = HD / 8;
+  const int c0 = static_cast<int>(threadIdx.x % TPR) * 8;
+  constexpr int step = NTHREADS / TPR;
+  for (int r = static_cast<int>(threadIdx.x / TPR); r < nrows; r += step) {
     const int row = row0 + r;
     uint4 raw = make_uint4(0u, 0u, 0u, 0u);
     if (row < seqlen) raw = *reinterpret_cast<const uint4*>(src + (long long)row * ss + c0);
@@ -215,23 +227,27 @@ __device__ void load_vt(__nv_bfloat16* dst, int ldv, const __nv_bfloat16* src, l
   }
 }
 
-// A-fragments of this warp's 16 q rows (4 k-steps of 16 over d = 64).
-__device__ __forceinline__ void load_q_frags(uint32_t (&qa)[4][4], const __nv_bfloat16* Qs) {
+// A-fragments of this warp's 16 q rows (HD / 16 k-steps of 16 over the head
+// dim; ``Qs`` pitch pitch(HD)).
+template <int HD = D>
+__device__ __forceinline__ void load_q_frags(uint32_t (&qa)[HD / 16][4], const __nv_bfloat16* Qs) {
+  constexpr int ld = pitch(HD);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const __nv_bfloat16* p = Qs + (warp * 16 + g) * LDS + kk * 16 + t * 2;
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const __nv_bfloat16* p = Qs + (warp * 16 + g) * ld + kk * 16 + t * 2;
     qa[kk][0] = *reinterpret_cast<const uint32_t*>(p);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
+    qa[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
     qa[kk][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 8);
+    qa[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
   }
 }
 
-__device__ __forceinline__ void init_acc(Acc& acc) {
+template <int HD>
+__device__ __forceinline__ void init_acc(AccT<HD>& acc) {
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt)
+  for (int dt = 0; dt < HD / 8; ++dt)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc.o[dt][i] = 0.f;
   acc.m[0] = acc.m[1] = -INFINITY;
@@ -241,9 +257,10 @@ __device__ __forceinline__ void init_acc(Acc& acc) {
 // The softmax half of one kv tile of BN keys for this warp's 16 rows, from
 // their log2-domain scores ``s`` (mma accumulator layout): key bias and the
 // ragged-tile mask, online max, p = exp2(s - m), acc = alpha*acc + bf16(p) @ v.
-// ``Vt``: the tile's transposed v columns (pitch ldv).
+// ``Vt``: the tile's HD transposed v columns (pitch ldv).
+template <int HD>
 __device__ __forceinline__ void softmax_pv(float (&s)[8][4], const __nv_bfloat16* Vt, int ldv,
-                                           int kv0, int skv, const float* bias, Acc& acc) {
+                                           int kv0, int skv, const float* bias, AccT<HD>& acc) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -286,7 +303,7 @@ __device__ __forceinline__ void softmax_pv(float (&s)[8][4], const __nv_bfloat16
   acc.l[0] = acc.l[0] * alpha0 + ls0;
   acc.l[1] = acc.l[1] * alpha1 + ls1;
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
+  for (int dt = 0; dt < HD / 8; ++dt) {
     acc.o[dt][0] *= alpha0;
     acc.o[dt][1] *= alpha0;
     acc.o[dt][2] *= alpha1;
@@ -300,7 +317,7 @@ __device__ __forceinline__ void softmax_pv(float (&s)[8][4], const __nv_bfloat16
     pa[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
     pa[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
+    for (int dt = 0; dt < HD / 8; ++dt) {
       const __nv_bfloat16* vp = Vt + (dt * 8 + g) * ldv + j * 16 + t * 2;
       const uint32_t b0 = *reinterpret_cast<const uint32_t*>(vp);
       const uint32_t b1 = *reinterpret_cast<const uint32_t*>(vp + 8);
@@ -310,10 +327,14 @@ __device__ __forceinline__ void softmax_pv(float (&s)[8][4], const __nv_bfloat16
 }
 
 // One kv tile of BN keys for this warp's 16 rows: s = q.k^T in the log2
-// domain on bf16 tensor cores, then `softmax_pv`. ``Ks``: tile rows (pitch LDS).
-__device__ __forceinline__ void attend_tile(const uint32_t (&qa)[4][4], const __nv_bfloat16* Ks,
-                                            const __nv_bfloat16* Vt, int ldv, int kv0, int skv,
-                                            const float* bias, Acc& acc) {
+// domain on bf16 tensor cores, then `softmax_pv`. ``Ks``: tile rows (pitch
+// pitch(HD)).
+template <int HD>
+__device__ __forceinline__ void attend_tile(const uint32_t (&qa)[HD / 16][4],
+                                            const __nv_bfloat16* Ks, const __nv_bfloat16* Vt,
+                                            int ldv, int kv0, int skv, const float* bias,
+                                            AccT<HD>& acc) {
+  constexpr int ld = pitch(HD);
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   float s[8][4];
@@ -322,10 +343,10 @@ __device__ __forceinline__ void attend_tile(const uint32_t (&qa)[4][4], const __
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < HD / 16; ++kk) {
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
-      const __nv_bfloat16* kp = Ks + (nt * 8 + g) * LDS + kk * 16 + t * 2;
+      const __nv_bfloat16* kp = Ks + (nt * 8 + g) * ld + kk * 16 + t * 2;
       const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kp);
       const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kp + 8);
       mma16816(s[nt], qa[kk], b0, b1);
@@ -336,8 +357,9 @@ __device__ __forceinline__ void attend_tile(const uint32_t (&qa)[4][4], const __
 
 // o = acc / l for this warp's 16 rows starting at q row ``q0 + warp*16``;
 // with ``lse`` (already at (b, h)), also the rows' natural-log logsumexp.
-__device__ __forceinline__ void store_out(Acc& acc, __nv_bfloat16* o, long long os, int q0, int sq,
-                                          float* lse) {
+template <int HD>
+__device__ __forceinline__ void store_out(AccT<HD>& acc, __nv_bfloat16* o, long long os, int q0,
+                                          int sq, float* lse) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   float l0 = acc.l[0], l1 = acc.l[1];
@@ -353,7 +375,7 @@ __device__ __forceinline__ void store_out(Acc& acc, __nv_bfloat16* o, long long 
     if (r1 < sq) lse[r1] = (acc.m[1] + log2f(l1)) * LN2;
   }
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
+  for (int dt = 0; dt < HD / 8; ++dt) {
     const int c = dt * 8 + t * 2;
     if (r0 < sq)
       *reinterpret_cast<__nv_bfloat162*>(o + (long long)r0 * os + c) =
@@ -377,14 +399,15 @@ __device__ __forceinline__ Side side_k(const TGAttnArgs& a) {
 }
 
 // Grid (ceil(Sq / BM), H, B). Each block owns 128 q rows of one (b, h) and
-// sweeps every kv tile. PRO_Q / PRO_K select the fused prologues. The body is
-// shared; each TPU kernel gets its own __global__ below, so a trace names
-// them apart.
-template <bool PRO_Q, bool PRO_K>
+// sweeps every kv tile. PRO_Q / PRO_K select the fused prologues; HD is the
+// head dim. The body is shared; each TPU kernel gets its own __global__
+// below, so a trace names them apart.
+template <bool PRO_Q, bool PRO_K, int HD = D>
 __device__ __forceinline__ void flash_fwd_body(const TGAttnArgs& a) {
-  __shared__ __align__(16) __nv_bfloat16 Qs[BM * LDS];
-  __shared__ __align__(16) __nv_bfloat16 Ks[BN * LDS];
-  __shared__ __align__(16) __nv_bfloat16 Vt[D * LDV];
+  constexpr int ld = pitch(HD);
+  __shared__ __align__(16) __nv_bfloat16 Qs[BM * ld];
+  __shared__ __align__(16) __nv_bfloat16 Ks[BN * ld];
+  __shared__ __align__(16) __nv_bfloat16 Vt[HD * LDV];
   const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
   const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
   const float eps = static_cast<float>(a.eps);
@@ -396,18 +419,18 @@ __device__ __forceinline__ void flash_fwd_body(const TGAttnArgs& a) {
   float* lse = a.lse ? static_cast<float*>(a.lse) + ((long long)b * a.h + h) * sq : nullptr;
   const Side pq = side_q(a), pk = side_k(a);
 
-  load_rows<PRO_Q>(Qs, LDS, q, a.q_ss, q0, BM, sq, pq, b, static_cast<float>(a.qscale), eps);
+  load_rows<PRO_Q, HD>(Qs, ld, q, a.q_ss, q0, BM, sq, pq, b, static_cast<float>(a.qscale), eps);
   __syncthreads();
-  uint32_t qa[4][4];
-  load_q_frags(qa, Qs);
-  Acc acc;
+  uint32_t qa[HD / 16][4];
+  load_q_frags<HD>(qa, Qs);
+  AccT<HD> acc;
   init_acc(acc);
   for (int kv0 = 0; kv0 < skv; kv0 += BN) {
     __syncthreads();  // previous tile consumed by every warp
-    load_rows<PRO_K>(Ks, LDS, k, a.k_ss, kv0, BN, skv, pk, b, 1.f, eps);
-    load_vt(Vt, LDV, v, a.v_ss, kv0, BN, skv);
+    load_rows<PRO_K, HD>(Ks, ld, k, a.k_ss, kv0, BN, skv, pk, b, 1.f, eps);
+    load_vt<HD>(Vt, LDV, v, a.v_ss, kv0, BN, skv);
     __syncthreads();
-    attend_tile(qa, Ks, Vt, LDV, kv0, skv, bias, acc);
+    attend_tile<HD>(qa, Ks, Vt, LDV, kv0, skv, bias, acc);
   }
   store_out(acc, o, a.o_ss, q0, sq, lse);
 }
@@ -425,6 +448,21 @@ __global__ void __launch_bounds__(NTHREADS) smallq_kernel(const TGAttnArgs a) {
 // K4: plain [B, H, S, 64] attention; qscale = softmax scale * log2 e.
 __global__ void __launch_bounds__(NTHREADS) bhsd_kernel(const TGAttnArgs a) {
   flash_fwd_body<false, false>(a);
+}
+
+// K6: fused-prologue attention on [B, H, S, HD] operands given by strides
+// (replaces _flash_fused_kernel, wrapper _flash_fused_tpu): what the JAX
+// package runs for odd head counts, for 2 * d not a multiple of 128 and for
+// 4-D operands. It computes K1's function per head; the TPU kernel's head
+// blocking (hblk) and lane padding are TPU devices with no use here, so it
+// is K1's body at head dim HD (16, 32 or 64), both prologues in-kernel. A
+// merged [B, S, H * HD] tensor arrives as its [B, H, S, HD] view (strides
+// sb, sh = HD, ss = H * HD): no copy. Bound on this card: the two products
+// (bf16 tensor-core rate), as K1; at HD = 16 the k prologue's table reads
+// weigh more against the products.
+template <int HD>
+__global__ void __launch_bounds__(NTHREADS) fused_bhsd_kernel(const TGAttnArgs a) {
+  flash_fwd_body<true, true, HD>(a);
 }
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -1016,6 +1054,17 @@ int tg_attention_cross_smallq(const TGAttnArgs* a, void* stream) {
 
 int tg_attention_bhsd(const TGAttnArgs* a, void* stream) {
   return launch_flash(bhsd_kernel, a, static_cast<cudaStream_t>(stream));
+}
+
+// K6: fused-prologue [B, H, S, head_dim] attention, head_dim 16, 32 or 64.
+int tg_attention_fused_bhsd(const TGAttnArgs* a, long long head_dim, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16: return launch_flash(fused_bhsd_kernel<16>, a, s);
+    case 32: return launch_flash(fused_bhsd_kernel<32>, a, s);
+    case 64: return launch_flash(fused_bhsd_kernel<64>, a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // K2: text_video -> vip cross-attention, kv <= 512 held whole in shared memory.

@@ -32,6 +32,7 @@ from tokensgen_tpu_torch.kernels.attention import fused_flash_attention, make_pr
 from tokensgen_tpu_torch.models.layers import (
     AdaLNZero,
     AdaLayerNormOut,
+    Conv2d,
     FeedForward,
     LayerNorm,
     Linear,
@@ -165,15 +166,17 @@ class JointVIPAttention(nn.Module):
         self.norm_k = QKNorm(cfg.attention_head_dim) if cfg.qk_norm else None
         self.processor = _VIPProcessor(cfg) if cfg.vip is not None else None
 
-    def _attn(self, q, k, v, tq, tk):
+    def _attn(self, q, k, v, tq, tk, key_bias=None):
         cfg = self.cfg
-        return fused_flash_attention(q, k, v, tq, tk, heads=cfg.num_attention_heads,
+        return fused_flash_attention(q, k, v, tq, tk, key_bias, heads=cfg.num_attention_heads,
                                      norm_q=cfg.qk_norm, norm_k=cfg.qk_norm,
                                      int8_scores=cfg.quant_attn)
 
     def forward(self, text_video, vip, text_len: int, image_rotary_emb: Optional[Rope],
                 vip_image_rotary_emb: Optional[Rope], vip_condition_rotary_emb: Optional[Rope],
-                vip_scale=None):
+                vip_scale=None, key_bias: Optional[torch.Tensor] = None):
+        """``key_bias``: optional additive f32 [B, T+Sv] mask on the base
+        attention's keys (the T2To padded chunks); the VIP branch takes none."""
         cfg = self.cfg
         d = cfg.attention_head_dim
         sm_scale = d ** -0.5
@@ -184,7 +187,7 @@ class JointVIPAttention(nn.Module):
         base_segs = [(None, text_len), (image_rotary_emb, text_video.shape[1] - text_len)]
         tabs_q = make_prologue(d, base_segs, gq, bq, fold=sm_scale, device=dev)
         tabs_k = make_prologue(d, base_segs, gk, bk, device=dev)
-        out = self._attn(q, k, v, tabs_q, tabs_k)  # [B, T+Sv, H*D]
+        out = self._attn(q, k, v, tabs_q, tabs_k, key_bias)  # [B, T+Sv, H*D]
 
         vip_attn_out = None
         if cfg.vip is not None:
@@ -236,14 +239,15 @@ class DiTBlock(nn.Module):
             self.vip_norm1 = VIPAdaLN(inner, te, dtype=dt)
             self.vip_norm2 = VIPAdaLN(inner, te, dtype=dt)
 
-    def forward(self, hidden, text, vip, temb, ropes, vip_scale=None):
+    def forward(self, hidden, text, vip, temb, ropes, vip_scale=None, key_bias=None):
         text_len = text.shape[1]
         norm_h, norm_t, gate, t_gate = self.norm1(hidden, text, temb)
         norm_vip = vip_gate = None
         if vip is not None:
             norm_vip, vip_gate = self.vip_norm1(vip, temb)
         tv = torch.cat([norm_t, norm_h], dim=1)
-        video_attn, text_attn, vip_attn = self.attn1(tv, norm_vip, text_len, *ropes, vip_scale)
+        video_attn, text_attn, vip_attn = self.attn1(tv, norm_vip, text_len, *ropes, vip_scale,
+                                                     key_bias)
         hidden = hidden + gate * video_attn
         text = text + t_gate * text_attn
         if vip is not None:
@@ -264,14 +268,17 @@ class _PatchEmbed(nn.Module):
         super().__init__()
         inner, dt, p = cfg.inner_dim, cfg.dtype, cfg.patch_size
         self.text_proj = Linear(cfg.text_embed_dim, inner, dtype=dt)
-        self.proj = nn.Conv2d(cfg.in_channels, inner, p, stride=p, dtype=dt)
+        self.proj = Conv2d(cfg.in_channels, inner, p, stride=p, dtype=dt)
         if cfg.vip is not None:
             self.vip_proj = Linear(cfg.vip.output_dim, inner, dtype=dt)
 
 
 class CogVideoXTransformer(nn.Module):
     """Full DiT: [B, F, C, H, W] latents, [B, T, text_dim] text, [B] or [B, F]
-    timesteps, VIP tokens [B, Tq, Cv, Hq, Wq] -> [B, F, C, H, W] prediction."""
+    timesteps, VIP tokens [B, Tq, Cv, Hq, Wq] -> [B, F, C, H, W] prediction.
+    ``key_bias``: optional additive f32 [B, T+Sv] mask on the base
+    attention's keys (T2To training's padded chunks), carried through every
+    block, checkpointed ones included."""
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
@@ -289,7 +296,8 @@ class CogVideoXTransformer(nn.Module):
     def forward(self, hidden_states, encoder_hidden_states, timestep, vip_hidden_states=None,
                 image_rotary_emb: Optional[Rope] = None,
                 vip_image_rotary_emb: Optional[Rope] = None,
-                vip_condition_rotary_emb: Optional[Rope] = None, vip_scale=None):
+                vip_condition_rotary_emb: Optional[Rope] = None, vip_scale=None,
+                key_bias: Optional[torch.Tensor] = None):
         cfg = self.cfg
         b, f, c, h, w = hidden_states.shape
         p, dt = cfg.patch_size, cfg.dtype
@@ -312,9 +320,9 @@ class CogVideoXTransformer(nn.Module):
         for block in self.transformer_blocks:
             if remat:
                 video, text, vip = checkpoint(block, video, text, vip, temb, ropes, vip_scale,
-                                              use_reentrant=False)
+                                              key_bias, use_reentrant=False)
             else:
-                video, text, vip = block(video, text, vip, temb, ropes, vip_scale)
+                video, text, vip = block(video, text, vip, temb, ropes, vip_scale, key_bias)
 
         # the reference normalizes [text (‖ vip) ‖ video] and keeps the video tail
         joint = torch.cat([text] + ([vip] if vip is not None else []) + [video], dim=1)

@@ -6,7 +6,8 @@ keeps f32 params and casts them to the compute dtype at use, which gives the
 same values); LayerNorm affine parameters stay float32 and normalize with
 float32 statistics, as there. For training, the trainable Linear weights are
 float32 masters (`train/to2v.py`): `Linear` casts its weight to the input's
-dtype at use, as flax's Dense does.
+dtype at use, as flax's Dense does; `Conv2d` does the same for the patch conv,
+which the T2To trainer's full finetune trains.
 """
 
 from __future__ import annotations
@@ -38,6 +39,14 @@ class Linear(nn.Linear):
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` computing in its input's dtype, as `Linear`."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 class TimestepEmbedding(nn.Module):

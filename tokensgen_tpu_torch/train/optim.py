@@ -10,13 +10,16 @@ gradient (``adam``, `torch.optim.Adam` semantics), AdamW with decoupled decay
 AdamW of `train/adam8bit.py`. Prodigy is not ported.
 
 Optimizers update the parameters in place (the JAX package returns new
-trees; in place saves a copy of every trainable tensor).
+trees; in place saves a copy of every trainable tensor). `TrainStep` is the
+trainers' step around them: `optax.clip_by_global_norm` chained before the
+optimizer, under `optax.MultiSteps` accumulation.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Union
+import time
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
@@ -133,3 +136,67 @@ def base_optimizer(name: str, params: Dict[str, torch.Tensor], learning_rate: Un
         return AdamW8bit(params, lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
     return AdamW(params, lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
                  decoupled=name == "adamw")
+
+
+def global_norm(tensors) -> torch.Tensor:
+    return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+
+
+class TrainStep:
+    """A trainer's step (`make_train_step` with its optax chain): each call
+    runs one micro-batch's `loss` and backward; every ``accum_steps``-th
+    call clips the mean gradient to ``max_grad_norm`` (optax
+    `clip_by_global_norm`) and updates ``params`` in place. Gradient
+    accumulation has `optax.MultiSteps` semantics: the mean of k micro-batch
+    gradients, one update. Returns the loss, the micro-batch's grad norm,
+    whether it updated, and the device-synchronised seconds of the forward
+    and backward (``train_step_s``) and of the update (``optimizer_s``)."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], optimizer, max_grad_norm: float,
+                 accum_steps: int = 1):
+        self.params, self.optimizer = params, optimizer
+        self.max_grad_norm, self.accum_steps = max_grad_norm, accum_steps
+        self.mini_step = 0
+        self.acc: Optional[Dict[str, torch.Tensor]] = None
+
+    def loss(self, batch: Dict, timesteps: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def __call__(self, batch: Dict, timesteps: torch.Tensor, noise: torch.Tensor) -> Dict:
+        sync = _synchronizer(noise.device)
+        t0 = time.perf_counter()
+        loss = self.loss(batch, timesteps, noise)
+        loss.backward()
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in self.params.items()}
+        gnorm = global_norm(grads.values())
+        for p in self.params.values():
+            p.grad = None
+        if self.accum_steps > 1:  # MultiSteps: running mean of the micro-batch grads
+            if self.acc is None:
+                self.acc = {n: torch.zeros_like(g) for n, g in grads.items()}
+            for n, g in grads.items():
+                self.acc[n].add_((g - self.acc[n]) / (self.mini_step + 1))
+            grads = self.acc
+        sync()
+        t1 = time.perf_counter()
+        self.mini_step += 1
+        updated = self.mini_step == self.accum_steps
+        if updated:
+            mean_norm = gnorm if self.accum_steps == 1 else global_norm(grads.values())
+            scale = torch.clamp(self.max_grad_norm / mean_norm, max=1.0)
+            for g in grads.values():
+                g.mul_(scale)
+            self.optimizer.step(self.params, grads)
+            self.mini_step = 0
+            self.acc = None
+        sync()
+        t2 = time.perf_counter()
+        return {"loss": loss.detach(), "grad_norm": gnorm, "updated": updated,
+                "train_step_s": t1 - t0, "optimizer_s": t2 - t1}
+
+
+def _synchronizer(device):
+    if torch.device(device).type == "cuda":
+        return lambda: torch.cuda.synchronize(device)
+    return lambda: None

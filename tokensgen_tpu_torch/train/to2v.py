@@ -19,7 +19,6 @@ and the noise as arguments; the CLI draws them from a `torch.Generator`.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, Optional
 
 import torch
@@ -124,10 +123,6 @@ def to2v_loss(model: To2VModel, sched: S.DiffusionSchedule, batch: Dict,
     return objective.x0_weighted_loss(sched, out, noisy.float(), latents.float(), timesteps)
 
 
-def global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
-
-
 def make_optimizer(params: Dict[str, torch.Tensor], cfg: To2VTrainConfig):
     lr = optim.lr_schedule(cfg.lr_scheduler, cfg.learning_rate, cfg.lr_warmup_steps,
                            cfg.max_train_steps, num_cycles=cfg.lr_num_cycles, power=cfg.lr_power)
@@ -136,58 +131,17 @@ def make_optimizer(params: Dict[str, torch.Tensor], cfg: To2VTrainConfig):
                                 use_8bit=cfg.use_8bit_adam)
 
 
-class To2VTrainStep:
-    """`make_train_step`: each call runs one micro-batch's loss and backward;
-    every ``accum_steps``-th call clips the mean gradient to
-    ``max_grad_norm`` (optax `clip_by_global_norm`) and updates the trainable
-    parameters in place. Returns the loss, the micro-batch's grad norm,
-    whether it updated, and the device-synchronised seconds of the forward
-    and backward (``train_step_s``) and of the update (``optimizer_s``)."""
+class To2VTrainStep(optim.TrainStep):
+    """`make_train_step` over the trainable parameters of ``model``, with
+    `to2v_loss` (see `optim.TrainStep` for the clip, the accumulation and
+    what each call returns)."""
 
     def __init__(self, model: To2VModel, sched: S.DiffusionSchedule, cfg: To2VTrainConfig,
                  accum_steps: int = 1, optimizer=None):
         self.model, self.sched, self.cfg = model, sched, cfg
-        self.accum_steps = accum_steps
-        self.params = trainable_parameters(model)
-        self.optimizer = optimizer or make_optimizer(self.params, cfg)
-        self.mini_step = 0
-        self.acc: Optional[Dict[str, torch.Tensor]] = None
+        params = trainable_parameters(model)
+        super().__init__(params, optimizer or make_optimizer(params, cfg), cfg.max_grad_norm,
+                         accum_steps)
 
-    def __call__(self, batch: Dict, timesteps: torch.Tensor, noise: torch.Tensor) -> Dict:
-        sync = _synchronizer(batch["latents"].device)
-        t0 = time.perf_counter()
-        loss = to2v_loss(self.model, self.sched, batch, timesteps, noise)
-        loss.backward()
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in self.params.items()}
-        gnorm = global_norm(grads.values())
-        for p in self.params.values():
-            p.grad = None
-        if self.accum_steps > 1:  # MultiSteps: running mean of the micro-batch grads
-            if self.acc is None:
-                self.acc = {n: torch.zeros_like(g) for n, g in grads.items()}
-            for n, g in grads.items():
-                self.acc[n].add_((g - self.acc[n]) / (self.mini_step + 1))
-            grads = self.acc
-        sync()
-        t1 = time.perf_counter()
-        self.mini_step += 1
-        updated = self.mini_step == self.accum_steps
-        if updated:
-            mean_norm = gnorm if self.accum_steps == 1 else global_norm(grads.values())
-            scale = torch.clamp(self.cfg.max_grad_norm / mean_norm, max=1.0)
-            for g in grads.values():
-                g.mul_(scale)
-            self.optimizer.step(self.params, grads)
-            self.mini_step = 0
-            self.acc = None
-        sync()
-        t2 = time.perf_counter()
-        return {"loss": loss.detach(), "grad_norm": gnorm, "updated": updated,
-                "train_step_s": t1 - t0, "optimizer_s": t2 - t1}
-
-
-def _synchronizer(device):
-    if torch.device(device).type == "cuda":
-        return lambda: torch.cuda.synchronize(device)
-    return lambda: None
+    def loss(self, batch: Dict, timesteps: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        return to2v_loss(self.model, self.sched, batch, timesteps, noise)
