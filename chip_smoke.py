@@ -6,7 +6,9 @@
 Phases, each printing its own lines:
   env     card name and power limit (nvidia-smi), torch / CUDA versions;
           TF32 is switched off for matmuls and convolutions in every phase
-  build   nvcc builds the attention kernels from kernels/csrc (timed)
+  build   nvcc builds both sources of kernels/csrc at once (attention.cu,
+          probes.cu; timed) and prints registers and spills per
+          instantiation; none may spill
   kernels K1-K4 at the edit path's production shapes, K5 (the attention
           backward) at the training path's, K7 (int8 scores) at the gen
           path's and K6 (fused prologue on [B, H, S, D]) at the T2To
@@ -15,7 +17,11 @@ Phases, each printing its own lines:
           lse outputs of K1, K4 and K6; K7 against bf16 K1; K1 at the T2To
           shape; K6 as a strided view of merged operands and at head dims 16
           and 32; K1 and K5 at the T2To trainer's shape with its
-          padded-chunk key bias
+          padded-chunk key bias; K5 at head dims 16 and 32, and a gradient
+          through K6 + K5 there against autograd through the plain version
+  probes  the probe kernels' CLIs (tokensgen_tpu_torch/tools: T1, T2, T6, T7,
+          T8) at their JAX scripts' shapes, then each kernel against its
+          plain version with a planted fault, timed, with its bound
   dit     one full-width DiT forward (CogVideoX-5b, 42 layers, VIP "1", B=2),
           timed, then a second one traced with torch.profiler (device time
           by kernel group, idle share; trace in build/traces/); then the same
@@ -28,20 +34,24 @@ Phases, each printing its own lines:
           quant_attn: T2To tokens, then the To2V render (1 chunk, 13 steps,
           1 partition, render DiT depth cut to 6 of 42 layers); then one
           T2To stage alone at the shipped 24 chunks
-  train   a 2-layer train step on the card against the host's, then 2
-          optimizer steps of the To2V adapter trainer (train_to2v.To2VTrainer)
-          at full width (42 layers, batch 2, 2-chunk 49-frame 720x480), then
-          a third one traced with torch.profiler (device time by kernel group)
+  train   2-layer train steps on the card against the host's (heads of 64,
+          and the --smoke geometry: the DiT's 2 heads of 16 on K6 / K5), 2
+          steps of the tiny trainer (--smoke) on the card, then 2 optimizer
+          steps of the To2V adapter trainer (train_to2v.To2VTrainer) at full
+          width (42 layers, batch 2, 2-chunk 49-frame 720x480), then a third
+          one traced with torch.profiler (device time by kernel group); each
+          step's sampled timesteps and mean x0 weight beside its loss
   t2to_train  the T2To trainer (train_t2to.T2ToTrainer): a tiny step (one
           head of 64: K6 forward, K5 backward) on the card against the
           host's, 2 steps of the tiny trainer on the card, then 2 full-finetune
           optimizer steps at full width (42 layers, batch 3, 24 chunks: 9,442
-          tokens per row, int8 AdamW) and a third one traced
+          tokens per row, int8 AdamW) and a third one traced; each step's
+          sampled timesteps and mean x0 weight beside its loss
 
 The card's name and power limit (nvidia-smi) and a JSON object of the
 kernels and their measurements (launches of K1-K4 on the edit path, of K5 on
-the train path, of K7 on the gen path, of K6 on the tiny T2To trainer) come
-before the last line,
+the train path, of K7 on the gen path, of K6 on the tiny T2To trainer, of
+the probe kernels in their CLIs' runs) come before the last line,
 and the result line ``{"ok": true, "device": {...}}``. Any failed phase
 raises and the script exits non-zero. It refuses to run without a card.
 """
@@ -58,7 +68,7 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernels", "dit", "edit", "gen", "train", "t2to_train")
+PHASES = ("env", "build", "kernels", "probes", "dit", "edit", "gen", "train", "t2to_train")
 
 # A kernel agrees with its plain version (same bf16 inputs; the plain version
 # keeps f32 where the kernel rounds the prologued q, with log2 e folded in, and
@@ -148,16 +158,35 @@ def phase_env(state: dict) -> None:
 
 
 def phase_build(state: dict) -> None:
+    """nvcc builds both sources at once (one process each), then prints
+    -Xptxas -v per instantiation: registers and spill bytes. The instantiated
+    set leaves out what spills (probes.SWEEP_CONFIGS), so a spill fails."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from tokensgen_tpu_torch.kernels import attention as A
+    from tokensgen_tpu_torch.kernels import build as B
+    from tokensgen_tpu_torch.kernels import probes as P
+
+    def build(lib):
+        t0 = time.perf_counter()
+        return lib.build(force=True), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    path = A.build_kernels(force=True)
-    dt = time.perf_counter() - t0
-    log(f"[build] nvcc {' '.join(A.NVCC_FLAGS)} -> {os.path.relpath(path, REPO)} "
-        f"in {dt:.1f} s")
-    for line in A._Library.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"[build] {line.strip()}")
+    libs = (A._Library, P._Library)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        built = list(pool.map(build, libs))
+    log(f"[build] nvcc {' '.join(B.NVCC_FLAGS)}: both sources in "
+        f"{time.perf_counter() - t0:.1f} s")
+    spilled = []
+    for lib, (path, dt) in zip(libs, built):
+        log(f"[build] {os.path.relpath(lib.source, REPO)} -> {os.path.relpath(path, REPO)} "
+            f"in {dt:.1f} s")
+        for name, regs, spill in B.ptxas_report(lib.build_log):
+            log(f"[build]   {name}: {regs} registers, {spill} bytes spilled")
+            if spill:
+                spilled.append(name)
+    if spilled:
+        raise RuntimeError(f"registers spill in {spilled}")
 
 
 def _rope_tables(d, nf, gh, gw, device, offset=0.0):
@@ -200,12 +229,13 @@ def _outputs(x):
 
 
 def _compare(name, kernel_fn, plain_fn, state, fault_fn=None, runs=5, plain_runs=3,
-             check_only=False, work=None, library_fn=None, labels=None):
+             check_only=False, work=None, library_fn=None, labels=None, phase="kernels",
+             fault="last ragged kv tile dropped"):
     """Kernel vs plain version: every output within the bounds, then the
     kernel, the plain version and ``library_fn`` (one PyTorch call computing
     the same function, timed only) timed. ``work`` = (flops, bytes) of the
     function for its bound. ``fault_fn`` is a deliberately wrong plain
-    version that must fail the bounds on at least one output."""
+    version (``fault``) that must fail the bounds on at least one output."""
     import torch
 
     outs = _outputs(kernel_fn())
@@ -221,7 +251,7 @@ def _compare(name, kernel_fn, plain_fn, state, fault_fn=None, runs=5, plain_runs
         max_err = max(max_err, err)
         parts.append(f"{label} {tuple(out.shape)} rel_l2_err {rel:.3e} (bound {REL_L2_BOUND:g}) "
                      f"max_abs_err {err:.3e} (bound {err_bound:.3e}) finite {finite}")
-    msg = f"[kernels] {name}: " + "; ".join(parts)
+    msg = f"[{phase}] {name}: " + "; ".join(parts)
     if check_only:
         log(msg)
     else:
@@ -230,9 +260,10 @@ def _compare(name, kernel_fn, plain_fn, state, fault_fn=None, runs=5, plain_runs
         lib_ms = None if library_fn is None else _cuda_time_ms(library_fn, runs)
         b_ms, b_by = bound_ms(*work)
         int8 = f", {work[2] / 1e12:.3f} int8 TOP" if len(work) > 2 else ""
+        detail = f"{work[0] / 1e12:.3f} TFLOP{int8}, {work[1] / 1e9:.3f} GB"
         log(f"{msg}; kernel {ms:.3f} ms plain {plain_ms:.3f} ms library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'} bound {b_ms:.3f} ms "
-            f"({b_by}; {work[0] / 1e12:.3f} TFLOP{int8}, {work[1] / 1e9:.3f} GB)")
+            f"({b_by}; {detail})")
         state.setdefault("kernel_rows", {})[name] = {
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms}
@@ -243,10 +274,10 @@ def _compare(name, kernel_fn, plain_fn, state, fault_fn=None, runs=5, plain_runs
         caught = [not _agrees(*agreement(f, r)) for f, r in zip(faults, refs)]
         detail = ", ".join(f"{label} rel_l2_err {agreement(f, r)[0]:.3e}"
                            for label, f, r in zip(labels, faults, refs))
-        log(f"[kernels] {name}[planted fault: last ragged kv tile dropped]: {detail}: "
+        log(f"[{phase}] {name}[planted fault: {fault}]: {detail}: "
             f"{'fails, as it must' if any(caught) else 'passes (bounds too loose)'}")
         if not any(caught):
-            raise RuntimeError(f"{name}: the bounds do not catch a dropped ragged kv tile")
+            raise RuntimeError(f"{name}: the bounds do not catch the planted fault ({fault})")
     return max_err
 
 
@@ -660,6 +691,59 @@ def _bwd_fns(c):
     return kernel, plain, (lambda: plain(skv - skv % KV_TILE)), library, work
 
 
+def _k5_head_dim_checks(dev, state) -> None:
+    """K5 at head dims 16 and 32 ([3, 2, 1,544, 16] and [3, 4, 1,544, 32]:
+    the tiny DiTs' token count, 8 text + 16 frames of 8 x 12, with the
+    padded-chunk key bias of valid frames (16, 8, 4)): held to the plain
+    backward with the planted fault and timed; then a gradient through
+    `fused_flash_attention` on [B, H, S, D] operands (the autograd Function
+    of K6 + K5) against autograd through the plain version, on the card."""
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+    from tokensgen_tpu_torch.train.t2to import padded_chunk_masks
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    bias, _ = padded_chunk_masks(torch.tensor([16, 8, 4], device=dev), 16, 96, 8)
+    b, s = 3, 8 + 16 * 96
+    for h, d in ((2, 16), (4, 32)):
+        q4, k4, v4, g4 = (torch.randn(b, h, s, d, generator=gen, device=dev).bfloat16()
+                          for _ in range(4))
+        c = dict(q4=q4, k4=k4, v4=v4, g4=g4, scale=d ** -0.5, key_bias=bias, heads=None)
+        out4, c["lse"] = A.attention_plain(q4, k4, v4, bias, c["scale"], with_lse=True)
+        c["dsum"] = A._row_dsum(g4, out4, None)
+        kernel, plain, fault, library, work = _bwd_fns(c)
+        label = f"attention_backward[d={d}, {tuple(q4.shape)}, padded-chunk bias]"
+        _compare(label, kernel, plain, state, fault_fn=fault, work=work,
+                 library_fn=_library_or_none(label, library), labels=["dq", "dk", "dv", "dbias"])
+        ang = torch.randn(s - 8, d, generator=gen, device=dev)
+        segs = [(None, 8), ((ang.cos(), ang.sin()), s - 8)]
+        gain = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        shift = 0.1 * torch.randn(d, generator=gen, device=dev)
+        tq = A.make_prologue(d, segs, gain, shift, fold=d ** -0.5)
+        tk = A.make_prologue(d, segs, gain, shift)
+        grads = []
+        before = A.attention_backward.launches
+        for fn in (lambda *x: A.fused_flash_attention(*x, tq, tk, bias),
+                   lambda *x: A.attention_fused_plain(*x, bias, tq, tk, 1e-6, True, True)):
+            leaves = [x.detach().requires_grad_() for x in (q4, k4, v4)]
+            out = fn(*leaves)
+            torch.autograd.backward(out, g4)
+            grads.append([x.grad for x in leaves])
+        launched = A.attention_backward.launches - before
+        parts, ok = [], launched == 1
+        for label, got, ref in zip(("dq", "dk", "dv"), *grads):
+            rel, err, err_bound = agreement(got, ref)
+            ok = ok and _agrees(rel, err, err_bound) and bool(torch.isfinite(got).all())
+            parts.append(f"{label} rel_l2_err {rel:.3e} max_abs_err {err:.3e} "
+                         f"(bound {err_bound:.3e})")
+        log(f"[kernels] fused_flash_attention gradient at d={d} {tuple(q4.shape)} (K6 + K5, "
+            f"{launched} K5 launch) against autograd through the plain version: "
+            + "; ".join(parts))
+        if not ok:
+            raise RuntimeError(f"the d={d} attention gradient on the card disagrees or skipped K5")
+
+
 def phase_kernels(state: dict) -> None:
     import torch
 
@@ -713,6 +797,7 @@ def phase_kernels(state: dict) -> None:
                  state, fault_fn=fault, check_only=check_only, work=work,
                  library_fn=None if check_only else library(),
                  labels=["dq", "dk", "dv", "dbias"])
+    _k5_head_dim_checks(dev, state)
     # K1 with per-sample (batched) tables and a key-bias mask
     c = dict(cases["fused_attention_joint"])
     b = c["q"].shape[0]
@@ -747,6 +832,229 @@ def phase_kernels(state: dict) -> None:
         raise RuntimeError("fused_attention_joint: non-finite output on all-negative rows")
     log("[kernels] fused_attention_joint[all-negative score rows]: finite")
     del cases
+    torch.cuda.empty_cache()
+
+
+# The probe kernels (kernels/probes.py), each the counterpart of a Pallas
+# probe under the JAX package's tools/: entry point -> the TPU kernel
+PROBES = {
+    "attention_sweep": "tools/bench_attn_sweep.py:73",  # `_tpu` -> K4's `_flash_kernel`
+    "attention_v2": "tools/bench_attn_v2.py:23",  # `_kernel_v2`
+    "flash_loop": "tools/bench_pallas_int8.py:29",  # `_flash_like_kernel`
+    "matmul_hand": "tools/bench_matmul_pallas.py:27",  # `_mm_kernel`
+    "exp2_loop": "tools/bench_vpu_exp2.py:30",  # `make_kernel`
+}
+PROBE_SOURCE = "tokensgen_tpu_torch/kernels/csrc/probes.cu"
+PROBE_CLIS = ("bench_attn_sweep", "bench_attn_v2", "bench_int8_loop", "bench_matmul_hand",
+              "bench_exp2")
+# SFU (ex2) and FP32 results per clock per SM on Hopper: the exp2 probe's
+# bound is its passes over these at the SM clock nvidia-smi reports
+SFU_PER_CLK_SM, FP32_PER_CLK_SM, SMS = 16, 128, 132
+
+
+def _sm_clock_hz() -> float:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60)
+    if smi.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
+
+
+def _probe_attention_rows(dev, state) -> None:
+    """T1 and T2 at the scripts' shape [1, 48, 17,776, 64] (the CLIs' inputs),
+    at K4's tiles (128, 64), against their plain versions with the planted
+    fault; T2 "last" also where a key bias on earlier tiles must be ignored,
+    and its "full" mode at (64, 128)."""
+    import torch
+
+    from tokensgen_tpu_torch.kernels import probes as P
+    from tokensgen_tpu_torch.tools.bench_attn_sweep import make_inputs
+
+    q, k, v, bias = make_inputs(dev, 1, 48, 17776)
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    n = skv - skv % KV_TILE
+    work = (4.0 * b * h * sq * skv * d, _nbytes(q, k, v, q, bias))
+    library = lambda: _sdpa(q, k, v, d ** -0.5)  # noqa: E731
+    _compare("attention_sweep", lambda: P.attention_sweep(q, k, v, bias, 128, 64, 1),
+             lambda: P.attention_sweep_plain(q, k, v, bias), state,
+             fault_fn=lambda: P.attention_sweep_plain(q, k[:, :, :n], v[:, :, :n], bias[:, :n]),
+             work=work, library_fn=library, phase="probes")
+    _compare("attention_v2", lambda: P.attention_v2(q, k, v, bias, 128, 64, "last"),
+             lambda: P.attention_v2_plain(q, k, v, bias, 64, "last"), state,
+             fault_fn=lambda: P.attention_v2_plain(q, k[:, :, :n], v[:, :, :n], bias[:, :n], 64,
+                                                   "last"),
+             work=work, library_fn=library, phase="probes")
+    _compare("attention_v2[full, 64 x 128]", lambda: P.attention_v2(q, k, v, bias, 64, 128, "full"),
+             lambda: P.attention_v2_plain(q, k, v, bias, 128, "full"), state, check_only=True,
+             phase="probes")
+    del q, k, v, bias
+    gen = torch.Generator(device=dev).manual_seed(13)
+    qs, ks, vs = (torch.randn(2, 4, 1000, 64, generator=gen, device=dev).bfloat16()
+                  for _ in range(3))
+    rb = torch.randn(2, 1000, generator=gen, device=dev)
+    _compare("attention_v2[last, random key bias, (2, 4, 1000, 64)]",
+             lambda: P.attention_v2(qs, ks, vs, rb, 64, 64, "last"),
+             lambda: P.attention_v2_plain(qs, ks, vs, rb, 64, "last"), state, check_only=True,
+             fault_fn=lambda: P.attention_v2_plain(qs, ks, vs, rb, 64, "full"),
+             fault="the bias applied on every tile", phase="probes")
+
+
+def _probe_flash_loop_rows(dev, state) -> None:
+    """T6 at (m, n, d) = (2048, 2048, 128): int8 at the CLI's 500 steps must
+    be bit-equal to its plain version (exact integers, int32 wrap), and the
+    planted fault (one kv tile left out of the first step) must not be; bf16
+    at 4 steps (its chain decays by ~11/64 a step) by the bounds, with the
+    same fault. The kernels line's row is the int8 case."""
+    import torch
+
+    from tokensgen_tpu_torch.kernels import probes as P
+    from tokensgen_tpu_torch.tools.bench_int8_loop import make_inputs
+
+    m, n, d, iters = 2048, 2048, 128, 500
+    qb, kb, vb = make_inputs(dev, m, n, d, torch.bfloat16)
+    _compare("flash_loop[bf16, 4 steps]", lambda: P.flash_loop(qb, kb, vb, 4),
+             lambda: P.flash_loop_plain(qb, kb, vb, 4), state, check_only=True,
+             fault_fn=lambda: P.flash_loop_plain(qb, kb, vb, 4, drop_first_tile=True),
+             fault="one kv tile left out of the first step", phase="probes")
+    ms_bf16 = _cuda_time_ms(lambda: P.flash_loop(qb, kb, vb, iters), 5)
+    ops = iters * 2 * 4.0 * m * n * d
+    log(f"[probes] flash_loop[bf16, {iters} steps]: kernel {ms_bf16:.3f} ms, bound "
+        f"{ops / PEAK_BF16_FLOPS * 1e3:.3f} ms ({ops / 1e12:.3f} TFLOP at the bf16 peak)")
+    q8, k8, v8 = make_inputs(dev, m, n, d, torch.int8)
+    out = P.flash_loop(q8, k8, v8, iters)
+    ref = P.flash_loop_plain(q8, k8, v8, iters)
+    equal = torch.equal(out, ref)
+    fault_equal = torch.equal(out, P.flash_loop_plain(q8, k8, v8, iters, drop_first_tile=True))
+    err = (out - ref).abs().max().item()
+    ms = _cuda_time_ms(lambda: P.flash_loop(q8, k8, v8, iters), 5)
+    plain_ms = _cuda_time_ms(lambda: P.flash_loop_plain(q8, k8, v8, iters), 3)
+    b_ms = ops / PEAK_INT8_OPS * 1e3
+    log(f"[probes] flash_loop[int8, {iters} steps, {(m, n, d)}]: bit-equal to the plain version "
+        f"{equal} (max_abs_err {err:.3e}); planted fault (one kv tile left out of the first "
+        f"step) bit-equal {fault_equal}; kernel {ms:.3f} ms plain {plain_ms:.3f} ms library n/a "
+        f"bound {b_ms:.3f} ms (operations; {ops / 1e12:.3f} int8 TOP)")
+    if not equal or fault_equal:
+        raise RuntimeError("flash_loop int8: not bit-equal to its plain version, or the planted "
+                           "fault is not caught")
+    state.setdefault("kernel_rows", {})["flash_loop"] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": "operations", "library_ms": None}
+
+
+def _probe_matmul_rows(dev, state) -> None:
+    """T7 at ff up ([36,352, 3072] x [3072, 12288], the CLI's inputs; library
+    torch.matmul), planted fault: the last k tile of 32 left out; then ragged
+    M, N and K edges at a small shape."""
+    import torch
+
+    from tokensgen_tpu_torch.kernels import probes as P
+    from tokensgen_tpu_torch.tools.bench_matmul_hand import M, make_inputs
+
+    x, y = make_inputs(dev, M, 3072, 12288)
+    kdim = x.shape[1]
+    _compare("matmul_hand", lambda: P.matmul_hand(x, y), lambda: P.matmul_plain(x, y), state,
+             fault_fn=lambda: P.matmul_plain(x, y, kdim - P.MATMUL_BK),
+             fault="the last k tile left out", phase="probes",
+             work=(2.0 * M * kdim * y.shape[1], _nbytes(x, y) + 2 * M * y.shape[1]),
+             library_fn=lambda: torch.matmul(x, y))
+    del x, y
+    xs, ys = make_inputs(dev, 300, 200, 136, seed=1)
+    _compare("matmul_hand[ragged (300, 200) x (200, 136)]", lambda: P.matmul_hand(xs, ys),
+             lambda: P.matmul_plain(xs, ys), state, check_only=True,
+             fault_fn=lambda: P.matmul_plain(xs, ys, 192), fault="the ragged k tile left out",
+             phase="probes")
+
+
+# T8's checks, at pass counts where one pass less fails them: exp2 draws
+# every input to its fixed point 2 (x -> 2^(x/2) has slope ln 2 there), so
+# after ~40 passes every count gives 2.0; exp2_add leaves the f32 range
+# after ~30; mul by 1.0000001 moves by an ulp a pass, so it is held bit-equal
+# (one correctly rounded f32 product a pass), at the CLI's 256 passes
+EXP2_CHECK_PASSES = {"mul": 256, "exp2": 6, "exp2_add": 16}
+
+
+def _probe_exp2_rows(dev, state) -> None:
+    """T8 at the script's [2048, 2048] f32: each op against its plain loop at
+    `EXP2_CHECK_PASSES` (exp2 and exp2_add by the bounds, mul bit-equal), with
+    the planted fault of one pass less; then at the CLI's 256 passes checked
+    to be infinite where the plain loop is, and timed. The row is exp2's.
+    Bound: the exp2 passes at the SFU rate, mul at the FP32 rate, at the SM
+    clock nvidia-smi reports (the 8 bytes per element read and written are
+    far below)."""
+    import torch
+
+    from tokensgen_tpu_torch.kernels import probes as P
+    from tokensgen_tpu_torch.tools.bench_exp2 import make_input
+
+    x = make_input(dev, 2048, 2048)
+    n_iter = 256
+    clk = _sm_clock_hz()
+    log(f"[probes] SM clock (nvidia-smi clocks.max.sm): {clk / 1e6:.0f} MHz")
+    for op in P.EXP2_OPS:
+        checked = EXP2_CHECK_PASSES[op]
+        name, fault = f"exp2_loop[{op}, {checked} passes]", f"{checked - 1} passes"
+        if op == "mul":
+            out, ref = P.exp2_loop(x, checked, op), P.exp2_loop_plain(x, checked, op)
+            equal = torch.equal(out, ref)
+            fault_equal = torch.equal(out, P.exp2_loop_plain(x, checked - 1, op))
+            err = (out - ref).abs().max().item()
+            log(f"[probes] {name}: bit-equal to the plain version {equal} (max_abs_err "
+                f"{err:.3e}); planted fault ({fault}) bit-equal {fault_equal}")
+            if not equal or fault_equal:
+                raise RuntimeError(f"{name}: not bit-equal to its plain version, or the planted "
+                                   "fault is not caught")
+        else:
+            err = _compare(name, lambda: P.exp2_loop(x, checked, op),
+                           lambda: P.exp2_loop_plain(x, checked, op), state, check_only=True,
+                           fault_fn=lambda: P.exp2_loop_plain(x, checked - 1, op), fault=fault,
+                           phase="probes")
+        out, ref = P.exp2_loop(x, n_iter, op), P.exp2_loop_plain(x, n_iter, op)
+        inf_alike = torch.equal(torch.isinf(out), torch.isinf(ref))
+        ms = _cuda_time_ms(lambda: P.exp2_loop(x, n_iter, op), 5)
+        plain_ms = _cuda_time_ms(lambda: P.exp2_loop_plain(x, n_iter, op), 3)
+        per_clk = FP32_PER_CLK_SM if op == "mul" else SFU_PER_CLK_SM
+        b_ms = x.numel() * n_iter / (SMS * per_clk * clk) * 1e3
+        log(f"[probes] exp2_loop[{op}, {n_iter} passes]: infinite where the plain version is "
+            f"{inf_alike} ({int(torch.isinf(ref).sum())} of {ref.numel()}); kernel {ms:.3f} ms "
+            f"plain {plain_ms:.3f} ms library n/a bound {b_ms:.3f} ms (operations; "
+            f"{x.numel() * n_iter / 1e9:.3f} G results at {per_clk} per clock per SM)")
+        if not inf_alike:
+            raise RuntimeError(f"exp2_loop[{op}]: infinite elsewhere than its plain version")
+        if op == "exp2":
+            state.setdefault("kernel_rows", {})["exp2_loop"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": "operations", "library_ms": None}
+
+
+def phase_probes(state: dict) -> None:
+    """The probe kernels' main path: each CLI of tokensgen_tpu_torch/tools at
+    its JAX script's shapes, with the launch counts set to 0 before and read
+    after; then each kernel against its plain version with a planted fault,
+    timed (CUDA events) for the kernels line."""
+    import importlib
+
+    import torch
+
+    from tokensgen_tpu_torch.kernels import probes as P
+
+    dev = state["device"]
+    P.reset_launch_counts()
+    for cli in PROBE_CLIS:
+        log(f"[probes] python -m tokensgen_tpu_torch.tools.{cli} (its JAX script's shapes):")
+        t0 = time.perf_counter()
+        importlib.import_module(f"tokensgen_tpu_torch.tools.{cli}").main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        log(f"[probes] {cli} done in {time.perf_counter() - t0:.1f} s")
+    state["probe_launches"] = counts = P.launch_counts()
+    log(f"[probes] kernel launches of the probe CLIs: {json.dumps(counts)}")
+    if min(counts.values()) <= 0:
+        raise RuntimeError(f"a probe CLI launched no kernel: {counts}")
+    _probe_attention_rows(dev, state)
+    _probe_flash_loop_rows(dev, state)
+    _probe_matmul_rows(dev, state)
+    _probe_exp2_rows(dev, state)
     torch.cuda.empty_cache()
 
 
@@ -1162,9 +1470,10 @@ def _small_train_batch(dcfg, rcfg, b=2, f=3, chunks=2, seed=4):
         "vip_emb_sel": torch.tensor([[0, 1, 2], [1, 2, 3]])[:, :n_vip],
         "text_embeds": torch.randn(b, dcfg.max_text_seq_length, dcfg.text_embed_dim,
                                    generator=gen),
-        "resampler_image_rotary_emb": get_3d_rotary_pos_embed_v2(d, ar(f), ar(gh), ar(gw)),
+        "resampler_image_rotary_emb": get_3d_rotary_pos_embed_v2(rcfg.dim_head, ar(f), ar(gh),
+                                                                 ar(gw)),
         "resampler_sampling_rotary_emb": get_3d_rotary_pos_embed_v2(
-            d, 1000 + ar(tq), ar(hq), ar(wq)),
+            rcfg.dim_head, 1000 + ar(tq), ar(hq), ar(wq)),
         "image_rotary_emb": get_3d_rotary_pos_embed_v2(d, ar(f), ar(gh), ar(gw)),
         "vip_image_rotary_emb": get_3d_rotary_pos_embed_v2_torch(
             d, torch.tensor([[3.0, 4, 5], [9, 10, 11]]), torch.arange(gh), torch.arange(gw)),
@@ -1182,19 +1491,55 @@ def _to(x, dev):
     return x.to(dev)
 
 
-def _small_train_check(dev) -> None:
-    """A 2-layer, head-dim-64 bf16 DiT + resampler train step (loss and
-    backward) with the same weights and inputs on the host (the plain
-    versions in both directions) and on the card (K1/K4 with lse, K5): the
-    trainable grads must agree within TRAIN_GRAD_REL_L2_BOUND."""
+def _small_train_check(dev, dcfg, rcfg, label: str) -> dict:
+    """A 2-layer bf16 DiT + resampler train step (loss and backward) with the
+    same weights and inputs on the host (the plain versions in both
+    directions) and on the card (the kernels): the trainable grads must agree
+    within TRAIN_GRAD_REL_L2_BOUND. Returns the card's launch counts."""
     import copy
 
     import torch
 
     from tokensgen_tpu_torch.core import schedule as S
+    from tokensgen_tpu_torch.kernels import attention as A
+    from tokensgen_tpu_torch.train import to2v
+
+    host = to2v.setup_trainable(
+        to2v.init_model(dcfg, rcfg, "cpu", torch.Generator().manual_seed(3)), torch.bfloat16)
+    card = copy.deepcopy(host).to(dev)
+    batch, timesteps, noise = _small_train_batch(dcfg, rcfg)
+    grads, losses = [], []
+    for model, device in ((host, torch.device("cpu")), (card, dev)):
+        sched = S.make_schedule(S.ScheduleConfig(), device=device)
+        A.reset_launch_counts()
+        loss = to2v.to2v_loss(model, sched, {k: _to(v, device) for k, v in batch.items()},
+                              timesteps.to(device), noise.to(device))
+        loss.backward()
+        counts = A.launch_counts()
+        grads.append(torch.cat([p.grad.float().flatten().cpu()
+                                for p in to2v.trainable_parameters(model).values()]))
+        losses.append(loss.item())
+    rel = ((grads[1] - grads[0]).norm() / grads[0].norm()).item()
+    log(f"[train] small train check ({label}, bf16, VIP + resampler; host plain versions vs "
+        f"card kernels): loss {losses[0]:.6f} / {losses[1]:.6f}, trainable grads relative L2 "
+        f"error {rel:.3e} (bound {TRAIN_GRAD_REL_L2_BOUND:g}) over {grads[0].numel():,} values; "
+        f"card launches {json.dumps(counts)}")
+    if not (rel <= TRAIN_GRAD_REL_L2_BOUND and torch.isfinite(grads[1]).all()):
+        raise RuntimeError("the card's train step disagrees with the host reference")
+    return counts
+
+
+def _small_train_checks(dev) -> None:
+    """`_small_train_check` at head dim 64 (the DiT's attention on K1 / K5,
+    the resampler's on K4 / K5) and at the tiny trainer's geometry
+    (`train_to2v.model_configs` with --smoke on the card: the DiT's 2 heads
+    of 16 on K6 / K5, the resampler's 64-wide heads on K4 / K5)."""
+    import torch
+
     from tokensgen_tpu_torch.models.dit import DiTConfig, VIPConfig
     from tokensgen_tpu_torch.models.resampler import ResamplerConfig
-    from tokensgen_tpu_torch.train import to2v
+    from tokensgen_tpu_torch.train_to2v import model_configs
+    from tokensgen_tpu_torch.utils.config import load_config
 
     vc = VIPConfig(output_dim=64, num_temporal_queries=2, num_height_queries=4,
                    num_width_queries=6, length=3 * 4 * 6)
@@ -1203,26 +1548,63 @@ def _small_train_check(dev) -> None:
     rcfg = ResamplerConfig.tiny(dim=64, dim_head=64, heads=2, embedding_dim=dcfg.inner_dim,
                                 output_dim=64, num_temporal_queries=2, num_height_queries=4,
                                 num_width_queries=6, dtype=torch.bfloat16)
-    host = to2v.setup_trainable(
-        to2v.init_model(dcfg, rcfg, "cpu", torch.Generator().manual_seed(3)), torch.bfloat16)
-    card = copy.deepcopy(host).to(dev)
-    batch, timesteps, noise = _small_train_batch(dcfg, rcfg)
-    grads, losses = [], []
-    for model, device in ((host, torch.device("cpu")), (card, dev)):
-        sched = S.make_schedule(S.ScheduleConfig(), device=device)
-        loss = to2v.to2v_loss(model, sched, {k: _to(v, device) for k, v in batch.items()},
-                              timesteps.to(device), noise.to(device))
-        loss.backward()
-        grads.append(torch.cat([p.grad.float().flatten().cpu()
-                                for p in to2v.trainable_parameters(model).values()]))
-        losses.append(loss.item())
-    rel = ((grads[1] - grads[0]).norm() / grads[0].norm()).item()
-    log(f"[train] small train check (2 layers, d=64, bf16, VIP + resampler; host plain "
-        f"versions vs card kernels): loss {losses[0]:.6f} / {losses[1]:.6f}, trainable grads "
-        f"relative L2 error {rel:.3e} (bound {TRAIN_GRAD_REL_L2_BOUND:g}) over "
-        f"{grads[0].numel():,} values")
-    if not (rel <= TRAIN_GRAD_REL_L2_BOUND and torch.isfinite(grads[1]).all()):
-        raise RuntimeError("the card's train step disagrees with the host reference")
+    _small_train_check(dev, dcfg, rcfg, "2 layers, d=64")
+    dcfg, rcfg = model_configs(load_config(os.path.join(REPO, TRAIN_CONFIG)), True, dev)[:2]
+    counts = _small_train_check(dev, dcfg, rcfg, f"the --smoke geometry: DiT "
+                                f"{dcfg.num_attention_heads} x {dcfg.attention_head_dim}, "
+                                f"resampler {rcfg.heads} x {rcfg.dim_head}")
+    if min(counts[k] for k in ("fused_attention_bhsd", "attention_backward")) <= 0:
+        raise RuntimeError(f"the d={dcfg.attention_head_dim} train check skipped K6 / K5: {counts}")
+
+
+def _tiny_to2v_trainer(dev) -> None:
+    """Two steps of the tiny To2V trainer (`train_to2v --smoke`) on the card:
+    the DiT's 2 heads of 16 take K6 forward and K5 backward. Accumulation is
+    cut to 1 as at full width, so each step runs the int8 AdamW update and a
+    trainable weight moves."""
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+    from tokensgen_tpu_torch.train_to2v import To2VTrainer
+    from tokensgen_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, TRAIN_CONFIG),
+                      {"gradient_accumulation_steps": 1,
+                       "output_dir": os.path.join(REPO, "build", "train_smoke_tiny")})
+    tiny = To2VTrainer(cfg, smoke=True, device=dev)
+    vip_q = tiny.model.dit.transformer_blocks[0].attn1.processor.vip_to_q.weight
+    before = vip_q.detach().clone()
+    A.reset_launch_counts()
+    records = tiny.run(TRAIN_STEPS, save_final=False)
+    counts = A.launch_counts()
+    moved = not torch.equal(before, vip_q.detach())
+    _log_steps("train", "tiny trainer (--smoke) on the card", records)
+    log(f"[train] tiny trainer: DiT {tiny.dcfg.num_attention_heads} x "
+        f"{tiny.dcfg.attention_head_dim} heads, optimizer "
+        f"{type(tiny.step_fn.optimizer).__name__}; kernel launches {json.dumps(counts)}; "
+        f"vip dit.transformer_blocks.0.attn1.processor.vip_to_q.weight "
+        f"{'changed' if moved else 'bit-unchanged'}")
+    if min(counts[k] for k in ("fused_attention_bhsd", "attention_backward")) <= 0 or not all(
+            math.isfinite(r["loss"]) and r["grad_norm"] > 0 and r["updated"] for r in records):
+        raise RuntimeError(f"the tiny To2V trainer did not run K6 / K5, or a step has no finite "
+                           f"loss and gradient or made no update: {counts}")
+    if not moved:
+        raise RuntimeError("the tiny To2V trainer's updates left a trainable weight unchanged")
+
+
+def _log_steps(phase: str, what: str, records) -> None:
+    """Each step's loss and its per-sample terms, grad norm, sampled
+    timesteps and mean x0 weight 1/(1-ᾱ_t) (the loss's per-timestep weight)
+    beside its seconds."""
+    from tokensgen_tpu_torch.utils.logging import format_floats
+
+    for r in records:
+        secs = ", ".join(f"{k[:-2].replace('_', ' ')} {r[k]:.3f} s" for k in r if k.endswith("_s"))
+        log(f"[{phase}] {what} step {r['step']}: {secs}; loss {r['loss']:.6f} (per sample "
+            f"{format_floats(r['sample_losses'])}) grad_norm {r['grad_norm']:.6f}; timesteps {r['timesteps']} "
+            f"mean x0 weight {r['x0_weight']:.6g}" + (f"; valid chunks {r['valid_chunks']}"
+                                        if "valid_chunks" in r else "")
+            + (f"; {r['dropped']} VIP embedding(s) dropped" if "dropped" in r else ""))
 
 
 def phase_train(state: dict) -> None:
@@ -1238,7 +1620,8 @@ def phase_train(state: dict) -> None:
     state.pop("pipe", None)  # the edit phase's pipeline
     gc.collect()
     torch.cuda.empty_cache()
-    _small_train_check(dev)
+    _small_train_checks(dev)
+    _tiny_to2v_trainer(dev)
     cfg = load_config(os.path.join(REPO, TRAIN_CONFIG),
                       dict(TRAIN_OVERRIDES, output_dir=os.path.join(REPO, "build", "train_smoke")))
     log(f"[train] {TRAIN_CONFIG} with {json.dumps(TRAIN_OVERRIDES)}, {TRAIN_STEPS} steps "
@@ -1272,10 +1655,7 @@ def phase_train(state: dict) -> None:
     counts, lse_counts = A.launch_counts(), A.lse_launch_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     state["train_launches"] = counts
-    for r in records:
-        log(f"[train] step {r['step']}: staging {r['staging_s']:.3f} s, train step "
-            f"{r['train_step_s']:.3f} s, optimizer {r['optimizer_s']:.3f} s; loss {r['loss']:.6f} "
-            f"grad_norm {r['grad_norm']:.6f}; {r['dropped']} VIP embedding(s) dropped")
+    _log_steps("train", "full width", records)
     log(f"[train] {len(records)} steps in {total:.1f} s, peak {peak:.2f} GiB")
     log(f"[train] kernel launches on the train path: {json.dumps(counts)}; with lse: "
         f"{json.dumps(lse_counts)}")
@@ -1405,8 +1785,8 @@ def phase_t2to_train(state: dict) -> None:
     records = tiny.run(T2TO_STEPS, save_final=False)
     torch.cuda.synchronize()
     state["t2to_launches"] = counts = A.launch_counts()
-    log(f"[t2to_train] tiny trainer (--smoke) on the card: losses "
-        f"{[round(r['loss'], 6) for r in records]}; kernel launches {json.dumps(counts)}")
+    _log_steps("t2to_train", "tiny trainer (--smoke) on the card", records)
+    log(f"[t2to_train] tiny trainer: kernel launches {json.dumps(counts)}")
     want = T2TO_STEPS * tiny.dcfg.num_layers
     if (counts["fused_attention_bhsd"], counts["attention_backward"]) != (want, want) or not all(
             math.isfinite(r["loss"]) for r in records):
@@ -1439,10 +1819,7 @@ def phase_t2to_train(state: dict) -> None:
     total = time.perf_counter() - t0
     counts, lse_counts = A.launch_counts(), A.lse_launch_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    for r in records:
-        log(f"[t2to_train] step {r['step']}: data {r['data_s']:.3f} s, train step "
-            f"{r['train_step_s']:.3f} s, optimizer {r['optimizer_s']:.3f} s; loss {r['loss']:.6f} "
-            f"grad_norm {r['grad_norm']:.6f}; valid chunks {r['valid_chunks']}")
+    _log_steps("t2to_train", "full width", records)
     log(f"[t2to_train] {len(records)} steps in {total:.1f} s, peak {peak:.2f} GiB")
     log(f"[t2to_train] kernel launches on the T2To train path: {json.dumps(counts)}; with lse: "
         f"{json.dumps(lse_counts)}")
@@ -1554,6 +1931,9 @@ def main(argv=None) -> int:
     for name, replaces in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                      "launches": launches[name], **state["kernel_rows"][name]})
+    for name, replaces in PROBES.items():
+        rows.append({"name": name, "route": "cuda", "source": PROBE_SOURCE, "replaces": replaces,
+                     "launches": state["probe_launches"][name], **state["kernel_rows"][name]})
     missing = [r["name"] for r in rows if r["launches"] <= 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the main path: {missing}")

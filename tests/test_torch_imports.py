@@ -1,5 +1,6 @@
-"""The port stands alone: importing every tokensgen_tpu_torch module loads no
-jax, flax or tokensgen_tpu, and no module calls PyTorch's fused attention,
+"""The port stands alone: importing every tokensgen_tpu_torch module (the
+probe kernels and their CLIs included) loads no jax, flax, tokensgen_tpu or
+the JAX package's tools/, and no module calls PyTorch's fused attention,
 cuDNN attention or torch.compile."""
 
 import os
@@ -26,11 +27,16 @@ def test_import_loads_no_jax():
     assert trainer <= set(_modules())
     gen = {"tokensgen_tpu_torch.core.pca", "tokensgen_tpu_torch.pipelines.t2to"}
     assert gen <= set(_modules())
+    probes = {"tokensgen_tpu_torch.kernels.build", "tokensgen_tpu_torch.kernels.probes"} | {
+        f"tokensgen_tpu_torch.tools.{m}" for m in ("bench_attn_sweep", "bench_attn_v2",
+                                                   "bench_int8_loop", "bench_matmul_hand",
+                                                   "bench_exp2")}
+    assert probes <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'jaxlib', "
-        "'tokensgen_tpu'))\n"
+        "'tokensgen_tpu', 'tools'))\n"
         "print(len(sys.modules), bad)\n"
         "assert not bad, bad\n"
     )
@@ -42,7 +48,8 @@ def test_import_loads_no_jax():
 
 def test_no_library_attention_or_compile():
     banned = ("scaled_dot_product_attention", "torch.compile", "cudnn_attention", "flash_attn")
-    jax_import = re.compile(r"^\s*(import|from)\s+(jax|flax|tokensgen_tpu)\b(?!_torch)", re.M)
+    jax_import = re.compile(r"^\s*(import|from)\s+(jax|flax|tokensgen_tpu|tools)\b(?!_torch)",
+                            re.M)
     hits = []
     for root, _, files in os.walk(PKG_DIR):
         for f in files:

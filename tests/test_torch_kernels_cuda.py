@@ -1,6 +1,8 @@
-"""The Hopper attention kernels of tokensgen_tpu_torch (the forwards K1-K4,
-their logsumexp outputs, the backward K5, the int8-score forward K7, the
-[B, H, S, D] fused-prologue forward K6) against their plain PyTorch versions, on the card. Every test here is
+"""The Hopper kernels of tokensgen_tpu_torch (the attention forwards K1-K4,
+their logsumexp outputs, the backward K5 at head dims 16, 32 and 64, the
+int8-score forward K7, the [B, H, S, D] fused-prologue forward K6, and the
+probe kernels T1, T2, T6, T7 and T8) against their plain PyTorch versions,
+on the card. Every test here is
 marked ``cuda`` and skips without a card. This file imports no JAX, so it also runs on a machine that
 has none (skipping tests/conftest.py, which does):
 
@@ -227,14 +229,121 @@ def test_fused_bhsd_kernel_matches_plain_on_card(cuda_device, d, layout):
 
 @pytest.mark.cuda
 def test_fused_bhsd_refuses_what_the_card_lacks(cuda_device):
-    """K6 raises on a head dim it is not built for, and under autograd on a
-    head dim K5 does not take, instead of falling back."""
+    """K6 raises on a head dim it is not built for (128), under autograd as
+    well, and so does K5, instead of falling back."""
     x = torch.zeros(1, 1, 128, 128, device=cuda_device, dtype=torch.bfloat16)
+    tabs = TA.prologue_identity(128, 128, device=cuda_device)
     with pytest.raises(ValueError):
-        TA.fused_attention_bhsd(x, x, x, TA.prologue_identity(128, 128, device=cuda_device),
-                                TA.prologue_identity(128, 128, device=cuda_device))
-    q = torch.zeros(1, 128, 2 * 16, device=cuda_device, dtype=torch.bfloat16,
-                    requires_grad=True)
-    tabs = TA.prologue_identity(128, 16, device=cuda_device)
-    with pytest.raises(NotImplementedError):
-        TA.fused_flash_attention(q, q.detach(), q.detach(), tabs, tabs, heads=2)
+        TA.fused_attention_bhsd(x, x, x, tabs, tabs)
+    q = x.clone().requires_grad_()
+    with pytest.raises(ValueError):
+        TA.fused_flash_attention(q, x, x, tabs, tabs)
+    lse = torch.zeros(1, 1, 128, device=cuda_device)
+    with pytest.raises(ValueError):
+        TA.attention_backward(x, x, x, x, lse, lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32])
+def test_backward_head_dims_on_card(cuda_device, d):
+    """K5 at head dims 16 and 32 vs attention_bwd_plain on [B, H, S, d] bf16
+    (ragged lengths, a key-bias mask): dq, dk, dv, dbias within REL_L2_BOUND
+    and MAX_ABS_REL; then a gradient through `fused_flash_attention` on
+    [B, H, S, d] (K6 + K5 under autograd) against autograd through the plain
+    version, one K5 launch."""
+    gen = torch.Generator(cuda_device).manual_seed(d)
+    b, h, sq, skv = 2, 3, 300, 517
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device).bfloat16()
+
+    q, g, k, v = rnd(b, h, sq, d), rnd(b, h, sq, d), rnd(b, h, skv, d), rnd(b, h, skv, d)
+    bias = torch.zeros(b, skv, device=cuda_device)
+    bias[1, : skv // 3] = -1e9
+    scale = d ** -0.5
+    out, lse = TA.attention_plain(q, k, v, bias, scale, with_lse=True)
+    dsum = TA._row_dsum(g, out, None)
+    before = TA.attention_backward.launches
+    got = TA.attention_backward(q, k, v, g, lse, dsum, bias, None, scale, with_dbias=True)
+    ref = TA.attention_bwd_plain(q, k, v, g, lse, dsum, bias, scale)
+    torch.cuda.synchronize()
+    assert TA.attention_backward.launches == before + 1
+    for x, r in zip(got, ref):
+        _assert_within_bounds(x, r)
+    tq = TA.prologue_identity(sq, d, fold=scale, device=cuda_device)
+    tk = TA.prologue_identity(skv, d, device=cuda_device)
+    grads = []
+    for fn in (lambda *a: TA.fused_flash_attention(*a, tq, tk, key_bias=bias),
+               lambda *a: TA.attention_fused_plain(*a, bias, tq, tk, 1e-6, True, True)):
+        leaves = [z.detach().requires_grad_() for z in (q, k, v)]
+        torch.autograd.backward(fn(*leaves), g)
+        grads.append([z.grad for z in leaves])
+    assert TA.attention_backward.launches == before + 2
+    for x, r in zip(*grads):
+        _assert_within_bounds(x, r)
+
+
+# ------------------------------------------------------------ probe kernels
+
+
+@pytest.mark.cuda
+def test_probe_attention_kernels_on_card(cuda_device):
+    """T1 at every built (block_q, block_kv, hblk) and T2 at every built tile
+    in both bias modes, on [2, 4, 300, 64] x 517 keys (ragged) bf16 with a
+    random key bias, vs their plain versions within REL_L2_BOUND and
+    MAX_ABS_REL; each call counted once."""
+    from tokensgen_tpu_torch.kernels import probes as P
+
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    q = torch.randn(2, 4, 300, D, generator=gen, device=cuda_device).bfloat16()
+    k, v = (torch.randn(2, 4, 517, D, generator=gen, device=cuda_device).bfloat16()
+            for _ in range(2))
+    bias = torch.randn(2, 517, generator=gen, device=cuda_device)
+    ref = P.attention_sweep_plain(q, k, v, bias)
+    for cfg in P.SWEEP_CONFIGS:
+        before = P.attention_sweep.launches
+        _assert_within_bounds(P.attention_sweep(q, k, v, bias, *cfg), ref)
+        assert P.attention_sweep.launches == before + 1
+    for mode in P.BIAS_MODES:
+        for bq, bkv in P.V2_CONFIGS:
+            _assert_within_bounds(P.attention_v2(q, k, v, bias, bq, bkv, mode),
+                                  P.attention_v2_plain(q, k, v, bias, bkv, mode))
+    with pytest.raises(ValueError):
+        P.attention_sweep(q, k, v, bias, 128, 128, 1)  # not built
+
+
+@pytest.mark.cuda
+def test_probe_flash_loop_on_card(cuda_device):
+    """T6 on m = 40 rows (ragged to its 16-row blocks), n = 208 keys (ragged
+    to its 64-key tiles), d = 128: int8 bit-equal to its plain version
+    (exact integers, int32 wrap) at 7 steps, bf16 within the bounds at 3."""
+    from tokensgen_tpu_torch.kernels import probes as P
+
+    rng = np.random.default_rng(4)
+    m, n, d = 40, 208, 128
+    shapes = ((m, d), (d, n), (n, d))
+    q8, k8, v8 = (torch.from_numpy(rng.integers(-127, 127, s)).to(cuda_device, torch.int8)
+                  for s in shapes)
+    assert torch.equal(P.flash_loop(q8, k8, v8, 7), P.flash_loop_plain(q8, k8, v8, 7))
+    qb, kb, vb = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        cuda_device, torch.bfloat16) for s in shapes)
+    _assert_within_bounds(P.flash_loop(qb, kb, vb, 3), P.flash_loop_plain(qb, kb, vb, 3))
+
+
+@pytest.mark.cuda
+def test_probe_matmul_and_exp2_on_card(cuda_device):
+    """T7 on ragged (300 x 200) @ (200 x 136) vs bf16(f32 product) within the
+    bounds; T8's three ops over 1,000 x 64 f32 for 20 passes vs the plain
+    loop (mul bit-equal: the same IEEE products)."""
+    from tokensgen_tpu_torch.kernels import probes as P
+
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    x = (0.1 * torch.randn(300, 200, generator=gen, device=cuda_device)).bfloat16()
+    y = (0.1 * torch.randn(200, 136, generator=gen, device=cuda_device)).bfloat16()
+    _assert_within_bounds(P.matmul_hand(x, y), P.matmul_plain(x, y))
+    z = torch.rand(1000, 64, generator=gen, device=cuda_device) * 2 - 1
+    for op in P.EXP2_OPS:
+        out, ref = P.exp2_loop(z, 20, op), P.exp2_loop_plain(z, 20, op)
+        if op == "mul":
+            assert torch.equal(out, ref)
+        _assert_within_bounds(out, ref)

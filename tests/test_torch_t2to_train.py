@@ -85,6 +85,34 @@ def test_pca_normalization_and_masked_loss_match_jax():
     assert abs(unmasked.item() - got.item()) > 1e-3  # the mask really applies
 
 
+@pytest.mark.parametrize("masked", [True, False])
+def test_sample_losses_are_each_samples_loss(masked):
+    """x0_sample_losses (the per-sample terms the trainers log): term i is
+    JAX's x0_weighted_loss of sample i alone, with T2To's padded-chunk mask
+    and [B] timesteps or To2V's per-frame [B, F] timesteps, and their mean
+    is x0_weighted_loss; f32, 1e-6 relative."""
+    rng = np.random.default_rng(4)
+    shape = (3, 4, 16, 8, 12)
+    out, noisy, clean = (rng.normal(size=shape).astype(np.float32) for _ in range(3))
+    ts = np.array([3, 400, 990]) if masked else rng.integers(0, 1000, size=(3, 4))
+    mask = np.asarray(JT.padded_chunk_masks(jnp.asarray([4, 2, 1]), 4, 96, 8)[1]) if masked \
+        else None
+    sched_j = JS.make_schedule(JS.ScheduleConfig(beta_schedule="vip_1"))
+    sched_t = TS.make_schedule(TS.ScheduleConfig(beta_schedule="vip_1"))
+    got = TO.x0_sample_losses(sched_t, t(out), t(noisy), t(clean), torch.from_numpy(ts),
+                              loss_mask=None if mask is None else t(mask))
+    assert got.shape == (3,)
+    for i in range(3):
+        want = JO.x0_weighted_loss(
+            sched_j, jnp.asarray(out[i:i + 1]), jnp.asarray(noisy[i:i + 1]),
+            jnp.asarray(clean[i:i + 1]), jnp.asarray(ts[i:i + 1]),
+            loss_mask=None if mask is None else jnp.asarray(mask[i:i + 1]))
+        np.testing.assert_allclose(got[i].item(), float(want), rtol=1e-6)
+    mean = TO.x0_weighted_loss(sched_t, t(out), t(noisy), t(clean), torch.from_numpy(ts),
+                               loss_mask=None if mask is None else t(mask))
+    np.testing.assert_allclose(got.mean().item(), mean.item(), rtol=1e-6)
+
+
 # ------------------------------------------------------------- train step
 
 
@@ -176,6 +204,64 @@ def test_train_step_updates_every_parameter(jax_step):
         assert not torch.equal(p, before[n]), n
     with pytest.raises(NotImplementedError, match="LoRA"):
         TT.T2ToTrainStep(dit, sched, TT.T2ToTrainConfig(lora_rank=4))
+
+
+def _jax_draws(key, shape):
+    """The JAX T2To loss_fn's timesteps and noise for ``key`` (`make_train_step`)."""
+    r_t, r_noise = jax.random.split(key)
+    ts = JO.sample_uniform_timesteps(r_t, shape[0], 1000, None, 1)
+    return (torch.from_numpy(np.array(ts)),
+            t(jax.random.normal(r_noise, shape, jnp.float32)))
+
+
+def _update_error(got: dict, before: dict, want: dict) -> float:
+    """Relative L2 error, over every parameter together, of the port's update
+    (got - before) against JAX's (want - before)."""
+    num = sum(float(((got[n].double() - torch.from_numpy(np.array(want[n])).double()) ** 2).sum())
+              for n in got)
+    den = sum(float(((torch.from_numpy(np.array(want[n])).double() - before[n].double()) ** 2)
+                    .sum()) for n in got)
+    return (num / den) ** 0.5
+
+
+@pytest.mark.parametrize("use_8bit", [False, True], ids=["adamw", "adamw_8bit"])
+def test_two_steps_match_jax(jax_step, use_8bit):
+    """Two optimizer steps of `T2ToTrainStep` against two of JAX
+    `make_train_step` with the config's own optimizer (clip 1.0, then AdamW
+    as shipped, or the int8 AdamW of ``use_8bit_adam: true``, what one card
+    runs at full width) from the same params, batch and replayed draws: the
+    parameters after step 1 (the update, relative L2 over all parameters,
+    within 2e-4; measured 2.6e-5 with either optimizer: an Adam step divides
+    each gradient by its own magnitude, so f32 grads that differ in the last
+    bits move entries near zero by up to 2 lr), and step 2's loss and grad
+    norm, which read those parameters (2e-5 relative; measured <= 2.4e-6)."""
+    js = jax_step
+    jd = JD.DiTConfig.tiny(**TINY)
+    jcfg, tcfg = JT.T2ToTrainConfig(use_8bit_adam=use_8bit), TT.T2ToTrainConfig(
+        use_8bit_adam=use_8bit)
+    sched = JS.make_schedule(JS.ScheduleConfig(beta_schedule="vip_1"))
+    opt = JT.make_optimizer(jcfg)
+    step = jax.jit(JT.make_train_step(jd, sched, jcfg, opt))
+    params, state = js["params"], opt.init(js["params"])
+    jb = {k: jnp.asarray(v) for k, v in js["batch"].items()}
+    keys = jax.random.split(jax.random.PRNGKey(7), 2)
+    jax_out = []
+    for key in keys:
+        params, state, metrics = step(params, state, jb, key)
+        jax_out.append((dit_state_dict(np_tree(params), js["td"]), float(metrics["loss"]),
+                        float(metrics["grad_norm"])))
+    dit, tsched, batch = _port_step(js)
+    port = TT.T2ToTrainStep(dit, tsched, tcfg)
+    assert type(port.optimizer).__name__ == ("AdamW8bit" if use_8bit else "AdamW")
+    before = {n: p.detach().clone() for n, p in dit.named_parameters()}
+    shape = js["batch"]["latents"].shape
+    m1 = port(batch, *_jax_draws(keys[0], shape))
+    np.testing.assert_allclose(m1["loss"].item(), jax_out[0][1], rtol=1e-5)
+    err = _update_error({n: p.detach() for n, p in dit.named_parameters()}, before, jax_out[0][0])
+    assert err <= 2e-4, err
+    m2 = port(batch, *_jax_draws(keys[1], shape))
+    np.testing.assert_allclose(m2["loss"].item(), jax_out[1][1], rtol=2e-5)
+    np.testing.assert_allclose(m2["grad_norm"].item(), jax_out[1][2], rtol=2e-5)
 
 
 def test_vip_encode_video_latents_matches_jax():

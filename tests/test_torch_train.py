@@ -419,6 +419,65 @@ def test_update_moves_only_trainable_params(jax_step):
     assert moved > n_train // 2
 
 
+def _jax_draws(key, jb, tcfg):
+    """The JAX To2V loss_fn's timesteps and noise for ``key`` (`make_train_step`)."""
+    r_t, r_noise, r_mix = jax.random.split(key, 3)
+    b, f = jb["latents"].shape[:2]
+    t_uniform = JO.sample_uniform_timesteps(r_t, b, 1000, None, 1)
+    t_ramp = JO.sample_fifo_ramp_timesteps(r_t, b, f, 1000, tcfg.inference_timesteps)
+    use_ramp = jax.random.uniform(r_mix, ()) < tcfg.diff_timesteps_ratio
+    ts = jnp.where(use_ramp, t_ramp, jnp.broadcast_to(t_uniform[:, None], (b, f)))
+    return (torch.from_numpy(np.array(ts)),
+            t(jax.random.normal(r_noise, jb["latents"].shape, jnp.float32)))
+
+
+def test_two_steps_match_jax(jax_step):
+    """Two optimizer steps of `To2VTrainStep` with the shipped optimizer
+    (clip 1.0, int8 AdamW) against two of JAX `make_train_step` with
+    `make_optimizer` (the same chain under the trainable / frozen
+    multi_transform), from the same params, batch and replayed draws: the
+    trainable parameters after step 1 (the update, relative L2 over all of
+    them, within 2e-4; measured 2.1e-5: Adam divides each gradient by its own
+    magnitude, so f32 grads that differ in the last bits move entries near
+    zero by up to 2 lr), the frozen ones bit-unchanged, and step 2's loss
+    and grad norm, which read the updated parameters (2e-5 relative;
+    measured 0 and 1.1e-7)."""
+    js = jax_step
+    jd, td, jrc, trc, _, jb, _ = _train_setup()
+    params, tb = js["params"], js["tb"]
+    jcfg, tcfg = JT.To2VTrainConfig(), TT.To2VTrainConfig()
+    assert jcfg.use_8bit_adam and tcfg.use_8bit_adam  # as shipped
+    opt = JT.make_optimizer(params, jcfg)
+    step = jax.jit(JT.make_train_step(jd, jrc, JS.make_schedule(JS.ScheduleConfig()), jcfg, opt))
+    state = opt.init(params)
+    keys = jax.random.split(jax.random.PRNGKey(9), 2)
+    jax_out = []
+    for key in keys:
+        params, state, metrics = step(params, state, jb, key)
+        tree = np_tree(params)
+        flat = {f"dit.{k}": v for k, v in dit_state_dict(tree["dit"], td).items()}
+        flat.update({f"resampler.{k}": v for k, v in
+                     resampler_state_dict(tree["resampler"], trc.depth).items()})
+        jax_out.append((flat, float(metrics["loss"]), float(metrics["grad_norm"])))
+    model = _port_model(js["td"], js["trc"], js["params"])
+    port = TT.To2VTrainStep(model, TS.make_schedule(TS.ScheduleConfig()), tcfg)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    m1 = port(tb, *_jax_draws(keys[0], jb, jcfg))
+    np.testing.assert_allclose(m1["loss"].item(), jax_out[0][1], rtol=1e-5)
+    num = den = 0.0
+    for n, p in model.named_parameters():
+        if not TT.is_trainable(n):
+            assert torch.equal(p, before[n]), n
+            continue
+        want = torch.from_numpy(np.array(jax_out[0][0][n])).double()
+        num += float(((p.detach().double() - want) ** 2).sum())
+        den += float(((want - before[n].double()) ** 2).sum())
+    assert (num / den) ** 0.5 <= 2e-4, (num / den) ** 0.5
+    m2 = port(tb, *_jax_draws(keys[1], jb, jcfg))
+    np.testing.assert_allclose(m2["loss"].item(), jax_out[1][1], rtol=2e-5)
+    np.testing.assert_allclose(m2["grad_norm"].item(), jax_out[1][2], rtol=2e-5)
+
+
 def test_checkpoint_round_trip(tmp_path):
     """save / list / latest / restore with rotation; the restored params and
     int8 optimizer state continue exactly as the originals."""

@@ -179,3 +179,80 @@ def test_grad_routing_takes_the_lse_forward_for_every_shape(monkeypatch):
         TA.fused_flash_attention(q, k, k, tabs_q, tabs_k, heads=2)
     TA.fused_flash_attention(q.detach(), k, k, tabs_q, tabs_k, heads=2)
     assert calls == ["joint+lse", "smallkv", "smallkv"]
+
+
+def _bhsd_case(rng, d, b=2, h=3, sq=200, skv=150, text=9):
+    """[B, H, S, d] f32 operands, an output weight, a key bias masking keys
+    of one sample, and prologue tables (LayerNorm affine, RoPE on the q
+    side's rows after ``text``) for both frameworks."""
+    q, k, v, w = _np(rng, b, h, sq, d), _np(rng, b, h, skv, d), _np(rng, b, h, skv, d), \
+        _np(rng, b, h, sq, d)
+    bias = (0.2 * _np(rng, b, skv)).astype(np.float32)
+    bias[1, -13:] = -1e9
+    g_ln = (1.0 + 0.1 * _np(rng, d)).astype(np.float32)
+    b_ln = (0.1 * _np(rng, d)).astype(np.float32)
+    ang = _np(rng, sq - text, d)
+    tabs = {}
+    for mod, conv in ((JA, jnp.asarray), (TA, t)):
+        segs = [(None, text), ((conv(np.cos(ang)), conv(np.sin(ang))), sq - text)]
+        tabs[mod] = (mod.make_prologue(d, segs, conv(g_ln), conv(b_ln), fold=d ** -0.5),
+                     mod.make_prologue(d, [(None, skv)], conv(g_ln), conv(b_ln)))
+    return q, k, v, w, bias, tabs
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_bhsd_function_grads_match_fused_diff_vjp(d, monkeypatch):
+    """`fused_flash_attention` on [B, H, S, d] under autograd (the
+    `_FusedBhsdAttention` Function: K6 with lse, K5 on the prologued
+    operands; plain versions here) against jax.vjp of the JAX package's
+    `_flash_fused_diff` (its Pallas forward in interpret mode, its XLA
+    backward) at head dims 16, 32 and 64: the grads of q, k, v, the key bias
+    and every prologue table. f32: 1e-4 of each grad's largest entry."""
+    import functools
+
+    monkeypatch.setattr(JA, "_flash_fused_tpu",
+                        functools.partial(JA._flash_fused_tpu, interpret=True))
+    rng = np.random.default_rng(50 + d)
+    q, k, v, w, bias, tabs = _bhsd_case(rng, d)
+    jq, jk = tabs[JA]
+
+    def f(q_, k_, v_, bias_, tq_, tk_):
+        return JA._flash_fused_diff(128, 128, True, 1e-6, True, True, q_, k_, v_, bias_, tq_, tk_)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v, bias)), jq, jk)
+    dq, dk, dv, dbias, dtq, dtk = vjp(jnp.asarray(w))
+    want = [dq, dk, dv, dbias, *dtq, *dtk]
+    leaves = [t(x).requires_grad_() for x in (q, k, v, bias)]
+    tq, tk = (tuple(x.detach().clone().requires_grad_() for x in tb) for tb in tabs[TA])
+    out = TA.fused_flash_attention(*leaves[:3], tq, tk, key_bias=leaves[3])
+    got = torch.autograd.grad((out * t(w)).sum(), leaves + list(tq) + list(tk))
+    names = ["q", "k", "v", "key_bias"] + [f"tabs_{s}.{n}" for s in "qk"
+                                            for n in ("cosg", "sin", "add", "rg")]
+    for name, x, r in zip(names, got, want):
+        r = np.asarray(r)
+        np.testing.assert_allclose(x.numpy(), r, rtol=0, atol=1e-4 * np.abs(r).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_bwd_plain_matches_jax_vjp_bhsd(d):
+    """K5's entry point on [B, H, S, d] CPU tensors (its plain version, from
+    the saved lse and dsum) against jax.vjp of the JAX package's XLA
+    attention (`_xla_attention`, whose backward `_blocked_attention_bwd` is)
+    with the softmax scale d^-0.5 and a key bias, at head dims 16, 32 and
+    64: dq, dk, dv and dbias. f32: 1e-4 of each grad's largest entry."""
+    rng = np.random.default_rng(60 + d)
+    q, k, v, g, bias, _ = _bhsd_case(rng, d)
+    scale = d ** -0.5
+    out, vjp = jax.vjp(lambda *a: JA._xla_attention(*a, scale),
+                       *(jnp.asarray(x) for x in (q, k, v, bias)))
+    want = vjp(jnp.asarray(g))
+    s = jnp.einsum("bhqd,bhkd->bhqk", jnp.asarray(q), jnp.asarray(k)) * scale + bias[:, None, None]
+    lse = t(np.asarray(jax.nn.logsumexp(s, axis=-1)))
+    dsum = TA._row_dsum(t(g), t(np.asarray(out)), None)
+    got = TA.attention_backward(t(q), t(k), t(v), t(g), lse, dsum, t(bias), scale=scale,
+                                with_dbias=True)
+    for name, x, r in zip(("dq", "dk", "dv", "dbias"), got, want):
+        r = np.asarray(r)
+        np.testing.assert_allclose(x.numpy(), r, rtol=0, atol=1e-4 * np.abs(r).max(),
+                                   err_msg=name)

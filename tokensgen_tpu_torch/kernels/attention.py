@@ -30,18 +30,18 @@ both take a `torch.autograd.Function` instead, the counterparts of
 `_flash_packed_diff`, `_flash_fused_diff` and `_flash_attention_tpu_diff`:
 the forward is K1 (for every packed shape, as the JAX custom_vjp forward
 skips the K2/K3 routing), K6 or K4, each with its logsumexp; the backward is
-K5, which takes head dim 64 only (a K6 call of another head dim raises
-under autograd on the card). On the CPU both directions run the plain
-versions.
+K5, at the head dims K6 takes (`HEAD_DIMS`). On the CPU both directions
+run the plain versions.
 
-The CUDA C++ sources are `csrc/attention.cu`; `build_kernels` compiles them
-with nvcc into a shared library with a plain C interface (loaded with ctypes)
-under ``<repo>/build/kernels``. Dispatch goes by the tensor's device: a CPU
-tensor takes the plain version (`attention_fused_plain` / `attention_plain`,
+The CUDA C++ sources are `csrc/attention.cu` and the forward body it shares
+with the probes, `csrc/flash_fwd.cuh`; `build_kernels` compiles them with
+nvcc (`kernels/build.py`) into a shared library with a plain C interface
+(loaded with ctypes) under ``<repo>/build/kernels``. Dispatch goes by the
+tensor's device: a CPU tensor takes the plain version (`attention_fused_plain` / `attention_plain`,
 exact softmax, as `_xla_attention_fused` / `_xla_attention`); a CUDA tensor
 launches the kernel or raises — on a failed build, a launch error, a head dim
-the kernel does not take (64; K6: 16, 32, 64) or a dtype other than bf16. No
-path falls back.
+the kernel does not take (64; K5, K6: 16, 32, 64) or a dtype other than bf16.
+No path falls back.
 
 The prologue tables are those of the JAX package: ``(cosg, sin, add, Rg)``
 from :func:`make_prologue`, with ``prologue(x) = LN0(x)∘cosg + (LN0(x)@Rg)∘sin
@@ -51,23 +51,17 @@ from :func:`make_prologue`, with ``prologue(x) = LN0(x)∘cosg + (LN0(x)@Rg)∘s
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional
 
 import torch
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "attention.cu"
-_REPO_ROOT = Path(__file__).resolve().parents[2]
-BUILD_DIR = _REPO_ROOT / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from tokensgen_tpu_torch.kernels import build as _build
+from tokensgen_tpu_torch.kernels.build import BUILD_DIR, NVCC_FLAGS  # noqa: F401  (public names)
+
 _LOG2E = 1.4426950408889634
 _SMALLKV_MAX = 512  # kv rows K2 holds whole in shared memory (csrc SMALLKV_MAX)
-K6_HEAD_DIMS = (16, 32, 64)  # head dims fused_bhsd_kernel is built for
+HEAD_DIMS = (16, 32, 64)  # head dims K5 and K6 are built for (K1-K4, K7: 64)
 MAX_SCORE_BYTES = 1 << 31  # f32 score tensor per q-row chunk of `attention_plain`
 
 
@@ -375,58 +369,31 @@ class _Int8Args(ctypes.Structure):
 
 _ENTRY_POINTS = ("tg_attention_joint", "tg_attention_cross_smallkv",
                  "tg_attention_cross_smallq", "tg_attention_bhsd")
-_BWD_ENTRY_POINT = "tg_attention_bwd"
+_BWD_ENTRY_POINT = "tg_attention_bwd"  # takes the head dim after the args
 _INT8_ENTRY_POINT = "tg_attention_joint_int8"
 _K6_ENTRY_POINT = "tg_attention_fused_bhsd"  # takes the head dim after the args
 
 
-class _Library:
-    """The compiled kernels, built at first use (one per process)."""
+def _bind(lib) -> None:
+    for name in _ENTRY_POINTS:
+        _build.bind(lib, name, ctypes.POINTER(_Args), ctypes.c_void_p)
+    _build.bind(lib, _BWD_ENTRY_POINT, ctypes.POINTER(_BwdArgs), ctypes.c_int64, ctypes.c_void_p)
+    _build.bind(lib, _INT8_ENTRY_POINT, ctypes.POINTER(_QuantArgs), ctypes.POINTER(_QuantArgs),
+                ctypes.POINTER(_Int8Args), ctypes.c_void_p)
+    _build.bind(lib, _K6_ENTRY_POINT, ctypes.POINTER(_Args), ctypes.c_int64, ctypes.c_void_p)
 
-    lib = None
-    build_log = ""
+
+_Library = _build.KernelLibrary("attention.cu", _bind)  # the compiled kernels, one per process
 
 
 def build_kernels(force: bool = False) -> Path:
     """Compile csrc/attention.cu for sm_90a with nvcc (cached by source hash)
     and load it. Returns the library path; raises with nvcc's output on failure."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libtg_attention_{tag}.so"
-    if force or not out.exists():
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
-            raise RuntimeError("nvcc not found: the attention kernels need the CUDA toolkit")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-        _Library.build_log = proc.stdout + proc.stderr
-    if _Library.lib is None or force:
-        lib = ctypes.CDLL(str(out))
-        for name in _ENTRY_POINTS + (_BWD_ENTRY_POINT,):
-            fn = getattr(lib, name)
-            args = _BwdArgs if name == _BWD_ENTRY_POINT else _Args
-            fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        fn = getattr(lib, _INT8_ENTRY_POINT)
-        fn.argtypes = [ctypes.POINTER(_QuantArgs), ctypes.POINTER(_QuantArgs),
-                       ctypes.POINTER(_Int8Args), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fn = getattr(lib, _K6_ENTRY_POINT)
-        fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_int64, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _Library.lib = lib
-    return out
+    return _Library.build(force)
 
 
 def _lib():
-    if _Library.lib is None:
-        build_kernels()
-    return _Library.lib
+    return _Library.get()
 
 
 def _check_operand(name: str, x: torch.Tensor, merged_heads: Optional[int], d: int = 64):
@@ -486,7 +453,7 @@ def _launch(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, n
             qscale: float, with_lse: bool = False):
     """Launches a forward kernel; returns ``out`` or, ``with_lse``, (out, lse)
     with lse the natural-log logsumexp f32 [B, H, Sq]. K6 (4-D operands of
-    any of `K6_HEAD_DIMS`) writes ``out`` in q's memory layout, so the
+    any of `HEAD_DIMS`) writes ``out`` in q's memory layout, so the
     [B, H, S, D] view of a merged tensor gives a merged output."""
     lib = _lib()
     b = q.shape[0]
@@ -523,11 +490,10 @@ def _launch(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, n
     a.b, a.h, a.sq, a.skv = b, h, sq, skv
     a.norm_q, a.norm_k = int(norm_q), int(norm_k)
     a.qscale, a.eps = qscale, eps
-    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    stream = _build.stream_of(q)
     fn = getattr(lib, entry)
-    err = fn(ctypes.byref(a), d, stream) if k6 else fn(ctypes.byref(a), stream)
-    if err != 0:
-        raise RuntimeError(f"{entry}: CUDA launch failed with error {err}")
+    _build.check_launch(entry, fn(ctypes.byref(a), d, stream) if k6 else
+                        fn(ctypes.byref(a), stream))
     return (out, lse) if with_lse else out
 
 
@@ -535,14 +501,16 @@ def _launch_bwd(q, k, v, g, lse, dsum, key_bias, heads, scale: float, with_dbias
     lib = _lib()
     b = q.shape[0]
     if heads is not None:
-        h, sq, skv = heads, q.shape[1], k.shape[1]
+        h, sq, skv, d = heads, q.shape[1], k.shape[1], q.shape[2] // heads
     else:
-        h, sq, skv = q.shape[1], q.shape[2], k.shape[2]
+        h, sq, skv, d = q.shape[1], q.shape[2], k.shape[2], q.shape[-1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"attention_backward: head dim {d} not in {HEAD_DIMS}")
     grads = [torch.empty_like(x, memory_format=torch.contiguous_format) for x in (q, k, v)]
     a = _BwdArgs()
     keep = list(grads)  # buffers that must outlive the launch call
     for name, x in zip(("q", "k", "v", "g", "dq", "dk", "dv"), (q, k, v, g, *grads)):
-        sb, ss, sh = _check_operand(name, x, heads)
+        sb, ss, sh = _check_operand(name, x, heads, d)
         setattr(a, name, x.data_ptr())
         setattr(a, f"{name}_sb", sb)
         setattr(a, f"{name}_ss", ss)
@@ -560,10 +528,8 @@ def _launch_bwd(q, k, v, g, lse, dsum, key_bias, heads, scale: float, with_dbias
         a.dbias = dbias.data_ptr()
     a.b, a.h, a.sq, a.skv = b, h, sq, skv
     a.scale = scale
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = getattr(lib, _BWD_ENTRY_POINT)(ctypes.byref(a), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{_BWD_ENTRY_POINT}: CUDA launch failed with error {err}")
+    err = getattr(lib, _BWD_ENTRY_POINT)(ctypes.byref(a), d, _build.stream_of(q))
+    _build.check_launch(_BWD_ENTRY_POINT, err)
     return (*grads, None if dbias is None else dbias.sum(dim=1))
 
 
@@ -596,11 +562,8 @@ def _launch_int8(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k):
         setattr(a, f"{name}_sh", sh)
     a.bias = _bias_ptr(key_bias, b, skv, keep)
     a.b, a.h, a.sq, a.skv = b, heads, sq, skv
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = getattr(lib, _INT8_ENTRY_POINT)(ctypes.byref(sides[0]), ctypes.byref(sides[1]),
-                                          ctypes.byref(a), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{_INT8_ENTRY_POINT}: CUDA launch failed with error {err}")
+    _build.check_launch(_INT8_ENTRY_POINT, getattr(lib, _INT8_ENTRY_POINT)(
+        ctypes.byref(sides[0]), ctypes.byref(sides[1]), ctypes.byref(a), _build.stream_of(q)))
     return out
 
 
@@ -689,7 +652,9 @@ def attention_backward(q, k, v, g, lse, dsum, key_bias=None, heads: Optional[int
                        scale: float = 1.0, with_dbias: bool = False):
     """K5, the attention backward from the forward's saved lse: (dq, dk, dv,
     dbias) for ``softmax(scale * q k^T + key_bias) v`` with output gradient
-    ``g``. Operands merged [B, S, H*64] (pass ``heads``) or [B, H, S, 64];
+    ``g``. Operands merged [B, S, H*D] (pass ``heads``) or [B, H, S, D], D
+    in `HEAD_DIMS` on the card (another raises ValueError; the plain
+    version takes any D);
     for the fused-prologue attention they are the PROLOGUED q/k and scale is
     1. ``lse`` (natural log) and ``dsum = rowsum(g * out)`` per head: f32
     [B, H, Sq]. dbias (f32 [B, Skv], summed over heads) is computed only
@@ -730,14 +695,14 @@ def fused_attention_bhsd(q, k, v, tabs_q, tabs_k, key_bias=None, eps: float = 1e
     without a copy; the output then comes back in the merged layout): both
     prologues in the kernel, optional additive f32 key bias [B, Skv],
     ``with_lse`` as in `fused_attention_joint`. The card takes D in
-    `K6_HEAD_DIMS`; the plain version any D."""
+    `HEAD_DIMS`; the plain version any D."""
     if q.device.type == "cpu":
         return attention_fused_plain(q, k, v, _bias_or_zeros(key_bias, k, None), tabs_q,
                                      tabs_k, eps, norm_q, norm_k, with_lse)
     _require_cuda(k, v)
-    if q.dim() != 4 or q.shape[-1] not in K6_HEAD_DIMS:
+    if q.dim() != 4 or q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"fused_attention_bhsd: expected [B, H, S, D] with D in "
-                         f"{K6_HEAD_DIMS}, got {tuple(q.shape)}")
+                         f"{HEAD_DIMS}, got {tuple(q.shape)}")
     res = _launch(_K6_ENTRY_POINT, q, k, v, key_bias, tabs_q, tabs_k, None, eps, norm_q,
                   norm_k, _LOG2E, with_lse)
     fused_attention_bhsd.launches += 1
@@ -848,14 +813,11 @@ class _FusedBhsdAttention(torch.autograd.Function):
     `_fused_diff_bwd`) on [B, H, S, D] operands. Forward: K6 with lse.
     Backward: as `_FusedAttention`, the prologue recomputed under autograd,
     K5 on the prologued [B, H, S, D] operands (the JAX package's XLA
-    `_blocked_attention_bwd` here), the prologue's gradients by autograd. K5
-    takes head dim 64: on the card another head dim raises here."""
+    `_blocked_attention_bwd` here), the prologue's gradients by autograd. On
+    the card both take D in `HEAD_DIMS` (K6's forward raises on another)."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, eps, norm_q, norm_k, *tabs):
-        if q.is_cuda and q.shape[-1] != 64:
-            raise NotImplementedError(
-                f"attention gradients on the card take head dim 64 (K5), got {q.shape[-1]}")
         out, lse = fused_attention_bhsd(q, k, v, tabs[:4], tabs[4:], key_bias, eps, norm_q,
                                         norm_k, with_lse=True)
         ctx.save_for_backward(q, k, v, key_bias, out, lse, *tabs)

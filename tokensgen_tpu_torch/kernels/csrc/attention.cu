@@ -1,15 +1,16 @@
 // Flash-attention kernels for the attention calls of the To2V edit, training
 // and generation paths and of the T2To trainer, written for Hopper (sm_90a),
-// head dim 64 (K6: 16, 32 or 64), bf16 operands with f32 softmax and
+// head dim 64 (K5, K6: 16, 32 or 64), bf16 operands with f32 softmax and
 // accumulation on mma.sync m16n8k16 tensor-core tiles (K7: its score product
-// on m16n8k32 int8 tiles).
+// on m16n8k32 int8 tiles). The forward body is flash_fwd.cuh's, shared with
+// the K4-family probes of probes.cu.
 //
 // Replaces the Pallas TPU kernels of tokensgen_tpu/kernels/attention.py:
 //   tg_attention_joint          joint_kernel    <- _flash_packed_kernel  (_flash_fused_packed_tpu)
 //   tg_attention_cross_smallkv  smallkv_kernel  <- _cross_smallkv_kernel (_flash_cross_smallkv_tpu)
 //   tg_attention_cross_smallq   smallq_kernel   <- _cross_smallq_kernel  (_flash_cross_smallq_tpu)
 //   tg_attention_bhsd           bhsd_kernel     <- _flash_kernel         (_flash_attention_tpu)
-//   tg_attention_bwd            bwd_dkdv_kernel + bwd_dq_kernel
+//   tg_attention_bwd            bwd_dkdv_kernel<HD> + bwd_dq_kernel<HD>
 //                                               <- _packed_bwd_kernel    (_flash_packed_bwd_tpu)
 //   tg_attention_joint_int8     int8_prologue_kernel + joint_int8_kernel
 //                                               <- _flash_packed_kernel, int8_scores branch
@@ -44,410 +45,26 @@
 // * Ragged Sq / Skv are masked here from the lengths: rows past Sq are not
 //   stored, keys past Skv score -inf. No padded copies are made.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_fwd.cuh"
 
 namespace {
 
-constexpr int D = 64;               // head dim (K6's body takes HD = 16, 32 or 64)
-constexpr int BM = 128;             // q rows per block: 8 warps x 16 rows
-constexpr int BN = 64;              // kv rows per tile
-constexpr int NTHREADS = (BM / 16) * 32;
-// smem pitch (bf16) of q/k tiles of head dim hd: conflict-free fragments, 16-byte rows
-__host__ __device__ constexpr int pitch(int hd) { return hd + 8; }
-constexpr int LDS = pitch(D);
-constexpr int LDV = BN + 8;         // smem pitch of the transposed v tile
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 constexpr int SMALLKV_MAX = 512;    // kv rows held whole in shared memory
 constexpr int SMALLKV_QCHUNK = 1024;  // q rows per smallkv block
 
-}  // namespace
-
-// Argument block shared with the Python wrapper (ctypes). Every field is
-// 8 bytes wide so the layout has no padding. Strides are in elements.
-struct TGAttnArgs {
-  const void* q; const void* k; const void* v; void* o;
-  const void* bias;                                   // [B, Skv] f32 or null
-  void* lse;                                          // [B, H, Sq] f32 out or null
-  const void* q_cos; const void* q_sin; const void* q_add; const void* q_rot;
-  const void* k_cos; const void* k_sin; const void* k_add; const void* k_rot;
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  long long o_sb, o_ss, o_sh;
-  long long q_tb, k_tb;                               // table batch strides (0 = shared)
-  long long b, h, sq, skv;
-  long long norm_q, norm_k;
-  double qscale, eps;
-};
-
-namespace {
-
-struct Side {
-  const float* cosg; const float* sin; const float* add; const float* rot;
-  long long tb; bool norm;
-};
-
-template <int HD>
-struct AccT {
-  float o[HD / 8][4];
-  float m[2];
-  float l[2];
-};
-using Acc = AccT<D>;
-
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Sum over the TPR consecutive lanes that share a row (TPR a power of two).
-template <int TPR>
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int m = 1; m < TPR; m <<= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
-  return x;
-}
-
-// Loads rows [row0, row0 + nrows) of one head of dim HD (``src`` already
-// points at (b, h)) into shared memory ``dst`` (pitch ``ld``) as bf16. With
-// PRO the qk-norm + RoPE prologue runs on the way, in f32; the result is
-// multiplied by ``scale`` before the bf16 cast. HD / 8 threads share a row,
-// each holding eight consecutive values, so the LayerNorm sums are
-// log2(HD / 8)-step shuffles. ``nrows`` must be a multiple of the 256 / HD
-// rows one warp covers: a warp then runs each pass whole or not at all
-// (uniform shuffles).
-template <bool PRO, int HD = D>
-__device__ void load_rows(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src, long long ss,
-                          int row0, int nrows, int seqlen, const Side& pro, int b, float scale,
-                          float eps) {
-  constexpr unsigned TPR = HD / 8;  // threads per row (unsigned: / and % are a shift and a mask)
-  const int c0 = static_cast<int>(threadIdx.x % TPR) * 8;
-  constexpr int step = NTHREADS / TPR;
-  for (int r = static_cast<int>(threadIdx.x / TPR); r < nrows; r += step) {
-    const int row = row0 + r;
-    const bool valid = row < seqlen;
-    float x[8];
-    if (valid) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + (long long)row * ss + c0);
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(h2[e]);
-        x[2 * e] = f.x;
-        x[2 * e + 1] = f.y;
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) x[e] = 0.f;
-    }
-    float y[8];
-    if (PRO) {
-      float ln0[8];
-      if (pro.norm) {
-        float s = 0.f;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) s += x[e];
-        const float mu = row_sum<TPR>(s) * (1.f / HD);
-        float vs = 0.f;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          ln0[e] = x[e] - mu;
-          vs += ln0[e] * ln0[e];
-        }
-        const float inv = rsqrtf(row_sum<TPR>(vs) * (1.f / HD) + eps);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) ln0[e] *= inv;
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) ln0[e] = x[e];
-      }
-      if (valid) {
-        const long long toff = (long long)b * pro.tb + (long long)row * HD + c0;
-        const float4* cp = reinterpret_cast<const float4*>(pro.cosg + toff);
-        const float4* sp = reinterpret_cast<const float4*>(pro.sin + toff);
-        const float4* ap = reinterpret_cast<const float4*>(pro.add + toff);
-        const float4* rp = reinterpret_cast<const float4*>(pro.rot + c0);
-        float cg[8], sn[8], ad[8], rc[8];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float4 c4 = cp[e], s4 = sp[e], a4 = ap[e], r4 = rp[e];
-          cg[4 * e] = c4.x; cg[4 * e + 1] = c4.y; cg[4 * e + 2] = c4.z; cg[4 * e + 3] = c4.w;
-          sn[4 * e] = s4.x; sn[4 * e + 1] = s4.y; sn[4 * e + 2] = s4.z; sn[4 * e + 3] = s4.w;
-          ad[4 * e] = a4.x; ad[4 * e + 1] = a4.y; ad[4 * e + 2] = a4.z; ad[4 * e + 3] = a4.w;
-          rc[4 * e] = r4.x; rc[4 * e + 1] = r4.y; rc[4 * e + 2] = r4.z; rc[4 * e + 3] = r4.w;
-        }
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float rot = ln0[e ^ 1] * rc[e];
-          y[e] = (ln0[e] * cg[e] + rot * sn[e] + ad[e]) * scale;
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) y[e] = 0.f;
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) y[e] = x[e] * scale;
-    }
-    uint4 out;
-    out.x = pack_bf16(y[0], y[1]);
-    out.y = pack_bf16(y[2], y[3]);
-    out.z = pack_bf16(y[4], y[5]);
-    out.w = pack_bf16(y[6], y[7]);
-    *reinterpret_cast<uint4*>(dst + r * ld + c0) = out;
-  }
-}
-
-// Loads v rows [row0, row0 + nrows) of head dim HD transposed:
-// dst[d * ldv + r] (so the p@v B-fragments are contiguous pairs along kv).
-template <int HD = D>
-__device__ void load_vt(__nv_bfloat16* dst, int ldv, const __nv_bfloat16* src, long long ss,
-                        int row0, int nrows, int seqlen) {
-  constexpr unsigned TPR = HD / 8;
-  const int c0 = static_cast<int>(threadIdx.x % TPR) * 8;
-  constexpr int step = NTHREADS / TPR;
-  for (int r = static_cast<int>(threadIdx.x / TPR); r < nrows; r += step) {
-    const int row = row0 + r;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (row < seqlen) raw = *reinterpret_cast<const uint4*>(src + (long long)row * ss + c0);
-    const __nv_bfloat16* vals = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) dst[(c0 + e) * ldv + r] = vals[e];
-  }
-}
-
-// A-fragments of this warp's 16 q rows (HD / 16 k-steps of 16 over the head
-// dim; ``Qs`` pitch pitch(HD)).
-template <int HD = D>
-__device__ __forceinline__ void load_q_frags(uint32_t (&qa)[HD / 16][4], const __nv_bfloat16* Qs) {
-  constexpr int ld = pitch(HD);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const __nv_bfloat16* p = Qs + (warp * 16 + g) * ld + kk * 16 + t * 2;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(p);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
-  }
-}
-
-template <int HD>
-__device__ __forceinline__ void init_acc(AccT<HD>& acc) {
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc.o[dt][i] = 0.f;
-  acc.m[0] = acc.m[1] = -INFINITY;
-  acc.l[0] = acc.l[1] = 0.f;
-}
-
-// The softmax half of one kv tile of BN keys for this warp's 16 rows, from
-// their log2-domain scores ``s`` (mma accumulator layout): key bias and the
-// ragged-tile mask, online max, p = exp2(s - m), acc = alpha*acc + bf16(p) @ v.
-// ``Vt``: the tile's HD transposed v columns (pitch ldv).
-template <int HD>
-__device__ __forceinline__ void softmax_pv(float (&s)[8][4], const __nv_bfloat16* Vt, int ldv,
-                                           int kv0, int skv, const float* bias, AccT<HD>& acc) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int j = kv0 + nt * 8 + t * 2 + (i & 1);
-      float v = s[nt][i];
-      if (j >= skv) {
-        v = -INFINITY;
-      } else if (bias != nullptr) {
-        v += bias[j] * LOG2E;
-      }
-      s[nt][i] = v;
-      if (i < 2) mx0 = fmaxf(mx0, v); else mx1 = fmaxf(mx1, v);
-    }
-  }
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-  const float m0 = fmaxf(acc.m[0], mx0), m1 = fmaxf(acc.m[1], mx1);
-  // a row with nothing finite yet keeps a zero shift (no inf - inf)
-  const float base0 = m0 == -INFINITY ? 0.f : m0;
-  const float base1 = m1 == -INFINITY ? 0.f : m1;
-  const float alpha0 = exp2f(acc.m[0] - base0), alpha1 = exp2f(acc.m[1] - base1);
-  acc.m[0] = m0;
-  acc.m[1] = m1;
-  float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    s[nt][0] = exp2f(s[nt][0] - base0);
-    s[nt][1] = exp2f(s[nt][1] - base0);
-    s[nt][2] = exp2f(s[nt][2] - base1);
-    s[nt][3] = exp2f(s[nt][3] - base1);
-    ls0 += s[nt][0] + s[nt][1];
-    ls1 += s[nt][2] + s[nt][3];
-  }
-  acc.l[0] = acc.l[0] * alpha0 + ls0;
-  acc.l[1] = acc.l[1] * alpha1 + ls1;
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-    acc.o[dt][0] *= alpha0;
-    acc.o[dt][1] *= alpha0;
-    acc.o[dt][2] *= alpha1;
-    acc.o[dt][3] *= alpha1;
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-    pa[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-    pa[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-    pa[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      const __nv_bfloat16* vp = Vt + (dt * 8 + g) * ldv + j * 16 + t * 2;
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(vp);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(vp + 8);
-      mma16816(acc.o[dt], pa, b0, b1);
-    }
-  }
-}
-
-// One kv tile of BN keys for this warp's 16 rows: s = q.k^T in the log2
-// domain on bf16 tensor cores, then `softmax_pv`. ``Ks``: tile rows (pitch
-// pitch(HD)).
-template <int HD>
-__device__ __forceinline__ void attend_tile(const uint32_t (&qa)[HD / 16][4],
-                                            const __nv_bfloat16* Ks, const __nv_bfloat16* Vt,
-                                            int ldv, int kv0, int skv, const float* bias,
-                                            AccT<HD>& acc) {
-  constexpr int ld = pitch(HD);
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  float s[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const __nv_bfloat16* kp = Ks + (nt * 8 + g) * ld + kk * 16 + t * 2;
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kp);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kp + 8);
-      mma16816(s[nt], qa[kk], b0, b1);
-    }
-  }
-  softmax_pv(s, Vt, ldv, kv0, skv, bias, acc);
-}
-
-// o = acc / l for this warp's 16 rows starting at q row ``q0 + warp*16``;
-// with ``lse`` (already at (b, h)), also the rows' natural-log logsumexp.
-template <int HD>
-__device__ __forceinline__ void store_out(AccT<HD>& acc, __nv_bfloat16* o, long long os, int q0,
-                                          int sq, float* lse) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  float l0 = acc.l[0], l1 = acc.l[1];
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  if (lse != nullptr && t == 0) {
-    // acc.m is the row max of the log2-domain scores (reduced over the 4
-    // threads of a row in softmax_pv)
-    if (r0 < sq) lse[r0] = (acc.m[0] + log2f(l0)) * LN2;
-    if (r1 < sq) lse[r1] = (acc.m[1] + log2f(l1)) * LN2;
-  }
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-    const int c = dt * 8 + t * 2;
-    if (r0 < sq)
-      *reinterpret_cast<__nv_bfloat162*>(o + (long long)r0 * os + c) =
-          __floats2bfloat162_rn(acc.o[dt][0] / l0, acc.o[dt][1] / l0);
-    if (r1 < sq)
-      *reinterpret_cast<__nv_bfloat162*>(o + (long long)r1 * os + c) =
-          __floats2bfloat162_rn(acc.o[dt][2] / l1, acc.o[dt][3] / l1);
-  }
-}
-
-__device__ __forceinline__ Side side_q(const TGAttnArgs& a) {
-  return Side{static_cast<const float*>(a.q_cos), static_cast<const float*>(a.q_sin),
-              static_cast<const float*>(a.q_add), static_cast<const float*>(a.q_rot), a.q_tb,
-              a.norm_q != 0};
-}
-
-__device__ __forceinline__ Side side_k(const TGAttnArgs& a) {
-  return Side{static_cast<const float*>(a.k_cos), static_cast<const float*>(a.k_sin),
-              static_cast<const float*>(a.k_add), static_cast<const float*>(a.k_rot), a.k_tb,
-              a.norm_k != 0};
-}
-
-// Grid (ceil(Sq / BM), H, B). Each block owns 128 q rows of one (b, h) and
-// sweeps every kv tile. PRO_Q / PRO_K select the fused prologues; HD is the
-// head dim. The body is shared; each TPU kernel gets its own __global__
-// below, so a trace names them apart.
-template <bool PRO_Q, bool PRO_K, int HD = D>
-__device__ __forceinline__ void flash_fwd_body(const TGAttnArgs& a) {
-  constexpr int ld = pitch(HD);
-  __shared__ __align__(16) __nv_bfloat16 Qs[BM * ld];
-  __shared__ __align__(16) __nv_bfloat16 Ks[BN * ld];
-  __shared__ __align__(16) __nv_bfloat16 Vt[HD * LDV];
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
-  const float eps = static_cast<float>(a.eps);
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + h * a.v_sh;
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh;
-  const float* bias = a.bias ? static_cast<const float*>(a.bias) + (long long)b * skv : nullptr;
-  float* lse = a.lse ? static_cast<float*>(a.lse) + ((long long)b * a.h + h) * sq : nullptr;
-  const Side pq = side_q(a), pk = side_k(a);
-
-  load_rows<PRO_Q, HD>(Qs, ld, q, a.q_ss, q0, BM, sq, pq, b, static_cast<float>(a.qscale), eps);
-  __syncthreads();
-  uint32_t qa[HD / 16][4];
-  load_q_frags<HD>(qa, Qs);
-  AccT<HD> acc;
-  init_acc(acc);
-  for (int kv0 = 0; kv0 < skv; kv0 += BN) {
-    __syncthreads();  // previous tile consumed by every warp
-    load_rows<PRO_K, HD>(Ks, ld, k, a.k_ss, kv0, BN, skv, pk, b, 1.f, eps);
-    load_vt<HD>(Vt, LDV, v, a.v_ss, kv0, BN, skv);
-    __syncthreads();
-    attend_tile<HD>(qa, Ks, Vt, LDV, kv0, skv, bias, acc);
-  }
-  store_out(acc, o, a.o_ss, q0, sq, lse);
-}
-
 // K1: base joint self-attention, both prologues fused.
 __global__ void __launch_bounds__(NTHREADS) joint_kernel(const TGAttnArgs a) {
-  flash_fwd_body<true, true>(a);
+  flash_fwd_body<true, true>(a, blockIdx.y);
 }
 
 // K3: vip -> [text_video || vip] cross-attention, both prologues fused.
 __global__ void __launch_bounds__(NTHREADS) smallq_kernel(const TGAttnArgs a) {
-  flash_fwd_body<true, true>(a);
+  flash_fwd_body<true, true>(a, blockIdx.y);
 }
 
 // K4: plain [B, H, S, 64] attention; qscale = softmax scale * log2 e.
 __global__ void __launch_bounds__(NTHREADS) bhsd_kernel(const TGAttnArgs a) {
-  flash_fwd_body<false, false>(a);
+  flash_fwd_body<false, false>(a, blockIdx.y);
 }
 
 // K6: fused-prologue attention on [B, H, S, HD] operands given by strides
@@ -462,7 +79,7 @@ __global__ void __launch_bounds__(NTHREADS) bhsd_kernel(const TGAttnArgs a) {
 // weigh more against the products.
 template <int HD>
 __global__ void __launch_bounds__(NTHREADS) fused_bhsd_kernel(const TGAttnArgs a) {
-  flash_fwd_body<true, true, HD>(a);
+  flash_fwd_body<true, true, HD>(a, blockIdx.y);
 }
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -521,7 +138,12 @@ __global__ void __launch_bounds__(NTHREADS) smallkv_kernel(const TGAttnArgs a) {
 //
 // with dsum = rowsum(g * out) per head (computed by the caller) and f32
 // accumulation, the JAX kernel's rounding points. Per head: the TPU's
-// head-pair block-diagonal packing is a lane trick with no use here.
+// head-pair block-diagonal packing is a lane trick with no use here. The
+// head dim HD is a template parameter (16, 32, 64: K6's forward takes the
+// same three, and the JAX backward any): the smem tiles are [rows][HD + 8],
+// the transposed ones [HD][72], the fragment loops run HD / 16 k-steps and
+// HD / 8 column tiles, and the lse, dsum and bias are per row or key,
+// whatever HD.
 //
 // Design (FA2's two-pass form, deterministic, no atomics):
 // * bwd_dkdv_kernel: a block owns 128 kv rows of one (b, h) (8 warps x 16
@@ -573,22 +195,24 @@ __device__ __forceinline__ T* at_head(const void* base, long long sb, long long 
   return static_cast<T*>(const_cast<void*>(base)) + b * sb + h * sh;
 }
 
-__device__ __forceinline__ void zero_tile(float (&x)[8][4]) {
+template <int N>
+__device__ __forceinline__ void zero_tile(float (&x)[N][4]) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < N; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) x[n][i] = 0.f;
 }
 
 // Stores this warp's 16 rows (row0 = first row of the block) of an f32
-// accumulator tile times ``scale`` as bf16.
-__device__ __forceinline__ void store_rows16(const float (&acc)[8][4], __nv_bfloat16* dst,
+// accumulator tile of HD columns times ``scale`` as bf16.
+template <int HD>
+__device__ __forceinline__ void store_rows16(const float (&acc)[HD / 8][4], __nv_bfloat16* dst,
                                              long long ss, int row0, int n, float scale) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
+  for (int dt = 0; dt < HD / 8; ++dt) {
     const int c = dt * 8 + t * 2;
     if (r0 < n)
       *reinterpret_cast<__nv_bfloat162*>(dst + (long long)r0 * ss + c) =
@@ -600,14 +224,16 @@ __device__ __forceinline__ void store_rows16(const float (&acc)[8][4], __nv_bflo
 }
 
 // Grid (ceil(Skv / 128), H, B).
+template <int HD>
 __global__ void __launch_bounds__(NTHREADS) bwd_dkdv_kernel(const TGAttnBwdArgs a) {
-  __shared__ __align__(16) __nv_bfloat16 buf[4 * BWD_BQ * LDS];
+  constexpr int ld = pitch(HD);
+  __shared__ __align__(16) __nv_bfloat16 buf[2 * BWD_BQ * ld + 2 * HD * LDT];
   __shared__ float lse2_s[BWD_BQ];
   __shared__ float dsum_s[BWD_BQ];
-  __nv_bfloat16* Qs = buf;                     // [64 q][LDS]
-  __nv_bfloat16* Gs = buf + BWD_BQ * LDS;      // [64 q][LDS]
-  __nv_bfloat16* Qt = buf + 2 * BWD_BQ * LDS;  // [64 d][LDT]
-  __nv_bfloat16* Gt = buf + 3 * BWD_BQ * LDS;  // [64 d][LDT]
+  __nv_bfloat16* Qs = buf;                                   // [64 q][ld]
+  __nv_bfloat16* Gs = buf + BWD_BQ * ld;                     // [64 q][ld]
+  __nv_bfloat16* Qt = buf + 2 * BWD_BQ * ld;                 // [HD d][LDT]
+  __nv_bfloat16* Gt = buf + 2 * BWD_BQ * ld + HD * LDT;      // [HD d][LDT]
   const int kv0 = blockIdx.x * BWD_BKV, h = blockIdx.y, b = blockIdx.z;
   const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -623,31 +249,32 @@ __global__ void __launch_bounds__(NTHREADS) bwd_dkdv_kernel(const TGAttnBwdArgs 
   const float* bias = a.bias ? static_cast<const float*>(a.bias) + (long long)b * skv : nullptr;
   const Side none{};
 
-  // K and V rows of this block -> A fragments, staged through buf (128 rows)
-  uint32_t ka[4][4], va[4][4];
-  load_rows<false>(buf, LDS, k, a.k_ss, kv0, BWD_BKV, skv, none, b, 1.f, 0.f);
+  // K and V rows of this block -> A fragments, staged through buf (128 rows
+  // of pitch ld: the two row-major q / g tiles' room)
+  uint32_t ka[HD / 16][4], va[HD / 16][4];
+  load_rows<false, HD>(buf, ld, k, a.k_ss, kv0, BWD_BKV, skv, none, b, 1.f, 0.f);
   __syncthreads();
-  load_q_frags(ka, buf);
+  load_q_frags<HD>(ka, buf);
   __syncthreads();
-  load_rows<false>(buf, LDS, v, a.v_ss, kv0, BWD_BKV, skv, none, b, 1.f, 0.f);
+  load_rows<false, HD>(buf, ld, v, a.v_ss, kv0, BWD_BKV, skv, none, b, 1.f, 0.f);
   __syncthreads();
-  load_q_frags(va, buf);
+  load_q_frags<HD>(va, buf);
 
   // this thread's two kv rows: bias in the log2 domain, -inf past Skv
   const int rA = kv0 + warp * 16 + g, rB = rA + 8;
   const float bA = rA < skv ? (bias ? bias[rA] * LOG2E : 0.f) : -INFINITY;
   const float bB = rB < skv ? (bias ? bias[rB] * LOG2E : 0.f) : -INFINITY;
-  float dk[8][4], dv[8][4];
+  float dk[HD / 8][4], dv[HD / 8][4];
   zero_tile(dk);
   zero_tile(dv);
   float dbA = 0.f, dbB = 0.f;
 
   for (int q0 = 0; q0 < sq; q0 += BWD_BQ) {
     __syncthreads();  // staging / previous tiles consumed by every warp
-    load_rows<false>(Qs, LDS, q, a.q_ss, q0, BWD_BQ, sq, none, b, 1.f, 0.f);
-    load_vt(Qt, LDT, q, a.q_ss, q0, BWD_BQ, sq);
-    load_rows<false>(Gs, LDS, gg, a.g_ss, q0, BWD_BQ, sq, none, b, 1.f, 0.f);
-    load_vt(Gt, LDT, gg, a.g_ss, q0, BWD_BQ, sq);
+    load_rows<false, HD>(Qs, ld, q, a.q_ss, q0, BWD_BQ, sq, none, b, 1.f, 0.f);
+    load_vt<HD>(Qt, LDT, q, a.q_ss, q0, BWD_BQ, sq);
+    load_rows<false, HD>(Gs, ld, gg, a.g_ss, q0, BWD_BQ, sq, none, b, 1.f, 0.f);
+    load_vt<HD>(Gt, LDT, gg, a.g_ss, q0, BWD_BQ, sq);
     if (threadIdx.x < BWD_BQ) {
       const int r = q0 + threadIdx.x;
       lse2_s[threadIdx.x] = r < sq ? lse[r] * LOG2E : INFINITY;  // p = 0 past Sq
@@ -658,13 +285,13 @@ __global__ void __launch_bounds__(NTHREADS) bwd_dkdv_kernel(const TGAttnBwdArgs 
     zero_tile(s);
     zero_tile(dp);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < HD / 16; ++kk) {
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
-        const __nv_bfloat16* qp = Qs + (nt * 8 + g) * LDS + kk * 16 + t * 2;
+        const __nv_bfloat16* qp = Qs + (nt * 8 + g) * ld + kk * 16 + t * 2;
         mma16816(s[nt], ka[kk], *reinterpret_cast<const uint32_t*>(qp),
                  *reinterpret_cast<const uint32_t*>(qp + 8));
-        const __nv_bfloat16* gp = Gs + (nt * 8 + g) * LDS + kk * 16 + t * 2;
+        const __nv_bfloat16* gp = Gs + (nt * 8 + g) * ld + kk * 16 + t * 2;
         mma16816(dp[nt], va[kk], *reinterpret_cast<const uint32_t*>(gp),
                  *reinterpret_cast<const uint32_t*>(gp + 8));
       }
@@ -693,7 +320,7 @@ __global__ void __launch_bounds__(NTHREADS) bwd_dkdv_kernel(const TGAttnBwdArgs 
       da[2] = pack_bf16(dp[2 * j + 1][0], dp[2 * j + 1][1]);
       da[3] = pack_bf16(dp[2 * j + 1][2], dp[2 * j + 1][3]);
 #pragma unroll
-      for (int dt = 0; dt < 8; ++dt) {
+      for (int dt = 0; dt < HD / 8; ++dt) {
         const __nv_bfloat16* gtp = Gt + (dt * 8 + g) * LDT + j * 16 + t * 2;
         mma16816(dv[dt], pa, *reinterpret_cast<const uint32_t*>(gtp),
                  *reinterpret_cast<const uint32_t*>(gtp + 8));
@@ -705,8 +332,10 @@ __global__ void __launch_bounds__(NTHREADS) bwd_dkdv_kernel(const TGAttnBwdArgs 
   }
 
   const float scale = static_cast<float>(a.scale);
-  store_rows16(dk, at_head<__nv_bfloat16>(a.dk, a.dk_sb, a.dk_sh, b, h), a.dk_ss, kv0, skv, scale);
-  store_rows16(dv, at_head<__nv_bfloat16>(a.dv, a.dv_sb, a.dv_sh, b, h), a.dv_ss, kv0, skv, 1.f);
+  store_rows16<HD>(dk, at_head<__nv_bfloat16>(a.dk, a.dk_sb, a.dk_sh, b, h), a.dk_ss, kv0, skv,
+                   scale);
+  store_rows16<HD>(dv, at_head<__nv_bfloat16>(a.dv, a.dv_sb, a.dv_sh, b, h), a.dv_ss, kv0, skv,
+                   1.f);
   if (a.dbias != nullptr) {
     dbA += __shfl_xor_sync(0xffffffffu, dbA, 1);
     dbA += __shfl_xor_sync(0xffffffffu, dbA, 2);
@@ -719,12 +348,14 @@ __global__ void __launch_bounds__(NTHREADS) bwd_dkdv_kernel(const TGAttnBwdArgs 
 }
 
 // Grid (ceil(Sq / 128), H, B).
+template <int HD>
 __global__ void __launch_bounds__(NTHREADS) bwd_dq_kernel(const TGAttnBwdArgs a) {
-  __shared__ __align__(16) __nv_bfloat16 buf[3 * BWD_BKV2 * LDS];
+  constexpr int ld = pitch(HD);
+  __shared__ __align__(16) __nv_bfloat16 buf[2 * BWD_BKV2 * ld + HD * LDT];
   __shared__ float bias2_s[BWD_BKV2];
-  __nv_bfloat16* Ks = buf;                       // [64 kv][LDS]
-  __nv_bfloat16* Vs = buf + BWD_BKV2 * LDS;      // [64 kv][LDS]
-  __nv_bfloat16* Kt = buf + 2 * BWD_BKV2 * LDS;  // [64 d][LDT]
+  __nv_bfloat16* Ks = buf;                       // [64 kv][ld]
+  __nv_bfloat16* Vs = buf + BWD_BKV2 * ld;       // [64 kv][ld]
+  __nv_bfloat16* Kt = buf + 2 * BWD_BKV2 * ld;   // [HD d][LDT]
   const int q0 = blockIdx.x * BWD_BQ2, h = blockIdx.y, b = blockIdx.z;
   const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -741,28 +372,28 @@ __global__ void __launch_bounds__(NTHREADS) bwd_dq_kernel(const TGAttnBwdArgs a)
   const Side none{};
 
   // q and g rows of this block -> A fragments, staged through Ks|Vs (128 rows)
-  uint32_t qa[4][4], ga[4][4];
-  load_rows<false>(buf, LDS, q, a.q_ss, q0, BWD_BQ2, sq, none, b, 1.f, 0.f);
+  uint32_t qa[HD / 16][4], ga[HD / 16][4];
+  load_rows<false, HD>(buf, ld, q, a.q_ss, q0, BWD_BQ2, sq, none, b, 1.f, 0.f);
   __syncthreads();
-  load_q_frags(qa, buf);
+  load_q_frags<HD>(qa, buf);
   __syncthreads();
-  load_rows<false>(buf, LDS, gg, a.g_ss, q0, BWD_BQ2, sq, none, b, 1.f, 0.f);
+  load_rows<false, HD>(buf, ld, gg, a.g_ss, q0, BWD_BQ2, sq, none, b, 1.f, 0.f);
   __syncthreads();
-  load_q_frags(ga, buf);
+  load_q_frags<HD>(ga, buf);
 
   const int rA = q0 + warp * 16 + g, rB = rA + 8;
   const float lA = rA < sq ? lse[rA] * LOG2E : INFINITY;
   const float lB = rB < sq ? lse[rB] * LOG2E : INFINITY;
   const float sA = rA < sq ? dsum[rA] : 0.f;
   const float sB = rB < sq ? dsum[rB] : 0.f;
-  float dq[8][4];
+  float dq[HD / 8][4];
   zero_tile(dq);
 
   for (int kv0 = 0; kv0 < skv; kv0 += BWD_BKV2) {
     __syncthreads();  // staging / previous tiles consumed by every warp
-    load_rows<false>(Ks, LDS, k, a.k_ss, kv0, BWD_BKV2, skv, none, b, 1.f, 0.f);
-    load_rows<false>(Vs, LDS, v, a.v_ss, kv0, BWD_BKV2, skv, none, b, 1.f, 0.f);
-    load_vt(Kt, LDT, k, a.k_ss, kv0, BWD_BKV2, skv);
+    load_rows<false, HD>(Ks, ld, k, a.k_ss, kv0, BWD_BKV2, skv, none, b, 1.f, 0.f);
+    load_rows<false, HD>(Vs, ld, v, a.v_ss, kv0, BWD_BKV2, skv, none, b, 1.f, 0.f);
+    load_vt<HD>(Kt, LDT, k, a.k_ss, kv0, BWD_BKV2, skv);
     if (threadIdx.x < BWD_BKV2) {
       const int j = kv0 + threadIdx.x;
       bias2_s[threadIdx.x] = j < skv ? (bias ? bias[j] * LOG2E : 0.f) : -INFINITY;
@@ -772,13 +403,13 @@ __global__ void __launch_bounds__(NTHREADS) bwd_dq_kernel(const TGAttnBwdArgs a)
     zero_tile(s);
     zero_tile(dp);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < HD / 16; ++kk) {
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
-        const __nv_bfloat16* kp = Ks + (nt * 8 + g) * LDS + kk * 16 + t * 2;
+        const __nv_bfloat16* kp = Ks + (nt * 8 + g) * ld + kk * 16 + t * 2;
         mma16816(s[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kp),
                  *reinterpret_cast<const uint32_t*>(kp + 8));
-        const __nv_bfloat16* vp = Vs + (nt * 8 + g) * LDS + kk * 16 + t * 2;
+        const __nv_bfloat16* vp = Vs + (nt * 8 + g) * ld + kk * 16 + t * 2;
         mma16816(dp[nt], ga[kk], *reinterpret_cast<const uint32_t*>(vp),
                  *reinterpret_cast<const uint32_t*>(vp + 8));
       }
@@ -800,15 +431,15 @@ __global__ void __launch_bounds__(NTHREADS) bwd_dq_kernel(const TGAttnBwdArgs a)
       da[2] = pack_bf16(dp[2 * j + 1][0], dp[2 * j + 1][1]);
       da[3] = pack_bf16(dp[2 * j + 1][2], dp[2 * j + 1][3]);
 #pragma unroll
-      for (int dt = 0; dt < 8; ++dt) {
+      for (int dt = 0; dt < HD / 8; ++dt) {
         const __nv_bfloat16* ktp = Kt + (dt * 8 + g) * LDT + j * 16 + t * 2;
         mma16816(dq[dt], da, *reinterpret_cast<const uint32_t*>(ktp),
                  *reinterpret_cast<const uint32_t*>(ktp + 8));
       }
     }
   }
-  store_rows16(dq, at_head<__nv_bfloat16>(a.dq, a.dq_sb, a.dq_sh, b, h), a.dq_ss, q0, sq,
-               static_cast<float>(a.scale));
+  store_rows16<HD>(dq, at_head<__nv_bfloat16>(a.dq, a.dq_sb, a.dq_sh, b, h), a.dq_ss, q0, sq,
+                   static_cast<float>(a.scale));
 }
 
 }  // namespace
@@ -1040,6 +671,20 @@ int launch_flash(void (*kernel)(TGAttnArgs), const TGAttnArgs* a, cudaStream_t s
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HD>
+int launch_bwd(const TGAttnBwdArgs* a, cudaStream_t s) {
+  if (a->sq <= 0 || a->skv <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid_kv(static_cast<unsigned>((a->skv + BWD_BKV - 1) / BWD_BKV),
+                     static_cast<unsigned>(a->h), static_cast<unsigned>(a->b));
+  bwd_dkdv_kernel<HD><<<grid_kv, NTHREADS, 0, s>>>(*a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_q(static_cast<unsigned>((a->sq + BWD_BQ2 - 1) / BWD_BQ2),
+                    static_cast<unsigned>(a->h), static_cast<unsigned>(a->b));
+  bwd_dq_kernel<HD><<<grid_q, NTHREADS, 0, s>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1081,19 +726,16 @@ int tg_attention_cross_smallkv(const TGAttnArgs* a, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5: attention backward, dk/dv (and dbias) pass then dq pass.
-int tg_attention_bwd(const TGAttnBwdArgs* a, void* stream) {
-  if (a->sq <= 0 || a->skv <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// K5: attention backward, dk/dv (and dbias) pass then dq pass; head_dim 16,
+// 32 or 64.
+int tg_attention_bwd(const TGAttnBwdArgs* a, long long head_dim, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid_kv(static_cast<unsigned>((a->skv + BWD_BKV - 1) / BWD_BKV),
-                     static_cast<unsigned>(a->h), static_cast<unsigned>(a->b));
-  bwd_dkdv_kernel<<<grid_kv, NTHREADS, 0, s>>>(*a);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_q(static_cast<unsigned>((a->sq + BWD_BQ2 - 1) / BWD_BQ2),
-                    static_cast<unsigned>(a->h), static_cast<unsigned>(a->b));
-  bwd_dq_kernel<<<grid_q, NTHREADS, 0, s>>>(*a);
-  return static_cast<int>(cudaGetLastError());
+  switch (head_dim) {
+    case 16: return launch_bwd<16>(a, s);
+    case 32: return launch_bwd<32>(a, s);
+    case 64: return launch_bwd<64>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // K7: the q and k quantizing prologues, then the int8-score attention.

@@ -1,0 +1,551 @@
+// Hopper (sm_90a) counterparts of the Pallas probes under tools/, which the
+// JAX package wrote to find the TPU's ceilings. Here they measure the card's:
+//
+//   tg_probe_attn_sweep  attn_sweep_kernel<BM, BN, HB>
+//        <- tools/bench_attn_sweep.py `_tpu` (K4's _flash_kernel at explicit
+//           block_q / block_kv / hblk)                                        T1
+//   tg_probe_attn_v2     attn_v2_kernel<BM, BN, MASK>
+//        <- tools/bench_attn_v2.py `_kernel_v2` (key bias on every kv tile,
+//           "full", or only on the last, "last")                              T2
+//   tg_probe_flash_loop  flash_loop_kernel<T>
+//        <- tools/bench_pallas_int8.py `_flash_like_kernel` (the flash inner
+//           loop chained through requantized scores, bf16 or int8)            T6
+//   tg_probe_matmul      matmul_kernel
+//        <- tools/bench_matmul_pallas.py `_mm_kernel` (blocked bf16 GEMM)     T7
+//   tg_probe_exp2_loop   exp2_loop_kernel<OP>
+//        <- tools/bench_vpu_exp2.py `make_kernel` (register-resident
+//           elementwise passes: mul, exp2, exp2 with an add)                  T8
+//
+// Each computes the JAX function, not the TPU's blocking; all are simple
+// first versions (synchronous loads, mma.sync), right before fast.
+
+#include "flash_fwd.cuh"
+
+// ---------------------------------------------------------------------------
+// T1, T2: the K4-family forward (flash_fwd.cuh, no prologue; the wrapper folds
+// scale * log2 e into qscale) at explicit tiles. BM_ q rows per block (BM_ / 16
+// warps), BN_ kv rows per tile, HB heads per block (run one after another: a
+// block carries nothing between heads, so on this card HB only changes the
+// grid). The TPU's 512-4096 blocks do not fit an SM and are not copied; the
+// sweep is BM_ in {64, 128} x BN_ in {32, 64, 128} x HB in {1, 2}, less
+// (128, 128): its 53 KB of q, k and v^T tiles exceed the 48 KB a static
+// shared allocation may hold. (128, 64, every tile) is K4's own code.
+// Bound: the two products at the bf16 tensor-core rate.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+template <int BM_, int BN_, int HB>
+__global__ void __launch_bounds__((BM_ / 16) * 32) attn_sweep_kernel(const TGAttnArgs a) {
+  for (int hh = 0; hh < HB; ++hh) {
+    if (hh > 0) __syncthreads();  // the last head's tiles consumed by every warp
+    flash_fwd_body<false, false, 64, BM_, BN_, MASK_EVERY_TILE>(a, blockIdx.y * HB + hh);
+  }
+}
+
+template <int BM_, int BN_, int MASK>
+__global__ void __launch_bounds__((BM_ / 16) * 32) attn_v2_kernel(const TGAttnArgs a) {
+  flash_fwd_body<false, false, 64, BM_, BN_, MASK>(a, blockIdx.y);
+}
+
+template <int BM_, int HB>
+int launch_attn(void (*kernel)(TGAttnArgs), const TGAttnArgs* a, cudaStream_t s) {
+  if (a->sq <= 0 || a->skv <= 0 || a->h % HB) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((a->sq + BM_ - 1) / BM_),
+                  static_cast<unsigned>(a->h / HB), static_cast<unsigned>(a->b));
+  kernel<<<grid, (BM_ / 16) * 32, 0, s>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// T6: `iters` steps of two chains of the flash inner loop, per the JAX probe:
+//
+//   s = q @ k  (acc type: f32 for bf16, s32 for int8)
+//   p = requant(s);  acc += p @ v;  q = requant(s[:, :d])
+//   requant: bf16 -> bf16(s * 1/64) (round to nearest even);
+//            int8 -> clip(s >> 7, -127, 127) (arithmetic shift)
+//   out = f32(acc_a + acc_b)   (int32 sums wrap, as JAX's)
+//
+// q [m, d], k [d, n], v [n, d] row-major; out f32 [m, d]. Rows of q evolve
+// independently, so the m rows are split over blocks of 16 (m / 16 blocks:
+// one wave for m = 2048 on 132 SMs); the two chains of a block run in its two
+// warps on the same rows (they are independent, as on the TPU, where they let
+// the matrix unit pipeline). k and v do not fit in an SM (bf16 k of 128 x 1024
+// is 256 KB), so they stream through shared memory in tiles of 64 keys, k
+// transposed to [key][d] and v to [d][key] (the mma B-fragment layouts).
+// bf16 products are mma.sync m16n8k16 with f32 sums and p fed back as
+// registers; int8 products m16n8k32 with s32 sums (they wrap), p and the next
+// q going through a per-warp shared tile because the s32 accumulator layout
+// is not the s8 A-fragment layout. The next q is staged in shared memory for
+// both types. Bound: iters x 2 chains x 4 m n d operations at the bf16 or int8
+// tensor-core rate.
+// ---------------------------------------------------------------------------
+
+constexpr int FL_D = 128;   // the probe's head dim
+constexpr int FL_TN = 64;   // keys per streamed tile
+constexpr int FL_ROWS = 16;  // q rows per block
+
+__device__ __forceinline__ void mma16832_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// dst[c * ldd + r] = src[(row0 + r) * lds + col0 + c] for r < nrows, c < ncols
+// (zero outside [rows, cols)), 16-byte reads along c, by the block's threads.
+template <typename T>
+__device__ void load_transposed(T* dst, int ldd, const T* src, long long lds, int row0, int nrows,
+                                int rows, int col0, int ncols, int cols) {
+  constexpr int V = 16 / sizeof(T);
+  const int per_row = ncols / V;
+  for (int i = threadIdx.x; i < nrows * per_row; i += blockDim.x) {
+    const int r = i / per_row, c = (i % per_row) * V;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < rows && col0 + c < cols)
+      raw = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * lds + col0 + c);
+    const T* vals = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int e = 0; e < V; ++e) dst[(c + e) * ldd + r] = vals[e];
+  }
+}
+
+template <typename T> struct LoopTypes;
+template <> struct LoopTypes<__nv_bfloat16> {
+  using Acc = float;
+  static constexpr int K = 16;  // mma depth
+  static constexpr int PAD = 8;
+};
+template <> struct LoopTypes<int8_t> {
+  using Acc = int;
+  static constexpr int K = 32;
+  static constexpr int PAD = 16;
+};
+
+__device__ __forceinline__ int8_t requant_s8(int s) {
+  return static_cast<int8_t>(max(-127, min(127, s >> 7)));
+}
+
+// A fragments of a [16][FL_D] row-major tile (pitch ld elements) for k-steps
+// of LoopTypes<T>::K: bf16 m16n8k16 and s8 m16n8k32 read the same 32-bit words
+// at (row g / g+8, word t) and (+8 bf16 / +16 bytes).
+template <typename T>
+__device__ __forceinline__ void load_a_frags(uint32_t (&qa)[FL_D / LoopTypes<T>::K][4],
+                                             const T* tile, int ld) {
+  constexpr int K = LoopTypes<T>::K;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const unsigned char* base = reinterpret_cast<const unsigned char*>(tile);
+  const int ldb = ld * static_cast<int>(sizeof(T));
+#pragma unroll
+  for (int kk = 0; kk < FL_D / K; ++kk) {
+    const unsigned char* p = base + g * ldb + kk * 32 + t * 4;
+    qa[kk][0] = *reinterpret_cast<const uint32_t*>(p);
+    qa[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * ldb);
+    qa[kk][2] = *reinterpret_cast<const uint32_t*>(p + 16);
+    qa[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * ldb + 16);
+  }
+}
+
+}  // namespace
+
+// T6 arguments shared with the Python wrapper (every field 8 bytes).
+struct TGFlashLoopArgs {
+  const void* q; const void* k; const void* v; float* out;
+  long long m, n, iters;
+};
+
+namespace {
+
+// Grid (ceil(m / 16)), 64 threads: warp w runs chain w.
+template <typename T>
+__global__ void __launch_bounds__(64) flash_loop_kernel(const TGFlashLoopArgs a) {
+  using Acc = typename LoopTypes<T>::Acc;
+  constexpr int K = LoopTypes<T>::K, PAD = LoopTypes<T>::PAD;
+  constexpr int LDK = FL_D + PAD, LDV = FL_TN + PAD, LDQ = FL_D + PAD, LDP = FL_TN + PAD;
+  constexpr int KT_BYTES = FL_TN * LDK * sizeof(T);  // k tile transposed: [key][d]
+  constexpr int VT_BYTES = FL_D * LDV * sizeof(T);   // v tile transposed: [d][key]
+  constexpr int QN_BYTES = FL_ROWS * LDQ * sizeof(T);  // per chain: the next q
+  constexpr int PS_BYTES = sizeof(T) == 1 ? FL_ROWS * LDP : 0;  // per chain: int8 p tile
+  static_assert(FL_ROWS * FL_D * sizeof(Acc) <= KT_BYTES + VT_BYTES, "partner sums");
+  __shared__ __align__(16) unsigned char smem[KT_BYTES + VT_BYTES + 2 * QN_BYTES + 2 * PS_BYTES];
+  T* Kt = reinterpret_cast<T*>(smem);
+  T* Vt = reinterpret_cast<T*>(smem + KT_BYTES);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  T* qn = reinterpret_cast<T*>(smem + KT_BYTES + VT_BYTES + warp * QN_BYTES);
+  int8_t* ps = reinterpret_cast<int8_t*>(smem + KT_BYTES + VT_BYTES + 2 * QN_BYTES +
+                                         warp * PS_BYTES);
+  const int m = static_cast<int>(a.m), n = static_cast<int>(a.n);
+  const int row0 = blockIdx.x * FL_ROWS;
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+
+  // q0 rows -> this chain's staging tile (zeros past m)
+  {
+    constexpr int V = 16 / sizeof(T);
+    for (int i = lane; i < FL_ROWS * FL_D / V; i += 32) {
+      const int r = i / (FL_D / V), c = (i % (FL_D / V)) * V;
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      if (row0 + r < m) raw = *reinterpret_cast<const uint4*>(q + (long long)(row0 + r) * FL_D + c);
+      *reinterpret_cast<uint4*>(qn + r * LDQ + c) = raw;
+    }
+  }
+  __syncwarp();
+  uint32_t qa[FL_D / K][4];
+  load_a_frags<T>(qa, qn, LDQ);
+  Acc acc[FL_D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < FL_D / 8; ++dt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[dt][i] = Acc(0);
+
+  for (long long it = 0; it < a.iters; ++it) {
+    for (int n0 = 0; n0 < n; n0 += FL_TN) {
+      __syncthreads();  // the previous tiles consumed by both warps
+      load_transposed<T>(Kt, LDK, k, n, 0, FL_D, FL_D, n0, FL_TN, n);
+      load_transposed<T>(Vt, LDV, v, FL_D, n0, FL_TN, n, 0, FL_D, FL_D);
+      __syncthreads();
+      Acc s[FL_TN / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < FL_TN / 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[nt][i] = Acc(0);
+#pragma unroll
+      for (int kk = 0; kk < FL_D / K; ++kk) {
+#pragma unroll
+        for (int nt = 0; nt < FL_TN / 8; ++nt) {
+          const T* kp = Kt + (nt * 8 + g) * LDK;
+          const unsigned char* kb = reinterpret_cast<const unsigned char*>(kp) + kk * 32 + t * 4;
+          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kb);
+          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kb + 16);
+          if constexpr (sizeof(T) == 2)
+            mma16816(reinterpret_cast<float*>(s[nt]), qa[kk], b0, b1);
+          else
+            mma16832_s8(reinterpret_cast<int*>(s[nt]), qa[kk], b0, b1);
+        }
+      }
+      // s[:, :d] -> the next q (requantized), staged in this chain's tile
+      if (n0 < FL_D) {
+#pragma unroll
+        for (int nt = 0; nt < FL_TN / 8; ++nt) {
+          const int c = n0 + nt * 8 + t * 2;
+          if (c < FL_D) {
+            if constexpr (sizeof(T) == 2) {
+              *reinterpret_cast<uint32_t*>(qn + g * LDQ + c) =
+                  pack_bf16(s[nt][0] * (1.f / 64.f), s[nt][1] * (1.f / 64.f));
+              *reinterpret_cast<uint32_t*>(qn + (g + 8) * LDQ + c) =
+                  pack_bf16(s[nt][2] * (1.f / 64.f), s[nt][3] * (1.f / 64.f));
+            } else {
+              qn[g * LDQ + c] = requant_s8(s[nt][0]);
+              qn[g * LDQ + c + 1] = requant_s8(s[nt][1]);
+              qn[(g + 8) * LDQ + c] = requant_s8(s[nt][2]);
+              qn[(g + 8) * LDQ + c + 1] = requant_s8(s[nt][3]);
+            }
+          }
+        }
+      }
+      // p = requant(s); acc += p @ v over this tile's keys
+      if constexpr (sizeof(T) == 2) {
+#pragma unroll
+        for (int j = 0; j < FL_TN / 16; ++j) {
+          uint32_t pa[4];
+          pa[0] = pack_bf16(s[2 * j][0] * (1.f / 64.f), s[2 * j][1] * (1.f / 64.f));
+          pa[1] = pack_bf16(s[2 * j][2] * (1.f / 64.f), s[2 * j][3] * (1.f / 64.f));
+          pa[2] = pack_bf16(s[2 * j + 1][0] * (1.f / 64.f), s[2 * j + 1][1] * (1.f / 64.f));
+          pa[3] = pack_bf16(s[2 * j + 1][2] * (1.f / 64.f), s[2 * j + 1][3] * (1.f / 64.f));
+#pragma unroll
+          for (int dt = 0; dt < FL_D / 8; ++dt) {
+            const T* vp = Vt + (dt * 8 + g) * LDV + j * 16 + t * 2;
+            mma16816(reinterpret_cast<float*>(acc[dt]), pa,
+                     *reinterpret_cast<const uint32_t*>(vp),
+                     *reinterpret_cast<const uint32_t*>(vp + 8));
+          }
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < FL_TN / 8; ++nt) {
+          const int c = nt * 8 + t * 2;
+          ps[g * LDP + c] = requant_s8(s[nt][0]);
+          ps[g * LDP + c + 1] = requant_s8(s[nt][1]);
+          ps[(g + 8) * LDP + c] = requant_s8(s[nt][2]);
+          ps[(g + 8) * LDP + c + 1] = requant_s8(s[nt][3]);
+        }
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < FL_TN / 32; ++j) {
+          uint32_t pa[4];
+          const int8_t* pp = ps + g * LDP + j * 32 + t * 4;
+          pa[0] = *reinterpret_cast<const uint32_t*>(pp);
+          pa[1] = *reinterpret_cast<const uint32_t*>(pp + 8 * LDP);
+          pa[2] = *reinterpret_cast<const uint32_t*>(pp + 16);
+          pa[3] = *reinterpret_cast<const uint32_t*>(pp + 8 * LDP + 16);
+#pragma unroll
+          for (int dt = 0; dt < FL_D / 8; ++dt) {
+            const int8_t* vp = reinterpret_cast<const int8_t*>(Vt) + (dt * 8 + g) * LDV + j * 32 +
+                               t * 4;
+            mma16832_s8(reinterpret_cast<int*>(acc[dt]), pa,
+                        *reinterpret_cast<const uint32_t*>(vp),
+                        *reinterpret_cast<const uint32_t*>(vp + 16));
+          }
+        }
+        __syncwarp();  // p tile read before the next tile overwrites it
+      }
+    }
+    __syncwarp();  // every lane's part of the next q written
+    load_a_frags<T>(qa, qn, LDQ);
+    __syncwarp();  // read before the next iteration overwrites it
+  }
+
+  // out = f32(acc_0 + acc_1): chain 1 hands its sums over through shared
+  // memory, in the k / v tiles' room once both warps are past the loop
+  Acc (*partner)[FL_D] = reinterpret_cast<Acc (*)[FL_D]>(smem);
+  __syncthreads();
+  if (warp == 1) {
+#pragma unroll
+    for (int dt = 0; dt < FL_D / 8; ++dt) {
+      const int c = dt * 8 + t * 2;
+      partner[g][c] = acc[dt][0];
+      partner[g][c + 1] = acc[dt][1];
+      partner[g + 8][c] = acc[dt][2];
+      partner[g + 8][c + 1] = acc[dt][3];
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int dt = 0; dt < FL_D / 8; ++dt) {
+      const int c = dt * 8 + t * 2;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i < 2 ? g : g + 8;
+        const int cc = c + (i & 1);
+        float val;
+        if constexpr (sizeof(T) == 2) {
+          val = acc[dt][i] + partner[r][cc];
+        } else {  // int32 sum wraps, then rounds to f32 as astype(float32)
+          val = static_cast<float>(static_cast<int>(static_cast<unsigned>(acc[dt][i]) +
+                                                    static_cast<unsigned>(partner[r][cc])));
+        }
+        if (row0 + r < m) a.out[(long long)(row0 + r) * FL_D + cc] = val;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// T7: C = bf16(sum_k f32(a[m, k] * b[k, n])), a [M, K] and b [K, N] bf16
+// row-major (K, N multiples of 8), the probe's blocked GEMM with an f32
+// accumulator. Block tile 128 x 128 (8 warps as 2 x 4, each 64 x 32 of C:
+// 4 x 4 mma.sync m16n8k16 tiles), k tile 32; a staged row-major, b
+// transposed to [n][k] (the B-fragment layout); ragged M, N, K edges are
+// zero-filled on load and masked on store. Synchronous loads, no pipelining:
+// a simple first version. Bound: 2 M K N at the bf16 tensor-core rate.
+// ---------------------------------------------------------------------------
+
+constexpr int MM_BM = 128, MM_BN = 128, MM_BK = 32;
+constexpr int MM_LD = MM_BK + 8;  // conflict-free fragment reads
+
+}  // namespace
+
+// T7 arguments shared with the Python wrapper (every field 8 bytes).
+struct TGMatmulArgs {
+  const void* a; const void* b; void* c;
+  long long m, k, n;
+};
+
+namespace {
+
+// Grid (ceil(N / 128), ceil(M / 128)), 256 threads.
+__global__ void __launch_bounds__(256) matmul_kernel(const TGMatmulArgs p) {
+  __shared__ __align__(16) __nv_bfloat16 As[MM_BM * MM_LD];
+  __shared__ __align__(16) __nv_bfloat16 Bt[MM_BN * MM_LD];
+  const int M = static_cast<int>(p.m), K = static_cast<int>(p.k), N = static_cast<int>(p.n);
+  const int m0 = blockIdx.y * MM_BM, n0 = blockIdx.x * MM_BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;  // warp tile: rows wm * 64, cols wn * 32
+  const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(p.a);
+  const __nv_bfloat16* B = static_cast<const __nv_bfloat16*>(p.b);
+  float acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += MM_BK) {
+    __syncthreads();  // the previous tiles consumed by every warp
+    for (int i = threadIdx.x; i < MM_BM * (MM_BK / 8); i += 256) {
+      const int r = i / (MM_BK / 8), c = (i % (MM_BK / 8)) * 8;
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      if (m0 + r < M && k0 + c < K)
+        raw = *reinterpret_cast<const uint4*>(A + (long long)(m0 + r) * K + k0 + c);
+      *reinterpret_cast<uint4*>(As + r * MM_LD + c) = raw;
+    }
+    load_transposed<__nv_bfloat16>(Bt, MM_LD, B, N, k0, MM_BK, K, n0, MM_BN, N);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < MM_BK / 16; ++kk) {
+      uint32_t af[4][4], bf[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        const __nv_bfloat16* ap = As + (wm * 64 + mi * 16 + g) * MM_LD + kk * 16 + t * 2;
+        af[mi][0] = *reinterpret_cast<const uint32_t*>(ap);
+        af[mi][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * MM_LD);
+        af[mi][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
+        af[mi][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * MM_LD + 8);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const __nv_bfloat16* bp = Bt + (wn * 32 + ni * 8 + g) * MM_LD + kk * 16 + t * 2;
+        bf[ni][0] = *reinterpret_cast<const uint32_t*>(bp);
+        bf[ni][1] = *reinterpret_cast<const uint32_t*>(bp + 8);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma16816(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
+    }
+  }
+  __nv_bfloat16* C = static_cast<__nv_bfloat16*>(p.c);
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int r = m0 + wm * 64 + mi * 16 + g, c = n0 + wn * 32 + ni * 8 + t * 2;
+      if (c >= N) continue;
+      if (r < M)
+        *reinterpret_cast<__nv_bfloat162*>(C + (long long)r * N + c) =
+            __floats2bfloat162_rn(acc[mi][ni][0], acc[mi][ni][1]);
+      if (r + 8 < M)
+        *reinterpret_cast<__nv_bfloat162*>(C + (long long)(r + 8) * N + c) =
+            __floats2bfloat162_rn(acc[mi][ni][2], acc[mi][ni][3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// T8: n_iter register-resident passes over a f32 array (the probe's VMEM
+// block): mul x * 1.0000001, exp2 2^(x * 0.5), exp2_add 2^(x * 0.5 + 0.125).
+// Each thread holds 4 elements through every pass (one 16-byte load, one
+// store, nothing in between); each pass depends on the last and the result is
+// stored, so nvcc can neither hoist nor fold the loop (the f32 products do not
+// reassociate without fast math). exp2 is the instruction ex2.approx.f32, the
+// one K1's softmax (exp2f) runs on: written in CUDA C++ rather than Triton so
+// that the probe pins that instruction's rate and no other. Bound: the exp2
+// passes at the SFU rate (16 results per clock per SM), mul at the FP32 rate
+// (128 per clock per SM).
+// ---------------------------------------------------------------------------
+
+constexpr int OP_MUL = 0, OP_EXP2 = 1, OP_EXP2_ADD = 2;
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int OP>
+__device__ __forceinline__ float pass(float x) {
+  if constexpr (OP == OP_MUL) return x * 1.0000001f;
+  else if constexpr (OP == OP_EXP2) return ex2_approx(x * 0.5f);
+  else return ex2_approx(x * 0.5f + 0.125f);
+}
+
+// Grid (ceil(n / 1024)), 256 threads, 4 consecutive elements each (n % 4 == 0).
+template <int OP>
+__global__ void __launch_bounds__(256) exp2_loop_kernel(const float* x, float* o, long long n,
+                                                        int n_iter) {
+  const long long i = ((long long)blockIdx.x * 256 + threadIdx.x) * 4;
+  if (i >= n) return;
+  const float4 in = *reinterpret_cast<const float4*>(x + i);
+  float e0 = in.x, e1 = in.y, e2 = in.z, e3 = in.w;
+  for (int it = 0; it < n_iter; ++it) {
+    e0 = pass<OP>(e0);
+    e1 = pass<OP>(e1);
+    e2 = pass<OP>(e2);
+    e3 = pass<OP>(e3);
+  }
+  *reinterpret_cast<float4*>(o + i) = make_float4(e0, e1, e2, e3);
+}
+
+}  // namespace
+
+extern "C" {
+
+// T1: block_q (64 | 128) x block_kv (32 | 64 | 128) x heads per block (1 | 2),
+// not (128, 128) (its tiles exceed 48 KB of static shared memory) nor
+// (64, 32, 2) (its registers spill).
+int tg_probe_attn_sweep(const TGAttnArgs* a, long long bm, long long bn, long long hb,
+                        void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TG_SWEEP(BM_, BN_, HB)                                                  \
+  if (bm == BM_ && bn == BN_ && hb == HB)                                       \
+    return launch_attn<BM_, HB>(attn_sweep_kernel<BM_, BN_, HB>, a, s);
+  TG_SWEEP(64, 32, 1) TG_SWEEP(64, 64, 1) TG_SWEEP(64, 128, 1)
+  TG_SWEEP(128, 32, 1) TG_SWEEP(128, 64, 1)
+  TG_SWEEP(64, 64, 2) TG_SWEEP(64, 128, 2)
+  TG_SWEEP(128, 32, 2) TG_SWEEP(128, 64, 2)
+#undef TG_SWEEP
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// T2: (block_q, block_kv) in {(64, 64), (128, 64), (64, 128)}; mask 0 = bias
+// on every kv tile ("full"), 1 = only on the last ("last").
+int tg_probe_attn_v2(const TGAttnArgs* a, long long bm, long long bn, long long mask,
+                     void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TG_V2(BM_, BN_, MASK)                                                   \
+  if (bm == BM_ && bn == BN_ && mask == MASK)                                   \
+    return launch_attn<BM_, 1>(attn_v2_kernel<BM_, BN_, MASK>, a, s);
+  TG_V2(64, 64, 0) TG_V2(128, 64, 0) TG_V2(64, 128, 0)
+  TG_V2(64, 64, 1) TG_V2(128, 64, 1) TG_V2(64, 128, 1)
+#undef TG_V2
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// T6: dtype 0 = bf16 (f32 sums), 1 = int8 (s32 sums); d = 128, n a multiple of 16.
+int tg_probe_flash_loop(const TGFlashLoopArgs* a, long long dtype, void* stream) {
+  if (a->m <= 0 || a->n < FL_D || a->n % 16 || a->iters < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>((a->m + FL_ROWS - 1) / FL_ROWS));
+  if (dtype == 0)
+    flash_loop_kernel<__nv_bfloat16><<<grid, 64, 0, s>>>(*a);
+  else if (dtype == 1)
+    flash_loop_kernel<int8_t><<<grid, 64, 0, s>>>(*a);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// T7: K and N multiples of 8.
+int tg_probe_matmul(const TGMatmulArgs* p, void* stream) {
+  if (p->m <= 0 || p->k <= 0 || p->n <= 0 || p->k % 8 || p->n % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((p->n + MM_BN - 1) / MM_BN),
+                  static_cast<unsigned>((p->m + MM_BM - 1) / MM_BM));
+  matmul_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(*p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// T8: op 0 = mul, 1 = exp2, 2 = exp2_add; n a multiple of 4.
+int tg_probe_exp2_loop(const float* x, float* o, long long n, long long n_iter, long long op,
+                       void* stream) {
+  if (n <= 0 || n % 4 || n_iter < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>((n / 4 + 255) / 256));
+  const int it = static_cast<int>(n_iter);
+  switch (op) {
+    case OP_MUL: exp2_loop_kernel<OP_MUL><<<grid, 256, 0, s>>>(x, o, n, it); break;
+    case OP_EXP2: exp2_loop_kernel<OP_EXP2><<<grid, 256, 0, s>>>(x, o, n, it); break;
+    case OP_EXP2_ADD: exp2_loop_kernel<OP_EXP2_ADD><<<grid, 256, 0, s>>>(x, o, n, it); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

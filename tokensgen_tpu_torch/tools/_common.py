@@ -1,0 +1,57 @@
+"""What the probe CLIs share: the device argument, timing and agreement."""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import time
+
+import torch
+
+
+def parser(doc: str) -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=doc.strip().splitlines()[0])
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu (plain versions)")
+    ap.add_argument("--runs", type=int, default=5, help="timed calls per case (median)")
+    return ap
+
+
+def device_of(args) -> torch.device:
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu to run the plain versions on the host")
+    return dev
+
+
+def device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def time_ms(fn, dev: torch.device, runs: int) -> float:
+    """Median of ``runs`` calls after a warm-up: CUDA events on the card, the
+    host clock on the CPU."""
+    fn()
+    times = []
+    for _ in range(runs):
+        if dev.type == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize(dev)
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def agreement(out: torch.Tensor, ref: torch.Tensor):
+    """(relative L2 error, max abs error) of ``out`` against ``ref``; equal
+    values count as no error (infinities included), the norm is that of
+    ``ref``'s finite part."""
+    out, ref = out.double(), ref.double()
+    diff = torch.where(out == ref, 0.0, out - ref)
+    norm = ref[torch.isfinite(ref)].norm().item()
+    return (diff.norm().item() / norm if norm else diff.norm().item()), diff.abs().max().item()

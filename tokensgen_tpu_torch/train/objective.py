@@ -24,24 +24,36 @@ import torch
 from tokensgen_tpu_torch.core import schedule as S
 
 
-def x0_weighted_loss(sched: S.DiffusionSchedule, model_output: torch.Tensor,
+def x0_weights(sched: S.DiffusionSchedule, timesteps: torch.Tensor) -> torch.Tensor:
+    """The loss's per-timestep weight 1/(1-ᾱ_t), shaped like ``timesteps``."""
+    ap = sched.alphas_cumprod[timesteps.clamp(0, sched.config.num_train_timesteps - 1).long()]
+    return 1.0 / (1.0 - ap)
+
+
+def x0_sample_losses(sched: S.DiffusionSchedule, model_output: torch.Tensor,
                      noisy_input: torch.Tensor, clean_input: torch.Tensor,
                      timesteps: torch.Tensor, loss_mask: Optional[torch.Tensor] = None):
-    """Scalar loss: mean_b[ mean_elems( w·(x0_pred − x0)² ) ]; ``timesteps``
+    """[B] per-sample losses mean_elems( w·(x0_pred − x0)² ); ``timesteps``
     [B] or [B, F]. With ``loss_mask`` (broadcastable to the output; T2To's
     padded chunks) each sample's mean runs over its unmasked elements only
     (at least one)."""
     x0_pred = S.get_velocity(sched, model_output, noisy_input, timesteps)
-    ap = sched.alphas_cumprod[timesteps.clamp(0, sched.config.num_train_timesteps - 1).long()]
-    w = 1.0 / (1.0 - ap)
+    w = x0_weights(sched, timesteps)
     w = w.reshape(w.shape + (1,) * (model_output.dim() - w.dim()))
     sq = w * (x0_pred - clean_input) ** 2
     b = model_output.shape[0]
     if loss_mask is None:
-        return sq.reshape(b, -1).mean(1).mean()
+        return sq.reshape(b, -1).mean(1)
     mask = torch.broadcast_to(loss_mask, sq.shape).to(sq.dtype)
-    per_sample = (sq * mask).reshape(b, -1).sum(1) / mask.reshape(b, -1).sum(1).clamp_min(1.0)
-    return per_sample.mean()
+    return (sq * mask).reshape(b, -1).sum(1) / mask.reshape(b, -1).sum(1).clamp_min(1.0)
+
+
+def x0_weighted_loss(sched: S.DiffusionSchedule, model_output: torch.Tensor,
+                     noisy_input: torch.Tensor, clean_input: torch.Tensor,
+                     timesteps: torch.Tensor, loss_mask: Optional[torch.Tensor] = None):
+    """Scalar loss: the batch mean of `x0_sample_losses`."""
+    return x0_sample_losses(sched, model_output, noisy_input, clean_input, timesteps,
+                            loss_mask).mean()
 
 
 def stratified_timesteps(u: torch.Tensor, process_index: torch.Tensor, num_processes: int,

@@ -23,6 +23,8 @@ from typing import Callable, Dict, Optional, Union
 
 import torch
 
+from tokensgen_tpu_torch.train.objective import x0_weights
+
 Schedule = Callable[[int], float]
 
 _NAMES = ("constant", "constant_with_warmup", "linear", "cosine",
@@ -144,28 +146,34 @@ def global_norm(tensors) -> torch.Tensor:
 
 class TrainStep:
     """A trainer's step (`make_train_step` with its optax chain): each call
-    runs one micro-batch's `loss` and backward; every ``accum_steps``-th
-    call clips the mean gradient to ``max_grad_norm`` (optax
-    `clip_by_global_norm`) and updates ``params`` in place. Gradient
-    accumulation has `optax.MultiSteps` semantics: the mean of k micro-batch
-    gradients, one update. Returns the loss, the micro-batch's grad norm,
-    whether it updated, and the device-synchronised seconds of the forward
-    and backward (``train_step_s``) and of the update (``optimizer_s``)."""
+    runs one micro-batch's loss (the mean of its `sample_losses`) and
+    backward; every ``accum_steps``-th call clips the mean gradient to
+    ``max_grad_norm`` (optax `clip_by_global_norm`) and updates ``params``
+    in place. Gradient accumulation has `optax.MultiSteps` semantics: the
+    mean of k micro-batch gradients, one update. Returns the loss and each
+    sample's term of it (``sample_losses``), the micro-batch's grad norm,
+    whether it updated, the timesteps it was given and their mean loss
+    weight 1/(1-ᾱ_t) under ``sched`` (``x0_weight``), and the
+    device-synchronised seconds of the forward and backward
+    (``train_step_s``) and of the update (``optimizer_s``)."""
 
-    def __init__(self, params: Dict[str, torch.Tensor], optimizer, max_grad_norm: float,
+    def __init__(self, params: Dict[str, torch.Tensor], optimizer, max_grad_norm: float, sched,
                  accum_steps: int = 1):
-        self.params, self.optimizer = params, optimizer
+        self.params, self.optimizer, self.sched = params, optimizer, sched
         self.max_grad_norm, self.accum_steps = max_grad_norm, accum_steps
         self.mini_step = 0
         self.acc: Optional[Dict[str, torch.Tensor]] = None
 
-    def loss(self, batch: Dict, timesteps: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    def sample_losses(self, batch: Dict, timesteps: torch.Tensor,
+                      noise: torch.Tensor) -> torch.Tensor:
+        """[B] per-sample losses of the micro-batch."""
         raise NotImplementedError
 
     def __call__(self, batch: Dict, timesteps: torch.Tensor, noise: torch.Tensor) -> Dict:
         sync = _synchronizer(noise.device)
         t0 = time.perf_counter()
-        loss = self.loss(batch, timesteps, noise)
+        per_sample = self.sample_losses(batch, timesteps, noise)
+        loss = per_sample.mean()
         loss.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in self.params.items()}
@@ -192,7 +200,10 @@ class TrainStep:
             self.acc = None
         sync()
         t2 = time.perf_counter()
-        return {"loss": loss.detach(), "grad_norm": gnorm, "updated": updated,
+        return {"loss": loss.detach(), "sample_losses": per_sample.detach(),
+                "grad_norm": gnorm, "updated": updated,
+                "timesteps": timesteps.detach(),
+                "x0_weight": x0_weights(self.sched, timesteps).mean().detach(),
                 "train_step_s": t1 - t0, "optimizer_s": t2 - t1}
 
 

@@ -115,10 +115,12 @@ def stage_to2v_batch(
     grid_w_full = np.arange(gw, dtype=np.float32)
     cond_h = np.linspace(0, gh, rc.num_height_queries, endpoint=False, dtype=np.float32)
     cond_w = np.linspace(0, gw, rc.num_width_queries, endpoint=False, dtype=np.float32)
-    rs_image_rope = get_3d_rotary_pos_embed_v2(d, np.arange(nf, dtype=np.float32), grid_h_full,
-                                               grid_w_full, device=device)
+    # the resampler's tables at its own head width (the JAX package builds
+    # them at the DiT's, the same number in each of its configs)
+    rs_image_rope = get_3d_rotary_pos_embed_v2(rc.dim_head, np.arange(nf, dtype=np.float32),
+                                               grid_h_full, grid_w_full, device=device)
     rs_sampling_rope = get_3d_rotary_pos_embed_v2(
-        d, np.linspace(video_ipadapter_start_frame_idx, video_ipadapter_start_frame_idx + nf, vq,
+        rc.dim_head, np.linspace(video_ipadapter_start_frame_idx, video_ipadapter_start_frame_idx + nf, vq,
                        endpoint=False, dtype=np.float32), cond_h, cond_w, device=device)
 
     # patch-projected per-chunk tokens; the resampler runs inside the loss

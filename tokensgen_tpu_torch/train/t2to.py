@@ -117,12 +117,12 @@ def t2to_rope(head_dim: int, cfg: T2ToTrainConfig, num_frames: int, device=None)
                                       dim_t=dt, dim_h=dh, dim_w=dw, device=device)
 
 
-def t2to_loss(dit: CogVideoXTransformer, sched: S.DiffusionSchedule, cfg: T2ToTrainConfig,
-              batch: Dict, timesteps: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
-    """The JAX train step's ``loss_fn`` with its random draws passed in:
-    ``batch`` holds ``latents`` [B, F, 16, h, w] (PCA-normalised),
-    ``text_embeds`` [B, T, text_dim] and ``valid_frames`` [B]; ``timesteps``
-    [B]; ``noise`` like the latents."""
+def t2to_sample_losses(dit: CogVideoXTransformer, sched: S.DiffusionSchedule,
+                       cfg: T2ToTrainConfig, batch: Dict, timesteps: torch.Tensor,
+                       noise: torch.Tensor) -> torch.Tensor:
+    """[B] per-sample terms of `t2to_loss`: ``batch`` holds ``latents``
+    [B, F, 16, h, w] (PCA-normalised), ``text_embeds`` [B, T, text_dim] and
+    ``valid_frames`` [B]; ``timesteps`` [B]; ``noise`` like the latents."""
     latents = batch["latents"]
     f = latents.shape[1]
     noisy = S.add_noise(sched, latents, noise, timesteps)
@@ -131,8 +131,15 @@ def t2to_loss(dit: CogVideoXTransformer, sched: S.DiffusionSchedule, cfg: T2ToTr
                                              batch["text_embeds"].shape[1])
     out = dit(noisy, batch["text_embeds"], timesteps, image_rotary_emb=rope,
               key_bias=key_bias).float()
-    return objective.x0_weighted_loss(sched, out, noisy.float(), latents.float(), timesteps,
+    return objective.x0_sample_losses(sched, out, noisy.float(), latents.float(), timesteps,
                                       loss_mask=loss_mask)
+
+
+def t2to_loss(dit: CogVideoXTransformer, sched: S.DiffusionSchedule, cfg: T2ToTrainConfig,
+              batch: Dict, timesteps: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """The JAX train step's ``loss_fn`` with its random draws passed in (see
+    `t2to_sample_losses`)."""
+    return t2to_sample_losses(dit, sched, cfg, batch, timesteps, noise).mean()
 
 
 class T2ToTrainStep(optim.TrainStep):
@@ -145,10 +152,11 @@ class T2ToTrainStep(optim.TrainStep):
         self.dit, self.sched, self.cfg = dit, sched, cfg
         params = dict(dit.named_parameters())
         super().__init__(params, optimizer or make_optimizer(params, cfg), cfg.max_grad_norm,
-                         accum_steps)
+                         sched, accum_steps)
 
-    def loss(self, batch: Dict, timesteps: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
-        return t2to_loss(self.dit, self.sched, self.cfg, batch, timesteps, noise)
+    def sample_losses(self, batch: Dict, timesteps: torch.Tensor,
+                      noise: torch.Tensor) -> torch.Tensor:
+        return t2to_sample_losses(self.dit, self.sched, self.cfg, batch, timesteps, noise)
 
 
 @torch.no_grad()

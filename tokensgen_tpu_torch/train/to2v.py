@@ -111,16 +111,23 @@ def vip_tokens(model: To2VModel, batch: Dict) -> torch.Tensor:
     return torch.gather(vip_all, 1, sel[:, :, None, None, None].expand(-1, -1, *vip_all.shape[2:]))
 
 
-def to2v_loss(model: To2VModel, sched: S.DiffusionSchedule, batch: Dict,
-              timesteps: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
-    """The JAX train step's ``loss_fn`` with its random draws passed in:
-    ``timesteps`` [B, F], ``noise`` like ``batch["latents"]``."""
+def to2v_sample_losses(model: To2VModel, sched: S.DiffusionSchedule, batch: Dict,
+                       timesteps: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """[B] per-sample terms of `to2v_loss`: ``timesteps`` [B, F], ``noise``
+    like ``batch["latents"]``."""
     latents = batch["latents"]
     noisy = S.add_noise(sched, latents, noise, timesteps)
     out = model.dit(noisy, batch["text_embeds"], timesteps, vip_tokens(model, batch),
                     batch.get("image_rotary_emb"), batch.get("vip_image_rotary_emb"),
                     batch.get("vip_condition_rotary_emb")).float()
-    return objective.x0_weighted_loss(sched, out, noisy.float(), latents.float(), timesteps)
+    return objective.x0_sample_losses(sched, out, noisy.float(), latents.float(), timesteps)
+
+
+def to2v_loss(model: To2VModel, sched: S.DiffusionSchedule, batch: Dict,
+              timesteps: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """The JAX train step's ``loss_fn`` with its random draws passed in (see
+    `to2v_sample_losses`)."""
+    return to2v_sample_losses(model, sched, batch, timesteps, noise).mean()
 
 
 def make_optimizer(params: Dict[str, torch.Tensor], cfg: To2VTrainConfig):
@@ -141,7 +148,8 @@ class To2VTrainStep(optim.TrainStep):
         self.model, self.sched, self.cfg = model, sched, cfg
         params = trainable_parameters(model)
         super().__init__(params, optimizer or make_optimizer(params, cfg), cfg.max_grad_norm,
-                         accum_steps)
+                         sched, accum_steps)
 
-    def loss(self, batch: Dict, timesteps: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
-        return to2v_loss(self.model, self.sched, batch, timesteps, noise)
+    def sample_losses(self, batch: Dict, timesteps: torch.Tensor,
+                      noise: torch.Tensor) -> torch.Tensor:
+        return to2v_sample_losses(self.model, self.sched, batch, timesteps, noise)

@@ -16,8 +16,9 @@ random valid-chunk counts (padded chunks masked in attention and loss) and
 prompts through the hash text encoder, and the PCA a random stand-in with
 zero mean and unit std, as the JAX CLI makes without artifacts (a configured
 ``longvgen_pca`` raises: set it to null). Each step prints its loss, grad
-norm and seconds split into data upload, train step (forward and backward)
-and optimizer; a checkpoint of the parameters and the optimizer state is
+norm, each sample's term of the loss, sampled timesteps and their mean loss
+weight 1/(1-ᾱ_t), and seconds
+split into data upload, train step (forward and backward) and optimizer; a checkpoint of the parameters and the optimizer state is
 written every ``checkpointing_steps`` and at the last step. Not ported yet,
 each raising: MiraData loading and the token / latent datasets
 (``train_data_params.csv_file``), LoRA (``lora_rank``), multi-GPU data /
@@ -43,7 +44,7 @@ from tokensgen_tpu_torch.models.text_encoder import HashTextEncoder
 from tokensgen_tpu_torch.train import checkpoint as CK
 from tokensgen_tpu_torch.train import objective, t2to
 from tokensgen_tpu_torch.utils.config import create_output_folders, load_config
-from tokensgen_tpu_torch.utils.logging import ParamAudit, StepTimer, TBLogger
+from tokensgen_tpu_torch.utils.logging import ParamAudit, StepTimer, TBLogger, format_floats
 from tokensgen_tpu_torch.utils.params import build_on_device
 
 TOKENS_PER_CHUNK = 4  # token frames per chunk
@@ -209,12 +210,16 @@ class T2ToTrainer:
             self.step += 1
             rec = {"step": self.step, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                    "updated": m["updated"], "data_s": data_s, "train_step_s": m["train_step_s"],
-                   "optimizer_s": m["optimizer_s"],
+                   "optimizer_s": m["optimizer_s"], "sample_losses": m["sample_losses"].tolist(),
+                   "timesteps": m["timesteps"].tolist(),
+                   "x0_weight": float(m["x0_weight"]),
                    "valid_chunks": (raw["valid_frames"] // TOKENS_PER_CHUNK).tolist()}
             records.append(rec)
             tb.scalar("train_loss", rec["loss"], self.step)
             total = data_s + m["train_step_s"] + m["optimizer_s"]
-            log(f"step {self.step}: loss {rec['loss']:.4f} grad_norm {rec['grad_norm']:.4f} "
+            log(f"step {self.step}: loss {rec['loss']:.4f} (per sample "
+                f"{format_floats(rec['sample_losses'])}) grad_norm {rec['grad_norm']:.4f} "
+                f"timesteps {rec['timesteps']} mean x0 weight {rec['x0_weight']:.4g}; "
                 f"{total:.2f} s/step (data {data_s:.2f} + train step {m['train_step_s']:.2f} + "
                 f"optimizer {m['optimizer_s']:.2f}; EMA {timer.update(total):.2f}); valid "
                 f"chunks {rec['valid_chunks']} of {self.max_chunks}")

@@ -12,7 +12,9 @@ the batches synthetic pixel videos from a seeded generator (what the JAX CLI
 does without ``csv_file``) and the prompts go through the hash text encoder.
 ``--smoke`` runs the JAX smoke's tiny geometry; without it, CogVideoX-5b at
 the config's width with per-block gradient checkpointing. Each step prints
-its loss, grad norm and seconds split into staging, train step (forward and
+its loss, each sample's term of it, grad norm, sampled timesteps and their
+mean loss weight
+1/(1-ᾱ_t), and seconds split into staging, train step (forward and
 backward) and optimizer; a checkpoint of the trainable parameters and the
 optimizer state is written every ``checkpointing_steps`` and at the last
 step. Not ported yet: LoRA, validation renders, MiraData loading, multi-GPU
@@ -38,20 +40,20 @@ from tokensgen_tpu_torch.models.vae3d import AutoencoderKLCogVideoX, VAEConfig, 
 from tokensgen_tpu_torch.train import checkpoint as CK
 from tokensgen_tpu_torch.train import objective, staging, to2v
 from tokensgen_tpu_torch.utils.config import create_output_folders, load_config
-from tokensgen_tpu_torch.utils.logging import ParamAudit, StepTimer, TBLogger
+from tokensgen_tpu_torch.utils.logging import ParamAudit, StepTimer, TBLogger, format_floats
 from tokensgen_tpu_torch.utils.params import build_on_device
 
 
 def model_configs(cfg, smoke: bool, device: torch.device):
     """(DiTConfig, ResamplerConfig, VAEConfig, height, width, frames per chunk)."""
     if smoke or cfg.get("model_size") == "tiny":
-        # the JAX smoke geometry; on a card, heads of 64 in bf16, which is
-        # what the attention kernels take
+        # the JAX smoke geometry; on a card in bf16, which is what the
+        # attention kernels take: the DiT's 2 heads of 16 run K6 / K5, the
+        # resampler's heads are 64 wide there (K4 takes head dim 64)
         card = dict(dtype=torch.bfloat16) if device.type == "cuda" else {}
         vc = VIPConfig(output_dim=24, num_temporal_queries=2, num_height_queries=2,
                        num_width_queries=3, length=3 * 2 * 3)
-        dcfg = DiTConfig.tiny(vip=vc, sample_height=4, sample_width=6,
-                              **(dict(card, attention_head_dim=64) if card else {}))
+        dcfg = DiTConfig.tiny(vip=vc, sample_height=4, sample_width=6, **card)
         rcfg = ResamplerConfig.tiny(embedding_dim=dcfg.inner_dim, output_dim=24,
                                     num_temporal_queries=2, num_height_queries=2,
                                     num_width_queries=3, **(dict(card, dim_head=64) if card else {}))
@@ -205,19 +207,30 @@ class To2VTrainer:
             rec = {"step": self.step, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                    "updated": m["updated"], "staging_s": staging_s,
                    "train_step_s": m["train_step_s"], "optimizer_s": m["optimizer_s"],
+                   "sample_losses": m["sample_losses"].tolist(),
+                   "timesteps": m["timesteps"].tolist(), "x0_weight": float(m["x0_weight"]),
                    "dropped": int(batch["drop_image_embed"].sum())}
             records.append(rec)
             tb.scalar("train_loss", rec["loss"], self.step)
             total = staging_s + m["train_step_s"] + m["optimizer_s"]
-            log(f"step {self.step}: loss {rec['loss']:.4f} grad_norm {rec['grad_norm']:.4f} "
-                     f"{total:.2f} s/step (staging {staging_s:.2f} + train step "
-                     f"{m['train_step_s']:.2f} + optimizer {m['optimizer_s']:.2f}; "
-                     f"EMA {timer.update(total):.2f})")
+            log(f"step {self.step}: loss {rec['loss']:.4f} (per sample "
+                f"{format_floats(rec['sample_losses'])}) grad_norm {rec['grad_norm']:.4f} "
+                f"timesteps {format_timesteps(rec['timesteps'])} mean x0 weight "
+                f"{rec['x0_weight']:.4g}; {total:.2f} s/step (staging {staging_s:.2f} + train "
+                f"step {m['train_step_s']:.2f} + optimizer {m['optimizer_s']:.2f}; "
+                f"EMA {timer.update(total):.2f})")
             del staged, timesteps, noise, m  # freed before the next step's staging
             if self.step % ckpt_every == 0 or (save_final and self.step == max_steps):
                 log(f"checkpoint saved at step {self.step}: {self.save()}")
         tb.close()
         return records
+
+
+def format_timesteps(timesteps: List[List[int]]) -> str:
+    """Per-sample timesteps of a [B, F] draw: one value where the sample's
+    frames share it, else its FIFO ramp as first..last."""
+    return "[" + ", ".join(str(t[0]) if min(t) == max(t) else f"{t[0]}..{t[-1]}"
+                           for t in timesteps) + "]"
 
 
 def log(msg: str) -> None:

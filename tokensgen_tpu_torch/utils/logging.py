@@ -1,5 +1,6 @@
 """Observability (port of `tokensgen_tpu/utils/logging.py`): scalar logging,
-the parameter audit files, a step-time EMA.
+the parameter audit files, a step-time EMA, a short form of a list of
+floats for a log line.
 
 `TBLogger` writes TensorBoard scalars where the ``tensorboard`` package is
 installed, else the same scalars to ``scalars.csv`` (``step,tag,value``).
@@ -12,7 +13,7 @@ installed, else the same scalars to ``scalars.csv`` (``step,tag,value``).
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 import torch.nn as nn
 
@@ -77,3 +78,8 @@ class StepTimer:
     def update(self, dt: float) -> float:
         self.ema = dt if self.ema is None else (1 - self.alpha) * self.ema + self.alpha * dt
         return self.ema
+
+
+def format_floats(values: Iterable[float]) -> str:
+    """``[a, b, ...]`` with four significant digits each."""
+    return "[" + ", ".join(f"{x:.4g}" for x in values) + "]"
