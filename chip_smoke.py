@@ -19,9 +19,11 @@ Phases, each printing its own lines:
           and 32; K1 and K5 at the T2To trainer's shape with its
           padded-chunk key bias; K5 at head dims 16 and 32, and a gradient
           through K6 + K5 there against autograd through the plain version
-  probes  the probe kernels' CLIs (tokensgen_tpu_torch/tools: T1, T2, T6, T7,
-          T8) at their JAX scripts' shapes, then each kernel against its
-          plain version with a planted fault, timed, with its bound
+  probes  the probe kernels' CLIs (tokensgen_tpu_torch/tools: T1, T2, T3a,
+          T3b, T4a, T4b, T6, T7, T8) at their JAX scripts' shapes, then each
+          kernel against its plain version with a planted fault, timed, with
+          its bound; the max-free ones (T3a-T4b) also against the shipped K1,
+          K2 or K3 on the same inputs
   dit     one full-width DiT forward (CogVideoX-5b, 42 layers, VIP "1", B=2),
           timed, then a second one traced with torch.profiler (device time
           by kernel group, idle share; trace in build/traces/); then the same
@@ -843,10 +845,14 @@ PROBES = {
     "flash_loop": "tools/bench_pallas_int8.py:29",  # `_flash_like_kernel`
     "matmul_hand": "tools/bench_matmul_pallas.py:27",  # `_mm_kernel`
     "exp2_loop": "tools/bench_vpu_exp2.py:30",  # `make_kernel`
+    "attention_splitpv": "tools/bench_attn_r3.py:62",  # `_packed_kernel_splitpv`
+    "attention_pair2": "tools/bench_attn_r3.py:231",  # `_packed_kernel_pair2`
+    "cross_smallkv_pairinner": "tools/bench_cross_r3.py:84",  # `_smallkv_kernel`
+    "cross_smallq_splitkv": "tools/bench_cross_r3.py:200",  # `_smallq_kernel`
 }
 PROBE_SOURCE = "tokensgen_tpu_torch/kernels/csrc/probes.cu"
 PROBE_CLIS = ("bench_attn_sweep", "bench_attn_v2", "bench_int8_loop", "bench_matmul_hand",
-              "bench_exp2")
+              "bench_exp2", "bench_attn_r3", "bench_cross_r3")
 # SFU (ex2) and FP32 results per clock per SM on Hopper: the exp2 probe's
 # bound is its passes over these at the SM clock nvidia-smi reports
 SFU_PER_CLK_SM, FP32_PER_CLK_SM, SMS = 16, 128, 132
@@ -1028,6 +1034,68 @@ def _probe_exp2_rows(dev, state) -> None:
                 "bound_by": "operations", "library_ms": None}
 
 
+def _probe_maxfree_rows(dev, state) -> None:
+    """T3a, T3b, T4a and T4b at their scripts' shapes (the CLIs' inputs:
+    joint 17,776^2, cross1 17,776 x 480, cross2 480 x 18,256; 48 heads),
+    each at its default tiles against the shared max-free plain version with
+    a planted fault (T3a, T3b, T4a: the ragged last kv tile of 64 left out;
+    T4b: the keys of its last split left out, which the combine must add),
+    timed, with its bound and flash SDPA on the prologued operands as the
+    library time; then against the shipped K1, K2 or K3 on the same inputs
+    (check only: the same function, the online max against the shift). T3b
+    also at the two cross shapes (check only). The score shift is computed
+    once per shape and passed in, so the times leave it out."""
+    from tokensgen_tpu_torch.kernels import attention as A
+    from tokensgen_tpu_torch.kernels import probes as P
+    from tokensgen_tpu_torch.tools.bench_attn_r3 import make_inputs
+
+    x = make_inputs(dev)
+    h = x["q"].shape[2] // 64
+    shapes = {  # shape: (q, k, v, q tables, k tables, shipped kernel)
+        "joint": (x["q"], x["k"], x["v"], x["tq"], x["tk"], A.fused_attention_joint),
+        "cross1": (x["q"], x["kv"], x["vv"], x["tq_tv"], x["tk_vip"],
+                   A.fused_attention_cross_smallkv),
+        "cross2": (x["qv"], x["kcat"], x["vcat"], x["tq_vip"], x["tk_all"],
+                   A.fused_attention_cross_smallq),
+    }
+    cases = (  # (shape, probe, keys its planted fault keeps; None: check only)
+        ("joint", P.attention_splitpv, lambda n: n - n % KV_TILE),
+        ("joint", P.attention_pair2, lambda n: n - n % KV_TILE),
+        ("cross1", P.attention_pair2, None),
+        ("cross2", P.attention_pair2, None),
+        ("cross1", P.cross_smallkv_pairinner, lambda n: n - n % KV_TILE),
+        ("cross2", P.cross_smallq_splitkv, lambda n: (n - 1) // 512 * 512),  # splits of 512
+    )
+    for shape, probe, kept in cases:
+        label, check_only = probe.__name__, kept is None
+        q, k, v, tq, tk, shipped = shapes[shape]
+        shift = P.score_shift(tq, tk).item()
+        kernel = lambda: probe(q, k, v, None, tq, tk, h, shift=shift)  # noqa: E731
+        plain = lambda: P.attention_maxfree_plain(q, k, v, None, tq, tk, h, shift)  # noqa: E731
+        n = None if check_only else kept(k.shape[1])
+        fault = None if check_only else (
+            lambda: P.attention_maxfree_plain(q, k[:, :n], v[:, :n], None, tq,
+                                              A.slice_tabs(tk, 0, n), h, shift))
+        work = library = None
+        if not check_only:
+            k_tabs = [] if probe is P.cross_smallkv_pairinner else list(tk[:3])
+            work = (4.0 * q.shape[1] * k.shape[1] * h * 64, _nbytes(q, k, v, q, *tq[:3], *k_tabs))
+            q4 = A.apply_prologue_plain(A.split_heads(q, h), tq, 1e-6, True)
+            k4 = A.apply_prologue_plain(A.split_heads(k, h), tk, 1e-6, True)
+            v4 = A.split_heads(v, h)
+            library = lambda: _sdpa(q4, k4, v4, 1.0)  # noqa: E731
+        _compare(f"{label}[{shape} {q.shape[1]:,} x {k.shape[1]:,}]" if check_only else label,
+                 kernel, plain, state, fault_fn=fault, check_only=check_only, work=work,
+                 library_fn=library, phase="probes",
+                 fault="the keys of the last kv split left out"
+                 if probe is P.cross_smallq_splitkv else "last ragged kv tile dropped")
+        if not check_only:
+            _compare(f"{label}[against the shipped {shipped.__name__}]", kernel,
+                     lambda: shipped(q, k, v, tq, tk, None, h), state, check_only=True,
+                     phase="probes")
+    del x, shapes
+
+
 def phase_probes(state: dict) -> None:
     """The probe kernels' main path: each CLI of tokensgen_tpu_torch/tools at
     its JAX script's shapes, with the launch counts set to 0 before and read
@@ -1055,6 +1123,7 @@ def phase_probes(state: dict) -> None:
     _probe_flash_loop_rows(dev, state)
     _probe_matmul_rows(dev, state)
     _probe_exp2_rows(dev, state)
+    _probe_maxfree_rows(dev, state)
     torch.cuda.empty_cache()
 
 

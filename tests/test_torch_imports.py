@@ -30,7 +30,8 @@ def test_import_loads_no_jax():
     probes = {"tokensgen_tpu_torch.kernels.build", "tokensgen_tpu_torch.kernels.probes"} | {
         f"tokensgen_tpu_torch.tools.{m}" for m in ("bench_attn_sweep", "bench_attn_v2",
                                                    "bench_int8_loop", "bench_matmul_hand",
-                                                   "bench_exp2")}
+                                                   "bench_exp2", "bench_attn_r3",
+                                                   "bench_cross_r3")}
     assert probes <= set(_modules())
     code = (
         "import importlib, sys\n"

@@ -1,7 +1,7 @@
 """The Hopper kernels of tokensgen_tpu_torch (the attention forwards K1-K4,
 their logsumexp outputs, the backward K5 at head dims 16, 32 and 64, the
 int8-score forward K7, the [B, H, S, D] fused-prologue forward K6, and the
-probe kernels T1, T2, T6, T7 and T8) against their plain PyTorch versions,
+probe kernels T1, T2, T3a, T3b, T4a, T4b, T6, T7 and T8) against their plain PyTorch versions,
 on the card. Every test here is
 marked ``cuda`` and skips without a card. This file imports no JAX, so it also runs on a machine that
 has none (skipping tests/conftest.py, which does):
@@ -347,3 +347,36 @@ def test_probe_matmul_and_exp2_on_card(cuda_device):
         if op == "mul":
             assert torch.equal(out, ref)
         _assert_within_bounds(out, ref)
+
+
+MAXFREE_TILES = {  # entry point: (the _case shape it takes, its built tiles)
+    "attention_splitpv": ("fused_attention_joint", "SPLITPV_CONFIGS"),
+    "attention_pair2": ("fused_attention_joint", "PAIR2_BLOCK_KV"),
+    "cross_smallkv_pairinner": ("fused_attention_cross_smallkv", "PAIRINNER_BLOCK_Q"),
+    "cross_smallq_splitkv": ("fused_attention_cross_smallq", "SPLITKV_BLOCK_KV"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MAXFREE_TILES))
+def test_probe_maxfree_kernels_on_card(cuda_device, name):
+    """T3a, T3b, T4a and T4b at every built tile vs their shared max-free
+    plain version, within REL_L2_BOUND and MAX_ABS_REL, on the ragged
+    shapes of `_case` (joint 300 x 517, cross 2200 x 130 and 130 x 2200 keys:
+    T4b's last split of 256 / 384 / 512 keys ragged) with per-sample tables
+    and a key-bias mask on one sample; each call counted once."""
+    from tokensgen_tpu_torch.kernels import probes as P
+
+    shape, tiles = MAXFREE_TILES[name]
+    q, k, v, tq, tk, bias, h = _case(shape, cuda_device)
+    shift = P.score_shift(tq, tk, bias)
+    ref = P.attention_maxfree_plain(q, k, v, bias, tq, tk, h, shift)
+    fn = getattr(P, name)
+    for tile in getattr(P, tiles):
+        before = fn.launches
+        out = fn(q, k, v, bias, tq, tk, h, *(tile if isinstance(tile, tuple) else (tile,)))
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        _assert_within_bounds(out, ref)
+    with pytest.raises(ValueError):
+        fn(q, k, v, bias, tq, tk, h, *((128, 128) if name == "attention_splitpv" else (96,)))

@@ -1,11 +1,11 @@
 """Port parity: the plain versions of the probe kernels (kernels/probes.py: T1,
-T2, T6, T7, T8), which CPU tensors take, against the JAX package's Pallas
-probes under tools/. Each probe's own kernel body runs through
-``pl.pallas_call(interpret=True)`` on numpy-seeded inputs at a small size
-(the scripts' wrappers set TPU compiler parameters, so the tests wrap the
-bodies themselves, as tests/test_torch_attention.py does for K4). Then one
-``--device cpu`` run of each probe CLI at a tiny size. Tolerances are stated
-per test."""
+T2, T6, T7, T8; T3a-T4b in tests/test_torch_probes_r3.py), which CPU
+tensors take, against the JAX package's Pallas probes under tools/. Each
+probe's own kernel body runs through ``pl.pallas_call(interpret=True)`` on
+numpy-seeded inputs at a small size (the scripts' wrappers set TPU compiler
+parameters, so the tests wrap the bodies themselves, as
+tests/test_torch_attention.py does for K4). Then one ``--device cpu`` run of
+each probe CLI at a tiny size. Tolerances are stated per test."""
 
 import functools
 import importlib
@@ -203,6 +203,8 @@ def test_attention_sweep_plain_matches_k4_body_at_ragged_kv():
     ("bench_int8_loop", ["--shapes", "32x64x16", "--iters", "3", "--check-iters", "2"]),
     ("bench_matmul_hand", ["--m", "40", "--shapes", "32x48"]),
     ("bench_exp2", ["--rows", "8", "--cols", "64", "--n-iter", "4"]),
+    ("bench_attn_r3", ["--heads", "4", "--text", "5", "--grid", "1x3x8", "--vip-grid", "1x4x5"]),
+    ("bench_cross_r3", ["--heads", "4", "--text", "5", "--grid", "1x3x8", "--vip-grid", "1x4x5"]),
 ])
 def test_probe_cli_runs_on_cpu(cli, args, capsys):
     """Each probe CLI with ``--device cpu`` at a tiny size: one line per case,

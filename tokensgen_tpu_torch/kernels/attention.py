@@ -456,20 +456,37 @@ def _launch(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, n
     any of `HEAD_DIMS`) writes ``out`` in q's memory layout, so the
     [B, H, S, D] view of a merged tensor gives a merged output."""
     lib = _lib()
-    b = q.shape[0]
     k6 = entry == _K6_ENTRY_POINT
+    d = q.shape[-1] if k6 else 64
+    a, out, _keep = attn_args(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k,
+                              qscale, d, keep_layout=k6)  # _keep: alive through the launch
+    lse = None
+    if with_lse:
+        lse = torch.empty(a.b, a.h, a.sq, dtype=torch.float32, device=q.device)
+        a.lse = lse.data_ptr()
+    stream = _build.stream_of(q)
+    fn = getattr(lib, entry)
+    _build.check_launch(entry, fn(ctypes.byref(a), d, stream) if k6 else
+                        fn(ctypes.byref(a), stream))
+    return (out, lse) if with_lse else out
+
+
+def attn_args(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k, qscale: float,
+              d: int = 64, keep_layout: bool = False):
+    """The `TGAttnArgs` of a forward call, checked: (args, out, keep) with
+    ``out`` the output it writes (contiguous, or in q's memory layout with
+    ``keep_layout``) and ``keep`` the buffers that must outlive the launch.
+    Operands merged [B, S, H*d] (pass ``heads``) or [B, H, S, d]; tables
+    None for a side without a prologue."""
+    b = q.shape[0]
     if heads is not None:
         h, sq, skv = heads, q.shape[1], k.shape[1]
     else:
         h, sq, skv = q.shape[1], q.shape[2], k.shape[2]
-    d = q.shape[-1] if k6 else 64
-    out = torch.empty_like(q) if k6 else torch.empty_like(q, memory_format=torch.contiguous_format)
+    out = (torch.empty_like(q) if keep_layout
+           else torch.empty_like(q, memory_format=torch.contiguous_format))
     a = _Args()
-    keep = [out]  # buffers that must outlive the launch call
-    lse = None
-    if with_lse:
-        lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
-        a.lse = lse.data_ptr()
+    keep = [out]
     for name, x in (("q", q), ("k", k), ("v", v), ("o", out)):
         sb, ss, sh = _check_operand(name, x, heads, d)
         setattr(a, name, x.data_ptr())
@@ -490,11 +507,7 @@ def _launch(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, n
     a.b, a.h, a.sq, a.skv = b, h, sq, skv
     a.norm_q, a.norm_k = int(norm_q), int(norm_k)
     a.qscale, a.eps = qscale, eps
-    stream = _build.stream_of(q)
-    fn = getattr(lib, entry)
-    _build.check_launch(entry, fn(ctypes.byref(a), d, stream) if k6 else
-                        fn(ctypes.byref(a), stream))
-    return (out, lse) if with_lse else out
+    return a, out, keep
 
 
 def _launch_bwd(q, k, v, g, lse, dsum, key_bias, heads, scale: float, with_dbias: bool):

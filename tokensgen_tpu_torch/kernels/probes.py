@@ -3,23 +3,30 @@ the JAX package's ``tools/``, with their plain PyTorch versions.
 
 The JAX package wrote these probes to measure the TPU's ceilings: a flash
 kernel's tile sweep, last-tile-only masking, the int8 against the bf16 rate
-inside a flash loop, a hand GEMM against the compiler's, the exp2 throughput.
-Here they measure the card's, as inputs to making the attention kernels fast.
-Five entry points, one per TPU kernel, each with a launch counter
-(``fn.launches``):
+inside a flash loop, a hand GEMM against the compiler's, the exp2 throughput,
+and structural variants of the attention kernels K1-K3 with a max-free
+softmax. Here they measure the card's, as inputs to making the attention
+kernels fast. Nine entry points, one per TPU kernel, each with a launch
+counter (``fn.launches``):
 
-===================  ============================================================  ====
-entry point          replaces (the JAX package's tools/)                           #
-===================  ============================================================  ====
-attention_sweep      `bench_attn_sweep.py` `_tpu` :73 (K4's `_flash_kernel`)        T1
-attention_v2         `bench_attn_v2.py` `_kernel_v2` :23                            T2
-flash_loop           `bench_pallas_int8.py` `_flash_like_kernel` :29                T6
-matmul_hand          `bench_matmul_pallas.py` `_mm_kernel` :27                      T7
-exp2_loop            `bench_vpu_exp2.py` `make_kernel` :30                          T8
-===================  ============================================================  ====
+=======================  ==========================================================  ====
+entry point              replaces (the JAX package's tools/)                         #
+=======================  ==========================================================  ====
+attention_sweep          `bench_attn_sweep.py` `_tpu` :73 (K4's `_flash_kernel`)      T1
+attention_v2             `bench_attn_v2.py` `_kernel_v2` :23                          T2
+attention_splitpv        `bench_attn_r3.py` `_packed_kernel_splitpv` :62              T3a
+attention_pair2          `bench_attn_r3.py` `_packed_kernel_pair2` :231               T3b
+cross_smallkv_pairinner  `bench_cross_r3.py` `_smallkv_kernel` :84                    T4a
+cross_smallq_splitkv     `bench_cross_r3.py` `_smallq_kernel` :200                    T4b
+flash_loop               `bench_pallas_int8.py` `_flash_like_kernel` :29              T6
+matmul_hand              `bench_matmul_pallas.py` `_mm_kernel` :27                    T7
+exp2_loop                `bench_vpu_exp2.py` `make_kernel` :30                        T8
+=======================  ==========================================================  ====
 
+T3a-T4b share their plain version, `attention_maxfree_plain`, and the score
+shift C of their softmax, `score_shift` (no running max: exp2(min(s - C, 0))).
 Each computes the JAX function; the tiles are the card's (`SWEEP_CONFIGS`,
-`V2_CONFIGS`), not the TPU's. A CPU tensor takes the plain version beside the
+`V2_CONFIGS`, ...), not the TPU's. A CPU tensor takes the plain version beside the
 entry point; a CUDA tensor launches the kernel (CUDA C++ for sm_90a in
 ``csrc/probes.cu``, built by nvcc at first use, `kernels/build.py`) or raises.
 The CLIs of ``tokensgen_tpu_torch/tools/`` drive them.
@@ -46,6 +53,12 @@ FLASH_LOOP_D = 128  # T6: the head dim the kernel is built for
 FLASH_LOOP_TILE = 64  # T6: keys per streamed tile (csrc FL_TN)
 MATMUL_BK = 32  # T7: the kernel's k tile (csrc MM_BK)
 EXP2_OPS = ("mul", "exp2", "exp2_add")  # T8
+SHIFT_CAP = 120.0  # T3a-T4b: the cap of the score shift C (log2 units), as the scripts'
+SPLITPV_CONFIGS = ((128, 64), (128, 32), (64, 64))  # T3a: (q rows per head, keys per tile)
+PAIR2_BLOCK_KV = (64, 32)  # T3b: keys per tile (64 q rows per head)
+PAIRINNER_BLOCK_Q = (512, 1024, 2048)  # T4a: q rows per block
+SPLITKV_BLOCK_KV = (256, 384, 512)  # T4b: keys per split
+RESIDENT_MAX = 512  # T4a / T4b: keys held whole in shared memory (csrc RES_MAX)
 
 
 # ---------------------------------------------------------------------------
@@ -133,6 +146,62 @@ def exp2_loop_plain(x, n_iter: int, op: str):
     return x
 
 
+def score_shift(tabs_q, tabs_k, key_bias=None) -> torch.Tensor:
+    """The static score shift C of the max-free probes (T3a-T4b), f32 0-dim:
+    C = min(B_q B_k + max(max(key_bias log2 e), 0), `SHIFT_CAP`), as their
+    wrappers compute it (`run_splitpv`, tools/bench_attn_r3.py:162-169;
+    `run_smallkv`, tools/bench_cross_r3.py:136-142). B is the JAX package's
+    `_tabs_score_bound` (tokensgen_tpu/kernels/attention.py:563), a bound on
+    the L2 norm of any prologued row, taken as there on the head-pair packed
+    tables (`_pack_tabs` :749: the tables doubled to 2D wide, Rg
+    block-diagonal: √2 the bound of the unpacked ones), the q side's scaled by
+    log2 e. The wrappers' padded rows (`_pad_tabs` :313) are zero rows, whose
+    bound 0 never raises the max, so they are left out."""
+    def bound(tabs, scale):
+        cosg, sin, add, rg = (x.float() for x in tabs)
+        z = torch.zeros_like(rg)
+        arg = torch.cat([torch.cat([rg, z], 1), torch.cat([z, rg], 1)], 0).abs()
+        acg, asn, aad = (torch.cat([x, x], -1).mul(scale).abs() for x in (cosg, sin, add))
+        c1 = (acg + asn * arg.sum(0)).amax(-1)  # ||M||_1 per position
+        cinf = (acg + asn @ arg.T).amax(-1)  # ||M||_inf per position
+        d2 = torch.tensor(float(arg.shape[0]), device=arg.device)
+        row = torch.sqrt(d2) * torch.sqrt(c1 * cinf) + torch.sqrt((aad * aad).sum(-1))
+        return row.max()
+
+    c = bound(tabs_q, A._LOG2E) * bound(tabs_k, 1.0)
+    if key_bias is not None:
+        c = c + torch.clamp_min((key_bias.float() * A._LOG2E).max(), 0.0)
+    return torch.clamp_max(c, SHIFT_CAP)
+
+
+def attention_maxfree_plain(q, k, v, key_bias, tabs_q, tabs_k, heads: int, shift,
+                            eps: float = 1e-6, k_prologued: bool = False):
+    """The plain version of the four max-free probes (T3a, T3b, T4a, T4b), on
+    merged [B, S, H*64] operands: qn = bf16(prologue(q)) with log2 e folded
+    into q's tables, kn = bf16(prologue(k)) (``k_prologued``: ``k`` is kn
+    already, as T4a's wrapper makes it), s = qn kn^T + key_bias log2 e -
+    ``shift``, p = exp2(min(s, 0)) in f32, l = sum p, out = (bf16(p) v) /
+    max(l, f32 tiny). Both prologues normalize. In q-row chunks under
+    `attention.MAX_SCORE_BYTES`."""
+    cosg, sin, add, rg = tabs_q
+    qn = A._prologue32(A.split_heads(q, heads), (cosg * A._LOG2E, sin * A._LOG2E,
+                                                 add * A._LOG2E, rg), eps, True).to(q.dtype)
+    kh = A.split_heads(k, heads)
+    kn = kh if k_prologued else A.apply_prologue_plain(kh, tabs_k, eps, True)
+    bias = A._bias_or_zeros(key_bias, k, heads) * A._LOG2E - float(shift)
+    b, h, sq, _ = qn.shape
+    chunk = A._q_chunk(b, h, sq, k.shape[1])
+    kf, vf = kn.float(), A.split_heads(v, heads).float()
+    tiny = torch.finfo(torch.float32).tiny
+    outs = []
+    for i in range(0, sq, chunk):
+        s = torch.einsum("bhqd,bhkd->bhqk", qn[:, :, i:i + chunk].float(), kf)
+        s.add_(bias[:, None, None, :]).clamp_max_(0.0).exp2_()
+        l = s.sum(-1, keepdim=True).clamp_min_(tiny)
+        outs.append((torch.einsum("bhqk,bhkd->bhqd", s.to(v.dtype).float(), vf) / l).to(q.dtype))
+    return A.merge_heads(torch.cat(outs, dim=2))
+
+
 # ---------------------------------------------------------------------------
 # Build and bind csrc/probes.cu
 # ---------------------------------------------------------------------------
@@ -159,6 +228,12 @@ def _bind(lib) -> None:
     _build.bind(lib, "tg_probe_flash_loop", ctypes.POINTER(_FlashLoopArgs), i64, ptr)
     _build.bind(lib, "tg_probe_matmul", ctypes.POINTER(_MatmulArgs), ptr)
     _build.bind(lib, "tg_probe_exp2_loop", ptr, ptr, i64, i64, i64, ptr)
+    for name in _MAXFREE_ENTRY_POINTS:
+        _build.bind(lib, name, ctypes.POINTER(A._Args), i64, i64, ctypes.c_float, ptr, ptr)
+
+
+_MAXFREE_ENTRY_POINTS = ("tg_probe_attn_splitpv", "tg_probe_attn_pair2",
+                         "tg_probe_cross_pairinner", "tg_probe_cross_splitkv")
 
 
 _Library = _build.KernelLibrary("probes.cu", _bind)
@@ -170,25 +245,30 @@ def build_probes(force: bool = False):
 
 
 def _launch_attn(entry: str, q, k, v, key_bias, p0: int, p1: int, p2: int):
-    lib = _Library.get()
-    b, h, sq, d = q.shape
-    skv = k.shape[2]
+    d = q.shape[-1]
     if d != 64:
         raise ValueError(f"{entry}: head dim 64, got {d}")
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    a = A._Args()
-    keep = [out]  # buffers that must outlive the launch call
-    for name, x in (("q", q), ("k", k), ("v", v), ("o", out)):
-        sb, ss, sh = A._check_operand(name, x, None, d)
-        setattr(a, name, x.data_ptr())
-        setattr(a, f"{name}_sb", sb)
-        setattr(a, f"{name}_ss", ss)
-        setattr(a, f"{name}_sh", sh)
-    a.bias = A._bias_ptr(key_bias, b, skv, keep)
-    a.b, a.h, a.sq, a.skv = b, h, sq, skv
-    a.qscale = d ** -0.5 * A._LOG2E
-    _build.check_launch(entry, getattr(lib, entry)(ctypes.byref(a), p0, p1, p2,
-                                                   _build.stream_of(q)))
+    a, out, _keep = A.attn_args(q, k, v, key_bias, None, None, None, 0.0, False, False,
+                                d ** -0.5 * A._LOG2E)  # _keep: alive through the launch
+    _build.check_launch(entry, getattr(_Library.get(), entry)(ctypes.byref(a), p0, p1, p2,
+                                                              _build.stream_of(q)))
+    return out
+
+
+def _launch_maxfree(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads: int, eps: float,
+                    shift, p0: int, p1: int = 0, splits: int = 0):
+    """Launches one of T3a-T4b on merged [B, S, H*64] bf16 operands (k
+    prologued in the kernel when ``tabs_k`` is given) with the score shift
+    as its own float; T4b (``splits`` > 0) also gets its f32 workspace of
+    per-split partial sums and row sums."""
+    a, out, _keep = A.attn_args(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, True,
+                                tabs_k is not None, A._LOG2E)  # _keep: alive through the launch
+    ws = None
+    if splits:
+        ws = torch.empty(a.b * heads * splits * a.sq * 65, dtype=torch.float32, device=q.device)
+    _build.check_launch(entry, getattr(_Library.get(), entry)(
+        ctypes.byref(a), p0, p1, float(shift), None if ws is None else ws.data_ptr(),
+        _build.stream_of(q)))
     return out
 
 
@@ -299,7 +379,96 @@ def exp2_loop(x, n_iter: int, op: str = "exp2"):
     return out
 
 
-PROBE_ENTRY_POINTS = (attention_sweep, attention_v2, flash_loop, matmul_hand, exp2_loop)
+def attention_splitpv(q, k, v, key_bias, tabs_q, tabs_k, heads: int, block_q: int = 128,
+                      block_kv: int = 64, eps: float = 1e-6, shift=None):
+    """T3a, K1's function max-free (`run_splitpv`): joint attention on
+    merged [B, S, H*64] bf16, both prologues in the kernel, optional f32 key
+    bias [B, Skv], softmax as exp2(min(s - C, 0)) with C = `score_shift`
+    (pass ``shift`` to reuse one computed for these tables and bias). H
+    even; each block owns ``block_q`` q rows of one head pair, one warp
+    group per head, kv tiles of ``block_kv`` (`SPLITPV_CONFIGS`)."""
+    shift = score_shift(tabs_q, tabs_k, key_bias) if shift is None else shift
+    if q.device.type == "cpu":
+        return attention_maxfree_plain(q, k, v, key_bias, tabs_q, tabs_k, heads, shift, eps)
+    A._require_cuda(k, v, key_bias)
+    if (block_q, block_kv) not in SPLITPV_CONFIGS or heads % 2:
+        raise ValueError(f"attention_splitpv: even heads and (block_q, block_kv) in "
+                         f"{SPLITPV_CONFIGS}, got heads={heads}, ({block_q}, {block_kv})")
+    out = _launch_maxfree("tg_probe_attn_splitpv", q, k, v, key_bias, tabs_q, tabs_k, heads,
+                          eps, shift, block_q, block_kv)
+    attention_splitpv.launches += 1
+    return out
+
+
+def attention_pair2(q, k, v, key_bias, tabs_q, tabs_k, heads: int, block_kv: int = 64,
+                    eps: float = 1e-6, shift=None):
+    """T3b, `attention_splitpv`'s function (`run_pair2`) with two head pairs
+    (4 heads) per block of 64 q rows: each warp carries one head of each
+    pair and issues both score products before either softmax. H a
+    multiple of 4; kv tiles of ``block_kv`` (`PAIR2_BLOCK_KV`)."""
+    shift = score_shift(tabs_q, tabs_k, key_bias) if shift is None else shift
+    if q.device.type == "cpu":
+        return attention_maxfree_plain(q, k, v, key_bias, tabs_q, tabs_k, heads, shift, eps)
+    A._require_cuda(k, v, key_bias)
+    if block_kv not in PAIR2_BLOCK_KV or heads % 4:
+        raise ValueError(f"attention_pair2: heads a multiple of 4 and block_kv in "
+                         f"{PAIR2_BLOCK_KV}, got heads={heads}, block_kv={block_kv}")
+    out = _launch_maxfree("tg_probe_attn_pair2", q, k, v, key_bias, tabs_q, tabs_k, heads, eps,
+                          shift, block_kv)
+    attention_pair2.launches += 1
+    return out
+
+
+def cross_smallkv_pairinner(q, k, v, key_bias, tabs_q, tabs_k, heads: int,
+                            block_q: int = 1024, eps: float = 1e-6, shift=None):
+    """T4a, K2's function max-free (`run_smallkv`): long q against at most
+    `RESIDENT_MAX` keys. k's prologue runs here in plain torch with the
+    unpacked tables (as the wrapper runs it in XLA); in the kernel K and V
+    of one head sit whole in shared memory against ``block_q`` q rows
+    (`PAIRINNER_BLOCK_Q`), the head fastest in the grid (the JAX grid's pair
+    innermost), so the blocks that read one q block's prologue tables run
+    side by side."""
+    shift = score_shift(tabs_q, tabs_k, key_bias) if shift is None else shift
+    kn = A.merge_heads(A.apply_prologue_plain(A.split_heads(k, heads), tabs_k, eps, True))
+    if q.device.type == "cpu":
+        return attention_maxfree_plain(q, kn, v, key_bias, tabs_q, tabs_k, heads, shift, eps,
+                                       k_prologued=True)
+    A._require_cuda(k, v, key_bias)
+    if block_q not in PAIRINNER_BLOCK_Q or k.shape[1] > RESIDENT_MAX:
+        raise ValueError(f"cross_smallkv_pairinner: Skv <= {RESIDENT_MAX} and block_q in "
+                         f"{PAIRINNER_BLOCK_Q}, got Skv {k.shape[1]}, block_q={block_q}")
+    out = _launch_maxfree("tg_probe_cross_pairinner", q, kn, v, key_bias, tabs_q, None, heads,
+                          eps, shift, block_q)
+    cross_smallkv_pairinner.launches += 1
+    return out
+
+
+def cross_smallq_splitkv(q, k, v, key_bias, tabs_q, tabs_k, heads: int, block_kv: int = 512,
+                         eps: float = 1e-6, shift=None):
+    """T4b, K3's function max-free (`run_smallq`): short q against a long kv,
+    both prologues in the kernel. The keys are split in ``block_kv``
+    (`SPLITKV_BLOCK_KV`); a block per (split, head, batch row) holds its
+    split's prologued K and V in shared memory, runs every q row against
+    them and writes f32 partial sums and row sums; a second kernel adds the
+    splits, sum(acc) / max(sum(l), tiny): with no running max there is
+    nothing to rescale. The JAX kernel carries the same sums across its kv
+    sweep."""
+    shift = score_shift(tabs_q, tabs_k, key_bias) if shift is None else shift
+    if q.device.type == "cpu":
+        return attention_maxfree_plain(q, k, v, key_bias, tabs_q, tabs_k, heads, shift, eps)
+    A._require_cuda(k, v, key_bias)
+    if block_kv not in SPLITKV_BLOCK_KV:
+        raise ValueError(f"cross_smallq_splitkv: block_kv in {SPLITKV_BLOCK_KV}, got {block_kv}")
+    splits = -(-k.shape[1] // block_kv)
+    out = _launch_maxfree("tg_probe_cross_splitkv", q, k, v, key_bias, tabs_q, tabs_k, heads,
+                          eps, shift, block_kv, splits=splits)
+    cross_smallq_splitkv.launches += 1
+    return out
+
+
+PROBE_ENTRY_POINTS = (attention_sweep, attention_v2, flash_loop, matmul_hand, exp2_loop,
+                      attention_splitpv, attention_pair2, cross_smallkv_pairinner,
+                      cross_smallq_splitkv)
 
 
 def reset_launch_counts():

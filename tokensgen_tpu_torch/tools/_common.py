@@ -55,3 +55,24 @@ def agreement(out: torch.Tensor, ref: torch.Tensor):
     diff = torch.where(out == ref, 0.0, out - ref)
     norm = ref[torch.isfinite(ref)].norm().item()
     return (diff.norm().item() / norm if norm else diff.norm().item()), diff.abs().max().item()
+
+
+def parse_grid(text: str):
+    """"13x30x45" -> (13, 30, 45)."""
+    return tuple(int(n) for n in text.split("x"))
+
+
+def max_free_case(label: str, fn, ref, shipped, flops: float, dev, runs: int, **meta) -> dict:
+    """One case of the max-free probe CLIs: ``fn``'s output against the plain
+    version ``ref`` and the shipped kernel's output ``shipped``, its median
+    time and rate; printed as one line and returned as a dict."""
+    out = fn()
+    rel, err = agreement(out, ref)
+    srel, serr = agreement(out, shipped)
+    del out
+    ms = time_ms(fn, dev, runs)
+    print(f"{label:34s} {ms:9.3f} ms {flops / ms / 1e9:7.1f} TFLOP/s rel_l2_err {rel:.2e} "
+          f"max_abs_err {err:.2e} | vs shipped rel_l2_err {srel:.2e} max_abs_err {serr:.2e}",
+          flush=True)
+    return dict(case=label, ms=ms, tflops=flops / ms / 1e9, rel_l2_err=rel, max_abs_err=err,
+                shipped_rel_l2_err=srel, shipped_max_abs_err=serr, **meta)
