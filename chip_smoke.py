@@ -15,15 +15,18 @@ Phases, each printing its own lines:
           trainer's, against their plain PyTorch versions: error, planted
           fault, kernel / plain / library times (CUDA events) and bound; the
           lse outputs of K1, K4 and K6; K7 against bf16 K1; K1 at the T2To
-          shape; K6 as a strided view of merged operands and at head dims 16
-          and 32; K1 and K5 at the T2To trainer's shape with its
-          padded-chunk key bias; K5 at head dims 16 and 32, and a gradient
-          through K6 + K5 there against autograd through the plain version
+          shape; K4 at head dims 16, 32 and 128 at its row's width; K6 as a
+          strided view of merged operands and at head dims 16 and 32; K1
+          and K5 at the T2To trainer's shape with its padded-chunk key bias;
+          K5 at head dims 16, 32 and 128, and a gradient through K6 + K5
+          there against autograd through the plain version; K6 and K5 at
+          head dim 128 at the T2To trainer's width (24 heads of 128)
   probes  the probe kernels' CLIs (tokensgen_tpu_torch/tools: T1, T2, T3a,
-          T3b, T4a, T4b, T6, T7, T8) at their JAX scripts' shapes, then each
-          kernel against its plain version with a planted fault, timed, with
-          its bound; the max-free ones (T3a-T4b) also against the shipped K1,
-          K2 or K3 on the same inputs
+          T3b, T4a, T4b, T5, T6, T7, T8) at their JAX scripts' shapes, then
+          each kernel against its plain version with a planted fault, timed,
+          with its bound (T5 at every q block it is built for); the max-free
+          ones (T3a-T5) also against the shipped K1, K2 or K3 on the same
+          inputs
   dit     one full-width DiT forward (CogVideoX-5b, 42 layers, VIP "1", B=2),
           timed, then a second one traced with torch.profiler (device time
           by kernel group, idle share; trace in build/traces/); then the same
@@ -438,11 +441,12 @@ def _check_lse(name, lse, ref):
         raise RuntimeError(f"{name}: its lse disagrees with the plain logsumexp")
 
 
-def _t2to_case(dev, batch, valid_chunks=None, chunks=24, text=226, heads=48, seed=5):
+def _t2to_case(dev, batch, valid_chunks=None, chunks=24, text=226, heads=48, seed=5, d=64):
     """K1's inputs at the T2To shape (24 chunks of 4 token frames of 8 x 12
-    and 226 text tokens: 9,442 per row; RoPE dims (52, 6, 6)), merged bf16
-    [B, S, 48*64]; with ``valid_chunks`` (one count per sample) the
-    trainer's padded-chunk key bias (`train.t2to.padded_chunk_masks`)."""
+    and 226 text tokens: 9,442 per row; RoPE dims (52, 6, 6) at head dim
+    64, scaled with ``d``), merged bf16 [B, S, heads*d]; with
+    ``valid_chunks`` (one count per sample) the trainer's padded-chunk key
+    bias (`train.t2to.padded_chunk_masks`)."""
     import numpy as np
     import torch
 
@@ -450,14 +454,15 @@ def _t2to_case(dev, batch, valid_chunks=None, chunks=24, text=226, heads=48, see
     from tokensgen_tpu_torch.kernels import attention as A
     from tokensgen_tpu_torch.train.t2to import padded_chunk_masks
 
-    d, f = 64, 4 * chunks
+    f = 4 * chunks
     gen = torch.Generator(device=dev).manual_seed(seed)
     s = text + f * 8 * 12
     q, k, v = (torch.randn(batch, s, heads * d, generator=gen, device=dev).bfloat16()
                for _ in range(3))
     rope = get_3d_rotary_pos_embed_v2(d, np.arange(f, dtype=np.float32),
                                       np.arange(8, dtype=np.float32),
-                                      np.arange(12, dtype=np.float32), 52, 6, 6, device=dev)
+                                      np.arange(12, dtype=np.float32), 52 * d // 64, 6 * d // 64,
+                                      6 * d // 64, device=dev)
     segs = [(None, text), (rope, s - text)]
     g, bb = torch.ones(d, device=dev), torch.zeros(d, device=dev)
     bias = None
@@ -693,11 +698,84 @@ def _bwd_fns(c):
     return kernel, plain, (lambda: plain(skv - skv % KV_TILE)), library, work
 
 
+def _k4_head_dim_checks(dev, cases, state) -> None:
+    """K4 (`flash_attention_bhsd`) at head dims 128, 32 and 16 at its row's
+    shape and width (the resampler's 384 latents against 17,934 keys, 16
+    heads of 64 as 8 of 128, 32 of 32 and 64 of 16): held to the plain
+    version with the planted fault (the ragged last kv tile dropped), timed,
+    flash SDPA as the library time."""
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+
+    c = cases["flash_attention_bhsd"]
+    b, h64, sq, _ = c["q"].shape
+    skv = c["k"].shape[2]
+    n = skv - skv % KV_TILE
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for d in (128, 32, 16):
+        h = h64 * 64 // d
+        q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev).bfloat16()
+                   for s in (sq, skv, skv))
+        zeros = torch.zeros(b, skv, device=dev)
+        scale = d ** -0.5
+        _compare(f"flash_attention_bhsd[d={d}, {tuple(q.shape)} x {skv:,}]",
+                 lambda: A.flash_attention_bhsd(q, k, v, None, scale),
+                 lambda: A.attention_plain(q, k, v, zeros, scale), state,
+                 fault_fn=lambda: A.attention_plain(q, k[:, :, :n], v[:, :, :n], zeros[:, :n],
+                                                    scale),
+                 work=(4.0 * b * h * sq * skv * d, _nbytes(q, k, v, q)),
+                 library_fn=lambda: _sdpa(q, k, v, scale))
+
+
+def _head_dim_128_checks(dev, state) -> None:
+    """K6 and K5 at head dim 128 at the T2To trainer's shape: its 3,072
+    width as 24 heads of 128, batch 3 with the padded-chunk key bias
+    (`T2TO_TRAIN_VALID_CHUNKS`), [3, 24, 9,442, 128] (the products of K6's
+    [3, 48, 9,442, 64] row). K6 held to its plain version with the planted
+    fault (the ragged last kv tile dropped, which the fully valid sample
+    shows), timed, library SDPA (memory-efficient, the bias as a mask) on
+    the prologued operands; then K5 on those prologued operands (scale 1),
+    timed likewise."""
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+
+    name = "fused_attention_bhsd"
+    c = _t2to_case(dev, len(T2TO_TRAIN_VALID_CHUNKS), T2TO_TRAIN_VALID_CHUNKS, heads=24, d=128)
+    h, bias = c["heads"], c["key_bias"]
+    q4, k4, v4 = (A.split_heads(c[n], h).contiguous() for n in ("q", "k", "v"))
+    tq, tk = c["tabs_q"], c["tabs_k"]
+    skv = k4.shape[2]
+    qn = A.apply_prologue_plain(q4, tq, 1e-6, True)
+    kn = A.apply_prologue_plain(k4, tk, 1e-6, True)
+    label = f"{name}[d=128, {tuple(q4.shape)}, padded-chunk bias {T2TO_TRAIN_VALID_CHUNKS}]"
+    _compare(label, lambda: A.fused_attention_bhsd(q4, k4, v4, tq, tk, bias),
+             lambda: _k6_plain(q4, k4, v4, tq, tk, bias), state,
+             fault_fn=lambda: _k6_plain(q4, k4, v4, tq, tk, bias, skv - skv % KV_TILE),
+             work=_k6_work(q4, k4, v4, tq, tk, bias),
+             library_fn=_library_or_none(label, lambda: (lambda: _sdpa(qn, kn, v4, 1.0, bias))))
+    del q4, k4, c
+    gen = torch.Generator(device=dev).manual_seed(15)
+    cb = dict(q4=qn, k4=kn, v4=v4, scale=1.0, key_bias=bias, heads=None,
+              g4=torch.randn(qn.shape, generator=gen, device=dev).bfloat16())
+    out4, cb["lse"] = A.attention_plain(qn, kn, v4, bias, 1.0, with_lse=True)
+    cb["dsum"] = A._row_dsum(cb["g4"], out4, None)
+    del out4
+    kernel, plain, fault, library, work = _bwd_fns(cb)
+    label = f"attention_backward[d=128, {tuple(qn.shape)}, padded-chunk bias]"
+    _compare(label, kernel, plain, state, fault_fn=fault, work=work,
+             library_fn=_library_or_none(label, library), labels=["dq", "dk", "dv", "dbias"])
+    del cb, qn, kn, v4
+    torch.cuda.empty_cache()
+
+
 def _k5_head_dim_checks(dev, state) -> None:
-    """K5 at head dims 16 and 32 ([3, 2, 1,544, 16] and [3, 4, 1,544, 32]:
-    the tiny DiTs' token count, 8 text + 16 frames of 8 x 12, with the
-    padded-chunk key bias of valid frames (16, 8, 4)): held to the plain
-    backward with the planted fault and timed; then a gradient through
+    """K5 at head dims 16, 32 and 128 ([3, 2, 1,544, 16], [3, 4, 1,544, 32]
+    and [3, 1, 1,544, 128]: the tiny DiTs' token count, 8 text + 16 frames
+    of 8 x 12, with the padded-chunk key bias of valid frames (16, 8, 4)):
+    held to the plain backward with the planted fault (16 and 32 also
+    timed; 128's row is `_head_dim_128_checks`'); then a gradient through
     `fused_flash_attention` on [B, H, S, D] operands (the autograd Function
     of K6 + K5) against autograd through the plain version, on the card."""
     import torch
@@ -708,7 +786,7 @@ def _k5_head_dim_checks(dev, state) -> None:
     gen = torch.Generator(device=dev).manual_seed(12)
     bias, _ = padded_chunk_masks(torch.tensor([16, 8, 4], device=dev), 16, 96, 8)
     b, s = 3, 8 + 16 * 96
-    for h, d in ((2, 16), (4, 32)):
+    for h, d in ((2, 16), (4, 32), (1, 128)):
         q4, k4, v4, g4 = (torch.randn(b, h, s, d, generator=gen, device=dev).bfloat16()
                           for _ in range(4))
         c = dict(q4=q4, k4=k4, v4=v4, g4=g4, scale=d ** -0.5, key_bias=bias, heads=None)
@@ -716,8 +794,10 @@ def _k5_head_dim_checks(dev, state) -> None:
         c["dsum"] = A._row_dsum(g4, out4, None)
         kernel, plain, fault, library, work = _bwd_fns(c)
         label = f"attention_backward[d={d}, {tuple(q4.shape)}, padded-chunk bias]"
-        _compare(label, kernel, plain, state, fault_fn=fault, work=work,
-                 library_fn=_library_or_none(label, library), labels=["dq", "dk", "dv", "dbias"])
+        timed = d != 128
+        _compare(label, kernel, plain, state, fault_fn=fault, work=work, check_only=not timed,
+                 library_fn=_library_or_none(label, library) if timed else None,
+                 labels=["dq", "dk", "dv", "dbias"])
         ang = torch.randn(s - 8, d, generator=gen, device=dev)
         segs = [(None, 8), ((ang.cos(), ang.sin()), s - 8)]
         gain = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
@@ -759,6 +839,7 @@ def phase_kernels(state: dict) -> None:
         _compare(name, lambda: run_kernel(name, c), lambda: run_plain(name, c), state,
                  fault_fn=_without_ragged_tile(name, c), work=forward_work(name, c),
                  library_fn=lambda: _sdpa(q4, k4, v4, scale))
+    _k4_head_dim_checks(dev, cases, state)
     # K7 at the gen path's joint shape; then its error against bf16 K1 on the
     # same inputs (the int8 quantization's own cost, no bound)
     name = "fused_attention_joint_int8"
@@ -800,6 +881,7 @@ def phase_kernels(state: dict) -> None:
                  library_fn=None if check_only else library(),
                  labels=["dq", "dk", "dv", "dbias"])
     _k5_head_dim_checks(dev, state)
+    _head_dim_128_checks(dev, state)
     # K1 with per-sample (batched) tables and a key-bias mask
     c = dict(cases["fused_attention_joint"])
     b = c["q"].shape[0]
@@ -849,10 +931,11 @@ PROBES = {
     "attention_pair2": "tools/bench_attn_r3.py:231",  # `_packed_kernel_pair2`
     "cross_smallkv_pairinner": "tools/bench_cross_r3.py:84",  # `_smallkv_kernel`
     "cross_smallq_splitkv": "tools/bench_cross_r3.py:200",  # `_smallq_kernel`
+    "cross_smallkv_pairloop": "tools/bench_cross_pairloop.py:33",  # `_smallkv_pairloop_kernel`
 }
 PROBE_SOURCE = "tokensgen_tpu_torch/kernels/csrc/probes.cu"
 PROBE_CLIS = ("bench_attn_sweep", "bench_attn_v2", "bench_int8_loop", "bench_matmul_hand",
-              "bench_exp2", "bench_attn_r3", "bench_cross_r3")
+              "bench_exp2", "bench_attn_r3", "bench_cross_r3", "bench_cross_pairloop")
 # SFU (ex2) and FP32 results per clock per SM on Hopper: the exp2 probe's
 # bound is its passes over these at the SM clock nvidia-smi reports
 SFU_PER_CLK_SM, FP32_PER_CLK_SM, SMS = 16, 128, 132
@@ -1035,16 +1118,18 @@ def _probe_exp2_rows(dev, state) -> None:
 
 
 def _probe_maxfree_rows(dev, state) -> None:
-    """T3a, T3b, T4a and T4b at their scripts' shapes (the CLIs' inputs:
+    """T3a, T3b, T4a, T4b and T5 at their scripts' shapes (the CLIs' inputs:
     joint 17,776^2, cross1 17,776 x 480, cross2 480 x 18,256; 48 heads),
     each at its default tiles against the shared max-free plain version with
-    a planted fault (T3a, T3b, T4a: the ragged last kv tile of 64 left out;
-    T4b: the keys of its last split left out, which the combine must add),
-    timed, with its bound and flash SDPA on the prologued operands as the
-    library time; then against the shipped K1, K2 or K3 on the same inputs
-    (check only: the same function, the online max against the shift). T3b
-    also at the two cross shapes (check only). The score shift is computed
-    once per shape and passed in, so the times leave it out."""
+    a planted fault (T3a, T3b, T4a, T5: the ragged last kv tile of 64 left
+    out; T4b: the keys of its last split left out, which the combine must
+    add), timed, with its bound and flash SDPA on the prologued operands as
+    the library time; then against the shipped K1, K2 or K3 on the same
+    inputs (check only: the same function, the online max against the
+    shift). T3b also at the two cross shapes (check only); T5 also at every
+    other q block it is built for (check and planted fault). The score
+    shift is computed once per shape and passed in, so the times leave it
+    out."""
     from tokensgen_tpu_torch.kernels import attention as A
     from tokensgen_tpu_torch.kernels import probes as P
     from tokensgen_tpu_torch.tools.bench_attn_r3 import make_inputs
@@ -1058,38 +1143,44 @@ def _probe_maxfree_rows(dev, state) -> None:
         "cross2": (x["qv"], x["kcat"], x["vcat"], x["tq_vip"], x["tk_all"],
                    A.fused_attention_cross_smallq),
     }
-    cases = (  # (shape, probe, keys its planted fault keeps; None: check only)
-        ("joint", P.attention_splitpv, lambda n: n - n % KV_TILE),
-        ("joint", P.attention_pair2, lambda n: n - n % KV_TILE),
-        ("cross1", P.attention_pair2, None),
-        ("cross2", P.attention_pair2, None),
-        ("cross1", P.cross_smallkv_pairinner, lambda n: n - n % KV_TILE),
-        ("cross2", P.cross_smallq_splitkv, lambda n: (n - 1) // 512 * 512),  # splits of 512
-    )
-    for shape, probe, kept in cases:
-        label, check_only = probe.__name__, kept is None
+    ragged = lambda n: n - n % KV_TILE  # noqa: E731
+    cases = (  # (shape, probe, keys its planted fault keeps (None: check only), tile)
+        ("joint", P.attention_splitpv, ragged, None),
+        ("joint", P.attention_pair2, ragged, None),
+        ("cross1", P.attention_pair2, None, None),
+        ("cross2", P.attention_pair2, None, None),
+        ("cross1", P.cross_smallkv_pairinner, ragged, None),
+        ("cross2", P.cross_smallq_splitkv, lambda n: (n - 1) // 512 * 512, None),  # splits of 512
+        ("cross1", P.cross_smallkv_pairloop, ragged, None),  # at its default q block, 1,024
+    ) + tuple(("cross1", P.cross_smallkv_pairloop, ragged, bq) for bq in P.PAIRLOOP_BLOCK_Q
+              if bq != 1024)
+    for shape, probe, kept, tile in cases:
+        label, check_only, timed = probe.__name__, kept is None, kept is not None and tile is None
         q, k, v, tq, tk, shipped = shapes[shape]
         shift = P.score_shift(tq, tk).item()
-        kernel = lambda: probe(q, k, v, None, tq, tk, h, shift=shift)  # noqa: E731
+        tiles = () if tile is None else (tile,)
+        kernel = lambda: probe(q, k, v, None, tq, tk, h, *tiles, shift=shift)  # noqa: E731
         plain = lambda: P.attention_maxfree_plain(q, k, v, None, tq, tk, h, shift)  # noqa: E731
         n = None if check_only else kept(k.shape[1])
         fault = None if check_only else (
             lambda: P.attention_maxfree_plain(q, k[:, :n], v[:, :n], None, tq,
                                               A.slice_tabs(tk, 0, n), h, shift))
         work = library = None
-        if not check_only:
-            k_tabs = [] if probe is P.cross_smallkv_pairinner else list(tk[:3])
+        if timed:
+            k_prologued = probe in (P.cross_smallkv_pairinner, P.cross_smallkv_pairloop)
+            k_tabs = [] if k_prologued else list(tk[:3])
             work = (4.0 * q.shape[1] * k.shape[1] * h * 64, _nbytes(q, k, v, q, *tq[:3], *k_tabs))
             q4 = A.apply_prologue_plain(A.split_heads(q, h), tq, 1e-6, True)
             k4 = A.apply_prologue_plain(A.split_heads(k, h), tk, 1e-6, True)
             v4 = A.split_heads(v, h)
             library = lambda: _sdpa(q4, k4, v4, 1.0)  # noqa: E731
-        _compare(f"{label}[{shape} {q.shape[1]:,} x {k.shape[1]:,}]" if check_only else label,
-                 kernel, plain, state, fault_fn=fault, check_only=check_only, work=work,
+        name = label if timed else (f"{label}[{shape} {q.shape[1]:,} x {k.shape[1]:,}]"
+                                    if tile is None else f"{label}[block_q {tile}]")
+        _compare(name, kernel, plain, state, fault_fn=fault, check_only=not timed, work=work,
                  library_fn=library, phase="probes",
                  fault="the keys of the last kv split left out"
                  if probe is P.cross_smallq_splitkv else "last ragged kv tile dropped")
-        if not check_only:
+        if timed:
             _compare(f"{label}[against the shipped {shipped.__name__}]", kernel,
                      lambda: shipped(q, k, v, tq, tk, None, h), state, check_only=True,
                      phase="probes")
@@ -1599,10 +1690,10 @@ def _small_train_check(dev, dcfg, rcfg, label: str) -> dict:
 
 
 def _small_train_checks(dev) -> None:
-    """`_small_train_check` at head dim 64 (the DiT's attention on K1 / K5,
-    the resampler's on K4 / K5) and at the tiny trainer's geometry
-    (`train_to2v.model_configs` with --smoke on the card: the DiT's 2 heads
-    of 16 on K6 / K5, the resampler's 64-wide heads on K4 / K5)."""
+    """`_small_train_check` with the DiT at head dim 64 (its attention on K1
+    / K5) and the tiny resampler's heads of 16 (K4 / K5), and at the tiny
+    trainer's geometry (`train_to2v.model_configs` with --smoke on the card:
+    the DiT's 2 heads of 16 on K6 / K5, the resampler's on K4 / K5)."""
     import torch
 
     from tokensgen_tpu_torch.models.dit import DiTConfig, VIPConfig
@@ -1614,10 +1705,10 @@ def _small_train_checks(dev) -> None:
                    num_width_queries=6, length=3 * 4 * 6)
     dcfg = DiTConfig.tiny(vip=vc, attention_head_dim=64, num_attention_heads=2,
                           sample_height=16, sample_width=24, dtype=torch.bfloat16, remat=True)
-    rcfg = ResamplerConfig.tiny(dim=64, dim_head=64, heads=2, embedding_dim=dcfg.inner_dim,
+    rcfg = ResamplerConfig.tiny(dim=64, heads=2, embedding_dim=dcfg.inner_dim,
                                 output_dim=64, num_temporal_queries=2, num_height_queries=4,
                                 num_width_queries=6, dtype=torch.bfloat16)
-    _small_train_check(dev, dcfg, rcfg, "2 layers, d=64")
+    _small_train_check(dev, dcfg, rcfg, f"2 layers, DiT d=64, resampler d={rcfg.dim_head}")
     dcfg, rcfg = model_configs(load_config(os.path.join(REPO, TRAIN_CONFIG)), True, dev)[:2]
     counts = _small_train_check(dev, dcfg, rcfg, f"the --smoke geometry: DiT "
                                 f"{dcfg.num_attention_heads} x {dcfg.attention_head_dim}, "

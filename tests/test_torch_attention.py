@@ -168,6 +168,29 @@ def test_bhsd_plain_matches_flash_kernel_interpret():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("d", [16, 32, 128])
+def test_bhsd_plain_matches_flash_attention_tpu_interpret(d, monkeypatch):
+    """K4 at the head dims other than 64 that the card takes: the JAX
+    package's wrapper `_flash_attention_tpu` (its `_flash_kernel` through
+    pl.pallas_call, switched to interpret=True by monkeypatch) vs
+    flash_attention_bhsd's plain path on [1, 2, 200, d] x 300 keys (ragged
+    to the 128-row blocks: the wrapper pads and masks), with a key-bias
+    mask; f32, 1e-4 / 1e-5 as the head-dim-64 case above."""
+    monkeypatch.setattr(JA.pl, "pallas_call", functools.partial(JA.pl.pallas_call, interpret=True))
+    rng = np.random.default_rng(30 + d)
+    b, h, sq, skv = 1, 2, 200, 300
+    q = rng.normal(size=(b, h, sq, d)).astype(np.float32)
+    k = rng.normal(size=(b, h, skv, d)).astype(np.float32)
+    v = rng.normal(size=(b, h, skv, d)).astype(np.float32)
+    bias = np.zeros((b, skv), np.float32)
+    bias[0, 250:] = -1e9
+    scale = d ** -0.5
+    ref = JA._flash_attention_tpu(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  jnp.asarray(bias), scale, 128, 128)
+    out = TA.flash_attention_bhsd(t(q), t(k), t(v), t(bias), scale)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
+
+
 def test_plain_attention_chunking_matches_whole(monkeypatch):
     """The plain version's q-row chunking (for production sizes) changes values
     only at f32 rounding (the matmul blocking differs with the chunk size)."""

@@ -31,7 +31,7 @@ def test_import_loads_no_jax():
         f"tokensgen_tpu_torch.tools.{m}" for m in ("bench_attn_sweep", "bench_attn_v2",
                                                    "bench_int8_loop", "bench_matmul_hand",
                                                    "bench_exp2", "bench_attn_r3",
-                                                   "bench_cross_r3")}
+                                                   "bench_cross_r3", "bench_cross_pairloop")}
     assert probes <= set(_modules())
     code = (
         "import importlib, sys\n"

@@ -1,8 +1,9 @@
 """The Hopper kernels of tokensgen_tpu_torch (the attention forwards K1-K4,
-their logsumexp outputs, the backward K5 at head dims 16, 32 and 64, the
-int8-score forward K7, the [B, H, S, D] fused-prologue forward K6, and the
-probe kernels T1, T2, T3a, T3b, T4a, T4b, T6, T7 and T8) against their plain PyTorch versions,
-on the card. Every test here is
+K4 also at head dims 16, 32 and 128, their logsumexp outputs, the backward
+K5 at head dims 16, 32, 64 and 128, the int8-score forward K7, the
+[B, H, S, D] fused-prologue forward K6 at the same four, and the probe
+kernels T1, T2, T3a, T3b, T4a, T4b, T5, T6, T7 and T8) against their plain
+PyTorch versions, on the card. Every test here is
 marked ``cuda`` and skips without a card. This file imports no JAX, so it also runs on a machine that
 has none (skipping tests/conftest.py, which does):
 
@@ -101,6 +102,32 @@ LSE_MAX_REL = 2.0 ** -7
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 128])
+def test_bhsd_head_dims_on_card(cuda_device, d):
+    """K4 (`flash_attention_bhsd`) at head dims 16, 32 and 128 vs its plain
+    version on [2, 3, 300, d] x 517 keys bf16 (ragged) with a key-bias mask
+    on one sample, with and without its lse: within REL_L2_BOUND and
+    MAX_ABS_REL (the lse within the lse bounds); each call counted once."""
+    gen = torch.Generator(cuda_device).manual_seed(20 + d)
+    b, h, sq, skv = 2, 3, 300, 517
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=cuda_device).bfloat16()
+               for s in (sq, skv, skv))
+    bias = torch.zeros(b, skv, device=cuda_device)
+    bias[1, : skv // 3] = -1e9
+    scale = d ** -0.5
+    before = TA.flash_attention_bhsd.launches
+    out = TA.flash_attention_bhsd(q, k, v, bias, scale)
+    out_l, lse = TA.flash_attention_bhsd(q, k, v, bias, scale, with_lse=True)
+    ref, ref_lse = TA.attention_plain(q, k, v, bias, scale, with_lse=True)
+    torch.cuda.synchronize()
+    assert TA.flash_attention_bhsd.launches == before + 2
+    assert torch.equal(out, out_l)
+    _assert_within_bounds(out, ref)
+    assert ((lse - ref_lse).norm() / ref_lse.norm()).item() <= LSE_REL_L2_BOUND
+    assert (lse - ref_lse).abs().max().item() <= LSE_MAX_REL * ref_lse.abs().max().item()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", ["fused_attention_joint", "flash_attention_bhsd"])
 def test_lse_matches_plain_on_card(cuda_device, name):
     """K1 and K4 with the logsumexp output (the training forward): the output
@@ -187,7 +214,8 @@ def test_cuda_tensors_never_take_the_plain_path(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,layout", [(64, "contiguous"), (64, "merged_view"), (32, "contiguous"),
-                                      (16, "merged_view")])
+                                      (16, "merged_view"), (128, "contiguous"),
+                                      (128, "merged_view")])
 def test_fused_bhsd_kernel_matches_plain_on_card(cuda_device, d, layout):
     """K6 (`fused_attention_bhsd`) vs its plain version on [B, H, S, d] bf16
     operands (3 heads, ragged lengths, per-sample tables with a text prefix,
@@ -229,10 +257,11 @@ def test_fused_bhsd_kernel_matches_plain_on_card(cuda_device, d, layout):
 
 @pytest.mark.cuda
 def test_fused_bhsd_refuses_what_the_card_lacks(cuda_device):
-    """K6 raises on a head dim it is not built for (128), under autograd as
-    well, and so does K5, instead of falling back."""
-    x = torch.zeros(1, 1, 128, 128, device=cuda_device, dtype=torch.bfloat16)
-    tabs = TA.prologue_identity(128, 128, device=cuda_device)
+    """K6 raises on a head dim it is not built for (96), under autograd as
+    well, and so do K5 and K4, instead of falling back; nothing is counted."""
+    x = torch.zeros(1, 1, 128, 96, device=cuda_device, dtype=torch.bfloat16)
+    tabs = TA.prologue_identity(128, 96, device=cuda_device)
+    TA.reset_launch_counts()
     with pytest.raises(ValueError):
         TA.fused_attention_bhsd(x, x, x, tabs, tabs)
     q = x.clone().requires_grad_()
@@ -241,12 +270,15 @@ def test_fused_bhsd_refuses_what_the_card_lacks(cuda_device):
     lse = torch.zeros(1, 1, 128, device=cuda_device)
     with pytest.raises(ValueError):
         TA.attention_backward(x, x, x, x, lse, lse)
+    with pytest.raises(ValueError):
+        TA.flash_attention_bhsd(x, x, x)
+    assert all(n == 0 for n in TA.launch_counts().values())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("d", [16, 32, 128])
 def test_backward_head_dims_on_card(cuda_device, d):
-    """K5 at head dims 16 and 32 vs attention_bwd_plain on [B, H, S, d] bf16
+    """K5 at head dims 16, 32 and 128 vs attention_bwd_plain on [B, H, S, d] bf16
     (ragged lengths, a key-bias mask): dq, dk, dv, dbias within REL_L2_BOUND
     and MAX_ABS_REL; then a gradient through `fused_flash_attention` on
     [B, H, S, d] (K6 + K5 under autograd) against autograd through the plain
@@ -354,13 +386,14 @@ MAXFREE_TILES = {  # entry point: (the _case shape it takes, its built tiles)
     "attention_pair2": ("fused_attention_joint", "PAIR2_BLOCK_KV"),
     "cross_smallkv_pairinner": ("fused_attention_cross_smallkv", "PAIRINNER_BLOCK_Q"),
     "cross_smallq_splitkv": ("fused_attention_cross_smallq", "SPLITKV_BLOCK_KV"),
+    "cross_smallkv_pairloop": ("fused_attention_cross_smallkv", "PAIRLOOP_BLOCK_Q"),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(MAXFREE_TILES))
 def test_probe_maxfree_kernels_on_card(cuda_device, name):
-    """T3a, T3b, T4a and T4b at every built tile vs their shared max-free
+    """T3a, T3b, T4a, T4b and T5 at every built tile vs their shared max-free
     plain version, within REL_L2_BOUND and MAX_ABS_REL, on the ragged
     shapes of `_case` (joint 300 x 517, cross 2200 x 130 and 130 x 2200 keys:
     T4b's last split of 256 / 384 / 512 keys ragged) with per-sample tables

@@ -200,14 +200,14 @@ def _bhsd_case(rng, d, b=2, h=3, sq=200, skv=150, text=9):
     return q, k, v, w, bias, tabs
 
 
-@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_bhsd_function_grads_match_fused_diff_vjp(d, monkeypatch):
     """`fused_flash_attention` on [B, H, S, d] under autograd (the
     `_FusedBhsdAttention` Function: K6 with lse, K5 on the prologued
     operands; plain versions here) against jax.vjp of the JAX package's
     `_flash_fused_diff` (its Pallas forward in interpret mode, its XLA
-    backward) at head dims 16, 32 and 64: the grads of q, k, v, the key bias
-    and every prologue table. f32: 1e-4 of each grad's largest entry."""
+    backward) at head dims 16, 32, 64 and 128: the grads of q, k, v, the key
+    bias and every prologue table. f32: 1e-4 of each grad's largest entry."""
     import functools
 
     monkeypatch.setattr(JA, "_flash_fused_tpu",
@@ -234,13 +234,13 @@ def test_bhsd_function_grads_match_fused_diff_vjp(d, monkeypatch):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_bwd_plain_matches_jax_vjp_bhsd(d):
     """K5's entry point on [B, H, S, d] CPU tensors (its plain version, from
     the saved lse and dsum) against jax.vjp of the JAX package's XLA
     attention (`_xla_attention`, whose backward `_blocked_attention_bwd` is)
-    with the softmax scale d^-0.5 and a key bias, at head dims 16, 32 and
-    64: dq, dk, dv and dbias. f32: 1e-4 of each grad's largest entry."""
+    with the softmax scale d^-0.5 and a key bias, at head dims 16, 32, 64
+    and 128: dq, dk, dv and dbias. f32: 1e-4 of each grad's largest entry."""
     rng = np.random.default_rng(60 + d)
     q, k, v, g, bias, _ = _bhsd_case(rng, d)
     scale = d ** -0.5

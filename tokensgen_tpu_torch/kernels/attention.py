@@ -30,8 +30,8 @@ both take a `torch.autograd.Function` instead, the counterparts of
 `_flash_packed_diff`, `_flash_fused_diff` and `_flash_attention_tpu_diff`:
 the forward is K1 (for every packed shape, as the JAX custom_vjp forward
 skips the K2/K3 routing), K6 or K4, each with its logsumexp; the backward is
-K5, at the head dims K6 takes (`HEAD_DIMS`). On the CPU both directions
-run the plain versions.
+K5, at the head dims K4 and K6 take (`HEAD_DIMS`). On the CPU both
+directions run the plain versions.
 
 The CUDA C++ sources are `csrc/attention.cu` and the forward body it shares
 with the probes, `csrc/flash_fwd.cuh`; `build_kernels` compiles them with
@@ -40,8 +40,8 @@ nvcc (`kernels/build.py`) into a shared library with a plain C interface
 tensor's device: a CPU tensor takes the plain version (`attention_fused_plain` / `attention_plain`,
 exact softmax, as `_xla_attention_fused` / `_xla_attention`); a CUDA tensor
 launches the kernel or raises — on a failed build, a launch error, a head dim
-the kernel does not take (64; K5, K6: 16, 32, 64) or a dtype other than bf16.
-No path falls back.
+the kernel does not take (64; K4, K5, K6: 16, 32, 64, 128) or a dtype other
+than bf16. No path falls back.
 
 The prologue tables are those of the JAX package: ``(cosg, sin, add, Rg)``
 from :func:`make_prologue`, with ``prologue(x) = LN0(x)∘cosg + (LN0(x)@Rg)∘sin
@@ -61,7 +61,7 @@ from tokensgen_tpu_torch.kernels.build import BUILD_DIR, NVCC_FLAGS  # noqa: F40
 
 _LOG2E = 1.4426950408889634
 _SMALLKV_MAX = 512  # kv rows K2 holds whole in shared memory (csrc SMALLKV_MAX)
-HEAD_DIMS = (16, 32, 64)  # head dims K5 and K6 are built for (K1-K4, K7: 64)
+HEAD_DIMS = (16, 32, 64, 128)  # head dims K4, K5 and K6 are built for (K1-K3, K7: 64)
 MAX_SCORE_BYTES = 1 << 31  # f32 score tensor per q-row chunk of `attention_plain`
 
 
@@ -368,19 +368,21 @@ class _Int8Args(ctypes.Structure):
 
 
 _ENTRY_POINTS = ("tg_attention_joint", "tg_attention_cross_smallkv",
-                 "tg_attention_cross_smallq", "tg_attention_bhsd")
+                 "tg_attention_cross_smallq")
 _BWD_ENTRY_POINT = "tg_attention_bwd"  # takes the head dim after the args
 _INT8_ENTRY_POINT = "tg_attention_joint_int8"
-_K6_ENTRY_POINT = "tg_attention_fused_bhsd"  # takes the head dim after the args
+_K6_ENTRY_POINT = "tg_attention_fused_bhsd"
+_HEAD_DIM_ENTRY_POINTS = ("tg_attention_bhsd", _K6_ENTRY_POINT)  # take the head dim after the args
 
 
 def _bind(lib) -> None:
     for name in _ENTRY_POINTS:
         _build.bind(lib, name, ctypes.POINTER(_Args), ctypes.c_void_p)
+    for name in _HEAD_DIM_ENTRY_POINTS:
+        _build.bind(lib, name, ctypes.POINTER(_Args), ctypes.c_int64, ctypes.c_void_p)
     _build.bind(lib, _BWD_ENTRY_POINT, ctypes.POINTER(_BwdArgs), ctypes.c_int64, ctypes.c_void_p)
     _build.bind(lib, _INT8_ENTRY_POINT, ctypes.POINTER(_QuantArgs), ctypes.POINTER(_QuantArgs),
                 ctypes.POINTER(_Int8Args), ctypes.c_void_p)
-    _build.bind(lib, _K6_ENTRY_POINT, ctypes.POINTER(_Args), ctypes.c_int64, ctypes.c_void_p)
 
 
 _Library = _build.KernelLibrary("attention.cu", _bind)  # the compiled kernels, one per process
@@ -452,12 +454,15 @@ def _bias_ptr(key_bias, b: int, skv: int, keep: list):
 def _launch(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k,
             qscale: float, with_lse: bool = False):
     """Launches a forward kernel; returns ``out`` or, ``with_lse``, (out, lse)
-    with lse the natural-log logsumexp f32 [B, H, Sq]. K6 (4-D operands of
-    any of `HEAD_DIMS`) writes ``out`` in q's memory layout, so the
-    [B, H, S, D] view of a merged tensor gives a merged output."""
+    with lse the natural-log logsumexp f32 [B, H, Sq]. K4 and K6 take 4-D
+    operands of any of `HEAD_DIMS`; K6 writes ``out`` in q's memory layout,
+    so the [B, H, S, D] view of a merged tensor gives a merged output."""
+    takes_d = entry in _HEAD_DIM_ENTRY_POINTS
+    d = q.shape[-1] if takes_d else 64
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{entry}: head dim {d} not in {HEAD_DIMS}")
     lib = _lib()
     k6 = entry == _K6_ENTRY_POINT
-    d = q.shape[-1] if k6 else 64
     a, out, _keep = attn_args(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k,
                               qscale, d, keep_layout=k6)  # _keep: alive through the launch
     lse = None
@@ -466,7 +471,7 @@ def _launch(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, n
         a.lse = lse.data_ptr()
     stream = _build.stream_of(q)
     fn = getattr(lib, entry)
-    _build.check_launch(entry, fn(ctypes.byref(a), d, stream) if k6 else
+    _build.check_launch(entry, fn(ctypes.byref(a), d, stream) if takes_d else
                         fn(ctypes.byref(a), stream))
     return (out, lse) if with_lse else out
 
@@ -646,9 +651,10 @@ def fused_attention_cross_smallq(q, k, v, tabs_q, tabs_k, key_bias=None, heads: 
 
 def flash_attention_bhsd(q, k, v, key_bias=None, scale: Optional[float] = None,
                          with_lse: bool = False):
-    """K4, plain [B, H, S, 64] attention with a folded scale and an optional
+    """K4, plain [B, H, S, D] attention with a folded scale and an optional
     additive key bias (the resampler's Perceiver attention); ``with_lse`` as
-    in `fused_attention_joint`."""
+    in `fused_attention_joint`. The card takes D in `HEAD_DIMS` (another
+    raises ValueError); the plain version any D."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
         return attention_plain(q, k, v, _bias_or_zeros(key_bias, k, None), scale,
@@ -858,7 +864,7 @@ class _FusedBhsdAttention(torch.autograd.Function):
 
 class _BhsdAttention(torch.autograd.Function):
     """`_flash_attention_tpu_diff`: forward K4 with lse, backward K5 on
-    [B, H, S, 64] strides with no prologue."""
+    [B, H, S, D] strides with no prologue (D in `HEAD_DIMS` on the card)."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, scale):
@@ -916,8 +922,10 @@ def fused_flash_attention(q, k, v, tabs_q, tabs_k, key_bias=None, heads: int = N
     `_FusedAttention` (K1 with lse, then K5). Every other call (odd heads,
     other head dims, 4-D operands) runs K6 on the [B, H, S, D] view (merged
     operands are split and the output merged back), or `_FusedBhsdAttention`
-    under autograd; ``int8_scores`` does not apply there, as the JAX
-    package keeps its bf16 fallbacks."""
+    under autograd; ``int8_scores`` does not apply there. The JAX package
+    keeps its bf16 fallbacks there too, except at D = 128 with even heads,
+    which a TPU sends to its packed kernel, int8 scores included: no
+    shipped config has such heads (ROADMAP, deliberate differences)."""
     if q.dim() == 4:
         return _fused_bhsd_route(q, k, v, tabs_q, tabs_k, key_bias, eps, norm_q, norm_k)
     if heads is None or q.dim() != 3:

@@ -1,6 +1,6 @@
 // Flash-attention kernels for the attention calls of the To2V edit, training
 // and generation paths and of the T2To trainer, written for Hopper (sm_90a),
-// head dim 64 (K5, K6: 16, 32 or 64), bf16 operands with f32 softmax and
+// head dim 64 (K4, K5, K6: 16, 32, 64 or 128), bf16 operands with f32 softmax and
 // accumulation on mma.sync m16n8k16 tensor-core tiles (K7: its score product
 // on m16n8k32 int8 tiles). The forward body is flash_fwd.cuh's, shared with
 // the K4-family probes of probes.cu.
@@ -9,7 +9,7 @@
 //   tg_attention_joint          joint_kernel    <- _flash_packed_kernel  (_flash_fused_packed_tpu)
 //   tg_attention_cross_smallkv  smallkv_kernel  <- _cross_smallkv_kernel (_flash_cross_smallkv_tpu)
 //   tg_attention_cross_smallq   smallq_kernel   <- _cross_smallq_kernel  (_flash_cross_smallq_tpu)
-//   tg_attention_bhsd           bhsd_kernel     <- _flash_kernel         (_flash_attention_tpu)
+//   tg_attention_bhsd           bhsd_kernel<HD> <- _flash_kernel         (_flash_attention_tpu)
 //   tg_attention_bwd            bwd_dkdv_kernel<HD> + bwd_dq_kernel<HD>
 //                                               <- _packed_bwd_kernel    (_flash_packed_bwd_tpu)
 //   tg_attention_joint_int8     int8_prologue_kernel + joint_int8_kernel
@@ -62,9 +62,11 @@ __global__ void __launch_bounds__(NTHREADS) smallq_kernel(const TGAttnArgs a) {
   flash_fwd_body<true, true>(a, blockIdx.y);
 }
 
-// K4: plain [B, H, S, 64] attention; qscale = softmax scale * log2 e.
+// K4: plain [B, H, S, HD] attention (HD = 16, 32, 64 or 128, as the JAX
+// kernel takes any head dim); qscale = softmax scale * log2 e.
+template <int HD>
 __global__ void __launch_bounds__(NTHREADS) bhsd_kernel(const TGAttnArgs a) {
-  flash_fwd_body<false, false>(a, blockIdx.y);
+  flash_fwd_body<false, false, HD>(a, blockIdx.y);
 }
 
 // K6: fused-prologue attention on [B, H, S, HD] operands given by strides
@@ -72,7 +74,7 @@ __global__ void __launch_bounds__(NTHREADS) bhsd_kernel(const TGAttnArgs a) {
 // package runs for odd head counts, for 2 * d not a multiple of 128 and for
 // 4-D operands. It computes K1's function per head; the TPU kernel's head
 // blocking (hblk) and lane padding are TPU devices with no use here, so it
-// is K1's body at head dim HD (16, 32 or 64), both prologues in-kernel. A
+// is K1's body at head dim HD (16, 32, 64 or 128), both prologues in-kernel. A
 // merged [B, S, H * HD] tensor arrives as its [B, H, S, HD] view (strides
 // sb, sh = HD, ss = H * HD): no copy. Bound on this card: the two products
 // (bf16 tensor-core rate), as K1; at HD = 16 the k prologue's table reads
@@ -139,11 +141,13 @@ __global__ void __launch_bounds__(NTHREADS) smallkv_kernel(const TGAttnArgs a) {
 // with dsum = rowsum(g * out) per head (computed by the caller) and f32
 // accumulation, the JAX kernel's rounding points. Per head: the TPU's
 // head-pair block-diagonal packing is a lane trick with no use here. The
-// head dim HD is a template parameter (16, 32, 64: K6's forward takes the
-// same three, and the JAX backward any): the smem tiles are [rows][HD + 8],
-// the transposed ones [HD][72], the fragment loops run HD / 16 k-steps and
-// HD / 8 column tiles, and the lse, dsum and bias are per row or key,
-// whatever HD.
+// head dim HD is a template parameter (16, 32, 64, 128: K4's and K6's
+// forwards take the same four, and the JAX backward any): the smem tiles are
+// [rows][HD + 8], the transposed ones [HD][72], the fragment loops run
+// HD / 16 k-steps and HD / 8 column tiles, and the lse, dsum and bias are per
+// row or key, whatever HD. The tiles are dynamic shared memory (above the
+// 49,152 bytes of a static allocation at HD = 128: 53.2 KB for the dq pass,
+// 141.3 KB for the dk/dv pass).
 //
 // Design (FA2's two-pass form, deterministic, no atomics):
 // * bwd_dkdv_kernel: a block owns 128 kv rows of one (b, h) (8 warps x 16
@@ -151,7 +155,12 @@ __global__ void __launch_bounds__(NTHREADS) smallkv_kernel(const TGAttnArgs a) {
 //   tile of 64 rows: s^T = K q^T and dp^T = V g^T, then dv += p^T g and
 //   dk += ds^T q. q and g are staged row-major (for the B fragments of the
 //   first two products) and transposed (for the last two). dbias is written
-//   per (b, h, key); the caller sums it over heads.
+//   per (b, h, key); the caller sums it over heads. At HD = 128 the dk and
+//   dv accumulators alone take 128 registers a thread, and the K and V
+//   fragments 64 more beside the 64 of s and dp: above the 255 a thread may
+//   have. There K and V stay in shared memory (69.6 KB for the block's 128
+//   rows) and each k-step of the two score products loads its two fragments
+//   from there: the same products, 8 registers of fragments instead of 64.
 // * bwd_dq_kernel: a block owns 128 q rows (q and g as A fragments) and
 //   sweeps kv tiles of 64: s = q K^T, dp = g V^T, dq += ds K, with K staged
 //   row-major and transposed.
@@ -166,6 +175,23 @@ constexpr int BWD_BQ = 64;    // q rows per step of its sweep
 constexpr int BWD_BQ2 = BM;   // q rows per dq block
 constexpr int BWD_BKV2 = BN;  // kv rows per step of its sweep
 constexpr int LDT = 64 + 8;   // pitch of the transposed 64-column tiles
+
+// The dk/dv pass keeps K and V in shared memory, not in registers (HD = 128)
+template <int HD>
+__host__ __device__ constexpr bool kv_resident() { return HD > 64; }
+
+// dynamic shared memory of the two passes: the row-major q and g (k and v)
+// tiles, the transposed ones, and the resident K and V rows
+template <int HD>
+constexpr size_t dkdv_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (2 * BWD_BQ * pitch(HD) + 2 * HD * LDT +
+                                  (kv_resident<HD>() ? 2 * BWD_BKV * pitch(HD) : 0));
+}
+
+template <int HD>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (2 * BWD_BKV2 * pitch(HD) + HD * LDT);
+}
 
 }  // namespace
 
@@ -223,17 +249,33 @@ __device__ __forceinline__ void store_rows16(const float (&acc)[HD / 8][4], __nv
   }
 }
 
-// Grid (ceil(Skv / 128), H, B).
+// The A fragment of k-step kk for this warp's 16 rows of a [rows][pitch(HD)] tile.
+template <int HD>
+__device__ __forceinline__ void load_a_frag(uint32_t* x, const __nv_bfloat16* S, int kk) {
+  constexpr int ld = pitch(HD);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const __nv_bfloat16* p = S + (warp * 16 + (lane >> 2)) * ld + kk * 16 + (lane & 3) * 2;
+  x[0] = *reinterpret_cast<const uint32_t*>(p);
+  x[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
+  x[2] = *reinterpret_cast<const uint32_t*>(p + 8);
+  x[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
+}
+
+// Grid (ceil(Skv / 128), H, B); dynamic shared memory dkdv_smem_bytes<HD>().
 template <int HD>
 __global__ void __launch_bounds__(NTHREADS) bwd_dkdv_kernel(const TGAttnBwdArgs a) {
   constexpr int ld = pitch(HD);
-  __shared__ __align__(16) __nv_bfloat16 buf[2 * BWD_BQ * ld + 2 * HD * LDT];
+  constexpr bool RES = kv_resident<HD>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* buf = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __shared__ float lse2_s[BWD_BQ];
   __shared__ float dsum_s[BWD_BQ];
   __nv_bfloat16* Qs = buf;                                   // [64 q][ld]
   __nv_bfloat16* Gs = buf + BWD_BQ * ld;                     // [64 q][ld]
   __nv_bfloat16* Qt = buf + 2 * BWD_BQ * ld;                 // [HD d][LDT]
   __nv_bfloat16* Gt = buf + 2 * BWD_BQ * ld + HD * LDT;      // [HD d][LDT]
+  __nv_bfloat16* Kr = Gt + HD * LDT;                         // RES: [128 kv][ld]
+  __nv_bfloat16* Vr = Kr + BWD_BKV * ld;                     // RES: [128 kv][ld]
   const int kv0 = blockIdx.x * BWD_BKV, h = blockIdx.y, b = blockIdx.z;
   const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -250,15 +292,23 @@ __global__ void __launch_bounds__(NTHREADS) bwd_dkdv_kernel(const TGAttnBwdArgs 
   const Side none{};
 
   // K and V rows of this block -> A fragments, staged through buf (128 rows
-  // of pitch ld: the two row-major q / g tiles' room)
-  uint32_t ka[HD / 16][4], va[HD / 16][4];
-  load_rows<false, HD>(buf, ld, k, a.k_ss, kv0, BWD_BKV, skv, none, b, 1.f, 0.f);
-  __syncthreads();
-  load_q_frags<HD>(ka, buf);
-  __syncthreads();
-  load_rows<false, HD>(buf, ld, v, a.v_ss, kv0, BWD_BKV, skv, none, b, 1.f, 0.f);
-  __syncthreads();
-  load_q_frags<HD>(va, buf);
+  // of pitch ld: the two row-major q / g tiles' room); with RES they stay
+  // in Kr / Vr (visible after the sweep's first barrier) and ka / va hold
+  // one k-step's fragments at a time
+  constexpr int NF = RES ? 1 : HD / 16;
+  uint32_t ka[NF][4], va[NF][4];
+  if constexpr (RES) {
+    load_rows<false, HD>(Kr, ld, k, a.k_ss, kv0, BWD_BKV, skv, none, b, 1.f, 0.f);
+    load_rows<false, HD>(Vr, ld, v, a.v_ss, kv0, BWD_BKV, skv, none, b, 1.f, 0.f);
+  } else {
+    load_rows<false, HD>(buf, ld, k, a.k_ss, kv0, BWD_BKV, skv, none, b, 1.f, 0.f);
+    __syncthreads();
+    load_q_frags<HD>(ka, buf);
+    __syncthreads();
+    load_rows<false, HD>(buf, ld, v, a.v_ss, kv0, BWD_BKV, skv, none, b, 1.f, 0.f);
+    __syncthreads();
+    load_q_frags<HD>(va, buf);
+  }
 
   // this thread's two kv rows: bias in the log2 domain, -inf past Skv
   const int rA = kv0 + warp * 16 + g, rB = rA + 8;
@@ -286,13 +336,18 @@ __global__ void __launch_bounds__(NTHREADS) bwd_dkdv_kernel(const TGAttnBwdArgs 
     zero_tile(dp);
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
+      const int f = RES ? 0 : kk;
+      if constexpr (RES) {
+        load_a_frag<HD>(ka[0], Kr, kk);
+        load_a_frag<HD>(va[0], Vr, kk);
+      }
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         const __nv_bfloat16* qp = Qs + (nt * 8 + g) * ld + kk * 16 + t * 2;
-        mma16816(s[nt], ka[kk], *reinterpret_cast<const uint32_t*>(qp),
+        mma16816(s[nt], ka[f], *reinterpret_cast<const uint32_t*>(qp),
                  *reinterpret_cast<const uint32_t*>(qp + 8));
         const __nv_bfloat16* gp = Gs + (nt * 8 + g) * ld + kk * 16 + t * 2;
-        mma16816(dp[nt], va[kk], *reinterpret_cast<const uint32_t*>(gp),
+        mma16816(dp[nt], va[f], *reinterpret_cast<const uint32_t*>(gp),
                  *reinterpret_cast<const uint32_t*>(gp + 8));
       }
     }
@@ -347,11 +402,12 @@ __global__ void __launch_bounds__(NTHREADS) bwd_dkdv_kernel(const TGAttnBwdArgs 
   }
 }
 
-// Grid (ceil(Sq / 128), H, B).
+// Grid (ceil(Sq / 128), H, B); dynamic shared memory dq_smem_bytes<HD>().
 template <int HD>
 __global__ void __launch_bounds__(NTHREADS) bwd_dq_kernel(const TGAttnBwdArgs a) {
   constexpr int ld = pitch(HD);
-  __shared__ __align__(16) __nv_bfloat16 buf[2 * BWD_BKV2 * ld + HD * LDT];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* buf = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __shared__ float bias2_s[BWD_BKV2];
   __nv_bfloat16* Ks = buf;                       // [64 kv][ld]
   __nv_bfloat16* Vs = buf + BWD_BKV2 * ld;       // [64 kv][ld]
@@ -674,14 +730,21 @@ int launch_flash(void (*kernel)(TGAttnArgs), const TGAttnArgs* a, cudaStream_t s
 template <int HD>
 int launch_bwd(const TGAttnBwdArgs* a, cudaStream_t s) {
   if (a->sq <= 0 || a->skv <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem_kv = dkdv_smem_bytes<HD>(), smem_q = dq_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_kv));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_q));
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_kv(static_cast<unsigned>((a->skv + BWD_BKV - 1) / BWD_BKV),
                      static_cast<unsigned>(a->h), static_cast<unsigned>(a->b));
-  bwd_dkdv_kernel<HD><<<grid_kv, NTHREADS, 0, s>>>(*a);
-  const cudaError_t err = cudaGetLastError();
+  bwd_dkdv_kernel<HD><<<grid_kv, NTHREADS, smem_kv, s>>>(*a);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_q(static_cast<unsigned>((a->sq + BWD_BQ2 - 1) / BWD_BQ2),
                     static_cast<unsigned>(a->h), static_cast<unsigned>(a->b));
-  bwd_dq_kernel<HD><<<grid_q, NTHREADS, 0, s>>>(*a);
+  bwd_dq_kernel<HD><<<grid_q, NTHREADS, smem_q, s>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -697,17 +760,26 @@ int tg_attention_cross_smallq(const TGAttnArgs* a, void* stream) {
   return launch_flash(smallq_kernel, a, static_cast<cudaStream_t>(stream));
 }
 
-int tg_attention_bhsd(const TGAttnArgs* a, void* stream) {
-  return launch_flash(bhsd_kernel, a, static_cast<cudaStream_t>(stream));
+// K4: plain [B, H, S, head_dim] attention, head_dim 16, 32, 64 or 128.
+int tg_attention_bhsd(const TGAttnArgs* a, long long head_dim, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16: return launch_flash(bhsd_kernel<16>, a, s);
+    case 32: return launch_flash(bhsd_kernel<32>, a, s);
+    case 64: return launch_flash(bhsd_kernel<64>, a, s);
+    case 128: return launch_flash(bhsd_kernel<128>, a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// K6: fused-prologue [B, H, S, head_dim] attention, head_dim 16, 32 or 64.
+// K6: fused-prologue [B, H, S, head_dim] attention, head_dim 16, 32, 64 or 128.
 int tg_attention_fused_bhsd(const TGAttnArgs* a, long long head_dim, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 16: return launch_flash(fused_bhsd_kernel<16>, a, s);
     case 32: return launch_flash(fused_bhsd_kernel<32>, a, s);
     case 64: return launch_flash(fused_bhsd_kernel<64>, a, s);
+    case 128: return launch_flash(fused_bhsd_kernel<128>, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -727,13 +799,14 @@ int tg_attention_cross_smallkv(const TGAttnArgs* a, void* stream) {
 }
 
 // K5: attention backward, dk/dv (and dbias) pass then dq pass; head_dim 16,
-// 32 or 64.
+// 32, 64 or 128.
 int tg_attention_bwd(const TGAttnBwdArgs* a, long long head_dim, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 16: return launch_bwd<16>(a, s);
     case 32: return launch_bwd<32>(a, s);
     case 64: return launch_bwd<64>(a, s);
+    case 128: return launch_bwd<128>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -2,7 +2,7 @@
 // (attention.cu: K1, K3, K4, K6, and K2's / K7's tile pieces) and the K4-family
 // probes (probes.cu: T1, T2): bf16 operands, mma.sync m16n8k16 tensor-core
 // tiles, f32 online softmax in the log2 domain, optional fused qk-norm + RoPE
-// prologue. Templated on the head dim HD (16, 32, 64), the q rows per block
+// prologue. Templated on the head dim HD (16, 32, 64, 128), the q rows per block
 // BM_ (16 per warp), the kv tile BN_ and where the key bias and the ragged
 // mask apply (every kv tile, or only the last). The attention kernels use the
 // defaults (BM = 128, BN = 64, every tile); the probes sweep the rest.
@@ -20,7 +20,7 @@
 
 namespace {
 
-constexpr int D = 64;               // head dim (K5, K6: HD = 16, 32 or 64)
+constexpr int D = 64;               // head dim (K4, K5, K6: HD = 16, 32, 64 or 128)
 constexpr int BM = 128;             // q rows per block: 8 warps x 16 rows
 constexpr int BN = 64;              // kv rows per tile
 constexpr int NTHREADS = (BM / 16) * 32;
@@ -380,15 +380,29 @@ __device__ __forceinline__ Side side_k(const TGAttnArgs& a) {
 // tile of BN_ keys. PRO_Q / PRO_K select the fused prologues; HD is the head
 // dim; MASK where the bias and the ragged mask apply. The body is shared;
 // each TPU kernel gets its own __global__, so a trace names them apart.
+//
+// The q tile is dead once its rows sit in registers as A fragments, so the
+// k and v^T tiles take its shared memory: the block holds the larger of the
+// two, not their sum. At HD = 128 that is 35.8 KB of static shared memory
+// (the q tile 34.8 KB, the k and v^T tiles 35.8 KB) where the three side by
+// side would need 70.7 KB, above the 49,152 bytes a static allocation may
+// hold.
+template <int HD, int BM_, int BN_>
+__host__ __device__ constexpr int fwd_smem_elems() {
+  return BM_ * pitch(HD) > BN_ * pitch(HD) + HD * (BN_ + 8) ? BM_ * pitch(HD)
+                                                            : BN_ * pitch(HD) + HD * (BN_ + 8);
+}
+
 template <bool PRO_Q, bool PRO_K, int HD = D, int BM_ = BM, int BN_ = BN,
           int MASK = MASK_EVERY_TILE>
 __device__ __forceinline__ void flash_fwd_body(const TGAttnArgs& a, int h) {
   constexpr int ld = pitch(HD);
   constexpr int NT = (BM_ / 16) * 32;
   constexpr int ldv = BN_ + 8;
-  __shared__ __align__(16) __nv_bfloat16 Qs[BM_ * ld];
-  __shared__ __align__(16) __nv_bfloat16 Ks[BN_ * ld];
-  __shared__ __align__(16) __nv_bfloat16 Vt[HD * ldv];
+  __shared__ __align__(16) __nv_bfloat16 smem[fwd_smem_elems<HD, BM_, BN_>()];
+  __nv_bfloat16* Qs = smem;             // [BM_ q rows][ld], until the fragments are loaded
+  __nv_bfloat16* Ks = smem;             // [BN_ kv rows][ld]
+  __nv_bfloat16* Vt = smem + BN_ * ld;  // [HD][ldv]
   const int q0 = blockIdx.x * BM_, b = blockIdx.z;
   const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
   const float eps = static_cast<float>(a.eps);
@@ -408,7 +422,7 @@ __device__ __forceinline__ void flash_fwd_body(const TGAttnArgs& a, int h) {
   AccT<HD> acc;
   init_acc(acc);
   for (int kv0 = 0; kv0 < skv; kv0 += BN_) {
-    __syncthreads();  // previous tile consumed by every warp
+    __syncthreads();  // q fragments read (first tile); previous tile consumed by every warp
     load_rows<PRO_K, HD, NT>(Ks, ld, k, a.k_ss, kv0, BN_, skv, pk, b, 1.f, eps);
     load_vt<HD, NT>(Vt, ldv, v, a.v_ss, kv0, BN_, skv);
     __syncthreads();

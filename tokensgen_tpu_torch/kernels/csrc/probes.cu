@@ -15,6 +15,11 @@
 //   tg_probe_exp2_loop   exp2_loop_kernel<OP>
 //        <- tools/bench_vpu_exp2.py `make_kernel` (register-resident
 //           elementwise passes: mul, exp2, exp2 with an add)                  T8
+//   tg_probe_attn_splitpv, tg_probe_attn_pair2, tg_probe_cross_pairinner,
+//   tg_probe_cross_splitkv, tg_probe_cross_pairloop
+//        <- the max-free attention probes of tools/bench_attn_r3.py,
+//           tools/bench_cross_r3.py and tools/bench_cross_pairloop.py
+//           (below)                                                  T3a-T4b, T5
 //
 // Each computes the JAX function, not the TPU's blocking; all are simple
 // first versions (synchronous loads, mma.sync), right before fast.
@@ -30,8 +35,8 @@
 // block carries nothing between heads, so on this card HB only changes the
 // grid). The TPU's 512-4096 blocks do not fit an SM and are not copied; the
 // sweep is BM_ in {64, 128} x BN_ in {32, 64, 128} x HB in {1, 2}, less
-// (128, 128): its 53 KB of q, k and v^T tiles exceed the 48 KB a static
-// shared allocation may hold. (128, 64, every tile) is K4's own code.
+// (128, 128) and (64, 32, 2) (its registers spill). (128, 64, every tile)
+// is K4's own code.
 // Bound: the two products at the bf16 tensor-core rate.
 // ---------------------------------------------------------------------------
 
@@ -477,7 +482,8 @@ __global__ void __launch_bounds__(256) exp2_loop_kernel(const float* x, float* o
 
 // ---------------------------------------------------------------------------
 // T3a, T3b, T4a, T4b: the round-3 attention probes of tools/bench_attn_r3.py
-// and tools/bench_cross_r3.py. Each computes K1's, K2's or K3's function
+// and tools/bench_cross_r3.py, and T5, tools/bench_cross_pairloop.py's
+// pair-loop smallkv. Each computes K1's, K2's or K3's function
 // with the TPU kernels' max-free softmax: no running max. The scores (log2
 // domain: log2 e folded into q's prologue as qscale) are shifted by a static
 // C that the wrapper computes from the prologue tables (probes.score_shift:
@@ -525,6 +531,18 @@ __global__ void __launch_bounds__(256) exp2_loop_kernel(const float* x, float* o
 //   workspace, which combine_kernel sums: sum(acc) / max(sum(l), FLT_MIN),
 //   with nothing to rescale since there is no running max (the TPU kernel
 //   carries the same sums across its kv sweep).
+// * T5 pairloop_kernel (<- _smallkv_pairloop_kernel): T4a's function and
+//   body with the head loop moved into the block: grid (q blocks, B), no
+//   head axis, so a block owns a contiguous [qchunk, H * 64] row block of q
+//   and of out and sweeps the heads in order (the TPU kernel's in-kernel
+//   loop over the 24 head pairs, one head at a time here). The TPU keeps K
+//   and V of every head resident in VMEM; all 48 heads' (5.9 MB at 480
+//   keys) do not fit in an SM, nor does one head pair's (295 KB), so each
+//   head's K and V come whole into shared memory from L2 (which holds all
+//   of them) once per block: per q row the staging is 5.9 MB / qchunk, and
+//   small q blocks buy blocks to fill the card with it. The full-width row
+//   block (6 MB at 1,024 rows) does not fit either: each head reads and
+//   writes its 128-byte segment of every row, a whole cache line.
 // Bound: the two products at the bf16 tensor-core rate.
 // ---------------------------------------------------------------------------
 
@@ -844,6 +862,18 @@ __global__ void __launch_bounds__(NTHREADS) pairinner_kernel(const TGAttnArgs a,
                               static_cast<int>(a.skv), shift, nullptr, nullptr);
 }
 
+// T5. Grid (ceil(Sq / qchunk), B); K already prologued, Skv <= RES_MAX.
+__global__ void __launch_bounds__(NTHREADS) pairloop_kernel(const TGAttnArgs a, int qchunk,
+                                                            float shift) {
+  const int qbeg = blockIdx.x * qchunk;
+  const int qend = min(static_cast<int>(a.sq), qbeg + qchunk);
+  for (int h = 0; h < a.h; ++h) {
+    if (h > 0) __syncthreads();  // the previous head's K / V consumed by every warp
+    resident_body<false, false>(a, h, blockIdx.y, qbeg, qend, 0, static_cast<int>(a.skv), shift,
+                                nullptr, nullptr);
+  }
+}
+
 // T4b workspace (f32): acc [B][H][splits][Sq][64], then l [B][H][splits][Sq].
 __device__ __forceinline__ long long split_part(const TGAttnArgs& a, int b, int h, int s,
                                                 int splits) {
@@ -922,8 +952,7 @@ int allow_resident(Kernel kernel, int n, size_t* smem) {
 extern "C" {
 
 // T1: block_q (64 | 128) x block_kv (32 | 64 | 128) x heads per block (1 | 2),
-// not (128, 128) (its tiles exceed 48 KB of static shared memory) nor
-// (64, 32, 2) (its registers spill).
+// not (128, 128) nor (64, 32, 2).
 int tg_probe_attn_sweep(const TGAttnArgs* a, long long bm, long long bn, long long hb,
                         void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1033,6 +1062,23 @@ int tg_probe_cross_pairinner(const TGAttnArgs* a, long long qchunk, long long un
   const dim3 grid(static_cast<unsigned>(a->h), static_cast<unsigned>((a->sq + qchunk - 1) / qchunk),
                   static_cast<unsigned>(a->b));
   pairinner_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      *a, static_cast<int>(qchunk), shift);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// T5: q rows per block a multiple of 128; Skv <= 512; k already prologued.
+int tg_probe_cross_pairloop(const TGAttnArgs* a, long long qchunk, long long unused, float shift,
+                            float* ws, void* stream) {
+  (void)unused;
+  (void)ws;
+  if (a->sq <= 0 || a->skv <= 0 || a->skv > RES_MAX || qchunk <= 0 || qchunk % BM)
+    return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem;
+  const int err = allow_resident(pairloop_kernel, static_cast<int>(a->skv), &smem);
+  if (err != 0) return err;
+  const dim3 grid(static_cast<unsigned>((a->sq + qchunk - 1) / qchunk),
+                  static_cast<unsigned>(a->b));
+  pairloop_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       *a, static_cast<int>(qchunk), shift);
   return static_cast<int>(cudaGetLastError());
 }

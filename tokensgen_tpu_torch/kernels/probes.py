@@ -6,7 +6,7 @@ kernel's tile sweep, last-tile-only masking, the int8 against the bf16 rate
 inside a flash loop, a hand GEMM against the compiler's, the exp2 throughput,
 and structural variants of the attention kernels K1-K3 with a max-free
 softmax. Here they measure the card's, as inputs to making the attention
-kernels fast. Nine entry points, one per TPU kernel, each with a launch
+kernels fast. Ten entry points, one per TPU kernel, each with a launch
 counter (``fn.launches``):
 
 =======================  ==========================================================  ====
@@ -18,12 +18,13 @@ attention_splitpv        `bench_attn_r3.py` `_packed_kernel_splitpv` :62        
 attention_pair2          `bench_attn_r3.py` `_packed_kernel_pair2` :231               T3b
 cross_smallkv_pairinner  `bench_cross_r3.py` `_smallkv_kernel` :84                    T4a
 cross_smallq_splitkv     `bench_cross_r3.py` `_smallq_kernel` :200                    T4b
+cross_smallkv_pairloop   `bench_cross_pairloop.py` `_smallkv_pairloop_kernel` :33     T5
 flash_loop               `bench_pallas_int8.py` `_flash_like_kernel` :29              T6
 matmul_hand              `bench_matmul_pallas.py` `_mm_kernel` :27                    T7
 exp2_loop                `bench_vpu_exp2.py` `make_kernel` :30                        T8
 =======================  ==========================================================  ====
 
-T3a-T4b share their plain version, `attention_maxfree_plain`, and the score
+T3a-T5 share their plain version, `attention_maxfree_plain`, and the score
 shift C of their softmax, `score_shift` (no running max: exp2(min(s - C, 0))).
 Each computes the JAX function; the tiles are the card's (`SWEEP_CONFIGS`,
 `V2_CONFIGS`, ...), not the TPU's. A CPU tensor takes the plain version beside the
@@ -43,8 +44,7 @@ from tokensgen_tpu_torch.kernels import attention as A
 from tokensgen_tpu_torch.kernels import build as _build
 
 # T1: (block_q, block_kv, heads per block) built in csrc/probes.cu; not
-# (128, 128), whose tiles exceed the 48 KB of static shared memory, nor
-# (64, 32, 2), whose registers spill (36 bytes)
+# (128, 128), nor (64, 32, 2), whose registers spill (36 bytes)
 SWEEP_CONFIGS = tuple((bm, bn, hb) for hb in (1, 2) for bm in (64, 128) for bn in (32, 64, 128)
                       if (bm, bn) != (128, 128) and (bm, bn, hb) != (64, 32, 2))
 V2_CONFIGS = ((64, 64), (128, 64), (64, 128))  # T2: (block_q, block_kv)
@@ -53,12 +53,16 @@ FLASH_LOOP_D = 128  # T6: the head dim the kernel is built for
 FLASH_LOOP_TILE = 64  # T6: keys per streamed tile (csrc FL_TN)
 MATMUL_BK = 32  # T7: the kernel's k tile (csrc MM_BK)
 EXP2_OPS = ("mul", "exp2", "exp2_add")  # T8
-SHIFT_CAP = 120.0  # T3a-T4b: the cap of the score shift C (log2 units), as the scripts'
+SHIFT_CAP = 120.0  # T3a-T5: the cap of the score shift C (log2 units), as the scripts'
 SPLITPV_CONFIGS = ((128, 64), (128, 32), (64, 64))  # T3a: (q rows per head, keys per tile)
 PAIR2_BLOCK_KV = (64, 32)  # T3b: keys per tile (64 q rows per head)
 PAIRINNER_BLOCK_Q = (512, 1024, 2048)  # T4a: q rows per block
 SPLITKV_BLOCK_KV = (256, 384, 512)  # T4b: keys per split
-RESIDENT_MAX = 512  # T4a / T4b: keys held whole in shared memory (csrc RES_MAX)
+# T5: q rows per block: the script's 1,024 and 2,048 (its 4,096 gives 5
+# blocks at B = 1), and 128 / 256 / 512, which give 139 / 70 / 35 blocks at
+# the script's 17,776 rows for the card's 132 SMs
+PAIRLOOP_BLOCK_Q = (128, 256, 512, 1024, 2048)
+RESIDENT_MAX = 512  # T4a / T4b / T5: keys held whole in shared memory (csrc RES_MAX)
 
 
 # ---------------------------------------------------------------------------
@@ -147,10 +151,11 @@ def exp2_loop_plain(x, n_iter: int, op: str):
 
 
 def score_shift(tabs_q, tabs_k, key_bias=None) -> torch.Tensor:
-    """The static score shift C of the max-free probes (T3a-T4b), f32 0-dim:
+    """The static score shift C of the max-free probes (T3a-T5), f32 0-dim:
     C = min(B_q B_k + max(max(key_bias log2 e), 0), `SHIFT_CAP`), as their
     wrappers compute it (`run_splitpv`, tools/bench_attn_r3.py:162-169;
-    `run_smallkv`, tools/bench_cross_r3.py:136-142). B is the JAX package's
+    `run_smallkv`, tools/bench_cross_r3.py:136-142;
+    `cross_smallkv_pairloop`, tools/bench_cross_pairloop.py:98-102). B is the JAX package's
     `_tabs_score_bound` (tokensgen_tpu/kernels/attention.py:563), a bound on
     the L2 norm of any prologued row, taken as there on the head-pair packed
     tables (`_pack_tabs` :749: the tables doubled to 2D wide, Rg
@@ -176,7 +181,7 @@ def score_shift(tabs_q, tabs_k, key_bias=None) -> torch.Tensor:
 
 def attention_maxfree_plain(q, k, v, key_bias, tabs_q, tabs_k, heads: int, shift,
                             eps: float = 1e-6, k_prologued: bool = False):
-    """The plain version of the four max-free probes (T3a, T3b, T4a, T4b), on
+    """The plain version of the five max-free probes (T3a, T3b, T4a, T4b, T5), on
     merged [B, S, H*64] operands: qn = bf16(prologue(q)) with log2 e folded
     into q's tables, kn = bf16(prologue(k)) (``k_prologued``: ``k`` is kn
     already, as T4a's wrapper makes it), s = qn kn^T + key_bias log2 e -
@@ -233,7 +238,8 @@ def _bind(lib) -> None:
 
 
 _MAXFREE_ENTRY_POINTS = ("tg_probe_attn_splitpv", "tg_probe_attn_pair2",
-                         "tg_probe_cross_pairinner", "tg_probe_cross_splitkv")
+                         "tg_probe_cross_pairinner", "tg_probe_cross_splitkv",
+                         "tg_probe_cross_pairloop")
 
 
 _Library = _build.KernelLibrary("probes.cu", _bind)
@@ -257,7 +263,7 @@ def _launch_attn(entry: str, q, k, v, key_bias, p0: int, p1: int, p2: int):
 
 def _launch_maxfree(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads: int, eps: float,
                     shift, p0: int, p1: int = 0, splits: int = 0):
-    """Launches one of T3a-T4b on merged [B, S, H*64] bf16 operands (k
+    """Launches one of T3a-T5 on merged [B, S, H*64] bf16 operands (k
     prologued in the kernel when ``tabs_k`` is given) with the score shift
     as its own float; T4b (``splits`` > 0) also gets its f32 workspace of
     per-split partial sums and row sums."""
@@ -443,6 +449,31 @@ def cross_smallkv_pairinner(q, k, v, key_bias, tabs_q, tabs_k, heads: int,
     return out
 
 
+def cross_smallkv_pairloop(q, k, v, key_bias, tabs_q, tabs_k, heads: int,
+                           block_q: int = 1024, eps: float = 1e-6, shift=None):
+    """T5, `cross_smallkv_pairinner`'s function (the JAX script's
+    `cross_smallkv_pairloop`) with no head axis in the grid: a block owns
+    ``block_q`` q rows (`PAIRLOOP_BLOCK_Q`) at their full width H*64, q's
+    and the output's contiguous row block, and loops over the heads inside,
+    staging each head's prologued K and V whole in shared memory (all heads'
+    K and V, which the TPU kernel keeps resident, do not fit an SM). k's
+    prologue runs here in plain torch with the unpacked tables, as the
+    script's wrapper runs it in XLA; Skv <= `RESIDENT_MAX`."""
+    shift = score_shift(tabs_q, tabs_k, key_bias) if shift is None else shift
+    kn = A.merge_heads(A.apply_prologue_plain(A.split_heads(k, heads), tabs_k, eps, True))
+    if q.device.type == "cpu":
+        return attention_maxfree_plain(q, kn, v, key_bias, tabs_q, tabs_k, heads, shift, eps,
+                                       k_prologued=True)
+    A._require_cuda(k, v, key_bias)
+    if block_q not in PAIRLOOP_BLOCK_Q or k.shape[1] > RESIDENT_MAX:
+        raise ValueError(f"cross_smallkv_pairloop: Skv <= {RESIDENT_MAX} and block_q in "
+                         f"{PAIRLOOP_BLOCK_Q}, got Skv {k.shape[1]}, block_q={block_q}")
+    out = _launch_maxfree("tg_probe_cross_pairloop", q, kn, v, key_bias, tabs_q, None, heads,
+                          eps, shift, block_q)
+    cross_smallkv_pairloop.launches += 1
+    return out
+
+
 def cross_smallq_splitkv(q, k, v, key_bias, tabs_q, tabs_k, heads: int, block_kv: int = 512,
                          eps: float = 1e-6, shift=None):
     """T4b, K3's function max-free (`run_smallq`): short q against a long kv,
@@ -468,7 +499,7 @@ def cross_smallq_splitkv(q, k, v, key_bias, tabs_q, tabs_k, heads: int, block_kv
 
 PROBE_ENTRY_POINTS = (attention_sweep, attention_v2, flash_loop, matmul_hand, exp2_loop,
                       attention_splitpv, attention_pair2, cross_smallkv_pairinner,
-                      cross_smallq_splitkv)
+                      cross_smallq_splitkv, cross_smallkv_pairloop)
 
 
 def reset_launch_counts():

@@ -5,6 +5,7 @@ from __future__ import annotations
 import argparse
 import statistics
 import time
+from typing import Optional
 
 import torch
 
@@ -62,17 +63,21 @@ def parse_grid(text: str):
     return tuple(int(n) for n in text.split("x"))
 
 
-def max_free_case(label: str, fn, ref, shipped, flops: float, dev, runs: int, **meta) -> dict:
+def max_free_case(label: str, fn, ref, shipped, flops: float, dev, runs: int,
+                  shipped_ms: Optional[float] = None, **meta) -> dict:
     """One case of the max-free probe CLIs: ``fn``'s output against the plain
     version ``ref`` and the shipped kernel's output ``shipped``, its median
-    time and rate; printed as one line and returned as a dict."""
+    time and rate (and, given the shipped kernel's time ``shipped_ms``, the
+    speedup over it); printed as one line and returned as a dict."""
     out = fn()
     rel, err = agreement(out, ref)
     srel, serr = agreement(out, shipped)
     del out
     ms = time_ms(fn, dev, runs)
+    speedup = "" if shipped_ms is None else f" speedup {shipped_ms / ms:.2f}x"
     print(f"{label:34s} {ms:9.3f} ms {flops / ms / 1e9:7.1f} TFLOP/s rel_l2_err {rel:.2e} "
-          f"max_abs_err {err:.2e} | vs shipped rel_l2_err {srel:.2e} max_abs_err {serr:.2e}",
-          flush=True)
+          f"max_abs_err {err:.2e} | vs shipped{speedup} rel_l2_err {srel:.2e} max_abs_err "
+          f"{serr:.2e}", flush=True)
+    extra = {} if shipped_ms is None else {"speedup": shipped_ms / ms}
     return dict(case=label, ms=ms, tflops=flops / ms / 1e9, rel_l2_err=rel, max_abs_err=err,
-                shipped_rel_l2_err=srel, shipped_max_abs_err=serr, **meta)
+                shipped_rel_l2_err=srel, shipped_max_abs_err=serr, **extra, **meta)

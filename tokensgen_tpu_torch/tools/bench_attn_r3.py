@@ -40,11 +40,12 @@ D = 64
 
 
 def make_inputs(dev, heads: int = 48, text: int = 226, grid=(13, 30, 45), vip_grid=(5, 8, 12),
-                seed: int = 0) -> dict:
+                seed: int = 0, batch: int = 1) -> dict:
     """The round-3 scripts' tensors and tables: q, k, v over [text || video],
     the vip k / v (kv, vv) and q (qv), the keys of [joint || vip] (kcat,
-    vcat); joint tables tq / tk, vip-side tables tq_tv (joint q), tk_vip,
-    tq_vip and tk_all (every key of [joint || vip])."""
+    vcat), each with ``batch`` rows; joint tables tq / tk, vip-side tables
+    tq_tv (joint q), tk_vip, tq_vip and tk_all (every key of [joint || vip]),
+    shared by the rows."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     s = text + int(np.prod(grid))
     s_vip = int(np.prod(vip_grid))
@@ -52,10 +53,10 @@ def make_inputs(dev, heads: int = 48, text: int = 226, grid=(13, 30, 45), vip_gr
     def randn(*shape, std=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * std
 
-    q, k, v = (randn(1, s, heads * D).bfloat16() for _ in range(3))
+    q, k, v = (randn(batch, s, heads * D).bfloat16() for _ in range(3))
     g = randn(D).abs() + 0.5
     bs = randn(D, std=0.1)
-    kv, vv, qv = (randn(1, s_vip, heads * D).bfloat16() for _ in range(3))
+    kv, vv, qv = (randn(batch, s_vip, heads * D).bfloat16() for _ in range(3))
 
     def rope(shape, t_offset=0.0):
         return get_3d_rotary_pos_embed_v2(

@@ -49,14 +49,14 @@ def model_configs(cfg, smoke: bool, device: torch.device):
     if smoke or cfg.get("model_size") == "tiny":
         # the JAX smoke geometry; on a card in bf16, which is what the
         # attention kernels take: the DiT's 2 heads of 16 run K6 / K5, the
-        # resampler's heads are 64 wide there (K4 takes head dim 64)
+        # resampler's 2 heads of 16 K4 / K5
         card = dict(dtype=torch.bfloat16) if device.type == "cuda" else {}
         vc = VIPConfig(output_dim=24, num_temporal_queries=2, num_height_queries=2,
                        num_width_queries=3, length=3 * 2 * 3)
         dcfg = DiTConfig.tiny(vip=vc, sample_height=4, sample_width=6, **card)
         rcfg = ResamplerConfig.tiny(embedding_dim=dcfg.inner_dim, output_dim=24,
                                     num_temporal_queries=2, num_height_queries=2,
-                                    num_width_queries=3, **(dict(card, dim_head=64) if card else {}))
+                                    num_width_queries=3, **card)
         return dcfg, rcfg, VAEConfig.tiny(sample_height=32, sample_width=48), 32, 48, 9
     vp = cfg.get("video_ipadapter_params", {})
     rp = vp.get("resampler_params", {})
