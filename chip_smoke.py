@@ -14,7 +14,10 @@ Phases, each printing its own lines:
           path's and K6 (fused prologue on [B, H, S, D]) at the T2To
           trainer's, against their plain PyTorch versions: error, planted
           fault, kernel / plain / library times (CUDA events) and bound; the
-          lse outputs of K1, K4 and K6; K7 against bf16 K1; K1 at the T2To
+          lse outputs of K1, K4 and K6; K3 and K4 (split-KV) at forced
+          split counts 1, 2 and 5 beside their plan's, with a second planted
+          fault (the last split left out of the combine); K7 against bf16
+          K1; K1 at the T2To
           shape; K4 at head dims 16, 32 and 128 at its row's width; K6 as a
           strided view of merged operands and at head dims 16 and 32; K1
           and K5 at the T2To trainer's shape with its padded-chunk key bias;
@@ -67,6 +70,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -87,7 +91,7 @@ PHASES = ("env", "build", "kernels", "probes", "dit", "edit", "gen", "train", "t
 # planted fault fails the bounds.
 REL_L2_BOUND = 1e-2
 MAX_ABS_REL = 2.0 ** -5  # 4-8 bf16 ulps at the output's largest magnitude
-KV_TILE = 64  # the kernels' kv tile (csrc BN)
+KV_TILE = 64  # kv tile of K1, K2, K5-K7 (csrc BN); the planted fault drops the keys past it
 
 KERNELS = {
     # entry point: (TPU kernel it replaces)
@@ -698,6 +702,81 @@ def _bwd_fns(c):
     return kernel, plain, (lambda: plain(skv - skv % KV_TILE)), library, work
 
 
+# split counts of K3 and K4 (the split-KV forward) checked besides their plan's
+SPLIT_COUNTS = (1, 2, 5)
+
+
+def _splitkv_checks(dev, cases, state) -> None:
+    """K3 and K4 at their production shapes at the split counts
+    `SPLIT_COUNTS` and their plan's (the kernels line's row is the plan's):
+    each held to its plain version, timed, and its device time broken down
+    per kernel; at more than one split with a second planted fault, the
+    combine (`combine_plain` of the plain split partials) without the last
+    split's partial; K4's lse at each count."""
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name in ("fused_attention_cross_smallq", "flash_attention_bhsd"):
+        c = cases[name]
+        q4, k4, v4, scale = _heads_view(name, c)
+        (b, h, sq, d), skv = q4.shape, k4.shape[2]
+        zeros = torch.zeros(b, skv, device=dev)
+        merge = (lambda x: x) if name == "flash_attention_bhsd" else A.merge_heads
+        plan = A.kv_split_plan(b, h, sq, skv, d, sms)
+        log(f"[kernels] {name} {tuple(q4.shape)} x {skv:,}: planned splits (count, keys) "
+            f"{plan} on {sms} SMs")
+        for n in sorted({*SPLIT_COUNTS, plan[0]}):
+            splits, split_len = A.kv_split_plan(b, h, sq, skv, d, sms, n)
+            if name == "flash_attention_bhsd":
+                def kernel(lse=False):
+                    return A._launch_bhsd(c["q"], c["k"], c["v"], None, scale, lse, splits=n)
+            else:
+                def kernel():
+                    return A._launch_smallq(c["q"], c["k"], c["v"], None, c["tabs_q"], c["tabs_k"],
+                                            c["heads"], 1e-6, True, True, splits=n)
+
+            def without_last_split():
+                acc, m, l = A.splitkv_partials_plain(q4, k4, v4, zeros, scale, split_len)
+                return merge(A.combine_plain(acc[:-1], m[:-1], l[:-1])[0])
+
+            label = f"{name}[splits={splits} of {split_len:,} keys]"
+            _compare(label, kernel, lambda: run_plain(name, c), state,
+                     work=forward_work(name, c),
+                     fault_fn=without_last_split if splits > 1 else None,
+                     fault="the last split's partial left out of the combine")
+            _kernel_breakdown(label, kernel)
+            if name == "flash_attention_bhsd":
+                out, lse = kernel(True)
+                ref_lse = A.attention_plain(q4, k4, v4, zeros, scale, with_lse=True)[1]
+                if not torch.equal(out, kernel()):
+                    raise RuntimeError(f"{name}: the output with lse differs from the one without")
+                _check_lse(f"{name}[splits={splits}]", lse, ref_lse)
+        torch.cuda.empty_cache()
+
+
+def _kernel_breakdown(label, fn, calls=5) -> None:
+    """Device time per CUDA kernel of one call of ``fn`` (the mean over
+    ``calls`` traced calls, torch.profiler), logged."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", 0) or getattr(evt, "self_cuda_time_total", 0)
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.search(r"(\w+)(<[^()]*>)?\(", evt.key.replace("(anonymous namespace)", ""))
+            parts.append(f"{name.group(1) if name else evt.key[:40]} {us / calls / 1e3:.4f} ms")
+    log(f"[kernels] {label} per kernel: " + "; ".join(parts))
+
+
 def _k4_head_dim_checks(dev, cases, state) -> None:
     """K4 (`flash_attention_bhsd`) at head dims 128, 32 and 16 at its row's
     shape and width (the resampler's 384 latents against 17,934 keys, 16
@@ -839,6 +918,7 @@ def phase_kernels(state: dict) -> None:
         _compare(name, lambda: run_kernel(name, c), lambda: run_plain(name, c), state,
                  fault_fn=_without_ragged_tile(name, c), work=forward_work(name, c),
                  library_fn=lambda: _sdpa(q4, k4, v4, scale))
+    _splitkv_checks(dev, cases, state)
     _k4_head_dim_checks(dev, cases, state)
     # K7 at the gen path's joint shape; then its error against bf16 K1 on the
     # same inputs (the int8 quantization's own cost, no bound)
@@ -2011,9 +2091,10 @@ _KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name), first match w
     ("attention K5 (bwd_dkdv_kernel + bwd_dq_kernel)", ("bwd_dkdv_kernel", "bwd_dq_kernel")),
     ("attention K1 (joint_kernel)", ("joint_kernel",)),
     ("attention K2 (smallkv_kernel)", ("smallkv_kernel",)),
-    ("attention K3 (smallq_kernel)", ("smallq_kernel",)),
-    ("attention K6 (fused_bhsd_kernel)", ("fused_bhsd_kernel",)),  # before K4: a substring
-    ("attention K4 (bhsd_kernel)", ("bhsd_kernel",)),
+    ("attention K3 (smallq_prologue + smallq_splitkv + smallq_combine)",
+     ("smallq_prologue_kernel", "smallq_splitkv_kernel", "smallq_combine_kernel")),
+    ("attention K6 (fused_bhsd_kernel)", ("fused_bhsd_kernel",)),
+    ("attention K4 (bhsd_splitkv + bhsd_combine)", ("bhsd_splitkv_kernel", "bhsd_combine_kernel")),
     # before matmul: cuDNN's implicit-GEMM convolutions also have "gemm" in their names
     ("convolution (cuDNN)", ("conv", "implicit", "winograd", "fprop", "dgrad", "wgrad")),
     ("matmul (cuBLAS / cuBLASLt)", ("gemm", "sm90_xmma", "cutlass", "nvjet", "igemm")),

@@ -1,5 +1,6 @@
 """The Hopper kernels of tokensgen_tpu_torch (the attention forwards K1-K4,
-K4 also at head dims 16, 32 and 128, their logsumexp outputs, the backward
+K4 also at head dims 16, 32 and 128, K3 and K4 at forced split counts, their
+logsumexp outputs, the backward
 K5 at head dims 16, 32, 64 and 128, the int8-score forward K7, the
 [B, H, S, D] fused-prologue forward K6 at the same four, and the probe
 kernels T1, T2, T3a, T3b, T4a, T4b, T5, T6, T7 and T8) against their plain
@@ -102,9 +103,9 @@ LSE_MAX_REL = 2.0 ** -7
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 32, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_bhsd_head_dims_on_card(cuda_device, d):
-    """K4 (`flash_attention_bhsd`) at head dims 16, 32 and 128 vs its plain
+    """K4 (`flash_attention_bhsd`) at head dims 16, 32, 64 and 128 vs its plain
     version on [2, 3, 300, d] x 517 keys bf16 (ragged) with a key-bias mask
     on one sample, with and without its lse: within REL_L2_BOUND and
     MAX_ABS_REL (the lse within the lse bounds); each call counted once."""
@@ -125,6 +126,41 @@ def test_bhsd_head_dims_on_card(cuda_device, d):
     _assert_within_bounds(out, ref)
     assert ((lse - ref_lse).norm() / ref_lse.norm()).item() <= LSE_REL_L2_BOUND
     assert (lse - ref_lse).abs().max().item() <= LSE_MAX_REL * ref_lse.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 5])
+@pytest.mark.parametrize("name", ["fused_attention_cross_smallq", "flash_attention_bhsd"])
+def test_splitkv_counts_on_card(cuda_device, name, splits):
+    """K3 and K4 (the split-KV forward) at forced split counts 1, 2 and 5,
+    each with a ragged last split (K3: 2,200 keys, K4: 517), and on one
+    sample a -1e9 key bias over a whole split (at one split, over the first
+    third of the keys): within REL_L2_BOUND and MAX_ABS_REL of the plain
+    version; K4 also with its lse (the lse within the lse bounds, the output
+    bit-equal to the call without it)."""
+    q, k, v, tq, tk, _, h = _case(name, cuda_device)
+    b, skv = q.shape[0], k.shape[1]
+    n, split_len = TA.kv_split_plan(b, h, q.shape[1], skv, D, 132, splits)
+    assert n == splits and skv % split_len
+    bias = torch.zeros(b, skv, device=cuda_device)
+    if n > 1:
+        bias[1, split_len:2 * split_len] = -1e9
+    else:
+        bias[1, : skv // 3] = -1e9
+    if name == "flash_attention_bhsd":
+        q4, k4, v4 = (TA.split_heads(z, h) for z in (q, k, v))
+        out = TA._launch_bhsd(q4, k4, v4, bias, 0.125, splits=splits)
+        out_l, lse = TA._launch_bhsd(q4, k4, v4, bias, 0.125, with_lse=True, splits=splits)
+        ref, ref_lse = TA.attention_plain(q4, k4, v4, bias, 0.125, with_lse=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out, out_l)
+        assert ((lse - ref_lse).norm() / ref_lse.norm()).item() <= LSE_REL_L2_BOUND
+        assert (lse - ref_lse).abs().max().item() <= LSE_MAX_REL * ref_lse.abs().max().item()
+    else:
+        out = TA._launch_smallq(q, k, v, bias, tq, tk, h, 1e-6, True, True, splits=splits)
+        ref = TA._fused_plain_merged(q, k, v, bias, tq, tk, h, 1e-6, True, True)
+        torch.cuda.synchronize()
+    _assert_within_bounds(out, ref)
 
 
 @pytest.mark.cuda

@@ -33,8 +33,12 @@ skips the K2/K3 routing), K6 or K4, each with its logsumexp; the backward is
 K5, at the head dims K4 and K6 take (`HEAD_DIMS`). On the CPU both
 directions run the plain versions.
 
-The CUDA C++ sources are `csrc/attention.cu` and the forward body it shares
-with the probes, `csrc/flash_fwd.cuh`; `build_kernels` compiles them with
+The CUDA C++ sources are `csrc/attention.cu`, the forward body it shares
+with the probes, `csrc/flash_fwd.cuh`, and K3's and K4's split-KV body,
+`csrc/flash_splitkv.cuh` (the keys of a call cut into `kv_split_plan`'s
+splits, each split's f32 partials merged by a combine pass; K3's prologue
+runs once per row in a pass of its own, `prologue_pass_plain`'s function,
+into a bf16 workspace); `build_kernels` compiles them with
 nvcc (`kernels/build.py`) into a shared library with a plain C interface
 (loaded with ctypes) under ``<repo>/build/kernels``. Dispatch goes by the
 tensor's device: a CPU tensor takes the plain version (`attention_fused_plain` / `attention_plain`,
@@ -51,6 +55,9 @@ from :func:`make_prologue`, with ``prologue(x) = LN0(x)∘cosg + (LN0(x)@Rg)∘s
 from __future__ import annotations
 
 import ctypes
+import functools
+import heapq
+import math
 from pathlib import Path
 from typing import Optional
 
@@ -63,6 +70,10 @@ _LOG2E = 1.4426950408889634
 _SMALLKV_MAX = 512  # kv rows K2 holds whole in shared memory (csrc SMALLKV_MAX)
 HEAD_DIMS = (16, 32, 64, 128)  # head dims K4, K5 and K6 are built for (K1-K3, K7: 64)
 MAX_SCORE_BYTES = 1 << 31  # f32 score tensor per q-row chunk of `attention_plain`
+# K3's prologue pass writes rows in blocks of PRO_ROWS (csrc attention.cu)
+PROLOGUE_ROWS = 32
+SPLIT_MIN_TILES = 4  # kv tiles a split holds at least (splits chosen by `kv_split_plan`)
+SPLIT_WS_BYTES = 32 << 20  # f32 partials of one call: well inside the 50 MB L2
 
 
 # ---------------------------------------------------------------------------
@@ -248,6 +259,109 @@ def attention_fused_plain(q, k, v, key_bias, tabs_q, tabs_k, eps, norm_q, norm_k
     return attention_plain(qn, kn, v, key_bias, 1.0, with_lse=with_lse)
 
 
+def split_block_q(d: int) -> int:
+    """q rows per block of the split-KV body at head dim d (csrc
+    `splitkv_bm`): two row blocks of 128 at d <= 64, one at 128."""
+    return 256 if d <= 64 else 128
+
+
+def kv_tile(d: int) -> int:
+    """Keys per kv tile of the split-KV body at head dim d (csrc
+    `splitkv_bn`)."""
+    return 128 if d <= 64 else 64
+
+
+SPLIT_BLOCK_SETUP = 2  # a block's set-up (q tile, first loads, epilogue) in kv tiles of work
+SPLIT_COST = 1  # what a split adds (its partials, the combine's reads), in the same units
+
+
+def _split_makespan(b: int, h: int, sq: int, tiles: int, d: int, sms: int, splits: int) -> int:
+    """The time, in row-block x kv-tile units, that the split-KV body takes at
+    ``splits`` splits when its blocks go, in launch order (q tile fastest,
+    then split, head, batch row), to ``sms`` SMs that each run one block at a
+    time (a block of 8 warps takes an SM's registers). A block costs its row
+    blocks of 128 q rows times its kv tiles, plus `SPLIT_BLOCK_SETUP`."""
+    bm = split_block_q(d)
+    per = -(-tiles // splits)
+    row_blocks = [-(-min(bm, sq - q0) // 128) for q0 in range(0, sq, bm)]
+    free = [0] * sms
+    for _ in range(b * h):
+        for s in range(splits):
+            t = min(per, tiles - s * per)
+            for rb in row_blocks:
+                start = heapq.heappop(free)
+                heapq.heappush(free, start + rb * t + SPLIT_BLOCK_SETUP)
+    return max(free)
+
+
+@functools.lru_cache(maxsize=64)
+def kv_split_plan(b: int, h: int, sq: int, skv: int, d: int, sms: int,
+                  splits: Optional[int] = None):
+    """(splits, split_len) of K3's and K4's split-KV forward: the keys cut
+    into ranges of ``split_len`` keys (a whole number of `kv_tile` tiles),
+    the last holding the rest (at least one key). From the shape alone (so a
+    call with the lse and one without run the same splits): the fewest
+    splits with the least `_split_makespan` on ``sms`` SMs plus `SPLIT_COST`
+    a split (both fitted to the H100's device times of K4 at its four head
+    dims over 1-24 splits and of K3 over 1-6), with at least
+    `SPLIT_MIN_TILES` tiles a split and the f32 partials under
+    `SPLIT_WS_BYTES`. ``splits`` asks for a count instead (the tests' and
+    the smoke's forced splits); ranges are evened out, so it may come back
+    smaller."""
+    tiles = -(-skv // kv_tile(d))
+    if splits is None:
+        most = max(1, min(tiles // SPLIT_MIN_TILES, SPLIT_WS_BYTES // (b * h * sq * (d + 2) * 4)))
+        splits = min(range(1, most + 1), key=lambda n: (
+            _split_makespan(b, h, sq, tiles, d, sms, n) + SPLIT_COST * n, n))
+    per = -(-tiles // max(1, min(splits, tiles)))
+    return -(-tiles // per), per * kv_tile(d)
+
+
+def splitkv_partials_plain(q, k, v, key_bias, scale: float, split_len: int):
+    """The split pass of K3 / K4 on [B, H, S, D], in f32: per range of
+    ``split_len`` keys, with x = (scale * q.k + bias) * log2 e, the row max
+    m_s, l_s = sum 2^(x - m_s) and acc_s = sum 2^(x - m_s) v over its keys.
+    Returns (acc [splits, B, H, Sq, D], m, l [splits, B, H, Sq])."""
+    skv = k.shape[2]
+    x = (torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+         + key_bias.float()[:, None, None, :]) * _LOG2E
+    vf = v.float()
+    accs, ms, ls = [], [], []
+    for s0 in range(0, skv, split_len):
+        xs = x[..., s0:s0 + split_len]
+        m = xs.amax(dim=-1)
+        p = torch.exp2(xs - m[..., None])
+        accs.append(torch.einsum("bhqk,bhkd->bhqd", p, vf[:, :, s0:s0 + split_len]))
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+    return torch.stack(accs), torch.stack(ms), torch.stack(ls)
+
+
+def combine_plain(acc, m, l):
+    """The combine of the split partials (`splitkv_partials_plain`'s):
+    m = max_s m_s, l = sum_s l_s 2^(m_s - m), out = sum_s acc_s 2^(m_s - m) / l,
+    lse = (m + log2 l) ln 2 (natural log). Returns (out, lse), f32."""
+    mx = m.amax(dim=0)
+    w = torch.exp2(m - mx)
+    lsum = (l * w).sum(dim=0)
+    out = (acc * w[..., None]).sum(dim=0) / lsum[..., None]
+    return out, (mx + torch.log2(lsum)) * math.log(2.0)
+
+
+def prologue_pass_plain(x, tabs, heads: int, eps: float, normalize: bool, scale: float = 1.0):
+    """K3's prologue pass on merged [B, S, H*D]: per (row, head) the f32
+    LayerNorm, then RoPE with the tables [(B,) S, D] that every head of the
+    row shares, times ``scale`` (log2 e on the q side), cast to x's dtype."""
+    cosg, sin, add, rg = tabs
+    b, s, hd = x.shape
+    x32 = x.float().reshape(b, s, heads, hd // heads)
+    if normalize:
+        dlt = x32 - x32.mean(-1, keepdim=True)
+        x32 = dlt * torch.rsqrt((dlt * dlt).mean(-1, keepdim=True) + eps)
+    y = (x32 * cosg[..., None, :] + (x32 @ rg) * sin[..., None, :] + add[..., None, :]) * scale
+    return y.reshape(b, s, hd).to(x.dtype)
+
+
 def quantize_pairs_plain(x, tabs, eps: float, normalize: bool, scale: float = 1.0):
     """K7's quantizing prologue on [B, H, S, D] (H even): y = the f32
     prologue with ``scale`` folded into the tables (as the JAX wrapper folds
@@ -367,19 +481,22 @@ class _Int8Args(ctypes.Structure):
     )
 
 
-_ENTRY_POINTS = ("tg_attention_joint", "tg_attention_cross_smallkv",
-                 "tg_attention_cross_smallq")
+_ENTRY_POINTS = ("tg_attention_joint", "tg_attention_cross_smallkv")
 _BWD_ENTRY_POINT = "tg_attention_bwd"  # takes the head dim after the args
 _INT8_ENTRY_POINT = "tg_attention_joint_int8"
-_K6_ENTRY_POINT = "tg_attention_fused_bhsd"
-_HEAD_DIM_ENTRY_POINTS = ("tg_attention_bhsd", _K6_ENTRY_POINT)  # take the head dim after the args
+_K6_ENTRY_POINT = "tg_attention_fused_bhsd"  # takes the head dim after the args
+_K3_ENTRY_POINT = "tg_attention_cross_smallq"  # splits, split_len, prologue and split workspaces
+_K4_ENTRY_POINT = "tg_attention_bhsd"  # head dim, splits, split_len, split workspace
 
 
 def _bind(lib) -> None:
     for name in _ENTRY_POINTS:
         _build.bind(lib, name, ctypes.POINTER(_Args), ctypes.c_void_p)
-    for name in _HEAD_DIM_ENTRY_POINTS:
-        _build.bind(lib, name, ctypes.POINTER(_Args), ctypes.c_int64, ctypes.c_void_p)
+    _build.bind(lib, _K6_ENTRY_POINT, ctypes.POINTER(_Args), ctypes.c_int64, ctypes.c_void_p)
+    _build.bind(lib, _K3_ENTRY_POINT, ctypes.POINTER(_Args), ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
+    _build.bind(lib, _K4_ENTRY_POINT, ctypes.POINTER(_Args), ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p)
     _build.bind(lib, _BWD_ENTRY_POINT, ctypes.POINTER(_BwdArgs), ctypes.c_int64, ctypes.c_void_p)
     _build.bind(lib, _INT8_ENTRY_POINT, ctypes.POINTER(_QuantArgs), ctypes.POINTER(_QuantArgs),
                 ctypes.POINTER(_Int8Args), ctypes.c_void_p)
@@ -429,14 +546,30 @@ def _check_tabs(name: str, tabs, seqlen: int, batch: int, device, d: int = 64):
             raise ValueError(f"{name}: table shape {tuple(t.shape)} for S={seqlen}, B={batch}")
         out.append(t.contiguous())
     tb = seqlen * d if cosg.dim() == 3 and cosg.shape[0] == batch and batch > 1 else 0
-    # Rg = diag(g)·R is nonzero only on the pair swap (make_prologue); the
-    # kernel reads those d entries and this device-side check holds it to it
+    return out, _pair_coefficients(rg, d, device), tb
+
+
+_CHECKED_RG: list = []  # [(Rg, its version, d, rot)] of the last tables checked, newest first
+
+
+def _pair_coefficients(rg, d: int, device):
+    """rot[j] = Rg[j ^ 1, j]: Rg = diag(g)·R is nonzero only on the pair swap
+    (make_prologue); the kernels read those d entries, and a device-side
+    check holds Rg to it. The DiT hands every layer the same table tensors,
+    so an Rg seen before and not modified since (the same object at the
+    same in-place version) reuses its coefficients and its check."""
+    for ref, version, dd, rot in _CHECKED_RG:
+        if ref is rg and dd == d and rg._version == version:
+            return rot
     idx = torch.arange(d, device=device)
-    rg = rg.float()
-    rot = rg[idx ^ 1, idx].contiguous()
+    r = rg.float()
+    rot = r[idx ^ 1, idx].contiguous()
     pair = idx[:, None] == (idx[None, :] ^ 1)
-    torch._assert_async(torch.all((rg == 0) | pair))
-    return out, rot, tb
+    torch._assert_async(torch.all((r == 0) | pair))
+    if not rg.is_inference():
+        _CHECKED_RG.insert(0, (rg, rg._version, d, rot))
+        del _CHECKED_RG[4:]
+    return rot
 
 
 def _bias_ptr(key_bias, b: int, skv: int, keep: list):
@@ -453,11 +586,11 @@ def _bias_ptr(key_bias, b: int, skv: int, keep: list):
 
 def _launch(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k,
             qscale: float, with_lse: bool = False):
-    """Launches a forward kernel; returns ``out`` or, ``with_lse``, (out, lse)
-    with lse the natural-log logsumexp f32 [B, H, Sq]. K4 and K6 take 4-D
-    operands of any of `HEAD_DIMS`; K6 writes ``out`` in q's memory layout,
+    """Launches K1, K2 or K6; returns ``out`` or, ``with_lse``, (out, lse)
+    with lse the natural-log logsumexp f32 [B, H, Sq]. K6 takes 4-D
+    operands of any of `HEAD_DIMS` and writes ``out`` in q's memory layout,
     so the [B, H, S, D] view of a merged tensor gives a merged output."""
-    takes_d = entry in _HEAD_DIM_ENTRY_POINTS
+    takes_d = entry == _K6_ENTRY_POINT
     d = q.shape[-1] if takes_d else 64
     if d not in HEAD_DIMS:
         raise ValueError(f"{entry}: head dim {d} not in {HEAD_DIMS}")
@@ -473,6 +606,65 @@ def _launch(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, n
     fn = getattr(lib, entry)
     _build.check_launch(entry, fn(ctypes.byref(a), d, stream) if takes_d else
                         fn(ctypes.byref(a), stream))
+    return (out, lse) if with_lse else out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _split_workspace(plan, b: int, h: int, sq: int, d: int, device, keep: list):
+    """The f32 partials of ``plan`` = (splits, split_len): acc [splits, B, H,
+    Sq, d] then (m, l) [splits, B, H, Sq, 2] in one buffer; None (a null
+    pointer) at one split, where the body writes the output itself."""
+    splits = plan[0]
+    if splits == 1:
+        return None
+    ws = torch.empty(splits * b * h * sq * (d + 2), dtype=torch.float32, device=device)
+    keep.append(ws)
+    return ws.data_ptr()
+
+
+def _launch_smallq(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k,
+                   splits: Optional[int] = None):
+    """K3 on merged [B, S, H*64] operands: the prologue pass of q (log2 e
+    folded in) and of k into a bf16 workspace, then the split-KV body in
+    `kv_split_plan`'s splits (``splits`` forces a count), then the combine."""
+    lib = _lib()
+    a, out, keep = attn_args(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k,
+                             _LOG2E)
+    b, sq, skv = a.b, a.sq, a.skv
+    plan = kv_split_plan(b, heads, sq, skv, 64, _sm_count(q.device.index or 0), splits)
+    pad = lambda n: -(-n // PROLOGUE_ROWS) * PROLOGUE_ROWS  # noqa: E731
+    pro = torch.empty(b * (pad(sq) + pad(skv)) * heads * 64, dtype=torch.bfloat16,
+                      device=q.device)
+    keep.append(pro)
+    ws = _split_workspace(plan, b, heads, sq, 64, q.device, keep)
+    _build.check_launch(_K3_ENTRY_POINT, getattr(lib, _K3_ENTRY_POINT)(
+        ctypes.byref(a), *plan, pro.data_ptr(), ws, _build.stream_of(q)))
+    return out
+
+
+def _launch_bhsd(q, k, v, key_bias, scale: float, with_lse: bool = False,
+                 splits: Optional[int] = None):
+    """K4 on [B, H, S, D] operands, D in `HEAD_DIMS`: the split-KV body in
+    `kv_split_plan`'s splits (``splits`` forces a count), then the combine;
+    returns ``out`` or, ``with_lse``, (out, lse)."""
+    d = q.shape[-1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{_K4_ENTRY_POINT}: head dim {d} not in {HEAD_DIMS}")
+    lib = _lib()
+    a, out, keep = attn_args(q, k, v, key_bias, None, None, None, 0.0, False, False,
+                             scale * _LOG2E, d)
+    lse = None
+    if with_lse:
+        lse = torch.empty(a.b, a.h, a.sq, dtype=torch.float32, device=q.device)
+        a.lse = lse.data_ptr()
+    plan = kv_split_plan(a.b, a.h, a.sq, a.skv, d, _sm_count(q.device.index or 0), splits)
+    ws = _split_workspace(plan, a.b, a.h, a.sq, d, q.device, keep)
+    _build.check_launch(_K4_ENTRY_POINT, getattr(lib, _K4_ENTRY_POINT)(
+        ctypes.byref(a), d, *plan, ws, _build.stream_of(q)))
     return (out, lse) if with_lse else out
 
 
@@ -637,14 +829,14 @@ def fused_attention_cross_smallkv(q, k, v, tabs_q, tabs_k, key_bias=None, heads:
 
 def fused_attention_cross_smallq(q, k, v, tabs_q, tabs_k, key_bias=None, heads: int = None,
                                  eps: float = 1e-6, norm_q: bool = True, norm_k: bool = True):
-    """K3, short q (<= 512) against a long kv (vip -> [text_video‖vip]), both
-    prologues in the kernel."""
+    """K3, short q (<= 512) against a long kv (vip -> [text_video‖vip]): both
+    prologues in a pass of their own (once per row), then the split-KV body
+    and the combine."""
     if q.device.type == "cpu":
         return _fused_plain_merged(q, k, v, _bias_or_zeros(key_bias, k, heads), tabs_q,
                                    tabs_k, heads, eps, norm_q, norm_k)
     _require_cuda(k, v)
-    out = _launch("tg_attention_cross_smallq", q, k, v, key_bias, tabs_q, tabs_k, heads,
-                  eps, norm_q, norm_k, _LOG2E)
+    out = _launch_smallq(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k)
     fused_attention_cross_smallq.launches += 1
     return out
 
@@ -660,8 +852,7 @@ def flash_attention_bhsd(q, k, v, key_bias=None, scale: Optional[float] = None,
         return attention_plain(q, k, v, _bias_or_zeros(key_bias, k, None), scale,
                                with_lse=with_lse)
     _require_cuda(k, v)
-    res = _launch("tg_attention_bhsd", q, k, v, key_bias, None, None, None, 0.0,
-                  False, False, scale * _LOG2E, with_lse)
+    res = _launch_bhsd(q, k, v, key_bias, scale, with_lse)
     flash_attention_bhsd.launches += 1
     flash_attention_bhsd.lse_launches += int(with_lse)
     return res

@@ -1,15 +1,19 @@
 // Flash-attention kernels for the attention calls of the To2V edit, training
 // and generation paths and of the T2To trainer, written for Hopper (sm_90a),
 // head dim 64 (K4, K5, K6: 16, 32, 64 or 128), bf16 operands with f32 softmax and
-// accumulation on mma.sync m16n8k16 tensor-core tiles (K7: its score product
-// on m16n8k32 int8 tiles). The forward body is flash_fwd.cuh's, shared with
-// the K4-family probes of probes.cu.
+// accumulation on mma.sync m16n8k16 tensor-core tiles (K3, K4: wgmma; K7: its
+// score product on m16n8k32 int8 tiles). K1's and K6's forward body is
+// flash_fwd.cuh's, shared with the K4-family probes of probes.cu; K3's and
+// K4's is the split-KV body of flash_splitkv.cuh.
 //
 // Replaces the Pallas TPU kernels of tokensgen_tpu/kernels/attention.py:
 //   tg_attention_joint          joint_kernel    <- _flash_packed_kernel  (_flash_fused_packed_tpu)
 //   tg_attention_cross_smallkv  smallkv_kernel  <- _cross_smallkv_kernel (_flash_cross_smallkv_tpu)
-//   tg_attention_cross_smallq   smallq_kernel   <- _cross_smallq_kernel  (_flash_cross_smallq_tpu)
-//   tg_attention_bhsd           bhsd_kernel<HD> <- _flash_kernel         (_flash_attention_tpu)
+//   tg_attention_cross_smallq   smallq_prologue_kernel + smallq_splitkv_kernel
+//                               (+ smallq_combine_kernel)
+//                                               <- _cross_smallq_kernel  (_flash_cross_smallq_tpu)
+//   tg_attention_bhsd           bhsd_splitkv_kernel<HD> (+ bhsd_combine_kernel<HD>)
+//                                               <- _flash_kernel         (_flash_attention_tpu)
 //   tg_attention_bwd            bwd_dkdv_kernel<HD> + bwd_dq_kernel<HD>
 //                                               <- _packed_bwd_kernel    (_flash_packed_bwd_tpu)
 //   tg_attention_joint_int8     int8_prologue_kernel + joint_int8_kernel
@@ -31,21 +35,33 @@
 // Without a prologue the q rows are only scaled (softmax scale and log2 e)
 // before the bf16 cast, as the TPU wrapper does.
 //
-// Design for this card (simple first version; see PERF.md for the times):
-// * The TPU kernels keep the prologued K in VMEM across the q sweep of one
-//   head pair. Hopper blocks run in no order and carry nothing between them,
-//   so each block of 128 q rows sweeps all kv tiles itself and applies the k
-//   prologue on load. This re-reads the f32 k tables once per q tile, which
-//   is the first cost to remove (L2 traffic, not tensor-core time).
+// Design for this card (see PERF.md for the times):
+// * K1, K2, K6, K7 (simple first version): the TPU kernels keep the
+//   prologued K in VMEM across the q sweep of one head pair. Hopper blocks
+//   run in no order and carry nothing between them, so each block of 128 q
+//   rows sweeps all kv tiles itself with synchronous loads, applying the k
+//   prologue on load (K1, K6). No TMA, wgmma or warp specialisation yet.
+// * K3 and K4 (split-KV, TMA, wgmma): both are bound by operations (the
+//   two products at the bf16 tensor-core rate: 0.22 and 0.03 ms at the
+//   edit path's shapes), but a block-per-q-tile sweep left them bound by
+//   latency: K4's call had 48 blocks for 132 SMs, each sweeping 281 kv
+//   tiles with nothing in flight; K3's blocks each ran the k prologue on all
+//   18,256 keys (4 times per key and head, 7.2 GB of f32 table reads
+//   through L2). Now K3 runs its prologue once per row in a pass of its own
+//   (smallq_prologue_kernel: every head of a row, the tables read once per
+//   row), and both run flash_splitkv.cuh's body: the keys split by the host
+//   (`attention.kv_split_plan`, the least modelled makespan), K / V tiles
+//   loaded by the Tensor Memory Accelerator into a 4-stage ring, both
+//   products on wgmma, 256 q rows a block at head dims <= 64; then a
+//   combine of the splits' f32 partials in a fixed order.
 // * Online-max softmax in the exp2 domain (the TPU's max-free shift by a
 //   table bound is a TPU trick; exact softmax is what both compute).
 // * p is rounded to bf16 before p@v; l sums the f32 p; o = acc / l.
-// * No TMA, wgmma or warp specialisation yet; plain loads into padded
-//   shared memory. These are for the PRs that make the kernels fast.
 // * Ragged Sq / Skv are masked here from the lengths: rows past Sq are not
 //   stored, keys past Skv score -inf. No padded copies are made.
 
 #include "flash_fwd.cuh"
+#include "flash_splitkv.cuh"
 
 namespace {
 
@@ -57,16 +73,131 @@ __global__ void __launch_bounds__(NTHREADS) joint_kernel(const TGAttnArgs a) {
   flash_fwd_body<true, true>(a, blockIdx.y);
 }
 
-// K3: vip -> [text_video || vip] cross-attention, both prologues fused.
-__global__ void __launch_bounds__(NTHREADS) smallq_kernel(const TGAttnArgs a) {
-  flash_fwd_body<true, true>(a, blockIdx.y);
+// K3: vip -> [text_video || vip] cross-attention, in three launches: the
+// prologue pass for q and for k (`smallq_prologue_kernel`), the split-KV
+// body on the prologued rows (`smallq_splitkv_kernel`), and with more than
+// one split the combine (`smallq_combine_kernel`).
+//
+// The prologue pass: grid (ceil(S / PRO_ROWS), B), 8 threads per row (8
+// columns each). A thread reads its row's table entries once and keeps them
+// in registers for every head (the tables do not depend on the head), then
+// runs the f32 LayerNorm + RoPE (K1's prologue arithmetic, load_rows') on
+// each head of its row, PRO_HEADS heads' loads in flight together, scaled by
+// ``scale``, into the bf16 workspace ``out`` ([B][S rounded up to
+// PRO_ROWS][H * 64], batch stride ``out_sb``). Bound by bytes: the k side
+// reads and writes 2 x 18,256 x 3,072 bf16 once each (448 MB).
+constexpr int PRO_ROWS = NTHREADS / 8;  // rows per prologue block
+constexpr int PRO_HEADS = 16;           // heads a thread loads before it computes
+
+__global__ void __launch_bounds__(NTHREADS) smallq_prologue_kernel(const TGAttnArgs a, int k_side,
+                                                                   __nv_bfloat16* out,
+                                                                   long long out_sb) {
+  const int b = blockIdx.y, r = blockIdx.x * PRO_ROWS + static_cast<int>(threadIdx.x / 8);
+  const int c0 = static_cast<int>(threadIdx.x % 8) * 8;
+  const int seqlen = static_cast<int>(k_side ? a.skv : a.sq);
+  const bool valid = r < seqlen;  // the same for the 8 lanes of a row
+  const long long sh = k_side ? a.k_sh : a.q_sh;
+  const long long sb = k_side ? a.k_sb : a.q_sb, ss = k_side ? a.k_ss : a.q_ss;
+  const __nv_bfloat16* x =
+      static_cast<const __nv_bfloat16*>(k_side ? a.k : a.q) + b * sb + (long long)r * ss + c0;
+  const Side pro = k_side ? side_k(a) : side_q(a);
+  const float scale = k_side ? 1.f : static_cast<float>(a.qscale);
+  const float eps = static_cast<float>(a.eps);
+  const int heads = static_cast<int>(a.h);
+  __nv_bfloat16* dst = out + b * out_sb + (long long)r * heads * D + c0;
+  float cg[8], sn[8], ad[8], rc[8];
+  if (valid) {
+    const long long toff = (long long)b * pro.tb + (long long)r * D + c0;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float4 c4 = reinterpret_cast<const float4*>(pro.cosg + toff)[e];
+      const float4 s4 = reinterpret_cast<const float4*>(pro.sin + toff)[e];
+      const float4 a4 = reinterpret_cast<const float4*>(pro.add + toff)[e];
+      const float4 r4 = reinterpret_cast<const float4*>(pro.rot + c0)[e];
+      cg[4 * e] = c4.x; cg[4 * e + 1] = c4.y; cg[4 * e + 2] = c4.z; cg[4 * e + 3] = c4.w;
+      sn[4 * e] = s4.x; sn[4 * e + 1] = s4.y; sn[4 * e + 2] = s4.z; sn[4 * e + 3] = s4.w;
+      ad[4 * e] = a4.x; ad[4 * e + 1] = a4.y; ad[4 * e + 2] = a4.z; ad[4 * e + 3] = a4.w;
+      rc[4 * e] = r4.x; rc[4 * e + 1] = r4.y; rc[4 * e + 2] = r4.z; rc[4 * e + 3] = r4.w;
+    }
+  }
+  for (int h0 = 0; h0 < heads; h0 += PRO_HEADS) {
+    uint4 raw[PRO_HEADS];
+#pragma unroll
+    for (int u = 0; u < PRO_HEADS; ++u) {
+      raw[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (valid && h0 + u < heads) raw[u] = *reinterpret_cast<const uint4*>(x + (h0 + u) * sh);
+    }
+#pragma unroll
+    for (int u = 0; u < PRO_HEADS; ++u) {
+      if (h0 + u >= heads) break;  // the same for the whole block
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw[u]);
+      float ln0[8];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h2[e]);
+        ln0[2 * e] = f.x;
+        ln0[2 * e + 1] = f.y;
+      }
+      if (pro.norm) {
+        float sum = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sum += ln0[e];
+        const float mu = row_sum<8>(sum) * (1.f / D);
+        float vs = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          ln0[e] -= mu;
+          vs += ln0[e] * ln0[e];
+        }
+        const float inv = rsqrtf(row_sum<8>(vs) * (1.f / D) + eps);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) ln0[e] *= inv;
+      }
+      float y[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float rot = ln0[e ^ 1] * rc[e];
+        y[e] = (ln0[e] * cg[e] + rot * sn[e] + ad[e]) * scale;
+      }
+      if (valid)
+        *reinterpret_cast<uint4*>(dst + (h0 + u) * D) =
+            make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]),
+                       pack_bf16(y[6], y[7]));
+    }
+  }
+}
+
+// Grid (q tiles x splits, H, B), the q tile fastest: the blocks that share
+// one split's K / V run side by side and read it from L2 once.
+__global__ void __launch_bounds__(SK_NT) smallq_splitkv_kernel(
+    const TGAttnArgs a, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, int splits, int split_len, float* ws) {
+  const int qt = gridDim.x / splits;
+  splitkv_body<D>(a, &kmap, &vmap, blockIdx.y, blockIdx.z, (blockIdx.x % qt) * splitkv_bm(D),
+                  blockIdx.x / qt, split_len, splits, ws);
+}
+
+__global__ void __launch_bounds__(CMB_NT) smallq_combine_kernel(const TGAttnArgs a, int splits,
+                                                                const float* ws) {
+  combine_rows<D>(a, splits, ws);
 }
 
 // K4: plain [B, H, S, HD] attention (HD = 16, 32, 64 or 128, as the JAX
-// kernel takes any head dim); qscale = softmax scale * log2 e.
+// kernel takes any head dim); qscale = softmax scale * log2 e. The split-KV
+// body, then with more than one split the combine.
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS) bhsd_kernel(const TGAttnArgs a) {
-  flash_fwd_body<false, false, HD>(a, blockIdx.y);
+__global__ void __launch_bounds__(SK_NT) bhsd_splitkv_kernel(
+    const TGAttnArgs a, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, int splits, int split_len, float* ws) {
+  const int qt = gridDim.x / splits;
+  splitkv_body<HD>(a, &kmap, &vmap, blockIdx.y, blockIdx.z, (blockIdx.x % qt) * splitkv_bm(HD),
+                   blockIdx.x / qt, split_len, splits, ws);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(CMB_NT) bhsd_combine_kernel(const TGAttnArgs a, int splits,
+                                                              const float* ws) {
+  combine_rows<HD>(a, splits, ws);
 }
 
 // K6: fused-prologue attention on [B, H, S, HD] operands given by strides
@@ -727,6 +858,91 @@ int launch_flash(void (*kernel)(TGAttnArgs), const TGAttnArgs* a, cudaStream_t s
   return static_cast<int>(cudaGetLastError());
 }
 
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query (the library
+// links no libcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The 4-D tensor map of one bf16 K or V operand for the split-KV body:
+// (columns HD, rows S, heads H, batch rows B) at element strides (ss, sh,
+// sb); boxes of splitkv_box_cols(HD) columns x splitkv_bn(HD) rows in the
+// swizzle of their row width; rows past S read as zeros.
+template <int HD>
+cudaError_t kv_tensor_map(CUtensorMap* map, const void* base, long long s, long long h,
+                          long long b, long long ss, long long sh, long long sb) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  constexpr int cols = splitkv_box_cols(HD);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2, static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {cols, static_cast<cuuint32_t>(splitkv_bn(HD)), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = cols * 2 == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : cols * 2 == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The split-KV body (and with splits > 1 the combine) of K3 or K4 at head
+// dim HD. Every split but the last holds split_len keys, a whole number of
+// kv tiles; the last holds the rest (at least one key).
+template <int HD>
+int launch_splitkv(void (*body)(TGAttnArgs, CUtensorMap, CUtensorMap, int, int, float*),
+                   void (*combine)(TGAttnArgs, int, const float*), const TGAttnArgs* a,
+                   long long splits, long long split_len, void* ws, cudaStream_t s) {
+  if (a->sq <= 0 || a->skv <= 0 || splits < 1 || split_len < splitkv_bn(HD) ||
+      split_len % splitkv_bn(HD) || (splits - 1) * split_len >= a->skv ||
+      splits * split_len < a->skv || (splits > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap kmap, vmap;
+  cudaError_t err = kv_tensor_map<HD>(&kmap, a->k, a->skv, a->h, a->b, a->k_ss, a->k_sh, a->k_sb);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<HD>(&vmap, a->v, a->skv, a->h, a->b, a->v_ss, a->v_sh, a->v_sb);
+  constexpr int smem = splitkv_smem_bytes<HD>();
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(body, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long qt = (a->sq + splitkv_bm(HD) - 1) / splitkv_bm(HD);
+  const dim3 grid(static_cast<unsigned>(qt * splits), static_cast<unsigned>(a->h),
+                  static_cast<unsigned>(a->b));
+  float* wsf = static_cast<float*>(ws);
+  body<<<grid, SK_NT, smem, s>>>(*a, kmap, vmap, static_cast<int>(splits),
+                                 static_cast<int>(split_len), wsf);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long threads = a->b * a->h * a->sq * (HD / 8);
+  combine<<<static_cast<unsigned>((threads + CMB_NT - 1) / CMB_NT), CMB_NT, 0, s>>>(
+      *a, static_cast<int>(splits), wsf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_bhsd(const TGAttnArgs* a, long long splits, long long split_len, void* ws,
+                cudaStream_t s) {
+  return launch_splitkv<HD>(bhsd_splitkv_kernel<HD>, bhsd_combine_kernel<HD>, a, splits,
+                            split_len, ws, s);
+}
+
 template <int HD>
 int launch_bwd(const TGAttnBwdArgs* a, cudaStream_t s) {
   if (a->sq <= 0 || a->skv <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -756,18 +972,50 @@ int tg_attention_joint(const TGAttnArgs* a, void* stream) {
   return launch_flash(joint_kernel, a, static_cast<cudaStream_t>(stream));
 }
 
-int tg_attention_cross_smallq(const TGAttnArgs* a, void* stream) {
-  return launch_flash(smallq_kernel, a, static_cast<cudaStream_t>(stream));
+// K3: the q and k prologue passes into ``pro`` (bf16: q' [B][Sq_p][H * 64],
+// then k' [B][Skv_p][H * 64], S_p = S rounded up to PRO_ROWS; q' carries
+// a->qscale), then the split-KV body on q', k' and v; ``ws``: the f32
+// partials of `splits` > 1 splits of `split_len` keys (flash_splitkv.cuh).
+int tg_attention_cross_smallq(const TGAttnArgs* a, long long splits, long long split_len,
+                              void* pro, void* ws, void* stream) {
+  if (a->sq <= 0 || a->skv <= 0 || pro == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long hd = a->h * D;
+  const long long sq_p = (a->sq + PRO_ROWS - 1) / PRO_ROWS * PRO_ROWS;
+  const long long skv_p = (a->skv + PRO_ROWS - 1) / PRO_ROWS * PRO_ROWS;
+  __nv_bfloat16* qp = static_cast<__nv_bfloat16*>(pro);
+  __nv_bfloat16* kp = qp + a->b * sq_p * hd;
+  const long long rows[2] = {sq_p, skv_p};
+  __nv_bfloat16* outs[2] = {qp, kp};
+  for (int side = 0; side < 2; ++side) {
+    const dim3 grid(static_cast<unsigned>(rows[side] / PRO_ROWS), static_cast<unsigned>(a->b));
+    smallq_prologue_kernel<<<grid, NTHREADS, 0, s>>>(*a, side, outs[side], rows[side] * hd);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  TGAttnArgs p = *a;
+  p.q = qp;
+  p.k = kp;
+  p.q_sb = sq_p * hd;
+  p.k_sb = skv_p * hd;
+  p.q_ss = p.k_ss = hd;
+  p.q_sh = p.k_sh = D;
+  p.qscale = 1.0;  // folded into q' by its prologue
+  return launch_splitkv<D>(smallq_splitkv_kernel, smallq_combine_kernel, &p, splits, split_len,
+                           ws, s);
 }
 
-// K4: plain [B, H, S, head_dim] attention, head_dim 16, 32, 64 or 128.
-int tg_attention_bhsd(const TGAttnArgs* a, long long head_dim, void* stream) {
+// K4: plain [B, H, S, head_dim] attention, head_dim 16, 32, 64 or 128, in
+// `splits` splits of `split_len` keys (``ws``: their f32 partials, null at
+// one split).
+int tg_attention_bhsd(const TGAttnArgs* a, long long head_dim, long long splits,
+                      long long split_len, void* ws, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 16: return launch_flash(bhsd_kernel<16>, a, s);
-    case 32: return launch_flash(bhsd_kernel<32>, a, s);
-    case 64: return launch_flash(bhsd_kernel<64>, a, s);
-    case 128: return launch_flash(bhsd_kernel<128>, a, s);
+    case 16: return launch_bhsd<16>(a, splits, split_len, ws, s);
+    case 32: return launch_bhsd<32>(a, splits, split_len, ws, s);
+    case 64: return launch_bhsd<64>(a, splits, split_len, ws, s);
+    case 128: return launch_bhsd<128>(a, splits, split_len, ws, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
