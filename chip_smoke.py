@@ -14,10 +14,12 @@ Phases, each printing its own lines:
           path's and K6 (fused prologue on [B, H, S, D]) at the T2To
           trainer's, against their plain PyTorch versions: error, planted
           fault, kernel / plain / library times (CUDA events) and bound; the
-          lse outputs of K1, K4 and K6; K3 and K4 (split-KV) at forced
-          split counts 1, 2 and 5 beside their plan's, with a second planted
-          fault (the last split left out of the combine); K7 against bf16
-          K1; K1 at the T2To
+          lse outputs of K1, K4 and K6; K3 and K4 at forced split counts
+          1, 2 and 5 beside their plan's, K1 and K6 at 2 and 5 beside
+          theirs (1), with a second planted fault (the last split left out
+          of the combine) and each call's device time per kernel (prologue
+          pass / body / combine), its kernels checked to fall in their own
+          trace group; K7 against bf16 K1; K1 at the T2To
           shape; K4 at head dims 16, 32 and 128 at its row's width; K6 as a
           strided view of merged operands and at head dims 16 and 32; K1
           and K5 at the T2To trainer's shape with its padded-chunk key bias;
@@ -91,7 +93,9 @@ PHASES = ("env", "build", "kernels", "probes", "dit", "edit", "gen", "train", "t
 # planted fault fails the bounds.
 REL_L2_BOUND = 1e-2
 MAX_ABS_REL = 2.0 ** -5  # 4-8 bf16 ulps at the output's largest magnitude
-KV_TILE = 64  # kv tile of K1, K2, K5-K7 (csrc BN); the planted fault drops the keys past it
+KV_TILE = 64  # kv tile of K2, K5 and K7 (csrc BN); the planted fault drops the keys past it
+# K1's and K6's drops the keys past their body's kv tile, attention.kv_tile(d)
+# (128 keys at d <= 64, 64 at 128)
 
 KERNELS = {
     # entry point: (TPU kernel it replaces)
@@ -190,6 +194,9 @@ def phase_build(state: dict) -> None:
     for lib, (path, dt) in zip(libs, built):
         log(f"[build] {os.path.relpath(lib.source, REPO)} -> {os.path.relpath(path, REPO)} "
             f"in {dt:.1f} s")
+        for line in lib.build_log.splitlines():
+            if "warning" in line or "Performance Loss" in line:
+                log(f"[build]   {line.strip()}")
         for name, regs, spill in B.ptxas_report(lib.build_log):
             log(f"[build]   {name}: {regs} registers, {spill} bytes spilled")
             if spill:
@@ -377,8 +384,10 @@ def run_plain(name, c, kv_len=None):
 
 
 def _without_ragged_tile(name, c):
+    from tokensgen_tpu_torch.kernels import attention as A
+
     skv = c["k"].shape[2 if name == "flash_attention_bhsd" else 1]
-    dropped = skv % KV_TILE
+    dropped = skv % (A.kv_tile(64) if name == "fused_attention_joint" else KV_TILE)
     if dropped == 0:
         raise RuntimeError(f"{name}: Skv {skv} has no ragged kv tile to drop")
     return lambda: run_plain(name, c, kv_len=skv - dropped)
@@ -551,7 +560,7 @@ def _k6_checks(dev, state) -> None:
     log(f"[kernels] {name} at the T2To trainer's shape {tuple(q4.shape)}, no bias:")
     _compare(name, lambda: A.fused_attention_bhsd(q4, k4, v4, tq, tk),
              lambda: _k6_plain(q4, k4, v4, tq, tk, None), state,
-             fault_fn=lambda: _k6_plain(q4, k4, v4, tq, tk, None, skv - skv % KV_TILE),
+             fault_fn=lambda: _k6_plain(q4, k4, v4, tq, tk, None, skv - skv % A.kv_tile(64)),
              work=_k6_work(q4, k4, v4, tq, tk, None),
              library_fn=lambda: _sdpa(qn, kn, v4, 1.0))
     out, lse = A.fused_attention_bhsd(q4, k4, v4, tq, tk, with_lse=True)
@@ -572,7 +581,7 @@ def _k6_checks(dev, state) -> None:
     _compare(f"{name}[strided view of merged, padded-chunk bias {T2TO_TRAIN_VALID_CHUNKS}]",
              lambda: A.fused_attention_bhsd(qv, kv, vv, tq, tk, bias),
              lambda: _k6_plain(qv, kv, vv, tq, tk, bias), state, check_only=True,
-             fault_fn=lambda: _k6_plain(qv, kv, vv, tq, tk, bias, skv - skv % KV_TILE))
+             fault_fn=lambda: _k6_plain(qv, kv, vv, tq, tk, bias, skv - skv % A.kv_tile(64)))
     del cb, qv, kv, vv, out
     gen = torch.Generator(device=dev).manual_seed(9)
     b, hh, s, text = 2, 3, 4000, 226
@@ -590,7 +599,7 @@ def _k6_checks(dev, state) -> None:
         _compare(f"{name}[d={d}, {tuple(q.shape)}, key bias]",
                  lambda: A.fused_attention_bhsd(q, k, v, tq_d, tk_d, bias),
                  lambda: _k6_plain(q, k, v, tq_d, tk_d, bias), state, check_only=True,
-                 fault_fn=lambda: _k6_plain(q, k, v, tq_d, tk_d, bias, s - s % KV_TILE))
+                 fault_fn=lambda: _k6_plain(q, k, v, tq_d, tk_d, bias, s - s % A.kv_tile(d)))
 
 
 def _t2to_train_checks(dev, state) -> None:
@@ -746,7 +755,8 @@ def _splitkv_checks(dev, cases, state) -> None:
                      work=forward_work(name, c),
                      fault_fn=without_last_split if splits > 1 else None,
                      fault="the last split's partial left out of the combine")
-            _kernel_breakdown(label, kernel)
+            _kernel_breakdown(label, kernel, group=_group_named(
+                "attention K4" if name == "flash_attention_bhsd" else "attention K3"))
             if name == "flash_attention_bhsd":
                 out, lse = kernel(True)
                 ref_lse = A.attention_plain(q4, k4, v4, zeros, scale, with_lse=True)[1]
@@ -756,9 +766,11 @@ def _splitkv_checks(dev, cases, state) -> None:
         torch.cuda.empty_cache()
 
 
-def _kernel_breakdown(label, fn, calls=5) -> None:
+def _kernel_breakdown(label, fn, calls=5, group=None) -> None:
     """Device time per CUDA kernel of one call of ``fn`` (the mean over
-    ``calls`` traced calls, torch.profiler), logged."""
+    ``calls`` traced calls, torch.profiler), logged. With ``group`` (a
+    `_KERNEL_GROUPS` name), every attention kernel of the call must fall in
+    that group of the traces' table."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -768,13 +780,88 @@ def _kernel_breakdown(label, fn, calls=5) -> None:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    parts = []
+    parts, found = [], set()
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", 0) or getattr(evt, "self_cuda_time_total", 0)
         if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             name = re.search(r"(\w+)(<[^()]*>)?\(", evt.key.replace("(anonymous namespace)", ""))
             parts.append(f"{name.group(1) if name else evt.key[:40]} {us / calls / 1e3:.4f} ms")
+            if re.search(r"(joint|smallq|bhsd|int8)_\w*kernel", evt.key):
+                found.add(_kernel_group(evt.key))
     log(f"[kernels] {label} per kernel: " + "; ".join(parts))
+    if group is not None and found != {group}:
+        raise RuntimeError(f"{label}: its kernels fall in trace groups {sorted(found)}, "
+                           f"not {group!r} alone")
+
+
+def _without_last_split(q4, k4, v4, bias, split_len):
+    """The combine (`combine_plain`) of the plain split partials without the
+    last split's, over [B, H, S, d] prologued operands, in q-row chunks (K1's
+    whole f32 score tensor would take 121 GB); f32."""
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+
+    b, h, sq, _ = q4.shape
+    chunk = A._q_chunk(b, h, sq, k4.shape[2])
+    outs = []
+    for i in range(0, sq, chunk):
+        acc, m, l = A.splitkv_partials_plain(q4[:, :, i:i + chunk], k4, v4, bias, 1.0, split_len)
+        outs.append(A.combine_plain(acc[:-1], m[:-1], l[:-1])[0])
+        del acc, m, l
+    return torch.cat(outs, dim=2)
+
+
+# split counts of K1 and K6 checked besides their plan's (one at their shapes)
+FUSED_SPLIT_COUNTS = (2, 5)
+
+
+def _fused_split_checks(dev, cases, state) -> None:
+    """K1 at the edit shape and K6 at the T2To trainer's [3, 48, 9,442, 64]
+    at their plan's split count (1) and at `FUSED_SPLIT_COUNTS`: each held
+    to its plain version (one reference per shape), its device time broken
+    down per kernel (the prologue pass, the body, the combine) and its
+    kernels checked to fall in their own trace group; at more than one split
+    with the planted fault of the last split left out of the combine."""
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    c = cases["fused_attention_joint"]
+    q4, k4, v4, _ = _heads_view("fused_attention_joint", c)
+    k6 = _t2to_case(dev, len(T2TO_TRAIN_VALID_CHUNKS))
+    h6 = k6["heads"]
+    x6 = [A.split_heads(k6[n], h6).contiguous() for n in ("q", "k", "v")]
+    n6 = [A.apply_prologue_plain(x6[i], k6[t], 1e-6, True) for i, t in ((0, "tabs_q"),
+                                                                       (1, "tabs_k"))]
+    runs = (
+        ("fused_attention_joint", "attention K1", A.merge_heads, (q4, k4, v4),
+         lambda n: A._launch_fused(c["q"], c["k"], c["v"], None, c["tabs_q"], c["tabs_k"],
+                                   c["heads"], 1e-6, True, True, splits=n),
+         lambda: run_plain("fused_attention_joint", c)),
+        ("fused_attention_bhsd", "attention K6", lambda x: x, (n6[0], n6[1], x6[2]),
+         lambda n: A._launch_fused(*x6, None, k6["tabs_q"], k6["tabs_k"], None, 1e-6, True, True,
+                                   splits=n),
+         lambda: _k6_plain(*x6, k6["tabs_q"], k6["tabs_k"], None)))
+    for name, group_key, merge, (qn, kn, vn), launch, plain in runs:
+        group = _group_named(group_key)
+        (b, h, sq, d), skv = qn.shape, kn.shape[2]
+        plan = A.kv_split_plan(b, h, sq, skv, d, sms)
+        ref = plain()
+        zeros = torch.zeros(b, skv, device=dev)
+        log(f"[kernels] {name} {tuple(qn.shape)} x {skv:,}: planned splits (count, keys) {plan} "
+            f"on {sms} SMs")
+        for n in (plan[0], *FUSED_SPLIT_COUNTS):
+            splits, split_len = A.kv_split_plan(b, h, sq, skv, d, sms, n)
+            label = f"{name}[splits={splits} of {split_len:,} keys]"
+            _compare(label, lambda: launch(n), lambda: ref, state, check_only=True,
+                     fault_fn=(lambda: merge(_without_last_split(qn, kn, vn, zeros, split_len)))
+                     if splits > 1 else None,
+                     fault="the last split's partial left out of the combine")
+            _kernel_breakdown(label, lambda: launch(n), group=group)
+        del ref
+        torch.cuda.empty_cache()
 
 
 def _k4_head_dim_checks(dev, cases, state) -> None:
@@ -831,9 +918,11 @@ def _head_dim_128_checks(dev, state) -> None:
     label = f"{name}[d=128, {tuple(q4.shape)}, padded-chunk bias {T2TO_TRAIN_VALID_CHUNKS}]"
     _compare(label, lambda: A.fused_attention_bhsd(q4, k4, v4, tq, tk, bias),
              lambda: _k6_plain(q4, k4, v4, tq, tk, bias), state,
-             fault_fn=lambda: _k6_plain(q4, k4, v4, tq, tk, bias, skv - skv % KV_TILE),
+             fault_fn=lambda: _k6_plain(q4, k4, v4, tq, tk, bias, skv - skv % A.kv_tile(128)),
              work=_k6_work(q4, k4, v4, tq, tk, bias),
              library_fn=_library_or_none(label, lambda: (lambda: _sdpa(qn, kn, v4, 1.0, bias))))
+    _kernel_breakdown(label, lambda: A.fused_attention_bhsd(q4, k4, v4, tq, tk, bias),
+                      group=_group_named("attention K6"))
     del q4, k4, c
     gen = torch.Generator(device=dev).manual_seed(15)
     cb = dict(q4=qn, k4=kn, v4=v4, scale=1.0, key_bias=bias, heads=None,
@@ -919,6 +1008,7 @@ def phase_kernels(state: dict) -> None:
                  fault_fn=_without_ragged_tile(name, c), work=forward_work(name, c),
                  library_fn=lambda: _sdpa(q4, k4, v4, scale))
     _splitkv_checks(dev, cases, state)
+    _fused_split_checks(dev, cases, state)
     _k4_head_dim_checks(dev, cases, state)
     # K7 at the gen path's joint shape; then its error against bf16 K1 on the
     # same inputs (the int8 quantization's own cost, no bound)
@@ -928,6 +1018,7 @@ def phase_kernels(state: dict) -> None:
     _compare(name, lambda: run_kernel(name, c), lambda: run_plain(name, c), state,
              fault_fn=_without_ragged_tile(name, c), work=forward_work(name, c),
              library_fn=lambda: _sdpa(q4, k4, v4, scale))
+    _kernel_breakdown(name, lambda: run_kernel(name, c), group=_group_named("attention K7"))
     rel, err, _ = agreement(run_kernel(name, c), run_kernel("fused_attention_joint", c))
     log(f"[kernels] {name} against bf16 fused_attention_joint on the same inputs "
         f"(quantization error): rel_l2_err {rel:.3e} max_abs_err {err:.3e}")
@@ -2089,11 +2180,14 @@ _KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name), first match w
     ("attention K7 (int8_prologue_kernel + joint_int8_kernel)",
      ("int8_prologue_kernel", "joint_int8_kernel")),
     ("attention K5 (bwd_dkdv_kernel + bwd_dq_kernel)", ("bwd_dkdv_kernel", "bwd_dq_kernel")),
-    ("attention K1 (joint_kernel)", ("joint_kernel",)),
+    ("attention K1 (joint_prologue + joint_splitkv + joint_combine)",
+     ("joint_prologue_kernel", "joint_splitkv_kernel", "joint_combine_kernel")),
     ("attention K2 (smallkv_kernel)", ("smallkv_kernel",)),
     ("attention K3 (smallq_prologue + smallq_splitkv + smallq_combine)",
      ("smallq_prologue_kernel", "smallq_splitkv_kernel", "smallq_combine_kernel")),
-    ("attention K6 (fused_bhsd_kernel)", ("fused_bhsd_kernel",)),
+    # before K4: "fused_bhsd_splitkv_kernel" holds K4's "bhsd_splitkv_kernel"
+    ("attention K6 (fused_bhsd_prologue + fused_bhsd_splitkv + fused_bhsd_combine)",
+     ("fused_bhsd_prologue_kernel", "fused_bhsd_splitkv_kernel", "fused_bhsd_combine_kernel")),
     ("attention K4 (bhsd_splitkv + bhsd_combine)", ("bhsd_splitkv_kernel", "bhsd_combine_kernel")),
     # before matmul: cuDNN's implicit-GEMM convolutions also have "gemm" in their names
     ("convolution (cuDNN)", ("conv", "implicit", "winograd", "fprop", "dgrad", "wgrad")),
@@ -2102,6 +2196,16 @@ _KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name), first match w
     ("copy / cat", ("copy", "Copy", "cat", "Cat")),
     ("elementwise", ("elementwise", "vectorized", "Elementwise")),
 )
+
+
+def _group_named(prefix: str) -> str:
+    """The `_KERNEL_GROUPS` group whose name starts with ``prefix`` + " "."""
+    return next(g for g, _ in _KERNEL_GROUPS if g.startswith(prefix + " "))
+
+
+def _kernel_group(key: str) -> str:
+    """The `_KERNEL_GROUPS` group of a CUDA kernel's trace name, or "other"."""
+    return next((g for g, keys in _KERNEL_GROUPS if any(k in key for k in keys)), "other")
 
 
 def _profile(fn, phase: str, name: str, chrome: bool = True) -> None:
@@ -2122,8 +2226,7 @@ def _profile(fn, phase: str, name: str, chrome: bool = True) -> None:
         us = getattr(evt, "self_device_time_total", 0) or getattr(evt, "self_cuda_time_total", 0)
         if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        group = next((g for g, keys in _KERNEL_GROUPS if any(k in evt.key for k in keys)),
-                     "other")
+        group = _kernel_group(evt.key)
         groups[group] = groups.get(group, 0.0) + us / 1e3
     busy = sum(groups.values())
     log(f"[{phase}] traced {name.replace('_', ' ')}: wall {wall:.1f} ms, device busy "

@@ -1,6 +1,7 @@
 """The Hopper kernels of tokensgen_tpu_torch (the attention forwards K1-K4,
-K4 also at head dims 16, 32 and 128, K3 and K4 at forced split counts, their
-logsumexp outputs, the backward
+K4 also at head dims 16, 32 and 128, K1, K3, K4 and K6 at forced split
+counts, K1 and K6 on all-negative score rows and refusing misaligned
+operands, their logsumexp outputs, the backward
 K5 at head dims 16, 32, 64 and 128, the int8-score forward K7, the
 [B, H, S, D] fused-prologue forward K6 at the same four, and the probe
 kernels T1, T2, T3a, T3b, T4a, T4b, T5, T6, T7 and T8) against their plain
@@ -349,6 +350,118 @@ def test_backward_head_dims_on_card(cuda_device, d):
     assert TA.attention_backward.launches == before + 2
     for x, r in zip(*grads):
         _assert_within_bounds(x, r)
+
+
+def _fused_case(kernel, d, layout, dev, seed):
+    """bf16 operands of K1 (merged [2, S, 4 * 64]) or K6 ([2, 3, S, d],
+    contiguous or the strided view of merged tensors), 300 q rows and 517
+    keys, per-sample tables with a text prefix and a key-bias mask on one
+    sample: (q, k, v, tq, tk, bias, heads or None, the prologued [B, H, S, d]
+    (qn, kn, v) of the plain version)."""
+    rng = np.random.default_rng(seed)
+    b, h, sq, skv = 2, (4 if kernel == "K1" else 3), 300, 517
+
+    def x(s):
+        merged = torch.from_numpy(rng.normal(size=(b, s, h * d)).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        if kernel == "K1":
+            return merged
+        view = TA.split_heads(merged, h)
+        return view if layout == "merged_view" else view.contiguous()
+
+    q, k, v = x(sq), x(skv), x(skv)
+    tabs = []
+    for s, fold in ((sq, d ** -0.5), (skv, 1.0)):
+        g = torch.from_numpy(np.abs(rng.normal(size=(d,))).astype(np.float32))
+        b_ = torch.from_numpy((0.1 * rng.normal(size=(d,))).astype(np.float32))
+        ang = torch.from_numpy(rng.normal(size=(b, s - 5, d)).astype(np.float32))
+        tabs.append(tuple(z.to(dev) for z in TA.make_prologue(
+            d, [(None, 5), ((ang.cos(), ang.sin()), s - 5)], g, b_, fold=fold)))
+    bias = torch.zeros(b, skv, device=dev)
+    bias[1, : skv // 3] = -1e9
+    heads = h if kernel == "K1" else None
+    if kernel == "K1":
+        q4, k4, v4 = (TA.split_heads(z, h) for z in (q, k, v))
+    else:
+        q4, k4, v4 = q, k, v
+    qn = TA.apply_prologue_plain(q4, tabs[0], 1e-6, True)
+    kn = TA.apply_prologue_plain(k4, tabs[1], 1e-6, True)
+    return q, k, v, tabs[0], tabs[1], bias, heads, (qn, kn, v4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 2, 5])
+@pytest.mark.parametrize("kernel,d,layout", [("K1", 64, "merged"), ("K6", 16, "merged_view"),
+                                             ("K6", 32, "contiguous"), ("K6", 64, "merged_view"),
+                                             ("K6", 128, "contiguous"),
+                                             ("K6", 128, "merged_view")])
+def test_fused_kernels_at_split_counts_on_card(cuda_device, kernel, d, layout, splits):
+    """K1 and K6 (the prologue pass, the body, the combine) at the plan's
+    split count and at forced 2 and 5, on ragged bf16 operands with a
+    key-bias mask (at 5 splits of 128 keys one split's keys are all masked
+    on sample 1 at d <= 64): the output within REL_L2_BOUND and MAX_ABS_REL
+    of the plain version, in q's layout, bit-equal to the call without its
+    lse; the lse within the lse bounds."""
+    q, k, v, tq, tk, bias, heads, (qn, kn, v4) = _fused_case(kernel, d, layout, cuda_device,
+                                                             40 + d)
+    if splits == 5:
+        bias[1, 128:256] = -1e9
+    out, lse = TA._launch_fused(q, k, v, bias, tq, tk, heads, 1e-6, True, True, with_lse=True,
+                                splits=splits)
+    plain = TA._launch_fused(q, k, v, bias, tq, tk, heads, 1e-6, True, True, splits=splits)
+    ref, ref_lse = TA.attention_plain(qn, kn, v4, bias, 1.0, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    if kernel == "K6":
+        assert out.stride() == q.stride()
+    _assert_within_bounds(out if kernel == "K6" else TA.split_heads(out, heads), ref)
+    assert ((lse - ref_lse).norm() / ref_lse.norm()).item() <= LSE_REL_L2_BOUND
+    assert (lse - ref_lse).abs().max().item() <= LSE_MAX_REL * ref_lse.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_attention_joint", "fused_attention_bhsd"])
+def test_fused_kernels_on_all_negative_rows(cuda_device, name):
+    """K1 and K6 on rows whose every score is far negative (q = -k with
+    LayerNorm gain 50, as chip_smoke.py): the online max keeps them finite,
+    and each output is a convex combination of v's rows (within v's range
+    per column, to a bf16 ulp). The weights themselves hang on the bf16
+    rounding of q' (scores near -3e4 in log2 units): no closer agreement
+    with the plain version is asked."""
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    d, h, s = 64, 4, 1024
+    base = torch.randn(1, 1, h * d, generator=gen, device=cuda_device)
+    k = (base + 1e-3 * torch.randn(1, s, h * d, generator=gen, device=cuda_device)).bfloat16()
+    v = torch.randn(1, s, h * d, generator=gen, device=cuda_device).bfloat16()
+    gain, zero = torch.full((d,), 50.0, device=cuda_device), torch.zeros(d, device=cuda_device)
+    tq = TA.make_prologue(d, [(None, s)], gain, zero, fold=d ** -0.5)
+    tk = TA.make_prologue(d, [(None, s)], gain, zero)
+    q = -k
+    if name == "fused_attention_joint":
+        out = TA.fused_attention_joint(q, k, v, tq, tk, heads=h)
+    else:
+        out = TA.merge_heads(TA.fused_attention_bhsd(*(TA.split_heads(z, h) for z in (q, k, v)),
+                                                     tq, tk))
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    vf, of = v.float(), out.float()
+    assert (of <= vf.amax(dim=1, keepdim=True) * (1 + 2 ** -7) + 1e-6).all()
+    assert (of >= vf.amin(dim=1, keepdim=True) * (1 + 2 ** -7) - 1e-6).all()
+
+
+@pytest.mark.cuda
+def test_fused_kernels_refuse_misaligned_operands(cuda_device):
+    """An operand whose rows are not 16-byte aligned (TMA cannot take it)
+    raises ValueError in K1 and K6, and nothing is counted."""
+    x = torch.zeros(1, 129, 2 * D + 8, device=cuda_device, dtype=torch.bfloat16)
+    bad = x[:, 1:, 1:1 + 2 * D]  # rows start 2 bytes off the 16-byte grid
+    tabs = TA.prologue_identity(128, D, device=cuda_device)
+    TA.reset_launch_counts()
+    with pytest.raises(ValueError):
+        TA.fused_attention_joint(bad, bad, bad, tabs, tabs, heads=2)
+    with pytest.raises(ValueError):
+        TA.fused_attention_bhsd(*(TA.split_heads(bad, 2) for _ in range(3)), tabs, tabs)
+    assert all(n == 0 for n in TA.launch_counts().values())
 
 
 # ------------------------------------------------------------ probe kernels

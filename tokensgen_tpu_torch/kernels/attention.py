@@ -33,12 +33,14 @@ skips the K2/K3 routing), K6 or K4, each with its logsumexp; the backward is
 K5, at the head dims K4 and K6 take (`HEAD_DIMS`). On the CPU both
 directions run the plain versions.
 
-The CUDA C++ sources are `csrc/attention.cu`, the forward body it shares
-with the probes, `csrc/flash_fwd.cuh`, and K3's and K4's split-KV body,
+The CUDA C++ sources are `csrc/attention.cu`, the mma.sync pieces it shares
+with the probes, `csrc/flash_fwd.cuh`, K3's and K4's split-KV body,
 `csrc/flash_splitkv.cuh` (the keys of a call cut into `kv_split_plan`'s
-splits, each split's f32 partials merged by a combine pass; K3's prologue
-runs once per row in a pass of its own, `prologue_pass_plain`'s function,
-into a bf16 workspace); `build_kernels` compiles them with
+splits, each split's f32 partials merged by a combine pass), and K1's and
+K6's overlapped body on the same machinery, `csrc/flash_ws.cuh`. K1, K3 and
+K6 run their prologues once per row in a pass of their own
+(`prologue_pass_plain`'s function) into a bf16 workspace.
+`build_kernels` compiles them with
 nvcc (`kernels/build.py`) into a shared library with a plain C interface
 (loaded with ctypes) under ``<repo>/build/kernels``. Dispatch goes by the
 tensor's device: a CPU tensor takes the plain version (`attention_fused_plain` / `attention_plain`,
@@ -348,18 +350,26 @@ def combine_plain(acc, m, l):
     return out, (mx + torch.log2(lsum)) * math.log(2.0)
 
 
-def prologue_pass_plain(x, tabs, heads: int, eps: float, normalize: bool, scale: float = 1.0):
-    """K3's prologue pass on merged [B, S, H*D]: per (row, head) the f32
-    LayerNorm, then RoPE with the tables [(B,) S, D] that every head of the
-    row shares, times ``scale`` (log2 e on the q side), cast to x's dtype."""
+def prologue_pass_plain(x, tabs, heads: Optional[int], eps: float, normalize: bool,
+                        scale: float = 1.0):
+    """The prologue pass of K1, K3 and K6 (csrc `prologue_rows`): per (row,
+    head) the f32 LayerNorm (with ``normalize``), then RoPE with the tables
+    [(B,) S, D] that every head of the row shares, times ``scale`` (log2 e
+    on a q side), cast to x's dtype, in the workspace's layout: contiguous
+    merged [B, S, H*D]. ``x`` is merged [B, S, H*D] (pass ``heads``) or
+    [B, H, S, D] with any strides (``heads`` None: K6's operands)."""
     cosg, sin, add, rg = tabs
-    b, s, hd = x.shape
-    x32 = x.float().reshape(b, s, heads, hd // heads)
+    if heads is None:
+        x32 = x.float().permute(0, 2, 1, 3)
+    else:
+        b, s, hd = x.shape
+        x32 = x.float().reshape(b, s, heads, hd // heads)
+    b, s, h, d = x32.shape
     if normalize:
         dlt = x32 - x32.mean(-1, keepdim=True)
         x32 = dlt * torch.rsqrt((dlt * dlt).mean(-1, keepdim=True) + eps)
     y = (x32 * cosg[..., None, :] + (x32 @ rg) * sin[..., None, :] + add[..., None, :]) * scale
-    return y.reshape(b, s, hd).to(x.dtype)
+    return y.reshape(b, s, h * d).to(x.dtype)
 
 
 def quantize_pairs_plain(x, tabs, eps: float, normalize: bool, scale: float = 1.0):
@@ -481,18 +491,21 @@ class _Int8Args(ctypes.Structure):
     )
 
 
-_ENTRY_POINTS = ("tg_attention_joint", "tg_attention_cross_smallkv")
+_K2_ENTRY_POINT = "tg_attention_cross_smallkv"
 _BWD_ENTRY_POINT = "tg_attention_bwd"  # takes the head dim after the args
 _INT8_ENTRY_POINT = "tg_attention_joint_int8"
-_K6_ENTRY_POINT = "tg_attention_fused_bhsd"  # takes the head dim after the args
+_K1_ENTRY_POINT = "tg_attention_joint"  # splits, split_len, prologue and split workspaces
+_K6_ENTRY_POINT = "tg_attention_fused_bhsd"  # head dim, then as K1
 _K3_ENTRY_POINT = "tg_attention_cross_smallq"  # splits, split_len, prologue and split workspaces
 _K4_ENTRY_POINT = "tg_attention_bhsd"  # head dim, splits, split_len, split workspace
 
 
 def _bind(lib) -> None:
-    for name in _ENTRY_POINTS:
-        _build.bind(lib, name, ctypes.POINTER(_Args), ctypes.c_void_p)
-    _build.bind(lib, _K6_ENTRY_POINT, ctypes.POINTER(_Args), ctypes.c_int64, ctypes.c_void_p)
+    _build.bind(lib, _K2_ENTRY_POINT, ctypes.POINTER(_Args), ctypes.c_void_p)
+    _build.bind(lib, _K1_ENTRY_POINT, ctypes.POINTER(_Args), ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
+    _build.bind(lib, _K6_ENTRY_POINT, ctypes.POINTER(_Args), ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
     _build.bind(lib, _K3_ENTRY_POINT, ctypes.POINTER(_Args), ctypes.c_int64, ctypes.c_int64,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
     _build.bind(lib, _K4_ENTRY_POINT, ctypes.POINTER(_Args), ctypes.c_int64, ctypes.c_int64,
@@ -584,29 +597,13 @@ def _bias_ptr(key_bias, b: int, skv: int, keep: list):
     return kb.data_ptr()
 
 
-def _launch(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k,
-            qscale: float, with_lse: bool = False):
-    """Launches K1, K2 or K6; returns ``out`` or, ``with_lse``, (out, lse)
-    with lse the natural-log logsumexp f32 [B, H, Sq]. K6 takes 4-D
-    operands of any of `HEAD_DIMS` and writes ``out`` in q's memory layout,
-    so the [B, H, S, D] view of a merged tensor gives a merged output."""
-    takes_d = entry == _K6_ENTRY_POINT
-    d = q.shape[-1] if takes_d else 64
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{entry}: head dim {d} not in {HEAD_DIMS}")
-    lib = _lib()
-    k6 = entry == _K6_ENTRY_POINT
-    a, out, _keep = attn_args(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k,
-                              qscale, d, keep_layout=k6)  # _keep: alive through the launch
-    lse = None
-    if with_lse:
-        lse = torch.empty(a.b, a.h, a.sq, dtype=torch.float32, device=q.device)
-        a.lse = lse.data_ptr()
-    stream = _build.stream_of(q)
-    fn = getattr(lib, entry)
-    _build.check_launch(entry, fn(ctypes.byref(a), d, stream) if takes_d else
-                        fn(ctypes.byref(a), stream))
-    return (out, lse) if with_lse else out
+def _launch_smallkv(q, k, v, key_bias, tabs_q, heads, eps, norm_q):
+    """Launches K2 on merged [B, S, H*64] operands, k already prologued."""
+    a, out, _keep = attn_args(q, k, v, key_bias, tabs_q, None, heads, eps, norm_q, False,
+                              _LOG2E)  # _keep: alive through the launch
+    _build.check_launch(_K2_ENTRY_POINT, getattr(_lib(), _K2_ENTRY_POINT)(
+        ctypes.byref(a), _build.stream_of(q)))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -644,6 +641,39 @@ def _launch_smallq(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k
     _build.check_launch(_K3_ENTRY_POINT, getattr(lib, _K3_ENTRY_POINT)(
         ctypes.byref(a), *plan, pro.data_ptr(), ws, _build.stream_of(q)))
     return out
+
+
+def _launch_fused(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k,
+                  with_lse: bool = False, splits: Optional[int] = None):
+    """K1 on merged [B, S, H*64] operands (pass ``heads``) or K6 on
+    [B, H, S, D] ones by their strides (``heads`` None, D in `HEAD_DIMS`;
+    the output keeps q's memory layout, so the [B, H, S, D] view of a merged
+    tensor gives a merged output): the prologue passes of k and q (log2 e
+    folded into q') into a bf16 workspace, the body in `kv_split_plan`'s
+    splits (``splits`` forces a count), then the combine.
+    Returns ``out`` or, ``with_lse``, (out, lse) with lse the natural-log
+    logsumexp f32 [B, H, Sq]."""
+    k6 = heads is None
+    d = q.shape[-1] if k6 else 64
+    entry = _K6_ENTRY_POINT if k6 else _K1_ENTRY_POINT
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{entry}: head dim {d} not in {HEAD_DIMS}")
+    lib = _lib()
+    a, out, keep = attn_args(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k,
+                             _LOG2E, d, keep_layout=k6)
+    lse = None
+    if with_lse:
+        lse = torch.empty(a.b, a.h, a.sq, dtype=torch.float32, device=q.device)
+        a.lse = lse.data_ptr()
+    plan = kv_split_plan(a.b, a.h, a.sq, a.skv, d, _sm_count(q.device.index or 0), splits)
+    pro = torch.empty(a.b * (a.skv + a.sq) * a.h * d, dtype=torch.bfloat16, device=q.device)
+    keep.append(pro)
+    ws = _split_workspace(plan, a.b, a.h, a.sq, d, q.device, keep)
+    stream = _build.stream_of(q)
+    fn = getattr(lib, entry)
+    _build.check_launch(entry, fn(ctypes.byref(a), d, *plan, pro.data_ptr(), ws, stream) if k6
+                        else fn(ctypes.byref(a), *plan, pro.data_ptr(), ws, stream))
+    return (out, lse) if with_lse else out
 
 
 def _launch_bhsd(q, k, v, key_bias, scale: float, with_lse: bool = False,
@@ -802,8 +832,7 @@ def fused_attention_joint(q, k, v, tabs_q, tabs_k, key_bias=None, heads: int = N
                               1.0, with_lse=with_lse)
         return (merge_heads(res[0]), res[1]) if with_lse else merge_heads(res)
     _require_cuda(k, v)
-    res = _launch("tg_attention_joint", q, k, v, key_bias, tabs_q, tabs_k, heads, eps,
-                  norm_q, norm_k, _LOG2E, with_lse)
+    res = _launch_fused(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k, with_lse)
     fused_attention_joint.launches += 1
     fused_attention_joint.lse_launches += int(with_lse)
     return res
@@ -821,8 +850,7 @@ def fused_attention_cross_smallkv(q, k, v, tabs_q, tabs_k, key_bias=None, heads:
     if k.shape[1] > _SMALLKV_MAX:
         raise ValueError(f"fused_attention_cross_smallkv: Skv {k.shape[1]} > {_SMALLKV_MAX}")
     kn = merge_heads(apply_prologue_plain(split_heads(k, heads), tabs_k, eps, norm_k))
-    out = _launch("tg_attention_cross_smallkv", q, kn, v, key_bias, tabs_q, None, heads,
-                  eps, norm_q, False, _LOG2E)
+    out = _launch_smallkv(q, kn, v, key_bias, tabs_q, heads, eps, norm_q)
     fused_attention_cross_smallkv.launches += 1
     return out
 
@@ -913,8 +941,7 @@ def fused_attention_bhsd(q, k, v, tabs_q, tabs_k, key_bias=None, eps: float = 1e
     if q.dim() != 4 or q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"fused_attention_bhsd: expected [B, H, S, D] with D in "
                          f"{HEAD_DIMS}, got {tuple(q.shape)}")
-    res = _launch(_K6_ENTRY_POINT, q, k, v, key_bias, tabs_q, tabs_k, None, eps, norm_q,
-                  norm_k, _LOG2E, with_lse)
+    res = _launch_fused(q, k, v, key_bias, tabs_q, tabs_k, None, eps, norm_q, norm_k, with_lse)
     fused_attention_bhsd.launches += 1
     fused_attention_bhsd.lse_launches += int(with_lse)
     return res

@@ -1,13 +1,16 @@
 // Flash-attention kernels for the attention calls of the To2V edit, training
 // and generation paths and of the T2To trainer, written for Hopper (sm_90a),
 // head dim 64 (K4, K5, K6: 16, 32, 64 or 128), bf16 operands with f32 softmax and
-// accumulation on mma.sync m16n8k16 tensor-core tiles (K3, K4: wgmma; K7: its
-// score product on m16n8k32 int8 tiles). K1's and K6's forward body is
+// accumulation on mma.sync m16n8k16 tensor-core tiles (K1, K3, K4, K6: wgmma;
+// K7: its score product on m16n8k32 int8 tiles). K2's and K7's tile pieces are
 // flash_fwd.cuh's, shared with the K4-family probes of probes.cu; K3's and
-// K4's is the split-KV body of flash_splitkv.cuh.
+// K4's body is the split-KV body of flash_splitkv.cuh, K1's and K6's the
+// overlapped one of flash_ws.cuh.
 //
 // Replaces the Pallas TPU kernels of tokensgen_tpu/kernels/attention.py:
-//   tg_attention_joint          joint_kernel    <- _flash_packed_kernel  (_flash_fused_packed_tpu)
+//   tg_attention_joint          joint_prologue_kernel + joint_splitkv_kernel
+//                               (+ joint_combine_kernel)
+//                                               <- _flash_packed_kernel  (_flash_fused_packed_tpu)
 //   tg_attention_cross_smallkv  smallkv_kernel  <- _cross_smallkv_kernel (_flash_cross_smallkv_tpu)
 //   tg_attention_cross_smallq   smallq_prologue_kernel + smallq_splitkv_kernel
 //                               (+ smallq_combine_kernel)
@@ -18,7 +21,8 @@
 //                                               <- _packed_bwd_kernel    (_flash_packed_bwd_tpu)
 //   tg_attention_joint_int8     int8_prologue_kernel + joint_int8_kernel
 //                                               <- _flash_packed_kernel, int8_scores branch
-//   tg_attention_fused_bhsd     fused_bhsd_kernel<HD>
+//   tg_attention_fused_bhsd     fused_bhsd_prologue_kernel<HD> + fused_bhsd_splitkv_kernel<HD>
+//                               (+ fused_bhsd_combine_kernel<HD>)
 //                                               <- _flash_fused_kernel   (_flash_fused_tpu)
 //
 // The forward kernels optionally write the per-row logsumexp of the scores,
@@ -36,11 +40,15 @@
 // before the bf16 cast, as the TPU wrapper does.
 //
 // Design for this card (see PERF.md for the times):
-// * K1, K2, K6, K7 (simple first version): the TPU kernels keep the
-//   prologued K in VMEM across the q sweep of one head pair. Hopper blocks
-//   run in no order and carry nothing between them, so each block of 128 q
-//   rows sweeps all kv tiles itself with synchronous loads, applying the k
-//   prologue on load (K1, K6). No TMA, wgmma or warp specialisation yet.
+// * K2 and K7 (simple first version): each block of 128 q rows sweeps the
+//   kv tiles itself with synchronous loads, mma.sync. No TMA or wgmma yet.
+// * K1 and K6: the TPU kernels keep the prologued K in VMEM across the q
+//   sweep of one head pair; Hopper blocks run in no order and carry nothing
+//   between them, so the prologue of k and of q runs once per row in a
+//   pass of its own (prologue_rows, into a bf16 workspace), and the body
+//   (flash_ws.cuh) takes q', k' and v by TMA: both products on wgmma, each
+//   warpgroup's softmax overlapping its other row block's p.v, the two
+//   warpgroups taking turns at the tensor cores, no block barrier per tile.
 // * K3 and K4 (split-KV, TMA, wgmma): both are bound by operations (the
 //   two products at the bf16 tensor-core rate: 0.22 and 0.03 ms at the
 //   edit path's shapes), but a block-per-q-tile sweep left them bound by
@@ -62,40 +70,36 @@
 
 #include "flash_fwd.cuh"
 #include "flash_splitkv.cuh"
+#include "flash_ws.cuh"
 
 namespace {
 
 constexpr int SMALLKV_MAX = 512;    // kv rows held whole in shared memory
 constexpr int SMALLKV_QCHUNK = 1024;  // q rows per smallkv block
 
-// K1: base joint self-attention, both prologues fused.
-__global__ void __launch_bounds__(NTHREADS) joint_kernel(const TGAttnArgs a) {
-  flash_fwd_body<true, true>(a, blockIdx.y);
-}
+// The prologue pass of K1, K3 and K6: the f32 LayerNorm + RoPE of every head
+// of a row (K1's prologue arithmetic, load_rows'), times ``scale``, into a
+// contiguous bf16 workspace ``out`` ([B][S'][H * HD], batch stride
+// ``out_sb``, S' >= S). Grid (ceil(S / prologue_block_rows(HD)), B); HD / 8
+// threads per row, 8 columns each. A thread reads its row's table entries
+// once ([S, HD] shared or [B, S, HD] per sample; they do not depend on the
+// head) and keeps them in registers for every head, PRO_HEADS heads' loads
+// in flight together. The operand comes by its strides (merged [B, S, H *
+// HD], or K6's [B, H, S, HD] views). Bound by bytes: at K1's edit shape the
+// k side reads and writes 2 x 17,776 x 3,072 bf16 once each (437 MB).
+constexpr int PRO_HEADS = 16;  // heads a thread loads before it computes
 
-// K3: vip -> [text_video || vip] cross-attention, in three launches: the
-// prologue pass for q and for k (`smallq_prologue_kernel`), the split-KV
-// body on the prologued rows (`smallq_splitkv_kernel`), and with more than
-// one split the combine (`smallq_combine_kernel`).
-//
-// The prologue pass: grid (ceil(S / PRO_ROWS), B), 8 threads per row (8
-// columns each). A thread reads its row's table entries once and keeps them
-// in registers for every head (the tables do not depend on the head), then
-// runs the f32 LayerNorm + RoPE (K1's prologue arithmetic, load_rows') on
-// each head of its row, PRO_HEADS heads' loads in flight together, scaled by
-// ``scale``, into the bf16 workspace ``out`` ([B][S rounded up to
-// PRO_ROWS][H * 64], batch stride ``out_sb``). Bound by bytes: the k side
-// reads and writes 2 x 18,256 x 3,072 bf16 once each (448 MB).
-constexpr int PRO_ROWS = NTHREADS / 8;  // rows per prologue block
-constexpr int PRO_HEADS = 16;           // heads a thread loads before it computes
+__host__ __device__ constexpr int prologue_block_rows(int hd) { return NTHREADS / (hd / 8); }
 
-__global__ void __launch_bounds__(NTHREADS) smallq_prologue_kernel(const TGAttnArgs a, int k_side,
-                                                                   __nv_bfloat16* out,
-                                                                   long long out_sb) {
-  const int b = blockIdx.y, r = blockIdx.x * PRO_ROWS + static_cast<int>(threadIdx.x / 8);
-  const int c0 = static_cast<int>(threadIdx.x % 8) * 8;
+template <int HD>
+__device__ __forceinline__ void prologue_rows(const TGAttnArgs& a, int k_side, __nv_bfloat16* out,
+                                              long long out_sb) {
+  constexpr unsigned TPR = HD / 8;  // threads per row
+  const int b = blockIdx.y;
+  const int r = blockIdx.x * prologue_block_rows(HD) + static_cast<int>(threadIdx.x / TPR);
+  const int c0 = static_cast<int>(threadIdx.x % TPR) * 8;
   const int seqlen = static_cast<int>(k_side ? a.skv : a.sq);
-  const bool valid = r < seqlen;  // the same for the 8 lanes of a row
+  const bool valid = r < seqlen;  // the same for the TPR lanes of a row
   const long long sh = k_side ? a.k_sh : a.q_sh;
   const long long sb = k_side ? a.k_sb : a.q_sb, ss = k_side ? a.k_ss : a.q_ss;
   const __nv_bfloat16* x =
@@ -104,10 +108,10 @@ __global__ void __launch_bounds__(NTHREADS) smallq_prologue_kernel(const TGAttnA
   const float scale = k_side ? 1.f : static_cast<float>(a.qscale);
   const float eps = static_cast<float>(a.eps);
   const int heads = static_cast<int>(a.h);
-  __nv_bfloat16* dst = out + b * out_sb + (long long)r * heads * D + c0;
+  __nv_bfloat16* dst = out + b * out_sb + (long long)r * heads * HD + c0;
   float cg[8], sn[8], ad[8], rc[8];
   if (valid) {
-    const long long toff = (long long)b * pro.tb + (long long)r * D + c0;
+    const long long toff = (long long)b * pro.tb + (long long)r * HD + c0;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const float4 c4 = reinterpret_cast<const float4*>(pro.cosg + toff)[e];
@@ -142,14 +146,14 @@ __global__ void __launch_bounds__(NTHREADS) smallq_prologue_kernel(const TGAttnA
         float sum = 0.f;
 #pragma unroll
         for (int e = 0; e < 8; ++e) sum += ln0[e];
-        const float mu = row_sum<8>(sum) * (1.f / D);
+        const float mu = row_sum<TPR>(sum) * (1.f / HD);
         float vs = 0.f;
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           ln0[e] -= mu;
           vs += ln0[e] * ln0[e];
         }
-        const float inv = rsqrtf(row_sum<8>(vs) * (1.f / D) + eps);
+        const float inv = rsqrtf(row_sum<TPR>(vs) * (1.f / HD) + eps);
 #pragma unroll
         for (int e = 0; e < 8; ++e) ln0[e] *= inv;
       }
@@ -160,11 +164,24 @@ __global__ void __launch_bounds__(NTHREADS) smallq_prologue_kernel(const TGAttnA
         y[e] = (ln0[e] * cg[e] + rot * sn[e] + ad[e]) * scale;
       }
       if (valid)
-        *reinterpret_cast<uint4*>(dst + (h0 + u) * D) =
+        *reinterpret_cast<uint4*>(dst + (h0 + u) * HD) =
             make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]),
                        pack_bf16(y[6], y[7]));
     }
   }
+}
+
+// K3: vip -> [text_video || vip] cross-attention, in three launches: the
+// prologue pass for q and for k (`smallq_prologue_kernel`, prologue_rows at
+// 64 with rows padded to PRO_ROWS; q' carries the softmax scale and log2 e),
+// the split-KV body on the prologued rows (`smallq_splitkv_kernel`), and
+// with more than one split the combine (`smallq_combine_kernel`).
+constexpr int PRO_ROWS = prologue_block_rows(D);  // rows per K3 prologue block
+
+__global__ void __launch_bounds__(NTHREADS) smallq_prologue_kernel(const TGAttnArgs a, int k_side,
+                                                                   __nv_bfloat16* out,
+                                                                   long long out_sb) {
+  prologue_rows<D>(a, k_side, out, out_sb);
 }
 
 // Grid (q tiles x splits, H, B), the q tile fastest: the blocks that share
@@ -200,19 +217,78 @@ __global__ void __launch_bounds__(CMB_NT) bhsd_combine_kernel(const TGAttnArgs a
   combine_rows<HD>(a, splits, ws);
 }
 
-// K6: fused-prologue attention on [B, H, S, HD] operands given by strides
-// (replaces _flash_fused_kernel, wrapper _flash_fused_tpu): what the JAX
-// package runs for odd head counts, for 2 * d not a multiple of 128 and for
-// 4-D operands. It computes K1's function per head; the TPU kernel's head
-// blocking (hblk) and lane padding are TPU devices with no use here, so it
-// is K1's body at head dim HD (16, 32, 64 or 128), both prologues in-kernel. A
-// merged [B, S, H * HD] tensor arrives as its [B, H, S, HD] view (strides
-// sb, sh = HD, ss = H * HD): no copy. Bound on this card: the two products
-// (bf16 tensor-core rate), as K1; at HD = 16 the k prologue's table reads
-// weigh more against the products.
+// K1 (joint self-attention on merged [B, S, H * 64], both prologues) and
+// K6 (the same function per head on [B, H, S, HD] operands given by
+// strides, HD = 16, 32, 64 or 128; replaces _flash_fused_kernel, wrapper
+// _flash_fused_tpu: what the JAX package runs for odd head counts, for
+// 2 * d not a multiple of 128 and for 4-D operands; the TPU kernel's head
+// blocking and lane padding have no use here; a merged tensor arrives as
+// its [B, H, S, HD] view, sh = HD, ss = H * HD, without a copy). Each is
+// three launches: the prologue pass of k and of q (`*_prologue_kernel`,
+// prologue_rows: once per row instead of once per q tile that reads it;
+// q' carries the softmax scale and log2 e), the body on q', k' and v
+// (`*_splitkv_kernel`: flash_ws.cuh's overlapped body at HD <= 64,
+// flash_splitkv.cuh's at 128), and with more than one split the combine
+// (`*_combine_kernel`). Bound on this card: the two products at the bf16
+// tensor-core rate, with the exponentials at the MUFU's rate as close a
+// second.
+static_assert(WS_NT == SK_NT, "the two bodies take the same block");
+
+// flash_ws.cuh's body at HD <= 64; at 128 its two row blocks do not fit in
+// registers, and a one-row-block form ran no faster than flash_splitkv.cuh's
+// body on an H100
+__host__ __device__ constexpr int fused_bm(int hd) { return hd <= 64 ? WS_BM : splitkv_bm(hd); }
+
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS) fused_bhsd_kernel(const TGAttnArgs a) {
-  flash_fwd_body<true, true, HD>(a, blockIdx.y);
+__device__ __forceinline__ void fused_body(const TGAttnArgs& a, const CUtensorMap* kmap,
+                                           const CUtensorMap* vmap, const CUtensorMap* qmap,
+                                           int splits, int split_len, float* ws) {
+  const int qt = gridDim.x / splits;
+  const int q0 = (blockIdx.x % qt) * fused_bm(HD), split = blockIdx.x / qt;
+  if constexpr (HD <= 64)
+    ws_body<HD>(a, kmap, vmap, qmap, blockIdx.y, blockIdx.z, q0, split, split_len, splits, ws);
+  else
+    splitkv_body<HD>(a, kmap, vmap, blockIdx.y, blockIdx.z, q0, split, split_len, splits, ws);
+}
+
+__global__ void __launch_bounds__(NTHREADS) joint_prologue_kernel(const TGAttnArgs a, int k_side,
+                                                                  __nv_bfloat16* out,
+                                                                  long long out_sb) {
+  prologue_rows<D>(a, k_side, out, out_sb);
+}
+
+__global__ void __launch_bounds__(WS_NT, 1) joint_splitkv_kernel(
+    const TGAttnArgs a, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap qmap,
+    int splits, int split_len, float* ws) {
+  fused_body<D>(a, &kmap, &vmap, &qmap, splits, split_len, ws);
+}
+
+__global__ void __launch_bounds__(CMB_NT) joint_combine_kernel(const TGAttnArgs a, int splits,
+                                                               const float* ws) {
+  combine_rows<D>(a, splits, ws);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NTHREADS) fused_bhsd_prologue_kernel(const TGAttnArgs a,
+                                                                       int k_side,
+                                                                       __nv_bfloat16* out,
+                                                                       long long out_sb) {
+  prologue_rows<HD>(a, k_side, out, out_sb);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(WS_NT, 1) fused_bhsd_splitkv_kernel(
+    const TGAttnArgs a, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap qmap,
+    int splits, int split_len, float* ws) {
+  fused_body<HD>(a, &kmap, &vmap, &qmap, splits, split_len, ws);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(CMB_NT) fused_bhsd_combine_kernel(const TGAttnArgs a, int splits,
+                                                                    const float* ws) {
+  combine_rows<HD>(a, splits, ws);
 }
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -850,14 +926,6 @@ __global__ void __launch_bounds__(NTHREADS) joint_int8_kernel(const TGInt8Args a
   store_out(acc, o, a.o_ss, q0, sq, nullptr);
 }
 
-int launch_flash(void (*kernel)(TGAttnArgs), const TGAttnArgs* a, cudaStream_t stream) {
-  if (a->sq <= 0 || a->skv <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((a->sq + BM - 1) / BM), static_cast<unsigned>(a->h),
-                  static_cast<unsigned>(a->b));
-  kernel<<<grid, NTHREADS, 0, stream>>>(*a);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // cuTensorMapEncodeTiled, looked up through the runtime's entry-point query (the library
 // links no libcuda)
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -878,13 +946,14 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The 4-D tensor map of one bf16 K or V operand for the split-KV body:
-// (columns HD, rows S, heads H, batch rows B) at element strides (ss, sh,
-// sb); boxes of splitkv_box_cols(HD) columns x splitkv_bn(HD) rows in the
-// swizzle of their row width; rows past S read as zeros.
+// The 4-D tensor map of one bf16 operand for the split-KV bodies: (columns
+// HD, rows S, heads H, batch rows B) at element strides (ss, sh, sb); boxes
+// of splitkv_box_cols(HD) columns x ``rows`` rows (K and V: a kv tile) in
+// the swizzle of their row width; rows past S read as zeros.
 template <int HD>
 cudaError_t kv_tensor_map(CUtensorMap* map, const void* base, long long s, long long h,
-                          long long b, long long ss, long long sh, long long sb) {
+                          long long b, long long ss, long long sh, long long sb,
+                          int rows = splitkv_bn(HD)) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   constexpr int cols = splitkv_box_cols(HD);
@@ -892,7 +961,7 @@ cudaError_t kv_tensor_map(CUtensorMap* map, const void* base, long long s, long 
                               static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2, static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {cols, static_cast<cuuint32_t>(splitkv_bn(HD)), 1, 1};
+  const cuuint32_t box[4] = {cols, static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swizzle = cols * 2 == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : cols * 2 == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -943,6 +1012,73 @@ int launch_bhsd(const TGAttnArgs* a, long long splits, long long split_len, void
                             split_len, ws, s);
 }
 
+// K1 or K6 at head dim HD: the prologue passes of k and q (q' scaled by
+// a->qscale) into ``pro`` (bf16 k' [B][Skv][H * HD], then q' [B][Sq][H *
+// HD]), then the body on q', k' and v in ``splits`` splits of ``split_len``
+// keys (``ws``: their f32 partials, null at one split), then with more
+// than one split the combine.
+template <int HD>
+int launch_fused(void (*prologue)(TGAttnArgs, int, __nv_bfloat16*, long long),
+                 void (*body)(TGAttnArgs, CUtensorMap, CUtensorMap, CUtensorMap, int, int, float*),
+                 void (*combine)(TGAttnArgs, int, const float*), const TGAttnArgs* a,
+                 long long splits, long long split_len, void* pro, void* ws, cudaStream_t s) {
+  if (a->sq <= 0 || a->skv <= 0 || pro == nullptr || splits < 1 ||
+      split_len < splitkv_bn(HD) || split_len % splitkv_bn(HD) ||
+      (splits - 1) * split_len >= a->skv || splits * split_len < a->skv ||
+      (splits > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long hd = a->h * HD;
+  __nv_bfloat16* kp = static_cast<__nv_bfloat16*>(pro);
+  __nv_bfloat16* qp = kp + a->b * a->skv * hd;
+  constexpr int rows = prologue_block_rows(HD);
+  for (int side = 1; side >= 0; --side) {
+    const long long n = side ? a->skv : a->sq;
+    const dim3 grid(static_cast<unsigned>((n + rows - 1) / rows), static_cast<unsigned>(a->b));
+    prologue<<<grid, NTHREADS, 0, s>>>(*a, side, side ? kp : qp, n * hd);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  TGAttnArgs p = *a;
+  p.k = kp;
+  p.k_sb = a->skv * hd;
+  p.k_ss = hd;
+  p.k_sh = HD;
+  p.q = qp;
+  p.q_sb = a->sq * hd;
+  p.q_ss = hd;
+  p.q_sh = HD;
+  p.qscale = 1.0;  // folded into q' by its prologue
+  CUtensorMap kmap, vmap, qmap;
+  cudaError_t err = kv_tensor_map<HD>(&kmap, kp, p.skv, p.h, p.b, p.k_ss, p.k_sh, p.k_sb);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<HD>(&vmap, p.v, p.skv, p.h, p.b, p.v_ss, p.v_sh, p.v_sb);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<HD>(&qmap, qp, p.sq, p.h, p.b, p.q_ss, p.q_sh, p.q_sb, fused_bm(HD));
+  constexpr int smem = HD <= 64 ? ws_smem_bytes<HD>() : splitkv_smem_bytes<HD>();
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(body, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long qt = (p.sq + fused_bm(HD) - 1) / fused_bm(HD);
+  const dim3 grid(static_cast<unsigned>(qt * splits), static_cast<unsigned>(p.h),
+                  static_cast<unsigned>(p.b));
+  float* wsf = static_cast<float*>(ws);
+  body<<<grid, WS_NT, smem, s>>>(p, kmap, vmap, qmap, static_cast<int>(splits),
+                                    static_cast<int>(split_len), wsf);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long threads = p.b * p.h * p.sq * (HD / 8);
+  combine<<<static_cast<unsigned>((threads + CMB_NT - 1) / CMB_NT), CMB_NT, 0, s>>>(
+      p, static_cast<int>(splits), wsf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_k6(const TGAttnArgs* a, long long splits, long long split_len, void* pro, void* ws,
+              cudaStream_t s) {
+  return launch_fused<HD>(fused_bhsd_prologue_kernel<HD>, fused_bhsd_splitkv_kernel<HD>,
+                          fused_bhsd_combine_kernel<HD>, a, splits, split_len, pro, ws, s);
+}
+
 template <int HD>
 int launch_bwd(const TGAttnBwdArgs* a, cudaStream_t s) {
   if (a->sq <= 0 || a->skv <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -968,8 +1104,13 @@ int launch_bwd(const TGAttnBwdArgs* a, cudaStream_t s) {
 
 extern "C" {
 
-int tg_attention_joint(const TGAttnArgs* a, void* stream) {
-  return launch_flash(joint_kernel, a, static_cast<cudaStream_t>(stream));
+// K1: the prologue passes, the body, the combine (launch_fused); ``pro``
+// holds the prologued rows (bf16, B * (Skv + Sq) * H * 64), ``ws`` the f32
+// partials of `splits` > 1 splits of `split_len` keys.
+int tg_attention_joint(const TGAttnArgs* a, long long splits, long long split_len, void* pro,
+                       void* ws, void* stream) {
+  return launch_fused<D>(joint_prologue_kernel, joint_splitkv_kernel, joint_combine_kernel, a,
+                         splits, split_len, pro, ws, static_cast<cudaStream_t>(stream));
 }
 
 // K3: the q and k prologue passes into ``pro`` (bf16: q' [B][Sq_p][H * 64],
@@ -1020,14 +1161,16 @@ int tg_attention_bhsd(const TGAttnArgs* a, long long head_dim, long long splits,
   }
 }
 
-// K6: fused-prologue [B, H, S, head_dim] attention, head_dim 16, 32, 64 or 128.
-int tg_attention_fused_bhsd(const TGAttnArgs* a, long long head_dim, void* stream) {
+// K6: fused-prologue [B, H, S, head_dim] attention, head_dim 16, 32, 64 or
+// 128, as K1 (``pro`` and ``ws`` likewise, at head_dim).
+int tg_attention_fused_bhsd(const TGAttnArgs* a, long long head_dim, long long splits,
+                            long long split_len, void* pro, void* ws, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 16: return launch_flash(fused_bhsd_kernel<16>, a, s);
-    case 32: return launch_flash(fused_bhsd_kernel<32>, a, s);
-    case 64: return launch_flash(fused_bhsd_kernel<64>, a, s);
-    case 128: return launch_flash(fused_bhsd_kernel<128>, a, s);
+    case 16: return launch_k6<16>(a, splits, split_len, pro, ws, s);
+    case 32: return launch_k6<32>(a, splits, split_len, pro, ws, s);
+    case 64: return launch_k6<64>(a, splits, split_len, pro, ws, s);
+    case 128: return launch_k6<128>(a, splits, split_len, pro, ws, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,11 +1,12 @@
-// The flash-attention forward body shared by the attention kernels
-// (attention.cu: K1, K3, K4, K6, and K2's / K7's tile pieces) and the K4-family
-// probes (probes.cu: T1, T2): bf16 operands, mma.sync m16n8k16 tensor-core
-// tiles, f32 online softmax in the log2 domain, optional fused qk-norm + RoPE
-// prologue. Templated on the head dim HD (16, 32, 64, 128), the q rows per block
-// BM_ (16 per warp), the kv tile BN_ and where the key bias and the ragged
-// mask apply (every kv tile, or only the last). The attention kernels use the
-// defaults (BM = 128, BN = 64, every tile); the probes sweep the rest.
+// The mma.sync flash-attention forward pieces shared by the attention kernels
+// (attention.cu: K2's and K7's tiles, K5's loads; the argument block, the
+// prologue tables and the accumulator that the split-KV bodies of K1, K3, K4
+// and K6 also use) and the whole body of the K4-family probes (probes.cu:
+// T1, T2): bf16 operands, mma.sync m16n8k16 tensor-core tiles, f32 online
+// softmax in the log2 domain, optional fused qk-norm + RoPE prologue.
+// Templated on the head dim HD (16, 32, 64, 128), the q rows per block BM_
+// (16 per warp), the kv tile BN_ and where the key bias and the ragged mask
+// apply (every kv tile, or only the last). The probes sweep the latter.
 //
 // The lse the forward kernels may write is in the NATURAL log base (lse = ln
 // sum_j exp(s_j), s the natural-domain scores scale*q.k + bias), as the TPU
