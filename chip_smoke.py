@@ -19,7 +19,9 @@ Phases, each printing its own lines:
           theirs (1), with a second planted fault (the last split left out
           of the combine) and each call's device time per kernel (prologue
           pass / body / combine), its kernels checked to fall in their own
-          trace group; K7 against bf16 K1; K1 at the T2To
+          trace group; K2 per kernel and at 1,024-row chunks (4 q tiles a
+          block) beside its plan's one wave; K5 per kernel, and whether two
+          calls give bit-equal dq; K7 against bf16 K1; K1 at the T2To
           shape; K4 at head dims 16, 32 and 128 at its row's width; K6 as a
           strided view of merged operands and at head dims 16 and 32; K1
           and K5 at the T2To trainer's shape with its padded-chunk key bias;
@@ -93,9 +95,11 @@ PHASES = ("env", "build", "kernels", "probes", "dit", "edit", "gen", "train", "t
 # planted fault fails the bounds.
 REL_L2_BOUND = 1e-2
 MAX_ABS_REL = 2.0 ** -5  # 4-8 bf16 ulps at the output's largest magnitude
-KV_TILE = 64  # kv tile of K2, K5 and K7 (csrc BN); the planted fault drops the keys past it
-# K1's and K6's drops the keys past their body's kv tile, attention.kv_tile(d)
-# (128 keys at d <= 64, 64 at 128)
+# kv tile of K7 and of K5 at d != 64 (csrc BN): the planted fault drops the keys past it
+KV_TILE = 64
+# K1's, K2's and K6's drops the keys past their body's kv tile,
+# attention.kv_tile(d) (128 keys at d <= 64, 64 at 128); K5's at d = 64 past
+# its one-pass body's block of keys, attention.BWD_KV_BLOCK (128)
 
 KERNELS = {
     # entry point: (TPU kernel it replaces)
@@ -387,7 +391,8 @@ def _without_ragged_tile(name, c):
     from tokensgen_tpu_torch.kernels import attention as A
 
     skv = c["k"].shape[2 if name == "flash_attention_bhsd" else 1]
-    dropped = skv % (A.kv_tile(64) if name == "fused_attention_joint" else KV_TILE)
+    body_tile = name in ("fused_attention_joint", "fused_attention_cross_smallkv")
+    dropped = skv % (A.kv_tile(64) if body_tile else KV_TILE)
     if dropped == 0:
         raise RuntimeError(f"{name}: Skv {skv} has no ragged kv tile to drop")
     return lambda: run_plain(name, c, kv_len=skv - dropped)
@@ -413,8 +418,7 @@ def _heads_view(name, c):
 def forward_work(name, c):
     """(matmul FLOPs, bytes) of a forward call: q k^T and p v; each input the
     kernel reads (operands, f32 prologue tables, bias) once, the output once.
-    K2 reads its k already prologued (its k prologue runs outside it). K7's
-    q k^T is int8 operations (the third entry), its p v bf16 FLOPs."""
+    K7's q k^T is int8 operations (the third entry), its p v bf16 FLOPs."""
     q, k, v = c["q"], c["k"], c["v"]
     if name == "flash_attention_bhsd":
         (b, h, sq, d), skv = q.shape, k.shape[2]
@@ -422,9 +426,7 @@ def forward_work(name, c):
     else:
         h = c["heads"]
         (b, sq, hd), skv, d = q.shape, k.shape[1], q.shape[2] // h
-        tabs = list(c["tabs_q"][:3])
-        if name != "fused_attention_cross_smallkv":
-            tabs += list(c["tabs_k"][:3])
+        tabs = list(c["tabs_q"][:3]) + list(c["tabs_k"][:3])
     nbytes = _nbytes(q, k, v, q, c.get("key_bias"), *tabs)
     if name == "fused_attention_joint_int8":
         return 2.0 * b * h * sq * skv * d, nbytes, 2.0 * b * h * sq * skv * d
@@ -708,7 +710,8 @@ def _bwd_fns(c):
     work = (10.0 * b * hh * sq * skv * d,  # the 5 products of one pass
             _nbytes(q, k, v, g, c["lse"], c["dsum"], bias, q, k, v)
             + 4 * b * skv)  # dbias out
-    return kernel, plain, (lambda: plain(skv - skv % KV_TILE)), library, work
+    tile = A.BWD_KV_BLOCK if d == 64 else KV_TILE
+    return kernel, plain, (lambda: plain(skv - skv % tile)), library, work
 
 
 # split counts of K3 and K4 (the split-KV forward) checked besides their plan's
@@ -786,7 +789,7 @@ def _kernel_breakdown(label, fn, calls=5, group=None) -> None:
         if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             name = re.search(r"(\w+)(<[^()]*>)?\(", evt.key.replace("(anonymous namespace)", ""))
             parts.append(f"{name.group(1) if name else evt.key[:40]} {us / calls / 1e3:.4f} ms")
-            if re.search(r"(joint|smallq|bhsd|int8)_\w*kernel", evt.key):
+            if re.search(r"(joint|smallkv|smallq|bhsd|int8|bwd)_\w*kernel", evt.key):
                 found.add(_kernel_group(evt.key))
     log(f"[kernels] {label} per kernel: " + "; ".join(parts))
     if group is not None and found != {group}:
@@ -994,6 +997,49 @@ def _k5_head_dim_checks(dev, state) -> None:
             raise RuntimeError(f"the d={d} attention gradient on the card disagrees or skipped K5")
 
 
+def _smallkv_checks(dev, cases) -> None:
+    """K2 at the edit shape: its device time per kernel (the k and q prologue
+    passes, the body), its kernels checked to fall in K2's trace group; then
+    the body's q tiles per block, the plan's one wave against 1,024-row
+    chunks of one (b, h) a block (4 tiles: the grid of K2's earlier mma.sync
+    body), each held to the plain version and timed (CUDA events, median of
+    5)."""
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+
+    name = "fused_attention_cross_smallkv"
+    c = cases[name]
+    _kernel_breakdown(name, lambda: run_kernel(name, c), group=_group_named("attention K2"))
+    (b, sq, _), h = c["q"].shape, c["heads"]
+    ref = run_plain(name, c)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = A.smallkv_tiles_per_block(b, h, sq, sms)
+    for per_block in (plan, 4):
+        def kernel():
+            return A._launch_smallkv(c["q"], c["k"], c["v"], None, c["tabs_q"], c["tabs_k"], h,
+                                     1e-6, True, True, per_block=per_block)
+        _compare(f"{name}[{per_block} q tiles per block]", kernel, lambda: ref, {},
+                 check_only=True)
+        log(f"[kernels] {name}[{per_block} q tiles per block]: {_cuda_time_ms(kernel, 5):.3f} ms")
+
+
+def _k5_repeatability(kernel) -> None:
+    """Whether two K5 calls on the same inputs give bit-equal outputs: dk, dv
+    and dbias must (each has one writer); dq may differ in its last bits (its
+    f32 sums cross blocks of keys in an order that changes from run to run),
+    and is logged."""
+    import torch
+
+    first, second = kernel(), kernel()
+    torch.cuda.synchronize()
+    same = [torch.equal(x, y) for x, y in zip(first, second)]
+    log(f"[kernels] attention_backward twice on the same inputs: bit-equal dq {same[0]}, "
+        f"dk {same[1]}, dv {same[2]}, dbias {same[3]}")
+    if not all(same[1:]):
+        raise RuntimeError("attention_backward: dk, dv or dbias differ between two calls")
+
+
 def phase_kernels(state: dict) -> None:
     import torch
 
@@ -1007,6 +1053,7 @@ def phase_kernels(state: dict) -> None:
         _compare(name, lambda: run_kernel(name, c), lambda: run_plain(name, c), state,
                  fault_fn=_without_ragged_tile(name, c), work=forward_work(name, c),
                  library_fn=lambda: _sdpa(q4, k4, v4, scale))
+    _smallkv_checks(dev, cases)
     _splitkv_checks(dev, cases, state)
     _fused_split_checks(dev, cases, state)
     _k4_head_dim_checks(dev, cases, state)
@@ -1051,6 +1098,9 @@ def phase_kernels(state: dict) -> None:
                  state, fault_fn=fault, check_only=check_only, work=work,
                  library_fn=None if check_only else library(),
                  labels=["dq", "dk", "dv", "dbias"])
+        if row:
+            _k5_repeatability(kernel)
+            _kernel_breakdown("attention_backward", kernel, group=_group_named("attention K5"))
     _k5_head_dim_checks(dev, state)
     _head_dim_128_checks(dev, state)
     # K1 with per-sample (batched) tables and a key-bias mask
@@ -1393,7 +1443,7 @@ def phase_probes(state: dict) -> None:
 # runs it, at full width, with these listed cuts and port settings
 EDIT_CONFIG = "tokensgen_tpu/configs/infer_edit.yaml"
 EDIT_OVERRIDES = {
-    "quant": None,  # bf16, the reference precision (int8 modes not ported)
+    "quant": None,  # bf16, the reference precision (the gen phase runs w8a8 + quant_attn)
     "allow_hash_text_encoder": True,  # no T5 weights or tokenizer in the repo
     "num_inference_steps": 13,  # cut from 52; FIFO needs steps >= 13 latent frames
     "sampling_params.num_partitions": 1,  # cut from 4: 2 lookahead rank windows
@@ -1401,7 +1451,8 @@ EDIT_OVERRIDES = {
 }
 # DiT depth on the edit path, cut from 42 to keep the whole smoke in half its
 # time limit: the gen phase runs the same render (base denoise, FIFO, decode)
-# at the full 42 layers, and the dit phase times the full-depth forward
+# cut likewise (GEN_RENDER_LAYERS), and the dit phase times the full-depth
+# forward
 EDIT_LAYERS = 6
 
 
@@ -2179,10 +2230,11 @@ def phase_t2to_train(state: dict) -> None:
 _KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name), first match wins
     ("attention K7 (int8_prologue_kernel + joint_int8_kernel)",
      ("int8_prologue_kernel", "joint_int8_kernel")),
-    ("attention K5 (bwd_dkdv_kernel + bwd_dq_kernel)", ("bwd_dkdv_kernel", "bwd_dq_kernel")),
+    ("attention K5 (bwd_onepass + bwd_dq_store; bwd_dkdv + bwd_dq at d != 64)",
+     ("bwd_onepass_kernel", "bwd_dq_store_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")),
     ("attention K1 (joint_prologue + joint_splitkv + joint_combine)",
      ("joint_prologue_kernel", "joint_splitkv_kernel", "joint_combine_kernel")),
-    ("attention K2 (smallkv_kernel)", ("smallkv_kernel",)),
+    ("attention K2 (smallkv_prologue + smallkv)", ("smallkv_prologue_kernel", "smallkv_kernel")),
     ("attention K3 (smallq_prologue + smallq_splitkv + smallq_combine)",
      ("smallq_prologue_kernel", "smallq_splitkv_kernel", "smallq_combine_kernel")),
     # before K4: "fused_bhsd_splitkv_kernel" holds K4's "bhsd_splitkv_kernel"

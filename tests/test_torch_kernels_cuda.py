@@ -1,8 +1,9 @@
 """The Hopper kernels of tokensgen_tpu_torch (the attention forwards K1-K4,
 K4 also at head dims 16, 32 and 128, K1, K3, K4 and K6 at forced split
-counts, K1 and K6 on all-negative score rows and refusing misaligned
-operands, their logsumexp outputs, the backward
-K5 at head dims 16, 32, 64 and 128, the int8-score forward K7, the
+counts, K2 at 1 to 512 keys, K1, K2 and K6 on all-negative score rows, K1
+and K6 refusing misaligned operands, their logsumexp outputs, the backward
+K5 at head dims 16, 32, 64 and 128 and at the training shapes' short sides
+(few keys, few q rows), the int8-score forward K7, the
 [B, H, S, D] fused-prologue forward K6 at the same four, and the probe
 kernels T1, T2, T3a, T3b, T4a, T4b, T5, T6, T7 and T8) against their plain
 PyTorch versions, on the card. Every test here is
@@ -220,6 +221,69 @@ def test_backward_matches_plain_on_card(cuda_device, layout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv", [(2200, 130), (130, 2200)])
+def test_backward_short_sides_on_card(cuda_device, sq, skv):
+    """K5 at head dim 64 (the one-pass body) where one side is short, as in
+    the training path's cross-attentions: many q tiles against two key
+    blocks, and a few q tiles that many key blocks add dq into; merged
+    operands, a key-bias mask on one sample: dq, dk, dv and dbias within
+    REL_L2_BOUND and MAX_ABS_REL of attention_bwd_plain."""
+    gen = torch.Generator(cuda_device).manual_seed(sq + skv)
+    b, h = 2, 4
+
+    def rnd(s):
+        return torch.randn(b, s, h * D, generator=gen, device=cuda_device).bfloat16()
+
+    q, g, k, v = rnd(sq), rnd(sq), rnd(skv), rnd(skv)
+    bias = torch.zeros(b, skv, device=cuda_device)
+    bias[1, : skv // 3] = -1e9
+    q4, k4, v4, g4 = (TA.split_heads(z, h) for z in (q, k, v, g))
+    out4, lse = TA.attention_plain(q4, k4, v4, bias, 0.125, with_lse=True)
+    dsum = TA._row_dsum(g4, out4, None)
+    before = TA.attention_backward.launches
+    got = TA.attention_backward(q, k, v, g, lse, dsum, bias, h, 0.125, with_dbias=True)
+    ref = TA.attention_bwd_plain(q4, k4, v4, g4, lse, dsum, bias, 0.125)
+    torch.cuda.synchronize()
+    assert TA.attention_backward.launches == before + 1
+    for x, r in zip(got[:3], ref[:3]):
+        _assert_within_bounds(TA.split_heads(x, h), r)
+    _assert_within_bounds(got[3], ref[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_block", [None, 1])
+@pytest.mark.parametrize("skv", [1, 100, 480, 512])
+def test_smallkv_key_counts_on_card(cuda_device, skv, per_block):
+    """K2 (the prologue passes, then the K / V-resident body) at 1 to 512
+    keys (one ragged 128-key tile to four whole ones) against 2,200 q rows,
+    with the plan's q tiles per block and with one tile a block (every
+    block then loads its own K and V), a key-bias mask on one sample: within
+    REL_L2_BOUND and MAX_ABS_REL of the plain version; the public call
+    counted once."""
+    rng = np.random.default_rng(skv)
+    b, h, sq = 2, 4, 2200
+
+    def x(s):
+        return torch.from_numpy(rng.normal(size=(b, s, h * D)).astype(np.float32)).to(
+            cuda_device, torch.bfloat16)
+
+    q, k, v = x(sq), x(skv), x(skv)
+    tq = _tabs(rng, sq, b, 5, D ** -0.5, cuda_device)
+    tk = TA.prologue_identity(skv, D, device=cuda_device)
+    bias = torch.zeros(b, skv, device=cuda_device)
+    bias[1, : skv // 3] = -1e9
+    before = TA.fused_attention_cross_smallkv.launches
+    if per_block is None:
+        out = TA.fused_attention_cross_smallkv(q, k, v, tq, tk, key_bias=bias, heads=h)
+    else:
+        out = TA._launch_smallkv(q, k, v, bias, tq, tk, h, 1e-6, True, True, per_block=per_block)
+    ref = TA._fused_plain_merged(q, k, v, bias, tq, tk, h, 1e-6, True, True)
+    torch.cuda.synchronize()
+    assert TA.fused_attention_cross_smallkv.launches == before + (per_block is None)
+    _assert_within_bounds(out, ref)
+
+
+@pytest.mark.cuda
 def test_int8_kernel_matches_plain_on_card(cuda_device):
     """K7 vs attention_fused_int8_plain on the same bf16 inputs (ragged
     lengths, per-sample tables, a key-bias mask), within REL_L2_BOUND and
@@ -313,9 +377,9 @@ def test_fused_bhsd_refuses_what_the_card_lacks(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 32, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_backward_head_dims_on_card(cuda_device, d):
-    """K5 at head dims 16, 32 and 128 vs attention_bwd_plain on [B, H, S, d] bf16
+    """K5 at head dims 16, 32, 64 and 128 vs attention_bwd_plain on [B, H, S, d] bf16
     (ragged lengths, a key-bias mask): dq, dk, dv, dbias within REL_L2_BOUND
     and MAX_ABS_REL; then a gradient through `fused_flash_attention` on
     [B, H, S, d] (K6 + K5 under autograd) against autograd through the plain
@@ -420,10 +484,12 @@ def test_fused_kernels_at_split_counts_on_card(cuda_device, kernel, d, layout, s
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["fused_attention_joint", "fused_attention_bhsd"])
+@pytest.mark.parametrize("name", ["fused_attention_joint", "fused_attention_bhsd",
+                                  "fused_attention_cross_smallkv"])
 def test_fused_kernels_on_all_negative_rows(cuda_device, name):
-    """K1 and K6 on rows whose every score is far negative (q = -k with
-    LayerNorm gain 50, as chip_smoke.py): the online max keeps them finite,
+    """K1, K6 and K2 (against the first 480 keys) on rows whose every score
+    is far negative (q = -k with LayerNorm gain 50, as chip_smoke.py): the
+    online max keeps them finite,
     and each output is a convex combination of v's rows (within v's range
     per column, to a bf16 ulp). The weights themselves hang on the bf16
     rounding of q' (scores near -3e4 in log2 units): no closer agreement
@@ -439,6 +505,9 @@ def test_fused_kernels_on_all_negative_rows(cuda_device, name):
     q = -k
     if name == "fused_attention_joint":
         out = TA.fused_attention_joint(q, k, v, tq, tk, heads=h)
+    elif name == "fused_attention_cross_smallkv":
+        k, v = k[:, :480], v[:, :480]
+        out = TA.fused_attention_cross_smallkv(q, k, v, tq, TA.slice_tabs(tk, 0, 480), heads=h)
     else:
         out = TA.merge_heads(TA.fused_attention_bhsd(*(TA.split_heads(z, h) for z in (q, k, v)),
                                                      tq, tk))

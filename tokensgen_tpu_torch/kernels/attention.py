@@ -36,10 +36,12 @@ directions run the plain versions.
 The CUDA C++ sources are `csrc/attention.cu`, the mma.sync pieces it shares
 with the probes, `csrc/flash_fwd.cuh`, K3's and K4's split-KV body,
 `csrc/flash_splitkv.cuh` (the keys of a call cut into `kv_split_plan`'s
-splits, each split's f32 partials merged by a combine pass), and K1's and
-K6's overlapped body on the same machinery, `csrc/flash_ws.cuh`. K1, K3 and
-K6 run their prologues once per row in a pass of their own
-(`prologue_pass_plain`'s function) into a bf16 workspace.
+splits, each split's f32 partials merged by a combine pass), K1's and K6's
+overlapped body on the same machinery and K2's K / V-resident form of it,
+`csrc/flash_ws.cuh`, and K5's one-pass backward at head dim 64,
+`csrc/flash_bwd.cuh`. K1, K2, K3 and K6 run their prologues once per row in
+a pass of their own (`prologue_pass_plain`'s function) into a bf16
+workspace.
 `build_kernels` compiles them with
 nvcc (`kernels/build.py`) into a shared library with a plain C interface
 (loaded with ctypes) under ``<repo>/build/kernels``. Dispatch goes by the
@@ -70,6 +72,9 @@ from tokensgen_tpu_torch.kernels.build import BUILD_DIR, NVCC_FLAGS  # noqa: F40
 
 _LOG2E = 1.4426950408889634
 _SMALLKV_MAX = 512  # kv rows K2 holds whole in shared memory (csrc SMALLKV_MAX)
+SMALLKV_BLOCK_Q = 256  # q rows per tile of K2's body (csrc WS_BM)
+BWD_KV_BLOCK = 128  # keys per block of K5's one-pass body at head dim 64 (csrc BW_BKV)
+BWD_Q_TILE = 128  # q rows per tile of its sweep (csrc BW_BQ)
 HEAD_DIMS = (16, 32, 64, 128)  # head dims K4, K5 and K6 are built for (K1-K3, K7: 64)
 MAX_SCORE_BYTES = 1 << 31  # f32 score tensor per q-row chunk of `attention_plain`
 # K3's prologue pass writes rows in blocks of PRO_ROWS (csrc attention.cu)
@@ -250,6 +255,39 @@ def attention_bwd_plain(q, k, v, g, lse, dsum, key_bias, scale: float):
         dk += torch.einsum("bhqk,bhqd->bhkd", dsb, qc) * scale
         dbias += ds.sum(dim=(1, 2))
     return torch.cat(dqs, dim=2), dk.to(dt), dv.to(dt), dbias
+
+
+def attention_bwd_onepass_plain(q, k, v, g, lse, dsum, key_bias, scale: float,
+                                kv_block: int = BWD_KV_BLOCK):
+    """K5's one-pass decomposition (csrc flash_bwd.cuh, the card's form at
+    head dim 64) on [B, H, S, D]: per block of ``kv_block`` keys, in the
+    transposed form of the kernel (keys on the rows, the log2 domain),
+    s^T = k q^T, p^T = exp2(scale log2 e s^T + bias log2 e - lse log2 e),
+    ds^T = p^T (v g^T - dsum); the block's dv = p^T g, dk = scale ds^T q and
+    dbias = sum over q of ds^T, and its share of dq, (ds^T)^T k, summed over
+    the blocks in f32 (the kernel's workspace) and scaled once. Rounding
+    points and arguments as `attention_bwd_plain`, which it equals."""
+    b, h, sq, _ = q.shape
+    skv = k.shape[2]
+    dt = q.dtype
+    qf, gf = q.float(), g.float()
+    bias2 = (torch.zeros(b, skv, device=q.device) if key_bias is None
+             else key_bias.float()) * _LOG2E
+    lse2 = lse[:, :, None, :] * _LOG2E
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dks, dvs, dbs = [], [], []
+    for k0 in range(0, skv, kv_block):
+        kb, vb = k[:, :, k0:k0 + kv_block].float(), v[:, :, k0:k0 + kv_block].float()
+        st = torch.einsum("bhkd,bhqd->bhkq", kb, qf)
+        pt = torch.exp2(st * (scale * _LOG2E) + bias2[:, None, k0:k0 + kv_block, None] - lse2)
+        dst = pt * (torch.einsum("bhkd,bhqd->bhkq", vb, gf) - dsum[:, :, None, :])
+        dsb = dst.to(dt).float()
+        dvs.append(torch.einsum("bhkq,bhqd->bhkd", pt.to(dt).float(), gf))
+        dks.append(torch.einsum("bhkq,bhqd->bhkd", dsb, qf) * scale)
+        dbs.append(dst.sum(dim=(1, 3)))
+        dq += torch.einsum("bhkq,bhkd->bhqd", dsb, kb)
+    return ((dq * scale).to(dt), torch.cat(dks, dim=2).to(dt), torch.cat(dvs, dim=2).to(dt),
+            torch.cat(dbs, dim=1))
 
 
 def attention_fused_plain(q, k, v, key_bias, tabs_q, tabs_k, eps, norm_q, norm_k,
@@ -438,6 +476,34 @@ def _fused_plain_merged(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, n
     return merge_heads(out)
 
 
+def cross_smallkv_plain(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k):
+    """K2's card path in its plain version, on merged [B, S, H*64] operands
+    with an f32 key bias [B, Skv]:
+    the prologue pass of k and of q with log2 e folded in
+    (`prologue_pass_plain`), then the K / V-resident body: per q row, the
+    online softmax in base 2 over the keys' tiles of `kv_tile(64)` (128) keys,
+    the running max, sum and output rescaled at each tile. Returns the
+    output in q's dtype."""
+    kp = split_heads(prologue_pass_plain(k, tabs_k, heads, eps, norm_k), heads).float()
+    qp = split_heads(prologue_pass_plain(q, tabs_q, heads, eps, norm_q, _LOG2E), heads).float()
+    vf = split_heads(v, heads).float()
+    x = (torch.einsum("bhqd,bhkd->bhqk", qp, kp)
+         + key_bias.float()[:, None, None, :] * _LOG2E)
+    m = torch.full(x.shape[:-1], -math.inf, device=x.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(*x.shape[:-1], vf.shape[-1], device=x.device)
+    bn = kv_tile(vf.shape[-1])
+    for k0 in range(0, x.shape[-1], bn):
+        xs = x[..., k0:k0 + bn]
+        m_new = torch.maximum(m, xs.amax(dim=-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(xs - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vf[:, :, k0:k0 + bn])
+        m = m_new
+    return merge_heads(acc / l[..., None]).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Build and bind the CUDA library
 # ---------------------------------------------------------------------------
@@ -491,8 +557,8 @@ class _Int8Args(ctypes.Structure):
     )
 
 
-_K2_ENTRY_POINT = "tg_attention_cross_smallkv"
-_BWD_ENTRY_POINT = "tg_attention_bwd"  # takes the head dim after the args
+_K2_ENTRY_POINT = "tg_attention_cross_smallkv"  # q tiles per block, prologue workspace
+_BWD_ENTRY_POINT = "tg_attention_bwd"  # head dim, then (at 64) the lse / dsum table and dq's sums
 _INT8_ENTRY_POINT = "tg_attention_joint_int8"
 _K1_ENTRY_POINT = "tg_attention_joint"  # splits, split_len, prologue and split workspaces
 _K6_ENTRY_POINT = "tg_attention_fused_bhsd"  # head dim, then as K1
@@ -501,7 +567,8 @@ _K4_ENTRY_POINT = "tg_attention_bhsd"  # head dim, splits, split_len, split work
 
 
 def _bind(lib) -> None:
-    _build.bind(lib, _K2_ENTRY_POINT, ctypes.POINTER(_Args), ctypes.c_void_p)
+    _build.bind(lib, _K2_ENTRY_POINT, ctypes.POINTER(_Args), ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_void_p)
     _build.bind(lib, _K1_ENTRY_POINT, ctypes.POINTER(_Args), ctypes.c_int64, ctypes.c_int64,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
     _build.bind(lib, _K6_ENTRY_POINT, ctypes.POINTER(_Args), ctypes.c_int64, ctypes.c_int64,
@@ -510,7 +577,8 @@ def _bind(lib) -> None:
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
     _build.bind(lib, _K4_ENTRY_POINT, ctypes.POINTER(_Args), ctypes.c_int64, ctypes.c_int64,
                 ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p)
-    _build.bind(lib, _BWD_ENTRY_POINT, ctypes.POINTER(_BwdArgs), ctypes.c_int64, ctypes.c_void_p)
+    _build.bind(lib, _BWD_ENTRY_POINT, ctypes.POINTER(_BwdArgs), ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p)
     _build.bind(lib, _INT8_ENTRY_POINT, ctypes.POINTER(_QuantArgs), ctypes.POINTER(_QuantArgs),
                 ctypes.POINTER(_Int8Args), ctypes.c_void_p)
 
@@ -597,18 +665,36 @@ def _bias_ptr(key_bias, b: int, skv: int, keep: list):
     return kb.data_ptr()
 
 
-def _launch_smallkv(q, k, v, key_bias, tabs_q, heads, eps, norm_q):
-    """Launches K2 on merged [B, S, H*64] operands, k already prologued."""
-    a, out, _keep = attn_args(q, k, v, key_bias, tabs_q, None, heads, eps, norm_q, False,
-                              _LOG2E)  # _keep: alive through the launch
-    _build.check_launch(_K2_ENTRY_POINT, getattr(_lib(), _K2_ENTRY_POINT)(
-        ctypes.byref(a), _build.stream_of(q)))
-    return out
-
-
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def smallkv_tiles_per_block(b: int, h: int, sq: int, sms: int) -> int:
+    """q tiles (of `SMALLKV_BLOCK_Q` rows, (b, h)-major) per block of K2's
+    body: one wave of ``sms`` blocks, each a contiguous range of tiles that
+    loads its (b, h)'s K and V once (twice where the range crosses into the
+    next (b, h))."""
+    tiles = b * h * -(-sq // SMALLKV_BLOCK_Q)
+    return -(-tiles // sms)
+
+
+def _launch_smallkv(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k,
+                    per_block: Optional[int] = None):
+    """K2 on merged [B, S, H*64] operands: the prologue pass of k and of q
+    (log2 e folded into q') into a bf16 workspace, then the K / V-resident
+    body, `smallkv_tiles_per_block` q tiles a block (``per_block`` forces a
+    count)."""
+    lib = _lib()
+    a, out, keep = attn_args(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k,
+                             _LOG2E)
+    if per_block is None:
+        per_block = smallkv_tiles_per_block(a.b, a.h, a.sq, _sm_count(q.device.index or 0))
+    pro = torch.empty(a.b * (a.skv + a.sq) * a.h * 64, dtype=torch.bfloat16, device=q.device)
+    keep.append(pro)
+    _build.check_launch(_K2_ENTRY_POINT, getattr(lib, _K2_ENTRY_POINT)(
+        ctypes.byref(a), per_block, pro.data_ptr(), _build.stream_of(q)))
+    return out
 
 
 def _split_workspace(plan, b: int, h: int, sq: int, d: int, device, keep: list):
@@ -768,9 +854,29 @@ def _launch_bwd(q, k, v, g, lse, dsum, key_bias, heads, scale: float, with_dbias
         a.dbias = dbias.data_ptr()
     a.b, a.h, a.sq, a.skv = b, h, sq, skv
     a.scale = scale
-    err = getattr(lib, _BWD_ENTRY_POINT)(ctypes.byref(a), d, _build.stream_of(q))
+    aux = ws = None
+    if d == 64:  # the one-pass body: its lse / dsum table and dq's f32 sums
+        aux = bwd_aux_table(lse, dsum)
+        ws = torch.zeros(b, h, sq, d, dtype=torch.float32, device=q.device)
+        keep += [aux, ws]
+    err = getattr(lib, _BWD_ENTRY_POINT)(
+        ctypes.byref(a), d, None if aux is None else aux.data_ptr(),
+        None if ws is None else ws.data_ptr(), _build.stream_of(q))
     _build.check_launch(_BWD_ENTRY_POINT, err)
     return (*grads, None if dbias is None else dbias.sum(dim=1))
+
+
+def bwd_aux_table(lse, dsum):
+    """The per-q-tile table of K5's one-pass body: f32 [B * H, ceil(Sq /
+    `BWD_Q_TILE`), 2, `BWD_Q_TILE`], each tile's lse * log2 e, then its
+    dsum; past Sq lse * log2 e = +inf and dsum = 0, so that p = ds = 0 on
+    the padding rows (which the kernel reads as zeros)."""
+    b, h, sq = lse.shape
+    nq = -(-sq // BWD_Q_TILE)
+    pad = nq * BWD_Q_TILE - sq
+    lse2 = torch.nn.functional.pad(lse.reshape(b * h, sq) * _LOG2E, (0, pad), value=math.inf)
+    ds = torch.nn.functional.pad(dsum.reshape(b * h, sq), (0, pad))
+    return torch.stack((lse2.view(b * h, nq, BWD_Q_TILE), ds.view(b * h, nq, BWD_Q_TILE)), dim=2)
 
 
 def _launch_int8(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k):
@@ -840,17 +946,17 @@ def fused_attention_joint(q, k, v, tabs_q, tabs_k, key_bias=None, heads: int = N
 
 def fused_attention_cross_smallkv(q, k, v, tabs_q, tabs_k, key_bias=None, heads: int = None,
                                   eps: float = 1e-6, norm_q: bool = True, norm_k: bool = True):
-    """K2, long q against kv <= 512 (text_video -> vip). The k-side prologue
-    runs in plain torch (as the TPU wrapper runs it in XLA); K and V of one
-    (b, h) then sit whole in shared memory."""
+    """K2, long q against kv <= 512 (text_video -> vip): both prologues in a
+    pass of their own (the k side, which the TPU wrapper runs in XLA,
+    included), then the body with one (b, h)'s K and V whole in shared
+    memory for a range of q tiles."""
     if q.device.type == "cpu":
         return _fused_plain_merged(q, k, v, _bias_or_zeros(key_bias, k, heads), tabs_q,
                                    tabs_k, heads, eps, norm_q, norm_k)
     _require_cuda(k, v)
     if k.shape[1] > _SMALLKV_MAX:
         raise ValueError(f"fused_attention_cross_smallkv: Skv {k.shape[1]} > {_SMALLKV_MAX}")
-    kn = merge_heads(apply_prologue_plain(split_heads(k, heads), tabs_k, eps, norm_k))
-    out = _launch_smallkv(q, kn, v, key_bias, tabs_q, heads, eps, norm_q)
+    out = _launch_smallkv(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k)
     fused_attention_cross_smallkv.launches += 1
     return out
 
@@ -896,7 +1002,10 @@ def attention_backward(q, k, v, g, lse, dsum, key_bias=None, heads: Optional[int
     for the fused-prologue attention they are the PROLOGUED q/k and scale is
     1. ``lse`` (natural log) and ``dsum = rowsum(g * out)`` per head: f32
     [B, H, Sq]. dbias (f32 [B, Skv], summed over heads) is computed only
-    ``with_dbias``, else None."""
+    ``with_dbias``, else None. On the card at D = 64 the one-pass body adds
+    dq's shares across blocks of keys with TMA reduce-adds in no fixed
+    order, so dq (not dk, dv or dbias) may differ from call to call in its
+    last bits."""
     if q.device.type == "cpu":
         split = (lambda x: split_heads(x, heads)) if heads is not None else (lambda x: x)
         merge = merge_heads if heads is not None else (lambda x: x)

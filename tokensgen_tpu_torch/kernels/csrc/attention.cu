@@ -1,23 +1,26 @@
 // Flash-attention kernels for the attention calls of the To2V edit, training
 // and generation paths and of the T2To trainer, written for Hopper (sm_90a),
 // head dim 64 (K4, K5, K6: 16, 32, 64 or 128), bf16 operands with f32 softmax and
-// accumulation on mma.sync m16n8k16 tensor-core tiles (K1, K3, K4, K6: wgmma;
-// K7: its score product on m16n8k32 int8 tiles). K2's and K7's tile pieces are
-// flash_fwd.cuh's, shared with the K4-family probes of probes.cu; K3's and
-// K4's body is the split-KV body of flash_splitkv.cuh, K1's and K6's the
-// overlapped one of flash_ws.cuh.
+// accumulation (K1-K4, K6 and K5 at head dim 64: wgmma; K7 and K5 at 16, 32 and
+// 128: mma.sync m16n8k16 tiles, K7's score product on m16n8k32 int8 tiles).
+// K7's tile pieces are flash_fwd.cuh's, shared with the K4-family probes of
+// probes.cu; K3's and K4's body is the split-KV body of flash_splitkv.cuh,
+// K1's and K6's the overlapped one of flash_ws.cuh, K2's its K / V-resident
+// form there; K5's one-pass body at 64 is flash_bwd.cuh's.
 //
 // Replaces the Pallas TPU kernels of tokensgen_tpu/kernels/attention.py:
 //   tg_attention_joint          joint_prologue_kernel + joint_splitkv_kernel
 //                               (+ joint_combine_kernel)
 //                                               <- _flash_packed_kernel  (_flash_fused_packed_tpu)
-//   tg_attention_cross_smallkv  smallkv_kernel  <- _cross_smallkv_kernel (_flash_cross_smallkv_tpu)
+//   tg_attention_cross_smallkv  smallkv_prologue_kernel + smallkv_kernel
+//                                               <- _cross_smallkv_kernel (_flash_cross_smallkv_tpu)
 //   tg_attention_cross_smallq   smallq_prologue_kernel + smallq_splitkv_kernel
 //                               (+ smallq_combine_kernel)
 //                                               <- _cross_smallq_kernel  (_flash_cross_smallq_tpu)
 //   tg_attention_bhsd           bhsd_splitkv_kernel<HD> (+ bhsd_combine_kernel<HD>)
 //                                               <- _flash_kernel         (_flash_attention_tpu)
-//   tg_attention_bwd            bwd_dkdv_kernel<HD> + bwd_dq_kernel<HD>
+//   tg_attention_bwd            bwd_onepass_kernel + bwd_dq_store_kernel (head dim 64),
+//                               bwd_dkdv_kernel<HD> + bwd_dq_kernel<HD> (16, 32, 128)
 //                                               <- _packed_bwd_kernel    (_flash_packed_bwd_tpu)
 //   tg_attention_joint_int8     int8_prologue_kernel + joint_int8_kernel
 //                                               <- _flash_packed_kernel, int8_scores branch
@@ -40,15 +43,16 @@
 // before the bf16 cast, as the TPU wrapper does.
 //
 // Design for this card (see PERF.md for the times):
-// * K2 and K7 (simple first version): each block of 128 q rows sweeps the
-//   kv tiles itself with synchronous loads, mma.sync. No TMA or wgmma yet.
-// * K1 and K6: the TPU kernels keep the prologued K in VMEM across the q
+// * K7 (simple first version): each block of 128 q rows sweeps the kv tiles
+//   itself with synchronous loads, mma.sync. No TMA or wgmma yet.
+// * K1, K2 and K6: the TPU kernels keep the prologued K in VMEM across the q
 //   sweep of one head pair; Hopper blocks run in no order and carry nothing
 //   between them, so the prologue of k and of q runs once per row in a
 //   pass of its own (prologue_rows, into a bf16 workspace), and the body
 //   (flash_ws.cuh) takes q', k' and v by TMA: both products on wgmma, each
-//   warpgroup's softmax overlapping its other row block's p.v, the two
-//   warpgroups taking turns at the tensor cores, no block barrier per tile.
+//   warpgroup's softmax overlapping its other row block's p.v, no block
+//   barrier per kv tile. K2's keys (<= 512) stay in shared memory while the
+//   block runs a range of q tiles against them.
 // * K3 and K4 (split-KV, TMA, wgmma): both are bound by operations (the
 //   two products at the bf16 tensor-core rate: 0.22 and 0.03 ms at the
 //   edit path's shapes), but a block-per-q-tile sweep left them bound by
@@ -62,20 +66,22 @@
 //   loaded by the Tensor Memory Accelerator into a 4-stage ring, both
 //   products on wgmma, 256 q rows a block at head dims <= 64; then a
 //   combine of the splits' f32 partials in a fixed order.
+// * K5 at head dim 64: one pass over the q tiles per block of keys, five
+//   products on wgmma, dq summed across blocks by atomics (flash_bwd.cuh).
 // * Online-max softmax in the exp2 domain (the TPU's max-free shift by a
 //   table bound is a TPU trick; exact softmax is what both compute).
 // * p is rounded to bf16 before p@v; l sums the f32 p; o = acc / l.
 // * Ragged Sq / Skv are masked here from the lengths: rows past Sq are not
 //   stored, keys past Skv score -inf. No padded copies are made.
 
+#include "flash_bwd.cuh"
 #include "flash_fwd.cuh"
 #include "flash_splitkv.cuh"
 #include "flash_ws.cuh"
 
 namespace {
 
-constexpr int SMALLKV_MAX = 512;    // kv rows held whole in shared memory
-constexpr int SMALLKV_QCHUNK = 1024;  // q rows per smallkv block
+constexpr int SMALLKV_MAX = SK_STAGES * 128;  // K2's keys, held whole in shared memory
 
 // The prologue pass of K1, K3 and K6: the f32 LayerNorm + RoPE of every head
 // of a row (K1's prologue arithmetic, load_rows'), times ``scale``, into a
@@ -291,50 +297,23 @@ __global__ void __launch_bounds__(CMB_NT) fused_bhsd_combine_kernel(const TGAttn
   combine_rows<HD>(a, splits, ws);
 }
 
-__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-size_t smallkv_smem_bytes(int skv) {
-  const int skv_p = round_up(skv, BN);
-  return sizeof(__nv_bfloat16) * (size_t)(skv_p * LDS + D * (skv_p + 8) + BM * LDS);
+// K2: text_video -> vip cross-attention, in three launches: the prologue
+// pass for k and for q (`smallkv_prologue_kernel`, prologue_rows at 64; q'
+// carries the softmax scale and log2 e; the k prologue that the TPU wrapper
+// runs in XLA runs here), then the K / V-resident body on q', k' and v
+// (`smallkv_kernel`, flash_ws.cuh's smallkv_body: a contiguous range of
+// ``per_block`` q tiles of WS_BM rows a block, (b, h)-major).
+__global__ void __launch_bounds__(NTHREADS) smallkv_prologue_kernel(const TGAttnArgs a, int k_side,
+                                                                    __nv_bfloat16* out,
+                                                                    long long out_sb) {
+  prologue_rows<D>(a, k_side, out, out_sb);
 }
 
-// Grid (ceil(Sq / SMALLKV_QCHUNK), H, B). K (already prologued by the
-// caller, as the TPU wrapper does it in XLA) and V of one (b, h) are loaded
-// whole into shared memory once; the block then runs its 1024 q rows in
-// tiles of 128 against them with the q prologue fused.
-__global__ void __launch_bounds__(NTHREADS) smallkv_kernel(const TGAttnArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
-  const int skv_p = round_up(skv, BN);
-  const int ldv = skv_p + 8;
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vt = Ks + skv_p * LDS;
-  __nv_bfloat16* Qs = Vt + D * ldv;
-  const float eps = static_cast<float>(a.eps);
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + h * a.v_sh;
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh;
-  const float* bias = a.bias ? static_cast<const float*>(a.bias) + (long long)b * skv : nullptr;
-  const Side pq = side_q(a), pk = side_k(a);
-
-  load_rows<false>(Ks, LDS, k, a.k_ss, 0, skv_p, skv, pk, b, 1.f, eps);
-  load_vt(Vt, ldv, v, a.v_ss, 0, skv_p, skv);
-  const int qbeg = blockIdx.x * SMALLKV_QCHUNK;
-  const int qend = min(sq, qbeg + SMALLKV_QCHUNK);
-  for (int q0 = qbeg; q0 < qend; q0 += BM) {
-    __syncthreads();  // K/V resident (first tile); Qs free (later tiles)
-    load_rows<true>(Qs, LDS, q, a.q_ss, q0, BM, sq, pq, b, static_cast<float>(a.qscale), eps);
-    __syncthreads();
-    uint32_t qa[4][4];
-    load_q_frags(qa, Qs);
-    Acc acc;
-    init_acc(acc);
-    for (int kv0 = 0; kv0 < skv; kv0 += BN)
-      attend_tile(qa, Ks + kv0 * LDS, Vt + kv0, ldv, kv0, skv, bias, acc);
-    store_out(acc, o, a.o_ss, q0, sq, nullptr);
-  }
+__global__ void __launch_bounds__(WS_NT, 1) smallkv_kernel(
+    const TGAttnArgs a, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap qmap,
+    int per_block) {
+  smallkv_body<D>(a, &kmap, &vmap, &qmap, per_block);
 }
 
 // ---------------------------------------------------------------------------
@@ -347,33 +326,41 @@ __global__ void __launch_bounds__(NTHREADS) smallkv_kernel(const TGAttnArgs a) {
 //
 // with dsum = rowsum(g * out) per head (computed by the caller) and f32
 // accumulation, the JAX kernel's rounding points. Per head: the TPU's
-// head-pair block-diagonal packing is a lane trick with no use here. The
-// head dim HD is a template parameter (16, 32, 64, 128: K4's and K6's
-// forwards take the same four, and the JAX backward any): the smem tiles are
-// [rows][HD + 8], the transposed ones [HD][72], the fragment loops run
-// HD / 16 k-steps and HD / 8 column tiles, and the lse, dsum and bias are per
-// row or key, whatever HD. The tiles are dynamic shared memory (above the
-// 49,152 bytes of a static allocation at HD = 128: 53.2 KB for the dq pass,
-// 141.3 KB for the dk/dv pass).
+// head-pair block-diagonal packing is a lane trick with no use here. Bound
+// on this card: the five products at the bf16 tensor-core rate.
 //
-// Design (FA2's two-pass form, deterministic, no atomics):
+// At head dim 64 (every launch of both full-width trainers) it is one pass,
+// flash_bwd.cuh's (`bwd_onepass_kernel`, then `bwd_dq_store_kernel`): a
+// block owns 128 keys of one (b, h) with K and V in shared memory, streams
+// the q tiles by TMA, runs the five products on wgmma and adds its share of
+// dq to an f32 workspace with atomics. The same form serves the short sides
+// of the training shapes: 480 keys give 4 blocks per (b, h), 384 in all for
+// 132 SMs (2.9 waves of equal blocks), and 480 q rows 4 q tiles per block,
+// 143 blocks per (b, h) adding into the same dq rows.
+//
+// At head dims 16, 32 and 128 it keeps FA2's two-pass form (deterministic,
+// no atomics, mma.sync): at 128 the one-pass body's dk and dv accumulators
+// alone would take 128 registers a thread beside the 128 of s^T and dp^T;
+// 16 and 32 carry 18 and 0 launches (the tiny To2V trainer). The head dim is
+// a template parameter there: the smem tiles are [rows][HD + 8], the
+// transposed ones [HD][72], the fragment loops run HD / 16 k-steps and
+// HD / 8 column tiles, and the lse, dsum and bias are per row or key,
+// whatever HD. The tiles are dynamic shared memory (above the 49,152 bytes
+// of a static allocation at HD = 128: 53.2 KB for the dq pass, 141.3 KB for
+// the dk/dv pass).
 // * bwd_dkdv_kernel: a block owns 128 kv rows of one (b, h) (8 warps x 16
 //   rows; K and V held as mma A fragments in registers) and sweeps every q
 //   tile of 64 rows: s^T = K q^T and dp^T = V g^T, then dv += p^T g and
 //   dk += ds^T q. q and g are staged row-major (for the B fragments of the
 //   first two products) and transposed (for the last two). dbias is written
-//   per (b, h, key); the caller sums it over heads. At HD = 128 the dk and
-//   dv accumulators alone take 128 registers a thread, and the K and V
-//   fragments 64 more beside the 64 of s and dp: above the 255 a thread may
-//   have. There K and V stay in shared memory (69.6 KB for the block's 128
-//   rows) and each k-step of the two score products loads its two fragments
-//   from there: the same products, 8 registers of fragments instead of 64.
+//   per (b, h, key); the caller sums it over heads. At HD = 128 K and V stay
+//   in shared memory (69.6 KB for the block's 128 rows) and each k-step of
+//   the two score products loads its two fragments from there.
 // * bwd_dq_kernel: a block owns 128 q rows (q and g as A fragments) and
 //   sweeps kv tiles of 64: s = q K^T, dp = g V^T, dq += ds K, with K staged
 //   row-major and transposed.
 // That is 7 tile products against the 5 of one pass (s and dp twice), the
-// price of no cross-block reduction. Bound on this card: the products (bf16
-// tensor-core rate), as in the forward. Ragged Sq / Skv are masked from the
+// price of no cross-block reduction. Ragged Sq / Skv are masked from the
 // lengths (p = 0 outside), as in the forward kernels.
 // ---------------------------------------------------------------------------
 
@@ -399,29 +386,6 @@ template <int HD>
 constexpr size_t dq_smem_bytes() {
   return sizeof(__nv_bfloat16) * (2 * BWD_BKV2 * pitch(HD) + HD * LDT);
 }
-
-}  // namespace
-
-// Backward argument block shared with the Python wrapper (every field 8
-// bytes). lse and dsum: f32 [B, H, Sq]; bias: f32 [B, Skv] or null; dbias:
-// f32 [B, H, Skv] out or null. Strides in elements; scale is the natural
-// softmax scale of the scores (1 for prologued operands).
-struct TGAttnBwdArgs {
-  const void* q; const void* k; const void* v; const void* g;
-  const void* lse; const void* dsum; const void* bias;
-  void* dq; void* dk; void* dv; void* dbias;
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  long long g_sb, g_ss, g_sh;
-  long long dq_sb, dq_ss, dq_sh;
-  long long dk_sb, dk_ss, dk_sh;
-  long long dv_sb, dv_ss, dv_sh;
-  long long b, h, sq, skv;
-  double scale;
-};
-
-namespace {
 
 template <typename T>
 __device__ __forceinline__ T* at_head(const void* base, long long sb, long long sh, int b, int h) {
@@ -705,6 +669,21 @@ __global__ void __launch_bounds__(NTHREADS) bwd_dq_kernel(const TGAttnBwdArgs a)
                    static_cast<float>(a.scale));
 }
 
+// K5 at head dim 64: flash_bwd.cuh's one-pass body, grid (ceil(Skv / 128), H,
+// B); dynamic shared memory bw_smem_bytes()
+__global__ void __launch_bounds__(BW_NT, 1) bwd_onepass_kernel(
+    const TGAttnBwdArgs a, const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap gmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap dqmap,
+    const float* aux) {
+  bwd_onepass_body(a, &qmap, &gmap, &kmap, &vmap, &dqmap, aux);
+}
+
+__global__ void __launch_bounds__(NTHREADS) bwd_dq_store_kernel(const TGAttnBwdArgs a,
+                                                                const float* dqws) {
+  bwd_dq_store(a, dqws);
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -972,6 +951,21 @@ cudaError_t kv_tensor_map(CUtensorMap* map, const void* base, long long s, long 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The 3-D f32 tensor map of K5's dq workspace [B * H][Sq][64]: boxes of 32
+// columns x 64 rows in the 128-byte swizzle; rows past Sq are clipped.
+cudaError_t dq_ws_map(CUtensorMap* map, void* base, long long sq, long long bh) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {64, static_cast<cuuint64_t>(sq), static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {64 * 4, static_cast<cuuint64_t>(sq) * 64 * 4};
+  const cuuint32_t box[3] = {32, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base, dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // The split-KV body (and with splits > 1 the combine) of K3 or K4 at head
 // dim HD. Every split but the last holds split_len keys, a whole number of
 // kv tiles; the last holds the rest (at least one key).
@@ -1012,11 +1006,40 @@ int launch_bhsd(const TGAttnArgs* a, long long splits, long long split_len, void
                             split_len, ws, s);
 }
 
-// K1 or K6 at head dim HD: the prologue passes of k and q (q' scaled by
-// a->qscale) into ``pro`` (bf16 k' [B][Skv][H * HD], then q' [B][Sq][H *
-// HD]), then the body on q', k' and v in ``splits`` splits of ``split_len``
-// keys (``ws``: their f32 partials, null at one split), then with more
-// than one split the combine.
+// The prologue passes of k and q (q' scaled by a->qscale) into ``pro``
+// (bf16 k' [B][Skv][H * HD], then q' [B][Sq][H * HD]); ``p`` gets the
+// arguments of a body on q', k' and v.
+template <int HD>
+cudaError_t prologue_passes(void (*prologue)(TGAttnArgs, int, __nv_bfloat16*, long long),
+                            const TGAttnArgs* a, void* pro, cudaStream_t s, TGAttnArgs* p) {
+  const long long hd = a->h * HD;
+  __nv_bfloat16* kp = static_cast<__nv_bfloat16*>(pro);
+  __nv_bfloat16* qp = kp + a->b * a->skv * hd;
+  constexpr int rows = prologue_block_rows(HD);
+  for (int side = 1; side >= 0; --side) {
+    const long long n = side ? a->skv : a->sq;
+    const dim3 grid(static_cast<unsigned>((n + rows - 1) / rows), static_cast<unsigned>(a->b));
+    prologue<<<grid, NTHREADS, 0, s>>>(*a, side, side ? kp : qp, n * hd);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  *p = *a;
+  p->k = kp;
+  p->k_sb = a->skv * hd;
+  p->k_ss = hd;
+  p->k_sh = HD;
+  p->q = qp;
+  p->q_sb = a->sq * hd;
+  p->q_ss = hd;
+  p->q_sh = HD;
+  p->qscale = 1.0;  // folded into q' by its prologue
+  return cudaSuccess;
+}
+
+// K1 or K6 at head dim HD: the prologue passes into ``pro``, then the body
+// on q', k' and v in ``splits`` splits of ``split_len`` keys (``ws``: their
+// f32 partials, null at one split), then with more than one split the
+// combine.
 template <int HD>
 int launch_fused(void (*prologue)(TGAttnArgs, int, __nv_bfloat16*, long long),
                  void (*body)(TGAttnArgs, CUtensorMap, CUtensorMap, CUtensorMap, int, int, float*),
@@ -1027,33 +1050,15 @@ int launch_fused(void (*prologue)(TGAttnArgs, int, __nv_bfloat16*, long long),
       (splits - 1) * split_len >= a->skv || splits * split_len < a->skv ||
       (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long hd = a->h * HD;
-  __nv_bfloat16* kp = static_cast<__nv_bfloat16*>(pro);
-  __nv_bfloat16* qp = kp + a->b * a->skv * hd;
-  constexpr int rows = prologue_block_rows(HD);
-  for (int side = 1; side >= 0; --side) {
-    const long long n = side ? a->skv : a->sq;
-    const dim3 grid(static_cast<unsigned>((n + rows - 1) / rows), static_cast<unsigned>(a->b));
-    prologue<<<grid, NTHREADS, 0, s>>>(*a, side, side ? kp : qp, n * hd);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  TGAttnArgs p = *a;
-  p.k = kp;
-  p.k_sb = a->skv * hd;
-  p.k_ss = hd;
-  p.k_sh = HD;
-  p.q = qp;
-  p.q_sb = a->sq * hd;
-  p.q_ss = hd;
-  p.q_sh = HD;
-  p.qscale = 1.0;  // folded into q' by its prologue
+  TGAttnArgs p;
+  cudaError_t err = prologue_passes<HD>(prologue, a, pro, s, &p);
   CUtensorMap kmap, vmap, qmap;
-  cudaError_t err = kv_tensor_map<HD>(&kmap, kp, p.skv, p.h, p.b, p.k_ss, p.k_sh, p.k_sb);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<HD>(&kmap, p.k, p.skv, p.h, p.b, p.k_ss, p.k_sh, p.k_sb);
   if (err == cudaSuccess)
     err = kv_tensor_map<HD>(&vmap, p.v, p.skv, p.h, p.b, p.v_ss, p.v_sh, p.v_sb);
   if (err == cudaSuccess)
-    err = kv_tensor_map<HD>(&qmap, qp, p.sq, p.h, p.b, p.q_ss, p.q_sh, p.q_sb, fused_bm(HD));
+    err = kv_tensor_map<HD>(&qmap, p.q, p.sq, p.h, p.b, p.q_ss, p.q_sh, p.q_sb, fused_bm(HD));
   constexpr int smem = HD <= 64 ? ws_smem_bytes<HD>() : splitkv_smem_bytes<HD>();
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(body, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1097,6 +1102,38 @@ int launch_bwd(const TGAttnBwdArgs* a, cudaStream_t s) {
   const dim3 grid_q(static_cast<unsigned>((a->sq + BWD_BQ2 - 1) / BWD_BQ2),
                     static_cast<unsigned>(a->h), static_cast<unsigned>(a->b));
   bwd_dq_kernel<HD><<<grid_q, NTHREADS, smem_q, s>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5 at head dim 64: the one-pass body, then dq from the workspace. ``aux``:
+// f32 [B * H][ceil(Sq / 128)][lse2 | dsum][128] (lse2 = lse log2 e; past Sq
+// lse2 = +inf and dsum = 0); ``dqws``: f32 [B, H, Sq, 64], zeroed.
+int launch_bwd_onepass(const TGAttnBwdArgs* a, const void* aux, void* dqws, cudaStream_t s) {
+  if (a->sq <= 0 || a->skv <= 0 || aux == nullptr || dqws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap qmap, gmap, kmap, vmap, dqmap;
+  cudaError_t err = kv_tensor_map<64>(&qmap, a->q, a->sq, a->h, a->b, a->q_ss, a->q_sh, a->q_sb);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<64>(&gmap, a->g, a->sq, a->h, a->b, a->g_ss, a->g_sh, a->g_sb);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<64>(&kmap, a->k, a->skv, a->h, a->b, a->k_ss, a->k_sh, a->k_sb);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<64>(&vmap, a->v, a->skv, a->h, a->b, a->v_ss, a->v_sh, a->v_sb);
+  if (err == cudaSuccess) err = dq_ws_map(&dqmap, dqws, a->sq, a->b * a->h);
+  constexpr int smem = bw_smem_bytes();
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(bwd_onepass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((a->skv + BW_BKV - 1) / BW_BKV),
+                  static_cast<unsigned>(a->h), static_cast<unsigned>(a->b));
+  bwd_onepass_kernel<<<grid, BW_NT, smem, s>>>(*a, qmap, gmap, kmap, vmap, dqmap,
+                                               static_cast<const float*>(aux));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long threads = a->b * a->h * a->sq * 8;
+  bwd_dq_store_kernel<<<static_cast<unsigned>((threads + NTHREADS - 1) / NTHREADS), NTHREADS, 0,
+                        s>>>(*a, static_cast<const float*>(dqws));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1175,28 +1212,43 @@ int tg_attention_fused_bhsd(const TGAttnArgs* a, long long head_dim, long long s
   }
 }
 
-// K2: text_video -> vip cross-attention, kv <= 512 held whole in shared memory.
-int tg_attention_cross_smallkv(const TGAttnArgs* a, void* stream) {
-  if (a->sq <= 0 || a->skv <= 0 || a->skv > SMALLKV_MAX)
+// K2: text_video -> vip cross-attention, Skv <= SMALLKV_MAX: the k and q
+// prologue passes into ``pro`` (as K1's), then the K / V-resident body, a
+// range of ``per_block`` q tiles a block.
+int tg_attention_cross_smallkv(const TGAttnArgs* a, long long per_block, void* pro,
+                               void* stream) {
+  if (a->sq <= 0 || a->skv <= 0 || a->skv > SMALLKV_MAX || per_block < 1 || pro == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smallkv_smem_bytes(static_cast<int>(a->skv));
-  cudaError_t err = cudaFuncSetAttribute(smallkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  TGAttnArgs p;
+  cudaError_t err = prologue_passes<D>(smallkv_prologue_kernel, a, pro, s, &p);
+  CUtensorMap kmap, vmap, qmap;
+  if (err == cudaSuccess)
+    err = kv_tensor_map<D>(&kmap, p.k, p.skv, p.h, p.b, p.k_ss, p.k_sh, p.k_sb);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<D>(&vmap, p.v, p.skv, p.h, p.b, p.v_ss, p.v_sh, p.v_sb);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<D>(&qmap, p.q, p.sq, p.h, p.b, p.q_ss, p.q_sh, p.q_sb, WS_BM);
+  constexpr int smem = smallkv_smem_bytes<D>();
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(smallkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((a->sq + SMALLKV_QCHUNK - 1) / SMALLKV_QCHUNK),
-                  static_cast<unsigned>(a->h), static_cast<unsigned>(a->b));
-  smallkv_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(*a);
+  const long long tiles = p.b * p.h * ((p.sq + WS_BM - 1) / WS_BM);
+  smallkv_kernel<<<static_cast<unsigned>((tiles + per_block - 1) / per_block), WS_NT, smem, s>>>(
+      p, kmap, vmap, qmap, static_cast<int>(per_block));
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5: attention backward, dk/dv (and dbias) pass then dq pass; head_dim 16,
-// 32, 64 or 128.
-int tg_attention_bwd(const TGAttnBwdArgs* a, long long head_dim, void* stream) {
+// K5: attention backward, head_dim 16, 32, 64 or 128: at 64 the one-pass
+// body (``aux`` and ``ws`` as launch_bwd_onepass takes them), else the dk/dv
+// (and dbias) pass then the dq pass (``aux`` and ``ws`` unused).
+int tg_attention_bwd(const TGAttnBwdArgs* a, long long head_dim, void* aux, void* ws,
+                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 16: return launch_bwd<16>(a, s);
     case 32: return launch_bwd<32>(a, s);
-    case 64: return launch_bwd<64>(a, s);
+    case 64: return launch_bwd_onepass(a, aux, ws, s);
     case 128: return launch_bwd<128>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

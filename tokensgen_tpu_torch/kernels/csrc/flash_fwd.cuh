@@ -1,7 +1,7 @@
 // The mma.sync flash-attention forward pieces shared by the attention kernels
-// (attention.cu: K2's and K7's tiles, K5's loads; the argument block, the
-// prologue tables and the accumulator that the split-KV bodies of K1, K3, K4
-// and K6 also use) and the whole body of the K4-family probes (probes.cu:
+// (attention.cu: K7's tiles, K5's loads at head dims 16, 32 and 128; the
+// argument block, the prologue tables and the accumulator that the
+// TMA / wgmma bodies of K1-K4 and K6 also use) and the whole body of the K4-family probes (probes.cu:
 // T1, T2): bf16 operands, mma.sync m16n8k16 tensor-core tiles, f32 online
 // softmax in the log2 domain, optional fused qk-norm + RoPE prologue.
 // Templated on the head dim HD (16, 32, 64, 128), the q rows per block BM_
@@ -27,7 +27,6 @@ constexpr int BN = 64;              // kv rows per tile
 constexpr int NTHREADS = (BM / 16) * 32;
 // smem pitch (bf16) of q/k tiles of head dim hd: conflict-free fragments, 16-byte rows
 __host__ __device__ constexpr int pitch(int hd) { return hd + 8; }
-constexpr int LDS = pitch(D);
 constexpr int LDV = BN + 8;         // smem pitch of the transposed v tile
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -333,8 +332,11 @@ __device__ __forceinline__ void attend_tile(const uint32_t (&qa)[HD / 16][4],
   softmax_pv<HD, BN_, MASK>(s, Vt, ldv, kv0, skv, bias, acc);
 }
 
-// o = acc / l for this warp's 16 rows starting at q row ``q0 + warp*16``;
-// with ``lse`` (already at (b, h)), also the rows' natural-log logsumexp.
+// o = acc / l for this warp's 16 rows starting at q row ``q0 + warp*16``
+// (as acc times one reciprocal a row: 64 IEEE divisions a thread made K2's
+// call 0.992 / 1.021 ms against 0.905 / 1.001 on an H100,
+// tools/kernel_ablations.py); with ``lse`` (already at (b, h)), also the
+// rows' natural-log logsumexp.
 template <int HD>
 __device__ __forceinline__ void store_out(AccT<HD>& acc, __nv_bfloat16* o, long long os, int q0,
                                           int sq, float* lse) {
@@ -352,15 +354,16 @@ __device__ __forceinline__ void store_out(AccT<HD>& acc, __nv_bfloat16* o, long 
     if (r0 < sq) lse[r0] = (acc.m[0] + log2f(l0)) * LN2;
     if (r1 < sq) lse[r1] = (acc.m[1] + log2f(l1)) * LN2;
   }
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
 #pragma unroll
   for (int dt = 0; dt < HD / 8; ++dt) {
     const int c = dt * 8 + t * 2;
     if (r0 < sq)
       *reinterpret_cast<__nv_bfloat162*>(o + (long long)r0 * os + c) =
-          __floats2bfloat162_rn(acc.o[dt][0] / l0, acc.o[dt][1] / l0);
+          __floats2bfloat162_rn(acc.o[dt][0] * i0, acc.o[dt][1] * i0);
     if (r1 < sq)
       *reinterpret_cast<__nv_bfloat162*>(o + (long long)r1 * os + c) =
-          __floats2bfloat162_rn(acc.o[dt][2] / l1, acc.o[dt][3] / l1);
+          __floats2bfloat162_rn(acc.o[dt][2] * i1, acc.o[dt][3] * i1);
   }
 }
 

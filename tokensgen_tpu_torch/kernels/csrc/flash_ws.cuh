@@ -325,4 +325,166 @@ __device__ __forceinline__ void ws_body(const TGAttnArgs& a, const CUtensorMap* 
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// K2 (`smallkv_kernel` in attention.cu): long q against at most
+// SK_STAGES * 128 = 512 keys (text_video -> vip). The keys of one (b, h) fit
+// in shared memory whole, so a block loads its (b, h)'s prologued K and V
+// once, by TMA, into the SK_STAGES K / V stages that ws_body streams through,
+// and then runs a contiguous range of the call's q tiles of WS_BM rows
+// against them (tiles in (b, h)-major order, `per_block` a block; when the
+// range reaches the next (b, h), the block reloads K and V). The q' tiles
+// (prologued with log2 e folded in by the prologue pass) come by TMA through
+// a ring of SKV_QSTAGES, one tile ahead. Each q tile is ws_body's loop over
+// the <= 4 kv tiles: two row blocks per warpgroup, one row block's scores
+// issued with the other's p.v, the score product reading q' from shared
+// memory (SS), p.v its p from registers. The TPU kernel scores the whole
+// pre-prologued K in one matmul; here the ragged last kv tile is masked
+// (keys past Skv score -inf), and rows past Sq are not stored.
+constexpr int SKV_QSTAGES = 2;
+
+// dynamic shared memory: 1 KB of alignment slack, the q' ring, K / V (all in
+// TMA's swizzled boxes), the q' stages' mbarriers and K / V's
+template <int HD>
+__host__ __device__ constexpr int smallkv_smem_bytes() {
+  return 1024 + static_cast<int>(sizeof(__nv_bfloat16)) *
+                    (SKV_QSTAGES * WS_BM * HD + 2 * SK_STAGES * splitkv_bn(HD) * HD) +
+         8 * (SKV_QSTAGES + 1);
+}
+
+template <int HD>
+__device__ __forceinline__ void smallkv_body(const TGAttnArgs& a, const CUtensorMap* kmap,
+                                             const CUtensorMap* vmap, const CUtensorMap* qmap,
+                                             int per_block) {
+  using G = TileGeom<HD>;
+  constexpr int BN = G::BN;
+  static_assert(BN != HD, "the two products must differ in wgmma shape");
+  static_assert(HD == splitkv_box_cols(HD), "one box per row");
+  constexpr uint32_t KVT = 2 * G::BYTES;    // one K tile and one V tile
+  constexpr uint32_t QBOX = WS_BM * G::RB;  // one q' tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* Qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* kv = Qs + SKV_QSTAGES * QBOX;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(kv + SK_STAGES * KVT);
+  uint64_t* kvbar = qfull + SKV_QSTAGES;
+  const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
+  const int heads = static_cast<int>(a.h);
+  const int ntiles = (skv + BN - 1) / BN;  // <= SK_STAGES
+  const int nqt = (sq + WS_BM - 1) / WS_BM;
+  const long long first = (long long)blockIdx.x * per_block;
+  const long long last = min(a.b * a.h * nqt, first + per_block);
+  const int wg = threadIdx.x >> 7;
+
+  auto load_kv = [&](long long bh) {
+    const int b = static_cast<int>(bh / heads), h = static_cast<int>(bh % heads);
+    mbar_expect_tx(kvbar, ntiles * KVT);
+    for (int i = 0; i < ntiles; ++i) {
+      tma_load_4d(kv + i * KVT, kmap, kvbar, 0, i * BN, h, b);
+      tma_load_4d(kv + i * KVT + G::BYTES, vmap, kvbar, 0, i * BN, h, b);
+    }
+  };
+  auto load_q = [&](long long tile, int st) {
+    const long long bh = tile / nqt;
+    mbar_expect_tx(qfull + st, QBOX);
+    tma_load_4d(Qs + st * QBOX, qmap, qfull + st, 0, static_cast<int>(tile % nqt) * WS_BM,
+                static_cast<int>(bh % heads), static_cast<int>(bh / heads));
+  };
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < SKV_QSTAGES; ++st) mbar_init(qfull + st, 1);
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    load_kv(first / nqt);
+    for (int st = 0; st < SKV_QSTAGES && first + st < last; ++st) load_q(first + st, st);
+  }
+  __syncthreads();  // the mbarriers' initialization
+
+  long long cur = first / nqt;  // the (b, h) whose K / V are loaded
+  int kv_loads = 1;
+  float s[BN / 8][4];
+  uint32_t pa[BN / 16][4];  // bf16 p of the last softmax: the A operand of its p.v
+  for (long long tile = first; tile < last; ++tile) {
+    const int i = static_cast<int>(tile - first);
+    const long long bh = tile / nqt;
+    if (bh != cur) {  // the same for the whole block; the last tile's barrier freed K / V
+      if (threadIdx.x == 0) load_kv(bh);
+      cur = bh;
+      ++kv_loads;
+    }
+    const int b = static_cast<int>(bh / heads), h = static_cast<int>(bh % heads);
+    const int q0 = static_cast<int>(tile % nqt) * WS_BM;
+    const float* bias = a.bias ? static_cast<const float*>(a.bias) + (long long)b * skv : nullptr;
+    const unsigned char* Qt = Qs + (i % SKV_QSTAGES) * QBOX;
+    // the descriptor of this warpgroup's 64 rows of row block rb in the q' tile
+    auto qrows = [&](int rb) {
+      return smem_desc(Qt + (rb * 128 + wg * 64) * G::RB, 16, G::SBO, G::MODE);
+    };
+    AccT<HD> acc[2];
+    init_acc(acc[0]);
+    init_acc(acc[1]);
+    auto softmax = [&](int rb, int kv0) {
+      float ls[2];
+      const float2 alpha = softmax_tile<BN>(s, kv0, skv, bias, acc[rb].m, ls);
+      acc[rb].l[0] = acc[rb].l[0] * alpha.x + ls[0];
+      acc[rb].l[1] = acc[rb].l[1] * alpha.y + ls[1];
+      rescale(acc[rb], alpha);
+    };
+    // as ws_body's: row block rs's scores of kv tile ts with the p.v of the
+    // p in registers (row block rp's of tile tp), the p.v left running
+    auto turn = [&](int rs, int ts, int rp, int tp) {
+      pin_regs(s);
+      pin_regs(acc[rp].o);
+      pin_regs(pa);
+      wgmma_fence();
+      issue_scores_ss<HD>(s, qrows(rs), QBOX, kv + ts * KVT);
+      wgmma_commit();
+      issue_pv<HD>(acc[rp].o, pa, kv + tp * KVT + G::BYTES);
+      wgmma_commit();
+      wgmma_wait<1>();
+      pin_regs(s);
+    };
+    auto repack = [&](int rp) {
+      wgmma_wait<0>();
+      pin_regs(acc[rp].o);
+      pin_regs(pa);
+      pack_p<BN>(pa, s);
+    };
+    mbar_wait(kvbar, (kv_loads - 1) & 1);
+    mbar_wait(qfull + i % SKV_QSTAGES, (i / SKV_QSTAGES) & 1);
+    pin_regs(s);
+    wgmma_fence();
+    issue_scores_ss<HD>(s, qrows(0), QBOX, kv);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin_regs(s);
+    softmax(0, 0);
+    pack_p<BN>(pa, s);
+    turn(1, 0, 0, 0);
+    softmax(1, 0);
+    repack(0);
+    for (int j = 1; j < ntiles; ++j) {
+      turn(0, j, 1, j - 1);
+      softmax(0, j * BN);
+      repack(1);
+      turn(1, j, 0, j);
+      softmax(1, j * BN);
+      repack(0);
+    }
+    pin_regs(acc[1].o);
+    pin_regs(pa);
+    wgmma_fence();
+    issue_pv<HD>(acc[1].o, pa, kv + (ntiles - 1) * KVT + G::BYTES);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin_regs(acc[1].o);
+    pin_regs(pa);
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh;
+    store_out(acc[0], o, a.o_ss, q0, sq, nullptr);
+    store_out(acc[1], o, a.o_ss, q0 + 128, sq, nullptr);
+    __syncthreads();  // this q' stage (and, before a reload, K / V) read by both warpgroups
+    if (threadIdx.x == 0 && tile + SKV_QSTAGES < last) load_q(tile + SKV_QSTAGES, i % SKV_QSTAGES);
+  }
+}
+
 }  // namespace
