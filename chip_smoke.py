@@ -8,7 +8,8 @@ Phases, each printing its own lines:
           TF32 is switched off for matmuls and convolutions in every phase
   build   nvcc builds both sources of kernels/csrc at once (attention.cu,
           probes.cu; timed) and prints registers and spills per
-          instantiation; none may spill
+          instantiation; none may spill; K7's body's SASS (cuobjdump) must
+          hold int8 wgmma and no mma.sync and no I2F
   kernels K1-K4 at the edit path's production shapes, K5 (the attention
           backward) at the training path's, K7 (int8 scores) at the gen
           path's and K6 (fused prologue on [B, H, S, D]) at the T2To
@@ -21,7 +22,9 @@ Phases, each printing its own lines:
           pass / body / combine), its kernels checked to fall in their own
           trace group; K2 per kernel and at 1,024-row chunks (4 q tiles a
           block) beside its plan's one wave; K5 per kernel, and whether two
-          calls give bit-equal dq; K7 against bf16 K1; K1 at the T2To
+          calls give bit-equal dq; K7 against bf16 K1, its launch geometry
+          and at forced split counts 2 and 5 beside its plan's (1), with
+          the quantizing pass's time apart; K1 at the T2To
           shape; K4 at head dims 16, 32 and 128 at its row's width; K6 as a
           strided view of merged operands and at head dims 16 and 32; K1
           and K5 at the T2To trainer's shape with its padded-chunk key bias;
@@ -71,10 +74,12 @@ raises and the script exits non-zero. It refuses to run without a card.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -95,9 +100,9 @@ PHASES = ("env", "build", "kernels", "probes", "dit", "edit", "gen", "train", "t
 # planted fault fails the bounds.
 REL_L2_BOUND = 1e-2
 MAX_ABS_REL = 2.0 ** -5  # 4-8 bf16 ulps at the output's largest magnitude
-# kv tile of K7 and of K5 at d != 64 (csrc BN): the planted fault drops the keys past it
+# kv tile of K5 at d != 64 and of the probes (csrc BN): the planted fault drops the keys past it
 KV_TILE = 64
-# K1's, K2's and K6's drops the keys past their body's kv tile,
+# K1's, K2's, K6's and K7's drops the keys past their body's kv tile,
 # attention.kv_tile(d) (128 keys at d <= 64, 64 at 128); K5's at d = 64 past
 # its one-pass body's block of keys, attention.BWD_KV_BLOCK (128)
 
@@ -120,11 +125,17 @@ SOURCE = "tokensgen_tpu_torch/kernels/csrc/attention.cu"
 LSE_REL_L2_BOUND = 1e-3
 LSE_MAX_REL = 2.0 ** -7
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
-# sheet): bf16 tensor cores and HBM3. A kernel's bound is the larger of its
-# least matmul work over the first and the bytes it must move over the second.
+# sheet): bf16 and int8 tensor cores and HBM3. A kernel's bound is the
+# largest of its least matmul work over the first two, its exponentials
+# (forward attention: one ex2 a score) over the MUFU's rate at the card's
+# top SM clock, and the bytes it must move over the third.
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
+# SFU (ex2) and FP32 results per clock per SM on Hopper, and its SMs: the
+# exponentials' bound and the exp2 probe's are their counts over these at
+# the SM clock nvidia-smi reports (clocks.max.sm)
+SFU_PER_CLK_SM, FP32_PER_CLK_SM, SMS = 16, 128, 132
 
 
 def log(msg: str) -> None:
@@ -177,7 +188,8 @@ def phase_env(state: dict) -> None:
 def phase_build(state: dict) -> None:
     """nvcc builds both sources at once (one process each), then prints
     -Xptxas -v per instantiation: registers and spill bytes. The instantiated
-    set leaves out what spills (probes.SWEEP_CONFIGS), so a spill fails."""
+    set leaves out what spills (probes.SWEEP_CONFIGS), so a spill fails; so
+    does a K7 body whose SASS is not int8 wgmma scores without I2F."""
     from concurrent.futures import ThreadPoolExecutor
 
     from tokensgen_tpu_torch.kernels import attention as A
@@ -207,6 +219,36 @@ def phase_build(state: dict) -> None:
                 spilled.append(name)
     if spilled:
         raise RuntimeError(f"registers spill in {spilled}")
+    _int8_sass_check(built[0][0])
+
+
+# K7's body in SASS (cuobjdump): the instructions that show its design, by
+# opcode: its score product on int8 wgmma (IGMMA), p.v on bf16 wgmma (HGMMA),
+# no mma.sync (IMMA / HMMA), and no integer-to-float conversion a score (I2F,
+# I2FP: the unrolled softmaxes would hold 64 each; the block's integer
+# divisions convert by I2F.U32.RP, counted apart, and the lse's log2f in the
+# stores by a few I2FP)
+INT8_SASS = {"IGMMA": r"\bIGMMA\.", "HGMMA": r"\bHGMMA\.", "mma.sync": r"\b[IH]MMA\.",
+             "I2F": r"\bI2FP?\.(?!U32\.RP\b)", "I2F.U32.RP (divisions)": r"\bI2F\.U32\.RP\b"}
+SCORE_TILE = 64  # scores a thread holds in one softmax (a per-score conversion's count)
+
+
+def _int8_sass_check(lib_path) -> None:
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    proc = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {proc.stderr.strip()[:400]}")
+    body = [f for f in proc.stdout.split("Function : ")[1:]
+            if f.split(None, 1)[0].find("joint_int8_splitkv_kernel") >= 0]
+    if len(body) != 1:
+        raise RuntimeError(f"cuobjdump: {len(body)} functions named joint_int8_splitkv_kernel")
+    counts = {k: len(re.findall(rx, body[0])) for k, rx in INT8_SASS.items()}
+    log(f"[build]   joint_int8_splitkv_kernel SASS: " + ", ".join(
+        f"{k} {n}" for k, n in counts.items()))
+    if (not counts["IGMMA"] or not counts["HGMMA"] or counts["mma.sync"]
+            or counts["I2F"] >= SCORE_TILE):
+        raise RuntimeError(f"K7's body is not int8 wgmma scores without I2F: {counts}")
 
 
 def _rope_tables(d, nf, gh, gw, device, offset=0.0):
@@ -235,13 +277,22 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound_ms(flops: float, nbytes: float, int8_ops: float = 0.0):
-    """(least time in ms, "operations" or "bytes"): the larger of the matmul
-    work (bf16 FLOPs at the bf16 peak plus int8 operations at the int8 peak)
-    and the bytes at the memory peak."""
-    t_ops = flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS
+def bound_ms(flops: float, nbytes: float, int8_ops: float = 0.0, exps: float = 0.0):
+    """(least time in ms, "operations" or "bytes"): the largest of the matmul
+    work (bf16 FLOPs at the bf16 peak plus int8 operations at the int8 peak),
+    the exponentials (ex2 at the MUFU's rate, SFU_PER_CLK_SM a clock on each
+    of SMS SMs at the top SM clock) and the bytes at the memory peak."""
+    t_ops = max(flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS,
+                exps / (SFU_PER_CLK_SM * SMS * _sm_clock_hz()) if exps else 0.0)
     t_bytes = nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _work_detail(work) -> str:
+    """``work`` = (FLOPs, bytes[, int8 operations[, exponentials]]) in words."""
+    flops, nbytes, int8_ops, exps = (*work, 0.0, 0.0)[:4]
+    return (f"{flops / 1e12:.3f} TFLOP" + (f", {int8_ops / 1e12:.3f} int8 TOP" if int8_ops else "")
+            + (f", {exps / 1e9:.3f} G ex2" if exps else "") + f", {nbytes / 1e9:.3f} GB")
 
 
 def _outputs(x):
@@ -279,11 +330,9 @@ def _compare(name, kernel_fn, plain_fn, state, fault_fn=None, runs=5, plain_runs
         plain_ms = _cuda_time_ms(plain_fn, plain_runs)
         lib_ms = None if library_fn is None else _cuda_time_ms(library_fn, runs)
         b_ms, b_by = bound_ms(*work)
-        int8 = f", {work[2] / 1e12:.3f} int8 TOP" if len(work) > 2 else ""
-        detail = f"{work[0] / 1e12:.3f} TFLOP{int8}, {work[1] / 1e9:.3f} GB"
         log(f"{msg}; kernel {ms:.3f} ms plain {plain_ms:.3f} ms library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'} bound {b_ms:.3f} ms "
-            f"({b_by}; {detail})")
+            f"({b_by}; {_work_detail(work)})")
         state.setdefault("kernel_rows", {})[name] = {
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms}
@@ -391,7 +440,8 @@ def _without_ragged_tile(name, c):
     from tokensgen_tpu_torch.kernels import attention as A
 
     skv = c["k"].shape[2 if name == "flash_attention_bhsd" else 1]
-    body_tile = name in ("fused_attention_joint", "fused_attention_cross_smallkv")
+    body_tile = name in ("fused_attention_joint", "fused_attention_cross_smallkv",
+                         "fused_attention_joint_int8")
     dropped = skv % (A.kv_tile(64) if body_tile else KV_TILE)
     if dropped == 0:
         raise RuntimeError(f"{name}: Skv {skv} has no ragged kv tile to drop")
@@ -416,9 +466,10 @@ def _heads_view(name, c):
 
 
 def forward_work(name, c):
-    """(matmul FLOPs, bytes) of a forward call: q k^T and p v; each input the
-    kernel reads (operands, f32 prologue tables, bias) once, the output once.
-    K7's q k^T is int8 operations (the third entry), its p v bf16 FLOPs."""
+    """(matmul FLOPs, bytes, int8 operations, exponentials) of a forward call:
+    q k^T and p v; each input the kernel reads (operands, f32 prologue tables,
+    bias) once, the output once; one ex2 a score. K7's q k^T is int8
+    operations, its p v bf16 FLOPs."""
     q, k, v = c["q"], c["k"], c["v"]
     if name == "flash_attention_bhsd":
         (b, h, sq, d), skv = q.shape, k.shape[2]
@@ -428,9 +479,10 @@ def forward_work(name, c):
         (b, sq, hd), skv, d = q.shape, k.shape[1], q.shape[2] // h
         tabs = list(c["tabs_q"][:3]) + list(c["tabs_k"][:3])
     nbytes = _nbytes(q, k, v, q, c.get("key_bias"), *tabs)
+    scores = float(b * h * sq * skv)
     if name == "fused_attention_joint_int8":
-        return 2.0 * b * h * sq * skv * d, nbytes, 2.0 * b * h * sq * skv * d
-    return 4.0 * b * h * sq * skv * d, nbytes
+        return 2.0 * scores * d, nbytes, 2.0 * scores * d, scores
+    return 4.0 * scores * d, nbytes, 0.0, scores
 
 
 def _sdpa(q4, k4, v4, scale, key_bias=None):
@@ -537,7 +589,8 @@ def _k6_plain(q4, k4, v4, tq, tk, bias, n=None, with_lse=False):
 
 def _k6_work(q4, k4, v4, tq, tk, bias):
     (b, h, sq, d), skv = q4.shape, k4.shape[2]
-    return 4.0 * b * h * sq * skv * d, _nbytes(q4, k4, v4, q4, bias, *tq[:3], *tk[:3])
+    return (4.0 * b * h * sq * skv * d, _nbytes(q4, k4, v4, q4, bias, *tq[:3], *tk[:3]), 0.0,
+            float(b * h * sq * skv))
 
 
 def _k6_checks(dev, state) -> None:
@@ -769,11 +822,11 @@ def _splitkv_checks(dev, cases, state) -> None:
         torch.cuda.empty_cache()
 
 
-def _kernel_breakdown(label, fn, calls=5, group=None) -> None:
+def _kernel_breakdown(label, fn, calls=5, group=None) -> dict:
     """Device time per CUDA kernel of one call of ``fn`` (the mean over
-    ``calls`` traced calls, torch.profiler), logged. With ``group`` (a
-    `_KERNEL_GROUPS` name), every attention kernel of the call must fall in
-    that group of the traces' table."""
+    ``calls`` traced calls, torch.profiler), logged and returned ({kernel:
+    ms}). With ``group`` (a `_KERNEL_GROUPS` name), every attention kernel of
+    the call must fall in that group of the traces' table."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -783,18 +836,20 @@ def _kernel_breakdown(label, fn, calls=5, group=None) -> None:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    parts, found = [], set()
+    parts, found = {}, set()
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", 0) or getattr(evt, "self_cuda_time_total", 0)
         if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             name = re.search(r"(\w+)(<[^()]*>)?\(", evt.key.replace("(anonymous namespace)", ""))
-            parts.append(f"{name.group(1) if name else evt.key[:40]} {us / calls / 1e3:.4f} ms")
+            key = name.group(1) if name else evt.key[:40]
+            parts[key] = parts.get(key, 0.0) + us / calls / 1e3
             if re.search(r"(joint|smallkv|smallq|bhsd|int8|bwd)_\w*kernel", evt.key):
                 found.add(_kernel_group(evt.key))
-    log(f"[kernels] {label} per kernel: " + "; ".join(parts))
+    log(f"[kernels] {label} per kernel: " + "; ".join(f"{k} {ms:.4f} ms" for k, ms in parts.items()))
     if group is not None and found != {group}:
         raise RuntimeError(f"{label}: its kernels fall in trace groups {sorted(found)}, "
                            f"not {group!r} alone")
+    return parts
 
 
 def _without_last_split(q4, k4, v4, bias, split_len):
@@ -867,6 +922,77 @@ def _fused_split_checks(dev, cases, state) -> None:
         torch.cuda.empty_cache()
 
 
+def _int8_without_last_split(q8, qs, k8, ks, v4, bias, split_len):
+    """The combine (`combine_plain`) of K7's plain split partials
+    (`int8_splitkv_partials_plain`) without the last split's, in q-row
+    chunks; f32."""
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+
+    b, h, sq, _ = q8.shape
+    chunk = A._q_chunk(b, h, sq, k8.shape[2]) // 2  # its score-sized temporaries
+    outs = []
+    for i in range(0, sq, chunk):
+        acc, m, l = A.int8_splitkv_partials_plain(q8[:, :, i:i + chunk], qs[:, :, i:i + chunk],
+                                                  k8, ks, v4, bias, split_len)
+        outs.append(A.combine_plain(acc[:-1], m[:-1], l[:-1])[0])
+        del acc, m, l
+    return torch.cat(outs, dim=2)
+
+
+def _int8_split_checks(dev, c, state) -> None:
+    """K7 at the gen path's joint shape: its build (registers from this
+    process's nvcc output, shared memory, blocks a call), then at its plan's
+    split count (1, K1's plan) and at `FUSED_SPLIT_COUNTS`, each held to its
+    plain version (one reference), its device time broken down per kernel
+    (the quantizing prologue pass apart from the body and the combine) and
+    its kernels checked to fall in K7's trace group; at more than one split
+    with the planted fault of the last split left out of the combine."""
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+    from tokensgen_tpu_torch.kernels import build as B
+
+    name, group = "fused_attention_joint_int8", _group_named("attention K7")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    h = c["heads"]
+    b, sq, skv = c["q"].shape[0], c["q"].shape[1], c["k"].shape[1]
+    plan = A.kv_split_plan(b, h, sq, skv, 64, sms)
+    smem, threads = A.int8_geometry()
+    regs = [f"{k} {r} registers, {sp} bytes spilled"
+            for k, r, sp in B.ptxas_report(A._Library.build_log) if "int8" in k]
+    blocks = -(-sq // A.split_block_q(64)) * plan[0] * h * b
+    log(f"[kernels] {name} [{b}, {sq:,}, {h}x64] x {skv:,}: body {threads} threads, "
+        f"{smem:,} B of dynamic shared memory, {blocks:,} blocks at its plan {plan} on {sms} "
+        f"SMs; {'; '.join(regs) or 'registers: not in this process build log'}")
+    ref = run_plain(name, c)
+    q8, qs = A.quantize_pairs_plain(A.split_heads(c["q"], h), c["tabs_q"], 1e-6, True, A._LOG2E)
+    k8, ks = A.quantize_pairs_plain(A.split_heads(c["k"], h), c["tabs_k"], 1e-6, True)
+    v4 = A.split_heads(c["v"], h)
+    zeros = torch.zeros(b, skv, device=dev)
+    for n in (plan[0], *FUSED_SPLIT_COUNTS):
+        splits, split_len = A.kv_split_plan(b, h, sq, skv, 64, sms, n)
+        label = f"{name}[splits={splits} of {split_len:,} keys]"
+
+        def launch(n=n):
+            return A._launch_int8(c["q"], c["k"], c["v"], None, c["tabs_q"], c["tabs_k"], h,
+                                  1e-6, True, True, splits=n)
+
+        def fault(split_len=split_len):
+            return A.merge_heads(_int8_without_last_split(q8, qs, k8, ks, v4, zeros, split_len))
+
+        _compare(label, launch, lambda: ref, state, check_only=True,
+                 fault_fn=fault if splits > 1 else None,
+                 fault="the last split's partial left out of the combine")
+        parts = _kernel_breakdown(label, launch, group=group)
+        pro = sum(ms for k, ms in parts.items() if "prologue" in k)
+        log(f"[kernels] {label}: quantizing prologue pass (q and k) {pro:.4f} ms, body and "
+            f"combine {sum(parts.values()) - pro:.4f} ms")
+    del ref, q8, qs, k8, ks
+    torch.cuda.empty_cache()
+
+
 def _k4_head_dim_checks(dev, cases, state) -> None:
     """K4 (`flash_attention_bhsd`) at head dims 128, 32 and 16 at its row's
     shape and width (the resampler's 384 latents against 17,934 keys, 16
@@ -893,7 +1019,8 @@ def _k4_head_dim_checks(dev, cases, state) -> None:
                  lambda: A.attention_plain(q, k, v, zeros, scale), state,
                  fault_fn=lambda: A.attention_plain(q, k[:, :, :n], v[:, :, :n], zeros[:, :n],
                                                     scale),
-                 work=(4.0 * b * h * sq * skv * d, _nbytes(q, k, v, q)),
+                 work=(4.0 * b * h * sq * skv * d, _nbytes(q, k, v, q), 0.0,
+                       float(b * h * sq * skv)),
                  library_fn=lambda: _sdpa(q, k, v, scale))
 
 
@@ -1065,10 +1192,10 @@ def phase_kernels(state: dict) -> None:
     _compare(name, lambda: run_kernel(name, c), lambda: run_plain(name, c), state,
              fault_fn=_without_ragged_tile(name, c), work=forward_work(name, c),
              library_fn=lambda: _sdpa(q4, k4, v4, scale))
-    _kernel_breakdown(name, lambda: run_kernel(name, c), group=_group_named("attention K7"))
     rel, err, _ = agreement(run_kernel(name, c), run_kernel("fused_attention_joint", c))
     log(f"[kernels] {name} against bf16 fused_attention_joint on the same inputs "
         f"(quantization error): rel_l2_err {rel:.3e} max_abs_err {err:.3e}")
+    _int8_split_checks(dev, c, state)
     _t2to_joint_case(dev, state)
     _k6_checks(dev, state)
     _t2to_train_checks(dev, state)
@@ -1157,11 +1284,7 @@ PROBES = {
 PROBE_SOURCE = "tokensgen_tpu_torch/kernels/csrc/probes.cu"
 PROBE_CLIS = ("bench_attn_sweep", "bench_attn_v2", "bench_int8_loop", "bench_matmul_hand",
               "bench_exp2", "bench_attn_r3", "bench_cross_r3", "bench_cross_pairloop")
-# SFU (ex2) and FP32 results per clock per SM on Hopper: the exp2 probe's
-# bound is its passes over these at the SM clock nvidia-smi reports
-SFU_PER_CLK_SM, FP32_PER_CLK_SM, SMS = 16, 128, 132
-
-
+@functools.lru_cache(maxsize=None)
 def _sm_clock_hz() -> float:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                           "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -1185,7 +1308,7 @@ def _probe_attention_rows(dev, state) -> None:
     b, h, sq, d = q.shape
     skv = k.shape[2]
     n = skv - skv % KV_TILE
-    work = (4.0 * b * h * sq * skv * d, _nbytes(q, k, v, q, bias))
+    work = (4.0 * b * h * sq * skv * d, _nbytes(q, k, v, q, bias), 0.0, float(b * h * sq * skv))
     library = lambda: _sdpa(q, k, v, d ** -0.5)  # noqa: E731
     _compare("attention_sweep", lambda: P.attention_sweep(q, k, v, bias, 128, 64, 1),
              lambda: P.attention_sweep_plain(q, k, v, bias), state,
@@ -1390,7 +1513,8 @@ def _probe_maxfree_rows(dev, state) -> None:
         if timed:
             k_prologued = probe in (P.cross_smallkv_pairinner, P.cross_smallkv_pairloop)
             k_tabs = [] if k_prologued else list(tk[:3])
-            work = (4.0 * q.shape[1] * k.shape[1] * h * 64, _nbytes(q, k, v, q, *tq[:3], *k_tabs))
+            work = (4.0 * q.shape[1] * k.shape[1] * h * 64, _nbytes(q, k, v, q, *tq[:3], *k_tabs),
+                    0.0, float(q.shape[1] * k.shape[1] * h))
             q4 = A.apply_prologue_plain(A.split_heads(q, h), tq, 1e-6, True)
             k4 = A.apply_prologue_plain(A.split_heads(k, h), tk, 1e-6, True)
             v4 = A.split_heads(v, h)
@@ -2228,8 +2352,8 @@ def phase_t2to_train(state: dict) -> None:
 
 
 _KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name), first match wins
-    ("attention K7 (int8_prologue_kernel + joint_int8_kernel)",
-     ("int8_prologue_kernel", "joint_int8_kernel")),
+    ("attention K7 (int8_prologue + joint_int8_splitkv + joint_int8_combine)",
+     ("int8_prologue_kernel", "joint_int8_splitkv_kernel", "joint_int8_combine_kernel")),
     ("attention K5 (bwd_onepass + bwd_dq_store; bwd_dkdv + bwd_dq at d != 64)",
      ("bwd_onepass_kernel", "bwd_dq_store_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")),
     ("attention K1 (joint_prologue + joint_splitkv + joint_combine)",

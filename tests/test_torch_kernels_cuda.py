@@ -3,7 +3,8 @@ K4 also at head dims 16, 32 and 128, K1, K3, K4 and K6 at forced split
 counts, K2 at 1 to 512 keys, K1, K2 and K6 on all-negative score rows, K1
 and K6 refusing misaligned operands, their logsumexp outputs, the backward
 K5 at head dims 16, 32, 64 and 128 and at the training shapes' short sides
-(few keys, few q rows), the int8-score forward K7, the
+(few keys, few q rows), the int8-score forward K7 (also at forced split
+counts and on all-negative score rows), the
 [B, H, S, D] fused-prologue forward K6 at the same four, and the probe
 kernels T1, T2, T3a, T3b, T4a, T4b, T5, T6, T7 and T8) against their plain
 PyTorch versions, on the card. Every test here is
@@ -283,19 +284,58 @@ def test_smallkv_key_counts_on_card(cuda_device, skv, per_block):
     _assert_within_bounds(out, ref)
 
 
+def _int8_case(dev, b, h, sq, skv, masked, seed):
+    """bf16 merged operands of K7 ([b, S, h * 64]), per-sample tables with a
+    text prefix of min(5, S - 1) rows, and with ``masked`` a -1e9 key mask on
+    the first third of the last sample's keys (None without)."""
+    rng = np.random.default_rng(seed)
+
+    def x(s):
+        return torch.from_numpy(rng.normal(size=(b, s, h * D)).astype(np.float32)).to(
+            dev, torch.bfloat16)
+
+    bias = None
+    if masked:
+        bias = torch.zeros(b, skv, device=dev)
+        bias[-1, : max(1, skv // 3)] = -1e9
+    return (x(sq), x(skv), x(skv), _tabs(rng, sq, b, min(5, sq - 1), D ** -0.5, dev),
+            _tabs(rng, skv, b, min(5, skv - 1), 1.0, dev), bias)
+
+
 @pytest.mark.cuda
-def test_int8_kernel_matches_plain_on_card(cuda_device):
-    """K7 vs attention_fused_int8_plain on the same bf16 inputs (ragged
-    lengths, per-sample tables, a key-bias mask), within REL_L2_BOUND and
-    MAX_ABS_REL: the same codes and scales up to a rare code at a rounding
-    tie (the kernel folds log2 e in after the prologue), exact integer
-    products, p rounded to bf16 on both sides."""
-    q, k, v, tq, tk, bias, h = _case("fused_attention_joint", cuda_device)
+@pytest.mark.parametrize("b,h,sq,skv,masked,splits", [
+    (2, 4, 300, 517, True, None),   # the plan's split count
+    (2, 4, 300, 517, True, 1),
+    (2, 4, 300, 517, False, 2),
+    (2, 4, 300, 517, True, 3),
+    (1, 2, 1, 1, False, None),
+    (1, 2, 7, 1, True, 2),          # one key: the forced count comes back as 1
+    (2, 2, 130, 100, True, 1),
+    (2, 48, 259, 100, False, 3),
+    (1, 2, 300, 300, False, 1),
+    (2, 2, 300, 300, True, 2),
+    (1, 48, 513, 300, True, 3),
+    (2, 2, 77, 383, False, 3),      # an odd length: 3 tiles, the last 127 keys
+])
+def test_int8_kernel_matches_plain_on_card(cuda_device, b, h, sq, skv, masked, splits):
+    """K7 (the quantizing pass, the body, at more than one split the combine)
+    vs attention_fused_int8_plain on the same bf16 inputs (ragged lengths,
+    per-sample tables, with and without a key-bias mask, at the plan's split
+    count and at forced 1 / 2 / 3), within REL_L2_BOUND and MAX_ABS_REL: the
+    same codes and scales up to a rare code at a rounding tie (the kernel
+    folds log2 e in after the prologue), exact integer products, p rounded
+    to bf16 on both sides. The public wrapper counts one launch."""
+    q, k, v, tq, tk, bias = _int8_case(cuda_device, b, h, sq, skv, masked, 6 + sq + skv)
     before = TA.fused_attention_joint_int8.launches
-    out = TA.fused_attention_joint_int8(q, k, v, tq, tk, key_bias=bias, heads=h)
-    ref = TA.attention_fused_int8_plain(q, k, v, bias, tq, tk, h, 1e-6, True, True)
+    if splits is None:
+        out = TA.fused_attention_joint_int8(q, k, v, tq, tk, key_bias=bias, heads=h)
+    else:
+        out = TA._launch_int8(q, k, v, bias, tq, tk, h, 1e-6, True, True, splits=splits)
+    zeros = torch.zeros(b, skv, device=cuda_device)
+    ref = TA.attention_fused_int8_plain(q, k, v, zeros if bias is None else bias, tq, tk, h,
+                                        1e-6, True, True)
     torch.cuda.synchronize()
-    assert TA.fused_attention_joint_int8.launches == before + 1
+    assert TA.fused_attention_joint_int8.launches == before + (splits is None)
     _assert_within_bounds(out, ref)
     with pytest.raises(ValueError):
         TA.fused_attention_joint_int8(q[..., :192], k[..., :192], v[..., :192], tq, tk, heads=3)
@@ -485,9 +525,9 @@ def test_fused_kernels_at_split_counts_on_card(cuda_device, kernel, d, layout, s
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["fused_attention_joint", "fused_attention_bhsd",
-                                  "fused_attention_cross_smallkv"])
+                                  "fused_attention_cross_smallkv", "fused_attention_joint_int8"])
 def test_fused_kernels_on_all_negative_rows(cuda_device, name):
-    """K1, K6 and K2 (against the first 480 keys) on rows whose every score
+    """K1, K6, K2 (against the first 480 keys) and K7 on rows whose every score
     is far negative (q = -k with LayerNorm gain 50, as chip_smoke.py): the
     online max keeps them finite,
     and each output is a convex combination of v's rows (within v's range
@@ -503,8 +543,8 @@ def test_fused_kernels_on_all_negative_rows(cuda_device, name):
     tq = TA.make_prologue(d, [(None, s)], gain, zero, fold=d ** -0.5)
     tk = TA.make_prologue(d, [(None, s)], gain, zero)
     q = -k
-    if name == "fused_attention_joint":
-        out = TA.fused_attention_joint(q, k, v, tq, tk, heads=h)
+    if name in ("fused_attention_joint", "fused_attention_joint_int8"):
+        out = getattr(TA, name)(q, k, v, tq, tk, heads=h)
     elif name == "fused_attention_cross_smallkv":
         k, v = k[:, :480], v[:, :480]
         out = TA.fused_attention_cross_smallkv(q, k, v, tq, TA.slice_tabs(tk, 0, 480), heads=h)

@@ -36,12 +36,13 @@ directions run the plain versions.
 The CUDA C++ sources are `csrc/attention.cu`, the mma.sync pieces it shares
 with the probes, `csrc/flash_fwd.cuh`, K3's and K4's split-KV body,
 `csrc/flash_splitkv.cuh` (the keys of a call cut into `kv_split_plan`'s
-splits, each split's f32 partials merged by a combine pass), K1's and K6's
-overlapped body on the same machinery and K2's K / V-resident form of it,
-`csrc/flash_ws.cuh`, and K5's one-pass backward at head dim 64,
-`csrc/flash_bwd.cuh`. K1, K2, K3 and K6 run their prologues once per row in
-a pass of their own (`prologue_pass_plain`'s function) into a bf16
-workspace.
+splits, each split's f32 partials merged by a combine pass), K1's, K6's and
+K7's overlapped body on the same machinery (K7's with int8 scores) and K2's
+K / V-resident form of it, `csrc/flash_ws.cuh`, and K5's one-pass backward
+at head dim 64, `csrc/flash_bwd.cuh`. K1, K2, K3 and K6 run their prologues
+once per row in a pass of their own (`prologue_pass_plain`'s function) into
+a bf16 workspace; K7 quantizes in its pass (`quantize_pairs_plain`'s
+function) into int8 codes and scales.
 `build_kernels` compiles them with
 nvcc (`kernels/build.py`) into a shared library with a plain C interface
 (loaded with ctypes) under ``<repo>/build/kernels``. Dispatch goes by the
@@ -450,6 +451,45 @@ def attention_int8_plain(q8, qs, k8, ks, v, key_bias):
     return torch.cat(outs, dim=2)
 
 
+INT8_MAGIC = 0x4B400000  # the bits of 1.5 * 2^23 (csrc I8_MAGIC)
+
+
+def int8_score_to_float(c: torch.Tensor) -> torch.Tensor:
+    """K7's conversion of its s32 scores to f32 without an I2F (csrc
+    `ws_body`'s I8): the bits of c + `INT8_MAGIC` read as a float are
+    1.5 * 2^23 + c exactly while |c| < 2^22 (every score: |c| <= 64 * 127^2),
+    and one f32 subtraction takes the offset off. ``c``: int32."""
+    return (c + INT8_MAGIC).view(torch.float32) - 12582912.0
+
+
+def int8_splitkv_partials_plain(q8, qs, k8, ks, v, key_bias, split_len: int):
+    """The split pass of K7's body on [B, H, S, D] codes (`quantize_pairs_plain`'s
+    codes and scales, log2 e in q's), in its order: per score the exact
+    integer product, to f32 by `int8_score_to_float`, times the key's scale,
+    then the row's (with the key bias times log2 e); per range of
+    ``split_len`` keys the row max m_s, p = 2^(x - m_s), l_s = sum p (f32)
+    and acc_s = sum bf16(p) v (p rounded to v's dtype, as the kernel's p.v).
+    Returns (acc [splits, B, H, Sq, D], m, l [splits, B, H, Sq]) for
+    `combine_plain`."""
+    skv = k8.shape[2]
+    # exact in f32: every partial sum is an integer under 2^24
+    c = torch.einsum("bhqd,bhkd->bhqk", q8.float(), k8.float()).to(torch.int32)
+    x = (int8_score_to_float(c) * ks.repeat_interleave(2, dim=1)[:, :, None, :]
+         * qs.repeat_interleave(2, dim=1)[:, :, :, None]
+         + key_bias.float()[:, None, None, :] * _LOG2E)
+    vf = v.float()
+    accs, ms, ls = [], [], []
+    for s0 in range(0, skv, split_len):
+        xs = x[..., s0:s0 + split_len]
+        m = xs.amax(dim=-1)
+        p = torch.exp2(xs - m[..., None])
+        accs.append(torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(),
+                                 vf[:, :, s0:s0 + split_len]))
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+    return torch.stack(accs), torch.stack(ms), torch.stack(ls)
+
+
 def attention_fused_int8_plain(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k):
     """Plain K7 (the int8_scores branch of `_flash_packed_kernel`) on merged
     [B, S, H*D] operands, H even: both prologues quantized per (row, head
@@ -559,7 +599,8 @@ class _Int8Args(ctypes.Structure):
 
 _K2_ENTRY_POINT = "tg_attention_cross_smallkv"  # q tiles per block, prologue workspace
 _BWD_ENTRY_POINT = "tg_attention_bwd"  # head dim, then (at 64) the lse / dsum table and dq's sums
-_INT8_ENTRY_POINT = "tg_attention_joint_int8"
+_INT8_ENTRY_POINT = "tg_attention_joint_int8"  # splits, split_len, split workspace
+_INT8_GEOMETRY = "tg_attention_joint_int8_geometry"  # the body's shared memory and threads
 _K1_ENTRY_POINT = "tg_attention_joint"  # splits, split_len, prologue and split workspaces
 _K6_ENTRY_POINT = "tg_attention_fused_bhsd"  # head dim, then as K1
 _K3_ENTRY_POINT = "tg_attention_cross_smallq"  # splits, split_len, prologue and split workspaces
@@ -580,7 +621,10 @@ def _bind(lib) -> None:
     _build.bind(lib, _BWD_ENTRY_POINT, ctypes.POINTER(_BwdArgs), ctypes.c_int64, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p)
     _build.bind(lib, _INT8_ENTRY_POINT, ctypes.POINTER(_QuantArgs), ctypes.POINTER(_QuantArgs),
-                ctypes.POINTER(_Int8Args), ctypes.c_void_p)
+                ctypes.POINTER(_Int8Args), ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_void_p)
+    _build.bind(lib, _INT8_GEOMETRY, ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(ctypes.c_int64))
 
 
 _Library = _build.KernelLibrary("attention.cu", _bind)  # the compiled kernels, one per process
@@ -879,9 +923,27 @@ def bwd_aux_table(lse, dsum):
     return torch.stack((lse2.view(b * h, nq, BWD_Q_TILE), ds.view(b * h, nq, BWD_Q_TILE)), dim=2)
 
 
-def _launch_int8(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k):
-    """Launches K7 (both quantizing prologues, then the attention); the int8
-    codes and scales are scratch allocated here."""
+def int8_scale_stride(s: int) -> int:
+    """Row stride of K7's scale tables (csrc `int8_scale_stride`): S rounded
+    up to 16 bytes, as the body's tensor maps need; they read [0, S) of a
+    row (zeros past it), never the padding."""
+    return -(-s // 4) * 4
+
+
+def int8_geometry() -> tuple:
+    """(dynamic shared memory in bytes, threads) of a block of K7's body."""
+    smem, threads = ctypes.c_int64(), ctypes.c_int64()
+    _build.check_launch(_INT8_GEOMETRY, getattr(_lib(), _INT8_GEOMETRY)(
+        ctypes.byref(smem), ctypes.byref(threads)))
+    return smem.value, threads.value
+
+
+def _launch_int8(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k,
+                 splits: Optional[int] = None):
+    """Launches K7 (both quantizing prologues, then the int8-score body in
+    `kv_split_plan`'s splits, K1's plan (``splits`` forces a count), then the
+    combine); the int8 codes, the scales (rows `int8_scale_stride`) and the
+    split partials are scratch allocated here."""
     lib = _lib()
     b, sq, skv = q.shape[0], q.shape[1], k.shape[1]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -892,7 +954,8 @@ def _launch_int8(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k):
         sb, ss, _ = _check_operand(name, x, heads)
         (cosg, sin, add), rot, tb = _check_tabs(f"tabs_{name}", tabs, seqlen, b, q.device)
         codes = torch.empty(b, seqlen, heads * 64, dtype=torch.int8, device=q.device)
-        scales = torch.empty(b, heads // 2, seqlen, dtype=torch.float32, device=q.device)
+        scales = torch.empty(b, heads // 2, int8_scale_stride(seqlen), dtype=torch.float32,
+                             device=q.device)
         keep += [cosg, sin, add, rot, codes, scales]
         sides.append(_QuantArgs(
             x.data_ptr(), codes.data_ptr(), scales.data_ptr(), cosg.data_ptr(), sin.data_ptr(),
@@ -908,8 +971,11 @@ def _launch_int8(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k):
         setattr(a, f"{name}_sh", sh)
     a.bias = _bias_ptr(key_bias, b, skv, keep)
     a.b, a.h, a.sq, a.skv = b, heads, sq, skv
+    plan = kv_split_plan(b, heads, sq, skv, 64, _sm_count(q.device.index or 0), splits)
+    ws = _split_workspace(plan, b, heads, sq, 64, q.device, keep)
     _build.check_launch(_INT8_ENTRY_POINT, getattr(lib, _INT8_ENTRY_POINT)(
-        ctypes.byref(sides[0]), ctypes.byref(sides[1]), ctypes.byref(a), _build.stream_of(q)))
+        ctypes.byref(sides[0]), ctypes.byref(sides[1]), ctypes.byref(a), *plan, ws,
+        _build.stream_of(q)))
     return out
 
 

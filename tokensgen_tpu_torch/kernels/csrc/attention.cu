@@ -1,12 +1,13 @@
 // Flash-attention kernels for the attention calls of the To2V edit, training
 // and generation paths and of the T2To trainer, written for Hopper (sm_90a),
 // head dim 64 (K4, K5, K6: 16, 32, 64 or 128), bf16 operands with f32 softmax and
-// accumulation (K1-K4, K6 and K5 at head dim 64: wgmma; K7 and K5 at 16, 32 and
-// 128: mma.sync m16n8k16 tiles, K7's score product on m16n8k32 int8 tiles).
-// K7's tile pieces are flash_fwd.cuh's, shared with the K4-family probes of
-// probes.cu; K3's and K4's body is the split-KV body of flash_splitkv.cuh,
-// K1's and K6's the overlapped one of flash_ws.cuh, K2's its K / V-resident
-// form there; K5's one-pass body at 64 is flash_bwd.cuh's.
+// accumulation (K1-K4, K6, K7 and K5 at head dim 64: wgmma, K7's score
+// product in int8 (s32.s8.s8); K5 at 16, 32 and 128: mma.sync m16n8k16
+// tiles, its pieces flash_fwd.cuh's, shared with the K4-family probes of
+// probes.cu). K3's and K4's body is the split-KV body of flash_splitkv.cuh,
+// K1's, K6's and K7's the overlapped one of flash_ws.cuh (K7's with int8
+// scores), K2's its K / V-resident form there; K5's one-pass body at 64 is
+// flash_bwd.cuh's.
 //
 // Replaces the Pallas TPU kernels of tokensgen_tpu/kernels/attention.py:
 //   tg_attention_joint          joint_prologue_kernel + joint_splitkv_kernel
@@ -22,7 +23,8 @@
 //   tg_attention_bwd            bwd_onepass_kernel + bwd_dq_store_kernel (head dim 64),
 //                               bwd_dkdv_kernel<HD> + bwd_dq_kernel<HD> (16, 32, 128)
 //                                               <- _packed_bwd_kernel    (_flash_packed_bwd_tpu)
-//   tg_attention_joint_int8     int8_prologue_kernel + joint_int8_kernel
+//   tg_attention_joint_int8     int8_prologue_kernel + joint_int8_splitkv_kernel
+//                               (+ joint_int8_combine_kernel)
 //                                               <- _flash_packed_kernel, int8_scores branch
 //   tg_attention_fused_bhsd     fused_bhsd_prologue_kernel<HD> + fused_bhsd_splitkv_kernel<HD>
 //                               (+ fused_bhsd_combine_kernel<HD>)
@@ -43,16 +45,15 @@
 // before the bf16 cast, as the TPU wrapper does.
 //
 // Design for this card (see PERF.md for the times):
-// * K7 (simple first version): each block of 128 q rows sweeps the kv tiles
-//   itself with synchronous loads, mma.sync. No TMA or wgmma yet.
-// * K1, K2 and K6: the TPU kernels keep the prologued K in VMEM across the q
+// * K1, K2, K6 and K7: the TPU kernels keep the prologued K in VMEM across the q
 //   sweep of one head pair; Hopper blocks run in no order and carry nothing
 //   between them, so the prologue of k and of q runs once per row in a
-//   pass of its own (prologue_rows, into a bf16 workspace), and the body
-//   (flash_ws.cuh) takes q', k' and v by TMA: both products on wgmma, each
-//   warpgroup's softmax overlapping its other row block's p.v, no block
-//   barrier per kv tile. K2's keys (<= 512) stay in shared memory while the
-//   block runs a range of q tiles against them.
+//   pass of its own (prologue_rows, into a bf16 workspace; K7's quantizes
+//   into int8 codes and scales), and the body (flash_ws.cuh) takes q', k'
+//   and v by TMA: both products on wgmma, each warpgroup's softmax
+//   overlapping its other row block's p.v, no block barrier per kv tile.
+//   K2's keys (<= 512) stay in shared memory while the block runs a range
+//   of q tiles against them.
 // * K3 and K4 (split-KV, TMA, wgmma): both are bound by operations (the
 //   two products at the bf16 tensor-core rate: 0.22 and 0.03 ms at the
 //   edit path's shapes), but a block-per-q-tile sweep left them bound by
@@ -695,32 +696,42 @@ __global__ void __launch_bounds__(NTHREADS) bwd_dq_store_kernel(const TGAttnBwdA
 //   y   = prologue(x) * scale    f32 (scale = log2 e on the q side, 1 on k)
 //   s_r = max(max |y| over the 128 features of pair p in row r, 1e-30)
 //   c   = clip(rint(y * (127 / s_r)), -127, 127)          int8 codes
-//   scores = int32(cq . ck^T) * (sq_r / 127) * (sk_j / 127) + bias_j * log2 e
+//   scores = int32(cq . ck^T) * (sk_j / 127) * (sq_r / 127) + bias_j * log2 e
 //   out = softmax_2(scores) . v    (p rounded to bf16, f32 accumulation)
 //
 // Both heads of a pair share a row's scale: that is the TPU kernel's
 // quantization granularity (its head pair fills the 128 lanes), kept here.
 //
-// Design (simple first version; see PERF.md for the times):
+// Bound on this card: operations, and not the products. The score product
+// runs at the int8 rate (1.96 ms at the gen path's joint shape) and p.v at
+// the bf16 rate (3.93 ms), but the exponentials, one MUFU ex2 a score at 16
+// a clock per SM, take ~7.3 ms: the softmax bounds K7, as it nearly does K1.
+// So the design is K1's (the body that overlaps the softmax with the
+// products) with the least work a score besides its exponential.
 // * int8_prologue_kernel: one warp per (b, row, pair) runs the LN + RoPE
 //   prologue in f32 over the pair's 128 features (4 per lane, LayerNorm sums
 //   over each head's 16 lanes), reduces the absmax over the 32 lanes, and
-//   writes the codes [B, S, H*64] and the scales s_r / 127 [B, H/2, S]. The
+//   writes the codes [B, S, H*64] and the scales s_r / 127 [B, H/2, S'] (S'
+//   = int8_scale_stride(S): 16-byte rows for the body's tensor maps). The
 //   pair-wide scale needs both heads of a row, which a per-head attention
-//   block does not see; and the k prologue now runs once per kv row instead
-//   of once per q tile, as in K1.
-// * joint_int8_kernel: K1's structure (a block owns 128 q rows of one (b, h)
-//   and sweeps kv tiles of 64), with the scores on mma.sync m16n8k32
-//   s8 x s8 -> s32 (the B operand is the k tile row-major, which is the
-//   codes' own layout), dequantized by the row and column scales, then K1's
-//   online softmax, ragged-tile mask and bf16 p@v.
-// Bound on this card: the two products (the score product at the int8 rate,
-// p@v at the bf16 rate).
+//   block does not see, so the quantization is a pass of its own, once per
+//   row (as K1's prologue pass).
+// * joint_int8_splitkv_kernel: flash_ws.cuh's ws_body with int8 scores
+//   (I8): the q codes and each K tile's codes by TMA (64-byte rows, the
+//   64-byte swizzle), with the q tile's row scales and the K tile's key
+//   scales by TMA on the same mbarriers, V by K1's bf16 map; the scores by
+//   wgmma m64n128k32 s32.s8.s8 from shared memory; each s32 score to f32
+//   exactly by an integer add and an FP32 add (I8_MAGIC, no I2F), times its
+//   key's scale; the row scale joins the exp2's FMA; then K1's online
+//   softmax, its p.v on wgmma and its turns, the tiles that need no mask in
+//   a loop of their own. K1's splits (`attention.kv_split_plan`) and, at
+//   more than one, joint_int8_combine_kernel.
 // ---------------------------------------------------------------------------
 
 // Quantizing prologue arguments (every field 8 bytes). x: bf16 [B, S, H*64]
 // with strides sb, ss (elements), pair p at columns [128p, 128p + 128);
-// codes: int8 [B, S, H*64] contiguous; scales: f32 [B, H/2, S].
+// codes: int8 [B, S, H*64] contiguous; scales: f32 [B, H/2,
+// int8_scale_stride(S)] (the padding never written nor read).
 struct TGQuantArgs {
   const void* x; void* codes; void* scales;
   const void* cos; const void* sin; const void* add; const void* rot;
@@ -743,7 +754,6 @@ struct TGInt8Args {
 namespace {
 
 constexpr int QP_WARPS = 8;   // rows per int8_prologue_kernel block
-constexpr int LDI8 = D + 16;  // smem pitch (bytes) of the int8 tiles: conflict-free fragments
 
 __device__ __forceinline__ float half_sum16(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
@@ -807,102 +817,26 @@ __global__ void __launch_bounds__(QP_WARPS * 32) int8_prologue_kernel(const TGQu
   q.w = static_cast<signed char>(v[3]);
   *reinterpret_cast<char4*>(static_cast<int8_t*>(a.codes) + (b * a.s + row) * (a.pairs * 128) +
                             col) = q;
-  if (lane == 0) static_cast<float*>(a.scales)[(b * a.pairs + p) * a.s + row] = sc * (1.f / 127.f);
+  if (lane == 0)
+    static_cast<float*>(a.scales)[(b * a.pairs + p) * int8_scale_stride(a.s) + row] =
+        sc * (1.f / 127.f);
 }
 
-__device__ __forceinline__ void mma16832_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// K7's body, grid (q tiles of WS_BM x splits, H, B), as K1's; ``qsmap``
+// and ``ksmap``: the maps of the scale tables (scale_map)
+__global__ void __launch_bounds__(WS_NT, 1) joint_int8_splitkv_kernel(
+    const TGAttnArgs a, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap qsmap, const __grid_constant__ CUtensorMap ksmap,
+    int splits, int split_len, float* ws) {
+  const int qt = gridDim.x / splits;
+  ws_body<D, true>(a, &kmap, &vmap, &qmap, blockIdx.y, blockIdx.z, (blockIdx.x % qt) * WS_BM,
+                   blockIdx.x / qt, split_len, splits, ws, &qsmap, &ksmap);
 }
 
-// Rows [row0, row0 + nrows) of one head's int8 codes (``src`` at (b, head),
-// ``rs`` bytes per row) into shared memory (pitch LDI8), zeros past seqlen.
-// Four threads per row, 16 bytes each.
-__device__ void load_rows_i8(int8_t* dst, const int8_t* src, long long rs, int row0, int nrows,
-                             int seqlen) {
-  for (int i = threadIdx.x; i < nrows * 4; i += NTHREADS) {
-    const int r = i >> 2, c = (i & 3) * 16;
-    const int row = row0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row < seqlen) v = *reinterpret_cast<const uint4*>(src + row * rs + c);
-    *reinterpret_cast<uint4*>(dst + r * LDI8 + c) = v;
-  }
-}
-
-// Grid (ceil(Sq / BM), H, B), as K1.
-__global__ void __launch_bounds__(NTHREADS) joint_int8_kernel(const TGInt8Args a) {
-  __shared__ __align__(16) int8_t Qs[BM * LDI8];
-  __shared__ __align__(16) int8_t Ks[BN * LDI8];
-  __shared__ __align__(16) __nv_bfloat16 Vt[D * LDV];
-  __shared__ float ksc[BN];
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const long long rs = a.h * D;  // bytes per row of the codes
-  const long long pair = (long long)b * (a.h / 2) + h / 2;
-  const int8_t* q8 = static_cast<const int8_t*>(a.q8) + b * a.sq * rs + h * D;
-  const int8_t* k8 = static_cast<const int8_t*>(a.k8) + b * a.skv * rs + h * D;
-  const float* qs = static_cast<const float*>(a.qs) + pair * sq;
-  const float* ks = static_cast<const float*>(a.ks) + pair * skv;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + h * a.v_sh;
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh;
-  const float* bias = a.bias ? static_cast<const float*>(a.bias) + (long long)b * skv : nullptr;
-
-  load_rows_i8(Qs, q8, rs, q0, BM, sq);
-  __syncthreads();
-  // A fragments of m16n8k32 (s8): rows g / g+8, bytes t*4.. (+16) of each
-  // 32-wide k step
-  uint32_t qa[2][4];
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
-    const int8_t* p = Qs + (warp * 16 + g) * LDI8 + kk * 32 + t * 4;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(p);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDI8);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDI8 + 16);
-  }
-  const int r0 = q0 + warp * 16 + g;
-  const float qsc0 = r0 < sq ? qs[r0] : 0.f, qsc1 = r0 + 8 < sq ? qs[r0 + 8] : 0.f;
-  Acc acc;
-  init_acc(acc);
-  for (int kv0 = 0; kv0 < skv; kv0 += BN) {
-    __syncthreads();  // previous tile consumed by every warp
-    load_rows_i8(Ks, k8, rs, kv0, BN, skv);
-    load_vt(Vt, LDV, v, a.v_ss, kv0, BN, skv);
-    if (threadIdx.x < BN) {
-      const int j = kv0 + threadIdx.x;
-      ksc[threadIdx.x] = j < skv ? ks[j] : 0.f;
-    }
-    __syncthreads();
-    int c[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) c[nt][i] = 0;
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        // B fragments: key nt*8+g, bytes t*4.. (+16) of the k step
-        const int8_t* kp = Ks + (nt * 8 + g) * LDI8 + kk * 32 + t * 4;
-        mma16832_s8(c[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kp),
-                    *reinterpret_cast<const uint32_t*>(kp + 16));
-      }
-    }
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        s[nt][i] = static_cast<float>(c[nt][i]) * (i < 2 ? qsc0 : qsc1) *
-                   ksc[nt * 8 + t * 2 + (i & 1)];
-    softmax_pv(s, Vt, LDV, kv0, skv, bias, acc);
-  }
-  store_out(acc, o, a.o_ss, q0, sq, nullptr);
+__global__ void __launch_bounds__(CMB_NT) joint_int8_combine_kernel(const TGAttnArgs a, int splits,
+                                                                    const float* ws) {
+  combine_rows<D>(a, splits, ws);
 }
 
 // cuTensorMapEncodeTiled, looked up through the runtime's entry-point query (the library
@@ -925,29 +859,66 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The 4-D tensor map of one bf16 operand for the split-KV bodies: (columns
-// HD, rows S, heads H, batch rows B) at element strides (ss, sh, sb); boxes
-// of splitkv_box_cols(HD) columns x ``rows`` rows (K and V: a kv tile) in
-// the swizzle of their row width; rows past S read as zeros.
+// The 4-D tensor map of one operand of ``esize``-byte elements (``type``):
+// (columns cols, rows S, heads H, batch rows B) at element strides (ss, sh,
+// sb); boxes of ``box_cols`` columns x ``rows`` rows in the swizzle of their
+// row width (32, 64 or 128 bytes); rows past S read as zeros.
+cudaError_t tensor_map_4d(CUtensorMap* map, CUtensorMapDataType type, int esize, const void* base,
+                          int cols, long long s, long long h, long long b, long long ss,
+                          long long sh, long long sb, int box_cols, int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss * esize),
+                                 static_cast<cuuint64_t>(sh * esize),
+                                 static_cast<cuuint64_t>(sb * esize)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(rows), 1,
+                             1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const int span = box_cols * esize;
+  const CUtensorMapSwizzle swizzle = span == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(map, type, 4, const_cast<void*>(base), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// One bf16 operand of the split-KV bodies: boxes of splitkv_box_cols(HD)
+// columns x ``rows`` rows (K and V: a kv tile).
 template <int HD>
 cudaError_t kv_tensor_map(CUtensorMap* map, const void* base, long long s, long long h,
                           long long b, long long ss, long long sh, long long sb,
                           int rows = splitkv_bn(HD)) {
+  return tensor_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, HD, s, h, b, ss, sh, sb,
+                       splitkv_box_cols(HD), rows);
+}
+
+// K7's int8 codes [B, S, H * 64] (contiguous): a box is ``rows`` rows of one
+// head's 64 bytes, in the 64-byte swizzle. The map's type is unsigned (the
+// enum has no signed 8-bit type): the bits are copied as they are.
+cudaError_t i8_tensor_map(CUtensorMap* map, const void* base, long long s, long long h,
+                          long long b, int rows) {
+  return tensor_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, D, s, h, b, h * D, D,
+                       s * h * D, D, rows);
+}
+
+// K7's scale table [B * H / 2][int8_scale_stride(S)] f32 (one row a batch
+// row and head pair), S columns: boxes of ``box`` scales of one row, no
+// swizzle; columns past S read as zeros.
+cudaError_t scale_map(CUtensorMap* map, const void* base, long long s, long long rows, int box) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  constexpr int cols = splitkv_box_cols(HD);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2, static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {cols, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = cols * 2 == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : cols * 2 == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(int8_scale_stride(s)) * 4};
+  const cuuint32_t boxd[2] = {static_cast<cuuint32_t>(box), 1};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims,
+                            strides, boxd, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -1059,7 +1030,12 @@ int launch_fused(void (*prologue)(TGAttnArgs, int, __nv_bfloat16*, long long),
     err = kv_tensor_map<HD>(&vmap, p.v, p.skv, p.h, p.b, p.v_ss, p.v_sh, p.v_sb);
   if (err == cudaSuccess)
     err = kv_tensor_map<HD>(&qmap, p.q, p.sq, p.h, p.b, p.q_ss, p.q_sh, p.q_sb, fused_bm(HD));
-  constexpr int smem = HD <= 64 ? ws_smem_bytes<HD>() : splitkv_smem_bytes<HD>();
+  constexpr int smem = [] {
+    if constexpr (HD <= 64)
+      return ws_smem_bytes<HD>();
+    else
+      return splitkv_smem_bytes<HD>();
+  }();
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(body, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1254,10 +1230,15 @@ int tg_attention_bwd(const TGAttnBwdArgs* a, long long head_dim, void* aux, void
   }
 }
 
-// K7: the q and k quantizing prologues, then the int8-score attention.
+// K7: the q and k quantizing prologues, then the int8-score body in
+// `splits` splits of `split_len` keys (``ws``: their f32 partials, null at
+// one split), then with more than one split the combine.
 int tg_attention_joint_int8(const TGQuantArgs* qa, const TGQuantArgs* ka, const TGInt8Args* a,
-                            void* stream) {
-  if (a->sq <= 0 || a->skv <= 0 || a->h % 2) return static_cast<int>(cudaErrorInvalidValue);
+                            long long splits, long long split_len, void* ws, void* stream) {
+  if (a->sq <= 0 || a->skv <= 0 || a->h % 2 || splits < 1 || split_len < splitkv_bn(D) ||
+      split_len % splitkv_bn(D) || (splits - 1) * split_len >= a->skv ||
+      splits * split_len < a->skv || (splits > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const TGQuantArgs* sides[2] = {qa, ka};
   for (const TGQuantArgs* p : sides) {
@@ -1267,10 +1248,55 @@ int tg_attention_joint_int8(const TGQuantArgs* qa, const TGQuantArgs* ka, const 
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid(static_cast<unsigned>((a->sq + BM - 1) / BM), static_cast<unsigned>(a->h),
-                  static_cast<unsigned>(a->b));
-  joint_int8_kernel<<<grid, NTHREADS, 0, s>>>(*a);
+  TGAttnArgs p{};  // the body's: q and k are the codes (read by their maps), no lse
+  p.q = a->q8;
+  p.k = a->k8;
+  p.v = a->v;
+  p.o = a->o;
+  p.bias = a->bias;
+  p.v_sb = a->v_sb;
+  p.v_ss = a->v_ss;
+  p.v_sh = a->v_sh;
+  p.o_sb = a->o_sb;
+  p.o_ss = a->o_ss;
+  p.o_sh = a->o_sh;
+  p.b = a->b;
+  p.h = a->h;
+  p.sq = a->sq;
+  p.skv = a->skv;
+  CUtensorMap kmap, vmap, qmap, qsmap, ksmap;
+  cudaError_t err = i8_tensor_map(&kmap, p.k, p.skv, p.h, p.b, splitkv_bn(D));
+  if (err == cudaSuccess)
+    err = kv_tensor_map<D>(&vmap, p.v, p.skv, p.h, p.b, p.v_ss, p.v_sh, p.v_sb);
+  if (err == cudaSuccess) err = i8_tensor_map(&qmap, p.q, p.sq, p.h, p.b, WS_BM);
+  if (err == cudaSuccess) err = scale_map(&qsmap, a->qs, p.sq, p.b * p.h / 2, WS_BM);
+  if (err == cudaSuccess) err = scale_map(&ksmap, a->ks, p.skv, p.b * p.h / 2, splitkv_bn(D));
+  constexpr int smem = ws_smem_bytes<D, true>();
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(joint_int8_splitkv_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long qt = (p.sq + WS_BM - 1) / WS_BM;
+  const dim3 grid(static_cast<unsigned>(qt * splits), static_cast<unsigned>(p.h),
+                  static_cast<unsigned>(p.b));
+  float* wsf = static_cast<float*>(ws);
+  joint_int8_splitkv_kernel<<<grid, WS_NT, smem, s>>>(
+      p, kmap, vmap, qmap, qsmap, ksmap, static_cast<int>(splits), static_cast<int>(split_len),
+      wsf);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long threads = p.b * p.h * p.sq * (D / 8);
+  joint_int8_combine_kernel<<<static_cast<unsigned>((threads + CMB_NT - 1) / CMB_NT), CMB_NT, 0,
+                              s>>>(p, static_cast<int>(splits), wsf);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K7's launch geometry, for the smoke's log: the body's dynamic shared
+// memory (bytes) and threads per block.
+int tg_attention_joint_int8_geometry(long long* smem, long long* threads) {
+  *smem = ws_smem_bytes<D, true>();
+  *threads = WS_NT;
+  return 0;
 }
 
 }  // extern "C"

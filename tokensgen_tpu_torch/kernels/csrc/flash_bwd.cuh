@@ -268,8 +268,8 @@ __device__ __forceinline__ void bwd_onepass_body(const TGAttnBwdArgs& a, const C
     pin_regs(s);  // the first k-step of each product ignores the accumulator's values
     pin_regs(dp);
     wgmma_fence();
-    issue_scores_ss<64>(s, kdesc, 0, Qt);  // s^T = K.Q^T
-    issue_scores_ss<64>(dp, vdesc, 0, Gt);  // dp^T = V.G^T
+    issue_scores_ss<64>(s, kdesc, Qt);  // s^T = K.Q^T
+    issue_scores_ss<64>(dp, vdesc, Gt);  // dp^T = V.G^T
     wgmma_commit();
     // the next tile's loads and the previous tile's dq reduce, while the products run
     if (threadIdx.x == 0 && j + BW_STAGES - 1 < nq) load_tile(j + BW_STAGES - 1);

@@ -131,6 +131,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// one box of a 2-D tensor map at coordinates (c0, c1) into shared memory,
+// completing on ``bar``
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -371,9 +382,13 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 8][4],
 // tile's finished scores: the key bias and the range's end mask, the new
 // row maxima, p = exp2(s - m) in place and its row sums; returns the
 // factors alpha = exp2(m_old - m_new) by which the earlier acc and l shrink.
-template <int BN>
+// With RS (K7), ``r`` (> 0) scales the two rows' scores first (its q row
+// scales, folded into the exp2's argument: r s - m in one FMA; with a bias,
+// applied before it); without, the arithmetic is K1's own.
+template <int BN, bool RS = false>
 __device__ __forceinline__ float2 softmax_tile(float (&s)[BN / 8][4], int kv0, int kvend,
-                                               const float* bias, float (&m)[2], float (&ls)[2]) {
+                                               const float* bias, float (&m)[2], float (&ls)[2],
+                                               float2 r = make_float2(1.f, 1.f)) {
   const int t = threadIdx.x & 3;
   if (bias != nullptr || kv0 + BN > kvend) {
 #pragma unroll
@@ -384,9 +399,10 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[BN / 8][4], int kv0, i
         if (j >= kvend)
           s[nt][i] = -INFINITY;
         else if (bias != nullptr)
-          s[nt][i] += __ldg(bias + j) * LOG2E;
+          s[nt][i] = (RS ? s[nt][i] * (i < 2 ? r.x : r.y) : s[nt][i]) + __ldg(bias + j) * LOG2E;
       }
   }
+  if (RS && bias != nullptr) r = make_float2(1.f, 1.f);  // the row scales are in s now
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
   for (int nt = 0; nt < BN / 8; ++nt) {
@@ -397,6 +413,10 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[BN / 8][4], int kv0, i
   mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
   mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
   mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  if (RS) {  // r > 0 keeps the order: the row max of r s is r max s (-inf stays -inf)
+    mx0 *= r.x;
+    mx1 *= r.y;
+  }
   const float m0 = fmaxf(m[0], mx0), m1 = fmaxf(m[1], mx1);
   // a row with nothing finite yet keeps a zero shift (no inf - inf)
   const float base0 = m0 == -INFINITY ? 0.f : m0;
@@ -407,10 +427,10 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[BN / 8][4], int kv0, i
   ls[0] = ls[1] = 0.f;
 #pragma unroll
   for (int nt = 0; nt < BN / 8; ++nt) {
-    s[nt][0] = exp2_ftz(s[nt][0] - base0);
-    s[nt][1] = exp2_ftz(s[nt][1] - base0);
-    s[nt][2] = exp2_ftz(s[nt][2] - base1);
-    s[nt][3] = exp2_ftz(s[nt][3] - base1);
+    s[nt][0] = exp2_ftz(RS ? fmaf(s[nt][0], r.x, -base0) : s[nt][0] - base0);
+    s[nt][1] = exp2_ftz(RS ? fmaf(s[nt][1], r.x, -base0) : s[nt][1] - base0);
+    s[nt][2] = exp2_ftz(RS ? fmaf(s[nt][2], r.y, -base1) : s[nt][2] - base1);
+    s[nt][3] = exp2_ftz(RS ? fmaf(s[nt][3], r.y, -base1) : s[nt][3] - base1);
     ls[0] += s[nt][0] + s[nt][1];
     ls[1] += s[nt][2] + s[nt][3];
   }

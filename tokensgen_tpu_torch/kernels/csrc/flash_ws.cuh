@@ -1,8 +1,9 @@
 // The overlapped flash-attention forward of K1 (joint self-attention,
-// `joint_*_kernel`) and K6 at head dims <= 64 (fused-prologue [B, H, S, D],
-// `fused_bhsd_*_kernel<HD>`) in attention.cu: flash_splitkv.cuh's machinery
-// (TMA ring, wgmma, split ranges and their combine) with each warpgroup's
-// products overlapped with its softmax.
+// `joint_*_kernel`), K6 at head dims <= 64 (fused-prologue [B, H, S, D],
+// `fused_bhsd_*_kernel<HD>`) and K7 (K1 with int8 scores,
+// `joint_int8_*_kernel`: ws_body's I8) in attention.cu: flash_splitkv.cuh's
+// machinery (TMA ring, wgmma, split ranges and their combine) with each
+// warpgroup's products overlapped with its softmax.
 //
 // Why: K1 is bound by operations on this card, and twice over: its two
 // products at the bf16 tensor-core rate and its exponentials at the MUFU's
@@ -47,12 +48,45 @@ constexpr int WS_NT = 256;      // two warpgroups
 constexpr int WS_BM = 256;      // q rows per block: two row blocks of 128
 constexpr int WS_LOADER = 128;  // the thread that issues the loads: warpgroup 1's first
 
+// K7's scores (I8 = true): q and K as int8 codes, one 64-byte row a head
+// (the 64-byte swizzle), the product in s32 by wgmma. Each score then
+// becomes f32 without an integer-to-float conversion: its integer c fits in
+// 22 bits (|c| <= 64 * 127^2 < 2^22), so c + the bits of 1.5 * 2^23 are the
+// bits of the float 1.5 * 2^23 + c, exactly, and one FP32 add takes the
+// offset off (tools/kernel_ablations.py times it against the conversion).
+constexpr uint32_t I8_MAGIC = 0x4B400000u;  // the bits of 1.5 * 2^23
+constexpr float I8_MAGICF = 12582912.f;     // 1.5 * 2^23
+
+// row stride of K7's scale tables ([B, H / 2, int8_scale_stride(S)] f32):
+// S rounded up to 16 bytes, as a tensor map's rows must be; the body's maps
+// read [0, S) of each row (past S they read zeros), never the padding
+__host__ __device__ constexpr long long int8_scale_stride(long long s) { return (s + 3) / 4 * 4; }
+
+// The layout of ws_body's tiles: q and a stage's K tile in bf16 (TileGeom's)
+// or, with I8, int8 codes; V always bf16 (TileGeom's).
+template <int HD, bool I8>
+struct WsGeom {
+  static_assert(HD == splitkv_box_cols(HD), "one box a row");
+  static_assert(!I8 || HD == 64, "K7 takes heads of 64");
+  using G = TileGeom<HD>;
+  static constexpr int BN = G::BN;
+  static constexpr uint32_t RB = I8 ? HD : G::RB;     // bytes per q / K row
+  static constexpr uint32_t SBO = 8 * RB;
+  static constexpr uint32_t MODE = RB == 128 ? 1 : RB == 64 ? 2 : 3;
+  static constexpr uint32_t KBYTES = BN * RB;          // one K tile
+  static constexpr uint32_t STAGE = KBYTES + G::BYTES; // one K tile and one V tile
+  static constexpr uint32_t QBOX = WS_BM * RB;         // the q tile
+  static constexpr uint32_t KSC = I8 ? BN * 4 : 0;     // a tile's key scales (f32)
+  static constexpr uint32_t QSC = I8 ? WS_BM * 4 : 0;  // the q tile's row scales (f32)
+};
+
 // dynamic shared memory: 1 KB of alignment slack, the q tile and the K / V
-// ring (all in TMA's swizzled boxes), the full and empty mbarriers and q's
-template <int HD>
+// ring (all in TMA's swizzled boxes), K7's key scales per stage and row
+// scales, the full and empty mbarriers and q's
+template <int HD, bool I8 = false>
 __host__ __device__ constexpr int ws_smem_bytes() {
-  return 1024 + static_cast<int>(sizeof(__nv_bfloat16)) *
-                    (2 * SK_STAGES * splitkv_bn(HD) * HD + WS_BM * HD) +
+  using W = WsGeom<HD, I8>;
+  return static_cast<int>(1024 + W::QBOX + SK_STAGES * (W::STAGE + W::KSC) + W::QSC) +
          16 * SK_STAGES + 8;
 }
 
@@ -116,25 +150,63 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[16][4], uint64_t adesc,
       : "l"(adesc), "l"(bdesc), "r"(scale_d));
 }
 
+// d (m64 x n128 s32) += A (m64 x k32 s8 from shared memory by descriptor,
+// K-major) x B (k32 x n128 s8, K-major): K7's score product. The integer
+// form takes neither scale nor transpose operands (8-bit operands are
+// K-major only). ``d`` holds the s32 bits in f32 registers: the scores
+// become floats in place, without a second tile of registers.
+__device__ __forceinline__ void wgmma_s8(float (&d)[16][4], uint64_t adesc, uint64_t bdesc,
+                                         int scale_d) {
+  uint32_t(&u)[16][4] = reinterpret_cast<uint32_t(&)[16][4]>(d);
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(u[0][0]), "+r"(u[0][1]), "+r"(u[0][2]), "+r"(u[0][3]),
+        "+r"(u[1][0]), "+r"(u[1][1]), "+r"(u[1][2]), "+r"(u[1][3]),
+        "+r"(u[2][0]), "+r"(u[2][1]), "+r"(u[2][2]), "+r"(u[2][3]),
+        "+r"(u[3][0]), "+r"(u[3][1]), "+r"(u[3][2]), "+r"(u[3][3]),
+        "+r"(u[4][0]), "+r"(u[4][1]), "+r"(u[4][2]), "+r"(u[4][3]),
+        "+r"(u[5][0]), "+r"(u[5][1]), "+r"(u[5][2]), "+r"(u[5][3]),
+        "+r"(u[6][0]), "+r"(u[6][1]), "+r"(u[6][2]), "+r"(u[6][3]),
+        "+r"(u[7][0]), "+r"(u[7][1]), "+r"(u[7][2]), "+r"(u[7][3]),
+        "+r"(u[8][0]), "+r"(u[8][1]), "+r"(u[8][2]), "+r"(u[8][3]),
+        "+r"(u[9][0]), "+r"(u[9][1]), "+r"(u[9][2]), "+r"(u[9][3]),
+        "+r"(u[10][0]), "+r"(u[10][1]), "+r"(u[10][2]), "+r"(u[10][3]),
+        "+r"(u[11][0]), "+r"(u[11][1]), "+r"(u[11][2]), "+r"(u[11][3]),
+        "+r"(u[12][0]), "+r"(u[12][1]), "+r"(u[12][2]), "+r"(u[12][3]),
+        "+r"(u[13][0]), "+r"(u[13][1]), "+r"(u[13][2]), "+r"(u[13][3]),
+        "+r"(u[14][0]), "+r"(u[14][1]), "+r"(u[14][2]), "+r"(u[14][3]),
+        "+r"(u[15][0]), "+r"(u[15][1]), "+r"(u[15][2]), "+r"(u[15][3])
+      : "l"(adesc), "l"(bdesc), "r"(scale_d));
+}
+
 // s = q.k^T for this warpgroup's 64 q rows of one row block: q (A) from the
-// swizzled q tile by ``qdesc``, the descriptor of its first rows (boxes
-// ``qbox`` bytes apart), K (B) from the stage as issue_scores reads it;
-// k-step kk starts 32 bytes on within its box, in both. The k-steps' q
-// descriptors are qdesc plus their offset in 16-byte units (the address
-// field cannot carry: shared memory is under 2^18 bytes); qdesc is made
-// opaque so that the compiler adds them here instead of holding all eight
-// of a block's in registers across the loop.
-template <int HD>
-__device__ __forceinline__ void issue_scores_ss(float (&s)[splitkv_bn(HD) / 8][4],
-                                                uint64_t qdesc, uint32_t qbox,
+// swizzled q tile by ``qdesc``, the descriptor of its first rows, K (B) from
+// the stage; k-step kk starts 32 bytes on within the row, in both. The
+// k-steps' q descriptors are qdesc plus their offset in 16-byte units (the
+// address field cannot carry: shared memory is under 2^18 bytes); qdesc is
+// made opaque so that the compiler adds them here instead of holding all of
+// a block's in registers across the loop. bf16 (16 columns a k-step) into
+// f32 ``s``, or with I8 int8 codes (32 a k-step) into s32 bits in ``s``.
+template <int HD, bool I8 = false>
+__device__ __forceinline__ void issue_scores_ss(float (&s)[splitkv_bn(HD) / 8][4], uint64_t qdesc,
                                                 const unsigned char* Ks) {
-  using G = TileGeom<HD>;
+  using W = WsGeom<HD, I8>;
   asm volatile("" : "+l"(qdesc));
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const int box = kk * 16 / splitkv_box_cols(HD), in = kk * 16 % splitkv_box_cols(HD);
-    wgmma_ss<G::BN>(s, qdesc + ((box * qbox + in * 2) >> 4),
-                    smem_desc(Ks + box * G::BOX + in * 2, 16, G::SBO, G::MODE), kk > 0);
+  for (int kk = 0; kk < W::RB / 32; ++kk) {
+    const uint64_t kdesc = smem_desc(Ks + kk * 32, 16, W::SBO, W::MODE);
+    if constexpr (I8)
+      wgmma_s8(s, qdesc + kk * 2, kdesc, kk > 0);
+    else
+      wgmma_ss<W::BN>(s, qdesc + kk * 2, kdesc, kk > 0);
   }
 }
 
@@ -173,22 +245,33 @@ __device__ __forceinline__ void rescale(AccT<HD>& acc, float2 alpha) {
 // store_partial read it). q comes by ``qmap`` (prologued, scaled), K and V
 // by ``kmap`` and ``vmap`` (4-D: columns, rows, heads, batch rows; q's
 // boxes WS_BM rows, K / V's BN).
-template <int HD>
+// With I8 (K7), q and K are int8 codes and ``qsmap`` / ``ksmap`` the 2-D
+// maps of their scale tables (rows b * H / 2 + h / 2, one scale per row
+// and head pair; boxes of WS_BM and BN scales): a score is
+// int32(cq . ck) * ks_key * qs_row. The key scales come with each K stage,
+// the row scales with the q tile, by TMA on the same mbarriers; the row
+// scale joins the exp2's FMA (softmax_tile's ``r``).
+template <int HD, bool I8 = false>
 __device__ __forceinline__ void ws_body(const TGAttnArgs& a, const CUtensorMap* kmap,
                                         const CUtensorMap* vmap, const CUtensorMap* qmap, int h,
                                         int b, int q0, int split, int split_len, int splits,
-                                        float* ws) {
-  using G = TileGeom<HD>;
-  constexpr int BN = G::BN;
+                                        float* ws, const CUtensorMap* qsmap = nullptr,
+                                        const CUtensorMap* ksmap = nullptr) {
+  using W = WsGeom<HD, I8>;
+  constexpr int BN = W::BN;
   static_assert(BN != HD, "the two products must differ in wgmma shape");
-  constexpr int NBOX = HD / splitkv_box_cols(HD);
-  constexpr uint32_t STAGE = 2 * G::BYTES;  // one K tile and one V tile
-  constexpr uint32_t QBOX = WS_BM * G::RB;  // bytes per box of the q tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* Qs = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  unsigned char* ring = Qs + NBOX * QBOX;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + SK_STAGES * STAGE);
+  unsigned char* ring = Qs + W::QBOX;
+  // I8: the key scales [stage][BN], then the row scales [WS_BM], which the
+  // threads load: addressed off smem_raw itself (through the integer-aligned
+  // Qs, the compiler loses that they are shared memory: generic loads; the
+  // tensor cores and TMA read everything else by its shared address)
+  float* ksc = reinterpret_cast<float*>(smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023) +
+                                        W::QBOX + SK_STAGES * W::STAGE);
+  float* qsc = ksc + SK_STAGES * W::KSC / 4;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + SK_STAGES * (W::STAGE + W::KSC) + W::QSC);
   uint64_t* empty = full + SK_STAGES;
   uint64_t* qbar = empty + SK_STAGES;
   const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
@@ -199,15 +282,13 @@ __device__ __forceinline__ void ws_body(const TGAttnArgs& a, const CUtensorMap* 
   // tile t into stage t % SK_STAGES (its last use released)
   auto load_tile = [&](int t) {
     const int st = t % SK_STAGES;
-    unsigned char* dst = ring + st * STAGE;
-    mbar_expect_tx(full + st, STAGE);
-#pragma unroll
-    for (int i = 0; i < NBOX; ++i) {
-      tma_load_4d(dst + i * G::BOX, kmap, full + st, i * splitkv_box_cols(HD), kvbeg + t * BN, h,
-                  b);
-      tma_load_4d(dst + G::BYTES + i * G::BOX, vmap, full + st, i * splitkv_box_cols(HD),
-                  kvbeg + t * BN, h, b);
-    }
+    unsigned char* dst = ring + st * W::STAGE;
+    mbar_expect_tx(full + st, W::STAGE + W::KSC);
+    tma_load_4d(dst, kmap, full + st, 0, kvbeg + t * BN, h, b);
+    tma_load_4d(dst + W::KBYTES, vmap, full + st, 0, kvbeg + t * BN, h, b);
+    if constexpr (I8)
+      tma_load_2d(ksc + st * BN, ksmap, full + st, kvbeg + t * BN,
+                  static_cast<int>(b * (a.h / 2)) + h / 2);
   };
   if (threadIdx.x == WS_LOADER) {
 #pragma unroll
@@ -217,10 +298,9 @@ __device__ __forceinline__ void ws_body(const TGAttnArgs& a, const CUtensorMap* 
     }
     mbar_init(qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect_tx(qbar, WS_BM * HD * 2);
-#pragma unroll
-    for (int i = 0; i < NBOX; ++i)
-      tma_load_4d(Qs + i * QBOX, qmap, qbar, i * splitkv_box_cols(HD), q0, h, b);
+    mbar_expect_tx(qbar, W::QBOX + W::QSC);
+    tma_load_4d(Qs, qmap, qbar, 0, q0, h, b);
+    if constexpr (I8) tma_load_2d(qsc, qsmap, qbar, q0, static_cast<int>(b * (a.h / 2)) + h / 2);
     for (int t = 0; t < min(SK_STAGES, ntiles); ++t) load_tile(t);
   }
   __syncthreads();  // the mbarriers' initialization
@@ -229,16 +309,37 @@ __device__ __forceinline__ void ws_body(const TGAttnArgs& a, const CUtensorMap* 
   const float* bias = a.bias ? static_cast<const float*>(a.bias) + (long long)b * skv : nullptr;
   // the descriptor of this warpgroup's 64 rows of row block rb in the q tile
   auto qrows = [&](int rb) {
-    return smem_desc(Qs + (rb * 128 + wg * 64) * G::RB, 16, G::SBO, G::MODE);
+    return smem_desc(Qs + (rb * 128 + wg * 64) * W::RB, 16, W::SBO, W::MODE);
   };
   AccT<HD> acc[2];
   init_acc(acc[0]);
   init_acc(acc[1]);
-  float s[BN / 8][4];
+  float s[BN / 8][4];        // the scores (I8: their s32 bits until the softmax)
   uint32_t pa[BN / 16][4];  // bf16 p of the last softmax: the A operand of its p.v
-  auto softmax = [&](int rb, int kv0) {
+  auto issue_scores = [&](int rb, int t) {
+    issue_scores_ss<HD, I8>(s, qrows(rb), ring + (t % SK_STAGES) * W::STAGE);
+  };
+  // row block rb's softmax of tile t (with I8 first its scores in f32, in
+  // place: c exactly, times the key's scale)
+  auto softmax = [&](int rb, int t) {
+    // this thread's two rows' scales (I8; rows past Sq read 0 from the
+    // map and take 1, without their row index, which the stores compute)
+    float2 rsc = make_float2(1.f, 1.f);
+    if constexpr (I8) {
+      const float* qr = qsc + rb * 128 + warp * 16 + (lane >> 2);
+      rsc = make_float2(qr[0] > 0.f ? qr[0] : 1.f, qr[8] > 0.f ? qr[8] : 1.f);
+      const float* kc = ksc + (t % SK_STAGES) * BN + (lane & 3) * 2;
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        const float2 k2 = *reinterpret_cast<const float2*>(kc + nt * 8);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[nt][i] = (__uint_as_float(__float_as_uint(s[nt][i]) + I8_MAGIC) - I8_MAGICF) *
+                     (i & 1 ? k2.y : k2.x);
+      }
+    }
     float ls[2];
-    const float2 alpha = softmax_tile<BN>(s, kv0, kvend, bias, acc[rb].m, ls);
+    const float2 alpha = softmax_tile<BN, I8>(s, kvbeg + t * BN, kvend, bias, acc[rb].m, ls, rsc);
     acc[rb].l[0] = acc[rb].l[0] * alpha.x + ls[0];
     acc[rb].l[1] = acc[rb].l[1] * alpha.y + ls[1];
     rescale(acc[rb], alpha);  // its p.v is done: each turn waits for it below
@@ -251,9 +352,9 @@ __device__ __forceinline__ void ws_body(const TGAttnArgs& a, const CUtensorMap* 
     pin_regs(acc[rp].o);
     pin_regs(pa);
     wgmma_fence();
-    issue_scores_ss<HD>(s, qrows(rs), QBOX, ring + (ts % SK_STAGES) * STAGE);
+    issue_scores(rs, ts);
     wgmma_commit();
-    issue_pv<HD>(acc[rp].o, pa, ring + (tp % SK_STAGES) * STAGE + G::BYTES);
+    issue_pv<HD>(acc[rp].o, pa, ring + (tp % SK_STAGES) * W::STAGE + W::KBYTES);
     wgmma_commit();
     wgmma_wait<1>();  // the scores
     pin_regs(s);
@@ -275,20 +376,19 @@ __device__ __forceinline__ void ws_body(const TGAttnArgs& a, const CUtensorMap* 
     for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
   pin_regs(s);
   wgmma_fence();
-  issue_scores_ss<HD>(s, qrows(0), QBOX, ring);
+  issue_scores(0, 0);
   wgmma_commit();
   wgmma_wait<0>();
   pin_regs(s);
-  softmax(0, kvbeg);
+  softmax(0, 0);
   pack_p<BN>(pa, s);
   turn(1, 0, 0, 0);
-  softmax(1, kvbeg);
+  softmax(1, 0);
   repack(0);
   for (int j = 1; j < ntiles; ++j) {
-    const int kv0 = kvbeg + j * BN;
     mbar_wait(full + j % SK_STAGES, (j / SK_STAGES) & 1);
     turn(0, j, 1, j - 1);
-    softmax(0, kv0);
+    softmax(0, j);
     repack(1);
     // every warp arrives on tile j - 1's stage, now done; the loader refills it
     if (lane == 0) mbar_arrive(empty + (j - 1) % SK_STAGES);
@@ -297,14 +397,14 @@ __device__ __forceinline__ void ws_body(const TGAttnArgs& a, const CUtensorMap* 
       load_tile(j - 1 + SK_STAGES);
     }
     turn(1, j, 0, j);
-    softmax(1, kv0);
+    softmax(1, j);
     repack(0);
   }
   // the last p.v: row block 1's of the last tile
   pin_regs(acc[1].o);
   pin_regs(pa);
   wgmma_fence();
-  issue_pv<HD>(acc[1].o, pa, ring + ((ntiles - 1) % SK_STAGES) * STAGE + G::BYTES);
+  issue_pv<HD>(acc[1].o, pa, ring + ((ntiles - 1) % SK_STAGES) * W::STAGE + W::KBYTES);
   wgmma_commit();
   wgmma_wait<0>();
   pin_regs(acc[1].o);
@@ -437,7 +537,7 @@ __device__ __forceinline__ void smallkv_body(const TGAttnArgs& a, const CUtensor
       pin_regs(acc[rp].o);
       pin_regs(pa);
       wgmma_fence();
-      issue_scores_ss<HD>(s, qrows(rs), QBOX, kv + ts * KVT);
+      issue_scores_ss<HD>(s, qrows(rs), kv + ts * KVT);
       wgmma_commit();
       issue_pv<HD>(acc[rp].o, pa, kv + tp * KVT + G::BYTES);
       wgmma_commit();
@@ -454,7 +554,7 @@ __device__ __forceinline__ void smallkv_body(const TGAttnArgs& a, const CUtensor
     mbar_wait(qfull + i % SKV_QSTAGES, (i / SKV_QSTAGES) & 1);
     pin_regs(s);
     wgmma_fence();
-    issue_scores_ss<HD>(s, qrows(0), QBOX, kv);
+    issue_scores_ss<HD>(s, qrows(0), kv);
     wgmma_commit();
     wgmma_wait<0>();
     pin_regs(s);

@@ -1,15 +1,17 @@
 """Ablations of the design choices that K5 (`attention_backward` at head dim
-64, csrc/flash_bwd.cuh) and K2 (`fused_attention_cross_smallkv`,
-csrc/flash_ws.cuh's `smallkv_body`) keep: kernels/csrc is built once per
-variant (the shipped source, and copies in which one choice is undone by a
-text patch), one nvcc per variant at once; each build's registers and
-spills for the two kernels are printed; then each variant's K5 at the joint
-training shape ([2, 48, 17,776, 64] against itself) and K2 at the edit
-shape (17,776 q rows against 480 keys, 48 heads of 64) are timed through
-the port's wrappers in turns (CUDA events, median), each call held to its
-plain version. With --stamps, a build with clock64() stamps prints the
-clocks of one K5 q tile (block 40 of head 3, tiles 50 and 51) per phase.
-The card only.
+64, csrc/flash_bwd.cuh), K2 (`fused_attention_cross_smallkv`,
+csrc/flash_ws.cuh's `smallkv_body`) and K7 (`fused_attention_joint_int8`,
+flash_ws.cuh's `ws_body` with int8 scores) keep: kernels/csrc is built once
+per variant (the shipped source, and copies in which one choice is undone by
+a text patch), one nvcc per variant at once; each build's registers and
+spills for the three kernels are printed; then each variant's K5 at the
+joint training shape ([2, 48, 17,776, 64] against itself), K2 at the edit
+shape (17,776 q rows against 480 keys, 48 heads of 64) and K7 at the gen
+path's joint shape (17,776 x 17,776, 48 heads of 64, batch 2) are timed
+through the port's wrappers in turns (CUDA events, median), each call held
+to its plain version. With --stamps, a build with clock64() stamps prints
+the clocks of one K5 q tile (block 40 of head 3, tiles 50 and 51) per
+phase. The card only.
 
     python -m tokensgen_tpu_torch.tools.kernel_ablations [--rounds 2] [--runs 5]
         [--only shipped,k5_atomics,...] [--stamps]
@@ -211,9 +213,16 @@ _K5_STAMPS = [
 STAMP_PHASES = ("tile start", "stage landed", "score products", "half 0", "half 1", "dq product",
                 "dq staged")
 
+# K7: its row scale by a multiply of its own in the dequant, not in the exp2's FMA
+_K7_ROW_FMUL = [
+    (WS, "                     (i & 1 ? k2.y : k2.x);",
+     "                     (i & 1 ? k2.y : k2.x) * (i < 2 ? rsc.x : rsc.y);"),
+    (WS, "acc[rb].m, ls, rsc);", "acc[rb].m, ls);"),
+]
+
 # name: (kernel, what the variant undoes, patches)
 VARIANTS = {
-    "shipped": ("both", "nothing", []),
+    "shipped": ("all", "nothing", []),
     "k5_generic_base": ("K5", "the shared base through an integer: generic loads and stores", [
         (BWD, "  unsigned char* Ks = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);",
          "  unsigned char* Ks = reinterpret_cast<unsigned char*>(\n"
@@ -237,6 +246,10 @@ VARIANTS = {
         (FWD, "acc.o[dt][0] * i0, acc.o[dt][1] * i0", "acc.o[dt][0] / l0, acc.o[dt][1] / l0"),
         (FWD, "acc.o[dt][2] * i1, acc.o[dt][3] * i1", "acc.o[dt][2] / l1, acc.o[dt][3] / l1")]),
     "k2_q_on_tile": ("K2", "q's prologue on the loaded tile (the pass for k only)", _K2_Q_ON_TILE),
+    "k7_i2f": ("K7", "each s32 score to f32 by an I2F, not the magic-number add", [
+        (WS, "(__uint_as_float(__float_as_uint(s[nt][i]) + I8_MAGIC) - I8_MAGICF)",
+         "static_cast<float>(static_cast<int>(__float_as_uint(s[nt][i])))")]),
+    "k7_row_fmul": ("K7", "the row scale by its own multiply, not in the exp2's FMA", _K7_ROW_FMUL),
 }
 
 
@@ -285,6 +298,21 @@ def _k2_case(dev):
     return (lambda: A.fused_attention_cross_smallkv(q, k, v, tabs[0], tabs[1], heads=h)), ref
 
 
+def _k7_case(dev):
+    """K7 at the gen path's joint shape, random tables."""
+    gen = torch.Generator(dev).manual_seed(4)
+    b, h, s = 2, 48, 17776
+    q, k, v = (torch.randn(b, s, h * 64, generator=gen, device=dev).bfloat16() for _ in range(3))
+    gain = 1 + 0.1 * torch.randn(64, generator=gen, device=dev)
+    shift = 0.1 * torch.randn(64, generator=gen, device=dev)
+    ang = torch.randn(s, 64, generator=gen, device=dev)
+    tabs = [A.make_prologue(64, [((ang.cos(), ang.sin()), s)], gain, shift, fold=fold)
+            for fold in (0.125, 1.0)]
+    ref = A.attention_fused_int8_plain(q, k, v, torch.zeros(b, s, device=dev), tabs[0], tabs[1],
+                                       h, 1e-6, True, True)
+    return (lambda: A.fused_attention_joint_int8(q, k, v, tabs[0], tabs[1], heads=h)), ref
+
+
 def _agrees(out, ref) -> bool:
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
@@ -318,19 +346,22 @@ def main(argv=None) -> int:
         if rc:
             raise RuntimeError(f"{name}: nvcc failed ({rc}):\n{log[-4000:]}")
         regs = [f"{label} {r} registers, {s} bytes spilled" for k, r, s in B.ptxas_report(log)
-                for key, label in (("bwd_onepass_kernel", "K5"), ("smallkv_kernel", "K2"))
+                for key, label in (("bwd_onepass_kernel", "K5"), ("smallkv_kernel", "K2"),
+                                   ("joint_int8_splitkv_kernel", "K7"))
                 if key in k]
         print(f"[build] {name} in {dt:.0f} s: " + "; ".join(regs), flush=True)
         lib = ctypes.CDLL(str(root / name / "lib.so"))
         A._bind(lib)
         libs[name] = lib
-    cases = {"K5": _k5_case(dev), "K2": _k2_case(dev)}
+    kernels = {VARIANTS[n][0] for n in names}
+    makers = {"K5": _k5_case, "K2": _k2_case, "K7": _k7_case}
+    cases = {k: make(dev) for k, make in makers.items() if "all" in kernels or k in kernels}
     times = {(n, c): [] for n in names for c in cases}
     for rnd in range(args.rounds):
         for name in names if rnd % 2 == 0 else names[::-1]:
             A._Library.lib = libs[name]
             for kernel, (fn, ref) in cases.items():
-                if VARIANTS[name][0] not in ("both", kernel):
+                if VARIANTS[name][0] not in ("all", kernel):
                     continue
                 ok = _agrees(fn(), ref)
                 ms = _common.time_ms(fn, dev, args.runs)
@@ -341,6 +372,8 @@ def main(argv=None) -> int:
             print(f"{name:16s} {kernel}: " + " / ".join(f"{x:.3f}" for x in ms)
                   + f" ms  ({VARIANTS[name][1]})")
     if args.stamps:
+        if "K5" not in cases:
+            cases["K5"] = _k5_case(dev)
         A._Library.lib = libs["k5_stamps"]
         cases["K5"][0]()
         torch.cuda.synchronize()
