@@ -4,8 +4,9 @@
     python3 chip_smoke.py --phases kernels # a subset (no final result line)
 
 Phases, each printing its own lines:
-  env     card name and power limit (nvidia-smi), torch / CUDA versions;
-          TF32 is switched off for matmuls and convolutions in every phase
+  env     card name and power limit (nvidia-smi), torch / CUDA versions,
+          whether the `tokenizers` and `cv2` packages import; TF32 is switched
+          off for matmuls and convolutions in every phase
   build   nvcc builds both sources of kernels/csrc at once (attention.cu,
           probes.cu; timed) and prints registers and spills per
           instantiation; none may spill; K7's body's SASS (cuobjdump) must
@@ -45,6 +46,19 @@ Phases, each printing its own lines:
   edit    the edit path end to end through infer.build_pipeline and
           To2VPipeline.generate at full width (1 chunk, 13 steps, 1 partition,
           DiT depth cut to 6 of 42 layers)
+  load    the loaders on files the phase writes in a temp dir (and removes):
+          an HF-layout T5-XXL dir (full width, 2 of 24 layers) read back
+          through T5TextEncoder.from_pretrained, bit-equal, timed; the full
+          24-layer T5-XXL from a seed encoding the two edit prompts at 226
+          tokens (tokenized through tokenizers), timed; the full-width To2V
+          DiT (6 of 42 layers, bf16, diffusers names) and resampler read back
+          through infer.load_checkpoint_dit, bit-equal, then a VIP encode and
+          a CFG forward on the T5 embeddings (K1-K4) bit-equal to the
+          in-memory model's; the gen PCA artifacts at T2To's width; a
+          49-frame 720x480 mp4 through load_video; and infer.main at --smoke
+          geometry on tiny written files (a DiT dir, a T5 dir, a video),
+          checking its four outputs; host RSS and device peaks beside each
+          time
   gen     the generation path of infer_gen.yaml as shipped (w8a8) with
           quant_attn: T2To tokens, then the To2V render (1 chunk, 13 steps,
           1 partition, render DiT depth cut to 6 of 42 layers); then one
@@ -64,8 +78,9 @@ Phases, each printing its own lines:
           sampled timesteps and mean x0 weight beside its loss
 
 The card's name and power limit (nvidia-smi) and a JSON object of the
-kernels and their measurements (launches of K1-K4 on the edit path, of K5 on
-the train path, of K7 on the gen path, of K6 on the tiny T2To trainer, of
+kernels and their measurements (launches of K1-K4 on the edit path, and
+apart from them, as `load_launches` and `cli_launches`, in the load phase's
+forward on the loaded weights and in its CLI run; of K5 on the train path, of K7 on the gen path, of K6 on the tiny T2To trainer, of
 the probe kernels in their CLIs' runs) come before the last line,
 and the result line ``{"ok": true, "device": {...}}``. Any failed phase
 raises and the script exits non-zero. It refuses to run without a card.
@@ -75,6 +90,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import importlib
 import json
 import math
 import os
@@ -86,7 +102,8 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernels", "probes", "dit", "edit", "gen", "train", "t2to_train")
+PHASES = ("env", "build", "kernels", "probes", "dit", "edit", "load", "gen", "train",
+          "t2to_train")
 
 # A kernel agrees with its plain version (same bf16 inputs; the plain version
 # keeps f32 where the kernel rounds the prologued q, with log2 e folded in, and
@@ -179,6 +196,12 @@ def phase_env(state: dict) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("[env] TF32 off for matmuls and convolutions (allow_tf32=False)")
+    for mod in ("tokenizers", "cv2"):  # the load phase needs both
+        try:
+            version = importlib.import_module(mod).__version__
+        except ImportError:
+            version = None
+        log(f"[env] {mod}: " + (f"present ({version})" if version else "not installed"))
     state["device"] = torch.device("cuda", 0)
     state["kind"] = torch.cuda.get_device_name(0)
     state["count"] = torch.cuda.device_count()
@@ -1628,13 +1651,44 @@ def _small_reference_check(dev) -> None:
         raise RuntimeError("the card's DiT forward disagrees with the host reference")
 
 
-def phase_dit(state: dict) -> None:
+def _vip_dit_forward(pipe, latents, text):
+    """``forward(dit=pipe.dit, resampler=pipe.resampler)`` -> (VIP tokens,
+    DiT output): the VIP tokens as the edit path makes them (the patch conv
+    and the resampler over two chunks of ``latents[:1]``: the condition and
+    its repeated-last-frame pad chunk; K4), then one CFG-batched DiT forward
+    of ``latents`` on ``text`` at timestep 999 (K1-K3)."""
     import torch
 
     from tokensgen_tpu_torch.core.rope import get_3d_rotary_pos_embed_v2
+    from tokensgen_tpu_torch.pipelines.to2v import apply_patch_proj
+
+    pc, dcfg, dev = pipe.cfg, pipe.dit_config, latents.device
+    nf = pc.nf_latent
+    img_rope, smp_rope = pipe.resampler_ropes()
+    n_vip = min(pipe.resampler_config.num_temporal_queries + 1, nf)
+    img_t, img_h, img_w, cond_t, cond_h, cond_w = pipe.vip_grids(1)
+    d = dcfg.attention_head_dim
+    vip_img = get_3d_rotary_pos_embed_v2(d, img_t[:nf], img_h, img_w, device=dev)
+    vip_cond = get_3d_rotary_pos_embed_v2(d, cond_t[:n_vip], cond_h, cond_w, device=dev)
+    base_rope = pipe.base_image_rope()
+    timestep = torch.full((latents.shape[0],), 999, dtype=torch.int64, device=dev)
+
+    def forward(dit=pipe.dit, resampler=pipe.resampler):
+        with torch.no_grad():
+            toks = [resampler(apply_patch_proj(dcfg, dit.patch_embed.proj, latents[:1]),
+                              img_rope, smp_rope) for _ in range(2)]
+            vip = torch.cat(toks, dim=1)[:, :n_vip].expand(latents.shape[0], -1, -1, -1, -1)
+            return vip, dit(latents, text, timestep, vip, base_rope, vip_img, vip_cond,
+                            pc.vip_scale)
+
+    return forward
+
+
+def phase_dit(state: dict) -> None:
+    import torch
+
     from tokensgen_tpu_torch.infer import build_pipeline, build_text_encoder
     from tokensgen_tpu_torch.kernels import attention as A
-    from tokensgen_tpu_torch.pipelines.to2v import apply_patch_proj
 
     dev = state["device"]
     _small_reference_check(dev)
@@ -1651,28 +1705,9 @@ def phase_dit(state: dict) -> None:
     pc = pipe.cfg
     nf, h, w = pc.nf_latent, pc.height // 8, pc.width // 8
     gen = torch.Generator(device=dev).manual_seed(7)
-    text = build_text_encoder(cfg, smoke=False)(["a prompt", ""]).to(dev)
+    text = build_text_encoder(cfg, smoke=False, device=dev)(["a prompt", ""]).to(dev)
     latents = torch.randn(2, nf, 16, h, w, generator=gen, device=dev)
-    img_rope, smp_rope = pipe.resampler_ropes()
-    n_vip = min(pipe.resampler_config.num_temporal_queries + 1, nf)
-    img_t, img_h, img_w, cond_t, cond_h, cond_w = pipe.vip_grids(1)
-    d = dcfg.attention_head_dim
-    vip_img = get_3d_rotary_pos_embed_v2(d, img_t[:nf], img_h, img_w, device=dev)
-    vip_cond = get_3d_rotary_pos_embed_v2(d, cond_t[:n_vip], cond_h, cond_w, device=dev)
-    base_rope = pipe.base_image_rope()
-    timestep = torch.full((2,), 999, dtype=torch.int64, device=dev)
-
-    def forward(dit=pipe.dit):
-        # VIP tokens as the edit path makes them: patch conv + resampler over
-        # two chunks of latents (cond + its repeated-last-frame pad chunk)
-        with torch.no_grad():
-            toks = [pipe.resampler(apply_patch_proj(dcfg, dit.patch_embed.proj,
-                                                    latents[:1]), img_rope, smp_rope)
-                    for _ in range(2)]
-            vip = torch.cat(toks, dim=1)[:, :n_vip].expand(2, -1, -1, -1, -1)
-            return vip, dit(latents, text, timestep, vip, base_rope, vip_img, vip_cond,
-                            pc.vip_scale)
-
+    forward = _vip_dit_forward(pipe, latents, text)
     forward()  # warm-up (cuBLAS / cuDNN handles, allocator)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1765,7 +1800,7 @@ def phase_edit(state: dict) -> None:
         f"{pc.num_frames_per_chunk} frames/chunk, {num_chunks} chunk, "
         f"{pc.num_inference_steps} steps, {pc.num_partitions} partition, DiT depth "
         f"{len(pipe.dit.transformer_blocks)} of 42 layers")
-    enc = build_text_encoder(cfg, smoke=False)
+    enc = build_text_encoder(cfg, smoke=False, device=dev)
     prompt = enc([item.get("prompt", "")])
     negative = enc([""])
     # synthetic source video, as infer.py makes one under --smoke
@@ -1800,6 +1835,450 @@ def phase_edit(state: dict) -> None:
             f"mean {x.float().mean().item():.4f} std {x.float().std().item():.4f}")
         if tuple(x.shape) != shape or not finite:
             raise RuntimeError(f"edit output {key}: expected finite {shape}")
+
+
+# ------------------------------------------------------------ the load phase
+# The port's loaders on files this phase writes (no weights, tokenizer or
+# video are in the repository): T5-XXL at full width, depth cut to
+# LOAD_T5_LAYERS of 24, read back through T5TextEncoder.from_pretrained; the
+# full 24-layer T5-XXL built from a seed encoding the edit prompts at 226
+# tokens; the full-width To2V DiT (depth EDIT_LAYERS of 42, bf16, diffusers
+# names) and resampler read back through infer.load_checkpoint_dit, then a
+# CFG forward and a VIP encode (K1-K4) on them held bit-equal to the
+# in-memory model's; the gen PCA artifacts at T2To's width; a 49-frame
+# 720x480 mp4 through load_video; and the CLI itself on tiny written files.
+LOAD_T5_LAYERS = 2
+T2TO_TOKEN_DIM = 3072
+PATH_KERNELS = ("fused_attention_joint", "fused_attention_cross_smallkv",
+                "fused_attention_cross_smallq", "flash_attention_bhsd")
+CLI_KERNELS = ("fused_attention_joint", "flash_attention_bhsd")
+
+
+def write_wordlevel_tokenizer(d: str, words) -> None:
+    """A ``tokenizer.json`` written as JSON (no tokenizer library needed):
+    a WordLevel vocabulary of ``<pad>`` 0, ``</s>`` 1, ``<unk>`` 2 and
+    ``words``, split on whitespace and punctuation, ``</s>`` appended, as
+    tests/_tiny_t5.py builds one with the ``tokenizers`` package; and the
+    ``tokenizer_config.json`` beside it."""
+    vocab = {"<pad>": 0, "</s>": 1, "<unk>": 2}
+    for w in words:
+        vocab.setdefault(w, len(vocab))
+    seq = lambda i, t: {"Sequence": {"id": i, "type_id": t}}  # noqa: E731
+    eos = {"SpecialToken": {"id": "</s>", "type_id": 0}}
+    tok = {
+        "version": "1.0", "truncation": None,
+        "padding": {"strategy": "BatchLongest", "direction": "Right", "pad_to_multiple_of": None,
+                    "pad_id": 0, "pad_type_id": 0, "pad_token": "<pad>"},
+        "added_tokens": [], "normalizer": None, "pre_tokenizer": {"type": "Whitespace"},
+        "post_processor": {
+            "type": "TemplateProcessing", "single": [seq("A", 0), eos],
+            "pair": [seq("A", 0), seq("B", 1)],
+            "special_tokens": {"</s>": {"id": "</s>", "ids": [1], "tokens": ["</s>"]}}},
+        "decoder": None,
+        "model": {"type": "WordLevel", "vocab": vocab, "unk_token": "<unk>"},
+    }
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "tokenizer.json"), "w") as f:
+        json.dump(tok, f)
+    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast", "pad_token": "<pad>",
+                   "eos_token": "</s>", "unk_token": "<unk>"}, f)
+
+
+def _words(text: str) -> list:
+    """``text`` split as the Whitespace pre-tokenizer splits it."""
+    return re.findall(r"\w+|[^\w\s]+", text)
+
+
+def _host_rss_gib() -> float:
+    """VmRSS of this process, GiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            key, _, val = line.partition(":")
+            if key == "VmRSS":
+                return int(val.split()[0]) / 2**20
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+class _HostRssPeak:
+    """Peak VmRSS while open, sampled every 10 ms by a thread, beside its
+    value at the start."""
+
+    def __enter__(self):
+        import threading
+
+        self.start = self.peak = _host_rss_gib()
+        self._stop = threading.Event()
+
+        def poll():
+            while not self._stop.wait(0.01):
+                self.peak = max(self.peak, _host_rss_gib())
+
+        self._thread = threading.Thread(target=poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def __str__(self):
+        return (f"peak host RSS {self.peak:.2f} GiB (+{self.peak - self.start:.2f} over the "
+                f"step's start)")
+
+
+def _check_equal_state(label: str, module, want: dict) -> None:
+    """Every tensor of ``module`` bit-equal to ``want`` (same dtype)."""
+    import torch
+
+    got = module.state_dict()
+    bad = sorted(set(got) ^ set(want)) + [
+        k for k in got if k in want and not (got[k].dtype == want[k].dtype
+                                              and torch.equal(got[k], want[k]))]
+    log(f"[load] {label}: {len(got)} tensors, "
+        f"{sum(v.numel() for v in got.values()) / 1e9:.3f} B values, bit-equal to what was "
+        f"written: {not bad}")
+    if bad:
+        raise RuntimeError(f"{label}: tensors differ from what was written: {bad[:5]}")
+
+
+def _load_t5(dev, tmp: str, prompts, state) -> "torch.Tensor":
+    """Steps 1 and 2: the HF-layout T5-XXL dir written and read back, then
+    the full T5-XXL's encode of ``prompts``. Returns the embeddings (f32, on
+    the card)."""
+    import torch
+
+    from tokensgen_tpu_torch.models.t5 import T5Config, T5Encoder
+    from tokensgen_tpu_torch.convert.safetensors_io import save_safetensors
+    from tokensgen_tpu_torch.models.text_encoder import (CachedTextEncoder, FastTokenizer,
+                                                         T5TextEncoder)
+    from tokensgen_tpu_torch.utils.params import build_on_device
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    t5_dir = os.path.join(tmp, "text_encoder")
+    os.makedirs(t5_dir)
+    write_wordlevel_tokenizer(t5_dir, [w for p in prompts for w in _words(p)])
+    cut = T5Config.xxl(num_layers=LOAD_T5_LAYERS)
+    written = build_on_device(lambda: T5Encoder(cut), dev, gen)
+    sd = {k: v for k, v in written.state_dict().items() if k != "encoder.embed_tokens.weight"}
+    t0 = time.perf_counter()
+    save_safetensors(os.path.join(t5_dir, "model.safetensors"), sd)  # tied: written once
+    size = os.path.getsize(os.path.join(t5_dir, "model.safetensors")) / 2**30
+    log(f"[load] T5-XXL HF dir written ({LOAD_T5_LAYERS} of 24 layers, d_model {cut.d_model}, "
+        f"{cut.num_heads} heads x {cut.d_kv}, d_ff {cut.d_ff}, vocab {cut.vocab_size}, bf16): "
+        f"{size:.2f} GiB in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _HostRssPeak() as rss:
+        t0 = time.perf_counter()
+        enc = T5TextEncoder.from_pretrained(t5_dir, 226, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    log(f"[load] T5TextEncoder.from_pretrained: {dt:.2f} s ({size / dt:.2f} GiB/s), {rss}, "
+        f"peak device {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+        f"config {enc.model.cfg}")
+    _check_equal_state("T5 read back", enc.model, written.state_dict())
+    del written, enc
+    torch.cuda.empty_cache()
+
+    full_cfg = T5Config.xxl()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    full = build_on_device(lambda: T5Encoder(full_cfg), dev, gen)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in full.parameters())
+    log(f"[load] T5-XXL built on the card from a seed: {n / 1e9:.3f} B parameters, "
+        f"{full_cfg.num_layers} layers, in {time.perf_counter() - t0:.1f} s")
+    ids, mask = (torch.from_numpy(a).to(dev) for a in FastTokenizer(t5_dir)(prompts, 226))
+    log(f"[load] prompts tokenized through tokenizers (tokenizer.json): "
+        f"{mask.sum(1).tolist()} of 226 tokens")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = full(ids, mask)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    finite = bool(torch.isfinite(out).all().item())
+    log(f"[load] T5-XXL encode of {len(prompts)} prompts x 226 tokens: first {times[0]:.3f} s, "
+        f"then {times[1]:.3f} / {times[2]:.3f} s; peak device "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; output {tuple(out.shape)} "
+        f"{out.dtype} finite {finite} std {out.float().std().item():.4f}")
+    if not finite or tuple(out.shape) != (len(prompts), 226, full_cfg.d_model):
+        raise RuntimeError("the T5-XXL encode is not finite or has the wrong shape")
+    state["load_times"]["t5_encode_s"] = times[1]
+    # freed as infer.main frees it: each prompt through CachedTextEncoder, then
+    # the encoder dropped and the allocator's cache emptied
+    nbytes = sum(p.numel() * p.element_size() for p in full.parameters()) / 2**30
+    enc = CachedTextEncoder(T5TextEncoder(full, FastTokenizer(t5_dir), 226))
+    del full
+    embeds = {p: enc([p])[0] for p in prompts}
+    held = torch.cuda.memory_allocated(dev) / 2**30
+    del enc
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated(dev) / 2**30
+    log(f"[load] T5-XXL ({nbytes:.2f} GiB of weights) freed as infer.main frees it "
+        f"({len(embeds)} prompts encoded through CachedTextEncoder first): device memory "
+        f"allocated {held:.2f} GiB with it, {after:.2f} GiB after, reserved "
+        f"{torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB")
+    if held - after < nbytes:
+        raise RuntimeError("the T5-XXL encoder's weights were not freed")
+    return out.float()
+
+
+def _load_dit(dev, tmp: str, cfg, text, state) -> dict:
+    """Steps 3 and 4: the full-width To2V DiT (EDIT_LAYERS deep) and the
+    resampler written in the diffusers layout and read back, then the VIP
+    encode and CFG forward on both. Returns the loaded run's launches."""
+    import dataclasses
+
+    import torch
+
+    from tokensgen_tpu_torch.convert.safetensors_io import save_safetensors
+    from tokensgen_tpu_torch.convert.torch_weights import read_safetensors_dir
+    from tokensgen_tpu_torch.infer import _configs, load_checkpoint_dit
+    from tokensgen_tpu_torch.kernels import attention as A
+    from tokensgen_tpu_torch.models.dit import CogVideoXTransformer, graft_vip_params
+    from tokensgen_tpu_torch.models.resampler import Resampler
+    from tokensgen_tpu_torch.pipelines.to2v import To2VPipeline
+    from tokensgen_tpu_torch.utils.params import build_on_device, load_on_device
+
+    dcfg, rcfg, _, pcfg = _configs(cfg, False, dev)
+    dcfg = dataclasses.replace(dcfg, quant=None, quant_attn=False, num_layers=EDIT_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    written = graft_vip_params(build_on_device(lambda: CogVideoXTransformer(dcfg), dev, gen))
+    written_rs = build_on_device(lambda: Resampler(rcfg), dev, gen)
+    ckpt = os.path.join(tmp, "CogVideoX-5b")
+    rs_dir = os.path.join(ckpt, "resampler")
+    os.makedirs(rs_dir)
+    t0 = time.perf_counter()
+    save_safetensors(os.path.join(ckpt, "diffusion_pytorch_model.safetensors"),
+                     written.state_dict())
+    save_safetensors(os.path.join(rs_dir, "diffusion_pytorch_model.safetensors"),
+                     written_rs.state_dict())
+    size = sum(os.path.getsize(os.path.join(d, "diffusion_pytorch_model.safetensors"))
+               for d in (ckpt, rs_dir)) / 2**30
+    log(f"[load] DiT ({dcfg.num_layers} of 42 layers, {dcfg.num_attention_heads} heads x "
+        f"{dcfg.attention_head_dim}, VIP \"1\", bf16) and resampler written in the diffusers "
+        f"layout: {size:.2f} GiB in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _HostRssPeak() as rss:
+        t0 = time.perf_counter()
+        dit = load_checkpoint_dit(ckpt, dcfg, dev)  # top level only: not resampler/
+        torch.cuda.synchronize()
+        t_dit = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resampler = load_on_device(lambda: Resampler(rcfg), read_safetensors_dir(rs_dir), dev)
+        torch.cuda.synchronize()
+        t_rs = time.perf_counter() - t0
+    log(f"[load] load_checkpoint_dit {t_dit:.2f} s, resampler {t_rs:.2f} s "
+        f"({size / (t_dit + t_rs):.2f} GiB/s); {rss}; peak device "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB (both models resident)")
+    state["load_times"].update(dit_load_s=t_dit, resampler_load_s=t_rs,
+                               host_rss_gib=rss.peak)
+    _check_equal_state("DiT read back", dit, written.state_dict())
+    _check_equal_state("resampler read back", resampler, written_rs.state_dict())
+
+    pipe = To2VPipeline(pcfg, dcfg, dit, rcfg, resampler, None, device=dev)
+    nf, h, w = pcfg.nf_latent, pcfg.height // 8, pcfg.width // 8
+    latents = torch.randn(2, nf, 16, h, w, generator=gen, device=dev)
+    forward = _vip_dit_forward(pipe, latents, text.to(dev))
+    vip_w, out_w = forward(written, written_rs)
+    torch.cuda.synchronize()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    vip_l, out_l = forward(dit, resampler)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = A.launch_counts()
+    same = torch.equal(vip_l, vip_w) and torch.equal(out_l, out_w)
+    log(f"[load] VIP encode + CFG forward on the loaded weights (T5 embeddings, B=2, "
+        f"{nf}x{h}x{w} latents): {dt:.3f} s; output {tuple(out_l.shape)} finite "
+        f"{bool(torch.isfinite(out_l).all().item())}; bit-equal to the in-memory model's: "
+        f"{same}; launches {json.dumps({k: counts[k] for k in PATH_KERNELS})}")
+    if not same:
+        raise RuntimeError("the forward on the loaded weights differs from the written model's")
+    del written, written_rs, dit, resampler, pipe, out_w, out_l
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _load_pca(dev, tmp: str) -> None:
+    """Step 5: the gen workload's PCA artifacts at T2To's token width."""
+    import numpy as np
+    import torch
+
+    from tokensgen_tpu_torch.convert.safetensors_io import save_safetensors
+    from tokensgen_tpu_torch.infer import t2to_pca
+    from tokensgen_tpu_torch.utils.config import Config
+
+    rng = np.random.default_rng(14)
+    d = T2TO_TOKEN_DIM
+    want = {"mean_": rng.normal(size=(1, d)).astype(np.float32),
+            "components_": rng.normal(size=(d, d)).astype(np.float32),
+            "mean": rng.normal(size=(1, d)).astype(np.float32),
+            "std": rng.uniform(0.5, 2.0, size=(1, d)).astype(np.float32)}
+    cfg = Config(longvgen_pca=os.path.join(tmp, "pca.safetensors"),
+                 longvgen_mean=os.path.join(tmp, "mean.npy"),
+                 longvgen_std=os.path.join(tmp, "std.npy"))
+    save_safetensors(cfg.longvgen_pca, {k: want[k] for k in ("mean_", "components_")})
+    np.save(cfg.longvgen_mean, want["mean"])
+    np.save(cfg.longvgen_std, want["std"])
+    t0 = time.perf_counter()
+    pca, mean, std, prov = t2to_pca(cfg, smoke=False, token_dim=d, device=dev)
+    torch.cuda.synchronize()
+    got = {"mean_": pca.mean, "components_": pca.components, "mean": mean, "std": std}
+    same = prov == "artifacts" and all(
+        torch.equal(got[k].cpu(), torch.from_numpy(v)) for k, v in want.items())
+    log(f"[load] gen PCA artifacts (components {d}x{d}, mean / std 1x{d}) loaded onto the card "
+        f"in {time.perf_counter() - t0:.3f} s; equal to what was written: {same}")
+    if not same:
+        raise RuntimeError("the loaded PCA artifacts differ from what was written")
+
+
+def _moving_frames(n: int, h: int, w: int) -> "np.ndarray":
+    """uint8 [n, h, w, 3]: smooth colour waves moving a few pixels a frame."""
+    import numpy as np
+
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames = [np.stack([np.sin((x + 3 * t) / 40.0), np.cos((y - 2 * t) / 30.0),
+                        np.sin((x + y + 4 * t) / 60.0)], -1) for t in range(n)]
+    return ((np.stack(frames) * 0.8 + 1.0) * 127.5).astype(np.uint8)
+
+
+def _load_video(tmp: str, cfg) -> None:
+    """Step 6: a 49-frame 720x480 mp4 written and read back through
+    load_video at the edit config's settings."""
+    import numpy as np
+
+    from tokensgen_tpu_torch.data.video_io import load_video, write_video
+    from tokensgen_tpu_torch.utils.config import input_items
+
+    item = input_items(cfg)[0]
+    frames = _moving_frames(49, 480, 720)
+    path = os.path.join(tmp, "source.mp4")
+    t0 = time.perf_counter()
+    write_video(path, frames, fps=item.get("output_fps", 10))
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    src = load_video(path, sample_fps=item.get("sample_fps", 10), output_res=(480, 720),
+                     crop_to_fit=item.get("crop_to_fit", True), max_frames=49)
+    t_read = time.perf_counter() - t0
+    err = float(np.abs(src[0] - (frames.astype(np.float32) / 127.5 - 1.0)).mean())
+    ok = (src.shape == (1, 49, 480, 720, 3) and src.dtype == np.float32
+          and src.min() >= -1.0 and src.max() <= 1.0 and err < 0.05)
+    log(f"[load] 49-frame 720x480 mp4: written in {t_write:.2f} s, load_video {t_read:.2f} s; "
+        f"{src.shape} {src.dtype} in [{src.min():.3f}, {src.max():.3f}]; mean |read - written| "
+        f"{err:.4f} (bound 0.05 of the [-1, 1] range, mp4v is lossy)")
+    if not ok:
+        raise RuntimeError("the video round trip failed its checks")
+
+
+def _load_cli(dev, tmp: str) -> dict:
+    """Step 7: tokensgen_tpu_torch.infer.main on the card at --smoke geometry,
+    with a diffusers-layout DiT dir, a T5 dir and a video written here.
+    Returns its launches."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from tokensgen_tpu_torch import infer
+    from tokensgen_tpu_torch.convert.safetensors_io import save_safetensors
+    from tokensgen_tpu_torch.data.video_io import write_video
+    from tokensgen_tpu_torch.kernels import attention as A
+    from tokensgen_tpu_torch.models.dit import CogVideoXTransformer, graft_vip_params
+    from tokensgen_tpu_torch.models.t5 import T5Config, T5Encoder
+    from tokensgen_tpu_torch.utils.config import Config
+    from tokensgen_tpu_torch.utils.params import build_on_device
+
+    root = os.path.join(tmp, "cli")
+    ckpt, t5_dir = os.path.join(root, "ckpt"), os.path.join(root, "text_encoder")
+    os.makedirs(ckpt)
+    os.makedirs(t5_dir)
+    prompt = "a red vehicle on a snow mountain road"
+    gen = torch.Generator().manual_seed(15)
+    dcfg = infer._configs(Config(), True, dev)[0]
+    dit = graft_vip_params(build_on_device(
+        lambda: CogVideoXTransformer(dataclasses.replace(dcfg, quant=None)), "cpu", gen))
+    save_safetensors(os.path.join(ckpt, "model.safetensors"), dit.state_dict())
+    t5 = build_on_device(lambda: T5Encoder(T5Config.tiny(d_model=dcfg.text_embed_dim)), "cpu",
+                         gen)
+    save_safetensors(os.path.join(t5_dir, "model.safetensors"), t5.state_dict())
+    write_wordlevel_tokenizer(t5_dir, _words(prompt))
+    item = {"prompt": prompt, "params": {"max_num_chunks": 2}}
+    cfg = {"name_prefix": "load", "output_dir": os.path.join(root, "out"), "seed": 3,
+           "pretrained_model_name_or_path": ckpt, "pretrained_text_encoder_path": t5_dir,
+           "video_ipadapter_params": {"scale": [0.6]},
+           "input_config": {"public": {"sample_fps": 10, "output_fps": 10}, "item_a": item}}
+    item["video"] = os.path.join(root, "src.mp4")
+    write_video(item["video"], _moving_frames(20, 40, 56), fps=10)
+    cfg_path = os.path.join(root, "cfg.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    captured = io.StringIO()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(captured):
+        run_dir = infer.main(["--config", cfg_path, "--smoke", "--device", str(dev)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = A.launch_counts()
+    text = captured.getvalue()
+    for line in text.splitlines():
+        log(f"[load] cli| {line}")
+    outputs = sorted(os.listdir(run_dir))
+    lat = np.load(os.path.join(run_dir, "item_a_latents.npy"))
+    want = {f"item_a_{x}" for x in ("source.mp4", "orig.mp4", "fifo.mp4", "latents.npy")}
+    ok = (want <= set(outputs) and np.isfinite(lat).all()
+          and "to2v_dit=torch-checkpoint" in text
+          and "(T5TextEncoder)" in text)
+    log(f"[load] cli on the card (--smoke geometry): {dt:.1f} s; wrote {outputs}; latents "
+        f"{lat.shape} finite {bool(np.isfinite(lat).all())}; launches "
+        f"{json.dumps({k: counts[k] for k in PATH_KERNELS})}")
+    if not ok:
+        raise RuntimeError("the CLI did not load its files or write its outputs")
+    return counts
+
+
+def phase_load(state: dict) -> None:
+    import tempfile
+
+    import torch
+
+    from tokensgen_tpu_torch.utils.config import input_items
+
+    dev = state["device"]
+    state.pop("pipe", None)  # the edit phase's pipeline
+    torch.cuda.empty_cache()
+    log(f"[load] on {state['smi']}")
+    cfg = _edit_config()
+    item = input_items(cfg)[0]
+    prompts = [item["prompt"], ""]
+    state["load_times"] = {}
+    tmp = tempfile.mkdtemp(prefix="tokensgen_load_")
+    try:
+        text = _load_t5(dev, tmp, prompts, state)
+        counts = _load_dit(dev, tmp, cfg, text, state)
+        _load_pca(dev, tmp)
+        _load_video(tmp, cfg)
+        cli = _load_cli(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # each run keeps its own counts: the forward on the loaded weights takes
+    # K1-K4; the CLI at --smoke geometry takes K1 and K4 only (K2 and K3 need
+    # a side of over 2,048 tokens, which its cross shapes do not have)
+    state["load_launches"] = {k: counts[k] for k in PATH_KERNELS}
+    state["cli_launches"] = {k: cli[k] for k in PATH_KERNELS}
+    for label, got, want in (("the forward on the loaded weights", state["load_launches"],
+                              PATH_KERNELS),
+                             ("the CLI run", state["cli_launches"], CLI_KERNELS)):
+        if min(got[k] for k in want) <= 0:
+            raise RuntimeError(f"a kernel was not launched in {label}: {got}")
 
 
 # the generation path as `infer.py --config tokensgen_tpu/configs/infer_gen.yaml`
@@ -1860,7 +2339,7 @@ def phase_gen(state: dict) -> None:
         f"bf16, To2V DiT quant {dcfg.quant} quant_attn {dcfg.quant_attn}, depth "
         f"{len(pipe.dit.transformer_blocks)} of {dcfg.num_layers} layers; {pc.width}x{pc.height}, "
         f"{num_chunks} chunk, {pc.num_inference_steps} steps, {pc.num_partitions} partition")
-    enc = build_text_encoder(cfg, smoke=False)
+    enc = build_text_encoder(cfg, smoke=False, device=dev)
     prompt, negative = enc([item.get("prompt", "")]), enc([""])
     t2_calls, render_calls = _count_calls(t2.dit), _count_calls(pipe.dit)
     seed = int(cfg.get("seed", 42))
@@ -2449,8 +2928,12 @@ def main(argv=None) -> int:
         "fused_attention_joint_int8"], fused_attention_bhsd=state["t2to_launches"][
         "fused_attention_bhsd"])
     for name, replaces in KERNELS.items():
-        rows.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-                     "launches": launches[name], **state["kernel_rows"][name]})
+        row = {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+               "launches": launches[name], **state["kernel_rows"][name]}
+        if name in PATH_KERNELS:  # the load phase's two runs, each counted on its own
+            row.update(load_launches=state["load_launches"][name],
+                       cli_launches=state["cli_launches"][name])
+        rows.append(row)
     for name, replaces in PROBES.items():
         rows.append({"name": name, "route": "cuda", "source": PROBE_SOURCE, "replaces": replaces,
                      "launches": state["probe_launches"][name], **state["kernel_rows"][name]})

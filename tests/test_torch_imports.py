@@ -1,7 +1,8 @@
 """The port stands alone: importing every tokensgen_tpu_torch module (the
 probe kernels and their CLIs included) loads no jax, flax, tokensgen_tpu or
-the JAX package's tools/, and no module calls PyTorch's fused attention,
-cuDNN attention or torch.compile."""
+the JAX package's tools/ (nor cv2, tokenizers or transformers, which the
+loaders import only when they read a video or a tokenizer), and no module
+calls PyTorch's fused attention, cuDNN attention or torch.compile."""
 
 import os
 import pkgutil
@@ -27,6 +28,11 @@ def test_import_loads_no_jax():
     assert trainer <= set(_modules())
     gen = {"tokensgen_tpu_torch.core.pca", "tokensgen_tpu_torch.pipelines.t2to"}
     assert gen <= set(_modules())
+    loaders = {"tokensgen_tpu_torch.convert.safetensors_io",
+               "tokensgen_tpu_torch.convert.torch_weights", "tokensgen_tpu_torch.models.t5",
+               "tokensgen_tpu_torch.models.text_encoder", "tokensgen_tpu_torch.data.transforms",
+               "tokensgen_tpu_torch.data.video_io"}
+    assert loaders <= set(_modules())
     probes = {"tokensgen_tpu_torch.kernels.build", "tokensgen_tpu_torch.kernels.probes"} | {
         f"tokensgen_tpu_torch.tools.{m}" for m in ("bench_attn_sweep", "bench_attn_v2",
                                                    "bench_int8_loop", "bench_matmul_hand",
@@ -37,7 +43,7 @@ def test_import_loads_no_jax():
         "import importlib, sys\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'jaxlib', "
-        "'tokensgen_tpu', 'tools'))\n"
+        "'tokensgen_tpu', 'tools', 'cv2', 'tokenizers', 'transformers'))\n"
         "print(len(sys.modules), bad)\n"
         "assert not bad, bad\n"
     )

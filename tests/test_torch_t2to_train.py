@@ -344,14 +344,10 @@ def test_cli_needs_a_card_unless_told_cpu(monkeypatch):
     ("tp_devices=2", "A12"),
     ("sp_devices=2", "A12"),
     ("zero1=true", "A12"),
-    ("longvgen_pca=weights/TokensGen-T2To", "pca/mean/std"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, override, match):
-    """Each option the port lacks raises NotImplementedError naming it (the
-    last one without --smoke, where the JAX CLI loads the artifacts)."""
+    """Each option the port lacks raises NotImplementedError naming it."""
     args = ["--config", TRAIN_YAML, "--device", "cpu", "--set", f"output_dir={tmp_path}",
-            "--set", override, "--set", "model_size=tiny"]
-    if not override.startswith("longvgen_pca"):
-        args.append("--smoke")
+            "--set", override, "--set", "model_size=tiny", "--smoke"]
     with pytest.raises(NotImplementedError, match=match):
         CLI.main(args)

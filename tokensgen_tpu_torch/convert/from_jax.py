@@ -5,8 +5,10 @@ The trees are the JAX package's flax params as nested dicts of numpy arrays
 resampler get the reference (diffusers) key names that
 `tokensgen_tpu/convert/export.py` (`export_dit`, `export_resampler`) emits, which
 are the port's module names; the VAE has no exporter there and is mapped here
-onto the port's flax-mirroring names. Load with
-``model.load_state_dict(to_torch(sd), strict=True)``.
+onto the port's flax-mirroring names, and the T5 encoder onto the names of
+HF's ``T5EncoderModel`` (the inverse of the JAX package's ``convert_t5``).
+Weights come out as transposed views of the tree's arrays, not copies. Load
+with ``model.load_state_dict(to_torch(sd), strict=True)``.
 """
 
 from __future__ import annotations
@@ -18,35 +20,44 @@ import numpy as np
 StateDict = Dict[str, np.ndarray]
 
 
+def _np(x) -> np.ndarray:
+    """A leaf of a tree (numpy, or a CPU tensor from
+    `safetensors_io.load_param_tree`; bf16 read as f32) as numpy, uncopied
+    where it can be."""
+    if getattr(x, "dtype", None) is not None and str(x.dtype) == "torch.bfloat16":
+        x = x.float()
+    return np.asarray(x)
+
+
 def _lin(sd: StateDict, name: str, p) -> None:
     """A Dense (``kernel`` [in, out]) or, from a quantized tree, a QuantDense
     (``kernel_q`` int8 [in, out], ``scale`` f32 [out]) -> the port's
     [out, in] ``weight`` / ``weight_q`` (+ ``scale``), and ``bias``."""
     if "kernel_q" in p:
-        sd[f"{name}.weight_q"] = np.ascontiguousarray(np.asarray(p["kernel_q"]).T)
-        sd[f"{name}.scale"] = np.asarray(p["scale"])
+        sd[f"{name}.weight_q"] = _np(p["kernel_q"]).T
+        sd[f"{name}.scale"] = _np(p["scale"])
     else:
-        sd[f"{name}.weight"] = np.ascontiguousarray(np.asarray(p["kernel"]).T)
+        sd[f"{name}.weight"] = _np(p["kernel"]).T
     if "bias" in p:
-        sd[f"{name}.bias"] = np.asarray(p["bias"])
+        sd[f"{name}.bias"] = _np(p["bias"])
 
 
 def _ln(sd: StateDict, name: str, p) -> None:
     if "scale" in p:
-        sd[f"{name}.weight"] = np.asarray(p["scale"])
+        sd[f"{name}.weight"] = _np(p["scale"])
     if "bias" in p:
-        sd[f"{name}.bias"] = np.asarray(p["bias"])
+        sd[f"{name}.bias"] = _np(p["bias"])
 
 
 def _conv2d(sd: StateDict, name: str, p) -> None:
-    sd[f"{name}.weight"] = np.ascontiguousarray(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    sd[f"{name}.weight"] = _np(p["kernel"]).transpose(3, 2, 0, 1)
     if "bias" in p:
-        sd[f"{name}.bias"] = np.asarray(p["bias"])
+        sd[f"{name}.bias"] = _np(p["bias"])
 
 
 def _layer(tree, i: int):
     """Layer ``i`` of a scan-stacked block tree (blocks stack on axis 0)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else np.asarray(v)[i] for k, v in tree.items()}
+    return {k: _layer(v, i) if isinstance(v, dict) else _np(v)[i] for k, v in tree.items()}
 
 
 def dit_state_dict(tree, cfg) -> StateDict:
@@ -93,7 +104,7 @@ def dit_state_dict(tree, cfg) -> StateDict:
 
 def resampler_state_dict(tree, depth: int) -> StateDict:
     """`Resampler` tree -> port state dict."""
-    sd: StateDict = {"latents": np.asarray(tree["latents"])}
+    sd: StateDict = {"latents": _np(tree["latents"])}
     _lin(sd, "proj_in", tree["proj_in"])
     _lin(sd, "proj_out", tree["proj_out"])
     _ln(sd, "norm_out", tree["norm_out"])
@@ -121,15 +132,34 @@ def vae_state_dict(tree) -> StateDict:
             if isinstance(val, dict):
                 walk(val, path if key == "GroupNorm_0" else path + [key])
                 continue
-            arr = np.asarray(val)
+            arr = _np(val)
             if key == "kernel":
-                sd[".".join(path + ["weight"])] = np.ascontiguousarray(arr.transpose(4, 3, 0, 1, 2))
+                sd[".".join(path + ["weight"])] = arr.transpose(4, 3, 0, 1, 2)
             elif key == "scale":
                 sd[".".join(path + ["weight"])] = arr
             else:
                 sd[".".join(path + [key])] = arr
 
     walk(tree, [])
+    return sd
+
+
+def t5_state_dict(tree, num_layers: int) -> StateDict:
+    """`T5Encoder` tree -> port state dict (HF ``T5EncoderModel`` names; the
+    embedding is tied: ``shared`` and ``encoder.embed_tokens``)."""
+    emb = _np(tree["embed"]["embedding"])
+    sd: StateDict = {"shared.weight": emb, "encoder.embed_tokens.weight": emb,
+                     "encoder.final_layer_norm.weight": _np(tree["final_ln"]["scale"])}
+    sd["encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] = _np(
+        tree["relative_attention_bias"])
+    for i in range(num_layers):
+        blk, pre = tree[f"block_{i}"], f"encoder.block.{i}.layer"
+        sd[f"{pre}.0.layer_norm.weight"] = _np(blk["ln1"]["scale"])
+        sd[f"{pre}.1.layer_norm.weight"] = _np(blk["ln2"]["scale"])
+        for proj in ("q", "k", "v", "o"):
+            _lin(sd, f"{pre}.0.SelfAttention.{proj}", blk["attn"][proj])
+        for proj in ("wi_0", "wi_1", "wo"):
+            _lin(sd, f"{pre}.1.DenseReluDense.{proj}", blk[proj])
     return sd
 
 

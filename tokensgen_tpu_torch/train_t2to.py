@@ -9,13 +9,14 @@ Reads the JAX package's YAML as data and trains every parameter of the DiT on
 ``--device cpu``). ``--smoke`` (or ``model_size: tiny``) runs the JAX smoke's
 tiny geometry (one head of 64, 4 chunks of 4 token frames of 8x12);
 without it, `DiTConfig.t2to_5b` with per-block gradient checkpointing at the
-config's ``per_gpu_batch_size`` and ``max_num_chunks``. No checkpoint,
-dataset or pca artifact is in the repository, so the weights are random
-(from ``seed``), the batches synthetic PCA-normalised token latents with
-random valid-chunk counts (padded chunks masked in attention and loss) and
-prompts through the hash text encoder, and the PCA a random stand-in with
-zero mean and unit std, as the JAX CLI makes without artifacts (a configured
-``longvgen_pca`` raises: set it to null). Each step prints its loss, grad
+config's ``per_gpu_batch_size`` and ``max_num_chunks``. No checkpoint or
+dataset is in the repository, so the weights are random (from ``seed``),
+the batches synthetic PCA-normalised token latents with random valid-chunk
+counts (padded chunks masked in attention and loss) and prompts through the
+hash text encoder. Outside ``--smoke`` a configured ``longvgen_pca``
+(``pca.pt``, a pickled torch PCA module) with ``longvgen_mean`` /
+``longvgen_std`` (``.npy``) is loaded, as the JAX CLI loads it; else the PCA
+is a random stand-in with zero mean and unit std. Each step prints its loss, grad
 norm, each sample's term of the loss, sampled timesteps and their mean loss
 weight 1/(1-ᾱ_t), and seconds
 split into data upload, train step (forward and backward) and optimizer; a checkpoint of the parameters and the optimizer state is
@@ -37,6 +38,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from tokensgen_tpu_torch.convert.torch_weights import load_pca_artifact, load_token_stats
 from tokensgen_tpu_torch.core import pca as pca_lib
 from tokensgen_tpu_torch.core import schedule as S
 from tokensgen_tpu_torch.models.dit import CogVideoXTransformer, DiTConfig
@@ -134,12 +136,17 @@ class T2ToTrainer:
 
         self.host_rng = np.random.default_rng(seed)
         if not smoke and cfg.get("longvgen_pca"):
-            raise NotImplementedError("loading the pca/mean/std artifacts is not ported yet "
-                                      "(ROADMAP A10): set `longvgen_pca: null` for the random "
-                                      "stand-in")
-        # the stand-in PCA (zero mean, unit std) that the dataset branches
-        # would normalise with; synthetic batches are normalised already
-        self.pca, self.token_mean, self.token_std = random_pca(self.host_rng, token_dim, device)
+            # the trained PCA (a pickled torch module) and the token mean / std
+            pca = load_pca_artifact(cfg.longvgen_pca)
+            self.pca = pca_lib.PCAState(pca.mean.to(device), pca.components.to(device))
+            self.token_mean, self.token_std = load_token_stats(cfg.longvgen_mean,
+                                                               cfg.longvgen_std, device)
+            log(f"pca: artifacts {cfg.longvgen_pca}, {cfg.longvgen_mean}, {cfg.longvgen_std}")
+        else:
+            # the stand-in PCA (zero mean, unit std) that the dataset branches
+            # would normalise with; synthetic batches are normalised already
+            self.pca, self.token_mean, self.token_std = random_pca(self.host_rng, token_dim,
+                                                                   device)
         self.gen = torch.Generator(device=device).manual_seed(seed)
         self.dit = build_on_device(lambda: CogVideoXTransformer(self.dcfg), device, self.gen)
         t2to.setup_full_finetune(self.dit.train())

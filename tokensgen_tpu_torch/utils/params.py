@@ -1,4 +1,5 @@
-"""Random parameter initialisation on the module's own device."""
+"""Building a module on its own device: random parameter initialisation
+there, or a state dict copied in."""
 
 from __future__ import annotations
 
@@ -39,3 +40,15 @@ def build_on_device(ctor, device, generator: torch.Generator) -> nn.Module:
         module = ctor()
     module = module.to_empty(device=device)
     return init_params_(module, generator).eval()
+
+
+def load_on_device(ctor, state_dict, device) -> nn.Module:
+    """Construct ``ctor()`` without allocating on the host, materialise it on
+    ``device`` in its own dtypes, and copy ``state_dict`` (CPU tensors,
+    possibly views of a mapped file) into it strictly, one tensor at a time:
+    no f32 copy of a bf16 model is made on the device."""
+    with torch.device("meta"):
+        module = ctor()
+    module = module.to_empty(device=device)
+    module.load_state_dict(state_dict, strict=True)
+    return module.eval()
