@@ -61,8 +61,20 @@ Phases, each printing its own lines:
           time
   gen     the generation path of infer_gen.yaml as shipped (w8a8) with
           quant_attn: T2To tokens, then the To2V render (1 chunk, 13 steps,
-          1 partition, render DiT depth cut to 6 of 42 layers); then one
-          T2To stage alone at the shipped 24 chunks
+          1 partition, render DiT depth cut to 2 of 42 layers, undecoded:
+          the serve phase decodes this path); then one T2To stage alone at
+          the shipped 24 chunks
+  serve   the serving path: serve.build_service on infer_gen.yaml as shipped
+          (w8a8, quant_attn off; the edit phase's cuts) behind its threaded
+          HTTP server on 127.0.0.1: POST /edit_stream of 2 chunks of
+          synthetic 720x480 frames (~406 MB .npy), the request's parse, time
+          to the first NDJSON line and the gap to the second, both mp4s read
+          back as 49 frames, /health answered within 2 s during the stream;
+          /edit with a wrong frame count refused with 400 and no kernel
+          launch; /generate_stream of 1 chunk; then in process, undecoded, on
+          T2To tokens: the crash-resume drill and stream == one-shot, both
+          bit-equal, and a stream closed after its first chunk freeing the
+          card within one FIFO iteration
   train   2-layer train steps on the card against the host's (heads of 64,
           and the --smoke geometry: the DiT's 2 heads of 16 on K6 / K5), 2
           steps of the tiny trainer (--smoke) on the card, then 2 optimizer
@@ -79,8 +91,9 @@ Phases, each printing its own lines:
 
 The card's name and power limit (nvidia-smi) and a JSON object of the
 kernels and their measurements (launches of K1-K4 on the edit path, and
-apart from them, as `load_launches` and `cli_launches`, in the load phase's
-forward on the loaded weights and in its CLI run; of K5 on the train path, of K7 on the gen path, of K6 on the tiny T2To trainer, of
+apart from them, as `load_launches`, `cli_launches` and `serve_launches`, in
+the load phase's forward on the loaded weights, in its CLI run and in the
+serve phase's requests over the wire; of K5 on the train path, of K7 on the gen path, of K6 on the tiny T2To trainer, of
 the probe kernels in their CLIs' runs) come before the last line,
 and the result line ``{"ok": true, "device": {...}}``. Any failed phase
 raises and the script exits non-zero. It refuses to run without a card.
@@ -102,8 +115,8 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernels", "probes", "dit", "edit", "load", "gen", "train",
-          "t2to_train")
+PHASES = ("env", "build", "kernels", "probes", "dit", "edit", "load", "gen", "serve",
+          "train", "t2to_train")
 
 # A kernel agrees with its plain version (same bf16 inputs; the plain version
 # keeps f32 where the kernel rounds the prologued q, with log2 e folded in, and
@@ -2296,10 +2309,11 @@ GEN_OVERRIDES = {
     "input_config.gen_item_1.params.max_num_chunks": 1,  # cut from 24
 }
 GEN_T2TO_CHUNKS = 24  # the T2To stage alone, at the config's shipped chunks
-# To2V render DiT depth on the gen path, cut from 42 to keep the whole smoke
-# near half its time limit: the dit phase times the full-depth w8a8 +
+# To2V render DiT depth on the gen path, cut from 42 (to 2 since the serve
+# phase joined, which renders T2To tokens over the wire at EDIT_LAYERS) to
+# keep every phase within 800 s: the dit phase times the full-depth w8a8 +
 # quant_attn forward, and the T2To stage runs at its full 42 layers
-GEN_RENDER_LAYERS = 6
+GEN_RENDER_LAYERS = 2
 
 
 def _count_calls(module) -> list:
@@ -2354,9 +2368,11 @@ def phase_gen(state: dict) -> None:
     t2to_s = time.perf_counter() - t0
     after_t2to = A.launch_counts()
     timings: dict = {}
+    # undecoded: the serve phase's /generate_stream decodes this path's chunks
+    # (the edit phase the orig clip), which kept every phase within 800 s
     out = pipe.generate(prompt, negative, image_embeddings=emb, num_chunks=num_chunks,
                         noise_fn=generator_noise(torch.Generator(device=dev).manual_seed(seed)),
-                        timings=timings)
+                        timings=timings, decode=False)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     counts = A.launch_counts()
@@ -2373,11 +2389,7 @@ def phase_gen(state: dict) -> None:
     want = {"tokens": (toks, (1, num_chunks * tc.num_frames_per_chunk, tc.token_dim, tc.height,
                               tc.width)),
             "latents": (out["latents"], (1, num_chunks * nf, 16, h, w)),
-            "orig_latents": (out["orig_latents"], (1, nf, 16, h, w)),
-            "video": (out["video"], (1, num_chunks * pc.num_frames_per_chunk, pc.height,
-                                     pc.width, 3)),
-            "orig_video": (out["orig_video"], (1, pc.num_frames_per_chunk, pc.height, pc.width,
-                                               3))}
+            "orig_latents": (out["orig_latents"], (1, nf, 16, h, w))}
     for key, (x, shape) in want.items():
         finite = bool(torch.isfinite(x).all().item())
         log(f"[gen] {key}: shape {tuple(x.shape)} finite {finite} "
@@ -2413,6 +2425,359 @@ def phase_gen(state: dict) -> None:
     if not finite or toks.shape[1] != 4 * GEN_T2TO_CHUNKS:
         raise RuntimeError("the T2To stage at 24 chunks is not finite or has the wrong shape")
     del t2, pipe, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------- the serve phase
+# The serving path as `python -m tokensgen_tpu_torch.serve --config
+# tokensgen_tpu/configs/infer_gen.yaml` runs it: serve.build_service on the
+# config as shipped (w8a8, quant_attn off, use_2nd_stage), at full width with
+# the edit phase's listed cuts (DiT depth EDIT_LAYERS), behind its threaded
+# HTTP server on 127.0.0.1; then the FIFO hooks in process, undecoded, on
+# T2To tokens (no VIP encode), at a further cut depth.
+SERVE_CONFIG = GEN_CONFIG
+SERVE_OVERRIDES = {
+    "allow_hash_text_encoder": True,  # no T5 weights or tokenizer in the repo
+    "longvgen_pca": None,  # no pca/mean/std artifacts in the repo: a random PCA
+    "longvgen_mean": None,
+    "longvgen_std": None,
+    "num_inference_steps": 13,  # cut from 52 (both stages)
+    "sampling_params.num_partitions": 1,  # cut from 4
+}
+SERVE_STREAM_CHUNKS = 2  # the /edit_stream request's chunks
+HEALTH_DEADLINE_S = 2.0  # /health while a stream holds the card (a threaded server)
+DRILL_CRASH_AT, DRILL_EVERY = 5, 2  # the drill dies after emit 5; a snapshot every 2 iterations
+# To2V DiT depth of the in-process runs (the drill, stream == one-shot, the
+# closed stream), cut from the wire's EDIT_LAYERS to keep every phase within
+# 800 s: what they check (bit-equal resumes, cancellation within one FIFO
+# iteration) does not depend on the depth, and each forward still runs K1-K3
+DRILL_LAYERS = 1
+
+
+def _ndjson_line(resp) -> dict:
+    line = resp.readline()
+    if not line.endswith(b"\n"):
+        raise RuntimeError(f"a stream line is not newline-terminated: {line[:200]!r}")
+    return json.loads(line)
+
+
+def _mp4_frames(b64: str, tmp: str):
+    """The frames of a base64 mp4, read back through the port's cv2 reader."""
+    import base64
+
+    from tokensgen_tpu_torch.data.video_io import read_frames
+
+    path = os.path.join(tmp, "chunk.mp4")
+    with open(path, "wb") as f:
+        f.write(base64.b64decode(b64))
+    return read_frames(path)
+
+
+def _serve_wire(service, port: int, dev, tmp: str) -> dict:
+    """The three requests over the wire, every decode of their streams
+    checked; returns the kernels' launches."""
+    import torch
+
+    pc = service.pipe.cfg
+    px = (pc.num_frames_per_chunk, pc.height, pc.width, 3)
+    # every decode the streams run, checked on the card before it becomes
+    # uint8 frames (where a NaN or an inf would pass unseen)
+    decoded, decode = [], service.pipe.decode_latents
+
+    def checked_decode(latents):
+        video = decode(latents)
+        decoded.append((tuple(video.shape), bool(torch.isfinite(video).all().item())))
+        return video
+
+    def check_decodes(n, what):
+        got, decoded[:] = list(decoded), []
+        log(f"[serve] {what}: the stream's decodes (shape, finite): {got}")
+        if got != [((1, *px), True)] * n:
+            raise RuntimeError(f"{what}: expected {n} finite decodes of {(1, *px)}")
+
+    service.pipe.decode_latents = checked_decode
+    try:
+        return _serve_requests(service, port, dev, tmp, px, check_decodes)
+    finally:
+        del service.pipe.decode_latents
+
+
+def _serve_requests(service, port: int, dev, tmp: str, px, check_decodes) -> dict:
+    """/edit_stream (2 chunks, /health probed during it), a refused /edit and
+    /generate_stream (1 chunk); returns the kernels' launches."""
+    import base64
+    import http.client
+    import io
+
+    import numpy as np
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+
+    def connect(timeout=1200):
+        return http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+
+    def check_chunk(line, want_chunk, what):
+        frames = _mp4_frames(line["video_mp4_b64"], tmp)
+        log(f"[serve] {what} chunk {line['chunk']}: mp4 of {len(line['video_mp4_b64']):,} base64 "
+            f"bytes reads back as {frames.shape} uint8")
+        if line["chunk"] != want_chunk or frames.shape != px:
+            raise RuntimeError(f"{what}: expected chunk {want_chunk} of {px} frames")
+
+    # 1. /edit_stream with a synthetic 2-chunk 720x480 source
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    frames = rng.random((1, SERVE_STREAM_CHUNKS * px[0], *px[1:]), dtype=np.float32)
+    frames *= 2
+    frames -= 1
+    buf = io.BytesIO()
+    np.save(buf, frames)
+    npy_bytes = buf.getbuffer().nbytes
+    del frames
+    # the JSON object written around the base64 bytes (json.dumps would scan
+    # the ~540 MB string for characters to escape; base64 has none)
+    head = json.dumps({"prompt": "a red car on a snow mountain road", "seed": 3,
+                       "num_chunks": SERVE_STREAM_CHUNKS,
+                       "negative_prompt": "blurry, low quality"})[:-1]
+    body = b"".join([head.encode(), b', "frames_npy": "', base64.b64encode(buf.getbuffer()),
+                     b'"}'])
+    del buf
+    log(f"[serve] /edit_stream request: {SERVE_STREAM_CHUNKS} chunks of {px[0]} frames "
+        f"{px[2]}x{px[1]}, .npy {npy_bytes / 2**20:.1f} MiB, JSON body {len(body) / 2**20:.1f} "
+        f"MiB, built by the client in {time.perf_counter() - t0:.2f} s")
+    before = service.health()["requests"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    A.reset_launch_counts()
+    conn = connect()
+    t0 = time.perf_counter()
+    conn.request("POST", "/edit_stream", body=body, headers={"Content-Type": "application/json"})
+    del body
+    resp = conn.getresponse()
+    t_headers = time.perf_counter() - t0
+    if resp.status != 200 or resp.getheader("Content-Type") != "application/x-ndjson":
+        raise RuntimeError(f"/edit_stream answered {resp.status}: {resp.read()[:500]!r}")
+    line0 = _ndjson_line(resp)
+    t_first = time.perf_counter() - t0
+    # C3: the threaded server answers /health while the stream holds the card
+    hconn = connect(timeout=HEALTH_DEADLINE_S)
+    th = time.perf_counter()
+    hconn.request("GET", "/health")
+    hresp = hconn.getresponse()
+    health = json.loads(hresp.read())
+    health_s = time.perf_counter() - th
+    hconn.close()
+    line1 = _ndjson_line(resp)
+    t_second = time.perf_counter() - t0
+    rest = resp.read()
+    total = time.perf_counter() - t0
+    conn.close()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    parse_s = line0["parse_seconds"]
+    log(f"[serve] /edit_stream: headers after {t_headers:.2f} s (the server's parse of the "
+        f"request {parse_s:.2f} s, host), first line {t_first:.2f} s, second {t_second:.2f} s "
+        f"(gap {t_second - t_first:.2f} s), stream ended {total:.2f} s; peak {peak:.2f} GiB")
+    log(f"[serve] /health during the stream: {hresp.status} in {health_s:.3f} s (deadline "
+        f"{HEALTH_DEADLINE_S} s), requests served {health['requests']} (before the stream "
+        f"{before})")
+    if hresp.status != 200 or health_s > HEALTH_DEADLINE_S:
+        raise RuntimeError("/health did not answer within its deadline while the stream ran")
+    if health["requests"] != before:  # the stream counts itself served when it ends
+        raise RuntimeError("the first chunk arrived only after the stream had ended")
+    if rest or "error" in line0 or "error" in line1:
+        raise RuntimeError(f"/edit_stream: an error line or trailing data: {rest[:500]!r}")
+    check_chunk(line0, 0, "/edit_stream")
+    check_chunk(line1, 1, "/edit_stream")
+    check_decodes(SERVE_STREAM_CHUNKS, "/edit_stream")
+
+    # 2. a wrong frame count (one frame for a chunk of 49): 400 before any card work
+    counts = A.launch_counts()
+    buf = io.BytesIO()
+    np.save(buf, np.zeros((1, 1, *px[1:]), np.float32))
+    conn = connect()
+    conn.request("POST", "/edit", body=json.dumps({
+        "prompt": "x", "num_chunks": 1, "frames_npy": base64.b64encode(buf.getvalue()).decode()}),
+        headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    err = json.loads(resp.read())
+    conn.close()
+    log(f"[serve] /edit with 1 frame: {resp.status} {err}; launches moved: "
+        f"{A.launch_counts() != counts}")
+    if resp.status != 400 or "requires" not in err.get("error", "") or A.launch_counts() != counts:
+        raise RuntimeError("the bad request was not refused before any card work")
+
+    # 3. /generate_stream, one chunk
+    conn = connect()
+    t0 = time.perf_counter()
+    conn.request("POST", "/generate_stream", body=json.dumps({
+        "prompt": "a red car on a snow mountain road", "num_chunks": 1, "seed": 5}),
+        headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    if resp.status != 200:
+        raise RuntimeError(f"/generate_stream answered {resp.status}: {resp.read()[:500]!r}")
+    line = _ndjson_line(resp)
+    t_first = time.perf_counter() - t0
+    rest = resp.read()
+    conn.close()
+    log(f"[serve] /generate_stream (1 chunk): first line {t_first:.2f} s, stream ended "
+        f"{time.perf_counter() - t0:.2f} s")
+    if rest or "error" in line:
+        raise RuntimeError(f"/generate_stream: an error line or trailing data: {rest[:500]!r}")
+    check_chunk(line, 0, "/generate_stream")
+    check_decodes(1, "/generate_stream")
+    return A.launch_counts()
+
+
+def _serve_drill(service, dev) -> None:
+    """The FIFO hooks on the card, in process and undecoded, on T2To tokens,
+    the To2V DiT cut to DRILL_LAYERS: the crash-resume drill (JAX
+    tests/test_serving.py's), stream == one-shot, and a stream closed after
+    its first chunk."""
+    import torch
+
+    from tokensgen_tpu_torch.infer import gen_image_embeddings
+    from tokensgen_tpu_torch.sampling.base import keyed_noise
+
+    pipe, seed = service.pipe, 11
+    pipe.dit.transformer_blocks = pipe.dit.transformer_blocks[:DRILL_LAYERS]
+    nf = pipe.cfg.nf_latent
+    warm = pipe.cfg.num_inference_steps - nf
+    text = service.text_encoder(["a red car on a snow mountain road"])
+    neg = service.text_encoder([""])
+    _, emb = gen_image_embeddings(service.t2to_pipe, pipe, text, neg, 1, keyed_noise(seed + 1, dev))
+    kw = dict(image_embeddings=emb, num_chunks=1, decode=False)
+
+    full, stamps = {}, {}
+
+    def on_full(i, em):
+        full[i] = em
+        stamps[i] = time.perf_counter()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = pipe.generate(text, neg, noise_fn=keyed_noise(seed, dev), emit_callback=on_full, **kw)
+    run_s = time.perf_counter() - t0
+    gaps = [stamps[i] - stamps[i - 1] for i in sorted(stamps)[1:]]
+    iter_s = max(gaps)
+    # bookkeeping: the emits the callback was handed make up the returned latents
+    emitted = torch.stack([full[i] for i in sorted(full) if i >= warm], dim=1)
+    bookkeeping = bool(torch.equal(emitted, ref["latents"]))
+    log(f"[serve] uninterrupted run (1 chunk, undecoded, DiT depth {DRILL_LAYERS}): "
+        f"{run_s:.2f} s, {len(full)} emits on the host; FIFO iteration "
+        f"{min(gaps):.3f}-{iter_s:.3f} s; emits after warm-up stacked == returned latents "
+        f"{tuple(ref['latents'].shape)}: {bookkeeping}")
+    # stream == one-shot: the service's threaded path (a worker drives the FIFO,
+    # this thread groups its emits into chunks) against the one-shot run
+    t0 = time.perf_counter()
+    chunks = list(service._stream_fifo(text, neg, {"image_embeddings": emb}, 1, seed,
+                                       decode=False))
+    stream_s = time.perf_counter() - t0
+    one_shot = [c["chunk"] for c in chunks] == [0] and bool(torch.equal(
+        torch.cat([torch.from_numpy(c["latents"]) for c in chunks], dim=1), ref["latents"]))
+    log(f"[serve] the threaded stream (1 chunk, undecoded): {stream_s:.2f} s, "
+        f"{len(chunks)} chunk(s); its chunks bit-equal to the one-shot run's latents: {one_shot}")
+
+    class Crash(RuntimeError):
+        pass
+
+    emits, states = {}, {}
+
+    def on_emit(i, em):
+        emits[i] = em
+        if i == DRILL_CRASH_AT:
+            raise Crash()
+
+    def on_state(i, snapshot):
+        if (i + 1) % DRILL_EVERY == 0:
+            states[i] = snapshot()
+
+    t0 = time.perf_counter()
+    try:
+        pipe.generate(text, neg, noise_fn=keyed_noise(seed, dev), emit_callback=on_emit,
+                      state_callback=on_state, **kw)
+        raise RuntimeError("the drill's run did not crash")
+    except Crash:
+        pass
+    crash_s = time.perf_counter() - t0
+    resume_i = max(states)
+    tail = {}
+    t0 = time.perf_counter()
+    pipe.generate(text, neg, noise_fn=keyed_noise(seed, dev), resume_from=states[resume_i],
+                  emit_callback=lambda i, em: tail.__setitem__(i, em), **kw)
+    resume_s = time.perf_counter() - t0
+    stitched = {**{i: emits[i] for i in range(resume_i + 1)}, **tail}
+    drill = sorted(stitched) == sorted(full) and all(torch.equal(stitched[i], full[i])
+                                                     for i in full)
+    snap_mb = sum(x.numel() * x.element_size() for x in states[resume_i]["state"]) / 2**20
+    log(f"[serve] crash-resume drill: died after emit {DRILL_CRASH_AT} ({crash_s:.2f} s), "
+        f"resumed from the snapshot after iteration {resume_i} ({snap_mb:.1f} MiB on the host) "
+        f"in {resume_s:.2f} s; stitched emits bit-equal to the uninterrupted run: {drill}")
+    if not (bookkeeping and one_shot and drill):
+        raise RuntimeError("the stream or the resumed run is not bit-equal to the one-shot run")
+
+    # a client that goes away after the first chunk of two
+    gen = service.generate_stream("a red car on a snow mountain road", 2, seed=seed,
+                                  decode=False)
+    t0 = time.perf_counter()
+    first = next(gen)
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gen.close()
+    free = service._lock.acquire(timeout=60)
+    close_s = time.perf_counter() - t0
+    if free:
+        service._lock.release()
+    log(f"[serve] a 2-chunk stream closed after chunk {first['chunk']} ({t_first:.2f} s): the "
+        f"service lock free {close_s:.3f} s later (one FIFO iteration: {iter_s:.3f} s)")
+    if not free or close_s > 1.25 * iter_s:
+        raise RuntimeError("the closed stream's worker held the card past one FIFO iteration")
+
+
+def phase_serve(state: dict) -> None:
+    import gc
+    import tempfile
+    import threading
+
+    import torch
+
+    from tokensgen_tpu_torch.serve import build_service
+    from tokensgen_tpu_torch.serving import make_server
+    from tokensgen_tpu_torch.utils.config import load_config
+
+    dev = state["device"]
+    cfg = load_config(os.path.join(REPO, SERVE_CONFIG), SERVE_OVERRIDES)
+    t0 = time.perf_counter()
+    service = build_service(cfg, smoke=False, device=dev)
+    service.pipe.dit.transformer_blocks = service.pipe.dit.transformer_blocks[:EDIT_LAYERS]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    pc, dcfg = service.pipe.cfg, service.pipe.dit_config
+    log(f"[serve] serve.build_service({SERVE_CONFIG} with {json.dumps(SERVE_OVERRIDES)}): "
+        f"{time.perf_counter() - t0:.1f} s; To2V DiT quant {dcfg.quant} quant_attn "
+        f"{dcfg.quant_attn}, depth {len(service.pipe.dit.transformer_blocks)} of "
+        f"{dcfg.num_layers} layers; T2To DiT {service.t2to_pipe.dit_config.num_layers} layers; "
+        f"{pc.width}x{pc.height}, {pc.num_inference_steps} steps, {pc.num_partitions} partition")
+    server = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, name="serve-http", daemon=True)
+    thread.start()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            counts = _serve_wire(service, server.server_address[1], dev, tmp)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    state["serve_launches"] = counts
+    log(f"[serve] kernel launches over the wire (/edit_stream, the refused /edit, "
+        f"/generate_stream): {json.dumps(counts)}")
+    if thread.is_alive() or min(counts[k] for k in PATH_KERNELS) <= 0:
+        raise RuntimeError(f"a kernel of the serve path was not launched: {counts}")
+    _serve_drill(service, dev)
+    log(f"[serve] requests served {service.health()['requests']}, mean "
+        f"{service.health()['avg_seconds']:.2f} s")
+    del service, server
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2930,9 +3295,10 @@ def main(argv=None) -> int:
     for name, replaces in KERNELS.items():
         row = {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                "launches": launches[name], **state["kernel_rows"][name]}
-        if name in PATH_KERNELS:  # the load phase's two runs, each counted on its own
+        if name in PATH_KERNELS:  # the load and serve phases' runs, each counted on its own
             row.update(load_launches=state["load_launches"][name],
-                       cli_launches=state["cli_launches"][name])
+                       cli_launches=state["cli_launches"][name],
+                       serve_launches=state["serve_launches"][name])
         rows.append(row)
     for name, replaces in PROBES.items():
         rows.append({"name": name, "route": "cuda", "source": PROBE_SOURCE, "replaces": replaces,

@@ -33,6 +33,8 @@ def test_import_loads_no_jax():
                "tokensgen_tpu_torch.models.text_encoder", "tokensgen_tpu_torch.data.transforms",
                "tokensgen_tpu_torch.data.video_io"}
     assert loaders <= set(_modules())
+    serving = {"tokensgen_tpu_torch.serving", "tokensgen_tpu_torch.serve"}
+    assert serving <= set(_modules())
     probes = {"tokensgen_tpu_torch.kernels.build", "tokensgen_tpu_torch.kernels.probes"} | {
         f"tokensgen_tpu_torch.tools.{m}" for m in ("bench_attn_sweep", "bench_attn_v2",
                                                    "bench_int8_loop", "bench_matmul_hand",

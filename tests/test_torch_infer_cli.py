@@ -128,13 +128,25 @@ def test_cli_writes_the_outputs_and_matches_jax_generate(setup, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported(setup):
-    """`cache_idx` (ROADMAP A7) and the multi-device keys (A12) raise."""
+    """The multi-device keys (ROADMAP A12) raise."""
     path, _ = setup
-    for args, match in ((["--set", "cache_idx=[0]"], "A7"),
-                        (["--set", "sp_devices=2"], "A12"),
+    for args, match in ((["--set", "sp_devices=2"], "A12"),
                         (["--set", "sampling_params.queue_devices=2"], "A12")):
         with pytest.raises(NotImplementedError, match=match):
             infer.main(["--config", path, "--smoke", "--device", "cpu", *args])
+
+
+def test_cli_writes_cache_tracks(setup):
+    """`cache_idx: [0]`: output frame 0's x0 over its denoise trajectory is
+    decoded and written as ``{name}_cache0.mp4``: its valid iterations (4 at
+    the smoke's 6 steps, 3 frames per chunk) cut to one decode chunk, 9
+    frames of 48x32."""
+    path, _ = setup
+    run_dir = infer.main(["--config", path, "--smoke", "--device", "cpu",
+                          "--set", "cache_idx=[0]"])
+    assert not glob.glob(os.path.join(run_dir, "item_a_cache1.mp4"))
+    frames = jax_read_frames(os.path.join(run_dir, "item_a_cache0.mp4"))
+    assert frames.shape == (9, 32, 48, 3)
 
 
 def test_edit_item_without_a_video_raises_outside_smoke(setup):

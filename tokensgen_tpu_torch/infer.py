@@ -20,14 +20,14 @@ Reads the same config keys as the JAX package's `infer.py` and runs on
   `end_t`, `crop_to_fit`, `pad_to_fit`, chunks x frames per chunk).
 
 Per item it writes ``{name}_source.mp4`` (edit), ``{name}_fifo.mp4``,
-``{name}_orig.mp4``, ``{name}_latents.npy`` and, on gen,
-``{name}_tokens.npy`` into a timestamped run dir, at `output_fps`. ``quant``
-(w8a16 / w8a8) and ``quant_attn`` run as configured. ``--smoke`` runs the
-tiny geometry of the JAX package's smoke (and synthesizes the source video
-of an edit item that has none); without it the full CogVideoX-5b width runs.
-Not ported, each raising NotImplementedError: `cache_idx` (ROADMAP A7),
-`queue_devices` / `sp_devices` > 1 (A12), VIP func_types "2"-"4" (A4), the
-DINOv2 path (A15).
+``{name}_orig.mp4``, ``{name}_latents.npy``, on gen ``{name}_tokens.npy``,
+and for each `cache_idx` track ``{name}_cache{i}.mp4`` into a timestamped
+run dir, at `output_fps`. ``quant`` (w8a16 / w8a8) and ``quant_attn`` run as
+configured. ``--smoke`` runs the tiny geometry of the JAX package's smoke
+(and synthesizes the source video of an edit item that has none); without
+it the full CogVideoX-5b width runs. Not ported, each raising
+NotImplementedError: `queue_devices` / `sp_devices` > 1 (ROADMAP A12), VIP
+func_types "2"-"4" (A4), the DINOv2 path (A15).
 """
 
 from __future__ import annotations
@@ -318,10 +318,21 @@ def gen_image_embeddings(t2to_pipe: T2ToPipeline, pipe: To2VPipeline, prompt_emb
     return toks, torch.cat(parts, dim=0)
 
 
-def _refuse_unported(cfg) -> None:
-    if cfg.get("cache_idx"):
-        raise NotImplementedError("`cache_idx` (the FIFO cache tracks) is not ported yet "
-                                  "(ROADMAP A7)")
+def load_cli_config(path: str, sets):
+    """The config at ``path`` with each ``KEY=VALUE`` of ``sets`` applied (a
+    dotted key; the value parsed as yaml)."""
+    import yaml
+
+    from tokensgen_tpu_torch.utils.config import load_config
+
+    overrides = {}
+    for kv in sets:
+        key, _, val = kv.partition("=")
+        overrides[key] = yaml.safe_load(val)
+    return load_config(path, overrides)
+
+
+def refuse_unported(cfg) -> None:
     nq = cfg.get_path("sampling_params.queue_devices", 1)
     if int(nq or 1) > 1 or int(cfg.get("sp_devices") or 1) > 1:
         raise NotImplementedError("`queue_devices` / `sp_devices` > 1: multi-GPU inference is "
@@ -329,7 +340,7 @@ def _refuse_unported(cfg) -> None:
 
 
 def main(argv=None):
-    from tokensgen_tpu_torch.utils.config import create_output_folders, input_items, load_config
+    from tokensgen_tpu_torch.utils.config import create_output_folders, input_items
 
     ap = argparse.ArgumentParser(description="edit / generation inference (PyTorch/CUDA port)")
     ap.add_argument("--config", required=True)
@@ -342,14 +353,8 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run on the host")
 
-    import yaml
-
-    overrides = {}
-    for kv in args.set:
-        key, _, val = kv.partition("=")
-        overrides[key] = yaml.safe_load(val)
-    cfg = load_config(args.config, overrides)
-    _refuse_unported(cfg)
+    cfg = load_cli_config(args.config, args.set)
+    refuse_unported(cfg)
     items = list(input_items(cfg))
     if not (args.smoke or cfg.get("use_2nd_stage")):
         for item in items:
@@ -404,12 +409,16 @@ def main(argv=None):
             print(f"item {name}: smoke — synthesized random source video", flush=True)
         noise = generator_noise(torch.Generator(device=device).manual_seed(int(cfg.get("seed", 42))))
         out = pipe.generate(prompt, negative, frames=frames, image_embeddings=image_embeddings,
-                            num_chunks=num_chunks, noise_fn=noise)
+                            num_chunks=num_chunks, noise_fn=noise,
+                            cache_idx=tuple(cfg.get("cache_idx") or ()))
         video = out["video"][0].float().cpu().numpy()
         write_video(os.path.join(run_dir, f"{name}_fifo.mp4"), video, fps=fps)
         write_video(os.path.join(run_dir, f"{name}_orig.mp4"),
                     out["orig_video"][0].float().cpu().numpy(), fps=fps)
         np.save(os.path.join(run_dir, f"{name}_latents.npy"), out["latents"].float().cpu().numpy())
+        for ci, cv in enumerate(out.get("cache_videos") or []):
+            write_video(os.path.join(run_dir, f"{name}_cache{ci}.mp4"),
+                        cv[0].float().cpu().numpy(), fps=fps)
         print(f"item {name}: wrote {video.shape[0]} frames", flush=True)
     print(f"done -> {run_dir}", flush=True)
     return run_dir

@@ -13,6 +13,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -32,6 +33,8 @@ class KernelLibrary:
         self.bind = bind
         self.lib: Optional[ctypes.CDLL] = None
         self.build_log = ""
+        # threads that reach a kernel's first use together build and load it once
+        self._lock = threading.Lock()
 
     def _tag(self) -> str:
         h = hashlib.sha256(self.source.read_bytes())
@@ -43,25 +46,26 @@ class KernelLibrary:
     def build(self, force: bool = False) -> Path:
         """Compiles (cached by hash) and loads the library; returns its path.
         Raises with nvcc's output on failure."""
-        out = BUILD_DIR / f"lib{self.source.stem}_{self._tag()}.so"
-        if force or not out.exists():
-            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-            if not os.path.exists(nvcc):
-                raise RuntimeError(f"nvcc not found: {self.source.name} needs the CUDA toolkit")
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {self.source.name} ({proc.returncode}):\n"
-                                   f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, out)
-            self.build_log = proc.stdout + proc.stderr
-        if self.lib is None or force:
-            lib = ctypes.CDLL(str(out))
-            self.bind(lib)
-            self.lib = lib
-        return out
+        with self._lock:
+            out = BUILD_DIR / f"lib{self.source.stem}_{self._tag()}.so"
+            if force or not out.exists():
+                nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+                if not os.path.exists(nvcc):
+                    raise RuntimeError(f"nvcc not found: {self.source.name} needs the CUDA toolkit")
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+                                      capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {self.source.name} ({proc.returncode}):\n"
+                                       f"{proc.stdout}\n{proc.stderr}")
+                os.replace(tmp, out)
+                self.build_log = proc.stdout + proc.stderr
+            if self.lib is None or force:
+                lib = ctypes.CDLL(str(out))
+                self.bind(lib)
+                self.lib = lib
+            return out
 
     def get(self) -> ctypes.CDLL:
         if self.lib is None:

@@ -6,14 +6,14 @@ Perceiver resampler) -> CFG-batched base denoise of chunk 0 with FIFO-seed
 snapshots -> the FIFO diagonal-denoising loop -> chunked VAE decode.
 
 Not ported here: the single-chip offload orchestration (a 16 GB TPU
-workaround), the DINOv2 path, `denoise_together`, cache tracks.
+workaround), the DINOv2 path, `denoise_together`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -267,14 +267,22 @@ class To2VPipeline:
             video_ipadapter_start_frame_idx=cfg.video_ipadapter_start_frame_idx,
             vip_rope_dims=(d // 4, d // 8 * 3, d // 8 * 3))
 
+    @torch.no_grad()
     def generate(self, prompt_embeds, negative_embeds, frames=None, image_embeddings=None,
                  num_chunks: int = 4, noise_fn: Optional[NoiseFn] = None, decode: bool = True,
-                 timings: Optional[Dict[str, float]] = None) -> Dict[str, torch.Tensor]:
+                 timings: Optional[Dict[str, float]] = None, cache_idx: Tuple[int, ...] = (),
+                 emit_callback=None, state_callback=None,
+                 resume_from=None) -> Dict[str, torch.Tensor]:
         """Edit/generation run: VIP encode -> base pass -> FIFO -> decode.
 
         ``noise_fn`` supplies every random draw (default: a generator seeded
         with 0 on the pipeline's device). ``timings``, when given, receives
-        each phase's wall seconds (synchronised on the device)."""
+        each phase's wall seconds (synchronised on the device).
+        ``cache_idx``, ``emit_callback``, ``state_callback`` and
+        ``resume_from`` go to the FIFO engine (`sampling.fifo.fifo_generate`);
+        the FIFO's latents and cache tracks come back on the host, and with
+        ``decode`` each cache track's valid frames, cut to whole decode
+        chunks, are decoded into ``cache_videos``."""
         if noise_fn is None:
             noise_fn = generator_noise(torch.Generator(device=self.device).manual_seed(0))
         clock = _PhaseClock(self.device, timings)
@@ -287,13 +295,25 @@ class To2VPipeline:
                                                       image_embeddings, num_chunks, noise_fn)
         clock.lap("base_denoise")
         seed = self.fifo_seed(res, image_rope, image_embeddings, num_chunks)
-        fifo_res = fifo_engine.fifo_generate(model_fn, self.sched, self.fifo_config(num_chunks),
-                                             seed, noise_fn)
+        fifo_res = fifo_engine.fifo_generate(
+            model_fn, self.sched, self.fifo_config(num_chunks), seed, noise_fn,
+            cache_idx=cache_idx, emit_callback=emit_callback, state_callback=state_callback,
+            resume_from=resume_from)
         clock.lap("fifo")
-        out = {"latents": fifo_res.latents, "orig_latents": res.latents}
+        out = {"latents": fifo_res.latents, "orig_latents": res.latents,
+               "cache_x0": fifo_res.cache_x0, "cache_valid": fifo_res.cache_valid}
         if decode and self.vae is not None:
             out["video"] = self.decode_latents(fifo_res.latents)
             out["orig_video"] = self.decode_latents(res.latents)
+            if fifo_res.cache_x0 is not None:
+                # one output frame's x0 along its denoise trajectory, as a video
+                nf = self.cfg.nf_latent
+                out["cache_videos"] = []
+                for track, valid in zip(fifo_res.cache_x0, fifo_res.cache_valid):
+                    track = track[valid].transpose(0, 1)  # [B, T, C, H, W]
+                    t_use = (track.shape[1] // nf) * nf
+                    if t_use:
+                        out["cache_videos"].append(self.decode_latents(track[:, :t_use]))
             clock.lap("decode")
         return out
 
@@ -301,7 +321,7 @@ class To2VPipeline:
     def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
         """Chunked decode: [B, F, C, h, w] -> [B, F_px, H, W, 3]."""
         nf = self.cfg.nf_latent
-        z = (latents / self.vae.config.scaling_factor).permute(0, 1, 3, 4, 2)
+        z = (latents.to(self.device) / self.vae.config.scaling_factor).permute(0, 1, 3, 4, 2)
         if z.shape[1] == 0:
             raise ValueError("decode_latents: empty latent sequence")
         return torch.cat([self.vae.decode(z[:, s:s + nf]) for s in range(0, z.shape[1], nf)],

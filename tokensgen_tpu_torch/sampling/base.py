@@ -7,12 +7,15 @@ latents and the previous x0 are recorded; returned cleanest first).
 
 Randomness comes from a noise source ``noise_fn(tag, shape) -> Tensor``; the
 tags name the draw (``("base", step, 0 | 1)``) so a test can replay another
-framework's noise. `generator_noise` turns a `torch.Generator` into one.
+framework's noise. `generator_noise` turns a `torch.Generator` into one (draws
+in call order); `keyed_noise` makes each draw a function of the seed and its
+tag alone, so a run resumed part way reproduces the uninterrupted run's noise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -30,6 +33,22 @@ def generator_noise(generator: torch.Generator) -> NoiseFn:
     def draw(tag: tuple, shape) -> torch.Tensor:
         return torch.randn(tuple(shape), generator=generator, device=generator.device,
                            dtype=torch.float32)
+
+    return draw
+
+
+def keyed_noise(seed: int, device) -> NoiseFn:
+    """Standard-normal float32 draws on ``device``, each from a fresh
+    generator seeded with a 63-bit hash of ``(seed, tag)``: a draw depends
+    on nothing else, whatever was drawn before it (the counterpart of the
+    JAX engine's per-iteration keys, `jax.random.split` + `fold_in`)."""
+    device = torch.device(device)
+
+    def draw(tag: tuple, shape) -> torch.Tensor:
+        key = "/".join(str(x) for x in (int(seed), *tag)).encode()
+        digest = hashlib.blake2b(key, digest_size=8).digest()
+        gen = torch.Generator(device=device).manual_seed(int.from_bytes(digest, "little") >> 1)
+        return torch.randn(tuple(shape), generator=gen, device=device, dtype=torch.float32)
 
     return draw
 

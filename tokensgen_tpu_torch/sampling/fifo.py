@@ -9,8 +9,12 @@ that the adaptive-padding ramp leaves inactive are skipped (the JAX engine's
 `lax.cond`). The VIP rotary tables roll with the iteration, built from
 tensor grids.
 
-Not ported yet: the queue-sharded mesh path, ``emit_callback``,
-``state_callback`` / ``resume_from`` and ``cache_idx`` tracks.
+The loop runs on the host, as the JAX engine's ``host_loop=True``: each
+iteration's emitted frame (and its ``cache_idx`` tracks) lands on the host
+as it is made, ``emit_callback`` sees it there, ``state_callback`` can take a
+host snapshot of the queue, and ``resume_from`` continues from one.
+
+Not ported yet: the queue-sharded mesh path (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -90,8 +94,10 @@ class FIFOSeed(NamedTuple):
 
 
 class FIFOResult(NamedTuple):
-    latents: torch.Tensor  # [B, num_frames, C, H, W] emitted clean frames
-    all_emitted: torch.Tensor  # [B, num_iterations, C, H, W] incl. warm-up
+    latents: torch.Tensor  # [B, num_frames, C, H, W] emitted clean frames (host)
+    all_emitted: torch.Tensor  # [B, num_iterations, C, H, W] incl. warm-up (host)
+    cache_x0: Optional[torch.Tensor] = None  # [n_cache, num_iterations, B, C, H, W] (host)
+    cache_valid: Optional[torch.Tensor] = None  # [n_cache, num_iterations] bool
 
 
 def _position_timesteps(ts: np.ndarray, fcfg: FIFOConfig):
@@ -126,12 +132,39 @@ def fifo_generate(
     fcfg: FIFOConfig,
     seed: FIFOSeed,
     noise_fn: NoiseFn,
+    cache_idx: Tuple[int, ...] = (),
+    emit_callback: Optional[Callable] = None,
+    state_callback: Optional[Callable] = None,
+    resume_from: Optional[dict] = None,
 ) -> FIFOResult:
     """Run the FIFO loop. ``model_fn(lat_cfg [nB, nf, C, H, W], t2d [nB, nf],
     vip_kwargs | None) -> noise_pred`` CFG-batches its closed-over
     conditioning, uncond first. ``noise_fn`` supplies the DPM noise
     (tags ``("fifo", iteration, rank, 0 | 1)``) and the tail renoise
-    (``("tail", iteration)``)."""
+    (``("tail", iteration)``).
+
+    ``cache_idx``: output frames whose x0 is tracked over their denoise
+    trajectory (`FIFOResult.cache_x0` / ``cache_valid``).
+
+    ``emit_callback(i, emitted)``: called after iteration ``i`` with its
+    emitted frame [B, C, H, W], a host tensor (each one crosses to the host
+    as it is made, so the device never holds ``num_iterations`` of them).
+
+    ``state_callback(i, snapshot)``: called after iteration ``i`` with a
+    zero-argument thunk returning ``{"iteration": i + 1, "state": (queue,
+    x0_buf, x0_valid)}`` as host copies, which stay valid whenever the thunk
+    is called and whatever the loop does after (the JAX thunk is only valid
+    inside the callback). The ~40 MB copy is made only when it is called.
+    Until then the thunk holds that iteration's device tensors, so a caller
+    that keeps thunks without calling them keeps ~40 MB of card memory alive
+    per iteration: call it inside the callback, or drop it.
+
+    ``resume_from``: a snapshot's value (the port's or the JAX engine's);
+    the loop continues from its iteration and, with a ``noise_fn`` whose
+    draws depend only on their tags (`sampling.base.keyed_noise`),
+    reproduces the uninterrupted run bit for bit. ``all_emitted`` /
+    ``latents`` (and the cache tracks) then cover only the resumed
+    iterations, as in the JAX engine."""
     nf, r_nf, l_nf = fcfg.nf_per_chunk, fcfg.r_nf, fcfg.l_nf
     R, Q = fcfg.num_ranks, fcfg.queue_len
     steps = fcfg.num_inference_steps
@@ -211,8 +244,14 @@ def fifo_generate(
         write_hi = re if clamped else s0 + nf
         return start, new_lat, new_x0, (pos >= write_lo) & (pos < write_hi)
 
-    emitted = []
-    for i in range(fcfg.num_iterations):
+    start_i = 0
+    if resume_from is not None:
+        queue, x0_buf, x0_valid = (torch.as_tensor(np.array(x), device=dev)
+                                   for x in resume_from["state"])
+        start_i = int(resume_from["iteration"])
+    cache_q = np.asarray(cache_idx, dtype=np.int64) + (steps - nf) + r_nf
+    emitted, cache_x, cache_v = [], [], []
+    for i in range(start_i, fcfg.num_iterations):
         qs = (max(0, (steps - l_nf) - i)
               if fcfg.use_adaptive_padding and fcfg.lookahead_denoising else 0)
         sum_l = torch.zeros_like(queue)
@@ -230,7 +269,14 @@ def fifo_generate(
         queue = torch.where(mb, sum_l, queue)
         x0_buf = torch.where(mb, sum_x, x0_buf)
         x0_valid = x0_valid | mask
-        emitted.append(queue[:, r_nf if fcfg.lookahead_denoising else 0].clone())
+        emitted.append(queue[:, r_nf if fcfg.lookahead_denoising else 0].to("cpu", copy=True))
+        if emit_callback is not None:
+            emit_callback(i, emitted[-1])
+        if len(cache_q):
+            q_idx = cache_q - i
+            cache_v.append(torch.from_numpy((q_idx >= max(r_nf, qs)) & (q_idx < Q)))
+            safe = torch.from_numpy(np.clip(q_idx, 0, Q - 1)).to(dev)
+            cache_x.append(x0_buf[:, safe].transpose(0, 1).to("cpu", copy=True))
 
         tail = queue[:, -1]
         tail_noise = noise_fn(("tail", i), tail.shape)
@@ -243,6 +289,16 @@ def fifo_generate(
         queue = torch.cat([queue[:, 1:], tail[:, None]], dim=1)
         x0_buf = torch.cat([x0_buf[:, 1:], torch.zeros_like(x0_buf[:, -1:])], dim=1)
         x0_valid = torch.cat([x0_valid[1:], torch.zeros(1, dtype=torch.bool, device=dev)])
+        if state_callback is not None:
+            # the loop rebinds these names and never writes into the tensors,
+            # so the thunk's copies are of this iteration's state whenever it runs
+            def snapshot(j=i, state=(queue, x0_buf, x0_valid)):
+                return {"iteration": j + 1,
+                        "state": tuple(x.to("cpu", copy=True) for x in state)}
+
+            state_callback(i, snapshot)
 
     all_emitted = torch.stack(emitted, dim=1)
-    return FIFOResult(all_emitted[:, steps - nf:], all_emitted)
+    caches = ((torch.stack(cache_x, dim=1), torch.stack(cache_v, dim=1)) if cache_x
+              else (None, None))
+    return FIFOResult(all_emitted[:, steps - nf:], all_emitted, *caches)
