@@ -75,26 +75,41 @@ Phases, each printing its own lines:
           T2To tokens: the crash-resume drill and stream == one-shot, both
           bit-equal, and a stream closed after its first chunk freeing the
           card within one FIFO iteration
+  data    the training data on disk, in build/data_smoke/: a MiraData layout
+          (3 mp4s of 10 s at 30 fps, 960x540; a CSV in ISO-8859-1 with a
+          non-ASCII caption), a random full-width CogVideoX VAE written as an
+          HF vae/ dir, calculate_vae_latents.main(--fit-stats) on the card at
+          full width (files, shapes, f16 and finite stats checked, seconds per
+          chunk), the latents read back by VAEMiraDataset through the native
+          reader (g++ at first use) equal to np.load, and one To2V item's
+          host decode timed
   train   2-layer train steps on the card against the host's (heads of 64,
-          and the --smoke geometry: the DiT's 2 heads of 16 on K6 / K5), 2
-          steps of the tiny trainer (--smoke) on the card, then 2 optimizer
-          steps of the To2V adapter trainer (train_to2v.To2VTrainer) at full
-          width (42 layers, batch 2, 2-chunk 49-frame 720x480), then a third
-          one traced with torch.profiler (device time by kernel group); each
-          step's sampled timesteps and mean x0 weight beside its loss
+          and the --smoke geometry: the DiT's 2 heads of 16 on K6 / K5, also
+          with LoRA), 2 steps of the tiny trainer (--smoke) on the card, one
+          step of it with LoRA, Prodigy, a validation render (its mp4 read
+          back by cv2, finite metrics) and --profile-steps 1, then 2
+          optimizer steps of the To2V adapter trainer (train_to2v.To2VTrainer)
+          at full width (42 layers, batch 2, 2-chunk 49-frame 720x480) on the
+          data phase's videos through MiraDataset and 4 decode threads
+          (a third, traced step and a full-width validation render are cut
+          for time); each step's data wait, sampled timesteps and mean x0
+          weight beside its loss
   t2to_train  the T2To trainer (train_t2to.T2ToTrainer): a tiny step (one
           head of 64: K6 forward, K5 backward) on the card against the
-          host's, 2 steps of the tiny trainer on the card, then 2 full-finetune
-          optimizer steps at full width (42 layers, batch 3, 24 chunks: 9,442
-          tokens per row, int8 AdamW) and a third one traced; each step's
-          sampled timesteps and mean x0 weight beside its loss
+          host's, full finetune and LoRA, 2 steps of the tiny trainer on the
+          card, then 2 full-finetune optimizer steps at full width (42 layers,
+          batch 3, 24 chunks: 9,442 tokens per row, int8 AdamW) on the data
+          phase's latents (latent_dir: random full-width frozen resampler and
+          patch conv files, K4 in the encoder) and a third one traced; each
+          step's sampled timesteps and mean x0 weight beside its loss
 
 The card's name and power limit (nvidia-smi) and a JSON object of the
 kernels and their measurements (launches of K1-K4 on the edit path, and
 apart from them, as `load_launches`, `cli_launches` and `serve_launches`, in
 the load phase's forward on the loaded weights, in its CLI run and in the
 serve phase's requests over the wire; of K5 on the train path, of K7 on the gen path, of K6 on the tiny T2To trainer, of
-the probe kernels in their CLIs' runs) come before the last line,
+K4 in the T2To trainer's latent encoder as `t2to_train_launches`, of the
+probe kernels in their CLIs' runs) come before the last line,
 and the result line ``{"ok": true, "device": {...}}``. Any failed phase
 raises and the script exits non-zero. It refuses to run without a card.
 """
@@ -115,7 +130,7 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernels", "probes", "dit", "edit", "load", "gen", "serve",
+PHASES = ("env", "build", "kernels", "probes", "dit", "edit", "load", "gen", "serve", "data",
           "train", "t2to_train")
 
 # A kernel agrees with its plain version (same bf16 inputs; the plain version
@@ -2782,6 +2797,167 @@ def phase_serve(state: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# The data phase's MiraData layout: three videos (one mp4, copied) of 10 s at
+# 30 fps, 960x540 (larger than 720x480, so the resize, the crop and the fps
+# resampling to 10 run), a CSV in ISO-8859-1 with a non-ASCII caption, under
+# build/data_smoke/; a random full-width CogVideoX VAE as an HF vae/ dir
+# (diffusers names); its latents from calculate_vae_latents
+DATA_DIR = os.path.join("build", "data_smoke")
+DATA_CAPTIONS = {7: "a red kite over the dunes", 1003: "un café au coin de la rue",
+                 2048: "waves breaking at dusk"}
+DATA_FRAMES, DATA_FPS, DATA_HW = 300, 30.0, (540, 960)
+LATENTS_CONFIG = "tokensgen_tpu/configs/dataprocess_vae_latents.yaml"
+
+
+def _write_mira_layout(root: str) -> dict:
+    """The videos and the CSV; returns their paths."""
+    import numpy as np
+
+    from tokensgen_tpu_torch.data.mira import mira_video_path
+    from tokensgen_tpu_torch.data.video_io import write_video
+
+    videos = os.path.join(root, "videos")
+    t0 = time.perf_counter()
+    first = None
+    for idx in DATA_CAPTIONS:
+        path = mira_video_path(videos, idx)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        if first is None:
+            h, w = DATA_HW  # a pan across a wide still: 3 pixels a frame
+            still = _moving_frames(1, h, w + 3 * DATA_FRAMES)[0]
+            write_video(path, np.stack([still[:, 3 * t:3 * t + w] for t in range(DATA_FRAMES)]),
+                        fps=DATA_FPS)
+            first = path
+        else:
+            shutil.copyfile(first, path)
+    csv_path = os.path.join(root, "videos.csv")
+    with open(csv_path, "w", encoding="ISO-8859-1", newline="") as f:
+        f.write("index,dense_caption\n")
+        for idx, caption in DATA_CAPTIONS.items():
+            f.write(f"{idx},{caption}\n")
+    log(f"[data] MiraData layout in {time.perf_counter() - t0:.1f} s: {len(DATA_CAPTIONS)} "
+        f"videos of {DATA_FRAMES} frames at {DATA_FPS:g} fps, {DATA_HW[1]}x{DATA_HW[0]}; "
+        f"{csv_path} in ISO-8859-1")
+    return {"csv": csv_path, "videos": videos}
+
+
+def _write_vae_dir(dev, root: str) -> str:
+    """A random full-width CogVideoX VAE (seed 42) written as an HF vae/ dir."""
+    import torch
+
+    from tokensgen_tpu_torch.convert.safetensors_io import save_safetensors
+    from tokensgen_tpu_torch.convert.torch_weights import vae_to_diffusers
+    from tokensgen_tpu_torch.models.vae3d import AutoencoderKLCogVideoX, VAEConfig
+    from tokensgen_tpu_torch.utils.params import build_on_device
+
+    t0 = time.perf_counter()
+    vae = build_on_device(lambda: AutoencoderKLCogVideoX(VAEConfig.cogvideox()), dev,
+                          torch.Generator(device=dev).manual_seed(42))
+    out = os.path.join(root, "vae")
+    os.makedirs(out, exist_ok=True)
+    sd = vae_to_diffusers(vae.state_dict())
+    save_safetensors(os.path.join(out, "diffusion_pytorch_model.safetensors"), sd)
+    n = sum(v.numel() for v in sd.values())
+    log(f"[data] random full-width VAE ({n:,} parameters) written as {out} (diffusers names) "
+        f"in {time.perf_counter() - t0:.1f} s")
+    del vae, sd
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_data(state: dict) -> None:
+    """The training data path on disk: the MiraData layout, the latents tool
+    on the card at full width, the latents read back on the native reader,
+    and one To2V item's host decode timed."""
+    import gc
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from tokensgen_tpu_torch import calculate_vae_latents as CVL
+    from tokensgen_tpu_torch.data import native_store
+    from tokensgen_tpu_torch.data.mira import MiraDataset, VAEMiraDataset, read_csv_rows
+
+    dev = state["device"]
+    state.pop("pipe", None)  # the edit phase's pipeline
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.join(REPO, DATA_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    data = _write_mira_layout(root)
+    captions = [r["dense_caption"] for r in read_csv_rows(data["csv"])]
+    if captions != list(DATA_CAPTIONS.values()):
+        raise RuntimeError(f"the CSV read back as {captions}")
+    vae_dir = _write_vae_dir(dev, root)
+    with open(os.path.join(REPO, LATENTS_CONFIG)) as f:
+        lcfg = yaml.safe_load(f)
+    data["latents"] = os.path.join(root, "latents")
+    lcfg.update(latent_output_dir=data["latents"], vae_checkpoint=vae_dir)
+    lcfg["train_data_params"].update(csv_file=data["csv"], video_dir=data["videos"])
+    cfg_path = os.path.join(root, "dataprocess_vae_latents.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(lcfg, f)
+    log(f"[data] {LATENTS_CONFIG} with latent_output_dir, vae_checkpoint and the layout's "
+        f"csv_file / video_dir; calculate_vae_latents.main([--config, --fit-stats]) on the card")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = CVL.main(["--config", cfg_path, "--fit-stats"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    nf_px = lcfg["train_data_params"]["chunk_size"]
+    chunks = DATA_FRAMES * 10 // int(DATA_FPS) // nf_px  # 10 fps resampling
+    want = [CVL.latent_file(data["latents"], idx, chunks) for idx in DATA_CAPTIONS]
+    shape = (13 * chunks, 16, 480 // 8, 720 // 8)
+    lats = [np.load(p) for p in want]
+    mean = np.load(os.path.join(data["latents"], "mean_shard0.npy"))
+    std = np.load(os.path.join(data["latents"], "std_shard0.npy"))
+    log(f"[data] latents tool: {len(written)} videos x {chunks} chunks in {secs:.1f} s "
+        f"({secs / (len(written) * chunks):.2f} s per full-width chunk, decode included); files "
+        f"{[os.path.relpath(p, root) for p in written]}, {lats[0].shape} {lats[0].dtype}; stats "
+        f"mean / std {mean.shape} {mean.dtype}, std in [{std.min():.4f}, {std.max():.4f}]")
+    if (written != want or any(x.shape != shape or x.dtype != np.float16
+                               or not np.isfinite(x).all() for x in lats)
+            or mean.shape != (16 * shape[2] * shape[3],) or not np.isfinite(mean).all()
+            or not (np.isfinite(std).all() and std.min() > 0)):
+        raise RuntimeError(f"the latents tool's files are not as expected: {written}")
+    # read back as the T2To trainer does: VAEMiraDataset on the native reader
+    ds = VAEMiraDataset(data["csv"], data["latents"], max_num_chunks=24)
+    t0 = time.perf_counter()
+    items = ds.load_many(list(range(len(ds))))
+    t_read = time.perf_counter() - t0
+    plain = native_store.load_npy_plain(want)
+    same = all(np.array_equal(it["vae_latents"][:13 * chunks], p.astype(np.float32))
+               for it, p in zip(items, plain))
+    log(f"[data] VAEMiraDataset.load_many of {len(items)} items in {t_read:.3f} s through the "
+        f"native reader {os.path.relpath(native_store._Native.path, REPO)} ("
+        f"{'built by g++ in this run' if native_store._Native.built_here else 'cached build'});"
+        f" latents equal to np.load: {same}; padded to {items[0]['vae_latents'].shape}, valid "
+        f"chunks {[it['valid_num_chunks'] for it in items]}, prompts "
+        f"{[it['prompt'] for it in items]}")
+    if not same or native_store._Native.lib is None:
+        raise RuntimeError("the native reader did not read the latents as np.load does")
+    # one To2V item's host decode (read, fps resampling, resize, crop)
+    mira = MiraDataset(data["csv"], data["videos"], seed=42)
+    times = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        item = mira[i]
+        times.append(time.perf_counter() - t0)
+    state["decode_s"] = min(times)
+    log(f"[data] MiraDataset item (2 x 49 frames of {DATA_HW[1]}x{DATA_HW[0]} -> 720x480): "
+        f"host decode {', '.join(f'{t:.2f}' for t in times)} s, {item['pixel_values'].shape}, "
+        f"start_frame_idx {item['start_frame_idx']}")
+    state["data"] = data
+
+
+def _data_layout(state: dict) -> dict:
+    """The data phase's layout (the phase runs first when it has not)."""
+    if "data" not in state:
+        phase_data(state)
+    return state["data"]
+
+
 # the trainer as `python -m tokensgen_tpu_torch.train_to2v --config
 # tokensgen_tpu/configs/train_to2v.yaml` runs it, at full width (42 layers,
 # 48 x 64 heads, 2-chunk 49-frame 720x480 batches), with these listed cuts
@@ -2792,6 +2968,7 @@ TRAIN_OVERRIDES = {
     "output_dir": "build/train_smoke",
 }
 TRAIN_STEPS = 2  # cut from max_train_steps 100000; no checkpoint is written
+TINY_LORA_RANK = 4  # the tiny trainers' LoRA checks
 # The small train check: trainable grads of a train step through the kernels
 # (card) against the same step through the plain versions (host), both bf16,
 # by relative L2 over all trainable grads together. Measured 5.8e-3 on an
@@ -2841,11 +3018,26 @@ def _to(x, dev):
     return x.to(dev)
 
 
-def _small_train_check(dev, dcfg, rcfg, label: str) -> dict:
+def _random_lora_b(model, seed: int) -> None:
+    """LoRA's b factors made random (init gives zeros, which leave a's grads
+    zero), so that a grad check sees both factors."""
+    import torch
+
+    from tokensgen_tpu_torch.train import lora
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for ab in lora.lora_factors(model).values():
+            ab["b"].copy_(0.02 * torch.randn(ab["b"].shape, generator=gen))
+
+
+def _small_train_check(dev, dcfg, rcfg, label: str, lora_rank: int = 0) -> dict:
     """A 2-layer bf16 DiT + resampler train step (loss and backward) with the
     same weights and inputs on the host (the plain versions in both
     directions) and on the card (the kernels): the trainable grads must agree
-    within TRAIN_GRAD_REL_L2_BOUND. Returns the card's launch counts."""
+    within TRAIN_GRAD_REL_L2_BOUND. With ``lora_rank``, LoRA factors (b made
+    random) on the DiT's attention projections train too. Returns the card's
+    launch counts."""
     import copy
 
     import torch
@@ -2854,8 +3046,11 @@ def _small_train_check(dev, dcfg, rcfg, label: str) -> dict:
     from tokensgen_tpu_torch.kernels import attention as A
     from tokensgen_tpu_torch.train import to2v
 
-    host = to2v.setup_trainable(
-        to2v.init_model(dcfg, rcfg, "cpu", torch.Generator().manual_seed(3)), torch.bfloat16)
+    tcfg = to2v.To2VTrainConfig(lora_rank=lora_rank)
+    host = to2v.init_model(dcfg, rcfg, "cpu", torch.Generator().manual_seed(3), tcfg)
+    if lora_rank:
+        _random_lora_b(host.dit, 5)
+    host = to2v.setup_trainable(host, torch.bfloat16)
     card = copy.deepcopy(host).to(dev)
     batch, timesteps, noise = _small_train_batch(dcfg, rcfg)
     grads, losses = [], []
@@ -2900,11 +3095,14 @@ def _small_train_checks(dev) -> None:
                                 num_width_queries=6, dtype=torch.bfloat16)
     _small_train_check(dev, dcfg, rcfg, f"2 layers, DiT d=64, resampler d={rcfg.dim_head}")
     dcfg, rcfg = model_configs(load_config(os.path.join(REPO, TRAIN_CONFIG)), True, dev)[:2]
-    counts = _small_train_check(dev, dcfg, rcfg, f"the --smoke geometry: DiT "
-                                f"{dcfg.num_attention_heads} x {dcfg.attention_head_dim}, "
-                                f"resampler {rcfg.heads} x {rcfg.dim_head}")
-    if min(counts[k] for k in ("fused_attention_bhsd", "attention_backward")) <= 0:
-        raise RuntimeError(f"the d={dcfg.attention_head_dim} train check skipped K6 / K5: {counts}")
+    for rank in (0, TINY_LORA_RANK):
+        counts = _small_train_check(dev, dcfg, rcfg, f"the --smoke geometry: DiT "
+                                    f"{dcfg.num_attention_heads} x {dcfg.attention_head_dim}, "
+                                    f"resampler {rcfg.heads} x {rcfg.dim_head}"
+                                    + (f", LoRA rank {rank}" if rank else ""), lora_rank=rank)
+        if min(counts[k] for k in ("fused_attention_bhsd", "attention_backward")) <= 0:
+            raise RuntimeError(f"the d={dcfg.attention_head_dim} train check skipped K6 / K5: "
+                               f"{counts}")
 
 
 def _tiny_to2v_trainer(dev) -> None:
@@ -2942,6 +3140,56 @@ def _tiny_to2v_trainer(dev) -> None:
         raise RuntimeError("the tiny To2V trainer's updates left a trainable weight unchanged")
 
 
+def _tiny_to2v_options(dev) -> None:
+    """The tiny To2V trainer (--smoke) on the card with the options of the
+    CLI that the full-width run leaves off: LoRA (rank TINY_LORA_RANK),
+    Prodigy, a validation render after its one step, and --profile-steps 1.
+    The step must be finite and move a LoRA factor; the render's mp4 must
+    read back through cv2 with its metrics finite; the trace must be
+    written; the merged LoRA export too."""
+    import numpy as np
+    import torch
+
+    from tokensgen_tpu_torch.data.video_io import read_frames
+    from tokensgen_tpu_torch.train_to2v import To2VTrainer
+    from tokensgen_tpu_torch.utils.config import load_config
+
+    overrides = {"gradient_accumulation_steps": 1, "lora_rank": TINY_LORA_RANK,
+                 "optimizer": "prodigy", "validation_steps": 1,
+                 "output_dir": os.path.join(REPO, "build", "train_smoke_options")}
+    tiny = To2VTrainer(load_config(os.path.join(REPO, TRAIN_CONFIG), overrides), smoke=True,
+                       device=dev)
+    lora_b = tiny.model.dit.transformer_blocks[0].attn1.to_q.lora_b
+    before = lora_b.detach().clone()
+    t0 = time.perf_counter()
+    records = tiny.run(1, save_final=False, profile_steps=1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    merged = tiny.export_lora_merged()
+    tiny.close()
+    _log_steps("train", f"tiny trainer with {json.dumps(overrides)}, --profile-steps 1", records)
+    video = os.path.join(tiny.run_dir, "val_step1.mp4")
+    frames = read_frames(video)
+    vals = {k: v for k, v in (tiny.val_metrics or {}).items() if k != "video"}
+    trace = os.path.join(tiny.run_dir, "profile", "trace.json")
+    trace_bytes = os.path.getsize(trace) if os.path.exists(trace) else 0
+    moved = not torch.equal(before, lora_b.detach())
+    log(f"[train] tiny trainer options: optimizer {type(tiny.step_fn.optimizer).__name__} (d "
+        f"{float(tiny.step_fn.optimizer.estim_lr):.3g}), LoRA "
+        f"dit.transformer_blocks.0.attn1.to_q.lora_b {'changed' if moved else 'bit-unchanged'}; "
+        f"validation render {os.path.relpath(video, REPO)}: {frames.shape} read back by cv2, "
+        f"metrics {json.dumps(vals)}; profile trace "
+        f"{os.path.relpath(trace, REPO)} {trace_bytes:,} bytes; lora_merged "
+        f"{os.path.relpath(merged, REPO)}; {secs:.1f} s. A full-width validation render (52 "
+        f"steps, 4 partitions over 2 chunks) is cut for time")
+    if not (all(math.isfinite(r["loss"]) and r["updated"] for r in records) and moved):
+        raise RuntimeError("the tiny trainer's LoRA + Prodigy step is not finite or moved nothing")
+    if frames.shape[0] != 2 * 9 or not vals or not all(np.isfinite(v) for v in vals.values()):
+        raise RuntimeError(f"the validation render is not as expected: {frames.shape}, {vals}")
+    if trace_bytes <= 0:
+        raise RuntimeError("--profile-steps 1 wrote no trace")
+
+
 def _log_steps(phase: str, what: str, records) -> None:
     """Each step's loss and its per-sample terms, grad norm, sampled
     timesteps and mean x0 weight 1/(1-ᾱ_t) (the loss's per-timestep weight)
@@ -2970,13 +3218,19 @@ def phase_train(state: dict) -> None:
     state.pop("pipe", None)  # the edit phase's pipeline
     gc.collect()
     torch.cuda.empty_cache()
+    data = _data_layout(state)
     _small_train_checks(dev)
     _tiny_to2v_trainer(dev)
+    _tiny_to2v_options(dev)
+    overrides = dict(TRAIN_OVERRIDES, **{"train_data_params.csv_file": data["csv"],
+                                         "train_data_params.video_dir": data["videos"]})
     cfg = load_config(os.path.join(REPO, TRAIN_CONFIG),
-                      dict(TRAIN_OVERRIDES, output_dir=os.path.join(REPO, "build", "train_smoke")))
-    log(f"[train] {TRAIN_CONFIG} with {json.dumps(TRAIN_OVERRIDES)}, {TRAIN_STEPS} steps "
-        f"(cut from max_train_steps {cfg.get('max_train_steps')}), no checkpoint written; "
-        "random weights, synthetic batches, hash text encoder")
+                      dict(overrides, output_dir=os.path.join(REPO, "build", "train_smoke")))
+    log(f"[train] {TRAIN_CONFIG} with {json.dumps(TRAIN_OVERRIDES)} and the data phase's "
+        f"csv_file / video_dir, {TRAIN_STEPS} steps (cut from max_train_steps "
+        f"{cfg.get('max_train_steps')}), no checkpoint written; random weights, batches from "
+        f"disk through MiraDataset + batch_iterator with {cfg.get('dataloader_num_workers', 4)} "
+        f"decode threads, hash text encoder (the config sets no pretrained_text_encoder_path)")
     t0 = time.perf_counter()
     trainer = To2VTrainer(cfg, smoke=False, device=dev)
     torch.cuda.synchronize()
@@ -3032,10 +3286,17 @@ def phase_train(state: dict) -> None:
             lse_counts[k] for k in ("fused_attention_joint", "flash_attention_bhsd")) <= 0:
         raise RuntimeError(f"the train path did not run K5 / the lse forwards as expected: "
                            f"{counts}, {lse_counts}")
-    # one more step, traced: device time by kernel group (the trace itself
-    # is not written: a train step has too many events to be worth its size)
-    _profile(lambda: trainer.run(TRAIN_STEPS + 1, save_final=False), "train", "train_step",
-             chrome=False)
+    log("[train] the third, traced full-width step is cut for time (with the profiler's "
+        "processing it took ~120 s of the phase): PERF.md keeps its last breakdown")
+    if "decode_s" in state:
+        steps = ", ".join(f"{r['staging_s'] + r['train_step_s'] + r['optimizer_s']:.2f}"
+                          for r in records)
+        waits = ", ".join(f"{r['data_s']:.2f}" for r in records)
+        log(f"[train] host decode of one item {state['decode_s']:.2f} s x batch "
+            f"{trainer.batch_size} on {cfg.get('dataloader_num_workers', 4)} threads, against "
+            f"steps of {steps} s (staging + train step + optimizer); data wait per step "
+            f"{waits} s")
+    trainer.close()
     del trainer, model, watch, before
     gc.collect()
     torch.cuda.empty_cache()
@@ -3054,8 +3315,38 @@ T2TO_OVERRIDES = {
     # config's own int8 AdamW switch brings it to ~10 B per parameter.
     "use_8bit_adam": True,
     "longvgen_pca": None,  # no pca/mean/std artifacts in the repo: the random stand-in
+    # no T5-XXL weights in the repo either: unset, the hash text encoder (the
+    # JAX CLI outside --smoke raises on the shipped path that names no files)
+    "pretrained_text_encoder_path": None,
 }
 T2TO_STEPS = 2  # cut from max_train_steps 100000; no checkpoint is written
+
+
+def _write_frozen_encoder(dev, root: str) -> dict:
+    """Random full-width files of the T2To latent path's frozen encoder, in
+    the layout the JAX CLI reads: the resampler (reference names, f32) as
+    <root>/resampler/diffusion_flax_model.safetensors, CogVideoX-5b's patch
+    conv as <root>/patch_embed_proj.safetensors (proj.weight, proj.bias).
+    Returns the config keys that name them."""
+    import torch
+
+    from tokensgen_tpu_torch.convert.safetensors_io import save_safetensors
+    from tokensgen_tpu_torch.models.resampler import Resampler, ResamplerConfig
+    from tokensgen_tpu_torch.utils.params import build_on_device
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rs = build_on_device(lambda: Resampler(ResamplerConfig()), dev, gen)
+    os.makedirs(os.path.join(root, "resampler"), exist_ok=True)
+    save_safetensors(os.path.join(root, "resampler", "diffusion_flax_model.safetensors"),
+                     {k: v.float() for k, v in rs.state_dict().items()})
+    inner = 3072
+    pp = os.path.join(root, "patch_embed_proj.safetensors")
+    save_safetensors(pp, {"proj.weight": torch.randn(inner, 16, 2, 2, generator=gen,
+                                                     device=dev) / 8.0,
+                          "proj.bias": 0.02 * torch.randn(inner, generator=gen, device=dev)})
+    del rs
+    log(f"[t2to_train] frozen encoder files (random, full width) in {root}")
+    return {"pretrained_resampler_name_or_path": root, "patch_embed_proj_path": pp}
 # The tiny T2To check: all grads of a train step through the kernels (card:
 # K6 forward, K5 backward) against the same step through the plain versions
 # (host), both bf16, by relative L2 over all grads together, as the To2V
@@ -3064,11 +3355,13 @@ T2TO_TINY = dict(patch_size=1, sample_height=8, sample_width=12, attention_head_
                  num_attention_heads=1)  # the trainer's --smoke DiT
 
 
-def _t2to_tiny_check(dev) -> None:
+def _t2to_tiny_check(dev, lora_rank: int = 0) -> None:
     """One tiny T2To train step (loss and backward; one head of 64, so K6
     forward and K5 backward on the card) with the same weights and inputs on
     the host (plain versions) and on the card: every grad within
-    TRAIN_GRAD_REL_L2_BOUND, and the card's launches as the routing says."""
+    TRAIN_GRAD_REL_L2_BOUND, and the card's launches as the routing says.
+    With ``lora_rank``, the LoRA mode: the base frozen, LoRA factors (b made
+    random) trained."""
     import copy
 
     import torch
@@ -3081,7 +3374,13 @@ def _t2to_tiny_check(dev) -> None:
 
     dcfg = DiTConfig.tiny(dtype=torch.bfloat16, **T2TO_TINY)
     gen = torch.Generator().manual_seed(11)
-    host = t2to.setup_full_finetune(init_params_(CogVideoXTransformer(dcfg), gen).train())
+    tcfg = t2to.T2ToTrainConfig(lora_rank=lora_rank)
+    host = init_params_(CogVideoXTransformer(dcfg), gen).train()
+    if lora_rank:
+        t2to.setup_lora_finetune(host, tcfg, gen)
+        _random_lora_b(host, 12)
+    else:
+        t2to.setup_full_finetune(host)
     card = copy.deepcopy(host).to(dev)
     f = 16  # 4 chunks of 4 token frames: 8 + 16 x 96 = 1,544 tokens per row
     batch = {"latents": torch.randn(3, f, 16, 8, 12, generator=gen),
@@ -3089,7 +3388,6 @@ def _t2to_tiny_check(dev) -> None:
                                                generator=gen),
              "valid_frames": torch.tensor([16, 8, 4])}
     timesteps, noise = torch.tensor([900, 500, 100]), torch.randn(3, f, 16, 8, 12, generator=gen)
-    tcfg = t2to.T2ToTrainConfig()
     grads, losses = [], []
     for model, device in ((host, torch.device("cpu")), (card, dev)):
         sched = S.make_schedule(S.ScheduleConfig(beta_schedule="vip_1"), device=device)
@@ -3098,11 +3396,13 @@ def _t2to_tiny_check(dev) -> None:
                               timesteps.to(device), noise.to(device))
         loss.backward()
         counts, lse_counts = A.launch_counts(), A.lse_launch_counts()
-        grads.append(torch.cat([p.grad.float().flatten().cpu() for p in model.parameters()]))
+        grads.append(torch.cat([p.grad.float().flatten().cpu() for p in model.parameters()
+                                if p.requires_grad]))
         losses.append(loss.item())
     rel = ((grads[1] - grads[0]).norm() / grads[0].norm()).item()
-    log(f"[t2to_train] tiny step (1 head x 64, 2 layers, bf16, B=3 x 1,544 tokens, valid "
-        f"frames [16, 8, 4]; host plain versions vs card kernels): loss {losses[0]:.6f} / "
+    lora_note = f", LoRA rank {lora_rank} on a frozen base" if lora_rank else ""
+    log(f"[t2to_train] tiny step (1 head x 64, 2 layers, bf16{lora_note}, B=3 x 1,544 tokens, "
+        f"valid frames [16, 8, 4]; host plain versions vs card kernels): loss {losses[0]:.6f} / "
         f"{losses[1]:.6f}, grads relative L2 error {rel:.3e} (bound "
         f"{TRAIN_GRAD_REL_L2_BOUND:g}) over {grads[0].numel():,} values; card launches "
         f"{json.dumps(counts)}, with lse {json.dumps(lse_counts)}")
@@ -3126,7 +3426,9 @@ def phase_t2to_train(state: dict) -> None:
     dev = state["device"]
     gc.collect()
     torch.cuda.empty_cache()
+    data = _data_layout(state)
     _t2to_tiny_check(dev)
+    _t2to_tiny_check(dev, lora_rank=TINY_LORA_RANK)
     out_dir = os.path.join(REPO, "build", "t2to_train_smoke")
     # the tiny trainer (the CLI's --smoke) on the card: the path K6 serves
     cfg = load_config(os.path.join(REPO, T2TO_CONFIG), {"output_dir": out_dir})
@@ -3141,11 +3443,18 @@ def phase_t2to_train(state: dict) -> None:
     if (counts["fused_attention_bhsd"], counts["attention_backward"]) != (want, want) or not all(
             math.isfinite(r["loss"]) for r in records):
         raise RuntimeError(f"the tiny T2To trainer did not run K6 / K5 as expected: {counts}")
+    tiny.close()
     del tiny
-    cfg = load_config(os.path.join(REPO, T2TO_CONFIG), dict(T2TO_OVERRIDES, output_dir=out_dir))
-    log(f"[t2to_train] {T2TO_CONFIG} with {json.dumps(T2TO_OVERRIDES)}, {T2TO_STEPS} steps "
-        f"(cut from max_train_steps {cfg.get('max_train_steps')}), no checkpoint written; "
-        "random weights, synthetic batches, hash text encoder")
+    files = _write_frozen_encoder(dev, os.path.join(REPO, DATA_DIR, "frozen_encoder"))
+    disk = {"train_data_params.csv_file": data["csv"],
+            "train_data_params.latent_dir": data["latents"], **files}
+    cfg = load_config(os.path.join(REPO, T2TO_CONFIG),
+                      dict(T2TO_OVERRIDES, output_dir=out_dir, **disk))
+    log(f"[t2to_train] {T2TO_CONFIG} with {json.dumps(T2TO_OVERRIDES)}, the data phase's "
+        f"csv_file / latent_dir and the frozen encoder's files, {T2TO_STEPS} steps (cut from "
+        f"max_train_steps {cfg.get('max_train_steps')}), no checkpoint written; random weights; "
+        "pretrained_text_encoder_path overridden to null (no T5-XXL weights in the repository): "
+        "the hash text encoder, as the JAX CLI gives when the path is unset")
     t0 = time.perf_counter()
     trainer = T2ToTrainer(cfg, smoke=False, device=dev)
     torch.cuda.synchronize()
@@ -3182,14 +3491,20 @@ def phase_t2to_train(state: dict) -> None:
     # per step: K1 with lse in each block's forward and again in its
     # recompute (remat), K5 once per block (every block trains)
     layers = dcfg.num_layers
+    # and the frozen latent encoder: K4 in each resampler layer, each chunk
+    # (padded ones included), each step
+    depth = trainer.encoder[2].cfg.depth
     expect = {"fused_attention_joint": 2 * layers * T2TO_STEPS,
-              "attention_backward": layers * T2TO_STEPS, "fused_attention_bhsd": 0}
+              "attention_backward": layers * T2TO_STEPS, "fused_attention_bhsd": 0,
+              "flash_attention_bhsd": T2TO_STEPS * trainer.max_chunks * depth}
+    state["t2to_k4_launches"] = counts["flash_attention_bhsd"]
     log("[t2to_train] " + "; ".join(f"{k} {counts[k]} (expected {v})" for k, v in expect.items()))
     if any(counts[k] != v for k, v in expect.items()) or (
             lse_counts["fused_attention_joint"] != counts["fused_attention_joint"]):
-        raise RuntimeError(f"the T2To train path did not run K1 + K5 as expected: {counts}")
+        raise RuntimeError(f"the T2To train path did not run K1 + K5 + K4 as expected: {counts}")
     _profile(lambda: trainer.run(T2TO_STEPS + 1, save_final=False), "t2to_train",
              "t2to_train_step", chrome=False)
+    trainer.close()
     del trainer, watch, before
     gc.collect()
     torch.cuda.empty_cache()
@@ -3295,6 +3610,8 @@ def main(argv=None) -> int:
     for name, replaces in KERNELS.items():
         row = {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                "launches": launches[name], **state["kernel_rows"][name]}
+        if name == "flash_attention_bhsd":  # K4 in the T2To trainer's frozen latent encoder
+            row["t2to_train_launches"] = state["t2to_k4_launches"]
         if name in PATH_KERNELS:  # the load and serve phases' runs, each counted on its own
             row.update(load_launches=state["load_launches"][name],
                        cli_launches=state["cli_launches"][name],

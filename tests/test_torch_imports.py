@@ -1,8 +1,9 @@
 """The port stands alone: importing every tokensgen_tpu_torch module (the
-probe kernels and their CLIs included) loads no jax, flax, tokensgen_tpu or
-the JAX package's tools/ (nor cv2, tokenizers or transformers, which the
-loaders import only when they read a video or a tokenizer), and no module
-calls PyTorch's fused attention, cuDNN attention or torch.compile."""
+probe kernels and their CLIs, the training data path included) loads no jax,
+flax, tokensgen_tpu, pandas or the JAX package's tools/ (nor cv2, tokenizers
+or transformers, which the loaders import only when they read a video or a
+tokenizer), and no module calls PyTorch's fused attention, cuDNN attention or
+torch.compile."""
 
 import os
 import pkgutil
@@ -35,6 +36,10 @@ def test_import_loads_no_jax():
     assert loaders <= set(_modules())
     serving = {"tokensgen_tpu_torch.serving", "tokensgen_tpu_torch.serve"}
     assert serving <= set(_modules())
+    training_data = {"tokensgen_tpu_torch.data.mira", "tokensgen_tpu_torch.data.native_store",
+                     "tokensgen_tpu_torch.calculate_vae_latents", "tokensgen_tpu_torch.train.lora",
+                     "tokensgen_tpu_torch.metrics.quality", "tokensgen_tpu_torch.metrics.lpips"}
+    assert training_data <= set(_modules())
     probes = {"tokensgen_tpu_torch.kernels.build", "tokensgen_tpu_torch.kernels.probes"} | {
         f"tokensgen_tpu_torch.tools.{m}" for m in ("bench_attn_sweep", "bench_attn_v2",
                                                    "bench_int8_loop", "bench_matmul_hand",
@@ -45,7 +50,7 @@ def test_import_loads_no_jax():
         "import importlib, sys\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'jaxlib', "
-        "'tokensgen_tpu', 'tools', 'cv2', 'tokenizers', 'transformers'))\n"
+        "'tokensgen_tpu', 'tools', 'cv2', 'tokenizers', 'transformers', 'pandas'))\n"
         "print(len(sys.modules), bad)\n"
         "assert not bad, bad\n"
     )

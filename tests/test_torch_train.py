@@ -154,8 +154,8 @@ def test_optimizers_match_jax(kind):
             else:
                 np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), rtol=1e-6,
                                            atol=1e-7)
-    with pytest.raises(NotImplementedError):
-        TOpt.base_optimizer("prodigy", tp, lr)
+    # prodigy is ported too (tests/test_torch_lora.py holds it to optax's)
+    assert isinstance(TOpt.base_optimizer("prodigy", tp, lr, use_8bit=True), TOpt.Prodigy)
 
 
 def test_adam8bit_quantizers_match_jax():

@@ -176,7 +176,9 @@ def test_trainer_pca_pt_matches_jax(tmp_path):
     cfg = load_config(T2TO_TRAIN_YAML, {
         "output_dir": str(tmp_path / "out"), "model_size": "tiny",
         "longvgen_pca": str(tmp_path / "pca.pt"), "longvgen_mean": str(tmp_path / "mean.npy"),
-        "longvgen_std": str(tmp_path / "std.npy")})
+        "longvgen_std": str(tmp_path / "std.npy"),
+        # outside --smoke a configured T5 path must exist, as in the JAX CLI
+        "pretrained_text_encoder_path": None})
     trainer = T2CLI.T2ToTrainer(cfg, smoke=False, device="cpu")
     np.testing.assert_array_equal(trainer.pca.components.numpy(), np.asarray(ref.components))
     np.testing.assert_array_equal(trainer.pca.mean.numpy(), np.asarray(ref.mean))

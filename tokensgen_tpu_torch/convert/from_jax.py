@@ -163,6 +163,27 @@ def t5_state_dict(tree, num_layers: int) -> StateDict:
     return sd
 
 
+def lora_state_dict(lora) -> StateDict:
+    """The JAX package's LoRA factors (`init_lora` of a DiT tree: keys
+    ``blocks/attn1/to_q/kernel``, scan-stacked ``a`` [L, in, r] and ``b``
+    [L, r, out]) -> the port's per-block ``lora_a`` / ``lora_b`` entries
+    (``transformer_blocks.{i}.attn1.to_q.lora_a``; ``to_out`` is
+    ``to_out.0``), in the JAX orientation. Load with
+    ``load_state_dict(..., strict=False)`` into a DiT that `train/lora.py`
+    adapted at the same rank."""
+    sd: StateDict = {}
+    for key, ab in lora.items():
+        parts = key.split("/")
+        if parts[0] != "blocks" or parts[-1] != "kernel" or _np(ab["a"]).ndim != 3:
+            raise ValueError(f"not a scan-stacked DiT block LoRA key: {key}")
+        module = ".".join(parts[1:-1]) + (".0" if parts[-2] == "to_out" else "")
+        a, b = _np(ab["a"]), _np(ab["b"])
+        for i in range(a.shape[0]):
+            sd[f"transformer_blocks.{i}.{module}.lora_a"] = a[i]
+            sd[f"transformer_blocks.{i}.{module}.lora_b"] = b[i]
+    return sd
+
+
 def pca_state(state):
     """The JAX package's `PCAState` (or any (mean, components) pair) -> the
     port's, as float32 CPU tensors."""

@@ -8,17 +8,22 @@
 * `load_pca_artifact`: a pickled torch PCA module (``pca.pt``) -> `PCAState`;
 * `load_gen_pca`: the gen workload's ``longvgen_pca`` safetensors
   (``mean_``, ``components_``) and, through `load_token_stats`, the
-  ``longvgen_mean`` / ``longvgen_std`` ``.npy`` files.
+  ``longvgen_mean`` / ``longvgen_std`` ``.npy`` files;
+* `vae_from_diffusers`: a diffusers ``AutoencoderKLCogVideoX`` state dict
+  (an HF ``vae/`` dir) -> the port's VAE names (the JAX package's
+  ``convert_vae``); `vae_to_diffusers` is its inverse, which writes such a
+  dir.
 
-The diffusers -> JAX converters (``convert_dit``, ``convert_vae``,
-``convert_t5``, ``load_torch_state_dict``) have no counterpart: the port's
-names are the diffusers ones, and ``convert_weights.py`` stays the JAX
-package's tool.
+The other diffusers -> JAX converters (``convert_dit``, ``convert_t5``,
+``load_torch_state_dict``) have no counterpart: the port's DiT, resampler
+and T5 names are the diffusers ones, and ``convert_weights.py`` stays the
+JAX package's tool.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from typing import Dict, Tuple
 
 import numpy as np
@@ -62,3 +67,44 @@ def load_gen_pca(pca_path: str, mean_path: str, std_path: str,
     state = PCAState(mean=sd["mean_"].float().to(device),
                      components=sd["components_"].float().to(device))
     return (state, *load_token_stats(mean_path, std_path, device))
+
+
+# the port's VAE module names (the JAX package's flax scopes) <-> diffusers'
+_VAE_NAMES = (
+    (r"(encoder)\.down_(\d+)_res_(\d+)\.", r"\1.down_blocks.\2.resnets.\3."),
+    (r"(encoder)\.down_(\d+)_downsample\.", r"\1.down_blocks.\2.downsamplers.0."),
+    (r"(decoder)\.up_(\d+)_res_(\d+)\.", r"\1.up_blocks.\2.resnets.\3."),
+    (r"(decoder)\.up_(\d+)_upsample\.", r"\1.up_blocks.\2.upsamplers.0."),
+    (r"(encoder|decoder)\.mid_res_(\d+)\.", r"\1.mid_block.resnets.\2."),
+)
+_SAMPLER_CONV = re.compile(r"\.(down|up)samplers\.0\.conv\.weight$")
+
+
+def vae_to_diffusers(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The port's VAE state dict -> diffusers names and layouts (the down-
+    and upsamplers' convs are 2-D there: [O, I, 3, 3])."""
+    out = {}
+    for key, val in sd.items():
+        for pat, rep in _VAE_NAMES:
+            key = re.sub("^" + pat, rep, key)
+        out[key] = val[:, :, 0] if _SAMPLER_CONV.search(key) else val
+    return out
+
+
+def vae_from_diffusers(sd: Dict[str, torch.Tensor], model: torch.nn.Module
+                       ) -> Dict[str, torch.Tensor]:
+    """A diffusers VAE state dict -> the state dict of the port's ``model``
+    (the JAX package's ``convert_vae``): the keys ``model`` has, each
+    renamed and, for the samplers' 2-D convs, given a time axis of 1. Keys
+    it has no use for are ignored; a missing one raises KeyError."""
+    port_of = {}
+    for key in model.state_dict():
+        diff = key
+        for pat, rep in _VAE_NAMES:
+            diff = re.sub("^" + pat, rep, diff)
+        port_of[diff] = key
+    missing = sorted(set(port_of) - set(sd))
+    if missing:
+        raise KeyError(f"diffusers VAE state dict lacks {len(missing)} keys, e.g. {missing[:3]}")
+    return {port: (sd[diff][:, :, None] if _SAMPLER_CONV.search(diff) else sd[diff])
+            for diff, port in port_of.items()}

@@ -34,11 +34,19 @@ def timestep_sinusoidal(t: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
 class Linear(nn.Linear):
     """`nn.Linear` computing in its input's dtype: a float32 weight (a
     trainable master) is cast at use; in the compute dtype the cast is a
-    no-op."""
+    no-op. With a LoRA adapter (``lora_a`` [in, r], ``lora_b`` [r, out] and
+    ``lora_scale`` α/r, added by `train/lora.py`) it adds the low-rank term
+    in factored form, ``(x·a)·b·α/r``: the function of the merged weight
+    ``W + (a·b·α/r)ᵀ`` without making that weight."""
+
+    lora_scale = None
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        y = F.linear(x, self.weight.to(x.dtype), bias)
+        if self.lora_scale is not None:
+            y = y + (x @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype) * self.lora_scale
+        return y
 
 
 class Conv2d(nn.Conv2d):

@@ -202,7 +202,10 @@ def fifo_generate(
 
         vip_kwargs = None
         if vip is not None:
-            g0 = _clamped(i + start, nf, vip.image_grid_t_full.shape[0])
+            # the grid window starts at the unclamped window start, as in the
+            # JAX engine (the two differ where a rank's window runs past the
+            # end of the queue: few inference steps for the partitions)
+            g0 = _clamped(i + max(s0, qs), nf, vip.image_grid_t_full.shape[0])
             gt = vip.image_grid_t_full[g0:g0 + nf]
             img_rope = get_3d_rotary_pos_embed_v2_torch(
                 sum(fcfg.vip_rope_dims), gt, vip.image_grid_h, vip.image_grid_w,

@@ -3,9 +3,9 @@
 One ``checkpoint-{step}/state.pt`` per saved step (``torch.save`` of the
 trainable parameters, the optimizer state and the step), rotated to keep the
 newest ``total_limit``; resume finds the latest. Loading uses
-``weights_only=True``: the files hold tensors, dicts and numbers only. The
-reference-layout artifact export (`export_reference_artifacts`) is not
-ported yet.
+``weights_only=True``: the files hold tensors, dicts and numbers only.
+`export_reference_artifacts` writes trained weights in the reference's
+artifact layout (the port's DiT and resampler names are the reference's).
 """
 
 from __future__ import annotations
@@ -15,7 +15,10 @@ import re
 import shutil
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
+
+from tokensgen_tpu_torch.convert.safetensors_io import save_safetensors
 
 _STATE = "state.pt"
 
@@ -63,3 +66,42 @@ def restore_checkpoint(root: str, map_location=None
         return None, None
     path = os.path.join(_ckpt_dir(root, step), _STATE)
     return torch.load(path, map_location=map_location, weights_only=True), step
+
+
+def _f32(sd: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {k: v.detach().float().cpu().numpy() for k, v in sd.items()}
+
+
+def export_vip_only(dit_state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The ``vip.pt`` artifact: the DiT's entries with ``vip_`` in their
+    name, float32."""
+    return _f32({k: v for k, v in dit_state.items() if "vip_" in k})
+
+
+def export_resampler(resampler_state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The resampler's reference state dict, float32."""
+    return _f32(resampler_state)
+
+
+def export_reference_artifacts(out_dir: str, dit_state=None, resampler_state=None, pca=None,
+                               token_mean=None, token_std=None) -> None:
+    """Writes the reference artifact layout from the port's state dicts:
+    ``vip.safetensors`` (the DiT's ``vip_*`` weights),
+    ``resampler/diffusion_flax_model.safetensors``, ``pca.safetensors``
+    (``mean_``, ``components_`` of a `PCAState`), ``mean.npy`` and
+    ``std.npy``; each only when given."""
+    os.makedirs(out_dir, exist_ok=True)
+    if dit_state is not None:
+        save_safetensors(os.path.join(out_dir, "vip.safetensors"), export_vip_only(dit_state))
+    if resampler_state is not None:
+        rs_dir = os.path.join(out_dir, "resampler")
+        os.makedirs(rs_dir, exist_ok=True)
+        save_safetensors(os.path.join(rs_dir, "diffusion_flax_model.safetensors"),
+                         export_resampler(resampler_state))
+    if pca is not None:
+        save_safetensors(os.path.join(out_dir, "pca.safetensors"),
+                         _f32({"mean_": pca.mean, "components_": pca.components}))
+    for name, val in (("mean.npy", token_mean), ("std.npy", token_std)):
+        if val is not None:
+            np.save(os.path.join(out_dir, name),
+                    val.detach().cpu().numpy() if isinstance(val, torch.Tensor) else np.asarray(val))

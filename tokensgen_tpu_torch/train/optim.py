@@ -121,15 +121,87 @@ class AdamW:
                 getattr(self, key)[name].copy_(t)
 
 
+class Prodigy:
+    """Prodigy (Mishchenko and Defazio, 2023), the D-adapted AdamW of optax's
+    ``contrib.prodigy``, over named float32 tensors. Per update, with
+    ``d`` the running step-size estimate (``estim_lr``, from ``estim_lr0``)
+    and ``lr`` the schedule's value: ``dlr = d·lr·√(1-b2ᵗ)/(1-b1ᵗ)``; the
+    moments take ``d·g``; ``s ← b3·s + (d or dlr)·d·g/d0`` (``d`` with
+    ``safeguard_warmup``); ``r ← b3·r + (d/d0)·dlr·⟨g, p0 - p⟩``; ``d ←
+    max(d, coef·r/Σ|s|)``; ``p ← p - wd·dlr·p - dlr·m/(√v + d·eps)`` with the
+    new ``d`` in the denominator and the old one elsewhere. ``b3`` defaults
+    to √b2. The scalars stay on the parameters' device (no host sync)."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], lr: Schedule, b1: float = 0.9,
+                 b2: float = 0.999, beta3: Optional[float] = None, eps: float = 1e-8,
+                 weight_decay: float = 0.0, safeguard_warmup: bool = False,
+                 estim_lr0: float = 1e-6, estim_lr_coef: float = 1.0):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+        self.beta3 = b2 ** 0.5 if beta3 is None else beta3
+        self.weight_decay, self.safeguard_warmup = weight_decay, safeguard_warmup
+        self.estim_lr0, self.estim_lr_coef = estim_lr0, estim_lr_coef
+        self.count = 0
+        dev = next(iter(params.values())).device
+        zeros = lambda: {n: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
+                         for n, p in params.items()}
+        self.exp_avg, self.exp_avg_sq, self.grad_sum = zeros(), zeros(), zeros()
+        self.params0 = {n: p.detach().float().clone() for n, p in params.items()}
+        self.estim_lr = torch.tensor(estim_lr0, dtype=torch.float32, device=dev)
+        self.numerator_weighted = torch.zeros((), dtype=torch.float32, device=dev)
+
+    @torch.no_grad()
+    def step(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor]) -> None:
+        sched = self.lr(self.count)
+        self.count += 1
+        b1, b2, b3 = self.b1, self.b2, self.beta3
+        bc = ((1 - b2 ** self.count) ** 0.5) / (1 - b1 ** self.count)
+        d = self.estim_lr
+        dlr = d * (sched * bc)
+        numerator = torch.zeros((), dtype=torch.float32, device=d.device)
+        denominator = torch.zeros((), dtype=torch.float32, device=d.device)
+        for name, p in params.items():
+            g = grads[name].float()
+            numerator += torch.sum(g * (self.params0[name] - p.float()))
+            dg = d * g
+            self.exp_avg[name].mul_(b1).add_((1 - b1) * dg)
+            self.exp_avg_sq[name].mul_(b2).add_((1 - b2) * dg * dg)
+            s = self.grad_sum[name].mul_(b3)
+            s.add_((d if self.safeguard_warmup else dlr) * dg / self.estim_lr0)
+            denominator += s.abs().sum()
+        self.numerator_weighted = b3 * self.numerator_weighted + (d / self.estim_lr0) * dlr * numerator
+        new_d = torch.maximum(d, self.estim_lr_coef * self.numerator_weighted / denominator)
+        for name, p in params.items():
+            upd = -self.weight_decay * dlr * p.float() - dlr * self.exp_avg[name] / (
+                torch.sqrt(self.exp_avg_sq[name]) + new_d * self.eps)
+            p.add_(upd.to(p.dtype))
+        self.estim_lr = new_d
+
+    def state_dict(self) -> Dict:
+        return {"count": self.count, "exp_avg": self.exp_avg, "exp_avg_sq": self.exp_avg_sq,
+                "grad_sum": self.grad_sum, "params0": self.params0, "estim_lr": self.estim_lr,
+                "numerator_weighted": self.numerator_weighted}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.count = int(state["count"])
+        for key in ("exp_avg", "exp_avg_sq", "grad_sum", "params0"):
+            for name, t in state[key].items():
+                getattr(self, key)[name].copy_(t)
+        self.estim_lr.copy_(state["estim_lr"])
+        self.numerator_weighted.copy_(state["numerator_weighted"])
+
+
 def base_optimizer(name: str, params: Dict[str, torch.Tensor], learning_rate: Union[float, Schedule],
                    b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                   weight_decay: float = 1e-4, use_8bit: bool = False):
-    """adam | adamw over ``params``; ``use_8bit`` selects the int8-moment AdamW
-    for both names, as the JAX package does."""
+                   weight_decay: float = 1e-4, use_8bit: bool = False,
+                   prodigy_beta3: Optional[float] = None, prodigy_safeguard_warmup: bool = False):
+    """adam | adamw | prodigy over ``params``; ``use_8bit`` selects the
+    int8-moment AdamW for adam and adamw, as the JAX package does (prodigy
+    ignores it)."""
     name = (name or "adamw").lower()
     lr = learning_rate if callable(learning_rate) else (lambda count: learning_rate)
     if name == "prodigy":
-        raise NotImplementedError("the prodigy optimizer is not ported yet: use adam or adamw")
+        return Prodigy(params, lr, b1=b1, b2=b2, beta3=prodigy_beta3, eps=eps,
+                       weight_decay=weight_decay, safeguard_warmup=prodigy_safeguard_warmup)
     if name not in ("adam", "adamw"):
         raise ValueError(f"unknown optimizer {name!r}; expected adam|adamw|prodigy")
     if use_8bit:

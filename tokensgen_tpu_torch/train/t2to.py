@@ -15,8 +15,9 @@ and `Conv2d` cast to the compute dtype at use (bf16 compute, as the To2V
 trainer's trainable set). The step is `optim.TrainStep` (clip by global
 norm, `optax.MultiSteps` accumulation) around `t2to_loss`, which takes the
 timesteps and the noise as arguments; the CLI draws them from a
-`torch.Generator`. LoRA (``lora_rank > 0``, `train/lora.py`) is not ported
-yet and raises.
+`torch.Generator`. With ``lora_rank`` > 0 (`train/lora.py`) the base is
+frozen in its compute dtype and only the LoRA factors on the attention
+projections train (the JAX package's LoRA mode).
 """
 
 from __future__ import annotations
@@ -34,12 +35,12 @@ from tokensgen_tpu_torch.core.rope import get_3d_rotary_pos_embed_v2
 from tokensgen_tpu_torch.models.dit import CogVideoXTransformer, DiTConfig
 from tokensgen_tpu_torch.models.resampler import Resampler
 from tokensgen_tpu_torch.pipelines.to2v import apply_patch_proj
-from tokensgen_tpu_torch.train import objective, optim
+from tokensgen_tpu_torch.train import lora, objective, optim
 
 
 @dataclasses.dataclass(frozen=True)
 class T2ToTrainConfig:
-    optimizer: str = "adamw"  # adam | adamw (prodigy is not ported)
+    optimizer: str = "adamw"  # adam | adamw | prodigy
     use_8bit_adam: bool = False  # the T2To reference config trains full-precision
     learning_rate: float = 3e-4
     lr_scheduler: str = "constant"  # diffusers get_scheduler names
@@ -55,12 +56,10 @@ class T2ToTrainConfig:
     rope_dims: tuple = (52, 6, 6)
     height: int = 8
     width: int = 12
-    lora_rank: int = 0  # LoRA finetuning (`train/lora.py`): not ported, > 0 raises
-
-    def __post_init__(self):
-        if self.lora_rank > 0:
-            raise NotImplementedError("LoRA finetuning (`lora_rank` > 0, train/lora.py) is not "
-                                      "ported yet (ROADMAP A13)")
+    # LoRA finetune mode (default off): the base frozen, the factors trained
+    lora_rank: int = 0
+    lora_alpha: float = 64.0
+    lora_targets: tuple = ("to_q", "to_k", "to_v", "to_out")
 
 
 def pca_normalization(tokens: torch.Tensor, pca: pca_lib.PCAState, mean: torch.Tensor,
@@ -85,6 +84,16 @@ def padded_chunk_masks(valid_frames: torch.Tensor, num_frames: int, hw: int, tex
     key_valid = torch.cat([text_ones, token_valid], dim=1)
     key_bias = torch.where(key_valid, 0.0, -1e9).float()
     return key_bias, valid[:, :, None, None, None].float()
+
+
+def setup_lora_finetune(model: nn.Module, cfg: T2ToTrainConfig,
+                        generator: torch.Generator) -> nn.Module:
+    """LoRA mode: every base parameter frozen as it is, float32 LoRA
+    factors (from ``generator``) on the targets, which alone require grad."""
+    for p in model.parameters():
+        p.requires_grad_(False)
+    lora.init_lora(model, generator, cfg.lora_rank, cfg.lora_alpha, cfg.lora_targets)
+    return model
 
 
 def setup_full_finetune(model: nn.Module) -> nn.Module:
@@ -143,14 +152,15 @@ def t2to_loss(dit: CogVideoXTransformer, sched: S.DiffusionSchedule, cfg: T2ToTr
 
 
 class T2ToTrainStep(optim.TrainStep):
-    """`make_train_step` for the full finetune: every parameter of ``dit``,
-    `t2to_loss` (see `optim.TrainStep` for the clip, the accumulation and
-    what each call returns)."""
+    """`make_train_step`: the parameters of ``dit`` that require grad (all
+    of them in a full finetune, the LoRA factors in LoRA mode), `t2to_loss`
+    (see `optim.TrainStep` for the clip, the accumulation and what each
+    call returns)."""
 
     def __init__(self, dit: CogVideoXTransformer, sched: S.DiffusionSchedule,
                  cfg: T2ToTrainConfig, accum_steps: int = 1, optimizer=None):
         self.dit, self.sched, self.cfg = dit, sched, cfg
-        params = dict(dit.named_parameters())
+        params = {n: p for n, p in dit.named_parameters() if p.requires_grad}
         super().__init__(params, optimizer or make_optimizer(params, cfg), cfg.max_grad_norm,
                          sched, accum_steps)
 

@@ -8,7 +8,9 @@ bf16 compute with float32 master weights.
 
 Port design: the DiT and the resampler sit in one `To2VModel`, so a
 parameter's name carries its place (``dit.…`` / ``resampler.…``) and the
-JAX package's label rule applies to it unchanged. Frozen parameters do not
+JAX package's label rule applies to it unchanged. With ``lora_rank`` > 0
+the DiT's attention projections carry LoRA factors (`train/lora.py`),
+trained alongside the adapters. Frozen parameters do not
 require grad, so autograd computes no weight gradient for them; trainable
 ones are float32 masters that `models.layers.Linear` casts to the compute
 dtype at use. Gradient accumulation has `optax.MultiSteps` semantics: the
@@ -27,14 +29,14 @@ import torch.nn as nn
 from tokensgen_tpu_torch.core import schedule as S
 from tokensgen_tpu_torch.models.dit import CogVideoXTransformer, DiTConfig, graft_vip_params
 from tokensgen_tpu_torch.models.resampler import Resampler, ResamplerConfig
-from tokensgen_tpu_torch.train import objective, optim
+from tokensgen_tpu_torch.train import lora, objective, optim
 from tokensgen_tpu_torch.utils.params import build_on_device
 
 
 @dataclasses.dataclass(frozen=True)
 class To2VTrainConfig:
     use_8bit_adam: bool = True  # reference default (`use_8bit_adam: true`)
-    optimizer: str = "adamw"  # adam | adamw (prodigy is not ported)
+    optimizer: str = "adamw"  # adam | adamw | prodigy
     learning_rate: float = 2e-4
     lr_scheduler: str = "constant"  # diffusers get_scheduler names
     lr_warmup_steps: int = 0
@@ -48,6 +50,11 @@ class To2VTrainConfig:
     max_grad_norm: float = 1.0
     diff_timesteps_ratio: float = 0.4
     inference_timesteps: int = 52
+    # LoRA on the DiT's to_{q,k,v,out} (default off), trained alongside the
+    # vip / resampler adapters
+    lora_rank: int = 0
+    lora_alpha: float = 64.0
+    lora_targets: tuple = ("to_q", "to_k", "to_v", "to_out")
 
 
 class To2VModel(nn.Module):
@@ -60,9 +67,10 @@ class To2VModel(nn.Module):
 
 
 def is_trainable(name: str) -> bool:
-    """`trainable_labels`' rule: every resampler parameter and every DiT
-    parameter with ``vip_`` in its name."""
-    return name.startswith("resampler.") or "vip_" in name
+    """`trainable_labels`' rule: every resampler parameter, every DiT
+    parameter with ``vip_`` in its name, and the LoRA factors."""
+    return (name.startswith("resampler.") or "vip_" in name
+            or name.endswith((".lora_a", ".lora_b")))
 
 
 def trainable_labels(model: nn.Module) -> Dict[str, str]:
@@ -90,12 +98,15 @@ def setup_trainable(model: nn.Module, frozen_dtype: Optional[torch.dtype] = None
 
 
 def init_model(dit_config: DiTConfig, resampler_config: ResamplerConfig, device,
-               generator: torch.Generator) -> To2VModel:
+               generator: torch.Generator, cfg: Optional[To2VTrainConfig] = None) -> To2VModel:
     """Random weights made on ``device`` from ``generator``, the VIP branch
-    grafted from the base attention (`init_params` with `graft_vip_params`)."""
+    grafted from the base attention (`init_params` with `graft_vip_params`),
+    and LoRA factors on the DiT when ``cfg.lora_rank`` > 0."""
     resampler = build_on_device(lambda: Resampler(resampler_config), device, generator)
     dit = graft_vip_params(build_on_device(lambda: CogVideoXTransformer(dit_config), device,
                                            generator))
+    if cfg is not None and cfg.lora_rank > 0:
+        lora.init_lora(dit, generator, cfg.lora_rank, cfg.lora_alpha, cfg.lora_targets)
     return To2VModel(dit, resampler).train()
 
 

@@ -2,28 +2,40 @@
 root `train_to2v.py`):
 
     python -m tokensgen_tpu_torch.train_to2v --config tokensgen_tpu/configs/train_to2v.yaml \
-        [--smoke] [--device cpu] [--max-steps N] [--resume] [--set KEY=VALUE]
+        [--smoke] [--device cpu] [--max-steps N] [--resume] [--profile-steps N] \
+        [--set KEY=VALUE]
 
-Reads the JAX package's YAML as data. Trains the DiT's ``vip_*`` parameters
-and the resampler on ``--device`` (the card by default; it refuses to run
-without one unless given ``--device cpu``). No checkpoint, MiraData CSV or T5
-weights are in the repository, so the weights are random (from ``seed``),
-the batches synthetic pixel videos from a seeded generator (what the JAX CLI
-does without ``csv_file``) and the prompts go through the hash text encoder.
-``--smoke`` runs the JAX smoke's tiny geometry; without it, CogVideoX-5b at
-the config's width with per-block gradient checkpointing. Each step prints
-its loss, each sample's term of it, grad norm, sampled timesteps and their
-mean loss weight
-1/(1-ᾱ_t), and seconds split into staging, train step (forward and
-backward) and optimizer; a checkpoint of the trainable parameters and the
-optimizer state is written every ``checkpointing_steps`` and at the last
-step. Not ported yet: LoRA, validation renders, MiraData loading, multi-GPU
-data / tensor / sequence parallelism and ZeRO-1, ``--profile-steps``.
+Reads the JAX package's YAML as data. Trains the DiT's ``vip_*`` parameters,
+the resampler and, with ``lora_rank`` > 0, LoRA factors on the DiT's
+attention projections, on ``--device`` (the card by default; it refuses to
+run without one unless given ``--device cpu``). No checkpoint is in the
+repository, so the weights are random (from ``seed``). With
+``train_data_params.csv_file`` (and not ``--smoke``) the batches come from
+the MiraData layout through `MiraDataset` (scene detect with
+``use_scene_detect`` / ``scene_detect_file``) on ``dataloader_num_workers``
+decode threads (default 4); otherwise they are synthetic pixel videos from a
+seeded generator, as in the JAX CLI. Prompts go through T5 when
+``pretrained_text_encoder_path`` is set (a missing one raises unless
+``--smoke``), else the hash text encoder. ``--smoke`` runs the JAX smoke's
+tiny geometry; without it, CogVideoX-5b at the config's width with per-block
+gradient checkpointing. Each step prints its loss, each sample's term of
+it, grad norm, sampled timesteps and their mean loss weight 1/(1-ᾱ_t), and
+seconds split into data wait, staging, train step (forward and backward)
+and optimizer; a checkpoint of the trainable parameters and the optimizer
+state is written every ``checkpointing_steps`` and at the last step. Every
+``validation_steps`` a validation render (the `val_data_params` items, or
+the step's batch) goes through `To2VPipeline` with the current adapters, to
+``val_step{N}.mp4``, and its quality metrics to the ``val/*`` scalars.
+``--profile-steps N`` traces the first N steps with `torch.profiler` into
+``<run_dir>/profile``. With LoRA, the merged weights are exported to
+``<run_dir>/lora_merged`` at the end. Not ported yet: multi-GPU data /
+tensor / sequence parallelism and ZeRO-1.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import time
@@ -33,14 +45,16 @@ import numpy as np
 import torch
 
 from tokensgen_tpu_torch.core import schedule as S
+from tokensgen_tpu_torch.data.mira import MiraDataset, collate, epoch_batches
 from tokensgen_tpu_torch.models.dit import DiTConfig, VIPConfig
 from tokensgen_tpu_torch.models.resampler import ResamplerConfig
-from tokensgen_tpu_torch.models.text_encoder import CachedTextEncoder, HashTextEncoder
+from tokensgen_tpu_torch.models.text_encoder import make_text_encoder
 from tokensgen_tpu_torch.models.vae3d import AutoencoderKLCogVideoX, VAEConfig, VAERunner
 from tokensgen_tpu_torch.train import checkpoint as CK
-from tokensgen_tpu_torch.train import objective, staging, to2v
+from tokensgen_tpu_torch.train import lora, objective, staging, to2v
 from tokensgen_tpu_torch.utils.config import create_output_folders, load_config
-from tokensgen_tpu_torch.utils.logging import ParamAudit, StepTimer, TBLogger, format_floats
+from tokensgen_tpu_torch.utils.logging import (ParamAudit, StepTimer, TBLogger, format_floats,
+                                               profile_trace)
 from tokensgen_tpu_torch.utils.params import build_on_device
 
 
@@ -76,21 +90,18 @@ def model_configs(cfg, smoke: bool, device: torch.device):
 
 
 def train_config(cfg) -> to2v.To2VTrainConfig:
-    for key in ("lora_rank", "tp_devices", "sp_devices", "zero1"):
+    for key in ("tp_devices", "sp_devices", "zero1"):
         if cfg.get(key):
             raise NotImplementedError(f"`{key}` is not ported yet")
-    if cfg.get_path("train_data_params.csv_file"):
-        raise NotImplementedError("MiraData loading is not ported yet: set "
-                                  "train_data_params.csv_file to null for synthetic batches")
-    if cfg.get("validation_steps") or cfg.get_path("val_data_params.csv_file"):
-        raise NotImplementedError("validation renders are not ported yet")
     tcfg = to2v.To2VTrainConfig(
         learning_rate=cfg.get("learning_rate", 2e-4),
         diff_timesteps_ratio=cfg.get("diff_timesteps_ratio", 0.4),
         use_8bit_adam=cfg.get("use_8bit_adam", True), optimizer=cfg.get("optimizer", "adamw"),
         lr_scheduler=cfg.get("lr_scheduler", "constant"),
         lr_warmup_steps=cfg.get("lr_warmup_steps", 0), lr_num_cycles=cfg.get("lr_num_cycles", 1),
-        lr_power=cfg.get("lr_power", 1.0), max_train_steps=cfg.get("max_train_steps", 1000))
+        lr_power=cfg.get("lr_power", 1.0), max_train_steps=cfg.get("max_train_steps", 1000),
+        lora_rank=int(cfg.get("lora_rank") or 0), lora_alpha=float(cfg.get("lora_alpha", 64.0)),
+        lora_targets=tuple(cfg.get("lora_targets", ["to_q", "to_k", "to_v", "to_out"])))
     if cfg.get("scale_lr"):  # `--scale_lr`: lr *= accumulation * per-device batch (one rank)
         scale = cfg.get("gradient_accumulation_steps", 1) * cfg.get("per_gpu_batch_size", 1)
         tcfg = dataclasses.replace(tcfg, learning_rate=tcfg.learning_rate * scale)
@@ -112,37 +123,55 @@ def synthetic_batches(batch: int, num_chunks: int, nf_px: int, height: int, widt
         }
 
 
+def mira_dataset(cfg, key: str, height: int, width: int, nf_px: int, max_chunks: int,
+                 **kwargs) -> MiraDataset:
+    """`MiraDataset` over the CSV and videos of ``cfg[key]``
+    (``train_data_params`` or ``val_data_params``)."""
+    return MiraDataset(cfg.get_path(f"{key}.csv_file"), cfg.get_path(f"{key}.video_dir"),
+                       height=height, width=width,
+                       sample_fps=cfg.get_path(f"{key}.sample_fps", 10), chunk_size=nf_px,
+                       max_num_chunks=max_chunks, **kwargs)
+
+
 class To2VTrainer:
     """The trainer of the CLI: ``__init__`` builds the models, optimizer and
     data from the config (and restores the latest checkpoint with
     ``resume``); `run` trains."""
 
     def __init__(self, cfg, smoke: bool, device, resume: bool = False):
-        self.cfg = cfg
+        self.cfg, self.smoke = cfg, smoke
         self.device = device = torch.device(device)
         self.dcfg, self.rcfg, vcfg, height, width, self.nf_px = model_configs(cfg, smoke, device)
-        self.tcfg = train_config(cfg)
+        self.tcfg = tcfg = train_config(cfg)
         self.batch_size = int(cfg.get("per_gpu_batch_size", 1))
         num_chunks = int(cfg.get_path("train_data_params.max_num_chunks", 2))
-        seed = int(cfg.get("seed", 42))
+        self.seed = seed = int(cfg.get("seed", 42))
         self.ckpt_root = os.path.join(cfg.get("output_dir", "./outputs"), "checkpoints")
         self.run_dir = run_dir = create_output_folders(cfg.get("output_dir", "./outputs"),
                                                        cfg.get("name_prefix", "to2v"))
         log(f"run dir: {run_dir}")
+        # first: a configured T5 path that does not load fails before any model is built
+        self.text_encoder = make_text_encoder(
+            cfg.get("pretrained_text_encoder_path"), self.dcfg.max_text_seq_length,
+            self.dcfg.text_embed_dim, allow_hash_fallback=smoke, device=device)
 
         self.gen = torch.Generator(device=device).manual_seed(seed)
         self.vae = VAERunner(vcfg, build_on_device(lambda: AutoencoderKLCogVideoX(vcfg), device,
                                                    self.gen))
-        self.model = to2v.init_model(self.dcfg, self.rcfg, device, self.gen)
+        self.model = to2v.init_model(self.dcfg, self.rcfg, device, self.gen, tcfg)
         to2v.setup_trainable(self.model, frozen_dtype=self.dcfg.dtype)
         self.param_counts = ParamAudit(run_dir).write(self.model,
                                                       to2v.trainable_labels(self.model))
         log(f"weights: random from seed {seed} (vae, resampler, DiT with grafted vip); "
             f"trainable {self.param_counts['trainable']:,} of "
             f"{self.param_counts['total']:,} parameters")
+        if tcfg.lora_rank > 0:
+            log(f"lora: rank={tcfg.lora_rank} alpha={tcfg.lora_alpha} "
+                f"targets={list(tcfg.lora_targets)} "
+                f"({lora.lora_param_count(lora.lora_factors(self.model.dit)) / 1e6:.2f}M params)")
+        self.sched = S.make_schedule(S.ScheduleConfig(), device=device)
         self.step_fn = to2v.To2VTrainStep(
-            self.model, S.make_schedule(S.ScheduleConfig(), device=device), self.tcfg,
-            accum_steps=int(cfg.get("gradient_accumulation_steps", 1)))
+            self.model, self.sched, tcfg, accum_steps=int(cfg.get("gradient_accumulation_steps", 1)))
         self.step = 0
         if resume:
             state, found = CK.restore_checkpoint(self.ckpt_root, map_location=device)
@@ -153,11 +182,30 @@ class To2VTrainer:
                 self.step_fn.optimizer.load_state_dict(state["opt_state"])
                 self.step = found
                 log(f"resumed from step {found}")
-        self.text_encoder = CachedTextEncoder(HashTextEncoder(self.dcfg.max_text_seq_length,
-                                                              self.dcfg.text_embed_dim))
-        self.batches = synthetic_batches(self.batch_size, num_chunks, self.nf_px, height, width)
+        if smoke or not cfg.get_path("train_data_params.csv_file"):
+            self.batches = synthetic_batches(self.batch_size, num_chunks, self.nf_px, height,
+                                             width)
+        else:
+            ds = mira_dataset(
+                cfg, "train_data_params", height, width, self.nf_px, num_chunks,
+                use_scene_detect=bool(cfg.get_path("train_data_params.use_scene_detect", False)),
+                scene_detect_file=cfg.get_path("train_data_params.scene_detect_file"), seed=seed)
+            log(f"data: {len(ds)} videos from {cfg.get_path('train_data_params.csv_file')}")
+            self.batches = epoch_batches(ds, self.batch_size, seed,
+                                         num_workers=int(cfg.get("dataloader_num_workers", 4)))
+        # validation items: a held-out CSV at fixed indices
+        self.val_batch = None
+        if cfg.get_path("val_data_params.csv_file"):
+            val_ds = mira_dataset(cfg, "val_data_params", height, width, self.nf_px,
+                                  cfg.get_path("val_data_params.max_num_chunks", 2),
+                                  random_sample=False, i_drop_rate=0, t_drop_rate=0,
+                                  ti_drop_rate=0)
+            self.val_batch = collate([val_ds[i]
+                                      for i in cfg.get_path("val_data_params.indices", [0])])
         self.host_rng = np.random.default_rng(seed)
         self.zero_cache: Dict = {}
+        self.tb = TBLogger(run_dir)
+        self.val_metrics: Optional[Dict] = None  # the last validation render's
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -171,59 +219,141 @@ class To2VTrainer:
              "opt_state": fn.optimizer.state_dict(), "step": self.step},
             total_limit=self.cfg.get("checkpoints_total_limit", 3))
 
-    def run(self, max_steps: Optional[int] = None, save_final: bool = True) -> List[Dict]:
+    def render_validation(self, step: int, batch: Dict, noise_fn=None) -> Dict:
+        """The validation render (the JAX CLI's ``run_validation``): the
+        first video of ``batch`` through `To2VPipeline` with the current
+        DiT (its LoRA factors applied) and resampler, deterministic
+        sampling, noise from a generator seeded by ``step`` unless
+        ``noise_fn``; writes ``val_step{step}.mp4`` and logs the quality
+        metrics against the source frames as ``val/*``. Returns the metrics
+        (and the video, ``[F, H, W, 3]`` in [-1, 1], under ``video``)."""
+        from tokensgen_tpu_torch.data.video_io import write_video
+        from tokensgen_tpu_torch.metrics.quality import evaluate_video
+        from tokensgen_tpu_torch.pipelines.to2v import To2VConfig, To2VPipeline
+        from tokensgen_tpu_torch.sampling.base import generator_noise
+
+        cfg, nf_px = self.cfg, self.nf_px
+        frames = torch.from_numpy(np.asarray(batch["pixel_values"][:1]))
+        pcfg = To2VConfig(
+            height=frames.shape[2], width=frames.shape[3], num_frames_per_chunk=nf_px,
+            num_inference_steps=min(cfg.get("num_inference_steps", 52), 4 if self.smoke else 52),
+            num_partitions=2 if self.smoke else 4, stochastic=False)
+        model = self.model
+        pipe = To2VPipeline(pcfg, self.dcfg, model.dit, self.rcfg, model.resampler, self.vae,
+                            self.sched, device=self.device)
+        if noise_fn is None:
+            noise_fn = generator_noise(torch.Generator(device=self.device).manual_seed(step))
+        text = self.text_encoder(list(batch["prompt"][:1]))
+        was_training = model.training
+        model.eval()
+        try:
+            out = pipe.generate(text, torch.zeros_like(text), frames=frames,
+                                num_chunks=frames.shape[1] // nf_px, noise_fn=noise_fn)
+        finally:
+            model.train(was_training)
+        vid = out["video"][0].float().cpu().numpy()
+        write_video(os.path.join(self.run_dir, f"val_step{step}.mp4"), vid, fps=10)
+        src = (frames[0, : vid.shape[0]].numpy() + 1) / 2
+        lpips_params = None
+        if cfg.get("lpips_vgg_path") and cfg.get("lpips_lins_path"):
+            from tokensgen_tpu_torch.metrics.lpips import load_lpips_params
+
+            lpips_params = load_lpips_params(cfg.get("lpips_vgg_path"),
+                                             cfg.get("lpips_lins_path"), self.device)
+        m = evaluate_video((vid + 1) / 2, src, lpips_params=lpips_params)
+        for k, v in m.items():
+            self.tb.scalar(f"val/{k}", v, step)
+        log(f"validation step {step}: {m}")
+        return dict(m, video=vid)
+
+    def run(self, max_steps: Optional[int] = None, save_final: bool = True,
+            profile_steps: int = 0) -> List[Dict]:
         """Train micro-steps up to ``max_steps`` (default: the config's
         ``max_train_steps``); checkpoint every ``checkpointing_steps`` and,
-        with ``save_final``, at the last step. Returns a record per step."""
+        with ``save_final``, at the last step; render a validation every
+        ``validation_steps``; trace the first ``profile_steps`` steps into
+        ``<run_dir>/profile``. Returns a record per step."""
         cfg, dev, gen, tcfg = self.cfg, self.device, self.gen, self.tcfg
         max_steps = max_steps or cfg.get("max_train_steps", 100)
         ckpt_every = cfg.get("checkpointing_steps", 500)
+        val_every = cfg.get("validation_steps") or 0
         nf = (self.nf_px - 1) // 4 + 1
-        tb = TBLogger(self.run_dir)
         timer = StepTimer()
         records = []
-        while self.step < max_steps:
-            batch = next(self.batches)
-            t0 = time.perf_counter()
-            if dev.type == "cuda":
-                # the train step leaves its freed blocks cached in sizes the
-                # VAE encode cannot use (at batch 2 on an H100: 29.5 GiB
-                # reserved but unallocated when step 2's encode ran out)
-                torch.cuda.empty_cache()
-            staged = staging.stage_to2v_batch(
-                self.dcfg, self.model.dit.patch_embed.proj, self.rcfg, self.vae,
-                torch.from_numpy(batch["pixel_values"]), batch["start_frame_idx"],
-                batch["drop_image_embed"], self.text_encoder(batch["prompt"]),
-                lambda tag, shape: torch.randn(shape, generator=gen, device=dev),
-                nf_px=self.nf_px, host_rng=self.host_rng, zero_cache=self.zero_cache)
-            timesteps = objective.sample_timesteps(
-                gen, self.batch_size, nf, tcfg.diff_timesteps_ratio,
-                inference_timesteps=tcfg.inference_timesteps, device=dev)
-            noise = torch.randn(staged["latents"].shape, generator=gen, device=dev)
-            self._sync()
-            staging_s = time.perf_counter() - t0
-            m = self.step_fn(staged, timesteps, noise)
-            self.step += 1
-            rec = {"step": self.step, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-                   "updated": m["updated"], "staging_s": staging_s,
-                   "train_step_s": m["train_step_s"], "optimizer_s": m["optimizer_s"],
-                   "sample_losses": m["sample_losses"].tolist(),
-                   "timesteps": m["timesteps"].tolist(), "x0_weight": float(m["x0_weight"]),
-                   "dropped": int(batch["drop_image_embed"].sum())}
-            records.append(rec)
-            tb.scalar("train_loss", rec["loss"], self.step)
-            total = staging_s + m["train_step_s"] + m["optimizer_s"]
-            log(f"step {self.step}: loss {rec['loss']:.4f} (per sample "
-                f"{format_floats(rec['sample_losses'])}) grad_norm {rec['grad_norm']:.4f} "
-                f"timesteps {format_timesteps(rec['timesteps'])} mean x0 weight "
-                f"{rec['x0_weight']:.4g}; {total:.2f} s/step (staging {staging_s:.2f} + train "
-                f"step {m['train_step_s']:.2f} + optimizer {m['optimizer_s']:.2f}; "
-                f"EMA {timer.update(total):.2f})")
-            del staged, timesteps, noise, m  # freed before the next step's staging
-            if self.step % ckpt_every == 0 or (save_final and self.step == max_steps):
-                log(f"checkpoint saved at step {self.step}: {self.save()}")
-        tb.close()
+        trace = contextlib.ExitStack()
+        if profile_steps > 0:
+            trace.enter_context(profile_trace(os.path.join(self.run_dir, "profile")))
+        traced = 0
+        with trace:
+            while self.step < max_steps:
+                t0 = time.perf_counter()
+                batch = next(self.batches)
+                t1 = time.perf_counter()
+                if dev.type == "cuda":
+                    # the train step leaves its freed blocks cached in sizes the
+                    # VAE encode cannot use (at batch 2 on an H100: 29.5 GiB
+                    # reserved but unallocated when step 2's encode ran out)
+                    torch.cuda.empty_cache()
+                staged = staging.stage_to2v_batch(
+                    self.dcfg, self.model.dit.patch_embed.proj, self.rcfg, self.vae,
+                    torch.from_numpy(batch["pixel_values"]), batch["start_frame_idx"],
+                    batch["drop_image_embed"], self.text_encoder(list(batch["prompt"])),
+                    lambda tag, shape: torch.randn(shape, generator=gen, device=dev),
+                    nf_px=self.nf_px, host_rng=self.host_rng, zero_cache=self.zero_cache)
+                timesteps = objective.sample_timesteps(
+                    gen, self.batch_size, nf, tcfg.diff_timesteps_ratio,
+                    inference_timesteps=tcfg.inference_timesteps, device=dev)
+                noise = torch.randn(staged["latents"].shape, generator=gen, device=dev)
+                self._sync()
+                data_s, staging_s = t1 - t0, time.perf_counter() - t1
+                m = self.step_fn(staged, timesteps, noise)
+                self.step += 1
+                rec = {"step": self.step, "loss": float(m["loss"]),
+                       "grad_norm": float(m["grad_norm"]), "updated": m["updated"],
+                       "data_s": data_s, "staging_s": staging_s,
+                       "train_step_s": m["train_step_s"], "optimizer_s": m["optimizer_s"],
+                       "sample_losses": m["sample_losses"].tolist(),
+                       "timesteps": m["timesteps"].tolist(), "x0_weight": float(m["x0_weight"]),
+                       "dropped": int(np.sum(batch["drop_image_embed"]))}
+                records.append(rec)
+                self.tb.scalar("train_loss", rec["loss"], self.step)
+                total = data_s + staging_s + m["train_step_s"] + m["optimizer_s"]
+                log(f"step {self.step}: loss {rec['loss']:.4f} (per sample "
+                    f"{format_floats(rec['sample_losses'])}) grad_norm {rec['grad_norm']:.4f} "
+                    f"timesteps {format_timesteps(rec['timesteps'])} mean x0 weight "
+                    f"{rec['x0_weight']:.4g}; {total:.2f} s/step (data {data_s:.2f} + staging "
+                    f"{staging_s:.2f} + train step {m['train_step_s']:.2f} + optimizer "
+                    f"{m['optimizer_s']:.2f}; EMA {timer.update(total):.2f})")
+                del staged, timesteps, noise, m  # freed before the next step's staging
+                traced += 1
+                if traced == profile_steps:
+                    trace.close()
+                    log(f"profile trace of {traced} step(s) written to {self.run_dir}/profile")
+                if val_every and self.step % val_every == 0:
+                    self.val_metrics = self.render_validation(self.step, self.val_batch or batch)
+                if self.step % ckpt_every == 0 or (save_final and self.step == max_steps):
+                    log(f"checkpoint saved at step {self.step}: {self.save()}")
         return records
+
+    def export_lora_merged(self) -> str:
+        """The DiT with its LoRA factors merged (`lora.merge_lora`) and the
+        resampler, saved as ``<run_dir>/lora_merged/checkpoint-{step}``."""
+        model, tcfg = self.model, self.tcfg
+        merged = lora.merge_lora(model.dit.state_dict(), lora.lora_factors(model.dit),
+                                 tcfg.lora_rank, tcfg.lora_alpha)
+        path = CK.save_checkpoint(
+            os.path.join(self.run_dir, "lora_merged"), self.step,
+            {"params": {"dit": merged, "resampler": model.resampler.state_dict()}},
+            total_limit=1)
+        log(f"lora-merged export saved to {path}")
+        return path
+
+    def close(self) -> None:
+        """Stops the data threads and closes the scalar log."""
+        close = getattr(self.batches, "close", None)
+        if close is not None:
+            close()
+        self.tb.close()
 
 
 def format_timesteps(timesteps: List[List[int]]) -> str:
@@ -240,10 +370,13 @@ def log(msg: str) -> None:
 def main(argv=None):
     ap = argparse.ArgumentParser(description="To2V adapter training (PyTorch/CUDA port)")
     ap.add_argument("--config", required=True)
-    ap.add_argument("--smoke", action="store_true", help="tiny models, CPU-friendly")
+    ap.add_argument("--smoke", action="store_true", help="tiny models + synthetic data, "
+                    "CPU-friendly")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--max-steps", type=int, default=None)
     ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--profile-steps", type=int, default=0,
+                    help="trace the first N steps with torch.profiler into <run_dir>/profile")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="override a config key (dotted path; the value is parsed as yaml)")
     args = ap.parse_args(argv)
@@ -258,7 +391,13 @@ def main(argv=None):
         key, _, val = kv.partition("=")
         overrides[key] = yaml.safe_load(val)
     cfg = load_config(args.config, overrides)
-    To2VTrainer(cfg, args.smoke, device, resume=args.resume).run(args.max_steps)
+    trainer = To2VTrainer(cfg, args.smoke, device, resume=args.resume)
+    try:
+        trainer.run(args.max_steps, profile_steps=args.profile_steps)
+        if trainer.tcfg.lora_rank > 0:
+            trainer.export_lora_merged()
+    finally:
+        trainer.close()
     print("training done", flush=True)
 
 

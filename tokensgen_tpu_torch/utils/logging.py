@@ -6,12 +6,13 @@ floats for a log line.
 installed, else the same scalars to ``scalars.csv`` (``step,tag,value``).
 `ParamAudit` writes ``rec_para.txt`` (every parameter) and
 ``rec_para_train.txt`` (the trainable ones), as the reference trainer does
-(`train_cogvideo_to2v.py:1504-1519`). The JAX package's `profile_trace`
-(`jax.profiler`) is not ported: `torch.profiler` is the tool on the card.
+(`train_cogvideo_to2v.py:1504-1519`). `profile_trace` is the JAX
+package's trace context with `torch.profiler` in place of `jax.profiler`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict, Iterable, Optional
 
@@ -66,6 +67,30 @@ class ParamAudit:
             f_all.write(f"# total: {total}\n")
             f_tr.write(f"# trainable: {trainable} / {total}\n")
         return {"total": total, "trainable": trainable}
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: Optional[str]):
+    """A `torch.profiler` trace of the body (host, and the card where there
+    is one), written to ``<log_dir>/trace.json`` (Chrome trace format) with a
+    table of the top operators in ``<log_dir>/top_ops.txt``; a no-op when
+    ``log_dir`` is None."""
+    if log_dir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    sort = "self_cuda_time_total" if torch.cuda.is_available() else "self_cpu_time_total"
+    with open(os.path.join(log_dir, "top_ops.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by=sort, row_limit=25))
 
 
 class StepTimer:
