@@ -7,8 +7,9 @@ Phases, each printing its own lines:
   env     card name and power limit (nvidia-smi), torch / CUDA versions,
           whether the `tokenizers` and `cv2` packages import; TF32 is switched
           off for matmuls and convolutions in every phase
-  build   nvcc builds both sources of kernels/csrc at once (attention.cu,
-          probes.cu; timed) and prints registers and spills per
+  build   nvcc builds the three sources of kernels/csrc at once
+          (attention.cu, probes.cu, attention_f32.cu; timed) and prints
+          registers and spills per
           instantiation; none may spill; K7's body's SASS (cuobjdump) must
           hold int8 wgmma and no mma.sync and no I2F
   kernels K1-K4 at the edit path's production shapes, K5 (the attention
@@ -46,6 +47,24 @@ Phases, each printing its own lines:
   edit    the edit path end to end through infer.build_pipeline and
           To2VPipeline.generate at full width (1 chunk, 13 steps, 1 partition,
           DiT depth cut to 6 of 42 layers)
+  variants the rest of single-GPU inference: each variant at a small size
+          on the host against the card (VIP func_types "2"-"4", the sincos
+          mode, the raw-token mode); the float32 K4 against its plain
+          version at DINOv2-large's [49, 16, 257, 64] (timed, bound at the
+          float32 peak, float32 SDPA as the library); the q / k / v
+          projection of the CogVideoX-5b joint sequence as three GEMMs (the
+          port's layout) and as one fused GEMM (the JAX package's
+          fuse_qkv), timed; infer_edit.yaml with use_vae_as_encoder false
+          through infer.build_pipeline (DINOv2-large, the resampler's input
+          at 1,024): the DINOv2 edit path cut as the edit phase's (DiT depth
+          6, 13 steps, 1 partition) but 2 chunks, undecoded, with the
+          encoder's seconds per chunk and the float32 K4's launches; one
+          full-width forward (2 layers) of CogVideoX-5b for each of
+          func_types "2"-"4" (the ar context one latent frame) and of
+          CogVideoX-2b in the sincos mode, each with its launches held to
+          the port's routing and every attention call of its first layer
+          held to the plain version on the same card tensors (planted
+          fault: the last eighth of the keys dropped)
   load    the loaders on files the phase writes in a temp dir (and removes):
           an HF-layout T5-XXL dir (full width, 2 of 24 layers) read back
           through T5TextEncoder.from_pretrained, bit-equal, timed; the full
@@ -104,7 +123,9 @@ Phases, each printing its own lines:
           step's sampled timesteps and mean x0 weight beside its loss
 
 The card's name and power limit (nvidia-smi) and a JSON object of the
-kernels and their measurements (launches of K1-K4 on the edit path, and
+kernels and their measurements (launches of K1-K4 on the edit path, of the
+float32 K4 on the DINOv2 edit path, of K1-K4 on each of the variants
+phase's paths as `variants_launches`, and
 apart from them, as `load_launches`, `cli_launches` and `serve_launches`, in
 the load phase's forward on the loaded weights, in its CLI run and in the
 serve phase's requests over the wire; of K5 on the train path, of K7 on the gen path, of K6 on the tiny T2To trainer, of
@@ -130,8 +151,8 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernels", "probes", "dit", "edit", "load", "gen", "serve", "data",
-          "train", "t2to_train")
+PHASES = ("env", "build", "kernels", "probes", "dit", "edit", "variants", "load", "gen", "serve",
+          "data", "train", "t2to_train")
 
 # A kernel agrees with its plain version (same bf16 inputs; the plain version
 # keeps f32 where the kernel rounds the prologued q, with log2 e folded in, and
@@ -151,6 +172,8 @@ KV_TILE = 64
 # attention.kv_tile(d) (128 keys at d <= 64, 64 at 128); K5's at d = 64 past
 # its one-pass body's block of keys, attention.BWD_KV_BLOCK (128)
 
+# K4 on float32 operands (the DINOv2 encoder's attention): a body of its own
+F32_KERNEL = "flash_attention_bhsd_f32"
 KERNELS = {
     # entry point: (TPU kernel it replaces)
     "fused_attention_joint": "tokensgen_tpu/kernels/attention.py:586",
@@ -161,8 +184,19 @@ KERNELS = {
     # the int8_scores branch of _flash_packed_kernel (:586)
     "fused_attention_joint_int8": "tokensgen_tpu/kernels/attention.py:634",
     "fused_attention_bhsd": "tokensgen_tpu/kernels/attention.py:256",
+    # `_flash_kernel` (:54) as DINOv2 calls it, on float32 operands
+    F32_KERNEL: "tokensgen_tpu/kernels/attention.py:54",
 }
 SOURCE = "tokensgen_tpu_torch/kernels/csrc/attention.cu"
+F32_SOURCE = "tokensgen_tpu_torch/kernels/csrc/attention_f32.cu"
+# The float32 K4 against its plain version (attention_plain in float32, TF32
+# off) on the same inputs: both keep float32 throughout and differ only in
+# summation order and in exp2 with the scale folded into q (5.7e-7 relative
+# L2, 1.7e-6 max abs at DINOv2's shape on an H100). Bounds: relative L2 <=
+# 1e-5 and max abs <= 2^-14 of max|ref|; dropping the last of its 257 keys
+# moves the output ~6% relative.
+F32_REL_L2_BOUND = 1e-5
+F32_MAX_ABS_REL = 2.0 ** -14
 # The lse outputs of K1 and K4 against the plain logsumexp: the kernels score
 # bf16(q' * log2 e) where the plain version scores bf16(q'), one bf16
 # rounding apart (1.9e-3 relative at most, ~1e-4 relative L2, measured on an
@@ -177,6 +211,9 @@ LSE_MAX_REL = 2.0 ** -7
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
+# float32 outside the tensor cores (the same data sheet): the float32 K4's
+# products run there, as FMAs on the CUDA cores
+PEAK_F32_FLOPS = 67e12
 # SFU (ex2) and FP32 results per clock per SM on Hopper, and its SMs: the
 # exponentials' bound and the exp2 probe's are their counts over these at
 # the SM clock nvidia-smi reports (clocks.max.sm)
@@ -237,7 +274,7 @@ def phase_env(state: dict) -> None:
 
 
 def phase_build(state: dict) -> None:
-    """nvcc builds both sources at once (one process each), then prints
+    """nvcc builds the three sources at once (one process each), then prints
     -Xptxas -v per instantiation: registers and spill bytes. The instantiated
     set leaves out what spills (probes.SWEEP_CONFIGS), so a spill fails; so
     does a K7 body whose SASS is not int8 wgmma scores without I2F."""
@@ -252,10 +289,10 @@ def phase_build(state: dict) -> None:
         return lib.build(force=True), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    libs = (A._Library, P._Library)
+    libs = (A._Library, P._Library, A._F32Library)
     with ThreadPoolExecutor(len(libs)) as pool:
         built = list(pool.map(build, libs))
-    log(f"[build] nvcc {' '.join(B.NVCC_FLAGS)}: both sources in "
+    log(f"[build] nvcc {' '.join(B.NVCC_FLAGS)}: {len(libs)} sources in "
         f"{time.perf_counter() - t0:.1f} s")
     spilled = []
     for lib, (path, dt) in zip(libs, built):
@@ -312,37 +349,41 @@ def _rope_tables(d, nf, gh, gw, device, offset=0.0):
         np.arange(gw, dtype=np.float32), device=device)
 
 
-def agreement(out, ref):
+def agreement(out, ref, max_abs_rel=MAX_ABS_REL):
     """(relative L2 error, max abs error, max abs bound) of ``out`` against ``ref``."""
     diff = out.float() - ref.float()
     ref_f = ref.float()
     rel = (diff.norm() / ref_f.norm()).item()
-    return rel, diff.abs().max().item(), MAX_ABS_REL * ref_f.abs().max().item()
+    return rel, diff.abs().max().item(), max_abs_rel * ref_f.abs().max().item()
 
 
-def _agrees(rel, max_err, max_bound):
-    return rel <= REL_L2_BOUND and max_err <= max_bound
+def _agrees(rel, max_err, max_bound, rel_bound=REL_L2_BOUND):
+    return rel <= rel_bound and max_err <= max_bound
 
 
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound_ms(flops: float, nbytes: float, int8_ops: float = 0.0, exps: float = 0.0):
+def bound_ms(flops: float, nbytes: float, int8_ops: float = 0.0, exps: float = 0.0,
+             f32_flops: float = 0.0):
     """(least time in ms, "operations" or "bytes"): the largest of the matmul
-    work (bf16 FLOPs at the bf16 peak plus int8 operations at the int8 peak),
-    the exponentials (ex2 at the MUFU's rate, SFU_PER_CLK_SM a clock on each
-    of SMS SMs at the top SM clock) and the bytes at the memory peak."""
-    t_ops = max(flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS,
+    work (bf16 FLOPs at the bf16 peak plus int8 operations at the int8 peak
+    plus float32 FLOPs at the CUDA cores' float32 peak), the exponentials (ex2
+    at the MUFU's rate, SFU_PER_CLK_SM a clock on each of SMS SMs at the top
+    SM clock) and the bytes at the memory peak."""
+    t_ops = max(flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS + f32_flops / PEAK_F32_FLOPS,
                 exps / (SFU_PER_CLK_SM * SMS * _sm_clock_hz()) if exps else 0.0)
     t_bytes = nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def _work_detail(work) -> str:
-    """``work`` = (FLOPs, bytes[, int8 operations[, exponentials]]) in words."""
-    flops, nbytes, int8_ops, exps = (*work, 0.0, 0.0)[:4]
+    """``work`` = (FLOPs, bytes[, int8 operations[, exponentials[, f32
+    FLOPs]]]) in words."""
+    flops, nbytes, int8_ops, exps, f32 = (*work, 0.0, 0.0, 0.0)[:5]
     return (f"{flops / 1e12:.3f} TFLOP" + (f", {int8_ops / 1e12:.3f} int8 TOP" if int8_ops else "")
+            + (f", {f32 / 1e12:.3f} f32 TFLOP" if f32 else "")
             + (f", {exps / 1e9:.3f} G ex2" if exps else "") + f", {nbytes / 1e9:.3f} GB")
 
 
@@ -352,14 +393,16 @@ def _outputs(x):
 
 def _compare(name, kernel_fn, plain_fn, state, fault_fn=None, runs=5, plain_runs=3,
              check_only=False, work=None, library_fn=None, labels=None, phase="kernels",
-             fault="last ragged kv tile dropped"):
-    """Kernel vs plain version: every output within the bounds, then the
+             fault="last ragged kv tile dropped", bounds=(REL_L2_BOUND, MAX_ABS_REL)):
+    """Kernel vs plain version: every output within the bounds (relative L2,
+    max abs relative to max|ref|), then the
     kernel, the plain version and ``library_fn`` (one PyTorch call computing
     the same function, timed only) timed. ``work`` = (flops, bytes) of the
     function for its bound. ``fault_fn`` is a deliberately wrong plain
     version (``fault``) that must fail the bounds on at least one output."""
     import torch
 
+    rel_bound, max_abs_rel = bounds
     outs = _outputs(kernel_fn())
     torch.cuda.synchronize()
     refs = _outputs(plain_fn())
@@ -367,11 +410,11 @@ def _compare(name, kernel_fn, plain_fn, state, fault_fn=None, runs=5, plain_runs
     labels = labels or [f"out{i}" for i in range(len(outs))]
     ok, max_err, parts = True, 0.0, []
     for label, out, ref in zip(labels, outs, refs):
-        rel, err, err_bound = agreement(out, ref)
+        rel, err, err_bound = agreement(out, ref, max_abs_rel)
         finite = bool(torch.isfinite(out).all().item())
-        ok = ok and finite and _agrees(rel, err, err_bound)
+        ok = ok and finite and _agrees(rel, err, err_bound, rel_bound)
         max_err = max(max_err, err)
-        parts.append(f"{label} {tuple(out.shape)} rel_l2_err {rel:.3e} (bound {REL_L2_BOUND:g}) "
+        parts.append(f"{label} {tuple(out.shape)} rel_l2_err {rel:.3e} (bound {rel_bound:g}) "
                      f"max_abs_err {err:.3e} (bound {err_bound:.3e}) finite {finite}")
     msg = f"[{phase}] {name}: " + "; ".join(parts)
     if check_only:
@@ -391,7 +434,8 @@ def _compare(name, kernel_fn, plain_fn, state, fault_fn=None, runs=5, plain_runs
         raise RuntimeError(f"{name}: kernel disagrees with its plain version")
     if fault_fn is not None:
         faults = _outputs(fault_fn())
-        caught = [not _agrees(*agreement(f, r)) for f, r in zip(faults, refs)]
+        caught = [not _agrees(*agreement(f, r, max_abs_rel), rel_bound)
+                  for f, r in zip(faults, refs)]
         detail = ", ".join(f"{label} rel_l2_err {agreement(f, r)[0]:.3e}"
                            for label, f, r in zip(labels, faults, refs))
         log(f"[{phase}] {name}[planted fault: {fault}]: {detail}: "
@@ -1863,6 +1907,407 @@ def phase_edit(state: dict) -> None:
             f"mean {x.float().mean().item():.4f} std {x.float().std().item():.4f}")
         if tuple(x.shape) != shape or not finite:
             raise RuntimeError(f"edit output {key}: expected finite {shape}")
+
+
+# -------------------------------------------------------- the variants phase
+# The rest of single-GPU inference (PR 16's slice), each at full width with
+# random weights: the DINOv2 edit path through the port's own builders
+# (`infer_edit.yaml` with `use_vae_as_encoder: false` and the resampler's
+# input at DINOv2-large's 1,024; the DiT cut as the edit phase's, EDIT_LAYERS
+# deep, 13 steps, 1 partition, undecoded), the float32 K4 against its plain
+# version at DINOv2's shape, the q / k / v projection three GEMMs against
+# one fused GEMM, one CogVideoX-5b forward (depth VARIANT_LAYERS) for each of
+# VIP func_types "2"-"4", and one CogVideoX-2b width sincos forward, each
+# with its first layer's attention calls held to the plain version; first
+# each variant at a small size on the host (plain attention) against the
+# card (the kernels).
+DINOV2_OVERRIDES = {
+    "use_vae_as_encoder": False,
+    "video_ipadapter_params.resampler_params.embedding_dim": 1024,  # DINOv2-large's width
+    # cut from 12 to 2, not 1: the DINOv2 path adds no repeated-last-frame
+    # chunk, so 1 chunk gives 4 temporal VIP frames where the base pass reads
+    # 5 (the VAE path's pad chunk makes them 8), in the JAX package as here
+    "input_config.edit_item_1.params.max_num_chunks": 2,
+}
+VARIANT_LAYERS = 2  # DiT depth of the func_type and sincos forwards, cut from 42 / 30
+# host plain attention vs the card's kernels at the small size (bf16)
+SMALL_REL_L2_BOUND = 1e-2
+
+
+def _variant_inputs(dev, cfg, frames: int, gen, vip_frames: int = 5):
+    """(latents, text, timestep, VIP tokens) for a DiT forward of ``cfg`` at
+    the edit path's 60 x 90 latents (B=2, as the CFG pair), on ``dev``."""
+    import torch
+
+    vc = cfg.vip
+    lat = torch.randn(2, frames, 16, cfg.sample_height, cfg.sample_width, generator=gen,
+                      device=dev)
+    text = 0.1 * torch.randn(2, cfg.max_text_seq_length, cfg.text_embed_dim, generator=gen,
+                             device=dev)
+    vip = torch.randn(2, vip_frames, vc.output_dim, vc.num_height_queries, vc.num_width_queries,
+                      generator=gen, device=dev)
+    return lat, text, torch.full((2,), 999, dtype=torch.int64, device=dev), vip
+
+
+def _variant_ropes(dcfg, frames: int, ar_frames: int, device, vip_frames: int = 5):
+    """Keyword ropes of a rotary DiT forward: the base table over the frames
+    the base attention sees (without the ar frames) and, with a VIP branch,
+    the vip-image one over all, the condition one over the VIP frames at
+    offset 1000."""
+    import numpy as np
+
+    from tokensgen_tpu_torch.core.rope import get_3d_rotary_pos_embed_v2
+
+    if not dcfg.use_rotary_positional_embeddings:
+        return {}
+    d, p = dcfg.attention_head_dim, dcfg.patch_size
+    hp, wp = dcfg.sample_height // p, dcfg.sample_width // p
+    vc = dcfg.vip
+
+    def rope(t, h, w):
+        return get_3d_rotary_pos_embed_v2(d, t, np.arange(h), np.arange(w), device=device)
+
+    base = {"image_rotary_emb": rope(np.arange(frames - ar_frames), hp, wp)}
+    if vc is None:
+        return base
+    return {**base, "vip_image_rotary_emb": rope(np.arange(frames), hp, wp),
+            "vip_condition_rotary_emb": rope(np.arange(vip_frames) + 1000.0,
+                                             vc.num_height_queries, vc.num_width_queries)}
+
+
+def _small_variant_checks(dev) -> None:
+    """Each variant at a small size (2 layers, 2 heads of 64, bf16): one
+    forward on the host (plain attention) and one on the card (the kernels)
+    with the same weights and inputs, within SMALL_REL_L2_BOUND: func_types
+    "2"-"4", the sincos mode with a vip_pos_embedding, the raw-token output
+    mode."""
+    import copy
+
+    import torch
+
+    from tokensgen_tpu_torch.models.dit import CogVideoXTransformer, DiTConfig, VIPConfig
+    from tokensgen_tpu_torch.utils.params import init_params_
+
+    vkw = dict(output_dim=64, num_temporal_queries=2, num_height_queries=4, num_width_queries=6,
+               length=3 * 4 * 6)
+    base = dict(attention_head_dim=64, num_attention_heads=2, sample_height=16, sample_width=24,
+                dtype=torch.bfloat16)
+    cases = {f"func_type {ft}": dict(vip=VIPConfig(func_type=ft, **vkw, **(
+        dict(ar_length=8 * 12, scale_ar=0.7) if ft == "4" else {}))) for ft in "234"}
+    cases["sincos"] = dict(vip=VIPConfig(**vkw), use_rotary_positional_embeddings=False)
+    cases["raw-token"] = dict(vip=None, use_output_projection=False, patch_size=1,
+                              sample_height=8, sample_width=12)
+    for label, kw in cases.items():
+        cfg = DiTConfig.tiny(**dict(base, **kw))
+        gen = torch.Generator().manual_seed(3)
+        host = init_params_(CogVideoXTransformer(cfg), gen).eval()
+        card = copy.deepcopy(host).to(dev)
+        f, ar = 3, (1 if cfg.vip is not None and cfg.vip.func_type == "4" else 0)
+        x = torch.randn(1, f, 16, cfg.sample_height, cfg.sample_width, generator=gen)
+        text = torch.randn(1, cfg.max_text_seq_length, cfg.text_embed_dim, generator=gen)
+        extra = {}
+        if cfg.vip is not None:
+            extra = dict(vip_hidden_states=torch.randn(1, 3, 64, 4, 6, generator=gen),
+                         vip_scale=0.6)
+            if label == "sincos":
+                extra["vip_pos_embedding"] = torch.randn(1, 3 * 4 * 6, cfg.inner_dim,
+                                                         generator=gen)
+        ropes = (_variant_ropes(cfg, f, ar, None, vip_frames=3)
+                 if cfg.use_rotary_positional_embeddings else {})
+
+        def run(model, device):
+            mv = {k: tuple(z.to(device) for z in r) for k, r in ropes.items()}
+            kw = {k: (v.to(device) if isinstance(v, torch.Tensor) else v)
+                  for k, v in extra.items()}
+            with torch.no_grad():
+                return model(x.to(device), text.to(device), torch.tensor([700], device=device),
+                             **mv, **kw).float().cpu()
+
+        ref, out = run(host, "cpu"), run(card, dev)
+        rel = ((out - ref).norm() / ref.norm()).item()
+        log(f"[variants] small-input check, {label} (host plain attention vs card kernels): "
+            f"output {tuple(out.shape)} relative L2 error {rel:.3e} (bound {SMALL_REL_L2_BOUND})")
+        if not (rel < SMALL_REL_L2_BOUND and torch.isfinite(out).all()):
+            raise RuntimeError(f"the card's {label} DiT forward disagrees with the host's")
+
+
+def _timed_forward(model, args, kwargs, dev):
+    """(output, device-synchronised seconds of the second of two calls,
+    launches of that call)."""
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+
+    with torch.no_grad():
+        model(*args, **kwargs)
+        torch.cuda.synchronize()
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = model(*args, **kwargs)
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, A.launch_counts()
+
+
+def _qkv_projection_timing(dev) -> None:
+    """The q / k / v projection of the CogVideoX-5b joint sequence (B=2,
+    226 + 17,550 rows of 3,072, bf16) as the port runs it, three [3,072 ->
+    3,072] GEMMs, and as the JAX package's fuse_qkv runs it, one [3,072 ->
+    9,216] GEMM cut in thirds: CUDA-event times (median of 5) and the
+    largest difference of the outputs (the port keeps the three: ROADMAP,
+    deliberate differences)."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    x = torch.randn(2, 17776, 3072, generator=gen, device=dev).bfloat16()
+    ws = [(0.02 * torch.randn(3072, 3072, generator=gen, device=dev)).bfloat16()
+          for _ in range(3)]
+    bs = [(0.02 * torch.randn(3072, generator=gen, device=dev)).bfloat16() for _ in range(3)]
+    w3, b3 = torch.cat(ws), torch.cat(bs)
+
+    def three():
+        return [F.linear(x, w, b) for w, b in zip(ws, bs)]
+
+    def fused():
+        return F.linear(x, w3, b3).chunk(3, dim=-1)
+
+    diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(three(), fused()))
+    t3, tf = _cuda_time_ms(three, 5), _cuda_time_ms(fused, 5)
+    log(f"[variants] q / k / v projection of [2, 17,776, 3,072] bf16: three GEMMs {t3:.3f} ms, "
+        f"one fused GEMM {tf:.3f} ms; max abs difference {diff:.3e}")
+
+
+def _f32_k4_row(dev, state) -> None:
+    """The float32 K4 against its plain version at DINOv2-large's shape
+    [49, 16, 257, 64] (a 1-row q tail and a 1-key kv tail), the operands as
+    the encoder makes them (strided views of [49, 257, 1024]); the library
+    call is float32 SDPA."""
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    q, k, v = (torch.randn(49, 257, 1024, generator=gen, device=dev).view(49, 257, 16, 64)
+               .transpose(1, 2) for _ in range(3))
+    scale = 64 ** -0.5
+    zeros = torch.zeros(49, 257, device=dev)
+    b, h, sq, d = q.shape
+    work = (0.0, _nbytes(q, k, v, q), 0.0, float(b * h * sq * sq), 4.0 * b * h * sq * sq * d)
+    _compare(F32_KERNEL, lambda: A.flash_attention_bhsd_f32(q, k, v, None, scale),
+             lambda: A.attention_plain(q, k, v, zeros, scale), state,
+             fault_fn=lambda: A.attention_plain(q, k[:, :, :-1], v[:, :, :-1], zeros[:, :-1],
+                                                scale),
+             fault="last key dropped", work=work, phase="variants",
+             library_fn=lambda: _sdpa(q, k, v, scale),
+             bounds=(F32_REL_L2_BOUND, F32_MAX_ABS_REL))
+
+
+def _dinov2_edit(pipe, cfg, dev, state) -> None:
+    """The DINOv2 edit path: To2VPipeline.generate on a synthetic source of
+    2 chunks, the DiT cut to EDIT_LAYERS, undecoded (the edit phase decodes
+    the same render); the encoder's seconds per chunk timed apart."""
+    import numpy as np
+    import torch
+
+    from tokensgen_tpu_torch.infer import build_text_encoder
+    from tokensgen_tpu_torch.kernels import attention as A
+    from tokensgen_tpu_torch.models.dinov2 import preprocess_frames
+    from tokensgen_tpu_torch.sampling.base import generator_noise
+    from tokensgen_tpu_torch.utils.config import input_items
+
+    pc, enc = pipe.cfg, pipe.image_encoder
+    item = input_items(cfg)[0]
+    num_chunks = item.get("max_num_chunks", 2)
+    pipe.dit.transformer_blocks = pipe.dit.transformer_blocks[:EDIT_LAYERS]
+    torch.cuda.empty_cache()
+    te = build_text_encoder(cfg, smoke=False, device=dev)
+    prompt, negative = te([item.get("prompt", "")]), te([""])
+    frames = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, size=(1, num_chunks * pc.num_frames_per_chunk, pc.height, pc.width, 3)
+    ).astype(np.float32))
+    # the encoder alone on one chunk of frames and on its zero images
+    px = preprocess_frames(frames[0, :pc.num_frames_per_chunk].to(dev), enc.cfg.image_size)
+    with torch.no_grad():
+        for _ in range(2):  # a warm-up, then the timed pair
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats = enc(px), enc(torch.zeros_like(px))
+            torch.cuda.synchronize()
+            t_enc = time.perf_counter() - t0
+    log(f"[variants] DINOv2-large encode of one chunk ({tuple(px.shape)} frames and as many "
+        f"zero images, float32): {t_enc:.3f} s; penultimate hidden state "
+        f"{tuple(feats[0].shape)} finite {bool(torch.isfinite(feats[0]).all())}")
+    timings: dict = {}
+    noise = generator_noise(torch.Generator(device=dev).manual_seed(int(cfg.get("seed", 42))))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipe.generate(prompt, negative, frames=frames, num_chunks=num_chunks, noise_fn=noise,
+                        decode=False, timings=timings)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts = A.launch_counts()
+    state["variants_launches"]["dinov2_edit"] = counts
+    state["dinov2"] = dict(encode_chunk_s=t_enc, vip_encode_s=timings.get("vip_encode"),
+                           generate_s=total)
+    log(f"[variants] DINOv2 edit path ({num_chunks} chunks, {pc.num_inference_steps} steps, "
+        f"{pc.num_partitions} partition, DiT depth {len(pipe.dit.transformer_blocks)} of 42, "
+        f"undecoded): {total:.1f} s; phases (s): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in timings.items())
+        + f" ({timings.get('vip_encode', 0.0) / num_chunks:.2f} s a chunk to VIP tokens); peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    log(f"[variants] kernel launches on the DINOv2 edit path: {json.dumps(counts)}")
+    blocks = enc.cfg.num_layers - 1
+    want_f32 = num_chunks * 2 * blocks  # each chunk's frames and zero images, each block
+    nf = pc.nf_latent
+    shape = (1, num_chunks * nf, 16, pc.height // 8, pc.width // 8)
+    lat = out["latents"]
+    finite = bool(torch.isfinite(lat).all()) and bool(torch.isfinite(out["orig_latents"]).all())
+    log(f"[variants] latents {tuple(lat.shape)} finite {finite} mean "
+        f"{lat.float().mean().item():.4f} std {lat.float().std().item():.4f}; float32 K4 "
+        f"launches {counts[F32_KERNEL]} (expected {want_f32} = {num_chunks} chunks x 2 x "
+        f"{blocks} blocks)")
+    if tuple(lat.shape) != shape or not finite:
+        raise RuntimeError(f"DINOv2 edit latents: expected finite {shape}")
+    if counts[F32_KERNEL] != want_f32 or min(counts[k] for k in FORWARD_KERNELS) <= 0:
+        raise RuntimeError(f"the DINOv2 edit path did not run the expected kernels: {counts}")
+
+
+# each func_type's launches per DiT layer in one forward (the port's routing
+# at these shapes): "2" / "3" video -> VIP (17,550 q x 480 kv) on K2, "2"'s
+# VIP -> [video ‖ vip] (480 q x 18,030 kv) on K3; "4" the cross into ar
+# (17,776 q x 1,350 kv) and [ar ‖ vip] (1,830 q x 19,606 kv) on K1, the
+# cross into VIP on K2; the sincos 2b forward as "1" (K1, K2, K3)
+VARIANT_ROUTES = {
+    "2": {"fused_attention_joint": 1, "fused_attention_cross_smallkv": 1,
+          "fused_attention_cross_smallq": 1},
+    "3": {"fused_attention_joint": 1, "fused_attention_cross_smallkv": 1,
+          "fused_attention_cross_smallq": 0},
+    "4": {"fused_attention_joint": 3, "fused_attention_cross_smallkv": 1,
+          "fused_attention_cross_smallq": 0},
+    "sincos": {"fused_attention_joint": 1, "fused_attention_cross_smallkv": 1,
+               "fused_attention_cross_smallq": 1},
+}
+
+
+def _first_layer_attention_checks(model, args, kwargs, label: str, n_calls: int) -> None:
+    """The first ``n_calls`` attention calls of one forward (its first
+    layer's), captured on their way through the DiT's
+    `fused_flash_attention` with the kernel each launched, then each held to
+    that kernel's plain version on the same card tensors; these launches
+    are not the path's. Planted fault: the last eighth of the keys dropped
+    (on these activations the ragged last kv tile, 112 of 17,776 keys,
+    moved K1's output by 4.8e-3 relative L2, inside the bound)."""
+    import torch
+
+    import tokensgen_tpu_torch.models.dit as D
+    from tokensgen_tpu_torch.kernels import attention as A
+
+    real, calls = D.fused_flash_attention, []
+
+    def capture(q, k, v, tabs_q, tabs_k, key_bias=None, heads=None, **kw):
+        before = A.launch_counts()
+        out = real(q, k, v, tabs_q, tabs_k, key_bias, heads=heads, **kw)
+        if len(calls) < n_calls:
+            after = A.launch_counts()
+            launched = [name for name, n in after.items() if n != before[name]]
+            if len(launched) != 1:
+                raise RuntimeError(f"{label}: an attention call launched {launched}")
+            calls.append((launched[0], dict(q=q, k=k, v=v, tabs_q=tabs_q, tabs_k=tabs_k,
+                                            key_bias=key_bias, heads=heads)))
+        return out
+
+    D.fused_flash_attention = capture
+    try:
+        with torch.no_grad():
+            model(*args, **kwargs)
+    finally:
+        D.fused_flash_attention = real
+    if len(calls) != n_calls:
+        raise RuntimeError(f"{label}: {len(calls)} attention calls captured, {n_calls} expected")
+    for name, c in calls:
+        sq, skv = c["q"].shape[1], c["k"].shape[1]
+        _compare(f"{name}[{label}, {sq:,} q x {skv:,} kv, {c['heads']} heads]",
+                 lambda: run_kernel(name, c), lambda: run_plain(name, c), {}, check_only=True,
+                 fault_fn=lambda: run_plain(name, c, kv_len=skv - skv // 8),
+                 fault="the last eighth of the keys dropped", phase="variants")
+
+
+def _variant_forwards(dev, state) -> None:
+    """One full-width forward (B=2, 13 latent frames of 60 x 90, VIP
+    tokens of 5 x 8 x 12) for each of func_types "2"-"4" on CogVideoX-5b
+    (for "4" one more latent frame, the ar context: 1,350 tokens) and for
+    the sincos CogVideoX-2b (30 heads x 64, with a vip_pos_embedding), each
+    VARIANT_LAYERS deep: its time, its launches against VARIANT_ROUTES, a
+    finite output of the expected shape, and its first layer's attention
+    calls held to their plain versions."""
+    import torch
+
+    from tokensgen_tpu_torch.models.dit import CogVideoXTransformer, DiTConfig, VIPConfig
+    from tokensgen_tpu_torch.utils.params import build_on_device
+
+    for label, route in VARIANT_ROUTES.items():
+        gen = torch.Generator(device=dev).manual_seed(23)
+        ar = 1 if label == "4" else 0
+        if label == "sincos":
+            cfg = DiTConfig.cogvideox_2b(vip=VIPConfig(), num_layers=VARIANT_LAYERS)
+        else:
+            vc = VIPConfig(func_type=label, scale_ar=0.7, ar_length=ar * 45 * 30)
+            cfg = DiTConfig.cogvideox_5b(vip=vc, num_layers=VARIANT_LAYERS)
+        model = build_on_device(lambda: CogVideoXTransformer(cfg), dev, gen)
+        lat, text, ts, vip = _variant_inputs(dev, cfg, 13 + ar, gen)
+        kw = dict(vip_hidden_states=vip, vip_scale=0.6, **_variant_ropes(cfg, 13 + ar, ar, dev))
+        if label == "sincos":
+            kw["vip_pos_embedding"] = 0.1 * torch.randn(1, 480, cfg.inner_dim, generator=gen,
+                                                        device=dev)
+        out, dt, counts = _timed_forward(model, (lat, text, ts), kw, dev)
+        state["variants_launches"][f"func_type_{label}" if label != "sincos" else label] = counts
+        want = {k: n * cfg.num_layers for k, n in route.items()}
+        shape = (2, 13, 16, 60, 90)
+        finite = bool(torch.isfinite(out).all())
+        name = "CogVideoX-2b sincos" if label == "sincos" else f"CogVideoX-5b func_type {label}"
+        log(f"[variants] {name} forward ({cfg.num_layers} layers, {cfg.num_attention_heads} heads "
+            f"x {cfg.attention_head_dim}, B=2, {13 + ar} latent frames{' (1 ar)' if ar else ''}): "
+            f"{dt:.3f} s, output {tuple(out.shape)} finite {finite}; launches "
+            f"{json.dumps({k: counts[k] for k in want})} (expected {json.dumps(want)})")
+        if tuple(out.shape) != shape or not finite or any(counts[k] != n for k, n in want.items()):
+            raise RuntimeError(f"the {name} forward: wrong shape, not finite or wrong routing")
+        del out
+        _first_layer_attention_checks(model, (lat, text, ts), kw, name, sum(route.values()))
+        del model
+        torch.cuda.empty_cache()
+
+
+def phase_variants(state: dict) -> None:
+    import gc
+
+    import torch
+
+    from tokensgen_tpu_torch.infer import build_pipeline
+    from tokensgen_tpu_torch.utils.config import load_config
+
+    dev = state["device"]
+    state["variants_launches"] = {}
+    _small_variant_checks(dev)
+    _f32_k4_row(dev, state)
+    _qkv_projection_timing(dev)
+    cfg = load_config(os.path.join(REPO, EDIT_CONFIG), dict(EDIT_OVERRIDES, **DINOV2_OVERRIDES))
+    log(f"[variants] {EDIT_CONFIG} with {json.dumps(dict(EDIT_OVERRIDES, **DINOV2_OVERRIDES))}")
+    t0 = time.perf_counter()
+    pipe, _ = build_pipeline(cfg, smoke=False, device=dev)
+    torch.cuda.synchronize()
+    enc = pipe.image_encoder
+    log(f"[variants] build_pipeline (random weights made on the card, DINOv2-large included): "
+        f"{time.perf_counter() - t0:.1f} s; encoder {enc.cfg.num_layers - 1} of "
+        f"{enc.cfg.num_layers} blocks, {enc.cfg.num_heads} heads x "
+        f"{enc.cfg.hidden_size // enc.cfg.num_heads}, float32, "
+        f"{sum(p.numel() for p in enc.parameters()) / 1e6:.1f} M parameters")
+    _dinov2_edit(pipe, cfg, dev, state)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    _variant_forwards(dev, state)
 
 
 # ------------------------------------------------------------ the load phase
@@ -3607,9 +4052,14 @@ def main(argv=None) -> int:
         "attention_backward"], fused_attention_joint_int8=state["gen_launches"][
         "fused_attention_joint_int8"], fused_attention_bhsd=state["t2to_launches"][
         "fused_attention_bhsd"])
+    launches[F32_KERNEL] = state["variants_launches"]["dinov2_edit"][F32_KERNEL]
     for name, replaces in KERNELS.items():
-        row = {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+        row = {"name": name, "route": "cuda",
+               "source": F32_SOURCE if name == F32_KERNEL else SOURCE, "replaces": replaces,
                "launches": launches[name], **state["kernel_rows"][name]}
+        if name in PATH_KERNELS:  # the variants phase's paths, each counted on its own
+            row["variants_launches"] = {path: counts[name]
+                                        for path, counts in state["variants_launches"].items()}
         if name == "flash_attention_bhsd":  # K4 in the T2To trainer's frozen latent encoder
             row["t2to_train_launches"] = state["t2to_k4_launches"]
         if name in PATH_KERNELS:  # the load and serve phases' runs, each counted on its own

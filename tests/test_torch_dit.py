@@ -85,11 +85,3 @@ def test_graft_vip_params_matches_jax(models):
     for k, v in tmodel.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), want[k], err_msg=k)
 
-
-def test_unported_vip_variants_raise():
-    _, tcfg = _configs()
-    import dataclasses
-
-    cfg = dataclasses.replace(tcfg, vip=dataclasses.replace(tcfg.vip, func_type="2"))
-    with pytest.raises(NotImplementedError):
-        TD.CogVideoXTransformer(cfg)

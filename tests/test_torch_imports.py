@@ -46,6 +46,9 @@ def test_import_loads_no_jax():
                                                    "bench_exp2", "bench_attn_r3",
                                                    "bench_cross_r3", "bench_cross_pairloop")}
     assert probes <= set(_modules())
+    inference_modes = {"tokensgen_tpu_torch.models.dinov2", "tokensgen_tpu_torch.sampling.freeinit",
+                       "tokensgen_tpu_torch.utils.debug"}
+    assert inference_modes <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"

@@ -4,7 +4,8 @@ counts, K2 at 1 to 512 keys, K1, K2 and K6 on all-negative score rows, K1
 and K6 refusing misaligned operands, their logsumexp outputs, the backward
 K5 at head dims 16, 32, 64 and 128 and at the training shapes' short sides
 (few keys, few q rows), the int8-score forward K7 (also at forced split
-counts and on all-negative score rows), the
+counts and on all-negative score rows), K4 on float32 operands (DINOv2's
+shape, ragged tails, head dims 16 to 64), the
 [B, H, S, D] fused-prologue forward K6 at the same four, and the probe
 kernels T1, T2, T3a, T3b, T4a, T4b, T5, T6, T7 and T8) against their plain
 PyTorch versions, on the card. Every test here is
@@ -671,3 +672,88 @@ def test_probe_maxfree_kernels_on_card(cuda_device, name):
         _assert_within_bounds(out, ref)
     with pytest.raises(ValueError):
         fn(q, k, v, bias, tq, tk, h, *((128, 128) if name == "attention_splitpv" else (96,)))
+
+
+# the float32 K4 against `attention_plain` in float32 on the same inputs:
+# both keep float32 throughout (TF32 off for the plain version's matmuls) and
+# differ only in summation order and in exp2 with the scale folded into q.
+# Bound: relative L2 error <= F32_REL_L2_BOUND and max abs error <=
+# F32_MAX_ABS_REL of the output's largest magnitude (as chip_smoke.py), far
+# under what dropping the last key of DINOv2's 257 moves (~6% relative).
+F32_REL_L2_BOUND = 1e-5
+F32_MAX_ABS_REL = 2.0 ** -14
+
+
+def _assert_f32_within_bounds(out, ref):
+    diff = out - ref
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert (diff.norm() / ref.norm()).item() <= F32_REL_L2_BOUND
+    assert diff.abs().max().item() <= F32_MAX_ABS_REL * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,sq,skv,d,masked", [
+    (49, 16, 257, 257, 64, False),  # DINOv2-large: a 1-row q tail and a 1-key kv tail
+    (2, 3, 130, 517, 64, True),  # ragged q and kv tails, a key-bias mask on one sample
+    (2, 4, 256, 384, 64, False),  # whole tiles of q rows and of keys
+    (2, 3, 130, 517, 32, True), (2, 3, 130, 517, 16, True)])
+def test_f32_bhsd_matches_plain_on_card(cuda_device, monkeypatch, b, h, sq, skv, d, masked):
+    """The float32 K4 (`flash_attention_bhsd_f32`, and `flash_attention` /
+    `flash_attention_bhsd` routing float32 to it) vs `attention_plain` in
+    float32, on the strided [B, H, S, d] views of merged [B, S, H*d]
+    tensors as DINOv2 makes them, within the float32 bounds; each call
+    counted once and by the float32 entry point only. At DINOv2's shape the
+    plain version without the last key fails the bounds."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rng = np.random.default_rng(8)
+    dev = cuda_device
+
+    def x(s):
+        merged = torch.from_numpy(rng.normal(size=(b, s, h * d)).astype(np.float32)).to(dev)
+        return merged.view(b, s, h, d).transpose(1, 2)
+
+    q, k, v = x(sq), x(skv), x(skv)
+    bias = None
+    if masked:
+        bias = torch.zeros(b, skv, device=dev)
+        bias[1, : skv // 3] = -1e9
+    scale = d ** -0.5
+    ref = TA.attention_plain(q, k, v, TA._bias_or_zeros(bias, k, None), scale)
+    TA.reset_launch_counts()
+    outs = [TA.flash_attention_bhsd_f32(q, k, v, bias, scale),
+            TA.flash_attention_bhsd(q, k, v, bias, scale),
+            TA.flash_attention(q, k, v, bias, scale)]
+    torch.cuda.synchronize()
+    counts = TA.launch_counts()
+    assert counts["flash_attention_bhsd_f32"] == 3 and counts["flash_attention_bhsd"] == 0
+    for out in outs:
+        assert out.shape == (b, h, sq, d)
+        _assert_f32_within_bounds(out, ref)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    if (b, sq, skv) == (49, 257, 257):
+        short = TA.attention_plain(q, k[:, :, :-1], v[:, :, :-1],
+                                   TA._bias_or_zeros(None, k[:, :, :-1], None), scale)
+        diff = short - ref
+        assert (diff.norm() / ref.norm()).item() > F32_REL_L2_BOUND
+
+
+@pytest.mark.cuda
+def test_f32_bhsd_refuses_what_it_lacks(cuda_device):
+    """The float32 K4 raises on a head dim it is not built for (128), on a
+    gradient (there is no float32 K5), on the lse and on misaligned rows,
+    instead of falling back; nothing is counted."""
+    dev = cuda_device
+    x = torch.zeros(1, 2, 65, 64, device=dev)
+    TA.reset_launch_counts()
+    with pytest.raises(ValueError):
+        TA.flash_attention_bhsd_f32(*(torch.zeros(1, 2, 65, 128, device=dev),) * 3)
+    with pytest.raises(ValueError):
+        TA.flash_attention(x.clone().requires_grad_(), x, x)
+    with pytest.raises(ValueError):
+        TA.flash_attention_bhsd(x, x, x, with_lse=True)
+    odd = torch.zeros(1, 2, 65, 66, device=dev)[..., 1:65]
+    with pytest.raises(ValueError):
+        TA.flash_attention_bhsd_f32(odd, odd, odd)
+    with pytest.raises(TypeError):
+        TA.flash_attention_bhsd_f32(x, x.to(torch.bfloat16), x)
+    assert all(n == 0 for n in TA.launch_counts().values())

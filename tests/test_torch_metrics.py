@@ -51,7 +51,7 @@ def test_evaluate_video_matches_jax():
         print(f"evaluate_video {k}: port {got[k]!r} jax {want[k]!r}")
         assert _rel(got[k], want[k]) <= 1e-6
     vgg, lins = _lpips_weights()
-    got = TQ.evaluate_video(pred, target, lpips_params=TL.convert_lpips(vgg, lins))
+    got = TQ.evaluate_video(pred, target, lpips_params=TL.convert_lpips(vgg, lins, device="cpu"))
     want = JQ.evaluate_video(pred, target, lpips_params=JL.convert_lpips(vgg, lins))
     assert got.keys() == want.keys() and "lpips" in got
     assert _rel(got["lpips"], want["lpips"]) <= 1e-5
@@ -83,15 +83,28 @@ def test_lpips_matches_jax(tmp_path):
     torch.save({k: torch.from_numpy(v) for k, v in vgg.items()}, tmp_path / "vgg.pth")
     renamed = {f"lins.{k}.model.1.weight": v for k, v in enumerate(lins.values())}
     torch.save({k: torch.from_numpy(v) for k, v in renamed.items()}, tmp_path / "lins.pth")
-    params = TL.load_lpips_params(str(tmp_path / "vgg.pth"), str(tmp_path / "lins.pth"))
+    params = TL.load_lpips_params(str(tmp_path / "vgg.pth"), str(tmp_path / "lins.pth"),
+                                  device="cpu")
     got = TL.lpips_video(params, pred, target)
     print(f"lpips_video: port {got!r} jax {want!r} (relative {_rel(got, want):.2e})")
     assert got > 0 and _rel(got, want) <= 1e-5
     a, b = pred.astype(np.float32) * 2 - 1, target.astype(np.float32) * 2 - 1
-    d_t = TL.lpips_distance(TL.convert_lpips(vgg, lins), torch.from_numpy(a),
+    d_t = TL.lpips_distance(TL.convert_lpips(vgg, lins, device="cpu"), torch.from_numpy(a),
                             torch.from_numpy(b)).numpy()
     d_j = np.asarray(JL.lpips_distance(JL.convert_lpips(vgg, lins), a, b))
     np.testing.assert_allclose(d_t, d_j, rtol=1e-5)
     assert TL.lpips_video(params, pred, pred) == 0.0
     with pytest.raises(KeyError, match="lin head 0"):
-        TL.convert_lpips(vgg, {})
+        TL.convert_lpips(vgg, {}, device="cpu")
+
+
+def test_lpips_loaders_require_a_device():
+    """`convert_lpips` and `load_lpips_params` take ``device`` as a keyword
+    with no default: an entry point of the port does not fall back to the
+    CPU."""
+    with pytest.raises(TypeError):
+        TL.convert_lpips({}, {})
+    with pytest.raises(TypeError):
+        TL.load_lpips_params("vgg.pth", "lins.pth")
+    with pytest.raises(TypeError):
+        TL.convert_lpips({}, {}, "cpu")

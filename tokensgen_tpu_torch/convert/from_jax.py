@@ -4,7 +4,11 @@ The trees are the JAX package's flax params as nested dicts of numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params["params"])``). The DiT and the
 resampler get the reference (diffusers) key names that
 `tokensgen_tpu/convert/export.py` (`export_dit`, `export_resampler`) emits, which
-are the port's module names; the VAE has no exporter there and is mapped here
+are the port's module names (the DiT's variants also ``ar_norm*``, which
+`export_dit` does not write, under the names diffusers and the JAX package's
+``convert_dit`` use; a fused ``to_qkv`` / ``vip_to_qkv`` is split into the
+three projections the port keeps); DINOv2 gets HF's ``Dinov2Model`` names;
+the VAE has no exporter there and is mapped here
 onto the port's flax-mirroring names, and the T5 encoder onto the names of
 HF's ``T5EncoderModel`` (the inverse of the JAX package's ``convert_t5``).
 Weights come out as transposed views of the tree's arrays, not copies. Load
@@ -55,6 +59,20 @@ def _conv2d(sd: StateDict, name: str, p) -> None:
         sd[f"{name}.bias"] = _np(p["bias"])
 
 
+def _qkv_lin(sd: StateDict, pre: str, prefix: str, at) -> None:
+    """``{prefix}to_q`` / ``to_k`` / ``to_v`` of an attention tree; a fused
+    ``{prefix}to_qkv`` (Dense or QuantDense, `fuse_qkv_params`) is cut in
+    thirds along its outputs, each output column's scale going with it (so
+    quantized codes stay bit-equal to those of the unfused tree)."""
+    names = [prefix + n for n in ("to_q", "to_k", "to_v")]
+    fused = at.get(prefix + "to_qkv")
+    parts = ([at.get(n) for n in names] if fused is None else
+             [{k: np.split(_np(v), 3, axis=-1)[i] for k, v in fused.items()} for i in range(3)])
+    for name, p in zip(names, parts):
+        if p is not None:
+            _lin(sd, f"{pre}.{name}", p)
+
+
 def _layer(tree, i: int):
     """Layer ``i`` of a scan-stacked block tree (blocks stack on axis 0)."""
     return {k: _layer(v, i) if isinstance(v, dict) else _np(v)[i] for k, v in tree.items()}
@@ -62,13 +80,19 @@ def _layer(tree, i: int):
 
 def dit_state_dict(tree, cfg) -> StateDict:
     """`CogVideoXTransformer` tree -> port state dict (``cfg``: the port's or
-    the JAX package's DiTConfig; only ``num_layers`` and ``vip`` are read).
-    Takes the To2V and the T2To (no VIP, patch size 1) trees, float or
-    quantized by `quantize_dit_params` (load into a model built with the
-    same ``quant``)."""
+    the JAX package's DiTConfig; only ``num_layers`` is read). Takes every
+    variant the tree holds: the To2V and T2To trees, VIP func_types "1"-"4"
+    ("3" has no ``vip_norm*``, "4" adds ``ar_norm1`` / ``ar_norm2``), fused
+    ``to_qkv`` / ``vip_to_qkv`` and mixed layouts (split into to_q / k / v),
+    the raw-token mode's dense ``patch_proj_dense`` (``patch_embed.proj`` as
+    a Linear) and its affine-free output norm, float or quantized by `quantize_dit_params`
+    (load into a model built with the same ``quant``)."""
     sd: StateDict = {}
     _lin(sd, "patch_embed.text_proj", tree["text_proj"])
-    _conv2d(sd, "patch_embed.proj", tree["patch_proj"])
+    if "patch_proj" in tree:
+        _conv2d(sd, "patch_embed.proj", tree["patch_proj"])
+    else:
+        _lin(sd, "patch_embed.proj", tree["patch_proj_dense"])
     if "vip_proj" in tree:
         _lin(sd, "patch_embed.vip_proj", tree["vip_proj"])
     _lin(sd, "time_embedding.linear_1", tree["time_embedding"]["linear_1"])
@@ -76,29 +100,50 @@ def dit_state_dict(tree, cfg) -> StateDict:
     for i in range(cfg.num_layers):
         blk = _layer(tree["blocks"], i)
         pre = f"transformer_blocks.{i}"
-        for norm in ("norm1", "norm2"):
-            _lin(sd, f"{pre}.{norm}.linear", blk[norm]["linear"])
-            _ln(sd, f"{pre}.{norm}.norm", blk[norm]["norm"])
-        at = blk["attn1"]
-        for proj in ("to_q", "to_k", "to_v"):
-            _lin(sd, f"{pre}.attn1.{proj}", at[proj])
-        _lin(sd, f"{pre}.attn1.to_out.0", at["to_out"])
-        _ln(sd, f"{pre}.attn1.norm_q", at["norm_q"]["ln"])
-        _ln(sd, f"{pre}.attn1.norm_k", at["norm_k"]["ln"])
-        _lin(sd, f"{pre}.ff.net.0.proj", blk["ff"]["net_0_proj"])
-        _lin(sd, f"{pre}.ff.net.2", blk["ff"]["net_2"])
-        if cfg.vip is not None:
-            for norm in ("vip_norm1", "vip_norm2"):
+        for norm in ("norm1", "norm2", "vip_norm1", "vip_norm2", "ar_norm1", "ar_norm2"):
+            if norm in blk:
                 _lin(sd, f"{pre}.{norm}.linear", blk[norm]["linear"])
                 _ln(sd, f"{pre}.{norm}.norm", blk[norm]["norm"])
-            for proj in ("vip_to_q", "vip_to_k", "vip_to_v"):
-                _lin(sd, f"{pre}.attn1.processor.{proj}", at[proj])
-            _ln(sd, f"{pre}.attn1.processor.vip_norm_q", at["vip_norm_q"]["ln"])
-            _ln(sd, f"{pre}.attn1.processor.vip_norm_k", at["vip_norm_k"]["ln"])
+        at = blk["attn1"]
+        _qkv_lin(sd, f"{pre}.attn1", "", at)
+        _lin(sd, f"{pre}.attn1.to_out.0", at["to_out"])
+        for ln in ("norm_q", "norm_k"):
+            if ln in at:
+                _ln(sd, f"{pre}.attn1.{ln}", at[ln]["ln"])
+        _qkv_lin(sd, f"{pre}.attn1.processor", "vip_", at)
+        for ln in ("vip_norm_q", "vip_norm_k"):
+            if ln in at:
+                _ln(sd, f"{pre}.attn1.processor.{ln}", at[ln]["ln"])
+        _lin(sd, f"{pre}.ff.net.0.proj", blk["ff"]["net_0_proj"])
+        _lin(sd, f"{pre}.ff.net.2", blk["ff"]["net_2"])
     _ln(sd, "norm_final", tree["norm_final"])
     _lin(sd, "norm_out.linear", tree["norm_out"]["linear"])
-    _ln(sd, "norm_out.norm", tree["norm_out"]["norm"])
-    _lin(sd, "proj_out", tree["proj_out"])
+    _ln(sd, "norm_out.norm", tree["norm_out"].get("norm", {}))
+    if "proj_out" in tree:
+        _lin(sd, "proj_out", tree["proj_out"])
+    return sd
+
+
+def dinov2_state_dict(tree, num_layers: int) -> StateDict:
+    """`DINOv2Encoder` tree -> the port's `models.dinov2` state dict (the
+    names of HF's ``Dinov2Model``, as the JAX package's ``convert_dinov2``
+    reads them; its ``num_layers - 1`` blocks, the ones the penultimate
+    hidden state runs)."""
+    sd: StateDict = {"embeddings.cls_token": _np(tree["cls_token"]),
+                     "embeddings.position_embeddings": _np(tree["position_embeddings"])}
+    _conv2d(sd, "embeddings.patch_embeddings.projection", tree["patch_proj"])
+    for i in range(num_layers - 1):
+        blk, pre = tree[f"block_{i}"], f"encoder.layer.{i}"
+        _ln(sd, f"{pre}.norm1", blk["norm1"])
+        _ln(sd, f"{pre}.norm2", blk["norm2"])
+        for name, proj in (("q", "attention.attention.query"), ("k", "attention.attention.key"),
+                           ("v", "attention.attention.value"),
+                           ("out", "attention.output.dense"), ("fc1", "mlp.fc1"),
+                           ("fc2", "mlp.fc2")):
+            _lin(sd, f"{pre}.{proj}", blk[name])
+        if "lambda1" in blk:
+            sd[f"{pre}.layer_scale1.lambda1"] = _np(blk["lambda1"])
+            sd[f"{pre}.layer_scale2.lambda1"] = _np(blk["lambda2"])
     return sd
 
 

@@ -4,7 +4,10 @@
 * `read_safetensors_dir`: every top-level ``*.safetensors`` of a dir as one
   state dict, as the JAX inference CLI reads ``pretrained_model_name_or_path``
   for the DiT (diffusers names, which are the port's module names, so the
-  dict loads with ``load_state_dict(strict=True)``);
+  dict loads with ``load_state_dict(strict=True)``; a DiT variant's too:
+  ``ar_norm1`` / ``ar_norm2`` of VIP func_type "4", no ``vip_norm*`` for "3",
+  ``patch_embed.proj`` as a Linear in the raw-token mode), and the DINOv2
+  encoder's HF dir;
 * `load_pca_artifact`: a pickled torch PCA module (``pca.pt``) -> `PCAState`;
 * `load_gen_pca`: the gen workload's ``longvgen_pca`` safetensors
   (``mean_``, ``components_``) and, through `load_token_stats`, the

@@ -3,7 +3,8 @@
 Port of `tokensgen_tpu/core/rope.py`. The static tables are built in numpy
 exactly as there and returned as float32 tensors on ``device``;
 `get_3d_rotary_pos_embed_v2_torch` builds them from grids that are tensors
-(the FIFO sampler's rolling temporal grids).
+(the FIFO sampler's rolling temporal grids). The absolute sin/cos tables of
+the CogVideoX-2b mode (`get_3d_sincos_pos_embed`, `_v2`) are numpy float32.
 """
 
 from __future__ import annotations
@@ -131,3 +132,60 @@ def get_3d_rotary_pos_embed_v2_torch(
         w = fw[i].expand(*batch, T, H, W, dim_w)
         out.append(torch.cat([t, h, w], dim=-1).reshape(*batch, T * H * W, -1))
     return out[0], out[1]
+
+
+# ---------------------------------------------------------------------------
+# sin/cos absolute positional embeddings (CogVideoX-2b style + VIP grids)
+# ---------------------------------------------------------------------------
+
+
+def _sincos_from_grid(embed_dim: int, pos: np.ndarray) -> np.ndarray:
+    """[*, D] sincos table: concat(sin, cos) halves, in float64."""
+    assert embed_dim % 2 == 0
+    omega = np.arange(embed_dim // 2, dtype=np.float64) / (embed_dim / 2.0)
+    omega = 1.0 / 10000.0**omega
+    out = np.einsum("s,d->sd", pos.reshape(-1).astype(np.float64), omega)
+    return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+
+def _2d_sincos_from_grid(embed_dim: int, grid: np.ndarray) -> np.ndarray:
+    assert embed_dim % 2 == 0
+    emb_h = _sincos_from_grid(embed_dim // 2, grid[0])  # over w-major grid rows
+    emb_w = _sincos_from_grid(embed_dim // 2, grid[1])
+    return np.concatenate([emb_h, emb_w], axis=1)
+
+
+def get_3d_sincos_pos_embed(
+    embed_dim: int,
+    spatial_size: Tuple[int, int],  # (W, H)
+    temporal_size: int,
+    spatial_interpolation_scale: float = 1.0,
+    temporal_interpolation_scale: float = 1.0,
+) -> np.ndarray:
+    """[T, H*W, D] 3-D sincos table; D split 1/4 temporal + 3/4 spatial."""
+    grid_h = np.arange(spatial_size[1], dtype=np.float32) / spatial_interpolation_scale
+    grid_w = np.arange(spatial_size[0], dtype=np.float32) / spatial_interpolation_scale
+    grid_t = np.arange(temporal_size, dtype=np.float32) / temporal_interpolation_scale
+    return get_3d_sincos_pos_embed_v2(embed_dim, grid_h, grid_w, grid_t)
+
+
+def get_3d_sincos_pos_embed_v2(
+    embed_dim: int,
+    grid_h: np.ndarray,
+    grid_w: np.ndarray,
+    grid_t: np.ndarray,
+) -> np.ndarray:
+    """[T, H*W, D] sincos table from raw grids (the per-sample VIP
+    positional embeddings keyed on rolling ``grid_t``)."""
+    if embed_dim % 4 != 0:
+        raise ValueError("`embed_dim` must be divisible by 4")
+    dim_spatial = 3 * embed_dim // 4
+    dim_temporal = embed_dim // 4
+    w_mesh, h_mesh = np.meshgrid(grid_w, grid_h)  # w varies fastest, rows are h
+    grid = np.stack([w_mesh, h_mesh], axis=0).reshape(2, 1, grid_h.shape[0], grid_w.shape[0])
+    pe_spatial = _2d_sincos_from_grid(dim_spatial, grid)  # [H*W, 3D/4]
+    pe_temporal = _sincos_from_grid(dim_temporal, grid_t)  # [T, D/4]
+    t_len, hw = grid_t.shape[0], grid_h.shape[0] * grid_w.shape[0]
+    pe_spatial = np.broadcast_to(pe_spatial[None], (t_len, hw, dim_spatial))
+    pe_temporal = np.broadcast_to(pe_temporal[:, None, :], (t_len, hw, dim_temporal))
+    return np.concatenate([pe_temporal, pe_spatial], axis=-1).astype(np.float32)

@@ -131,6 +131,20 @@ def pred_original_sample(sched, model_output, sample, t, prediction_type: Option
     raise ValueError(prediction_type)
 
 
+def pred_epsilon(sched, model_output, sample, t, prediction_type: Optional[str] = None):
+    """Noise (eps) estimate from a model output at (vector) timestep t."""
+    prediction_type = prediction_type or sched.config.prediction_type
+    ap = _bcast(_alpha_at(sched, t), sample)
+    bp = 1.0 - ap
+    if prediction_type == "epsilon":
+        return model_output
+    if prediction_type == "sample":
+        return (sample - ap**0.5 * model_output) / torch.clamp_min(bp, 1e-12) ** 0.5
+    if prediction_type == "v_prediction":
+        return ap**0.5 * model_output + bp**0.5 * sample
+    raise ValueError(prediction_type)
+
+
 def ddim_step(sched, model_output, sample, t, prev_t) -> Tuple[torch.Tensor, torch.Tensor]:
     """Deterministic DDIM step -> (prev_sample, pred_x0)."""
     x0 = pred_original_sample(sched, model_output, sample, t)
@@ -139,6 +153,17 @@ def ddim_step(sched, model_output, sample, t, prev_t) -> Tuple[torch.Tensor, tor
     a_t = ((1.0 - ap_prev) / (1.0 - ap)) ** 0.5
     b_t = ap_prev**0.5 - ap**0.5 * a_t
     return a_t * sample + b_t * x0, x0
+
+
+def ddim_invert_step(sched, model_output, sample, t, next_t) -> torch.Tensor:
+    """Deterministic DDIM inversion step x_t -> x_{next_t}, next_t noisier:
+    the sample at t split into (x0, eps) under the model's prediction type,
+    then recomposed at the higher noise level,
+    ``sqrt(ap_next)·x0 + sqrt(1-ap_next)·eps``."""
+    x0 = pred_original_sample(sched, model_output, sample, t)
+    eps = pred_epsilon(sched, model_output, sample, t)
+    ap_next = _bcast(_alpha_at(sched, next_t), sample)
+    return ap_next**0.5 * x0 + (1.0 - ap_next) ** 0.5 * eps
 
 
 def dpm_step(

@@ -23,11 +23,16 @@ Per item it writes ``{name}_source.mp4`` (edit), ``{name}_fifo.mp4``,
 ``{name}_orig.mp4``, ``{name}_latents.npy``, on gen ``{name}_tokens.npy``,
 and for each `cache_idx` track ``{name}_cache{i}.mp4`` into a timestamped
 run dir, at `output_fps`. ``quant`` (w8a16 / w8a8) and ``quant_attn`` run as
-configured. ``--smoke`` runs the tiny geometry of the JAX package's smoke
-(and synthesizes the source video of an edit item that has none); without
-it the full CogVideoX-5b width runs. Not ported, each raising
-NotImplementedError: `queue_devices` / `sp_devices` > 1 (ROADMAP A12), VIP
-func_types "2"-"4" (A4), the DINOv2 path (A15).
+configured; ``fuse_qkv`` / ``fuse_vip_qkv`` are accepted and ignored (the
+port keeps the DiT's q / k / v projections apart: ROADMAP, deliberate
+differences). ``use_vae_as_encoder: false`` conditions on the DINOv2 image
+encoder (`image_encoder_path`, an HF dir, else random weights: DINOv2-large,
+tiny under ``--smoke``). ``--smoke`` runs the tiny
+geometry of the JAX package's smoke (and synthesizes the source video of an
+edit item that has none); without it the full CogVideoX-5b width runs. The
+CLI builds VIP func_type "1" (the JAX CLI does, whatever the config says)
+and refuses another value; `queue_devices` / `sp_devices` > 1 raise
+NotImplementedError (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from tokensgen_tpu_torch.convert.torch_weights import load_gen_pca, read_safeten
 from tokensgen_tpu_torch.core import pca as pca_lib
 from tokensgen_tpu_torch.core import schedule as S
 from tokensgen_tpu_torch.data.video_io import load_video, write_video
+from tokensgen_tpu_torch.models.dinov2 import DINOv2Config, DINOv2Encoder, load_dinov2
 from tokensgen_tpu_torch.models.dit import (CogVideoXTransformer, DiTConfig, VIPConfig,
                                             graft_vip_params, quantize_dit)
 from tokensgen_tpu_torch.models.resampler import Resampler, ResamplerConfig
@@ -134,12 +140,13 @@ def _configs(cfg, smoke: bool, device: torch.device):
     vp = cfg.get("video_ipadapter_params", {})
     rp = vp.get("resampler_params", {})
     if vp.get("func_type", "1") != "1":
-        raise NotImplementedError(f"VIP func_type {vp.get('func_type')!r} is not ported yet "
-                                  "(ROADMAP A4)")
-    if not cfg.get("use_vae_as_encoder", True):
-        raise NotImplementedError("the DINOv2 conditioning path is not ported yet (ROADMAP A15)")
+        raise NotImplementedError(
+            f"VIP func_type {vp.get('func_type')!r}: this CLI builds func_type \"1\", as the JAX "
+            "CLI does whatever the config says (ROADMAP, deliberate differences); build another "
+            "variant through models.dit.VIPConfig")
     vip_scale = (vp.get("scale") or [1.0])[0]
     quant = dict(quant=cfg.get("quant") or None, quant_attn=bool(cfg.get("quant_attn", False)))
+    use_vae = bool(cfg.get("use_vae_as_encoder", True))
     renoise = cfg.get_path("sampling_params.tail_renoise_mode", "xt")
     if smoke:
         # the JAX package's smoke geometry; on a card, heads of 64 in bf16,
@@ -157,7 +164,7 @@ def _configs(cfg, smoke: bool, device: torch.device):
         pcfg = To2VConfig(height=32, width=48, num_frames_per_chunk=9, num_inference_steps=6,
                           num_partitions=2, vip_scale=vip_scale,
                           use_dynamic_cfg=cfg.get("use_dynamic_cfg", False),
-                          tail_renoise_mode=renoise)
+                          tail_renoise_mode=renoise, use_vae_as_encoder=use_vae)
         return dcfg, rcfg, vcfg, pcfg
     vc = VIPConfig(length=vp.get("length", 480), scale=vip_scale,
                    output_dim=rp.get("output_dim", 3072),
@@ -178,7 +185,7 @@ def _configs(cfg, smoke: bool, device: torch.device):
         lookahead_denoising=cfg.get_path("sampling_params.lookahead_denoising", True),
         use_adaptive_padding=cfg.get_path("sampling_params.use_adaptive_padding", True),
         vip_scale=vip_scale, use_dynamic_cfg=cfg.get("use_dynamic_cfg", False),
-        tail_renoise_mode=renoise)
+        tail_renoise_mode=renoise, use_vae_as_encoder=use_vae)
     return dcfg, rcfg, vcfg, pcfg
 
 
@@ -195,6 +202,34 @@ def load_checkpoint_dit(ckpt: Optional[str], float_cfg: DiTConfig,
     return load_on_device(lambda: CogVideoXTransformer(float_cfg), sd, device)
 
 
+def build_image_encoder(cfg, smoke: bool, rcfg: ResamplerConfig, device, prov: dict):
+    """The DINOv2 encoder of ``use_vae_as_encoder: false``, on ``device``:
+    DINOv2-large, or under ``--smoke`` the tiny one (on a card as wide as the
+    resampler's input, in heads of 64); its weights from the HF dir
+    `image_encoder_path` when that dir exists, else random from seed 7."""
+    if not smoke:
+        ecfg = DINOv2Config.large()
+    elif device.type == "cuda":
+        ecfg = DINOv2Config.tiny(hidden_size=rcfg.embedding_dim,
+                                 num_heads=rcfg.embedding_dim // 64)
+    else:
+        ecfg = DINOv2Config.tiny()
+    enc_dir = cfg.get("image_encoder_path")
+    if enc_dir and os.path.isdir(enc_dir):
+        enc = load_dinov2(enc_dir, ecfg, device=device)
+        print(f"loaded DINOv2 image encoder from {enc_dir}", flush=True)
+        prov["dinov2"] = "checkpoint"
+    else:
+        enc = build_on_device(lambda: DINOv2Encoder(ecfg), device,
+                              torch.Generator(device=device).manual_seed(7))
+        prov["dinov2"] = "random"
+    if ecfg.hidden_size != rcfg.embedding_dim:
+        raise ValueError(
+            f"the DINOv2 encoder's width {ecfg.hidden_size} is not the resampler's input width "
+            f"{rcfg.embedding_dim}: set video_ipadapter_params.resampler_params.embedding_dim")
+    return enc
+
+
 def build_pipeline(cfg, smoke: bool, device):
     """-> (To2VPipeline, DiTConfig) on ``device``. Weights, as the JAX CLI
     takes them: `converted_weights_dir`'s ``vae`` / ``resampler`` /
@@ -202,7 +237,8 @@ def build_pipeline(cfg, smoke: bool, device):
     of `pretrained_model_name_or_path` (diffusers layout, VIP keys
     included); else random weights made on ``device`` from the config's
     ``seed`` (the DiT's VIP branch grafted from its base attention). The DiT
-    is quantized under ``quant`` last."""
+    is quantized under ``quant`` last. ``use_vae_as_encoder: false`` adds the DINOv2 encoder
+    (`build_image_encoder`)."""
     device = torch.device(device)
     dcfg, rcfg, vcfg, pcfg = _configs(cfg, smoke, device)
     gen = torch.Generator(device=device).manual_seed(int(cfg.get("seed", 42)))
@@ -251,9 +287,13 @@ def build_pipeline(cfg, smoke: bool, device):
     if dcfg.quant:
         print(f"quantized DiT dense projections: {dcfg.quant} (quant_attn {dcfg.quant_attn})",
               flush=True)
+    image_encoder = None
+    if not pcfg.use_vae_as_encoder:
+        image_encoder = build_image_encoder(cfg, smoke, rcfg, device, prov)
     _report_weight_provenance(prov, smoke)
     sched = S.make_schedule(S.ScheduleConfig(), device=device)
-    return To2VPipeline(pcfg, dcfg, dit, rcfg, resampler, vae, sched, device=device), dcfg
+    return To2VPipeline(pcfg, dcfg, dit, rcfg, resampler, vae, sched, device=device,
+                        image_encoder=image_encoder), dcfg
 
 
 def t2to_pca(cfg, smoke: bool, token_dim: int, device):

@@ -1,8 +1,9 @@
 """Attention for the joint [text‖video‖vip] sequence: table API, plain PyTorch
 versions, and the hand-written Hopper kernels that replace the Pallas TPU ones.
 
-Port of `tokensgen_tpu/kernels/attention.py`. Seven kernel entry points, one per
-TPU kernel on the edit, training and generation paths, each with a launch counter
+Port of `tokensgen_tpu/kernels/attention.py`. Eight kernel entry points, one per
+TPU kernel on the edit, training and generation paths (K4 twice: in bfloat16
+and in float32), each with a launch counter
 (``fn.launches``; K1, K4 and K6 also count their logsumexp launches in
 ``fn.lse_launches``):
 
@@ -16,13 +17,17 @@ flash_attention_bhsd           `_flash_kernel` :54 (K4)                       mo
 attention_backward             `_packed_bwd_kernel` :1220 (K5)                the two autograd Functions
 fused_attention_joint_int8     `_flash_packed_kernel` :586, int8_scores (K7)  models/dit.py under quant_attn
 fused_attention_bhsd           `_flash_fused_kernel` :256 (K6)                odd heads, head dim != 64, 4-D
+flash_attention_bhsd_f32       `_flash_kernel` :54, float32 operands (K4)     models/dinov2.py
 =============================  =============================================  ============================
 
-The public dispatchers are those of the JAX package: `flash_attention` (K4)
-and `fused_flash_attention`, which routes as `_fused_dispatch` does. Merged
-[B, S, H*64] operands with an even head count take the packed route (the
-JAX package's head-pair kernel): K1, K2 or K3 by shape, K7 for the joint
-calls that ask for ``int8_scores``. Every other call (odd heads, a head dim
+The public dispatchers are those of the JAX package: `flash_attention` (K4,
+by dtype: bfloat16 to its TMA / wgmma body, float32 to a CUDA-core body of
+its own, `flash_attention_bhsd_f32`; there is no float32 backward, so a
+float32 card call that needs a gradient raises) and `fused_flash_attention`,
+which routes as `_fused_dispatch` does. Merged [B, S, H*64] operands with
+an even head count take the packed route (the JAX package's head-pair
+kernel): K1, K2 or K3 by shape, K7 for the joint calls that ask for
+``int8_scores``. Every other call (odd heads, a head dim
 other than 64, 4-D operands) is split into its [B, H, S, D] view and runs K6
 (`fused_attention_bhsd`), as the JAX package runs `_flash_fused_tpu`. When
 autograd needs a gradient (grad mode on and an input that requires grad),
@@ -39,8 +44,9 @@ with the probes, `csrc/flash_fwd.cuh`, K3's and K4's split-KV body,
 splits, each split's f32 partials merged by a combine pass), K1's, K6's and
 K7's overlapped body on the same machinery (K7's with int8 scores) and K2's
 K / V-resident form of it, `csrc/flash_ws.cuh`, and K5's one-pass backward
-at head dim 64, `csrc/flash_bwd.cuh`. K1, K2, K3 and K6 run their prologues
-once per row in a pass of their own (`prologue_pass_plain`'s function) into
+at head dim 64, `csrc/flash_bwd.cuh`; the float32 K4 is
+`csrc/attention_f32.cu`, a library of its own. K1, K2, K3 and K6 run their
+prologues once per row in a pass of their own (`prologue_pass_plain`'s function) into
 a bf16 workspace; K7 quantizes in its pass (`quantize_pairs_plain`'s
 function) into int8 codes and scales.
 `build_kernels` compiles them with
@@ -49,8 +55,9 @@ nvcc (`kernels/build.py`) into a shared library with a plain C interface
 tensor's device: a CPU tensor takes the plain version (`attention_fused_plain` / `attention_plain`,
 exact softmax, as `_xla_attention_fused` / `_xla_attention`); a CUDA tensor
 launches the kernel or raises — on a failed build, a launch error, a head dim
-the kernel does not take (64; K4, K5, K6: 16, 32, 64, 128) or a dtype other
-than bf16. No path falls back.
+the kernel does not take (64; K4, K5, K6: 16, 32, 64, 128; the float32 K4:
+16, 32, 64) or a dtype other than bf16 (float32 too for K4). No path falls
+back.
 
 The prologue tables are those of the JAX package: ``(cosg, sin, add, Rg)``
 from :func:`make_prologue`, with ``prologue(x) = LN0(x)∘cosg + (LN0(x)@Rg)∘sin
@@ -77,6 +84,7 @@ SMALLKV_BLOCK_Q = 256  # q rows per tile of K2's body (csrc WS_BM)
 BWD_KV_BLOCK = 128  # keys per block of K5's one-pass body at head dim 64 (csrc BW_BKV)
 BWD_Q_TILE = 128  # q rows per tile of its sweep (csrc BW_BQ)
 HEAD_DIMS = (16, 32, 64, 128)  # head dims K4, K5 and K6 are built for (K1-K3, K7: 64)
+F32_HEAD_DIMS = (16, 32, 64)  # head dims the float32 K4 is built for
 MAX_SCORE_BYTES = 1 << 31  # f32 score tensor per q-row chunk of `attention_plain`
 # K3's prologue pass writes rows in blocks of PRO_ROWS (csrc attention.cu)
 PROLOGUE_ROWS = 32
@@ -597,6 +605,17 @@ class _Int8Args(ctypes.Structure):
     )
 
 
+class _F32Args(ctypes.Structure):
+    """Mirror of `TGF32Args` in csrc/attention_f32.cu (every field 8 bytes)."""
+
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in ("q", "k", "v", "o", "bias")]
+        + [(f"{n}_{s}", ctypes.c_int64) for n in ("q", "k", "v", "o") for s in ("sb", "ss", "sh")]
+        + [(n, ctypes.c_int64) for n in ("b", "h", "sq", "skv")]
+        + [("qscale", ctypes.c_double)]
+    )
+
+
 _K2_ENTRY_POINT = "tg_attention_cross_smallkv"  # q tiles per block, prologue workspace
 _BWD_ENTRY_POINT = "tg_attention_bwd"  # head dim, then (at 64) the lse / dsum table and dq's sums
 _INT8_ENTRY_POINT = "tg_attention_joint_int8"  # splits, split_len, split workspace
@@ -628,11 +647,20 @@ def _bind(lib) -> None:
 
 
 _Library = _build.KernelLibrary("attention.cu", _bind)  # the compiled kernels, one per process
+_F32_ENTRY_POINT = "tg_attention_bhsd_f32"  # head dim
+
+
+def _bind_f32(lib) -> None:
+    _build.bind(lib, _F32_ENTRY_POINT, ctypes.POINTER(_F32Args), ctypes.c_int64, ctypes.c_void_p)
+
+
+_F32Library = _build.KernelLibrary("attention_f32.cu", _bind_f32)  # the float32 K4
 
 
 def build_kernels(force: bool = False) -> Path:
     """Compile csrc/attention.cu for sm_90a with nvcc (cached by source hash)
-    and load it. Returns the library path; raises with nvcc's output on failure."""
+    and load it. Returns the library path; raises with nvcc's output on failure.
+    The float32 K4's csrc/attention_f32.cu builds at its first use."""
     return _Library.build(force)
 
 
@@ -826,6 +854,39 @@ def _launch_bhsd(q, k, v, key_bias, scale: float, with_lse: bool = False,
     _build.check_launch(_K4_ENTRY_POINT, getattr(lib, _K4_ENTRY_POINT)(
         ctypes.byref(a), d, *plan, ws, _build.stream_of(q)))
     return (out, lse) if with_lse else out
+
+
+def _launch_bhsd_f32(q, k, v, key_bias, scale: float):
+    """The float32 K4 on [B, H, S, D] float32 operands, D in `F32_HEAD_DIMS`,
+    each with a contiguous head dim and 16-byte aligned rows; returns the
+    contiguous output."""
+    d = q.shape[-1]
+    if d not in F32_HEAD_DIMS:
+        raise ValueError(f"{_F32_ENTRY_POINT}: head dim {d} not in {F32_HEAD_DIMS}")
+    lib = _F32Library.get()
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    a = _F32Args()
+    keep = [out]
+    for name, x in (("q", q), ("k", k), ("v", v), ("o", out)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name}: the float32 K4 takes float32 operands, got {x.dtype}")
+        if x.dim() != 4 or x.shape[3] != d or x.shape[:2] != q.shape[:2]:
+            raise ValueError(f"{name}: expected [B, H, S, {d}], got {tuple(x.shape)}")
+        sb, sh, ss, sc = x.stride()
+        if sc != 1 or sb % 4 or sh % 4 or ss % 4 or x.data_ptr() % 16:
+            raise ValueError(f"{name}: head dim must be contiguous with 16-byte aligned rows")
+        setattr(a, name, x.data_ptr())
+        setattr(a, f"{name}_sb", sb)
+        setattr(a, f"{name}_ss", ss)
+        setattr(a, f"{name}_sh", sh)
+    if k.shape != v.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
+    a.b, a.h, a.sq, a.skv = q.shape[0], q.shape[1], q.shape[2], k.shape[2]
+    a.bias = _bias_ptr(key_bias, a.b, a.skv, keep)
+    a.qscale = scale * _LOG2E
+    _build.check_launch(_F32_ENTRY_POINT, getattr(lib, _F32_ENTRY_POINT)(
+        ctypes.byref(a), d, _build.stream_of(q)))
+    return out
 
 
 def attn_args(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k, qscale: float,
@@ -1046,16 +1107,36 @@ def flash_attention_bhsd(q, k, v, key_bias=None, scale: Optional[float] = None,
     """K4, plain [B, H, S, D] attention with a folded scale and an optional
     additive key bias (the resampler's Perceiver attention); ``with_lse`` as
     in `fused_attention_joint`. The card takes D in `HEAD_DIMS` (another
-    raises ValueError); the plain version any D."""
+    raises ValueError); the plain version any D. Float32 operands on the card
+    go to `flash_attention_bhsd_f32` (no lse)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
         return attention_plain(q, k, v, _bias_or_zeros(key_bias, k, None), scale,
                                with_lse=with_lse)
     _require_cuda(k, v)
+    if q.dtype == torch.float32:
+        if with_lse:
+            raise ValueError("flash_attention_bhsd: the float32 K4 writes no lse (there is no "
+                             "float32 backward)")
+        return flash_attention_bhsd_f32(q, k, v, key_bias, scale)
     res = _launch_bhsd(q, k, v, key_bias, scale, with_lse)
     flash_attention_bhsd.launches += 1
     flash_attention_bhsd.lse_launches += int(with_lse)
     return res
+
+
+def flash_attention_bhsd_f32(q, k, v, key_bias=None, scale: Optional[float] = None):
+    """K4 on float32 [B, H, S, D] operands (the DINOv2 encoder's attention),
+    D in `F32_HEAD_DIMS` on the card: every product and the softmax in
+    float32 on the CUDA cores; optional additive f32 key bias [B, Skv]. The
+    plain version (`attention_plain` in float32) any D. Inference only."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, _bias_or_zeros(key_bias, k, None), scale)
+    _require_cuda(k, v)
+    out = _launch_bhsd_f32(q, k, v, key_bias, scale)
+    flash_attention_bhsd_f32.launches += 1
+    return out
 
 
 def attention_backward(q, k, v, g, lse, dsum, key_bias=None, heads: Optional[int] = None,
@@ -1124,7 +1205,7 @@ def fused_attention_bhsd(q, k, v, tabs_q, tabs_k, key_bias=None, eps: float = 1e
 
 KERNEL_ENTRY_POINTS = (fused_attention_joint, fused_attention_cross_smallkv,
                        fused_attention_cross_smallq, flash_attention_bhsd, attention_backward,
-                       fused_attention_joint_int8, fused_attention_bhsd)
+                       fused_attention_joint_int8, fused_attention_bhsd, flash_attention_bhsd_f32)
 LSE_ENTRY_POINTS = (fused_attention_joint, flash_attention_bhsd, fused_attention_bhsd)
 
 
@@ -1287,9 +1368,13 @@ def _grad_needed(*xs) -> bool:
 
 def flash_attention(q, k, v, key_bias=None, scale: Optional[float] = None):
     """[B, H, Sq, D] x [B, H, Skv, D] attention (the JAX `flash_attention`):
-    K4, or its autograd Function when a gradient is needed."""
+    K4 (bfloat16 or float32), or its autograd Function when a gradient is
+    needed; float32 operands on the card have no backward and raise then."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if _grad_needed(q, k, v, key_bias):
+        if q.is_cuda and q.dtype == torch.float32:
+            raise ValueError("flash_attention: float32 operands on the card take the float32 K4, "
+                             "which has no backward (inference only)")
         return _BhsdAttention.apply(q, k, v, key_bias, scale)
     return flash_attention_bhsd(q, k, v, key_bias, scale)
 

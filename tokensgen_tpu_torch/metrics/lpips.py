@@ -64,7 +64,7 @@ def lpips_distance(params: Dict, a: torch.Tensor, b: torch.Tensor) -> torch.Tens
     return total
 
 
-def convert_lpips(vgg_sd: Dict, lin_sd: Dict, device="cpu") -> Dict:
+def convert_lpips(vgg_sd: Dict, lin_sd: Dict, *, device) -> Dict:
     """torchvision ``vgg16().features`` weights (``features.{i}.weight`` /
     ``.bias``) and the lpips package's lin heads (``lin{k}.model.1.weight``
     or ``lins.{k}.model.1.weight``) -> ``{"features": [(weight, bias)] * 13,
@@ -85,13 +85,13 @@ def convert_lpips(vgg_sd: Dict, lin_sd: Dict, device="cpu") -> Dict:
     return {"features": feats, "lins": lins}
 
 
-def load_lpips_params(vgg_path: str, lins_path: str, device="cpu") -> Dict:
+def load_lpips_params(vgg_path: str, lins_path: str, *, device) -> Dict:
     """`convert_lpips` of the two torch artifacts: a torchvision VGG16 state
     dict and the lpips package's ``weights/v0.1/vgg.pth``."""
     vgg_sd = torch.load(vgg_path, map_location="cpu", weights_only=True)
     lin_sd = torch.load(lins_path, map_location="cpu", weights_only=True)
     return convert_lpips({k: v.numpy() for k, v in vgg_sd.items()},
-                         {k: v.numpy() for k, v in lin_sd.items()}, device)
+                         {k: v.numpy() for k, v in lin_sd.items()}, device=device)
 
 
 def lpips_video(params: Dict, pred: np.ndarray, target: np.ndarray) -> float:

@@ -1,4 +1,4 @@
-"""CogVideoX 3-D diffusion transformer with the VIP branch (func_type "1").
+"""CogVideoX 3-D diffusion transformer with the VIP branch.
 
 Port of `tokensgen_tpu/models/dit.py`. Module and parameter names follow the
 reference (diffusers) layout that `tokensgen_tpu.convert.export.export_dit`
@@ -11,11 +11,13 @@ inside the kernels as prologue tables, and under autograd the backward is
 the K5 kernel.
 
 Covered: rotary models (CogVideoX-5b, and the T2To clone with patch size 1)
-with the output projection, VIP func_type "1", and the int8 serving modes
-(``quant`` w8a16 / w8a8 for the block projections via `quantize_dit`,
-``quant_attn`` for the int8-score joint attention kernel). The sincos (2b)
-path, raw-token output, func_types "2"-"4" and fused qkv are later work and
-raise.
+and the sincos CogVideoX-2b mode (absolute 3-D sin/cos video embeddings,
+``vip_pos_embedding``, the final norm on the video only); the output
+projection or the raw-token output mode (``use_output_projection=False``:
+a dense patch embedding and a non-affine output norm); VIP func_types
+"1"-"4" (`VIPConfig`); and the int8 serving modes (``quant`` w8a16 /
+w8a8 for the block projections via `quantize_dit`, ``quant_attn`` for the
+int8-score joint attention kernel).
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from tokensgen_tpu_torch.core.rope import Rope
-from tokensgen_tpu_torch.kernels.attention import fused_flash_attention, make_prologue, slice_tabs
+from tokensgen_tpu_torch.core.rope import Rope, get_3d_sincos_pos_embed
+from tokensgen_tpu_torch.kernels.attention import (concat_tabs, fused_flash_attention,
+                                                   make_prologue, slice_tabs)
 from tokensgen_tpu_torch.models.layers import (
     AdaLNZero,
     AdaLayerNormOut,
@@ -43,12 +46,29 @@ from tokensgen_tpu_torch.models.layers import (
     timestep_sinusoidal,
 )
 
+FUNC_TYPES = ("1", "2", "3", "4")
+
 
 @dataclasses.dataclass(frozen=True)
 class VIPConfig:
+    """The VIP conditioning branch. ``func_type`` selects the processor:
+      "1": [text‖video]→vip cross-attention added with ``scale``, the vip
+          stream attends [text‖video‖vip];
+      "2": video-only queries for the cross-attention (text untouched by
+          vip), the vip stream attends [video‖vip];
+      "3": the video→vip cross-attention only; the vip stream passes
+          through the blocks unchanged (no vip AdaLN);
+      "4": the leading ``ar_length`` video tokens form an autoregressive
+          context stream with its own AdaLN, [text‖video] attends them as
+          well (added with ``scale_ar``), and one joint [ar‖vip] ->
+          [text‖video‖ar‖vip] attention serves both streams; the ar frames
+          are dropped from the prediction."""
+
     length: int = 480  # vip tokens per forward = 5 query-frames x 8 x 12
     scale: float = 1.0
+    scale_ar: float = 1.0
     func_type: str = "1"
+    ar_length: int = 0  # "4" only: leading video tokens forming the ar stream
     output_dim: int = 3072  # resampler output dim feeding vip_proj
     num_temporal_queries: int = 4
     num_height_queries: int = 8
@@ -70,6 +90,8 @@ class DiTConfig:
     sample_frames: int = 49
     temporal_compression_ratio: int = 4
     max_text_seq_length: int = 226
+    spatial_interpolation_scale: float = 1.875
+    temporal_interpolation_scale: float = 1.0
     use_rotary_positional_embeddings: bool = True
     use_output_projection: bool = True
     attention_bias: bool = True
@@ -80,6 +102,15 @@ class DiTConfig:
     # package): under autograd each block keeps only its inputs and runs its
     # forward again in the backward
     remat: bool = False
+    # accepted for the JAX package's configs and ignored (the same math
+    # either way): the JAX package runs the joint feed-forward in ff_chunks
+    # sequence chunks to fit a 16 GB chip, and under fuse_qkv / fuse_vip_qkv
+    # one to_qkv Linear instead of to_q / to_k / to_v; the port runs the FF
+    # whole and keeps the three projections (`convert/from_jax.py` splits a
+    # fused tree)
+    ff_chunks: int = 1
+    fuse_qkv: bool = False
+    fuse_vip_qkv: bool = False
     # int8 serving modes (the JAX package's fields): None | "w8a16" | "w8a8"
     # for the per-block attention / FF projections (`quantize_dit` turns a
     # float model into that layout), and the int8 score product in the joint
@@ -95,6 +126,14 @@ class DiTConfig:
     def cogvideox_5b(cls, **kw) -> "DiTConfig":
         defaults = dict(num_attention_heads=48, num_layers=42,
                         use_rotary_positional_embeddings=True)
+        defaults.update(kw)
+        return cls(**defaults)
+
+    @classmethod
+    def cogvideox_2b(cls, **kw) -> "DiTConfig":
+        """CogVideoX-2b: 30 heads x 64, 30 layers, absolute sin/cos
+        positions (no RoPE)."""
+        defaults = dict(use_rotary_positional_embeddings=False)
         defaults.update(kw)
         return cls(**defaults)
 
@@ -134,34 +173,53 @@ class _VIPProcessor(nn.Module):
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
-        inner, dt, qt = cfg.inner_dim, cfg.dtype, cfg.quant
-        self.vip_to_q = make_linear(inner, inner, quant=qt, bias=cfg.attention_bias, dtype=dt)
-        self.vip_to_k = make_linear(inner, inner, quant=qt, bias=cfg.attention_bias, dtype=dt)
-        self.vip_to_v = make_linear(inner, inner, quant=qt, bias=cfg.attention_bias, dtype=dt)
+        _make_qkv(self, cfg, "vip_")
         if cfg.qk_norm:
             self.vip_norm_q = QKNorm(cfg.attention_head_dim)
             self.vip_norm_k = QKNorm(cfg.attention_head_dim)
+
+
+_QKV_NAMES = ("to_q", "to_k", "to_v")
+
+
+def _make_qkv(owner: nn.Module, cfg: DiTConfig, prefix: str) -> None:
+    inner, dt, qt = cfg.inner_dim, cfg.dtype, cfg.quant
+    for name in _QKV_NAMES:
+        setattr(owner, prefix + name, make_linear(inner, inner, quant=qt,
+                                                  bias=cfg.attention_bias, dtype=dt))
+
+
+def _qkv(owner: nn.Module, prefix: str, *segments):
+    """(q, k, v) of the concatenated ``segments``."""
+    op = segments[0] if len(segments) == 1 else torch.cat(segments, dim=1)
+    return tuple(getattr(owner, prefix + name)(op) for name in _QKV_NAMES)
 
 
 def _ln_params(mod: Optional[QKNorm]):
     return (None, None) if mod is None else (mod.weight, mod.bias)
 
 
+def _as_scale(scale, like: torch.Tensor):
+    """A per-sample [B] tensor broadcast against ``like``, or a scalar
+    rounded to the compute dtype as in the JAX package and kept on the host
+    (a scalar tensor copy to the card would block the host every layer)."""
+    if isinstance(scale, torch.Tensor):
+        return scale.to(like.dtype).reshape(scale.shape + (1,) * (like.dim() - scale.dim()))
+    return torch.tensor(scale, dtype=like.dtype).item()
+
+
 class JointVIPAttention(nn.Module):
-    """Joint self-attention over [text‖video] plus the VIP branch (func_type
-    "1"): text_video→vip cross-attention added with the vip scale, and
-    vip→[text_video‖vip] attention for the vip stream."""
+    """Joint self-attention over [text‖video] plus the VIP branch of the
+    config's func_type (see `VIPConfig`)."""
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
-        if cfg.vip is not None and cfg.vip.func_type != "1":
-            raise NotImplementedError(f"VIP func_type {cfg.vip.func_type!r} is not ported yet")
+        if cfg.vip is not None and cfg.vip.func_type not in FUNC_TYPES:
+            raise ValueError(f"VIP func_type {cfg.vip.func_type!r} not in {FUNC_TYPES}")
         self.cfg = cfg
-        inner, dt, qt = cfg.inner_dim, cfg.dtype, cfg.quant
-        self.to_q = make_linear(inner, inner, quant=qt, bias=cfg.attention_bias, dtype=dt)
-        self.to_k = make_linear(inner, inner, quant=qt, bias=cfg.attention_bias, dtype=dt)
-        self.to_v = make_linear(inner, inner, quant=qt, bias=cfg.attention_bias, dtype=dt)
-        self.to_out = nn.ModuleList([make_linear(inner, inner, quant=qt, dtype=dt)])
+        _make_qkv(self, cfg, "")
+        self.to_out = nn.ModuleList([make_linear(cfg.inner_dim, cfg.inner_dim, quant=cfg.quant,
+                                                 dtype=cfg.dtype)])
         self.norm_q = QKNorm(cfg.attention_head_dim) if cfg.qk_norm else None
         self.norm_k = QKNorm(cfg.attention_head_dim) if cfg.qk_norm else None
         self.processor = _VIPProcessor(cfg) if cfg.vip is not None else None
@@ -174,14 +232,17 @@ class JointVIPAttention(nn.Module):
 
     def forward(self, text_video, vip, text_len: int, image_rotary_emb: Optional[Rope],
                 vip_image_rotary_emb: Optional[Rope], vip_condition_rotary_emb: Optional[Rope],
-                vip_scale=None, key_bias: Optional[torch.Tensor] = None):
-        """``key_bias``: optional additive f32 [B, T+Sv] mask on the base
-        attention's keys (the T2To padded chunks); the VIP branch takes none."""
+                vip_scale=None, key_bias: Optional[torch.Tensor] = None,
+                ar: Optional[torch.Tensor] = None):
+        """-> (video_out, text_out, vip_out). ``key_bias``: optional additive
+        f32 [B, T+Sv] mask on the base attention's keys (the T2To padded
+        chunks); the VIP branch takes none. ``ar``: the normed ar stream
+        (func_type "4"); its output leads video_out."""
         cfg = self.cfg
         d = cfg.attention_head_dim
         sm_scale = d ** -0.5
         dev = text_video.device
-        q, k, v = self.to_q(text_video), self.to_k(text_video), self.to_v(text_video)
+        q, k, v = _qkv(self, "", text_video)
         gq, bq = _ln_params(self.norm_q)
         gk, bk = _ln_params(self.norm_k)
         base_segs = [(None, text_len), (image_rotary_emb, text_video.shape[1] - text_len)]
@@ -189,77 +250,141 @@ class JointVIPAttention(nn.Module):
         tabs_k = make_prologue(d, base_segs, gk, bk, device=dev)
         out = self._attn(q, k, v, tabs_q, tabs_k, key_bias)  # [B, T+Sv, H*D]
 
-        vip_attn_out = None
-        if cfg.vip is not None:
-            p = self.processor
-            tv_len, lv = text_video.shape[1], vip.shape[1]
-            op = torch.cat([text_video, vip], dim=1)
-            vq, vk, vv = p.vip_to_q(op), p.vip_to_k(op), p.vip_to_v(op)
+        ft = cfg.vip.func_type if cfg.vip is not None else None
+        p = self.processor
+        vip_attn_out = ar_attn_out = None
+        if ft is not None:
             vgq, vbq = _ln_params(getattr(p, "vip_norm_q", None))
             vgk, vbk = _ln_params(getattr(p, "vip_norm_k", None))
-            segs = [(None, text_len), (vip_image_rotary_emb, tv_len - text_len),
-                    (vip_condition_rotary_emb, lv)]
+            lv = vip.shape[1]
+        if ft == "4":
+            la, tv_len = ar.shape[1], text_video.shape[1]
+            vq, vk, vv = _qkv(p, "vip_", text_video, vip, ar)
+            # the ar tokens take the leading temporal positions of the
+            # vip-image table, the video the rest; vip the condition table.
+            # Segments: [text ‖ video ‖ vip ‖ ar]
+            ar_rope = vid_rope = None
+            if vip_image_rotary_emb is not None:
+                vi_cos, vi_sin = vip_image_rotary_emb
+                ar_rope = (vi_cos[..., :la, :], vi_sin[..., :la, :])
+                vid_rope = (vi_cos[..., la:, :], vi_sin[..., la:, :])
+            segs = [(None, text_len), (vid_rope, tv_len - text_len),
+                    (vip_condition_rotary_emb, lv), (ar_rope, la)]
+            vtq = make_prologue(d, segs, vgq, vbq, fold=sm_scale, device=dev)
+            vtk = make_prologue(d, segs, vgk, vbk, device=dev)
+            bounds = ((0, tv_len), (tv_len, tv_len + lv), (tv_len + lv, tv_len + lv + la))
+            (q_tv, q_vip, q_ar), (k_tv, k_vip, k_ar), (v_tv, v_vip, v_ar) = (
+                [x[:, a:b] for a, b in bounds] for x in (vq, vk, vv))
+            (tq_tv, tq_vip, tq_ar), (tk_tv, tk_vip, tk_ar) = (
+                [slice_tabs(tabs, a, b) for a, b in bounds] for tabs in (vtq, vtk))
+            cross_vip = self._attn(q_tv, k_vip, v_vip, tq_tv, tk_vip)
+            cross_ar = self._attn(q_tv, k_ar, v_ar, tq_tv, tk_ar)
+            scale = _as_scale(cfg.vip.scale if vip_scale is None else vip_scale, out)
+            out = out + scale * cross_vip + _as_scale(cfg.vip.scale_ar, out) * cross_ar
+            arvip = self._attn(torch.cat([q_ar, q_vip], dim=1),
+                               torch.cat([k_tv, k_ar, k_vip], dim=1),
+                               torch.cat([v_tv, v_ar, v_vip], dim=1),
+                               concat_tabs(tq_ar, tq_vip), concat_tabs(tk_tv, tk_ar, tk_vip))
+            ar_attn_out, vip_attn_out = arvip[:, :la], arvip[:, la:]
+        elif ft is not None:
+            # "1": vip-projected queries / keys over [text‖video]; "2" / "3":
+            # over the video only, which takes the vip-image table whole
+            tv_input = text_video if ft == "1" else text_video[:, text_len:]
+            tv_len = tv_input.shape[1]
+            vq, vk, vv = _qkv(p, "vip_", tv_input, vip)
+            if ft == "1":
+                tv_segs = [(None, text_len), (vip_image_rotary_emb, tv_len - text_len)]
+            else:
+                tv_segs = [(vip_image_rotary_emb, tv_len)]
+            segs = tv_segs + [(vip_condition_rotary_emb, lv)]
             vtabs_q = make_prologue(d, segs, vgq, vbq, fold=sm_scale, device=dev)
             vtabs_k = make_prologue(d, segs, vgk, vbk, device=dev)
+            # (text_)video -> vip cross-attention, added with the vip scale
             tv_cross = self._attn(vq[:, :tv_len], vk[:, tv_len:], vv[:, tv_len:],
                                   slice_tabs(vtabs_q, 0, tv_len),
                                   slice_tabs(vtabs_k, tv_len, tv_len + lv))
-            scale = cfg.vip.scale if vip_scale is None else vip_scale
-            if isinstance(scale, torch.Tensor):  # per-sample [B]
-                scale = scale.to(out.dtype).reshape(scale.shape + (1,) * (out.dim() - scale.dim()))
-            else:  # rounded to the compute dtype as in the JAX package, kept on the host:
-                # a scalar tensor copy to the card would block the host every layer
-                scale = torch.tensor(scale, dtype=out.dtype).item()
-            out = out + scale * tv_cross
-            vip_attn_out = self._attn(vq[:, tv_len:], vk, vv,
-                                      slice_tabs(vtabs_q, tv_len, tv_len + lv), vtabs_k)
+            scale = _as_scale(cfg.vip.scale if vip_scale is None else vip_scale, out)
+            if ft == "1":
+                out = out + scale * tv_cross
+            else:  # video positions only; the text is untouched
+                out = torch.cat([out[:, :text_len], out[:, text_len:] + scale * tv_cross], dim=1)
+            if ft != "3":  # vip -> [(text_)video ‖ vip]
+                vip_attn_out = self._attn(vq[:, tv_len:], vk, vv,
+                                          slice_tabs(vtabs_q, tv_len, tv_len + lv), vtabs_k)
 
-        merged = out if vip_attn_out is None else torch.cat([out, vip_attn_out], dim=1)
+        if ft == "4":  # [text ‖ ar ‖ video ‖ vip] through the shared to_out
+            merged = torch.cat([out[:, :text_len], ar_attn_out, out[:, text_len:], vip_attn_out],
+                               dim=1)
+        elif vip_attn_out is not None:
+            merged = torch.cat([out, vip_attn_out], dim=1)
+        else:
+            merged = out
         proj = self.to_out[0](merged)
         text_out = proj[:, :text_len]
-        if cfg.vip is not None:
-            vip_len = vip.shape[1]
-            return proj[:, text_len:-vip_len], text_out, proj[:, -vip_len:]
-        return proj[:, text_len:], text_out, None
+        if ft is not None and ft != "3":
+            return proj[:, text_len:-lv], text_out, proj[:, -lv:]
+        # "3": the vip stream bypasses the attention
+        return proj[:, text_len:], text_out, vip
 
 
 class DiTBlock(nn.Module):
     """AdaLN-zero -> joint(+vip) attention -> AdaLN-zero -> FF; the vip stream
-    has its own 3-way AdaLN and a pass through the shared FF."""
+    (the ar stream under func_type "4") has its own 3-way AdaLN and a pass
+    through the shared FF; under "3" the vip stream passes through."""
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
         self.cfg = cfg
         inner, dt, te = cfg.inner_dim, cfg.dtype, cfg.time_embed_dim
+        ft = cfg.vip.func_type if cfg.vip is not None else None
         self.norm1 = AdaLNZero(inner, te, dtype=dt)
         self.attn1 = JointVIPAttention(cfg)
         self.norm2 = AdaLNZero(inner, te, dtype=dt)
         self.ff = FeedForward(inner, dtype=dt, quant=cfg.quant)
-        if cfg.vip is not None:
+        if ft is not None and ft != "3":
             self.vip_norm1 = VIPAdaLN(inner, te, dtype=dt)
             self.vip_norm2 = VIPAdaLN(inner, te, dtype=dt)
+        if ft == "4":
+            self.ar_norm1 = VIPAdaLN(inner, te, dtype=dt)
+            self.ar_norm2 = VIPAdaLN(inner, te, dtype=dt)
 
     def forward(self, hidden, text, vip, temb, ropes, vip_scale=None, key_bias=None):
+        cfg = self.cfg
+        ft = cfg.vip.func_type if cfg.vip is not None else None
+        streams = vip is not None and ft != "3"  # the vip stream has AdaLNs
         text_len = text.shape[1]
+        ar = norm_ar = None
+        if ft == "4":  # the leading ar context tokens form their own stream
+            la = cfg.vip.ar_length
+            ar, hidden = hidden[:, :la], hidden[:, la:]
         norm_h, norm_t, gate, t_gate = self.norm1(hidden, text, temb)
-        norm_vip = vip_gate = None
-        if vip is not None:
+        norm_vip = vip
+        if streams:
             norm_vip, vip_gate = self.vip_norm1(vip, temb)
+        if ft == "4":
+            norm_ar, ar_gate = self.ar_norm1(ar, temb)
         tv = torch.cat([norm_t, norm_h], dim=1)
         video_attn, text_attn, vip_attn = self.attn1(tv, norm_vip, text_len, *ropes, vip_scale,
-                                                     key_bias)
+                                                     key_bias, ar=norm_ar)
+        if ft == "4":
+            ar = ar + ar_gate * video_attn[:, :la]
+            video_attn = video_attn[:, la:]
         hidden = hidden + gate * video_attn
         text = text + t_gate * text_attn
-        if vip is not None:
+        if streams:
             vip = vip + vip_gate * vip_attn
 
         norm_h, norm_t, gate2, t_gate2 = self.norm2(hidden, text, temb)
         ff_out = self.ff(torch.cat([norm_t, norm_h], dim=1))
         hidden = hidden + gate2 * ff_out[:, text_len:]
         text = text + t_gate2 * ff_out[:, :text_len]
-        if vip is not None:
+        if streams:
             norm_vip2, vip_gate2 = self.vip_norm2(vip, temb)
             vip = vip + vip_gate2 * self.ff(norm_vip2)
+        if ft == "4":
+            norm_ar2, ar_gate2 = self.ar_norm2(ar, temb)
+            ar = ar + ar_gate2 * self.ff(norm_ar2)
+            hidden = torch.cat([ar, hidden], dim=1)
         return hidden, text, vip
 
 
@@ -268,36 +393,54 @@ class _PatchEmbed(nn.Module):
         super().__init__()
         inner, dt, p = cfg.inner_dim, cfg.dtype, cfg.patch_size
         self.text_proj = Linear(cfg.text_embed_dim, inner, dtype=dt)
-        self.proj = Conv2d(cfg.in_channels, inner, p, stride=p, dtype=dt)
+        if cfg.use_output_projection:
+            self.proj = Conv2d(cfg.in_channels, inner, p, stride=p, dtype=dt)
+        else:  # raw-token mode: a dense projection of each latent pixel
+            self.proj = Linear(cfg.in_channels, inner, dtype=dt)
         if cfg.vip is not None:
             self.vip_proj = Linear(cfg.vip.output_dim, inner, dtype=dt)
 
 
 class CogVideoXTransformer(nn.Module):
     """Full DiT: [B, F, C, H, W] latents, [B, T, text_dim] text, [B] or [B, F]
-    timesteps, VIP tokens [B, Tq, Cv, Hq, Wq] -> [B, F, C, H, W] prediction.
-    ``key_bias``: optional additive f32 [B, T+Sv] mask on the base
-    attention's keys (T2To training's padded chunks), carried through every
-    block, checkpointed ones included."""
+    timesteps, VIP tokens [B, Tq, Cv, Hq, Wq] -> [B, F, C, H, W] prediction
+    (under func_type "4" without the ar frames; in raw-token mode the normed
+    hidden states as [B, F, inner, H, W]). ``key_bias``: optional additive
+    f32 [B, T+Sv] mask on the base attention's keys (T2To training's padded
+    chunks), carried through every block, checkpointed ones included.
+    ``vip_pos_embedding``: [B or 1, Lv, inner] added to the vip tokens in
+    the sincos mode."""
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
-        if not cfg.use_rotary_positional_embeddings or not cfg.use_output_projection:
-            raise NotImplementedError("only rotary models with the output projection are ported")
         self.cfg = cfg
         inner, dt = cfg.inner_dim, cfg.dtype
         self.patch_embed = _PatchEmbed(cfg)
         self.time_embedding = TimestepEmbedding(inner, cfg.time_embed_dim, dtype=dt)
         self.transformer_blocks = nn.ModuleList(DiTBlock(cfg) for _ in range(cfg.num_layers))
         self.norm_final = LayerNorm(inner)
-        self.norm_out = AdaLayerNormOut(inner, cfg.time_embed_dim, dtype=dt)
-        self.proj_out = Linear(inner, cfg.patch_size ** 2 * cfg.out_channels, dtype=dt)
+        self.norm_out = AdaLayerNormOut(inner, cfg.time_embed_dim, dtype=dt,
+                                        elementwise_affine=cfg.use_output_projection)
+        if cfg.use_output_projection:
+            self.proj_out = Linear(inner, cfg.patch_size ** 2 * cfg.out_channels, dtype=dt)
+        self._sincos = {}  # (frames, h, w, device) -> the sincos video table, f32
+
+    def _sincos_table(self, f: int, hp: int, wp: int, device) -> torch.Tensor:
+        key = (f, hp, wp, str(device))
+        if key not in self._sincos:
+            cfg = self.cfg
+            pe = get_3d_sincos_pos_embed(cfg.inner_dim, (wp, hp), f,
+                                         cfg.spatial_interpolation_scale,
+                                         cfg.temporal_interpolation_scale)
+            self._sincos[key] = torch.from_numpy(pe.reshape(1, -1, cfg.inner_dim)).to(device)
+        return self._sincos[key]
 
     def forward(self, hidden_states, encoder_hidden_states, timestep, vip_hidden_states=None,
                 image_rotary_emb: Optional[Rope] = None,
                 vip_image_rotary_emb: Optional[Rope] = None,
                 vip_condition_rotary_emb: Optional[Rope] = None, vip_scale=None,
-                key_bias: Optional[torch.Tensor] = None):
+                key_bias: Optional[torch.Tensor] = None,
+                vip_pos_embedding: Optional[torch.Tensor] = None):
         cfg = self.cfg
         b, f, c, h, w = hidden_states.shape
         p, dt = cfg.patch_size, cfg.dtype
@@ -307,13 +450,22 @@ class CogVideoXTransformer(nn.Module):
         temb = self.time_embedding(t_feat).reshape(b, ts.shape[1], cfg.time_embed_dim)
 
         text = self.patch_embed.text_proj(encoder_hidden_states.to(dt))
-        x = self.patch_embed.proj(hidden_states.to(dt).reshape(b * f, c, h, w))
-        video = x.permute(0, 2, 3, 1).reshape(b, f * (h // p) * (w // p), cfg.inner_dim)
+        if cfg.use_output_projection:
+            x = self.patch_embed.proj(hidden_states.to(dt).reshape(b * f, c, h, w))
+            video = x.permute(0, 2, 3, 1).reshape(b, f * (h // p) * (w // p), cfg.inner_dim)
+        else:
+            video = self.patch_embed.proj(
+                hidden_states.to(dt).permute(0, 1, 3, 4, 2).reshape(b, f * h * w, c))
         vip = None
         if cfg.vip is not None:
             bv, tq, cv, hv, wv = vip_hidden_states.shape
             vtokens = vip_hidden_states.to(dt).permute(0, 1, 3, 4, 2).reshape(bv, tq * hv * wv, cv)
             vip = self.patch_embed.vip_proj(vtokens)
+        if not cfg.use_rotary_positional_embeddings:
+            # 2b: absolute sincos video embeddings; the text takes none
+            video = video + self._sincos_table(f, h // p, w // p, video.device).to(dt)
+            if vip is not None and vip_pos_embedding is not None:
+                vip = vip + vip_pos_embedding.to(dt)
 
         ropes = (image_rotary_emb, vip_image_rotary_emb, vip_condition_rotary_emb)
         remat = cfg.remat and torch.is_grad_enabled()
@@ -324,13 +476,22 @@ class CogVideoXTransformer(nn.Module):
             else:
                 video, text, vip = block(video, text, vip, temb, ropes, vip_scale, key_bias)
 
-        # the reference normalizes [text (‖ vip) ‖ video] and keeps the video tail
-        joint = torch.cat([text] + ([vip] if vip is not None else []) + [video], dim=1)
-        hidden = self.norm_final(joint)[:, -video.shape[1]:]
+        if not cfg.use_rotary_positional_embeddings:
+            hidden = self.norm_final(video)
+        else:  # the reference normalizes [text (‖ vip) ‖ video] and keeps the video tail
+            joint = torch.cat([text] + ([vip] if vip is not None else []) + [video], dim=1)
+            hidden = self.norm_final(joint)[:, -video.shape[1]:]
+        f_out = f
+        if cfg.vip is not None and cfg.vip.func_type == "4":
+            # drop the ar context tokens from the prediction
+            hidden = hidden[:, cfg.vip.ar_length:]
+            f_out = f - cfg.vip.ar_length // ((h // p) * (w // p))
         hidden = self.norm_out(hidden, temb)
+        if not cfg.use_output_projection:
+            return hidden.reshape(b, f, h, w, -1).permute(0, 1, 4, 2, 3)
         hidden = self.proj_out(hidden)
-        out = hidden.reshape(b, f, h // p, w // p, cfg.out_channels, p, p)
-        return out.permute(0, 1, 4, 2, 5, 3, 6).reshape(b, f, cfg.out_channels, h, w)
+        out = hidden.reshape(b, f_out, h // p, w // p, cfg.out_channels, p, p)
+        return out.permute(0, 1, 4, 2, 5, 3, 6).reshape(b, f_out, cfg.out_channels, h, w)
 
 
 @torch.no_grad()
@@ -353,8 +514,8 @@ def graft_vip_params(model: CogVideoXTransformer) -> CogVideoXTransformer:
 
 
 # per-block projections that the `quant` modes make QuantLinear (the JAX
-# package's `_QUANTIZED_DENSE`, as the port's module paths; fused qkv is not
-# ported)
+# package's `_QUANTIZED_DENSE`, as the port's module paths; the port keeps
+# no fused qkv layout)
 _QUANTIZED_LINEAR = (
     "attn1.to_q", "attn1.to_k", "attn1.to_v", "attn1.to_out.0",
     "attn1.processor.vip_to_q", "attn1.processor.vip_to_k", "attn1.processor.vip_to_v",
@@ -391,4 +552,3 @@ def quantize_dit(model: CogVideoXTransformer, config: DiTConfig) -> CogVideoXTra
         if isinstance(getattr(mod, "cfg", None), DiTConfig):
             mod.cfg = config
     return model
-

@@ -2,11 +2,14 @@
 workload (port of `tokensgen_tpu/pipelines/to2v.py`).
 
 Stages: VIP-encode the source video (VAE encode, the DiT's patch conv, the
-Perceiver resampler) -> CFG-batched base denoise of chunk 0 with FIFO-seed
-snapshots -> the FIFO diagonal-denoising loop -> chunked VAE decode.
+Perceiver resampler; or, with ``use_vae_as_encoder=False``, the DINOv2 image
+encoder's per-frame features and the resampler) -> CFG-batched base denoise
+of chunk 0 with FIFO-seed snapshots -> the FIFO diagonal-denoising loop ->
+chunked VAE decode. `To2VPipeline.denoise_together` denoises all chunks
+jointly instead (optionally with FreeInit passes).
 
 Not ported here: the single-chip offload orchestration (a 16 GB TPU
-workaround), the DINOv2 path, `denoise_together`.
+workaround) and ``sequential_cfg`` / ``fifo_emit_dtype`` (its HBM savers).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from tokensgen_tpu_torch.models.vae3d import VAERunner, sample_latent
 from tokensgen_tpu_torch.sampling import base as base_sampler
 from tokensgen_tpu_torch.sampling import fifo as fifo_engine
 from tokensgen_tpu_torch.sampling.base import NoiseFn, generator_noise
+from tokensgen_tpu_torch.utils import debug
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +52,9 @@ class To2VConfig:
     vae_scale_factor_temporal: int = 4
     stochastic: bool = True
     tail_renoise_mode: str = "xt"
+    # False selects the DINOv2 image-encoder conditioning path; the pipeline
+    # then needs its ``image_encoder`` (a `models.dinov2.DINOv2Encoder`)
+    use_vae_as_encoder: bool = True
 
     @property
     def nf_latent(self) -> int:
@@ -67,7 +74,7 @@ class To2VPipeline:
     def __init__(self, cfg: To2VConfig, dit_config: DiTConfig, dit: CogVideoXTransformer,
                  resampler_config: ResamplerConfig, resampler: Resampler,
                  vae: Optional[VAERunner], sched: Optional[S.DiffusionSchedule] = None,
-                 device=None):
+                 device=None, image_encoder: Optional[nn.Module] = None):
         if cfg.num_frames_per_chunk > 49:
             raise ValueError("num_frames_per_chunk must be <= 49 (static positional embeddings)")
         self.cfg = cfg
@@ -76,6 +83,7 @@ class To2VPipeline:
         self.resampler_config = resampler_config
         self.resampler = resampler
         self.vae = vae
+        self.image_encoder = image_encoder
         self.device = torch.device(device) if device is not None else next(dit.parameters()).device
         self.sched = (sched or S.make_schedule(S.ScheduleConfig())).to(self.device)
         self.grid_h = cfg.height // (cfg.vae_scale_factor_spatial * dit_config.patch_size)
@@ -151,13 +159,91 @@ class To2VPipeline:
                 toks.append(self.resampler(tokens, img_rope, smp_rope))
             return torch.cat(toks, dim=1)
 
-        cond = encode_chunks(video)
+        cond = debug.stats("image_embeddings", encode_chunks(video))
         if not do_cfg:
             return cond
         if cfg.use_separate_guidance:
             # the zero-video uncond tokens are used by 3-way guidance only
             return torch.cat([cond, encode_chunks(torch.zeros_like(video)), cond], dim=0)
         return torch.cat([cond, cond], dim=0)
+
+    @torch.no_grad()
+    def encode_image_features(self, frame_features: torch.Tensor, do_cfg: bool = True,
+                              uncond_features: Optional[torch.Tensor] = None,
+                              feature_grid: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """The image-encoder conditioning path: per-frame features [B, F_px,
+        N, E] from a vision encoder, resampled per pixel-frame chunk ->
+        CFG-batched VIP tokens ([uncond, cond] 2-way, [cond, uncond, cond]
+        3-way; uncond defaults to zero features). Unlike the VAE path the
+        resampler's tables cover the pixel-frame x encoder-patch grid;
+        square ``N`` is inferred, else pass ``feature_grid`` (gh, gw)."""
+        nf_px = self.cfg.num_frames_per_chunk
+        n = frame_features.shape[2]
+        if feature_grid is None:
+            g = int(round(n ** 0.5))
+            if g * g != n:
+                raise ValueError(f"non-square N={n}: pass feature_grid=(gh, gw)")
+            feature_grid = (g, g)
+        gh, gw = feature_grid
+        rc = self.resampler_config
+        d = self.dit_config.attention_head_dim
+        off = self.cfg.video_ipadapter_start_frame_idx
+        f32 = np.float32
+        img_rope = get_3d_rotary_pos_embed_v2(
+            d, np.arange(nf_px, dtype=f32), np.arange(gh, dtype=f32), np.arange(gw, dtype=f32),
+            device=self.device)
+        smp_rope = get_3d_rotary_pos_embed_v2(
+            d, np.linspace(off, off + nf_px, rc.num_temporal_queries, endpoint=False, dtype=f32),
+            np.linspace(0, gh, rc.num_height_queries, endpoint=False, dtype=f32),
+            np.linspace(0, gw, rc.num_width_queries, endpoint=False, dtype=f32),
+            device=self.device)
+
+        def resample(feats):
+            return torch.cat([
+                self.resampler(feats[:, cid * nf_px:(cid + 1) * nf_px].to(self.device),
+                               img_rope, smp_rope)
+                for cid in range(feats.shape[1] // nf_px)], dim=1)
+
+        cond = resample(frame_features)
+        if not do_cfg:
+            return cond
+        if uncond_features is None:
+            uncond_features = torch.zeros_like(frame_features)
+        uncond = resample(uncond_features)
+        if self.cfg.use_separate_guidance:
+            return torch.cat([cond, uncond, cond], dim=0)
+        return torch.cat([uncond, cond], dim=0)
+
+    @torch.no_grad()
+    def encode_image_dinov2(self, frames: torch.Tensor, do_cfg: bool = True,
+                            num_tokens: Optional[int] = None) -> torch.Tensor:
+        """The DINOv2 conditioning path: [B, F_px, H, W, 3] in [-1, 1] ->
+        CFG-batched VIP tokens. Each frame is resized to the encoder's size
+        and normalised (`models.dinov2.preprocess_frames`), encoded, and the
+        penultimate hidden state's first ``num_tokens`` tokens (default: the
+        encoder's patch count, the reference's [:, :256] at DINOv2-large)
+        are resampled per chunk. The CFG uncond branch encodes ZERO IMAGES
+        through the encoder, not zero features. One chunk of frames at a
+        time moves to the device and through the encoder."""
+        from tokensgen_tpu_torch.models.dinov2 import preprocess_frames
+
+        enc = self.image_encoder
+        if enc is None:
+            raise ValueError("pipeline built without image_encoder")
+        ecfg = enc.cfg
+        num_tokens = ecfg.num_patches if num_tokens is None else num_tokens
+        nf_px = self.cfg.num_frames_per_chunk
+        b = frames.shape[0]
+        conds, unconds = [], []
+        for cid in range(frames.shape[1] // nf_px):
+            chunk = frames[:, cid * nf_px:(cid + 1) * nf_px].to(self.device)
+            px = preprocess_frames(chunk.reshape((-1,) + chunk.shape[2:]), ecfg.image_size)
+            conds.append(enc(px)[:, :num_tokens].reshape(b, nf_px, num_tokens, -1))
+            if do_cfg:
+                unconds.append(enc(torch.zeros_like(px))[:, :num_tokens].reshape(
+                    b, nf_px, num_tokens, -1))
+        uncond = torch.cat(unconds, dim=1) if do_cfg else None
+        return self.encode_image_features(torch.cat(conds, dim=1), do_cfg, uncond_features=uncond)
 
     # --------------------------------------------------------------- model fn
 
@@ -289,7 +375,10 @@ class To2VPipeline:
         prompt_embeds = prompt_embeds.to(self.device)
         negative_embeds = negative_embeds.to(self.device)
         if image_embeddings is None and frames is not None:
-            image_embeddings = self.vip_encode_video(frames, noise_fn)
+            if self.cfg.use_vae_as_encoder:
+                image_embeddings = self.vip_encode_video(frames, noise_fn)
+            else:
+                image_embeddings = self.encode_image_dinov2(frames)
             clock.lap("vip_encode")
         res, image_rope, model_fn = self.base_denoise(prompt_embeds, negative_embeds,
                                                       image_embeddings, num_chunks, noise_fn)
@@ -316,6 +405,77 @@ class To2VPipeline:
                         out["cache_videos"].append(self.decode_latents(track[:, :t_use]))
             clock.lap("decode")
         return out
+
+    # ----------------------------------------------- alternate sampling modes
+
+    @torch.no_grad()
+    def denoise_together(self, prompt_embeds, negative_embeds,
+                         image_embeddings: Optional[torch.Tensor], num_chunks: int,
+                         noise_fn: Optional[NoiseFn] = None,
+                         latents: Optional[torch.Tensor] = None,
+                         freeinit_iters: int = 0) -> torch.Tensor:
+        """`sampling_mode: denoising_together`: denoise all chunks jointly.
+        Each step runs the DiT once per chunk (per-chunk VIP slices and
+        grids) and steps the whole multi-chunk latent at once.
+        ``freeinit_iters > 0`` adds FreeInit frequency re-initialisation
+        passes (`sampling.freeinit.freeinit_refine`). Draws: ``("latents",)``
+        for the initial noise, the sampler's ``("base", step, k)`` (under
+        FreeInit prefixed ``("freeinit", it)``) and FreeInit's own."""
+        cfg = self.cfg
+        nf = cfg.nf_latent
+        if noise_fn is None:
+            noise_fn = generator_noise(torch.Generator(device=self.device).manual_seed(0))
+        b = prompt_embeds.shape[0]
+        if latents is None:
+            latents = noise_fn(("latents",), (b, nf * num_chunks, 16,
+                                              cfg.height // cfg.vae_scale_factor_spatial,
+                                              cfg.width // cfg.vae_scale_factor_spatial))
+        latents = latents.to(self.device)
+        model_fn = self._model_fn(
+            self.cfg_text(prompt_embeds.to(self.device), negative_embeds.to(self.device)),
+            self.base_image_rope())
+        rc = self.resampler_config
+        d = self.dit_config.attention_head_dim
+        n_vip, vq = min(rc.num_temporal_queries + 1, nf), rc.num_temporal_queries
+        chunk_vip_kwargs = [None] * num_chunks
+        if image_embeddings is not None:
+            img_t, img_h, img_w, cond_t, cond_h, cond_w = self.vip_grids(num_chunks)
+            chunk_vip_kwargs = [{
+                "vip_hidden_states": image_embeddings[:, cid * vq:cid * vq + n_vip],
+                "vip_image_rotary_emb": get_3d_rotary_pos_embed_v2(
+                    d, img_t[cid * nf:(cid + 1) * nf], img_h, img_w, device=self.device),
+                "vip_condition_rotary_emb": get_3d_rotary_pos_embed_v2(
+                    d, cond_t[cid * vq:cid * vq + n_vip], cond_h, cond_w, device=self.device),
+            } for cid in range(num_chunks)]
+
+        def joint_model(lat_cfg, tvec):
+            preds = []
+            for cid in range(num_chunks):
+                chunk = lat_cfg[:, cid * nf:(cid + 1) * nf]
+                t2d = tvec[:, None].expand(chunk.shape[0], nf)
+                preds.append(model_fn(chunk, t2d, chunk_vip_kwargs[cid]))
+            return torch.cat(preds, dim=1)
+
+        scfg = base_sampler.SamplerConfig(
+            num_inference_steps=cfg.num_inference_steps, guidance_scale=cfg.guidance_scale,
+            guidance_scale_img=cfg.guidance_scale_img, use_dynamic_cfg=cfg.use_dynamic_cfg,
+            use_separate_guidance=cfg.use_separate_guidance, stochastic=cfg.stochastic)
+        if freeinit_iters <= 0:
+            return base_sampler.denoise(joint_model, self.sched, scfg, latents, noise_fn).latents
+
+        from tokensgen_tpu_torch.sampling.freeinit import freeinit_refine
+
+        t_max = int(S.inference_timesteps(self.sched.config, cfg.num_inference_steps)[0])
+
+        def denoise_fn(lat, draw):
+            return base_sampler.denoise(joint_model, self.sched, scfg, lat, draw).latents
+
+        def add_noise_fn(clean, noise):
+            t = torch.full((clean.shape[0],), t_max, dtype=torch.int64, device=clean.device)
+            return S.add_noise(self.sched, clean, noise, t)
+
+        return freeinit_refine(denoise_fn, add_noise_fn, latents, noise_fn,
+                               num_iters=freeinit_iters)
 
     @torch.no_grad()
     def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:

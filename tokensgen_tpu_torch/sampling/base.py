@@ -10,6 +10,10 @@ tags name the draw (``("base", step, 0 | 1)``) so a test can replay another
 framework's noise. `generator_noise` turns a `torch.Generator` into one (draws
 in call order); `keyed_noise` makes each draw a function of the seed and its
 tag alone, so a run resumed part way reproduces the uninterrupted run's noise.
+
+`ddim_invert` runs the deterministic DDIM inversion (clean latents -> their
+generating noise). With ``TOKENSGEN_DEBUG=1`` each step prints the noise
+prediction's value range (`utils.debug`).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from tokensgen_tpu_torch.core import cfg as cfg_lib
 from tokensgen_tpu_torch.core import schedule as S
+from tokensgen_tpu_torch.utils import debug
 
 NoiseFn = Callable[[tuple, Tuple[int, ...]], torch.Tensor]
 
@@ -119,7 +124,7 @@ def denoise(
         lat_in = cfg_lib.batch_for_cfg(latents, scfg.do_classifier_free_guidance,
                                        scfg.use_separate_guidance)
         tvec = torch.full((lat_in.shape[0],), t, dtype=torch.int64, device=dev)
-        noise_pred = model_fn(lat_in, tvec).float()
+        noise_pred = debug.stats("noise_pred", model_fn(lat_in, tvec).float())
         if scfg.do_classifier_free_guidance:
             g = g_table[t] if g_table is not None else scfg.guidance_scale
             gi = gi_table[t] if gi_table is not None else scfg.guidance_scale_img
@@ -150,3 +155,24 @@ def denoise(
         torch.stack(snaps_x[::-1], dim=1),
         torch.tensor(snaps_v[::-1], dtype=torch.bool, device=dev),
     )
+
+
+@torch.no_grad()
+def ddim_invert(model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                sched: S.DiffusionSchedule, latents: torch.Tensor,
+                num_inference_steps: int = 52) -> torch.Tensor:
+    """Deterministic DDIM inversion: clean latents [B, F, C, H, W] -> their
+    generating noise, f32. The inference grid runs ascending with
+    `S.ddim_invert_step`, the model unconditional (``model_fn(x, t [B])``,
+    no CFG: guidance makes inversion non-invertible); each step's model call
+    sees the current noise level (the first, t = -1, queried at 0)."""
+    ts = np.asarray(S.inference_timesteps(sched.config, num_inference_steps))[::-1]
+    src_ts = np.concatenate([[-1], ts[:-1]])  # -1 => alpha_cumprod = 1 (clean)
+    b, dev = latents.shape[0], latents.device
+    x = latents.float()
+    for src_t, dst_t in zip(src_ts, ts):
+        tvec = torch.full((b,), max(int(src_t), 0), dtype=torch.int64, device=dev)
+        eps = model_fn(x, tvec).float()
+        x = S.ddim_invert_step(sched, eps, x, torch.full((b,), int(src_t), device=dev),
+                               torch.full((b,), int(dst_t), device=dev))
+    return x

@@ -75,7 +75,10 @@ def model_configs(cfg, smoke: bool, device: torch.device):
     vp = cfg.get("video_ipadapter_params", {})
     rp = vp.get("resampler_params", {})
     if vp.get("func_type", "1") != "1":
-        raise NotImplementedError(f"VIP func_type {vp.get('func_type')!r} is not ported yet")
+        raise NotImplementedError(
+            f"VIP func_type {vp.get('func_type')!r}: this CLI builds func_type \"1\", as the JAX "
+            "trainer does whatever the config says (ROADMAP, deliberate differences); build "
+            "another variant through models.dit.VIPConfig")
     vc = VIPConfig(length=vp.get("length", 480), scale=(vp.get("scale") or [1.0])[0],
                    output_dim=rp.get("output_dim", 3072),
                    num_temporal_queries=rp.get("num_temporal_queries", 4),
@@ -259,7 +262,7 @@ class To2VTrainer:
             from tokensgen_tpu_torch.metrics.lpips import load_lpips_params
 
             lpips_params = load_lpips_params(cfg.get("lpips_vgg_path"),
-                                             cfg.get("lpips_lins_path"), self.device)
+                                             cfg.get("lpips_lins_path"), device=self.device)
         m = evaluate_video((vid + 1) / 2, src, lpips_params=lpips_params)
         for k, v in m.items():
             self.tb.scalar(f"val/{k}", v, step)
