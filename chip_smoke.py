@@ -11,7 +11,8 @@ Phases, each printing its own lines:
           (attention.cu, probes.cu, attention_f32.cu; timed) and prints
           registers and spills per
           instantiation; none may spill; K7's body's SASS (cuobjdump) must
-          hold int8 wgmma and no mma.sync and no I2F
+          hold int8 wgmma and no mma.sync and no I2F; the float32 K4's
+          threads, shared memory and resident blocks a SM per head dim
   kernels K1-K4 at the edit path's production shapes, K5 (the attention
           backward) at the training path's, K7 (int8 scores) at the gen
           path's and K6 (fused prologue on [B, H, S, D]) at the T2To
@@ -211,9 +212,12 @@ LSE_MAX_REL = 2.0 ** -7
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
-# float32 outside the tensor cores (the same data sheet): the float32 K4's
-# products run there, as FMAs on the CUDA cores
+# float32 outside the tensor cores and TF32 on them (the same data sheet,
+# dense): the float32 K4's products take the lesser of two forms, FMAs on the
+# CUDA cores or three TF32 passes (its 3xTF32 split) on the tensor cores
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+TF32_PASSES = 3
 # SFU (ex2) and FP32 results per clock per SM on Hopper, and its SMs: the
 # exponentials' bound and the exp2 probe's are their counts over these at
 # the SM clock nvidia-smi reports (clocks.max.sm)
@@ -307,6 +311,10 @@ def phase_build(state: dict) -> None:
                 spilled.append(name)
     if spilled:
         raise RuntimeError(f"registers spill in {spilled}")
+    for d in A.F32_HEAD_DIMS:
+        threads, smem, blocks = A.f32_geometry(d)
+        log(f"[build]   float32 K4 at head dim {d}: {threads} threads, {smem:,} B of dynamic "
+            f"shared memory a block, {blocks} resident blocks a SM")
     _int8_sass_check(built[0][0])
 
 
@@ -365,14 +373,20 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def f32_matmul_s(f32_flops: float) -> tuple:
+    """Seconds of ``f32_flops`` float32 matmul FLOPs in its two forms: (FMAs at
+    the CUDA cores' float32 peak, TF32_PASSES passes at the TF32 peak)."""
+    return f32_flops / PEAK_F32_FLOPS, TF32_PASSES * f32_flops / PEAK_TF32_FLOPS
+
+
 def bound_ms(flops: float, nbytes: float, int8_ops: float = 0.0, exps: float = 0.0,
              f32_flops: float = 0.0):
     """(least time in ms, "operations" or "bytes"): the largest of the matmul
     work (bf16 FLOPs at the bf16 peak plus int8 operations at the int8 peak
-    plus float32 FLOPs at the CUDA cores' float32 peak), the exponentials (ex2
-    at the MUFU's rate, SFU_PER_CLK_SM a clock on each of SMS SMs at the top
-    SM clock) and the bytes at the memory peak."""
-    t_ops = max(flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS + f32_flops / PEAK_F32_FLOPS,
+    plus float32 FLOPs in the lesser of their two forms, `f32_matmul_s`), the
+    exponentials (ex2 at the MUFU's rate, SFU_PER_CLK_SM a clock on each of
+    SMS SMs at the top SM clock) and the bytes at the memory peak."""
+    t_ops = max(flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS + min(f32_matmul_s(f32_flops)),
                 exps / (SFU_PER_CLK_SM * SMS * _sm_clock_hz()) if exps else 0.0)
     t_bytes = nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -2093,6 +2107,11 @@ def _f32_k4_row(dev, state) -> None:
     zeros = torch.zeros(49, 257, device=dev)
     b, h, sq, d = q.shape
     work = (0.0, _nbytes(q, k, v, q), 0.0, float(b * h * sq * sq), 4.0 * b * h * sq * sq * d)
+    fma_s, tf32_s = f32_matmul_s(work[4])
+    log(f"[variants] {F32_KERNEL} bound's products: {fma_s * 1e3:.3f} ms as FMAs on the CUDA "
+        f"cores ({work[4] / 1e9:.2f} GFLOP at {PEAK_F32_FLOPS / 1e12:g} TFLOP/s), "
+        f"{tf32_s * 1e3:.3f} ms as {TF32_PASSES} TF32 passes on the tensor cores (at "
+        f"{PEAK_TF32_FLOPS / 1e12:g} TFLOP/s); the lesser counts")
     _compare(F32_KERNEL, lambda: A.flash_attention_bhsd_f32(q, k, v, None, scale),
              lambda: A.attention_plain(q, k, v, zeros, scale), state,
              fault_fn=lambda: A.attention_plain(q, k[:, :, :-1], v[:, :, :-1], zeros[:, :-1],

@@ -191,6 +191,26 @@ def test_bhsd_plain_matches_flash_attention_tpu_interpret(d, monkeypatch):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
 
 
+def test_bhsd_f32_matches_flash_attention_tpu_interpret_at_dinov2_tails(monkeypatch):
+    """The float32 K4 at DINOv2's ragged length: [1, 2, 257, 64] against 257
+    keys (a 1-row q tail and a 1-key kv tail past whole tiles), no key bias
+    as the encoder calls it. The JAX wrapper `_flash_attention_tpu` (its
+    `_flash_kernel` through pl.pallas_call, switched to interpret=True by
+    monkeypatch; it pads to its 128 blocks and masks) vs
+    flash_attention_bhsd_f32's CPU route; f32, 1e-4 / 1e-5 as the cases
+    above."""
+    monkeypatch.setattr(JA.pl, "pallas_call", functools.partial(JA.pl.pallas_call, interpret=True))
+    rng = np.random.default_rng(257)
+    b, h, s = 1, 2, 257
+    q, k, v = (rng.normal(size=(b, h, s, D)).astype(np.float32) for _ in range(3))
+    scale = D ** -0.5
+    ref = JA._flash_attention_tpu(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  jnp.zeros((b, s), jnp.float32), scale, 128, 128, has_bias=False)
+    out = TA.flash_attention_bhsd_f32(t(q), t(k), t(v), None, scale)
+    assert out.dtype == torch.float32 and out.shape == (b, h, s, D)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
+
+
 def test_plain_attention_chunking_matches_whole(monkeypatch):
     """The plain version's q-row chunking (for production sizes) changes values
     only at f32 rounding (the matmul blocking differs with the chunk size)."""

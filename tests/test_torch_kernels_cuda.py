@@ -696,14 +696,23 @@ def _assert_f32_within_bounds(out, ref):
     (49, 16, 257, 257, 64, False),  # DINOv2-large: a 1-row q tail and a 1-key kv tail
     (2, 3, 130, 517, 64, True),  # ragged q and kv tails, a key-bias mask on one sample
     (2, 4, 256, 384, 64, False),  # whole tiles of q rows and of keys
-    (2, 3, 130, 517, 32, True), (2, 3, 130, 517, 16, True)])
+    (2, 3, 130, 517, 32, True), (2, 3, 130, 517, 16, True),
+    # the body's tails: 1 and 7 q rows of a 64-row tile; 9, 65 and 257 keys
+    # (one past a multiple of 8 and of 64: an n8 last tile after 0, 1 and 4
+    # full ones, or a full tile of 9)
+    (2, 3, 1, 257, 64, False), (2, 3, 7, 65, 64, True), (2, 3, 7, 9, 32, False),
+    (2, 3, 65, 9, 16, True),
+    (2, 2, 257, 2053, 64, True),  # many kv tiles
+    (2, 3, 70, 257, 64, "all")])  # every key of sample 1 masked: a uniform softmax
 def test_f32_bhsd_matches_plain_on_card(cuda_device, monkeypatch, b, h, sq, skv, d, masked):
     """The float32 K4 (`flash_attention_bhsd_f32`, and `flash_attention` /
     `flash_attention_bhsd` routing float32 to it) vs `attention_plain` in
     float32, on the strided [B, H, S, d] views of merged [B, S, H*d]
     tensors as DINOv2 makes them, within the float32 bounds; each call
-    counted once and by the float32 entry point only. At DINOv2's shape the
-    plain version without the last key fails the bounds."""
+    counted once and by the float32 entry point only. ``masked``: a -1e9
+    key bias on the first third of sample 1's keys (True) or on all of them
+    ("all"). At DINOv2's shape the plain version without the last key fails
+    the bounds."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     rng = np.random.default_rng(8)
     dev = cuda_device
@@ -716,7 +725,7 @@ def test_f32_bhsd_matches_plain_on_card(cuda_device, monkeypatch, b, h, sq, skv,
     bias = None
     if masked:
         bias = torch.zeros(b, skv, device=dev)
-        bias[1, : skv // 3] = -1e9
+        bias[1, : skv // 3 if masked is True else skv] = -1e9
     scale = d ** -0.5
     ref = TA.attention_plain(q, k, v, TA._bias_or_zeros(bias, k, None), scale)
     TA.reset_launch_counts()
@@ -735,6 +744,22 @@ def test_f32_bhsd_matches_plain_on_card(cuda_device, monkeypatch, b, h, sq, skv,
                                    TA._bias_or_zeros(None, k[:, :, :-1], None), scale)
         diff = short - ref
         assert (diff.norm() / ref.norm()).item() > F32_REL_L2_BOUND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64])
+def test_f32_bhsd_contiguous_operands_on_card(cuda_device, monkeypatch, d):
+    """The float32 K4 on contiguous [B, H, S, d] operands (heads S * d
+    apart, where DINOv2's views keep them d apart: other strides for the
+    body's TMA tensor maps), a ragged q and kv, within the float32 bounds."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 3, s, d)).astype(np.float32)).to(cuda_device)
+               for s in (100, 300, 300))
+    ref = TA.attention_plain(q, k, v, TA._bias_or_zeros(None, k, None), d ** -0.5)
+    out = TA.flash_attention_bhsd_f32(q, k, v, None, d ** -0.5)
+    torch.cuda.synchronize()
+    _assert_f32_within_bounds(out, ref)
 
 
 @pytest.mark.cuda

@@ -21,8 +21,8 @@ flash_attention_bhsd_f32       `_flash_kernel` :54, float32 operands (K4)     mo
 =============================  =============================================  ============================
 
 The public dispatchers are those of the JAX package: `flash_attention` (K4,
-by dtype: bfloat16 to its TMA / wgmma body, float32 to a CUDA-core body of
-its own, `flash_attention_bhsd_f32`; there is no float32 backward, so a
+by dtype: bfloat16 to its TMA / wgmma body, float32 to a 3xTF32 wgmma body
+of its own, `flash_attention_bhsd_f32`; there is no float32 backward, so a
 float32 card call that needs a gradient raises) and `fused_flash_attention`,
 which routes as `_fused_dispatch` does. Merged [B, S, H*64] operands with
 an even head count take the packed route (the JAX package's head-pair
@@ -648,10 +648,12 @@ def _bind(lib) -> None:
 
 _Library = _build.KernelLibrary("attention.cu", _bind)  # the compiled kernels, one per process
 _F32_ENTRY_POINT = "tg_attention_bhsd_f32"  # head dim
+_F32_GEOMETRY = "tg_attention_bhsd_f32_geometry"  # head dim; threads, shared memory, blocks a SM
 
 
 def _bind_f32(lib) -> None:
     _build.bind(lib, _F32_ENTRY_POINT, ctypes.POINTER(_F32Args), ctypes.c_int64, ctypes.c_void_p)
+    _build.bind(lib, _F32_GEOMETRY, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64))
 
 
 _F32Library = _build.KernelLibrary("attention_f32.cu", _bind_f32)  # the float32 K4
@@ -854,6 +856,14 @@ def _launch_bhsd(q, k, v, key_bias, scale: float, with_lse: bool = False,
     _build.check_launch(_K4_ENTRY_POINT, getattr(lib, _K4_ENTRY_POINT)(
         ctypes.byref(a), d, *plan, ws, _build.stream_of(q)))
     return (out, lse) if with_lse else out
+
+
+def f32_geometry(d: int) -> tuple:
+    """(threads, dynamic shared memory in bytes, resident blocks a SM) of a
+    block of the float32 K4's body at head dim ``d``."""
+    out = (ctypes.c_int64 * 3)()
+    _build.check_launch(_F32_GEOMETRY, getattr(_F32Library.get(), _F32_GEOMETRY)(d, out))
+    return tuple(out)
 
 
 def _launch_bhsd_f32(q, k, v, key_bias, scale: float):
@@ -1127,9 +1137,10 @@ def flash_attention_bhsd(q, k, v, key_bias=None, scale: Optional[float] = None,
 
 def flash_attention_bhsd_f32(q, k, v, key_bias=None, scale: Optional[float] = None):
     """K4 on float32 [B, H, S, D] operands (the DINOv2 encoder's attention),
-    D in `F32_HEAD_DIMS` on the card: every product and the softmax in
-    float32 on the CUDA cores; optional additive f32 key bias [B, Skv]. The
-    plain version (`attention_plain` in float32) any D. Inference only."""
+    D in `F32_HEAD_DIMS` on the card: both products on the tensor cores by
+    a 3xTF32 split (float32 accuracy), the softmax in float32; optional
+    additive f32 key bias [B, Skv]. The plain version (`attention_plain` in
+    float32) any D. Inference only."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
         return attention_plain(q, k, v, _bias_or_zeros(key_bias, k, None), scale)

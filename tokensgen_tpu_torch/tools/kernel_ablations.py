@@ -1,20 +1,32 @@
 """Ablations of the design choices that K5 (`attention_backward` at head dim
 64, csrc/flash_bwd.cuh), K2 (`fused_attention_cross_smallkv`,
-csrc/flash_ws.cuh's `smallkv_body`) and K7 (`fused_attention_joint_int8`,
-flash_ws.cuh's `ws_body` with int8 scores) keep: kernels/csrc is built once
-per variant (the shipped source, and copies in which one choice is undone by
-a text patch), one nvcc per variant at once; each build's registers and
-spills for the three kernels are printed; then each variant's K5 at the
-joint training shape ([2, 48, 17,776, 64] against itself), K2 at the edit
-shape (17,776 q rows against 480 keys, 48 heads of 64) and K7 at the gen
-path's joint shape (17,776 x 17,776, 48 heads of 64, batch 2) are timed
-through the port's wrappers in turns (CUDA events, median), each call held
-to its plain version. With --stamps, a build with clock64() stamps prints
-the clocks of one K5 q tile (block 40 of head 3, tiles 50 and 51) per
-phase. The card only.
+csrc/flash_ws.cuh's `smallkv_body`), K7 (`fused_attention_joint_int8`,
+flash_ws.cuh's `ws_body` with int8 scores) and the float32 K4
+(`flash_attention_bhsd_f32`, csrc/attention_f32.cu) keep: kernels/csrc is
+built once per variant (the shipped source, and copies in which one choice
+is undone by a text patch), one nvcc per variant at once; each build's
+registers and spills are printed; then each variant's K5 at the joint
+training shape ([2, 48, 17,776, 64] against itself), K2 at the edit shape
+(17,776 q rows against 480 keys, 48 heads of 64), K7 at the gen path's
+joint shape (17,776 x 17,776, 48 heads of 64, batch 2) and the float32 K4 at
+DINOv2-large's [49, 16, 257, 64] are timed through the port's wrappers in
+turns (CUDA events, median), each call held to its plain version. With
+--stamps, a build with clock64() stamps prints the clocks of one K5 q tile
+(block 40 of head 3, tiles 50 and 51) per phase. The card only.
+
+The float32 K4's variants (names f32_*) build attention_f32.cu alone, each
+--f32-builds times (separate nvcc runs), and f32_parent builds the
+one-thread-a-row CUDA-core body that the 3xTF32 body replaced, from the
+text of commit 8af06c8: `--f32-parent FILE` (made with `git show
+8af06c8:tokensgen_tpu_torch/kernels/csrc/attention_f32.cu > FILE` where the
+checkout has no git history), else `git show` itself. Each of its samples
+is the device time of 10 back-to-back calls over 10: its ~0.3 ms is of the
+order of the wrapper's host time, which one call's events would count.
 
     python -m tokensgen_tpu_torch.tools.kernel_ablations [--rounds 2] [--runs 5]
         [--only shipped,k5_atomics,...] [--stamps]
+    python -m tokensgen_tpu_torch.tools.kernel_ablations --only f32_parent,f32_shipped,\
+        f32_1xtf32,f32_warp_split,f32_serial_stage --f32-parent FILE [--f32-builds 2]
 """
 
 from __future__ import annotations
@@ -33,6 +45,8 @@ from tokensgen_tpu_torch.kernels import build as B
 from tokensgen_tpu_torch.tools import _common
 
 BWD, WS, FWD, CU = "flash_bwd.cuh", "flash_ws.cuh", "flash_fwd.cuh", "attention.cu"
+F32 = "attention_f32.cu"
+F32_PARENT_COMMIT = "8af06c8"  # the CUDA-core body's last commit
 
 # K5's dq share added by float2 atomics instead of the staging and TMA reduce
 _K5_ATOMICS = [
@@ -250,14 +264,32 @@ VARIANTS = {
         (WS, "(__uint_as_float(__float_as_uint(s[nt][i]) + I8_MAGIC) - I8_MAGICF)",
          "static_cast<float>(static_cast<int>(__float_as_uint(s[nt][i])))")]),
     "k7_row_fmul": ("K7", "the row scale by its own multiply, not in the exp2's FMA", _K7_ROW_FMUL),
+    # the float32 K4: attention_f32.cu's switches, one flipped a variant
+    "f32_parent": ("F32", f"the split on the tensor cores: commit {F32_PARENT_COMMIT}'s "
+                   "one-thread-a-row CUDA-core body", None),
+    "f32_shipped": ("F32", "nothing", []),
+    "f32_1xtf32": ("F32", "the split: one TF32 pass, hi.hi (timed only: outside the bounds)",
+                   [(F32, "#define F32_TERMS 3 ", "#define F32_TERMS 1 ")]),
+    "f32_warp_split": ("F32", "the staging: each warp splits its own K / V fragments from the "
+                       "raw tiles (mma.sync m16n8k8)",
+                       [(F32, "#define F32_WARP_SPLIT 0", "#define F32_WARP_SPLIT 1")]),
+    "f32_serial_stage": ("F32", "the overlap: the next tile's staging after each product's "
+                         "wait, not while the tensor cores compute it", [
+                             (F32, "  wgmma_commit();\n  stage_k();\n  wgmma_wait_all();",
+                              "  wgmma_commit();\n  wgmma_wait_all();\n  stage_k();"),
+                             (F32, "  wgmma_commit();\n  stage_v();\n  wgmma_wait_all();",
+                              "  wgmma_commit();\n  wgmma_wait_all();\n  stage_v();")]),
 }
 
 
-def _patched(name: str, patches, root):
-    """A copy of csrc with ``patches`` applied, built; (name, rc, nvcc output, seconds)."""
+def _patched(name: str, patches, root, source=CU, text=None):
+    """A copy of csrc with ``patches`` applied (or ``source`` replaced by
+    ``text``), ``source`` built; (name, rc, nvcc output, seconds)."""
     d = root / name
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(B.CSRC, d)
+    if text is not None:
+        (d / source).write_text(text)
     for f, old, new in patches:
         text = (d / f).read_text()
         if text.count(old) != 1:
@@ -265,9 +297,21 @@ def _patched(name: str, patches, root):
         (d / f).write_text(text.replace(old, new))
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *B.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / "attention.cu")],
+    proc = subprocess.run([nvcc, *B.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / source)],
                           capture_output=True, text=True)
     return name, proc.returncode, proc.stdout + proc.stderr, time.perf_counter() - t0
+
+
+def _f32_parent_text(path: str) -> str:
+    """The float32 K4's source at F32_PARENT_COMMIT: ``path``, else git show."""
+    if path:
+        with open(path) as f:
+            return f.read()
+    proc = subprocess.run(["git", "show", f"{F32_PARENT_COMMIT}:tokensgen_tpu_torch/kernels/"
+                           f"csrc/{F32}"], capture_output=True, text=True, cwd=B.CSRC)
+    if proc.returncode != 0:
+        raise RuntimeError(f"f32_parent: no --f32-parent and git show failed: {proc.stderr}")
+    return proc.stdout
 
 
 def _k5_case(dev):
@@ -313,15 +357,54 @@ def _k7_case(dev):
     return (lambda: A.fused_attention_joint_int8(q, k, v, tabs[0], tabs[1], heads=h)), ref
 
 
-def _agrees(out, ref) -> bool:
+def _f32_case(dev):
+    """The float32 K4 at DINOv2-large's [49, 16, 257, 64], the operands as
+    the encoder makes them (strided views of [49, 257, 1024]); the plain
+    version with TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(dev).manual_seed(17)
+    q, k, v = (torch.randn(49, 257, 1024, generator=gen, device=dev).view(49, 257, 16, 64)
+               .transpose(1, 2) for _ in range(3))
+    ref = A.attention_plain(q, k, v, torch.zeros(49, 257, device=dev), 0.125)
+    return (lambda: A.flash_attention_bhsd_f32(q, k, v, None, 0.125)), ref
+
+
+# every output within these of its plain version: relative L2 and max abs
+# relative to max|ref| (the float32 K4: its card bounds)
+BOUNDS = {"F32": (1e-5, 2.0 ** -14)}
+
+
+def _agrees(out, ref, bounds=(1e-2, 2.0 ** -5)) -> bool:
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
     for x, r in zip(outs, refs):
         diff, r = x.float() - r.float(), r.float()
-        if not (torch.isfinite(x).all() and diff.norm() <= 1e-2 * r.norm()
-                and diff.abs().max() <= 2.0 ** -5 * r.abs().max()):
+        if not (torch.isfinite(x).all() and diff.norm() <= bounds[0] * r.norm()
+                and diff.abs().max() <= bounds[1] * r.abs().max()):
             return False
     return True
+
+
+def _f32_time_ms(fn, runs: int, calls: int = 10) -> float:
+    """Median over ``runs`` of the device time of ``calls`` back-to-back
+    calls, per call: the float32 K4 takes ~0.3 ms, of the order of the
+    wrapper's host time, which a single call's events would count."""
+    fn()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return sorted(times)[len(times) // 2]
+
+
+def _f32_errors(out, ref) -> str:
+    diff = out - ref
+    return f"rel_l2 {(diff.norm() / ref.norm()).item():.2e} max_abs {diff.abs().max().item():.2e}"
 
 
 def main(argv=None) -> int:
@@ -330,47 +413,76 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", type=int, default=5, help="timed calls per case (median)")
     ap.add_argument("--only", default="", help="comma-separated variants (default: all)")
     ap.add_argument("--stamps", action="store_true", help="clock64() stamps of one K5 q tile")
+    ap.add_argument("--f32-parent", default="",
+                    help=f"attention_f32.cu as of commit {F32_PARENT_COMMIT} (default: git show)")
+    ap.add_argument("--f32-builds", type=int, default=2,
+                    help="nvcc builds of each float32 K4 variant, each timed")
     args = ap.parse_args(argv)
     dev = _common.device_of(argparse.Namespace(device="cuda"))
     names = [n for n in args.only.split(",") if n] or list(VARIANTS)
-    builds = {n: VARIANTS[n][2] for n in names}
+    # build key -> (variant, source, replacement text or None, patches)
+    builds = {}
+    for n in names:
+        kernel, _, patches = VARIANTS[n]
+        if kernel != "F32":
+            builds[n] = (n, CU, None, patches)
+            continue
+        text = _f32_parent_text(args.f32_parent) if patches is None else None
+        for i in range(args.f32_builds):
+            builds[f"{n}.{i}"] = (n, F32, text, patches or [])
     if args.stamps:
-        builds["k5_stamps"] = _K5_STAMPS
+        builds["k5_stamps"] = ("k5_stamps", CU, None, _K5_STAMPS)
     root = B.BUILD_DIR / "ablations"
     root.mkdir(parents=True, exist_ok=True)
     print(f"{_common.device_name(dev)}; {len(builds)} builds", flush=True)
     with ThreadPoolExecutor(len(builds)) as pool:
-        built = list(pool.map(lambda kv: _patched(kv[0], kv[1], root), builds.items()))
+        built = list(pool.map(lambda kv: _patched(kv[0], kv[1][3], root, kv[1][1], kv[1][2]),
+                              builds.items()))
     libs = {}
-    for name, rc, log, dt in built:
+    for key, rc, log, dt in built:
         if rc:
-            raise RuntimeError(f"{name}: nvcc failed ({rc}):\n{log[-4000:]}")
+            raise RuntimeError(f"{key}: nvcc failed ({rc}):\n{log[-4000:]}")
         regs = [f"{label} {r} registers, {s} bytes spilled" for k, r, s in B.ptxas_report(log)
-                for key, label in (("bwd_onepass_kernel", "K5"), ("smallkv_kernel", "K2"),
-                                   ("joint_int8_splitkv_kernel", "K7"))
-                if key in k]
-        print(f"[build] {name} in {dt:.0f} s: " + "; ".join(regs), flush=True)
-        lib = ctypes.CDLL(str(root / name / "lib.so"))
-        A._bind(lib)
-        libs[name] = lib
-    kernels = {VARIANTS[n][0] for n in names}
-    makers = {"K5": _k5_case, "K2": _k2_case, "K7": _k7_case}
-    cases = {k: make(dev) for k, make in makers.items() if "all" in kernels or k in kernels}
-    times = {(n, c): [] for n in names for c in cases}
+                for tag, label in (("bwd_onepass_kernel", "K5"), ("smallkv_kernel", "K2"),
+                                   ("joint_int8_splitkv_kernel", "K7"),
+                                   ("bhsd_f32_kernelILi64", "float32 K4 at d = 64"))
+                if tag in k]
+        print(f"[build] {key} in {dt:.0f} s: " + "; ".join(regs), flush=True)
+        lib = ctypes.CDLL(str(root / key / "lib.so"))
+        if builds[key][1] == F32:  # the entry point only: the parent has no geometry query
+            B.bind(lib, A._F32_ENTRY_POINT, ctypes.POINTER(A._F32Args), ctypes.c_int64,
+                   ctypes.c_void_p)
+        else:
+            A._bind(lib)
+        libs[key] = lib
+    kernels = {VARIANTS[builds[key][0]][0] for key in builds if key != "k5_stamps"}
+    makers = {"K5": _k5_case, "K2": _k2_case, "K7": _k7_case, "F32": _f32_case}
+    cases = {k: make(dev) for k, make in makers.items()
+             if k in kernels or ("all" in kernels and k != "F32")}
+    order = [key for key in builds if key != "k5_stamps"]
+    times = {(key, c): [] for key in order for c in cases}
     for rnd in range(args.rounds):
-        for name in names if rnd % 2 == 0 else names[::-1]:
-            A._Library.lib = libs[name]
+        for key in order if rnd % 2 == 0 else order[::-1]:
+            name = builds[key][0]
+            if builds[key][1] == F32:
+                A._F32Library.lib = libs[key]
+            else:
+                A._Library.lib = libs[key]
             for kernel, (fn, ref) in cases.items():
-                if VARIANTS[name][0] not in ("all", kernel):
+                if VARIANTS[name][0] not in ("all", kernel) or (
+                        VARIANTS[name][0] == "all" and kernel == "F32"):
                     continue
-                ok = _agrees(fn(), ref)
-                ms = _common.time_ms(fn, dev, args.runs)
-                times[(name, kernel)].append(ms)
-                print(f"round {rnd} {name} {kernel} {ms:.3f} ms agrees {ok}", flush=True)
-    for (name, kernel), ms in times.items():
+                out = fn()
+                ok = _agrees(out, ref, BOUNDS.get(kernel, (1e-2, 2.0 ** -5)))
+                detail = f" ({_f32_errors(out, ref)})" if kernel == "F32" else ""
+                ms = (_f32_time_ms(fn, args.runs) if kernel == "F32"
+                      else _common.time_ms(fn, dev, args.runs))
+                times[(key, kernel)].append(ms)
+                print(f"round {rnd} {key} {kernel} {ms:.4f} ms agrees {ok}{detail}", flush=True)
+    for (key, kernel), ms in times.items():
         if ms:
-            print(f"{name:16s} {kernel}: " + " / ".join(f"{x:.3f}" for x in ms)
-                  + f" ms  ({VARIANTS[name][1]})")
+            print(f"{key:16s} {kernel}: " + " / ".join(f"{x:.4f}" for x in ms)
+                  + f" ms  ({VARIANTS[builds[key][0]][1]})")
     if args.stamps:
         if "K5" not in cases:
             cases["K5"] = _k5_case(dev)
