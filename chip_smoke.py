@@ -1391,6 +1391,9 @@ PROBES = {
     "cross_smallkv_pairloop": "tools/bench_cross_pairloop.py:33",  # `_smallkv_pairloop_kernel`
 }
 PROBE_SOURCE = "tokensgen_tpu_torch/kernels/csrc/probes.cu"
+# the probes whose bodies live in probes.cu's header of TMA / wgmma bodies
+PROBE_SOURCES = dict.fromkeys(("attention_pair2", "cross_smallkv_pairloop"),
+                              "tokensgen_tpu_torch/kernels/csrc/probes_maxfree.cuh")
 PROBE_CLIS = ("bench_attn_sweep", "bench_attn_v2", "bench_int8_loop", "bench_matmul_hand",
               "bench_exp2", "bench_attn_r3", "bench_cross_r3", "bench_cross_pairloop")
 @functools.lru_cache(maxsize=None)
@@ -1580,11 +1583,13 @@ def _probe_maxfree_rows(dev, state) -> None:
     the library time; then against the shipped K1, K2 or K3 on the same
     inputs (check only: the same function, the online max against the
     shift). T3b also at the two cross shapes (check only); T5 also at every
-    other q block it is built for (check and planted fault). The score
-    shift is computed once per shape and passed in, so the times leave it
-    out."""
+    other q block it is built for (check and planted fault), and its kernel
+    alone timed (`probes.pairloop_prologued`: the call also runs k's
+    prologue in plain torch; the row's ``kernel_ms``). The score shift is
+    computed once per shape and passed in, so the times leave it out."""
     from tokensgen_tpu_torch.kernels import attention as A
     from tokensgen_tpu_torch.kernels import probes as P
+    from tokensgen_tpu_torch.tools._common import queued_time_ms
     from tokensgen_tpu_torch.tools.bench_attn_r3 import make_inputs
 
     x = make_inputs(dev)
@@ -1604,9 +1609,9 @@ def _probe_maxfree_rows(dev, state) -> None:
         ("cross2", P.attention_pair2, None, None),
         ("cross1", P.cross_smallkv_pairinner, ragged, None),
         ("cross2", P.cross_smallq_splitkv, lambda n: (n - 1) // 512 * 512, None),  # splits of 512
-        ("cross1", P.cross_smallkv_pairloop, ragged, None),  # at its default q block, 1,024
+        ("cross1", P.cross_smallkv_pairloop, ragged, None),  # at its default, one wave
     ) + tuple(("cross1", P.cross_smallkv_pairloop, ragged, bq) for bq in P.PAIRLOOP_BLOCK_Q
-              if bq != 1024)
+              if bq != P.PAIRLOOP_WAVE)
     for shape, probe, kept, tile in cases:
         label, check_only, timed = probe.__name__, kept is None, kept is not None and tile is None
         q, k, v, tq, tk, shipped = shapes[shape]
@@ -1638,6 +1643,13 @@ def _probe_maxfree_rows(dev, state) -> None:
             _compare(f"{label}[against the shipped {shipped.__name__}]", kernel,
                      lambda: shipped(q, k, v, tq, tk, None, h), state, check_only=True,
                      phase="probes")
+        if timed and probe is P.cross_smallkv_pairloop:
+            kn = A.merge_heads(k4)
+            ms = queued_time_ms(lambda: P.pairloop_prologued(q, kn, v, None, tq, h, shift), dev,
+                                5)
+            state["kernel_rows"][label]["kernel_ms"] = ms
+            log(f"[probes] {label}[its kernel alone, k prologued once; device time of 10 queued "
+                f"calls]: {ms:.3f} ms")
     del x, shapes
 
 
@@ -4087,8 +4099,9 @@ def main(argv=None) -> int:
                        serve_launches=state["serve_launches"][name])
         rows.append(row)
     for name, replaces in PROBES.items():
-        rows.append({"name": name, "route": "cuda", "source": PROBE_SOURCE, "replaces": replaces,
-                     "launches": state["probe_launches"][name], **state["kernel_rows"][name]})
+        rows.append({"name": name, "route": "cuda", "source": PROBE_SOURCES.get(name, PROBE_SOURCE),
+                     "replaces": replaces, "launches": state["probe_launches"][name],
+                     **state["kernel_rows"][name]})
     missing = [r["name"] for r in rows if r["launches"] <= 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the main path: {missing}")

@@ -674,6 +674,90 @@ def test_probe_maxfree_kernels_on_card(cuda_device, name):
         fn(q, k, v, bias, tq, tk, h, *((128, 128) if name == "attention_splitpv" else (96,)))
 
 
+def _maxfree_inputs(dev, h, sq, skv, seed=7):
+    """As `_case`, at any shape: bf16 merged operands of 2 samples with ``h``
+    heads, per-sample tables with a text prefix of up to 5 rows, a key-bias
+    mask over the first third of sample 1's keys."""
+    rng = np.random.default_rng(seed)
+    b = 2
+
+    def x(s):
+        return torch.from_numpy(rng.normal(size=(b, s, h * D)).astype(np.float32)).to(
+            dev, torch.bfloat16)
+
+    bias = torch.zeros(b, skv, device=dev)
+    bias[1, : skv // 3] = -1e9
+    return (x(sq), x(skv), x(skv), _tabs(rng, sq, b, min(5, sq - 1), D ** -0.5, dev),
+            _tabs(rng, skv, b, min(5, skv - 1), 1.0, dev), bias, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skv", [1, 130, 480, 512])
+def test_probe_pairloop_shapes_on_card(cuda_device, skv):
+    """T5 with more heads (8) than its K' / V ring has slots (3), on 300 q
+    rows (not a multiple of its 128-row blocks: the last block's second
+    warpgroup holds 44 rows), against 1, 130, 480 and RESIDENT_MAX (512)
+    keys (the ring streams any count; RESIDENT_MAX bounds T4a / T4b only),
+    at every built block_q, within REL_L2_BOUND and MAX_ABS_REL of the
+    plain version; each call counted once."""
+    from tokensgen_tpu_torch.kernels import probes as P
+
+    q, k, v, tq, tk, bias, h = _maxfree_inputs(cuda_device, 8, 300, skv)
+    shift = P.score_shift(tq, tk, bias)
+    ref = P.attention_maxfree_plain(q, k, v, bias, tq, tk, h, shift)
+    for block_q in P.PAIRLOOP_BLOCK_Q:
+        before = P.cross_smallkv_pairloop.launches
+        out = P.cross_smallkv_pairloop(q, k, v, bias, tq, tk, h, block_q)
+        torch.cuda.synchronize()
+        assert P.cross_smallkv_pairloop.launches == before + 1
+        _assert_within_bounds(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["fused_attention_cross_smallkv", "fused_attention_cross_smallq"])
+def test_probe_pair2_cross_shapes_on_card(cuda_device, shape):
+    """T3b at `_case`'s two cross shapes (2,200 q rows x 130 keys, 130 x
+    2,200), ragged in q and kv, against the plain version within
+    REL_L2_BOUND and MAX_ABS_REL; one launch counted."""
+    from tokensgen_tpu_torch.kernels import probes as P
+
+    q, k, v, tq, tk, bias, h = _case(shape, cuda_device)
+    shift = P.score_shift(tq, tk, bias)
+    before = P.attention_pair2.launches
+    out = P.attention_pair2(q, k, v, bias, tq, tk, h)
+    torch.cuda.synchronize()
+    assert P.attention_pair2.launches == before + 1
+    _assert_within_bounds(out, P.attention_maxfree_plain(q, k, v, bias, tq, tk, h, shift))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["attention_pair2", "cross_smallkv_pairloop"])
+def test_probe_maxfree_subnormal_p_on_card(cuda_device, name):
+    """T3b (joint 300 x 517) and T5 (300 x 130) with an explicit shift that
+    puts every p of every row (its unmasked keys) between 2^-149 and
+    2^-126, f32's subnormals: q's tables scaled by 1/8 narrow the scores,
+    the shift takes the largest to -127. Held to the plain version (which
+    keeps subnormal f32 p and subnormal bf16 p) within REL_L2_BOUND and
+    MAX_ABS_REL: the kernels' exponential must not flush them."""
+    from tokensgen_tpu_torch.kernels import attention as A
+    from tokensgen_tpu_torch.kernels import probes as P
+
+    skv = 517 if name == "attention_pair2" else 130
+    q, k, v, tq, tk, bias, h = _maxfree_inputs(cuda_device, 4, 300, skv, seed=8)
+    tq = tuple(x / 8 for x in tq[:3]) + (tq[3],)
+    qn = A._prologue32(A.split_heads(q, h), tuple(x * A._LOG2E for x in tq[:3]) + (tq[3],),
+                       1e-6, True).to(torch.bfloat16)
+    kn = A.apply_prologue_plain(A.split_heads(k, h), tk, 1e-6, True)
+    s = torch.einsum("bhqd,bhkd->bhqk", qn.float(), kn.float()) + bias[:, None, None, :] * A._LOG2E
+    live = (bias > -1e8)[:, None, None, :].expand_as(s)
+    shift = s[live].max().item() + 127.0
+    assert s[live].min().item() - shift >= -149.0  # every unmasked p is subnormal
+    ref = P.attention_maxfree_plain(q, k, v, bias, tq, tk, h, shift)
+    out = getattr(P, name)(q, k, v, bias, tq, tk, h, shift=shift)
+    torch.cuda.synchronize()
+    _assert_within_bounds(out, ref)
+
+
 # the float32 K4 against `attention_plain` in float32 on the same inputs:
 # both keep float32 throughout (TF32 off for the plain version's matmuls) and
 # differ only in summation order and in exp2 with the scale folded into q.

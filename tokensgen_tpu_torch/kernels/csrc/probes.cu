@@ -21,12 +21,14 @@
 //           tools/bench_cross_r3.py and tools/bench_cross_pairloop.py
 //           (below)                                                  T3a-T4b, T5
 //
-// Each computes the JAX function, not the TPU's blocking; all are simple
-// first versions (synchronous loads, mma.sync), right before fast.
+// Each computes the JAX function, not the TPU's blocking. T3b and T5 are
+// Hopper bodies (TMA rings, wgmma, probes_maxfree.cuh); the others are
+// simple first versions (synchronous loads, mma.sync), right before fast.
 
 #include <cfloat>
 
 #include "flash_fwd.cuh"
+#include "probes_maxfree.cuh"
 
 // ---------------------------------------------------------------------------
 // T1, T2: the K4-family forward (flash_fwd.cuh, no prologue; the wrapper folds
@@ -496,10 +498,12 @@ __global__ void __launch_bounds__(256) exp2_loop_kernel(const float* x, float* o
 // At the scripts' tables C is the cap, 120, so every p lies far below 1
 // (2^-80 .. 2^-160 for scores of a few tens): the row sums are carried by
 // the normal values and the shift cancels in acc / l. exp2f keeps
-// subnormals (no -ftz); a row whose every score is below about -6 would
-// underflow, as on the TPU.
+// subnormals (no -ftz); T3b and T5 run ex2.approx.ftz on a shifted
+// argument instead (probes_maxfree.cuh); a row whose every score is below
+// about -29 would underflow, as on the TPU.
 //
-// Designs (simple first versions: synchronous loads, mma.sync m16n8k16):
+// Designs (T3a, T4a, T4b: simple first versions, synchronous loads and
+// mma.sync m16n8k16; T3b and T5: probes_maxfree.cuh's TMA / wgmma bodies):
 // * T3a splitpv_kernel<BM_, BN_> (<- _packed_kernel_splitpv): a block owns
 //   BM_ q rows of one head pair and sweeps the kv tiles. The pair's K and V
 //   tile is staged once, 128 contiguous bf16 per key (the TPU kernel's
@@ -513,13 +517,12 @@ __global__ void __launch_bounds__(256) exp2_loop_kernel(const float* x, float* o
 //   other's mma, by named barriers) is not built: that is B0's. The q tiles
 //   share their shared memory with the K and V tiles (q sits in registers
 //   once loaded): 37 KB of static shared memory at (128, 64).
-// * T3b pair2_kernel<BN_> (<- _packed_kernel_pair2): a block owns 64 q rows
-//   of two head pairs (4 heads); warp w carries rows (w % 4) * 16 of head
-//   w / 4 of both pairs and issues both chains' score products before
-//   either softmax. Two chains' fragments and sums take ~170 registers a
-//   thread, so 8 warps are all a block can have, and 64 rows per head are
-//   all they can carry. The four heads' K and V tiles (69 KB at 64 keys)
-//   take dynamic shared memory (cudaFuncAttributeMaxDynamicSharedMemorySize).
+// * T3b pair2_kernel (<- _packed_kernel_pair2, probes_maxfree.cuh): the
+//   prologue pass once per row (K1's), then a block owns 128 q rows of two
+//   head pairs and runs two passes, in each one head of each pair as its
+//   two chains; a warpgroup issues one chain's scores (wgmma SS) with the
+//   other's p.v (wgmma RS), whose softmax runs meanwhile; K / V tiles of
+//   128 keys by TMA through a 5-slot ring.
 // * T4a / T4b resident_body<PRO_K, PARTIAL>: K2's structure: K and V of one
 //   head over at most RES_MAX keys held whole in shared memory while q
 //   tiles of 128 rows run against them. T4a pairinner_kernel (<-
@@ -531,18 +534,17 @@ __global__ void __launch_bounds__(256) exp2_loop_kernel(const float* x, float* o
 //   workspace, which combine_kernel sums: sum(acc) / max(sum(l), FLT_MIN),
 //   with nothing to rescale since there is no running max (the TPU kernel
 //   carries the same sums across its kv sweep).
-// * T5 pairloop_kernel (<- _smallkv_pairloop_kernel): T4a's function and
-//   body with the head loop moved into the block: grid (q blocks, B), no
-//   head axis, so a block owns a contiguous [qchunk, H * 64] row block of q
-//   and of out and sweeps the heads in order (the TPU kernel's in-kernel
-//   loop over the 24 head pairs, one head at a time here). The TPU keeps K
-//   and V of every head resident in VMEM; all 48 heads' (5.9 MB at 480
-//   keys) do not fit in an SM, nor does one head pair's (295 KB), so each
-//   head's K and V come whole into shared memory from L2 (which holds all
-//   of them) once per block: per q row the staging is 5.9 MB / qchunk, and
-//   small q blocks buy blocks to fill the card with it. The full-width row
-//   block (6 MB at 1,024 rows) does not fit either: each head reads and
-//   writes its 128-byte segment of every row, a whole cache line.
+// * T5 pairloop_kernel (<- _smallkv_pairloop_kernel, probes_maxfree.cuh):
+//   T4a's function with the head loop in the block: no head axis in the
+//   grid; a block owns a contiguous range of (row block of 128 q rows,
+//   head) units, head fastest (full-width rows, their heads in order; by
+//   default one wave of blocks over the SMs). Per unit each warpgroup
+//   loads its 64 rows of that head's q by TMA one unit ahead and prologues
+//   them in shared memory with q's tables (held for the row block); K'
+//   (prologued by the wrapper) and V stream in 128-key tiles through one
+//   TMA ring across head boundaries, all 48 heads' (5.9 MB at 480 keys)
+//   fitting in no SM. Scores wgmma SS, p.v wgmma RS, the p.v of one tile
+//   under the next tile's softmax.
 // Bound: the two products at the bf16 tensor-core rate.
 // ---------------------------------------------------------------------------
 
@@ -737,67 +739,6 @@ __global__ void __launch_bounds__(BM_ / 16 * 64) splitpv_kernel(const TGAttnArgs
   store_maxfree(acc, o, a.o_ss, q0 + row0, sq);
 }
 
-template <int BN_>
-constexpr size_t pair2_smem_bytes() {
-  constexpr int q_elems = 4 * 64 * LDQ, kv_elems = BN_ * (4 * 64 + 8) + 256 * (BN_ + 8);
-  return BN_ * sizeof(float) + sizeof(__nv_bfloat16) * (q_elems > kv_elems ? q_elems : kv_elems);
-}
-
-// T3b. Grid (ceil(Sq / 64), H / 4, B), 8 warps; dynamic shared memory
-// pair2_smem_bytes<BN_>(): the shifted key bias, then the q tiles of the
-// four heads, later the K ([BN_ keys][4 x 64]) and transposed V ([256][BN_])
-// tiles in their room.
-template <int BN_>
-__global__ void __launch_bounds__(256) pair2_kernel(const TGAttnArgs a, float shift) {
-  constexpr int NT = 256, LDK = 4 * 64 + 8, LDV = BN_ + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ksh = reinterpret_cast<float*>(smem_raw);
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw + BN_ * sizeof(float));
-  const int q0 = blockIdx.x * 64, h0 = 4 * blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int hh = warp >> 2, row0 = (warp & 3) * 16;  // head of each pair, rows
-  const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
-  const float eps = static_cast<float>(a.eps);
-  const __nv_bfloat16* q = head_ptr<const __nv_bfloat16>(a.q, a.q_sb, a.q_sh, b, h0);
-  const __nv_bfloat16* k = head_ptr<const __nv_bfloat16>(a.k, a.k_sb, a.k_sh, b, h0);
-  const __nv_bfloat16* v = head_ptr<const __nv_bfloat16>(a.v, a.v_sb, a.v_sh, b, h0);
-  const float* bias = a.bias ? static_cast<const float*>(a.bias) + (long long)b * skv : nullptr;
-  const Side pq = side_q(a), pk = side_k(a);
-
-  for (int j = 0; j < 4; ++j)
-    load_rows<true, 64, NT>(smem + j * 64 * LDQ, LDQ, q + j * a.q_sh, a.q_ss, q0, 64, sq, pq, b,
-                            static_cast<float>(a.qscale), eps);
-  __syncthreads();
-  uint32_t qa[2][4][4];  // chain c: head 2c + hh
-#pragma unroll
-  for (int c = 0; c < 2; ++c) load_frags16(qa[c], smem + ((2 * c + hh) * 64 + row0) * LDQ, LDQ);
-  MaxFreeAcc acc[2];
-  init_maxfree(acc[0]);
-  init_maxfree(acc[1]);
-  __nv_bfloat16* Ks = smem;
-  __nv_bfloat16* Vt = smem + BN_ * LDK;
-  for (int kv0 = 0; kv0 < skv; kv0 += BN_) {
-    __syncthreads();  // q fragments read (first tile); the previous tile consumed
-    for (int j = 0; j < 4; ++j)
-      load_rows<true, 64, NT>(Ks + j * 64, LDK, k + j * a.k_sh, a.k_ss, kv0, BN_, skv, pk, b,
-                              1.f, eps);
-    for (int j = 0; j < 4; ++j)
-      load_vt<64, NT>(Vt + j * 64 * LDV, LDV, v + j * a.v_sh, a.v_ss, kv0, BN_, skv);
-    load_key_shift(ksh, bias, kv0, BN_, skv, shift);
-    __syncthreads();
-    float s[2][BN_ / 8][4];
-#pragma unroll
-    for (int c = 0; c < 2; ++c) score_tile<BN_>(s[c], qa[c], Ks + (2 * c + hh) * 64, LDK);
-#pragma unroll
-    for (int c = 0; c < 2; ++c)
-      maxfree_pv<BN_>(s[c], ksh, Vt + (2 * c + hh) * 64 * LDV, LDV, acc[c]);
-  }
-#pragma unroll
-  for (int c = 0; c < 2; ++c)
-    store_maxfree(acc[c], head_ptr<__nv_bfloat16>(a.o, a.o_sb, a.o_sh, b, h0 + 2 * c + hh),
-                  a.o_ss, q0 + row0, sq);
-}
-
 // T4a / T4b shared memory for n resident keys: their shifted bias, K
 // ([n_p][LDQ]), transposed V ([64][n_p + 8]) and a q tile ([BM][LDQ]).
 size_t resident_smem_bytes(int n) {
@@ -862,18 +803,6 @@ __global__ void __launch_bounds__(NTHREADS) pairinner_kernel(const TGAttnArgs a,
                               static_cast<int>(a.skv), shift, nullptr, nullptr);
 }
 
-// T5. Grid (ceil(Sq / qchunk), B); K already prologued, Skv <= RES_MAX.
-__global__ void __launch_bounds__(NTHREADS) pairloop_kernel(const TGAttnArgs a, int qchunk,
-                                                            float shift) {
-  const int qbeg = blockIdx.x * qchunk;
-  const int qend = min(static_cast<int>(a.sq), qbeg + qchunk);
-  for (int h = 0; h < a.h; ++h) {
-    if (h > 0) __syncthreads();  // the previous head's K / V consumed by every warp
-    resident_body<false, false>(a, h, blockIdx.y, qbeg, qend, 0, static_cast<int>(a.skv), shift,
-                                nullptr, nullptr);
-  }
-}
-
 // T4b workspace (f32): acc [B][H][splits][Sq][64], then l [B][H][splits][Sq].
 __device__ __forceinline__ long long split_part(const TGAttnArgs& a, int b, int h, int s,
                                                 int splits) {
@@ -925,18 +854,6 @@ int launch_splitpv(const TGAttnArgs* a, float shift, cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>((a->sq + BM_ - 1) / BM_),
                   static_cast<unsigned>(a->h / 2), static_cast<unsigned>(a->b));
   splitpv_kernel<BM_, BN_><<<grid, BM_ / 16 * 64, 0, s>>>(*a, shift);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int BN_>
-int launch_pair2(const TGAttnArgs* a, float shift, cudaStream_t s) {
-  constexpr size_t smem = pair2_smem_bytes<BN_>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      pair2_kernel<BN_>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((a->sq + 63) / 64), static_cast<unsigned>(a->h / 4),
-                  static_cast<unsigned>(a->b));
-  pair2_kernel<BN_><<<grid, 256, smem, s>>>(*a, shift);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1022,8 +939,9 @@ int tg_probe_exp2_loop(const float* x, float* o, long long n, long long n_iter, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// T3a-T4b share one signature: (args, tile parameters p0 and p1, the score
-// shift C, the f32 workspace (T4b only; else null), stream).
+// T3a-T5 share one signature: (args, tile parameters p0 and p1, the score
+// shift C, the workspace (T3b: the bf16 prologue rows; T4b: f32 partials;
+// else null), stream).
 
 // T3a: (block_q, block_kv) in {(128, 64), (128, 32), (64, 64)}; H even.
 int tg_probe_attn_splitpv(const TGAttnArgs* a, long long bm, long long bn, float shift,
@@ -1037,16 +955,13 @@ int tg_probe_attn_splitpv(const TGAttnArgs* a, long long bm, long long bn, float
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// T3b: block_kv 64 or 32 (64 q rows per head); H a multiple of 4.
+// T3b: block_kv 128 (128 q rows a block); H a multiple of 4; ws: the
+// prologued k and q rows, bf16 B * (Skv + Sq) * H * 64.
 int tg_probe_attn_pair2(const TGAttnArgs* a, long long bn, long long unused, float shift,
                         float* ws, void* stream) {
   (void)unused;
-  (void)ws;
-  if (a->sq <= 0 || a->skv <= 0 || a->h % 4) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bn == 64) return launch_pair2<64>(a, shift, s);
-  if (bn == 32) return launch_pair2<32>(a, shift, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (bn != MF_BN) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_pair2(a, shift, ws, static_cast<cudaStream_t>(stream));
 }
 
 // T4a: q rows per block a multiple of 128; Skv <= 512; k already prologued.
@@ -1066,21 +981,13 @@ int tg_probe_cross_pairinner(const TGAttnArgs* a, long long qchunk, long long un
   return static_cast<int>(cudaGetLastError());
 }
 
-// T5: q rows per block a multiple of 128; Skv <= 512; k already prologued.
-int tg_probe_cross_pairloop(const TGAttnArgs* a, long long qchunk, long long unused, float shift,
-                            float* ws, void* stream) {
+// T5: ``per_block`` (batch row, 128-row block, head) units a block, head
+// fastest; k already prologued, q's tables given.
+int tg_probe_cross_pairloop(const TGAttnArgs* a, long long per_block, long long unused,
+                            float shift, float* ws, void* stream) {
   (void)unused;
   (void)ws;
-  if (a->sq <= 0 || a->skv <= 0 || a->skv > RES_MAX || qchunk <= 0 || qchunk % BM)
-    return static_cast<int>(cudaErrorInvalidValue);
-  size_t smem;
-  const int err = allow_resident(pairloop_kernel, static_cast<int>(a->skv), &smem);
-  if (err != 0) return err;
-  const dim3 grid(static_cast<unsigned>((a->sq + qchunk - 1) / qchunk),
-                  static_cast<unsigned>(a->b));
-  pairloop_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      *a, static_cast<int>(qchunk), shift);
-  return static_cast<int>(cudaGetLastError());
+  return launch_pairloop(a, per_block, shift, static_cast<cudaStream_t>(stream));
 }
 
 // T4b: keys per split a multiple of 64, at most 512; ws holds

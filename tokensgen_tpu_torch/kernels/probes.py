@@ -55,14 +55,21 @@ MATMUL_BK = 32  # T7: the kernel's k tile (csrc MM_BK)
 EXP2_OPS = ("mul", "exp2", "exp2_add")  # T8
 SHIFT_CAP = 120.0  # T3a-T5: the cap of the score shift C (log2 units), as the scripts'
 SPLITPV_CONFIGS = ((128, 64), (128, 32), (64, 64))  # T3a: (q rows per head, keys per tile)
-PAIR2_BLOCK_KV = (64, 32)  # T3b: keys per tile (64 q rows per head)
+PAIR2_BLOCK_KV = (128,)  # T3b: keys per tile (csrc MF_BN)
+PAIR2_BLOCK_Q = 128  # T3b: q rows a block (csrc P2_BM)
 PAIRINNER_BLOCK_Q = (512, 1024, 2048)  # T4a: q rows per block
 SPLITKV_BLOCK_KV = (256, 384, 512)  # T4b: keys per split
-# T5: q rows per block: the script's 1,024 and 2,048 (its 4,096 gives 5
-# blocks at B = 1), and 128 / 256 / 512, which give 139 / 70 / 35 blocks at
-# the script's 17,776 rows for the card's 132 SMs
-PAIRLOOP_BLOCK_Q = (128, 256, 512, 1024, 2048)
-RESIDENT_MAX = 512  # T4a / T4b / T5: keys held whole in shared memory (csrc RES_MAX)
+# T5 cuts its work in units of (batch row, row block of PAIRLOOP_ROWS q rows,
+# head), head fastest, and a block takes a contiguous range of them
+# (`pairloop_plan`): ``block_q`` = PAIRLOOP_WAVE spreads the units evenly over
+# one wave of blocks, one a SM (6,672 units of 51 or 50 at the script's
+# 17,776 rows on 132 SMs); a multiple of PAIRLOOP_ROWS gives each block that
+# many full-width rows (the script's 1,024 and 2,048; 128 / 256 / 512 give
+# 139 / 70 / 35 blocks at 17,776 rows)
+PAIRLOOP_ROWS = 128  # csrc PL_RB
+PAIRLOOP_WAVE = 0
+PAIRLOOP_BLOCK_Q = (PAIRLOOP_WAVE, 128, 256, 512, 1024, 2048)
+RESIDENT_MAX = 512  # T4a / T4b: keys held whole in shared memory (csrc RES_MAX)
 
 
 # ---------------------------------------------------------------------------
@@ -179,6 +186,22 @@ def score_shift(tabs_q, tabs_k, key_bias=None) -> torch.Tensor:
     return torch.clamp_max(c, SHIFT_CAP)
 
 
+def pairloop_plan(batch: int, sq: int, heads: int, block_q: int, sms: int):
+    """T5's launch: (units a block, blocks). A unit is (batch row, row block
+    of `PAIRLOOP_ROWS` q rows, head); ``block_q`` = `PAIRLOOP_WAVE` spreads
+    them over ``sms`` blocks (the fewest blocks of the same makespan), a
+    multiple of `PAIRLOOP_ROWS` gives each block block_q full-width rows."""
+    units = batch * -(-sq // PAIRLOOP_ROWS) * heads
+    if block_q == PAIRLOOP_WAVE:
+        per = -(-units // sms)
+    elif block_q > 0 and block_q % PAIRLOOP_ROWS == 0:
+        per = block_q // PAIRLOOP_ROWS * heads
+    else:
+        raise ValueError(f"pairloop_plan: block_q {PAIRLOOP_WAVE} or a multiple of "
+                         f"{PAIRLOOP_ROWS}, got {block_q}")
+    return per, -(-units // per)
+
+
 def attention_maxfree_plain(q, k, v, key_bias, tabs_q, tabs_k, heads: int, shift,
                             eps: float = 1e-6, k_prologued: bool = False):
     """The plain version of the five max-free probes (T3a, T3b, T4a, T4b, T5), on
@@ -262,16 +285,20 @@ def _launch_attn(entry: str, q, k, v, key_bias, p0: int, p1: int, p2: int):
 
 
 def _launch_maxfree(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads: int, eps: float,
-                    shift, p0: int, p1: int = 0, splits: int = 0):
+                    shift, p0: int, p1: int = 0, splits: int = 0, prologue_rows: bool = False):
     """Launches one of T3a-T5 on merged [B, S, H*64] bf16 operands (k
     prologued in the kernel when ``tabs_k`` is given) with the score shift
     as its own float; T4b (``splits`` > 0) also gets its f32 workspace of
-    per-split partial sums and row sums."""
+    per-split partial sums and row sums, T3b (``prologue_rows``) its bf16
+    workspace of the prologued k and q rows. Workspaces are freed with the
+    call."""
     a, out, _keep = A.attn_args(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, True,
                                 tabs_k is not None, A._LOG2E)  # _keep: alive through the launch
     ws = None
     if splits:
         ws = torch.empty(a.b * heads * splits * a.sq * 65, dtype=torch.float32, device=q.device)
+    elif prologue_rows:
+        ws = torch.empty(a.b * (a.skv + a.sq) * heads * 64, dtype=torch.bfloat16, device=q.device)
     _build.check_launch(entry, getattr(_Library.get(), entry)(
         ctypes.byref(a), p0, p1, float(shift), None if ws is None else ws.data_ptr(),
         _build.stream_of(q)))
@@ -406,12 +433,15 @@ def attention_splitpv(q, k, v, key_bias, tabs_q, tabs_k, heads: int, block_q: in
     return out
 
 
-def attention_pair2(q, k, v, key_bias, tabs_q, tabs_k, heads: int, block_kv: int = 64,
+def attention_pair2(q, k, v, key_bias, tabs_q, tabs_k, heads: int, block_kv: int = 128,
                     eps: float = 1e-6, shift=None):
     """T3b, `attention_splitpv`'s function (`run_pair2`) with two head pairs
-    (4 heads) per block of 64 q rows: each warp carries one head of each
-    pair and issues both score products before either softmax. H a
-    multiple of 4; kv tiles of ``block_kv`` (`PAIR2_BLOCK_KV`)."""
+    (4 heads) per block of 128 q rows. Both prologues run first, once per
+    row, into a bf16 workspace (K1's prologue pass); then a block runs two
+    passes over the keys, in each one head of each pair as its two
+    independent chains: each warpgroup (64 rows) issues one chain's score
+    product with the other chain's p.v. H a multiple of 4; kv tiles of
+    ``block_kv`` (`PAIR2_BLOCK_KV`)."""
     shift = score_shift(tabs_q, tabs_k, key_bias) if shift is None else shift
     if q.device.type == "cpu":
         return attention_maxfree_plain(q, k, v, key_bias, tabs_q, tabs_k, heads, shift, eps)
@@ -420,7 +450,7 @@ def attention_pair2(q, k, v, key_bias, tabs_q, tabs_k, heads: int, block_kv: int
         raise ValueError(f"attention_pair2: heads a multiple of 4 and block_kv in "
                          f"{PAIR2_BLOCK_KV}, got heads={heads}, block_kv={block_kv}")
     out = _launch_maxfree("tg_probe_attn_pair2", q, k, v, key_bias, tabs_q, tabs_k, heads, eps,
-                          shift, block_kv)
+                          shift, block_kv, prologue_rows=True)
     attention_pair2.launches += 1
     return out
 
@@ -450,28 +480,40 @@ def cross_smallkv_pairinner(q, k, v, key_bias, tabs_q, tabs_k, heads: int,
 
 
 def cross_smallkv_pairloop(q, k, v, key_bias, tabs_q, tabs_k, heads: int,
-                           block_q: int = 1024, eps: float = 1e-6, shift=None):
+                           block_q: int = PAIRLOOP_WAVE, eps: float = 1e-6, shift=None):
     """T5, `cross_smallkv_pairinner`'s function (the JAX script's
-    `cross_smallkv_pairloop`) with no head axis in the grid: a block owns
-    ``block_q`` q rows (`PAIRLOOP_BLOCK_Q`) at their full width H*64, q's
-    and the output's contiguous row block, and loops over the heads inside,
-    staging each head's prologued K and V whole in shared memory (all heads'
-    K and V, which the TPU kernel keeps resident, do not fit an SM). k's
-    prologue runs here in plain torch with the unpacked tables, as the
-    script's wrapper runs it in XLA; Skv <= `RESIDENT_MAX`."""
+    `cross_smallkv_pairloop`) with no head axis in the grid: a block owns a
+    contiguous range of (row block of `PAIRLOOP_ROWS` q rows, head) units,
+    head fastest, so full-width rows of q and of the output with their heads
+    in order (``block_q`` in `PAIRLOOP_BLOCK_Q`, `pairloop_plan`: by default
+    one wave of blocks). Per head each warpgroup loads its 64 rows' columns
+    of q and prologues them in shared memory, while the head's prologued K
+    and V stream through a ring of 128-key tiles that runs on into the next
+    head (all heads' K and V, which the TPU kernel keeps resident, do not
+    fit an SM). k's prologue runs here in plain torch with the unpacked
+    tables, as the script's wrapper runs it in XLA; any Skv."""
     shift = score_shift(tabs_q, tabs_k, key_bias) if shift is None else shift
     kn = A.merge_heads(A.apply_prologue_plain(A.split_heads(k, heads), tabs_k, eps, True))
     if q.device.type == "cpu":
         return attention_maxfree_plain(q, kn, v, key_bias, tabs_q, tabs_k, heads, shift, eps,
                                        k_prologued=True)
     A._require_cuda(k, v, key_bias)
-    if block_q not in PAIRLOOP_BLOCK_Q or k.shape[1] > RESIDENT_MAX:
-        raise ValueError(f"cross_smallkv_pairloop: Skv <= {RESIDENT_MAX} and block_q in "
-                         f"{PAIRLOOP_BLOCK_Q}, got Skv {k.shape[1]}, block_q={block_q}")
-    out = _launch_maxfree("tg_probe_cross_pairloop", q, kn, v, key_bias, tabs_q, None, heads,
-                          eps, shift, block_q)
+    if block_q not in PAIRLOOP_BLOCK_Q:
+        raise ValueError(f"cross_smallkv_pairloop: block_q in {PAIRLOOP_BLOCK_Q}, got {block_q}")
+    out = pairloop_prologued(q, kn, v, key_bias, tabs_q, heads, shift, block_q, eps)
     cross_smallkv_pairloop.launches += 1
     return out
+
+
+def pairloop_prologued(q, kn, v, key_bias, tabs_q, heads: int, shift, block_q: int = PAIRLOOP_WAVE,
+                       eps: float = 1e-6):
+    """T5's kernel alone, on k already prologued (``kn``), uncounted: what
+    the CLI and the smoke time apart from the wrapper's plain-torch k
+    prologue. CUDA tensors only."""
+    per, _ = pairloop_plan(q.shape[0], q.shape[1], heads, block_q,
+                           torch.cuda.get_device_properties(q.device).multi_processor_count)
+    return _launch_maxfree("tg_probe_cross_pairloop", q, kn, v, key_bias, tabs_q, None, heads,
+                           eps, shift, per)
 
 
 def cross_smallq_splitkv(q, k, v, key_bias, tabs_q, tabs_k, heads: int, block_kv: int = 512,

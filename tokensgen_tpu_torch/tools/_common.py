@@ -48,6 +48,27 @@ def time_ms(fn, dev: torch.device, runs: int) -> float:
     return statistics.median(times)
 
 
+def queued_time_ms(fn, dev: torch.device, runs: int, calls: int = 10) -> float:
+    """Median over ``runs`` of the device time of ``calls`` back-to-back
+    calls, per call (CUDA events), with the launches queued behind a device
+    sleep: the host's time between them (the wrapper's checks, a call's
+    tensor maps) is not counted, which a single call's events would count
+    for a kernel of ~0.1 ms. The card only."""
+    fn()
+    torch.cuda.synchronize(dev)
+    times = []
+    for _ in range(runs):
+        torch.cuda._sleep(50_000_000)  # ~25 ms of device time while the host queues the calls
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize(dev)
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def agreement(out: torch.Tensor, ref: torch.Tensor):
     """(relative L2 error, max abs error) of ``out`` against ``ref``; equal
     values count as no error (infinities included), the norm is that of

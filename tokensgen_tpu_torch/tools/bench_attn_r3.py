@@ -127,10 +127,10 @@ def main(argv=None):
                     block_q=bq, block_kv=bkv))
         for bkv in P.PAIR2_BLOCK_KV:
             results.append(C.max_free_case(
-                f"{case} pair2 bq=64 bkv={bkv}",
+                f"{case} pair2 bq={P.PAIR2_BLOCK_Q} bkv={bkv}",
                 lambda: P.attention_pair2(q, k, v, None, tq, tk, h, bkv, shift=shift),
-                ref, shipped, flops, dev, args.runs, shape=case, variant="pair2", block_q=64,
-                block_kv=bkv))
+                ref, shipped, flops, dev, args.runs, shape=case, variant="pair2",
+                block_q=P.PAIR2_BLOCK_Q, block_kv=bkv))
         del shipped, ref
     return results
 

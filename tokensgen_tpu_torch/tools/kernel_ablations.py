@@ -1,16 +1,21 @@
 """Ablations of the design choices that K5 (`attention_backward` at head dim
 64, csrc/flash_bwd.cuh), K2 (`fused_attention_cross_smallkv`,
 csrc/flash_ws.cuh's `smallkv_body`), K7 (`fused_attention_joint_int8`,
-flash_ws.cuh's `ws_body` with int8 scores) and the float32 K4
-(`flash_attention_bhsd_f32`, csrc/attention_f32.cu) keep: kernels/csrc is
+flash_ws.cuh's `ws_body` with int8 scores), the float32 K4
+(`flash_attention_bhsd_f32`, csrc/attention_f32.cu) and the probes T3b
+(`probes.attention_pair2`) and T5 (`probes.cross_smallkv_pairloop`,
+csrc/probes_maxfree.cuh) keep: kernels/csrc is
 built once per variant (the shipped source, and copies in which one choice
 is undone by a text patch), one nvcc per variant at once; each build's
 registers and spills are printed; then each variant's K5 at the joint
 training shape ([2, 48, 17,776, 64] against itself), K2 at the edit shape
 (17,776 q rows against 480 keys, 48 heads of 64), K7 at the gen path's
 joint shape (17,776 x 17,776, 48 heads of 64, batch 2) and the float32 K4 at
-DINOv2-large's [49, 16, 257, 64] are timed through the port's wrappers in
-turns (CUDA events, median), each call held to its plain version. With
+DINOv2-large's [49, 16, 257, 64], T3b at its script's joint shape ([1,
+17,776, 48*64]^2, the round-3 tables, no key bias) and T5's kernel at its
+script's cross1 shape (17,776 q rows x 480 prologued keys) are timed through
+the port's wrappers in turns (CUDA events, median), each call held to its
+plain version. With
 --stamps, a build with clock64() stamps prints the clocks of one K5 q tile
 (block 40 of head 3, tiles 50 and 51) per phase. The card only.
 
@@ -23,10 +28,31 @@ checkout has no git history), else `git show` itself. Each of its samples
 is the device time of 10 back-to-back calls over 10: its ~0.3 ms is of the
 order of the wrapper's host time, which one call's events would count.
 
+The probes' variants (t3b_*, t5_*, mf_*) build probes.cu alone, each
+--probe-builds times, and the parents (t3b_parent, t5_parent) build the
+synchronous mma.sync bodies that the TMA / wgmma ones replaced, from the
+text of commit 128c05f (`--probes-parent FILE`, else `git show`), timed at
+every tile they were built for (T3b: 64 and 32 keys; T5: 128-2,048 q rows a
+block) through the same C entry points. T5 is timed as its kernel alone, on
+k prologued once (`probes.pairloop_prologued`), the device time of 10
+calls queued behind a device sleep (`_common.queued_time_ms`: one call's
+events would count the wrapper's host time); the shipped T5 also at
+whole row blocks of 128 and 1,024 rows (``@128``, ``@1024``) besides its
+one-wave plan.
+
     python -m tokensgen_tpu_torch.tools.kernel_ablations [--rounds 2] [--runs 5]
         [--only shipped,k5_atomics,...] [--stamps]
     python -m tokensgen_tpu_torch.tools.kernel_ablations --only f32_parent,f32_shipped,\
         f32_1xtf32,f32_warp_split,f32_serial_stage --f32-parent FILE [--f32-builds 2]
+    python -m tokensgen_tpu_torch.tools.kernel_ablations --only t3b_parent,t5_parent,\
+        mf_shipped,mf_scaled_p,mf_serial,t3b_two_slots,t5_two_slots \
+        --probes-parent FILE [--probe-builds 2] [--probe-stamps]
+    python -m tokensgen_tpu_torch.tools.kernel_ablations --only prologue_parent,\
+        prologue_shipped --attention-parent FILE --rounds 3
+
+The last form times K1, K2 and K3 at the edit shapes (batch 2) built from
+commit 128c05f's attention.cu, where the prologue pass and the tensor maps
+lived before they moved to flash_prologue.cuh, against the shipped one.
 """
 
 from __future__ import annotations
@@ -42,11 +68,15 @@ import torch
 
 from tokensgen_tpu_torch.kernels import attention as A
 from tokensgen_tpu_torch.kernels import build as B
+from tokensgen_tpu_torch.kernels import probes as P
 from tokensgen_tpu_torch.tools import _common
 
 BWD, WS, FWD, CU = "flash_bwd.cuh", "flash_ws.cuh", "flash_fwd.cuh", "attention.cu"
 F32 = "attention_f32.cu"
 F32_PARENT_COMMIT = "8af06c8"  # the CUDA-core body's last commit
+PROBES, MF = "probes.cu", "probes_maxfree.cuh"
+PROBES_PARENT_COMMIT = "128c05f"  # T3b's and T5's mma.sync bodies' last commit; the prologue
+# pass and the tensor maps still in attention.cu
 
 # K5's dq share added by float2 atomics instead of the staging and TMA reduce
 _K5_ATOMICS = [
@@ -227,11 +257,81 @@ _K5_STAMPS = [
 STAMP_PHASES = ("tile start", "stage landed", "score products", "half 0", "half 1", "dq product",
                 "dq staged")
 
+# clock64() stamps of T3b (block (40, 3), pass 0, kv tiles 50 and 51) and of
+# T5 (block 40, steps 100-103: unit 25's four kv tiles at 480 keys), warp 0
+# of each warpgroup, read back by tg_prof_read
+_MF_STAMP_DEFS = (
+    "__device__ long long g_prof[128];\n"
+    "#define P2STAMP(k) if (blockIdx.x == 40 && blockIdx.y == 3 && blockIdx.z == 0 && "
+    "(threadIdx.x & 127) == 0 && pass == 0 && (t == 50 || t == 51)) "
+    "g_prof[(t - 50) * 32 + wg * 16 + (k)] = clock64()\n"
+    "#define PLSTAMP(k) if (blockIdx.x == 40 && (threadIdx.x & 127) == 0 && n >= 100 && "
+    "n < 104) g_prof[64 + (n - 100) * 16 + wg * 8 + (k)] = clock64()\n")
+_MF_STAMPS = [
+    (MF, "namespace {\n\nconstexpr int MF_NT", _MF_STAMP_DEFS + "namespace {\n\nconstexpr int MF_NT"),
+    (MF, """      const int na = n0 + 2 * t;
+      step_wait(na);
+      turn(0, na, 1, na - 1);
+      softmax(0, t);
+      repack(1, na - 1);
+      step_wait(na + 1);
+      turn(1, na + 1, 0, na);
+      softmax(1, t);
+      repack(0, na);
+""", """      const int na = n0 + 2 * t;
+      P2STAMP(0);
+      step_wait(na);
+      P2STAMP(1);
+      turn(0, na, 1, na - 1);
+      P2STAMP(2);
+      softmax(0, t);
+      P2STAMP(3);
+      repack(1, na - 1);
+      P2STAMP(4);
+      step_wait(na + 1);
+      P2STAMP(5);
+      turn(1, na + 1, 0, na);
+      P2STAMP(6);
+      softmax(1, t);
+      P2STAMP(7);
+      repack(0, na);
+      P2STAMP(8);
+"""),
+    (MF, "    const int k = n / nt, t = n % nt;\n    if (threadIdx.x == 0) ring.fill(n, load_kv);\n"
+         "    ring.wait(n);\n",
+     "    const int k = n / nt, t = n % nt;\n    PLSTAMP(0);\n"
+     "    if (threadIdx.x == 0) ring.fill(n, load_kv);\n    ring.wait(n);\n    PLSTAMP(1);\n"),
+    (MF, "    pin_regs(s);\n    float ls[2];\n    const int b = unit_b(k);\n",
+     "    pin_regs(s);\n    PLSTAMP(2);\n    float ls[2];\n    const int b = unit_b(k);\n"),
+    (MF, "    if (n > 0) {\n      wgmma_wait<0>();\n      pin_regs(acc);\n",
+     "    PLSTAMP(3);\n    if (n > 0) {\n      wgmma_wait<0>();\n      pin_regs(acc);\n"),
+    (MF, "    if (t == 0 && n > 0) {  // the last unit's p.v are all in: its output\n",
+     "    PLSTAMP(4);\n    if (t == 0 && n > 0) {  // the last unit's p.v are all in: its output\n"),
+    (MF, "    pack_p<MF_BN>(pa, s);\n    // this unit's scores are done",
+     "    pack_p<MF_BN>(pa, s);\n    PLSTAMP(5);\n    // this unit's scores are done"),
+    (MF, "      if (wtid == 0 && k + 2 < count) load_q(k + 2);\n    }\n",
+     "      if (wtid == 0 && k + 2 < count) load_q(k + 2);\n    }\n    PLSTAMP(6);\n"),
+    (PROBES, 'extern "C" {\n', 'extern "C" {\n\nint tg_prof_read(long long* out) {\n'
+     '  return static_cast<int>(cudaMemcpyFromSymbol(out, g_prof, sizeof(long long) * 128));\n}\n'),
+]
+P2_STAMP_PHASES = ("a: tile start", "a: slot landed", "a: scores", "a: softmax", "a: last p.v",
+                   "b: slot landed", "b: scores", "b: softmax", "b: last p.v")
+PL_STAMP_PHASES = ("step start", "slot landed", "scores", "softmax", "last p.v", "store + pack",
+                   "next q prologued")
+
 # K7: its row scale by a multiply of its own in the dequant, not in the exp2's FMA
 _K7_ROW_FMUL = [
     (WS, "                     (i & 1 ? k2.y : k2.x);",
      "                     (i & 1 ? k2.y : k2.x) * (i < 2 ? rsc.x : rsc.y);"),
     (WS, "acc[rb].m, ls, rsc);", "acc[rb].m, ls);"),
+]
+
+# T3b / T5: each turn waiting for its p.v with its scores (the p.v no
+# longer runs under the softmax)
+_MF_SERIAL = [
+    (MF, "      wgmma_wait<1>();  // the scores\n", "      wgmma_wait<0>();\n"),
+    (MF, "    if (n > 0)\n      wgmma_wait<1>();\n    else\n      wgmma_wait<0>();\n",
+     "    wgmma_wait<0>();\n"),
 ]
 
 # name: (kernel, what the variant undoes, patches)
@@ -279,7 +379,28 @@ VARIANTS = {
                               "  wgmma_commit();\n  wgmma_wait_all();\n  stage_k();"),
                              (F32, "  wgmma_commit();\n  stage_v();\n  wgmma_wait_all();",
                               "  wgmma_commit();\n  wgmma_wait_all();\n  stage_v();")]),
+    # the probes T3b and T5 (csrc/probes_maxfree.cuh)
+    "t3b_parent": ("T3B", f"the TMA / wgmma body: commit {PROBES_PARENT_COMMIT}'s synchronous "
+                   "mma.sync pair2 body (64 q rows, 4 heads a block, K prologued per block)", None),
+    "t5_parent": ("T5", f"the TMA / wgmma body: commit {PROBES_PARENT_COMMIT}'s resident "
+                  "mma.sync pair-loop body (each head's K / V whole, a grid of q blocks)", None),
+    "mf_shipped": ("MF", "nothing", []),
+    # K1-K3 through the prologue pass and tensor maps, moved from attention.cu to
+    # flash_prologue.cuh: the same code, so the same times
+    "prologue_parent": ("K123", f"the move: commit {PROBES_PARENT_COMMIT}'s attention.cu", None),
+    "prologue_shipped": ("K123", "nothing", []),
+    "mf_scaled_p": ("MF", "the exact subnormal p: p' = 2^32 p summed and multiplied "
+                    "(one FMUL a score less; the l floor scaled)", [
+                        (MF, "exp2_ftz(fminf(x, MF_PK)) * MF_PINV;", "exp2_ftz(fminf(x, MF_PK));"),
+                        (MF, "MF_LMIN = FLT_MIN;", "MF_LMIN = FLT_MIN * 4294967296.f;")]),
+    "mf_serial": ("MF", "the overlap: each turn waits for its p.v with its scores", _MF_SERIAL),
+    "t3b_two_slots": ("T3B", "the ring's depth: 2 K / V slots, not 5",
+                      [(MF, "constexpr int P2_SLOTS = 5;", "constexpr int P2_SLOTS = 2;")]),
+    "t5_two_slots": ("T5", "the ring's depth: 2 K' / V slots, not 3",
+                     [(MF, "constexpr int PL_SLOTS = 3;", "constexpr int PL_SLOTS = 2;")]),
 }
+# the kernels each probe (or K1-K3) variant times
+PROBE_KINDS = {"T3B": ("T3B",), "T5": ("T5",), "MF": ("T3B", "T5"), "K123": ("K1", "K2", "K3")}
 
 
 def _patched(name: str, patches, root, source=CU, text=None):
@@ -302,15 +423,16 @@ def _patched(name: str, patches, root, source=CU, text=None):
     return name, proc.returncode, proc.stdout + proc.stderr, time.perf_counter() - t0
 
 
-def _f32_parent_text(path: str) -> str:
-    """The float32 K4's source at F32_PARENT_COMMIT: ``path``, else git show."""
+def _parent_text(path: str, commit: str, source: str) -> str:
+    """csrc/``source`` at ``commit``: ``path``, else git show."""
     if path:
         with open(path) as f:
             return f.read()
-    proc = subprocess.run(["git", "show", f"{F32_PARENT_COMMIT}:tokensgen_tpu_torch/kernels/"
-                           f"csrc/{F32}"], capture_output=True, text=True, cwd=B.CSRC)
+    proc = subprocess.run(["git", "show", f"{commit}:tokensgen_tpu_torch/kernels/csrc/{source}"],
+                          capture_output=True, text=True, cwd=B.CSRC)
     if proc.returncode != 0:
-        raise RuntimeError(f"f32_parent: no --f32-parent and git show failed: {proc.stderr}")
+        raise RuntimeError(f"{source} at {commit}: no file given and git show failed: "
+                           f"{proc.stderr}")
     return proc.stdout
 
 
@@ -327,9 +449,11 @@ def _k5_case(dev):
                                          with_dbias=True)), ref
 
 
-def _k2_case(dev):
+def _k2_case(dev, sq=17776, skv=480, fn=A.fused_attention_cross_smallkv):
+    """K2 at the edit shape (or, with ``sq``, ``skv`` and ``fn``, K1 / K3 at
+    theirs), random tables."""
     gen = torch.Generator(dev).manual_seed(3)
-    b, h, sq, skv = 2, 48, 17776, 480
+    b, h = 2, 48
     q, k, v = (torch.randn(b, s, h * 64, generator=gen, device=dev).bfloat16()
                for s in (sq, skv, skv))
     gain = 1 + 0.1 * torch.randn(64, generator=gen, device=dev)
@@ -339,7 +463,15 @@ def _k2_case(dev):
             for ang in [torch.randn(n, 64, generator=gen, device=dev)]]
     ref = A._fused_plain_merged(q, k, v, torch.zeros(b, skv, device=dev), tabs[0], tabs[1], h,
                                 1e-6, True, True)
-    return (lambda: A.fused_attention_cross_smallkv(q, k, v, tabs[0], tabs[1], heads=h)), ref
+    return (lambda: fn(q, k, v, tabs[0], tabs[1], heads=h)), ref
+
+
+def _k1_case(dev):
+    return _k2_case(dev, 17776, 17776, A.fused_attention_joint)
+
+
+def _k3_case(dev):
+    return _k2_case(dev, 480, 18256, A.fused_attention_cross_smallq)
 
 
 def _k7_case(dev):
@@ -367,6 +499,45 @@ def _f32_case(dev):
                .transpose(1, 2) for _ in range(3))
     ref = A.attention_plain(q, k, v, torch.zeros(49, 257, device=dev), 0.125)
     return (lambda: A.flash_attention_bhsd_f32(q, k, v, None, 0.125)), ref
+
+
+def _t3b_case(dev):
+    """T3b at its script's joint shape: {style: [(label, fn)]} (the parent's
+    entry point at its two tiles, the shipped wrapper) and the plain
+    version."""
+    from tokensgen_tpu_torch.tools.bench_attn_r3 import make_inputs
+
+    x = make_inputs(dev)
+    q, k, v, tq, tk = x["q"], x["k"], x["v"], x["tq"], x["tk"]
+    h = q.shape[2] // 64
+    shift = P.score_shift(tq, tk).item()
+    ref = P.attention_maxfree_plain(q, k, v, None, tq, tk, h, shift)
+    parent = [(f"bkv={bn}", lambda bn=bn: P._launch_maxfree(
+        "tg_probe_attn_pair2", q, k, v, None, tq, tk, h, 1e-6, shift, bn)) for bn in (64, 32)]
+    shipped = [("", lambda: P.attention_pair2(q, k, v, None, tq, tk, h, shift=shift))]
+    return {"parent": parent, "shipped": shipped}, ref
+
+
+def _t5_case(dev):
+    """T5's kernel alone at its script's cross1 shape, k prologued once:
+    {style: [(label, fn)]} (the parent's entry point at each q block it was
+    built for; the shipped one-wave plan and whole row blocks of 128 and
+    1,024 rows) and the plain version."""
+    from tokensgen_tpu_torch.tools.bench_attn_r3 import make_inputs
+
+    x = make_inputs(dev)
+    q, k, v, tq, tk = x["q"], x["kv"], x["vv"], x["tq_tv"], x["tk_vip"]
+    h = q.shape[2] // 64
+    shift = P.score_shift(tq, tk).item()
+    kn = A.merge_heads(A.apply_prologue_plain(A.split_heads(k, h), tk, 1e-6, True))
+    ref = P.attention_maxfree_plain(q, kn, v, None, tq, tk, h, shift, k_prologued=True)
+    parent = [(f"@{bq}", lambda bq=bq: P._launch_maxfree(
+        "tg_probe_cross_pairloop", q, kn, v, None, tq, None, h, 1e-6, shift, bq))
+        for bq in (128, 256, 512, 1024, 2048)]
+    shipped = [("" if bq == P.PAIRLOOP_WAVE else f"@{bq}",
+                lambda bq=bq: P.pairloop_prologued(q, kn, v, None, tq, h, shift, bq))
+               for bq in (P.PAIRLOOP_WAVE, 128, 1024)]
+    return {"parent": parent, "shipped": shipped}, ref
 
 
 # every output within these of its plain version: relative L2 and max abs
@@ -403,7 +574,7 @@ def _f32_time_ms(fn, runs: int, calls: int = 10) -> float:
 
 
 def _f32_errors(out, ref) -> str:
-    diff = out - ref
+    diff, ref = out.float() - ref.float(), ref.float()
     return f"rel_l2 {(diff.norm() / ref.norm()).item():.2e} max_abs {diff.abs().max().item():.2e}"
 
 
@@ -417,6 +588,14 @@ def main(argv=None) -> int:
                     help=f"attention_f32.cu as of commit {F32_PARENT_COMMIT} (default: git show)")
     ap.add_argument("--f32-builds", type=int, default=2,
                     help="nvcc builds of each float32 K4 variant, each timed")
+    ap.add_argument("--probes-parent", default="",
+                    help=f"probes.cu as of commit {PROBES_PARENT_COMMIT} (default: git show)")
+    ap.add_argument("--attention-parent", default="",
+                    help=f"attention.cu as of commit {PROBES_PARENT_COMMIT} (default: git show)")
+    ap.add_argument("--probe-builds", type=int, default=2,
+                    help="nvcc builds of each T3b / T5 variant, each timed")
+    ap.add_argument("--probe-stamps", action="store_true",
+                    help="clock64() stamps of two T3b kv tiles and four T5 steps")
     args = ap.parse_args(argv)
     dev = _common.device_of(argparse.Namespace(device="cuda"))
     names = [n for n in args.only.split(",") if n] or list(VARIANTS)
@@ -424,14 +603,25 @@ def main(argv=None) -> int:
     builds = {}
     for n in names:
         kernel, _, patches = VARIANTS[n]
-        if kernel != "F32":
+        if kernel == "F32":
+            text = _parent_text(args.f32_parent, F32_PARENT_COMMIT, F32) if patches is None else None
+            for i in range(args.f32_builds):
+                builds[f"{n}.{i}"] = (n, F32, text, patches or [])
+        elif kernel == "K123":
+            text = (_parent_text(args.attention_parent, PROBES_PARENT_COMMIT, CU)
+                    if patches is None else None)
+            builds[n] = (n, CU, text, patches or [])
+        elif kernel in PROBE_KINDS:
+            text = (_parent_text(args.probes_parent, PROBES_PARENT_COMMIT, PROBES)
+                    if patches is None else None)
+            for i in range(args.probe_builds):
+                builds[f"{n}.{i}"] = (n, PROBES, text, patches or [])
+        else:
             builds[n] = (n, CU, None, patches)
-            continue
-        text = _f32_parent_text(args.f32_parent) if patches is None else None
-        for i in range(args.f32_builds):
-            builds[f"{n}.{i}"] = (n, F32, text, patches or [])
     if args.stamps:
         builds["k5_stamps"] = ("k5_stamps", CU, None, _K5_STAMPS)
+    if args.probe_stamps:
+        builds["mf_stamps"] = ("mf_stamps", PROBES, None, _MF_STAMPS)
     root = B.BUILD_DIR / "ablations"
     root.mkdir(parents=True, exist_ok=True)
     print(f"{_common.device_name(dev)}; {len(builds)} builds", flush=True)
@@ -445,44 +635,60 @@ def main(argv=None) -> int:
         regs = [f"{label} {r} registers, {s} bytes spilled" for k, r, s in B.ptxas_report(log)
                 for tag, label in (("bwd_onepass_kernel", "K5"), ("smallkv_kernel", "K2"),
                                    ("joint_int8_splitkv_kernel", "K7"),
-                                   ("bhsd_f32_kernelILi64", "float32 K4 at d = 64"))
+                                   ("bhsd_f32_kernelILi64", "float32 K4 at d = 64"),
+                                   ("pair2_kernel", "T3b"), ("pairloop_kernel", "T5"))
                 if tag in k]
         print(f"[build] {key} in {dt:.0f} s: " + "; ".join(regs), flush=True)
         lib = ctypes.CDLL(str(root / key / "lib.so"))
         if builds[key][1] == F32:  # the entry point only: the parent has no geometry query
             B.bind(lib, A._F32_ENTRY_POINT, ctypes.POINTER(A._F32Args), ctypes.c_int64,
                    ctypes.c_void_p)
+        elif builds[key][1] == PROBES:
+            P._bind(lib)
         else:
             A._bind(lib)
         libs[key] = lib
-    kernels = {VARIANTS[builds[key][0]][0] for key in builds if key != "k5_stamps"}
-    makers = {"K5": _k5_case, "K2": _k2_case, "K7": _k7_case, "F32": _f32_case}
+    stamp_keys = ("k5_stamps", "mf_stamps")
+    kinds = {VARIANTS[builds[key][0]][0] for key in builds if key not in stamp_keys}
+    kernels = {k for kind in kinds for k in PROBE_KINDS.get(kind, (kind,))}
+    makers = {"K5": _k5_case, "K2": _k2_case, "K7": _k7_case, "F32": _f32_case,
+              "T3B": _t3b_case, "T5": _t5_case, "K1": _k1_case, "K3": _k3_case}
     cases = {k: make(dev) for k, make in makers.items()
-             if k in kernels or ("all" in kernels and k != "F32")}
-    order = [key for key in builds if key != "k5_stamps"]
-    times = {(key, c): [] for key in order for c in cases}
+             if k in kernels or ("all" in kernels and k in ("K5", "K2", "K7"))}
+    order = [key for key in builds if key not in stamp_keys]
+    times = {}
     for rnd in range(args.rounds):
         for key in order if rnd % 2 == 0 else order[::-1]:
             name = builds[key][0]
+            kind = VARIANTS[name][0]
             if builds[key][1] == F32:
                 A._F32Library.lib = libs[key]
+            elif builds[key][1] == PROBES:
+                P._Library.lib = libs[key]
             else:
                 A._Library.lib = libs[key]
-            for kernel, (fn, ref) in cases.items():
-                if VARIANTS[name][0] not in ("all", kernel) or (
-                        VARIANTS[name][0] == "all" and kernel == "F32"):
+            for kernel, (fns, ref) in cases.items():
+                if kind == "all":
+                    if kernel not in ("K5", "K2", "K7"):
+                        continue
+                elif kernel not in PROBE_KINDS.get(kind, (kind,)):
                     continue
-                out = fn()
-                ok = _agrees(out, ref, BOUNDS.get(kernel, (1e-2, 2.0 ** -5)))
-                detail = f" ({_f32_errors(out, ref)})" if kernel == "F32" else ""
-                ms = (_f32_time_ms(fn, args.runs) if kernel == "F32"
-                      else _common.time_ms(fn, dev, args.runs))
-                times[(key, kernel)].append(ms)
-                print(f"round {rnd} {key} {kernel} {ms:.4f} ms agrees {ok}{detail}", flush=True)
+                labelled = (fns.get("parent" if VARIANTS[name][2] is None else "shipped")
+                            if isinstance(fns, dict) else [("", fns)])
+                for label, fn in labelled:
+                    out = fn()
+                    ok = _agrees(out, ref, BOUNDS.get(kernel, (1e-2, 2.0 ** -5)))
+                    detail = f" ({_f32_errors(out, ref)})" if kernel in ("F32", "T3B", "T5") else ""
+                    del out
+                    ms = (_f32_time_ms(fn, args.runs) if kernel == "F32"
+                          else _common.queued_time_ms(fn, dev, args.runs) if kernel == "T5"
+                          else _common.time_ms(fn, dev, args.runs))
+                    times.setdefault((key, kernel + label), []).append(ms)
+                    print(f"round {rnd} {key} {kernel}{label} {ms:.4f} ms agrees {ok}{detail}",
+                          flush=True)
     for (key, kernel), ms in times.items():
-        if ms:
-            print(f"{key:16s} {kernel}: " + " / ".join(f"{x:.4f}" for x in ms)
-                  + f" ms  ({VARIANTS[builds[key][0]][1]})")
+        print(f"{key:16s} {kernel}: " + " / ".join(f"{x:.4f}" for x in ms)
+              + f" ms  ({VARIANTS[builds[key][0]][1]})")
     if args.stamps:
         if "K5" not in cases:
             cases["K5"] = _k5_case(dev)
@@ -498,6 +704,27 @@ def main(argv=None) -> int:
                                    for i, p in enumerate(STAMP_PHASES))
                 print(f"K5 tile {50 + tile} warpgroup {wg} clocks: {stamps}")
         print(f"K5 tile 50 -> tile 51: {buf[32] - buf[0]} clocks")
+    if args.probe_stamps:
+        P._Library.lib = libs["mf_stamps"]
+        for kernel, maker in (("T3B", _t3b_case), ("T5", _t5_case)):
+            if kernel not in cases:
+                cases[kernel] = maker(dev)
+            cases[kernel][0]["shipped"][0][1]()
+        torch.cuda.synchronize()
+        buf = (ctypes.c_longlong * 128)()
+        libs["mf_stamps"].tg_prof_read(buf)
+        for tile in (0, 1):
+            for wg in (0, 1):
+                base = buf[tile * 32]
+                stamps = ", ".join(f"{p} {buf[tile * 32 + wg * 16 + i] - base}"
+                                   for i, p in enumerate(P2_STAMP_PHASES))
+                print(f"T3b tile {50 + tile} warpgroup {wg} clocks: {stamps}")
+        for step in range(4):
+            for wg in (0, 1):
+                base = buf[64 + step * 16]
+                stamps = ", ".join(f"{p} {buf[64 + step * 16 + wg * 8 + i] - base}"
+                                   for i, p in enumerate(PL_STAMP_PHASES))
+                print(f"T5 step {100 + step} warpgroup {wg} clocks: {stamps}")
     return 0
 
 
