@@ -7,12 +7,14 @@ Phases, each printing its own lines:
   env     card name and power limit (nvidia-smi), torch / CUDA versions,
           whether the `tokenizers` and `cv2` packages import; TF32 is switched
           off for matmuls and convolutions in every phase
-  build   nvcc builds the three sources of kernels/csrc at once
-          (attention.cu, probes.cu, attention_f32.cu; timed) and prints
-          registers and spills per
+  build   nvcc builds the four sources of kernels/csrc at once
+          (attention.cu, probes.cu, attention_f32.cu, probe_gemm.cu; timed)
+          and prints registers and spills per
           instantiation; none may spill; K7's body's SASS (cuobjdump) must
-          hold int8 wgmma and no mma.sync and no I2F; the float32 K4's
-          threads, shared memory and resident blocks a SM per head dim
+          hold int8 wgmma and no mma.sync and no I2F, T7's and T3a's bf16
+          wgmma and no mma.sync; the float32 K4's threads, shared memory
+          and resident blocks a SM per head dim, T7's and T3a's threads and
+          shared memory
   kernels K1-K4 at the edit path's production shapes, K5 (the attention
           backward) at the training path's, K7 (int8 scores) at the gen
           path's and K6 (fused prologue on [B, H, S, D]) at the T2To
@@ -278,10 +280,11 @@ def phase_env(state: dict) -> None:
 
 
 def phase_build(state: dict) -> None:
-    """nvcc builds the three sources at once (one process each), then prints
+    """nvcc builds the four sources at once (one process each), then prints
     -Xptxas -v per instantiation: registers and spill bytes. The instantiated
     set leaves out what spills (probes.SWEEP_CONFIGS), so a spill fails; so
-    does a K7 body whose SASS is not int8 wgmma scores without I2F."""
+    does a K7 body whose SASS is not int8 wgmma scores without I2F, and a T7
+    or T3a body whose SASS is not bf16 wgmma without mma.sync."""
     from concurrent.futures import ThreadPoolExecutor
 
     from tokensgen_tpu_torch.kernels import attention as A
@@ -293,7 +296,7 @@ def phase_build(state: dict) -> None:
         return lib.build(force=True), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    libs = (A._Library, P._Library, A._F32Library)
+    libs = (A._Library, P._Library, A._F32Library, P._GemmLibrary)
     with ThreadPoolExecutor(len(libs)) as pool:
         built = list(pool.map(build, libs))
     log(f"[build] nvcc {' '.join(B.NVCC_FLAGS)}: {len(libs)} sources in "
@@ -316,6 +319,17 @@ def phase_build(state: dict) -> None:
         log(f"[build]   float32 K4 at head dim {d}: {threads} threads, {smem:,} B of dynamic "
             f"shared memory a block, {blocks} resident blocks a SM")
     _int8_sass_check(built[0][0])
+    g = P.matmul_geometry()
+    log(f"[build]   T7 (matmul_hand): {g['tile_rows']} x {g['tile_cols']} output tiles, k tile "
+        f"{g['k_tile']}, {g['stages']} ring slots, {g['threads']} threads, {g['smem_bytes']:,} B "
+        f"of dynamic shared memory a block (a producer warpgroup and two consumers), raster "
+        f"group {g['raster_group']}")
+    for bq, _ in P.SPLITPV_CONFIGS:
+        g = P.splitpv_geometry(bq)
+        log(f"[build]   T3a (attention_splitpv) at block_q {bq}: {g['threads']} threads, "
+            f"{g['slots']} K / V slots, {g['smem_bytes']:,} B of dynamic shared memory a block")
+    for path, kernel in ((built[3][0], "gemm_kernel"), (built[1][0], "pair_splitpv_kernel")):
+        _wgmma_sass_check(path, kernel)
 
 
 # K7's body in SASS (cuobjdump): the instructions that show its design, by
@@ -329,14 +343,33 @@ INT8_SASS = {"IGMMA": r"\bIGMMA\.", "HGMMA": r"\bHGMMA\.", "mma.sync": r"\b[IH]M
 SCORE_TILE = 64  # scores a thread holds in one softmax (a per-score conversion's count)
 
 
-def _int8_sass_check(lib_path) -> None:
+def _sass_functions(lib_path, kernel: str) -> list:
+    """The SASS (cuobjdump) of each function of ``lib_path`` whose mangled
+    name holds ``kernel``."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     proc = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=300)
     if proc.returncode != 0:
         raise RuntimeError(f"cuobjdump failed: {proc.stderr.strip()[:400]}")
-    body = [f for f in proc.stdout.split("Function : ")[1:]
-            if f.split(None, 1)[0].find("joint_int8_splitkv_kernel") >= 0]
+    return [f for f in proc.stdout.split("Function : ")[1:] if kernel in f.split(None, 1)[0]]
+
+
+def _wgmma_sass_check(lib_path, kernel: str) -> None:
+    """Each instantiation of ``kernel`` multiplies by bf16 wgmma (HGMMA) and
+    by no mma.sync (HMMA)."""
+    bodies = _sass_functions(lib_path, kernel)
+    if not bodies:
+        raise RuntimeError(f"cuobjdump: no function named {kernel}")
+    for body in bodies:
+        counts = {k: len(re.findall(INT8_SASS[k], body)) for k in ("HGMMA", "mma.sync")}
+        log(f"[build]   {body.split(None, 1)[0]} SASS: HGMMA {counts['HGMMA']}, mma.sync "
+            f"{counts['mma.sync']}")
+        if not counts["HGMMA"] or counts["mma.sync"]:
+            raise RuntimeError(f"{kernel} is not bf16 wgmma without mma.sync: {counts}")
+
+
+def _int8_sass_check(lib_path) -> None:
+    body = _sass_functions(lib_path, "joint_int8_splitkv_kernel")
     if len(body) != 1:
         raise RuntimeError(f"cuobjdump: {len(body)} functions named joint_int8_splitkv_kernel")
     counts = {k: len(re.findall(rx, body[0])) for k, rx in INT8_SASS.items()}
@@ -1391,9 +1424,11 @@ PROBES = {
     "cross_smallkv_pairloop": "tools/bench_cross_pairloop.py:33",  # `_smallkv_pairloop_kernel`
 }
 PROBE_SOURCE = "tokensgen_tpu_torch/kernels/csrc/probes.cu"
-# the probes whose bodies live in probes.cu's header of TMA / wgmma bodies
-PROBE_SOURCES = dict.fromkeys(("attention_pair2", "cross_smallkv_pairloop"),
+# the probes whose bodies live in probes.cu's header of TMA / wgmma bodies,
+# and T7's own source
+PROBE_SOURCES = dict.fromkeys(("attention_splitpv", "attention_pair2", "cross_smallkv_pairloop"),
                               "tokensgen_tpu_torch/kernels/csrc/probes_maxfree.cuh")
+PROBE_SOURCES["matmul_hand"] = "tokensgen_tpu_torch/kernels/csrc/probe_gemm.cu"
 PROBE_CLIS = ("bench_attn_sweep", "bench_attn_v2", "bench_int8_loop", "bench_matmul_hand",
               "bench_exp2", "bench_attn_r3", "bench_cross_r3", "bench_cross_pairloop")
 @functools.lru_cache(maxsize=None)
@@ -1490,8 +1525,11 @@ def _probe_flash_loop_rows(dev, state) -> None:
 
 def _probe_matmul_rows(dev, state) -> None:
     """T7 at ff up ([36,352, 3072] x [3072, 12288], the CLI's inputs; library
-    torch.matmul), planted fault: the last k tile of 32 left out; then ragged
-    M, N and K edges at a small shape."""
+    torch.matmul), planted fault: the last k tile (`probes.MATMUL_BK`) left
+    out; the CLI's other three shapes (ff down's K = 12,288 the longest
+    accumulation) held to the same bounds from the CLI's own errors, their
+    kernel and torch.matmul times added to the row; then ragged M, N and K
+    edges at a small shape."""
     import torch
 
     from tokensgen_tpu_torch.kernels import probes as P
@@ -1510,6 +1548,21 @@ def _probe_matmul_rows(dev, state) -> None:
              lambda: P.matmul_plain(xs, ys), state, check_only=True,
              fault_fn=lambda: P.matmul_plain(xs, ys, 192), fault="the ragged k tile left out",
              phase="probes")
+    shapes = {}
+    for r in state["probe_cli_results"]["bench_matmul_hand"]:
+        if (r["k"], r["n"]) == (kdim, 12288):
+            continue
+        bound = MAX_ABS_REL * r["ref_max"]
+        b_ms = bound_ms(2.0 * r["m"] * r["k"] * r["n"],
+                        2.0 * (r["m"] * r["k"] + r["k"] * r["n"] + r["m"] * r["n"]))[0]
+        log(f"[probes] matmul_hand[{r['name']} [{r['m']},{r['k']}]x[{r['k']},{r['n']}], the "
+            f"CLI's run]: rel_l2_err {r['rel_l2_err']:.3e} (bound {REL_L2_BOUND:g}) max_abs_err "
+            f"{r['max_abs_err']:.3e} (bound {bound:.3e}); kernel {r['ms']:.3f} ms torch.matmul "
+            f"{r['library_ms']:.3f} ms bound {b_ms:.3f} ms")
+        if r["rel_l2_err"] > REL_L2_BOUND or r["max_abs_err"] > bound:
+            raise RuntimeError(f"matmul_hand[{r['name']}]: kernel disagrees with its plain version")
+        shapes[r["name"]] = {"ms": r["ms"], "library_ms": r["library_ms"], "bound_ms": b_ms}
+    state["kernel_rows"]["matmul_hand"]["shapes"] = shapes
 
 
 # T8's checks, at pass counts where one pass less fails them: exp2 draws
@@ -1669,8 +1722,10 @@ def phase_probes(state: dict) -> None:
     for cli in PROBE_CLIS:
         log(f"[probes] python -m tokensgen_tpu_torch.tools.{cli} (its JAX script's shapes):")
         t0 = time.perf_counter()
-        importlib.import_module(f"tokensgen_tpu_torch.tools.{cli}").main(["--device", "cuda"])
+        results = importlib.import_module(f"tokensgen_tpu_torch.tools.{cli}").main(
+            ["--device", "cuda"])
         torch.cuda.synchronize()
+        state.setdefault("probe_cli_results", {})[cli] = results
         log(f"[probes] {cli} done in {time.perf_counter() - t0:.1f} s")
     state["probe_launches"] = counts = P.launch_counts()
     log(f"[probes] kernel launches of the probe CLIs: {json.dumps(counts)}")

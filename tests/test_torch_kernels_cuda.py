@@ -640,6 +640,49 @@ def test_probe_matmul_and_exp2_on_card(cuda_device):
         _assert_within_bounds(out, ref)
 
 
+# T7's edges: (M, K, N) with M not a multiple of its 128-row tiles, N a
+# multiple of 8 but not of its 256-column tiles, K a multiple of 8 but not of
+# its 64-deep k tile, K under one k tile, more output tiles (256) than an
+# H100's 132 SMs (the persistent walk wraps), and K = 12,288 (ff down's: 192
+# k tiles, the longest accumulation chain) at a small M x N
+MATMUL_EDGES = [(1000, 256, 512), (256, 128, 520), (200, 200, 256), (130, 40, 264),
+                (128, 8, 256), (4096, 64, 2048), (256, 12288, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,kdim,n", MATMUL_EDGES)
+def test_probe_matmul_edges_on_card(cuda_device, m, kdim, n):
+    """T7 at each of `MATMUL_EDGES` against bf16(f32 product) within
+    REL_L2_BOUND and MAX_ABS_REL; each call counted once."""
+    from tokensgen_tpu_torch.kernels import probes as P
+
+    gen = torch.Generator(cuda_device).manual_seed(m + kdim + n)
+    x = (0.1 * torch.randn(m, kdim, generator=gen, device=cuda_device)).bfloat16()
+    y = (0.1 * torch.randn(kdim, n, generator=gen, device=cuda_device)).bfloat16()
+    before = P.matmul_hand.launches
+    out = P.matmul_hand(x, y)
+    torch.cuda.synchronize()
+    assert P.matmul_hand.launches == before + 1
+    _assert_within_bounds(out, P.matmul_plain(x, y))
+
+
+@pytest.mark.cuda
+def test_probe_builds_match_their_host_constants(cuda_device):
+    """T7's build (csrc/probe_gemm.cu) has the tile, k tile and raster group
+    that `probes.matmul_tiles`, `MATMUL_BK` and `MATMUL_GROUP` assume, and
+    its shared memory fits a block; T3a is built at each block_q of
+    `SPLITPV_CONFIGS`, within a block's shared memory."""
+    from tokensgen_tpu_torch.kernels import probes as P
+
+    g = P.matmul_geometry()
+    assert (g["tile_rows"], g["tile_cols"]) == P.MATMUL_TILE
+    assert g["k_tile"] == P.MATMUL_BK and g["raster_group"] == P.MATMUL_GROUP
+    assert 0 < g["smem_bytes"] <= 232448
+    for block_q, _ in P.SPLITPV_CONFIGS:
+        t = P.splitpv_geometry(block_q)
+        assert t["block_q"] == block_q and 0 < t["smem_bytes"] <= 232448
+
+
 MAXFREE_TILES = {  # entry point: (the _case shape it takes, its built tiles)
     "attention_splitpv": ("fused_attention_joint", "SPLITPV_CONFIGS"),
     "attention_pair2": ("fused_attention_joint", "PAIR2_BLOCK_KV"),
@@ -671,7 +714,7 @@ def test_probe_maxfree_kernels_on_card(cuda_device, name):
         assert fn.launches == before + 1
         _assert_within_bounds(out, ref)
     with pytest.raises(ValueError):
-        fn(q, k, v, bias, tq, tk, h, *((128, 128) if name == "attention_splitpv" else (96,)))
+        fn(q, k, v, bias, tq, tk, h, *((128, 64) if name == "attention_splitpv" else (96,)))
 
 
 def _maxfree_inputs(dev, h, sq, skv, seed=7):
@@ -731,9 +774,9 @@ def test_probe_pair2_cross_shapes_on_card(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["attention_pair2", "cross_smallkv_pairloop"])
+@pytest.mark.parametrize("name", ["attention_splitpv", "attention_pair2", "cross_smallkv_pairloop"])
 def test_probe_maxfree_subnormal_p_on_card(cuda_device, name):
-    """T3b (joint 300 x 517) and T5 (300 x 130) with an explicit shift that
+    """T3a and T3b (joint 300 x 517) and T5 (300 x 130) with an explicit shift that
     puts every p of every row (its unmasked keys) between 2^-149 and
     2^-126, f32's subnormals: q's tables scaled by 1/8 narrow the scores,
     the shift takes the largest to -127. Held to the plain version (which
@@ -742,7 +785,7 @@ def test_probe_maxfree_subnormal_p_on_card(cuda_device, name):
     from tokensgen_tpu_torch.kernels import attention as A
     from tokensgen_tpu_torch.kernels import probes as P
 
-    skv = 517 if name == "attention_pair2" else 130
+    skv = 130 if name == "cross_smallkv_pairloop" else 517
     q, k, v, tq, tk, bias, h = _maxfree_inputs(cuda_device, 4, 300, skv, seed=8)
     tq = tuple(x / 8 for x in tq[:3]) + (tq[3],)
     qn = A._prologue32(A.split_heads(q, h), tuple(x * A._LOG2E for x in tq[:3]) + (tq[3],),

@@ -57,3 +57,49 @@ def test_pairloop_block_q_values_are_planned():
     for block_q in P.PAIRLOOP_BLOCK_Q:
         per, blocks = P.pairloop_plan(1, 17776, 48, block_q, SMS)
         assert per >= 1 and blocks >= 1
+
+
+# T7's output-tile walk (`probes.matmul_tiles`, the kernel's `tile_coords`):
+# the DiT's four dense shapes at M = 36,352 (the CLI's) and ragged ones
+MATMUL_SHAPES = [(36352, 12288), (36352, 3072), (36352, 9216), (300, 136), (1000, 520),
+                 (128, 256), (1, 8), (4096, 2048)]
+
+
+@pytest.mark.parametrize("m,n", MATMUL_SHAPES)
+def test_matmul_tiles_cover_every_tile_once(m, n):
+    """Tile ids 0 .. tiles - 1 map onto every (row tile, column tile) of an
+    [m, n] output exactly once, and the blocks of a persistent grid (block i:
+    ids i, i + grid, ...) share them out with none left over or taken
+    twice."""
+    tm, tn = -(-m // P.MATMUL_TILE[0]), -(-n // P.MATMUL_TILE[1])
+    order = P.matmul_tiles(m, n)
+    assert sorted(order) == [(i, j) for i in range(tm) for j in range(tn)]
+    grid = min(SMS, tm * tn)  # the kernel's persistent grid
+    taken = sorted(t for b in range(grid) for t in range(b, tm * tn, grid))
+    assert taken == list(range(tm * tn))
+
+
+@pytest.mark.parametrize("m,n", MATMUL_SHAPES)
+def test_matmul_tiles_raster_groups(m, n):
+    """Consecutive ids walk `MATMUL_GROUP` row tiles down one column tile
+    before the next column (fewer in the last group), so the ids of one
+    group hold only its own row tiles and every column tile."""
+    tm, tn = -(-m // P.MATMUL_TILE[0]), -(-n // P.MATMUL_TILE[1])
+    order = P.matmul_tiles(m, n)
+    per = P.MATMUL_GROUP * tn
+    for start in range(0, tm * tn, per):
+        group = order[start:start + per]
+        first = start // per * P.MATMUL_GROUP
+        rows = min(tm - first, P.MATMUL_GROUP)
+        assert {r for r, _ in group} == set(range(first, first + rows))
+        assert group == [(first + i % rows, i // rows) for i in range(len(group))]
+
+
+def test_matmul_tiles_at_ff_up():
+    """ff up ([36,352, 3072] x [3072, 12288]): 284 x 48 = 13,632 tiles of 128
+    x 256 on 132 blocks; the first wave (ids 0-131) reads 8 row tiles of a
+    and 17 column tiles of b (where row-major order would read 3 and 48)."""
+    order = P.matmul_tiles(36352, 12288)
+    assert len(order) == 284 * 48
+    wave = order[:SMS]
+    assert len({r for r, _ in wave}) == 8 and len({c for _, c in wave}) == 17

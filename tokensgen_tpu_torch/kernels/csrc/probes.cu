@@ -10,8 +10,6 @@
 //   tg_probe_flash_loop  flash_loop_kernel<T>
 //        <- tools/bench_pallas_int8.py `_flash_like_kernel` (the flash inner
 //           loop chained through requantized scores, bf16 or int8)            T6
-//   tg_probe_matmul      matmul_kernel
-//        <- tools/bench_matmul_pallas.py `_mm_kernel` (blocked bf16 GEMM)     T7
 //   tg_probe_exp2_loop   exp2_loop_kernel<OP>
 //        <- tools/bench_vpu_exp2.py `make_kernel` (register-resident
 //           elementwise passes: mul, exp2, exp2 with an add)                  T8
@@ -21,9 +19,11 @@
 //           tools/bench_cross_r3.py and tools/bench_cross_pairloop.py
 //           (below)                                                  T3a-T4b, T5
 //
-// Each computes the JAX function, not the TPU's blocking. T3b and T5 are
-// Hopper bodies (TMA rings, wgmma, probes_maxfree.cuh); the others are
-// simple first versions (synchronous loads, mma.sync), right before fast.
+// T7, tg_probe_matmul (<- tools/bench_matmul_pallas.py `_mm_kernel`), is
+// its own source, probe_gemm.cu. Each computes the JAX function, not the
+// TPU's blocking. T3a, T3b and T5 are Hopper bodies (TMA rings, wgmma,
+// probes_maxfree.cuh), as is T7; the others are simple first versions
+// (synchronous loads, mma.sync), right before fast.
 
 #include <cfloat>
 
@@ -344,99 +344,6 @@ __global__ void __launch_bounds__(64) flash_loop_kernel(const TGFlashLoopArgs a)
 }
 
 // ---------------------------------------------------------------------------
-// T7: C = bf16(sum_k f32(a[m, k] * b[k, n])), a [M, K] and b [K, N] bf16
-// row-major (K, N multiples of 8), the probe's blocked GEMM with an f32
-// accumulator. Block tile 128 x 128 (8 warps as 2 x 4, each 64 x 32 of C:
-// 4 x 4 mma.sync m16n8k16 tiles), k tile 32; a staged row-major, b
-// transposed to [n][k] (the B-fragment layout); ragged M, N, K edges are
-// zero-filled on load and masked on store. Synchronous loads, no pipelining:
-// a simple first version. Bound: 2 M K N at the bf16 tensor-core rate.
-// ---------------------------------------------------------------------------
-
-constexpr int MM_BM = 128, MM_BN = 128, MM_BK = 32;
-constexpr int MM_LD = MM_BK + 8;  // conflict-free fragment reads
-
-}  // namespace
-
-// T7 arguments shared with the Python wrapper (every field 8 bytes).
-struct TGMatmulArgs {
-  const void* a; const void* b; void* c;
-  long long m, k, n;
-};
-
-namespace {
-
-// Grid (ceil(N / 128), ceil(M / 128)), 256 threads.
-__global__ void __launch_bounds__(256) matmul_kernel(const TGMatmulArgs p) {
-  __shared__ __align__(16) __nv_bfloat16 As[MM_BM * MM_LD];
-  __shared__ __align__(16) __nv_bfloat16 Bt[MM_BN * MM_LD];
-  const int M = static_cast<int>(p.m), K = static_cast<int>(p.k), N = static_cast<int>(p.n);
-  const int m0 = blockIdx.y * MM_BM, n0 = blockIdx.x * MM_BN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // warp tile: rows wm * 64, cols wn * 32
-  const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(p.a);
-  const __nv_bfloat16* B = static_cast<const __nv_bfloat16*>(p.b);
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += MM_BK) {
-    __syncthreads();  // the previous tiles consumed by every warp
-    for (int i = threadIdx.x; i < MM_BM * (MM_BK / 8); i += 256) {
-      const int r = i / (MM_BK / 8), c = (i % (MM_BK / 8)) * 8;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M && k0 + c < K)
-        raw = *reinterpret_cast<const uint4*>(A + (long long)(m0 + r) * K + k0 + c);
-      *reinterpret_cast<uint4*>(As + r * MM_LD + c) = raw;
-    }
-    load_transposed<__nv_bfloat16>(Bt, MM_LD, B, N, k0, MM_BK, K, n0, MM_BN, N);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < MM_BK / 16; ++kk) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const __nv_bfloat16* ap = As + (wm * 64 + mi * 16 + g) * MM_LD + kk * 16 + t * 2;
-        af[mi][0] = *reinterpret_cast<const uint32_t*>(ap);
-        af[mi][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * MM_LD);
-        af[mi][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
-        af[mi][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * MM_LD + 8);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const __nv_bfloat16* bp = Bt + (wn * 32 + ni * 8 + g) * MM_LD + kk * 16 + t * 2;
-        bf[ni][0] = *reinterpret_cast<const uint32_t*>(bp);
-        bf[ni][1] = *reinterpret_cast<const uint32_t*>(bp + 8);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma16816(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
-    }
-  }
-  __nv_bfloat16* C = static_cast<__nv_bfloat16*>(p.c);
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int r = m0 + wm * 64 + mi * 16 + g, c = n0 + wn * 32 + ni * 8 + t * 2;
-      if (c >= N) continue;
-      if (r < M)
-        *reinterpret_cast<__nv_bfloat162*>(C + (long long)r * N + c) =
-            __floats2bfloat162_rn(acc[mi][ni][0], acc[mi][ni][1]);
-      if (r + 8 < M)
-        *reinterpret_cast<__nv_bfloat162*>(C + (long long)(r + 8) * N + c) =
-            __floats2bfloat162_rn(acc[mi][ni][2], acc[mi][ni][3]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // T8: n_iter register-resident passes over a f32 array (the probe's VMEM
 // block): mul x * 1.0000001, exp2 2^(x * 0.5), exp2_add 2^(x * 0.5 + 0.125).
 // Each thread holds 4 elements through every pass (one 16-byte load, one
@@ -498,25 +405,22 @@ __global__ void __launch_bounds__(256) exp2_loop_kernel(const float* x, float* o
 // At the scripts' tables C is the cap, 120, so every p lies far below 1
 // (2^-80 .. 2^-160 for scores of a few tens): the row sums are carried by
 // the normal values and the shift cancels in acc / l. exp2f keeps
-// subnormals (no -ftz); T3b and T5 run ex2.approx.ftz on a shifted
+// subnormals (no -ftz); T3a, T3b and T5 run ex2.approx.ftz on a shifted
 // argument instead (probes_maxfree.cuh); a row whose every score is below
 // about -29 would underflow, as on the TPU.
 //
-// Designs (T3a, T4a, T4b: simple first versions, synchronous loads and
-// mma.sync m16n8k16; T3b and T5: probes_maxfree.cuh's TMA / wgmma bodies):
-// * T3a splitpv_kernel<BM_, BN_> (<- _packed_kernel_splitpv): a block owns
-//   BM_ q rows of one head pair and sweeps the kv tiles. The pair's K and V
-//   tile is staged once, 128 contiguous bf16 per key (the TPU kernel's
-//   128-lane packing; K prologued per head on the way, V transposed per
-//   head as K1 does it). Two warp groups of BM_ / 16 warps each own one
-//   head and do its scores, exp2, row sums and its own half of p@v from its
-//   64 columns: the split p@v, with no block-diagonal zero half to multiply
-//   as on the TPU. At BM_ = 128 (512 threads) each staged tile serves 128
-//   q rows of each head, as K1's serves 128 of one; at BM_ = 64 the staging
-//   per product doubles. The ping-pong order (one group's exp2 under the
-//   other's mma, by named barriers) is not built: that is B0's. The q tiles
-//   share their shared memory with the K and V tiles (q sits in registers
-//   once loaded): 37 KB of static shared memory at (128, 64).
+// Designs (T4a, T4b: simple first versions, synchronous loads and mma.sync
+// m16n8k16; T3a, T3b and T5: probes_maxfree.cuh's TMA / wgmma bodies):
+// * T3a pair_splitpv_kernel<RB> (<- _packed_kernel_splitpv,
+//   probes_maxfree.cuh): the prologue pass once per row (K1's), then a
+//   block owns 64 RB q rows of one head pair, warpgroup w head h0 + w: each
+//   K / V slot of the ring holds the pair's 128 columns of one 128-key tile
+//   (both heads' boxes), and each warpgroup multiplies only its head's
+//   half, its scores (wgmma SS) and its own half of p.v (wgmma RS): the
+//   split p.v, with no block-diagonal zero half to multiply as on the TPU.
+//   With RB = 2 each warpgroup alternates its two row blocks of 64 rows
+//   (one's scores issued with the other's p.v), so a slot serves 128 q rows
+//   of each head; with RB = 1 a slot serves 64, one chain a warpgroup.
 // * T3b pair2_kernel (<- _packed_kernel_pair2, probes_maxfree.cuh): the
 //   prologue pass once per row (K1's), then a block owns 128 q rows of two
 //   head pairs and runs two passes, in each one head of each pair as its
@@ -573,20 +477,6 @@ __device__ void load_key_shift(float* dst, const float* bias, int kv0, int n, in
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int j = kv0 + i;
     dst[i] = j < kv_end ? (bias != nullptr ? bias[j] * LOG2E : 0.f) - shift : -INFINITY;
-  }
-}
-
-// A fragments of 16 rows of one head of dim 64 (row 0 at ``p0``, pitch ld).
-__device__ __forceinline__ void load_frags16(uint32_t (&qa)[4][4], const __nv_bfloat16* p0,
-                                             int ld) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const __nv_bfloat16* p = p0 + g * ld + kk * 16 + t * 2;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(p);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
   }
 }
 
@@ -689,54 +579,6 @@ template <typename T>
 __device__ __forceinline__ T* head_ptr(const void* base, long long sb, long long sh, int b,
                                        int h) {
   return static_cast<T*>(const_cast<void*>(base)) + b * sb + h * sh;
-}
-
-// T3a. Grid (ceil(Sq / BM_), H / 2, B), two warp groups of BM_ / 16 warps.
-template <int BM_, int BN_>
-__global__ void __launch_bounds__(BM_ / 16 * 64) splitpv_kernel(const TGAttnArgs a, float shift) {
-  constexpr int NT = BM_ / 16 * 64;
-  constexpr int LDK = 2 * 64 + 8;  // the pair's 128 columns per key
-  constexpr int LDV = BN_ + 8;
-  constexpr int Q_ELEMS = 2 * BM_ * LDQ, KV_ELEMS = BN_ * LDK + 128 * LDV;
-  __shared__ __align__(16) __nv_bfloat16 smem[Q_ELEMS > KV_ELEMS ? Q_ELEMS : KV_ELEMS];
-  __shared__ float ksh[BN_];
-  const int q0 = blockIdx.x * BM_, h0 = 2 * blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int hh = warp / (BM_ / 16), row0 = (warp % (BM_ / 16)) * 16;  // head of the pair, rows
-  const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
-  const float eps = static_cast<float>(a.eps);
-  const __nv_bfloat16* q = head_ptr<const __nv_bfloat16>(a.q, a.q_sb, a.q_sh, b, h0);
-  const __nv_bfloat16* k = head_ptr<const __nv_bfloat16>(a.k, a.k_sb, a.k_sh, b, h0);
-  const __nv_bfloat16* v = head_ptr<const __nv_bfloat16>(a.v, a.v_sb, a.v_sh, b, h0);
-  __nv_bfloat16* o = head_ptr<__nv_bfloat16>(a.o, a.o_sb, a.o_sh, b, h0 + hh);
-  const float* bias = a.bias ? static_cast<const float*>(a.bias) + (long long)b * skv : nullptr;
-  const Side pq = side_q(a), pk = side_k(a);
-
-  // both heads' q rows, prologued: head j at rows [j * BM_, (j + 1) * BM_)
-  for (int j = 0; j < 2; ++j)
-    load_rows<true, 64, NT>(smem + j * BM_ * LDQ, LDQ, q + j * a.q_sh, a.q_ss, q0, BM_, sq, pq, b,
-                            static_cast<float>(a.qscale), eps);
-  __syncthreads();
-  uint32_t qa[4][4];
-  load_frags16(qa, smem + (hh * BM_ + row0) * LDQ, LDQ);
-  MaxFreeAcc acc;
-  init_maxfree(acc);
-  __nv_bfloat16* Ks = smem;
-  __nv_bfloat16* Vt = smem + BN_ * LDK;  // [128 = pair's d][BN_ keys]
-  for (int kv0 = 0; kv0 < skv; kv0 += BN_) {
-    __syncthreads();  // q fragments read (first tile); the previous tile consumed
-    for (int j = 0; j < 2; ++j)
-      load_rows<true, 64, NT>(Ks + j * 64, LDK, k + j * a.k_sh, a.k_ss, kv0, BN_, skv, pk, b,
-                              1.f, eps);
-    for (int j = 0; j < 2; ++j)
-      load_vt<64, NT>(Vt + j * 64 * LDV, LDV, v + j * a.v_sh, a.v_ss, kv0, BN_, skv);
-    load_key_shift(ksh, bias, kv0, BN_, skv, shift);
-    __syncthreads();
-    float s[BN_ / 8][4];
-    score_tile<BN_>(s, qa, Ks + hh * 64, LDK);
-    maxfree_pv<BN_>(s, ksh, Vt + hh * 64 * LDV, LDV, acc);
-  }
-  store_maxfree(acc, o, a.o_ss, q0 + row0, sq);
 }
 
 // T4a / T4b shared memory for n resident keys: their shifted bias, K
@@ -849,14 +691,6 @@ __global__ void __launch_bounds__(256) combine_kernel(const TGAttnArgs a, int sp
                             (long long)row * a.o_ss + c0) = out;
 }
 
-template <int BM_, int BN_>
-int launch_splitpv(const TGAttnArgs* a, float shift, cudaStream_t s) {
-  const dim3 grid(static_cast<unsigned>((a->sq + BM_ - 1) / BM_),
-                  static_cast<unsigned>(a->h / 2), static_cast<unsigned>(a->b));
-  splitpv_kernel<BM_, BN_><<<grid, BM_ / 16 * 64, 0, s>>>(*a, shift);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // the dynamic shared memory of a resident_body kernel for n keys
 template <typename Kernel>
 int allow_resident(Kernel kernel, int n, size_t* smem) {
@@ -913,16 +747,6 @@ int tg_probe_flash_loop(const TGFlashLoopArgs* a, long long dtype, void* stream)
   return static_cast<int>(cudaGetLastError());
 }
 
-// T7: K and N multiples of 8.
-int tg_probe_matmul(const TGMatmulArgs* p, void* stream) {
-  if (p->m <= 0 || p->k <= 0 || p->n <= 0 || p->k % 8 || p->n % 8)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((p->n + MM_BN - 1) / MM_BN),
-                  static_cast<unsigned>((p->m + MM_BM - 1) / MM_BM));
-  matmul_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(*p);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // T8: op 0 = mul, 1 = exp2, 2 = exp2_add; n a multiple of 4.
 int tg_probe_exp2_loop(const float* x, float* o, long long n, long long n_iter, long long op,
                        void* stream) {
@@ -943,16 +767,26 @@ int tg_probe_exp2_loop(const float* x, float* o, long long n, long long n_iter, 
 // shift C, the workspace (T3b: the bf16 prologue rows; T4b: f32 partials;
 // else null), stream).
 
-// T3a: (block_q, block_kv) in {(128, 64), (128, 32), (64, 64)}; H even.
+// T3a: (block_q, block_kv) in {(128, 128), (64, 128)}; H even; ws: the
+// prologued k and q rows, bf16 B * (Skv + Sq) * H * 64.
 int tg_probe_attn_splitpv(const TGAttnArgs* a, long long bm, long long bn, float shift,
                           float* ws, void* stream) {
-  (void)ws;
-  if (a->sq <= 0 || a->skv <= 0 || a->h % 2) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bm == 128 && bn == 64) return launch_splitpv<128, 64>(a, shift, s);
-  if (bm == 128 && bn == 32) return launch_splitpv<128, 32>(a, shift, s);
-  if (bm == 64 && bn == 64) return launch_splitpv<64, 64>(a, shift, s);
+  if (bn != MF_BN) return static_cast<int>(cudaErrorInvalidValue);
+  if (bm == 128) return launch_pair_splitpv<2>(a, shift, ws, s);
+  if (bm == 64) return launch_pair_splitpv<1>(a, shift, ws, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// T3a's build at block_q ``bm``: threads, dynamic shared memory (bytes),
+// K / V slots, q rows a block.
+int tg_probe_splitpv_geometry(long long bm, long long* out) {
+  if (bm != 128 && bm != 64) return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = MF_NT;
+  out[1] = bm == 128 ? splitpv_smem_bytes<2>() : splitpv_smem_bytes<1>();
+  out[2] = SP_SLOTS;
+  out[3] = bm;
+  return 0;
 }
 
 // T3b: block_kv 128 (128 q rows a block); H a multiple of 4; ws: the

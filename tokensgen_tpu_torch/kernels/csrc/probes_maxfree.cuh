@@ -1,18 +1,20 @@
-// The Hopper bodies of two max-free probes of probes.cu: T3b
+// The Hopper bodies of three max-free probes of probes.cu: T3a
+// (tg_probe_attn_splitpv, the split-p.v joint attention), T3b
 // (tg_probe_attn_pair2, the pair2 joint attention) and T5
-// (tg_probe_cross_pairloop, the pair-loop small-kv cross attention). Both
-// compute what probes.cu's other max-free probes compute (see its round-3
+// (tg_probe_cross_pairloop, the pair-loop small-kv cross attention). Each
+// computes what probes.cu's other max-free probes compute (see its round-3
 // comment): per head, s = q'.k' + key bias * log2 e - C (log2 domain, C the
 // wrapper's static score shift), p = exp2(min(s, 0)), l = sum p, out =
 // (bf16(p) . v) / max(l, FLT_MIN); the ragged last kv tile is masked and
 // rows past Sq are not stored. Only probes.cu includes this header.
 //
-// Common to both (flash_splitkv.cuh's and flash_ws.cuh's primitives):
+// Common to all three (flash_splitkv.cuh's and flash_ws.cuh's primitives):
 // * K / V tiles of MF_BN = 128 keys come by TMA (4-D tensor maps, rows past
 //   the tensor read as zeros) into 128-byte swizzled boxes, through a ring of
-//   slots that one thread fills in step order (StepRing): a slot's "full"
-//   mbarrier completes when its bytes land, its "empty" one when the 8 warps
-//   have released it after their p.v. No block barrier in the kv loop.
+//   slots that one thread fills in step order (tma_ring.cuh's StepRing): a
+//   slot's "full" mbarrier completes when its bytes land, its "empty" one
+//   when the 8 warps have released it after their p.v. No block barrier in
+//   the kv loop.
 // * Scores are wgmma SS (q' from shared memory by descriptor, K-major K),
 //   p.v wgmma RS (p from registers, MN-major V): m64n128k16 and m64n64k16,
 //   two shapes (two products of one shape gave wrong scores on this card).
@@ -32,6 +34,20 @@
 //   itself instead (the power of two cancels in acc / l) saves the FMUL
 //   but keeps more bits than the plain version below 2^-126
 //   (tools/kernel_ablations.py's mf_scaled_p).
+//
+// T3a, pair_splitpv_kernel<RB> (<- tools/bench_attn_r3.py
+// `_packed_kernel_splitpv`): the prologue pass once per row for k and for q
+// (as T3b's), then a block owns 64 RB q rows of one head pair (heads h0,
+// h0 + 1) and warpgroup w owns head h0 + w. A slot of the SP_SLOTS-slot ring
+// holds one 128-key tile of the pair: K and V of each head as 64-column
+// boxes (64 KB), and each warpgroup reads only its head's half: the split
+// p.v of the JAX kernel, whose two halves of the packed p@v are here the
+// two warpgroups' own products. Each warpgroup's RB row blocks of 64 rows
+// are its chains: with RB = 2 one's scores are issued with the other's
+// p.v, which runs under this one's softmax (T3b's turns on one slot), and a
+// slot serves 128 q rows of each head, 2x K1's bytes per product; with RB =
+// 1, one chain (T5's turns), 64 rows. The q' rows of both heads come once
+// by TMA. A slot is refilled once both warpgroups have released it.
 //
 // T3b, pair2_kernel (<- tools/bench_attn_r3.py `_packed_kernel_pair2`): the
 // prologue (LayerNorm + RoPE, log2 e folded into q's) runs once per row, in
@@ -73,6 +89,7 @@
 
 #include "flash_prologue.cuh"
 #include "flash_ws.cuh"
+#include "tma_ring.cuh"
 
 namespace {
 
@@ -84,25 +101,6 @@ constexpr float MF_PK = 32.f;                        // exp2 runs on x + MF_PK
 constexpr float MF_PINV = 2.3283064365386963e-10f;   // 2^-MF_PK
 constexpr float MF_LMIN = FLT_MIN;                   // the floor of a row sum
 
-// the first 1,024-byte boundary of dynamic shared memory (swizzled boxes
-// start on one), as an offset from ``p`` so that the compiler keeps
-// shared-memory loads and stores (through an integer it would go generic)
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
-}
-
-// true if the phase of ``bar`` with the given parity has completed (no wait)
-__device__ __forceinline__ bool mbar_test(uint64_t* bar, unsigned parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(smem_addr(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
 // one box of a 3-D tensor map at (c0, c1, c2), completing on ``bar``
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2) {
@@ -112,50 +110,6 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
-
-// the 128 threads of warpgroup ``wg`` meet (named barrier 1 + wg)
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-}
-
-// Slots of K / V tiles filled in step order by one thread (the loader) and
-// released by every warp of the block. Step n lives in slot n % S; it may
-// be loaded once step n - S is released.
-template <int S>
-struct StepRing {
-  uint64_t* full;   // [S], one arrival (the loader's expect_tx) and the bytes
-  uint64_t* empty;  // [S], one arrival per warp
-  int next;         // the loader's next step to load
-  int total;
-
-  __device__ void init() {  // one thread, before a block barrier
-#pragma unroll
-    for (int st = 0; st < S; ++st) {
-      mbar_init(full + st, 1);
-      mbar_init(empty + st, MF_NT / 32);
-    }
-  }
-  // The loader: every step up to ``need`` loaded (waiting for slots), then
-  // as many more as have free slots (not waiting).
-  template <typename Load>
-  __device__ void fill(int need, Load&& load) {
-    while (next < total) {
-      if (next >= S) {
-        const unsigned parity = ((next / S) - 1) & 1;
-        if (next <= need)
-          mbar_wait(empty + next % S, parity);
-        else if (!mbar_test(empty + next % S, parity))
-          return;
-      }
-      load(next, next % S);
-      ++next;
-    }
-  }
-  __device__ void wait(int n) const { mbar_wait(full + n % S, (n / S) & 1); }
-  __device__ void release(int n) const {
-    if ((threadIdx.x & 31) == 0) mbar_arrive(empty + n % S);
-  }
-};
 
 // The max-free softmax of one tile of MF_BN keys (kv0 on) for this thread's
 // two rows, in place: p = 2^(min(s + key shift + MF_PK, MF_PK)) 2^-MF_PK,
@@ -229,6 +183,158 @@ __device__ __forceinline__ void issue_pv_new(float (&o)[8][4], const uint32_t (&
 // the descriptor of 64 rows of a 128-byte-row swizzled q tile
 __device__ __forceinline__ uint64_t q_desc(const unsigned char* rows) {
   return smem_desc(rows, 16, 8 * 128, 1);
+}
+
+// ---------------------------------------------------------------------------
+// T3a
+// ---------------------------------------------------------------------------
+
+constexpr int SP_SLOTS = 3;                 // K / V slots (a head pair's tile each)
+constexpr uint32_t SP_SLOT = 2 * MF_SLOT;   // K and V of two heads (64 KB)
+
+// dynamic shared memory: alignment slack, the q' rows of both heads (RB
+// row blocks of 64 each), the slots, their full and empty mbarriers and q's
+template <int RB>
+__host__ __device__ constexpr int splitpv_smem_bytes() {
+  return static_cast<int>(1024 + 2 * RB * 64 * 128 + SP_SLOTS * SP_SLOT) + 8 * (2 * SP_SLOTS + 1);
+}
+
+// Grid (ceil(Sq / (64 RB)), H / 2, B); q' and k' prologued (qmap: boxes of
+// 64 RB rows; kmap, vmap: MF_BN rows); c = MF_PK - C. Warpgroup w owns
+// head h0 + w: its RB row blocks of 64 q rows are its chains.
+template <int RB>
+__global__ void __launch_bounds__(MF_NT, 1) pair_splitpv_kernel(
+    const TGAttnArgs a, const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap, float c) {
+  constexpr uint32_t QHEAD = RB * 64 * 128;  // one head's q' rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);
+  unsigned char* slots = Qs + 2 * QHEAD;
+  uint64_t* full = reinterpret_cast<uint64_t*>(slots + SP_SLOTS * SP_SLOT);
+  uint64_t* qbar = full + 2 * SP_SLOTS;
+  const int q0 = blockIdx.x * RB * 64, h0 = 2 * blockIdx.y, b = blockIdx.z;
+  const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
+  const int nt = (skv + MF_BN - 1) / MF_BN;
+  // step n: kv tile n, both heads' K and V (head j's at j * MF_SLOT)
+  StepRing<SP_SLOTS> ring{full, full + SP_SLOTS, 0, nt};
+  auto load = [&](int n, int slot) {
+    unsigned char* dst = slots + slot * SP_SLOT;
+    mbar_expect_tx(ring.full + slot, SP_SLOT);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      tma_load_4d(dst + j * MF_SLOT, &kmap, ring.full + slot, 0, n * MF_BN, h0 + j, b);
+      tma_load_4d(dst + j * MF_SLOT + MF_KV, &vmap, ring.full + slot, 0, n * MF_BN, h0 + j, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    ring.init();
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(qbar, 2 * QHEAD);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) tma_load_4d(Qs + j * QHEAD, &qmap, qbar, 0, q0, h0 + j, b);
+    ring.fill(-1, load);
+  }
+  __syncthreads();  // the mbarriers' initialization
+
+  const int warp = threadIdx.x >> 5, wg = warp >> 2;
+  const float* bias = a.bias ? static_cast<const float*>(a.bias) + (long long)b * skv : nullptr;
+  // this warpgroup's row block rb in the q' tile, and its head's half of step n's slot
+  auto qrows = [&](int rb) { return q_desc(Qs + wg * QHEAD + rb * 64 * 128); };
+  auto kv = [&](int n) { return slots + (n % SP_SLOTS) * SP_SLOT + wg * MF_SLOT; };
+  float acc[RB][8][4];
+  float l[RB][2];
+  float s[MF_BN / 8][4];
+  uint32_t pa[MF_BN / 16][4];  // bf16 p of the last softmax: the A operand of its p.v
+  zero_tile(s);
+#pragma unroll
+  for (int rb = 0; rb < RB; ++rb) {
+    zero_tile(acc[rb]);  // defined before the first wgmma (each chain's first p.v overwrites it)
+    l[rb][0] = l[rb][1] = 0.f;
+  }
+  auto step_wait = [&](int n) {
+    if (threadIdx.x == 0) ring.fill(n, load);
+    ring.wait(n);
+  };
+  auto softmax = [&](int rb, int t) {
+    float ls[2];
+    if (bias != nullptr || (t + 1) * MF_BN > skv)
+      maxfree_tile<true>(s, t * MF_BN, skv, bias, c, ls);
+    else
+      maxfree_tile<false>(s, t * MF_BN, skv, nullptr, c, ls);
+    l[rb][0] += ls[0];
+    l[rb][1] += ls[1];
+  };
+  // chain rp's p.v of step np (a chain's first, np = 0, starts its accumulator)
+  auto issue_pv_of = [&](int rp, int np) {
+    if (np == 0)
+      issue_pv_new(acc[rp], pa, kv(np) + MF_KV);
+    else
+      issue_pv<64>(acc[rp], pa, kv(np) + MF_KV);
+  };
+  // chain rs's scores of step ns with the p.v of the p in registers (chain
+  // rp's, step np); the scores are waited for, the p.v left running
+  auto turn = [&](int rs, int ns, int rp, int np) {
+    pin_regs(s);
+    pin_regs(acc[rp]);
+    pin_regs(pa);
+    wgmma_fence();
+    issue_scores_ss<64>(s, qrows(rs), kv(ns));
+    wgmma_commit();
+    issue_pv_of(rp, np);
+    wgmma_commit();
+    wgmma_wait<1>();  // the scores
+    pin_regs(s);
+  };
+  // the p.v issued by the last turn (step np released with the last chain's), p repacked
+  auto repack = [&](int rp, int np) {
+    wgmma_wait<0>();
+    pin_regs(acc[rp]);
+    pin_regs(pa);
+    if (rp == RB - 1) ring.release(np);
+    pack_p<MF_BN>(pa, s);
+  };
+  mbar_wait(qbar, 0);
+  // step 0: chain 0's scores alone, then (RB = 2) chain 1's with chain 0's p.v
+  step_wait(0);
+  pin_regs(s);
+  wgmma_fence();
+  issue_scores_ss<64>(s, qrows(0), kv(0));
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin_regs(s);
+  softmax(0, 0);
+  pack_p<MF_BN>(pa, s);
+  if constexpr (RB == 2) {
+    turn(1, 0, 0, 0);
+    softmax(1, 0);
+    repack(0, 0);
+  }
+  for (int t = 1; t < nt; ++t) {
+    step_wait(t);
+    turn(0, t, RB - 1, t - 1);
+    softmax(0, t);
+    repack(RB - 1, t - 1);
+    if constexpr (RB == 2) {
+      turn(1, t, 0, t);
+      softmax(1, t);
+      repack(0, t);
+    }
+  }
+  // the last p.v: the last chain's of the last step
+  pin_regs(acc[RB - 1]);
+  pin_regs(pa);
+  wgmma_fence();
+  issue_pv_of(RB - 1, nt - 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin_regs(acc[RB - 1]);
+  pin_regs(pa);
+  ring.release(nt - 1);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + (h0 + wg) * a.o_sh;
+#pragma unroll
+  for (int rb = 0; rb < RB; ++rb)
+    store_maxfree_rows(acc[rb], l[rb], o, a.o_ss, q0 + rb * 64 + (warp & 3) * 16, sq);
 }
 
 // ---------------------------------------------------------------------------
@@ -645,10 +751,36 @@ cudaError_t table_map(CUtensorMap* map, const void* base, long long s, long long
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-__global__ void __launch_bounds__(NTHREADS) pair2_prologue_kernel(const TGAttnArgs a, int k_side,
+__global__ void __launch_bounds__(NTHREADS) maxfree_prologue_kernel(const TGAttnArgs a, int k_side,
                                                                   __nv_bfloat16* out,
                                                                   long long out_sb) {
   prologue_rows<D>(a, k_side, out, out_sb);
+}
+
+// T3a: the prologue passes of k and q into ``pro`` (bf16, B * (Skv + Sq) *
+// H * 64), then the body with RB row blocks a warpgroup.
+template <int RB>
+int launch_pair_splitpv(const TGAttnArgs* a, float shift, void* pro, cudaStream_t s) {
+  if (a->sq <= 0 || a->skv <= 0 || a->h % 2 || pro == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  TGAttnArgs p;
+  cudaError_t err = prologue_passes<D>(maxfree_prologue_kernel, a, pro, s, &p);
+  CUtensorMap qmap, kmap, vmap;
+  if (err == cudaSuccess)
+    err = kv_tensor_map<D>(&qmap, p.q, p.sq, p.h, p.b, p.q_ss, p.q_sh, p.q_sb, RB * 64);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<D>(&kmap, p.k, p.skv, p.h, p.b, p.k_ss, p.k_sh, p.k_sb, MF_BN);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<D>(&vmap, p.v, p.skv, p.h, p.b, p.v_ss, p.v_sh, p.v_sb, MF_BN);
+  constexpr int smem = splitpv_smem_bytes<RB>();
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(pair_splitpv_kernel<RB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((p.sq + RB * 64 - 1) / (RB * 64)),
+                  static_cast<unsigned>(p.h / 2), static_cast<unsigned>(p.b));
+  pair_splitpv_kernel<RB><<<grid, MF_NT, smem, s>>>(p, qmap, kmap, vmap, MF_PK - shift);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // T3b: the prologue passes of k and q into ``pro`` (bf16, B * (Skv + Sq) *
@@ -657,7 +789,7 @@ int launch_pair2(const TGAttnArgs* a, float shift, void* pro, cudaStream_t s) {
   if (a->sq <= 0 || a->skv <= 0 || a->h % 4 || pro == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   TGAttnArgs p;
-  cudaError_t err = prologue_passes<D>(pair2_prologue_kernel, a, pro, s, &p);
+  cudaError_t err = prologue_passes<D>(maxfree_prologue_kernel, a, pro, s, &p);
   CUtensorMap qmap, kmap, vmap;
   if (err == cudaSuccess)
     err = kv_tensor_map<D>(&qmap, p.q, p.sq, p.h, p.b, p.q_ss, p.q_sh, p.q_sb, P2_BM);

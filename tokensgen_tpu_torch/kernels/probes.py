@@ -29,7 +29,8 @@ shift C of their softmax, `score_shift` (no running max: exp2(min(s - C, 0))).
 Each computes the JAX function; the tiles are the card's (`SWEEP_CONFIGS`,
 `V2_CONFIGS`, ...), not the TPU's. A CPU tensor takes the plain version beside the
 entry point; a CUDA tensor launches the kernel (CUDA C++ for sm_90a in
-``csrc/probes.cu``, built by nvcc at first use, `kernels/build.py`) or raises.
+``csrc/probes.cu`` and, T7's, ``csrc/probe_gemm.cu``, built by nvcc at first
+use, `kernels/build.py`) or raises.
 The CLIs of ``tokensgen_tpu_torch/tools/`` drive them.
 """
 
@@ -51,10 +52,14 @@ V2_CONFIGS = ((64, 64), (128, 64), (64, 128))  # T2: (block_q, block_kv)
 BIAS_MODES = ("full", "last")  # T2: key bias on every kv tile, or only on the last
 FLASH_LOOP_D = 128  # T6: the head dim the kernel is built for
 FLASH_LOOP_TILE = 64  # T6: keys per streamed tile (csrc FL_TN)
-MATMUL_BK = 32  # T7: the kernel's k tile (csrc MM_BK)
+MATMUL_BK = 64  # T7: the kernel's k tile (csrc GM_BK)
+# T7's output tiles (csrc GM_BM x GM_BN) and the row tiles of a raster group
+# (GM_GROUP): `matmul_tiles` gives their order
+MATMUL_TILE = (128, 256)
+MATMUL_GROUP = 8
 EXP2_OPS = ("mul", "exp2", "exp2_add")  # T8
 SHIFT_CAP = 120.0  # T3a-T5: the cap of the score shift C (log2 units), as the scripts'
-SPLITPV_CONFIGS = ((128, 64), (128, 32), (64, 64))  # T3a: (q rows per head, keys per tile)
+SPLITPV_CONFIGS = ((128, 128), (64, 128))  # T3a: (q rows per head, keys per tile)
 PAIR2_BLOCK_KV = (128,)  # T3b: keys per tile (csrc MF_BN)
 PAIR2_BLOCK_Q = 128  # T3b: q rows a block (csrc P2_BM)
 PAIRINNER_BLOCK_Q = (512, 1024, 2048)  # T4a: q rows per block
@@ -202,6 +207,23 @@ def pairloop_plan(batch: int, sq: int, heads: int, block_q: int, sms: int):
     return per, -(-units // per)
 
 
+def matmul_tiles(m: int, n: int):
+    """T7's `MATMUL_TILE` output tiles of an [m, n] product in the kernel's
+    order (csrc `tile_coords`): (row tile, column tile) of tile id 0, 1, ...;
+    block i of a grid of G takes ids i, i + G, ... Row tiles go in groups of
+    `MATMUL_GROUP`, column by column within a group, so that the tiles in
+    flight share rows of a and columns of b in L2."""
+    tm, tn = -(-m // MATMUL_TILE[0]), -(-n // MATMUL_TILE[1])
+    per = MATMUL_GROUP * tn
+    order = []
+    for t in range(tm * tn):
+        first = t // per * MATMUL_GROUP
+        rows = min(tm - first, MATMUL_GROUP)
+        r = t % per
+        order.append((first + r % rows, r // rows))
+    return order
+
+
 def attention_maxfree_plain(q, k, v, key_bias, tabs_q, tabs_k, heads: int, shift,
                             eps: float = 1e-6, k_prologued: bool = False):
     """The plain version of the five max-free probes (T3a, T3b, T4a, T4b, T5), on
@@ -243,7 +265,7 @@ class _FlashLoopArgs(ctypes.Structure):
 
 
 class _MatmulArgs(ctypes.Structure):
-    """Mirror of `TGMatmulArgs` in csrc/probes.cu."""
+    """Mirror of `TGMatmulArgs` in csrc/probe_gemm.cu."""
 
     _fields_ = ([(n, ctypes.c_void_p) for n in ("a", "b", "c")]
                 + [(n, ctypes.c_int64) for n in ("m", "k", "n")])
@@ -254,10 +276,15 @@ def _bind(lib) -> None:
     for name in ("tg_probe_attn_sweep", "tg_probe_attn_v2"):
         _build.bind(lib, name, ctypes.POINTER(A._Args), i64, i64, i64, ptr)
     _build.bind(lib, "tg_probe_flash_loop", ctypes.POINTER(_FlashLoopArgs), i64, ptr)
-    _build.bind(lib, "tg_probe_matmul", ctypes.POINTER(_MatmulArgs), ptr)
     _build.bind(lib, "tg_probe_exp2_loop", ptr, ptr, i64, i64, i64, ptr)
     for name in _MAXFREE_ENTRY_POINTS:
         _build.bind(lib, name, ctypes.POINTER(A._Args), i64, i64, ctypes.c_float, ptr, ptr)
+    _build.bind(lib, "tg_probe_splitpv_geometry", i64, ctypes.POINTER(i64))
+
+
+def _bind_gemm(lib) -> None:
+    _build.bind(lib, "tg_probe_matmul", ctypes.POINTER(_MatmulArgs), ctypes.c_void_p)
+    _build.bind(lib, "tg_probe_matmul_geometry", ctypes.POINTER(ctypes.c_int64))
 
 
 _MAXFREE_ENTRY_POINTS = ("tg_probe_attn_splitpv", "tg_probe_attn_pair2",
@@ -266,11 +293,34 @@ _MAXFREE_ENTRY_POINTS = ("tg_probe_attn_splitpv", "tg_probe_attn_pair2",
 
 
 _Library = _build.KernelLibrary("probes.cu", _bind)
+_GemmLibrary = _build.KernelLibrary("probe_gemm.cu", _bind_gemm)  # T7
 
 
 def build_probes(force: bool = False):
-    """Compile csrc/probes.cu for sm_90a (cached by source hash) and load it."""
-    return _Library.build(force)
+    """Compile csrc/probes.cu and csrc/probe_gemm.cu for sm_90a (each cached
+    by source hash) and load them; their paths."""
+    return _Library.build(force), _GemmLibrary.build(force)
+
+
+MATMUL_GEOMETRY = ("tile_rows", "tile_cols", "k_tile", "stages", "threads", "smem_bytes",
+                   "raster_group")
+
+
+def matmul_geometry() -> dict:
+    """T7's build (csrc/probe_gemm.cu's constants and its dynamic shared
+    memory), by the names of `MATMUL_GEOMETRY`. Builds the library."""
+    out = (ctypes.c_int64 * len(MATMUL_GEOMETRY))()
+    _build.check_launch("tg_probe_matmul_geometry", _GemmLibrary.get().tg_probe_matmul_geometry(out))
+    return dict(zip(MATMUL_GEOMETRY, out))
+
+
+def splitpv_geometry(block_q: int) -> dict:
+    """T3a's build at ``block_q``: threads, dynamic shared memory (bytes),
+    K / V slots and q rows a block. Builds the library."""
+    out = (ctypes.c_int64 * 4)()
+    _build.check_launch("tg_probe_splitpv_geometry",
+                        _Library.get().tg_probe_splitpv_geometry(block_q, out))
+    return dict(zip(("threads", "smem_bytes", "slots", "block_q"), out))
 
 
 def _launch_attn(entry: str, q, k, v, key_bias, p0: int, p1: int, p2: int):
@@ -289,8 +339,8 @@ def _launch_maxfree(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads: int, e
     """Launches one of T3a-T5 on merged [B, S, H*64] bf16 operands (k
     prologued in the kernel when ``tabs_k`` is given) with the score shift
     as its own float; T4b (``splits`` > 0) also gets its f32 workspace of
-    per-split partial sums and row sums, T3b (``prologue_rows``) its bf16
-    workspace of the prologued k and q rows. Workspaces are freed with the
+    per-split partial sums and row sums, T3a and T3b (``prologue_rows``)
+    their bf16 workspace of the prologued k and q rows. Workspaces are freed with the
     call."""
     a, out, _keep = A.attn_args(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, True,
                                 tabs_k is not None, A._LOG2E)  # _keep: alive through the launch
@@ -373,7 +423,12 @@ def flash_loop(q, k, v, iters: int):
 
 def matmul_hand(x, y):
     """T7, bf16(x @ y) with an f32 accumulator: x [M, K], y [K, N] bf16; the
-    card takes K and N multiples of 8 (ragged tiles are masked)."""
+    card takes K and N multiples of 8 and 16-byte aligned operands (ragged
+    tiles read zeros and are clipped). On the card one block an SM walks
+    the `MATMUL_TILE` output tiles in `matmul_tiles`' order: a and b come
+    by TMA in k tiles of `MATMUL_BK` through a ring of shared-memory slots,
+    two warpgroups multiply by wgmma into f32 registers, and each tile goes
+    out as bf16 by TMA stores (csrc/probe_gemm.cu)."""
     if x.device.type == "cpu":
         return matmul_plain(x, y)
     A._require_cuda(y)
@@ -384,9 +439,11 @@ def matmul_hand(x, y):
         raise ValueError(f"matmul_hand: [M, K] x [K, N] with K, N multiples of 8, got "
                          f"{tuple(x.shape)} x {tuple(y.shape)}")
     x, y = x.contiguous(), y.contiguous()
+    if (x.data_ptr() | y.data_ptr()) % 16:
+        raise ValueError("matmul_hand: operands 16-byte aligned (the kernel loads by TMA)")
     out = torch.empty(m, n, dtype=torch.bfloat16, device=x.device)
     a = _MatmulArgs(x.data_ptr(), y.data_ptr(), out.data_ptr(), m, kdim, n)
-    _build.check_launch("tg_probe_matmul", _Library.get().tg_probe_matmul(
+    _build.check_launch("tg_probe_matmul", _GemmLibrary.get().tg_probe_matmul(
         ctypes.byref(a), _build.stream_of(x)))
     matmul_hand.launches += 1
     return out
@@ -413,13 +470,17 @@ def exp2_loop(x, n_iter: int, op: str = "exp2"):
 
 
 def attention_splitpv(q, k, v, key_bias, tabs_q, tabs_k, heads: int, block_q: int = 128,
-                      block_kv: int = 64, eps: float = 1e-6, shift=None):
+                      block_kv: int = 128, eps: float = 1e-6, shift=None):
     """T3a, K1's function max-free (`run_splitpv`): joint attention on
-    merged [B, S, H*64] bf16, both prologues in the kernel, optional f32 key
-    bias [B, Skv], softmax as exp2(min(s - C, 0)) with C = `score_shift`
-    (pass ``shift`` to reuse one computed for these tables and bias). H
-    even; each block owns ``block_q`` q rows of one head pair, one warp
-    group per head, kv tiles of ``block_kv`` (`SPLITPV_CONFIGS`)."""
+    merged [B, S, H*64] bf16, optional f32 key bias [B, Skv], softmax as
+    exp2(min(s - C, 0)) with C = `score_shift` (pass ``shift`` to reuse one
+    computed for these tables and bias). H even. Both prologues run first,
+    once per row, into a bf16 workspace (K1's prologue pass); then each
+    block owns ``block_q`` q rows of one head pair, one warpgroup a head:
+    each K / V tile of ``block_kv`` keys holds both heads' columns, and
+    each warpgroup multiplies its own half, scores and p.v (the split p@v),
+    its ``block_q`` rows as two alternating row blocks of 64 at 128, one at
+    64 (`SPLITPV_CONFIGS`)."""
     shift = score_shift(tabs_q, tabs_k, key_bias) if shift is None else shift
     if q.device.type == "cpu":
         return attention_maxfree_plain(q, k, v, key_bias, tabs_q, tabs_k, heads, shift, eps)
@@ -428,7 +489,7 @@ def attention_splitpv(q, k, v, key_bias, tabs_q, tabs_k, heads: int, block_q: in
         raise ValueError(f"attention_splitpv: even heads and (block_q, block_kv) in "
                          f"{SPLITPV_CONFIGS}, got heads={heads}, ({block_q}, {block_kv})")
     out = _launch_maxfree("tg_probe_attn_splitpv", q, k, v, key_bias, tabs_q, tabs_k, heads,
-                          eps, shift, block_q, block_kv)
+                          eps, shift, block_q, block_kv, prologue_rows=True)
     attention_splitpv.launches += 1
     return out
 

@@ -2,17 +2,20 @@
 64, csrc/flash_bwd.cuh), K2 (`fused_attention_cross_smallkv`,
 csrc/flash_ws.cuh's `smallkv_body`), K7 (`fused_attention_joint_int8`,
 flash_ws.cuh's `ws_body` with int8 scores), the float32 K4
-(`flash_attention_bhsd_f32`, csrc/attention_f32.cu) and the probes T3b
-(`probes.attention_pair2`) and T5 (`probes.cross_smallkv_pairloop`,
-csrc/probes_maxfree.cuh) keep: kernels/csrc is
+(`flash_attention_bhsd_f32`, csrc/attention_f32.cu) and the probes T3a
+(`probes.attention_splitpv`), T3b (`probes.attention_pair2`), T5
+(`probes.cross_smallkv_pairloop`, csrc/probes_maxfree.cuh) and T7
+(`probes.matmul_hand`, csrc/probe_gemm.cu) keep: kernels/csrc is
 built once per variant (the shipped source, and copies in which one choice
 is undone by a text patch), one nvcc per variant at once; each build's
 registers and spills are printed; then each variant's K5 at the joint
 training shape ([2, 48, 17,776, 64] against itself), K2 at the edit shape
 (17,776 q rows against 480 keys, 48 heads of 64), K7 at the gen path's
 joint shape (17,776 x 17,776, 48 heads of 64, batch 2) and the float32 K4 at
-DINOv2-large's [49, 16, 257, 64], T3b at its script's joint shape ([1,
-17,776, 48*64]^2, the round-3 tables, no key bias) and T5's kernel at its
+DINOv2-large's [49, 16, 257, 64], T3a and T3b at their script's joint shape
+([1, 17,776, 48*64]^2, the round-3 tables, no key bias), T7 at the four
+shapes of its CLI (with torch.matmul on the same inputs in the same turns)
+and T5's kernel at its
 script's cross1 shape (17,776 q rows x 480 prologued keys) are timed through
 the port's wrappers in turns (CUDA events, median), each call held to its
 plain version. With
@@ -28,13 +31,15 @@ checkout has no git history), else `git show` itself. Each of its samples
 is the device time of 10 back-to-back calls over 10: its ~0.3 ms is of the
 order of the wrapper's host time, which one call's events would count.
 
-The probes' variants (t3b_*, t5_*, mf_*) build probes.cu alone, each
---probe-builds times, and the parents (t3b_parent, t5_parent) build the
-synchronous mma.sync bodies that the TMA / wgmma ones replaced, from the
-text of commit 128c05f (`--probes-parent FILE`, else `git show`), timed at
-every tile they were built for (T3b: 64 and 32 keys; T5: 128-2,048 q rows a
-block) through the same C entry points. T5 is timed as its kernel alone, on
-k prologued once (`probes.pairloop_prologued`), the device time of 10
+The probes' variants (t3a_*, t3b_*, t5_*, mf_*; t7_*) build probes.cu (T7's:
+probe_gemm.cu) alone, each --probe-builds times, and the parents build the
+synchronous mma.sync bodies that the TMA / wgmma ones replaced: t3b_parent
+and t5_parent from the text of commit 128c05f (`--mf-parent FILE`, else
+`git show`), t3a_parent and t7_parent from that of commit 3aa7498
+(`--probes-parent FILE`, else `git show`), each timed at every tile it was
+built for (T3a: (128, 64), (128, 32) and (64, 64); T3b: 64 and 32 keys; T5:
+128-2,048 q rows a block; T7: its one) through the same C entry points. T5
+is timed as its kernel alone, on k prologued once (`probes.pairloop_prologued`), the device time of 10
 calls queued behind a device sleep (`_common.queued_time_ms`: one call's
 events would count the wrapper's host time); the shipped T5 also at
 whole row blocks of 128 and 1,024 rows (``@128``, ``@1024``) besides its
@@ -46,7 +51,10 @@ one-wave plan.
         f32_1xtf32,f32_warp_split,f32_serial_stage --f32-parent FILE [--f32-builds 2]
     python -m tokensgen_tpu_torch.tools.kernel_ablations --only t3b_parent,t5_parent,\
         mf_shipped,mf_scaled_p,mf_serial,t3b_two_slots,t5_two_slots \
-        --probes-parent FILE [--probe-builds 2] [--probe-stamps]
+        --mf-parent FILE [--probe-builds 2] [--probe-stamps]
+    python -m tokensgen_tpu_torch.tools.kernel_ablations --only t7_parent,t7_shipped,\
+        t7_stages3,t7_128x128,t7_256x128,t7_one_tile,t7_elected,t7_direct_store,\
+        t7_row_major,t3a_parent,t3a_shipped,t3a_two_slots --probes-parent FILE
     python -m tokensgen_tpu_torch.tools.kernel_ablations --only prologue_parent,\
         prologue_shipped --attention-parent FILE --rounds 3
 
@@ -74,9 +82,10 @@ from tokensgen_tpu_torch.tools import _common
 BWD, WS, FWD, CU = "flash_bwd.cuh", "flash_ws.cuh", "flash_fwd.cuh", "attention.cu"
 F32 = "attention_f32.cu"
 F32_PARENT_COMMIT = "8af06c8"  # the CUDA-core body's last commit
-PROBES, MF = "probes.cu", "probes_maxfree.cuh"
-PROBES_PARENT_COMMIT = "128c05f"  # T3b's and T5's mma.sync bodies' last commit; the prologue
+PROBES, MF, GEMM = "probes.cu", "probes_maxfree.cuh", "probe_gemm.cu"
+MF_PARENT_COMMIT = "128c05f"  # T3b's and T5's mma.sync bodies' last commit; the prologue
 # pass and the tensor maps still in attention.cu
+PROBES_PARENT_COMMIT = "3aa7498"  # T3a's and T7's mma.sync bodies' last commit
 
 # K5's dq share added by float2 atomics instead of the staging and TMA reduce
 _K5_ATOMICS = [
@@ -259,9 +268,13 @@ STAMP_PHASES = ("tile start", "stage landed", "score products", "half 0", "half 
 
 # clock64() stamps of T3b (block (40, 3), pass 0, kv tiles 50 and 51) and of
 # T5 (block 40, steps 100-103: unit 25's four kv tiles at 480 keys), warp 0
-# of each warpgroup, read back by tg_prof_read
+# of each warpgroup, and of T3a at 128 rows (block (40, 3), kv tiles 50 and
+# 51; every thread of a warpgroup writes its stamp, so that no branch on the
+# thread sits in a product's window), read back by tg_prof_read
 _MF_STAMP_DEFS = (
-    "__device__ long long g_prof[128];\n"
+    "__device__ long long g_prof[192];\n"
+    "#define SPSTAMP(k) if (blockIdx.x == 40 && blockIdx.y == 3 && blockIdx.z == 0 && "
+    "(t == 50 || t == 51)) g_prof[128 + (t - 50) * 32 + wg * 16 + (k)] = clock64()\n"
     "#define P2STAMP(k) if (blockIdx.x == 40 && blockIdx.y == 3 && blockIdx.z == 0 && "
     "(threadIdx.x & 127) == 0 && pass == 0 && (t == 50 || t == 51)) "
     "g_prof[(t - 50) * 32 + wg * 16 + (k)] = clock64()\n"
@@ -311,13 +324,46 @@ _MF_STAMPS = [
      "    pack_p<MF_BN>(pa, s);\n    PLSTAMP(5);\n    // this unit's scores are done"),
     (MF, "      if (wtid == 0 && k + 2 < count) load_q(k + 2);\n    }\n",
      "      if (wtid == 0 && k + 2 < count) load_q(k + 2);\n    }\n    PLSTAMP(6);\n"),
+    (MF, """  for (int t = 1; t < nt; ++t) {
+    step_wait(t);
+    turn(0, t, RB - 1, t - 1);
+    softmax(0, t);
+    repack(RB - 1, t - 1);
+    if constexpr (RB == 2) {
+      turn(1, t, 0, t);
+      softmax(1, t);
+      repack(0, t);
+    }
+  }
+""", """  for (int t = 1; t < nt; ++t) {
+    SPSTAMP(0);
+    step_wait(t);
+    SPSTAMP(1);
+    turn(0, t, RB - 1, t - 1);
+    SPSTAMP(2);
+    softmax(0, t);
+    SPSTAMP(3);
+    repack(RB - 1, t - 1);
+    SPSTAMP(4);
+    if constexpr (RB == 2) {
+      turn(1, t, 0, t);
+      SPSTAMP(5);
+      softmax(1, t);
+      SPSTAMP(6);
+      repack(0, t);
+      SPSTAMP(7);
+    }
+  }
+"""),
     (PROBES, 'extern "C" {\n', 'extern "C" {\n\nint tg_prof_read(long long* out) {\n'
-     '  return static_cast<int>(cudaMemcpyFromSymbol(out, g_prof, sizeof(long long) * 128));\n}\n'),
+     '  return static_cast<int>(cudaMemcpyFromSymbol(out, g_prof, sizeof(long long) * 192));\n}\n'),
 ]
 P2_STAMP_PHASES = ("a: tile start", "a: slot landed", "a: scores", "a: softmax", "a: last p.v",
                    "b: slot landed", "b: scores", "b: softmax", "b: last p.v")
 PL_STAMP_PHASES = ("step start", "slot landed", "scores", "softmax", "last p.v", "store + pack",
                    "next q prologued")
+SP_STAMP_PHASES = ("tile start", "slot landed", "rb 0: scores", "rb 0: softmax",
+                   "rb 1: last p.v", "rb 1: scores", "rb 1: softmax", "rb 0: p.v")
 
 # K7: its row scale by a multiply of its own in the dequant, not in the exp2's FMA
 _K7_ROW_FMUL = [
@@ -332,6 +378,63 @@ _MF_SERIAL = [
     (MF, "      wgmma_wait<1>();  // the scores\n", "      wgmma_wait<0>();\n"),
     (MF, "    if (n > 0)\n      wgmma_wait<1>();\n    else\n      wgmma_wait<0>();\n",
      "    wgmma_wait<0>();\n"),
+]
+
+# T7: the loads issued by the consumers' first thread as it reaches each k
+# tile (no producer warpgroup)
+_T7_ELECTED = [
+    (GEMM, "constexpr int GM_NT = GM_CONSUMERS + 128;", "constexpr int GM_NT = GM_CONSUMERS;"),
+    (GEMM, """    asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
+  }""", """    asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
+    ring.fill(-1, load);
+  }"""),
+    (GEMM, """    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\\n");\n""", ""),
+    (GEMM, """    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\\n");\n""", ""),
+    (GEMM, "        ring.wait(n);\n", "        if (threadIdx.x == 0) ring.fill(n, load);\n"
+     "        ring.wait(n);\n"),
+]
+
+# T7: each thread's bf16 pairs stored from its registers (no staging, no TMA
+# store)
+_T7_DIRECT_STORE = [
+    (GEMM, "                                                        int M, int N, int K) {",
+     "                                                        __nv_bfloat16* c, int M, int N, "
+     "int K) {"),
+    (GEMM, "amap, bmap, cmap, static_cast<int>(p->m)",
+     "amap, bmap, cmap, static_cast<__nv_bfloat16*>(p->c), static_cast<int>(p->m)"),
+    (GEMM, """          // box (mb, j) through buffer e % GM_EPI_BUFS, once its last store has read it
+          const int e = mb * (GM_BN / 64) + j;
+          unsigned char* box = epi + (wg * GM_EPI_BUFS + e % GM_EPI_BUFS) * GM_EPI_BOX;
+          if (wtid == 0)
+            asm volatile("cp.async.bulk.wait_group.read %0;\\n" ::"n"(GM_EPI_BUFS - 1) : "memory");
+          wg_sync(wg);
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            unsigned char* cell = box + wrow * 128 + ((q ^ g) << 4) + t * 4;
+            *reinterpret_cast<uint32_t*>(cell) =
+                pack_bf16(acc[mb][j * 8 + q][0], acc[mb][j * 8 + q][1]);
+            *reinterpret_cast<uint32_t*>(cell + 8 * 128) =
+                pack_bf16(acc[mb][j * 8 + q][2], acc[mb][j * 8 + q][3]);
+          }
+          asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");
+          wg_sync(wg);
+          if (wtid == 0) {
+            tma_store_2d(&cmap, box, nt * GM_BN + j * 64, r0 + mb * 64);
+            asm volatile("cp.async.bulk.commit_group;\\n" ::: "memory");
+          }
+""", """          const int r = r0 + mb * 64 + wrow;
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const int col = nt * GM_BN + j * 64 + q * 8 + t * 2;
+            if (col >= N) continue;
+            if (r < M)
+              *reinterpret_cast<__nv_bfloat162*>(c + (long long)r * N + col) =
+                  __floats2bfloat162_rn(acc[mb][j * 8 + q][0], acc[mb][j * 8 + q][1]);
+            if (r + 8 < M)
+              *reinterpret_cast<__nv_bfloat162*>(c + (long long)(r + 8) * N + col) =
+                  __floats2bfloat162_rn(acc[mb][j * 8 + q][2], acc[mb][j * 8 + q][3]);
+          }
+"""),
 ]
 
 # name: (kernel, what the variant undoes, patches)
@@ -380,14 +483,14 @@ VARIANTS = {
                              (F32, "  wgmma_commit();\n  stage_v();\n  wgmma_wait_all();",
                               "  wgmma_commit();\n  wgmma_wait_all();\n  stage_v();")]),
     # the probes T3b and T5 (csrc/probes_maxfree.cuh)
-    "t3b_parent": ("T3B", f"the TMA / wgmma body: commit {PROBES_PARENT_COMMIT}'s synchronous "
+    "t3b_parent": ("T3B", f"the TMA / wgmma body: commit {MF_PARENT_COMMIT}'s synchronous "
                    "mma.sync pair2 body (64 q rows, 4 heads a block, K prologued per block)", None),
-    "t5_parent": ("T5", f"the TMA / wgmma body: commit {PROBES_PARENT_COMMIT}'s resident "
+    "t5_parent": ("T5", f"the TMA / wgmma body: commit {MF_PARENT_COMMIT}'s resident "
                   "mma.sync pair-loop body (each head's K / V whole, a grid of q blocks)", None),
     "mf_shipped": ("MF", "nothing", []),
     # K1-K3 through the prologue pass and tensor maps, moved from attention.cu to
     # flash_prologue.cuh: the same code, so the same times
-    "prologue_parent": ("K123", f"the move: commit {PROBES_PARENT_COMMIT}'s attention.cu", None),
+    "prologue_parent": ("K123", f"the move: commit {MF_PARENT_COMMIT}'s attention.cu", None),
     "prologue_shipped": ("K123", "nothing", []),
     "mf_scaled_p": ("MF", "the exact subnormal p: p' = 2^32 p summed and multiplied "
                     "(one FMUL a score less; the l floor scaled)", [
@@ -398,9 +501,38 @@ VARIANTS = {
                       [(MF, "constexpr int P2_SLOTS = 5;", "constexpr int P2_SLOTS = 2;")]),
     "t5_two_slots": ("T5", "the ring's depth: 2 K' / V slots, not 3",
                      [(MF, "constexpr int PL_SLOTS = 3;", "constexpr int PL_SLOTS = 2;")]),
+    # the probe T7 (csrc/probe_gemm.cu's switches, one flipped a variant)
+    "t7_parent": ("T7", f"the Hopper GEMM: commit {PROBES_PARENT_COMMIT}'s synchronous mma.sync "
+                  "body (128 x 128 tiles, k tile 32, one tile a block)", None),
+    "t7_shipped": ("T7", "nothing", []),
+    "t7_stages3": ("T7", "the ring's depth: 3 slots, not 4",
+                   [(GEMM, "constexpr int GM_STAGES = 4;", "constexpr int GM_STAGES = 3;")]),
+    "t7_128x128": ("T7", "the tile: 128 x 128 (m64n128 a warpgroup), not 128 x 256",
+                   [(GEMM, "constexpr int GM_BN = 256;", "constexpr int GM_BN = 128;")]),
+    "t7_256x128": ("T7", "the tile: 256 x 128 (two m64n128 row blocks a warpgroup), not 128 x 256",
+                   [(GEMM, "constexpr int GM_BM = 128;", "constexpr int GM_BM = 256;"),
+                    (GEMM, "constexpr int GM_BN = 256;", "constexpr int GM_BN = 128;")]),
+    "t7_one_tile": ("T7", "the persistent walk: one output tile a block",
+                    [(GEMM, "const long long grid = tiles < sms ? tiles : sms;",
+                      "const long long grid = tiles;")]),
+    "t7_elected": ("T7", "the loader: one consumer thread, not a producer warpgroup (256 "
+                   "threads, its branch in the k loop)", _T7_ELECTED),
+    "t7_direct_store": ("T7", "the TMA store: bf16x2 stores from registers", _T7_DIRECT_STORE),
+    "t7_row_major": ("T7", "the raster groups: tiles row by row (groups of one row tile)",
+                     [(GEMM, "constexpr int GM_GROUP = 8;", "constexpr int GM_GROUP = 1;")]),
+    # the probe T3a (csrc/probes_maxfree.cuh)
+    "t3a_parent": ("T3A", f"the TMA / wgmma body: commit {PROBES_PARENT_COMMIT}'s synchronous "
+                   "mma.sync split-p@v body (K prologued in every q block)", None),
+    "t3a_shipped": ("T3A", "nothing", []),
+    "t3a_two_slots": ("T3A", "the ring's depth: 2 K / V slots, not 3",
+                      [(MF, "constexpr int SP_SLOTS = 3;", "constexpr int SP_SLOTS = 2;")]),
 }
 # the kernels each probe (or K1-K3) variant times
-PROBE_KINDS = {"T3B": ("T3B",), "T5": ("T5",), "MF": ("T3B", "T5"), "K123": ("K1", "K2", "K3")}
+PROBE_KINDS = {"T3B": ("T3B",), "T5": ("T5",), "MF": ("T3B", "T5"), "K123": ("K1", "K2", "K3"),
+               "T7": ("T7",), "T3A": ("T3A",)}
+# the probe variants whose parent is PROBES_PARENT_COMMIT's probes.cu (the
+# others' is MF_PARENT_COMMIT's)
+NEW_PARENT_KINDS = ("T7", "T3A")
 
 
 def _patched(name: str, patches, root, source=CU, text=None):
@@ -540,6 +672,51 @@ def _t5_case(dev):
     return {"parent": parent, "shipped": shipped}, ref
 
 
+def _t7_case(dev):
+    """T7 at the CLI's four shapes (M = 36,352): {style: [(label, fn, plain
+    output)]}, each kernel call and, in the same turns, torch.matmul on the
+    same inputs (``lib@``)."""
+    from tokensgen_tpu_torch.tools.bench_matmul_hand import M, NAMES, make_inputs
+
+    entries = []
+    for (kdim, n), name in NAMES.items():
+        x, y = make_inputs(dev, M, kdim, n)
+        ref = P.matmul_plain(x, y)
+        label = "@" + name.replace(" ", "_")
+        entries.append((label, lambda x=x, y=y: P.matmul_hand(x, y), ref))
+        entries.append(("lib" + label, lambda x=x, y=y: torch.matmul(x, y), ref))
+    return {"parent": [e for e in entries if not e[0].startswith("lib")],
+            "shipped": entries}, None
+
+
+def _t3a_case(dev):
+    """T3a at its script's joint shape: {style: [(label, fn)]} (the
+    parent's entry point at its three tiles, the shipped wrapper at both of
+    its tiles) and the plain version."""
+    from tokensgen_tpu_torch.tools.bench_attn_r3 import make_inputs
+
+    x = make_inputs(dev)
+    q, k, v, tq, tk = x["q"], x["k"], x["v"], x["tq"], x["tk"]
+    h = q.shape[2] // 64
+    shift = P.score_shift(tq, tk).item()
+    ref = P.attention_maxfree_plain(q, k, v, None, tq, tk, h, shift)
+    parent = [(f"@{bq}x{bn}", lambda bq=bq, bn=bn: P._launch_maxfree(
+        "tg_probe_attn_splitpv", q, k, v, None, tq, tk, h, 1e-6, shift, bq, bn))
+        for bq, bn in ((128, 64), (128, 32), (64, 64))]
+    shipped = [(f"@{bq}x{bn}", lambda bq=bq, bn=bn: P.attention_splitpv(
+        q, k, v, None, tq, tk, h, bq, bn, shift=shift)) for bq, bn in P.SPLITPV_CONFIGS]
+    return {"parent": parent, "shipped": shipped}, ref
+
+
+def _bind_parent_probes(lib) -> None:
+    """An older probes.cu's entry points that the cases call: the max-free
+    ones and T7's (older builds have no geometry queries)."""
+    i64, ptr = ctypes.c_int64, ctypes.c_void_p
+    for name in P._MAXFREE_ENTRY_POINTS:
+        B.bind(lib, name, ctypes.POINTER(A._Args), i64, i64, ctypes.c_float, ptr, ptr)
+    B.bind(lib, "tg_probe_matmul", ctypes.POINTER(P._MatmulArgs), ptr)
+
+
 # every output within these of its plain version: relative L2 and max abs
 # relative to max|ref| (the float32 K4: its card bounds)
 BOUNDS = {"F32": (1e-5, 2.0 ** -14)}
@@ -589,13 +766,18 @@ def main(argv=None) -> int:
     ap.add_argument("--f32-builds", type=int, default=2,
                     help="nvcc builds of each float32 K4 variant, each timed")
     ap.add_argument("--probes-parent", default="",
-                    help=f"probes.cu as of commit {PROBES_PARENT_COMMIT} (default: git show)")
+                    help=f"probes.cu as of commit {PROBES_PARENT_COMMIT}, T3a's and T7's parent "
+                    "(default: git show)")
+    ap.add_argument("--mf-parent", default="",
+                    help=f"probes.cu as of commit {MF_PARENT_COMMIT}, T3b's and T5's parent "
+                    "(default: git show)")
     ap.add_argument("--attention-parent", default="",
-                    help=f"attention.cu as of commit {PROBES_PARENT_COMMIT} (default: git show)")
+                    help=f"attention.cu as of commit {MF_PARENT_COMMIT} (default: git show)")
     ap.add_argument("--probe-builds", type=int, default=2,
                     help="nvcc builds of each T3b / T5 variant, each timed")
     ap.add_argument("--probe-stamps", action="store_true",
-                    help="clock64() stamps of two T3b kv tiles and four T5 steps")
+                    help="clock64() stamps of two T3b kv tiles, four T5 steps and two "
+                    "T3a kv tiles")
     args = ap.parse_args(argv)
     dev = _common.device_of(argparse.Namespace(device="cuda"))
     names = [n for n in args.only.split(",") if n] or list(VARIANTS)
@@ -608,14 +790,17 @@ def main(argv=None) -> int:
             for i in range(args.f32_builds):
                 builds[f"{n}.{i}"] = (n, F32, text, patches or [])
         elif kernel == "K123":
-            text = (_parent_text(args.attention_parent, PROBES_PARENT_COMMIT, CU)
+            text = (_parent_text(args.attention_parent, MF_PARENT_COMMIT, CU)
                     if patches is None else None)
             builds[n] = (n, CU, text, patches or [])
         elif kernel in PROBE_KINDS:
-            text = (_parent_text(args.probes_parent, PROBES_PARENT_COMMIT, PROBES)
+            new = kernel in NEW_PARENT_KINDS
+            text = (_parent_text(args.probes_parent if new else args.mf_parent,
+                                 PROBES_PARENT_COMMIT if new else MF_PARENT_COMMIT, PROBES)
                     if patches is None else None)
+            source = GEMM if kernel == "T7" and patches is not None else PROBES
             for i in range(args.probe_builds):
-                builds[f"{n}.{i}"] = (n, PROBES, text, patches or [])
+                builds[f"{n}.{i}"] = (n, source, text, patches or [])
         else:
             builds[n] = (n, CU, None, patches)
     if args.stamps:
@@ -636,13 +821,24 @@ def main(argv=None) -> int:
                 for tag, label in (("bwd_onepass_kernel", "K5"), ("smallkv_kernel", "K2"),
                                    ("joint_int8_splitkv_kernel", "K7"),
                                    ("bhsd_f32_kernelILi64", "float32 K4 at d = 64"),
-                                   ("pair2_kernel", "T3b"), ("pairloop_kernel", "T5"))
+                                   ("pair2_kernel", "T3b"), ("pairloop_kernel", "T5"),
+                                   ("11gemm_kernel", "T7"), ("13matmul_kernel", "T7 (parent)"),
+                                   ("pair_splitpv_kernelILi2", "T3a at 128 rows"),
+                                   ("pair_splitpv_kernelILi1", "T3a at 64 rows"),
+                                   ("14splitpv_kernel", "T3a (parent)"))
                 if tag in k]
         print(f"[build] {key} in {dt:.0f} s: " + "; ".join(regs), flush=True)
+        for line in log.splitlines():
+            if "Performance Loss" in line:
+                print(f"[build]   {line.strip()}", flush=True)
         lib = ctypes.CDLL(str(root / key / "lib.so"))
         if builds[key][1] == F32:  # the entry point only: the parent has no geometry query
             B.bind(lib, A._F32_ENTRY_POINT, ctypes.POINTER(A._F32Args), ctypes.c_int64,
                    ctypes.c_void_p)
+        elif builds[key][1] == GEMM:
+            P._bind_gemm(lib)
+        elif builds[key][1] == PROBES and builds[key][2] is not None:
+            _bind_parent_probes(lib)
         elif builds[key][1] == PROBES:
             P._bind(lib)
         else:
@@ -652,7 +848,8 @@ def main(argv=None) -> int:
     kinds = {VARIANTS[builds[key][0]][0] for key in builds if key not in stamp_keys}
     kernels = {k for kind in kinds for k in PROBE_KINDS.get(kind, (kind,))}
     makers = {"K5": _k5_case, "K2": _k2_case, "K7": _k7_case, "F32": _f32_case,
-              "T3B": _t3b_case, "T5": _t5_case, "K1": _k1_case, "K3": _k3_case}
+              "T3B": _t3b_case, "T5": _t5_case, "K1": _k1_case, "K3": _k3_case,
+              "T7": _t7_case, "T3A": _t3a_case}
     cases = {k: make(dev) for k, make in makers.items()
              if k in kernels or ("all" in kernels and k in ("K5", "K2", "K7"))}
     order = [key for key in builds if key not in stamp_keys]
@@ -663,8 +860,12 @@ def main(argv=None) -> int:
             kind = VARIANTS[name][0]
             if builds[key][1] == F32:
                 A._F32Library.lib = libs[key]
+            elif builds[key][1] == GEMM:
+                P._GemmLibrary.lib = libs[key]
             elif builds[key][1] == PROBES:
                 P._Library.lib = libs[key]
+                if kind == "T7":  # a parent: T7 still in probes.cu
+                    P._GemmLibrary.lib = libs[key]
             else:
                 A._Library.lib = libs[key]
             for kernel, (fns, ref) in cases.items():
@@ -675,10 +876,12 @@ def main(argv=None) -> int:
                     continue
                 labelled = (fns.get("parent" if VARIANTS[name][2] is None else "shipped")
                             if isinstance(fns, dict) else [("", fns)])
-                for label, fn in labelled:
+                for label, fn, *own in labelled:  # an entry may bring its own plain output
+                    want = own[0] if own else ref
                     out = fn()
-                    ok = _agrees(out, ref, BOUNDS.get(kernel, (1e-2, 2.0 ** -5)))
-                    detail = f" ({_f32_errors(out, ref)})" if kernel in ("F32", "T3B", "T5") else ""
+                    ok = _agrees(out, want, BOUNDS.get(kernel, (1e-2, 2.0 ** -5)))
+                    detail = (f" ({_f32_errors(out, want)})"
+                              if kernel in ("F32", "T3B", "T5", "T7", "T3A") else "")
                     del out
                     ms = (_f32_time_ms(fn, args.runs) if kernel == "F32"
                           else _common.queued_time_ms(fn, dev, args.runs) if kernel == "T5"
@@ -706,12 +909,12 @@ def main(argv=None) -> int:
         print(f"K5 tile 50 -> tile 51: {buf[32] - buf[0]} clocks")
     if args.probe_stamps:
         P._Library.lib = libs["mf_stamps"]
-        for kernel, maker in (("T3B", _t3b_case), ("T5", _t5_case)):
+        for kernel, maker in (("T3B", _t3b_case), ("T5", _t5_case), ("T3A", _t3a_case)):
             if kernel not in cases:
                 cases[kernel] = maker(dev)
-            cases[kernel][0]["shipped"][0][1]()
+            cases[kernel][0]["shipped"][0][1]()  # T3a: at 128 rows
         torch.cuda.synchronize()
-        buf = (ctypes.c_longlong * 128)()
+        buf = (ctypes.c_longlong * 192)()
         libs["mf_stamps"].tg_prof_read(buf)
         for tile in (0, 1):
             for wg in (0, 1):
@@ -725,6 +928,12 @@ def main(argv=None) -> int:
                 stamps = ", ".join(f"{p} {buf[64 + step * 16 + wg * 8 + i] - base}"
                                    for i, p in enumerate(PL_STAMP_PHASES))
                 print(f"T5 step {100 + step} warpgroup {wg} clocks: {stamps}")
+        for tile in (0, 1):
+            for wg in (0, 1):
+                base = buf[128 + tile * 32]
+                stamps = ", ".join(f"{p} {buf[128 + tile * 32 + wg * 16 + i] - base}"
+                                   for i, p in enumerate(SP_STAMP_PHASES))
+                print(f"T3a tile {50 + tile} warpgroup {wg} clocks: {stamps}")
     return 0
 
 
