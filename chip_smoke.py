@@ -283,8 +283,10 @@ def phase_build(state: dict) -> None:
     """nvcc builds the four sources at once (one process each), then prints
     -Xptxas -v per instantiation: registers and spill bytes. The instantiated
     set leaves out what spills (probes.SWEEP_CONFIGS), so a spill fails; so
-    does a K7 body whose SASS is not int8 wgmma scores without I2F, and a T7
-    or T3a body whose SASS is not bf16 wgmma without mma.sync."""
+    does a K7 body whose SASS is not int8 wgmma scores without I2F, a T7,
+    T3a, T1 or T4a body whose SASS is not bf16 wgmma without mma.sync, and a
+    line of ptxas's saying that it serialized the wgmmas of a T1 or T4a
+    instantiation (C7515, C7518, "insufficient register resources")."""
     from concurrent.futures import ThreadPoolExecutor
 
     from tokensgen_tpu_torch.kernels import attention as A
@@ -328,7 +330,24 @@ def phase_build(state: dict) -> None:
         g = P.splitpv_geometry(bq)
         log(f"[build]   T3a (attention_splitpv) at block_q {bq}: {g['threads']} threads, "
             f"{g['slots']} K / V slots, {g['smem_bytes']:,} B of dynamic shared memory a block")
-    for path, kernel in ((built[3][0], "gemm_kernel"), (built[1][0], "pair_splitpv_kernel")):
+    for bq, bkv, hb in P.SWEEP_CONFIGS:
+        g = P.sweep_geometry(bq, bkv, hb)
+        log(f"[build]   T1 (attention_sweep) at ({bq}, {bkv}, {hb}): {g['threads']} threads, "
+            f"{g['chains']} chain(s) a warpgroup, {g['slots']} K / V slots, {g['smem_bytes']:,} B "
+            f"of dynamic shared memory a block, {g['blocks_per_sm']} resident a SM")
+    for skv in (128, 480, P.RESIDENT_MAX):
+        g = P.pairinner_geometry(skv)
+        log(f"[build]   T4a (cross_smallkv_pairinner) at {skv} keys: {g['threads']} threads, "
+            f"{g['kv_tiles']} resident K' / V tiles, {g['q_slots']} q slots a warpgroup, "
+            f"{g['smem_bytes']:,} B of dynamic shared memory a block, {g['blocks_per_sm']} "
+            f"resident a SM")
+    serialized = [line.strip() for line in P._Library.build_log.splitlines()
+                  if "Performance Loss" in line
+                  and ("sweep_kernel" in line or "pairinner_tma_kernel" in line)]
+    if serialized:
+        raise RuntimeError(f"ptxas serialized the wgmmas of T1 or T4a: {serialized}")
+    for path, kernel in ((built[3][0], "gemm_kernel"), (built[1][0], "pair_splitpv_kernel"),
+                         (built[1][0], "sweep_kernel"), (built[1][0], "pairinner_tma_kernel")):
         _wgmma_sass_check(path, kernel)
 
 
@@ -1424,10 +1443,12 @@ PROBES = {
     "cross_smallkv_pairloop": "tools/bench_cross_pairloop.py:33",  # `_smallkv_pairloop_kernel`
 }
 PROBE_SOURCE = "tokensgen_tpu_torch/kernels/csrc/probes.cu"
-# the probes whose bodies live in probes.cu's header of TMA / wgmma bodies,
+# the probes whose bodies live in probes.cu's headers of TMA / wgmma bodies,
 # and T7's own source
 PROBE_SOURCES = dict.fromkeys(("attention_splitpv", "attention_pair2", "cross_smallkv_pairloop"),
                               "tokensgen_tpu_torch/kernels/csrc/probes_maxfree.cuh")
+PROBE_SOURCES.update(dict.fromkeys(("attention_sweep", "cross_smallkv_pairinner"),
+                                   "tokensgen_tpu_torch/kernels/csrc/probes_hopper.cuh"))
 PROBE_SOURCES["matmul_hand"] = "tokensgen_tpu_torch/kernels/csrc/probe_gemm.cu"
 PROBE_CLIS = ("bench_attn_sweep", "bench_attn_v2", "bench_int8_loop", "bench_matmul_hand",
               "bench_exp2", "bench_attn_r3", "bench_cross_r3", "bench_cross_pairloop")
@@ -1443,9 +1464,11 @@ def _sm_clock_hz() -> float:
 
 def _probe_attention_rows(dev, state) -> None:
     """T1 and T2 at the scripts' shape [1, 48, 17,776, 64] (the CLIs' inputs),
-    at K4's tiles (128, 64), against their plain versions with the planted
-    fault; T2 "last" also where a key bias on earlier tiles must be ignored,
-    and its "full" mode at (64, 128)."""
+    T1 at its default tile (`probes.SWEEP_DEFAULT`), T2 at K4's old (128,
+    64), against their plain versions with the planted fault, timed; T1 also
+    at every other tile of `probes.SWEEP_CONFIGS` (check and planted fault);
+    T2 "last" also where a key bias on earlier tiles must be ignored, and its
+    "full" mode at (64, 128)."""
     import torch
 
     from tokensgen_tpu_torch.kernels import probes as P
@@ -1457,10 +1480,18 @@ def _probe_attention_rows(dev, state) -> None:
     n = skv - skv % KV_TILE
     work = (4.0 * b * h * sq * skv * d, _nbytes(q, k, v, q, bias), 0.0, float(b * h * sq * skv))
     library = lambda: _sdpa(q, k, v, d ** -0.5)  # noqa: E731
-    _compare("attention_sweep", lambda: P.attention_sweep(q, k, v, bias, 128, 64, 1),
+    _compare("attention_sweep", lambda: P.attention_sweep(q, k, v, bias),
              lambda: P.attention_sweep_plain(q, k, v, bias), state,
              fault_fn=lambda: P.attention_sweep_plain(q, k[:, :, :n], v[:, :, :n], bias[:, :n]),
              work=work, library_fn=library, phase="probes")
+    ref = P.attention_sweep_plain(q, k, v, bias)
+    fault = P.attention_sweep_plain(q, k[:, :, :n], v[:, :, :n], bias[:, :n])
+    for cfg in P.SWEEP_CONFIGS:
+        if cfg != P.SWEEP_DEFAULT:
+            _compare(f"attention_sweep[{cfg}]",
+                     lambda cfg=cfg: P.attention_sweep(q, k, v, bias, *cfg), lambda: ref, state,
+                     fault_fn=lambda: fault, check_only=True, phase="probes")
+    del ref, fault
     _compare("attention_v2", lambda: P.attention_v2(q, k, v, bias, 128, 64, "last"),
              lambda: P.attention_v2_plain(q, k, v, bias, 64, "last"), state,
              fault_fn=lambda: P.attention_v2_plain(q, k[:, :, :n], v[:, :, :n], bias[:, :n], 64,
@@ -1638,8 +1669,10 @@ def _probe_maxfree_rows(dev, state) -> None:
     shift). T3b also at the two cross shapes (check only); T5 also at every
     other q block it is built for (check and planted fault), and its kernel
     alone timed (`probes.pairloop_prologued`: the call also runs k's
-    prologue in plain torch; the row's ``kernel_ms``). The score shift is
-    computed once per shape and passed in, so the times leave it out."""
+    prologue in plain torch; the row's ``kernel_ms``); T4a likewise
+    (`probes.pairinner_prologued`, every other block_q of
+    `PAIRINNER_BLOCK_Q`). The score shift is computed once per shape and
+    passed in, so the times leave it out."""
     from tokensgen_tpu_torch.kernels import attention as A
     from tokensgen_tpu_torch.kernels import probes as P
     from tokensgen_tpu_torch.tools._common import queued_time_ms
@@ -1664,7 +1697,9 @@ def _probe_maxfree_rows(dev, state) -> None:
         ("cross2", P.cross_smallq_splitkv, lambda n: (n - 1) // 512 * 512, None),  # splits of 512
         ("cross1", P.cross_smallkv_pairloop, ragged, None),  # at its default, one wave
     ) + tuple(("cross1", P.cross_smallkv_pairloop, ragged, bq) for bq in P.PAIRLOOP_BLOCK_Q
-              if bq != P.PAIRLOOP_WAVE)
+              if bq != P.PAIRLOOP_WAVE) + tuple(
+        ("cross1", P.cross_smallkv_pairinner, ragged, bq) for bq in P.PAIRINNER_BLOCK_Q
+        if bq != P.PAIRINNER_DEFAULT)
     for shape, probe, kept, tile in cases:
         label, check_only, timed = probe.__name__, kept is None, kept is not None and tile is None
         q, k, v, tq, tk, shipped = shapes[shape]
@@ -1696,10 +1731,11 @@ def _probe_maxfree_rows(dev, state) -> None:
             _compare(f"{label}[against the shipped {shipped.__name__}]", kernel,
                      lambda: shipped(q, k, v, tq, tk, None, h), state, check_only=True,
                      phase="probes")
-        if timed and probe is P.cross_smallkv_pairloop:
+        alone = {P.cross_smallkv_pairloop: P.pairloop_prologued,
+                 P.cross_smallkv_pairinner: P.pairinner_prologued}.get(probe)
+        if timed and alone is not None:
             kn = A.merge_heads(k4)
-            ms = queued_time_ms(lambda: P.pairloop_prologued(q, kn, v, None, tq, h, shift), dev,
-                                5)
+            ms = queued_time_ms(lambda: alone(q, kn, v, None, tq, h, shift), dev, 5)
             state["kernel_rows"][label]["kernel_ms"] = ms
             log(f"[probes] {label}[its kernel alone, k prologued once; device time of 10 queued "
                 f"calls]: {ms:.3f} ms")

@@ -600,7 +600,60 @@ def test_probe_attention_kernels_on_card(cuda_device):
             _assert_within_bounds(P.attention_v2(q, k, v, bias, bq, bkv, mode),
                                   P.attention_v2_plain(q, k, v, bias, bkv, mode))
     with pytest.raises(ValueError):
-        P.attention_sweep(q, k, v, bias, 128, 128, 1)  # not built
+        P.attention_sweep(q, k, v, bias, 64, 64, 1)  # not built
+
+
+# T1's other shapes: (batch, heads, Sq, Skv, key bias): Sq and Skv ragged to
+# every tile (128 / 256 rows, 128 / 192 keys) and unequal, a random key bias
+# (the FFMA path with the bias) or none (the max on the raw scores), one key
+# (a tile of one valid key), and one q row
+SWEEP_SHAPES = [(2, 4, 1000, 333, True), (2, 4, 333, 1000, True), (2, 2, 257, 700, False),
+                (1, 2, 130, 1, True), (2, 2, 1, 385, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,sq,skv,biased", SWEEP_SHAPES)
+def test_probe_attention_sweep_shapes_on_card(cuda_device, b, h, sq, skv, biased):
+    """T1 at every `SWEEP_CONFIGS` tile on each of `SWEEP_SHAPES` vs its
+    plain version within REL_L2_BOUND and MAX_ABS_REL; each call counted
+    once."""
+    from tokensgen_tpu_torch.kernels import probes as P
+
+    gen = torch.Generator(cuda_device).manual_seed(sq * 7 + skv)
+    q = torch.randn(b, h, sq, D, generator=gen, device=cuda_device).bfloat16()
+    k, v = (torch.randn(b, h, skv, D, generator=gen, device=cuda_device).bfloat16()
+            for _ in range(2))
+    bias = torch.randn(b, skv, generator=gen, device=cuda_device) if biased else None
+    ref = P.attention_sweep_plain(q, k, v, bias)
+    for cfg in P.SWEEP_CONFIGS:
+        before = P.attention_sweep.launches
+        out = P.attention_sweep(q, k, v, bias, *cfg)
+        torch.cuda.synchronize()
+        assert P.attention_sweep.launches == before + 1
+        _assert_within_bounds(out, ref)
+
+
+@pytest.mark.cuda
+def test_probe_unbuilt_tiles_raise_on_card(cuda_device):
+    """On the card T1 and T4a launch or raise: a tile they were not built
+    for raises ValueError and counts nothing."""
+    from tokensgen_tpu_torch.kernels import probes as P
+
+    q4 = torch.zeros(1, 2, 128, D, device=cuda_device, dtype=torch.bfloat16)
+    before = P.attention_sweep.launches
+    for cfg in ((128, 64, 1), (64, 128, 1), (256, 128, 2), (128, 128, 3)):
+        with pytest.raises(ValueError):
+            P.attention_sweep(q4, q4, q4, None, *cfg)
+    assert P.attention_sweep.launches == before
+    q, k, v, tq, tk, bias, h = _maxfree_inputs(cuda_device, 2, 300, 130)
+    before = P.cross_smallkv_pairinner.launches
+    for block_q in (128, 256, 640, 4096):
+        with pytest.raises(ValueError):
+            P.cross_smallkv_pairinner(q, k, v, bias, tq, tk, h, block_q)
+    _, k600, v600, _, tk600, bias600, _ = _maxfree_inputs(cuda_device, 2, 300, 600)
+    with pytest.raises(ValueError):  # more keys than it holds
+        P.cross_smallkv_pairinner(q, k600, v600, bias600, tq, tk600, h)
+    assert P.cross_smallkv_pairinner.launches == before
 
 
 @pytest.mark.cuda
@@ -671,7 +724,10 @@ def test_probe_builds_match_their_host_constants(cuda_device):
     """T7's build (csrc/probe_gemm.cu) has the tile, k tile and raster group
     that `probes.matmul_tiles`, `MATMUL_BK` and `MATMUL_GROUP` assume, and
     its shared memory fits a block; T3a is built at each block_q of
-    `SPLITPV_CONFIGS`, within a block's shared memory."""
+    `SPLITPV_CONFIGS`, within a block's shared memory; T1 at each tile of
+    `SWEEP_CONFIGS` and T4a at 1 to `RESIDENT_MAX` keys have the threads,
+    tiles and shared memory that `probes.sweep_smem_bytes` and
+    `pairinner_smem_bytes` compute, each block resident on a SM."""
     from tokensgen_tpu_torch.kernels import probes as P
 
     g = P.matmul_geometry()
@@ -681,6 +737,18 @@ def test_probe_builds_match_their_host_constants(cuda_device):
     for block_q, _ in P.SPLITPV_CONFIGS:
         t = P.splitpv_geometry(block_q)
         assert t["block_q"] == block_q and 0 < t["smem_bytes"] <= 232448
+    for bq, bkv, hb in P.SWEEP_CONFIGS:
+        s = P.sweep_geometry(bq, bkv, hb)
+        assert (s["block_q"], s["block_kv"], s["hblk"]) == (bq, bkv, hb)
+        assert s["threads"] == 256 and s["chains"] == bq // 128 * hb and s["slots"] >= 2
+        assert s["smem_bytes"] == P.sweep_smem_bytes(bq, bkv, hb) <= 232448
+        assert s["blocks_per_sm"] >= 1
+    for skv in (1, 128, 129, 480, P.RESIDENT_MAX):
+        r = P.pairinner_geometry(skv)
+        assert r["threads"] == 256 and r["q_slots"] == P.PAIRINNER_SLOTS
+        assert r["kv_tiles"] == -(-skv // 128) and r["prologue_pass"] == 1
+        assert r["smem_bytes"] == P.pairinner_smem_bytes(skv) <= 232448
+        assert r["blocks_per_sm"] >= 1
 
 
 MAXFREE_TILES = {  # entry point: (the _case shape it takes, its built tiles)
@@ -757,6 +825,28 @@ def test_probe_pairloop_shapes_on_card(cuda_device, skv):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("skv", [1, 100, 130, 480, 512])
+def test_probe_pairinner_shapes_on_card(cuda_device, skv):
+    """T4a on 300 q rows of 2 samples (not a multiple of its 64-row chunks:
+    the last chunk holds 44 rows, and at 512 q rows a block warpgroup 1's
+    last chunk lies past Sq) against 1, 100, 130 (a ragged second tile), 480
+    and RESIDENT_MAX (512) resident keys, at every built block_q, within
+    REL_L2_BOUND and MAX_ABS_REL of the plain version; each call counted
+    once."""
+    from tokensgen_tpu_torch.kernels import probes as P
+
+    q, k, v, tq, tk, bias, h = _maxfree_inputs(cuda_device, 4, 300, skv)
+    shift = P.score_shift(tq, tk, bias)
+    ref = P.attention_maxfree_plain(q, k, v, bias, tq, tk, h, shift)
+    for block_q in P.PAIRINNER_BLOCK_Q:
+        before = P.cross_smallkv_pairinner.launches
+        out = P.cross_smallkv_pairinner(q, k, v, bias, tq, tk, h, block_q)
+        torch.cuda.synchronize()
+        assert P.cross_smallkv_pairinner.launches == before + 1
+        _assert_within_bounds(out, ref)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", ["fused_attention_cross_smallkv", "fused_attention_cross_smallq"])
 def test_probe_pair2_cross_shapes_on_card(cuda_device, shape):
     """T3b at `_case`'s two cross shapes (2,200 q rows x 130 keys, 130 x
@@ -774,9 +864,10 @@ def test_probe_pair2_cross_shapes_on_card(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["attention_splitpv", "attention_pair2", "cross_smallkv_pairloop"])
+@pytest.mark.parametrize("name", ["attention_splitpv", "attention_pair2", "cross_smallkv_pairloop",
+                                  "cross_smallkv_pairinner"])
 def test_probe_maxfree_subnormal_p_on_card(cuda_device, name):
-    """T3a and T3b (joint 300 x 517) and T5 (300 x 130) with an explicit shift that
+    """T3a and T3b (joint 300 x 517), T5 and T4a (300 x 130) with an explicit shift that
     puts every p of every row (its unmasked keys) between 2^-149 and
     2^-126, f32's subnormals: q's tables scaled by 1/8 narrow the scores,
     the shift takes the largest to -127. Held to the plain version (which
@@ -785,7 +876,7 @@ def test_probe_maxfree_subnormal_p_on_card(cuda_device, name):
     from tokensgen_tpu_torch.kernels import attention as A
     from tokensgen_tpu_torch.kernels import probes as P
 
-    skv = 130 if name == "cross_smallkv_pairloop" else 517
+    skv = 130 if name.startswith("cross_") else 517
     q, k, v, tq, tk, bias, h = _maxfree_inputs(cuda_device, 4, 300, skv, seed=8)
     tq = tuple(x / 8 for x in tq[:3]) + (tq[3],)
     qn = A._prologue32(A.split_heads(q, h), tuple(x * A._LOG2E for x in tq[:3]) + (tq[3],),

@@ -103,3 +103,77 @@ def test_matmul_tiles_at_ff_up():
     assert len(order) == 284 * 48
     wave = order[:SMS]
     assert len({r for r, _ in wave}) == 8 and len({c for _, c in wave}) == 17
+
+
+# T1's tiles (`probes.SWEEP_CONFIGS`, csrc/probes_hopper.cuh `SweepGeom`) and
+# T4a's resident keys (`pairinner_smem_bytes`): the host mirrors of their
+# builds' shared memory
+SMEM_MAX = 232448  # an H100 block's
+
+
+@pytest.mark.parametrize("config", P.SWEEP_CONFIGS)
+def test_sweep_config_is_on_the_documented_axes(config):
+    """Every built T1 tile is a combination of `SWEEP_AXES` (block_q 128 /
+    256, block_kv 128 / 192, hblk 1 / 2) with at most two chains a
+    warpgroup, and the default is one of them."""
+    bq, bkv, hb = config
+    assert bq in P.SWEEP_AXES["block_q"] and bkv in P.SWEEP_AXES["block_kv"]
+    assert hb in P.SWEEP_AXES["hblk"] and bq // 128 * hb <= 2
+    assert P.SWEEP_DEFAULT in P.SWEEP_CONFIGS
+
+
+@pytest.mark.parametrize("config", P.SWEEP_CONFIGS)
+def test_sweep_geometry_fits_a_block(config):
+    """T1's shared memory at each built tile: the q tile and at least two
+    K / V slots (every slot that fits, up to four) within a block's 227 KB,
+    and one more slot would not fit where fewer than four are taken."""
+    bq, bkv, hb = config
+    smem = P.sweep_smem_bytes(bq, bkv, hb)
+    # K and V of hblk heads, the tile's key biases (bkv + 4 floats in whole 128 bytes)
+    slot = hb * 2 * bkv * 128 + -(-(bkv + 4) * 4 // 128) * 128
+    slots = (smem - 1024 - hb * bq * 128 - 8) // (slot + 16)
+    assert 2 <= slots <= P.SWEEP_MAX_SLOTS and smem <= SMEM_MAX
+    if slots < P.SWEEP_MAX_SLOTS:
+        assert smem + slot + 16 > SMEM_MAX
+
+
+def test_sweep_geometry_at_the_built_tiles():
+    """(128, 128, 1): 16 KB of q, four 32 KB slots; (128, 128, 2): 32 KB of
+    q (two heads), three 64 KB slots; (256, 128, 1): 32 KB of q, four 32 KB
+    slots; each slot with 640 bytes for its key biases (132 floats), plus 1 KB of slack
+    and the mbarriers."""
+    assert P.sweep_smem_bytes(128, 128, 1) == 1024 + 16384 + 4 * (32768 + 640) + 8 * 9
+    assert P.sweep_smem_bytes(128, 128, 2) == 1024 + 32768 + 3 * (65536 + 640) + 8 * 7
+    assert P.sweep_smem_bytes(256, 128, 1) == 1024 + 32768 + 4 * (32768 + 640) + 8 * 9
+
+
+@pytest.mark.parametrize("skv", [1, 100, 128, 129, 256, 300, 480, 511, P.RESIDENT_MAX])
+def test_pairinner_geometry_fits_a_block(skv):
+    """T4a holds ceil(Skv / 128) K' / V tiles of 32 KB whole, with each
+    warpgroup's q slots and staging box, within a block's shared memory at
+    every Skv up to `RESIDENT_MAX`; at 128 keys or fewer two blocks fit a
+    SM (228 KB)."""
+    smem = P.pairinner_smem_bytes(skv)
+    assert smem <= SMEM_MAX
+    assert smem - P.pairinner_smem_bytes(1) == (-(-skv // 128) - 1) * 32768
+    if skv <= 128:
+        assert 2 * (smem + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("block_q", P.PAIRINNER_BLOCK_Q)
+def test_pairinner_waves_at_the_script_shape(block_q):
+    """T4a's grid at the script's cross1 call (17,776 q rows, 48 heads) on
+    132 SMs, one block a SM: 512 rows give 35 q blocks (1,680 blocks, 12.7
+    waves), 1,024 give 18 (864, 6.5), 2,048 give 9 (432, 3.3); the last
+    wave's idle share is what its blocks leave of 132."""
+    blocks, waves, idle = P.pairinner_waves(1, 17776, 48, block_q, 132)
+    q_blocks = {512: 35, 1024: 18, 2048: 9}[block_q]
+    assert blocks == 48 * q_blocks and waves == pytest.approx(blocks / 132)
+    assert idle == pytest.approx((132 - blocks % 132) / 132)
+    assert P.pairinner_waves(2, 17776, 48, block_q, 132)[0] == 2 * blocks
+    assert P.pairinner_waves(1, 17776, 48, block_q, 132, per_sm=2)[1] == pytest.approx(waves / 2)
+
+
+def test_pairinner_waves_without_a_tail():
+    """A grid that fills its last wave leaves no slot idle."""
+    assert P.pairinner_waves(1, 1024 * 11, 12, 1024, 132) == (132, 1.0, 0.0)

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) counterparts of the Pallas probes under tools/, which the
 // JAX package wrote to find the TPU's ceilings. Here they measure the card's:
 //
-//   tg_probe_attn_sweep  attn_sweep_kernel<BM, BN, HB>
+//   tg_probe_attn_sweep  sweep_kernel<BQ, BN, HB> (probes_hopper.cuh)
 //        <- tools/bench_attn_sweep.py `_tpu` (K4's _flash_kernel at explicit
 //           block_q / block_kv / hblk)                                        T1
 //   tg_probe_attn_v2     attn_v2_kernel<BM, BN, MASK>
@@ -21,47 +21,38 @@
 //
 // T7, tg_probe_matmul (<- tools/bench_matmul_pallas.py `_mm_kernel`), is
 // its own source, probe_gemm.cu. Each computes the JAX function, not the
-// TPU's blocking. T3a, T3b and T5 are Hopper bodies (TMA rings, wgmma,
-// probes_maxfree.cuh), as is T7; the others are simple first versions
-// (synchronous loads, mma.sync), right before fast.
+// TPU's blocking. T1 and T4a (probes_hopper.cuh), T3a, T3b and T5
+// (probes_maxfree.cuh) and T7 are Hopper bodies (TMA loads on mbarriers,
+// wgmma); T2, T4b, T6 and T8 are simple first versions (synchronous loads,
+// mma.sync), right before fast.
 
 #include <cfloat>
 
 #include "flash_fwd.cuh"
+#include "probes_hopper.cuh"
 #include "probes_maxfree.cuh"
 
 // ---------------------------------------------------------------------------
-// T1, T2: the K4-family forward (flash_fwd.cuh, no prologue; the wrapper folds
-// scale * log2 e into qscale) at explicit tiles. BM_ q rows per block (BM_ / 16
-// warps), BN_ kv rows per tile, HB heads per block (run one after another: a
-// block carries nothing between heads, so on this card HB only changes the
-// grid). The TPU's 512-4096 blocks do not fit an SM and are not copied; the
-// sweep is BM_ in {64, 128} x BN_ in {32, 64, 128} x HB in {1, 2}, less
-// (128, 128) and (64, 32, 2) (its registers spill). (128, 64, every tile)
-// is K4's own code.
+// T2: the K4-family forward (flash_fwd.cuh's mma.sync body, no prologue; the
+// wrapper folds scale * log2 e into qscale) at explicit tiles, BM_ q rows per
+// block (BM_ / 16 warps), BN_ kv rows per tile, the key bias on every kv
+// tile or only on the last. T1, the same function at a tile sweep on this
+// card's axes, is probes_hopper.cuh's TMA / wgmma body.
 // Bound: the two products at the bf16 tensor-core rate.
 // ---------------------------------------------------------------------------
 
 namespace {
-
-template <int BM_, int BN_, int HB>
-__global__ void __launch_bounds__((BM_ / 16) * 32) attn_sweep_kernel(const TGAttnArgs a) {
-  for (int hh = 0; hh < HB; ++hh) {
-    if (hh > 0) __syncthreads();  // the last head's tiles consumed by every warp
-    flash_fwd_body<false, false, 64, BM_, BN_, MASK_EVERY_TILE>(a, blockIdx.y * HB + hh);
-  }
-}
 
 template <int BM_, int BN_, int MASK>
 __global__ void __launch_bounds__((BM_ / 16) * 32) attn_v2_kernel(const TGAttnArgs a) {
   flash_fwd_body<false, false, 64, BM_, BN_, MASK>(a, blockIdx.y);
 }
 
-template <int BM_, int HB>
+template <int BM_>
 int launch_attn(void (*kernel)(TGAttnArgs), const TGAttnArgs* a, cudaStream_t s) {
-  if (a->sq <= 0 || a->skv <= 0 || a->h % HB) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((a->sq + BM_ - 1) / BM_),
-                  static_cast<unsigned>(a->h / HB), static_cast<unsigned>(a->b));
+  if (a->sq <= 0 || a->skv <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((a->sq + BM_ - 1) / BM_), static_cast<unsigned>(a->h),
+                  static_cast<unsigned>(a->b));
   kernel<<<grid, (BM_ / 16) * 32, 0, s>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -405,12 +396,13 @@ __global__ void __launch_bounds__(256) exp2_loop_kernel(const float* x, float* o
 // At the scripts' tables C is the cap, 120, so every p lies far below 1
 // (2^-80 .. 2^-160 for scores of a few tens): the row sums are carried by
 // the normal values and the shift cancels in acc / l. exp2f keeps
-// subnormals (no -ftz); T3a, T3b and T5 run ex2.approx.ftz on a shifted
-// argument instead (probes_maxfree.cuh); a row whose every score is below
+// subnormals (no -ftz); T3a, T3b, T4a and T5 run ex2.approx.ftz on a
+// shifted argument instead (probes_maxfree.cuh); a row whose every score is below
 // about -29 would underflow, as on the TPU.
 //
-// Designs (T4a, T4b: simple first versions, synchronous loads and mma.sync
-// m16n8k16; T3a, T3b and T5: probes_maxfree.cuh's TMA / wgmma bodies):
+// Designs (T4b: a simple first version, synchronous loads and mma.sync
+// m16n8k16; T3a, T3b and T5: probes_maxfree.cuh's TMA / wgmma bodies; T4a:
+// probes_hopper.cuh's):
 // * T3a pair_splitpv_kernel<RB> (<- _packed_kernel_splitpv,
 //   probes_maxfree.cuh): the prologue pass once per row (K1's), then a
 //   block owns 64 RB q rows of one head pair, warpgroup w head h0 + w: each
@@ -427,12 +419,15 @@ __global__ void __launch_bounds__(256) exp2_loop_kernel(const float* x, float* o
 //   two chains; a warpgroup issues one chain's scores (wgmma SS) with the
 //   other's p.v (wgmma RS), whose softmax runs meanwhile; K / V tiles of
 //   128 keys by TMA through a 5-slot ring.
-// * T4a / T4b resident_body<PRO_K, PARTIAL>: K2's structure: K and V of one
-//   head over at most RES_MAX keys held whole in shared memory while q
-//   tiles of 128 rows run against them. T4a pairinner_kernel (<-
-//   _smallkv_kernel): grid (H, q blocks, B), the head fastest, so that the
-//   blocks reading one q block's f32 tables run side by side (the TPU
-//   grid's pair innermost); K arrives prologued. T4b splitkv_kernel (<-
+// * T4a pairinner_tma_kernel (<- _smallkv_kernel, probes_hopper.cuh): q's
+//   prologue pass once per row (K1's), then grid (H, q blocks, B), the head
+//   fastest (the TPU grid's pair innermost); a block holds its head's
+//   prologued K' and V whole (TMA, <= 4 tiles of 128 keys) and each
+//   warpgroup runs 64-row chunks of its q' rows against them, by TMA a
+//   chunk ahead; scores wgmma SS, p.v wgmma RS, the output by TMA stores.
+// * T4b resident_body<PRO_K, PARTIAL>: K3's function split over the keys:
+//   K and V of one head over at most RES_MAX keys held whole in shared
+//   memory while q tiles of 128 rows run against them. splitkv_kernel (<-
 //   _smallq_kernel): grid (kv splits, H, B), the split's keys prologued on
 //   load; each block runs every q row and writes f32 partial acc and l to a
 //   workspace, which combine_kernel sums: sum(acc) / max(sum(l), FLT_MIN),
@@ -453,7 +448,7 @@ __global__ void __launch_bounds__(256) exp2_loop_kernel(const float* x, float* o
 // ---------------------------------------------------------------------------
 
 constexpr int LDQ = pitch(64);        // one head's rows in shared memory
-constexpr int RES_MAX = 512;          // T4a / T4b: keys held whole
+constexpr int RES_MAX = 512;          // T4b: keys held whole
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -581,7 +576,7 @@ __device__ __forceinline__ T* head_ptr(const void* base, long long sb, long long
   return static_cast<T*>(const_cast<void*>(base)) + b * sb + h * sh;
 }
 
-// T4a / T4b shared memory for n resident keys: their shifted bias, K
+// T4b shared memory for n resident keys: their shifted bias, K
 // ([n_p][LDQ]), transposed V ([64][n_p + 8]) and a q tile ([BM][LDQ]).
 size_t resident_smem_bytes(int n) {
   const int n_p = round_up(n, BN);
@@ -634,15 +629,6 @@ __device__ void resident_body(const TGAttnArgs& a, int h, int b, int qbeg, int q
     else
       store_maxfree(acc, o, a.o_ss, q0 + warp * 16, sq);
   }
-}
-
-// T4a. Grid (H, ceil(Sq / qchunk), B); K already prologued, Skv <= RES_MAX.
-__global__ void __launch_bounds__(NTHREADS) pairinner_kernel(const TGAttnArgs a, int qchunk,
-                                                             float shift) {
-  const int qbeg = blockIdx.y * qchunk;
-  resident_body<false, false>(a, blockIdx.x, blockIdx.z, qbeg,
-                              min(static_cast<int>(a.sq), qbeg + qchunk), 0,
-                              static_cast<int>(a.skv), shift, nullptr, nullptr);
 }
 
 // T4b workspace (f32): acc [B][H][splits][Sq][64], then l [B][H][splits][Sq].
@@ -702,18 +688,31 @@ int allow_resident(Kernel kernel, int n, size_t* smem) {
 
 extern "C" {
 
-// T1: block_q (64 | 128) x block_kv (32 | 64 | 128) x heads per block (1 | 2),
-// not (128, 128) nor (64, 32, 2).
+// T1's built (block_q, block_kv, hblk), probes.SWEEP_CONFIGS. Of the axes'
+// other combinations (probes_hopper.cuh), ptxas (-O3, on the card) spilled
+// every one at block_kv 192: (128, 192, 1) 255 registers and 1,012 bytes;
+// (128, 192, 2) and (256, 192, 1) 396 and 400 bytes, with "(C7512)
+// Potential Performance Loss: wgmma.mma_async instructions are serialized
+// due to insufficient register resources"; (256, *, 2), four chains a
+// warpgroup, is not written.
+#define TG_SWEEP_CONFIGS(X) X(128, 128, 1) X(128, 128, 2) X(256, 128, 1)
+
+// T1 at (bm, bn, hb), one of TG_SWEEP_CONFIGS.
 int tg_probe_attn_sweep(const TGAttnArgs* a, long long bm, long long bn, long long hb,
                         void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TG_SWEEP(BM_, BN_, HB)                                                  \
-  if (bm == BM_ && bn == BN_ && hb == HB)                                       \
-    return launch_attn<BM_, HB>(attn_sweep_kernel<BM_, BN_, HB>, a, s);
-  TG_SWEEP(64, 32, 1) TG_SWEEP(64, 64, 1) TG_SWEEP(64, 128, 1)
-  TG_SWEEP(128, 32, 1) TG_SWEEP(128, 64, 1)
-  TG_SWEEP(64, 64, 2) TG_SWEEP(64, 128, 2)
-  TG_SWEEP(128, 32, 2) TG_SWEEP(128, 64, 2)
+#define TG_SWEEP(BQ, BN_, HB) \
+  if (bm == BQ && bn == BN_ && hb == HB) return launch_sweep<BQ, BN_, HB>(a, s);
+  TG_SWEEP_CONFIGS(TG_SWEEP)
+#undef TG_SWEEP
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// T1's build at (bm, bn, hb) (sweep_geometry's eight values).
+int tg_probe_sweep_geometry(long long bm, long long bn, long long hb, long long* out) {
+#define TG_SWEEP(BQ, BN_, HB) \
+  if (bm == BQ && bn == BN_ && hb == HB) return sweep_geometry<BQ, BN_, HB>(out);
+  TG_SWEEP_CONFIGS(TG_SWEEP)
 #undef TG_SWEEP
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -725,7 +724,7 @@ int tg_probe_attn_v2(const TGAttnArgs* a, long long bm, long long bn, long long 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TG_V2(BM_, BN_, MASK)                                                   \
   if (bm == BM_ && bn == BN_ && mask == MASK)                                   \
-    return launch_attn<BM_, 1>(attn_v2_kernel<BM_, BN_, MASK>, a, s);
+    return launch_attn<BM_>(attn_v2_kernel<BM_, BN_, MASK>, a, s);
   TG_V2(64, 64, 0) TG_V2(128, 64, 0) TG_V2(64, 128, 0)
   TG_V2(64, 64, 1) TG_V2(128, 64, 1) TG_V2(64, 128, 1)
 #undef TG_V2
@@ -798,21 +797,17 @@ int tg_probe_attn_pair2(const TGAttnArgs* a, long long bn, long long unused, flo
   return launch_pair2(a, shift, ws, static_cast<cudaStream_t>(stream));
 }
 
-// T4a: q rows per block a multiple of 128; Skv <= 512; k already prologued.
-int tg_probe_cross_pairinner(const TGAttnArgs* a, long long qchunk, long long unused,
+// T4a: q rows per block a multiple of 128; Skv <= 512; k already prologued,
+// q's tables given; ws: q' (bf16 B * Sq * H * 64).
+int tg_probe_cross_pairinner(const TGAttnArgs* a, long long block_q, long long unused,
                              float shift, float* ws, void* stream) {
   (void)unused;
-  (void)ws;
-  if (a->sq <= 0 || a->skv <= 0 || a->skv > RES_MAX || qchunk <= 0 || qchunk % BM)
-    return static_cast<int>(cudaErrorInvalidValue);
-  size_t smem;
-  const int err = allow_resident(pairinner_kernel, static_cast<int>(a->skv), &smem);
-  if (err != 0) return err;
-  const dim3 grid(static_cast<unsigned>(a->h), static_cast<unsigned>((a->sq + qchunk - 1) / qchunk),
-                  static_cast<unsigned>(a->b));
-  pairinner_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      *a, static_cast<int>(qchunk), shift);
-  return static_cast<int>(cudaGetLastError());
+  return launch_pairinner(a, block_q, shift, ws, static_cast<cudaStream_t>(stream));
+}
+
+// T4a's build for ``skv`` keys (pairinner_geometry's six values).
+int tg_probe_pairinner_geometry(long long skv, long long* out) {
+  return pairinner_geometry(skv, out);
 }
 
 // T5: ``per_block`` (batch row, 128-row block, head) units a block, head

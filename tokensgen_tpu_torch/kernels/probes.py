@@ -30,7 +30,10 @@ Each computes the JAX function; the tiles are the card's (`SWEEP_CONFIGS`,
 `V2_CONFIGS`, ...), not the TPU's. A CPU tensor takes the plain version beside the
 entry point; a CUDA tensor launches the kernel (CUDA C++ for sm_90a in
 ``csrc/probes.cu`` and, T7's, ``csrc/probe_gemm.cu``, built by nvcc at first
-use, `kernels/build.py`) or raises.
+use, `kernels/build.py`) or raises. T1 and T4a (``csrc/probes_hopper.cuh``),
+T3a, T3b and T5 (``csrc/probes_maxfree.cuh``) and T7 are Hopper bodies: TMA
+loads onto mbarriers and wgmma products; T2, T4b, T6 and T8 are simple first
+versions (synchronous loads, mma.sync).
 The CLIs of ``tokensgen_tpu_torch/tools/`` drive them.
 """
 
@@ -44,10 +47,18 @@ import torch
 from tokensgen_tpu_torch.kernels import attention as A
 from tokensgen_tpu_torch.kernels import build as _build
 
-# T1: (block_q, block_kv, heads per block) built in csrc/probes.cu; not
-# (128, 128), nor (64, 32, 2), whose registers spill (36 bytes)
-SWEEP_CONFIGS = tuple((bm, bn, hb) for hb in (1, 2) for bm in (64, 128) for bn in (32, 64, 128)
-                      if (bm, bn) != (128, 128) and (bm, bn, hb) != (64, 32, 2))
+# T1's tile axes on the card (csrc/probes_hopper.cuh): block_q q rows a block
+# (two warpgroups of 64 rows, at 256 two row blocks each), block_kv keys a K /
+# V tile (the score product's N; 64 would give both products one wgmma
+# shape), hblk heads a block (at 2 a warpgroup's two chains are two heads)
+SWEEP_AXES = {"block_q": (128, 256), "block_kv": (128, 192), "hblk": (1, 2)}
+# the combinations built in csrc/probes.cu (TG_SWEEP_CONFIGS): every one at
+# block_kv 192 spilled its registers (ptxas, two of them also serializing
+# their wgmmas), and (256, *, 2) would hold four chains a warpgroup
+SWEEP_CONFIGS = ((128, 128, 1), (128, 128, 2), (256, 128, 1))
+SWEEP_DEFAULT = (128, 128, 2)  # the fastest at the script's shape (PERF.md), the smoke's
+SWEEP_MAX_SLOTS = 4  # csrc SW_MAX_SLOTS
+SMEM_MAX = 232448  # shared memory a block may use on an H100
 V2_CONFIGS = ((64, 64), (128, 64), (64, 128))  # T2: (block_q, block_kv)
 BIAS_MODES = ("full", "last")  # T2: key bias on every kv tile, or only on the last
 FLASH_LOOP_D = 128  # T6: the head dim the kernel is built for
@@ -63,6 +74,8 @@ SPLITPV_CONFIGS = ((128, 128), (64, 128))  # T3a: (q rows per head, keys per til
 PAIR2_BLOCK_KV = (128,)  # T3b: keys per tile (csrc MF_BN)
 PAIR2_BLOCK_Q = 128  # T3b: q rows a block (csrc P2_BM)
 PAIRINNER_BLOCK_Q = (512, 1024, 2048)  # T4a: q rows per block
+PAIRINNER_DEFAULT = 512  # T4a: the fastest block_q at the script's shape (PERF.md), the smoke's
+PAIRINNER_SLOTS = 2  # T4a: q boxes of 64 rows a warpgroup (csrc PI_SLOTS)
 SPLITKV_BLOCK_KV = (256, 384, 512)  # T4b: keys per split
 # T5 cuts its work in units of (batch row, row block of PAIRLOOP_ROWS q rows,
 # head), head fastest, and a block takes a contiguous range of them
@@ -74,7 +87,7 @@ SPLITKV_BLOCK_KV = (256, 384, 512)  # T4b: keys per split
 PAIRLOOP_ROWS = 128  # csrc PL_RB
 PAIRLOOP_WAVE = 0
 PAIRLOOP_BLOCK_Q = (PAIRLOOP_WAVE, 128, 256, 512, 1024, 2048)
-RESIDENT_MAX = 512  # T4a / T4b: keys held whole in shared memory (csrc RES_MAX)
+RESIDENT_MAX = 512  # T4a / T4b: keys held whole in shared memory (csrc PI_MAX_KEYS, RES_MAX)
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +220,40 @@ def pairloop_plan(batch: int, sq: int, heads: int, block_q: int, sms: int):
     return per, -(-units // per)
 
 
+def sweep_smem_bytes(block_q: int, block_kv: int, hblk: int) -> int:
+    """T1's dynamic shared memory at a tile (csrc `SweepGeom::SMEM`): 1 KB
+    of alignment slack, the q tile (hblk heads x block_q rows of 128 bytes),
+    as many K / V slots (the K and V tiles of hblk heads, and the tile's
+    block_kv + 4 f32 key biases from a 16-byte boundary, in a box of
+    whole 128 bytes) as fit, up to `SWEEP_MAX_SLOTS`, and their
+    mbarriers and q's."""
+    qbytes = hblk * block_q * 128
+    slot = hblk * 2 * block_kv * 128 + -(-(block_kv + 4) * 4 // 128) * 128
+    slots = min(SWEEP_MAX_SLOTS, (SMEM_MAX - 1024 - qbytes - 8 * (2 * SWEEP_MAX_SLOTS + 1)) // slot)
+    return 1024 + qbytes + slots * slot + 8 * (2 * slots + 1)
+
+
+def pairinner_smem_bytes(skv: int) -> int:
+    """T4a's dynamic shared memory for ``skv`` keys (csrc
+    `pairinner_smem_bytes`): 1 KB of alignment slack, the resident K' / V
+    tiles of 128 keys (32 KB each), each warpgroup's `PAIRINNER_SLOTS` q
+    boxes and output staging box (8 KB each), the tiles' mbarriers and the q
+    slots'."""
+    tiles = -(-skv // 128)
+    return 1024 + tiles * 32768 + 2 * (PAIRINNER_SLOTS + 1) * 8192 + 8 * (4 + 2 * PAIRINNER_SLOTS)
+
+
+def pairinner_waves(batch: int, sq: int, heads: int, block_q: int, sms: int, per_sm: int = 1):
+    """T4a's launch: (blocks, waves, the idle share of the last wave's
+    block slots). One block per (head, q block of ``block_q`` rows, batch
+    row); ``per_sm`` blocks resident a SM."""
+    blocks = heads * -(-sq // block_q) * batch
+    slots = sms * per_sm
+    waves = blocks / slots
+    tail = blocks % slots
+    return blocks, waves, (slots - tail) / slots if tail else 0.0
+
+
 def matmul_tiles(m: int, n: int):
     """T7's `MATMUL_TILE` output tiles of an [m, n] product in the kernel's
     order (csrc `tile_coords`): (row tile, column tile) of tile id 0, 1, ...;
@@ -280,6 +327,8 @@ def _bind(lib) -> None:
     for name in _MAXFREE_ENTRY_POINTS:
         _build.bind(lib, name, ctypes.POINTER(A._Args), i64, i64, ctypes.c_float, ptr, ptr)
     _build.bind(lib, "tg_probe_splitpv_geometry", i64, ctypes.POINTER(i64))
+    _build.bind(lib, "tg_probe_sweep_geometry", i64, i64, i64, ctypes.POINTER(i64))
+    _build.bind(lib, "tg_probe_pairinner_geometry", i64, ctypes.POINTER(i64))
 
 
 def _bind_gemm(lib) -> None:
@@ -323,6 +372,37 @@ def splitpv_geometry(block_q: int) -> dict:
     return dict(zip(("threads", "smem_bytes", "slots", "block_q"), out))
 
 
+SWEEP_GEOMETRY = ("threads", "smem_bytes", "slots", "block_q", "block_kv", "hblk", "chains",
+                  "blocks_per_sm")
+
+
+def sweep_geometry(block_q: int, block_kv: int, hblk: int) -> dict:
+    """T1's build at a tile of `SWEEP_CONFIGS`, by the names of
+    `SWEEP_GEOMETRY`: threads, dynamic shared memory (bytes), K / V slots,
+    the tile, chains a warpgroup and resident blocks a SM. Builds the
+    library."""
+    out = (ctypes.c_int64 * len(SWEEP_GEOMETRY))()
+    _build.check_launch("tg_probe_sweep_geometry", _Library.get().tg_probe_sweep_geometry(
+        block_q, block_kv, hblk, out))
+    return dict(zip(SWEEP_GEOMETRY, out))
+
+
+PAIRINNER_GEOMETRY = ("threads", "smem_bytes", "q_slots", "kv_tiles", "blocks_per_sm",
+                      "prologue_pass")
+
+
+def pairinner_geometry(skv: int) -> dict:
+    """T4a's build for ``skv`` keys (<= `RESIDENT_MAX`), by the names of
+    `PAIRINNER_GEOMETRY`: threads, dynamic shared memory (bytes), q slots a
+    warpgroup, resident K' / V tiles, resident blocks a SM, and 1 where q's
+    prologue runs as a pass of its own (the build's choice; 0: in place in
+    the body). Builds the library."""
+    out = (ctypes.c_int64 * len(PAIRINNER_GEOMETRY))()
+    _build.check_launch("tg_probe_pairinner_geometry",
+                        _Library.get().tg_probe_pairinner_geometry(skv, out))
+    return dict(zip(PAIRINNER_GEOMETRY, out))
+
+
 def _launch_attn(entry: str, q, k, v, key_bias, p0: int, p1: int, p2: int):
     d = q.shape[-1]
     if d != 64:
@@ -335,20 +415,23 @@ def _launch_attn(entry: str, q, k, v, key_bias, p0: int, p1: int, p2: int):
 
 
 def _launch_maxfree(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads: int, eps: float,
-                    shift, p0: int, p1: int = 0, splits: int = 0, prologue_rows: bool = False):
+                    shift, p0: int, p1: int = 0, splits: int = 0, prologue_rows: bool = False,
+                    q_rows: bool = False):
     """Launches one of T3a-T5 on merged [B, S, H*64] bf16 operands (k
     prologued in the kernel when ``tabs_k`` is given) with the score shift
     as its own float; T4b (``splits`` > 0) also gets its f32 workspace of
     per-split partial sums and row sums, T3a and T3b (``prologue_rows``)
-    their bf16 workspace of the prologued k and q rows. Workspaces are freed with the
+    their bf16 workspace of the prologued k and q rows, T4a (``q_rows``) its
+    bf16 workspace of the prologued q rows. Workspaces are freed with the
     call."""
     a, out, _keep = A.attn_args(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, True,
                                 tabs_k is not None, A._LOG2E)  # _keep: alive through the launch
     ws = None
     if splits:
         ws = torch.empty(a.b * heads * splits * a.sq * 65, dtype=torch.float32, device=q.device)
-    elif prologue_rows:
-        ws = torch.empty(a.b * (a.skv + a.sq) * heads * 64, dtype=torch.bfloat16, device=q.device)
+    elif prologue_rows or q_rows:
+        rows = a.sq + (a.skv if prologue_rows else 0)
+        ws = torch.empty(a.b * rows * heads * 64, dtype=torch.bfloat16, device=q.device)
     _build.check_launch(entry, getattr(_Library.get(), entry)(
         ctypes.byref(a), p0, p1, float(shift), None if ws is None else ws.data_ptr(),
         _build.stream_of(q)))
@@ -360,11 +443,15 @@ def _launch_maxfree(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads: int, e
 # ---------------------------------------------------------------------------
 
 
-def attention_sweep(q, k, v, key_bias=None, block_q: int = 128, block_kv: int = 64,
-                    hblk: int = 1):
+def attention_sweep(q, k, v, key_bias=None, block_q: int = SWEEP_DEFAULT[0],
+                    block_kv: int = SWEEP_DEFAULT[1], hblk: int = SWEEP_DEFAULT[2]):
     """T1, K4's function on [B, H, S, 64] bf16 at explicit tiles: ``block_q``
     q rows per block, ``block_kv`` keys per tile, ``hblk`` heads per block
-    (`SWEEP_CONFIGS`); optional f32 key bias [B, Skv] on every tile."""
+    (`SWEEP_CONFIGS`, on the axes of `SWEEP_AXES`); optional f32 key bias
+    [B, Skv] on every tile. On the card q, K and V tiles come by TMA (16-byte
+    aligned operands), both products run on wgmma, and the softmax scale
+    and the bias join the FFMA that subtracts the running max (q is not
+    rounded with the scale, as the plain version does not round it)."""
     if q.device.type == "cpu":
         return attention_sweep_plain(q, k, v, key_bias)
     A._require_cuda(k, v, key_bias)
@@ -517,14 +604,15 @@ def attention_pair2(q, k, v, key_bias, tabs_q, tabs_k, heads: int, block_kv: int
 
 
 def cross_smallkv_pairinner(q, k, v, key_bias, tabs_q, tabs_k, heads: int,
-                            block_q: int = 1024, eps: float = 1e-6, shift=None):
+                            block_q: int = PAIRINNER_DEFAULT, eps: float = 1e-6, shift=None):
     """T4a, K2's function max-free (`run_smallkv`): long q against at most
     `RESIDENT_MAX` keys. k's prologue runs here in plain torch with the
-    unpacked tables (as the wrapper runs it in XLA); in the kernel K and V
-    of one head sit whole in shared memory against ``block_q`` q rows
-    (`PAIRINNER_BLOCK_Q`), the head fastest in the grid (the JAX grid's pair
-    innermost), so the blocks that read one q block's prologue tables run
-    side by side."""
+    unpacked tables (as the wrapper runs it in XLA); in the kernel K' and V
+    of one head sit whole in shared memory (by TMA) against ``block_q`` q
+    rows (`PAIRINNER_BLOCK_Q`), the head fastest in the grid (the JAX grid's
+    pair innermost); q's prologue runs first, once per row, into a bf16
+    workspace (K1's prologue pass), and each warpgroup takes 64-row chunks
+    of q' by TMA and multiplies by wgmma."""
     shift = score_shift(tabs_q, tabs_k, key_bias) if shift is None else shift
     kn = A.merge_heads(A.apply_prologue_plain(A.split_heads(k, heads), tabs_k, eps, True))
     if q.device.type == "cpu":
@@ -534,10 +622,18 @@ def cross_smallkv_pairinner(q, k, v, key_bias, tabs_q, tabs_k, heads: int,
     if block_q not in PAIRINNER_BLOCK_Q or k.shape[1] > RESIDENT_MAX:
         raise ValueError(f"cross_smallkv_pairinner: Skv <= {RESIDENT_MAX} and block_q in "
                          f"{PAIRINNER_BLOCK_Q}, got Skv {k.shape[1]}, block_q={block_q}")
-    out = _launch_maxfree("tg_probe_cross_pairinner", q, kn, v, key_bias, tabs_q, None, heads,
-                          eps, shift, block_q)
+    out = pairinner_prologued(q, kn, v, key_bias, tabs_q, heads, shift, block_q, eps)
     cross_smallkv_pairinner.launches += 1
     return out
+
+
+def pairinner_prologued(q, kn, v, key_bias, tabs_q, heads: int, shift,
+                        block_q: int = PAIRINNER_DEFAULT, eps: float = 1e-6):
+    """T4a's kernel alone, on k already prologued (``kn``), uncounted: what
+    the CLI, the smoke and the ablations time apart from the wrapper's
+    plain-torch k prologue. CUDA tensors only."""
+    return _launch_maxfree("tg_probe_cross_pairinner", q, kn, v, key_bias, tabs_q, None, heads,
+                           eps, shift, block_q, q_rows=True)
 
 
 def cross_smallkv_pairloop(q, k, v, key_bias, tabs_q, tabs_k, heads: int,

@@ -4,8 +4,9 @@ csrc/flash_ws.cuh's `smallkv_body`), K7 (`fused_attention_joint_int8`,
 flash_ws.cuh's `ws_body` with int8 scores), the float32 K4
 (`flash_attention_bhsd_f32`, csrc/attention_f32.cu) and the probes T3a
 (`probes.attention_splitpv`), T3b (`probes.attention_pair2`), T5
-(`probes.cross_smallkv_pairloop`, csrc/probes_maxfree.cuh) and T7
-(`probes.matmul_hand`, csrc/probe_gemm.cu) keep: kernels/csrc is
+(`probes.cross_smallkv_pairloop`, csrc/probes_maxfree.cuh), T7
+(`probes.matmul_hand`, csrc/probe_gemm.cu), T1 (`probes.attention_sweep`)
+and T4a (`probes.cross_smallkv_pairinner`, csrc/probes_hopper.cuh) keep: kernels/csrc is
 built once per variant (the shipped source, and copies in which one choice
 is undone by a text patch), one nvcc per variant at once; each build's
 registers and spills are printed; then each variant's K5 at the joint
@@ -15,8 +16,9 @@ joint shape (17,776 x 17,776, 48 heads of 64, batch 2) and the float32 K4 at
 DINOv2-large's [49, 16, 257, 64], T3a and T3b at their script's joint shape
 ([1, 17,776, 48*64]^2, the round-3 tables, no key bias), T7 at the four
 shapes of its CLI (with torch.matmul on the same inputs in the same turns)
-and T5's kernel at its
-script's cross1 shape (17,776 q rows x 480 prologued keys) are timed through
+T1 at its script's [1, 48, 17,776, 64] (zero key bias) at every built tile,
+and T5's and T4a's kernels at their script's cross1 shape (17,776 q rows x
+480 prologued keys) are timed through
 the port's wrappers in turns (CUDA events, median), each call held to its
 plain version. With
 --stamps, a build with clock64() stamps prints the clocks of one K5 q tile
@@ -31,19 +33,24 @@ checkout has no git history), else `git show` itself. Each of its samples
 is the device time of 10 back-to-back calls over 10: its ~0.3 ms is of the
 order of the wrapper's host time, which one call's events would count.
 
-The probes' variants (t3a_*, t3b_*, t5_*, mf_*; t7_*) build probes.cu (T7's:
-probe_gemm.cu) alone, each --probe-builds times, and the parents build the
-synchronous mma.sync bodies that the TMA / wgmma ones replaced: t3b_parent
-and t5_parent from the text of commit 128c05f (`--mf-parent FILE`, else
-`git show`), t3a_parent and t7_parent from that of commit 3aa7498
-(`--probes-parent FILE`, else `git show`), each timed at every tile it was
-built for (T3a: (128, 64), (128, 32) and (64, 64); T3b: 64 and 32 keys; T5:
-128-2,048 q rows a block; T7: its one) through the same C entry points. T5
-is timed as its kernel alone, on k prologued once (`probes.pairloop_prologued`), the device time of 10
-calls queued behind a device sleep (`_common.queued_time_ms`: one call's
-events would count the wrapper's host time); the shipped T5 also at
-whole row blocks of 128 and 1,024 rows (``@128``, ``@1024``) besides its
-one-wave plan.
+The probes' variants (t3a_*, t3b_*, t5_*, mf_*; t7_*; t1_*, t4a_*) build
+probes.cu (T7's: probe_gemm.cu) alone, each --probe-builds times, and the
+parents build the synchronous mma.sync bodies that the TMA / wgmma ones
+replaced: t3b_parent and t5_parent from the text of commit 128c05f
+(`--mf-parent FILE`, else `git show`), t3a_parent and t7_parent from that of
+commit 3aa7498 (`--probes-parent FILE`, else `git show`), t1_parent and
+t4a_parent from that of commit cfce16a (`--sweep-parent FILE`, else `git
+show`), each timed at every tile it was built for (T3a: (128, 64), (128,
+32) and (64, 64); T3b: 64 and 32 keys; T5: 128-2,048 q rows a block; T7:
+its one; T1: its nine (block_q, block_kv, hblk); T4a: 512-2,048 q rows a
+block) through the same C entry points. T5 and T4a are timed as their
+kernels alone, on k prologued once (`probes.pairloop_prologued`,
+`probes.pairinner_prologued`), the device time of 10 calls queued behind a
+device sleep (`_common.queued_time_ms`: one call's events would count the
+wrapper's host time); the shipped T5 also at whole row blocks of 128 and
+1,024 rows (``@128``, ``@1024``) besides its one-wave plan. T4a's lines
+give each block_q's blocks, waves (one block a SM) and the last wave's idle
+share.
 
     python -m tokensgen_tpu_torch.tools.kernel_ablations [--rounds 2] [--runs 5]
         [--only shipped,k5_atomics,...] [--stamps]
@@ -55,6 +62,10 @@ one-wave plan.
     python -m tokensgen_tpu_torch.tools.kernel_ablations --only t7_parent,t7_shipped,\
         t7_stages3,t7_128x128,t7_256x128,t7_one_tile,t7_elected,t7_direct_store,\
         t7_row_major,t3a_parent,t3a_shipped,t3a_two_slots --probes-parent FILE
+    python -m tokensgen_tpu_torch.tools.kernel_ablations --only t1_parent,t1_shipped,\
+        t1_producer,t1_refill_flip,t1_scale_fmul,t4a_parent,t4a_shipped,t4a_tables_in_place,\
+        t4a_three_slots \
+        --sweep-parent FILE
     python -m tokensgen_tpu_torch.tools.kernel_ablations --only prologue_parent,\
         prologue_shipped --attention-parent FILE --rounds 3
 
@@ -82,10 +93,14 @@ from tokensgen_tpu_torch.tools import _common
 BWD, WS, FWD, CU = "flash_bwd.cuh", "flash_ws.cuh", "flash_fwd.cuh", "attention.cu"
 F32 = "attention_f32.cu"
 F32_PARENT_COMMIT = "8af06c8"  # the CUDA-core body's last commit
-PROBES, MF, GEMM = "probes.cu", "probes_maxfree.cuh", "probe_gemm.cu"
+PROBES, MF, GEMM, HOP = "probes.cu", "probes_maxfree.cuh", "probe_gemm.cu", "probes_hopper.cuh"
 MF_PARENT_COMMIT = "128c05f"  # T3b's and T5's mma.sync bodies' last commit; the prologue
 # pass and the tensor maps still in attention.cu
 PROBES_PARENT_COMMIT = "3aa7498"  # T3a's and T7's mma.sync bodies' last commit
+SWEEP_PARENT_COMMIT = "cfce16a"  # T1's and T4a's mma.sync bodies' last commit
+# T1's tiles in that commit's probes.cu: (block_q, block_kv, heads per block)
+SWEEP_PARENT_CONFIGS = ((64, 32, 1), (64, 64, 1), (64, 128, 1), (128, 32, 1), (128, 64, 1),
+                        (64, 64, 2), (64, 128, 2), (128, 32, 2), (128, 64, 2))
 
 # K5's dq share added by float2 atomics instead of the staging and TMA reduce
 _K5_ATOMICS = [
@@ -526,13 +541,40 @@ VARIANTS = {
     "t3a_shipped": ("T3A", "nothing", []),
     "t3a_two_slots": ("T3A", "the ring's depth: 2 K / V slots, not 3",
                       [(MF, "constexpr int SP_SLOTS = 3;", "constexpr int SP_SLOTS = 2;")]),
+    # the probes T1 and T4a (csrc/probes_hopper.cuh's switches, one flipped a variant)
+    "t1_parent": ("T1", f"the TMA / wgmma body: commit {SWEEP_PARENT_COMMIT}'s synchronous "
+                  "mma.sync sweep body (flash_fwd.cuh's, 64 / 128 q rows, 32-128 keys)", None),
+    "t1_shipped": ("T1", "nothing", []),
+    "t1_producer": ("T1", "the loader: a producer warpgroup (384 threads, setmaxnreg), not "
+                    "warpgroup 1's first thread",
+                    [(HOP, "constexpr bool SW_PRODUCER = false;",
+                      "constexpr bool SW_PRODUCER = true;")]),
+    "t1_refill_flip": ("T1", "the refill point: at each tile's start at block_q 256, right after "
+                       "the loader's release (waiting for the other warpgroup's) at 128",
+                       [(HOP, "static constexpr bool REFILL_AFTER_RELEASE = RB == 2;",
+                         "static constexpr bool REFILL_AFTER_RELEASE = RB != 2;")]),
+    "t1_scale_fmul": ("T1", "the fold: the scores scaled by a multiply of their own before the "
+                      "max, the bias added after, p = 2^(x - m)",
+                      [(HOP, "constexpr bool SW_FOLD = true;", "constexpr bool SW_FOLD = false;")]),
+    "t4a_parent": ("T4A", f"the TMA / wgmma body: commit {SWEEP_PARENT_COMMIT}'s resident "
+                   "mma.sync body (128-row q tiles, plain loads, a block barrier each)", None),
+    "t4a_shipped": ("T4A", "nothing", []),
+    "t4a_tables_in_place": ("T4A", "the tables path: each chunk of raw q prologued in place "
+                            "from the tables in global memory, not K1's prologue pass first",
+                            [(HOP, "constexpr bool PI_PROLOGUE_PASS = true;",
+                              "constexpr bool PI_PROLOGUE_PASS = false;")]),
+    "t4a_three_slots": ("T4A", "the q ring's depth: 3 slots a warpgroup, not 2",
+                        [(HOP, "constexpr int PI_SLOTS = 2;", "constexpr int PI_SLOTS = 3;")]),
 }
 # the kernels each probe (or K1-K3) variant times
 PROBE_KINDS = {"T3B": ("T3B",), "T5": ("T5",), "MF": ("T3B", "T5"), "K123": ("K1", "K2", "K3"),
-               "T7": ("T7",), "T3A": ("T3A",)}
-# the probe variants whose parent is PROBES_PARENT_COMMIT's probes.cu (the
-# others' is MF_PARENT_COMMIT's)
+               "T7": ("T7",), "T3A": ("T3A",), "T1": ("T1",), "T4A": ("T4A",)}
+# the probe variants whose parent is PROBES_PARENT_COMMIT's probes.cu, and
+# SWEEP_PARENT_COMMIT's (the others' is MF_PARENT_COMMIT's)
 NEW_PARENT_KINDS = ("T7", "T3A")
+SWEEP_PARENT_KINDS = ("T1", "T4A")
+# the probes timed as their kernels alone, 10 calls queued behind a device sleep
+QUEUED_KINDS = ("T5", "T4A")
 
 
 def _patched(name: str, patches, root, source=CU, text=None):
@@ -708,13 +750,61 @@ def _t3a_case(dev):
     return {"parent": parent, "shipped": shipped}, ref
 
 
+def _t1_case(dev):
+    """T1 at its script's [1, 48, 17,776, 64] with its zero key bias:
+    {style: [(label, fn)]} (the parent's entry point at each of its tiles;
+    the shipped wrapper at each of `SWEEP_CONFIGS` and at its default with
+    no bias, ``-nobias``) and the plain version. (The library call is
+    chip_smoke.py's: the port calls no library attention.)"""
+    from tokensgen_tpu_torch.tools.bench_attn_sweep import make_inputs
+
+    q, k, v, bias = make_inputs(dev, 1, 48, 17776)
+    ref = P.attention_sweep_plain(q, k, v, bias)
+    label = lambda c: "@" + "x".join(map(str, c))  # noqa: E731
+    parent = [(label(c), lambda c=c: P._launch_attn("tg_probe_attn_sweep", q, k, v, bias, *c))
+              for c in SWEEP_PARENT_CONFIGS]
+    shipped = [(label(c), lambda c=c: P.attention_sweep(q, k, v, bias, *c))
+               for c in P.SWEEP_CONFIGS]
+    # the same function with no bias (the bias is zero): the kernel's build without it
+    shipped.append((label(P.SWEEP_DEFAULT) + "-nobias",
+                    lambda: P.attention_sweep(q, k, v, None, *P.SWEEP_DEFAULT)))
+    return {"parent": parent, "shipped": shipped}, ref
+
+
+def _t4a_case(dev):
+    """T4a's kernel alone at its script's cross1 shape, k prologued once:
+    {style: [(label, fn)]} (`probes.pairinner_prologued` at each q block of
+    `PAIRINNER_BLOCK_Q`) and the plain version.
+    Prints each block_q's blocks, waves and the last wave's idle share."""
+    from tokensgen_tpu_torch.tools.bench_attn_r3 import make_inputs
+
+    x = make_inputs(dev)
+    q, k, v, tq, tk = x["q"], x["kv"], x["vv"], x["tq_tv"], x["tk_vip"]
+    h = q.shape[2] // 64
+    shift = P.score_shift(tq, tk).item()
+    kn = A.merge_heads(A.apply_prologue_plain(A.split_heads(k, h), tk, 1e-6, True))
+    ref = P.attention_maxfree_plain(q, kn, v, None, tq, tk, h, shift, k_prologued=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for bq in P.PAIRINNER_BLOCK_Q:
+        blocks, waves, idle = P.pairinner_waves(1, q.shape[1], h, bq, sms)
+        print(f"T4a@{bq}: {blocks} blocks, {waves:.2f} waves of {sms} (one a SM), last wave "
+              f"{idle:.0%} idle", flush=True)
+    # the same entry point in every build (the parent leaves the q' workspace unused)
+    entries = [(f"@{bq}", lambda bq=bq: P.pairinner_prologued(q, kn, v, None, tq, h, shift, bq))
+               for bq in P.PAIRINNER_BLOCK_Q]
+    return {"parent": entries, "shipped": entries}, ref
+
+
 def _bind_parent_probes(lib) -> None:
     """An older probes.cu's entry points that the cases call: the max-free
-    ones and T7's (older builds have no geometry queries)."""
+    ones, T1's and, where it has it, T7's (older builds have no geometry
+    queries; T7 left probes.cu with its redesign)."""
     i64, ptr = ctypes.c_int64, ctypes.c_void_p
     for name in P._MAXFREE_ENTRY_POINTS:
         B.bind(lib, name, ctypes.POINTER(A._Args), i64, i64, ctypes.c_float, ptr, ptr)
-    B.bind(lib, "tg_probe_matmul", ctypes.POINTER(P._MatmulArgs), ptr)
+    B.bind(lib, "tg_probe_attn_sweep", ctypes.POINTER(A._Args), i64, i64, i64, ptr)
+    if hasattr(lib, "tg_probe_matmul"):
+        B.bind(lib, "tg_probe_matmul", ctypes.POINTER(P._MatmulArgs), ptr)
 
 
 # every output within these of its plain version: relative L2 and max abs
@@ -768,6 +858,9 @@ def main(argv=None) -> int:
     ap.add_argument("--probes-parent", default="",
                     help=f"probes.cu as of commit {PROBES_PARENT_COMMIT}, T3a's and T7's parent "
                     "(default: git show)")
+    ap.add_argument("--sweep-parent", default="",
+                    help=f"probes.cu as of commit {SWEEP_PARENT_COMMIT}, T1's and T4a's parent "
+                    "(default: git show)")
     ap.add_argument("--mf-parent", default="",
                     help=f"probes.cu as of commit {MF_PARENT_COMMIT}, T3b's and T5's parent "
                     "(default: git show)")
@@ -794,10 +887,12 @@ def main(argv=None) -> int:
                     if patches is None else None)
             builds[n] = (n, CU, text, patches or [])
         elif kernel in PROBE_KINDS:
-            new = kernel in NEW_PARENT_KINDS
-            text = (_parent_text(args.probes_parent if new else args.mf_parent,
-                                 PROBES_PARENT_COMMIT if new else MF_PARENT_COMMIT, PROBES)
-                    if patches is None else None)
+            path, commit = ((args.probes_parent, PROBES_PARENT_COMMIT)
+                            if kernel in NEW_PARENT_KINDS else
+                            (args.sweep_parent, SWEEP_PARENT_COMMIT)
+                            if kernel in SWEEP_PARENT_KINDS else
+                            (args.mf_parent, MF_PARENT_COMMIT))
+            text = _parent_text(path, commit, PROBES) if patches is None else None
             source = GEMM if kernel == "T7" and patches is not None else PROBES
             for i in range(args.probe_builds):
                 builds[f"{n}.{i}"] = (n, source, text, patches or [])
@@ -825,7 +920,10 @@ def main(argv=None) -> int:
                                    ("11gemm_kernel", "T7"), ("13matmul_kernel", "T7 (parent)"),
                                    ("pair_splitpv_kernelILi2", "T3a at 128 rows"),
                                    ("pair_splitpv_kernelILi1", "T3a at 64 rows"),
-                                   ("14splitpv_kernel", "T3a (parent)"))
+                                   ("14splitpv_kernel", "T3a (parent)"),
+                                   ("12sweep_kernel", "T1"), ("17attn_sweep_kernel", "T1 (parent)"),
+                                   ("20pairinner_tma_kernel", "T4a"),
+                                   ("16pairinner_kernel", "T4a (parent)"))
                 if tag in k]
         print(f"[build] {key} in {dt:.0f} s: " + "; ".join(regs), flush=True)
         for line in log.splitlines():
@@ -849,7 +947,7 @@ def main(argv=None) -> int:
     kernels = {k for kind in kinds for k in PROBE_KINDS.get(kind, (kind,))}
     makers = {"K5": _k5_case, "K2": _k2_case, "K7": _k7_case, "F32": _f32_case,
               "T3B": _t3b_case, "T5": _t5_case, "K1": _k1_case, "K3": _k3_case,
-              "T7": _t7_case, "T3A": _t3a_case}
+              "T7": _t7_case, "T3A": _t3a_case, "T1": _t1_case, "T4A": _t4a_case}
     cases = {k: make(dev) for k, make in makers.items()
              if k in kernels or ("all" in kernels and k in ("K5", "K2", "K7"))}
     order = [key for key in builds if key not in stamp_keys]
@@ -881,10 +979,12 @@ def main(argv=None) -> int:
                     out = fn()
                     ok = _agrees(out, want, BOUNDS.get(kernel, (1e-2, 2.0 ** -5)))
                     detail = (f" ({_f32_errors(out, want)})"
-                              if kernel in ("F32", "T3B", "T5", "T7", "T3A") else "")
+                              if kernel in ("F32", "T3B", "T5", "T7", "T3A", "T1", "T4A")
+                              else "")
                     del out
                     ms = (_f32_time_ms(fn, args.runs) if kernel == "F32"
-                          else _common.queued_time_ms(fn, dev, args.runs) if kernel == "T5"
+                          else _common.queued_time_ms(fn, dev, args.runs)
+                          if kernel in QUEUED_KINDS
                           else _common.time_ms(fn, dev, args.runs))
                     times.setdefault((key, kernel + label), []).append(ms)
                     print(f"round {rnd} {key} {kernel}{label} {ms:.4f} ms agrees {ok}{detail}",
