@@ -284,9 +284,10 @@ def phase_build(state: dict) -> None:
     -Xptxas -v per instantiation: registers and spill bytes. The instantiated
     set leaves out what spills (probes.SWEEP_CONFIGS), so a spill fails; so
     does a K7 body whose SASS is not int8 wgmma scores without I2F, a T7,
-    T3a, T1 or T4a body whose SASS is not bf16 wgmma without mma.sync, and a
-    line of ptxas's saying that it serialized the wgmmas of a T1 or T4a
-    instantiation (C7515, C7518, "insufficient register resources")."""
+    T3a, T1 / T2, T4a or T4b body whose SASS is not bf16 wgmma without
+    mma.sync, and a line of ptxas's saying that it serialized the wgmmas of
+    a T1 / T2, T4a or T4b instantiation (C7515, C7518, "insufficient register
+    resources")."""
     from concurrent.futures import ThreadPoolExecutor
 
     from tokensgen_tpu_torch.kernels import attention as A
@@ -341,13 +342,23 @@ def phase_build(state: dict) -> None:
             f"{g['kv_tiles']} resident K' / V tiles, {g['q_slots']} q slots a warpgroup, "
             f"{g['smem_bytes']:,} B of dynamic shared memory a block, {g['blocks_per_sm']} "
             f"resident a SM")
+    for split in P.SPLITKV_BLOCK_KV:
+        g = P.splitkv_geometry(split)
+        log(f"[build]   T4b (cross_smallq_splitkv) at {split} keys a split: {g['threads']} "
+            f"threads ({g['warpgroups']} warpgroup(s)), {g['kv_tiles']} resident K' / V tiles, "
+            f"{g['q_slots']} q slots a warpgroup, {g['smem_bytes']:,} B of dynamic shared memory "
+            f"a block, {g['blocks_per_sm']} resident a SM, partials "
+            f"{'reduce-added into one accumulator' if g['reduce'] else 'one a split'}")
+    # sweep_kernel: T1's instantiations and T2's "last" ones
     serialized = [line.strip() for line in P._Library.build_log.splitlines()
                   if "Performance Loss" in line
-                  and ("sweep_kernel" in line or "pairinner_tma_kernel" in line)]
+                  and any(k in line for k in ("sweep_kernel", "pairinner_tma_kernel",
+                                              "splitkv_tma_kernel"))]
     if serialized:
-        raise RuntimeError(f"ptxas serialized the wgmmas of T1 or T4a: {serialized}")
+        raise RuntimeError(f"ptxas serialized the wgmmas of T1 / T2, T4a or T4b: {serialized}")
     for path, kernel in ((built[3][0], "gemm_kernel"), (built[1][0], "pair_splitpv_kernel"),
-                         (built[1][0], "sweep_kernel"), (built[1][0], "pairinner_tma_kernel")):
+                         (built[1][0], "sweep_kernel"), (built[1][0], "pairinner_tma_kernel"),
+                         (built[1][0], "splitkv_tma_kernel")):
         _wgmma_sass_check(path, kernel)
 
 
@@ -1447,7 +1458,8 @@ PROBE_SOURCE = "tokensgen_tpu_torch/kernels/csrc/probes.cu"
 # and T7's own source
 PROBE_SOURCES = dict.fromkeys(("attention_splitpv", "attention_pair2", "cross_smallkv_pairloop"),
                               "tokensgen_tpu_torch/kernels/csrc/probes_maxfree.cuh")
-PROBE_SOURCES.update(dict.fromkeys(("attention_sweep", "cross_smallkv_pairinner"),
+PROBE_SOURCES.update(dict.fromkeys(("attention_sweep", "attention_v2", "cross_smallkv_pairinner",
+                                    "cross_smallq_splitkv"),
                                    "tokensgen_tpu_torch/kernels/csrc/probes_hopper.cuh"))
 PROBE_SOURCES["matmul_hand"] = "tokensgen_tpu_torch/kernels/csrc/probe_gemm.cu"
 PROBE_CLIS = ("bench_attn_sweep", "bench_attn_v2", "bench_int8_loop", "bench_matmul_hand",
@@ -1464,11 +1476,12 @@ def _sm_clock_hz() -> float:
 
 def _probe_attention_rows(dev, state) -> None:
     """T1 and T2 at the scripts' shape [1, 48, 17,776, 64] (the CLIs' inputs),
-    T1 at its default tile (`probes.SWEEP_DEFAULT`), T2 at K4's old (128,
-    64), against their plain versions with the planted fault, timed; T1 also
-    at every other tile of `probes.SWEEP_CONFIGS` (check and planted fault);
-    T2 "last" also where a key bias on earlier tiles must be ignored, and its
-    "full" mode at (64, 128)."""
+    both at T1's default tile (`probes.SWEEP_DEFAULT`; T2 in "last", its
+    plain version at that tile's block_kv), against their plain versions
+    with the planted fault, timed; T1 also at every other tile of
+    `probes.SWEEP_CONFIGS` (check and planted fault); T2 "full" at T1's tile
+    (check only), and "last" where a random key bias on earlier tiles must
+    be ignored."""
     import torch
 
     from tokensgen_tpu_torch.kernels import probes as P
@@ -1492,13 +1505,15 @@ def _probe_attention_rows(dev, state) -> None:
                      lambda cfg=cfg: P.attention_sweep(q, k, v, bias, *cfg), lambda: ref, state,
                      fault_fn=lambda: fault, check_only=True, phase="probes")
     del ref, fault
-    _compare("attention_v2", lambda: P.attention_v2(q, k, v, bias, 128, 64, "last"),
-             lambda: P.attention_v2_plain(q, k, v, bias, 64, "last"), state,
-             fault_fn=lambda: P.attention_v2_plain(q, k[:, :, :n], v[:, :, :n], bias[:, :n], 64,
+    bq, bkv, hb = P.SWEEP_DEFAULT
+    _compare("attention_v2", lambda: P.attention_v2(q, k, v, bias, bq, bkv, "last", hb),
+             lambda: P.attention_v2_plain(q, k, v, bias, bkv, "last"), state,
+             fault_fn=lambda: P.attention_v2_plain(q, k[:, :, :n], v[:, :, :n], bias[:, :n], bkv,
                                                    "last"),
              work=work, library_fn=library, phase="probes")
-    _compare("attention_v2[full, 64 x 128]", lambda: P.attention_v2(q, k, v, bias, 64, 128, "full"),
-             lambda: P.attention_v2_plain(q, k, v, bias, 128, "full"), state, check_only=True,
+    _compare(f"attention_v2[full, {P.SWEEP_DEFAULT}]",
+             lambda: P.attention_v2(q, k, v, bias, bq, bkv, "full", hb),
+             lambda: P.attention_v2_plain(q, k, v, bias, bkv, "full"), state, check_only=True,
              phase="probes")
     del q, k, v, bias
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -1506,9 +1521,9 @@ def _probe_attention_rows(dev, state) -> None:
                   for _ in range(3))
     rb = torch.randn(2, 1000, generator=gen, device=dev)
     _compare("attention_v2[last, random key bias, (2, 4, 1000, 64)]",
-             lambda: P.attention_v2(qs, ks, vs, rb, 64, 64, "last"),
-             lambda: P.attention_v2_plain(qs, ks, vs, rb, 64, "last"), state, check_only=True,
-             fault_fn=lambda: P.attention_v2_plain(qs, ks, vs, rb, 64, "full"),
+             lambda: P.attention_v2(qs, ks, vs, rb, bq, bkv, "last", hb),
+             lambda: P.attention_v2_plain(qs, ks, vs, rb, bkv, "last"), state, check_only=True,
+             fault_fn=lambda: P.attention_v2_plain(qs, ks, vs, rb, bkv, "full"),
              fault="the bias applied on every tile", phase="probes")
 
 
@@ -1662,7 +1677,7 @@ def _probe_maxfree_rows(dev, state) -> None:
     joint 17,776^2, cross1 17,776 x 480, cross2 480 x 18,256; 48 heads),
     each at its default tiles against the shared max-free plain version with
     a planted fault (T3a, T3b, T4a, T5: the ragged last kv tile of 64 left
-    out; T4b: the keys of its last split left out, which the combine must
+    out; T4b: the keys of its last split left out, which the reduce-add must
     add), timed, with its bound and flash SDPA on the prologued operands as
     the library time; then against the shipped K1, K2 or K3 on the same
     inputs (check only: the same function, the online max against the
@@ -1671,8 +1686,10 @@ def _probe_maxfree_rows(dev, state) -> None:
     alone timed (`probes.pairloop_prologued`: the call also runs k's
     prologue in plain torch; the row's ``kernel_ms``); T4a likewise
     (`probes.pairinner_prologued`, every other block_q of
-    `PAIRINNER_BLOCK_Q`). The score shift is computed once per shape and
-    passed in, so the times leave it out."""
+    `PAIRINNER_BLOCK_Q`); T4b's whole call (both prologue passes, the body,
+    the last pass) also as the device time of 10 queued calls (the row's
+    ``kernel_ms``: one call's events count its host time). The score shift
+    is computed once per shape and passed in, so the times leave it out."""
     from tokensgen_tpu_torch.kernels import attention as A
     from tokensgen_tpu_torch.kernels import probes as P
     from tokensgen_tpu_torch.tools._common import queued_time_ms
@@ -1694,7 +1711,8 @@ def _probe_maxfree_rows(dev, state) -> None:
         ("cross1", P.attention_pair2, None, None),
         ("cross2", P.attention_pair2, None, None),
         ("cross1", P.cross_smallkv_pairinner, ragged, None),
-        ("cross2", P.cross_smallq_splitkv, lambda n: (n - 1) // 512 * 512, None),  # splits of 512
+        ("cross2", P.cross_smallq_splitkv,  # at its default split
+         lambda n: (n - 1) // P.SPLITKV_DEFAULT * P.SPLITKV_DEFAULT, None),
         ("cross1", P.cross_smallkv_pairloop, ragged, None),  # at its default, one wave
     ) + tuple(("cross1", P.cross_smallkv_pairloop, ragged, bq) for bq in P.PAIRLOOP_BLOCK_Q
               if bq != P.PAIRLOOP_WAVE) + tuple(
@@ -1739,6 +1757,10 @@ def _probe_maxfree_rows(dev, state) -> None:
             state["kernel_rows"][label]["kernel_ms"] = ms
             log(f"[probes] {label}[its kernel alone, k prologued once; device time of 10 queued "
                 f"calls]: {ms:.3f} ms")
+        elif timed and probe is P.cross_smallq_splitkv:
+            ms = queued_time_ms(kernel, dev, 5)
+            state["kernel_rows"][label]["kernel_ms"] = ms
+            log(f"[probes] {label}[its whole call, device time of 10 queued calls]: {ms:.3f} ms")
     del x, shapes
 
 

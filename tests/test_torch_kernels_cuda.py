@@ -580,9 +580,9 @@ def test_fused_kernels_refuse_misaligned_operands(cuda_device):
 @pytest.mark.cuda
 def test_probe_attention_kernels_on_card(cuda_device):
     """T1 at every built (block_q, block_kv, hblk) and T2 at every built tile
-    in both bias modes, on [2, 4, 300, 64] x 517 keys (ragged) bf16 with a
-    random key bias, vs their plain versions within REL_L2_BOUND and
-    MAX_ABS_REL; each call counted once."""
+    (T1's) in both bias modes, on [2, 4, 300, 64] x 517 keys (ragged) bf16
+    with a random key bias, vs their plain versions (T2's at the tile's
+    block_kv) within REL_L2_BOUND and MAX_ABS_REL; each call counted once."""
     from tokensgen_tpu_torch.kernels import probes as P
 
     gen = torch.Generator(cuda_device).manual_seed(3)
@@ -596,9 +596,11 @@ def test_probe_attention_kernels_on_card(cuda_device):
         _assert_within_bounds(P.attention_sweep(q, k, v, bias, *cfg), ref)
         assert P.attention_sweep.launches == before + 1
     for mode in P.BIAS_MODES:
-        for bq, bkv in P.V2_CONFIGS:
-            _assert_within_bounds(P.attention_v2(q, k, v, bias, bq, bkv, mode),
+        for bq, bkv, hb in P.SWEEP_CONFIGS:
+            before = P.attention_v2.launches
+            _assert_within_bounds(P.attention_v2(q, k, v, bias, bq, bkv, mode, hb),
                                   P.attention_v2_plain(q, k, v, bias, bkv, mode))
+            assert P.attention_v2.launches == before + 1
     with pytest.raises(ValueError):
         P.attention_sweep(q, k, v, bias, 64, 64, 1)  # not built
 
@@ -633,18 +635,52 @@ def test_probe_attention_sweep_shapes_on_card(cuda_device, b, h, sq, skv, biased
         _assert_within_bounds(out, ref)
 
 
+# T2's shapes: (batch, heads, Sq, Skv): Skv not a multiple of 128 (and under
+# one tile), Sq not a multiple of block_q, one key, one q row
+V2_SHAPES = [(2, 4, 1000, 333), (2, 4, 333, 1000), (1, 2, 130, 1), (2, 2, 1, 385), (1, 2, 257, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,sq,skv", V2_SHAPES)
+def test_probe_attention_v2_shapes_on_card(cuda_device, b, h, sq, skv):
+    """T2 at every built tile (`SWEEP_CONFIGS`) in both bias modes on each of
+    `V2_SHAPES`, held to its plain version at the tile's block_kv within
+    REL_L2_BOUND and MAX_ABS_REL: with a random key bias, and with -1e9 on
+    every key before the last tile (sample 0) that "last" must ignore and
+    "full" must apply; each call counted once."""
+    from tokensgen_tpu_torch.kernels import probes as P
+
+    gen = torch.Generator(cuda_device).manual_seed(sq * 11 + skv)
+    q = torch.randn(b, h, sq, D, generator=gen, device=cuda_device).bfloat16()
+    k, v = (torch.randn(b, h, skv, D, generator=gen, device=cuda_device).bfloat16()
+            for _ in range(2))
+    random_bias = torch.randn(b, skv, generator=gen, device=cuda_device)
+    masked = random_bias.clone()
+    masked[0, :(skv - 1) // 128 * 128] = -1e9
+    for bias in (random_bias, masked):
+        for mode in P.BIAS_MODES:
+            for bq, bkv, hb in P.SWEEP_CONFIGS:
+                before = P.attention_v2.launches
+                out = P.attention_v2(q, k, v, bias, bq, bkv, mode, hb)
+                torch.cuda.synchronize()
+                assert P.attention_v2.launches == before + 1
+                _assert_within_bounds(out, P.attention_v2_plain(q, k, v, bias, bkv, mode))
+
+
 @pytest.mark.cuda
 def test_probe_unbuilt_tiles_raise_on_card(cuda_device):
-    """On the card T1 and T4a launch or raise: a tile they were not built
-    for raises ValueError and counts nothing."""
+    """On the card T1, T2, T4a and T4b launch or raise: a tile they were not
+    built for raises ValueError and counts nothing."""
     from tokensgen_tpu_torch.kernels import probes as P
 
     q4 = torch.zeros(1, 2, 128, D, device=cuda_device, dtype=torch.bfloat16)
-    before = P.attention_sweep.launches
+    before = P.attention_sweep.launches, P.attention_v2.launches
     for cfg in ((128, 64, 1), (64, 128, 1), (256, 128, 2), (128, 128, 3)):
         with pytest.raises(ValueError):
             P.attention_sweep(q4, q4, q4, None, *cfg)
-    assert P.attention_sweep.launches == before
+        with pytest.raises(ValueError):
+            P.attention_v2(q4, q4, q4, None, cfg[0], cfg[1], "last", cfg[2])
+    assert (P.attention_sweep.launches, P.attention_v2.launches) == before
     q, k, v, tq, tk, bias, h = _maxfree_inputs(cuda_device, 2, 300, 130)
     before = P.cross_smallkv_pairinner.launches
     for block_q in (128, 256, 640, 4096):
@@ -654,6 +690,11 @@ def test_probe_unbuilt_tiles_raise_on_card(cuda_device):
     with pytest.raises(ValueError):  # more keys than it holds
         P.cross_smallkv_pairinner(q, k600, v600, bias600, tq, tk600, h)
     assert P.cross_smallkv_pairinner.launches == before
+    before = P.cross_smallq_splitkv.launches
+    for split in (64, 128, 640, 1024):
+        with pytest.raises(ValueError):
+            P.cross_smallq_splitkv(q, k600, v600, bias600, tq, tk600, h, split)
+    assert P.cross_smallq_splitkv.launches == before
 
 
 @pytest.mark.cuda
@@ -724,10 +765,12 @@ def test_probe_builds_match_their_host_constants(cuda_device):
     """T7's build (csrc/probe_gemm.cu) has the tile, k tile and raster group
     that `probes.matmul_tiles`, `MATMUL_BK` and `MATMUL_GROUP` assume, and
     its shared memory fits a block; T3a is built at each block_q of
-    `SPLITPV_CONFIGS`, within a block's shared memory; T1 at each tile of
-    `SWEEP_CONFIGS` and T4a at 1 to `RESIDENT_MAX` keys have the threads,
-    tiles and shared memory that `probes.sweep_smem_bytes` and
-    `pairinner_smem_bytes` compute, each block resident on a SM."""
+    `SPLITPV_CONFIGS`, within a block's shared memory; T1 (and T2, which
+    runs T1's builds) at each tile of `SWEEP_CONFIGS`, T4a at 1 to
+    `RESIDENT_MAX` keys and T4b at each split of `SPLITKV_BLOCK_KV` have the
+    threads, tiles and shared memory that `probes.sweep_smem_bytes`,
+    `pairinner_smem_bytes` and `splitkv_smem_bytes` compute, each block
+    resident on a SM (T4b's blocks of one warpgroup, two)."""
     from tokensgen_tpu_torch.kernels import probes as P
 
     g = P.matmul_geometry()
@@ -749,6 +792,12 @@ def test_probe_builds_match_their_host_constants(cuda_device):
         assert r["kv_tiles"] == -(-skv // 128) and r["prologue_pass"] == 1
         assert r["smem_bytes"] == P.pairinner_smem_bytes(skv) <= 232448
         assert r["blocks_per_sm"] >= 1
+    for split in P.SPLITKV_BLOCK_KV:
+        g = P.splitkv_geometry(split)
+        assert g["threads"] == 128 * g["warpgroups"] and g["q_slots"] == P.PAIRINNER_SLOTS
+        assert g["kv_tiles"] == split // 128 and g["reduce"] in (0, 1)
+        assert g["smem_bytes"] == P.splitkv_smem_bytes(split, g["warpgroups"]) <= 232448
+        assert g["blocks_per_sm"] == (2 if g["warpgroups"] == 1 else 1)
 
 
 MAXFREE_TILES = {  # entry point: (the _case shape it takes, its built tiles)
@@ -847,6 +896,34 @@ def test_probe_pairinner_shapes_on_card(cuda_device, skv):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sq", [130, 480])
+def test_probe_splitkv_shapes_on_card(cuda_device, sq):
+    """T4b at every split of `SPLITKV_BLOCK_KV` on 2 samples with per-sample
+    tables, 130 (a chunk of 64 ragged: warpgroup 1's second chunk lies past
+    Sq) and 480 (7.5 chunks: the last half of the last chunk past Sq, which
+    the accumulator's maps clip) q rows against 1,100 keys (every split
+    size leaves a ragged last split), a -1e9 mask over the whole second split
+    of sample 1 (its partials add nothing) beside the first third of its
+    keys; called twice (the reduce-add's order varies between calls), both
+    within REL_L2_BOUND and MAX_ABS_REL of the plain version; each call
+    counted once."""
+    from tokensgen_tpu_torch.kernels import probes as P
+
+    q, k, v, tq, tk, bias, h = _maxfree_inputs(cuda_device, 4, sq, 1100, seed=sq)
+    for split in P.SPLITKV_BLOCK_KV:
+        masked = bias.clone()
+        masked[1, split:2 * split] = -1e9
+        shift = P.score_shift(tq, tk, masked)
+        ref = P.attention_maxfree_plain(q, k, v, masked, tq, tk, h, shift)
+        for _ in range(2):
+            before = P.cross_smallq_splitkv.launches
+            out = P.cross_smallq_splitkv(q, k, v, masked, tq, tk, h, split, shift=shift)
+            torch.cuda.synchronize()
+            assert P.cross_smallq_splitkv.launches == before + 1
+            _assert_within_bounds(out, ref)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", ["fused_attention_cross_smallkv", "fused_attention_cross_smallq"])
 def test_probe_pair2_cross_shapes_on_card(cuda_device, shape):
     """T3b at `_case`'s two cross shapes (2,200 q rows x 130 keys, 130 x
@@ -865,9 +942,10 @@ def test_probe_pair2_cross_shapes_on_card(cuda_device, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["attention_splitpv", "attention_pair2", "cross_smallkv_pairloop",
-                                  "cross_smallkv_pairinner"])
+                                  "cross_smallkv_pairinner", "cross_smallq_splitkv"])
 def test_probe_maxfree_subnormal_p_on_card(cuda_device, name):
-    """T3a and T3b (joint 300 x 517), T5 and T4a (300 x 130) with an explicit shift that
+    """T3a and T3b (joint 300 x 517), T5 and T4a (300 x 130), T4b (300 x
+    1,100: three splits at its default) with an explicit shift that
     puts every p of every row (its unmasked keys) between 2^-149 and
     2^-126, f32's subnormals: q's tables scaled by 1/8 narrow the scores,
     the shift takes the largest to -127. Held to the plain version (which
@@ -876,7 +954,7 @@ def test_probe_maxfree_subnormal_p_on_card(cuda_device, name):
     from tokensgen_tpu_torch.kernels import attention as A
     from tokensgen_tpu_torch.kernels import probes as P
 
-    skv = 130 if name.startswith("cross_") else 517
+    skv = {"cross_smallq_splitkv": 1100}.get(name, 130 if name.startswith("cross_") else 517)
     q, k, v, tq, tk, bias, h = _maxfree_inputs(cuda_device, 4, 300, skv, seed=8)
     tq = tuple(x / 8 for x in tq[:3]) + (tq[3],)
     qn = A._prologue32(A.split_heads(q, h), tuple(x * A._LOG2E for x in tq[:3]) + (tq[3],),

@@ -175,6 +175,31 @@ def test_attention_v2_plain_matches_pallas_probe(bias_mode):
                                    atol=1e-5)
 
 
+def test_attention_v2_last_plain_matches_run_v2_at_block_kv_128(monkeypatch):
+    """T2 "last" at the card's block_kv of 128 (T1's tiles): the plain version
+    against the JAX script's own wrapper `run_v2` (tools/bench_attn_v2.py)
+    at block_q 32, block_kv 128, hblk 2, its pallas_call in interpret mode
+    (monkeypatched), over 300 keys (the last tile of 128 ragged: 44 keys)
+    with a random key bias. The script's "last" branch does not trace on the
+    CPU (its `pl.when` writes the scores into a list the enclosing trace
+    reads, which pallas_call refuses as captured constants), so `run_v2`
+    runs "full" on the bias that "last" leaves: the random bias on the last
+    tile, zero on the earlier ones (the padded keys -1e9 either way). "last"
+    must differ from "full" there. f32 with exact softmax: 1e-4 / 1e-5, as
+    K4's test."""
+    mod = _tool("bench_attn_v2")
+    call = mod.pl.pallas_call
+    monkeypatch.setattr(mod.pl, "pallas_call", lambda *a, **kw: call(*a, interpret=True, **kw))
+    q, k, v, bias = _attention_inputs(6, sq=100, skv=300)
+    last = bias.copy()
+    last[:, :(k.shape[2] - 1) // 128 * 128] = 0.0
+    want = mod.run_v2(*(jnp.asarray(x) for x in (q, k, v, last)), 32, 128, 2, "full")
+    got = P.attention_v2(t(q), t(k), t(v), t(bias), 128, 128, "last", 2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+    full = P.attention_v2(t(q), t(k), t(v), t(bias), 128, 128, "full", 2)
+    assert (full - got).abs().max().item() > 1e-2  # the earlier tiles' bias is left out
+
+
 def test_attention_sweep_plain_matches_k4_body_at_ragged_kv():
     """T1: K4's `_flash_kernel` at explicit blocks, as tools/bench_attn_sweep.py
     `_tpu` calls it (block_q 32, block_kv 64, hblk 2), over 200 keys (the

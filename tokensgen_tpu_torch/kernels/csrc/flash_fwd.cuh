@@ -1,12 +1,10 @@
-// The mma.sync flash-attention forward pieces shared by the attention kernels
-// (attention.cu: K7's tiles, K5's loads at head dims 16, 32 and 128; the
-// argument block, the prologue tables and the accumulator that the
-// TMA / wgmma bodies of K1-K4 and K6 also use) and the whole body of the K4-family probes (probes.cu:
-// T1, T2): bf16 operands, mma.sync m16n8k16 tensor-core tiles, f32 online
-// softmax in the log2 domain, optional fused qk-norm + RoPE prologue.
-// Templated on the head dim HD (16, 32, 64, 128), the q rows per block BM_
-// (16 per warp), the kv tile BN_ and where the key bias and the ragged mask
-// apply (every kv tile, or only the last). The probes sweep the latter.
+// The mma.sync flash-attention pieces shared by the attention kernels
+// (attention.cu: K5's loads and tiles at head dims 16, 32 and 128) and the
+// argument block, the prologue tables, the accumulator and the output store
+// that the TMA / wgmma bodies of K1-K4, K6 and the probes also use: bf16
+// operands, mma.sync m16n8k16 tensor-core tiles, f32 softmax in the log2
+// domain, the fused qk-norm + RoPE prologue on load. Templated on the head
+// dim HD (16, 32, 64, 128).
 //
 // The lse the forward kernels may write is in the NATURAL log base (lse = ln
 // sum_j exp(s_j), s the natural-domain scores scale*q.k + bias), as the TPU
@@ -27,12 +25,8 @@ constexpr int BN = 64;              // kv rows per tile
 constexpr int NTHREADS = (BM / 16) * 32;
 // smem pitch (bf16) of q/k tiles of head dim hd: conflict-free fragments, 16-byte rows
 __host__ __device__ constexpr int pitch(int hd) { return hd + 8; }
-constexpr int LDV = BN + 8;         // smem pitch of the transposed v tile
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-// where the key bias and the ragged-kv mask apply
-constexpr int MASK_EVERY_TILE = 0;  // every kv tile (K1-K7; T1; T2 "full")
-constexpr int MASK_LAST_TILE = 1;   // only the last kv tile (T2 "last")
 
 }  // namespace
 
@@ -226,112 +220,6 @@ __device__ __forceinline__ void init_acc(AccT<HD>& acc) {
   acc.l[0] = acc.l[1] = 0.f;
 }
 
-// The softmax half of one kv tile of BN_ keys for this warp's 16 rows, from
-// their log2-domain scores ``s`` (mma accumulator layout): key bias and the
-// ragged-tile mask (on every tile, or with MASK_LAST_TILE only on the tile
-// that holds the last key), online max, p = exp2(s - m), acc = alpha*acc +
-// bf16(p) @ v. ``Vt``: the tile's HD transposed v columns (pitch ldv).
-template <int HD, int BN_ = BN, int MASK = MASK_EVERY_TILE>
-__device__ __forceinline__ void softmax_pv(float (&s)[BN_ / 8][4], const __nv_bfloat16* Vt,
-                                           int ldv, int kv0, int skv, const float* bias,
-                                           AccT<HD>& acc) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bool mask_tile = MASK == MASK_EVERY_TILE || kv0 + BN_ >= skv;
-  float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-  for (int nt = 0; nt < BN_ / 8; ++nt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int j = kv0 + nt * 8 + t * 2 + (i & 1);
-      float v = s[nt][i];
-      if (mask_tile) {
-        if (j >= skv) {
-          v = -INFINITY;
-        } else if (bias != nullptr) {
-          v += bias[j] * LOG2E;
-        }
-      }
-      s[nt][i] = v;
-      if (i < 2) mx0 = fmaxf(mx0, v); else mx1 = fmaxf(mx1, v);
-    }
-  }
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-  const float m0 = fmaxf(acc.m[0], mx0), m1 = fmaxf(acc.m[1], mx1);
-  // a row with nothing finite yet keeps a zero shift (no inf - inf)
-  const float base0 = m0 == -INFINITY ? 0.f : m0;
-  const float base1 = m1 == -INFINITY ? 0.f : m1;
-  const float alpha0 = exp2f(acc.m[0] - base0), alpha1 = exp2f(acc.m[1] - base1);
-  acc.m[0] = m0;
-  acc.m[1] = m1;
-  float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-  for (int nt = 0; nt < BN_ / 8; ++nt) {
-    s[nt][0] = exp2f(s[nt][0] - base0);
-    s[nt][1] = exp2f(s[nt][1] - base0);
-    s[nt][2] = exp2f(s[nt][2] - base1);
-    s[nt][3] = exp2f(s[nt][3] - base1);
-    ls0 += s[nt][0] + s[nt][1];
-    ls1 += s[nt][2] + s[nt][3];
-  }
-  acc.l[0] = acc.l[0] * alpha0 + ls0;
-  acc.l[1] = acc.l[1] * alpha1 + ls1;
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-    acc.o[dt][0] *= alpha0;
-    acc.o[dt][1] *= alpha0;
-    acc.o[dt][2] *= alpha1;
-    acc.o[dt][3] *= alpha1;
-  }
-#pragma unroll
-  for (int j = 0; j < BN_ / 16; ++j) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-    pa[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-    pa[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-    pa[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      const __nv_bfloat16* vp = Vt + (dt * 8 + g) * ldv + j * 16 + t * 2;
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(vp);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(vp + 8);
-      mma16816(acc.o[dt], pa, b0, b1);
-    }
-  }
-}
-
-// One kv tile of BN_ keys for this warp's 16 rows: s = q.k^T in the log2
-// domain on bf16 tensor cores, then `softmax_pv`. ``Ks``: tile rows (pitch
-// pitch(HD)).
-template <int HD, int BN_ = BN, int MASK = MASK_EVERY_TILE>
-__device__ __forceinline__ void attend_tile(const uint32_t (&qa)[HD / 16][4],
-                                            const __nv_bfloat16* Ks, const __nv_bfloat16* Vt,
-                                            int ldv, int kv0, int skv, const float* bias,
-                                            AccT<HD>& acc) {
-  constexpr int ld = pitch(HD);
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  float s[BN_ / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < BN_ / 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-    for (int nt = 0; nt < BN_ / 8; ++nt) {
-      const __nv_bfloat16* kp = Ks + (nt * 8 + g) * ld + kk * 16 + t * 2;
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kp);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kp + 8);
-      mma16816(s[nt], qa[kk], b0, b1);
-    }
-  }
-  softmax_pv<HD, BN_, MASK>(s, Vt, ldv, kv0, skv, bias, acc);
-}
-
 // o = acc / l for this warp's 16 rows starting at q row ``q0 + warp*16``
 // (as acc times one reciprocal a row: 64 IEEE divisions a thread made K2's
 // call 0.992 / 1.021 ms against 0.905 / 1.001 on an H100,
@@ -377,62 +265,6 @@ __device__ __forceinline__ Side side_k(const TGAttnArgs& a) {
   return Side{static_cast<const float*>(a.k_cos), static_cast<const float*>(a.k_sin),
               static_cast<const float*>(a.k_add), static_cast<const float*>(a.k_rot), a.k_tb,
               a.norm_k != 0};
-}
-
-// Grid (ceil(Sq / BM_), H / heads per block, B). The block owns BM_ q rows
-// (BM_ / 16 warps) of head ``h`` of batch row blockIdx.z and sweeps every kv
-// tile of BN_ keys. PRO_Q / PRO_K select the fused prologues; HD is the head
-// dim; MASK where the bias and the ragged mask apply. The body is shared;
-// each TPU kernel gets its own __global__, so a trace names them apart.
-//
-// The q tile is dead once its rows sit in registers as A fragments, so the
-// k and v^T tiles take its shared memory: the block holds the larger of the
-// two, not their sum. At HD = 128 that is 35.8 KB of static shared memory
-// (the q tile 34.8 KB, the k and v^T tiles 35.8 KB) where the three side by
-// side would need 70.7 KB, above the 49,152 bytes a static allocation may
-// hold.
-template <int HD, int BM_, int BN_>
-__host__ __device__ constexpr int fwd_smem_elems() {
-  return BM_ * pitch(HD) > BN_ * pitch(HD) + HD * (BN_ + 8) ? BM_ * pitch(HD)
-                                                            : BN_ * pitch(HD) + HD * (BN_ + 8);
-}
-
-template <bool PRO_Q, bool PRO_K, int HD = D, int BM_ = BM, int BN_ = BN,
-          int MASK = MASK_EVERY_TILE>
-__device__ __forceinline__ void flash_fwd_body(const TGAttnArgs& a, int h) {
-  constexpr int ld = pitch(HD);
-  constexpr int NT = (BM_ / 16) * 32;
-  constexpr int ldv = BN_ + 8;
-  __shared__ __align__(16) __nv_bfloat16 smem[fwd_smem_elems<HD, BM_, BN_>()];
-  __nv_bfloat16* Qs = smem;             // [BM_ q rows][ld], until the fragments are loaded
-  __nv_bfloat16* Ks = smem;             // [BN_ kv rows][ld]
-  __nv_bfloat16* Vt = smem + BN_ * ld;  // [HD][ldv]
-  const int q0 = blockIdx.x * BM_, b = blockIdx.z;
-  const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
-  const float eps = static_cast<float>(a.eps);
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + h * a.v_sh;
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh;
-  const float* bias = a.bias ? static_cast<const float*>(a.bias) + (long long)b * skv : nullptr;
-  float* lse = a.lse ? static_cast<float*>(a.lse) + ((long long)b * a.h + h) * sq : nullptr;
-  const Side pq = side_q(a), pk = side_k(a);
-
-  load_rows<PRO_Q, HD, NT>(Qs, ld, q, a.q_ss, q0, BM_, sq, pq, b,
-                           static_cast<float>(a.qscale), eps);
-  __syncthreads();
-  uint32_t qa[HD / 16][4];
-  load_q_frags<HD>(qa, Qs);
-  AccT<HD> acc;
-  init_acc(acc);
-  for (int kv0 = 0; kv0 < skv; kv0 += BN_) {
-    __syncthreads();  // q fragments read (first tile); previous tile consumed by every warp
-    load_rows<PRO_K, HD, NT>(Ks, ld, k, a.k_ss, kv0, BN_, skv, pk, b, 1.f, eps);
-    load_vt<HD, NT>(Vt, ldv, v, a.v_ss, kv0, BN_, skv);
-    __syncthreads();
-    attend_tile<HD, BN_, MASK>(qa, Ks, Vt, ldv, kv0, skv, bias, acc);
-  }
-  store_out(acc, o, a.o_ss, q0, sq, lse);
 }
 
 }  // namespace

@@ -4,7 +4,7 @@
 //   tg_probe_attn_sweep  sweep_kernel<BQ, BN, HB> (probes_hopper.cuh)
 //        <- tools/bench_attn_sweep.py `_tpu` (K4's _flash_kernel at explicit
 //           block_q / block_kv / hblk)                                        T1
-//   tg_probe_attn_v2     attn_v2_kernel<BM, BN, MASK>
+//   tg_probe_attn_v2     sweep_kernel<BQ, BN, HB, LAST> (T1's body; "full" T1's launch)
 //        <- tools/bench_attn_v2.py `_kernel_v2` (key bias on every kv tile,
 //           "full", or only on the last, "last")                              T2
 //   tg_probe_flash_loop  flash_loop_kernel<T>
@@ -21,41 +21,17 @@
 //
 // T7, tg_probe_matmul (<- tools/bench_matmul_pallas.py `_mm_kernel`), is
 // its own source, probe_gemm.cu. Each computes the JAX function, not the
-// TPU's blocking. T1 and T4a (probes_hopper.cuh), T3a, T3b and T5
+// TPU's blocking. T1, T2, T4a and T4b (probes_hopper.cuh), T3a, T3b and T5
 // (probes_maxfree.cuh) and T7 are Hopper bodies (TMA loads on mbarriers,
-// wgmma); T2, T4b, T6 and T8 are simple first versions (synchronous loads,
-// mma.sync), right before fast.
+// wgmma); T6 and T8 are simple first versions (synchronous loads, mma.sync;
+// T8 no products), right before fast.
 
 #include <cfloat>
 
-#include "flash_fwd.cuh"
 #include "probes_hopper.cuh"
 #include "probes_maxfree.cuh"
 
-// ---------------------------------------------------------------------------
-// T2: the K4-family forward (flash_fwd.cuh's mma.sync body, no prologue; the
-// wrapper folds scale * log2 e into qscale) at explicit tiles, BM_ q rows per
-// block (BM_ / 16 warps), BN_ kv rows per tile, the key bias on every kv
-// tile or only on the last. T1, the same function at a tile sweep on this
-// card's axes, is probes_hopper.cuh's TMA / wgmma body.
-// Bound: the two products at the bf16 tensor-core rate.
-// ---------------------------------------------------------------------------
-
 namespace {
-
-template <int BM_, int BN_, int MASK>
-__global__ void __launch_bounds__((BM_ / 16) * 32) attn_v2_kernel(const TGAttnArgs a) {
-  flash_fwd_body<false, false, 64, BM_, BN_, MASK>(a, blockIdx.y);
-}
-
-template <int BM_>
-int launch_attn(void (*kernel)(TGAttnArgs), const TGAttnArgs* a, cudaStream_t s) {
-  if (a->sq <= 0 || a->skv <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((a->sq + BM_ - 1) / BM_), static_cast<unsigned>(a->h),
-                  static_cast<unsigned>(a->b));
-  kernel<<<grid, (BM_ / 16) * 32, 0, s>>>(*a);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---------------------------------------------------------------------------
 // T6: `iters` steps of two chains of the flash inner loop, per the JAX probe:
@@ -400,9 +376,8 @@ __global__ void __launch_bounds__(256) exp2_loop_kernel(const float* x, float* o
 // shifted argument instead (probes_maxfree.cuh); a row whose every score is below
 // about -29 would underflow, as on the TPU.
 //
-// Designs (T4b: a simple first version, synchronous loads and mma.sync
-// m16n8k16; T3a, T3b and T5: probes_maxfree.cuh's TMA / wgmma bodies; T4a:
-// probes_hopper.cuh's):
+// Designs (T3a, T3b and T5: probes_maxfree.cuh's TMA / wgmma bodies; T4a
+// and T4b: probes_hopper.cuh's):
 // * T3a pair_splitpv_kernel<RB> (<- _packed_kernel_splitpv,
 //   probes_maxfree.cuh): the prologue pass once per row (K1's), then a
 //   block owns 64 RB q rows of one head pair, warpgroup w head h0 + w: each
@@ -425,14 +400,14 @@ __global__ void __launch_bounds__(256) exp2_loop_kernel(const float* x, float* o
 //   prologued K' and V whole (TMA, <= 4 tiles of 128 keys) and each
 //   warpgroup runs 64-row chunks of its q' rows against them, by TMA a
 //   chunk ahead; scores wgmma SS, p.v wgmma RS, the output by TMA stores.
-// * T4b resident_body<PRO_K, PARTIAL>: K3's function split over the keys:
-//   K and V of one head over at most RES_MAX keys held whole in shared
-//   memory while q tiles of 128 rows run against them. splitkv_kernel (<-
-//   _smallq_kernel): grid (kv splits, H, B), the split's keys prologued on
-//   load; each block runs every q row and writes f32 partial acc and l to a
-//   workspace, which combine_kernel sums: sum(acc) / max(sum(l), FLT_MIN),
-//   with nothing to rescale since there is no running max (the TPU kernel
-//   carries the same sums across its kv sweep).
+// * T4b splitkv_tma_kernel (<- _smallq_kernel, probes_hopper.cuh): K3's
+//   function split over the keys: the prologue pass once per row for k and
+//   q (K1's), then grid (kv splits, H, B), each block T4a's resident body
+//   on its split's keys (K' / V whole by TMA) against every q' row in
+//   64-row chunks; each chunk's f32 acc and l are added by TMA reduce-add
+//   into one zeroed accumulator, and a last pass writes sum(acc) /
+//   max(sum(l), FLT_MIN): with no running max there is nothing to rescale
+//   (the TPU kernel carries the same sums across its kv sweep).
 // * T5 pairloop_kernel (<- _smallkv_pairloop_kernel, probes_maxfree.cuh):
 //   T4a's function with the head loop in the block: no head axis in the
 //   grid; a block owns a contiguous range of (row block of 128 q rows,
@@ -447,243 +422,6 @@ __global__ void __launch_bounds__(256) exp2_loop_kernel(const float* x, float* o
 // Bound: the two products at the bf16 tensor-core rate.
 // ---------------------------------------------------------------------------
 
-constexpr int LDQ = pitch(64);        // one head's rows in shared memory
-constexpr int RES_MAX = 512;          // T4b: keys held whole
-
-__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-struct MaxFreeAcc {
-  float o[8][4];  // this warp's 16 rows x 64 columns, mma accumulator layout
-  float l[2];     // rows g and g + 8, this thread's share of the row sums
-};
-
-__device__ __forceinline__ void init_maxfree(MaxFreeAcc& acc) {
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc.o[dt][i] = 0.f;
-  acc.l[0] = acc.l[1] = 0.f;
-}
-
-// dst[i] = bias[j] * log2 e - shift for the keys j = kv0 + i, i < n; -inf
-// from kv_end on (p = 0 there). Block-wide.
-__device__ void load_key_shift(float* dst, const float* bias, int kv0, int n, int kv_end,
-                               float shift) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int j = kv0 + i;
-    dst[i] = j < kv_end ? (bias != nullptr ? bias[j] * LOG2E : 0.f) - shift : -INFINITY;
-  }
-}
-
-// s = q . k^T over BN_ keys (rows of ``Ks``, pitch ldk) for this warp's 16 rows.
-template <int BN_>
-__device__ __forceinline__ void score_tile(float (&s)[BN_ / 8][4], const uint32_t (&qa)[4][4],
-                                           const __nv_bfloat16* Ks, int ldk) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < BN_ / 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int nt = 0; nt < BN_ / 8; ++nt) {
-      const __nv_bfloat16* kp = Ks + (nt * 8 + g) * ldk + kk * 16 + t * 2;
-      mma16816(s[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kp),
-               *reinterpret_cast<const uint32_t*>(kp + 8));
-    }
-  }
-}
-
-// The max-free softmax of one tile of BN_ keys and its p@v: p = exp2(min(s +
-// ksh[j], 0)), l += p, acc += bf16(p) @ v. ``ksh``: the tile's shifted key
-// bias (load_key_shift); ``Vt``: its 64 transposed v columns (pitch ldv).
-template <int BN_>
-__device__ __forceinline__ void maxfree_pv(float (&s)[BN_ / 8][4], const float* ksh,
-                                           const __nv_bfloat16* Vt, int ldv, MaxFreeAcc& acc) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < BN_ / 8; ++nt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float p = exp2f(fminf(s[nt][i] + ksh[nt * 8 + t * 2 + (i & 1)], 0.f));
-      s[nt][i] = p;
-      acc.l[i >> 1] += p;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < BN_ / 16; ++j) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-    pa[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-    pa[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-    pa[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      const __nv_bfloat16* vp = Vt + (dt * 8 + g) * ldv + j * 16 + t * 2;
-      mma16816(acc.o[dt], pa, *reinterpret_cast<const uint32_t*>(vp),
-               *reinterpret_cast<const uint32_t*>(vp + 8));
-    }
-  }
-}
-
-// o = acc / max(l, FLT_MIN) for this warp's 16 rows from q row r0w (``o``
-// at (b, head), row stride os); rows past sq are not stored.
-__device__ __forceinline__ void store_maxfree(const MaxFreeAcc& acc, __nv_bfloat16* o,
-                                              long long os, int r0w, int sq) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const float l0 = fmaxf(row_sum<4>(acc.l[0]), FLT_MIN);
-  const float l1 = fmaxf(row_sum<4>(acc.l[1]), FLT_MIN);
-  const int r0 = r0w + g, r1 = r0 + 8;
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    const int c = dt * 8 + t * 2;
-    if (r0 < sq)
-      *reinterpret_cast<__nv_bfloat162*>(o + (long long)r0 * os + c) =
-          __floats2bfloat162_rn(acc.o[dt][0] / l0, acc.o[dt][1] / l0);
-    if (r1 < sq)
-      *reinterpret_cast<__nv_bfloat162*>(o + (long long)r1 * os + c) =
-          __floats2bfloat162_rn(acc.o[dt][2] / l1, acc.o[dt][3] / l1);
-  }
-}
-
-// T4b: this warp's 16 rows of unnormalized acc (f32 [sq][64] at ``acc_ws``)
-// and row sums (f32 [sq] at ``l_ws``).
-__device__ __forceinline__ void store_partial(const MaxFreeAcc& acc, float* acc_ws, float* l_ws,
-                                              int r0w, int sq) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const float l0 = row_sum<4>(acc.l[0]), l1 = row_sum<4>(acc.l[1]);
-  const int r0 = r0w + g, r1 = r0 + 8;
-  if (t == 0) {
-    if (r0 < sq) l_ws[r0] = l0;
-    if (r1 < sq) l_ws[r1] = l1;
-  }
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    const int c = dt * 8 + t * 2;
-    if (r0 < sq)
-      *reinterpret_cast<float2*>(acc_ws + (long long)r0 * 64 + c) =
-          make_float2(acc.o[dt][0], acc.o[dt][1]);
-    if (r1 < sq)
-      *reinterpret_cast<float2*>(acc_ws + (long long)r1 * 64 + c) =
-          make_float2(acc.o[dt][2], acc.o[dt][3]);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ T* head_ptr(const void* base, long long sb, long long sh, int b,
-                                       int h) {
-  return static_cast<T*>(const_cast<void*>(base)) + b * sb + h * sh;
-}
-
-// T4b shared memory for n resident keys: their shifted bias, K
-// ([n_p][LDQ]), transposed V ([64][n_p + 8]) and a q tile ([BM][LDQ]).
-size_t resident_smem_bytes(int n) {
-  const int n_p = round_up(n, BN);
-  return n_p * sizeof(float) +
-         sizeof(__nv_bfloat16) * (size_t)(n_p * LDQ + D * (n_p + 8) + BM * LDQ);
-}
-
-// K and V rows [kvbeg, kvend) of head h (at most RES_MAX) held in shared
-// memory, prologued on load with PRO_K; then every q tile of BM rows from
-// qbeg up to qend against them; the output normalized, or with PARTIAL the
-// unnormalized acc and l into the workspace rows at acc_ws / l_ws.
-template <bool PRO_K, bool PARTIAL>
-__device__ void resident_body(const TGAttnArgs& a, int h, int b, int qbeg, int qend, int kvbeg,
-                              int kvend, float shift, float* acc_ws, float* l_ws) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n_p = round_up(kvend - kvbeg, BN);
-  const int ldv = n_p + 8;
-  float* ksh = reinterpret_cast<float*>(smem_raw);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw + n_p * sizeof(float));
-  __nv_bfloat16* Vt = Ks + n_p * LDQ;
-  __nv_bfloat16* Qs = Vt + D * ldv;
-  const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
-  const float eps = static_cast<float>(a.eps);
-  const int warp = threadIdx.x >> 5;
-  const __nv_bfloat16* q = head_ptr<const __nv_bfloat16>(a.q, a.q_sb, a.q_sh, b, h);
-  const __nv_bfloat16* k = head_ptr<const __nv_bfloat16>(a.k, a.k_sb, a.k_sh, b, h);
-  const __nv_bfloat16* v = head_ptr<const __nv_bfloat16>(a.v, a.v_sb, a.v_sh, b, h);
-  __nv_bfloat16* o = head_ptr<__nv_bfloat16>(a.o, a.o_sb, a.o_sh, b, h);
-  const float* bias = a.bias ? static_cast<const float*>(a.bias) + (long long)b * skv : nullptr;
-  const Side pq = side_q(a), pk = side_k(a);
-
-  load_rows<PRO_K>(Ks, LDQ, k, a.k_ss, kvbeg, n_p, kvend, pk, b, 1.f, eps);
-  load_vt(Vt, ldv, v, a.v_ss, kvbeg, n_p, kvend);
-  load_key_shift(ksh, bias, kvbeg, n_p, kvend, shift);
-  for (int q0 = qbeg; q0 < qend; q0 += BM) {
-    __syncthreads();  // K / V resident (first tile); Qs free (later tiles)
-    load_rows<true>(Qs, LDQ, q, a.q_ss, q0, BM, sq, pq, b, static_cast<float>(a.qscale), eps);
-    __syncthreads();
-    uint32_t qa[4][4];
-    load_q_frags(qa, Qs);
-    MaxFreeAcc acc;
-    init_maxfree(acc);
-    for (int t0 = 0; t0 < n_p; t0 += BN) {
-      float s[BN / 8][4];
-      score_tile<BN>(s, qa, Ks + t0 * LDQ, LDQ);
-      maxfree_pv<BN>(s, ksh + t0, Vt + t0, ldv, acc);
-    }
-    if (PARTIAL)
-      store_partial(acc, acc_ws, l_ws, q0 + warp * 16, sq);
-    else
-      store_maxfree(acc, o, a.o_ss, q0 + warp * 16, sq);
-  }
-}
-
-// T4b workspace (f32): acc [B][H][splits][Sq][64], then l [B][H][splits][Sq].
-__device__ __forceinline__ long long split_part(const TGAttnArgs& a, int b, int h, int s,
-                                                int splits) {
-  return ((long long)b * a.h + h) * splits + s;
-}
-
-// T4b, pass 1. Grid (splits, H, B).
-__global__ void __launch_bounds__(NTHREADS) splitkv_kernel(const TGAttnArgs a, int split,
-                                                           float shift, float* ws) {
-  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z, splits = gridDim.x;
-  const long long part = split_part(a, b, h, s, splits);
-  float* acc_ws = ws + part * a.sq * 64;
-  float* l_ws = ws + a.b * a.h * splits * a.sq * 64 + part * a.sq;
-  const int kvbeg = s * split;
-  resident_body<true, true>(a, h, b, 0, static_cast<int>(a.sq), kvbeg,
-                            min(static_cast<int>(a.skv), kvbeg + split), shift, acc_ws, l_ws);
-}
-
-// T4b, pass 2: o = sum acc / max(sum l, FLT_MIN) over the splits. Grid
-// (ceil(Sq / 32), H, B), 8 threads per row, 8 columns each.
-__global__ void __launch_bounds__(256) combine_kernel(const TGAttnArgs a, int splits,
-                                                      const float* ws) {
-  const int row = blockIdx.x * 32 + threadIdx.x / 8, c0 = (threadIdx.x % 8) * 8;
-  const int h = blockIdx.y, b = blockIdx.z;
-  if (row >= a.sq) return;
-  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float l = 0.f;
-  const float* l_ws = ws + a.b * a.h * splits * a.sq * 64;
-  for (int s = 0; s < splits; ++s) {
-    const long long part = split_part(a, b, h, s, splits);
-    const float4* p = reinterpret_cast<const float4*>(ws + (part * a.sq + row) * 64 + c0);
-    const float4 x0 = p[0], x1 = p[1];
-    acc[0] += x0.x; acc[1] += x0.y; acc[2] += x0.z; acc[3] += x0.w;
-    acc[4] += x1.x; acc[5] += x1.y; acc[6] += x1.z; acc[7] += x1.w;
-    l += l_ws[part * a.sq + row];
-  }
-  l = fmaxf(l, FLT_MIN);
-  uint4 out;
-  out.x = pack_bf16(acc[0] / l, acc[1] / l);
-  out.y = pack_bf16(acc[2] / l, acc[3] / l);
-  out.z = pack_bf16(acc[4] / l, acc[5] / l);
-  out.w = pack_bf16(acc[6] / l, acc[7] / l);
-  *reinterpret_cast<uint4*>(head_ptr<__nv_bfloat16>(a.o, a.o_sb, a.o_sh, b, h) +
-                            (long long)row * a.o_ss + c0) = out;
-}
-
-// the dynamic shared memory of a resident_body kernel for n keys
-template <typename Kernel>
-int allow_resident(Kernel kernel, int n, size_t* smem) {
-  *smem = resident_smem_bytes(n);
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(*smem)));
-}
 }  // namespace
 
 extern "C" {
@@ -702,7 +440,7 @@ int tg_probe_attn_sweep(const TGAttnArgs* a, long long bm, long long bn, long lo
                         void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TG_SWEEP(BQ, BN_, HB) \
-  if (bm == BQ && bn == BN_ && hb == HB) return launch_sweep<BQ, BN_, HB>(a, s);
+  if (bm == BQ && bn == BN_ && hb == HB) return launch_sweep<BQ, BN_, HB, false>(a, s);
   TG_SWEEP_CONFIGS(TG_SWEEP)
 #undef TG_SWEEP
   return static_cast<int>(cudaErrorInvalidValue);
@@ -717,17 +455,18 @@ int tg_probe_sweep_geometry(long long bm, long long bn, long long hb, long long*
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// T2: (block_q, block_kv) in {(64, 64), (128, 64), (64, 128)}; mask 0 = bias
-// on every kv tile ("full"), 1 = only on the last ("last").
-int tg_probe_attn_v2(const TGAttnArgs* a, long long bm, long long bn, long long mask,
+// T2 at (bm, bn, hb), one of TG_SWEEP_CONFIGS: mode 0 = key bias on every
+// kv tile ("full": T1's launch itself), 1 = only on the last ("last": T1's
+// body with its LAST flag).
+int tg_probe_attn_v2(const TGAttnArgs* a, long long bm, long long bn, long long hb, long long mode,
                      void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TG_V2(BM_, BN_, MASK)                                                   \
-  if (bm == BM_ && bn == BN_ && mask == MASK)                                   \
-    return launch_attn<BM_>(attn_v2_kernel<BM_, BN_, MASK>, a, s);
-  TG_V2(64, 64, 0) TG_V2(128, 64, 0) TG_V2(64, 128, 0)
-  TG_V2(64, 64, 1) TG_V2(128, 64, 1) TG_V2(64, 128, 1)
-#undef TG_V2
+  if (mode != 0 && mode != 1) return static_cast<int>(cudaErrorInvalidValue);
+#define TG_SWEEP(BQ, BN_, HB)                                                       \
+  if (bm == BQ && bn == BN_ && hb == HB)                                            \
+    return mode == 1 ? launch_sweep<BQ, BN_, HB, true>(a, s) : launch_sweep<BQ, BN_, HB, false>(a, s);
+  TG_SWEEP_CONFIGS(TG_SWEEP)
+#undef TG_SWEEP
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -763,8 +502,8 @@ int tg_probe_exp2_loop(const float* x, float* o, long long n, long long n_iter, 
 }
 
 // T3a-T5 share one signature: (args, tile parameters p0 and p1, the score
-// shift C, the workspace (T3b: the bf16 prologue rows; T4b: f32 partials;
-// else null), stream).
+// shift C, the workspace (T3a, T3b: the bf16 prologue rows; T4a: q'; T4b:
+// the prologue rows and the f32 accumulator; else null), stream).
 
 // T3a: (block_q, block_kv) in {(128, 128), (64, 128)}; H even; ws: the
 // prologued k and q rows, bf16 B * (Skv + Sq) * H * 64.
@@ -819,27 +558,17 @@ int tg_probe_cross_pairloop(const TGAttnArgs* a, long long per_block, long long 
   return launch_pairloop(a, per_block, shift, static_cast<cudaStream_t>(stream));
 }
 
-// T4b: keys per split a multiple of 64, at most 512; ws holds
-// B * H * ceil(Skv / split) * Sq * 65 floats.
+// T4b: keys per split a multiple of 128, at most 512; ws holds the bf16
+// prologue rows, then the f32 accumulator (probes.splitkv_ws_bytes).
 int tg_probe_cross_splitkv(const TGAttnArgs* a, long long split, long long unused, float shift,
                            float* ws, void* stream) {
   (void)unused;
-  if (a->sq <= 0 || a->skv <= 0 || split <= 0 || split > RES_MAX || split % BN || ws == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  size_t smem;
-  const int err = allow_resident(splitkv_kernel, static_cast<int>(split), &smem);
-  if (err != 0) return err;
-  const int splits = static_cast<int>((a->skv + split - 1) / split);
-  const dim3 grid1(static_cast<unsigned>(splits), static_cast<unsigned>(a->h),
-                   static_cast<unsigned>(a->b));
-  splitkv_kernel<<<grid1, NTHREADS, smem, s>>>(*a, static_cast<int>(split), shift, ws);
-  const cudaError_t launched = cudaGetLastError();
-  if (launched != cudaSuccess) return static_cast<int>(launched);
-  const dim3 grid(static_cast<unsigned>((a->sq + 31) / 32), static_cast<unsigned>(a->h),
-                  static_cast<unsigned>(a->b));
-  combine_kernel<<<grid, 256, 0, s>>>(*a, splits, ws);
-  return static_cast<int>(cudaGetLastError());
+  return launch_splitkv(a, split, shift, ws, static_cast<cudaStream_t>(stream));
+}
+
+// T4b's build at ``split`` keys a split (splitkv_geometry's seven values).
+int tg_probe_splitkv_geometry(long long split, long long* out) {
+  return splitkv_geometry(split, out);
 }
 
 }  // extern "C"

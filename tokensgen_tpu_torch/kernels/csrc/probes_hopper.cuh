@@ -1,7 +1,10 @@
-// The Hopper bodies of two probes of probes.cu: T1 (tg_probe_attn_sweep,
-// K4's flash attention at a tile sweep) and T4a (tg_probe_cross_pairinner,
-// the head-fastest resident small-kv cross attention). Both load their tiles
-// by TMA onto mbarriers and multiply by wgmma, on the pieces that
+// The Hopper bodies of four probes of probes.cu: T1 (tg_probe_attn_sweep,
+// K4's flash attention at a tile sweep) and T2 (tg_probe_attn_v2, the same
+// with the key bias on the last kv tile only), T4a
+// (tg_probe_cross_pairinner, the head-fastest resident small-kv cross
+// attention) and T4b (tg_probe_cross_splitkv, the split-kv small-q cross
+// attention). They load their tiles by TMA onto mbarriers and multiply by
+// wgmma, on the pieces that
 // probes_maxfree.cuh's bodies share (tma_ring.cuh's slot ring,
 // flash_prologue.cuh's tensor maps, flash_splitkv.cuh's and flash_ws.cuh's
 // wgmma helpers). Only probes.cu includes this header.
@@ -49,8 +52,24 @@
 // q is staged raw, so the softmax scale is not rounded into bf16 q: it
 // joins the FFMA that subtracts the running max, p = 2^(s sc - m sc), with
 // the max taken on the raw scores; with a key bias the scores become x =
-// s d^-1/2 + bias in one FFMA and p = 2^(x log2 e - m log2 e). Keys past
-// Skv score -inf (TMA reads them as zeros); rows past Sq are not stored.
+// s + bias d^1/2 in one FFMA, the max and p taken on x alike, so that
+// tiles with and without biases share one running max. Keys past Skv score
+// -inf (TMA reads them as zeros); rows past Sq are not stored.
+//
+// T2 (<- tools/bench_attn_v2.py `_kernel_v2`) is T1's function with the key
+// bias on every kv tile ("full": T1's launch itself) or only on the last
+// ("last", where the JAX probe keeps its padding mask). "last" is T1's body
+// at the same tiles with the template flag LAST: every tile but the last
+// takes T1's bias-free path (the max on the raw scores, no bias box in the
+// slot, no bias FFMA); the last tile, which also holds the ragged mask,
+// stages its biases by the 1-D map (its box from the same 16-byte
+// boundary), its slot's mbarrier alone expecting their bytes, and adds
+// them in raw-score units (x = s + bias d^1/2) so that its max joins the
+// bias-free tiles'. A runtime per-tile predicate in T1's own instantiations
+// instead ran "last" as fast but T1 ("full") 6% slower (12.07-12.24 ms
+// against 11.32-11.52 at (128, 128, 2) on an H100 80GB HBM3 at 700 W,
+// tools/kernel_ablations.py), so T1's instantiations keep their code and
+// "last" has its own three.
 // Bound: the two products at the bf16 tensor-core rate, the exponentials at
 // the MUFU's. tools/kernel_ablations.py times the loader, the refill point
 // and the fold against their removal (SW_PRODUCER, SW_FOLD below).
@@ -83,6 +102,32 @@
 // grid) into registers (prologue_q_global): 7-10% slower at the script's
 // shape than the pass, which reads each table row once for all 48 heads.
 // Bound: the two products at the bf16 tensor-core rate.
+//
+// T4b, splitkv_tma_kernel<WG> (<- tools/bench_cross_r3.py `_smallq_kernel`):
+// K3's function max-free, short q against a long kv, both prologues in the
+// call. T4a's problem with the roles swapped: K1's prologue pass writes k'
+// and q' once per row into a bf16 workspace, then grid (kv splits, H, B): a
+// block holds its split's K' and V whole (split 256 / 384 / 512 keys: 2-4
+// tiles, keys past Skv masked) and runs every q' row against them through
+// T4a's resident body (resident_body<WG, true>). Only the output differs:
+// each 64-row chunk's f32 acc and row sums are staged (the acc in the
+// 128-byte swizzle, two boxes of 32 columns) and added by TMA reduce-add
+// (cp.reduce.async.bulk.tensor .add.f32) into one accumulator [B * H][Sq]
+// x (64 + 1) that the launcher zeroes; its maps have an Sq dimension of
+// their own, so that a chunk past Sq (480 rows: 7.5 chunks) is clipped
+// rather than added into the next head's rows. With no running max the
+// splits' partials simply add; a last pass writes o = acc / max(l,
+// FLT_MIN) in bf16. The parent wrote B * H * splits * Sq * 65 f32 partials
+// (215.7 MB at split 512) and read them back; the reduce-add's order varies
+// from call to call, and so may the last bits (as K5's dq). SK_REDUCE (the
+// ablation) stores each split's partials apart and sums them in the last
+// pass. SK_TWO_BLOCKS runs split 256, the default, as blocks of one
+// warpgroup (8 chunks in turn), two resident a SM, so that one block's
+// K' / V load runs under the other's products (at two warpgroups a block
+// their registers, 162 a thread, allow one); 384 and 512 take two
+// warpgroups, one block a SM.
+// Bound: the two products at the bf16 tensor-core rate, the exponentials at
+// the MUFU's.
 
 #pragma once
 
@@ -171,6 +216,7 @@ constexpr bool SW_FOLD = true;
 // warpgroup does (384 threads, setmaxnreg)
 constexpr bool SW_PRODUCER = false;
 constexpr int SW_LOADER = 128;  // warpgroup 1's first thread
+constexpr double LOG2E_D = 1.4426950408889634;
 
 template <int BQ, int BN, int HB>
 struct SweepGeom {
@@ -247,13 +293,15 @@ __device__ __forceinline__ void sweep_bias(float (&bv)[BN / 4], const float* bia
 // rows' sums in ``ls``; returns the factors by which the earlier acc and l
 // shrink. ``sc`` = d^-1/2 log2 e. Without a key bias the max is taken on
 // the raw scores and p = 2^(s sc - m sc), one FFMA a score; with one, x =
-// s d^-1/2 + bias (one FFMA) and p = 2^(x log2 e - m log2 e). ``bias``:
-// with a key bias true, ``bv`` this thread's biases (sweep_bias). Keys from
-// kvend on score -inf.
-template <int BN>
+// s d^-1/2 + bias (one FFMA) and p = 2^(x log2 e - m log2 e), or with RAW
+// (T2's "last", whose tiles with and without biases share one running max)
+// x = s + bias d^1/2 (``rb`` = d^1/2; one FFMA) and p = 2^(x sc - m sc).
+// ``bias``: the tile takes its key biases, ``bv`` this thread's
+// (sweep_bias). Keys from kvend on score -inf.
+template <int BN, bool RAW>
 __device__ __forceinline__ float2 sweep_softmax(float (&s)[BN / 8][4], int kv0, int kvend,
                                                 bool bias, const float (&bv)[BN / 4], float sc,
-                                                float (&m)[2], float (&ls)[2]) {
+                                                float rb, float (&m)[2], float (&ls)[2]) {
   const int t = threadIdx.x & 3;
   const bool ragged = kv0 + BN > kvend;
   float e;  // the scale of the FFMA that subtracts the max
@@ -264,17 +312,24 @@ __device__ __forceinline__ float2 sweep_softmax(float (&s)[BN / 8][4], int kv0, 
       for (int nt = 0; nt < BN / 8; ++nt) {
         const int j = nt * 8 + t * 2;
         const float b0 = bv[2 * nt], b1 = bv[2 * nt + 1];
-        s[nt][0] = fmaf(s[nt][0], r, b0);
-        s[nt][1] = fmaf(s[nt][1], r, b1);
-        s[nt][2] = fmaf(s[nt][2], r, b0);
-        s[nt][3] = fmaf(s[nt][3], r, b1);
+        if constexpr (RAW) {
+          s[nt][0] = fmaf(b0, rb, s[nt][0]);
+          s[nt][1] = fmaf(b1, rb, s[nt][1]);
+          s[nt][2] = fmaf(b0, rb, s[nt][2]);
+          s[nt][3] = fmaf(b1, rb, s[nt][3]);
+        } else {
+          s[nt][0] = fmaf(s[nt][0], r, b0);
+          s[nt][1] = fmaf(s[nt][1], r, b1);
+          s[nt][2] = fmaf(s[nt][2], r, b0);
+          s[nt][3] = fmaf(s[nt][3], r, b1);
+        }
         if (ragged) {
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             if (kv0 + j + (i & 1) >= kvend) s[nt][i] = -INFINITY;
         }
       }
-      e = LOG2E;
+      e = RAW ? sc : LOG2E;
     } else {
       if (ragged) {
 #pragma unroll
@@ -331,13 +386,14 @@ __device__ __forceinline__ float2 sweep_softmax(float (&s)[BN / 8][4], int kv0, 
 
 // Grid (ceil(Sq / BQ), H / HB, B). qmap: raw q (boxes of BQ rows); kmap,
 // vmap: BN rows; bmap: the flat key bias (boxes of BN), read only with a
-// bias. Warpgroup w's chain c: head h0 + c / RB, rows 128 (c % RB) + 64 w
-// of the block's BQ.
-template <int BQ, int BN, int HB>
+// bias: on every kv tile (T1), or with LAST (T2's "last") on the last tile
+// only. rb = d^1/2 (sweep_softmax's RAW). Warpgroup w's chain c: head h0 +
+// c / RB, rows 128 (c % RB) + 64 w of the block's BQ.
+template <int BQ, int BN, int HB, bool LAST>
 __global__ void __launch_bounds__(SweepGeom<BQ, BN, HB>::NT, 1) sweep_kernel(
     const TGAttnArgs a, const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
-    const __grid_constant__ CUtensorMap bmap) {
+    const __grid_constant__ CUtensorMap bmap, float rb) {
   using G = SweepGeom<BQ, BN, HB>;
   constexpr int C = G::CHAINS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -350,21 +406,23 @@ __global__ void __launch_bounds__(SweepGeom<BQ, BN, HB>::NT, 1) sweep_kernel(
   const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
   const int nt = (skv + BN - 1) / BN;
   const bool biased = a.bias != nullptr;
+  // kv tile n takes its key biases (every tile, or with LAST the last one)
+  auto tile_biased = [&](int n) { return biased && (!LAST || n == nt - 1); };
   constexpr int BSTRIDE = G::BIAS / 4;  // floats between two slots' key biases
   const int bias0 = b * skv % 4;  // the row's first bias in a box that starts 16-byte aligned
   // step n: kv tile n, the K and V tiles of the block's HB heads
   StepRing<G::SLOTS> ring{full, full + G::SLOTS, 0, nt};
   auto load = [&](int n, int slot) {
     unsigned char* dst = slots + slot * G::SLOT;
-    mbar_expect_tx(ring.full + slot, G::SLOT + (biased ? G::BIASN * 4 : 0));
+    const bool nb = tile_biased(n);  // the bias box counted only where it is loaded
+    mbar_expect_tx(ring.full + slot, G::SLOT + (nb ? G::BIASN * 4 : 0));
 #pragma unroll
     for (int hh = 0; hh < HB; ++hh) {
       tma_load_4d(dst + hh * 2 * G::KV, &kmap, ring.full + slot, 0, n * BN, h0 + hh, b);
       tma_load_4d(dst + hh * 2 * G::KV + G::KV, &vmap, ring.full + slot, 0, n * BN, h0 + hh, b);
     }
     // keys past Skv read the next row's biases (or zeros): the softmax masks them
-    if (biased)
-      tma_load_1d(kbias + slot * BSTRIDE, &bmap, ring.full + slot, b * skv + n * BN - bias0);
+    if (nb) tma_load_1d(kbias + slot * BSTRIDE, &bmap, ring.full + slot, b * skv + n * BN - bias0);
   };
   if (threadIdx.x == 0) {
     ring.init();
@@ -402,7 +460,7 @@ __global__ void __launch_bounds__(SweepGeom<BQ, BN, HB>::NT, 1) sweep_kernel(
   float bv[BN / 4];         // this thread's key biases of the tile whose scores are in flight
   // the tile's biases into bv, while its scores are in flight
   auto biases = [&](int t) {
-    if (biased) sweep_bias<BN>(bv, kbias + (t % G::SLOTS) * BSTRIDE + bias0);
+    if (tile_biased(t)) sweep_bias<BN>(bv, kbias + (t % G::SLOTS) * BSTRIDE + bias0);
   };
   auto step_wait = [&](int n) {
     if (!SW_PRODUCER && !G::REFILL_AFTER_RELEASE && threadIdx.x == SW_LOADER) ring.fill(n, load);
@@ -416,7 +474,8 @@ __global__ void __launch_bounds__(SweepGeom<BQ, BN, HB>::NT, 1) sweep_kernel(
   // chain c's softmax of tile t (its row sums updated); returns its alpha
   auto softmax = [&](int c, int t) {
     float ls[2];
-    const float2 alpha = sweep_softmax<BN>(s, t * BN, skv, biased, bv, sc, acc[c].m, ls);
+    const float2 alpha =
+        sweep_softmax<BN, LAST>(s, t * BN, skv, tile_biased(t), bv, sc, rb, acc[c].m, ls);
     acc[c].l[0] = acc[c].l[0] * alpha.x + ls[0];
     acc[c].l[1] = acc[c].l[1] * alpha.y + ls[1];
     return alpha;
@@ -531,8 +590,9 @@ cudaError_t bias_map(CUtensorMap* map, const void* bias, long long n, int box) {
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// T1 on [B, H, S, 64] operands by their strides, at (BQ, BN, HB).
-template <int BQ, int BN, int HB>
+// T1 on [B, H, S, 64] operands by their strides, at (BQ, BN, HB); with
+// LAST (T2's "last") the key bias on the last kv tile only.
+template <int BQ, int BN, int HB, bool LAST>
 int launch_sweep(const TGAttnArgs* a, cudaStream_t s) {
   using G = SweepGeom<BQ, BN, HB>;
   if (a->sq <= 0 || a->skv <= 0 || a->h % HB) return static_cast<int>(cudaErrorInvalidValue);
@@ -546,12 +606,13 @@ int launch_sweep(const TGAttnArgs* a, cudaStream_t s) {
   if (err == cudaSuccess && a->bias != nullptr)
     err = bias_map(&bmap, a->bias, a->b * a->skv, G::BIASN);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sweep_kernel<BQ, BN, HB>,
+    err = cudaFuncSetAttribute(sweep_kernel<BQ, BN, HB, LAST>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((a->sq + BQ - 1) / BQ), static_cast<unsigned>(a->h / HB),
                   static_cast<unsigned>(a->b));
-  sweep_kernel<BQ, BN, HB><<<grid, G::NT, G::SMEM, s>>>(*a, qmap, kmap, vmap, bmap);
+  const float rb = static_cast<float>(LOG2E_D / a->qscale);  // d^1/2: qscale is d^-1/2 log2 e
+  sweep_kernel<BQ, BN, HB, LAST><<<grid, G::NT, G::SMEM, s>>>(*a, qmap, kmap, vmap, bmap, rb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -560,19 +621,19 @@ int launch_sweep(const TGAttnArgs* a, cudaStream_t s) {
 template <int BQ, int BN, int HB>
 int sweep_geometry(long long* out) {
   using G = SweepGeom<BQ, BN, HB>;
-  cudaError_t err = cudaFuncSetAttribute(sweep_kernel<BQ, BN, HB>,
+  cudaError_t err = cudaFuncSetAttribute(sweep_kernel<BQ, BN, HB, false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   int blocks = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, sweep_kernel<BQ, BN, HB>, G::NT,
-                                                        G::SMEM);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, sweep_kernel<BQ, BN, HB, false>,
+                                                        G::NT, G::SMEM);
   const long long g[8] = {G::NT, G::SMEM, G::SLOTS, BQ, BN, HB, G::CHAINS, blocks};
   for (int i = 0; i < 8; ++i) out[i] = g[i];
   return static_cast<int>(err);
 }
 
 // ---------------------------------------------------------------------------
-// T4a
+// T4a and T4b
 // ---------------------------------------------------------------------------
 
 constexpr int PI_MAX_KEYS = 4 * MF_BN;  // keys held whole: four K' / V tiles (128 KB)
@@ -581,13 +642,75 @@ constexpr uint32_t PI_BOX = 64 * 128;   // 64 rows of one head (8 KB)
 // true: K1's prologue pass writes q' into a workspace first; false: each
 // chunk of raw q prologued in place from the tables in global memory
 constexpr bool PI_PROLOGUE_PASS = true;
+// T4b: true: the splits' partial sums added by TMA reduce-add into one
+// zeroed accumulator; false: each split's stored apart, then summed by the
+// last pass
+constexpr bool SK_REDUCE = true;
+// T4b: true: at 256 keys a split, blocks of one warpgroup, two resident a
+// SM (one's K' / V load under the other's products; 0.472-0.474 ms at the
+// script's shape against 0.518-0.520 at one block of two warpgroups, and
+// 0.488-0.489 at 512 keys a split, H100 80GB HBM3 at 700 W,
+// tools/kernel_ablations.py); false: two
+// warpgroups a block at every split, one block a SM
+constexpr bool SK_TWO_BLOCKS = true;
 
-// dynamic shared memory for nt resident K' / V tiles: alignment slack, the
-// tiles, each warpgroup's q slots and its output staging box, the tiles'
-// mbarriers and the q slots'
+// a warpgroup's output staging: T4a's bf16 box; T4b's f32 acc (two boxes of
+// 32 columns) and its row sums (a box of 64, padded to the boxes' 1 KB)
+__host__ __device__ constexpr uint32_t resident_stage_bytes(bool partial) {
+  return partial ? 2 * PI_BOX + 1024 : PI_BOX;
+}
+
+// dynamic shared memory of the resident body for nt K' / V tiles and wg
+// warpgroups: alignment slack, the tiles, each warpgroup's q slots and its
+// output staging, the tiles' mbarriers and the q slots'
+__host__ __device__ constexpr int resident_smem_bytes(int nt, int wg, bool partial) {
+  return static_cast<int>(1024 + nt * MF_SLOT + wg * (PI_SLOTS * PI_BOX + resident_stage_bytes(partial))) +
+         8 * (4 + wg * PI_SLOTS);
+}
+
 __host__ __device__ constexpr int pairinner_smem_bytes(int nt) {
-  return static_cast<int>(1024 + nt * MF_SLOT + 2 * (PI_SLOTS + 1) * PI_BOX) +
-         8 * (4 + 2 * PI_SLOTS);
+  return resident_smem_bytes(nt, 2, false);
+}
+
+// T4b's warpgroups a block at ``split`` keys a split
+__host__ __device__ constexpr int splitkv_warpgroups(long long split) {
+  return SK_TWO_BLOCKS && split <= 2 * MF_BN ? 1 : 2;
+}
+
+// one box of shared memory into (REDUCE: added, f32) the tensor of a 3-D
+// ``map`` at (c0, c1, c2), in the issuing thread's bulk async-group
+template <bool REDUCE>
+__device__ __forceinline__ void tma_out_3d(const CUtensorMap* map, const void* src, int c0, int c1,
+                                           int c2) {
+  if constexpr (REDUCE)
+    asm volatile(
+        "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group"
+        " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+        "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+            reinterpret_cast<uint64_t>(map)),
+        "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
+// as tma_out_3d, a 2-D map at (c0, c1)
+template <bool REDUCE>
+__device__ __forceinline__ void tma_out_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
+  if constexpr (REDUCE)
+    asm volatile(
+        "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group"
+        " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+        "r"(smem_addr(src)), "r"(c0), "r"(c1)
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+            reinterpret_cast<uint64_t>(map)),
+        "r"(smem_addr(src)), "r"(c0), "r"(c1)
+        : "memory");
 }
 
 // The prologue of 64 raw q rows of one head in place (the warpgroup's 128
@@ -651,38 +774,50 @@ __device__ __forceinline__ void prologue_q_global(unsigned char* Qw, const float
   }
 }
 
-// Grid (H, ceil(Sq / block_q), B), block_q a multiple of 128. qmap: raw q
-// (or q', PI_PROLOGUE_PASS) in boxes of 64 rows; kmap: k' (prologued by the
-// wrapper), vmap (MF_BN rows); omap: the output (64 rows); c = MF_PK - C.
-__global__ void __launch_bounds__(MF_NT, 1) pairinner_tma_kernel(
-    const TGAttnArgs a, const __grid_constant__ CUtensorMap qmap,
-    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
-    const __grid_constant__ CUtensorMap omap, int block_q, float c) {
+// The resident body that T4a and T4b share: head h of batch row b, the keys
+// [kv0, kv0 + nkeys) (nkeys <= PI_MAX_KEYS) held whole in shared memory
+// (TMA, one mbarrier a 128-key tile; keys past Skv masked), against the q
+// rows [r0, r0 + rows) in chunks of 64, warpgroup w of WG taking chunks w,
+// w + WG, ... . qmap: raw q (or q', PI_PROLOGUE_PASS) or, with PARTIAL,
+// q' (boxes of 64 rows); kmap: k' (MF_BN rows), vmap; c = MF_PK - C.
+// Without PARTIAL (T4a) each chunk's output, normalized, goes out by TMA
+// through ``omap`` (4-D, boxes of 64 rows); with PARTIAL (T4b) its f32 acc
+// by ``omap`` (3-D: 64 columns, Sq rows, accumulator rows; boxes of 32 x 64
+// in the 128-byte swizzle) and its row sums by ``lmap`` (2-D: Sq, accumulator
+// rows; boxes of 64), both into accumulator row ``obh``: added (SK_REDUCE)
+// or stored.
+template <int WG, bool PARTIAL>
+__device__ __forceinline__ void resident_body(const TGAttnArgs& a, const CUtensorMap* qmap,
+                                              const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                              const CUtensorMap* omap, const CUtensorMap* lmap,
+                                              int h, int b, int r0, int rows, int kv0, int nkeys,
+                                              int obh, float c) {
+  constexpr uint32_t STAGE = resident_stage_bytes(PARTIAL);
+  constexpr bool IN_PLACE = !PARTIAL && !PI_PROLOGUE_PASS;  // q's prologue on each chunk
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
-  const int nt = (skv + MF_BN - 1) / MF_BN;
+  const int nt = (nkeys + MF_BN - 1) / MF_BN;
   unsigned char* kv = align1024(smem_raw);  // tile t: K' at t * MF_SLOT, V MF_KV on
   unsigned char* Qs = kv + nt * MF_SLOT;
-  uint64_t* kvbar = reinterpret_cast<uint64_t*>(Qs + 2 * (PI_SLOTS + 1) * PI_BOX);  // [tile]
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(Qs + WG * (PI_SLOTS * PI_BOX + STAGE));  // [tile]
   uint64_t* qfull = kvbar + 4;  // [warpgroup][slot]
-  const int h = blockIdx.x, b = blockIdx.z, r0 = blockIdx.y * block_q;
   const int warp = threadIdx.x >> 5, wg = warp >> 2, wtid = threadIdx.x & 127;
-  // each warpgroup's chunks, wg, wg + 2, ...: as many for both (a chunk
+  // each warpgroup's chunks, wg, wg + WG, ...: as many for each (a chunk
   // count that depends on the warpgroup would put every wgmma on a
-  // divergent path); in the last block, warpgroup 1's last chunk may lie
-  // past Sq (zeros in, nothing stored)
-  const int count = ((min(sq - r0, block_q) + 63) / 64 + 1) / 2;
-  auto chunk_row = [&](int k) { return r0 + (2 * k + wg) * 64; };
-  unsigned char* Qw = Qs + wg * (PI_SLOTS + 1) * PI_BOX;  // this warpgroup's q slots
-  unsigned char* St = Qw + PI_SLOTS * PI_BOX;             // and its output staging box
+  // divergent path); a last chunk may lie past the rows (zeros in,
+  // nothing stored past Sq)
+  const int count = ((rows + 63) / 64 + WG - 1) / WG;
+  auto chunk_row = [&](int k) { return r0 + (WG * k + wg) * 64; };
+  unsigned char* Qw = Qs + wg * (PI_SLOTS * PI_BOX + STAGE);  // this warpgroup's q slots
+  unsigned char* St = Qw + PI_SLOTS * PI_BOX;                 // and its output staging
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int i = 0; i < 4 + 2 * PI_SLOTS; ++i) mbar_init(kvbar + i, 1);
+    for (int i = 0; i < 4 + WG * PI_SLOTS; ++i) mbar_init(kvbar + i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int t = 0; t < nt; ++t) {
       mbar_expect_tx(kvbar + t, MF_SLOT);
-      tma_load_4d(kv + t * MF_SLOT, &kmap, kvbar + t, 0, t * MF_BN, h, b);
-      tma_load_4d(kv + t * MF_SLOT + MF_KV, &vmap, kvbar + t, 0, t * MF_BN, h, b);
+      tma_load_4d(kv + t * MF_SLOT, kmap, kvbar + t, 0, kv0 + t * MF_BN, h, b);
+      tma_load_4d(kv + t * MF_SLOT + MF_KV, vmap, kvbar + t, 0, kv0 + t * MF_BN, h, b);
     }
   }
   __syncthreads();  // the mbarriers' initialization
@@ -690,14 +825,14 @@ __global__ void __launch_bounds__(MF_NT, 1) pairinner_tma_kernel(
   auto load_q = [&](int k) {
     uint64_t* bar = qfull + wg * PI_SLOTS + k % PI_SLOTS;
     mbar_expect_tx(bar, PI_BOX);
-    tma_load_4d(Qw + (k % PI_SLOTS) * PI_BOX, &qmap, bar, 0, chunk_row(k), h, b);
+    tma_load_4d(Qw + (k % PI_SLOTS) * PI_BOX, qmap, bar, 0, chunk_row(k), h, b);
   };
   if (wtid == 0)
     for (int k = 0; k < min(PI_SLOTS, count); ++k) load_q(k);
   float rc[8];  // this thread's rot coefficients (columns 8 (wtid & 7) on of every row)
 #pragma unroll
   for (int e = 0; e < 8; ++e)
-    rc[e] = PI_PROLOGUE_PASS ? 0.f : __ldg(static_cast<const float*>(a.q_rot) + (wtid & 7) * 8 + e);
+    rc[e] = IN_PLACE ? __ldg(static_cast<const float*>(a.q_rot) + (wtid & 7) * 8 + e) : 0.f;
   const long long toff = (long long)b * a.q_tb;
   const float* cosg = static_cast<const float*>(a.q_cos) + toff;
   const float* sinq = static_cast<const float*>(a.q_sin) + toff;
@@ -708,7 +843,7 @@ __global__ void __launch_bounds__(MF_NT, 1) pairinner_tma_kernel(
   auto prologue = [&](int k) {
     unsigned char* Qk = Qw + (k % PI_SLOTS) * PI_BOX;
     mbar_wait(qfull + wg * PI_SLOTS + k % PI_SLOTS, (k / PI_SLOTS) & 1);
-    if constexpr (!PI_PROLOGUE_PASS) {
+    if constexpr (IN_PLACE) {
       prologue_q_global(Qk, cosg, sinq, addq, chunk_row(k), sq, rc, a.norm_q != 0, eps, qscale);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     }
@@ -721,25 +856,49 @@ __global__ void __launch_bounds__(MF_NT, 1) pairinner_tma_kernel(
   zero_tile(s);
   zero_tile(acc);  // defined before the loop's first wgmma (its first p.v overwrites it)
   l[0] = l[1] = 0.f;
-  // chunk k's output: acc / l into the staging box (once its last store has
-  // read it), then by TMA
+  // chunk k's output into the staging (once its last TMA has read it), then
+  // by TMA: T4a acc / l in bf16, T4b acc and l in f32
   auto store = [&](int k) {
     if (wtid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     wg_sync(wg);
     const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-    const float i0 = 1.f / fmaxf(row_sum<4>(l[0]), MF_LMIN);
-    const float i1 = 1.f / fmaxf(row_sum<4>(l[1]), MF_LMIN);
-    unsigned char* row = St + ((warp & 3) * 16 + g) * 128 + t4 * 4;
+    const int r = (warp & 3) * 16 + g;  // this thread's rows r and r + 8 of the chunk's 64
+    if constexpr (PARTIAL) {
+      // column 8 dt + 2 t4 in box dt / 4, its 16-byte chunk swizzled by the row (r & 7 = g)
+      unsigned char* row = St + r * 128 + (t4 & 1) * 8;
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      unsigned char* cell = row + ((dt ^ g) << 4);
-      *reinterpret_cast<uint32_t*>(cell) = pack_bf16(acc[dt][0] * i0, acc[dt][1] * i0);
-      *reinterpret_cast<uint32_t*>(cell + 8 * 128) = pack_bf16(acc[dt][2] * i1, acc[dt][3] * i1);
+      for (int dt = 0; dt < 8; ++dt) {
+        unsigned char* cell = row + (dt >> 2) * PI_BOX + ((((dt & 3) * 2 + (t4 >> 1)) ^ g) << 4);
+        *reinterpret_cast<float2*>(cell) = make_float2(acc[dt][0], acc[dt][1]);
+        *reinterpret_cast<float2*>(cell + 8 * 128) = make_float2(acc[dt][2], acc[dt][3]);
+      }
+      float* Ls = reinterpret_cast<float*>(St + 2 * PI_BOX);
+      const float l0 = row_sum<4>(l[0]), l1 = row_sum<4>(l[1]);
+      if (t4 == 0) {
+        Ls[r] = l0;
+        Ls[r + 8] = l1;
+      }
+    } else {
+      const float i0 = 1.f / fmaxf(row_sum<4>(l[0]), MF_LMIN);
+      const float i1 = 1.f / fmaxf(row_sum<4>(l[1]), MF_LMIN);
+      unsigned char* row = St + r * 128 + t4 * 4;
+#pragma unroll
+      for (int dt = 0; dt < 8; ++dt) {
+        unsigned char* cell = row + ((dt ^ g) << 4);
+        *reinterpret_cast<uint32_t*>(cell) = pack_bf16(acc[dt][0] * i0, acc[dt][1] * i0);
+        *reinterpret_cast<uint32_t*>(cell + 8 * 128) = pack_bf16(acc[dt][2] * i1, acc[dt][3] * i1);
+      }
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     wg_sync(wg);
     if (wtid == 0) {
-      tma_store_4d(&omap, St, 0, chunk_row(k), h, b);
+      if constexpr (PARTIAL) {
+        tma_out_3d<SK_REDUCE>(omap, St, 0, chunk_row(k), obh);
+        tma_out_3d<SK_REDUCE>(omap, St + PI_BOX, 32, chunk_row(k), obh);
+        tma_out_2d<SK_REDUCE>(lmap, St + 2 * PI_BOX, chunk_row(k), obh);
+      } else {
+        tma_store_4d(omap, St, 0, chunk_row(k), h, b);
+      }
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     }
   };
@@ -770,10 +929,11 @@ __global__ void __launch_bounds__(MF_NT, 1) pairinner_tma_kernel(
       wgmma_wait<0>();
     pin_regs(s);
     float ls[2];
-    if (bias != nullptr || (t + 1) * MF_BN > skv)
-      maxfree_tile<true>(s, t * MF_BN, skv, bias, c, ls);
+    const int kt = kv0 + t * MF_BN;
+    if (bias != nullptr || kt + MF_BN > skv)
+      maxfree_tile<true>(s, kt, skv, bias, c, ls);
     else
-      maxfree_tile<false>(s, t * MF_BN, skv, nullptr, c, ls);
+      maxfree_tile<false>(s, kt, skv, nullptr, c, ls);
     if (n > 0) {
       wgmma_wait<0>();
       pin_regs(acc);
@@ -809,6 +969,71 @@ __global__ void __launch_bounds__(MF_NT, 1) pairinner_tma_kernel(
   pin_regs(pa);
   store(count - 1);
   if (wtid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// T4a. Grid (H, ceil(Sq / block_q), B), block_q a multiple of 128. qmap: raw
+// q (or q', PI_PROLOGUE_PASS) in boxes of 64 rows; kmap: k' (prologued by
+// the wrapper), vmap (MF_BN rows); omap: the output (64 rows); c = MF_PK - C.
+__global__ void __launch_bounds__(MF_NT, 1) pairinner_tma_kernel(
+    const TGAttnArgs a, const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap omap, int block_q, float c) {
+  const int r0 = blockIdx.y * block_q;
+  resident_body<2, false>(a, &qmap, &kmap, &vmap, &omap, nullptr, blockIdx.x, blockIdx.z, r0,
+                          min(static_cast<int>(a.sq) - r0, block_q), 0, static_cast<int>(a.skv),
+                          0, c);
+}
+
+// T4b. Grid (splits, H, B): split s holds the keys [s split, (s + 1) split)
+// (split a multiple of MF_BN, at most PI_MAX_KEYS), against every q' row.
+// qmap: q', kmap: k' (both from the prologue pass), vmap; accmap, lmap: the
+// f32 accumulator and row sums ([parts][B * H][Sq] rows: parts 1 with
+// SK_REDUCE, else one a split); c = MF_PK - C.
+template <int WG>
+__global__ void __launch_bounds__(WG * 128, 3 - WG) splitkv_tma_kernel(
+    const TGAttnArgs a, const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap accmap, const __grid_constant__ CUtensorMap lmap,
+    int split, float c) {
+  const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kv0 = sp * split;
+  const int bh = b * static_cast<int>(a.h) + h;
+  const int obh = SK_REDUCE ? bh : bh * static_cast<int>(gridDim.x) + sp;
+  resident_body<WG, true>(a, &qmap, &kmap, &vmap, &accmap, &lmap, h, b, 0,
+                          static_cast<int>(a.sq), kv0, min(split, static_cast<int>(a.skv) - kv0),
+                          obh, c);
+}
+
+// T4b's row sums: rows of Sq padded to a multiple of 4 (a tensor map's row
+// stride is a multiple of 16 bytes)
+__host__ __device__ constexpr long long splitkv_lsum_pitch(long long sq) { return (sq + 3) / 4 * 4; }
+
+// T4b's last pass: o = (sum of the parts' acc) / max(sum of their l,
+// MF_LMIN) in bf16, ``acc`` [B * H * parts][Sq][64], ``lsum`` [B * H *
+// parts][splitkv_lsum_pitch(Sq)]. Grid (ceil(Sq / 32), H, B), 8 threads a
+// row, 8 columns each.
+__global__ void __launch_bounds__(256) splitkv_normalize_kernel(const TGAttnArgs a, int parts,
+                                                                const float* acc,
+                                                                const float* lsum) {
+  const int row = blockIdx.x * 32 + threadIdx.x / 8, c0 = (threadIdx.x % 8) * 8;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (row >= a.sq) return;
+  float o[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float l = 0.f;
+  const long long bh = (long long)b * a.h + h;
+  for (int part = 0; part < parts; ++part) {
+    const long long r = (bh * parts + part) * a.sq + row;
+    const float4* p = reinterpret_cast<const float4*>(acc + r * 64 + c0);
+    const float4 x0 = p[0], x1 = p[1];
+    o[0] += x0.x; o[1] += x0.y; o[2] += x0.z; o[3] += x0.w;
+    o[4] += x1.x; o[5] += x1.y; o[6] += x1.z; o[7] += x1.w;
+    l += lsum[(bh * parts + part) * splitkv_lsum_pitch(a.sq) + row];
+  }
+  l = fmaxf(l, MF_LMIN);
+  const uint4 out = make_uint4(pack_bf16(o[0] / l, o[1] / l), pack_bf16(o[2] / l, o[3] / l),
+                               pack_bf16(o[4] / l, o[5] / l), pack_bf16(o[6] / l, o[7] / l));
+  *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh +
+                            (long long)row * a.o_ss + c0) = out;
 }
 
 // T4a on raw q with its tables and prologued k (``a->k``), ``block_q`` q
@@ -871,6 +1096,119 @@ int pairinner_geometry(long long skv, long long* out) {
   const long long g[6] = {MF_NT, smem, PI_SLOTS, nt, blocks, PI_PROLOGUE_PASS ? 1 : 0};
   for (int i = 0; i < 6; ++i) out[i] = g[i];
   return static_cast<int>(err);
+}
+
+// The 3-D f32 tensor map of T4b's accumulator [rows][Sq][64]: boxes of 32
+// columns x 64 rows in the 128-byte swizzle; or, with ``sums``, the 2-D map
+// of its row sums [rows][Sq] (rows splitkv_lsum_pitch(Sq) apart), boxes of
+// 64. Rows past Sq are clipped.
+cudaError_t acc_map(CUtensorMap* map, void* base, long long sq, long long rows, bool sums) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {sums ? static_cast<cuuint64_t>(sq) : 64,
+                              sums ? static_cast<cuuint64_t>(rows) : static_cast<cuuint64_t>(sq),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[2] = {sums ? static_cast<cuuint64_t>(splitkv_lsum_pitch(sq)) * 4 : 64 * 4,
+                                 static_cast<cuuint64_t>(sq) * 64 * 4};
+  const cuuint32_t box[3] = {sums ? 64u : 32u, sums ? 1u : 64u, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sums ? 2 : 3, base, dims, strides,
+                            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            sums ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// T4b's bytes of the bf16 prologue rows at the head of its workspace
+// (B * (Skv + Sq) * H * 64), rounded up to 256: the accumulator follows
+__host__ __device__ constexpr long long splitkv_pro_bytes(long long b, long long sq, long long skv,
+                                                          long long h) {
+  return (b * (sq + skv) * h * D * 2 + 255) / 256 * 256;
+}
+
+// T4b at ``split`` keys a split: the prologue passes of k and q into the
+// head of ``ws``, then the body at WG warpgroups a block, its f32 partials
+// into the accumulator that follows (zeroed here with SK_REDUCE; [parts][B
+// * H][Sq][64], then the row sums [parts][B * H][splitkv_lsum_pitch(Sq)]),
+// then the last pass.
+template <int WG>
+int launch_splitkv_wg(const TGAttnArgs* a, long long split, float shift, void* ws,
+                      cudaStream_t s) {
+  const long long splits = (a->skv + split - 1) / split;
+  const long long parts = SK_REDUCE ? 1 : splits;
+  const long long rows = a->b * a->h * parts;
+  TGAttnArgs p;
+  cudaError_t err = prologue_passes<D>(maxfree_prologue_kernel, a, ws, s, &p);
+  float* acc = reinterpret_cast<float*>(static_cast<unsigned char*>(ws) +
+                                        splitkv_pro_bytes(a->b, a->sq, a->skv, a->h));
+  float* lsum = acc + rows * a->sq * 64;
+  if (err == cudaSuccess && SK_REDUCE)
+    err = cudaMemsetAsync(
+        acc, 0, static_cast<size_t>(rows * (a->sq * 64 + splitkv_lsum_pitch(a->sq))) * sizeof(float),
+        s);
+  CUtensorMap qmap, kmap, vmap, accmap, lmap;
+  if (err == cudaSuccess)
+    err = kv_tensor_map<D>(&qmap, p.q, p.sq, p.h, p.b, p.q_ss, p.q_sh, p.q_sb, 64);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<D>(&kmap, p.k, p.skv, p.h, p.b, p.k_ss, p.k_sh, p.k_sb, MF_BN);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<D>(&vmap, p.v, p.skv, p.h, p.b, p.v_ss, p.v_sh, p.v_sb, MF_BN);
+  if (err == cudaSuccess) err = acc_map(&accmap, acc, a->sq, rows, false);
+  if (err == cudaSuccess) err = acc_map(&lmap, lsum, a->sq, rows, true);
+  const int nt = static_cast<int>((split + MF_BN - 1) / MF_BN);
+  const int smem = resident_smem_bytes(nt, WG, true);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(splitkv_tma_kernel<WG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(a->h),
+                  static_cast<unsigned>(a->b));
+  splitkv_tma_kernel<WG><<<grid, WG * 128, smem, s>>>(p, qmap, kmap, vmap, accmap, lmap,
+                                                       static_cast<int>(split), MF_PK - shift);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 ngrid(static_cast<unsigned>((a->sq + 31) / 32), static_cast<unsigned>(a->h),
+                   static_cast<unsigned>(a->b));
+  splitkv_normalize_kernel<<<ngrid, 256, 0, s>>>(*a, static_cast<int>(parts), acc, lsum);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// T4b on raw q and k with their tables; ``ws`` holds splitkv_pro_bytes,
+// then B * H * parts * (Sq * 64 + splitkv_lsum_pitch(Sq)) floats.
+int launch_splitkv(const TGAttnArgs* a, long long split, float shift, void* ws, cudaStream_t s) {
+  if (a->sq <= 0 || a->skv <= 0 || split < MF_BN || split > PI_MAX_KEYS || split % MF_BN ||
+      ws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (SK_TWO_BLOCKS)
+    if (splitkv_warpgroups(split) == 1) return launch_splitkv_wg<1>(a, split, shift, ws, s);
+  return launch_splitkv_wg<2>(a, split, shift, ws, s);
+}
+
+// T4b's build at ``split`` keys a split: threads, dynamic shared memory
+// (bytes), resident K' / V tiles, q slots a warpgroup, resident blocks a SM,
+// warpgroups a block, and 1 where the splits' partials are reduce-added into
+// one accumulator (else 0: one a split).
+template <int WG>
+int splitkv_geometry_wg(long long split, long long* out) {
+  const int nt = static_cast<int>((split + MF_BN - 1) / MF_BN);
+  const int smem = resident_smem_bytes(nt, WG, true);
+  cudaError_t err = cudaFuncSetAttribute(splitkv_tma_kernel<WG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, splitkv_tma_kernel<WG>, WG * 128,
+                                                        smem);
+  const long long g[7] = {WG * 128, smem, nt, PI_SLOTS, blocks, WG, SK_REDUCE ? 1 : 0};
+  for (int i = 0; i < 7; ++i) out[i] = g[i];
+  return static_cast<int>(err);
+}
+
+int splitkv_geometry(long long split, long long* out) {
+  if (split < MF_BN || split > PI_MAX_KEYS || split % MF_BN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (SK_TWO_BLOCKS)
+    if (splitkv_warpgroups(split) == 1) return splitkv_geometry_wg<1>(split, out);
+  return splitkv_geometry_wg<2>(split, out);
 }
 
 }  // namespace

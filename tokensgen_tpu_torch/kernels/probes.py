@@ -27,13 +27,14 @@ exp2_loop                `bench_vpu_exp2.py` `make_kernel` :30                  
 T3a-T5 share their plain version, `attention_maxfree_plain`, and the score
 shift C of their softmax, `score_shift` (no running max: exp2(min(s - C, 0))).
 Each computes the JAX function; the tiles are the card's (`SWEEP_CONFIGS`,
-`V2_CONFIGS`, ...), not the TPU's. A CPU tensor takes the plain version beside the
-entry point; a CUDA tensor launches the kernel (CUDA C++ for sm_90a in
-``csrc/probes.cu`` and, T7's, ``csrc/probe_gemm.cu``, built by nvcc at first
-use, `kernels/build.py`) or raises. T1 and T4a (``csrc/probes_hopper.cuh``),
-T3a, T3b and T5 (``csrc/probes_maxfree.cuh``) and T7 are Hopper bodies: TMA
-loads onto mbarriers and wgmma products; T2, T4b, T6 and T8 are simple first
-versions (synchronous loads, mma.sync).
+`SPLITKV_BLOCK_KV`, ...), not the TPU's. A CPU tensor takes the plain version
+beside the entry point; a CUDA tensor launches the kernel (CUDA C++ for
+sm_90a in ``csrc/probes.cu`` and, T7's, ``csrc/probe_gemm.cu``, built by nvcc
+at first use, `kernels/build.py`) or raises. T1, T2 (T1's kernels), T4a and
+T4b (``csrc/probes_hopper.cuh``), T3a, T3b and T5
+(``csrc/probes_maxfree.cuh``) and T7 are Hopper bodies: TMA loads onto
+mbarriers and wgmma products; T6 and T8 are simple first versions
+(synchronous loads, mma.sync; T8 no products).
 The CLIs of ``tokensgen_tpu_torch/tools/`` drive them.
 """
 
@@ -59,8 +60,7 @@ SWEEP_CONFIGS = ((128, 128, 1), (128, 128, 2), (256, 128, 1))
 SWEEP_DEFAULT = (128, 128, 2)  # the fastest at the script's shape (PERF.md), the smoke's
 SWEEP_MAX_SLOTS = 4  # csrc SW_MAX_SLOTS
 SMEM_MAX = 232448  # shared memory a block may use on an H100
-V2_CONFIGS = ((64, 64), (128, 64), (64, 128))  # T2: (block_q, block_kv)
-BIAS_MODES = ("full", "last")  # T2: key bias on every kv tile, or only on the last
+BIAS_MODES = ("full", "last")  # T2 (at T1's tiles): key bias on every kv tile, or only on the last
 FLASH_LOOP_D = 128  # T6: the head dim the kernel is built for
 FLASH_LOOP_TILE = 64  # T6: keys per streamed tile (csrc FL_TN)
 MATMUL_BK = 64  # T7: the kernel's k tile (csrc GM_BK)
@@ -76,7 +76,8 @@ PAIR2_BLOCK_Q = 128  # T3b: q rows a block (csrc P2_BM)
 PAIRINNER_BLOCK_Q = (512, 1024, 2048)  # T4a: q rows per block
 PAIRINNER_DEFAULT = 512  # T4a: the fastest block_q at the script's shape (PERF.md), the smoke's
 PAIRINNER_SLOTS = 2  # T4a: q boxes of 64 rows a warpgroup (csrc PI_SLOTS)
-SPLITKV_BLOCK_KV = (256, 384, 512)  # T4b: keys per split
+SPLITKV_BLOCK_KV = (256, 384, 512)  # T4b: keys per split (whole K' / V tiles of 128)
+SPLITKV_DEFAULT = 256  # T4b: the fastest split at the script's shape (PERF.md), the smoke's
 # T5 cuts its work in units of (batch row, row block of PAIRLOOP_ROWS q rows,
 # head), head fastest, and a block takes a contiguous range of them
 # (`pairloop_plan`): ``block_q`` = PAIRLOOP_WAVE spreads the units evenly over
@@ -87,7 +88,7 @@ SPLITKV_BLOCK_KV = (256, 384, 512)  # T4b: keys per split
 PAIRLOOP_ROWS = 128  # csrc PL_RB
 PAIRLOOP_WAVE = 0
 PAIRLOOP_BLOCK_Q = (PAIRLOOP_WAVE, 128, 256, 512, 1024, 2048)
-RESIDENT_MAX = 512  # T4a / T4b: keys held whole in shared memory (csrc PI_MAX_KEYS, RES_MAX)
+RESIDENT_MAX = 512  # T4a / T4b: keys held whole in shared memory (csrc PI_MAX_KEYS)
 
 
 # ---------------------------------------------------------------------------
@@ -243,6 +244,29 @@ def pairinner_smem_bytes(skv: int) -> int:
     return 1024 + tiles * 32768 + 2 * (PAIRINNER_SLOTS + 1) * 8192 + 8 * (4 + 2 * PAIRINNER_SLOTS)
 
 
+def splitkv_smem_bytes(split: int, warpgroups: int = 2) -> int:
+    """T4b's dynamic shared memory at ``split`` keys a split (csrc
+    `resident_smem_bytes` with its f32 staging): 1 KB of alignment slack, the
+    split's resident K' / V tiles of 128 keys (32 KB each), each
+    warpgroup's `PAIRINNER_SLOTS` q boxes (8 KB each) and its staging of a
+    chunk's f32 acc (16 KB) and row sums (a 1 KB box), the tiles' mbarriers
+    and the q slots'."""
+    tiles = -(-split // 128)
+    return (1024 + tiles * 32768 + warpgroups * (PAIRINNER_SLOTS * 8192 + 2 * 8192 + 1024)
+            + 8 * (4 + warpgroups * PAIRINNER_SLOTS))
+
+
+def splitkv_ws_bytes(batch: int, sq: int, skv: int, heads: int, parts: int = 1) -> int:
+    """T4b's workspace (csrc `launch_splitkv`): the bf16 prologue rows of k
+    and q (B (Skv + Sq) H 64), rounded up to 256 bytes, then the f32
+    accumulator of ``parts`` partial sums ([parts][B H][Sq][64]) and row sums
+    ([parts][B H][Sq], rows padded to a multiple of 4 for their tensor map):
+    one part where the splits add into it by TMA reduce-add, else one a
+    split."""
+    pro = -(-batch * (sq + skv) * heads * 64 * 2 // 256) * 256
+    return pro + parts * batch * heads * (sq * 64 + -(-sq // 4) * 4) * 4
+
+
 def pairinner_waves(batch: int, sq: int, heads: int, block_q: int, sms: int, per_sm: int = 1):
     """T4a's launch: (blocks, waves, the idle share of the last wave's
     block slots). One block per (head, q block of ``block_q`` rows, batch
@@ -271,6 +295,43 @@ def matmul_tiles(m: int, n: int):
     return order
 
 
+def _maxfree_operands(q, k, v, key_bias, tabs_q, tabs_k, heads: int, shift, eps: float,
+                      k_prologued: bool = False):
+    """`attention_maxfree_plain`'s operands, [B, H, S, 64]: qn, kn, v and the
+    shifted key bias in the log2 domain [B, Skv]."""
+    cosg, sin, add, rg = tabs_q
+    qn = A._prologue32(A.split_heads(q, heads), (cosg * A._LOG2E, sin * A._LOG2E,
+                                                 add * A._LOG2E, rg), eps, True).to(q.dtype)
+    kh = A.split_heads(k, heads)
+    kn = kh if k_prologued else A.apply_prologue_plain(kh, tabs_k, eps, True)
+    bias = A._bias_or_zeros(key_bias, k, heads) * A._LOG2E - float(shift)
+    return qn, kn, A.split_heads(v, heads), bias
+
+
+def splitkv_partials_maxfree_plain(q, k, v, key_bias, tabs_q, tabs_k, heads: int, shift, split: int,
+                                   eps: float = 1e-6):
+    """T4b's split pass in plain torch: for each split of ``split`` keys the
+    unnormalized f32 partial sums of `attention_maxfree_plain` over its keys,
+    acc = bf16(p) v [B, H, Sq, 64] and l = sum p [B, H, Sq]. With no running
+    max the splits' partials simply add: `combine_maxfree_plain`."""
+    qn, kn, vh, bias = _maxfree_operands(q, k, v, key_bias, tabs_q, tabs_k, heads, shift, eps)
+    parts = []
+    for j in range(0, k.shape[1], split):
+        s = torch.einsum("bhqd,bhkd->bhqk", qn.float(), kn[:, :, j:j + split].float())
+        s.add_(bias[:, None, None, j:j + split]).clamp_max_(0.0).exp2_()
+        parts.append((torch.einsum("bhqk,bhkd->bhqd", s.to(v.dtype).float(),
+                                   vh[:, :, j:j + split].float()), s.sum(-1)))
+    return parts
+
+
+def combine_maxfree_plain(parts, dtype=torch.bfloat16):
+    """The sum of T4b's partials (`splitkv_partials_maxfree_plain`, in the
+    given order) normalized, acc / max(l, f32 tiny), merged [B, Sq, H*64]."""
+    acc = sum(p[0] for p in parts)
+    l = sum(p[1] for p in parts).clamp_min(torch.finfo(torch.float32).tiny)
+    return A.merge_heads((acc / l[..., None]).to(dtype))
+
+
 def attention_maxfree_plain(q, k, v, key_bias, tabs_q, tabs_k, heads: int, shift,
                             eps: float = 1e-6, k_prologued: bool = False):
     """The plain version of the five max-free probes (T3a, T3b, T4a, T4b, T5), on
@@ -280,15 +341,11 @@ def attention_maxfree_plain(q, k, v, key_bias, tabs_q, tabs_k, heads: int, shift
     ``shift``, p = exp2(min(s, 0)) in f32, l = sum p, out = (bf16(p) v) /
     max(l, f32 tiny). Both prologues normalize. In q-row chunks under
     `attention.MAX_SCORE_BYTES`."""
-    cosg, sin, add, rg = tabs_q
-    qn = A._prologue32(A.split_heads(q, heads), (cosg * A._LOG2E, sin * A._LOG2E,
-                                                 add * A._LOG2E, rg), eps, True).to(q.dtype)
-    kh = A.split_heads(k, heads)
-    kn = kh if k_prologued else A.apply_prologue_plain(kh, tabs_k, eps, True)
-    bias = A._bias_or_zeros(key_bias, k, heads) * A._LOG2E - float(shift)
+    qn, kn, vh, bias = _maxfree_operands(q, k, v, key_bias, tabs_q, tabs_k, heads, shift, eps,
+                                         k_prologued)
     b, h, sq, _ = qn.shape
     chunk = A._q_chunk(b, h, sq, k.shape[1])
-    kf, vf = kn.float(), A.split_heads(v, heads).float()
+    kf, vf = kn.float(), vh.float()
     tiny = torch.finfo(torch.float32).tiny
     outs = []
     for i in range(0, sq, chunk):
@@ -320,8 +377,8 @@ class _MatmulArgs(ctypes.Structure):
 
 def _bind(lib) -> None:
     i64, ptr = ctypes.c_int64, ctypes.c_void_p
-    for name in ("tg_probe_attn_sweep", "tg_probe_attn_v2"):
-        _build.bind(lib, name, ctypes.POINTER(A._Args), i64, i64, i64, ptr)
+    _build.bind(lib, "tg_probe_attn_sweep", ctypes.POINTER(A._Args), i64, i64, i64, ptr)
+    _build.bind(lib, "tg_probe_attn_v2", ctypes.POINTER(A._Args), i64, i64, i64, i64, ptr)
     _build.bind(lib, "tg_probe_flash_loop", ctypes.POINTER(_FlashLoopArgs), i64, ptr)
     _build.bind(lib, "tg_probe_exp2_loop", ptr, ptr, i64, i64, i64, ptr)
     for name in _MAXFREE_ENTRY_POINTS:
@@ -329,6 +386,7 @@ def _bind(lib) -> None:
     _build.bind(lib, "tg_probe_splitpv_geometry", i64, ctypes.POINTER(i64))
     _build.bind(lib, "tg_probe_sweep_geometry", i64, i64, i64, ctypes.POINTER(i64))
     _build.bind(lib, "tg_probe_pairinner_geometry", i64, ctypes.POINTER(i64))
+    _build.bind(lib, "tg_probe_splitkv_geometry", i64, ctypes.POINTER(i64))
 
 
 def _bind_gemm(lib) -> None:
@@ -403,32 +461,49 @@ def pairinner_geometry(skv: int) -> dict:
     return dict(zip(PAIRINNER_GEOMETRY, out))
 
 
-def _launch_attn(entry: str, q, k, v, key_bias, p0: int, p1: int, p2: int):
+SPLITKV_GEOMETRY = ("threads", "smem_bytes", "kv_tiles", "q_slots", "blocks_per_sm",
+                    "warpgroups", "reduce")
+
+
+def splitkv_geometry(split: int) -> dict:
+    """T4b's build at ``split`` keys a split (`SPLITKV_BLOCK_KV`), by the
+    names of `SPLITKV_GEOMETRY`: threads, dynamic shared memory (bytes),
+    resident K' / V tiles, q slots a warpgroup, resident blocks a SM,
+    warpgroups a block, and 1 where the splits' partials are added into one
+    accumulator by TMA reduce-add (the build's choice; 0: one a split,
+    summed by the last pass). Builds the library."""
+    out = (ctypes.c_int64 * len(SPLITKV_GEOMETRY))()
+    _build.check_launch("tg_probe_splitkv_geometry",
+                        _Library.get().tg_probe_splitkv_geometry(split, out))
+    return dict(zip(SPLITKV_GEOMETRY, out))
+
+
+def _launch_attn(entry: str, q, k, v, key_bias, *params: int):
     d = q.shape[-1]
     if d != 64:
         raise ValueError(f"{entry}: head dim 64, got {d}")
     a, out, _keep = A.attn_args(q, k, v, key_bias, None, None, None, 0.0, False, False,
                                 d ** -0.5 * A._LOG2E)  # _keep: alive through the launch
-    _build.check_launch(entry, getattr(_Library.get(), entry)(ctypes.byref(a), p0, p1, p2,
+    _build.check_launch(entry, getattr(_Library.get(), entry)(ctypes.byref(a), *params,
                                                               _build.stream_of(q)))
     return out
 
 
 def _launch_maxfree(entry: str, q, k, v, key_bias, tabs_q, tabs_k, heads: int, eps: float,
-                    shift, p0: int, p1: int = 0, splits: int = 0, prologue_rows: bool = False,
+                    shift, p0: int, p1: int = 0, ws_bytes: int = 0, prologue_rows: bool = False,
                     q_rows: bool = False):
     """Launches one of T3a-T5 on merged [B, S, H*64] bf16 operands (k
     prologued in the kernel when ``tabs_k`` is given) with the score shift
-    as its own float; T4b (``splits`` > 0) also gets its f32 workspace of
-    per-split partial sums and row sums, T3a and T3b (``prologue_rows``)
-    their bf16 workspace of the prologued k and q rows, T4a (``q_rows``) its
-    bf16 workspace of the prologued q rows. Workspaces are freed with the
-    call."""
+    as its own float; T4b gets its workspace of ``ws_bytes``
+    (`splitkv_ws_bytes`: the prologue rows, then the f32 accumulator), T3a
+    and T3b (``prologue_rows``) their bf16 workspace of the prologued k and
+    q rows, T4a (``q_rows``) its bf16 workspace of the prologued q rows.
+    Workspaces are freed with the call."""
     a, out, _keep = A.attn_args(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, True,
                                 tabs_k is not None, A._LOG2E)  # _keep: alive through the launch
     ws = None
-    if splits:
-        ws = torch.empty(a.b * heads * splits * a.sq * 65, dtype=torch.float32, device=q.device)
+    if ws_bytes:
+        ws = torch.empty(ws_bytes, dtype=torch.uint8, device=q.device)
     elif prologue_rows or q_rows:
         rows = a.sq + (a.skv if prologue_rows else 0)
         ws = torch.empty(a.b * rows * heads * 64, dtype=torch.bfloat16, device=q.device)
@@ -463,20 +538,25 @@ def attention_sweep(q, k, v, key_bias=None, block_q: int = SWEEP_DEFAULT[0],
     return out
 
 
-def attention_v2(q, k, v, key_bias=None, block_q: int = 128, block_kv: int = 64,
-                 bias_mode: str = "last"):
-    """T2, flash attention on [B, H, S, 64] bf16 with the key bias (and the
-    ragged-kv mask) applied on every kv tile ("full") or only on the last
-    ("last"), at the tiles of `V2_CONFIGS`."""
+def attention_v2(q, k, v, key_bias=None, block_q: int = SWEEP_DEFAULT[0],
+                 block_kv: int = SWEEP_DEFAULT[1], bias_mode: str = "last",
+                 hblk: int = SWEEP_DEFAULT[2]):
+    """T2, flash attention on [B, H, S, 64] bf16 with the key bias applied on
+    every kv tile ("full") or only on the last ("last"; the ragged-kv mask
+    applies there either way), at T1's tiles (`SWEEP_CONFIGS`: block_q,
+    block_kv, hblk). On the card both modes run T1's kernel at that tile:
+    "full" is T1's launch itself; "last" loads the biases (by TMA) and adds
+    them only on the last kv tile, every other tile taking the bias-free
+    softmax."""
     if bias_mode not in BIAS_MODES:
         raise ValueError(f"bias_mode: expected one of {BIAS_MODES}, got {bias_mode!r}")
     if q.device.type == "cpu":
         return attention_v2_plain(q, k, v, key_bias, block_kv, bias_mode)
     A._require_cuda(k, v, key_bias)
-    if (block_q, block_kv) not in V2_CONFIGS:
-        raise ValueError(f"attention_v2: ({block_q}, {block_kv}) not built; expected one of "
-                         f"{V2_CONFIGS}")
-    out = _launch_attn("tg_probe_attn_v2", q, k, v, key_bias, block_q, block_kv,
+    if (block_q, block_kv, hblk) not in SWEEP_CONFIGS:
+        raise ValueError(f"attention_v2: ({block_q}, {block_kv}, {hblk}) not built; expected one "
+                         f"of {SWEEP_CONFIGS}")
+    out = _launch_attn("tg_probe_attn_v2", q, k, v, key_bias, block_q, block_kv, hblk,
                        BIAS_MODES.index(bias_mode))
     attention_v2.launches += 1
     return out
@@ -673,25 +753,30 @@ def pairloop_prologued(q, kn, v, key_bias, tabs_q, heads: int, shift, block_q: i
                            eps, shift, per)
 
 
-def cross_smallq_splitkv(q, k, v, key_bias, tabs_q, tabs_k, heads: int, block_kv: int = 512,
-                         eps: float = 1e-6, shift=None):
-    """T4b, K3's function max-free (`run_smallq`): short q against a long kv,
-    both prologues in the kernel. The keys are split in ``block_kv``
-    (`SPLITKV_BLOCK_KV`); a block per (split, head, batch row) holds its
-    split's prologued K and V in shared memory, runs every q row against
-    them and writes f32 partial sums and row sums; a second kernel adds the
-    splits, sum(acc) / max(sum(l), tiny): with no running max there is
-    nothing to rescale. The JAX kernel carries the same sums across its kv
-    sweep."""
+def cross_smallq_splitkv(q, k, v, key_bias, tabs_q, tabs_k, heads: int,
+                         block_kv: int = SPLITKV_DEFAULT, eps: float = 1e-6, shift=None):
+    """T4b, K3's function max-free (`run_smallq`): short q against a long kv.
+    Both prologues run first, once per row, into a bf16 workspace (K1's
+    prologue pass). The keys are split in ``block_kv`` (`SPLITKV_BLOCK_KV`);
+    a block per (split, head, batch row) holds its split's K' and V whole in
+    shared memory (TMA) and runs every q' row against them in 64-row chunks
+    (T4a's resident body: wgmma products), adding each chunk's f32 partial
+    sums and row sums into one zeroed accumulator by TMA reduce-add; a last
+    pass writes sum(acc) / max(sum(l), tiny): with no running max there is
+    nothing to rescale, so the splits' partials simply add (in an order that
+    varies from call to call: the last bits may too). The JAX kernel
+    carries the same sums across its kv sweep."""
     shift = score_shift(tabs_q, tabs_k, key_bias) if shift is None else shift
     if q.device.type == "cpu":
         return attention_maxfree_plain(q, k, v, key_bias, tabs_q, tabs_k, heads, shift, eps)
     A._require_cuda(k, v, key_bias)
     if block_kv not in SPLITKV_BLOCK_KV:
         raise ValueError(f"cross_smallq_splitkv: block_kv in {SPLITKV_BLOCK_KV}, got {block_kv}")
-    splits = -(-k.shape[1] // block_kv)
+    parts = 1 if splitkv_geometry(block_kv)["reduce"] else -(-k.shape[1] // block_kv)
     out = _launch_maxfree("tg_probe_cross_splitkv", q, k, v, key_bias, tabs_q, tabs_k, heads,
-                          eps, shift, block_kv, splits=splits)
+                          eps, shift, block_kv,
+                          ws_bytes=splitkv_ws_bytes(q.shape[0], q.shape[1], k.shape[1], heads,
+                                                    parts))
     cross_smallq_splitkv.launches += 1
     return out
 

@@ -7,9 +7,12 @@ the last ("last"), counterpart of the JAX package's ``tools/bench_attn_v2.py``
 
 At the script's shape ([1, 48, 17,776, 64] bf16, zero key bias, ragged last
 kv tile) it runs `probes.attention_v2` in both bias modes at each
-(block_q, block_kv) of `probes.V2_CONFIGS` and prints the median time, TFLOP/s and the error against the plain version of that
-mode. The TPU script's contiguous per-head scratch has no counterpart here
-(each warp keeps its rows' m / l / acc in registers).
+(block_q, block_kv, hblk) of `probes.SWEEP_CONFIGS` (the script sweeps the
+same three axes) and prints the median time, TFLOP/s and the error against
+the plain version of that mode at the tile's block_kv. On the card both
+modes run T1's kernel ("full" is T1's launch). The TPU script's contiguous
+per-head scratch has no counterpart here (each warpgroup keeps its rows'
+m / l / acc in registers).
 """
 
 from __future__ import annotations
@@ -34,16 +37,16 @@ def main(argv=None):
           f"{C.device_name(dev)}", flush=True)
     results = []
     for mode in P.BIAS_MODES:
-        for bq, bkv in P.V2_CONFIGS:
+        for bq, bkv, hb in P.SWEEP_CONFIGS:
             ref = P.attention_v2_plain(q, k, v, bias, bkv, mode)
-            fn = lambda: P.attention_v2(q, k, v, bias, bq, bkv, mode)  # noqa: E731
+            fn = lambda: P.attention_v2(q, k, v, bias, bq, bkv, mode, hb)  # noqa: E731
             rel, err = C.agreement(fn(), ref)
             del ref
             ms = C.time_ms(fn, dev, args.runs)
-            print(f"bq={bq:4d} bkv={bkv:4d} {mode:4s}: {ms:9.3f} ms "
+            print(f"bq={bq:4d} bkv={bkv:4d} hblk={hb} {mode:4s}: {ms:9.3f} ms "
                   f"{flops / ms / 1e9:7.1f} TFLOP/s rel_l2_err {rel:.2e} max_abs_err {err:.2e}",
                   flush=True)
-            results.append(dict(block_q=bq, block_kv=bkv, bias_mode=mode, ms=ms,
+            results.append(dict(block_q=bq, block_kv=bkv, hblk=hb, bias_mode=mode, ms=ms,
                                 rel_l2_err=rel, max_abs_err=err, tflops=flops / ms / 1e9))
     return results
 

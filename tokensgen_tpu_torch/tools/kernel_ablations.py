@@ -5,8 +5,9 @@ flash_ws.cuh's `ws_body` with int8 scores), the float32 K4
 (`flash_attention_bhsd_f32`, csrc/attention_f32.cu) and the probes T3a
 (`probes.attention_splitpv`), T3b (`probes.attention_pair2`), T5
 (`probes.cross_smallkv_pairloop`, csrc/probes_maxfree.cuh), T7
-(`probes.matmul_hand`, csrc/probe_gemm.cu), T1 (`probes.attention_sweep`)
-and T4a (`probes.cross_smallkv_pairinner`, csrc/probes_hopper.cuh) keep: kernels/csrc is
+(`probes.matmul_hand`, csrc/probe_gemm.cu), T1 (`probes.attention_sweep`),
+T2 (`probes.attention_v2`), T4a (`probes.cross_smallkv_pairinner`) and T4b
+(`probes.cross_smallq_splitkv`, csrc/probes_hopper.cuh) keep: kernels/csrc is
 built once per variant (the shipped source, and copies in which one choice
 is undone by a text patch), one nvcc per variant at once; each build's
 registers and spills are printed; then each variant's K5 at the joint
@@ -16,58 +17,68 @@ joint shape (17,776 x 17,776, 48 heads of 64, batch 2) and the float32 K4 at
 DINOv2-large's [49, 16, 257, 64], T3a and T3b at their script's joint shape
 ([1, 17,776, 48*64]^2, the round-3 tables, no key bias), T7 at the four
 shapes of its CLI (with torch.matmul on the same inputs in the same turns)
-T1 at its script's [1, 48, 17,776, 64] (zero key bias) at every built tile,
-and T5's and T4a's kernels at their script's cross1 shape (17,776 q rows x
-480 prologued keys) are timed through
+T1 and T2 at their script's [1, 48, 17,776, 64] (zero key bias) at every
+built tile, T5's and T4a's kernels at their script's cross1 shape (17,776 q
+rows x 480 prologued keys) and T4b at its cross2 shape (480 q rows x 18,256
+keys) are timed through
 the port's wrappers in turns (CUDA events, median), each call held to its
 plain version. With
 --stamps, a build with clock64() stamps prints the clocks of one K5 q tile
 (block 40 of head 3, tiles 50 and 51) per phase. The card only.
 
+A parent arm (``*_parent``) builds an older commit's source with that
+commit's own csrc/ (its headers beside it), so that deleting a body that
+only an old source calls breaks no parent: `--parents DIR` reads DIR/<commit>/
+(written where the checkout has git history by `--export-parents DIR`; a
+copy of the repository without .git, such as the card's, needs it), else
+each file comes from `git show`.
+
 The float32 K4's variants (names f32_*) build attention_f32.cu alone, each
 --f32-builds times (separate nvcc runs), and f32_parent builds the
-one-thread-a-row CUDA-core body that the 3xTF32 body replaced, from the
-text of commit 8af06c8: `--f32-parent FILE` (made with `git show
-8af06c8:tokensgen_tpu_torch/kernels/csrc/attention_f32.cu > FILE` where the
-checkout has no git history), else `git show` itself. Each of its samples
-is the device time of 10 back-to-back calls over 10: its ~0.3 ms is of the
-order of the wrapper's host time, which one call's events would count.
+one-thread-a-row CUDA-core body that the 3xTF32 body replaced (commit
+8af06c8). Each of its samples is the device time of 10 back-to-back calls
+over 10: its ~0.3 ms is of the order of the wrapper's host time, which one
+call's events would count.
 
-The probes' variants (t3a_*, t3b_*, t5_*, mf_*; t7_*; t1_*, t4a_*) build
-probes.cu (T7's: probe_gemm.cu) alone, each --probe-builds times, and the
-parents build the synchronous mma.sync bodies that the TMA / wgmma ones
-replaced: t3b_parent and t5_parent from the text of commit 128c05f
-(`--mf-parent FILE`, else `git show`), t3a_parent and t7_parent from that of
-commit 3aa7498 (`--probes-parent FILE`, else `git show`), t1_parent and
-t4a_parent from that of commit cfce16a (`--sweep-parent FILE`, else `git
-show`), each timed at every tile it was built for (T3a: (128, 64), (128,
-32) and (64, 64); T3b: 64 and 32 keys; T5: 128-2,048 q rows a block; T7:
-its one; T1: its nine (block_q, block_kv, hblk); T4a: 512-2,048 q rows a
-block) through the same C entry points. T5 and T4a are timed as their
-kernels alone, on k prologued once (`probes.pairloop_prologued`,
-`probes.pairinner_prologued`), the device time of 10 calls queued behind a
-device sleep (`_common.queued_time_ms`: one call's events would count the
-wrapper's host time); the shipped T5 also at whole row blocks of 128 and
-1,024 rows (``@128``, ``@1024``) besides its one-wave plan. T4a's lines
-give each block_q's blocks, waves (one block a SM) and the last wave's idle
-share.
+The probes' variants (t3a_*, t3b_*, t5_*, mf_*; t7_*; t1_*, t4a_*; t2_*,
+t4b_*) build probes.cu (T7's: probe_gemm.cu) alone, each --probe-builds
+times, and the parents build the synchronous mma.sync bodies that the TMA /
+wgmma ones replaced: t3b_parent and t5_parent commit 128c05f's, t3a_parent
+and t7_parent commit 3aa7498's, t1_parent and t4a_parent commit cfce16a's,
+t2_parent and t4b_parent commit 656b20a's, each timed at every tile it was
+built for (T3a: (128, 64), (128, 32) and (64, 64); T3b: 64 and 32 keys; T5:
+128-2,048 q rows a block; T7: its one; T1: its nine (block_q, block_kv,
+hblk); T4a: 512-2,048 q rows a block; T2: (64, 64), (128, 64) and (64, 128)
+in "last"; T4b: 256, 384 and 512 keys a split) through the same C entry
+points. T5 and T4a are timed as their kernels alone, on k prologued once
+(`probes.pairloop_prologued`, `probes.pairinner_prologued`), and T4b as its
+whole call, each the device time of 10 calls queued behind a device sleep
+(`_common.queued_time_ms`: one call's events would count the wrapper's host
+time); the shipped T5 also at whole row blocks of 128 and 1,024 rows
+(``@128``, ``@1024``) besides its one-wave plan. T4a's lines give each
+block_q's blocks, waves (one block a SM) and the last wave's idle share;
+T4b's each split's blocks and waves. The shipped T2 runs "last" at every
+tile of `probes.SWEEP_CONFIGS` and "full" (every tile biased) at its
+default.
 
     python -m tokensgen_tpu_torch.tools.kernel_ablations [--rounds 2] [--runs 5]
         [--only shipped,k5_atomics,...] [--stamps]
+    python -m tokensgen_tpu_torch.tools.kernel_ablations --export-parents DIR
     python -m tokensgen_tpu_torch.tools.kernel_ablations --only f32_parent,f32_shipped,\
-        f32_1xtf32,f32_warp_split,f32_serial_stage --f32-parent FILE [--f32-builds 2]
+        f32_1xtf32,f32_warp_split,f32_serial_stage --parents DIR [--f32-builds 2]
     python -m tokensgen_tpu_torch.tools.kernel_ablations --only t3b_parent,t5_parent,\
         mf_shipped,mf_scaled_p,mf_serial,t3b_two_slots,t5_two_slots \
-        --mf-parent FILE [--probe-builds 2] [--probe-stamps]
+        --parents DIR [--probe-builds 2] [--probe-stamps]
     python -m tokensgen_tpu_torch.tools.kernel_ablations --only t7_parent,t7_shipped,\
         t7_stages3,t7_128x128,t7_256x128,t7_one_tile,t7_elected,t7_direct_store,\
-        t7_row_major,t3a_parent,t3a_shipped,t3a_two_slots --probes-parent FILE
+        t7_row_major,t3a_parent,t3a_shipped,t3a_two_slots --parents DIR
     python -m tokensgen_tpu_torch.tools.kernel_ablations --only t1_parent,t1_shipped,\
         t1_producer,t1_refill_flip,t1_scale_fmul,t4a_parent,t4a_shipped,t4a_tables_in_place,\
-        t4a_three_slots \
-        --sweep-parent FILE
+        t4a_three_slots --parents DIR
+    python -m tokensgen_tpu_torch.tools.kernel_ablations --only t2_parent,t2_shipped,\
+        t4b_parent,t4b_shipped,t4b_combine,t4b_one_block --parents DIR
     python -m tokensgen_tpu_torch.tools.kernel_ablations --only prologue_parent,\
-        prologue_shipped --attention-parent FILE --rounds 3
+        prologue_shipped --parents DIR --rounds 3
 
 The last form times K1, K2 and K3 at the edit shapes (batch 2) built from
 commit 128c05f's attention.cu, where the prologue pass and the tensor maps
@@ -78,6 +89,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import pathlib
 import shutil
 import subprocess
 import time
@@ -98,6 +110,10 @@ MF_PARENT_COMMIT = "128c05f"  # T3b's and T5's mma.sync bodies' last commit; the
 # pass and the tensor maps still in attention.cu
 PROBES_PARENT_COMMIT = "3aa7498"  # T3a's and T7's mma.sync bodies' last commit
 SWEEP_PARENT_COMMIT = "cfce16a"  # T1's and T4a's mma.sync bodies' last commit
+V2_PARENT_COMMIT = "656b20a"  # T2's and T4b's mma.sync bodies' last commit
+PARENT_COMMITS = (F32_PARENT_COMMIT, MF_PARENT_COMMIT, PROBES_PARENT_COMMIT, SWEEP_PARENT_COMMIT,
+                  V2_PARENT_COMMIT)
+CSRC_PATH = "tokensgen_tpu_torch/kernels/csrc"
 # T1's tiles in that commit's probes.cu: (block_q, block_kv, heads per block)
 SWEEP_PARENT_CONFIGS = ((64, 32, 1), (64, 64, 1), (64, 128, 1), (128, 32, 1), (128, 64, 1),
                         (64, 64, 2), (64, 128, 2), (128, 32, 2), (128, 64, 2))
@@ -565,26 +581,45 @@ VARIANTS = {
                               "constexpr bool PI_PROLOGUE_PASS = false;")]),
     "t4a_three_slots": ("T4A", "the q ring's depth: 3 slots a warpgroup, not 2",
                         [(HOP, "constexpr int PI_SLOTS = 2;", "constexpr int PI_SLOTS = 3;")]),
+    # the probes T2 (T1's kernels) and T4b (csrc/probes_hopper.cuh's resident body)
+    "t2_parent": ("T2", f"T1's TMA / wgmma body: commit {V2_PARENT_COMMIT}'s synchronous "
+                  "mma.sync v2 body (flash_fwd.cuh's, 64 / 128 q rows, 64 / 128 keys)", None),
+    "t2_shipped": ("T2", "nothing", []),
+    "t4b_parent": ("T4B", f"the prologue pass, the TMA / wgmma body and the reduce-add: commit "
+                   f"{V2_PARENT_COMMIT}'s resident mma.sync body (K prologued on load, q in "
+                   "every block, per-split partials and a combine)", None),
+    "t4b_shipped": ("T4B", "nothing", []),
+    "t4b_combine": ("T4B", "the reduce-add: each split's partials stored apart, summed by the "
+                    "last pass", [(HOP, "constexpr bool SK_REDUCE = true;",
+                                   "constexpr bool SK_REDUCE = false;")]),
+    "t4b_one_block": ("T4B", "two blocks a SM: at 256 keys a split, blocks of two warpgroups, "
+                      "one resident a SM", [(HOP, "constexpr bool SK_TWO_BLOCKS = true;",
+                                             "constexpr bool SK_TWO_BLOCKS = false;")]),
 }
 # the kernels each probe (or K1-K3) variant times
 PROBE_KINDS = {"T3B": ("T3B",), "T5": ("T5",), "MF": ("T3B", "T5"), "K123": ("K1", "K2", "K3"),
-               "T7": ("T7",), "T3A": ("T3A",), "T1": ("T1",), "T4A": ("T4A",)}
-# the probe variants whose parent is PROBES_PARENT_COMMIT's probes.cu, and
-# SWEEP_PARENT_COMMIT's (the others' is MF_PARENT_COMMIT's)
-NEW_PARENT_KINDS = ("T7", "T3A")
-SWEEP_PARENT_KINDS = ("T1", "T4A")
-# the probes timed as their kernels alone, 10 calls queued behind a device sleep
-QUEUED_KINDS = ("T5", "T4A")
+               "T7": ("T7",), "T3A": ("T3A",), "T1": ("T1",), "T4A": ("T4A",), "T2": ("T2",),
+               "T4B": ("T4B",)}
+# each kind's parent commit (the probes not named: MF_PARENT_COMMIT's)
+PARENT_OF = {"F32": F32_PARENT_COMMIT, "K123": MF_PARENT_COMMIT, "T7": PROBES_PARENT_COMMIT,
+             "T3A": PROBES_PARENT_COMMIT, "T1": SWEEP_PARENT_COMMIT, "T4A": SWEEP_PARENT_COMMIT,
+             "T2": V2_PARENT_COMMIT, "T4B": V2_PARENT_COMMIT}
+# the probes timed as 10 calls queued behind a device sleep (T5, T4a: their kernels alone)
+QUEUED_KINDS = ("T5", "T4A", "T4B")
 
 
-def _patched(name: str, patches, root, source=CU, text=None):
-    """A copy of csrc with ``patches`` applied (or ``source`` replaced by
-    ``text``), ``source`` built; (name, rc, nvcc output, seconds)."""
+def _patched(name: str, patches, root, source=CU, files=None):
+    """A copy of csrc with ``patches`` applied (or, given ``files``, a
+    parent's csrc: {file name: text}), ``source`` built; (name, rc, nvcc
+    output, seconds)."""
     d = root / name
     shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(B.CSRC, d)
-    if text is not None:
-        (d / source).write_text(text)
+    if files is None:
+        shutil.copytree(B.CSRC, d)
+    else:
+        d.mkdir(parents=True)
+        for f, text in files.items():
+            (d / f).write_text(text)
     for f, old, new in patches:
         text = (d / f).read_text()
         if text.count(old) != 1:
@@ -597,17 +632,31 @@ def _patched(name: str, patches, root, source=CU, text=None):
     return name, proc.returncode, proc.stdout + proc.stderr, time.perf_counter() - t0
 
 
-def _parent_text(path: str, commit: str, source: str) -> str:
-    """csrc/``source`` at ``commit``: ``path``, else git show."""
-    if path:
-        with open(path) as f:
-            return f.read()
-    proc = subprocess.run(["git", "show", f"{commit}:tokensgen_tpu_torch/kernels/csrc/{source}"],
-                          capture_output=True, text=True, cwd=B.CSRC)
+def _git(*args: str) -> str:
+    proc = subprocess.run(["git", *args], capture_output=True, text=True, cwd=B.CSRC.parents[2])
     if proc.returncode != 0:
-        raise RuntimeError(f"{source} at {commit}: no file given and git show failed: "
-                           f"{proc.stderr}")
+        raise RuntimeError(f"git {' '.join(args)} failed (pass --parents DIR where the checkout "
+                           f"has no git history): {proc.stderr}")
     return proc.stdout
+
+
+def _parent_files(parents: str, commit: str) -> dict:
+    """Every file of csrc/ at ``commit``, {name: text}: from
+    ``parents``/<commit>/, else git."""
+    if parents:
+        return {f.name: f.read_text() for f in sorted((pathlib.Path(parents) / commit).iterdir())}
+    names = _git("ls-tree", "--name-only", f"{commit}:{CSRC_PATH}").split()
+    return {n: _git("show", f"{commit}:{CSRC_PATH}/{n}") for n in names}
+
+
+def export_parents(root: str) -> None:
+    """csrc/ of every parent commit into ``root``/<commit>/ (for --parents)."""
+    for commit in PARENT_COMMITS:
+        d = pathlib.Path(root) / commit
+        d.mkdir(parents=True, exist_ok=True)
+        for name, text in _parent_files("", commit).items():
+            (d / name).write_text(text)
+        print(f"{commit}: {len(list(d.iterdir()))} files in {d}")
 
 
 def _k5_case(dev):
@@ -795,6 +844,57 @@ def _t4a_case(dev):
     return {"parent": entries, "shipped": entries}, ref
 
 
+def _t2_case(dev):
+    """T2 at its script's [1, 48, 17,776, 64] with its zero key bias (every
+    mode and tile the same function): {style: [(label, fn)]} (the parent's
+    entry point at each of its tiles in "last" and the parent commit's T1 at
+    T1's default; the shipped wrapper in "last" at each of `SWEEP_CONFIGS`
+    and in "full", every tile biased, at its default: T1's launch) and the
+    plain version."""
+    from tokensgen_tpu_torch.tools.bench_attn_sweep import make_inputs
+
+    q, k, v, bias = make_inputs(dev, 1, 48, 17776)
+    ref = P.attention_sweep_plain(q, k, v, bias)
+    label = lambda c: "@" + "x".join(map(str, c))  # noqa: E731
+    d = P.SWEEP_DEFAULT
+    parent = [(f"@{bq}x{bn}-last", lambda bq=bq, bn=bn: P._launch_attn(
+        "tg_probe_attn_v2", q, k, v, bias, bq, bn, 1)) for bq, bn in ((64, 64), (128, 64), (64, 128))]
+    # "full" at the default is T1's launch: the parent commit's T1 beside it
+    parent.append((label(d) + "-full", lambda: P._launch_attn("tg_probe_attn_sweep", q, k, v, bias,
+                                                              *d)))
+    shipped = [(label(c) + "-last", lambda c=c: P.attention_v2(q, k, v, bias, c[0], c[1], "last",
+                                                               c[2])) for c in P.SWEEP_CONFIGS]
+    shipped.append((label(d) + "-full", lambda: P.attention_v2(q, k, v, bias, d[0], d[1], "full",
+                                                               d[2])))
+    return {"parent": parent, "shipped": shipped}, ref
+
+
+def _t4b_case(dev):
+    """T4b at its script's cross2 shape (480 q rows x 18,256 keys, 48 heads):
+    {style: [(label, fn)]} (the parent's entry point and the shipped wrapper
+    at each split of `SPLITKV_BLOCK_KV`) and the plain version. Prints each
+    split's blocks and waves (one block a SM)."""
+    from tokensgen_tpu_torch.tools.bench_attn_r3 import make_inputs
+
+    x = make_inputs(dev)
+    q, k, v, tq, tk = x["qv"], x["kcat"], x["vcat"], x["tq_vip"], x["tk_all"]
+    b, sq, skv, h = q.shape[0], q.shape[1], k.shape[1], q.shape[2] // 64
+    shift = P.score_shift(tq, tk).item()
+    ref = P.attention_maxfree_plain(q, k, v, None, tq, tk, h, shift)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for split in P.SPLITKV_BLOCK_KV:
+        blocks = -(-skv // split) * h * b
+        print(f"T4b@{split}: {blocks} blocks, {blocks / sms:.2f} waves of {sms} (one a SM)",
+              flush=True)
+    # the parent's workspace: f32 partials of every split (B H splits Sq 65)
+    parent = [(f"@{split}", lambda split=split: P._launch_maxfree(
+        "tg_probe_cross_splitkv", q, k, v, None, tq, tk, h, 1e-6, shift, split,
+        ws_bytes=b * h * -(-skv // split) * sq * 65 * 4)) for split in P.SPLITKV_BLOCK_KV]
+    shipped = [(f"@{split}", lambda split=split: P.cross_smallq_splitkv(
+        q, k, v, None, tq, tk, h, split, shift=shift)) for split in P.SPLITKV_BLOCK_KV]
+    return {"parent": parent, "shipped": shipped}, ref
+
+
 def _bind_parent_probes(lib) -> None:
     """An older probes.cu's entry points that the cases call: the max-free
     ones, T1's and, where it has it, T7's (older builds have no geometry
@@ -803,6 +903,7 @@ def _bind_parent_probes(lib) -> None:
     for name in P._MAXFREE_ENTRY_POINTS:
         B.bind(lib, name, ctypes.POINTER(A._Args), i64, i64, ctypes.c_float, ptr, ptr)
     B.bind(lib, "tg_probe_attn_sweep", ctypes.POINTER(A._Args), i64, i64, i64, ptr)
+    B.bind(lib, "tg_probe_attn_v2", ctypes.POINTER(A._Args), i64, i64, i64, ptr)
     if hasattr(lib, "tg_probe_matmul"):
         B.bind(lib, "tg_probe_matmul", ctypes.POINTER(P._MatmulArgs), ptr)
 
@@ -851,51 +952,41 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", type=int, default=5, help="timed calls per case (median)")
     ap.add_argument("--only", default="", help="comma-separated variants (default: all)")
     ap.add_argument("--stamps", action="store_true", help="clock64() stamps of one K5 q tile")
-    ap.add_argument("--f32-parent", default="",
-                    help=f"attention_f32.cu as of commit {F32_PARENT_COMMIT} (default: git show)")
+    ap.add_argument("--parents", default="",
+                    help="DIR/<commit>/ holds the parent commits' csrc (--export-parents); "
+                    "default: git")
+    ap.add_argument("--build-only", action="store_true",
+                    help="build every listed variant, print its ptxas lines, time nothing")
+    ap.add_argument("--export-parents", default="", metavar="DIR",
+                    help=f"write csrc/ of {', '.join(PARENT_COMMITS)} into DIR/<commit>/ and exit")
     ap.add_argument("--f32-builds", type=int, default=2,
                     help="nvcc builds of each float32 K4 variant, each timed")
-    ap.add_argument("--probes-parent", default="",
-                    help=f"probes.cu as of commit {PROBES_PARENT_COMMIT}, T3a's and T7's parent "
-                    "(default: git show)")
-    ap.add_argument("--sweep-parent", default="",
-                    help=f"probes.cu as of commit {SWEEP_PARENT_COMMIT}, T1's and T4a's parent "
-                    "(default: git show)")
-    ap.add_argument("--mf-parent", default="",
-                    help=f"probes.cu as of commit {MF_PARENT_COMMIT}, T3b's and T5's parent "
-                    "(default: git show)")
-    ap.add_argument("--attention-parent", default="",
-                    help=f"attention.cu as of commit {MF_PARENT_COMMIT} (default: git show)")
     ap.add_argument("--probe-builds", type=int, default=2,
                     help="nvcc builds of each T3b / T5 variant, each timed")
     ap.add_argument("--probe-stamps", action="store_true",
                     help="clock64() stamps of two T3b kv tiles, four T5 steps and two "
                     "T3a kv tiles")
     args = ap.parse_args(argv)
+    if args.export_parents:
+        export_parents(args.export_parents)
+        return 0
     dev = _common.device_of(argparse.Namespace(device="cuda"))
     names = [n for n in args.only.split(",") if n] or list(VARIANTS)
-    # build key -> (variant, source, replacement text or None, patches)
+    # build key -> (variant, source, a parent's csrc files or None, patches)
     builds = {}
     for n in names:
         kernel, _, patches = VARIANTS[n]
+        files = (_parent_files(args.parents, PARENT_OF.get(kernel, MF_PARENT_COMMIT))
+                 if patches is None else None)
         if kernel == "F32":
-            text = _parent_text(args.f32_parent, F32_PARENT_COMMIT, F32) if patches is None else None
             for i in range(args.f32_builds):
-                builds[f"{n}.{i}"] = (n, F32, text, patches or [])
+                builds[f"{n}.{i}"] = (n, F32, files, patches or [])
         elif kernel == "K123":
-            text = (_parent_text(args.attention_parent, MF_PARENT_COMMIT, CU)
-                    if patches is None else None)
-            builds[n] = (n, CU, text, patches or [])
+            builds[n] = (n, CU, files, patches or [])
         elif kernel in PROBE_KINDS:
-            path, commit = ((args.probes_parent, PROBES_PARENT_COMMIT)
-                            if kernel in NEW_PARENT_KINDS else
-                            (args.sweep_parent, SWEEP_PARENT_COMMIT)
-                            if kernel in SWEEP_PARENT_KINDS else
-                            (args.mf_parent, MF_PARENT_COMMIT))
-            text = _parent_text(path, commit, PROBES) if patches is None else None
             source = GEMM if kernel == "T7" and patches is not None else PROBES
             for i in range(args.probe_builds):
-                builds[f"{n}.{i}"] = (n, source, text, patches or [])
+                builds[f"{n}.{i}"] = (n, source, files, patches or [])
         else:
             builds[n] = (n, CU, None, patches)
     if args.stamps:
@@ -923,12 +1014,18 @@ def main(argv=None) -> int:
                                    ("14splitpv_kernel", "T3a (parent)"),
                                    ("12sweep_kernel", "T1"), ("17attn_sweep_kernel", "T1 (parent)"),
                                    ("20pairinner_tma_kernel", "T4a"),
-                                   ("16pairinner_kernel", "T4a (parent)"))
+                                   ("16pairinner_kernel", "T4a (parent)"),
+                                   ("18splitkv_tma_kernelILi2", "T4b"),
+                                   ("18splitkv_tma_kernelILi1", "T4b (one warpgroup)"),
+                                   ("14splitkv_kernel", "T4b (parent)"),
+                                   ("14attn_v2_kernel", "T2 (parent)"))
                 if tag in k]
         print(f"[build] {key} in {dt:.0f} s: " + "; ".join(regs), flush=True)
         for line in log.splitlines():
             if "Performance Loss" in line:
                 print(f"[build]   {line.strip()}", flush=True)
+        if args.build_only:
+            continue
         lib = ctypes.CDLL(str(root / key / "lib.so"))
         if builds[key][1] == F32:  # the entry point only: the parent has no geometry query
             B.bind(lib, A._F32_ENTRY_POINT, ctypes.POINTER(A._F32Args), ctypes.c_int64,
@@ -942,12 +1039,15 @@ def main(argv=None) -> int:
         else:
             A._bind(lib)
         libs[key] = lib
+    if args.build_only:
+        return 0
     stamp_keys = ("k5_stamps", "mf_stamps")
     kinds = {VARIANTS[builds[key][0]][0] for key in builds if key not in stamp_keys}
     kernels = {k for kind in kinds for k in PROBE_KINDS.get(kind, (kind,))}
     makers = {"K5": _k5_case, "K2": _k2_case, "K7": _k7_case, "F32": _f32_case,
               "T3B": _t3b_case, "T5": _t5_case, "K1": _k1_case, "K3": _k3_case,
-              "T7": _t7_case, "T3A": _t3a_case, "T1": _t1_case, "T4A": _t4a_case}
+              "T7": _t7_case, "T3A": _t3a_case, "T1": _t1_case, "T4A": _t4a_case,
+              "T2": _t2_case, "T4B": _t4b_case}
     cases = {k: make(dev) for k, make in makers.items()
              if k in kernels or ("all" in kernels and k in ("K5", "K2", "K7"))}
     order = [key for key in builds if key not in stamp_keys]
@@ -979,7 +1079,7 @@ def main(argv=None) -> int:
                     out = fn()
                     ok = _agrees(out, want, BOUNDS.get(kernel, (1e-2, 2.0 ** -5)))
                     detail = (f" ({_f32_errors(out, want)})"
-                              if kernel in ("F32", "T3B", "T5", "T7", "T3A", "T1", "T4A")
+                              if kernel in ("F32", "T3B", "T5", "T7", "T3A", "T1", "T4A", "T2", "T4B")
                               else "")
                     del out
                     ms = (_f32_time_ms(fn, args.runs) if kernel == "F32"
