@@ -285,10 +285,13 @@ def phase_build(state: dict) -> None:
     set leaves out what spills (probes.SWEEP_CONFIGS), so a spill fails; so
     does a K7 body whose SASS is not int8 wgmma scores without I2F, a T7,
     T3a, T1 / T2, T4a or T4b body whose SASS is not bf16 wgmma without
-    mma.sync, and a line of ptxas's saying that it serialized the wgmmas of
-    a T1 / T2, T4a or T4b instantiation (C7515, C7518, "insufficient register
-    resources")."""
+    mma.sync, a K5 one-pass body (d = 64, 128) or T6 body whose SASS is not
+    wgmma (T6's int8: IGMMA) without mma.sync, and a line of ptxas's saying
+    that it serialized the wgmmas of a T1 / T2, T4a, T4b, K5 one-pass or T6
+    instantiation (C7515, C7518, "insufficient register resources")."""
     from concurrent.futures import ThreadPoolExecutor
+
+    import torch
 
     from tokensgen_tpu_torch.kernels import attention as A
     from tokensgen_tpu_torch.kernels import build as B
@@ -349,17 +352,28 @@ def phase_build(state: dict) -> None:
             f"{g['q_slots']} q slots a warpgroup, {g['smem_bytes']:,} B of dynamic shared memory "
             f"a block, {g['blocks_per_sm']} resident a SM, partials "
             f"{'reduce-added into one accumulator' if g['reduce'] else 'one a split'}")
+    for dt, name in ((torch.int8, "int8"), (torch.bfloat16, "bf16")):
+        splits = sorted({P.flash_loop_split(2048, n, dt, 132) for n in (1024, 2048)})
+        log(f"[build]   T6 (flash_loop) {name}: {P.FLASH_LOOP_ROWS} q rows and up to "
+            f"{P.FLASH_LOOP_MAX_SPLIT[dt]} keys a block (256 threads, a chain a warpgroup), "
+            f"chunks of {P.FLASH_LOOP_CHUNK[dt]} keys; the CLI's shapes take {splits} keys a "
+            f"block")
     # sweep_kernel: T1's instantiations and T2's "last" ones
-    serialized = [line.strip() for line in P._Library.build_log.splitlines()
+    serialized = [line.strip() for lib in (A._Library, P._Library)
+                  for line in lib.build_log.splitlines()
                   if "Performance Loss" in line
                   and any(k in line for k in ("sweep_kernel", "pairinner_tma_kernel",
-                                              "splitkv_tma_kernel"))]
+                                              "splitkv_tma_kernel", "bwd_onepass",
+                                              "flash_loop_kernel"))]
     if serialized:
-        raise RuntimeError(f"ptxas serialized the wgmmas of T1 / T2, T4a or T4b: {serialized}")
+        raise RuntimeError(f"ptxas serialized the wgmmas of T1 / T2, T4a, T4b, K5's one-pass "
+                           f"body or T6: {serialized}")
     for path, kernel in ((built[3][0], "gemm_kernel"), (built[1][0], "pair_splitpv_kernel"),
                          (built[1][0], "sweep_kernel"), (built[1][0], "pairinner_tma_kernel"),
-                         (built[1][0], "splitkv_tma_kernel")):
+                         (built[1][0], "splitkv_tma_kernel"), (built[0][0], "bwd_onepass_kernel"),
+                         (built[0][0], "bwd_onepass128_kernel")):
         _wgmma_sass_check(path, kernel)
+    _flash_loop_sass_check(built[1][0])
 
 
 # K7's body in SASS (cuobjdump): the instructions that show its design, by
@@ -373,15 +387,22 @@ INT8_SASS = {"IGMMA": r"\bIGMMA\.", "HGMMA": r"\bHGMMA\.", "mma.sync": r"\b[IH]M
 SCORE_TILE = 64  # scores a thread holds in one softmax (a per-score conversion's count)
 
 
-def _sass_functions(lib_path, kernel: str) -> list:
-    """The SASS (cuobjdump) of each function of ``lib_path`` whose mangled
-    name holds ``kernel``."""
+@functools.lru_cache(maxsize=None)
+def _sass_listing(lib_path) -> tuple:
+    """The SASS (cuobjdump) of every function of ``lib_path``, disassembled
+    once per library (attention.cu's takes seconds)."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     proc = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=300)
     if proc.returncode != 0:
         raise RuntimeError(f"cuobjdump failed: {proc.stderr.strip()[:400]}")
-    return [f for f in proc.stdout.split("Function : ")[1:] if kernel in f.split(None, 1)[0]]
+    return tuple(proc.stdout.split("Function : ")[1:])
+
+
+def _sass_functions(lib_path, kernel: str) -> list:
+    """The SASS of each function of ``lib_path`` whose mangled name holds
+    ``kernel``."""
+    return [f for f in _sass_listing(str(lib_path)) if kernel in f.split(None, 1)[0]]
 
 
 def _wgmma_sass_check(lib_path, kernel: str) -> None:
@@ -396,6 +417,20 @@ def _wgmma_sass_check(lib_path, kernel: str) -> None:
             f"{counts['mma.sync']}")
         if not counts["HGMMA"] or counts["mma.sync"]:
             raise RuntimeError(f"{kernel} is not bf16 wgmma without mma.sync: {counts}")
+
+
+def _flash_loop_sass_check(lib_path) -> None:
+    """T6's two instantiations multiply on wgmma (bf16: HGMMA; int8: IGMMA)
+    and by no mma.sync."""
+    bodies = _sass_functions(lib_path, "flash_loop_kernel")
+    if len(bodies) != 2:
+        raise RuntimeError(f"cuobjdump: {len(bodies)} functions named flash_loop_kernel")
+    for body in bodies:
+        counts = {k: len(re.findall(INT8_SASS[k], body)) for k in ("IGMMA", "HGMMA", "mma.sync")}
+        log(f"[build]   {body.split(None, 1)[0]} SASS: " + ", ".join(
+            f"{k} {n}" for k, n in counts.items()))
+        if not (counts["IGMMA"] or counts["HGMMA"]) or counts["mma.sync"]:
+            raise RuntimeError(f"T6's body is not wgmma without mma.sync: {counts}")
 
 
 def _int8_sass_check(lib_path) -> None:
@@ -935,7 +970,7 @@ def _bwd_fns(c):
     work = (10.0 * b * hh * sq * skv * d,  # the 5 products of one pass
             _nbytes(q, k, v, g, c["lse"], c["dsum"], bias, q, k, v)
             + 4 * b * skv)  # dbias out
-    tile = A.BWD_KV_BLOCK if d == 64 else KV_TILE
+    tile = A.BWD_KV_BLOCK if d in A.ONEPASS_HEAD_DIMS else KV_TILE
     return kernel, plain, (lambda: plain(skv - skv % tile)), library, work
 
 
@@ -1530,24 +1565,40 @@ def _probe_attention_rows(dev, state) -> None:
 def _probe_flash_loop_rows(dev, state) -> None:
     """T6 at (m, n, d) = (2048, 2048, 128): int8 at the CLI's 500 steps must
     be bit-equal to its plain version (exact integers, int32 wrap), and the
-    planted fault (one kv tile left out of the first step) must not be; bf16
-    at 4 steps (its chain decays by ~11/64 a step) by the bounds, with the
-    same fault. The kernels line's row is the int8 case."""
+    planted fault (one chunk of keys left out of the first step) must not
+    be; bf16 at 4 steps (its chain decays by ~11/64 a step) by the bounds,
+    with the same fault. Both types timed at 500 steps at the CLI's two
+    shapes (n = 2,048 and 1,024), each beside its bound and the share of the
+    work that the recomputed chain adds (128 / (2 split): every block steps
+    q by q @ k[:, :128] itself). The kernels line's row is the int8 case at
+    n = 2,048."""
     import torch
 
     from tokensgen_tpu_torch.kernels import probes as P
     from tokensgen_tpu_torch.tools.bench_int8_loop import make_inputs
 
     m, n, d, iters = 2048, 2048, 128, 500
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     qb, kb, vb = make_inputs(dev, m, n, d, torch.bfloat16)
     _compare("flash_loop[bf16, 4 steps]", lambda: P.flash_loop(qb, kb, vb, 4),
              lambda: P.flash_loop_plain(qb, kb, vb, 4), state, check_only=True,
              fault_fn=lambda: P.flash_loop_plain(qb, kb, vb, 4, drop_first_tile=True),
-             fault="one kv tile left out of the first step", phase="probes")
-    ms_bf16 = _cuda_time_ms(lambda: P.flash_loop(qb, kb, vb, iters), 5)
-    ops = iters * 2 * 4.0 * m * n * d
-    log(f"[probes] flash_loop[bf16, {iters} steps]: kernel {ms_bf16:.3f} ms, bound "
-        f"{ops / PEAK_BF16_FLOPS * 1e3:.3f} ms ({ops / 1e12:.3f} TFLOP at the bf16 peak)")
+             fault="one kv chunk left out of the first step", phase="probes")
+    del qb, kb, vb
+    for nn in (2048, 1024):
+        for dt, peak in ((torch.bfloat16, PEAK_BF16_FLOPS), (torch.int8, PEAK_INT8_OPS)):
+            if dt == torch.int8 and nn == n:
+                continue  # the kernels line's row, below
+            x = make_inputs(dev, m, nn, d, dt)
+            ms = _cuda_time_ms(lambda: P.flash_loop(*x, iters), 5)
+            ops = iters * 2 * 4.0 * m * nn * d
+            split = P.flash_loop_split(m, nn, dt, sms)
+            blocks = -(-nn // split) * -(-m // P.FLASH_LOOP_ROWS)
+            log(f"[probes] flash_loop[{'int8' if dt == torch.int8 else 'bf16'}, {iters} steps, "
+                f"{(m, nn, d)}]: kernel {ms:.3f} ms, bound {ops / peak * 1e3:.3f} ms "
+                f"(operations); {split} keys a block, {blocks} blocks on {sms} SMs, the "
+                f"recomputed chain adds {128 / (2 * split):.1%} of the work")
+            del x
     q8, k8, v8 = make_inputs(dev, m, n, d, torch.int8)
     out = P.flash_loop(q8, k8, v8, iters)
     ref = P.flash_loop_plain(q8, k8, v8, iters)
@@ -1556,11 +1607,14 @@ def _probe_flash_loop_rows(dev, state) -> None:
     err = (out - ref).abs().max().item()
     ms = _cuda_time_ms(lambda: P.flash_loop(q8, k8, v8, iters), 5)
     plain_ms = _cuda_time_ms(lambda: P.flash_loop_plain(q8, k8, v8, iters), 3)
+    ops = iters * 2 * 4.0 * m * n * d
     b_ms = ops / PEAK_INT8_OPS * 1e3
+    split = P.flash_loop_split(m, n, torch.int8, sms)
     log(f"[probes] flash_loop[int8, {iters} steps, {(m, n, d)}]: bit-equal to the plain version "
-        f"{equal} (max_abs_err {err:.3e}); planted fault (one kv tile left out of the first "
+        f"{equal} (max_abs_err {err:.3e}); planted fault (one kv chunk left out of the first "
         f"step) bit-equal {fault_equal}; kernel {ms:.3f} ms plain {plain_ms:.3f} ms library n/a "
-        f"bound {b_ms:.3f} ms (operations; {ops / 1e12:.3f} int8 TOP)")
+        f"bound {b_ms:.3f} ms (operations; {ops / 1e12:.3f} int8 TOP); {split} keys a block, "
+        f"the recomputed chain adds {128 / (2 * split):.1%} of the work")
     if not equal or fault_equal:
         raise RuntimeError("flash_loop int8: not bit-equal to its plain version, or the planted "
                            "fault is not caught")
@@ -4102,8 +4156,9 @@ def phase_t2to_train(state: dict) -> None:
 _KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name), first match wins
     ("attention K7 (int8_prologue + joint_int8_splitkv + joint_int8_combine)",
      ("int8_prologue_kernel", "joint_int8_splitkv_kernel", "joint_int8_combine_kernel")),
-    ("attention K5 (bwd_onepass + bwd_dq_store; bwd_dkdv + bwd_dq at d != 64)",
-     ("bwd_onepass_kernel", "bwd_dq_store_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")),
+    ("attention K5 (bwd_onepass / bwd_onepass128 + bwd_dq_store; bwd_dkdv + bwd_dq at d < 64)",
+     ("bwd_onepass_kernel", "bwd_onepass128_kernel", "bwd_dq_store_kernel", "bwd_dkdv_kernel",
+      "bwd_dq_kernel")),
     ("attention K1 (joint_prologue + joint_splitkv + joint_combine)",
      ("joint_prologue_kernel", "joint_splitkv_kernel", "joint_combine_kernel")),
     ("attention K2 (smallkv_prologue + smallkv)", ("smallkv_prologue_kernel", "smallkv_kernel")),

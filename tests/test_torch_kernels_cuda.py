@@ -424,7 +424,9 @@ def test_backward_head_dims_on_card(cuda_device, d):
     (ragged lengths, a key-bias mask): dq, dk, dv, dbias within REL_L2_BOUND
     and MAX_ABS_REL; then a gradient through `fused_flash_attention` on
     [B, H, S, d] (K6 + K5 under autograd) against autograd through the plain
-    version, one K5 launch."""
+    version, one K5 launch. At 128 (the one-pass body's 64-row q tiles and
+    128-key blocks) also at lengths ragged to both and under one q tile, dq
+    held on two calls (its reduce-adds land in another order each call)."""
     gen = torch.Generator(cuda_device).manual_seed(d)
     b, h, sq, skv = 2, 3, 300, 517
 
@@ -455,6 +457,20 @@ def test_backward_head_dims_on_card(cuda_device, d):
     assert TA.attention_backward.launches == before + 2
     for x, r in zip(*grads):
         _assert_within_bounds(x, r)
+    if d == 128:
+        for sq2, skv2 in ((40, 200), (130, 129), (63, 64), (257, 3)):
+            q2, g2, k2, v2 = (rnd(b, h, n, d) for n in (sq2, sq2, skv2, skv2))
+            bias2 = torch.zeros(b, skv2, device=cuda_device)
+            bias2[0, (skv2 + 1) // 2:] = -1e9  # half of sample 0's keys (a row keeps one)
+            out2, lse2 = TA.attention_plain(q2, k2, v2, bias2, scale, with_lse=True)
+            dsum2 = TA._row_dsum(g2, out2, None)
+            ref2 = TA.attention_bwd_plain(q2, k2, v2, g2, lse2, dsum2, bias2, scale)
+            for _ in range(2):
+                got2 = TA.attention_backward(q2, k2, v2, g2, lse2, dsum2, bias2, None, scale,
+                                             with_dbias=True)
+                torch.cuda.synchronize()
+                for x, r in zip(got2, ref2):
+                    _assert_within_bounds(x, r)
 
 
 def _fused_case(kernel, d, layout, dev, seed):
@@ -699,20 +715,24 @@ def test_probe_unbuilt_tiles_raise_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_probe_flash_loop_on_card(cuda_device):
-    """T6 on m = 40 rows (ragged to its 16-row blocks), n = 208 keys (ragged
-    to its 64-key tiles), d = 128: int8 bit-equal to its plain version
-    (exact integers, int32 wrap) at 7 steps, bf16 within the bounds at 3."""
+    """T6 on m = 40 rows (ragged to its 64-row blocks), n = 208 keys (ragged
+    to its chunks, across a split boundary: two splits in int8, four in
+    bf16), d = 128: int8 bit-equal to its plain version (exact integers,
+    int32 wrap) at 7 steps, bf16 within the bounds at 3; then n = d (one
+    split, which holds the chain's keys) and the CLI's two shapes (2,048 x
+    1,024 and 2,048 x 2,048, splits of 256 and 512 keys) at 3 steps."""
     from tokensgen_tpu_torch.kernels import probes as P
 
     rng = np.random.default_rng(4)
-    m, n, d = 40, 208, 128
-    shapes = ((m, d), (d, n), (n, d))
-    q8, k8, v8 = (torch.from_numpy(rng.integers(-127, 127, s)).to(cuda_device, torch.int8)
-                  for s in shapes)
-    assert torch.equal(P.flash_loop(q8, k8, v8, 7), P.flash_loop_plain(q8, k8, v8, 7))
-    qb, kb, vb = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
-        cuda_device, torch.bfloat16) for s in shapes)
-    _assert_within_bounds(P.flash_loop(qb, kb, vb, 3), P.flash_loop_plain(qb, kb, vb, 3))
+    for m, n, iters in ((40, 208, 7), (40, 128, 7), (2048, 1024, 3), (2048, 2048, 3)):
+        d = 128
+        shapes = ((m, d), (d, n), (n, d))
+        q8, k8, v8 = (torch.from_numpy(rng.integers(-127, 127, s)).to(cuda_device, torch.int8)
+                      for s in shapes)
+        assert torch.equal(P.flash_loop(q8, k8, v8, iters), P.flash_loop_plain(q8, k8, v8, iters))
+        qb, kb, vb = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+            cuda_device, torch.bfloat16) for s in shapes)
+        _assert_within_bounds(P.flash_loop(qb, kb, vb, 3), P.flash_loop_plain(qb, kb, vb, 3))
 
 
 @pytest.mark.cuda

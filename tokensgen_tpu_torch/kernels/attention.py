@@ -44,7 +44,8 @@ with the probes, `csrc/flash_fwd.cuh`, K3's and K4's split-KV body,
 splits, each split's f32 partials merged by a combine pass), K1's, K6's and
 K7's overlapped body on the same machinery (K7's with int8 scores) and K2's
 K / V-resident form of it, `csrc/flash_ws.cuh`, and K5's one-pass backward
-at head dim 64, `csrc/flash_bwd.cuh`; the float32 K4 is
+at head dims 64 and 128, `csrc/flash_bwd.cuh` and `csrc/flash_bwd128.cuh`
+(at 16 and 32 the two-pass form of `csrc/attention.cu`); the float32 K4 is
 `csrc/attention_f32.cu`, a library of its own. K1, K2, K3 and K6 run their
 prologues once per row in a pass of their own (`prologue_pass_plain`'s function) into
 a bf16 workspace; K7 quantizes in its pass (`quantize_pairs_plain`'s
@@ -81,8 +82,10 @@ from tokensgen_tpu_torch.kernels.build import BUILD_DIR, NVCC_FLAGS  # noqa: F40
 _LOG2E = 1.4426950408889634
 _SMALLKV_MAX = 512  # kv rows K2 holds whole in shared memory (csrc SMALLKV_MAX)
 SMALLKV_BLOCK_Q = 256  # q rows per tile of K2's body (csrc WS_BM)
-BWD_KV_BLOCK = 128  # keys per block of K5's one-pass body at head dim 64 (csrc BW_BKV)
-BWD_Q_TILE = 128  # q rows per tile of its sweep (csrc BW_BQ)
+BWD_KV_BLOCK = 128  # keys per block of K5's one-pass bodies (csrc BW_BKV, B8_BKV)
+BWD_Q_TILE = 128  # q rows per tile of their sweep at head dim 64 (csrc BW_BQ)
+BWD_Q_TILE_128 = 64  # ... and at 128, where the registers hold m64n64 scores (csrc B8_BQ)
+ONEPASS_HEAD_DIMS = (64, 128)  # head dims K5 runs in one pass (16 and 32: two passes)
 HEAD_DIMS = (16, 32, 64, 128)  # head dims K4, K5 and K6 are built for (K1-K3, K7: 64)
 F32_HEAD_DIMS = (16, 32, 64)  # head dims the float32 K4 is built for
 MAX_SCORE_BYTES = 1 << 31  # f32 score tensor per q-row chunk of `attention_plain`
@@ -266,19 +269,31 @@ def attention_bwd_plain(q, k, v, g, lse, dsum, key_bias, scale: float):
     return torch.cat(dqs, dim=2), dk.to(dt), dv.to(dt), dbias
 
 
+def bwd_q_tile(d: int) -> int:
+    """q rows per tile of K5's one-pass sweep at head dim ``d`` (64 or 128):
+    128 at 64; 64 at 128, where a warpgroup's dk and dv accumulators take 128
+    registers a thread and leave room for m64n64 scores only."""
+    return BWD_Q_TILE if d == 64 else BWD_Q_TILE_128
+
+
 def attention_bwd_onepass_plain(q, k, v, g, lse, dsum, key_bias, scale: float,
-                                kv_block: int = BWD_KV_BLOCK):
-    """K5's one-pass decomposition (csrc flash_bwd.cuh, the card's form at
-    head dim 64) on [B, H, S, D]: per block of ``kv_block`` keys, in the
-    transposed form of the kernel (keys on the rows, the log2 domain),
-    s^T = k q^T, p^T = exp2(scale log2 e s^T + bias log2 e - lse log2 e),
-    ds^T = p^T (v g^T - dsum); the block's dv = p^T g, dk = scale ds^T q and
-    dbias = sum over q of ds^T, and its share of dq, (ds^T)^T k, summed over
-    the blocks in f32 (the kernel's workspace) and scaled once. Rounding
-    points and arguments as `attention_bwd_plain`, which it equals."""
+                                kv_block: int = BWD_KV_BLOCK, q_tile: Optional[int] = None):
+    """K5's one-pass decomposition (csrc flash_bwd.cuh and flash_bwd128.cuh,
+    the card's form at head dims 64 and 128) on [B, H, S, D]: per block of
+    ``kv_block`` keys and, within it, per tile of ``q_tile`` q rows (None:
+    one tile of all Sq), in the transposed form of the kernel (keys on the
+    rows, the log2 domain), s^T = k q^T, p^T = exp2(scale log2 e s^T + bias
+    log2 e - lse log2 e), ds^T = p^T (v g^T - dsum); the block's dv = p^T g,
+    dk = scale ds^T q and dbias = sum over q of ds^T summed over its tiles in
+    f32, and each tile's share of dq, (ds^T)^T k, summed over the blocks in
+    f32 (the kernel's workspace) and scaled once. (At 128 the kernel splits a
+    share by d columns between its warpgroups: columns apart, no other sum.)
+    Rounding points and arguments as `attention_bwd_plain`, which it
+    equals."""
     b, h, sq, _ = q.shape
     skv = k.shape[2]
     dt = q.dtype
+    q_tile = sq if q_tile is None else q_tile
     qf, gf = q.float(), g.float()
     bias2 = (torch.zeros(b, skv, device=q.device) if key_bias is None
              else key_bias.float()) * _LOG2E
@@ -287,14 +302,24 @@ def attention_bwd_onepass_plain(q, k, v, g, lse, dsum, key_bias, scale: float,
     dks, dvs, dbs = [], [], []
     for k0 in range(0, skv, kv_block):
         kb, vb = k[:, :, k0:k0 + kv_block].float(), v[:, :, k0:k0 + kv_block].float()
-        st = torch.einsum("bhkd,bhqd->bhkq", kb, qf)
-        pt = torch.exp2(st * (scale * _LOG2E) + bias2[:, None, k0:k0 + kv_block, None] - lse2)
-        dst = pt * (torch.einsum("bhkd,bhqd->bhkq", vb, gf) - dsum[:, :, None, :])
-        dsb = dst.to(dt).float()
-        dvs.append(torch.einsum("bhkq,bhqd->bhkd", pt.to(dt).float(), gf))
-        dks.append(torch.einsum("bhkq,bhqd->bhkd", dsb, qf) * scale)
-        dbs.append(dst.sum(dim=(1, 3)))
-        dq += torch.einsum("bhkq,bhkd->bhqd", dsb, kb)
+        dkb = torch.zeros(kb.shape, dtype=torch.float32, device=q.device)
+        dvb = torch.zeros(vb.shape, dtype=torch.float32, device=q.device)
+        dbb = torch.zeros(b, kb.shape[2], dtype=torch.float32, device=q.device)
+        for q0 in range(0, sq, q_tile):
+            sl = slice(q0, q0 + q_tile)
+            qt, gt = qf[:, :, sl], gf[:, :, sl]
+            st = torch.einsum("bhkd,bhqd->bhkq", kb, qt)
+            pt = torch.exp2(st * (scale * _LOG2E) + bias2[:, None, k0:k0 + kv_block, None]
+                            - lse2[..., sl])
+            dst = pt * (torch.einsum("bhkd,bhqd->bhkq", vb, gt) - dsum[:, :, None, sl])
+            dsb = dst.to(dt).float()
+            dvb += torch.einsum("bhkq,bhqd->bhkd", pt.to(dt).float(), gt)
+            dkb += torch.einsum("bhkq,bhqd->bhkd", dsb, qt)
+            dbb += dst.sum(dim=(1, 3))
+            dq[:, :, sl] += torch.einsum("bhkq,bhkd->bhqd", dsb, kb)
+        dvs.append(dvb)
+        dks.append(dkb * scale)
+        dbs.append(dbb)
     return ((dq * scale).to(dt), torch.cat(dks, dim=2).to(dt), torch.cat(dvs, dim=2).to(dt),
             torch.cat(dbs, dim=1))
 
@@ -617,7 +642,7 @@ class _F32Args(ctypes.Structure):
 
 
 _K2_ENTRY_POINT = "tg_attention_cross_smallkv"  # q tiles per block, prologue workspace
-_BWD_ENTRY_POINT = "tg_attention_bwd"  # head dim, then (at 64) the lse / dsum table and dq's sums
+_BWD_ENTRY_POINT = "tg_attention_bwd"  # head dim, then (at 64, 128) the lse / dsum table, dq's sums
 _INT8_ENTRY_POINT = "tg_attention_joint_int8"  # splits, split_len, split workspace
 _INT8_GEOMETRY = "tg_attention_joint_int8_geometry"  # the body's shared memory and threads
 _K1_ENTRY_POINT = "tg_attention_joint"  # splits, split_len, prologue and split workspaces
@@ -970,8 +995,8 @@ def _launch_bwd(q, k, v, g, lse, dsum, key_bias, heads, scale: float, with_dbias
     a.b, a.h, a.sq, a.skv = b, h, sq, skv
     a.scale = scale
     aux = ws = None
-    if d == 64:  # the one-pass body: its lse / dsum table and dq's f32 sums
-        aux = bwd_aux_table(lse, dsum)
+    if d in ONEPASS_HEAD_DIMS:  # the one-pass body: its lse / dsum table and dq's f32 sums
+        aux = bwd_aux_table(lse, dsum, bwd_q_tile(d))
         ws = torch.zeros(b, h, sq, d, dtype=torch.float32, device=q.device)
         keep += [aux, ws]
     err = getattr(lib, _BWD_ENTRY_POINT)(
@@ -981,17 +1006,18 @@ def _launch_bwd(q, k, v, g, lse, dsum, key_bias, heads, scale: float, with_dbias
     return (*grads, None if dbias is None else dbias.sum(dim=1))
 
 
-def bwd_aux_table(lse, dsum):
+def bwd_aux_table(lse, dsum, tile: int = BWD_Q_TILE):
     """The per-q-tile table of K5's one-pass body: f32 [B * H, ceil(Sq /
-    `BWD_Q_TILE`), 2, `BWD_Q_TILE`], each tile's lse * log2 e, then its
-    dsum; past Sq lse * log2 e = +inf and dsum = 0, so that p = ds = 0 on
-    the padding rows (which the kernel reads as zeros)."""
+    ``tile``), 2, ``tile``] (``tile``: `bwd_q_tile` of the head dim), each
+    tile's lse * log2 e, then its dsum; past Sq lse * log2 e = +inf and
+    dsum = 0, so that p = ds = 0 on the padding rows (which the kernel reads
+    as zeros)."""
     b, h, sq = lse.shape
-    nq = -(-sq // BWD_Q_TILE)
-    pad = nq * BWD_Q_TILE - sq
+    nq = -(-sq // tile)
+    pad = nq * tile - sq
     lse2 = torch.nn.functional.pad(lse.reshape(b * h, sq) * _LOG2E, (0, pad), value=math.inf)
     ds = torch.nn.functional.pad(dsum.reshape(b * h, sq), (0, pad))
-    return torch.stack((lse2.view(b * h, nq, BWD_Q_TILE), ds.view(b * h, nq, BWD_Q_TILE)), dim=2)
+    return torch.stack((lse2.view(b * h, nq, tile), ds.view(b * h, nq, tile)), dim=2)
 
 
 def int8_scale_stride(s: int) -> int:
@@ -1160,10 +1186,10 @@ def attention_backward(q, k, v, g, lse, dsum, key_bias=None, heads: Optional[int
     for the fused-prologue attention they are the PROLOGUED q/k and scale is
     1. ``lse`` (natural log) and ``dsum = rowsum(g * out)`` per head: f32
     [B, H, Sq]. dbias (f32 [B, Skv], summed over heads) is computed only
-    ``with_dbias``, else None. On the card at D = 64 the one-pass body adds
-    dq's shares across blocks of keys with TMA reduce-adds in no fixed
-    order, so dq (not dk, dv or dbias) may differ from call to call in its
-    last bits."""
+    ``with_dbias``, else None. On the card at D = 64 and 128 the one-pass
+    body adds dq's shares across blocks of keys with TMA reduce-adds in no
+    fixed order, so dq (not dk, dv or dbias) may differ from call to call in
+    its last bits."""
     if q.device.type == "cpu":
         split = (lambda x: split_heads(x, heads)) if heads is not None else (lambda x: x)
         merge = merge_heads if heads is not None else (lambda x: x)

@@ -1,13 +1,13 @@
 // Flash-attention kernels for the attention calls of the To2V edit, training
 // and generation paths and of the T2To trainer, written for Hopper (sm_90a),
 // head dim 64 (K4, K5, K6: 16, 32, 64 or 128), bf16 operands with f32 softmax and
-// accumulation (K1-K4, K6, K7 and K5 at head dim 64: wgmma, K7's score
-// product in int8 (s32.s8.s8); K5 at 16, 32 and 128: mma.sync m16n8k16
+// accumulation (K1-K4, K6, K7 and K5 at head dims 64 and 128: wgmma, K7's
+// score product in int8 (s32.s8.s8); K5 at 16 and 32: mma.sync m16n8k16
 // tiles, its pieces flash_fwd.cuh's, shared with the K4-family probes of
 // probes.cu). K3's and K4's body is the split-KV body of flash_splitkv.cuh,
 // K1's, K6's and K7's the overlapped one of flash_ws.cuh (K7's with int8
-// scores), K2's its K / V-resident form there; K5's one-pass body at 64 is
-// flash_bwd.cuh's.
+// scores), K2's its K / V-resident form there; K5's one-pass body is
+// flash_bwd.cuh's at 64 and flash_bwd128.cuh's at 128.
 //
 // Replaces the Pallas TPU kernels of tokensgen_tpu/kernels/attention.py:
 //   tg_attention_joint          joint_prologue_kernel + joint_splitkv_kernel
@@ -20,8 +20,9 @@
 //                                               <- _cross_smallq_kernel  (_flash_cross_smallq_tpu)
 //   tg_attention_bhsd           bhsd_splitkv_kernel<HD> (+ bhsd_combine_kernel<HD>)
 //                                               <- _flash_kernel         (_flash_attention_tpu)
-//   tg_attention_bwd            bwd_onepass_kernel + bwd_dq_store_kernel (head dim 64),
-//                               bwd_dkdv_kernel<HD> + bwd_dq_kernel<HD> (16, 32, 128)
+//   tg_attention_bwd            bwd_onepass_kernel + bwd_dq_store_kernel<64> (head dim 64),
+//                               bwd_onepass128_kernel + bwd_dq_store_kernel<128> (128),
+//                               bwd_dkdv_kernel<HD> + bwd_dq_kernel<HD> (16, 32)
 //                                               <- _packed_bwd_kernel    (_flash_packed_bwd_tpu)
 //   tg_attention_joint_int8     int8_prologue_kernel + joint_int8_splitkv_kernel
 //                               (+ joint_int8_combine_kernel)
@@ -67,8 +68,9 @@
 //   loaded by the Tensor Memory Accelerator into a 4-stage ring, both
 //   products on wgmma, 256 q rows a block at head dims <= 64; then a
 //   combine of the splits' f32 partials in a fixed order.
-// * K5 at head dim 64: one pass over the q tiles per block of keys, five
-//   products on wgmma, dq summed across blocks by atomics (flash_bwd.cuh).
+// * K5 at head dims 64 and 128: one pass over the q tiles per block of keys,
+//   five products on wgmma, dq summed across blocks by TMA reduce-adds
+//   (flash_bwd.cuh, flash_bwd128.cuh).
 // * Online-max softmax in the exp2 domain (the TPU's max-free shift by a
 //   table bound is a TPU trick; exact softmax is what both compute).
 // * p is rounded to bf16 before p@v; l sums the f32 p; o = acc / l.
@@ -76,6 +78,7 @@
 //   stored, keys past Skv score -inf. No padded copies are made.
 
 #include "flash_bwd.cuh"
+#include "flash_bwd128.cuh"
 #include "flash_fwd.cuh"
 #include "flash_splitkv.cuh"
 #include "flash_ws.cuh"
@@ -238,32 +241,29 @@ __global__ void __launch_bounds__(WS_NT, 1) smallkv_kernel(
 // on this card: the five products at the bf16 tensor-core rate.
 //
 // At head dim 64 (every launch of both full-width trainers) it is one pass,
-// flash_bwd.cuh's (`bwd_onepass_kernel`, then `bwd_dq_store_kernel`): a
+// flash_bwd.cuh's (`bwd_onepass_kernel`, then `bwd_dq_store_kernel<64>`): a
 // block owns 128 keys of one (b, h) with K and V in shared memory, streams
 // the q tiles by TMA, runs the five products on wgmma and adds its share of
-// dq to an f32 workspace with atomics. The same form serves the short sides
-// of the training shapes: 480 keys give 4 blocks per (b, h), 384 in all for
-// 132 SMs (2.9 waves of equal blocks), and 480 q rows 4 q tiles per block,
-// 143 blocks per (b, h) adding into the same dq rows.
+// dq to an f32 workspace by TMA reduce-adds. The same form serves the short
+// sides of the training shapes: 480 keys give 4 blocks per (b, h), 384 in
+// all for 132 SMs (2.9 waves of equal blocks), and 480 q rows 4 q tiles per
+// block, 143 blocks per (b, h) adding into the same dq rows. At head dim 128
+// it is the same form re-cut for the registers (flash_bwd128.cuh's
+// `bwd_onepass128_kernel`, then `bwd_dq_store_kernel<128>`): q tiles of 64
+// rows, dq split between the warpgroups by d columns.
 //
-// At head dims 16, 32 and 128 it keeps FA2's two-pass form (deterministic,
-// no atomics, mma.sync): at 128 the one-pass body's dk and dv accumulators
-// alone would take 128 registers a thread beside the 128 of s^T and dp^T;
-// 16 and 32 carry 18 and 0 launches (the tiny To2V trainer). The head dim is
-// a template parameter there: the smem tiles are [rows][HD + 8], the
-// transposed ones [HD][72], the fragment loops run HD / 16 k-steps and
-// HD / 8 column tiles, and the lse, dsum and bias are per row or key,
-// whatever HD. The tiles are dynamic shared memory (above the 49,152 bytes
-// of a static allocation at HD = 128: 53.2 KB for the dq pass, 141.3 KB for
-// the dk/dv pass).
+// At head dims 16 and 32 it keeps FA2's two-pass form (deterministic, no
+// atomics, mma.sync): they carry 18 and 0 launches (the tiny To2V trainer).
+// The head dim is a template parameter there: the smem tiles are
+// [rows][HD + 8], the transposed ones [HD][72], the fragment loops run
+// HD / 16 k-steps and HD / 8 column tiles, and the lse, dsum and bias are
+// per row or key, whatever HD. The tiles are dynamic shared memory.
 // * bwd_dkdv_kernel: a block owns 128 kv rows of one (b, h) (8 warps x 16
 //   rows; K and V held as mma A fragments in registers) and sweeps every q
 //   tile of 64 rows: s^T = K q^T and dp^T = V g^T, then dv += p^T g and
 //   dk += ds^T q. q and g are staged row-major (for the B fragments of the
 //   first two products) and transposed (for the last two). dbias is written
-//   per (b, h, key); the caller sums it over heads. At HD = 128 K and V stay
-//   in shared memory (69.6 KB for the block's 128 rows) and each k-step of
-//   the two score products loads its two fragments from there.
+//   per (b, h, key); the caller sums it over heads.
 // * bwd_dq_kernel: a block owns 128 q rows (q and g as A fragments) and
 //   sweeps kv tiles of 64: s = q K^T, dp = g V^T, dq += ds K, with K staged
 //   row-major and transposed.
@@ -278,16 +278,11 @@ constexpr int BWD_BQ2 = BM;   // q rows per dq block
 constexpr int BWD_BKV2 = BN;  // kv rows per step of its sweep
 constexpr int LDT = 64 + 8;   // pitch of the transposed 64-column tiles
 
-// The dk/dv pass keeps K and V in shared memory, not in registers (HD = 128)
-template <int HD>
-__host__ __device__ constexpr bool kv_resident() { return HD > 64; }
-
 // dynamic shared memory of the two passes: the row-major q and g (k and v)
-// tiles, the transposed ones, and the resident K and V rows
+// tiles and the transposed ones
 template <int HD>
 constexpr size_t dkdv_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (2 * BWD_BQ * pitch(HD) + 2 * HD * LDT +
-                                  (kv_resident<HD>() ? 2 * BWD_BKV * pitch(HD) : 0));
+  return sizeof(__nv_bfloat16) * (2 * BWD_BQ * pitch(HD) + 2 * HD * LDT);
 }
 
 template <int HD>
@@ -328,23 +323,10 @@ __device__ __forceinline__ void store_rows16(const float (&acc)[HD / 8][4], __nv
   }
 }
 
-// The A fragment of k-step kk for this warp's 16 rows of a [rows][pitch(HD)] tile.
-template <int HD>
-__device__ __forceinline__ void load_a_frag(uint32_t* x, const __nv_bfloat16* S, int kk) {
-  constexpr int ld = pitch(HD);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const __nv_bfloat16* p = S + (warp * 16 + (lane >> 2)) * ld + kk * 16 + (lane & 3) * 2;
-  x[0] = *reinterpret_cast<const uint32_t*>(p);
-  x[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-  x[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  x[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
-}
-
 // Grid (ceil(Skv / 128), H, B); dynamic shared memory dkdv_smem_bytes<HD>().
 template <int HD>
 __global__ void __launch_bounds__(NTHREADS) bwd_dkdv_kernel(const TGAttnBwdArgs a) {
   constexpr int ld = pitch(HD);
-  constexpr bool RES = kv_resident<HD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* buf = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __shared__ float lse2_s[BWD_BQ];
@@ -353,8 +335,6 @@ __global__ void __launch_bounds__(NTHREADS) bwd_dkdv_kernel(const TGAttnBwdArgs 
   __nv_bfloat16* Gs = buf + BWD_BQ * ld;                     // [64 q][ld]
   __nv_bfloat16* Qt = buf + 2 * BWD_BQ * ld;                 // [HD d][LDT]
   __nv_bfloat16* Gt = buf + 2 * BWD_BQ * ld + HD * LDT;      // [HD d][LDT]
-  __nv_bfloat16* Kr = Gt + HD * LDT;                         // RES: [128 kv][ld]
-  __nv_bfloat16* Vr = Kr + BWD_BKV * ld;                     // RES: [128 kv][ld]
   const int kv0 = blockIdx.x * BWD_BKV, h = blockIdx.y, b = blockIdx.z;
   const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -371,23 +351,15 @@ __global__ void __launch_bounds__(NTHREADS) bwd_dkdv_kernel(const TGAttnBwdArgs 
   const Side none{};
 
   // K and V rows of this block -> A fragments, staged through buf (128 rows
-  // of pitch ld: the two row-major q / g tiles' room); with RES they stay
-  // in Kr / Vr (visible after the sweep's first barrier) and ka / va hold
-  // one k-step's fragments at a time
-  constexpr int NF = RES ? 1 : HD / 16;
-  uint32_t ka[NF][4], va[NF][4];
-  if constexpr (RES) {
-    load_rows<false, HD>(Kr, ld, k, a.k_ss, kv0, BWD_BKV, skv, none, b, 1.f, 0.f);
-    load_rows<false, HD>(Vr, ld, v, a.v_ss, kv0, BWD_BKV, skv, none, b, 1.f, 0.f);
-  } else {
-    load_rows<false, HD>(buf, ld, k, a.k_ss, kv0, BWD_BKV, skv, none, b, 1.f, 0.f);
-    __syncthreads();
-    load_q_frags<HD>(ka, buf);
-    __syncthreads();
-    load_rows<false, HD>(buf, ld, v, a.v_ss, kv0, BWD_BKV, skv, none, b, 1.f, 0.f);
-    __syncthreads();
-    load_q_frags<HD>(va, buf);
-  }
+  // of pitch ld: the two row-major q / g tiles' room)
+  uint32_t ka[HD / 16][4], va[HD / 16][4];
+  load_rows<false, HD>(buf, ld, k, a.k_ss, kv0, BWD_BKV, skv, none, b, 1.f, 0.f);
+  __syncthreads();
+  load_q_frags<HD>(ka, buf);
+  __syncthreads();
+  load_rows<false, HD>(buf, ld, v, a.v_ss, kv0, BWD_BKV, skv, none, b, 1.f, 0.f);
+  __syncthreads();
+  load_q_frags<HD>(va, buf);
 
   // this thread's two kv rows: bias in the log2 domain, -inf past Skv
   const int rA = kv0 + warp * 16 + g, rB = rA + 8;
@@ -415,18 +387,13 @@ __global__ void __launch_bounds__(NTHREADS) bwd_dkdv_kernel(const TGAttnBwdArgs 
     zero_tile(dp);
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      const int f = RES ? 0 : kk;
-      if constexpr (RES) {
-        load_a_frag<HD>(ka[0], Kr, kk);
-        load_a_frag<HD>(va[0], Vr, kk);
-      }
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         const __nv_bfloat16* qp = Qs + (nt * 8 + g) * ld + kk * 16 + t * 2;
-        mma16816(s[nt], ka[f], *reinterpret_cast<const uint32_t*>(qp),
+        mma16816(s[nt], ka[kk], *reinterpret_cast<const uint32_t*>(qp),
                  *reinterpret_cast<const uint32_t*>(qp + 8));
         const __nv_bfloat16* gp = Gs + (nt * 8 + g) * ld + kk * 16 + t * 2;
-        mma16816(dp[nt], va[f], *reinterpret_cast<const uint32_t*>(gp),
+        mma16816(dp[nt], va[kk], *reinterpret_cast<const uint32_t*>(gp),
                  *reinterpret_cast<const uint32_t*>(gp + 8));
       }
     }
@@ -587,9 +554,20 @@ __global__ void __launch_bounds__(BW_NT, 1) bwd_onepass_kernel(
   bwd_onepass_body(a, &qmap, &gmap, &kmap, &vmap, &dqmap, aux);
 }
 
+// K5 at head dim 128: flash_bwd128.cuh's one-pass body, grid (ceil(Skv / 128),
+// H, B); dynamic shared memory bw128_smem_bytes()
+__global__ void __launch_bounds__(BW_NT, 1) bwd_onepass128_kernel(
+    const TGAttnBwdArgs a, const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap gmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap dqmap,
+    const float* aux) {
+  bwd_onepass128_body(a, &qmap, &gmap, &kmap, &vmap, &dqmap, aux);
+}
+
+template <int HD>
 __global__ void __launch_bounds__(NTHREADS) bwd_dq_store_kernel(const TGAttnBwdArgs a,
                                                                 const float* dqws) {
-  bwd_dq_store(a, dqws);
+  bwd_dq_store<HD>(a, dqws);
 }
 
 }  // namespace
@@ -772,13 +750,15 @@ cudaError_t scale_map(CUtensorMap* map, const void* base, long long s, long long
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The 3-D f32 tensor map of K5's dq workspace [B * H][Sq][64]: boxes of 32
+// The 3-D f32 tensor map of K5's dq workspace [B * H][Sq][HD]: boxes of 32
 // columns x 64 rows in the 128-byte swizzle; rows past Sq are clipped.
-cudaError_t dq_ws_map(CUtensorMap* map, void* base, long long sq, long long bh) {
+cudaError_t dq_ws_map(CUtensorMap* map, void* base, long long sq, long long bh, int hd) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {64, static_cast<cuuint64_t>(sq), static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {64 * 4, static_cast<cuuint64_t>(sq) * 64 * 4};
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(sq),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd) * 4,
+                                 static_cast<cuuint64_t>(sq) * hd * 4};
   const cuuint32_t box[3] = {32, 64, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base, dims, strides, box, unit,
@@ -915,7 +895,7 @@ int launch_bwd_onepass(const TGAttnBwdArgs* a, const void* aux, void* dqws, cuda
     err = kv_tensor_map<64>(&kmap, a->k, a->skv, a->h, a->b, a->k_ss, a->k_sh, a->k_sb);
   if (err == cudaSuccess)
     err = kv_tensor_map<64>(&vmap, a->v, a->skv, a->h, a->b, a->v_ss, a->v_sh, a->v_sb);
-  if (err == cudaSuccess) err = dq_ws_map(&dqmap, dqws, a->sq, a->b * a->h);
+  if (err == cudaSuccess) err = dq_ws_map(&dqmap, dqws, a->sq, a->b * a->h, 64);
   constexpr int smem = bw_smem_bytes();
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(bwd_onepass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -928,8 +908,41 @@ int launch_bwd_onepass(const TGAttnBwdArgs* a, const void* aux, void* dqws, cuda
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long threads = a->b * a->h * a->sq * 8;
-  bwd_dq_store_kernel<<<static_cast<unsigned>((threads + NTHREADS - 1) / NTHREADS), NTHREADS, 0,
-                        s>>>(*a, static_cast<const float*>(dqws));
+  bwd_dq_store_kernel<64><<<static_cast<unsigned>((threads + NTHREADS - 1) / NTHREADS), NTHREADS,
+                            0, s>>>(*a, static_cast<const float*>(dqws));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5 at head dim 128: the one-pass body, then dq from the workspace. ``aux``:
+// f32 [B * H][ceil(Sq / 64)][lse2 | dsum][64] (past Sq lse2 = +inf and dsum =
+// 0); ``dqws``: f32 [B, H, Sq, 128], zeroed.
+int launch_bwd_onepass128(const TGAttnBwdArgs* a, const void* aux, void* dqws, cudaStream_t s) {
+  if (a->sq <= 0 || a->skv <= 0 || aux == nullptr || dqws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap qmap, gmap, kmap, vmap, dqmap;
+  cudaError_t err =
+      kv_tensor_map<128>(&qmap, a->q, a->sq, a->h, a->b, a->q_ss, a->q_sh, a->q_sb, B8_BQ);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<128>(&gmap, a->g, a->sq, a->h, a->b, a->g_ss, a->g_sh, a->g_sb, B8_BQ);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<128>(&kmap, a->k, a->skv, a->h, a->b, a->k_ss, a->k_sh, a->k_sb, B8_BKV);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<128>(&vmap, a->v, a->skv, a->h, a->b, a->v_ss, a->v_sh, a->v_sb, B8_BKV);
+  if (err == cudaSuccess) err = dq_ws_map(&dqmap, dqws, a->sq, a->b * a->h, 128);
+  constexpr int smem = bw128_smem_bytes();
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(bwd_onepass128_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((a->skv + B8_BKV - 1) / B8_BKV),
+                  static_cast<unsigned>(a->h), static_cast<unsigned>(a->b));
+  bwd_onepass128_kernel<<<grid, BW_NT, smem, s>>>(*a, qmap, gmap, kmap, vmap, dqmap,
+                                                  static_cast<const float*>(aux));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long threads = a->b * a->h * a->sq * 16;
+  bwd_dq_store_kernel<128><<<static_cast<unsigned>((threads + NTHREADS - 1) / NTHREADS), NTHREADS,
+                             0, s>>>(*a, static_cast<const float*>(dqws));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1035,9 +1048,10 @@ int tg_attention_cross_smallkv(const TGAttnArgs* a, long long per_block, void* p
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5: attention backward, head_dim 16, 32, 64 or 128: at 64 the one-pass
-// body (``aux`` and ``ws`` as launch_bwd_onepass takes them), else the dk/dv
-// (and dbias) pass then the dq pass (``aux`` and ``ws`` unused).
+// K5: attention backward, head_dim 16, 32, 64 or 128: at 64 and 128 the
+// one-pass body (``aux`` and ``ws`` as launch_bwd_onepass /
+// launch_bwd_onepass128 take them), else the dk/dv (and dbias) pass then the
+// dq pass (``aux`` and ``ws`` unused).
 int tg_attention_bwd(const TGAttnBwdArgs* a, long long head_dim, void* aux, void* ws,
                      void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1045,7 +1059,7 @@ int tg_attention_bwd(const TGAttnBwdArgs* a, long long head_dim, void* aux, void
     case 16: return launch_bwd<16>(a, s);
     case 32: return launch_bwd<32>(a, s);
     case 64: return launch_bwd_onepass(a, aux, ws, s);
-    case 128: return launch_bwd<128>(a, s);
+    case 128: return launch_bwd_onepass128(a, aux, ws, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,8 +1,9 @@
 // K5's one-pass attention backward at head dim 64 (`bwd_onepass_kernel` in
-// attention.cu, with `bwd_dq_store_kernel` after it), on flash_splitkv.cuh's
+// attention.cu, with `bwd_dq_store_kernel<64>` after it), on flash_splitkv.cuh's
 // and flash_ws.cuh's machinery: TMA tiles in the 128-byte swizzle, mbarriers,
 // every product on wgmma. It replaces FA2's two-pass form (bwd_dkdv_kernel +
-// bwd_dq_kernel, which stay at head dims 16, 32 and 128) at 64.
+// bwd_dq_kernel, which stay at head dims 16 and 32) at 64; flash_bwd128.cuh
+// holds its form at 128.
 //
 // What it computes, from the forward's natural-log lse (in the log2 domain:
 // lse2 = lse log2 e, c = scale log2 e, bias2 = bias log2 e):
@@ -391,17 +392,20 @@ __device__ __forceinline__ void bwd_onepass_body(const TGAttnBwdArgs& a, const C
   }
 }
 
-// dq = scale * the workspace, in bf16 at dq's strides: one thread per 8
-// columns of a row (B * H * Sq * 8 threads)
+// dq = scale * the workspace [B, H, Sq, HD], in bf16 at dq's strides: one
+// thread per 8 columns of a row (B * H * Sq * HD / 8 threads)
+template <int HD>
 __device__ __forceinline__ void bwd_dq_store(const TGAttnBwdArgs& a, const float* dqws) {
+  static_assert(HD == 64 || HD == 128, "the one-pass bodies' head dims");
+  constexpr int SH = HD == 64 ? 3 : 4;  // log2 of the threads a row
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long row = idx >> 3;  // (b * H + h) * Sq + r
+  const long long row = idx >> SH;  // (b * H + h) * Sq + r
   if (row >= a.b * a.h * a.sq) return;
-  const int c0 = static_cast<int>(idx & 7) * 8;
+  const int c0 = static_cast<int>(idx & ((1 << SH) - 1)) * 8;
   const int r = static_cast<int>(row % a.sq);
   const long long bh = row / a.sq;
   const int b = static_cast<int>(bh / a.h), h = static_cast<int>(bh % a.h);
-  const float4* p = reinterpret_cast<const float4*>(dqws + row * 64 + c0);
+  const float4* p = reinterpret_cast<const float4*>(dqws + row * HD + c0);
   const float4 x0 = p[0], x1 = p[1];
   const float s = static_cast<float>(a.scale);
   uint4 out;

@@ -22,9 +22,9 @@
 // T7, tg_probe_matmul (<- tools/bench_matmul_pallas.py `_mm_kernel`), is
 // its own source, probe_gemm.cu. Each computes the JAX function, not the
 // TPU's blocking. T1, T2, T4a and T4b (probes_hopper.cuh), T3a, T3b and T5
-// (probes_maxfree.cuh) and T7 are Hopper bodies (TMA loads on mbarriers,
-// wgmma); T6 and T8 are simple first versions (synchronous loads, mma.sync;
-// T8 no products), right before fast.
+// (probes_maxfree.cuh), T6 (below: k and v resident per key split, wgmma)
+// and T7 are Hopper bodies (TMA or once-per-block loads, wgmma); T8 has no
+// products and is a plain register loop.
 
 #include <cfloat>
 
@@ -42,84 +42,245 @@ namespace {
 //            int8 -> clip(s >> 7, -127, 127) (arithmetic shift)
 //   out = f32(acc_a + acc_b)   (int32 sums wrap, as JAX's)
 //
-// q [m, d], k [d, n], v [n, d] row-major; out f32 [m, d]. Rows of q evolve
-// independently, so the m rows are split over blocks of 16 (m / 16 blocks:
-// one wave for m = 2048 on 132 SMs); the two chains of a block run in its two
-// warps on the same rows (they are independent, as on the TPU, where they let
-// the matrix unit pipeline). k and v do not fit in an SM (bf16 k of 128 x 1024
-// is 256 KB), so they stream through shared memory in tiles of 64 keys, k
-// transposed to [key][d] and v to [d][key] (the mma B-fragment layouts).
-// bf16 products are mma.sync m16n8k16 with f32 sums and p fed back as
-// registers; int8 products m16n8k32 with s32 sums (they wrap), p and the next
-// q going through a per-warp shared tile because the s32 accumulator layout
-// is not the s8 A-fragment layout. The next q is staged in shared memory for
-// both types. Bound: iters x 2 chains x 4 m n d operations at the bf16 or int8
-// tensor-core rate.
+// q [m, d], k [d, n], v [n, d] row-major, d = 128; out f32 [m, d]. Bound:
+// iters x 2 chains x 4 m n d operations at the bf16 or int8 tensor-core
+// rate (no library call computes it).
+//
+// Design: the keys are split so that a block's share of k and v stays in
+// shared memory through every step, which then reads no global memory (the
+// first version streamed all of k and v from L2 in each of the 500 steps).
+// * A block owns 64 rows of q and one split of `split` keys (grid (splits,
+//   ceil(m / 64)); the host's `probes.flash_loop_split` picks the split);
+//   warpgroup w runs chain w on those rows: the two chains are computed in
+//   full, each on its own, as on the TPU.
+// * q's next value is requant(s[:, :d]), over n's first 128 keys, which one
+//   split does not hold. So every block also keeps k[:, :128] and computes
+//   it itself, q @ k[:, :128] after the split's products, by the same
+//   instructions in the same order in every block: each block's q is every
+//   other's, and no block waits for another between steps. That adds 128 /
+//   (2 split) of the work (1/8 at 512 keys a split).
+// * Per step and chunk of the split's keys: s = q @ k_chunk on wgmma (q as A
+//   from registers), p = requant(s) packed in registers as the A operand of
+//   acc += p @ v_chunk (wgmma). bf16: chunks of 64 keys (scores m64n64k16,
+//   p.v m64n128k16; the f32 accumulator's layout is the bf16 A fragment's);
+//   k and v are loaded once by TMA in the 128-byte swizzle and read
+//   MN-major. int8: chunks of 128 keys (m64n128k32 both). 8-bit wgmma reads
+//   both operands K-major only, so the block's threads transpose k
+//   (d-major) and v (key-major) once into shared memory; and the s32
+//   accumulator's columns are not the s8 A fragment's (thread (g, t) holds
+//   columns 2t, 2t + 1, 8 + 2t, 9 + 2t of each 16 where the fragment holds
+//   4t .. 4t + 3). Both products sum over their inner index, so k's rows (d)
+//   and v's rows (keys) are stored in that order (FA3's FP8 trick): the
+//   accumulator registers, requantized and packed four to a register, are
+//   then the next product's A operand as they stand, p for p @ v and q's
+//   next value for the next step's q @ k, with no trip through shared
+//   memory.
+// * A warpgroup's chunks run in turn (scores, requant, p.v); the other
+//   warpgroup's chain fills the tensor cores while one requantizes. Issuing
+//   the next chunk's scores before this chunk's p.v, p in two register sets,
+//   made ptxas serialize every wgmma (C7513) and spill in int8
+//   (tools/kernel_ablations.py t6_overlap).
+// * The splits' partial acc are added (red.global.add) into a workspace
+//   [2 chains][m][d], int32 for int8 (wrapping sums are the same in any
+//   order: out stays bit-equal to the plain version), f32 for bf16;
+//   `flash_loop_out_kernel` writes out = f32(acc_a + acc_b), the int32 sum
+//   wrapping first.
+// * Ragged m and n: rows past m are zeros (q = p = 0; not stored), keys past
+//   n are zeros in k and v (TMA's fill; the int8 loads' zeros): s = p = 0.
+// Measured on an H100 at 2,048 x 2,048 x 128, 500 steps, against copies
+// with one choice undone (tools/kernel_ablations.py, two builds, two rounds;
+// ms): int8 2.15-2.23, bf16 3.28-3.44 (the first version 83.4-83.8 and
+// 145.3-145.7; bounds 1.085 and 2.170); without the chain (a wrong result)
+// 1.84-1.93 and 2.68-2.88; int8 p staged in shared memory 2.35-2.41; the
+// overlapped chunks 10.1 (int8, spilled) and 3.70-3.81. 186 (int8) and 203
+// (bf16) registers; 148,488 B of shared memory at 512 int8 keys, 164,872 B
+// at 256 bf16 keys.
 // ---------------------------------------------------------------------------
 
-constexpr int FL_D = 128;   // the probe's head dim
-constexpr int FL_TN = 64;   // keys per streamed tile
-constexpr int FL_ROWS = 16;  // q rows per block
+constexpr int FL_D = 128;           // the probe's head dim
+constexpr int FL_ROWS = 64;         // q rows a block: one warpgroup's 64 a chain
+constexpr int FL_NT = 256;          // two warpgroups: chain 0, chain 1
+constexpr uint32_t FL_BOX = 16384;  // one chunk of k or of v in shared memory
 
-__device__ __forceinline__ void mma16832_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <typename T> struct LoopGeom;
+template <> struct LoopGeom<__nv_bfloat16> {
+  using Acc = float;
+  static constexpr int CHUNK = 64;       // keys a score product
+  static constexpr int MAX_SPLIT = 256;  // keys a block holds
+};
+template <> struct LoopGeom<int8_t> {
+  using Acc = int;
+  static constexpr int CHUNK = 128;
+  static constexpr int MAX_SPLIT = 512;
+};
+
+// dynamic shared memory at ``split`` keys: 1 KB of alignment slack, the
+// split's k chunks, k[:, :128], the v chunks, the mbarrier
+template <typename T>
+constexpr int flash_loop_smem_bytes(int split) {
+  return 1024 + 2 * (split / LoopGeom<T>::CHUNK) * static_cast<int>(FL_BOX) +
+         FL_D * FL_D * static_cast<int>(sizeof(T)) + 8;
 }
 
-// dst[c * ldd + r] = src[(row0 + r) * lds + col0 + c] for r < nrows, c < ncols
-// (zero outside [rows, cols)), 16-byte reads along c, by the block's threads.
-template <typename T>
-__device__ void load_transposed(T* dst, int ldd, const T* src, long long lds, int row0, int nrows,
-                                int rows, int col0, int ncols, int cols) {
-  constexpr int V = 16 / sizeof(T);
-  const int per_row = ncols / V;
-  for (int i = threadIdx.x; i < nrows * per_row; i += blockDim.x) {
-    const int r = i / per_row, c = (i % per_row) * V;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows && col0 + c < cols)
-      raw = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * lds + col0 + c);
-    const T* vals = reinterpret_cast<const T*>(&raw);
+// d (m64 x n128 s32) += A (m64 x k32 s8 in registers) x B (k32 x n128 s8,
+// K-major from shared memory). The sums wrap (no .satfinite), as JAX's int32.
+__device__ __forceinline__ void wgmma_s8_rs(int (&d)[16][4], const uint32_t (&a)[4],
+                                            uint64_t bdesc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+        "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+        "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+        "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+        "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+        "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+        "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+        "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3]),
+        "+r"(d[8][0]), "+r"(d[8][1]), "+r"(d[8][2]), "+r"(d[8][3]),
+        "+r"(d[9][0]), "+r"(d[9][1]), "+r"(d[9][2]), "+r"(d[9][3]),
+        "+r"(d[10][0]), "+r"(d[10][1]), "+r"(d[10][2]), "+r"(d[10][3]),
+        "+r"(d[11][0]), "+r"(d[11][1]), "+r"(d[11][2]), "+r"(d[11][3]),
+        "+r"(d[12][0]), "+r"(d[12][1]), "+r"(d[12][2]), "+r"(d[12][3]),
+        "+r"(d[13][0]), "+r"(d[13][1]), "+r"(d[13][2]), "+r"(d[13][3]),
+        "+r"(d[14][0]), "+r"(d[14][1]), "+r"(d[14][2]), "+r"(d[14][3]),
+        "+r"(d[15][0]), "+r"(d[15][1]), "+r"(d[15][2]), "+r"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void pin_regs(int (&x)[N][4]) {
 #pragma unroll
-    for (int e = 0; e < V; ++e) dst[(c + e) * ldd + r] = vals[e];
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(x[i][j])::"memory");
+}
+
+// The stored order of k's rows (d) and v's rows (keys) for the int8 body:
+// byte j of word w of a stored row (position 4 w + j) holds element
+// fl_elem(w, j), the s32 accumulator's column that thread t = w % 4 holds
+// there: 2t, 2t + 1, 8 + 2t, 9 + 2t of its group of 16.
+__device__ __forceinline__ int fl_elem(int w, int j) {
+  return (w >> 2) * 16 + (w & 3) * 2 + (j >> 1) * 8 + (j & 1);
+}
+
+// byte c (a multiple of 4) of row r of a [rows][128 B] tile in the 128-byte
+// swizzle (16-byte chunks permuted by the row's index mod 8)
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return r * 128 + ((((c >> 4) ^ r) & 7) << 4) + (c & 15);
+}
+
+// o[e] = bytes e of r[0], r[1], r[2], r[3] (a 4 x 4 byte transpose)
+__device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4], uint32_t (&o)[4]) {
+  const uint32_t lo01 = __byte_perm(r[0], r[1], 0x5140), hi01 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t lo23 = __byte_perm(r[2], r[3], 0x5140), hi23 = __byte_perm(r[2], r[3], 0x7362);
+  o[0] = __byte_perm(lo01, lo23, 0x5410);
+  o[1] = __byte_perm(lo01, lo23, 0x7632);
+  o[2] = __byte_perm(hi01, hi23, 0x5410);
+  o[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
+// int8 k^T of keys [key0, key0 + rows): boxes of 128 keys, row = key, its
+// 128 bytes d in the stored order; zeros past n. Threads of a warp read one
+// row of k, 32 words of 4 keys.
+__device__ void load_kt_s8(unsigned char* dst, const int8_t* k, int n, int key0, int rows) {
+  const int groups = rows / 4;
+  for (int u = threadIdx.x; u < groups * 32; u += FL_NT) {
+    const int i0 = (u % groups) * 4, w = u / groups;
+    uint32_t r[4] = {0u, 0u, 0u, 0u}, o[4];
+    if (key0 + i0 < n) {  // n % 16 == 0: the 4 keys are all in or all out
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        r[j] = *reinterpret_cast<const uint32_t*>(k + (long long)fl_elem(w, j) * n + key0 + i0);
+    }
+    transpose4x4(r, o);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = i0 + e;
+      *reinterpret_cast<uint32_t*>(dst + (row >> 7) * FL_BOX + sw128(row & 127, 4 * w)) = o[e];
+    }
   }
 }
 
-template <typename T> struct LoopTypes;
-template <> struct LoopTypes<__nv_bfloat16> {
-  using Acc = float;
-  static constexpr int K = 16;  // mma depth
-  static constexpr int PAD = 8;
-};
-template <> struct LoopTypes<int8_t> {
-  using Acc = int;
-  static constexpr int K = 32;
-  static constexpr int PAD = 16;
-};
-
-__device__ __forceinline__ int8_t requant_s8(int s) {
-  return static_cast<int8_t>(max(-127, min(127, s >> 7)));
+// int8 v^T of keys [key0, key0 + rows): a box of [128 d][128 keys] a chunk,
+// the keys of each row in the stored order; zeros past n. Threads of a warp
+// read 4 columns each of one key's row.
+__device__ void load_vt_s8(unsigned char* dst, const int8_t* v, int n, int key0, int rows) {
+  for (int u = threadIdx.x; u < rows / 4 * 32; u += FL_NT) {
+    const int d0 = (u & 31) * 4, w = u >> 5;
+    const int c = w >> 5, wc = w & 31;  // the chunk, the word within its 128 keys
+    uint32_t r[4], o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = key0 + c * 128 + fl_elem(wc, j);
+      r[j] = key < n ? *reinterpret_cast<const uint32_t*>(v + (long long)key * FL_D + d0) : 0u;
+    }
+    transpose4x4(r, o);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      *reinterpret_cast<uint32_t*>(dst + c * FL_BOX + sw128(d0 + e, 4 * wc)) = o[e];
+  }
 }
 
-// A fragments of a [16][FL_D] row-major tile (pitch ld elements) for k-steps
-// of LoopTypes<T>::K: bf16 m16n8k16 and s8 m16n8k32 read the same 32-bit words
-// at (row g / g+8, word t) and (+8 bf16 / +16 bytes).
-template <typename T>
-__device__ __forceinline__ void load_a_frags(uint32_t (&qa)[FL_D / LoopTypes<T>::K][4],
-                                             const T* tile, int ld) {
-  constexpr int K = LoopTypes<T>::K;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const unsigned char* base = reinterpret_cast<const unsigned char*>(tile);
-  const int ldb = ld * static_cast<int>(sizeof(T));
+// This thread's A fragments of q0's rows r and r + 8 (zeros past m): bf16,
+// 8 k-steps of 16 columns; int8, 4 k-steps of 32 with d in the stored order.
+template <typename T, int KS>
+__device__ void load_q0_frags(uint32_t (&qa)[KS][4], const T* q, int m, int r) {
+  const int t = threadIdx.x & 3;
 #pragma unroll
-  for (int kk = 0; kk < FL_D / K; ++kk) {
-    const unsigned char* p = base + g * ldb + kk * 32 + t * 4;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(p);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * ldb);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * ldb + 16);
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r + (i & 1) * 8, half = i >> 1;
+      uint32_t x = 0u;
+      if (row < m) {
+        const unsigned char* p = reinterpret_cast<const unsigned char*>(q + (long long)row * FL_D);
+        if constexpr (sizeof(T) == 2) {
+          x = *reinterpret_cast<const uint32_t*>(p + kk * 32 + half * 16 + t * 4);
+        } else {
+          const int c = kk * 32 + half * 16 + t * 2;
+          x = *reinterpret_cast<const uint16_t*>(p + c) |
+              (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p + c + 8)) << 16);
+        }
+      }
+      qa[kk][i] = x;
+    }
+}
+
+// requant(s) of an s32 accumulator tile [64 x 32 kk .. 32 kk + 31] as the
+// s8 A fragments of k-steps kk (clip(s >> 7, -127, 127), four to a register)
+template <int KS>
+__device__ __forceinline__ void requant_s8(uint32_t (&a)[KS][4], const int (&s)[16][4]) {
+  auto q8 = [](int x) { return static_cast<uint32_t>(max(-127, min(127, x >> 7))); };
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n0 = 4 * kk + (i >> 1) * 2, e = (i & 1) * 2;  // n8 tiles n0, n0 + 1; rows by e
+      const uint32_t lo = __byte_perm(q8(s[n0][e]), q8(s[n0][e + 1]), 0x0040);
+      const uint32_t hi = __byte_perm(q8(s[n0 + 1][e]), q8(s[n0 + 1][e + 1]), 0x0040);
+      a[kk][i] = __byte_perm(lo, hi, 0x5410);
+    }
+}
+
+// requant(s) of an f32 accumulator tile as bf16 A fragments: bf16(s / 64)
+template <int KS, int NT>
+__device__ __forceinline__ void requant_bf16(uint32_t (&a)[KS][4], const float (&s)[NT][4]) {
+  static_assert(NT == 2 * KS, "16 columns a k-step");
+  constexpr float r = 1.f / 64.f;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    a[kk][0] = pack_bf16(s[2 * kk][0] * r, s[2 * kk][1] * r);
+    a[kk][1] = pack_bf16(s[2 * kk][2] * r, s[2 * kk][3] * r);
+    a[kk][2] = pack_bf16(s[2 * kk + 1][0] * r, s[2 * kk + 1][1] * r);
+    a[kk][3] = pack_bf16(s[2 * kk + 1][2] * r, s[2 * kk + 1][3] * r);
   }
 }
 
@@ -133,180 +294,155 @@ struct TGFlashLoopArgs {
 
 namespace {
 
-// Grid (ceil(m / 16)), 64 threads: warp w runs chain w.
+// Grid (ceil(n / split), ceil(m / 64)), 256 threads: warpgroup w runs chain
+// w over the block's 64 rows; dynamic shared memory flash_loop_smem_bytes.
+// bf16: k and v by their tensor maps (k [d][n]: boxes of 64 keys x 128
+// rows; v [n][d]: 64 columns x 64 keys). ``ws``: [2][m][128] of Acc, zeroed.
 template <typename T>
-__global__ void __launch_bounds__(64) flash_loop_kernel(const TGFlashLoopArgs a) {
-  using Acc = typename LoopTypes<T>::Acc;
-  constexpr int K = LoopTypes<T>::K, PAD = LoopTypes<T>::PAD;
-  constexpr int LDK = FL_D + PAD, LDV = FL_TN + PAD, LDQ = FL_D + PAD, LDP = FL_TN + PAD;
-  constexpr int KT_BYTES = FL_TN * LDK * sizeof(T);  // k tile transposed: [key][d]
-  constexpr int VT_BYTES = FL_D * LDV * sizeof(T);   // v tile transposed: [d][key]
-  constexpr int QN_BYTES = FL_ROWS * LDQ * sizeof(T);  // per chain: the next q
-  constexpr int PS_BYTES = sizeof(T) == 1 ? FL_ROWS * LDP : 0;  // per chain: int8 p tile
-  static_assert(FL_ROWS * FL_D * sizeof(Acc) <= KT_BYTES + VT_BYTES, "partner sums");
-  __shared__ __align__(16) unsigned char smem[KT_BYTES + VT_BYTES + 2 * QN_BYTES + 2 * PS_BYTES];
-  T* Kt = reinterpret_cast<T*>(smem);
-  T* Vt = reinterpret_cast<T*>(smem + KT_BYTES);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  T* qn = reinterpret_cast<T*>(smem + KT_BYTES + VT_BYTES + warp * QN_BYTES);
-  int8_t* ps = reinterpret_cast<int8_t*>(smem + KT_BYTES + VT_BYTES + 2 * QN_BYTES +
-                                         warp * PS_BYTES);
+__global__ void __launch_bounds__(FL_NT, 1) flash_loop_kernel(
+    const TGFlashLoopArgs a, int split, void* ws, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap) {
+  using L = LoopGeom<T>;
+  using Acc = typename L::Acc;
+  constexpr bool I8 = sizeof(T) == 1;
+  constexpr int KS = I8 ? FL_D / 32 : FL_D / 16;  // k-steps over d
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* kS = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* k0 = kS + (split / L::CHUNK) * FL_BOX;  // k[:, :128]
+  unsigned char* vS = k0 + FL_D * FL_D * sizeof(T);
   const int m = static_cast<int>(a.m), n = static_cast<int>(a.n);
-  const int row0 = blockIdx.x * FL_ROWS;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-
-  // q0 rows -> this chain's staging tile (zeros past m)
-  {
-    constexpr int V = 16 / sizeof(T);
-    for (int i = lane; i < FL_ROWS * FL_D / V; i += 32) {
-      const int r = i / (FL_D / V), c = (i % (FL_D / V)) * V;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (row0 + r < m) raw = *reinterpret_cast<const uint4*>(q + (long long)(row0 + r) * FL_D + c);
-      *reinterpret_cast<uint4*>(qn + r * LDQ + c) = raw;
+  const int n0 = blockIdx.x * split, row0 = blockIdx.y * FL_ROWS;
+  const int nch = (min(split, n - n0) + L::CHUNK - 1) / L::CHUNK;  // chunks holding keys
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  const int r = row0 + (warp & 3) * 16 + g;  // this thread's rows r, r + 8
+  if constexpr (I8) {
+    const int8_t* k = static_cast<const int8_t*>(a.k);
+    load_kt_s8(kS, k, n, n0, nch * L::CHUNK);
+    load_kt_s8(k0, k, n, 0, FL_D);
+    load_vt_s8(vS, static_cast<const int8_t*>(a.v), n, n0, nch * L::CHUNK);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // read by wgmma
+    __syncthreads();
+  } else {
+    uint64_t* bar = reinterpret_cast<uint64_t*>(vS + (split / L::CHUNK) * FL_BOX);
+    if (threadIdx.x == 0) {
+      mbar_init(bar, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      mbar_expect_tx(bar, (2 * nch + 2) * FL_BOX);
+      for (int c = 0; c < nch; ++c) {
+        tma_load_4d(kS + c * FL_BOX, &kmap, bar, n0 + c * L::CHUNK, 0, 0, 0);
+        tma_load_4d(vS + c * FL_BOX, &vmap, bar, 0, n0 + c * L::CHUNK, 0, 0);
+        tma_load_4d(vS + c * FL_BOX + FL_BOX / 2, &vmap, bar, 64, n0 + c * L::CHUNK, 0, 0);
+      }
+      tma_load_4d(k0, &kmap, bar, 0, 0, 0, 0);
+      tma_load_4d(k0 + FL_BOX, &kmap, bar, 64, 0, 0, 0);
     }
+    __syncthreads();  // the mbarrier's initialization
+    mbar_wait(bar, 0);
   }
-  __syncwarp();
-  uint32_t qa[FL_D / K][4];
-  load_a_frags<T>(qa, qn, LDQ);
-  Acc acc[FL_D / 8][4];
+  uint32_t qa[KS][4];
+  load_q0_frags<T, KS>(qa, static_cast<const T*>(a.q), m, r);
+  Acc acc[16][4];
 #pragma unroll
-  for (int dt = 0; dt < FL_D / 8; ++dt)
+  for (int dt = 0; dt < 16; ++dt)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[dt][i] = Acc(0);
+  uint32_t pa[4][4];  // p of a chunk: the A operand of p.v (4 k-steps for both types)
 
   for (long long it = 0; it < a.iters; ++it) {
-    for (int n0 = 0; n0 < n; n0 += FL_TN) {
-      __syncthreads();  // the previous tiles consumed by both warps
-      load_transposed<T>(Kt, LDK, k, n, 0, FL_D, FL_D, n0, FL_TN, n);
-      load_transposed<T>(Vt, LDV, v, FL_D, n0, FL_TN, n, 0, FL_D, FL_D);
-      __syncthreads();
-      Acc s[FL_TN / 8][4];
+    for (int c = 0; c < nch; ++c) {
+      if constexpr (I8) {
+        int s[16][4];  // s = q @ k_chunk, 128 keys
+        pin_regs(s);
+        wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < FL_TN / 8; ++nt)
+        for (int kk = 0; kk < KS; ++kk)
+          wgmma_s8_rs(s, qa[kk], smem_desc(kS + c * FL_BOX + kk * 32, 16, 1024, 1), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();  // and the previous chunk's p.v: pa is free
+        pin_regs(s);
+        pin_regs(acc);
+        pin_regs(pa);
+        requant_s8(pa, s);
+        wgmma_fence();
 #pragma unroll
-        for (int i = 0; i < 4; ++i) s[nt][i] = Acc(0);
-#pragma unroll
-      for (int kk = 0; kk < FL_D / K; ++kk) {
-#pragma unroll
-        for (int nt = 0; nt < FL_TN / 8; ++nt) {
-          const T* kp = Kt + (nt * 8 + g) * LDK;
-          const unsigned char* kb = reinterpret_cast<const unsigned char*>(kp) + kk * 32 + t * 4;
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kb);
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kb + 16);
-          if constexpr (sizeof(T) == 2)
-            mma16816(reinterpret_cast<float*>(s[nt]), qa[kk], b0, b1);
-          else
-            mma16832_s8(reinterpret_cast<int*>(s[nt]), qa[kk], b0, b1);
-        }
-      }
-      // s[:, :d] -> the next q (requantized), staged in this chain's tile
-      if (n0 < FL_D) {
-#pragma unroll
-        for (int nt = 0; nt < FL_TN / 8; ++nt) {
-          const int c = n0 + nt * 8 + t * 2;
-          if (c < FL_D) {
-            if constexpr (sizeof(T) == 2) {
-              *reinterpret_cast<uint32_t*>(qn + g * LDQ + c) =
-                  pack_bf16(s[nt][0] * (1.f / 64.f), s[nt][1] * (1.f / 64.f));
-              *reinterpret_cast<uint32_t*>(qn + (g + 8) * LDQ + c) =
-                  pack_bf16(s[nt][2] * (1.f / 64.f), s[nt][3] * (1.f / 64.f));
-            } else {
-              qn[g * LDQ + c] = requant_s8(s[nt][0]);
-              qn[g * LDQ + c + 1] = requant_s8(s[nt][1]);
-              qn[(g + 8) * LDQ + c] = requant_s8(s[nt][2]);
-              qn[(g + 8) * LDQ + c + 1] = requant_s8(s[nt][3]);
-            }
-          }
-        }
-      }
-      // p = requant(s); acc += p @ v over this tile's keys
-      if constexpr (sizeof(T) == 2) {
-#pragma unroll
-        for (int j = 0; j < FL_TN / 16; ++j) {
-          uint32_t pa[4];
-          pa[0] = pack_bf16(s[2 * j][0] * (1.f / 64.f), s[2 * j][1] * (1.f / 64.f));
-          pa[1] = pack_bf16(s[2 * j][2] * (1.f / 64.f), s[2 * j][3] * (1.f / 64.f));
-          pa[2] = pack_bf16(s[2 * j + 1][0] * (1.f / 64.f), s[2 * j + 1][1] * (1.f / 64.f));
-          pa[3] = pack_bf16(s[2 * j + 1][2] * (1.f / 64.f), s[2 * j + 1][3] * (1.f / 64.f));
-#pragma unroll
-          for (int dt = 0; dt < FL_D / 8; ++dt) {
-            const T* vp = Vt + (dt * 8 + g) * LDV + j * 16 + t * 2;
-            mma16816(reinterpret_cast<float*>(acc[dt]), pa,
-                     *reinterpret_cast<const uint32_t*>(vp),
-                     *reinterpret_cast<const uint32_t*>(vp + 8));
-          }
-        }
+        for (int j = 0; j < 4; ++j)  // acc += p @ v_chunk, 32 keys a k-step
+          wgmma_s8_rs(acc, pa[j], smem_desc(vS + c * FL_BOX + j * 32, 16, 1024, 1), 1);
+        wgmma_commit();
       } else {
+        float s[8][4];  // s = q @ k_chunk, 64 keys (k MN-major: 16 rows of d a k-step)
+        pin_regs(s);
+        wgmma_fence();
 #pragma unroll
-        for (int nt = 0; nt < FL_TN / 8; ++nt) {
-          const int c = nt * 8 + t * 2;
-          ps[g * LDP + c] = requant_s8(s[nt][0]);
-          ps[g * LDP + c + 1] = requant_s8(s[nt][1]);
-          ps[(g + 8) * LDP + c] = requant_s8(s[nt][2]);
-          ps[(g + 8) * LDP + c + 1] = requant_s8(s[nt][3]);
-        }
-        __syncwarp();
+        for (int kk = 0; kk < KS; ++kk)
+          wgmma_rs<64, 1>(s, qa[kk], smem_desc(kS + c * FL_BOX + kk * 2048, FL_BOX, 1024, 1),
+                          kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin_regs(s);
+        pin_regs(acc);
+        pin_regs(pa);
+        requant_bf16(pa, s);
+        wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < FL_TN / 32; ++j) {
-          uint32_t pa[4];
-          const int8_t* pp = ps + g * LDP + j * 32 + t * 4;
-          pa[0] = *reinterpret_cast<const uint32_t*>(pp);
-          pa[1] = *reinterpret_cast<const uint32_t*>(pp + 8 * LDP);
-          pa[2] = *reinterpret_cast<const uint32_t*>(pp + 16);
-          pa[3] = *reinterpret_cast<const uint32_t*>(pp + 8 * LDP + 16);
-#pragma unroll
-          for (int dt = 0; dt < FL_D / 8; ++dt) {
-            const int8_t* vp = reinterpret_cast<const int8_t*>(Vt) + (dt * 8 + g) * LDV + j * 32 +
-                               t * 4;
-            mma16832_s8(reinterpret_cast<int*>(acc[dt]), pa,
-                        *reinterpret_cast<const uint32_t*>(vp),
-                        *reinterpret_cast<const uint32_t*>(vp + 16));
-          }
-        }
-        __syncwarp();  // p tile read before the next tile overwrites it
+        for (int j = 0; j < 4; ++j)  // acc += p @ v_chunk, 16 keys a k-step (two column boxes)
+          wgmma_rs<128, 1>(acc, pa[j], smem_desc(vS + c * FL_BOX + j * 2048, FL_BOX / 2, 1024, 1),
+                           1);
+        wgmma_commit();
       }
     }
-    __syncwarp();  // every lane's part of the next q written
-    load_a_frags<T>(qa, qn, LDQ);
-    __syncwarp();  // read before the next iteration overwrites it
+    // q's next value: requant(q @ k[:, :128]), the same in every block
+    Acc sc[16][4];
+    pin_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if constexpr (I8)
+        wgmma_s8_rs(sc, qa[kk], smem_desc(k0 + kk * 32, 16, 1024, 1), kk > 0);
+      else
+        wgmma_rs<128, 1>(sc, qa[kk], smem_desc(k0 + kk * 2048, FL_BOX, 1024, 1), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin_regs(sc);
+    pin_regs(acc);
+    pin_regs(pa);
+    pin_regs(qa);
+    if constexpr (I8)
+      requant_s8(qa, sc);
+    else
+      requant_bf16(qa, sc);
   }
 
-  // out = f32(acc_0 + acc_1): chain 1 hands its sums over through shared
-  // memory, in the k / v tiles' room once both warps are past the loop
-  Acc (*partner)[FL_D] = reinterpret_cast<Acc (*)[FL_D]>(smem);
-  __syncthreads();
-  if (warp == 1) {
+  // this chain's partial sums into the workspace (rows past m not stored)
+  Acc* wsp = static_cast<Acc*>(ws) + (long long)wg * m * FL_D;
 #pragma unroll
-    for (int dt = 0; dt < FL_D / 8; ++dt) {
-      const int c = dt * 8 + t * 2;
-      partner[g][c] = acc[dt][0];
-      partner[g][c + 1] = acc[dt][1];
-      partner[g + 8][c] = acc[dt][2];
-      partner[g + 8][c + 1] = acc[dt][3];
+  for (int dt = 0; dt < 16; ++dt) {
+    const int c = dt * 8 + t * 2;
+    if (r < m) {
+      atomicAdd(wsp + (long long)r * FL_D + c, acc[dt][0]);
+      atomicAdd(wsp + (long long)r * FL_D + c + 1, acc[dt][1]);
+    }
+    if (r + 8 < m) {
+      atomicAdd(wsp + (long long)(r + 8) * FL_D + c, acc[dt][2]);
+      atomicAdd(wsp + (long long)(r + 8) * FL_D + c + 1, acc[dt][3]);
     }
   }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int dt = 0; dt < FL_D / 8; ++dt) {
-      const int c = dt * 8 + t * 2;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i < 2 ? g : g + 8;
-        const int cc = c + (i & 1);
-        float val;
-        if constexpr (sizeof(T) == 2) {
-          val = acc[dt][i] + partner[r][cc];
-        } else {  // int32 sum wraps, then rounds to f32 as astype(float32)
-          val = static_cast<float>(static_cast<int>(static_cast<unsigned>(acc[dt][i]) +
-                                                    static_cast<unsigned>(partner[r][cc])));
-        }
-        if (row0 + r < m) a.out[(long long)(row0 + r) * FL_D + cc] = val;
-      }
-    }
+}
+
+// out = f32(acc_a + acc_b) from the workspace [2][m * 128] (the int32 sum
+// wraps, then rounds to f32 as astype(float32))
+template <typename T>
+__global__ void __launch_bounds__(256) flash_loop_out_kernel(const void* ws, float* out,
+                                                             long long count) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= count) return;
+  if constexpr (sizeof(T) == 1) {
+    const unsigned* w = static_cast<const unsigned*>(ws);
+    out[i] = static_cast<float>(static_cast<int>(w[i] + w[i + count]));
+  } else {
+    const float* w = static_cast<const float*>(ws);
+    out[i] = w[i] + w[i + count];
   }
 }
 
@@ -422,6 +558,38 @@ __global__ void __launch_bounds__(256) exp2_loop_kernel(const float* x, float* o
 // Bound: the two products at the bf16 tensor-core rate.
 // ---------------------------------------------------------------------------
 
+// T6: the key-split body, then out from the workspace.
+template <typename T>
+int launch_flash_loop(const TGFlashLoopArgs* a, long long split, void* ws, cudaStream_t s) {
+  using L = LoopGeom<T>;
+  if (split < L::CHUNK || split > L::MAX_SPLIT || split % L::CHUNK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap kmap{}, vmap{};
+  cudaError_t err = cudaSuccess;
+  if constexpr (sizeof(T) == 2) {  // k [d][n]: 64 keys x 128 rows a box; v [n][d]: 64 x 64
+    const long long dn = FL_D * a->n;
+    err = tensor_map_4d(&kmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a->k, static_cast<int>(a->n),
+                        FL_D, 1, 1, a->n, dn, dn, 64, FL_D);
+    if (err == cudaSuccess)
+      err = tensor_map_4d(&vmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a->v, FL_D, a->n, 1, 1, FL_D,
+                          dn, dn, 64, 64);
+  }
+  const int smem = flash_loop_smem_bytes<T>(static_cast<int>(split));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_loop_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               flash_loop_smem_bytes<T>(L::MAX_SPLIT));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((a->n + split - 1) / split),
+                  static_cast<unsigned>((a->m + FL_ROWS - 1) / FL_ROWS));
+  flash_loop_kernel<T><<<grid, FL_NT, smem, s>>>(*a, static_cast<int>(split), ws, kmap, vmap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long count = a->m * FL_D;
+  flash_loop_out_kernel<T><<<static_cast<unsigned>((count + 255) / 256), 256, 0, s>>>(ws, a->out,
+                                                                                     count);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -470,19 +638,18 @@ int tg_probe_attn_v2(const TGAttnArgs* a, long long bm, long long bn, long long 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// T6: dtype 0 = bf16 (f32 sums), 1 = int8 (s32 sums); d = 128, n a multiple of 16.
-int tg_probe_flash_loop(const TGFlashLoopArgs* a, long long dtype, void* stream) {
-  if (a->m <= 0 || a->n < FL_D || a->n % 16 || a->iters < 0)
+// T6: dtype 0 = bf16 (f32 sums), 1 = int8 (s32 sums); d = 128, n a multiple
+// of 16 and >= 128; ``split`` keys a block (a multiple of 64 up to 256 in
+// bf16, of 128 up to 512 in int8); ``ws``: [2][m][128] int32 (int8) or f32
+// (bf16), zeroed.
+int tg_probe_flash_loop(const TGFlashLoopArgs* a, long long dtype, long long split, void* ws,
+                        void* stream) {
+  if (a->m <= 0 || a->n < FL_D || a->n % 16 || a->iters < 0 || ws == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>((a->m + FL_ROWS - 1) / FL_ROWS));
-  if (dtype == 0)
-    flash_loop_kernel<__nv_bfloat16><<<grid, 64, 0, s>>>(*a);
-  else if (dtype == 1)
-    flash_loop_kernel<int8_t><<<grid, 64, 0, s>>>(*a);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0) return launch_flash_loop<__nv_bfloat16>(a, split, ws, s);
+  if (dtype == 1) return launch_flash_loop<int8_t>(a, split, ws, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // T8: op 0 = mul, 1 = exp2, 2 = exp2_add; n a multiple of 4.

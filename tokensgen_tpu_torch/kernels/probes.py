@@ -32,9 +32,9 @@ beside the entry point; a CUDA tensor launches the kernel (CUDA C++ for
 sm_90a in ``csrc/probes.cu`` and, T7's, ``csrc/probe_gemm.cu``, built by nvcc
 at first use, `kernels/build.py`) or raises. T1, T2 (T1's kernels), T4a and
 T4b (``csrc/probes_hopper.cuh``), T3a, T3b and T5
-(``csrc/probes_maxfree.cuh``) and T7 are Hopper bodies: TMA loads onto
-mbarriers and wgmma products; T6 and T8 are simple first versions
-(synchronous loads, mma.sync; T8 no products).
+(``csrc/probes_maxfree.cuh``), T6 (k and v resident per key split,
+`flash_loop_split`) and T7 are Hopper bodies: TMA (T6's int8: once-per-block
+transposing) loads and wgmma products; T8 has no products.
 The CLIs of ``tokensgen_tpu_torch/tools/`` drive them.
 """
 
@@ -62,7 +62,12 @@ SWEEP_MAX_SLOTS = 4  # csrc SW_MAX_SLOTS
 SMEM_MAX = 232448  # shared memory a block may use on an H100
 BIAS_MODES = ("full", "last")  # T2 (at T1's tiles): key bias on every kv tile, or only on the last
 FLASH_LOOP_D = 128  # T6: the head dim the kernel is built for
-FLASH_LOOP_TILE = 64  # T6: keys per streamed tile (csrc FL_TN)
+FLASH_LOOP_TILE = 64  # T6: keys the planted fault leaves out of the first step (a bf16 chunk)
+FLASH_LOOP_ROWS = 64  # T6: q rows a block (csrc FL_ROWS), one warpgroup a chain
+# T6: keys a score product (csrc LoopGeom CHUNK) and the most a block holds
+# resident (MAX_SPLIT), by dtype: int8 chunks of 128 (m64n128k32), bf16 of 64
+FLASH_LOOP_CHUNK = {torch.int8: 128, torch.bfloat16: 64}
+FLASH_LOOP_MAX_SPLIT = {torch.int8: 512, torch.bfloat16: 256}
 MATMUL_BK = 64  # T7: the kernel's k tile (csrc GM_BK)
 # T7's output tiles (csrc GM_BM x GM_BN) and the row tiles of a raster group
 # (GM_GROUP): `matmul_tiles` gives their order
@@ -149,6 +154,56 @@ def flash_loop_plain(q, k, v, iters: int, drop_first_tile: bool = False):
         acc = acc + (pv.long() if int8 else pv)
     # the two chains are the same arithmetic on the same inputs
     return _wrap_int32(acc + acc).float() if int8 else acc + acc
+
+
+def flash_loop_split(m: int, n: int, dtype: torch.dtype, sms: int) -> int:
+    """T6's keys a block (csrc ``split``): the multiple of the dtype's chunk,
+    up to what a block holds, with the least modelled time. The blocks (one
+    a SM: ceil(n / split) x ceil(m / 64)) run in waves of ``sms``, each block
+    a step's 2 split / 128 units of products (q @ k and p @ v over 128 keys
+    each count 1) plus the chain's q @ k[:, :128] (1)."""
+    chunk, most = FLASH_LOOP_CHUNK[dtype], FLASH_LOOP_MAX_SPLIT[dtype]
+    rows = -(-m // FLASH_LOOP_ROWS)
+    best = None
+    for split in range(chunk, most + 1, chunk):
+        waves = -(-(-(-n // split) * rows) // sms)
+        cost = waves * (2 * split / 128 + 1)
+        if best is None or cost < best[0]:
+            best = (cost, split)
+    return best[1]
+
+
+def flash_loop_split_plain(q, k, v, iters: int, split: int):
+    """T6's key-split form (csrc ``flash_loop_kernel``) on the host: per split
+    of ``split`` keys and per chain, the chain's q stepped by the split's own
+    product q @ k[:, :d] (the recomputed chain, as every block computes it),
+    the split's acc += requant(q @ k_split) @ v_split, added into the
+    workspace [2 chains][m][d] (int64 then wrapped to int32 for int8, f32
+    for bf16); out = f32(ws_a + ws_b), the int32 sum wrapped first. The
+    arithmetic of `flash_loop_plain`, which it equals (int8 bit for bit)."""
+    d = q.shape[1]
+    int8 = q.dtype == torch.int8
+    work = torch.float64 if int8 else torch.float32
+    ws = torch.zeros(2, q.shape[0], d, dtype=torch.int64 if int8 else torch.float32,
+                     device=q.device)
+    kw, vw = k.to(work), v.to(work)
+    for n0 in range(0, k.shape[1], split):
+        ks, vs = kw[:, n0:n0 + split], vw[n0:n0 + split]
+        for chain in range(2):
+            qc = q
+            acc = torch.zeros_like(ws[chain])
+            for _ in range(iters):
+                s, sc = qc.to(work) @ ks, qc.to(work) @ kw[:, :d]
+                if int8:
+                    p = torch.clamp(s.long() >> 7, -127, 127)
+                    qc = torch.clamp(sc.long() >> 7, -127, 127)
+                else:
+                    p = (s * (1.0 / 64.0)).bfloat16()
+                    qc = (sc * (1.0 / 64.0)).bfloat16()
+                pv = p.to(work) @ vs
+                acc = acc + (pv.long() if int8 else pv)
+            ws[chain] += _wrap_int32(acc) if int8 else acc
+    return _wrap_int32(ws[0] + ws[1]).float() if int8 else ws[0] + ws[1]
 
 
 def matmul_plain(x, y, k_len: Optional[int] = None):
@@ -379,7 +434,7 @@ def _bind(lib) -> None:
     i64, ptr = ctypes.c_int64, ctypes.c_void_p
     _build.bind(lib, "tg_probe_attn_sweep", ctypes.POINTER(A._Args), i64, i64, i64, ptr)
     _build.bind(lib, "tg_probe_attn_v2", ctypes.POINTER(A._Args), i64, i64, i64, i64, ptr)
-    _build.bind(lib, "tg_probe_flash_loop", ctypes.POINTER(_FlashLoopArgs), i64, ptr)
+    _build.bind(lib, "tg_probe_flash_loop", ctypes.POINTER(_FlashLoopArgs), i64, i64, ptr, ptr)
     _build.bind(lib, "tg_probe_exp2_loop", ptr, ptr, i64, i64, i64, ptr)
     for name in _MAXFREE_ENTRY_POINTS:
         _build.bind(lib, name, ctypes.POINTER(A._Args), i64, i64, ctypes.c_float, ptr, ptr)
@@ -565,7 +620,11 @@ def attention_v2(q, k, v, key_bias=None, block_q: int = SWEEP_DEFAULT[0],
 def flash_loop(q, k, v, iters: int):
     """T6, the chained flash inner loop: q [m, d], k [d, n], v [n, d], all
     bf16 (f32 sums) or all int8 (int32 sums); out f32 [m, d]. The card takes
-    d = 128 and n a multiple of 16, n >= d."""
+    d = 128 and n a multiple of 16, n >= d. On the card a block holds 64
+    rows and `flash_loop_split` keys of k and v in shared memory for all the
+    steps, each warpgroup one chain, and recomputes the chain's q itself
+    from k[:, :128]; the splits' partial sums meet in a workspace
+    (`flash_loop_split_plain` is that form on the host)."""
     if q.device.type == "cpu":
         return flash_loop_plain(q, k, v, iters)
     A._require_cuda(k, v)
@@ -580,10 +639,13 @@ def flash_loop(q, k, v, iters: int):
                          f"{tuple(v.shape)}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty(m, d, dtype=torch.float32, device=q.device)
+    int8 = q.dtype == torch.int8
+    split = flash_loop_split(m, n, q.dtype,
+                             torch.cuda.get_device_properties(q.device).multi_processor_count)
+    ws = torch.zeros(2, m, d, dtype=torch.int32 if int8 else torch.float32, device=q.device)
     a = _FlashLoopArgs(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), m, n, iters)
-    dtype = 1 if q.dtype == torch.int8 else 0
     _build.check_launch("tg_probe_flash_loop", _Library.get().tg_probe_flash_loop(
-        ctypes.byref(a), dtype, _build.stream_of(q)))
+        ctypes.byref(a), int(int8), split, ws.data_ptr(), _build.stream_of(q)))
     flash_loop.launches += 1
     return out
 

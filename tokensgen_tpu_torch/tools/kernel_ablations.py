@@ -79,10 +79,21 @@ default.
         t4b_parent,t4b_shipped,t4b_combine,t4b_one_block --parents DIR
     python -m tokensgen_tpu_torch.tools.kernel_ablations --only prologue_parent,\
         prologue_shipped --parents DIR --rounds 3
+    python -m tokensgen_tpu_torch.tools.kernel_ablations --only k5d128_parent,\
+        k5d128_shipped,t6_parent,t6_shipped,t6_no_chain,t6_overlap,t6_staged_p --parents DIR
 
-The last form times K1, K2 and K3 at the edit shapes (batch 2) built from
-commit 128c05f's attention.cu, where the prologue pass and the tensor maps
-lived before they moved to flash_prologue.cuh, against the shipped one.
+The prologue form times K1, K2 and K3 at the edit shapes (batch 2) built
+from commit 128c05f's attention.cu, where the prologue pass and the tensor
+maps lived before they moved to flash_prologue.cuh, against the shipped
+one. The last form times K5 at head dim 128 ([3, 24, 9,442, 128], the
+padded-chunk key bias) built from commit 1d190d4's attention.cu (the
+two-pass mma.sync form) against the shipped one-pass body
+(csrc/flash_bwd128.cuh), and T6 at its CLI's shapes (int8 and bf16, n =
+2,048 and 1,024, 500 steps) built from that commit's probes.cu (the
+streaming mma.sync loop) against the shipped key-split body, the shipped
+body without its recomputed chain (t6_no_chain: what the chain costs), with
+its chunks overlapped (t6_overlap) and with int8 p staged in shared memory
+(t6_staged_p).
 """
 
 from __future__ import annotations
@@ -111,8 +122,10 @@ MF_PARENT_COMMIT = "128c05f"  # T3b's and T5's mma.sync bodies' last commit; the
 PROBES_PARENT_COMMIT = "3aa7498"  # T3a's and T7's mma.sync bodies' last commit
 SWEEP_PARENT_COMMIT = "cfce16a"  # T1's and T4a's mma.sync bodies' last commit
 V2_PARENT_COMMIT = "656b20a"  # T2's and T4b's mma.sync bodies' last commit
+# the two-pass K5 at head dim 128's and T6's mma.sync loop's last commit
+BWD128_PARENT_COMMIT = "1d190d4"
 PARENT_COMMITS = (F32_PARENT_COMMIT, MF_PARENT_COMMIT, PROBES_PARENT_COMMIT, SWEEP_PARENT_COMMIT,
-                  V2_PARENT_COMMIT)
+                  V2_PARENT_COMMIT, BWD128_PARENT_COMMIT)
 CSRC_PATH = "tokensgen_tpu_torch/kernels/csrc"
 # T1's tiles in that commit's probes.cu: (block_q, block_kv, heads per block)
 SWEEP_PARENT_CONFIGS = ((64, 32, 1), (64, 64, 1), (64, 128, 1), (128, 32, 1), (128, 64, 1),
@@ -468,6 +481,255 @@ _T7_DIRECT_STORE = [
 """),
 ]
 
+# T6 without its chain (the result is wrong: q stays q0): the last chunk's
+# p.v waited for where the chain's product was
+_T6_CHAIN = """    // q's next value: requant(q @ k[:, :128]), the same in every block
+    Acc sc[16][4];
+    pin_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if constexpr (I8)
+        wgmma_s8_rs(sc, qa[kk], smem_desc(k0 + kk * 32, 16, 1024, 1), kk > 0);
+      else
+        wgmma_rs<128, 1>(sc, qa[kk], smem_desc(k0 + kk * 2048, FL_BOX, 1024, 1), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin_regs(sc);
+    pin_regs(acc);
+    pin_regs(pa);
+    pin_regs(qa);
+    if constexpr (I8)
+      requant_s8(qa, sc);
+    else
+      requant_bf16(qa, sc);
+"""
+_T6_NO_CHAIN = [(PROBES, _T6_CHAIN, """    wgmma_wait<0>();
+    pin_regs(acc);
+    pin_regs(pa);
+""")]
+# T6's int8 p staged in shared memory (a buffer a warpgroup) and read by p.v
+# from there, instead of the accumulator registers as the A operand
+_T6_STAGED_P = [
+    (PROBES, "FL_D * FL_D * static_cast<int>(sizeof(T)) + 8;",
+     "FL_D * FL_D * static_cast<int>(sizeof(T)) + 8 + 2 * 8192;"),
+    (PROBES, "template <int N>\n__device__ __forceinline__ void pin_regs(int (&x)[N][4]) {",
+     """__device__ __forceinline__ void wgmma_s8_ss(int (&d)[16][4], uint64_t adesc, uint64_t bdesc,
+                                            int scale_d) {
+  asm volatile(
+      "{\\n.reg .pred p;\\n"
+      "setp.ne.b32 p, %66, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\\n}\\n"
+      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+        "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+        "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+        "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+        "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+        "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+        "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+        "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3]),
+        "+r"(d[8][0]), "+r"(d[8][1]), "+r"(d[8][2]), "+r"(d[8][3]),
+        "+r"(d[9][0]), "+r"(d[9][1]), "+r"(d[9][2]), "+r"(d[9][3]),
+        "+r"(d[10][0]), "+r"(d[10][1]), "+r"(d[10][2]), "+r"(d[10][3]),
+        "+r"(d[11][0]), "+r"(d[11][1]), "+r"(d[11][2]), "+r"(d[11][3]),
+        "+r"(d[12][0]), "+r"(d[12][1]), "+r"(d[12][2]), "+r"(d[12][3]),
+        "+r"(d[13][0]), "+r"(d[13][1]), "+r"(d[13][2]), "+r"(d[13][3]),
+        "+r"(d[14][0]), "+r"(d[14][1]), "+r"(d[14][2]), "+r"(d[14][3]),
+        "+r"(d[15][0]), "+r"(d[15][1]), "+r"(d[15][2]), "+r"(d[15][3])
+      : "l"(adesc), "l"(bdesc), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void pin_regs(int (&x)[N][4]) {"""),
+    (PROBES, """        requant_s8(pa, s);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j)  // acc += p @ v_chunk, 32 keys a k-step
+          wgmma_s8_rs(acc, pa[j], smem_desc(vS + c * FL_BOX + j * 32, 16, 1024, 1), 1);
+""", """        requant_s8(pa, s);
+        unsigned char* ps = vS + (split / L::CHUNK) * FL_BOX + wg * 8192;
+        const int pr = (warp & 3) * 16 + g;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            *reinterpret_cast<uint32_t*>(ps + sw128(pr + (i & 1) * 8, 32 * j + (i >> 1) * 16 +
+                                                    4 * t)) = pa[j][i];
+        asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");
+        asm volatile("bar.sync %0, 128;\\n" ::"r"(1 + wg) : "memory");
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          wgmma_s8_ss(acc, smem_desc(ps + j * 32, 16, 1024, 1),
+                      smem_desc(vS + c * FL_BOX + j * 32, 16, 1024, 1), 1);
+""")]
+# T6 with each chunk's next scores issued before its p.v and p in two
+# register sets (even and odd chunks), so that waiting for the scores
+# leaves the p.v running through the next requant
+_T6_SERIAL = """  uint32_t pa[4][4];  // p of a chunk: the A operand of p.v (4 k-steps for both types)
+
+  for (long long it = 0; it < a.iters; ++it) {
+    for (int c = 0; c < nch; ++c) {
+      if constexpr (I8) {
+        int s[16][4];  // s = q @ k_chunk, 128 keys
+        pin_regs(s);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          wgmma_s8_rs(s, qa[kk], smem_desc(kS + c * FL_BOX + kk * 32, 16, 1024, 1), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();  // and the previous chunk's p.v: pa is free
+        pin_regs(s);
+        pin_regs(acc);
+        pin_regs(pa);
+        requant_s8(pa, s);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j)  // acc += p @ v_chunk, 32 keys a k-step
+          wgmma_s8_rs(acc, pa[j], smem_desc(vS + c * FL_BOX + j * 32, 16, 1024, 1), 1);
+        wgmma_commit();
+      } else {
+        float s[8][4];  // s = q @ k_chunk, 64 keys (k MN-major: 16 rows of d a k-step)
+        pin_regs(s);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          wgmma_rs<64, 1>(s, qa[kk], smem_desc(kS + c * FL_BOX + kk * 2048, FL_BOX, 1024, 1),
+                          kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin_regs(s);
+        pin_regs(acc);
+        pin_regs(pa);
+        requant_bf16(pa, s);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j)  // acc += p @ v_chunk, 16 keys a k-step (two column boxes)
+          wgmma_rs<128, 1>(acc, pa[j], smem_desc(vS + c * FL_BOX + j * 2048, FL_BOX / 2, 1024, 1),
+                           1);
+        wgmma_commit();
+      }
+    }
+    // q's next value: requant(q @ k[:, :128]), the same in every block
+    Acc sc[16][4];
+    pin_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if constexpr (I8)
+        wgmma_s8_rs(sc, qa[kk], smem_desc(k0 + kk * 32, 16, 1024, 1), kk > 0);
+      else
+        wgmma_rs<128, 1>(sc, qa[kk], smem_desc(k0 + kk * 2048, FL_BOX, 1024, 1), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin_regs(sc);
+    pin_regs(acc);
+    pin_regs(pa);
+    pin_regs(qa);
+    if constexpr (I8)
+      requant_s8(qa, sc);
+    else
+      requant_bf16(qa, sc);
+  }
+
+"""
+_T6_OVERLAP = [
+    (PROBES, _T6_SERIAL, """  // p of the even and of the odd chunks (the A operand of p.v, 4 k-steps in
+  // both types): a chunk's p.v reads one while the next chunk's requant
+  // writes the other
+  uint32_t pa0[4][4], pa1[4][4];
+  typename L::Score s;  // a chunk's scores
+  Acc sc[16][4];        // the chain's, q @ k[:, :128]
+  auto issue_scores = [&](int c) {  // s = q @ k_chunk
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if constexpr (I8)
+        wgmma_s8_rs(s, qa[kk], smem_desc(kS + c * FL_BOX + kk * 32, 16, 1024, 1), kk > 0);
+      else  // k MN-major: 16 rows of d a k-step
+        wgmma_rs<64, 1>(s, qa[kk], smem_desc(kS + c * FL_BOX + kk * 2048, FL_BOX, 1024, 1),
+                        kk > 0);
+    }
+  };
+  auto issue_chain = [&]() {  // sc = q @ k[:, :128], the same in every block
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if constexpr (I8)
+        wgmma_s8_rs(sc, qa[kk], smem_desc(k0 + kk * 32, 16, 1024, 1), kk > 0);
+      else
+        wgmma_rs<128, 1>(sc, qa[kk], smem_desc(k0 + kk * 2048, FL_BOX, 1024, 1), kk > 0);
+    }
+  };
+  // chunk c: its p from its scores, then the next chunk's scores (or the
+  // chain's product after the last chunk) and this chunk's p.v issued in that
+  // order, so that waiting for the scores leaves p.v running through the
+  // next requant
+  auto chunk = [&](int c, uint32_t(&p)[4][4]) {
+    if constexpr (I8)
+      requant_s8(p, s);
+    else
+      requant_bf16(p, s);
+    wgmma_fence();
+    if (c + 1 < nch)
+      issue_scores(c + 1);
+    else
+      issue_chain();
+    wgmma_commit();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // acc += p @ v_chunk
+      if constexpr (I8)  // 32 keys a k-step
+        wgmma_s8_rs(acc, p[j], smem_desc(vS + c * FL_BOX + j * 32, 16, 1024, 1), 1);
+      else  // 16 keys a k-step, two column boxes
+        wgmma_rs<128, 1>(acc, p[j], smem_desc(vS + c * FL_BOX + j * 2048, FL_BOX / 2, 1024, 1),
+                         1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the scores (or the chain's): this p.v may still run
+    pin_regs(s);
+    pin_regs(sc);
+    pin_regs(pa0);
+    pin_regs(pa1);
+  };
+
+  for (long long it = 0; it < a.iters; ++it) {
+    pin_regs(s);
+    wgmma_fence();
+    issue_scores(0);
+    wgmma_commit();
+    wgmma_wait<0>();  // and the last step's p.v
+    pin_regs(s);
+    pin_regs(acc);
+    pin_regs(pa0);
+    pin_regs(pa1);
+    for (int c = 0; c < nch; c += 2) {
+      chunk(c, pa0);
+      if (c + 1 < nch) chunk(c + 1, pa1);
+    }
+    pin_regs(qa);
+    if constexpr (I8)  // q's next value, from the chain's scores
+      requant_s8(qa, sc);
+    else
+      requant_bf16(qa, sc);
+  }
+  wgmma_wait<0>();
+  pin_regs(acc);
+  pin_regs(pa0);
+  pin_regs(pa1);
+
+"""),
+    (PROBES, "template <> struct LoopGeom<__nv_bfloat16> {\n  using Acc = float;\n",
+     "template <> struct LoopGeom<__nv_bfloat16> {\n  using Acc = float;\n"
+     "  using Score = float[8][4];\n"),
+    (PROBES, "template <> struct LoopGeom<int8_t> {\n  using Acc = int;\n",
+     "template <> struct LoopGeom<int8_t> {\n  using Acc = int;\n  using Score = int[16][4];\n")]
+
 # name: (kernel, what the variant undoes, patches)
 VARIANTS = {
     "shipped": ("all", "nothing", []),
@@ -595,13 +857,31 @@ VARIANTS = {
     "t4b_one_block": ("T4B", "two blocks a SM: at 256 keys a split, blocks of two warpgroups, "
                       "one resident a SM", [(HOP, "constexpr bool SK_TWO_BLOCKS = true;",
                                              "constexpr bool SK_TWO_BLOCKS = false;")]),
+    # K5 at head dim 128 (csrc/flash_bwd128.cuh) and the probe T6 (probes.cu)
+    "k5d128_parent": ("K5D128", f"the one-pass TMA / wgmma body: commit {BWD128_PARENT_COMMIT}'s "
+                      "two-pass mma.sync form (bwd_dkdv_kernel<128> + bwd_dq_kernel<128>, "
+                      "synchronous loads)", None),
+    "k5d128_shipped": ("K5D128", "nothing", []),
+    "t6_parent": ("T6", f"k and v resident per key split, on wgmma: commit "
+                  f"{BWD128_PARENT_COMMIT}'s mma.sync loop (16 rows a block, k and v streamed "
+                  "from L2 in every step)", None),
+    "t6_shipped": ("T6", "nothing", []),
+    "t6_no_chain": ("T6", "the recomputed chain: q kept from step to step, no q @ k[:, :128] "
+                    "(a wrong result, timed only)", _T6_NO_CHAIN),
+    "t6_overlap": ("T6", "the chunks in turn: each chunk's next scores issued before its p.v, "
+                   "p in two register sets (ptxas: C7513 serializes the wgmmas; int8 spills)",
+                   _T6_OVERLAP),
+    "t6_staged_p": ("T6", "p in registers as p.v's A operand (int8; bf16 unchanged): p stored to "
+                    "shared memory and read from there", _T6_STAGED_P),
 }
 # the kernels each probe (or K1-K3) variant times
 PROBE_KINDS = {"T3B": ("T3B",), "T5": ("T5",), "MF": ("T3B", "T5"), "K123": ("K1", "K2", "K3"),
+               "T6": ("T6",),
                "T7": ("T7",), "T3A": ("T3A",), "T1": ("T1",), "T4A": ("T4A",), "T2": ("T2",),
                "T4B": ("T4B",)}
 # each kind's parent commit (the probes not named: MF_PARENT_COMMIT's)
 PARENT_OF = {"F32": F32_PARENT_COMMIT, "K123": MF_PARENT_COMMIT, "T7": PROBES_PARENT_COMMIT,
+             "K5D128": BWD128_PARENT_COMMIT, "T6": BWD128_PARENT_COMMIT,
              "T3A": PROBES_PARENT_COMMIT, "T1": SWEEP_PARENT_COMMIT, "T4A": SWEEP_PARENT_COMMIT,
              "T2": V2_PARENT_COMMIT, "T4B": V2_PARENT_COMMIT}
 # the probes timed as 10 calls queued behind a device sleep (T5, T4a: their kernels alone)
@@ -895,6 +1175,65 @@ def _t4b_case(dev):
     return {"parent": parent, "shipped": shipped}, ref
 
 
+def _k5d128_case(dev):
+    """K5 at head dim 128 at the T2To width's [3, 24, 9,442, 128] with the
+    padded-chunk key bias of (24, 13, 5) valid chunks (chip_smoke.py's row):
+    {style: [(label, fn)]} (the parent's entry point, which takes no table
+    and no workspace at 128, and the shipped wrapper) and the plain
+    version."""
+    from tokensgen_tpu_torch.train.t2to import padded_chunk_masks
+
+    gen = torch.Generator(dev).manual_seed(15)
+    b, h, s, d, text = 3, 24, 9442, 128, 226
+    q, k, v, g = (torch.randn(b, h, s, d, generator=gen, device=dev).bfloat16() for _ in range(4))
+    bias, _ = padded_chunk_masks(torch.tensor([24, 13, 5], device=dev) * 4, 96, 96, text)
+    scale = d ** -0.5
+    out, lse = A.attention_plain(q, k, v, bias, scale, with_lse=True)
+    dsum = A._row_dsum(g, out, None)
+    del out
+    ref = A.attention_bwd_plain(q, k, v, g, lse, dsum, bias, scale)
+
+    def shipped():
+        return A.attention_backward(q, k, v, g, lse, dsum, bias, None, scale, with_dbias=True)
+
+    def parent():  # the wrapper as it was at 128: no table, no workspace
+        saved, A.ONEPASS_HEAD_DIMS = A.ONEPASS_HEAD_DIMS, (64,)
+        try:
+            return shipped()
+        finally:
+            A.ONEPASS_HEAD_DIMS = saved
+
+    return {"parent": [("", parent)], "shipped": [("", shipped)]}, ref
+
+
+def _flash_loop_parent(q, k, v, iters):
+    """The parent commit's T6 entry point (no split, no workspace)."""
+    m, n = q.shape[0], k.shape[1]
+    out = torch.empty(m, P.FLASH_LOOP_D, dtype=torch.float32, device=q.device)
+    a = P._FlashLoopArgs(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), m, n, iters)
+    B.check_launch("tg_probe_flash_loop", P._Library.get().tg_probe_flash_loop(
+        ctypes.byref(a), int(q.dtype == torch.int8), B.stream_of(q)))
+    return out
+
+
+def _t6_case(dev):
+    """T6 at its CLI's shapes (2,048 x 2,048 and 2,048 x 1,024 keys, d = 128)
+    in int8 and bf16 at 500 steps: {style: [(label, fn, plain output)]} (the
+    parent's entry point, the shipped wrapper)."""
+    from tokensgen_tpu_torch.tools.bench_int8_loop import make_inputs
+
+    iters = 500
+    parent, shipped = [], []
+    for n in (2048, 1024):
+        for dt, name in ((torch.int8, "int8"), (torch.bfloat16, "bf16")):
+            x = make_inputs(dev, 2048, n, 128, dt)
+            ref = P.flash_loop_plain(*x, iters)
+            label = f"@{name}x{n}"
+            parent.append((label, lambda x=x: _flash_loop_parent(*x, iters), ref))
+            shipped.append((label, lambda x=x: P.flash_loop(*x, iters), ref))
+    return {"parent": parent, "shipped": shipped}, None
+
+
 def _bind_parent_probes(lib) -> None:
     """An older probes.cu's entry points that the cases call: the max-free
     ones, T1's and, where it has it, T7's (older builds have no geometry
@@ -904,6 +1243,8 @@ def _bind_parent_probes(lib) -> None:
         B.bind(lib, name, ctypes.POINTER(A._Args), i64, i64, ctypes.c_float, ptr, ptr)
     B.bind(lib, "tg_probe_attn_sweep", ctypes.POINTER(A._Args), i64, i64, i64, ptr)
     B.bind(lib, "tg_probe_attn_v2", ctypes.POINTER(A._Args), i64, i64, i64, ptr)
+    # T6's entry point before its key-split body: no split, no workspace
+    B.bind(lib, "tg_probe_flash_loop", ctypes.POINTER(P._FlashLoopArgs), i64, ptr)
     if hasattr(lib, "tg_probe_matmul"):
         B.bind(lib, "tg_probe_matmul", ctypes.POINTER(P._MatmulArgs), ptr)
 
@@ -942,8 +1283,14 @@ def _f32_time_ms(fn, runs: int, calls: int = 10) -> float:
 
 
 def _f32_errors(out, ref) -> str:
-    diff, ref = out.float() - ref.float(), ref.float()
-    return f"rel_l2 {(diff.norm() / ref.norm()).item():.2e} max_abs {diff.abs().max().item():.2e}"
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    parts = []
+    for x, r in zip(outs, refs):
+        diff, r = x.float() - r.float(), r.float()
+        parts.append(f"rel_l2 {(diff.norm() / r.norm()).item():.2e} "
+                     f"max_abs {diff.abs().max().item():.2e}")
+    return "; ".join(parts)
 
 
 def main(argv=None) -> int:
@@ -981,7 +1328,7 @@ def main(argv=None) -> int:
         if kernel == "F32":
             for i in range(args.f32_builds):
                 builds[f"{n}.{i}"] = (n, F32, files, patches or [])
-        elif kernel == "K123":
+        elif kernel in ("K123", "K5D128"):
             builds[n] = (n, CU, files, patches or [])
         elif kernel in PROBE_KINDS:
             source = GEMM if kernel == "T7" and patches is not None else PROBES
@@ -1018,7 +1365,12 @@ def main(argv=None) -> int:
                                    ("18splitkv_tma_kernelILi2", "T4b"),
                                    ("18splitkv_tma_kernelILi1", "T4b (one warpgroup)"),
                                    ("14splitkv_kernel", "T4b (parent)"),
-                                   ("14attn_v2_kernel", "T2 (parent)"))
+                                   ("14attn_v2_kernel", "T2 (parent)"),
+                                   ("bwd_onepass128_kernel", "K5 at d = 128"),
+                                   ("bwd_dkdv_kernelILi128", "K5 at d = 128, dk / dv pass (parent)"),
+                                   ("bwd_dq_kernelILi128", "K5 at d = 128, dq pass (parent)"),
+                                   ("17flash_loop_kernelIa", "T6 int8"),
+                                   ("17flash_loop_kernelI13__nv_bfloat16", "T6 bf16"))
                 if tag in k]
         print(f"[build] {key} in {dt:.0f} s: " + "; ".join(regs), flush=True)
         for line in log.splitlines():
@@ -1045,6 +1397,7 @@ def main(argv=None) -> int:
     kinds = {VARIANTS[builds[key][0]][0] for key in builds if key not in stamp_keys}
     kernels = {k for kind in kinds for k in PROBE_KINDS.get(kind, (kind,))}
     makers = {"K5": _k5_case, "K2": _k2_case, "K7": _k7_case, "F32": _f32_case,
+              "K5D128": _k5d128_case, "T6": _t6_case,
               "T3B": _t3b_case, "T5": _t5_case, "K1": _k1_case, "K3": _k3_case,
               "T7": _t7_case, "T3A": _t3a_case, "T1": _t1_case, "T4A": _t4a_case,
               "T2": _t2_case, "T4B": _t4b_case}
@@ -1079,7 +1432,8 @@ def main(argv=None) -> int:
                     out = fn()
                     ok = _agrees(out, want, BOUNDS.get(kernel, (1e-2, 2.0 ** -5)))
                     detail = (f" ({_f32_errors(out, want)})"
-                              if kernel in ("F32", "T3B", "T5", "T7", "T3A", "T1", "T4A", "T2", "T4B")
+                              if kernel in ("F32", "T3B", "T5", "T7", "T3A", "T1", "T4A", "T2", "T4B",
+                                            "K5D128", "T6")
                               else "")
                     del out
                     ms = (_f32_time_ms(fn, args.runs) if kernel == "F32"
