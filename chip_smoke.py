@@ -169,11 +169,11 @@ PHASES = ("env", "build", "kernels", "probes", "dit", "edit", "variants", "load"
 # planted fault fails the bounds.
 REL_L2_BOUND = 1e-2
 MAX_ABS_REL = 2.0 ** -5  # 4-8 bf16 ulps at the output's largest magnitude
-# kv tile of K5 at d != 64 and of the probes (csrc BN): the planted fault drops the keys past it
+# kv tile of the probes (csrc BN): the planted fault drops the keys past it
 KV_TILE = 64
 # K1's, K2's, K6's and K7's drops the keys past their body's kv tile,
-# attention.kv_tile(d) (128 keys at d <= 64, 64 at 128); K5's at d = 64 past
-# its one-pass body's block of keys, attention.BWD_KV_BLOCK (128)
+# attention.kv_tile(d) (128 keys at d <= 64, 64 at 128); K5's past its
+# one-pass body's block of keys, attention.bwd_kv_block(d) (128; 64 at 16, 32)
 
 # K4 on float32 operands (the DINOv2 encoder's attention): a body of its own
 F32_KERNEL = "flash_attention_bhsd_f32"
@@ -285,7 +285,7 @@ def phase_build(state: dict) -> None:
     set leaves out what spills (probes.SWEEP_CONFIGS), so a spill fails; so
     does a K7 body whose SASS is not int8 wgmma scores without I2F, a T7,
     T3a, T1 / T2, T4a or T4b body whose SASS is not bf16 wgmma without
-    mma.sync, a K5 one-pass body (d = 64, 128) or T6 body whose SASS is not
+    mma.sync, a K5 one-pass body (d = 16, 32, 64, 128) or T6 body whose SASS is not
     wgmma (T6's int8: IGMMA) without mma.sync, and a line of ptxas's saying
     that it serialized the wgmmas of a T1 / T2, T4a, T4b, K5 one-pass or T6
     instantiation (C7515, C7518, "insufficient register resources")."""
@@ -324,6 +324,12 @@ def phase_build(state: dict) -> None:
         threads, smem, blocks = A.f32_geometry(d)
         log(f"[build]   float32 K4 at head dim {d}: {threads} threads, {smem:,} B of dynamic "
             f"shared memory a block, {blocks} resident blocks a SM")
+    for d in A.SMALL_HEAD_DIMS:
+        g = A.bwd_small_geometry(d)
+        log(f"[build]   K5 (attention_backward) at head dim {d}: {g['keys']} keys a block, "
+            f"{g['q_shares']} warpgroup(s) a key group, q tiles of {g['q_tile']} rows, "
+            f"{g['threads']} threads, {g['smem_bytes']:,} B of dynamic shared memory a block, "
+            f"{g['blocks_per_sm']} resident a SM")
     _int8_sass_check(built[0][0])
     g = P.matmul_geometry()
     log(f"[build]   T7 (matmul_hand): {g['tile_rows']} x {g['tile_cols']} output tiles, k tile "
@@ -364,14 +370,15 @@ def phase_build(state: dict) -> None:
                   if "Performance Loss" in line
                   and any(k in line for k in ("sweep_kernel", "pairinner_tma_kernel",
                                               "splitkv_tma_kernel", "bwd_onepass",
-                                              "flash_loop_kernel"))]
+                                              "bwd_small_kernel", "flash_loop_kernel"))]
     if serialized:
         raise RuntimeError(f"ptxas serialized the wgmmas of T1 / T2, T4a, T4b, K5's one-pass "
                            f"body or T6: {serialized}")
     for path, kernel in ((built[3][0], "gemm_kernel"), (built[1][0], "pair_splitpv_kernel"),
                          (built[1][0], "sweep_kernel"), (built[1][0], "pairinner_tma_kernel"),
                          (built[1][0], "splitkv_tma_kernel"), (built[0][0], "bwd_onepass_kernel"),
-                         (built[0][0], "bwd_onepass128_kernel")):
+                         (built[0][0], "bwd_onepass128_kernel"),
+                         (built[0][0], "bwd_small_kernel")):
         _wgmma_sass_check(path, kernel)
     _flash_loop_sass_check(built[1][0])
 
@@ -969,8 +976,9 @@ def _bwd_fns(c):
     b, hh, sq, d = c["q4"].shape
     work = (10.0 * b * hh * sq * skv * d,  # the 5 products of one pass
             _nbytes(q, k, v, g, c["lse"], c["dsum"], bias, q, k, v)
-            + 4 * b * skv)  # dbias out
-    tile = A.BWD_KV_BLOCK if d in A.ONEPASS_HEAD_DIMS else KV_TILE
+            + 4 * b * skv,  # dbias out
+            0.0, float(b * hh * sq * skv))  # p recomputed: one ex2 a score
+    tile = A.bwd_kv_block(d)
     return kernel, plain, (lambda: plain(skv - skv % tile)), library, work
 
 
@@ -1029,29 +1037,40 @@ def _splitkv_checks(dev, cases, state) -> None:
         torch.cuda.empty_cache()
 
 
-def _kernel_breakdown(label, fn, calls=5, group=None) -> dict:
+def _kernel_breakdown(label, fn, calls=5, group=None, traces=3) -> dict:
     """Device time per CUDA kernel of one call of ``fn`` (the mean over
     ``calls`` traced calls, torch.profiler), logged and returned ({kernel:
     ms}). With ``group`` (a `_KERNEL_GROUPS` name), every attention kernel of
-    the call must fall in that group of the traces' table."""
+    the call must fall in that group of the traces' table. Every ``fn`` here
+    launches an attention kernel, so a trace that holds none lost its device
+    records (CUPTI has, once in a whole run): it is taken again, up to
+    ``traces`` times in all, and the check fails if none holds one; a trace
+    that holds a kernel of another group fails at once."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    parts, found = {}, set()
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", 0) or getattr(evt, "self_cuda_time_total", 0)
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            name = re.search(r"(\w+)(<[^()]*>)?\(", evt.key.replace("(anonymous namespace)", ""))
-            key = name.group(1) if name else evt.key[:40]
-            parts[key] = parts.get(key, 0.0) + us / calls / 1e3
-            if re.search(r"(joint|smallkv|smallq|bhsd|int8|bwd)_\w*kernel", evt.key):
-                found.add(_kernel_group(evt.key))
+    for attempt in range(1, traces + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        parts, found, events = {}, set(), prof.key_averages()
+        for evt in events:
+            us = (getattr(evt, "self_device_time_total", 0)
+                  or getattr(evt, "self_cuda_time_total", 0))
+            if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+                name = re.search(r"(\w+)(<[^()]*>)?\(",
+                                 evt.key.replace("(anonymous namespace)", ""))
+                key = name.group(1) if name else evt.key[:40]
+                parts[key] = parts.get(key, 0.0) + us / calls / 1e3
+                if re.search(r"(joint|smallkv|smallq|bhsd|int8|bwd)_\w*kernel", evt.key):
+                    found.add(_kernel_group(evt.key))
+        if found:
+            break
+        log(f"[kernels] {label}: trace {attempt} of {traces} holds no attention kernel "
+            f"({len(events)} event keys, {len(parts)} with device time)")
     log(f"[kernels] {label} per kernel: " + "; ".join(f"{k} {ms:.4f} ms" for k, ms in parts.items()))
     if group is not None and found != {group}:
         raise RuntimeError(f"{label}: its kernels fall in trace groups {sorted(found)}, "
@@ -1280,12 +1299,16 @@ def _k5_head_dim_checks(dev, state) -> None:
     and [3, 1, 1,544, 128]: the tiny DiTs' token count, 8 text + 16 frames
     of 8 x 12, with the padded-chunk key bias of valid frames (16, 8, 4)):
     held to the plain backward with the planted fault (16 and 32 also
-    timed; 128's row is `_head_dim_128_checks`'); then a gradient through
+    timed, by single-call events and, kernel and library call alike, as the
+    device time of 10 queued calls, `queued_time_ms`, with the wrapper's
+    host time a call, and broken down per CUDA kernel; 128's row is
+    `_head_dim_128_checks`'); then a gradient through
     `fused_flash_attention` on [B, H, S, D] operands (the autograd Function
     of K6 + K5) against autograd through the plain version, on the card."""
     import torch
 
     from tokensgen_tpu_torch.kernels import attention as A
+    from tokensgen_tpu_torch.tools._common import queued_time_ms
     from tokensgen_tpu_torch.train.t2to import padded_chunk_masks
 
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -1300,9 +1323,26 @@ def _k5_head_dim_checks(dev, state) -> None:
         kernel, plain, fault, library, work = _bwd_fns(c)
         label = f"attention_backward[d={d}, {tuple(q4.shape)}, padded-chunk bias]"
         timed = d != 128
+        lib = _library_or_none(label, library) if timed else None
         _compare(label, kernel, plain, state, fault_fn=fault, work=work, check_only=not timed,
-                 library_fn=_library_or_none(label, library) if timed else None,
-                 labels=["dq", "dk", "dv", "dbias"])
+                 library_fn=lib, labels=["dq", "dk", "dv", "dbias"])
+        if timed:
+            alone = queued_time_ms(kernel, dev, 5)
+            lib_alone = None if lib is None else queued_time_ms(lib, dev, 5)
+            host = []
+            for _ in range(20):  # the wrapper's host time: a call's return, not its device work
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                kernel()
+                host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            host_ms = sorted(host)[len(host) // 2]
+            state["kernel_rows"][label].update(queued_ms=alone, library_queued_ms=lib_alone,
+                                               host_ms=host_ms)
+            log(f"[kernels] {label}: device alone (10 queued calls) kernel {alone:.4f} ms, "
+                f"library {'n/a' if lib_alone is None else f'{lib_alone:.4f} ms'}; the "
+                f"kernel's host time a call (median of 20) {host_ms:.4f} ms")
+            _kernel_breakdown(label, kernel, group=_group_named("attention K5"))
         ang = torch.randn(s - 8, d, generator=gen, device=dev)
         segs = [(None, 8), ((ang.cos(), ang.sin()), s - 8)]
         gain = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
@@ -4156,9 +4196,9 @@ def phase_t2to_train(state: dict) -> None:
 _KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name), first match wins
     ("attention K7 (int8_prologue + joint_int8_splitkv + joint_int8_combine)",
      ("int8_prologue_kernel", "joint_int8_splitkv_kernel", "joint_int8_combine_kernel")),
-    ("attention K5 (bwd_onepass / bwd_onepass128 + bwd_dq_store; bwd_dkdv + bwd_dq at d < 64)",
-     ("bwd_onepass_kernel", "bwd_onepass128_kernel", "bwd_dq_store_kernel", "bwd_dkdv_kernel",
-      "bwd_dq_kernel")),
+    ("attention K5 (bwd_aux + bwd_onepass / bwd_onepass128 / bwd_small + bwd_dq_store)",
+     ("bwd_aux_kernel", "bwd_onepass_kernel", "bwd_onepass128_kernel", "bwd_small_kernel",
+      "bwd_dq_store_kernel")),
     ("attention K1 (joint_prologue + joint_splitkv + joint_combine)",
      ("joint_prologue_kernel", "joint_splitkv_kernel", "joint_combine_kernel")),
     ("attention K2 (smallkv_prologue + smallkv)", ("smallkv_prologue_kernel", "smallkv_kernel")),

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from tokensgen_tpu_torch.kernels import attention as TA
+from tokensgen_tpu_torch.train.t2to import padded_chunk_masks
 
 D = 64
 # kernel vs plain version on the same bf16 inputs (the kernel rounds the
@@ -424,9 +425,11 @@ def test_backward_head_dims_on_card(cuda_device, d):
     (ragged lengths, a key-bias mask): dq, dk, dv, dbias within REL_L2_BOUND
     and MAX_ABS_REL; then a gradient through `fused_flash_attention` on
     [B, H, S, d] (K6 + K5 under autograd) against autograd through the plain
-    version, one K5 launch. At 128 (the one-pass body's 64-row q tiles and
-    128-key blocks) also at lengths ragged to both and under one q tile, dq
-    held on two calls (its reduce-adds land in another order each call)."""
+    version, one K5 launch. At 16, 32 and 128 (the one-pass bodies' 64-row q
+    tiles, 64-key groups at 16 and 32, 128-key blocks at 128) also at
+    lengths ragged to both and under one q tile, and at 16 and 32 at the tiny
+    trainers' [3, H, 1,544, d] with their padded-chunk key bias, each held on
+    two calls (dq's reduce-adds land in another order each call)."""
     gen = torch.Generator(cuda_device).manual_seed(d)
     b, h, sq, skv = 2, 3, 300, 517
 
@@ -457,20 +460,41 @@ def test_backward_head_dims_on_card(cuda_device, d):
     assert TA.attention_backward.launches == before + 2
     for x, r in zip(*grads):
         _assert_within_bounds(x, r)
-    if d == 128:
-        for sq2, skv2 in ((40, 200), (130, 129), (63, 64), (257, 3)):
-            q2, g2, k2, v2 = (rnd(b, h, n, d) for n in (sq2, sq2, skv2, skv2))
-            bias2 = torch.zeros(b, skv2, device=cuda_device)
+    cases = [] if d == 64 else [(b, h, sq2, skv2, None)
+                                for sq2, skv2 in ((40, 200), (130, 129), (63, 64), (257, 3))]
+    if d < 64:  # the tiny trainers' 8 text + 16 frames of 96, valid (16, 8, 4)
+        chunk, _ = padded_chunk_masks(torch.tensor([16, 8, 4], device=cuda_device), 16, 96, 8)
+        cases.append((3, 2 if d == 16 else 4, 1544, 1544, chunk))
+    for b2, h2, sq2, skv2, chunk in cases:
+        q2, g2, k2, v2 = (torch.randn(b2, h2, n, d, generator=gen, device=cuda_device).bfloat16()
+                          for n in (sq2, sq2, skv2, skv2))
+        bias2 = chunk
+        if chunk is None:
+            bias2 = torch.zeros(b2, skv2, device=cuda_device)
             bias2[0, (skv2 + 1) // 2:] = -1e9  # half of sample 0's keys (a row keeps one)
-            out2, lse2 = TA.attention_plain(q2, k2, v2, bias2, scale, with_lse=True)
-            dsum2 = TA._row_dsum(g2, out2, None)
-            ref2 = TA.attention_bwd_plain(q2, k2, v2, g2, lse2, dsum2, bias2, scale)
-            for _ in range(2):
-                got2 = TA.attention_backward(q2, k2, v2, g2, lse2, dsum2, bias2, None, scale,
-                                             with_dbias=True)
-                torch.cuda.synchronize()
-                for x, r in zip(got2, ref2):
-                    _assert_within_bounds(x, r)
+        out2, lse2 = TA.attention_plain(q2, k2, v2, bias2, scale, with_lse=True)
+        dsum2 = TA._row_dsum(g2, out2, None)
+        ref2 = TA.attention_bwd_plain(q2, k2, v2, g2, lse2, dsum2, bias2, scale)
+        for _ in range(2):
+            got2 = TA.attention_backward(q2, k2, v2, g2, lse2, dsum2, bias2, None, scale,
+                                         with_dbias=True)
+            torch.cuda.synchronize()
+            for x, r in zip(got2, ref2):
+                _assert_within_bounds(x, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32])
+def test_backward_small_cut_on_card(cuda_device, d):
+    """K5's body at head dims 16 and 32 is built with the cut that the plain
+    decomposition and the wrapper's table assume (`bwd_kv_block` keys a
+    warpgroup, `bwd_q_tile` q rows a tile, `BWD_Q_SHARES` warpgroups a key
+    group), and at least one block fits a SM."""
+    g = TA.bwd_small_geometry(d)
+    assert g["q_tile"] == TA.bwd_q_tile(d) and g["q_shares"] == TA.BWD_Q_SHARES[d]
+    assert g["keys"] % TA.bwd_kv_block(d) == 0 and g["threads"] % 128 == 0
+    assert g["threads"] == 128 * g["q_shares"] * g["keys"] // TA.bwd_kv_block(d)
+    assert g["blocks_per_sm"] >= 1
 
 
 def _fused_case(kernel, d, layout, dev, seed):

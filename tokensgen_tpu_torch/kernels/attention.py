@@ -38,14 +38,14 @@ skips the K2/K3 routing), K6 or K4, each with its logsumexp; the backward is
 K5, at the head dims K4 and K6 take (`HEAD_DIMS`). On the CPU both
 directions run the plain versions.
 
-The CUDA C++ sources are `csrc/attention.cu`, the mma.sync pieces it shares
-with the probes, `csrc/flash_fwd.cuh`, K3's and K4's split-KV body,
+The CUDA C++ sources are `csrc/attention.cu`, the pieces it shares with the
+probes, `csrc/flash_fwd.cuh`, K3's and K4's split-KV body,
 `csrc/flash_splitkv.cuh` (the keys of a call cut into `kv_split_plan`'s
 splits, each split's f32 partials merged by a combine pass), K1's, K6's and
 K7's overlapped body on the same machinery (K7's with int8 scores) and K2's
-K / V-resident form of it, `csrc/flash_ws.cuh`, and K5's one-pass backward
-at head dims 64 and 128, `csrc/flash_bwd.cuh` and `csrc/flash_bwd128.cuh`
-(at 16 and 32 the two-pass form of `csrc/attention.cu`); the float32 K4 is
+K / V-resident form of it, `csrc/flash_ws.cuh`, and K5's one-pass backward,
+`csrc/flash_bwd.cuh` at head dim 64, `csrc/flash_bwd128.cuh` at 128 and
+`csrc/flash_bwd_small.cuh` at 16 and 32; the float32 K4 is
 `csrc/attention_f32.cu`, a library of its own. K1, K2, K3 and K6 run their
 prologues once per row in a pass of their own (`prologue_pass_plain`'s function) into
 a bf16 workspace; K7 quantizes in its pass (`quantize_pairs_plain`'s
@@ -82,11 +82,18 @@ from tokensgen_tpu_torch.kernels.build import BUILD_DIR, NVCC_FLAGS  # noqa: F40
 _LOG2E = 1.4426950408889634
 _SMALLKV_MAX = 512  # kv rows K2 holds whole in shared memory (csrc SMALLKV_MAX)
 SMALLKV_BLOCK_Q = 256  # q rows per tile of K2's body (csrc WS_BM)
-BWD_KV_BLOCK = 128  # keys per block of K5's one-pass bodies (csrc BW_BKV, B8_BKV)
+BWD_KV_BLOCK = 128  # keys per block of K5's one-pass bodies at 64, 128 (csrc BW_BKV, B8_BKV)
 BWD_Q_TILE = 128  # q rows per tile of their sweep at head dim 64 (csrc BW_BQ)
 BWD_Q_TILE_128 = 64  # ... and at 128, where the registers hold m64n64 scores (csrc B8_BQ)
-ONEPASS_HEAD_DIMS = (64, 128)  # head dims K5 runs in one pass (16 and 32: two passes)
+# K5 at head dims 16 and 32 (csrc flash_bwd_small.cuh): 64 keys a warpgroup
+# (BS_KEYS), q tiles of 64 rows (BsCut::BQ), the lse / dsum table in 64-row
+# tiles (BS_AUX_ROWS, an even count of them), and a key group's q tiles
+# shared between BWD_Q_SHARES[d] warpgroups (BsCut::QS)
+BWD_SMALL_KV_BLOCK = 64
+BWD_SMALL_Q_TILE = 64
+BWD_Q_SHARES = {16: 2, 32: 1}
 HEAD_DIMS = (16, 32, 64, 128)  # head dims K4, K5 and K6 are built for (K1-K3, K7: 64)
+SMALL_HEAD_DIMS = (16, 32)  # K5's head dims on flash_bwd_small.cuh's body
 F32_HEAD_DIMS = (16, 32, 64)  # head dims the float32 K4 is built for
 MAX_SCORE_BYTES = 1 << 31  # f32 score tensor per q-row chunk of `attention_plain`
 # K3's prologue pass writes rows in blocks of PRO_ROWS (csrc attention.cu)
@@ -270,30 +277,44 @@ def attention_bwd_plain(q, k, v, g, lse, dsum, key_bias, scale: float):
 
 
 def bwd_q_tile(d: int) -> int:
-    """q rows per tile of K5's one-pass sweep at head dim ``d`` (64 or 128):
-    128 at 64; 64 at 128, where a warpgroup's dk and dv accumulators take 128
-    registers a thread and leave room for m64n64 scores only."""
+    """q rows per tile of K5's one-pass sweep at head dim ``d``: 128 at 64;
+    64 at 128, where a warpgroup's dk and dv accumulators take 128 registers
+    a thread and leave room for m64n64 scores only; 64 at 16 and 32 (one
+    warpgroup's m64n64 scores, one tile of the lse / dsum table)."""
+    if d in SMALL_HEAD_DIMS:
+        return BWD_SMALL_Q_TILE
     return BWD_Q_TILE if d == 64 else BWD_Q_TILE_128
 
 
+def bwd_kv_block(d: int) -> int:
+    """Keys whose dq share K5's one-pass body sums before adding it to the
+    workspace at head dim ``d``: a block of 128 at 64 and 128, a warpgroup's
+    64 at 16 and 32."""
+    return BWD_SMALL_KV_BLOCK if d in SMALL_HEAD_DIMS else BWD_KV_BLOCK
+
+
 def attention_bwd_onepass_plain(q, k, v, g, lse, dsum, key_bias, scale: float,
-                                kv_block: int = BWD_KV_BLOCK, q_tile: Optional[int] = None):
-    """K5's one-pass decomposition (csrc flash_bwd.cuh and flash_bwd128.cuh,
-    the card's form at head dims 64 and 128) on [B, H, S, D]: per block of
+                                kv_block: int = BWD_KV_BLOCK, q_tile: Optional[int] = None,
+                                q_shares: int = 1):
+    """K5's one-pass decomposition (csrc flash_bwd.cuh, flash_bwd128.cuh and
+    flash_bwd_small.cuh, the card's form) on [B, H, S, D]: per block of
     ``kv_block`` keys and, within it, per tile of ``q_tile`` q rows (None:
     one tile of all Sq), in the transposed form of the kernel (keys on the
     rows, the log2 domain), s^T = k q^T, p^T = exp2(scale log2 e s^T + bias
     log2 e - lse log2 e), ds^T = p^T (v g^T - dsum); the block's dv = p^T g,
     dk = scale ds^T q and dbias = sum over q of ds^T summed over its tiles in
-    f32, and each tile's share of dq, (ds^T)^T k, summed over the blocks in
-    f32 (the kernel's workspace) and scaled once. (At 128 the kernel splits a
-    share by d columns between its warpgroups: columns apart, no other sum.)
+    f32 (with ``q_shares`` > 1, as at head dims 16 and 32, over the tiles s,
+    s + q_shares, ... of each share s, then the shares in order), and each
+    tile's share of dq, (ds^T)^T k, summed over the blocks in f32 (the
+    kernel's workspace) and scaled once. (At 128 the kernel splits a share
+    by d columns between its warpgroups: columns apart, no other sum.)
     Rounding points and arguments as `attention_bwd_plain`, which it
     equals."""
     b, h, sq, _ = q.shape
     skv = k.shape[2]
     dt = q.dtype
     q_tile = sq if q_tile is None else q_tile
+    starts = range(0, sq, q_tile)
     qf, gf = q.float(), g.float()
     bias2 = (torch.zeros(b, skv, device=q.device) if key_bias is None
              else key_bias.float()) * _LOG2E
@@ -305,18 +326,23 @@ def attention_bwd_onepass_plain(q, k, v, g, lse, dsum, key_bias, scale: float,
         dkb = torch.zeros(kb.shape, dtype=torch.float32, device=q.device)
         dvb = torch.zeros(vb.shape, dtype=torch.float32, device=q.device)
         dbb = torch.zeros(b, kb.shape[2], dtype=torch.float32, device=q.device)
-        for q0 in range(0, sq, q_tile):
-            sl = slice(q0, q0 + q_tile)
-            qt, gt = qf[:, :, sl], gf[:, :, sl]
-            st = torch.einsum("bhkd,bhqd->bhkq", kb, qt)
-            pt = torch.exp2(st * (scale * _LOG2E) + bias2[:, None, k0:k0 + kv_block, None]
-                            - lse2[..., sl])
-            dst = pt * (torch.einsum("bhkd,bhqd->bhkq", vb, gt) - dsum[:, :, None, sl])
-            dsb = dst.to(dt).float()
-            dvb += torch.einsum("bhkq,bhqd->bhkd", pt.to(dt).float(), gt)
-            dkb += torch.einsum("bhkq,bhqd->bhkd", dsb, qt)
-            dbb += dst.sum(dim=(1, 3))
-            dq[:, :, sl] += torch.einsum("bhkq,bhkd->bhqd", dsb, kb)
+        for share in range(q_shares):
+            sk, sv, sb = torch.zeros_like(dkb), torch.zeros_like(dvb), torch.zeros_like(dbb)
+            for q0 in starts[share::q_shares]:
+                sl = slice(q0, q0 + q_tile)
+                qt, gt = qf[:, :, sl], gf[:, :, sl]
+                st = torch.einsum("bhkd,bhqd->bhkq", kb, qt)
+                pt = torch.exp2(st * (scale * _LOG2E) + bias2[:, None, k0:k0 + kv_block, None]
+                                - lse2[..., sl])
+                dst = pt * (torch.einsum("bhkd,bhqd->bhkq", vb, gt) - dsum[:, :, None, sl])
+                dsb = dst.to(dt).float()
+                sv += torch.einsum("bhkq,bhqd->bhkd", pt.to(dt).float(), gt)
+                sk += torch.einsum("bhkq,bhqd->bhkd", dsb, qt)
+                sb += dst.sum(dim=(1, 3))
+                dq[:, :, sl] += torch.einsum("bhkq,bhkd->bhqd", dsb, kb)
+            dkb += sk
+            dvb += sv
+            dbb += sb
         dvs.append(dvb)
         dks.append(dkb * scale)
         dbs.append(dbb)
@@ -642,7 +668,7 @@ class _F32Args(ctypes.Structure):
 
 
 _K2_ENTRY_POINT = "tg_attention_cross_smallkv"  # q tiles per block, prologue workspace
-_BWD_ENTRY_POINT = "tg_attention_bwd"  # head dim, then (at 64, 128) the lse / dsum table, dq's sums
+_BWD_ENTRY_POINT = "tg_attention_bwd"  # head dim, then room for the lse / dsum table, dq's sums
 _INT8_ENTRY_POINT = "tg_attention_joint_int8"  # splits, split_len, split workspace
 _INT8_GEOMETRY = "tg_attention_joint_int8_geometry"  # the body's shared memory and threads
 _K1_ENTRY_POINT = "tg_attention_joint"  # splits, split_len, prologue and split workspaces
@@ -963,8 +989,9 @@ def attn_args(q, k, v, key_bias, tabs_q, tabs_k, heads, eps, norm_q, norm_k, qsc
     return a, out, keep
 
 
-def _launch_bwd(q, k, v, g, lse, dsum, key_bias, heads, scale: float, with_dbias: bool):
-    lib = _lib()
+def _bwd_args(q, k, v, g, lse, dsum, key_bias, heads, scale: float, with_dbias: bool):
+    """K5's argument block: (`_BwdArgs`, [dq, dk, dv], dbias per head or
+    None, buffers that must outlive the launch call, the head dim)."""
     b = q.shape[0]
     if heads is not None:
         h, sq, skv, d = heads, q.shape[1], k.shape[1], q.shape[2] // heads
@@ -994,30 +1021,66 @@ def _launch_bwd(q, k, v, g, lse, dsum, key_bias, heads, scale: float, with_dbias
         a.dbias = dbias.data_ptr()
     a.b, a.h, a.sq, a.skv = b, h, sq, skv
     a.scale = scale
-    aux = ws = None
-    if d in ONEPASS_HEAD_DIMS:  # the one-pass body: its lse / dsum table and dq's f32 sums
-        aux = bwd_aux_table(lse, dsum, bwd_q_tile(d))
-        ws = torch.zeros(b, h, sq, d, dtype=torch.float32, device=q.device)
-        keep += [aux, ws]
-    err = getattr(lib, _BWD_ENTRY_POINT)(
-        ctypes.byref(a), d, None if aux is None else aux.data_ptr(),
-        None if ws is None else ws.data_ptr(), _build.stream_of(q))
+    return a, grads, dbias, keep, d
+
+
+def _launch_bwd(q, k, v, g, lse, dsum, key_bias, heads, scale: float, with_dbias: bool):
+    """K5: the launcher fills the one-pass body's lse / dsum table (its
+    `bwd_aux_kernel`, whose plain version is `bwd_aux_table`) and zeroes
+    dq's f32 workspace; here both are only allocated (built by torch ops,
+    the table's host time made the call slower than the two-pass form it
+    replaced at the tiny trainers' shapes, tools/kernel_ablations.py)."""
+    a, grads, dbias, keep, d = _bwd_args(q, k, v, g, lse, dsum, key_bias, heads, scale,
+                                         with_dbias)
+    aux = torch.empty(a.b * a.h * bwd_aux_tiles(a.sq, d) * 2 * bwd_q_tile(d),
+                      dtype=torch.float32, device=q.device)
+    ws = torch.empty(a.b, a.h, a.sq, d, dtype=torch.float32, device=q.device)
+    keep += [aux, ws]
+    err = getattr(_lib(), _BWD_ENTRY_POINT)(ctypes.byref(a), d, aux.data_ptr(), ws.data_ptr(),
+                                            _build.stream_of(q))
     _build.check_launch(_BWD_ENTRY_POINT, err)
     return (*grads, None if dbias is None else dbias.sum(dim=1))
 
 
-def bwd_aux_table(lse, dsum, tile: int = BWD_Q_TILE):
-    """The per-q-tile table of K5's one-pass body: f32 [B * H, ceil(Sq /
-    ``tile``), 2, ``tile``] (``tile``: `bwd_q_tile` of the head dim), each
-    tile's lse * log2 e, then its dsum; past Sq lse * log2 e = +inf and
+def bwd_aux_tiles(sq: int, d: int) -> int:
+    """Tiles of `bwd_q_tile` (d) rows in a (b, h)'s part of K5's table:
+    ceil(Sq / tile), at head dims 16 and 32 rounded up to an even count, so
+    that a q tile of 128 rows there (a cut `tools/kernel_ablations.py`
+    sweeps) reads inside the table."""
+    m = 2 if d in SMALL_HEAD_DIMS else 1
+    return -(-sq // (bwd_q_tile(d) * m)) * m
+
+
+def bwd_aux_table(lse, dsum, tile: int = BWD_Q_TILE, multiple: int = 1):
+    """The per-q-tile table of K5's one-pass body (the plain version of
+    csrc `bwd_aux_kernel`): f32 [B * H, nq, 2, ``tile``] (``tile``:
+    `bwd_q_tile` of the head dim; nq: ceil(Sq / tile) rounded up to a
+    multiple of ``multiple``, 2 at head dims 16 and 32: `bwd_aux_tiles`),
+    each tile's lse * log2 e, then its dsum; past Sq lse * log2 e = +inf and
     dsum = 0, so that p = ds = 0 on the padding rows (which the kernel reads
     as zeros)."""
     b, h, sq = lse.shape
-    nq = -(-sq // tile)
+    nq = -(-sq // (tile * multiple)) * multiple
     pad = nq * tile - sq
     lse2 = torch.nn.functional.pad(lse.reshape(b * h, sq) * _LOG2E, (0, pad), value=math.inf)
     ds = torch.nn.functional.pad(dsum.reshape(b * h, sq), (0, pad))
     return torch.stack((lse2.view(b * h, nq, tile), ds.view(b * h, nq, tile)), dim=2)
+
+
+_BWD_SMALL_GEOMETRY = "tg_attention_bwd_small_geometry"  # head dim; six values
+
+
+def bwd_small_geometry(d: int) -> dict:
+    """K5's cut at head dim ``d`` (16 or 32) as built: threads a block,
+    dynamic shared memory (bytes), resident blocks a SM, keys a block, q rows
+    a tile and warpgroups a key group (csrc `geometry_bwd_small`). Bound at
+    the call: a library built from an older source lacks the query."""
+    lib = _lib()
+    _build.bind(lib, _BWD_SMALL_GEOMETRY, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64))
+    out = (ctypes.c_int64 * 6)()
+    _build.check_launch(_BWD_SMALL_GEOMETRY, getattr(lib, _BWD_SMALL_GEOMETRY)(d, out))
+    return dict(zip(("threads", "smem_bytes", "blocks_per_sm", "keys", "q_tile", "q_shares"),
+                    out))
 
 
 def int8_scale_stride(s: int) -> int:

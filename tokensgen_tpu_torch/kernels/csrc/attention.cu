@@ -1,13 +1,12 @@
 // Flash-attention kernels for the attention calls of the To2V edit, training
 // and generation paths and of the T2To trainer, written for Hopper (sm_90a),
 // head dim 64 (K4, K5, K6: 16, 32, 64 or 128), bf16 operands with f32 softmax and
-// accumulation (K1-K4, K6, K7 and K5 at head dims 64 and 128: wgmma, K7's
-// score product in int8 (s32.s8.s8); K5 at 16 and 32: mma.sync m16n8k16
-// tiles, its pieces flash_fwd.cuh's, shared with the K4-family probes of
-// probes.cu). K3's and K4's body is the split-KV body of flash_splitkv.cuh,
+// accumulation, every product on wgmma (K7's score product in int8,
+// s32.s8.s8). K3's and K4's body is the split-KV body of flash_splitkv.cuh,
 // K1's, K6's and K7's the overlapped one of flash_ws.cuh (K7's with int8
 // scores), K2's its K / V-resident form there; K5's one-pass body is
-// flash_bwd.cuh's at 64 and flash_bwd128.cuh's at 128.
+// flash_bwd.cuh's at 64, flash_bwd128.cuh's at 128 and flash_bwd_small.cuh's
+// at 16 and 32.
 //
 // Replaces the Pallas TPU kernels of tokensgen_tpu/kernels/attention.py:
 //   tg_attention_joint          joint_prologue_kernel + joint_splitkv_kernel
@@ -22,7 +21,7 @@
 //                                               <- _flash_kernel         (_flash_attention_tpu)
 //   tg_attention_bwd            bwd_onepass_kernel + bwd_dq_store_kernel<64> (head dim 64),
 //                               bwd_onepass128_kernel + bwd_dq_store_kernel<128> (128),
-//                               bwd_dkdv_kernel<HD> + bwd_dq_kernel<HD> (16, 32)
+//                               bwd_small_kernel<HD> + bwd_dq_store_kernel<HD> (16, 32)
 //                                               <- _packed_bwd_kernel    (_flash_packed_bwd_tpu)
 //   tg_attention_joint_int8     int8_prologue_kernel + joint_int8_splitkv_kernel
 //                               (+ joint_int8_combine_kernel)
@@ -68,9 +67,9 @@
 //   loaded by the Tensor Memory Accelerator into a 4-stage ring, both
 //   products on wgmma, 256 q rows a block at head dims <= 64; then a
 //   combine of the splits' f32 partials in a fixed order.
-// * K5 at head dims 64 and 128: one pass over the q tiles per block of keys,
-//   five products on wgmma, dq summed across blocks by TMA reduce-adds
-//   (flash_bwd.cuh, flash_bwd128.cuh).
+// * K5: one pass over the q tiles per block of keys, five products on
+//   wgmma, dq summed across blocks by TMA reduce-adds (flash_bwd.cuh,
+//   flash_bwd128.cuh, flash_bwd_small.cuh).
 // * Online-max softmax in the exp2 domain (the TPU's max-free shift by a
 //   table bound is a TPU trick; exact softmax is what both compute).
 // * p is rounded to bf16 before p@v; l sums the f32 p; o = acc / l.
@@ -79,6 +78,7 @@
 
 #include "flash_bwd.cuh"
 #include "flash_bwd128.cuh"
+#include "flash_bwd_small.cuh"
 #include "flash_fwd.cuh"
 #include "flash_splitkv.cuh"
 #include "flash_ws.cuh"
@@ -238,7 +238,8 @@ __global__ void __launch_bounds__(WS_NT, 1) smallkv_kernel(
 // with dsum = rowsum(g * out) per head (computed by the caller) and f32
 // accumulation, the JAX kernel's rounding points. Per head: the TPU's
 // head-pair block-diagonal packing is a lane trick with no use here. Bound
-// on this card: the five products at the bf16 tensor-core rate.
+// on this card: the five products at the bf16 tensor-core rate (at head dim
+// 16 the exponentials, one ex2 a score, weigh more).
 //
 // At head dim 64 (every launch of both full-width trainers) it is one pass,
 // flash_bwd.cuh's (`bwd_onepass_kernel`, then `bwd_dq_store_kernel<64>`): a
@@ -252,297 +253,12 @@ __global__ void __launch_bounds__(WS_NT, 1) smallkv_kernel(
 // `bwd_onepass128_kernel`, then `bwd_dq_store_kernel<128>`): q tiles of 64
 // rows, dq split between the warpgroups by d columns.
 //
-// At head dims 16 and 32 it keeps FA2's two-pass form (deterministic, no
-// atomics, mma.sync): they carry 18 and 0 launches (the tiny To2V trainer).
-// The head dim is a template parameter there: the smem tiles are
-// [rows][HD + 8], the transposed ones [HD][72], the fragment loops run
-// HD / 16 k-steps and HD / 8 column tiles, and the lse, dsum and bias are
-// per row or key, whatever HD. The tiles are dynamic shared memory.
-// * bwd_dkdv_kernel: a block owns 128 kv rows of one (b, h) (8 warps x 16
-//   rows; K and V held as mma A fragments in registers) and sweeps every q
-//   tile of 64 rows: s^T = K q^T and dp^T = V g^T, then dv += p^T g and
-//   dk += ds^T q. q and g are staged row-major (for the B fragments of the
-//   first two products) and transposed (for the last two). dbias is written
-//   per (b, h, key); the caller sums it over heads.
-// * bwd_dq_kernel: a block owns 128 q rows (q and g as A fragments) and
-//   sweeps kv tiles of 64: s = q K^T, dp = g V^T, dq += ds K, with K staged
-//   row-major and transposed.
-// That is 7 tile products against the 5 of one pass (s and dp twice), the
-// price of no cross-block reduction. Ragged Sq / Skv are masked from the
-// lengths (p = 0 outside), as in the forward kernels.
+// At head dims 16 and 32 (the tiny trainers) it is the same form re-cut for
+// rows of 32 and 64 bytes and for shapes that leave 128-key blocks too few
+// to fill the card (flash_bwd_small.cuh's `bwd_small_kernel<HD>`, then
+// `bwd_dq_store_kernel<HD>`): a warpgroup a 64-key group, the group's q
+// tiles shared between QS warpgroups of a block.
 // ---------------------------------------------------------------------------
-
-constexpr int BWD_BKV = BM;   // kv rows per dk/dv block
-constexpr int BWD_BQ = 64;    // q rows per step of its sweep
-constexpr int BWD_BQ2 = BM;   // q rows per dq block
-constexpr int BWD_BKV2 = BN;  // kv rows per step of its sweep
-constexpr int LDT = 64 + 8;   // pitch of the transposed 64-column tiles
-
-// dynamic shared memory of the two passes: the row-major q and g (k and v)
-// tiles and the transposed ones
-template <int HD>
-constexpr size_t dkdv_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (2 * BWD_BQ * pitch(HD) + 2 * HD * LDT);
-}
-
-template <int HD>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (2 * BWD_BKV2 * pitch(HD) + HD * LDT);
-}
-
-template <typename T>
-__device__ __forceinline__ T* at_head(const void* base, long long sb, long long sh, int b, int h) {
-  return static_cast<T*>(const_cast<void*>(base)) + b * sb + h * sh;
-}
-
-template <int N>
-__device__ __forceinline__ void zero_tile(float (&x)[N][4]) {
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[n][i] = 0.f;
-}
-
-// Stores this warp's 16 rows (row0 = first row of the block) of an f32
-// accumulator tile of HD columns times ``scale`` as bf16.
-template <int HD>
-__device__ __forceinline__ void store_rows16(const float (&acc)[HD / 8][4], __nv_bfloat16* dst,
-                                             long long ss, int row0, int n, float scale) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-    const int c = dt * 8 + t * 2;
-    if (r0 < n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)r0 * ss + c) =
-          __floats2bfloat162_rn(acc[dt][0] * scale, acc[dt][1] * scale);
-    if (r1 < n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)r1 * ss + c) =
-          __floats2bfloat162_rn(acc[dt][2] * scale, acc[dt][3] * scale);
-  }
-}
-
-// Grid (ceil(Skv / 128), H, B); dynamic shared memory dkdv_smem_bytes<HD>().
-template <int HD>
-__global__ void __launch_bounds__(NTHREADS) bwd_dkdv_kernel(const TGAttnBwdArgs a) {
-  constexpr int ld = pitch(HD);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* buf = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __shared__ float lse2_s[BWD_BQ];
-  __shared__ float dsum_s[BWD_BQ];
-  __nv_bfloat16* Qs = buf;                                   // [64 q][ld]
-  __nv_bfloat16* Gs = buf + BWD_BQ * ld;                     // [64 q][ld]
-  __nv_bfloat16* Qt = buf + 2 * BWD_BQ * ld;                 // [HD d][LDT]
-  __nv_bfloat16* Gt = buf + 2 * BWD_BQ * ld + HD * LDT;      // [HD d][LDT]
-  const int kv0 = blockIdx.x * BWD_BKV, h = blockIdx.y, b = blockIdx.z;
-  const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const float c1 = static_cast<float>(a.scale) * LOG2E;
-  const __nv_bfloat16* q = at_head<const __nv_bfloat16>(a.q, a.q_sb, a.q_sh, b, h);
-  const __nv_bfloat16* k = at_head<const __nv_bfloat16>(a.k, a.k_sb, a.k_sh, b, h);
-  const __nv_bfloat16* v = at_head<const __nv_bfloat16>(a.v, a.v_sb, a.v_sh, b, h);
-  const __nv_bfloat16* gg = at_head<const __nv_bfloat16>(a.g, a.g_sb, a.g_sh, b, h);
-  const long long bh = (long long)b * a.h + h;
-  const float* lse = static_cast<const float*>(a.lse) + bh * sq;
-  const float* dsum = static_cast<const float*>(a.dsum) + bh * sq;
-  const float* bias = a.bias ? static_cast<const float*>(a.bias) + (long long)b * skv : nullptr;
-  const Side none{};
-
-  // K and V rows of this block -> A fragments, staged through buf (128 rows
-  // of pitch ld: the two row-major q / g tiles' room)
-  uint32_t ka[HD / 16][4], va[HD / 16][4];
-  load_rows<false, HD>(buf, ld, k, a.k_ss, kv0, BWD_BKV, skv, none, b, 1.f, 0.f);
-  __syncthreads();
-  load_q_frags<HD>(ka, buf);
-  __syncthreads();
-  load_rows<false, HD>(buf, ld, v, a.v_ss, kv0, BWD_BKV, skv, none, b, 1.f, 0.f);
-  __syncthreads();
-  load_q_frags<HD>(va, buf);
-
-  // this thread's two kv rows: bias in the log2 domain, -inf past Skv
-  const int rA = kv0 + warp * 16 + g, rB = rA + 8;
-  const float bA = rA < skv ? (bias ? bias[rA] * LOG2E : 0.f) : -INFINITY;
-  const float bB = rB < skv ? (bias ? bias[rB] * LOG2E : 0.f) : -INFINITY;
-  float dk[HD / 8][4], dv[HD / 8][4];
-  zero_tile(dk);
-  zero_tile(dv);
-  float dbA = 0.f, dbB = 0.f;
-
-  for (int q0 = 0; q0 < sq; q0 += BWD_BQ) {
-    __syncthreads();  // staging / previous tiles consumed by every warp
-    load_rows<false, HD>(Qs, ld, q, a.q_ss, q0, BWD_BQ, sq, none, b, 1.f, 0.f);
-    load_vt<HD>(Qt, LDT, q, a.q_ss, q0, BWD_BQ, sq);
-    load_rows<false, HD>(Gs, ld, gg, a.g_ss, q0, BWD_BQ, sq, none, b, 1.f, 0.f);
-    load_vt<HD>(Gt, LDT, gg, a.g_ss, q0, BWD_BQ, sq);
-    if (threadIdx.x < BWD_BQ) {
-      const int r = q0 + threadIdx.x;
-      lse2_s[threadIdx.x] = r < sq ? lse[r] * LOG2E : INFINITY;  // p = 0 past Sq
-      dsum_s[threadIdx.x] = r < sq ? dsum[r] : 0.f;
-    }
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    zero_tile(s);
-    zero_tile(dp);
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const __nv_bfloat16* qp = Qs + (nt * 8 + g) * ld + kk * 16 + t * 2;
-        mma16816(s[nt], ka[kk], *reinterpret_cast<const uint32_t*>(qp),
-                 *reinterpret_cast<const uint32_t*>(qp + 8));
-        const __nv_bfloat16* gp = Gs + (nt * 8 + g) * ld + kk * 16 + t * 2;
-        mma16816(dp[nt], va[kk], *reinterpret_cast<const uint32_t*>(gp),
-                 *reinterpret_cast<const uint32_t*>(gp + 8));
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = nt * 8 + t * 2 + (i & 1);
-        const float p = exp2f(s[nt][i] * c1 + (i < 2 ? bA : bB) - lse2_s[col]);
-        const float ds = p * (dp[nt][i] - dsum_s[col]);
-        s[nt][i] = p;
-        dp[nt][i] = ds;
-        if (i < 2) dbA += ds; else dbB += ds;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t pa[4], da[4];
-      pa[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      pa[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      pa[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      pa[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-      da[0] = pack_bf16(dp[2 * j][0], dp[2 * j][1]);
-      da[1] = pack_bf16(dp[2 * j][2], dp[2 * j][3]);
-      da[2] = pack_bf16(dp[2 * j + 1][0], dp[2 * j + 1][1]);
-      da[3] = pack_bf16(dp[2 * j + 1][2], dp[2 * j + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt) {
-        const __nv_bfloat16* gtp = Gt + (dt * 8 + g) * LDT + j * 16 + t * 2;
-        mma16816(dv[dt], pa, *reinterpret_cast<const uint32_t*>(gtp),
-                 *reinterpret_cast<const uint32_t*>(gtp + 8));
-        const __nv_bfloat16* qtp = Qt + (dt * 8 + g) * LDT + j * 16 + t * 2;
-        mma16816(dk[dt], da, *reinterpret_cast<const uint32_t*>(qtp),
-                 *reinterpret_cast<const uint32_t*>(qtp + 8));
-      }
-    }
-  }
-
-  const float scale = static_cast<float>(a.scale);
-  store_rows16<HD>(dk, at_head<__nv_bfloat16>(a.dk, a.dk_sb, a.dk_sh, b, h), a.dk_ss, kv0, skv,
-                   scale);
-  store_rows16<HD>(dv, at_head<__nv_bfloat16>(a.dv, a.dv_sb, a.dv_sh, b, h), a.dv_ss, kv0, skv,
-                   1.f);
-  if (a.dbias != nullptr) {
-    dbA += __shfl_xor_sync(0xffffffffu, dbA, 1);
-    dbA += __shfl_xor_sync(0xffffffffu, dbA, 2);
-    dbB += __shfl_xor_sync(0xffffffffu, dbB, 1);
-    dbB += __shfl_xor_sync(0xffffffffu, dbB, 2);
-    float* db = static_cast<float*>(a.dbias) + bh * skv;
-    if (t == 0 && rA < skv) db[rA] = dbA;
-    if (t == 0 && rB < skv) db[rB] = dbB;
-  }
-}
-
-// Grid (ceil(Sq / 128), H, B); dynamic shared memory dq_smem_bytes<HD>().
-template <int HD>
-__global__ void __launch_bounds__(NTHREADS) bwd_dq_kernel(const TGAttnBwdArgs a) {
-  constexpr int ld = pitch(HD);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* buf = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __shared__ float bias2_s[BWD_BKV2];
-  __nv_bfloat16* Ks = buf;                       // [64 kv][ld]
-  __nv_bfloat16* Vs = buf + BWD_BKV2 * ld;       // [64 kv][ld]
-  __nv_bfloat16* Kt = buf + 2 * BWD_BKV2 * ld;   // [HD d][LDT]
-  const int q0 = blockIdx.x * BWD_BQ2, h = blockIdx.y, b = blockIdx.z;
-  const int sq = static_cast<int>(a.sq), skv = static_cast<int>(a.skv);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const float c1 = static_cast<float>(a.scale) * LOG2E;
-  const __nv_bfloat16* q = at_head<const __nv_bfloat16>(a.q, a.q_sb, a.q_sh, b, h);
-  const __nv_bfloat16* k = at_head<const __nv_bfloat16>(a.k, a.k_sb, a.k_sh, b, h);
-  const __nv_bfloat16* v = at_head<const __nv_bfloat16>(a.v, a.v_sb, a.v_sh, b, h);
-  const __nv_bfloat16* gg = at_head<const __nv_bfloat16>(a.g, a.g_sb, a.g_sh, b, h);
-  const long long bh = (long long)b * a.h + h;
-  const float* lse = static_cast<const float*>(a.lse) + bh * sq;
-  const float* dsum = static_cast<const float*>(a.dsum) + bh * sq;
-  const float* bias = a.bias ? static_cast<const float*>(a.bias) + (long long)b * skv : nullptr;
-  const Side none{};
-
-  // q and g rows of this block -> A fragments, staged through Ks|Vs (128 rows)
-  uint32_t qa[HD / 16][4], ga[HD / 16][4];
-  load_rows<false, HD>(buf, ld, q, a.q_ss, q0, BWD_BQ2, sq, none, b, 1.f, 0.f);
-  __syncthreads();
-  load_q_frags<HD>(qa, buf);
-  __syncthreads();
-  load_rows<false, HD>(buf, ld, gg, a.g_ss, q0, BWD_BQ2, sq, none, b, 1.f, 0.f);
-  __syncthreads();
-  load_q_frags<HD>(ga, buf);
-
-  const int rA = q0 + warp * 16 + g, rB = rA + 8;
-  const float lA = rA < sq ? lse[rA] * LOG2E : INFINITY;
-  const float lB = rB < sq ? lse[rB] * LOG2E : INFINITY;
-  const float sA = rA < sq ? dsum[rA] : 0.f;
-  const float sB = rB < sq ? dsum[rB] : 0.f;
-  float dq[HD / 8][4];
-  zero_tile(dq);
-
-  for (int kv0 = 0; kv0 < skv; kv0 += BWD_BKV2) {
-    __syncthreads();  // staging / previous tiles consumed by every warp
-    load_rows<false, HD>(Ks, ld, k, a.k_ss, kv0, BWD_BKV2, skv, none, b, 1.f, 0.f);
-    load_rows<false, HD>(Vs, ld, v, a.v_ss, kv0, BWD_BKV2, skv, none, b, 1.f, 0.f);
-    load_vt<HD>(Kt, LDT, k, a.k_ss, kv0, BWD_BKV2, skv);
-    if (threadIdx.x < BWD_BKV2) {
-      const int j = kv0 + threadIdx.x;
-      bias2_s[threadIdx.x] = j < skv ? (bias ? bias[j] * LOG2E : 0.f) : -INFINITY;
-    }
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    zero_tile(s);
-    zero_tile(dp);
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const __nv_bfloat16* kp = Ks + (nt * 8 + g) * ld + kk * 16 + t * 2;
-        mma16816(s[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
-        const __nv_bfloat16* vp = Vs + (nt * 8 + g) * ld + kk * 16 + t * 2;
-        mma16816(dp[nt], ga[kk], *reinterpret_cast<const uint32_t*>(vp),
-                 *reinterpret_cast<const uint32_t*>(vp + 8));
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = nt * 8 + t * 2 + (i & 1);
-        const float p = exp2f(s[nt][i] * c1 + bias2_s[col] - (i < 2 ? lA : lB));
-        dp[nt][i] = p * (dp[nt][i] - (i < 2 ? sA : sB));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t da[4];
-      da[0] = pack_bf16(dp[2 * j][0], dp[2 * j][1]);
-      da[1] = pack_bf16(dp[2 * j][2], dp[2 * j][3]);
-      da[2] = pack_bf16(dp[2 * j + 1][0], dp[2 * j + 1][1]);
-      da[3] = pack_bf16(dp[2 * j + 1][2], dp[2 * j + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt) {
-        const __nv_bfloat16* ktp = Kt + (dt * 8 + g) * LDT + j * 16 + t * 2;
-        mma16816(dq[dt], da, *reinterpret_cast<const uint32_t*>(ktp),
-                 *reinterpret_cast<const uint32_t*>(ktp + 8));
-      }
-    }
-  }
-  store_rows16<HD>(dq, at_head<__nv_bfloat16>(a.dq, a.dq_sb, a.dq_sh, b, h), a.dq_ss, q0, sq,
-                   static_cast<float>(a.scale));
-}
 
 // K5 at head dim 64: flash_bwd.cuh's one-pass body, grid (ceil(Skv / 128), H,
 // B); dynamic shared memory bw_smem_bytes()
@@ -562,6 +278,35 @@ __global__ void __launch_bounds__(BW_NT, 1) bwd_onepass128_kernel(
     const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap dqmap,
     const float* aux) {
   bwd_onepass128_body(a, &qmap, &gmap, &kmap, &vmap, &dqmap, aux);
+}
+
+// K5 at head dims 16 and 32: flash_bwd_small.cuh's one-pass body, grid
+// (ceil(Skv / (64 NK)), H, B) of BsGeom<HD>::NT threads; dynamic shared memory
+// BsGeom<HD>::SMEM
+template <int HD>
+__global__ void __launch_bounds__(BsGeom<HD>::NT, BsCut<HD>::MINB) bwd_small_kernel(
+    const TGAttnBwdArgs a, const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap gmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap dqmap,
+    const float* aux) {
+  bwd_small_body<HD>(a, &qmap, &gmap, &kmap, &vmap, &dqmap, aux);
+}
+
+// K5's per-q-tile table, [B * H][nq][lse2 | dsum][tile] f32, from lse and
+// dsum (f32 [B * H][Sq]): lse2 = lse log2 e; past Sq lse2 = +inf and dsum =
+// 0, so that p = ds = 0 on the padding rows (which the bodies read as
+// zeros). One thread an entry (B * H * nq * tile threads).
+__global__ void __launch_bounds__(NTHREADS) bwd_aux_kernel(const TGAttnBwdArgs a, float* aux,
+                                                           int nq, int tile) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.b * a.h * nq * tile) return;
+  const int c = static_cast<int>(i % tile);
+  const long long t = i / tile;  // (b * H + h) * nq + tile index
+  const long long bh = t / nq;
+  const int r = static_cast<int>(t % nq) * tile + c;
+  const bool in = r < a.sq;
+  aux[t * 2 * tile + c] = in ? static_cast<const float*>(a.lse)[bh * a.sq + r] * LOG2E : INFINITY;
+  aux[t * 2 * tile + tile + c] = in ? static_cast<const float*>(a.dsum)[bh * a.sq + r] : 0.f;
 }
 
 template <int HD>
@@ -751,7 +496,8 @@ cudaError_t scale_map(CUtensorMap* map, const void* base, long long s, long long
 }
 
 // The 3-D f32 tensor map of K5's dq workspace [B * H][Sq][HD]: boxes of 32
-// columns x 64 rows in the 128-byte swizzle; rows past Sq are clipped.
+// columns x 64 rows in the 128-byte swizzle (at HD = 16 of 16 columns in the
+// 64-byte one); rows past Sq are clipped.
 cudaError_t dq_ws_map(CUtensorMap* map, void* base, long long sq, long long bh, int hd) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
@@ -759,10 +505,12 @@ cudaError_t dq_ws_map(CUtensorMap* map, void* base, long long sq, long long bh, 
                               static_cast<cuuint64_t>(bh)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd) * 4,
                                  static_cast<cuuint64_t>(sq) * hd * 4};
-  const cuuint32_t box[3] = {32, 64, 1};
+  const int cols = hd < 32 ? hd : 32;  // 128-byte rows, or at 16 64-byte ones
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols), 64, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base, dims, strides, box, unit,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            cols == 32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -860,35 +608,32 @@ int launch_k6(const TGAttnArgs* a, long long splits, long long split_len, void* 
                           fused_bhsd_combine_kernel<HD>, a, splits, split_len, pro, ws, s);
 }
 
-template <int HD>
-int launch_bwd(const TGAttnBwdArgs* a, cudaStream_t s) {
-  if (a->sq <= 0 || a->skv <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr size_t smem_kv = dkdv_smem_bytes<HD>(), smem_q = dq_smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_kv));
+// A one-pass body's inputs besides the operands: its table in ``aux`` (nq
+// tiles of ``tile`` rows a (b, h): ceil(Sq / tile) rounded up to a multiple
+// of ``multiple``) and dq's f32 workspace ``dqws`` [B, H, Sq, hd], zeroed.
+cudaError_t bwd_prepare(const TGAttnBwdArgs* a, void* aux, int tile, int multiple, void* dqws,
+                        int hd, cudaStream_t s) {
+  const long long nq = (a->sq + tile * multiple - 1) / (tile * multiple) * multiple;
+  const long long n = a->b * a->h * nq * tile;
+  bwd_aux_kernel<<<static_cast<unsigned>((n + NTHREADS - 1) / NTHREADS), NTHREADS, 0, s>>>(
+      *a, static_cast<float*>(aux), static_cast<int>(nq), tile);
+  cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem_q));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_kv(static_cast<unsigned>((a->skv + BWD_BKV - 1) / BWD_BKV),
-                     static_cast<unsigned>(a->h), static_cast<unsigned>(a->b));
-  bwd_dkdv_kernel<HD><<<grid_kv, NTHREADS, smem_kv, s>>>(*a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_q(static_cast<unsigned>((a->sq + BWD_BQ2 - 1) / BWD_BQ2),
-                    static_cast<unsigned>(a->h), static_cast<unsigned>(a->b));
-  bwd_dq_kernel<HD><<<grid_q, NTHREADS, smem_q, s>>>(*a);
-  return static_cast<int>(cudaGetLastError());
+    err = cudaMemsetAsync(dqws, 0, static_cast<size_t>(a->b * a->h * a->sq * hd) * sizeof(float),
+                          s);
+  return err;
 }
 
-// K5 at head dim 64: the one-pass body, then dq from the workspace. ``aux``:
-// f32 [B * H][ceil(Sq / 128)][lse2 | dsum][128] (lse2 = lse log2 e; past Sq
-// lse2 = +inf and dsum = 0); ``dqws``: f32 [B, H, Sq, 64], zeroed.
-int launch_bwd_onepass(const TGAttnBwdArgs* a, const void* aux, void* dqws, cudaStream_t s) {
+// K5 at head dim 64: the table and the workspace, the one-pass body, then
+// dq from the workspace. ``aux``: room for f32 [B * H][ceil(Sq / 128)][lse2
+// | dsum][128]; ``dqws``: for f32 [B, H, Sq, 64].
+int launch_bwd_onepass(const TGAttnBwdArgs* a, void* aux, void* dqws, cudaStream_t s) {
   if (a->sq <= 0 || a->skv <= 0 || aux == nullptr || dqws == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap qmap, gmap, kmap, vmap, dqmap;
-  cudaError_t err = kv_tensor_map<64>(&qmap, a->q, a->sq, a->h, a->b, a->q_ss, a->q_sh, a->q_sb);
+  cudaError_t err = bwd_prepare(a, aux, BW_BQ, 1, dqws, 64, s);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<64>(&qmap, a->q, a->sq, a->h, a->b, a->q_ss, a->q_sh, a->q_sb);
   if (err == cudaSuccess)
     err = kv_tensor_map<64>(&gmap, a->g, a->sq, a->h, a->b, a->g_ss, a->g_sh, a->g_sb);
   if (err == cudaSuccess)
@@ -913,15 +658,16 @@ int launch_bwd_onepass(const TGAttnBwdArgs* a, const void* aux, void* dqws, cuda
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5 at head dim 128: the one-pass body, then dq from the workspace. ``aux``:
-// f32 [B * H][ceil(Sq / 64)][lse2 | dsum][64] (past Sq lse2 = +inf and dsum =
-// 0); ``dqws``: f32 [B, H, Sq, 128], zeroed.
-int launch_bwd_onepass128(const TGAttnBwdArgs* a, const void* aux, void* dqws, cudaStream_t s) {
+// K5 at head dim 128: the table and the workspace, the one-pass body, then
+// dq from the workspace. ``aux``: room for f32 [B * H][ceil(Sq / 64)][lse2 |
+// dsum][64]; ``dqws``: for f32 [B, H, Sq, 128].
+int launch_bwd_onepass128(const TGAttnBwdArgs* a, void* aux, void* dqws, cudaStream_t s) {
   if (a->sq <= 0 || a->skv <= 0 || aux == nullptr || dqws == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap qmap, gmap, kmap, vmap, dqmap;
-  cudaError_t err =
-      kv_tensor_map<128>(&qmap, a->q, a->sq, a->h, a->b, a->q_ss, a->q_sh, a->q_sb, B8_BQ);
+  cudaError_t err = bwd_prepare(a, aux, B8_BQ, 1, dqws, 128, s);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<128>(&qmap, a->q, a->sq, a->h, a->b, a->q_ss, a->q_sh, a->q_sb, B8_BQ);
   if (err == cudaSuccess)
     err = kv_tensor_map<128>(&gmap, a->g, a->sq, a->h, a->b, a->g_ss, a->g_sh, a->g_sb, B8_BQ);
   if (err == cudaSuccess)
@@ -944,6 +690,63 @@ int launch_bwd_onepass128(const TGAttnBwdArgs* a, const void* aux, void* dqws, c
   bwd_dq_store_kernel<128><<<static_cast<unsigned>((threads + NTHREADS - 1) / NTHREADS), NTHREADS,
                              0, s>>>(*a, static_cast<const float*>(dqws));
   return static_cast<int>(cudaGetLastError());
+}
+
+// K5 at head dims 16 and 32: the table and the workspace, the one-pass body,
+// then dq from the workspace. ``aux``: room for f32 [B * H][2 ceil(Sq /
+// 128)][lse2 | dsum][64]; ``dqws``: for f32 [B, H, Sq, HD].
+template <int HD>
+int launch_bwd_small(const TGAttnBwdArgs* a, void* aux, void* dqws, cudaStream_t s) {
+  using S = BsGeom<HD>;
+  if (a->sq <= 0 || a->skv <= 0 || aux == nullptr || dqws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int keys = S::NK * BS_KEYS;
+  CUtensorMap qmap, gmap, kmap, vmap, dqmap;
+  cudaError_t err = bwd_prepare(a, aux, BS_AUX_ROWS, 2, dqws, HD, s);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<HD>(&qmap, a->q, a->sq, a->h, a->b, a->q_ss, a->q_sh, a->q_sb, S::BQ);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<HD>(&gmap, a->g, a->sq, a->h, a->b, a->g_ss, a->g_sh, a->g_sb, S::BQ);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<HD>(&kmap, a->k, a->skv, a->h, a->b, a->k_ss, a->k_sh, a->k_sb, keys);
+  if (err == cudaSuccess)
+    err = kv_tensor_map<HD>(&vmap, a->v, a->skv, a->h, a->b, a->v_ss, a->v_sh, a->v_sb, keys);
+  if (err == cudaSuccess) err = dq_ws_map(&dqmap, dqws, a->sq, a->b * a->h, HD);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(bwd_small_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               S::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((a->skv + keys - 1) / keys), static_cast<unsigned>(a->h),
+                  static_cast<unsigned>(a->b));
+  bwd_small_kernel<HD><<<grid, S::NT, S::SMEM, s>>>(*a, qmap, gmap, kmap, vmap, dqmap,
+                                                    static_cast<const float*>(aux));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long threads = a->b * a->h * a->sq * (HD / 8);
+  bwd_dq_store_kernel<HD><<<static_cast<unsigned>((threads + NTHREADS - 1) / NTHREADS), NTHREADS,
+                            0, s>>>(*a, static_cast<const float*>(dqws));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5's cut at head dim 16 or 32, for the smoke's log and the tests: threads
+// a block, dynamic shared memory, resident blocks a SM, keys a block, q rows
+// a tile, warpgroups a key group
+template <int HD>
+int geometry_bwd_small(long long* out) {
+  using S = BsGeom<HD>;
+  cudaError_t err = cudaFuncSetAttribute(bwd_small_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bwd_small_kernel<HD>, S::NT,
+                                                        S::SMEM);
+  out[0] = S::NT;
+  out[1] = S::SMEM;
+  out[2] = blocks;
+  out[3] = S::NK * BS_KEYS;
+  out[4] = S::BQ;
+  out[5] = S::QS;
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -1048,18 +851,27 @@ int tg_attention_cross_smallkv(const TGAttnArgs* a, long long per_block, void* p
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5: attention backward, head_dim 16, 32, 64 or 128: at 64 and 128 the
-// one-pass body (``aux`` and ``ws`` as launch_bwd_onepass /
-// launch_bwd_onepass128 take them), else the dk/dv (and dbias) pass then the
-// dq pass (``aux`` and ``ws`` unused).
+// K5: attention backward, head_dim 16, 32, 64 or 128: the table and the
+// workspace, the one-pass body of the head dim, then dq from ``ws`` (``aux``
+// and ``ws``: room as launch_bwd_small, launch_bwd_onepass and
+// launch_bwd_onepass128 take it).
 int tg_attention_bwd(const TGAttnBwdArgs* a, long long head_dim, void* aux, void* ws,
                      void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 16: return launch_bwd<16>(a, s);
-    case 32: return launch_bwd<32>(a, s);
+    case 16: return launch_bwd_small<16>(a, aux, ws, s);
+    case 32: return launch_bwd_small<32>(a, aux, ws, s);
     case 64: return launch_bwd_onepass(a, aux, ws, s);
     case 128: return launch_bwd_onepass128(a, aux, ws, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K5's geometry at head dim 16 or 32 (geometry_bwd_small's six values)
+int tg_attention_bwd_small_geometry(long long head_dim, long long* out) {
+  switch (head_dim) {
+    case 16: return geometry_bwd_small<16>(out);
+    case 32: return geometry_bwd_small<32>(out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,9 +1,8 @@
 // K5's one-pass attention backward at head dim 64 (`bwd_onepass_kernel` in
 // attention.cu, with `bwd_dq_store_kernel<64>` after it), on flash_splitkv.cuh's
 // and flash_ws.cuh's machinery: TMA tiles in the 128-byte swizzle, mbarriers,
-// every product on wgmma. It replaces FA2's two-pass form (bwd_dkdv_kernel +
-// bwd_dq_kernel, which stay at head dims 16 and 32) at 64; flash_bwd128.cuh
-// holds its form at 128.
+// every product on wgmma. It replaced FA2's two-pass form at 64;
+// flash_bwd128.cuh holds its form at 128, flash_bwd_small.cuh at 16 and 32.
 //
 // What it computes, from the forward's natural-log lse (in the log2 domain:
 // lse2 = lse log2 e, c = scale log2 e, bias2 = bias log2 e):
@@ -396,8 +395,8 @@ __device__ __forceinline__ void bwd_onepass_body(const TGAttnBwdArgs& a, const C
 // thread per 8 columns of a row (B * H * Sq * HD / 8 threads)
 template <int HD>
 __device__ __forceinline__ void bwd_dq_store(const TGAttnBwdArgs& a, const float* dqws) {
-  static_assert(HD == 64 || HD == 128, "the one-pass bodies' head dims");
-  constexpr int SH = HD == 64 ? 3 : 4;  // log2 of the threads a row
+  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 128, "K5's head dims");
+  constexpr int SH = HD == 16 ? 1 : HD == 32 ? 2 : HD == 64 ? 3 : 4;  // log2 of the threads a row
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long row = idx >> SH;  // (b * H + h) * Sq + r
   if (row >= a.b * a.h * a.sq) return;

@@ -1,10 +1,9 @@
-// The mma.sync flash-attention pieces shared by the attention kernels
-// (attention.cu: K5's loads and tiles at head dims 16, 32 and 128) and the
-// argument block, the prologue tables, the accumulator and the output store
-// that the TMA / wgmma bodies of K1-K4, K6 and the probes also use: bf16
-// operands, mma.sync m16n8k16 tensor-core tiles, f32 softmax in the log2
-// domain, the fused qk-norm + RoPE prologue on load. Templated on the head
-// dim HD (16, 32, 64, 128).
+// The flash-attention pieces that the TMA / wgmma bodies of K1-K7 and the
+// probes share: the argument block, the prologue tables, row loads with the
+// fused qk-norm + RoPE prologue, A fragments in the mma.sync m16n8k16
+// layout (that of a wgmma's A in registers), bf16
+// packing, the accumulator and the output store; f32 softmax in the log2
+// domain. Templated on the head dim HD (16, 32, 64, 128).
 //
 // The lse the forward kernels may write is in the NATURAL log base (lse = ln
 // sum_j exp(s_j), s the natural-domain scores scale*q.k + bias), as the TPU
@@ -21,7 +20,6 @@ namespace {
 
 constexpr int D = 64;               // head dim (K4, K5, K6: HD = 16, 32, 64 or 128)
 constexpr int BM = 128;             // q rows per block: 8 warps x 16 rows
-constexpr int BN = 64;              // kv rows per tile
 constexpr int NTHREADS = (BM / 16) * 32;
 // smem pitch (bf16) of q/k tiles of head dim hd: conflict-free fragments, 16-byte rows
 __host__ __device__ constexpr int pitch(int hd) { return hd + 8; }
@@ -62,14 +60,6 @@ struct AccT {
   float l[2];
 };
 using Acc = AccT<D>;
-
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -171,25 +161,6 @@ __device__ void load_rows(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src, 
     out.z = pack_bf16(y[4], y[5]);
     out.w = pack_bf16(y[6], y[7]);
     *reinterpret_cast<uint4*>(dst + r * ld + c0) = out;
-  }
-}
-
-// Loads v rows [row0, row0 + nrows) of head dim HD transposed, with NT
-// threads: dst[d * ldv + r] (so the p@v B-fragments are contiguous pairs
-// along kv).
-template <int HD = D, int NT = NTHREADS>
-__device__ void load_vt(__nv_bfloat16* dst, int ldv, const __nv_bfloat16* src, long long ss,
-                        int row0, int nrows, int seqlen) {
-  constexpr unsigned TPR = HD / 8;
-  const int c0 = static_cast<int>(threadIdx.x % TPR) * 8;
-  constexpr int step = NT / TPR;
-  for (int r = static_cast<int>(threadIdx.x / TPR); r < nrows; r += step) {
-    const int row = row0 + r;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (row < seqlen) raw = *reinterpret_cast<const uint4*>(src + (long long)row * ss + c0);
-    const __nv_bfloat16* vals = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) dst[(c0 + e) * ldv + r] = vals[e];
   }
 }
 

@@ -94,6 +94,27 @@ streaming mma.sync loop) against the shipped key-split body, the shipped
 body without its recomputed chain (t6_no_chain: what the chain costs), with
 its chunks overlapped (t6_overlap) and with int8 p staged in shared memory
 (t6_staged_p).
+
+The k5d16_* / k5d32_* / k5d64_* form times K5 at head dims 16 and 32 at
+the tiny trainers' [3, 2, 1,544, 16] and [3, 4, 1,544, 32] (the
+padded-chunk key bias of (16, 8, 4) valid frames) built from commit
+ade0896's attention.cu (FA2's two-pass mma.sync form there, which leaves
+the room the wrapper allocates for the table and workspace unread) against the
+shipped one-pass body (csrc/flash_bwd_small.cuh), against its other
+cuts (`BsCut`: key groups a block, warpgroups a key group, q tile, blocks a
+SM) and against deeper rings (3 and 4 q tiles), each as single-call events
+and as the device time of 10 queued calls (`_common.queued_time_ms`: the
+wrapper's host time left out); and K5 at head dim 64 at the joint training
+shape built from that commit and from the shipped source, which must not
+differ (its body is flash_bwd.cuh's, not touched); each --k5-builds times.
+Each arm's first round prints its grid's blocks and resident slots. With
+--small-stamps, a build with clock64() stamps prints the clocks of two q
+tiles of one block at each head dim per phase.
+
+    python -m tokensgen_tpu_torch.tools.kernel_ablations --only k5d16_parent,\
+        k5d16_shipped,k5d32_parent,k5d32_shipped,k5d64_parent,k5d64_shipped,\
+        k5d16_q1,k5d16_q4,k5d16_nk2,k5d16_bq128,k5d32_q2,k5d32_nk2,k5d32_bq128,\
+        k5d16_stages3,k5d16_stages4,k5d32_stages3,k5d32_stages4 --parents DIR [--small-stamps]
 """
 
 from __future__ import annotations
@@ -124,8 +145,11 @@ SWEEP_PARENT_COMMIT = "cfce16a"  # T1's and T4a's mma.sync bodies' last commit
 V2_PARENT_COMMIT = "656b20a"  # T2's and T4b's mma.sync bodies' last commit
 # the two-pass K5 at head dim 128's and T6's mma.sync loop's last commit
 BWD128_PARENT_COMMIT = "1d190d4"
+# K5's two-pass mma.sync form at head dims 16 and 32: its last commit
+BWD_SMALL_PARENT_COMMIT = "ade0896"
 PARENT_COMMITS = (F32_PARENT_COMMIT, MF_PARENT_COMMIT, PROBES_PARENT_COMMIT, SWEEP_PARENT_COMMIT,
-                  V2_PARENT_COMMIT, BWD128_PARENT_COMMIT)
+                  V2_PARENT_COMMIT, BWD128_PARENT_COMMIT, BWD_SMALL_PARENT_COMMIT)
+SMALL = "flash_bwd_small.cuh"
 CSRC_PATH = "tokensgen_tpu_torch/kernels/csrc"
 # T1's tiles in that commit's probes.cu: (block_q, block_kv, heads per block)
 SWEEP_PARENT_CONFIGS = ((64, 32, 1), (64, 64, 1), (64, 128, 1), (128, 32, 1), (128, 64, 1),
@@ -309,6 +333,31 @@ _K5_STAMPS = [
 ]
 STAMP_PHASES = ("tile start", "stage landed", "score products", "half 0", "half 1", "dq product",
                 "dq staged")
+# the same phases of K5 at head dims 16 and 32 (csrc/flash_bwd_small.cuh): block (10, 1, 0),
+# each warpgroup's q tiles 4 and 5; every thread of the block writes (no branch on the
+# thread in a product's window)
+_K5S_STAMPS = [
+    (SMALL, "namespace {\n\n// The cut at head dim HD",
+     "__device__ long long g_prof[64];\n"
+     "#define SSTAMP(k) if (blockIdx.x == 10 && blockIdx.y == 1 && blockIdx.z == 0 && "
+     "(i == 4 || i == 5)) g_prof[(i - 4) * 32 + wg * 16 + (k)] = clock64()\n"
+     "namespace {\n\n// The cut at head dim HD"),
+    (SMALL, "    const int st = i % S::STAGES;\n    mbar_wait(full + st, (i / S::STAGES) & 1);\n",
+     "    SSTAMP(0);\n    const int st = i % S::STAGES;\n"
+     "    mbar_wait(full + st, (i / S::STAGES) & 1);\n    SSTAMP(1);\n"),
+    (SMALL, "    wgmma_wait<0>();\n    pin_regs(s);\n    pin_regs(dp);\n",
+     "    wgmma_wait<0>();\n    pin_regs(s);\n    pin_regs(dp);\n    SSTAMP(2);\n"),
+    (SMALL, "      wgmma_commit();\n    }\n    float dq[BQ / 64]",
+     "      wgmma_commit();\n      SSTAMP(3 + half);\n    }\n    float dq[BQ / 64]"),
+    (SMALL, "    pin_regs(dq);\n    // dq's share: staged",
+     "    pin_regs(dq);\n    SSTAMP(5);\n    // dq's share: staged"),
+    (SMALL, '    asm volatile("bar.sync %0, 128;\\n" ::"r"(1 + wg) : "memory");  // the warpgroup\'s '
+            'staging\n',
+     '    asm volatile("bar.sync %0, 128;\\n" ::"r"(1 + wg) : "memory");  // the warpgroup\'s '
+     'staging\n    SSTAMP(6);\n'),
+    (CU, 'extern "C" {\n', 'extern "C" {\n\nint tg_prof_read(long long* out) {\n'
+     '  return static_cast<int>(cudaMemcpyFromSymbol(out, g_prof, sizeof(long long) * 64));\n}\n'),
+]
 
 # clock64() stamps of T3b (block (40, 3), pass 0, kv tiles 50 and 51) and of
 # T5 (block 40, steps 100-103: unit 25's four kv tiles at 480 keys), warp 0
@@ -730,6 +779,19 @@ _T6_OVERLAP = [
     (PROBES, "template <> struct LoopGeom<int8_t> {\n  using Acc = int;\n",
      "template <> struct LoopGeom<int8_t> {\n  using Acc = int;\n  using Score = int[16][4];\n")]
 
+
+
+def _bs_cut(hd: int, shipped, cut):
+    """The patch that sets flash_bwd_small.cuh's cut at head dim ``hd`` from
+    ``shipped`` to ``cut``, each (NK, QS, BQ, MINB)."""
+    fmt = "struct BsCut<%d> {\n  static constexpr int NK = %d, QS = %d, BQ = %d, MINB = %d;"
+    return [(SMALL, fmt % (hd, *shipped), fmt % (hd, *cut))]
+
+
+_BS_RING = "  static constexpr int STAGES = %d;                     // q tiles in a warpgroup's ring"
+_BS_STAGES3 = [(SMALL, _BS_RING % 2, _BS_RING % 3)]
+_BS_STAGES4 = [(SMALL, _BS_RING % 2, _BS_RING % 4)]
+
 # name: (kernel, what the variant undoes, patches)
 VARIANTS = {
     "shipped": ("all", "nothing", []),
@@ -873,6 +935,34 @@ VARIANTS = {
                    _T6_OVERLAP),
     "t6_staged_p": ("T6", "p in registers as p.v's A operand (int8; bf16 unchanged): p stored to "
                     "shared memory and read from there", _T6_STAGED_P),
+    # K5 at head dims 16, 32 (csrc/flash_bwd_small.cuh) and 64 (flash_bwd.cuh)
+    "k5d16_parent": ("K5D16", f"the one-pass TMA / wgmma body: commit {BWD_SMALL_PARENT_COMMIT}'s "
+                     "two-pass mma.sync form (bwd_dkdv_kernel<16> + bwd_dq_kernel<16>)", None),
+    "k5d16_shipped": ("K5D16", "nothing", []),
+    "k5d32_parent": ("K5D32", f"the one-pass TMA / wgmma body: commit {BWD_SMALL_PARENT_COMMIT}'s "
+                     "two-pass mma.sync form (bwd_dkdv_kernel<32> + bwd_dq_kernel<32>)", None),
+    "k5d32_shipped": ("K5D32", "nothing", []),
+    "k5d64_parent": ("K5D64", f"nothing at d = 64 (commit {BWD_SMALL_PARENT_COMMIT}'s source)",
+                     None),
+    "k5d64_shipped": ("K5D64", "nothing", []),
+    "k5d16_q1": ("K5D16", "two warpgroups a key group: one (128 threads, three a SM)",
+                 _bs_cut(16, (1, 2, 64, 2), (1, 1, 64, 3))),
+    "k5d16_q4": ("K5D16", "two warpgroups a key group: four (512 threads, one a SM)",
+                 _bs_cut(16, (1, 2, 64, 2), (1, 4, 64, 1))),
+    "k5d16_nk2": ("K5D16", "a key group a block: 128-key blocks of two warpgroups (one each)",
+                  _bs_cut(16, (1, 2, 64, 2), (2, 1, 64, 2))),
+    "k5d16_bq128": ("K5D16", "q tiles of 64, two warpgroups a key group: q tiles of 128, one",
+                    _bs_cut(16, (1, 2, 64, 2), (1, 1, 128, 2))),
+    "k5d32_q2": ("K5D32", "one warpgroup a key group: two (256 threads, two a SM)",
+                 _bs_cut(32, (1, 1, 64, 3), (1, 2, 64, 2))),
+    "k5d32_nk2": ("K5D32", "a key group a block: 128-key blocks of two warpgroups (one each)",
+                  _bs_cut(32, (1, 1, 64, 3), (2, 1, 64, 2))),
+    "k5d32_bq128": ("K5D32", "q tiles of 64: 128 (two blocks a SM)",
+                    _bs_cut(32, (1, 1, 64, 3), (1, 1, 128, 2))),
+    "k5d16_stages3": ("K5D16", "a ring of two q tiles a warpgroup: three", _BS_STAGES3),
+    "k5d16_stages4": ("K5D16", "a ring of two q tiles a warpgroup: four", _BS_STAGES4),
+    "k5d32_stages3": ("K5D32", "a ring of two q tiles a warpgroup: three", _BS_STAGES3),
+    "k5d32_stages4": ("K5D32", "a ring of two q tiles a warpgroup: four", _BS_STAGES4),
 }
 # the kernels each probe (or K1-K3) variant times
 PROBE_KINDS = {"T3B": ("T3B",), "T5": ("T5",), "MF": ("T3B", "T5"), "K123": ("K1", "K2", "K3"),
@@ -882,10 +972,16 @@ PROBE_KINDS = {"T3B": ("T3B",), "T5": ("T5",), "MF": ("T3B", "T5"), "K123": ("K1
 # each kind's parent commit (the probes not named: MF_PARENT_COMMIT's)
 PARENT_OF = {"F32": F32_PARENT_COMMIT, "K123": MF_PARENT_COMMIT, "T7": PROBES_PARENT_COMMIT,
              "K5D128": BWD128_PARENT_COMMIT, "T6": BWD128_PARENT_COMMIT,
+             "K5D16": BWD_SMALL_PARENT_COMMIT, "K5D32": BWD_SMALL_PARENT_COMMIT,
+             "K5D64": BWD_SMALL_PARENT_COMMIT,
              "T3A": PROBES_PARENT_COMMIT, "T1": SWEEP_PARENT_COMMIT, "T4A": SWEEP_PARENT_COMMIT,
              "T2": V2_PARENT_COMMIT, "T4B": V2_PARENT_COMMIT}
 # the probes timed as 10 calls queued behind a device sleep (T5, T4a: their kernels alone)
 QUEUED_KINDS = ("T5", "T4A", "T4B")
+# timed both ways: single-call events and 10 queued calls
+BOTH_KINDS = ("K5D16", "K5D32")
+CU_KINDS = ("K123", "K5D128")  # attention.cu builds of their own
+K5_SMALL_KINDS = ("K5D16", "K5D32", "K5D64")  # attention.cu builds, --k5-builds each
 
 
 def _patched(name: str, patches, root, source=CU, files=None):
@@ -939,14 +1035,20 @@ def export_parents(root: str) -> None:
         print(f"{commit}: {len(list(d.iterdir()))} files in {d}")
 
 
-def _k5_case(dev):
+def _k5_inputs(dev):
+    """K5's operands at the joint training shape, [2, 48, 17,776, 64], no
+    key bias: (q, k, v, g, lse, dsum)."""
     gen = torch.Generator(dev).manual_seed(2)
     q, k, v, g = (torch.randn(2, 48, 17776, 64, generator=gen, device=dev).bfloat16()
                   for _ in range(4))
     zeros = torch.zeros(2, 17776, device=dev)
     out, lse = A.attention_plain(q, k, v, zeros, 0.125, with_lse=True)
     dsum = A._row_dsum(g, out, None)
-    del out
+    return q, k, v, g, lse, dsum
+
+
+def _k5_case(dev, inputs=None):
+    q, k, v, g, lse, dsum = inputs or _k5_inputs(dev)
     ref = A.attention_bwd_plain(q, k, v, g, lse, dsum, None, 0.125)
     return (lambda: A.attention_backward(q, k, v, g, lse, dsum, None, None, 0.125,
                                          with_dbias=True)), ref
@@ -1178,9 +1280,9 @@ def _t4b_case(dev):
 def _k5d128_case(dev):
     """K5 at head dim 128 at the T2To width's [3, 24, 9,442, 128] with the
     padded-chunk key bias of (24, 13, 5) valid chunks (chip_smoke.py's row):
-    {style: [(label, fn)]} (the parent's entry point, which takes no table
-    and no workspace at 128, and the shipped wrapper) and the plain
-    version."""
+    {style: [(label, fn)]} (the shipped wrapper for both: the parent's
+    two-pass form at 128 leaves the table and the workspace unread) and the
+    plain version."""
     from tokensgen_tpu_torch.train.t2to import padded_chunk_masks
 
     gen = torch.Generator(dev).manual_seed(15)
@@ -1193,17 +1295,54 @@ def _k5d128_case(dev):
     del out
     ref = A.attention_bwd_plain(q, k, v, g, lse, dsum, bias, scale)
 
+    def shipped():  # the parent's two-pass form leaves the table and the workspace unread
+        return A.attention_backward(q, k, v, g, lse, dsum, bias, None, scale, with_dbias=True)
+
+    return {"parent": [("", shipped)], "shipped": [("", shipped)]}, ref
+
+
+def _k5small_case(dev, d):
+    """K5 at head dim 16 or 32 at the tiny trainers' [3, 2, 1,544, 16] or
+    [3, 4, 1,544, 32] with the padded-chunk key bias of (16, 8, 4) valid
+    frames (chip_smoke.py's rows): {style: [(label, fn)]} (the shipped
+    wrapper for both: the parent's two-pass form leaves the room it
+    allocates for the table and the workspace unread) and the plain
+    version."""
+    from tokensgen_tpu_torch.train.t2to import padded_chunk_masks
+
+    gen = torch.Generator(dev).manual_seed(16 + d)
+    b, h, s = 3, 2 if d == 16 else 4, 8 + 16 * 96
+    q, k, v, g = (torch.randn(b, h, s, d, generator=gen, device=dev).bfloat16() for _ in range(4))
+    bias, _ = padded_chunk_masks(torch.tensor([16, 8, 4], device=dev), 16, 96, 8)
+    scale = d ** -0.5
+    out, lse = A.attention_plain(q, k, v, bias, scale, with_lse=True)
+    dsum = A._row_dsum(g, out, None)
+    ref = A.attention_bwd_plain(q, k, v, g, lse, dsum, bias, scale)
+
     def shipped():
         return A.attention_backward(q, k, v, g, lse, dsum, bias, None, scale, with_dbias=True)
 
-    def parent():  # the wrapper as it was at 128: no table, no workspace
-        saved, A.ONEPASS_HEAD_DIMS = A.ONEPASS_HEAD_DIMS, (64,)
-        try:
-            return shipped()
-        finally:
-            A.ONEPASS_HEAD_DIMS = saved
+    return {"parent": [("", shipped)], "shipped": [("", shipped)]}, ref
 
-    return {"parent": [("", parent)], "shipped": [("", shipped)]}, ref
+
+def _k5d64_case(dev):
+    """K5 at head dim 64 at the joint training shape (`_k5_case`), as
+    {style: [(label, fn)]}: the parent's launcher takes its table built
+    (`attention.bwd_aux_table`) and its workspace zeroed by torch ops, as
+    that commit's wrapper did; the shipped launcher does both itself."""
+    q, k, v, g, lse, dsum = inputs = _k5_inputs(dev)
+    fn, ref = _k5_case(dev, inputs)
+
+    def parent():
+        a, grads, dbias, keep, d = A._bwd_args(q, k, v, g, lse, dsum, None, None, 0.125, True)
+        aux = A.bwd_aux_table(lse, dsum, A.bwd_q_tile(d))
+        ws = torch.zeros(*q.shape[:3], d, dtype=torch.float32, device=dev)
+        err = getattr(A._lib(), A._BWD_ENTRY_POINT)(ctypes.byref(a), d, aux.data_ptr(),
+                                                     ws.data_ptr(), B.stream_of(q))
+        B.check_launch(A._BWD_ENTRY_POINT, err)
+        return (*grads, dbias.sum(dim=1))
+
+    return {"parent": [("", parent)], "shipped": [("", fn)]}, ref
 
 
 def _flash_loop_parent(q, k, v, iters):
@@ -1299,6 +1438,8 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", type=int, default=5, help="timed calls per case (median)")
     ap.add_argument("--only", default="", help="comma-separated variants (default: all)")
     ap.add_argument("--stamps", action="store_true", help="clock64() stamps of one K5 q tile")
+    ap.add_argument("--small-stamps", action="store_true",
+                    help="clock64() stamps of two q tiles of K5 at head dims 16 and 32")
     ap.add_argument("--parents", default="",
                     help="DIR/<commit>/ holds the parent commits' csrc (--export-parents); "
                     "default: git")
@@ -1308,6 +1449,8 @@ def main(argv=None) -> int:
                     help=f"write csrc/ of {', '.join(PARENT_COMMITS)} into DIR/<commit>/ and exit")
     ap.add_argument("--f32-builds", type=int, default=2,
                     help="nvcc builds of each float32 K4 variant, each timed")
+    ap.add_argument("--k5-builds", type=int, default=2,
+                    help="nvcc builds of each k5d16_* / k5d32_* / k5d64_* variant, each timed")
     ap.add_argument("--probe-builds", type=int, default=2,
                     help="nvcc builds of each T3b / T5 variant, each timed")
     ap.add_argument("--probe-stamps", action="store_true",
@@ -1328,7 +1471,10 @@ def main(argv=None) -> int:
         if kernel == "F32":
             for i in range(args.f32_builds):
                 builds[f"{n}.{i}"] = (n, F32, files, patches or [])
-        elif kernel in ("K123", "K5D128"):
+        elif kernel in K5_SMALL_KINDS:
+            for i in range(args.k5_builds):
+                builds[f"{n}.{i}"] = (n, CU, files, patches or [])
+        elif kernel in CU_KINDS:
             builds[n] = (n, CU, files, patches or [])
         elif kernel in PROBE_KINDS:
             source = GEMM if kernel == "T7" and patches is not None else PROBES
@@ -1340,6 +1486,8 @@ def main(argv=None) -> int:
         builds["k5_stamps"] = ("k5_stamps", CU, None, _K5_STAMPS)
     if args.probe_stamps:
         builds["mf_stamps"] = ("mf_stamps", PROBES, None, _MF_STAMPS)
+    if args.small_stamps:
+        builds["k5s_stamps"] = ("k5s_stamps", CU, None, _K5S_STAMPS)
     root = B.BUILD_DIR / "ablations"
     root.mkdir(parents=True, exist_ok=True)
     print(f"{_common.device_name(dev)}; {len(builds)} builds", flush=True)
@@ -1367,6 +1515,12 @@ def main(argv=None) -> int:
                                    ("14splitkv_kernel", "T4b (parent)"),
                                    ("14attn_v2_kernel", "T2 (parent)"),
                                    ("bwd_onepass128_kernel", "K5 at d = 128"),
+                                   ("bwd_small_kernelILi16", "K5 at d = 16"),
+                                   ("bwd_small_kernelILi32", "K5 at d = 32"),
+                                   ("bwd_dkdv_kernelILi16", "K5 at d = 16, dk / dv pass (parent)"),
+                                   ("bwd_dq_kernelILi16", "K5 at d = 16, dq pass (parent)"),
+                                   ("bwd_dkdv_kernelILi32", "K5 at d = 32, dk / dv pass (parent)"),
+                                   ("bwd_dq_kernelILi32", "K5 at d = 32, dq pass (parent)"),
                                    ("bwd_dkdv_kernelILi128", "K5 at d = 128, dk / dv pass (parent)"),
                                    ("bwd_dq_kernelILi128", "K5 at d = 128, dq pass (parent)"),
                                    ("17flash_loop_kernelIa", "T6 int8"),
@@ -1393,11 +1547,12 @@ def main(argv=None) -> int:
         libs[key] = lib
     if args.build_only:
         return 0
-    stamp_keys = ("k5_stamps", "mf_stamps")
+    stamp_keys = ("k5_stamps", "mf_stamps", "k5s_stamps")
     kinds = {VARIANTS[builds[key][0]][0] for key in builds if key not in stamp_keys}
     kernels = {k for kind in kinds for k in PROBE_KINDS.get(kind, (kind,))}
     makers = {"K5": _k5_case, "K2": _k2_case, "K7": _k7_case, "F32": _f32_case,
-              "K5D128": _k5d128_case, "T6": _t6_case,
+              "K5D128": _k5d128_case, "T6": _t6_case, "K5D16": lambda dev: _k5small_case(dev, 16),
+              "K5D32": lambda dev: _k5small_case(dev, 32), "K5D64": _k5d64_case,
               "T3B": _t3b_case, "T5": _t5_case, "K1": _k1_case, "K3": _k3_case,
               "T7": _t7_case, "T3A": _t3a_case, "T1": _t1_case, "T4A": _t4a_case,
               "T2": _t2_case, "T4B": _t4b_case}
@@ -1419,6 +1574,16 @@ def main(argv=None) -> int:
                     P._GemmLibrary.lib = libs[key]
             else:
                 A._Library.lib = libs[key]
+            if rnd == 0 and kind in BOTH_KINDS and VARIANTS[name][2] is not None:
+                d = 16 if kind == "K5D16" else 32
+                g = A.bwd_small_geometry(d)
+                blocks = -(-1544 // g["keys"]) * 3 * (2 if d == 16 else 4)
+                sms = torch.cuda.get_device_properties(dev).multi_processor_count
+                slots = g["blocks_per_sm"] * sms
+                print(f"{key}: K5 at d = {d}: {g['keys']} keys a block, {g['q_shares']} "
+                      f"warpgroup(s) a key group, q tiles of {g['q_tile']}, {g['threads']} "
+                      f"threads, {g['smem_bytes']:,} B; {blocks} blocks, {g['blocks_per_sm']} a "
+                      f"SM: {slots} slots, {blocks / slots:.2f} waves", flush=True)
             for kernel, (fns, ref) in cases.items():
                 if kind == "all":
                     if kernel not in ("K5", "K2", "K7"):
@@ -1433,7 +1598,7 @@ def main(argv=None) -> int:
                     ok = _agrees(out, want, BOUNDS.get(kernel, (1e-2, 2.0 ** -5)))
                     detail = (f" ({_f32_errors(out, want)})"
                               if kernel in ("F32", "T3B", "T5", "T7", "T3A", "T1", "T4A", "T2", "T4B",
-                                            "K5D128", "T6")
+                                            "K5D128", "T6", "K5D16", "K5D32", "K5D64")
                               else "")
                     del out
                     ms = (_f32_time_ms(fn, args.runs) if kernel == "F32"
@@ -1441,8 +1606,13 @@ def main(argv=None) -> int:
                           if kernel in QUEUED_KINDS
                           else _common.time_ms(fn, dev, args.runs))
                     times.setdefault((key, kernel + label), []).append(ms)
-                    print(f"round {rnd} {key} {kernel}{label} {ms:.4f} ms agrees {ok}{detail}",
-                          flush=True)
+                    queued = ""
+                    if kernel in BOTH_KINDS:
+                        qms = _common.queued_time_ms(fn, dev, args.runs)
+                        times.setdefault((key, kernel + label + " queued"), []).append(qms)
+                        queued = f" (10 queued calls: {qms:.4f} ms a call)"
+                    print(f"round {rnd} {key} {kernel}{label} {ms:.4f} ms{queued} agrees "
+                          f"{ok}{detail}", flush=True)
     for (key, kernel), ms in times.items():
         print(f"{key:16s} {kernel}: " + " / ".join(f"{x:.4f}" for x in ms)
               + f" ms  ({VARIANTS[builds[key][0]][1]})")
@@ -1461,6 +1631,22 @@ def main(argv=None) -> int:
                                    for i, p in enumerate(STAMP_PHASES))
                 print(f"K5 tile {50 + tile} warpgroup {wg} clocks: {stamps}")
         print(f"K5 tile 50 -> tile 51: {buf[32] - buf[0]} clocks")
+    if args.small_stamps:
+        A._Library.lib = libs["k5s_stamps"]
+        buf = (ctypes.c_longlong * 64)()
+        for d in (16, 32):
+            fns, _ = _k5small_case(dev, d)
+            for _ in range(2):  # the second call's stamps
+                fns["shipped"][0][1]()
+            torch.cuda.synchronize()
+            libs["k5s_stamps"].tg_prof_read(buf)
+            for tile in (0, 1):
+                for wg in ((0, 1) if d == 16 else (0,)):
+                    base = buf[tile * 32 + wg * 16]
+                    stamps = ", ".join(f"{p} {buf[tile * 32 + wg * 16 + i] - base}"
+                                       for i, p in enumerate(STAMP_PHASES))
+                    print(f"K5 d = {d} warpgroup {wg} q tile {4 + tile} clocks: {stamps}")
+            print(f"K5 d = {d} warpgroup 0 tile 4 -> tile 5: {buf[32] - buf[0]} clocks")
     if args.probe_stamps:
         P._Library.lib = libs["mf_stamps"]
         for kernel, maker in (("T3B", _t3b_case), ("T5", _t5_case), ("T3A", _t3a_case)):
