@@ -49,7 +49,17 @@ Phases, each printing its own lines:
           from the bf16 output
   edit    the edit path end to end through infer.build_pipeline and
           To2VPipeline.generate at full width (1 chunk, 13 steps, 1 partition,
-          DiT depth cut to 6 of 42 layers)
+          DiT depth cut to 2 of 42 layers), each FIFO iteration's time
+  queue   the same generate from the edit phase's VIP tokens on
+          (undecoded) over a queue group of 2 spawned processes sharing the
+          card over Gloo (sharding/mesh.py: rank 0 runs every stage but the
+          FIFO, each rank one of the FIFO's 2 rank windows, one all-reduce
+          an iteration merges them): its latents
+          bit-equal to the edit phase's one process, the FIFO iteration's
+          time beside one process's, the merge's bytes and time; where 2 or
+          more cards are visible, NCCL over 2 of them, and where 4 are, the
+          FIFO at 2 partitions (R = 4) on one card and over four, each
+          bit-equal to its reference
   variants the rest of single-GPU inference: each variant at a small size
           on the host against the card (VIP func_types "2"-"4", the sincos
           mode, the raw-token mode); the float32 K4 against its plain
@@ -60,7 +70,7 @@ Phases, each printing its own lines:
           fuse_qkv), timed; infer_edit.yaml with use_vae_as_encoder false
           through infer.build_pipeline (DINOv2-large, the resampler's input
           at 1,024): the DINOv2 edit path cut as the edit phase's (DiT depth
-          6, 13 steps, 1 partition) but 2 chunks, undecoded, with the
+          2, 13 steps, 1 partition) but 2 chunks, undecoded, with the
           encoder's seconds per chunk and the float32 K4's launches; one
           full-width forward (2 layers) of CogVideoX-5b for each of
           func_types "2"-"4" (the ar context one latent frame) and of
@@ -73,7 +83,7 @@ Phases, each printing its own lines:
           through T5TextEncoder.from_pretrained, bit-equal, timed; the full
           24-layer T5-XXL from a seed encoding the two edit prompts at 226
           tokens (tokenized through tokenizers), timed; the full-width To2V
-          DiT (6 of 42 layers, bf16, diffusers names) and resampler read back
+          DiT (2 of 42 layers, bf16, diffusers names) and resampler read back
           through infer.load_checkpoint_dit, bit-equal, then a VIP encode and
           a CFG forward on the T5 embeddings (K1-K4) bit-equal to the
           in-memory model's; the gen PCA artifacts at T2To's width; a
@@ -129,9 +139,10 @@ The card's name and power limit (nvidia-smi) and a JSON object of the
 kernels and their measurements (launches of K1-K4 on the edit path, of the
 float32 K4 on the DINOv2 edit path, of K1-K4 on each of the variants
 phase's paths as `variants_launches`, and
-apart from them, as `load_launches`, `cli_launches` and `serve_launches`, in
-the load phase's forward on the loaded weights, in its CLI run and in the
-serve phase's requests over the wire; of K5 on the train path, of K7 on the gen path, of K6 on the tiny T2To trainer, of
+apart from them, as `load_launches`, `cli_launches`, `queue_launches` and
+`serve_launches`, in the load phase's forward on the loaded weights, in its
+CLI run, on the queue phase's rank 0 and in the serve phase's requests over
+the wire; of K5 on the train path, of K7 on the gen path, of K6 on the tiny T2To trainer, of
 K4 in the T2To trainer's latent encoder as `t2to_train_launches`, of the
 probe kernels in their CLIs' runs) come before the last line,
 and the result line ``{"ok": true, "device": {...}}``. Any failed phase
@@ -152,10 +163,11 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernels", "probes", "dit", "edit", "variants", "load", "gen", "serve",
-          "data", "train", "t2to_train")
+PHASES = ("env", "build", "kernels", "probes", "dit", "edit", "queue", "variants", "load", "gen",
+          "serve", "data", "train", "t2to_train")
 
 # A kernel agrees with its plain version (same bf16 inputs; the plain version
 # keeps f32 where the kernel rounds the prologued q, with log2 e folded in, and
@@ -1901,17 +1913,18 @@ EDIT_OVERRIDES = {
     "sampling_params.num_partitions": 1,  # cut from 4: 2 lookahead rank windows
     "input_config.edit_item_1.params.max_num_chunks": 1,  # cut from 12
 }
-# DiT depth on the edit path, cut from 42 to keep the whole smoke in half its
-# time limit: the gen phase runs the same render (base denoise, FIFO, decode)
-# cut likewise (GEN_RENDER_LAYERS), and the dit phase times the full-depth
-# forward
-EDIT_LAYERS = 6
+# DiT depth on the edit path (and on the queue, variants, load and serve
+# phases' runs of it), cut from 42 to keep the whole smoke within its time
+# limit: the gen phase runs the same render cut likewise (GEN_RENDER_LAYERS),
+# and the dit phase times the full-depth forward; every forward still runs
+# K1-K3 in each block
+EDIT_LAYERS = 2
 
 
-def _edit_config():
+def _edit_config(overrides: Optional[dict] = None):
     from tokensgen_tpu_torch.utils.config import load_config
 
-    return load_config(os.path.join(REPO, EDIT_CONFIG), EDIT_OVERRIDES)
+    return load_config(os.path.join(REPO, EDIT_CONFIG), {**EDIT_OVERRIDES, **(overrides or {})})
 
 
 def _small_reference_check(dev) -> None:
@@ -2115,18 +2128,35 @@ def phase_edit(state: dict) -> None:
     ).astype(np.float32))
     noise = generator_noise(torch.Generator(device=dev).manual_seed(int(cfg.get("seed", 42))))
     timings: dict = {}
+    stamps: list = []  # each FIFO emit's host time (the engine syncs once an iteration)
+    vip = {}  # the VIP tokens and the generator's state after them, for the queue phase
+    encode = pipe.vip_encode_video
+
+    def kept_encode(frames, noise_fn):
+        vip["emb"] = encode(frames, noise_fn)
+        vip["state"] = noise_fn.generator.get_state()
+        return vip["emb"]
+
+    pipe.vip_encode_video = kept_encode
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     A.reset_launch_counts()
     t0 = time.perf_counter()
     out = pipe.generate(prompt, negative, frames=frames, num_chunks=num_chunks, noise_fn=noise,
-                        timings=timings)
+                        timings=timings,
+                        emit_callback=lambda i, em: stamps.append(time.perf_counter()))
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
+    del pipe.vip_encode_video
     state["launches"] = A.launch_counts()
+    gaps = [b - a for a, b in zip(stamps, stamps[1:])]
+    state["edit_run"] = {"latents": out["latents"], "prompt": prompt.cpu(),
+                         "negative": negative.cpu(), "num_chunks": num_chunks, "iter_s": gaps,
+                         "vip": vip["emb"].cpu(), "noise_state": vip["state"]}
     log(f"[edit] generate: {total:.1f} s; phases (s): "
         + ", ".join(f"{k} {v:.2f}" for k, v in timings.items())
-        + f"; peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        + f"; peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; FIFO iteration "
+        f"(emit to emit, {len(gaps)}): median {statistics.median(gaps):.4f} s")
     log(f"[edit] kernel launches on the main path: {json.dumps(state['launches'])}")
     nf = pc.nf_latent
     want = {"latents": (1, num_chunks * nf, 16, pc.height // 8, pc.width // 8),
@@ -2140,6 +2170,130 @@ def phase_edit(state: dict) -> None:
             f"mean {x.float().mean().item():.4f} std {x.float().std().item():.4f}")
         if tuple(x.shape) != shape or not finite:
             raise RuntimeError(f"edit output {key}: expected finite {shape}")
+
+
+# ---------------------------------------------------------- the queue phase
+# The queue-sharded FIFO (`sharding/mesh.py`, `sampling/fifo.py`'s group
+# path) on the edit phase's run, through To2VPipeline.generate as `infer
+# --queue-devices` drives it: 2 processes sharing the card over Gloo (NCCL
+# refuses two ranks on one card), each building the pipeline as infer.py
+# does (random weights from the config's seed, DiT depth EDIT_LAYERS),
+# rank 0 running every stage before the FIFO, both running the FIFO (R = 2
+# windows: one each). Rank 0 starts from the edit phase's VIP tokens and
+# its noise generator's state right after them (the VAE encode, ~18 s, is
+# not run again), so its latents must be bit-equal to the edit phase's one
+# process. Where 2 cards are visible, NCCL over them as well; where 4 are,
+# R = 4 windows (2 partitions) on one card and over four, bit-equal.
+QUEUE_TIMEOUT_S = 300.0
+
+
+def _queue_rank(group, cfg, run: dict):
+    """One rank of the queue phase's group (a spawned process): the edit
+    phase's generate from its VIP tokens on, undecoded, over ``group`` ->
+    on rank 0 its latents and what it measured."""
+    import torch
+
+    from tokensgen_tpu_torch.infer import build_pipeline, check_weights_agree
+    from tokensgen_tpu_torch.kernels import attention as A
+    from tokensgen_tpu_torch.sampling.base import generator_noise
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the env phase sets it
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    pipe, _ = build_pipeline(cfg, smoke=False, device=group.device)
+    pipe.dit.transformer_blocks = pipe.dit.transformer_blocks[:EDIT_LAYERS]
+    torch.cuda.empty_cache()
+    check_weights_agree(group, pipe)
+    build_s = time.perf_counter() - t0
+    if not group.leader:
+        while pipe.follow(group):
+            pass
+        return None
+    group.timed = True  # each merge synchronised and timed
+    gen = torch.Generator(device=group.device)
+    gen.set_state(run["noise_state"])
+    timings, stamps = {}, []
+    A.reset_launch_counts()
+    try:
+        out = pipe.generate(run["prompt"], run["negative"],
+                            image_embeddings=run["vip"].to(group.device),
+                            num_chunks=run["num_chunks"], noise_fn=generator_noise(gen),
+                            decode=False, timings=timings,
+                            emit_callback=lambda i, em: stamps.append(time.perf_counter()),
+                            group=group)
+    finally:
+        group.send(None)  # the other ranks' stop
+    return {"latents": out["latents"], "timings": timings, "build_s": build_s,
+            "iter_s": [b - a for a, b in zip(stamps, stamps[1:])], "merge": dict(group.stats),
+            "launches": A.launch_counts(), "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _queue_run(label: str, n: int, backend: str, state: dict, ref: Optional[dict],
+               overrides: Optional[dict] = None) -> dict:
+    """`_queue_rank` on ``n`` ranks (the edit config with ``overrides``);
+    fails unless its latents equal ``ref``'s, when given -> rank 0's
+    result."""
+    import torch
+
+    from tokensgen_tpu_torch.sharding import mesh
+
+    run = state["edit_run"]
+    t0 = time.perf_counter()
+    res = mesh.launch(_queue_rank, n, (_edit_config(overrides), {
+        k: v for k, v in run.items() if k not in ("latents", "iter_s")}),
+        device="cuda", backend=backend, timeout_s=QUEUE_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    log(f"[queue] {label}: {n} rank(s), launch to result {wall:.1f} s (rank 0: pipeline built "
+        f"and weights agreed in {res['build_s']:.1f} s; generate phases (s): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in res["timings"].items())
+        + f"; peak {res['peak_gib']:.2f} GiB); FIFO iteration (emit to emit, "
+        f"{len(res['iter_s'])}): median {statistics.median(res['iter_s']):.4f} s")
+    merges = res["merge"]["all_reduce_s"]
+    if merges:
+        log(f"[queue] {label}: merge {len(merges)} all-reduces of "
+            f"{res['merge']['all_reduce_bytes'] / len(merges) / 1e6:.2f} MB, median "
+            f"{statistics.median(merges) * 1e3:.2f} ms, the first {merges[0] * 1e3:.2f} ms (device "
+            f"synchronised around each, the wait for the slower rank included)")
+    if ref is not None:
+        got = res["latents"]
+        same_shape = got.shape == ref["latents"].shape
+        diff = (got.float() - ref["latents"].float()).abs().max().item() if same_shape else None
+        equal = bool(same_shape and torch.equal(got, ref["latents"]))
+        log(f"[queue] {label}: FIFO iteration against {ref['label']}'s "
+            f"{statistics.median(ref['iter_s']):.4f} s; latents {tuple(got.shape)} against "
+            f"{ref['label']}'s: max |difference| {diff}, bit-equal {equal}; rank 0's launches "
+            f"{json.dumps(res['launches'])}")
+        if not equal:
+            raise RuntimeError(f"{label}: the sharded FIFO's latents differ from {ref['label']}'s")
+    # rank 0 starts from the VIP tokens: the DiT's kernels, not the resampler's K4
+    if min(res["launches"][k] for k in FORWARD_KERNELS if k != "flash_attention_bhsd") <= 0:
+        raise RuntimeError(f"{label}: rank 0 did not run the DiT's kernels: {res['launches']}")
+    return dict(res, label=label)
+
+
+def phase_queue(state: dict) -> None:
+    import torch
+
+    if "edit_run" not in state:
+        phase_edit(state)
+    # the main process's pipeline is not needed here: the ranks build their own
+    pipe = state.pop("pipe", None)
+    del pipe
+    torch.cuda.empty_cache()
+    run = state["edit_run"]
+    edit = {"latents": run["latents"], "iter_s": run["iter_s"],
+            "label": "the edit phase's one process"}
+    state["queue_launches"] = _queue_run("Gloo, one card shared", 2, "gloo", state,
+                                         edit)["launches"]
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"[queue] NCCL (a card a rank): {count} card visible, not run")
+        return
+    _queue_run("NCCL over 2 cards", 2, "nccl", state, edit)  # R = 2 windows
+    if count >= 4:  # R = 4 windows (2 partitions): one card, then four
+        parts = {"sampling_params.num_partitions": 2}
+        one = _queue_run("R = 4 on one card", 1, "nccl", state, None, parts)
+        _queue_run("NCCL over 4 cards, R = 4", 4, "nccl", state, one, parts)
 
 
 # -------------------------------------------------------- the variants phase
@@ -4301,9 +4455,10 @@ def main(argv=None) -> int:
                                         for path, counts in state["variants_launches"].items()}
         if name == "flash_attention_bhsd":  # K4 in the T2To trainer's frozen latent encoder
             row["t2to_train_launches"] = state["t2to_k4_launches"]
-        if name in PATH_KERNELS:  # the load and serve phases' runs, each counted on its own
+        if name in PATH_KERNELS:  # the load, queue and serve phases' runs, each on its own
             row.update(load_launches=state["load_launches"][name],
                        cli_launches=state["cli_launches"][name],
+                       queue_launches=state["queue_launches"][name],
                        serve_launches=state["serve_launches"][name])
         rows.append(row)
     for name, replaces in PROBES.items():

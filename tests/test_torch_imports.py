@@ -34,7 +34,8 @@ def test_import_loads_no_jax():
                "tokensgen_tpu_torch.models.text_encoder", "tokensgen_tpu_torch.data.transforms",
                "tokensgen_tpu_torch.data.video_io"}
     assert loaders <= set(_modules())
-    serving = {"tokensgen_tpu_torch.serving", "tokensgen_tpu_torch.serve"}
+    serving = {"tokensgen_tpu_torch.serving", "tokensgen_tpu_torch.serve",
+               "tokensgen_tpu_torch.sharding", "tokensgen_tpu_torch.sharding.mesh"}
     assert serving <= set(_modules())
     training_data = {"tokensgen_tpu_torch.data.mira", "tokensgen_tpu_torch.data.native_store",
                      "tokensgen_tpu_torch.calculate_vae_latents", "tokensgen_tpu_torch.train.lora",

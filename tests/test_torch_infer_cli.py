@@ -128,12 +128,15 @@ def test_cli_writes_the_outputs_and_matches_jax_generate(setup, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported(setup):
-    """The multi-device keys (ROADMAP A12) raise."""
+    """Sequence parallelism (ROADMAP A12) raises; with queue devices too,
+    the JAX CLI's ValueError (the two axes exclude each other)."""
     path, _ = setup
-    for args, match in ((["--set", "sp_devices=2"], "A12"),
-                        (["--set", "sampling_params.queue_devices=2"], "A12")):
-        with pytest.raises(NotImplementedError, match=match):
-            infer.main(["--config", path, "--smoke", "--device", "cpu", *args])
+    with pytest.raises(NotImplementedError, match="A12"):
+        infer.main(["--config", path, "--smoke", "--device", "cpu", "--set", "sp_devices=2"])
+    for args in (["--set", "sampling_params.queue_devices=2"], ["--queue-devices", "2"]):
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            infer.main(["--config", path, "--smoke", "--device", "cpu", "--set", "sp_devices=2",
+                        *args])
 
 
 def test_cli_writes_cache_tracks(setup):

@@ -31,8 +31,19 @@ tiny under ``--smoke``). ``--smoke`` runs the tiny
 geometry of the JAX package's smoke (and synthesizes the source video of an
 edit item that has none); without it the full CogVideoX-5b width runs. The
 CLI builds VIP func_type "1" (the JAX CLI does, whatever the config says)
-and refuses another value; `queue_devices` / `sp_devices` > 1 raise
-NotImplementedError (ROADMAP A12).
+and refuses another value.
+
+``--queue-devices N`` (or `sampling_params.queue_devices: N`) runs the
+FIFO's rank windows over N processes, one card each (NCCL; on the host
+with ``--device cpu``, Gloo): rank 0 encodes the prompts, runs every stage
+but the FIFO and writes the outputs; every rank builds the pipeline on its
+own device and runs its block of each FIFO iteration
+(`pipelines.to2v.To2VPipeline.follow`). The outputs equal those of one
+process for the same seed. N must divide the FIFO's rank windows (2 x
+num_partitions with lookahead) and, under NCCL, not exceed the visible
+cards; both are checked before anything is spawned. `sp_devices` > 1
+raises NotImplementedError (ROADMAP A12), and with `queue_devices` > 1
+ValueError, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -62,7 +73,10 @@ from tokensgen_tpu_torch.models.vae3d import AutoencoderKLCogVideoX, VAEConfig, 
 from tokensgen_tpu_torch.pipelines.t2to import T2ToConfig, T2ToPipeline, extend_generated_tokens
 from tokensgen_tpu_torch.pipelines.to2v import To2VConfig, To2VPipeline
 from tokensgen_tpu_torch.sampling.base import generator_noise
-from tokensgen_tpu_torch.utils.params import build_on_device, load_on_device
+from tokensgen_tpu_torch.sampling.fifo import check_queue_split
+from tokensgen_tpu_torch.sharding import mesh
+from tokensgen_tpu_torch.utils.config import create_output_folders, input_items
+from tokensgen_tpu_torch.utils.params import build_on_device, load_on_device, param_fingerprint
 
 
 def _load_converted(cfg, name: str):
@@ -372,20 +386,48 @@ def load_cli_config(path: str, sets):
     return load_config(path, overrides)
 
 
-def refuse_unported(cfg) -> None:
-    nq = cfg.get_path("sampling_params.queue_devices", 1)
-    if int(nq or 1) > 1 or int(cfg.get("sp_devices") or 1) > 1:
-        raise NotImplementedError("`queue_devices` / `sp_devices` > 1: multi-GPU inference is "
+def queue_devices(cfg, requested: Optional[int] = None) -> int:
+    """The run's queue devices (``requested``, else
+    `sampling_params.queue_devices`, else 1). `sp_devices` > 1 raises
+    NotImplementedError (ROADMAP A12), and with queue devices > 1 the JAX
+    CLI's ValueError."""
+    nq = int(requested or cfg.get_path("sampling_params.queue_devices", 1) or 1)
+    if int(cfg.get("sp_devices") or 1) > 1:
+        if nq > 1:
+            raise ValueError("sp_devices and queue_devices are mutually exclusive — pick one "
+                             "parallel axis per run")
+        raise NotImplementedError("`sp_devices` > 1: sequence parallelism over several GPUs is "
                                   "not ported yet (ROADMAP A12)")
+    return nq
+
+
+def prepare_queue_group(cfg, smoke: bool, device, nq: int) -> None:
+    """Before spawning ``nq`` ranks: raises unless they can run this
+    config's FIFO on ``device``'s type (its rank windows split evenly, a
+    card a rank under NCCL), then, on the card, builds the kernel libraries
+    once here (nvcc's per-process lock does not guard several processes)."""
+    pcfg = _configs(cfg, smoke, torch.device(device))[3]
+    check_queue_split(pcfg.num_partitions * (2 if pcfg.lookahead_denoising else 1), nq)
+    mesh.check_ranks(nq, device)
+    if torch.device(device).type == "cuda":
+        from tokensgen_tpu_torch.kernels.attention import build_kernels
+
+        build_kernels(f32=not cfg.get("use_vae_as_encoder", True))
+
+
+def check_weights_agree(group, pipe) -> None:
+    """Raises on every rank unless each built the same To2V DiT."""
+    if group is not None and group.size > 1:
+        group.check_agree("the To2V DiT's weights", param_fingerprint(pipe.dit))
 
 
 def main(argv=None):
-    from tokensgen_tpu_torch.utils.config import create_output_folders, input_items
-
     ap = argparse.ArgumentParser(description="edit / generation inference (PyTorch/CUDA port)")
     ap.add_argument("--config", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--queue-devices", type=int, default=None,
+                    help="run the FIFO's rank windows over this many processes, a card each")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="override a config key (dotted path; the value is parsed as yaml)")
     args = ap.parse_args(argv)
@@ -394,7 +436,36 @@ def main(argv=None):
         raise SystemExit("no CUDA device: pass --device cpu to run on the host")
 
     cfg = load_cli_config(args.config, args.set)
-    refuse_unported(cfg)
+    nq = queue_devices(cfg, args.queue_devices)
+    if nq > 1:
+        prepare_queue_group(cfg, args.smoke, device, nq)
+        return mesh.launch(_rank_main, nq, (args, cfg), device=device)
+    return run(args, cfg, device)
+
+
+def _rank_main(group, args, cfg):
+    """One rank of ``main``'s queue group: rank 0 returns the run dir."""
+    return run(args, cfg, group.device, group)
+
+
+def run(args, cfg, device, group=None):
+    """The CLI's work on ``device``; with a queue ``group``, rank 0 does it
+    all but the other ranks' FIFO blocks, and those ranks build the
+    pipeline and follow it (None)."""
+    if group is not None and not group.leader:
+        pipe, _ = build_pipeline(cfg, args.smoke, device)
+        check_weights_agree(group, pipe)
+        while pipe.follow(group):
+            pass
+        return None
+    try:
+        return _lead(args, cfg, device, group)
+    finally:
+        if group is not None and group.size > 1:
+            group.send(None)  # the other ranks' stop
+
+
+def _lead(args, cfg, device, group):
     items = list(input_items(cfg))
     if not (args.smoke or cfg.get("use_2nd_stage")):
         for item in items:
@@ -416,6 +487,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
 
     pipe, _ = build_pipeline(cfg, args.smoke, device)
+    check_weights_agree(group, pipe)
     t2to_pipe = build_t2to_pipeline(cfg, args.smoke, pipe, device) if cfg.get(
         "use_2nd_stage") else None
     pc = pipe.cfg
@@ -450,7 +522,7 @@ def main(argv=None):
         noise = generator_noise(torch.Generator(device=device).manual_seed(int(cfg.get("seed", 42))))
         out = pipe.generate(prompt, negative, frames=frames, image_embeddings=image_embeddings,
                             num_chunks=num_chunks, noise_fn=noise,
-                            cache_idx=tuple(cfg.get("cache_idx") or ()))
+                            cache_idx=tuple(cfg.get("cache_idx") or ()), group=group)
         video = out["video"][0].float().cpu().numpy()
         write_video(os.path.join(run_dir, f"{name}_fifo.mp4"), video, fps=fps)
         write_video(os.path.join(run_dir, f"{name}_orig.mp4"),

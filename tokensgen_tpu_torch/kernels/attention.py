@@ -710,10 +710,13 @@ def _bind_f32(lib) -> None:
 _F32Library = _build.KernelLibrary("attention_f32.cu", _bind_f32)  # the float32 K4
 
 
-def build_kernels(force: bool = False) -> Path:
+def build_kernels(force: bool = False, f32: bool = False) -> Path:
     """Compile csrc/attention.cu for sm_90a with nvcc (cached by source hash)
     and load it. Returns the library path; raises with nvcc's output on failure.
-    The float32 K4's csrc/attention_f32.cu builds at its first use."""
+    The float32 K4's csrc/attention_f32.cu builds too with ``f32``, else at
+    its first use."""
+    if f32:
+        _F32Library.build(force)
     return _Library.build(force)
 
 

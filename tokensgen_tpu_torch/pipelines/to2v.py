@@ -8,6 +8,15 @@ of chunk 0 with FIFO-seed snapshots -> the FIFO diagonal-denoising loop ->
 chunked VAE decode. `To2VPipeline.denoise_together` denoises all chunks
 jointly instead (optionally with FreeInit passes).
 
+Over a queue group (`sharding.mesh.QueueGroup`), rank 0's `generate` runs
+every stage but the FIFO alone and sends the other ranks, each in
+`To2VPipeline.follow`, the FIFO's inputs: its seed, config and cache
+frames, every tensor the model closes over (the CFG-batched prompt
+embeddings, the rotary tables, the VIP states), a resume snapshot, and its
+noise source's state (`sampling.base.noise_from_spec`). All ranks run the
+FIFO; rank 0 alone decodes and returns. The other ranks never recompute a
+stage of their own, so no rank can condition on another algorithm's bits.
+
 Not ported here: the single-chip offload orchestration (a 16 GB TPU
 workaround) and ``sequential_cfg`` / ``fifo_emit_dtype`` (its HBM savers).
 """
@@ -29,7 +38,7 @@ from tokensgen_tpu_torch.models.resampler import Resampler, ResamplerConfig
 from tokensgen_tpu_torch.models.vae3d import VAERunner, sample_latent
 from tokensgen_tpu_torch.sampling import base as base_sampler
 from tokensgen_tpu_torch.sampling import fifo as fifo_engine
-from tokensgen_tpu_torch.sampling.base import NoiseFn, generator_noise
+from tokensgen_tpu_torch.sampling.base import NoiseFn, generator_noise, noise_from_spec
 from tokensgen_tpu_torch.utils import debug
 
 
@@ -357,8 +366,8 @@ class To2VPipeline:
     def generate(self, prompt_embeds, negative_embeds, frames=None, image_embeddings=None,
                  num_chunks: int = 4, noise_fn: Optional[NoiseFn] = None, decode: bool = True,
                  timings: Optional[Dict[str, float]] = None, cache_idx: Tuple[int, ...] = (),
-                 emit_callback=None, state_callback=None,
-                 resume_from=None) -> Dict[str, torch.Tensor]:
+                 emit_callback=None, state_callback=None, resume_from=None, group=None,
+                 cancel=None) -> Dict[str, torch.Tensor]:
         """Edit/generation run: VIP encode -> base pass -> FIFO -> decode.
 
         ``noise_fn`` supplies every random draw (default: a generator seeded
@@ -368,9 +377,20 @@ class To2VPipeline:
         ``resume_from`` go to the FIFO engine (`sampling.fifo.fifo_generate`);
         the FIFO's latents and cache tracks come back on the host, and with
         ``decode`` each cache track's valid frames, cut to whole decode
-        chunks, are decoded into ``cache_videos``."""
+        chunks, are decoded into ``cache_videos``.
+
+        ``group``: called on rank 0 of a queue group while the other ranks
+        wait in `follow`; ``noise_fn`` must then be one they can continue
+        (`generator_noise` or `keyed_noise`). ``cancel`` goes to the FIFO
+        engine: it stops the run on every rank (`sampling.fifo.FIFOCancelled`)."""
         if noise_fn is None:
             noise_fn = generator_noise(torch.Generator(device=self.device).manual_seed(0))
+        sharded = group is not None and group.size > 1
+        if sharded and not group.leader:
+            raise ValueError("ranks above 0 of a queue group join rank 0's run through follow()")
+        if sharded and not hasattr(noise_fn, "spec"):
+            raise ValueError("a queue-sharded run needs a noise source the other ranks can "
+                             "continue: sampling.base.generator_noise or keyed_noise")
         clock = _PhaseClock(self.device, timings)
         prompt_embeds = prompt_embeds.to(self.device)
         negative_embeds = negative_embeds.to(self.device)
@@ -384,10 +404,20 @@ class To2VPipeline:
                                                       image_embeddings, num_chunks, noise_fn)
         clock.lap("base_denoise")
         seed = self.fifo_seed(res, image_rope, image_embeddings, num_chunks)
+        fcfg = self.fifo_config(num_chunks)
+        if sharded:
+            if resume_from is not None:
+                resume_from = {"iteration": int(resume_from["iteration"]),
+                               "state": fifo_engine.snapshot_tensors(resume_from["state"],
+                                                                     "cpu")}
+            group.send({"fcfg": fcfg, "seed": seed,
+                        "text": self.cfg_text(prompt_embeds, negative_embeds),
+                        "rope": image_rope, "cache_idx": tuple(cache_idx),
+                        "resume_from": resume_from, "noise": noise_fn.spec()})
         fifo_res = fifo_engine.fifo_generate(
-            model_fn, self.sched, self.fifo_config(num_chunks), seed, noise_fn,
-            cache_idx=cache_idx, emit_callback=emit_callback, state_callback=state_callback,
-            resume_from=resume_from)
+            model_fn, self.sched, fcfg, seed, noise_fn, cache_idx=cache_idx,
+            emit_callback=emit_callback, state_callback=state_callback,
+            resume_from=resume_from, group=group, cancel=cancel)
         clock.lap("fifo")
         out = {"latents": fifo_res.latents, "orig_latents": res.latents,
                "cache_x0": fifo_res.cache_x0, "cache_valid": fifo_res.cache_valid}
@@ -405,6 +435,24 @@ class To2VPipeline:
                         out["cache_videos"].append(self.decode_latents(track[:, :t_use]))
             clock.lap("decode")
         return out
+
+    @torch.no_grad()
+    def follow(self, group) -> bool:
+        """Ranks above 0 of a queue group: waits for rank 0's next
+        `generate` and runs its block of the FIFO's windows. False when rank
+        0 has sent the stop (None) instead; a run that another rank stopped
+        or cancelled (`sampling.fifo.FIFOStopped`) counts as run."""
+        job = group.receive()
+        if job is None:
+            return False
+        try:
+            fifo_engine.fifo_generate(
+                self._model_fn(job["text"], job["rope"]), self.sched, job["fcfg"], job["seed"],
+                noise_from_spec(job["noise"], self.device), cache_idx=job["cache_idx"],
+                resume_from=job["resume_from"], group=group)
+        except fifo_engine.FIFOStopped:
+            pass
+        return True
 
     # ----------------------------------------------- alternate sampling modes
 

@@ -10,6 +10,8 @@ tags name the draw (``("base", step, 0 | 1)``) so a test can replay another
 framework's noise. `generator_noise` turns a `torch.Generator` into one (draws
 in call order); `keyed_noise` makes each draw a function of the seed and its
 tag alone, so a run resumed part way reproduces the uninterrupted run's noise.
+Both have a ``spec()`` from which `noise_from_spec` continues them on
+another process's device (the queue-sharded FIFO's other ranks).
 
 `ddim_invert` runs the deterministic DDIM inversion (clean latents -> their
 generating noise). With ``TOKENSGEN_DEBUG=1`` each step prints the noise
@@ -32,30 +34,68 @@ from tokensgen_tpu_torch.utils import debug
 NoiseFn = Callable[[tuple, Tuple[int, ...]], torch.Tensor]
 
 
-def generator_noise(generator: torch.Generator) -> NoiseFn:
-    """Standard-normal float32 draws from ``generator`` on its device."""
+class GeneratorNoise:
+    """Standard-normal float32 draws from ``generator`` on its device, in
+    call order."""
 
-    def draw(tag: tuple, shape) -> torch.Tensor:
-        return torch.randn(tuple(shape), generator=generator, device=generator.device,
-                           dtype=torch.float32)
+    keyed = False  # a draw depends on every draw before it
 
-    return draw
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def __call__(self, tag: tuple, shape) -> torch.Tensor:
+        return torch.randn(tuple(shape), generator=self.generator,
+                           device=self.generator.device, dtype=torch.float32)
+
+    def spec(self) -> tuple:
+        """What `noise_from_spec` needs to draw on from here on another
+        device of the same type: the generator's state."""
+        return ("generator", self.generator.device.type, self.generator.get_state())
 
 
-def keyed_noise(seed: int, device) -> NoiseFn:
+class KeyedNoise:
     """Standard-normal float32 draws on ``device``, each from a fresh
     generator seeded with a 63-bit hash of ``(seed, tag)``: a draw depends
     on nothing else, whatever was drawn before it (the counterpart of the
     JAX engine's per-iteration keys, `jax.random.split` + `fold_in`)."""
-    device = torch.device(device)
 
-    def draw(tag: tuple, shape) -> torch.Tensor:
-        key = "/".join(str(x) for x in (int(seed), *tag)).encode()
+    keyed = True
+
+    def __init__(self, seed: int, device):
+        self.seed, self.device = int(seed), torch.device(device)
+
+    def __call__(self, tag: tuple, shape) -> torch.Tensor:
+        key = "/".join(str(x) for x in (self.seed, *tag)).encode()
         digest = hashlib.blake2b(key, digest_size=8).digest()
-        gen = torch.Generator(device=device).manual_seed(int.from_bytes(digest, "little") >> 1)
-        return torch.randn(tuple(shape), generator=gen, device=device, dtype=torch.float32)
+        gen = torch.Generator(device=self.device).manual_seed(
+            int.from_bytes(digest, "little") >> 1)
+        return torch.randn(tuple(shape), generator=gen, device=self.device, dtype=torch.float32)
 
-    return draw
+    def spec(self) -> tuple:
+        return ("keyed", self.seed)
+
+
+def generator_noise(generator: torch.Generator) -> NoiseFn:
+    """Standard-normal float32 draws from ``generator`` on its device."""
+    return GeneratorNoise(generator)
+
+
+def keyed_noise(seed: int, device) -> NoiseFn:
+    """Draws that depend only on ``(seed, tag)`` (`KeyedNoise`)."""
+    return KeyedNoise(seed, device)
+
+
+def noise_from_spec(spec: tuple, device) -> NoiseFn:
+    """The noise source a `GeneratorNoise.spec` or `KeyedNoise.spec`
+    describes, drawing on ``device``: another rank's source, continued."""
+    if spec[0] == "keyed":
+        return KeyedNoise(spec[1], device)
+    device = torch.device(device)
+    if spec[1] != device.type:
+        raise ValueError(f"a {spec[1]} generator's state cannot seed a {device.type} generator")
+    gen = torch.Generator(device=device)
+    gen.set_state(spec[2].cpu())  # a state crosses on the group's device
+    return GeneratorNoise(gen)
 
 
 @dataclasses.dataclass(frozen=True)

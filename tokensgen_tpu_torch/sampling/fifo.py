@@ -1,5 +1,5 @@
-"""FIFO diagonal denoising on one device (port of the single-device path of
-`tokensgen_tpu/sampling/fifo.py`).
+"""FIFO diagonal denoising on one device or over a group of processes on
+the queue axis (port of `tokensgen_tpu/sampling/fifo.py`).
 
 The queue [B, r_nf + steps, C, H, W], its x0 history and validity, and the
 per-position (t, prev_t, next_t) follow the JAX engine exactly: each iteration
@@ -14,7 +14,18 @@ iteration's emitted frame (and its ``cache_idx`` tracks) lands on the host
 as it is made, ``emit_callback`` sees it there, ``state_callback`` can take a
 host snapshot of the queue, and ``resume_from`` continues from one.
 
-Not ported yet: the queue-sharded mesh path (ROADMAP A12).
+With a ``group`` (`sharding.mesh.QueueGroup`) of N processes, rank p runs
+the contiguous block ``[p R / N, (p + 1) R / N)`` of the R rank windows (the
+JAX engine's ``P("queue")`` split of the rank ids), and one sum all-reduce
+of its write regions and their mask merges the queue on every rank (the JAX
+engine's `psum`): each position is one window's value plus zeros, so the
+result is the one-process run's, bit for bit. Every rank draws every active
+window's noise pair in rank order (keeping its own) and the tail, so a
+generator-driven noise source stays in step on every rank; a keyed one
+(`sampling.base.keyed_noise`) draws only its own. The same all-reduce
+carries a stop flag: rank 0's ``cancel()`` ends the run on every rank
+within the iteration (`FIFOCancelled`), and a rank that fails sends a merge
+that ends it on the others (`FIFOAborted`) instead of leaving them waiting.
 """
 
 from __future__ import annotations
@@ -120,6 +131,37 @@ def prepare_queue(seed: FIFOSeed, fcfg: FIFOConfig):
     return queue, x0, valid
 
 
+class FIFOStopped(Exception):
+    """The FIFO run ended early on every rank of its group."""
+
+
+class FIFOCancelled(FIFOStopped):
+    """Rank 0's ``cancel()`` asked the run to stop."""
+
+
+class FIFOAborted(FIFOStopped):
+    """Another rank of the group failed inside the loop."""
+
+
+# stop flags, merged by the iteration's sum: an abort outweighs a cancel
+_CANCEL, _ABORT = 1.0, 1024.0
+
+
+def check_queue_split(num_ranks: int, n: int) -> None:
+    """Raises unless ``num_ranks`` rank windows split evenly over ``n``
+    processes (the JAX engine asserts it)."""
+    if num_ranks % n:
+        raise ValueError(f"the FIFO's {num_ranks} rank windows do not split evenly over {n} "
+                         f"queue devices: pick a count that divides {num_ranks}")
+
+
+def snapshot_tensors(state, device) -> tuple:
+    """A snapshot's (queue, x0_buf, x0_valid) as copies on ``device``, from
+    tensors on any device or arrays (a JAX snapshot's)."""
+    return tuple((x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x)))
+                 .to(device, copy=True) for x in state)
+
+
 def _clamped(start: int, size: int, total: int) -> int:
     """Start of a ``size`` slice clamped into [0, total) (XLA dynamic_slice)."""
     return min(max(start, 0), total - size)
@@ -136,7 +178,9 @@ def fifo_generate(
     emit_callback: Optional[Callable] = None,
     state_callback: Optional[Callable] = None,
     resume_from: Optional[dict] = None,
-) -> FIFOResult:
+    group=None,
+    cancel: Optional[Callable[[], bool]] = None,
+) -> Optional[FIFOResult]:
     """Run the FIFO loop. ``model_fn(lat_cfg [nB, nf, C, H, W], t2d [nB, nf],
     vip_kwargs | None) -> noise_pred`` CFG-batches its closed-over
     conditioning, uncond first. ``noise_fn`` supplies the DPM noise
@@ -164,7 +208,13 @@ def fifo_generate(
     draws depend only on their tags (`sampling.base.keyed_noise`),
     reproduces the uninterrupted run bit for bit. ``all_emitted`` /
     ``latents`` (and the cache tracks) then cover only the resumed
-    iterations, as in the JAX engine."""
+    iterations, as in the JAX engine.
+
+    ``group``: a `sharding.mesh.QueueGroup`; every rank calls this with the
+    same arguments (its own ``noise_fn``, in the same state) and runs its
+    block of windows. The callbacks run on rank 0 alone, and only rank 0
+    gets the result (the others None). ``cancel`` (read on rank 0 once an
+    iteration, before its merge) stops every rank with `FIFOCancelled`."""
     nf, r_nf, l_nf = fcfg.nf_per_chunk, fcfg.r_nf, fcfg.l_nf
     R, Q = fcfg.num_ranks, fcfg.queue_len
     steps = fcfg.num_inference_steps
@@ -172,6 +222,10 @@ def fifo_generate(
         raise ValueError(
             f"FIFO requires num_inference_steps >= nf_per_chunk ({steps} < {nf}): the "
             f"denoise queue is shorter than one frame window")
+    rank, nproc = (group.rank, group.size) if group is not None else (0, 1)
+    check_queue_split(R, nproc)
+    mine = range(rank * R // nproc, (rank + 1) * R // nproc)
+    leader = rank == 0
     ts = np.asarray(seed.timesteps)
     pos_t, pos_prev, pos_next = _position_timesteps(ts, fcfg)
     start0 = [nf * (r // 2) + r_nf * (r % 2) for r in range(R)]
@@ -188,8 +242,10 @@ def fifo_generate(
     dev = queue.device
     b = queue.shape[0]
     pos = torch.arange(Q, device=dev)
+    win_shape = (b, nf) + tuple(queue.shape[2:])
+    keyed = bool(getattr(noise_fn, "keyed", False))
 
-    def window(rid: int, i: int, qs: int):
+    def window(rid: int, i: int, qs: int, noise):
         """Rank ``rid``'s DPM step on its window -> (start, new_lat, new_x0, mask)."""
         s0, m, re = start0[rid], mid[rid], real_end[rid]
         start = _clamped(max(s0, qs), nf, Q)
@@ -233,74 +289,117 @@ def fifo_generate(
                 g, gi = fcfg.guidance_scale, fcfg.guidance_scale_img
             noise_pred = cfg_lib.combine(noise_pred, g, gi, fcfg.use_separate_guidance)
 
-        noise = noise2 = None
-        if fcfg.stochastic:
-            noise = noise_fn(("fifo", i, rid, 0), lat.shape)
-            noise2 = noise_fn(("fifo", i, rid, 1), lat.shape)
         new_lat, new_x0 = S.dpm_step(
             sched, noise_pred, lat, t_w[None].expand(b, nf), p_w[None].expand(b, nf),
             t_back=n_w[None].expand(b, nf), old_pred_original_sample=old,
-            old_valid=(oldv & (n_w > 0))[None].expand(b, nf), noise=noise, noise2=noise2)
+            old_valid=(oldv & (n_w > 0))[None].expand(b, nf), noise=noise[0], noise2=noise[1])
 
         clamped = s0 <= qs
         write_lo = max(r_nf, qs) if clamped else m
         write_hi = re if clamped else s0 + nf
         return start, new_lat, new_x0, (pos >= write_lo) & (pos < write_hi)
 
+    def contributions(i: int, qs: int) -> torch.Tensor:
+        """This rank's windows of iteration ``i`` as one buffer [sum_l,
+        sum_x, mask, stop flag], each window's write region and nothing
+        else: the merge's operand."""
+        n = queue.numel()
+        buf = torch.zeros(2 * n + Q + 1, device=dev)
+        sum_l, sum_x = buf[:n].view_as(queue), buf[n:2 * n].view_as(queue)
+        mask = buf[2 * n:2 * n + Q]
+        draws = {}
+        for rid in range(R):
+            if not mid[rid] > qs:
+                continue  # inactive during the adaptive-padding ramp
+            if fcfg.stochastic and (rid in mine or not keyed):
+                pair = (noise_fn(("fifo", i, rid, 0), win_shape),
+                        noise_fn(("fifo", i, rid, 1), win_shape))
+                if rid in mine:
+                    draws[rid] = pair
+        for rid in mine:
+            if not mid[rid] > qs:
+                continue
+            start, new_lat, new_x0, m_r = window(rid, i, qs, draws.get(rid, (None, None)))
+            mb = m_r[start:start + nf].to(queue.dtype)[None, :, None, None, None]
+            sum_l[:, start:start + nf] += new_lat * mb
+            sum_x[:, start:start + nf] += new_x0 * mb
+            mask += m_r.to(mask.dtype)
+        if leader and cancel is not None and cancel():
+            buf[-1] = _CANCEL
+        return buf
+
+    def abort_merge() -> None:
+        """After a failure on this rank: the merge the other ranks wait
+        for, empty but for the abort flag."""
+        buf = torch.zeros(2 * queue.numel() + Q + 1, device=dev)
+        buf[-1] = _ABORT
+        group.all_reduce_(buf)
+
     start_i = 0
     if resume_from is not None:
-        queue, x0_buf, x0_valid = (torch.as_tensor(np.array(x), device=dev)
-                                   for x in resume_from["state"])
+        queue, x0_buf, x0_valid = snapshot_tensors(resume_from["state"], dev)
         start_i = int(resume_from["iteration"])
     cache_q = np.asarray(cache_idx, dtype=np.int64) + (steps - nf) + r_nf
     emitted, cache_x, cache_v = [], [], []
     for i in range(start_i, fcfg.num_iterations):
         qs = (max(0, (steps - l_nf) - i)
               if fcfg.use_adaptive_padding and fcfg.lookahead_denoising else 0)
-        sum_l = torch.zeros_like(queue)
-        sum_x = torch.zeros_like(queue)
-        mask = torch.zeros(Q, dtype=torch.bool, device=dev)
-        for rid in range(R):
-            if not mid[rid] > qs:
-                continue  # inactive during the adaptive-padding ramp
-            start, new_lat, new_x0, m_r = window(rid, i, qs)
-            mb = m_r[start:start + nf].to(queue.dtype)[None, :, None, None, None]
-            sum_l[:, start:start + nf] += new_lat * mb
-            sum_x[:, start:start + nf] += new_x0 * mb
-            mask |= m_r
-        mb = mask[None, :, None, None, None]
-        queue = torch.where(mb, sum_l, queue)
-        x0_buf = torch.where(mb, sum_x, x0_buf)
-        x0_valid = x0_valid | mask
-        emitted.append(queue[:, r_nf if fcfg.lookahead_denoising else 0].to("cpu", copy=True))
-        if emit_callback is not None:
-            emit_callback(i, emitted[-1])
-        if len(cache_q):
-            q_idx = cache_q - i
-            cache_v.append(torch.from_numpy((q_idx >= max(r_nf, qs)) & (q_idx < Q)))
-            safe = torch.from_numpy(np.clip(q_idx, 0, Q - 1)).to(dev)
-            cache_x.append(x0_buf[:, safe].transpose(0, 1).to("cpu", copy=True))
+        try:
+            buf = contributions(i, qs)
+        except BaseException:
+            if nproc > 1:
+                abort_merge()
+            raise
+        if nproc > 1:
+            group.all_reduce_(buf)
+        stop = float(buf[-1].item()) if (nproc > 1 or cancel is not None) else 0.0
+        if stop >= _ABORT:
+            raise FIFOAborted(f"another queue rank failed in FIFO iteration {i}")
+        if stop:
+            raise FIFOCancelled(f"cancelled in FIFO iteration {i}")
+        n = queue.numel()
+        mb = (buf[2 * n:2 * n + Q] > 0)[None, :, None, None, None]
+        queue = torch.where(mb, buf[:n].view_as(queue), queue)
+        x0_buf = torch.where(mb, buf[n:2 * n].view_as(queue), x0_buf)
+        x0_valid = x0_valid | mb.reshape(Q)
+        try:
+            if leader:
+                emitted.append(queue[:, r_nf if fcfg.lookahead_denoising else 0]
+                               .to("cpu", copy=True))
+                if emit_callback is not None:
+                    emit_callback(i, emitted[-1])
+                if len(cache_q):
+                    q_idx = cache_q - i
+                    cache_v.append(torch.from_numpy((q_idx >= max(r_nf, qs)) & (q_idx < Q)))
+                    safe = torch.from_numpy(np.clip(q_idx, 0, Q - 1)).to(dev)
+                    cache_x.append(x0_buf[:, safe].transpose(0, 1).to("cpu", copy=True))
 
-        tail = queue[:, -1]
-        tail_noise = noise_fn(("tail", i), tail.shape)
-        if fcfg.tail_renoise_mode == "randn":
-            tail = tail_noise
-        else:
-            tail = S.add_noise_to_xt(
-                sched, tail, tail_noise,
-                torch.full((b,), fcfg.renoise_timestep, dtype=torch.int64, device=dev))
-        queue = torch.cat([queue[:, 1:], tail[:, None]], dim=1)
-        x0_buf = torch.cat([x0_buf[:, 1:], torch.zeros_like(x0_buf[:, -1:])], dim=1)
-        x0_valid = torch.cat([x0_valid[1:], torch.zeros(1, dtype=torch.bool, device=dev)])
-        if state_callback is not None:
-            # the loop rebinds these names and never writes into the tensors,
-            # so the thunk's copies are of this iteration's state whenever it runs
-            def snapshot(j=i, state=(queue, x0_buf, x0_valid)):
-                return {"iteration": j + 1,
-                        "state": tuple(x.to("cpu", copy=True) for x in state)}
+            tail = queue[:, -1]
+            tail_noise = noise_fn(("tail", i), tail.shape)
+            if fcfg.tail_renoise_mode == "randn":
+                tail = tail_noise
+            else:
+                tail = S.add_noise_to_xt(
+                    sched, tail, tail_noise,
+                    torch.full((b,), fcfg.renoise_timestep, dtype=torch.int64, device=dev))
+            queue = torch.cat([queue[:, 1:], tail[:, None]], dim=1)
+            x0_buf = torch.cat([x0_buf[:, 1:], torch.zeros_like(x0_buf[:, -1:])], dim=1)
+            x0_valid = torch.cat([x0_valid[1:], torch.zeros(1, dtype=torch.bool, device=dev)])
+            if leader and state_callback is not None:
+                # the loop rebinds these names and never writes into the tensors,
+                # so the thunk's copies are of this iteration's state whenever it runs
+                def snapshot(j=i, state=(queue, x0_buf, x0_valid)):
+                    return {"iteration": j + 1,
+                            "state": tuple(x.to("cpu", copy=True) for x in state)}
 
-            state_callback(i, snapshot)
+                state_callback(i, snapshot)
+        except BaseException:
+            if nproc > 1 and i + 1 < fcfg.num_iterations:
+                abort_merge()
+            raise
 
+    if not leader:
+        return None
     all_emitted = torch.stack(emitted, dim=1)
     caches = ((torch.stack(cache_x, dim=1), torch.stack(cache_v, dim=1)) if cache_x
               else (None, None))

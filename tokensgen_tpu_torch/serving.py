@@ -8,6 +8,14 @@ card behind a request API (port of `tokensgen_tpu/serving.py`).
 * `serve_http`: JSON over HTTP (the standard library's threaded server):
   ``POST /edit``, ``/generate``, the NDJSON streams ``/edit_stream`` and
   ``/generate_stream``, ``GET /health``.
+* Over a queue group (``group``, `sharding.mesh.QueueGroup`) the service
+  lives on rank 0 and runs every request's FIFO across the group: the other
+  ranks join each run in `To2VPipeline.follow` (`serve._follow_service`). A
+  closed stream cancels the run on every rank within one FIFO iteration
+  (the flag rides on the iteration's merge), and a failure on any rank ends
+  the run on all of them, so the group stays ready for the next request.
+  Only the worker thread of the request that holds the lock issues the
+  group's collectives.
 
 Where it differs from the JAX module on purpose: ``/edit`` forwards
 ``negative_prompt`` (the JAX handler drops it); the server is threaded, so
@@ -36,12 +44,7 @@ import torch
 from tokensgen_tpu_torch.data.video_io import write_video
 from tokensgen_tpu_torch.infer import gen_image_embeddings
 from tokensgen_tpu_torch.sampling.base import NoiseFn, keyed_noise
-
-
-class _Cancelled(BaseException):
-    """Raised from a stream's emit callback to stop its worker: a
-    BaseException, so that no ``except Exception`` on the way swallows it."""
-
+from tokensgen_tpu_torch.sampling.fifo import FIFOCancelled
 
 _DONE, _ERR = object(), object()
 
@@ -58,10 +61,11 @@ def _stage_noise(noise: NoiseFn, stage: str) -> NoiseFn:
 
 class VideoService:
     def __init__(self, pipe, text_encoder, t2to_pipe=None,
-                 noise_for_seed: Optional[Callable[[int], NoiseFn]] = None):
+                 noise_for_seed: Optional[Callable[[int], NoiseFn]] = None, group=None):
         self.pipe = pipe
         self.text_encoder = text_encoder
         self.t2to_pipe = t2to_pipe
+        self.group = group  # rank 0 of a queue group, or None
         self.noise_for_seed = noise_for_seed or (lambda seed: keyed_noise(seed, pipe.device))
         self._lock = threading.Lock()
         # rebound whole, under the lock, so that health() reads one consistent pair
@@ -91,7 +95,7 @@ class VideoService:
              **gen_kwargs) -> Dict:
         """One-shot render; the caller holds the lock."""
         out = self.pipe.generate(text, neg, num_chunks=num_chunks, noise_fn=noise,
-                                 decode=decode, **gen_kwargs)
+                                 decode=decode, group=self.group, **gen_kwargs)
         result = {"latents": _host(out["latents"])}
         if decode:
             result["video"] = _host(out["video"][0])
@@ -149,28 +153,25 @@ class VideoService:
         default stream, so their work runs in stream order).
 
         If the consumer abandons the generator (a client disconnect:
-        GeneratorExit), the worker is cancelled at its next emit, at most one
-        FIFO iteration later, and joined before the lock is released, so no
-        orphaned run overlaps the next request on the card."""
+        GeneratorExit), the FIFO is cancelled on every rank at its next
+        merge, at most one FIFO iteration later, and the worker joined before
+        the lock is released, so no orphaned run overlaps the next request
+        on the card."""
         t0 = time.time()
         nf = self.pipe.cfg.nf_latent
         warmup = self.pipe.cfg.num_inference_steps - nf
         frames: "queue_mod.Queue" = queue_mod.Queue()
         cancel = threading.Event()
 
-        def on_emit(i, emitted):
-            if cancel.is_set():
-                raise _Cancelled()
-            frames.put((i, emitted))
-
         def run():
             try:
                 with torch.no_grad():  # grad mode is per thread: a new one starts enabled
                     self.pipe.generate(text, neg, num_chunks=num_chunks,
                                        noise_fn=self.noise_for_seed(seed), decode=False,
-                                       emit_callback=on_emit, **gen_kwargs)
+                                       emit_callback=lambda i, em: frames.put((i, em)),
+                                       group=self.group, cancel=cancel.is_set, **gen_kwargs)
                 frames.put((_DONE, None))
-            except _Cancelled:
+            except FIFOCancelled:
                 frames.put((_DONE, None))
             except BaseException as e:  # handed to the consumer, which raises it
                 frames.put((_ERR, e))
@@ -211,9 +212,17 @@ class VideoService:
             "status": "ok",
             "backend": dev.type,
             "devices": torch.cuda.device_count() if dev.type == "cuda" else 1,
+            "queue_devices": self.group.size if self.group is not None else 1,
             "requests": s["requests"],
             "avg_seconds": s["total_s"] / s["requests"] if s["requests"] else None,
         }
+
+    def close(self) -> None:
+        """Tells the queue group's other ranks to stop (once the current
+        request is done); nothing without a group."""
+        if self.group is not None and self.group.size > 1:
+            with self._lock:
+                self.group.send(None)
 
 
 def _encode_video_b64(video: np.ndarray, fps: float = 10.0) -> str:

@@ -52,3 +52,11 @@ def load_on_device(ctor, state_dict, device) -> nn.Module:
     module = module.to_empty(device=device)
     module.load_state_dict(state_dict, strict=True)
     return module.eval()
+
+
+@torch.no_grad()
+def param_fingerprint(module: nn.Module) -> torch.Tensor:
+    """Each parameter's and buffer's float64 sum, in order: two processes
+    that built the same module get the same vector, bit for bit."""
+    return torch.stack([t.sum(dtype=torch.float64)
+                        for t in (*module.parameters(), *module.buffers())])
