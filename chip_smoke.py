@@ -119,13 +119,13 @@ Phases, each printing its own lines:
           and the --smoke geometry: the DiT's 2 heads of 16 on K6 / K5, also
           with LoRA), 2 steps of the tiny trainer (--smoke) on the card, one
           step of it with LoRA, Prodigy, a validation render (its mp4 read
-          back by cv2, finite metrics) and --profile-steps 1, then 2
-          optimizer steps of the To2V adapter trainer (train_to2v.To2VTrainer)
+          back by cv2, finite metrics) and --profile-steps 1, then 1
+          optimizer step of the To2V adapter trainer (train_to2v.To2VTrainer)
           at full width (42 layers, batch 2, 2-chunk 49-frame 720x480) on the
-          data phase's videos through MiraDataset and 4 decode threads
-          (a third, traced step and a full-width validation render are cut
-          for time); each step's data wait, sampled timesteps and mean x0
-          weight beside its loss
+          data phase's videos through MiraDataset and 4 decode threads (a
+          second step, cut for the dp phase's time, a traced one and a
+          full-width validation render are cut for time); the step's data
+          wait, sampled timesteps and mean x0 weight beside its loss
   t2to_train  the T2To trainer (train_t2to.T2ToTrainer): a tiny step (one
           head of 64: K6 forward, K5 backward) on the card against the
           host's, full finetune and LoRA, 2 steps of the tiny trainer on the
@@ -134,6 +134,19 @@ Phases, each printing its own lines:
           phase's latents (latent_dir: random full-width frozen resampler and
           patch conv files, K4 in the encoder) and a third one traced; each
           step's sampled timesteps and mean x0 weight beside its loss
+  dp      the trainers' data axis (sharding/mesh.py's DataGroup, sharding/
+          zero.py's ZeRO-1 layout) over 2 spawned ranks sharing the card on
+          Gloo (NCCL over 2 cards where 2 or more are visible):
+          train_t2to.yaml as shipped (f32 AdamW) with zero1 at full width,
+          DiT depth cut to 2 of 42, per_gpu_batch_size 3, 24 chunks, 2
+          steps, every trained tensor after each step held to one process
+          on the global batch of 6, each rank's optimizer-state bytes to
+          half of one process's, K1 (with lse) / K5 launches per rank, the
+          all-reduce and all-gather seconds; the tiny To2V trainer (--smoke:
+          int8 AdamW, accumulation 2) with zero1, checkpointed after its
+          first update and resumed from there on 2 ranks, held to one
+          process; planted faults (a rank that keeps its own gradient, int8
+          AdamW parts cut off the 256-value block boundaries) must fail
 
 The card's name and power limit (nvidia-smi) and a JSON object of the
 kernels and their measurements (launches of K1-K4 on the edit path, of the
@@ -143,7 +156,8 @@ apart from them, as `load_launches`, `cli_launches`, `queue_launches` and
 `serve_launches`, in the load phase's forward on the loaded weights, in its
 CLI run, on the queue phase's rank 0 and in the serve phase's requests over
 the wire; of K5 on the train path, of K7 on the gen path, of K6 on the tiny T2To trainer, of
-K4 in the T2To trainer's latent encoder as `t2to_train_launches`, of the
+K4 in the T2To trainer's latent encoder as `t2to_train_launches`, of
+K1 / K4 / K5 / K6 on the dp phase's rank 0 as `dp_launches`, of the
 probe kernels in their CLIs' runs) come before the last line,
 and the result line ``{"ok": true, "device": {...}}``. Any failed phase
 raises and the script exits non-zero. It refuses to run without a card.
@@ -152,6 +166,7 @@ raises and the script exits non-zero. It refuses to run without a card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import importlib
 import json
@@ -167,7 +182,7 @@ from typing import Optional
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernels", "probes", "dit", "edit", "queue", "variants", "load", "gen",
-          "serve", "data", "train", "t2to_train")
+          "serve", "data", "train", "t2to_train", "dp")
 
 # A kernel agrees with its plain version (same bf16 inputs; the plain version
 # keeps f32 where the kernel rounds the prologued q, with log2 e folded in, and
@@ -3804,7 +3819,10 @@ TRAIN_OVERRIDES = {
     "gradient_accumulation_steps": 1,  # cut from 9: each step updates
     "output_dir": "build/train_smoke",
 }
-TRAIN_STEPS = 2  # cut from max_train_steps 100000; no checkpoint is written
+TRAIN_STEPS = 2  # the tiny trainer's; no checkpoint is written
+# the full-width run's: cut from max_train_steps 100000 (from 2 since the dp
+# phase came: each full-width step stages ~24 s and trains ~10 s)
+TRAIN_FULL_STEPS = 1
 TINY_LORA_RANK = 4  # the tiny trainers' LoRA checks
 # The small train check: trainable grads of a train step through the kernels
 # (card) against the same step through the plain versions (host), both bf16,
@@ -4064,7 +4082,7 @@ def phase_train(state: dict) -> None:
     cfg = load_config(os.path.join(REPO, TRAIN_CONFIG),
                       dict(overrides, output_dir=os.path.join(REPO, "build", "train_smoke")))
     log(f"[train] {TRAIN_CONFIG} with {json.dumps(TRAIN_OVERRIDES)} and the data phase's "
-        f"csv_file / video_dir, {TRAIN_STEPS} steps (cut from max_train_steps "
+        f"csv_file / video_dir, {TRAIN_FULL_STEPS} step(s) (cut from max_train_steps "
         f"{cfg.get('max_train_steps')}), no checkpoint written; random weights, batches from "
         f"disk through MiraDataset + batch_iterator with {cfg.get('dataloader_num_workers', 4)} "
         f"decode threads, hash text encoder (the config sets no pretrained_text_encoder_path)")
@@ -4090,7 +4108,7 @@ def phase_train(state: dict) -> None:
     torch.cuda.reset_peak_memory_stats(dev)
     A.reset_launch_counts()
     t0 = time.perf_counter()
-    records = trainer.run(TRAIN_STEPS, save_final=False)
+    records = trainer.run(TRAIN_FULL_STEPS, save_final=False)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     counts, lse_counts = A.launch_counts(), A.lse_launch_counts()
@@ -4115,16 +4133,16 @@ def phase_train(state: dict) -> None:
     # (so autograd, like jax.grad, never differentiates it), plus the
     # resampler's depth calls per chunk
     chunks = int(cfg.get_path("train_data_params.max_num_chunks", 2))
-    want = TRAIN_STEPS * (3 * dcfg.num_layers - 1 + chunks * rcfg.depth)
-    log(f"[train] K5 launches {counts['attention_backward']} (expected {want} = {TRAIN_STEPS} x "
-        f"(3 x {dcfg.num_layers} - 1 + {chunks} x {rcfg.depth}))")
+    want = TRAIN_FULL_STEPS * (3 * dcfg.num_layers - 1 + chunks * rcfg.depth)
+    log(f"[train] K5 launches {counts['attention_backward']} (expected {want} = "
+        f"{TRAIN_FULL_STEPS} x (3 x {dcfg.num_layers} - 1 + {chunks} x {rcfg.depth}))")
     # the To2V path's training forwards: K1 (the DiT) and K4 (the resampler)
     if counts["attention_backward"] != want or min(
             lse_counts[k] for k in ("fused_attention_joint", "flash_attention_bhsd")) <= 0:
         raise RuntimeError(f"the train path did not run K5 / the lse forwards as expected: "
                            f"{counts}, {lse_counts}")
-    log("[train] the third, traced full-width step is cut for time (with the profiler's "
-        "processing it took ~120 s of the phase): PERF.md keeps its last breakdown")
+    log("[train] a traced full-width step is cut for time (with the profiler's processing it "
+        "took ~120 s of the phase): PERF.md keeps its last breakdown")
     if "decode_s" in state:
         steps = ", ".join(f"{r['staging_s'] + r['train_step_s'] + r['optimizer_s']:.2f}"
                           for r in records)
@@ -4347,6 +4365,421 @@ def phase_t2to_train(state: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- the dp phase
+# The trainers' data axis (`sharding/mesh.py`'s DataGroup, `sharding/zero.py`):
+# 2 ranks sharing the card over Gloo (NCCL, a card a rank, needs as many
+# cards). `train_t2to.yaml` as shipped, f32 AdamW, with `zero1: true`, at full
+# width (48 x 64 heads, 24 chunks, 9,442 tokens a row) with its DiT cut to
+# DP_T2TO_LAYERS of 42, per_gpu_batch_size 3 (as shipped), DP_STEPS steps;
+# then the tiny To2V trainer (--smoke: int8 AdamW, accumulation 2) with
+# `zero1`, 4 micro-steps (2 updates), checkpointed after the first update and
+# resumed from there. Each is held to one process on the global batch (the
+# tiny To2V's uniform timesteps stratified over 2 positions, as the 2 ranks
+# draw them): the gradient each update applies and the parameters' change
+# from their start, by relative L2 over every trained tensor; the planted
+# faults (rank 1 keeps its own gradient instead of the all-reduced mean; int8
+# AdamW parts cut on 128-value boundaries, splitting a block) must fail.
+DP_T2TO_LAYERS = 2
+DP_T2TO_OVERRIDES = {
+    "zero1": True,  # the optimizer state split over the ranks; the optimizer as shipped
+    "longvgen_pca": None,  # as the t2to_train phase: no artifacts, no T5-XXL weights
+    "pretrained_text_encoder_path": None,
+    "checkpointing_steps": 1000,  # no checkpoint in the T2To run
+}
+DP_TO2V_OVERRIDES = {"zero1": True, "per_gpu_batch_size": 1, "gradient_accumulation_steps": 2,
+                     "checkpointing_steps": 2}
+DP_STEPS = 2
+DP_FAULT_STEPS = 1  # optimizer updates of each planted-fault run
+# further tiny To2V readings against one process, each run as the first
+# (2 updates, no checkpoint): other seeds, and f32 moments in place of int8
+DP_TO2V_WITNESSES = (("seed 7", {"seed": 7}), ("seed 8", {"seed": 8}),
+                     ("f32 AdamW", {"use_8bit_adam": False}))
+DP_CUT_RANKS = 3  # ranks of the int8 block-cut check (see `_dp_int8_cut_check`)
+DP_TIMEOUT_S = 900.0
+# Against one process on the global batch, relative L2 over all trained
+# tensors; each bound sits between the largest sound reading and the
+# smallest planted fault's (H100 80GB HBM3, 700 W). The gradient each update
+# applies (the all-reduced mean, clipped): both runs compute in bf16, and
+# the ranks' GEMMs over 3 rows of 9,442 tokens round differently from one
+# over 6, as the train phase's card-vs-host grads do; sound 2.1e-3 / 3.9e-3
+# (T2To) and 6.3e-4 / 8.8e-3 (tiny To2V), the fault's (rank 1's own
+# gradient) 0.25 and 1.28. The parameters' change from their start: the
+# first Adam update moves each entry by about lr * sign(g), so an entry
+# whose gradient sits within that rounding of 0 flips; sound 9.8e-3 / 7.6e-3
+# (T2To) and 5.5e-2-6.8e-2 (tiny To2V at seeds 42, 7, 8, and 6.4e-2 with f32
+# moments: not the int8 codes; on the host in f32, 2.4e-5); a rank that
+# keeps its own gradient moves its part of every split tensor by its own
+# signs: 0.59 (T2To), 0.69 (tiny To2V). A resume from the dp=2 checkpoint
+# against the uninterrupted run: K5's dq sums in a varying order (measured 0).
+DP_GRAD_BOUND = 2e-2
+DP_T2TO_BOUND = 5e-2
+DP_TO2V_BOUND = 0.2
+DP_RESUME_BOUND = 1e-3
+
+
+def _cut_t2to_depth(layers: int) -> None:
+    """`train_t2to.model_config` with the full-width DiT cut to ``layers``
+    blocks (this process)."""
+    import dataclasses
+
+    from tokensgen_tpu_torch import train_t2to
+
+    full = getattr(train_t2to.model_config, "full", train_t2to.model_config)
+
+    def cut(cfg, smoke, device):
+        dcfg, chunks, dim = full(cfg, smoke, device)
+        return (dcfg if smoke else dataclasses.replace(dcfg, num_layers=layers)), chunks, dim
+
+    cut.full = full
+    train_t2to.model_config = cut
+
+
+def _dp_trainer(kind, overrides: dict, device, group=None, resume=False):
+    from tokensgen_tpu_torch.train_t2to import T2ToTrainer
+    from tokensgen_tpu_torch.train_to2v import To2VTrainer
+    from tokensgen_tpu_torch.utils.config import load_config
+
+    if kind == "t2to":
+        return T2ToTrainer(load_config(os.path.join(REPO, T2TO_CONFIG), overrides), smoke=False,
+                           device=device, group=group, resume=resume)
+    return To2VTrainer(load_config(os.path.join(REPO, TRAIN_CONFIG), overrides), smoke=True,
+                       device=device, group=group, resume=resume)
+
+
+def _dp_steps(trainer, steps: int, every: int = 1):
+    """``steps`` micro-steps -> (records, the trained tensors after each
+    ``every``-th, on the card)."""
+    records, snaps = [], []
+    for n in range(every, steps + 1, every):
+        records += trainer.run(n, save_final=False)
+        snaps.append({k: p.detach().clone() for k, p in trainer.step_fn.params.items()})
+    return records, snaps
+
+
+def _dp_capture_grads(trainer) -> list:
+    """A list that gets, at each update, the gradient the optimizer is
+    handed: the parameters' ``.grad`` after the all-reduce and the clip
+    (whole tensors, also under ZeRO-1)."""
+    fn, grads = trainer.step_fn, []
+    step = fn.optimizer.step
+
+    def capture(params, parts):
+        grads.append({n: p.grad.detach().clone() for n, p in fn.params.items()})
+        step(params, parts)
+
+    fn.optimizer.step = capture
+    return grads
+
+
+def _dp_rel_l2(got: dict, want: dict, start: Optional[dict] = None) -> float:
+    """Relative L2 over every tensor together of ``got`` against ``want``
+    (with ``start``: of their changes from it)."""
+    num = sum(float((got[n].double() - want[n].double()).pow(2).sum()) for n in want)
+    base = {n: 0 if start is None else start[n].double() for n in want}
+    den = sum(float((want[n].double() - base[n]).pow(2).sum()) for n in want)
+    return (num / den) ** 0.5
+
+
+def _dp_fault_run(kind: str, overrides: dict, dev, group, steps: int, grads_path: str) -> dict:
+    """The planted fault: ``steps`` micro-steps in which rank 1 all-reduces
+    a copy of its gradient and keeps its own -> the trained tensors. Rank 1
+    saves the gradient of its first update at ``grads_path``."""
+    import torch
+
+    trainer = _dp_trainer(kind, overrides, dev, group)
+    reduce = group.mean_all_reduce_
+    grads = []
+    if group.rank == 1:
+        group.mean_all_reduce_ = lambda ts, divisor=None: reduce([t.clone() for t in ts], divisor)
+        grads = _dp_capture_grads(trainer)
+    try:
+        trainer.run(steps, save_final=False)
+    finally:
+        group.mean_all_reduce_ = reduce
+    if grads:  # saved before rank 1 joins its next collective
+        torch.save({n: g.cpu() for n, g in grads[0].items()}, grads_path)
+    out = {k: p.detach().clone() for k, p in trainer.step_fn.params.items()}
+    trainer.close()
+    return out
+
+
+def _dp_tiny_ref(overrides: dict, dev, size: int):
+    """The tiny To2V trainer in one process on the global batch of ``size``
+    ranks (its timesteps stratified over ``size`` positions, as theirs)."""
+    ref = _dp_trainer("to2v", dict(overrides, zero1=False, per_gpu_batch_size=size), dev)
+    ref.tcfg = dataclasses.replace(ref.tcfg, num_processes=size)
+    return ref
+
+
+def _dp_rank(group, out_dir: str):
+    """One rank of the dp phase: the T2To run over the group (its launches,
+    collectives' seconds, the gradient of each update), the planted fault's
+    run, the tiny To2V run with its checkpoint, its fault's run and a resume
+    from the checkpoint; then rank 0 alone runs each on the global batch in
+    one process and returns the errors."""
+    import shutil
+
+    import torch
+
+    from tokensgen_tpu_torch.kernels import attention as A
+    from tokensgen_tpu_torch.sharding.zero import state_nbytes
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the env phase sets it
+    torch.backends.cudnn.allow_tf32 = False
+    _cut_t2to_depth(DP_T2TO_LAYERS)
+    dev = group.device
+    res = {}
+
+    def gathered_bytes(opt) -> list:
+        nbytes = torch.zeros(group.size, dtype=torch.float64, device=dev)
+        nbytes[group.rank] = state_nbytes(opt.state_dict())
+        return group.sum_(nbytes).tolist()
+
+    def empty(*trainers):
+        for t in trainers:
+            t.close()
+        torch.cuda.empty_cache()
+
+    t2to_over = dict(DP_T2TO_OVERRIDES, output_dir=os.path.join(out_dir, "t2to"))
+    trainer = _dp_trainer("t2to", t2to_over, dev, group)
+    start = {k: p.detach().clone() for k, p in trainer.step_fn.params.items()}
+    grads = _dp_capture_grads(trainer) if group.leader else []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    records, snaps = _dp_steps(trainer, DP_STEPS)
+    torch.cuda.synchronize()
+    res["t2to"] = dict(records=records, wall=time.perf_counter() - t0,
+                       launches=A.launch_counts(), lse=A.lse_launch_counts(),
+                       opt_bytes=gathered_bytes(trainer.step_fn.optimizer),
+                       peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                       layers=trainer.dcfg.num_layers, params=trainer.param_counts["trainable"],
+                       optimizer=type(trainer.step_fn.optimizer).__name__,
+                       split=len(trainer.step_fn.zero.layout.gather_items(start)),
+                       tensors=len(start))
+    empty(trainer)
+    fault_grads = os.path.join(out_dir, "fault_grads_{}.pt")
+    fault = _dp_fault_run("t2to", t2to_over, dev, group, DP_FAULT_STEPS,
+                          fault_grads.format("t2to"))
+    torch.cuda.empty_cache()
+    # the tiny To2V trainer: 4 micro-steps (2 updates), checkpoint-2, resume
+    to2v_over = dict(DP_TO2V_OVERRIDES, output_dir=os.path.join(out_dir, "to2v"))
+    tiny = _dp_trainer("to2v", to2v_over, dev, group)
+    tiny_start = {k: p.detach().clone() for k, p in tiny.step_fn.params.items()}
+    tiny_grads = _dp_capture_grads(tiny) if group.leader else []
+    A.reset_launch_counts()
+    tiny_records = tiny.run(2 * DP_STEPS)
+    tiny_launches = A.launch_counts()
+    tiny_end = {k: p.detach().clone() for k, p in tiny.step_fn.params.items()}
+    tiny_bytes = gathered_bytes(tiny.step_fn.optimizer)
+    tiny.close()
+    tiny_fault = _dp_fault_run("to2v", dict(to2v_over, output_dir=os.path.join(
+        out_dir, "to2v_fault")), dev, group, 2 * DP_FAULT_STEPS, fault_grads.format("to2v"))
+    resume_over = dict(to2v_over, output_dir=os.path.join(out_dir, "to2v_resume"))
+    if group.leader:
+        src = os.path.join(out_dir, "to2v", "checkpoints", "checkpoint-2")
+        shutil.copytree(src, os.path.join(out_dir, "to2v_resume", "checkpoints", "checkpoint-2"))
+        parts = sorted(os.listdir(src))
+    group.barrier()
+    again = _dp_trainer("to2v", resume_over, dev, group, resume=True)
+    again.run(2 * DP_STEPS)
+    resumed = {k: p.detach().clone() for k, p in again.step_fn.params.items()}
+    again.close()
+    witnesses = []  # (label, overrides, start, end) of each further reading
+    for i, (label, extra) in enumerate(DP_TO2V_WITNESSES):
+        over = dict(to2v_over, checkpointing_steps=1000, **extra,
+                    output_dir=os.path.join(out_dir, f"to2v_witness{i}"))
+        run = _dp_trainer("to2v", over, dev, group)
+        w_start = {k: p.detach().clone() for k, p in run.step_fn.params.items()}
+        run.run(2 * DP_STEPS, save_final=False)
+        witnesses.append((label, over, w_start,
+                          {k: p.detach().clone() for k, p in run.step_fn.params.items()}))
+        run.close()
+    if not group.leader:
+        return None
+    res["to2v"] = dict(records=tiny_records, launches=tiny_launches, opt_bytes=tiny_bytes,
+                       parts=parts, resumed_step=again.step)
+    # one process on the global batch of each
+    ref = _dp_trainer("t2to", dict(t2to_over, zero1=False, per_gpu_batch_size=3 * group.size,
+                                   output_dir=os.path.join(out_dir, "t2to_ref")), dev)
+    ref_grads = _dp_capture_grads(ref)
+    ref_records, errors = [], []
+    for n in range(1, DP_STEPS + 1):
+        ref_records += ref.run(n, save_final=False)
+        want = {k: p.detach() for k, p in ref.step_fn.params.items()}
+        errors.append(_dp_rel_l2(snaps[n - 1], want, start))
+        if n == DP_FAULT_STEPS:
+            res["t2to"]["fault"] = _dp_rel_l2(fault, want, start)
+    res["t2to"].update(errors=errors, ref_records=ref_records,
+                       fault_grad=_dp_rel_l2(torch.load(fault_grads.format("t2to"),
+                                                        map_location=dev), ref_grads[0]),
+                       grad_errors=[_dp_rel_l2(g, w) for g, w in zip(grads, ref_grads)],
+                       ref_opt_bytes=state_nbytes(ref.step_fn.optimizer.state_dict()))
+    del snaps, fault, want, grads, ref_grads
+    empty(ref)
+    tiny_ref = _dp_tiny_ref(dict(to2v_over, output_dir=os.path.join(out_dir, "to2v_ref")), dev,
+                            group.size)
+    ref_grads = _dp_capture_grads(tiny_ref)
+    _, tiny_snaps = _dp_steps(tiny_ref, 2 * DP_STEPS, every=2)
+    res["to2v"].update(
+        error=_dp_rel_l2(tiny_end, tiny_snaps[-1], tiny_start),
+        fault=_dp_rel_l2(tiny_fault, tiny_snaps[DP_FAULT_STEPS - 1], tiny_start),
+        grad_errors=[_dp_rel_l2(g, w) for g, w in zip(tiny_grads, ref_grads)],
+        fault_grad=_dp_rel_l2(torch.load(fault_grads.format("to2v"), map_location=dev),
+                              ref_grads[0]),
+        resume_error=_dp_rel_l2(resumed, tiny_end, tiny_start), witnesses={})
+    empty(tiny_ref)
+    for label, over, w_start, w_end in witnesses:
+        ref = _dp_tiny_ref(dict(over, output_dir=over["output_dir"] + "_ref"), dev, group.size)
+        ref.run(2 * DP_STEPS, save_final=False)
+        res["to2v"]["witnesses"][label] = _dp_rel_l2(
+            w_end, {k: p.detach() for k, p in ref.step_fn.params.items()}, w_start)
+        empty(ref)
+    return res
+
+
+def _dp_int8_cut_check(dev) -> dict:
+    """The int8 AdamW on the card over the tiny To2V trainer's trainable
+    tensors, random values and gradients: DP_CUT_RANKS ranks' ZeRO-1 parts,
+    each on its own copy, the split tensors' parts copied across (the
+    all-gather), are bit-equal to the replicated update after 2 steps;
+    parts cut on 128-value boundaries (a 256-value block cut in two) are
+    not. (At 2 ranks every tensor of this set, each a power-of-two
+    multiple of 1,024 values, halves on a block boundary whatever the
+    alignment, so the fault could not show there.)"""
+    import torch
+
+    from tokensgen_tpu_torch.sharding.zero import ZeroLayout
+    from tokensgen_tpu_torch.train.adam8bit import AdamW8bit
+
+    tiny = _dp_trainer("to2v", {"output_dir": os.path.join(REPO, "build", "dp_smoke", "cut")},
+                       dev)
+    shapes = {n: p.shape for n, p in tiny.step_fn.params.items()}
+    tiny.close()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    params = {n: torch.randn(s, generator=gen, device=dev) for n, s in shapes.items()}
+    grads = [{n: torch.randn(s, generator=gen, device=dev) for n, s in shapes.items()}
+             for _ in range(2)]
+    sizes = {n: p.numel() for n, p in params.items()}
+    full = {n: p.clone() for n, p in params.items()}
+    ref = AdamW8bit(full, lambda c: 1e-3)
+    for g in grads:
+        ref.step(full, g)
+
+    def parts(align):
+        copies = [{n: p.clone() for n, p in params.items()} for _ in range(DP_CUT_RANKS)]
+        lays = [ZeroLayout.of(params, DP_CUT_RANKS, r, align) for r in range(DP_CUT_RANKS)]
+        opts = [AdamW8bit(lay.owned(c), lambda c_: 1e-3, sizes=sizes)
+                for lay, c in zip(lays, copies)]
+        for g in grads:
+            for lay, opt, c in zip(lays, opts, copies):
+                opt.step(lay.owned(c), lay.owned(g))
+            for lay, c in zip(lays, copies):
+                for other in copies:
+                    for n, part in lay.owned(c).items():
+                        if lay.split(n):
+                            lay.owned(other)[n].copy_(part)
+        return copies[0], sum(lay.split(n) for lay in lays[:1] for n in params)
+
+    whole, split = parts(256)
+    cut, _ = parts(128)
+    same = [n for n in full if torch.equal(whole[n], full[n])]
+    cut_same = [n for n in full if torch.equal(cut[n], full[n])]
+    return {"tensors": len(full), "split": split, "bit_equal": len(same),
+            "cut_bit_equal": len(cut_same)}
+
+
+def phase_dp(state: dict) -> None:
+    import gc
+
+    import torch
+
+    from tokensgen_tpu_torch.sharding import mesh
+
+    dev = state["device"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(REPO, "build", "dp_smoke")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    count = torch.cuda.device_count()
+    backend = "nccl" if count >= 2 else "gloo"
+    log(f"[dp] {T2TO_CONFIG} with {json.dumps(DP_T2TO_OVERRIDES)}, DiT cut to {DP_T2TO_LAYERS} "
+        f"of 42 layers, {DP_STEPS} steps, and the tiny To2V trainer with "
+        f"{json.dumps(DP_TO2V_OVERRIDES)}, over 2 ranks on {backend.upper()} "
+        f"({count} card(s) visible{', shared' if backend == 'gloo' else ''})")
+    t0 = time.perf_counter()
+    res = mesh.launch(_dp_rank, 2, (out_dir,), device="cuda", backend=backend,
+                      timeout_s=DP_TIMEOUT_S, group_cls=mesh.DataGroup)
+    wall = time.perf_counter() - t0
+    t2, tiny = res["t2to"], res["to2v"]
+    _log_steps("dp", f"T2To rank 0 of 2 ({t2['optimizer']}, zero1)", t2["records"])
+    _log_steps("dp", "T2To one process, batch 6", t2["ref_records"])
+    comm = [(r["all_reduce_s"], r["all_gather_s"]) for r in t2["records"]]
+    log(f"[dp] launch to result {wall:.1f} s; T2To: {t2['layers']} layers, {t2['params']:,} "
+        f"parameters, {t2['split']} of {t2['tensors']} tensors split; {DP_STEPS} steps in "
+        f"{t2['wall']:.1f} s on rank 0, peak {t2['peak_gib']:.2f} GiB; all-reduce / all-gather "
+        f"s per update {comm}")
+    ratio = [b / t2["ref_opt_bytes"] for b in t2["opt_bytes"]]
+    log(f"[dp] T2To optimizer state bytes by rank {t2['opt_bytes']} against one process's "
+        f"{t2['ref_opt_bytes']:,} (ratio {[round(r, 4) for r in ratio]})")
+    log(f"[dp] T2To against one process on the global batch: the gradient of each update "
+        f"{t2['grad_errors']} (bound {DP_GRAD_BOUND}), the parameters' change after each step "
+        f"{t2['errors']} (bound {DP_T2TO_BOUND}); planted fault (rank 1 keeps its own gradient) "
+        f"after {DP_FAULT_STEPS} step(s): {t2['fault']}")
+    layers = t2["layers"]
+    expect = {"fused_attention_joint": 2 * layers * DP_STEPS,
+              "attention_backward": layers * DP_STEPS}
+    log(f"[dp] T2To rank 0 launches {json.dumps(t2['launches'])} (expected {json.dumps(expect)}"
+        f"); with lse {json.dumps(t2['lse'])}")
+    _log_steps("dp", "tiny To2V rank 0 of 2 (zero1, accumulation 2)", tiny["records"])
+    log(f"[dp] tiny To2V: optimizer bytes by rank {tiny['opt_bytes']}; launches "
+        f"{json.dumps(tiny['launches'])}; checkpoint-2 {tiny['parts']}; against one process: "
+        f"the gradient of each update {tiny['grad_errors']} (bound {DP_GRAD_BOUND}), the "
+        f"parameters' change {tiny['error']:.3e} (bound {DP_TO2V_BOUND}), planted fault after "
+        f"{DP_FAULT_STEPS} update(s) {tiny['fault']:.3e}; resumed at step 2 on 2 ranks to step "
+        f"{tiny['resumed_step']}: against the uninterrupted run {tiny['resume_error']:.3e} "
+        f"(bound {DP_RESUME_BOUND})")
+    log(f"[dp] tiny To2V, the parameters' change against one process, further runs: "
+        f"{json.dumps(tiny['witnesses'])} (bound {DP_TO2V_BOUND}); the planted fault's gradient "
+        f"(rank 1's own) against one process's: T2To {t2['fault_grad']:.3e}, tiny To2V "
+        f"{tiny['fault_grad']:.3e} (bound {DP_GRAD_BOUND})")
+    cut = _dp_int8_cut_check(dev)
+    log(f"[dp] int8 AdamW over the tiny To2V trainable tensors, {DP_CUT_RANKS} ranks' parts: "
+        f"{cut}")
+    state["dp_launches"] = {k: t2["launches"][k] + tiny["launches"][k]
+                            for k in t2["launches"] if t2["launches"][k] + tiny["launches"][k]}
+    failed = []
+    if any(t2["launches"][k] != v for k, v in expect.items()) or (
+            t2["lse"]["fused_attention_joint"] != t2["launches"]["fused_attention_joint"]):
+        failed.append(f"T2To launches {t2['launches']}")
+    if min(tiny["launches"][k] for k in ("fused_attention_bhsd", "attention_backward",
+                                         "flash_attention_bhsd")) <= 0:
+        failed.append(f"tiny To2V launches {tiny['launches']}")
+    if not all(math.isfinite(r["loss"]) and r["updated"] for r in t2["records"]):
+        failed.append("a T2To step made no finite update")
+    if not all(r["all_reduce_s"] > 0 and r["all_gather_s"] > 0 for r in t2["records"]):
+        failed.append("a T2To update has no all-reduce or all-gather seconds")
+    for name, r, bound in (("T2To", t2, DP_T2TO_BOUND), ("tiny To2V", tiny, DP_TO2V_BOUND)):
+        errors = r["errors"] if name == "T2To" else [r["error"], *r["witnesses"].values()]
+        if (len(r["grad_errors"]) != DP_STEPS or max(r["grad_errors"]) > DP_GRAD_BOUND
+                or max(errors) > bound or r["fault"] <= bound
+                or r["fault_grad"] <= DP_GRAD_BOUND):
+            failed.append(f"{name} against one process: grads {r['grad_errors']}, change "
+                          f"{errors}, fault {r['fault']}, its gradient {r['fault_grad']}")
+    if not all(0.45 < r < 0.55 for r in ratio):
+        failed.append(f"T2To optimizer state is not halved: {ratio}")
+    if tiny["resume_error"] > DP_RESUME_BOUND or tiny["resumed_step"] != 2 * DP_STEPS:
+        failed.append(f"tiny To2V resumed: {tiny['resume_error']} at {tiny['resumed_step']}")
+    if tiny["parts"] != ["opt-rank0-of-2.pt", "opt-rank1-of-2.pt", "state.pt"]:
+        failed.append(f"checkpoint files {tiny['parts']}")
+    if cut["bit_equal"] != cut["tensors"] or cut["cut_bit_equal"] == cut["tensors"]:
+        failed.append(f"int8 parts: {cut}")
+    if failed:
+        raise RuntimeError("the dp phase failed: " + "; ".join(failed))
+
+
 _KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name), first match wins
     ("attention K7 (int8_prologue + joint_int8_splitkv + joint_int8_combine)",
      ("int8_prologue_kernel", "joint_int8_splitkv_kernel", "joint_int8_combine_kernel")),
@@ -4455,6 +4888,8 @@ def main(argv=None) -> int:
                                         for path, counts in state["variants_launches"].items()}
         if name == "flash_attention_bhsd":  # K4 in the T2To trainer's frozen latent encoder
             row["t2to_train_launches"] = state["t2to_k4_launches"]
+        if name in state["dp_launches"]:  # the dp phase's rank 0 (both trainers)
+            row["dp_launches"] = state["dp_launches"][name]
         if name in PATH_KERNELS:  # the load, queue and serve phases' runs, each on its own
             row.update(load_launches=state["load_launches"][name],
                        cli_launches=state["cli_launches"][name],

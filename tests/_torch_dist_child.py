@@ -3,6 +3,7 @@
 so that a worker's re-import stays light. Everything a worker receives
 pickles: numpy arrays, plain objects and the classes below."""
 
+import dataclasses
 import os
 
 import numpy as np
@@ -205,3 +206,133 @@ def _same(a, b) -> bool:
         return (type(a) is type(b) and len(a) == len(b)
                 and all(_same(x, y) for x, y in zip(a, b)))
     return a == b
+
+
+# --------------------------------------------------------- data parallelism
+
+def _rows(batch: dict, keys, rows: slice) -> dict:
+    """A rank's rows of the batched entries (``keys``) of a global batch;
+    the other entries whole. Tuples (rope tables) row by row."""
+    out = {}
+    for k, v in batch.items():
+        if k in keys:
+            out[k] = tuple(x[rows] for x in v) if isinstance(v, tuple) else v[rows]
+        else:
+            out[k] = v
+    return out
+
+
+def _step_model(case):
+    """The port model of a step case, its weights from ``case["state"]``."""
+    from tokensgen_tpu_torch.models import dit as TD
+    from tokensgen_tpu_torch.models import resampler as TR
+    from tokensgen_tpu_torch.train import t2to as TT2
+    from tokensgen_tpu_torch.train import to2v as TT
+
+    if case["kind"] == "t2to":
+        dit = TD.CogVideoXTransformer(case["dcfg"])
+        dit.load_state_dict({k: torch.from_numpy(v) for k, v in case["state"].items()})
+        return TT2.setup_full_finetune(dit.train())
+    dit = TD.CogVideoXTransformer(case["dcfg"])
+    dit.load_state_dict({k: torch.from_numpy(v) for k, v in case["state"]["dit"].items()})
+    rs = TR.Resampler(case["rcfg"])
+    rs.load_state_dict({k: torch.from_numpy(v) for k, v in case["state"]["resampler"].items()})
+    return TT.setup_trainable(TT.To2VModel(dit, rs).train())
+
+
+def train_step_case(group, case):
+    """`T2ToTrainStep` / `To2VTrainStep` over ``group`` (None: one process on
+    the global batch): each micro-step's global draws ``case["draws"]``
+    (timesteps, noise), this rank's rows of them and of ``case["batch"]``
+    -> {"params": every trained tensor after the last update, "after":
+    after each update, "losses": each call's loss over the global batch,
+    "opt_bytes": the optimizer's state bytes on this rank}."""
+    from tokensgen_tpu_torch.core import schedule as TS
+    from tokensgen_tpu_torch.sharding.zero import state_nbytes
+    from tokensgen_tpu_torch.train import t2to as TT2
+    from tokensgen_tpu_torch.train import to2v as TT
+
+    model = _step_model(case)
+    b = case["draws"][0][0].shape[0]
+    rows = slice(None)
+    if group is not None:
+        per = b // group.size
+        rows = slice(group.rank * per, (group.rank + 1) * per)
+    if case["kind"] == "t2to":
+        sched = TS.make_schedule(TS.ScheduleConfig(beta_schedule="vip_1"))
+        step = TT2.T2ToTrainStep(model, sched, case["tcfg"], accum_steps=case["accum"],
+                                 group=group, zero1=case["zero1"])
+    else:
+        step = TT.To2VTrainStep(model, TS.make_schedule(TS.ScheduleConfig()), case["tcfg"],
+                                accum_steps=case["accum"], group=group, zero1=case["zero1"])
+    batch = _rows(case["batch"], case["batched"], rows)
+    losses, after = [], []
+    for ts, noise in case["draws"]:
+        m = step(batch, torch.from_numpy(ts)[rows], torch.from_numpy(noise)[rows])
+        losses.append(m["loss"].item())
+        if m["updated"]:
+            after.append({n: p.detach().clone() for n, p in step.params.items()})
+    if group is not None:  # the global batch's loss: the mean of the ranks' (equal rows)
+        losses = (group.sum_(torch.tensor(losses, dtype=torch.float64)) / group.size).tolist()
+    return {"params": after[-1], "after": after, "losses": losses,
+            "opt_bytes": state_nbytes(step.optimizer.state_dict())}
+
+
+def trainer_run(group, case):
+    """A trainer of the CLIs (`T2ToTrainer` / `To2VTrainer`) at --smoke on
+    the host over ``group``: ``case["config"]`` with ``case["overrides"]``,
+    ``case["steps"]`` micro-steps, ``case["resume"]``; where
+    ``case["seed_from"]`` names a checkpoint directory, rank 0 first copies
+    it under the run's checkpoint root -> {"params": the trained tensors,
+    "records", "opt_bytes": the optimizer's state bytes on this rank,
+    "grads": the gradients each update applied (clipped), "initial": the
+    trained tensors before the first step}."""
+    import shutil
+
+    from tokensgen_tpu_torch.sharding.zero import state_nbytes
+    from tokensgen_tpu_torch.train_t2to import T2ToTrainer
+    from tokensgen_tpu_torch.train_to2v import To2VTrainer
+    from tokensgen_tpu_torch.utils.config import load_config
+
+    cfg = load_config(case["config"], case["overrides"])
+    kind = T2ToTrainer if case["kind"] == "t2to" else To2VTrainer
+    sub = "t2to_checkpoints" if case["kind"] == "t2to" else "checkpoints"
+    if case.get("seed_from") and (group is None or group.leader):
+        dst = os.path.join(cfg["output_dir"], sub, os.path.basename(case["seed_from"]))
+        shutil.copytree(case["seed_from"], dst)
+    if group is not None:
+        group.barrier()
+    trainer = kind(cfg, True, "cpu", resume=case.get("resume", False), group=group)
+    if case.get("num_processes"):  # a dp=1 run drawing a dp=N run's strata
+        trainer.tcfg = dataclasses.replace(trainer.tcfg, num_processes=case["num_processes"])
+    fn = trainer.step_fn
+    initial = {n: p.detach().clone() for n, p in fn.params.items()}
+    grads = []
+    step = fn.optimizer.step
+
+    def capture(params, g):
+        grads.append({n: t.detach().clone() for n, t in g.items()})
+        step(params, g)
+
+    fn.optimizer.step = capture
+    try:
+        records = trainer.run(case["steps"])
+    finally:
+        trainer.close()
+    return {"params": {n: p.detach().clone() for n, p in fn.params.items()},
+            "records": records, "opt_bytes": state_nbytes(fn.optimizer.state_dict()),
+            "grads": grads, "initial": initial}
+
+
+def dp_cases(group, cases):
+    """Each case through `train_step_case` (a case with ``"draws"``) or
+    `trainer_run` on this group -> {name: result} on rank 0, every rank's
+    optimizer state bytes in ``"opt_bytes"`` (a list by rank)."""
+    out = {}
+    for c in cases:
+        res = (train_step_case if "draws" in c else trainer_run)(group, c)
+        nbytes = torch.zeros(group.size, dtype=torch.float64)
+        nbytes[group.rank] = res["opt_bytes"]
+        res["opt_bytes"] = group.sum_(nbytes).tolist()
+        out[c["name"]] = res
+    return out if group.leader else None

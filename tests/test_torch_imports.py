@@ -50,6 +50,8 @@ def test_import_loads_no_jax():
     inference_modes = {"tokensgen_tpu_torch.models.dinov2", "tokensgen_tpu_torch.sampling.freeinit",
                        "tokensgen_tpu_torch.utils.debug"}
     assert inference_modes <= set(_modules())
+    data_axis = {"tokensgen_tpu_torch.sharding.zero", "tokensgen_tpu_torch.train.memory"}
+    assert data_axis <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"

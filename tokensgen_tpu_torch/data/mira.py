@@ -511,10 +511,15 @@ def _batches(dataset, order: List[int], batch_size: int, drop_last: bool,
 
 def batch_iterator(dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
                    drop_last: bool = True, num_shards: int = 1, shard_index: int = 0,
-                   prefetch: int = 2, num_workers: int = 0) -> Iterator[Dict]:
+                   prefetch: int = 2, num_workers: int = 0, slot: int = 0,
+                   slots: int = 1) -> Iterator[Dict]:
     """One epoch of collated batches: the order shuffled by
     ``random.Random(seed)``, this host's ``shard_index``-th of
     ``num_shards`` strided shares of it, items that fail to decode skipped.
+    With ``slots`` > 1 (the data-parallel ranks of one host) the host's
+    share is cut into batches of ``batch_size * slots`` and this rank reads
+    positions ``[slot * batch_size, (slot + 1) * batch_size)`` of each (an
+    incomplete last one dropped under ``drop_last``).
     ``num_workers`` > 0 maps ``dataset[i]`` on a thread pool; a dataset with
     ``load_many`` reads each batch in one call. With ``prefetch`` > 0 a
     thread makes up to that many batches ahead; an error there is raised to
@@ -523,6 +528,12 @@ def batch_iterator(dataset, batch_size: int, shuffle: bool = True, seed: int = 0
     if shuffle:
         random.Random(seed).shuffle(order)
     order = order[shard_index::num_shards]
+    if slots > 1:
+        width = batch_size * slots
+        if drop_last:
+            order = order[:len(order) - len(order) % width]
+        order = [i for lo in range(0, len(order), width)
+                 for i in order[lo + slot * batch_size:lo + (slot + 1) * batch_size]]
     gen = _batches(dataset, order, batch_size, drop_last, num_workers)
     if prefetch <= 0:
         yield from gen

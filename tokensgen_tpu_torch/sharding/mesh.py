@@ -1,5 +1,5 @@
-"""Process groups of the port: the FIFO's ``queue`` axis over several GPUs
-(port of the queue axis of `tokensgen_tpu/sharding/mesh.py`).
+"""Process groups of the port: the FIFO's ``queue`` axis and the trainers'
+``data`` axis over several GPUs (port of `tokensgen_tpu/sharding/mesh.py`).
 
 The JAX package lays the lookahead rank windows of a FIFO iteration on the
 devices of a mesh's ``queue`` axis and merges them with a `psum`, all inside
@@ -9,17 +9,27 @@ the host. Rank 0 runs everything outside the FIFO and sends the other ranks
 what they need; every rank runs its block of windows, and one sum
 all-reduce a FIFO iteration merges them.
 
-* `MeshSpec`: the mesh's axes; only ``queue`` may be above 1 (the ``data``
-  and ``model`` axes are ROADMAP A12).
+* `MeshSpec`: the mesh's axes; ``queue`` and ``data`` may be above 1 (the
+  ``model`` axis, tensor and sequence parallelism, is ROADMAP A12).
 * `QueueGroup`: one process's place in the group: its rank, the group's
   size, its device, the collectives (sum all-reduce, a check that a value
   agrees on every rank) and `send` / `receive`, which move a nested
   structure of tensors from rank 0 to the others: its skeleton through the
   rendezvous store, its tensors in one broadcast.
+* `DataGroup`: a `QueueGroup` with what a data-parallel trainer needs: a
+  mean all-reduce of f32 tensors in flat buckets, an all-gather of each
+  rank's flat part of a tensor, a scalar sum, a barrier, and the host
+  layout (``hosts``, ``host``, ``local_rank``, ``local_size``) that splits
+  the data (`process_batch_shard`). It keeps the seconds and bytes of its
+  all-reduces and all-gathers in ``stats``.
 * `launch(fn, n)` spawns ``n`` workers (``torch.multiprocessing``, start
   method ``spawn``); rank ``r`` calls ``fn(group, *args)`` and rank 0's
   return value comes back. `start_followers(fn, n)` makes the caller rank
   0 and spawns ranks 1 to n - 1 (the server's layout).
+* `join_env_group` (port of `initialize_multihost`): a process started by
+  ``torchrun`` (or anything that sets ``WORLD_SIZE``, ``RANK`` and
+  ``MASTER_ADDR``) joins its ``env://`` group, one rank a card, across
+  hosts.
 
 The rendezvous is a ``FileStore`` in a fresh temporary directory, so two
 groups on one machine never collide on a port. Every collective runs under
@@ -56,30 +66,32 @@ class MeshSpec:
     model: int = 1
 
     def __post_init__(self):
-        if self.data > 1 or self.model > 1:
+        if self.model > 1:
             raise NotImplementedError(
-                f"{self}: only the queue axis is ported; data parallelism and the model axis "
-                "(sequence / tensor parallelism) are not (ROADMAP A12)")
-        if self.queue < 1:
-            raise ValueError(f"{self}: the queue axis needs at least one device")
+                f"{self}: the queue and data axes are ported; the model axis (sequence / "
+                "tensor parallelism) is not (ROADMAP A12)")
+        if self.queue < 1 or self.data < 1:
+            raise ValueError(f"{self}: each axis needs at least one device")
 
     @property
     def num_devices(self) -> int:
         return self.data * self.queue * self.model
 
 
-def check_ranks(n: int, device, backend: Optional[str] = None) -> str:
-    """The backend of an ``n``-rank group on ``device``'s type: NCCL on the
-    card (one card a rank: more ranks than visible cards raise), Gloo on the
-    host. ``backend="gloo"`` on the card lets ranks share cards. Raises
-    before anything is spawned."""
+def check_ranks(n: int, device, backend: Optional[str] = None,
+                group_cls: Optional[type] = None) -> str:
+    """The backend of an ``n``-rank group (a ``group_cls``, by default
+    `QueueGroup`) on ``device``'s type: NCCL on the card (one card a rank:
+    more ranks than visible cards raise), Gloo on the host.
+    ``backend="gloo"`` on the card lets ranks share cards. Raises before
+    anything is spawned."""
     device = torch.device(device)
     if n < 1:
         raise ValueError(f"a group needs at least one rank, not {n}")
     if backend is None:
         backend = "nccl" if device.type == "cuda" else "gloo"
     if backend not in ("nccl", "gloo"):
-        raise ValueError(f"backend {backend!r}: the queue axis runs on 'nccl' or 'gloo'")
+        raise ValueError(f"backend {backend!r}: a group runs on 'nccl' or 'gloo'")
     if device.type == "cpu" and backend != "gloo":
         raise ValueError("ranks on the host run Gloo")
     if device.type == "cuda":
@@ -87,13 +99,15 @@ def check_ranks(n: int, device, backend: Optional[str] = None) -> str:
         if count < 1:
             raise ValueError("no CUDA device is visible")
         if backend == "nccl" and n > count:
-            raise ValueError(f"{n} queue ranks under NCCL need {n} cards (one a rank); "
-                             f"{count} visible")
+            raise ValueError(f"{n} {(group_cls or QueueGroup).axis} ranks under NCCL need {n} "
+                             f"cards (one a rank); {count} visible")
     return backend
 
 
 class QueueGroup:
     """This process's rank in a group of ``size`` on the queue axis."""
+
+    axis = "queue"
 
     def __init__(self, rank: int, size: int, device: torch.device, store, timeout_s: float):
         self.rank, self.size, self.device = rank, size, torch.device(device)
@@ -165,6 +179,186 @@ class QueueGroup:
             dist.broadcast(buf, 0)
             tensors = _unpack(buf, metas)
         return _fill(skeleton, tensors)
+
+
+BUCKET_BYTES = 64 << 20  # bytes of one all-reduce or all-gather bucket
+
+
+class DataGroup(QueueGroup):
+    """This process's rank in a data-parallel group of ``size`` ranks,
+    ``local_size`` on each of ``hosts`` hosts (ranks numbered host by host:
+    rank = ``host * local_size + local_rank``). ``comm`` holds the seconds
+    (device synchronised around each call) and bytes of the all-reduces and
+    all-gathers since the last `take_comm`."""
+
+    axis = "data"
+
+    def __init__(self, rank: int, size: int, device: torch.device, store, timeout_s: float,
+                 local_size: Optional[int] = None):
+        super().__init__(rank, size, device, store, timeout_s)
+        self.local_size = size if local_size is None else local_size
+        if size % self.local_size:
+            raise ValueError(f"{size} ranks do not split into hosts of {self.local_size}")
+        self.hosts = size // self.local_size
+        self.host, self.local_rank = divmod(rank, self.local_size)
+        self.comm = _no_comm()
+
+    def take_comm(self) -> dict:
+        """The collectives' seconds and bytes since the last call."""
+        out, self.comm = self.comm, _no_comm()
+        return out
+
+    def _timed(self, kind: str, nbytes: int, t0: float) -> None:
+        self._sync()
+        self.comm[f"{kind}_s"] += time.perf_counter() - t0
+        self.comm[f"{kind}_bytes"] += nbytes
+
+    def barrier(self) -> None:
+        dist.all_reduce(torch.zeros(1, device=self.device))
+
+    def sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum of a (small) tensor over the ranks, in place (untimed)."""
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        return t
+
+    def mean_all_reduce_(self, tensors: Sequence[torch.Tensor],
+                         divisor: Optional[float] = None) -> None:
+        """Each tensor replaced, in place, by its sum over the ranks divided
+        by ``divisor`` (the group's size by default): tensors taken in
+        order into flat buckets of at most `BUCKET_BYTES`, one all-reduce a
+        bucket (a larger tensor is reduced where it lies)."""
+        divisor = float(self.size if divisor is None else divisor)
+        self._sync()
+        t0 = time.perf_counter()
+        nbytes = 0
+        for bucket in _buckets(tensors, lambda t: t.numel() * t.element_size()):
+            if len(bucket) == 1:
+                flat = bucket[0]
+            else:
+                flat = torch.cat([t.reshape(-1) for t in bucket])
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+            flat.div_(divisor)
+            nbytes += flat.numel() * flat.element_size()
+            if len(bucket) > 1:
+                off = 0
+                for t in bucket:
+                    t.copy_(flat[off:off + t.numel()].view_as(t))
+                    off += t.numel()
+        self._timed("all_reduce", nbytes, t0)
+
+    def all_gather_parts_(self, items: Sequence[tuple]) -> None:
+        """Each item ``(flat, chunk)``: a 1-D tensor of which rank ``r``
+        owns ``flat[r * chunk:(r + 1) * chunk]`` (cut at its end; parts may
+        be empty). Every rank's part is written into every rank's ``flat``:
+        the parts of a bucket of items packed in one buffer, one all-gather
+        a bucket."""
+        self._sync()
+        t0 = time.perf_counter()
+        nbytes = 0
+        for bucket in _buckets(items, lambda it: it[1] * self.size * it[0].element_size()):
+            width = sum(c for _, c in bucket)
+            send = torch.zeros(width, dtype=bucket[0][0].dtype, device=self.device)
+            off = 0
+            for flat, c in bucket:
+                part = flat[self.rank * c:(self.rank + 1) * c]
+                send[off:off + part.numel()].copy_(part)
+                off += c
+            # Gloo gathers host tensors: ranks sharing a card stage through the host
+            staged = self.device.type == "cuda" and dist.get_backend() == "gloo"
+            if staged:
+                send = send.cpu()
+            recv = torch.empty(self.size, width, dtype=send.dtype, device=send.device)
+            dist.all_gather(list(recv.unbind(0)), send)
+            if staged:
+                recv = recv.to(self.device)
+            nbytes += recv.numel() * recv.element_size()
+            off = 0
+            for flat, c in bucket:
+                flat.copy_(recv[:, off:off + c].reshape(-1)[:flat.numel()])
+                off += c
+        self._timed("all_gather", nbytes, t0)
+
+
+def _no_comm() -> dict:
+    return {"all_reduce_s": 0.0, "all_reduce_bytes": 0, "all_gather_s": 0.0,
+            "all_gather_bytes": 0}
+
+
+def _buckets(items, nbytes: Callable, cap: int = BUCKET_BYTES):
+    """``items`` in order, in runs of one dtype whose ``nbytes`` sum to at
+    most ``cap`` (an item larger than ``cap`` alone)."""
+    bucket, size = [], 0
+    for it in items:
+        n = nbytes(it)
+        dtype = (it[0] if isinstance(it, tuple) else it).dtype
+        if bucket and (size + n > cap or dtype != bucket_dtype):
+            yield bucket
+            bucket, size = [], 0
+        bucket.append(it)
+        bucket_dtype = dtype
+        size += n
+    if bucket:
+        yield bucket
+
+
+def process_batch_shard(global_batch_size: int, group: Optional[DataGroup] = None) -> tuple:
+    """(local batch size, shard index, shard count) of this host's share
+    of a global batch (`batch_iterator(num_shards=, shard_index=)`):
+    the hosts of ``group`` (one without a group)."""
+    hosts, host = (group.hosts, group.host) if group is not None else (1, 0)
+    if global_batch_size % hosts:
+        raise ValueError(f"global batch {global_batch_size} not divisible by {hosts} hosts")
+    return global_batch_size // hosts, host, hosts
+
+
+def batch_shard_kwargs(group: Optional[DataGroup], batch_size: int) -> dict:
+    """`data.mira.batch_iterator`'s arguments for this rank's
+    ``batch_size`` rows of each global batch: its host's strided share
+    (`process_batch_shard`), then its positions among the host's ranks."""
+    if group is None:
+        return {}
+    _, index, shards = process_batch_shard(batch_size * group.size, group)
+    return dict(num_shards=shards, shard_index=index, slot=group.local_rank,
+                slots=group.local_size)
+
+
+ENV_KEYS = ("WORLD_SIZE", "RANK", "MASTER_ADDR")
+
+
+def env_launched() -> bool:
+    """Whether this process was started as a rank of an ``env://`` group
+    (``torchrun`` sets ``WORLD_SIZE``, ``RANK`` and ``MASTER_ADDR``)."""
+    return all(os.environ.get(k) for k in ENV_KEYS)
+
+
+def join_env_group(device, backend: Optional[str] = None,
+                   timeout_s: float = DEFAULT_TIMEOUT_S) -> DataGroup:
+    """Port of `initialize_multihost`: joins the ``env://`` group that
+    ``WORLD_SIZE`` / ``RANK`` / ``MASTER_ADDR`` / ``MASTER_PORT`` describe
+    (``LOCAL_WORLD_SIZE`` ranks a host, this one ``LOCAL_RANK``, as
+    ``torchrun`` sets them), on ``cuda:LOCAL_RANK`` under NCCL or on the host
+    under Gloo. `leave_group` ends it."""
+    world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+    local_size = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    local_rank = int(os.environ.get("LOCAL_RANK", rank % local_size))
+    if local_rank != rank % local_size:
+        raise ValueError(f"rank {rank} is local rank {local_rank} of {local_size}: ranks must be "
+                         "numbered host by host")
+    device = torch.device(device)
+    if device.type == "cuda":
+        device = torch.device("cuda", local_rank)
+        torch.cuda.set_device(device)
+    backend = check_ranks(local_size, device, backend, DataGroup)
+    dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    from torch.distributed.distributed_c10d import _get_default_store
+
+    return DataGroup(rank, world, device, _get_default_store(), timeout_s, local_size=local_size)
+
+
+def leave_group() -> None:
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 class _Slot(tuple):
@@ -247,7 +441,7 @@ def _rank_device(rank: int, device_type: str) -> torch.device:
 
 
 def _join_group(rank: int, n: int, device_type: str, backend: str, timeout_s: float,
-                rendezvous: str, threads: int) -> QueueGroup:
+                rendezvous: str, threads: int, group_cls: type = QueueGroup) -> QueueGroup:
     torch.set_num_threads(threads)
     dev = _rank_device(rank, device_type)
     if dev.type == "cuda":
@@ -258,13 +452,14 @@ def _join_group(rank: int, n: int, device_type: str, backend: str, timeout_s: fl
     store = dist.FileStore(os.path.join(rendezvous, "store"), n)
     dist.init_process_group(backend, store=store, rank=rank, world_size=n,
                             timeout=datetime.timedelta(seconds=timeout_s))
-    return QueueGroup(rank, n, dev, store, timeout_s)
+    return group_cls(rank, n, dev, store, timeout_s)
 
 
 def _worker(index: int, rank0: int, fn: Callable, args: tuple, n: int, device_type: str,
-            backend: str, timeout_s: float, rendezvous: str, threads: int) -> None:
+            backend: str, timeout_s: float, rendezvous: str, threads: int,
+            group_cls: type = QueueGroup) -> None:
     rank = rank0 + index
-    group = _join_group(rank, n, device_type, backend, timeout_s, rendezvous, threads)
+    group = _join_group(rank, n, device_type, backend, timeout_s, rendezvous, threads, group_cls)
     try:
         out = fn(group, *args)
         if rank == 0:
@@ -298,19 +493,20 @@ def _join(ctx, timeout_s: float, now: bool = False) -> None:
 
 
 def launch(fn: Callable, n: int, args: Sequence = (), *, device, backend: Optional[str] = None,
-           timeout_s: float = DEFAULT_TIMEOUT_S):
+           timeout_s: float = DEFAULT_TIMEOUT_S, group_cls: type = QueueGroup):
     """Runs ``fn(group, *args)`` on ``n`` spawned ranks, rank ``r`` on
     ``cuda:r`` (Gloo on the card: ``cuda:r % count``) or the host, and
     returns rank 0's return value, its tensors on the host. ``fn`` and
     ``args`` must pickle (``fn`` a module-level function). The workers
-    use this process's count of host threads."""
-    backend = check_ranks(n, device, backend)
+    use this process's count of host threads; ``group`` is a
+    ``group_cls`` (`QueueGroup`, or `DataGroup` for a trainer)."""
+    backend = check_ranks(n, device, backend, group_cls)
     rendezvous = tempfile.mkdtemp(prefix="tg_queue_")
     ctx = None
     try:
         ctx = mp.start_processes(
             _worker, args=(0, fn, tuple(args), n, torch.device(device).type, backend, timeout_s,
-                           rendezvous, torch.get_num_threads()),
+                           rendezvous, torch.get_num_threads(), group_cls),
             nprocs=n, join=False, start_method="spawn")
         _join(ctx, timeout_s)
         return torch.load(os.path.join(rendezvous, _RESULT), map_location="cpu",
@@ -319,6 +515,55 @@ def launch(fn: Callable, n: int, args: Sequence = (), *, device, backend: Option
         if ctx is not None:
             _kill(ctx)
         shutil.rmtree(rendezvous, ignore_errors=True)
+
+
+def data_axis(cfg, device) -> int:
+    """A trainer config's data-parallel ranks: ``dp_devices`` where set,
+    else 0 (the group's size) in a process ``torchrun`` started, else the
+    visible cards on the card and 1 on the host. ``tp_devices`` and
+    ``sp_devices`` above 1 raise (the model axis, ROADMAP A12)."""
+    for key in ("tp_devices", "sp_devices"):
+        if int(cfg.get(key) or 1) > 1:
+            raise NotImplementedError(f"`{key}` > 1: tensor / sequence parallelism is not ported "
+                                      "yet (ROADMAP A12); the data axis (`dp_devices`, `zero1`) is")
+    dp = int(cfg.get("dp_devices") or 0)
+    if dp or env_launched():
+        return dp
+    return torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+
+
+def build_kernels_for_ranks(dp: int, device) -> None:
+    """With ``dp`` > 1 ranks to spawn on the card: builds the kernel library
+    once here, so that the ranks load it instead of each compiling it."""
+    if dp > 1 and torch.device(device).type == "cuda" and not env_launched():
+        from tokensgen_tpu_torch.kernels.attention import build_kernels
+
+        build_kernels()
+
+
+TRAIN_TIMEOUT_S = 3600.0  # a rank may wait out another's validation render
+
+
+def run_data_parallel(fn: Callable, dp: int, args: Sequence = (), *, device,
+                      backend: Optional[str] = None, timeout_s: float = TRAIN_TIMEOUT_S):
+    """A trainer's entry: ``fn(group, *args)`` on this process's ``env://``
+    group where it was started as one of its ranks (`env_launched`, all of
+    its hosts' ranks together making the data axis), else on ``dp`` spawned
+    ranks of a `DataGroup` (rank 0's return value comes back), else (``dp``
+    1) ``fn(None, *args)`` here."""
+    if env_launched():
+        group = join_env_group(device, backend, timeout_s)
+        if dp not in (0, group.size):
+            leave_group()
+            raise ValueError(f"dp_devices {dp}: the env:// group has {group.size} ranks")
+        try:
+            return fn(group, *args)
+        finally:
+            leave_group()
+    if dp > 1:
+        return launch(fn, dp, args, device=device, backend=backend, timeout_s=timeout_s,
+                      group_cls=DataGroup)
+    return fn(None, *args)
 
 
 class Followers:

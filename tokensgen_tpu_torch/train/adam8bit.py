@@ -4,7 +4,9 @@ The first moment is stored as int8 with one f32 scale per block of 256 values
 (absmax); the second, whose range within a block is far wider, as uint8 on a
 log scale between the block's log-min and log-max. Each update dequantizes,
 runs AdamW in f32 and quantizes again, with the JAX package's arithmetic.
-Tensors under ``min_quant_size`` values keep f32 moments. State: about 2.06
+Tensors under ``min_quant_size`` values keep f32 moments (judged on the
+whole tensor: a ZeRO-1 part, `sharding/zero.py`, passes its tensor's size
+in ``sizes``, so that a part quantizes where its tensor does). State: about 2.06
 bytes per parameter against 8 for f32 Adam. Plain PyTorch: the JAX version is
 XLA, not a Pallas kernel. The state is written back into the buffers made at
 init (the JAX package returns new arrays): fresh state tensors every step
@@ -14,7 +16,7 @@ from being returned to the device.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -82,17 +84,19 @@ def _store(dst, src) -> None:
 
 class AdamW8bit:
     """AdamW with int8 moments over named tensors, updated in place:
-    ``p -= lr·(m̂/(√v̂+eps) + wd·p)`` with m, v stored quantized."""
+    ``p -= lr·(m̂/(√v̂+eps) + wd·p)`` with m, v stored quantized. ``sizes``:
+    each name's whole-tensor size where ``params`` are parts of tensors."""
 
     def __init__(self, params: Dict[str, torch.Tensor], lr, b1: float = 0.9, b2: float = 0.95,
-                 eps: float = 1e-8, weight_decay: float = 1e-4, min_quant_size: int = 4096):
+                 eps: float = 1e-8, weight_decay: float = 1e-4, min_quant_size: int = 4096,
+                 sizes: Optional[Dict[str, int]] = None):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.weight_decay = weight_decay
         self.count = 0
         self.mu, self.nu = {}, {}
         for name, p in params.items():
             zeros = torch.zeros_like(p, dtype=torch.float32)
-            big = p.numel() >= min_quant_size
+            big = (p.numel() if sizes is None else sizes[name]) >= min_quant_size
             self.mu[name] = quantize(zeros) if big else zeros
             self.nu[name] = quantize_log(zeros) if big else zeros.clone()
 

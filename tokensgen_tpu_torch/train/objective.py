@@ -110,12 +110,19 @@ def sample_fifo_ramp_timesteps(generator: torch.Generator, batch: int, num_frame
 
 def sample_timesteps(generator: torch.Generator, batch: int, num_frames: int,
                      diff_timesteps_ratio: float, num_train_timesteps: int = 1000,
-                     inference_timesteps: int = 52, device=None) -> torch.Tensor:
-    """[B, F] timesteps of one micro-batch on one GPU, as the JAX train step
-    draws them: with probability ``diff_timesteps_ratio`` the whole batch
-    takes FIFO ramps, else one uniform timestep per sample for all its
-    frames."""
-    t_uniform = sample_uniform_timesteps(generator, batch, num_train_timesteps, device=device)
+                     inference_timesteps: int = 52, device=None,
+                     num_processes: int = 1) -> torch.Tensor:
+    """[B, F] timesteps of one micro-batch, as the JAX train step draws
+    them: with probability ``diff_timesteps_ratio`` the whole batch takes
+    FIFO ramps, else one uniform timestep per sample for all its frames,
+    with ``num_processes`` > 1 stratified by batch position (position i in
+    stratum i mod ``num_processes``, the JAX step's stand-in for the
+    reference's per-rank strata). A data-parallel rank draws the global
+    batch and keeps its rows."""
+    strata = (torch.arange(batch, device=device) % num_processes if num_processes > 1
+              else None)
+    t_uniform = sample_uniform_timesteps(generator, batch, num_train_timesteps, strata,
+                                         num_processes, device=device)
     t_ramp = sample_fifo_ramp_timesteps(generator, batch, num_frames, num_train_timesteps,
                                         inference_timesteps, device)
     use_ramp = torch.rand((), generator=generator, device=device) < diff_timesteps_ratio

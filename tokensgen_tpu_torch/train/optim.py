@@ -6,20 +6,23 @@ constant_with_warmup, linear, cosine, cosine_with_restarts, polynomial) with
 the optax formulas the JAX package composes them from, as plain functions of
 the update count. The optimizers are Adam with an L2 penalty folded into the
 gradient (``adam``, `torch.optim.Adam` semantics), AdamW with decoupled decay
-(``adamw``, optax's ``adamw``) and, with ``use_8bit``, the blockwise int8
-AdamW of `train/adam8bit.py`. Prodigy is not ported.
+(``adamw``, optax's ``adamw``), with ``use_8bit`` the blockwise int8 AdamW
+of `train/adam8bit.py`, and Prodigy (``prodigy``, optax's
+``contrib.prodigy``).
 
 Optimizers update the parameters in place (the JAX package returns new
 trees; in place saves a copy of every trainable tensor). `TrainStep` is the
 trainers' step around them: `optax.clip_by_global_norm` chained before the
-optimizer, under `optax.MultiSteps` accumulation.
+optimizer, under `optax.MultiSteps` accumulation, over one process or a
+data-parallel group (`sharding.mesh.DataGroup`) with, optionally, the
+optimizer state split ZeRO-1 (`sharding.zero.ZeroLayout`).
 """
 
 from __future__ import annotations
 
 import math
 import time
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, NamedTuple, Optional, Union
 
 import torch
 
@@ -130,16 +133,22 @@ class Prodigy:
     ``safeguard_warmup``); ``r ← b3·r + (d/d0)·dlr·⟨g, p0 - p⟩``; ``d ←
     max(d, coef·r/Σ|s|)``; ``p ← p - wd·dlr·p - dlr·m/(√v + d·eps)`` with the
     new ``d`` in the denominator and the old one elsewhere. ``b3`` defaults
-    to √b2. The scalars stay on the parameters' device (no host sync)."""
+    to √b2. The scalars stay on the parameters' device (no host sync).
+    Under ZeRO-1 ``params`` are this rank's parts: ``reduce`` sums the
+    ⟨g, p0 - p⟩ and Σ|s| of the split tensors over the ranks (in place, a
+    [2] tensor), and the ``replicated`` tensors, whole on every rank, are
+    counted once."""
 
     def __init__(self, params: Dict[str, torch.Tensor], lr: Schedule, b1: float = 0.9,
                  b2: float = 0.999, beta3: Optional[float] = None, eps: float = 1e-8,
                  weight_decay: float = 0.0, safeguard_warmup: bool = False,
-                 estim_lr0: float = 1e-6, estim_lr_coef: float = 1.0):
+                 estim_lr0: float = 1e-6, estim_lr_coef: float = 1.0,
+                 reduce: Optional[Callable] = None, replicated=()):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.beta3 = b2 ** 0.5 if beta3 is None else beta3
         self.weight_decay, self.safeguard_warmup = weight_decay, safeguard_warmup
         self.estim_lr0, self.estim_lr_coef = estim_lr0, estim_lr_coef
+        self.reduce, self.replicated = reduce, frozenset(replicated)
         self.count = 0
         dev = next(iter(params.values())).device
         zeros = lambda: {n: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
@@ -157,17 +166,22 @@ class Prodigy:
         bc = ((1 - b2 ** self.count) ** 0.5) / (1 - b1 ** self.count)
         d = self.estim_lr
         dlr = d * (sched * bc)
-        numerator = torch.zeros((), dtype=torch.float32, device=d.device)
-        denominator = torch.zeros((), dtype=torch.float32, device=d.device)
+        # (numerator, denominator) of the parts split over ranks, of the rest
+        sums = torch.zeros(2, dtype=torch.float32, device=d.device)
+        whole = torch.zeros(2, dtype=torch.float32, device=d.device)
         for name, p in params.items():
+            acc = whole if name in self.replicated else sums
             g = grads[name].float()
-            numerator += torch.sum(g * (self.params0[name] - p.float()))
+            acc[0] += torch.sum(g * (self.params0[name] - p.float()))
             dg = d * g
             self.exp_avg[name].mul_(b1).add_((1 - b1) * dg)
             self.exp_avg_sq[name].mul_(b2).add_((1 - b2) * dg * dg)
             s = self.grad_sum[name].mul_(b3)
             s.add_((d if self.safeguard_warmup else dlr) * dg / self.estim_lr0)
-            denominator += s.abs().sum()
+            acc[1] += s.abs().sum()
+        if self.reduce is not None:
+            self.reduce(sums)
+        numerator, denominator = sums[0] + whole[0], sums[1] + whole[1]
         self.numerator_weighted = b3 * self.numerator_weighted + (d / self.estim_lr0) * dlr * numerator
         new_d = torch.maximum(d, self.estim_lr_coef * self.numerator_weighted / denominator)
         for name, p in params.items():
@@ -193,21 +207,25 @@ class Prodigy:
 def base_optimizer(name: str, params: Dict[str, torch.Tensor], learning_rate: Union[float, Schedule],
                    b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                    weight_decay: float = 1e-4, use_8bit: bool = False,
-                   prodigy_beta3: Optional[float] = None, prodigy_safeguard_warmup: bool = False):
+                   prodigy_beta3: Optional[float] = None, prodigy_safeguard_warmup: bool = False,
+                   zero: Optional["ZeroParts"] = None):
     """adam | adamw | prodigy over ``params``; ``use_8bit`` selects the
     int8-moment AdamW for adam and adamw, as the JAX package does (prodigy
-    ignores it)."""
+    ignores it). ``zero``: ``params`` are this rank's ZeRO-1 parts."""
     name = (name or "adamw").lower()
     lr = learning_rate if callable(learning_rate) else (lambda count: learning_rate)
     if name == "prodigy":
+        extra = {} if zero is None else dict(reduce=zero.reduce, replicated=zero.replicated)
         return Prodigy(params, lr, b1=b1, b2=b2, beta3=prodigy_beta3, eps=eps,
-                       weight_decay=weight_decay, safeguard_warmup=prodigy_safeguard_warmup)
+                       weight_decay=weight_decay, safeguard_warmup=prodigy_safeguard_warmup,
+                       **extra)
     if name not in ("adam", "adamw"):
         raise ValueError(f"unknown optimizer {name!r}; expected adam|adamw|prodigy")
     if use_8bit:
         from tokensgen_tpu_torch.train.adam8bit import AdamW8bit
 
-        return AdamW8bit(params, lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+        return AdamW8bit(params, lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+                         sizes=None if zero is None else zero.sizes)
     return AdamW(params, lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
                  decoupled=name == "adamw")
 
@@ -216,25 +234,71 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
 
 
+class ZeroParts(NamedTuple):
+    """A rank's ZeRO-1 view of the trainable set: its ``layout``
+    (`sharding.zero.ZeroLayout`), the whole tensors' ``sizes``, the names
+    left ``replicated`` and the ``reduce`` that sums over the ranks (None
+    in one process)."""
+
+    layout: "object"
+    sizes: Dict[str, int]
+    replicated: frozenset
+    reduce: Optional[Callable]
+
+
+def zero_parts(params: Dict[str, torch.Tensor], group=None) -> ZeroParts:
+    """The ZeRO-1 parts of ``params`` on this rank of ``group`` (all of
+    each tensor without one)."""
+    from tokensgen_tpu_torch.sharding.zero import ZeroLayout
+
+    ranks, rank = (group.size, group.rank) if group is not None else (1, 0)
+    layout = ZeroLayout.of(params, ranks, rank)
+    return ZeroParts(layout, {n: p.numel() for n, p in params.items()},
+                     frozenset(n for n in params if not layout.split(n)),
+                     group.sum_ if group is not None else None)
+
+
 class TrainStep:
     """A trainer's step (`make_train_step` with its optax chain): each call
     runs one micro-batch's loss (the mean of its `sample_losses`) and
     backward; every ``accum_steps``-th call clips the mean gradient to
     ``max_grad_norm`` (optax `clip_by_global_norm`) and updates ``params``
-    in place. Gradient accumulation has `optax.MultiSteps` semantics: the
-    mean of k micro-batch gradients, one update. Returns the loss and each
-    sample's term of it (``sample_losses``), the micro-batch's grad norm,
-    whether it updated, the timesteps it was given and their mean loss
-    weight 1/(1-ᾱ_t) under ``sched`` (``x0_weight``), and the
+    in place. Gradient accumulation has `optax.MultiSteps` semantics (the
+    mean of k micro-batch gradients, one update), summed in the parameters'
+    ``.grad`` (no copy of the trainable set besides). Returns the loss and
+    each sample's term of it (``sample_losses``), the micro-batch's grad
+    norm, whether it updated, the timesteps it was given and their mean
+    loss weight 1/(1-ᾱ_t) under ``sched`` (``x0_weight``), and the
     device-synchronised seconds of the forward and backward
-    (``train_step_s``) and of the update (``optimizer_s``)."""
+    (``train_step_s``), of the update (``optimizer_s``) and of its
+    collectives (``all_reduce_s``, ``all_gather_s``).
+
+    Over a data-parallel ``group`` (`sharding.mesh.DataGroup`), each rank
+    runs its rows of the global batch; at an update the summed gradients
+    are all-reduced once (their mean over ranks and micro-batches; the grad
+    norm a call returns is its own micro-batch's, on its rank) and clipped
+    by the norm of that mean, which every rank then holds. With ``zero``
+    (`zero_parts`; ``optimizer`` made over ``zero.layout.owned(params)``)
+    each rank updates its part of each tensor and the parts are
+    all-gathered into every rank's parameters."""
 
     def __init__(self, params: Dict[str, torch.Tensor], optimizer, max_grad_norm: float, sched,
-                 accum_steps: int = 1):
+                 accum_steps: int = 1, group=None, zero: Optional[ZeroParts] = None):
         self.params, self.optimizer, self.sched = params, optimizer, sched
         self.max_grad_norm, self.accum_steps = max_grad_norm, accum_steps
+        self.group, self.zero = group, zero
+        self.opt_params = params if zero is None else zero.layout.owned(params)
         self.mini_step = 0
-        self.acc: Optional[Dict[str, torch.Tensor]] = None
+        # each parameter's squared gradient norm as backward computes it
+        # (before it is summed into .grad): the micro-batch's grad norm. The
+        # hooks hold the list alone: a hook that held the step would make a
+        # cycle through each parameter, which the collector skips while any
+        # C++ reference to the parameter lives, and a dropped trainer could
+        # keep its weights on the card
+        self._sq: list = []
+        sq = self._sq
+        for p in params.values():
+            p.register_hook(lambda g: sq.append(g.detach().float().pow(2).sum()))
 
     def sample_losses(self, batch: Dict, timesteps: torch.Tensor,
                       noise: torch.Tensor) -> torch.Tensor:
@@ -246,37 +310,53 @@ class TrainStep:
         t0 = time.perf_counter()
         per_sample = self.sample_losses(batch, timesteps, noise)
         loss = per_sample.mean()
+        self._sq.clear()
         loss.backward()
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in self.params.items()}
-        gnorm = global_norm(grads.values())
-        for p in self.params.values():
-            p.grad = None
-        if self.accum_steps > 1:  # MultiSteps: running mean of the micro-batch grads
-            if self.acc is None:
-                self.acc = {n: torch.zeros_like(g) for n, g in grads.items()}
-            for n, g in grads.items():
-                self.acc[n].add_((g - self.acc[n]) / (self.mini_step + 1))
-            grads = self.acc
+        gnorm = torch.sqrt(sum(self._sq)) if self._sq else torch.zeros((), device=noise.device)
+        self._sq.clear()
         sync()
         t1 = time.perf_counter()
         self.mini_step += 1
         updated = self.mini_step == self.accum_steps
+        comm = {"all_reduce_s": 0.0, "all_gather_s": 0.0}
         if updated:
-            mean_norm = gnorm if self.accum_steps == 1 else global_norm(grads.values())
-            scale = torch.clamp(self.max_grad_norm / mean_norm, max=1.0)
-            for g in grads.values():
-                g.mul_(scale)
-            self.optimizer.step(self.params, grads)
+            self._update(gnorm)
             self.mini_step = 0
-            self.acc = None
+            if self.group is not None:
+                comm = self.group.take_comm()
         sync()
         t2 = time.perf_counter()
         return {"loss": loss.detach(), "sample_losses": per_sample.detach(),
                 "grad_norm": gnorm, "updated": updated,
                 "timesteps": timesteps.detach(),
                 "x0_weight": x0_weights(self.sched, timesteps).mean().detach(),
-                "train_step_s": t1 - t0, "optimizer_s": t2 - t1}
+                "train_step_s": t1 - t0,
+                "optimizer_s": t2 - t1 - comm["all_reduce_s"] - comm["all_gather_s"],
+                "all_reduce_s": comm["all_reduce_s"], "all_gather_s": comm["all_gather_s"]}
+
+    @torch.no_grad()
+    def _update(self, gnorm: torch.Tensor) -> None:
+        grads = {}
+        for n, p in self.params.items():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads[n] = p.grad
+        k = self.accum_steps
+        if self.group is not None:
+            self.group.mean_all_reduce_(list(grads.values()), divisor=self.group.size * k)
+        elif k > 1:
+            for g in grads.values():
+                g.div_(k)
+        mean_norm = gnorm if (k == 1 and self.group is None) else global_norm(grads.values())
+        scale = torch.clamp(self.max_grad_norm / mean_norm, max=1.0)
+        for g in grads.values():
+            g.mul_(scale)
+        zero = self.zero
+        self.optimizer.step(self.opt_params, grads if zero is None else zero.layout.owned(grads))
+        if zero is not None and self.group is not None:
+            self.group.all_gather_parts_(zero.layout.gather_items(self.params))
+        for p in self.params.values():
+            p.grad = None
 
 
 def _synchronizer(device):

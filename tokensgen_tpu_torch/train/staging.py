@@ -58,6 +58,11 @@ def encode_video_chunks(vae: VAERunner, pixel_values: torch.Tensor, nf_px: int,
     return torch.cat(outs, dim=1)
 
 
+def window_starts(host_rng: np.random.Generator, b: int, f_all: int, nf: int) -> np.ndarray:
+    """[b] random starts of an ``nf``-frame window in ``f_all`` latent frames."""
+    return np.asarray([host_rng.integers(0, max(1, f_all - nf - 1 + 1)) for _ in range(b)])
+
+
 @torch.no_grad()
 def stage_to2v_batch(
     dit_config: DiTConfig,
@@ -73,10 +78,13 @@ def stage_to2v_batch(
     video_ipadapter_start_frame_idx: int = 1000,
     host_rng: Optional[np.random.Generator] = None,
     zero_cache: Optional[Dict] = None,
+    rel: Optional[np.ndarray] = None,
 ) -> Dict:
     """The batch dict consumed by `train/to2v.py::to2v_loss`, on the patch
     conv's device. ``zero_cache``: a dict the caller keeps across steps for
-    the zeros-video latents."""
+    the zeros-video latents. ``rel``: each sample's window start, drawn by
+    the caller (a data-parallel rank's rows of `window_starts` over the
+    global batch); else drawn here from ``host_rng``."""
     device = patch_proj.weight.device
     host_rng = host_rng or np.random.default_rng(0)
     b = pixel_values.shape[0]
@@ -91,7 +99,8 @@ def stage_to2v_batch(
     f_all = all_latents.shape[1]
 
     # random window per sample (`:1731-1738`)
-    rel = np.asarray([host_rng.integers(0, max(1, f_all - nf - 1 + 1)) for _ in range(b)])
+    if rel is None:
+        rel = window_starts(host_rng, b, f_all, nf)
     idx = torch.from_numpy(rel[:, None] + np.arange(nf)[None, :]).to(device)
     latents = torch.gather(all_latents, 1,
                            idx[:, :, None, None, None].expand(-1, -1, *all_latents.shape[2:]))

@@ -23,7 +23,7 @@ projections train (the JAX package's LoRA mode).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -106,15 +106,17 @@ def setup_full_finetune(model: nn.Module) -> nn.Module:
     return model
 
 
-def make_optimizer(params: Dict[str, torch.Tensor], cfg: T2ToTrainConfig):
+def make_optimizer(params: Dict[str, torch.Tensor], cfg: T2ToTrainConfig,
+                   zero: Optional[optim.ZeroParts] = None):
     """The optimizer of `make_optimizer`'s chain (adam | adamw, int8 moments
-    with ``use_8bit_adam``) under the config's lr schedule; the clip and the
-    accumulation are `optim.TrainStep`'s."""
+    with ``use_8bit_adam``) under the config's lr schedule, over ``params``
+    (this rank's ZeRO-1 parts with ``zero``); the clip and the accumulation
+    are `optim.TrainStep`'s."""
     lr = optim.lr_schedule(cfg.lr_scheduler, cfg.learning_rate, cfg.lr_warmup_steps,
                            cfg.max_train_steps, num_cycles=cfg.lr_num_cycles, power=cfg.lr_power)
     return optim.base_optimizer(cfg.optimizer, params, lr, b1=cfg.adam_beta1, b2=cfg.adam_beta2,
                                 eps=cfg.adam_eps, weight_decay=cfg.weight_decay,
-                                use_8bit=cfg.use_8bit_adam)
+                                use_8bit=cfg.use_8bit_adam, zero=zero)
 
 
 def t2to_rope(head_dim: int, cfg: T2ToTrainConfig, num_frames: int, device=None):
@@ -154,15 +156,19 @@ def t2to_loss(dit: CogVideoXTransformer, sched: S.DiffusionSchedule, cfg: T2ToTr
 class T2ToTrainStep(optim.TrainStep):
     """`make_train_step`: the parameters of ``dit`` that require grad (all
     of them in a full finetune, the LoRA factors in LoRA mode), `t2to_loss`
-    (see `optim.TrainStep` for the clip, the accumulation and what each
-    call returns)."""
+    (see `optim.TrainStep` for the clip, the accumulation, the
+    data-parallel ``group``, ``zero1`` and what each call returns)."""
 
     def __init__(self, dit: CogVideoXTransformer, sched: S.DiffusionSchedule,
-                 cfg: T2ToTrainConfig, accum_steps: int = 1, optimizer=None):
+                 cfg: T2ToTrainConfig, accum_steps: int = 1, optimizer=None, group=None,
+                 zero1: bool = False):
         self.dit, self.sched, self.cfg = dit, sched, cfg
         params = {n: p for n, p in dit.named_parameters() if p.requires_grad}
-        super().__init__(params, optimizer or make_optimizer(params, cfg), cfg.max_grad_norm,
-                         sched, accum_steps)
+        zero = optim.zero_parts(params, group) if zero1 else None
+        if optimizer is None:
+            optimizer = make_optimizer(params if zero is None else zero.layout.owned(params), cfg,
+                                       zero)
+        super().__init__(params, optimizer, cfg.max_grad_norm, sched, accum_steps, group, zero)
 
     def sample_losses(self, batch: Dict, timesteps: torch.Tensor,
                       noise: torch.Tensor) -> torch.Tensor:

@@ -50,6 +50,7 @@ class To2VTrainConfig:
     max_grad_norm: float = 1.0
     diff_timesteps_ratio: float = 0.4
     inference_timesteps: int = 52
+    num_processes: int = 1  # data-parallel ranks: uniform timesteps stratified by position
     # LoRA on the DiT's to_{q,k,v,out} (default off), trained alongside the
     # vip / resampler adapters
     lora_rank: int = 0
@@ -141,25 +142,31 @@ def to2v_loss(model: To2VModel, sched: S.DiffusionSchedule, batch: Dict,
     return to2v_sample_losses(model, sched, batch, timesteps, noise).mean()
 
 
-def make_optimizer(params: Dict[str, torch.Tensor], cfg: To2VTrainConfig):
+def make_optimizer(params: Dict[str, torch.Tensor], cfg: To2VTrainConfig,
+                   zero: Optional[optim.ZeroParts] = None):
+    """The optimizer of the config over ``params`` (this rank's ZeRO-1
+    parts with ``zero``)."""
     lr = optim.lr_schedule(cfg.lr_scheduler, cfg.learning_rate, cfg.lr_warmup_steps,
                            cfg.max_train_steps, num_cycles=cfg.lr_num_cycles, power=cfg.lr_power)
     return optim.base_optimizer(cfg.optimizer, params, lr, b1=cfg.adam_beta1, b2=cfg.adam_beta2,
                                 eps=cfg.adam_eps, weight_decay=cfg.weight_decay,
-                                use_8bit=cfg.use_8bit_adam)
+                                use_8bit=cfg.use_8bit_adam, zero=zero)
 
 
 class To2VTrainStep(optim.TrainStep):
     """`make_train_step` over the trainable parameters of ``model``, with
-    `to2v_loss` (see `optim.TrainStep` for the clip, the accumulation and
-    what each call returns)."""
+    `to2v_loss` (see `optim.TrainStep` for the clip, the accumulation, the
+    data-parallel ``group``, ``zero1`` and what each call returns)."""
 
     def __init__(self, model: To2VModel, sched: S.DiffusionSchedule, cfg: To2VTrainConfig,
-                 accum_steps: int = 1, optimizer=None):
+                 accum_steps: int = 1, optimizer=None, group=None, zero1: bool = False):
         self.model, self.sched, self.cfg = model, sched, cfg
         params = trainable_parameters(model)
-        super().__init__(params, optimizer or make_optimizer(params, cfg), cfg.max_grad_norm,
-                         sched, accum_steps)
+        zero = optim.zero_parts(params, group) if zero1 else None
+        if optimizer is None:
+            optimizer = make_optimizer(params if zero is None else zero.layout.owned(params), cfg,
+                                       zero)
+        super().__init__(params, optimizer, cfg.max_grad_norm, sched, accum_steps, group, zero)
 
     def sample_losses(self, batch: Dict, timesteps: torch.Tensor,
                       noise: torch.Tensor) -> torch.Tensor:

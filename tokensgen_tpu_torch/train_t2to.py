@@ -3,6 +3,7 @@
 
     python -m tokensgen_tpu_torch.train_t2to --config tokensgen_tpu/configs/train_t2to.yaml \
         [--smoke] [--device cpu] [--max-steps N] [--resume] [--set KEY=VALUE]
+    torchrun --nnodes H --nproc-per-node G -m tokensgen_tpu_torch.train_t2to --config ...
 
 Reads the JAX package's YAML as data and trains on ``--device`` (the card by
 default; it refuses to run without one unless given ``--device cpu``) every
@@ -30,12 +31,25 @@ valid-chunk counts. Prompts go through T5 when
 loads it; else the PCA is a random stand-in with zero mean and unit std.
 Each step prints its loss, grad norm, each sample's term of the loss,
 sampled timesteps and their mean loss weight 1/(1-ᾱ_t), and seconds split
-into data (read, encode, upload), train step (forward and backward) and
-optimizer; a checkpoint of the trained parameters and the optimizer state
-is written every ``checkpointing_steps`` and at the last step, and with
-LoRA the merged DiT to ``<run_dir>/lora_merged`` at the end. Not ported
-yet, each raising: multi-GPU data / tensor / sequence parallelism and
-ZeRO-1.
+into data (read, encode, upload), train step (forward and backward),
+all-reduce, optimizer and all-gather; a checkpoint of the trained
+parameters, the optimizer state and the random streams is written every
+``checkpointing_steps`` and at the last step, and with LoRA the merged DiT
+to ``<run_dir>/lora_merged`` at the end.
+
+Data parallelism: ``dp_devices`` ranks (default: the visible cards on the
+card, 1 on the host), one process a card (spawned here, NCCL; Gloo on the
+host), or the ranks of a ``torchrun`` launch across hosts. The global batch
+is ``per_gpu_batch_size`` x ranks: every rank draws the global batch's
+timesteps and noise (and synthetic batches) from the same seeded streams and
+keeps its rows, so a run over N ranks trains what one process trains on the
+global batch; from disk, a host reads its strided share of each global
+batch (`mesh.process_batch_shard`) and a rank its positions of it. The
+gradients are all-reduced once per update. ``zero1: true`` splits the
+optimizer state over the ranks (`sharding/zero.py`). Rank 0 alone writes
+logs, scalars and the LoRA export; every rank prints its step times. Not
+ported yet, each raising: tensor / sequence parallelism (``tp_devices``,
+``sp_devices``, ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -45,7 +59,7 @@ import dataclasses
 import itertools
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -59,10 +73,13 @@ from tokensgen_tpu_torch.models.dit import CogVideoXTransformer, DiTConfig
 from tokensgen_tpu_torch.models.layers import Conv2d
 from tokensgen_tpu_torch.models.resampler import Resampler, ResamplerConfig
 from tokensgen_tpu_torch.models.text_encoder import make_text_encoder
+from tokensgen_tpu_torch.sharding import mesh
 from tokensgen_tpu_torch.train import checkpoint as CK
 from tokensgen_tpu_torch.train import lora, objective, t2to
 from tokensgen_tpu_torch.utils.config import create_output_folders, load_config
-from tokensgen_tpu_torch.utils.logging import ParamAudit, StepTimer, TBLogger, format_floats
+from tokensgen_tpu_torch.utils.logging import (ParamAudit, RankLog, StepTimer, TBLogger,
+                                               format_floats, format_step, peak_gib,
+                                               step_seconds)
 from tokensgen_tpu_torch.utils.params import build_on_device
 
 TOKENS_PER_CHUNK = 4  # token frames per chunk
@@ -81,14 +98,8 @@ def model_config(cfg, smoke: bool, device: torch.device):
             int(cfg.get_path("train_data_params.max_num_chunks", 24)), 3072)
 
 
-def train_config(cfg) -> t2to.T2ToTrainConfig:
-    for key in ("tp_devices", "sp_devices", "dp_devices"):
-        if int(cfg.get(key) or 1) > 1:
-            raise NotImplementedError(f"`{key}` > 1: multi-GPU training is not ported yet "
-                                      "(ROADMAP A12)")
-    if cfg.get("zero1"):
-        raise NotImplementedError("`zero1` (ZeRO-1 optimizer sharding) is not ported yet "
-                                  "(ROADMAP A12)")
+def train_config(cfg, dp: int = 1) -> t2to.T2ToTrainConfig:
+    """The train config of ``cfg`` at ``dp`` data-parallel ranks."""
     tcfg = t2to.T2ToTrainConfig(
         learning_rate=cfg.get("learning_rate", 3e-4), optimizer=cfg.get("optimizer", "adamw"),
         use_8bit_adam=bool(cfg.get("use_8bit_adam", False)),
@@ -97,8 +108,8 @@ def train_config(cfg) -> t2to.T2ToTrainConfig:
         lr_power=cfg.get("lr_power", 1.0), max_train_steps=cfg.get("max_train_steps", 100),
         lora_rank=int(cfg.get("lora_rank") or 0), lora_alpha=float(cfg.get("lora_alpha", 64.0)),
         lora_targets=tuple(cfg.get("lora_targets", ["to_q", "to_k", "to_v", "to_out"])))
-    if cfg.get("scale_lr"):  # lr *= accumulation * per-device batch (one rank)
-        scale = cfg.get("gradient_accumulation_steps", 1) * cfg.get("per_gpu_batch_size", 1)
+    if cfg.get("scale_lr"):  # lr *= accumulation * per-device batch * ranks
+        scale = cfg.get("gradient_accumulation_steps", 1) * cfg.get("per_gpu_batch_size", 1) * dp
         tcfg = dataclasses.replace(tcfg, learning_rate=tcfg.learning_rate * scale)
     return tcfg
 
@@ -116,12 +127,13 @@ def random_pca(host: np.random.Generator, token_dim: int, device, samples: int =
 
 
 def synthetic_batches(host: np.random.Generator, batch: int, max_chunks: int, height: int,
-                      width: int):
+                      width: int, first: int = 0):
     """PCA-normalised token latents [B, 4*max_chunks, 16, h, w] with
     1..max_chunks valid chunks per sample (the JAX CLI's
-    `synthetic_batches`), and one distinct prompt per sample."""
+    `synthetic_batches`), and one distinct prompt per sample (numbered from
+    ``first``)."""
     f = max_chunks * TOKENS_PER_CHUNK
-    serial = itertools.count()
+    serial = itertools.count(first)
     while True:
         valid = host.integers(1, max_chunks + 1, size=(batch,)) * TOKENS_PER_CHUNK
         yield {
@@ -146,7 +158,8 @@ def frozen_encoder_configs(dcfg: DiTConfig, token_dim: int):
                                       dtype=dcfg.dtype), 3
 
 
-def load_frozen_encoder(cfg, to2v_dcfg: DiTConfig, rcfg: ResamplerConfig, device):
+def load_frozen_encoder(cfg, to2v_dcfg: DiTConfig, rcfg: ResamplerConfig, device,
+                        log: Callable[[str], None]):
     """(patch conv, resampler) of the VAE-latent path, from the files the
     JAX CLI reads: ``patch_embed_proj_path`` (``proj.weight`` /
     ``proj.bias``) and ``<pretrained_resampler_name_or_path>/resampler/
@@ -174,19 +187,30 @@ def load_frozen_encoder(cfg, to2v_dcfg: DiTConfig, rcfg: ResamplerConfig, device
 class T2ToTrainer:
     """The trainer of the CLI: ``__init__`` builds the model, optimizer and
     data from the config (and restores the latest checkpoint with
-    ``resume``); `run` trains."""
+    ``resume``); `run` trains. With ``group`` (`mesh.DataGroup`) this is
+    one rank of the data axis, on ``group.device``."""
 
-    def __init__(self, cfg, smoke: bool, device, resume: bool = False):
-        self.cfg = cfg
-        self.device = device = torch.device(device)
+    def __init__(self, cfg, smoke: bool, device, resume: bool = False, group=None):
+        self.cfg, self.group = cfg, group
+        self.rank, self.dp = (group.rank, group.size) if group is not None else (0, 1)
+        self.leader = self.rank == 0
+        self.log = log = RankLog(group)
+        self.device = device = torch.device(group.device if group is not None else device)
         self.dcfg, self.max_chunks, token_dim = model_config(cfg, smoke, device)
-        self.tcfg = tcfg = train_config(cfg)
+        self.tcfg = tcfg = train_config(cfg, self.dp)
         self.batch_size = int(cfg.get("per_gpu_batch_size", 1))
+        self.global_batch = self.batch_size * self.dp
+        self.rows = slice(self.rank * self.batch_size, (self.rank + 1) * self.batch_size)
         seed = int(cfg.get("seed", 42))
         self.ckpt_root = os.path.join(cfg.get("output_dir", "./outputs"), "t2to_checkpoints")
-        self.run_dir = create_output_folders(cfg.get("output_dir", "./outputs"),
-                                             cfg.get("name_prefix", "t2to"))
-        log(f"run dir: {self.run_dir}")
+        self.run_dir = None
+        if self.leader:
+            self.run_dir = create_output_folders(cfg.get("output_dir", "./outputs"),
+                                                 cfg.get("name_prefix", "t2to"))
+            log(f"run dir: {self.run_dir}")
+        if self.dp > 1:
+            log(f"data parallel: {self.dp} ranks on {group.hosts} host(s), global batch "
+                f"{self.global_batch}; zero1 {bool(cfg.get('zero1'))}")
         # first: a configured T5 path that does not load fails before any model is built
         self.text_encoder = make_text_encoder(
             cfg.get("pretrained_text_encoder_path"), self.dcfg.max_text_seq_length,
@@ -228,22 +252,23 @@ class T2ToTrainer:
         self.sched = S.make_schedule(
             S.ScheduleConfig(beta_schedule=cfg.get("beta_schedule", "vip_1")), device=device)
         self.step_fn = t2to.T2ToTrainStep(
-            self.dit, self.sched, tcfg, accum_steps=int(cfg.get("gradient_accumulation_steps", 1)))
+            self.dit, self.sched, tcfg, accum_steps=int(cfg.get("gradient_accumulation_steps", 1)),
+            group=group, zero1=bool(cfg.get("zero1")))
         self.step = 0
         if resume:
-            state, found = CK.restore_checkpoint(self.ckpt_root, map_location=device)
+            state, found = CK.restore_trainer(self.ckpt_root, self.step_fn.params,
+                                              self.step_fn.optimizer, self._layout(), device)
             if state is not None:
-                with torch.no_grad():
-                    for name, p in self.step_fn.params.items():
-                        p.copy_(state["params"][name])
-                self.step_fn.optimizer.load_state_dict(state["opt_state"])
+                CK.restore_streams(state, self.gen, self.host_rng)
                 self.step = found
                 log(f"resumed from step {found}")
         self.encoder = None  # the frozen (patch conv, resampler, frames per chunk) of latent_dir
         csv_file = cfg.get_path("train_data_params.csv_file")
-        if smoke or not csv_file:
-            self.batches = synthetic_batches(self.host_rng, self.batch_size, self.max_chunks,
-                                             tcfg.height, tcfg.width)
+        self.synthetic = smoke or not csv_file
+        if self.synthetic:  # the global batch on every rank, which keeps its rows
+            self.batches = synthetic_batches(self.host_rng, self.global_batch, self.max_chunks,
+                                             tcfg.height, tcfg.width,
+                                             first=self.step * self.global_batch)
         else:
             token_dir = cfg.get_path("train_data_params.token_dir")
             latent_dir = cfg.get_path("train_data_params.latent_dir")
@@ -251,7 +276,7 @@ class T2ToTrainer:
                 ds = VIPMiraDataset(csv_file, token_dir, max_num_chunks=self.max_chunks)
             elif latent_dir:
                 to2v_dcfg, rcfg, nf = frozen_encoder_configs(self.dcfg, token_dim)
-                conv, resampler = load_frozen_encoder(cfg, to2v_dcfg, rcfg, device)
+                conv, resampler = load_frozen_encoder(cfg, to2v_dcfg, rcfg, device, log)
                 self.encoder = (to2v_dcfg, conv, resampler, nf)
                 ds = VAEMiraDataset(csv_file, latent_dir, max_num_chunks=self.max_chunks,
                                     nf_per_chunk=nf)
@@ -259,16 +284,19 @@ class T2ToTrainer:
                 raise ValueError("train_data_params.csv_file is set, but neither token_dir nor "
                                  "latent_dir is")
             log(f"data: {len(ds)} videos from {csv_file} ({type(ds).__name__})")
-            self.batches = epoch_batches(ds, self.batch_size, seed)
-        self.tb = TBLogger(self.run_dir)
+            self.batches = epoch_batches(ds, self.batch_size, seed,
+                                         **mesh.batch_shard_kwargs(group, self.batch_size))
+        self.tb = TBLogger(self.run_dir) if self.leader else None
+
+    def _layout(self):
+        zero = self.step_fn.zero
+        return zero.layout if zero is not None else None
 
     def save(self) -> str:
         fn = self.step_fn
-        return CK.save_checkpoint(
-            self.ckpt_root, self.step,
-            {"params": {n: p.detach() for n, p in fn.params.items()},
-             "opt_state": fn.optimizer.state_dict(), "step": self.step},
-            total_limit=self.cfg.get("checkpoints_total_limit", 3))
+        return CK.save_trainer(self.ckpt_root, self.step, fn.params, fn.optimizer,
+                               self.cfg.get("checkpoints_total_limit", 3), self.group,
+                               self._layout(), {"streams": CK.stream_states(self.gen, self.host_rng)})
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -299,55 +327,65 @@ class T2ToTrainer:
         """Train micro-steps up to ``max_steps`` (default: the config's
         ``max_train_steps``); checkpoint every ``checkpointing_steps`` and,
         with ``save_final``, at the last step. Returns a record per step."""
-        cfg, dev, gen = self.cfg, self.device, self.gen
+        cfg, dev, gen, rows = self.cfg, self.device, self.gen, self.rows
         max_steps = max_steps or cfg.get("max_train_steps", 100)
         ckpt_every = cfg.get("checkpointing_steps", 500)
         timer = StepTimer()
         records = []
+        log = self.log
         while self.step < max_steps:
             t0 = time.perf_counter()
             raw = next(self.batches)
+            if self.synthetic:
+                raw = {k: v[rows] for k, v in raw.items()}
             if dev.type == "cuda":
                 # as in the To2V trainer: hand the last step's freed blocks back
                 # before the next one, so they do not fragment its allocations
                 torch.cuda.empty_cache()
             batch = self.device_batch(raw)
+            # the global batch's draws on every rank, its rows here
             timesteps = objective.sample_uniform_timesteps(
-                gen, self.batch_size, self.sched.config.num_train_timesteps, device=dev)
-            noise = torch.randn(batch["latents"].shape, generator=gen, device=dev)
+                gen, self.global_batch, self.sched.config.num_train_timesteps, device=dev)[rows]
+            noise = torch.randn((self.global_batch,) + tuple(batch["latents"].shape[1:]),
+                                generator=gen, device=dev)[rows]
             self._sync()
             data_s = time.perf_counter() - t0
             m = self.step_fn(batch, timesteps, noise)
             self.step += 1
             rec = {"step": self.step, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                    "updated": m["updated"], "data_s": data_s, "train_step_s": m["train_step_s"],
-                   "optimizer_s": m["optimizer_s"], "sample_losses": m["sample_losses"].tolist(),
+                   "optimizer_s": m["optimizer_s"], "all_reduce_s": m["all_reduce_s"],
+                   "all_gather_s": m["all_gather_s"], "rank": self.rank,
+                   "sample_losses": m["sample_losses"].tolist(),
                    "timesteps": m["timesteps"].tolist(),
-                   "x0_weight": float(m["x0_weight"]),
+                   "x0_weight": float(m["x0_weight"]), "peak_gib": peak_gib(dev),
                    "valid_chunks": (batch["valid_frames"] // TOKENS_PER_CHUNK).tolist()}
             records.append(rec)
-            self.tb.scalar("train_loss", rec["loss"], self.step)
-            total = data_s + m["train_step_s"] + m["optimizer_s"]
+            if self.tb is not None:
+                self.tb.scalar("train_loss", rec["loss"], self.step)
+            times = format_step(rec, timer.update(step_seconds(rec)))
             log(f"step {self.step}: loss {rec['loss']:.4f} (per sample "
                 f"{format_floats(rec['sample_losses'])}) grad_norm {rec['grad_norm']:.4f} "
                 f"timesteps {rec['timesteps']} mean x0 weight {rec['x0_weight']:.4g}; "
-                f"{total:.2f} s/step (data {data_s:.2f} + train step {m['train_step_s']:.2f} + "
-                f"optimizer {m['optimizer_s']:.2f}; EMA {timer.update(total):.2f}); valid "
-                f"chunks {rec['valid_chunks']} of {self.max_chunks}")
+                f"{times}; valid chunks {rec['valid_chunks']} of {self.max_chunks}")
+            if not self.leader:
+                log(f"step {self.step}: {times}", every=True)
             del batch, timesteps, noise, m
             if self.step % ckpt_every == 0 or (save_final and self.step == max_steps):
                 log(f"checkpoint saved at step {self.step}: {self.save()}")
         return records
 
-    def export_lora_merged(self) -> str:
+    def export_lora_merged(self) -> Optional[str]:
         """The DiT with its LoRA factors merged (`lora.merge_lora`), saved as
-        ``<run_dir>/lora_merged/checkpoint-{step}``."""
+        ``<run_dir>/lora_merged/checkpoint-{step}`` (by rank 0)."""
+        if not self.leader:
+            return None
         tcfg = self.tcfg
         merged = lora.merge_lora(self.dit.state_dict(), lora.lora_factors(self.dit),
                                  tcfg.lora_rank, tcfg.lora_alpha)
         path = CK.save_checkpoint(os.path.join(self.run_dir, "lora_merged"), self.step,
                                   {"params": merged}, total_limit=1)
-        log(f"lora-merged export saved to {path}")
+        self.log(f"lora-merged export saved to {path}")
         return path
 
     def close(self) -> None:
@@ -355,11 +393,8 @@ class T2ToTrainer:
         close = getattr(self.batches, "close", None)
         if close is not None:
             close()
-        self.tb.close()
-
-
-def log(msg: str) -> None:
-    print(msg, flush=True)
+        if self.tb is not None:
+            self.tb.close()
 
 
 def main(argv=None):
@@ -383,14 +418,25 @@ def main(argv=None):
         key, _, val = kv.partition("=")
         overrides[key] = yaml.safe_load(val)
     cfg = load_config(args.config, overrides)
-    trainer = T2ToTrainer(cfg, args.smoke, device, resume=args.resume)
+    dp = mesh.data_axis(cfg, device)
+    mesh.build_kernels_for_ranks(dp, device)
+    mesh.run_data_parallel(_train, dp, (args.config, overrides, args.smoke, str(device),
+                                        args.resume, args.max_steps), device=device)
+    print("training done", flush=True)
+
+
+def _train(group, config: str, overrides: Dict, smoke: bool, device: str, resume: bool,
+           max_steps: Optional[int]) -> List[Dict]:
+    """One rank's run (the only one without ``group``) -> its records."""
+    cfg = load_config(config, overrides)
+    trainer = T2ToTrainer(cfg, smoke, device, resume=resume, group=group)
     try:
-        trainer.run(args.max_steps)
+        records = trainer.run(max_steps)
         if trainer.tcfg.lora_rank > 0:
             trainer.export_lora_merged()
     finally:
         trainer.close()
-    print("training done", flush=True)
+    return records
 
 
 if __name__ == "__main__":
